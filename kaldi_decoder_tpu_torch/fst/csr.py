@@ -1,0 +1,121 @@
+"""Flattened CSR decoding-graph representation (host side, numpy).
+
+A jax-free copy of ``kaldi_decoder_tpu/fst/csr.py`` (``GraphArrays``,
+``CsrGraph``, ``load_graph_npz`` and ``_eps_depth``), kept because
+importing the original imports jax.  ``compile_fst`` and the FST types
+are not copied: the port loads compiled graphs from ``.npz``.
+``tests/test_torch_host.py`` holds the copy equal to the original.
+
+Arcs are partitioned into emitting (ilabel > 0) and epsilon sub-CSRs;
+``score_idx = ilabel - 1`` is stored per emitting arc, so the acoustic
+lookup is a single gather ``scores[t, score_idx]``; final weights are a
+dense ``final_cost[S]`` array (+inf == not final).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional
+
+import numpy as np
+
+
+class GraphArrays(NamedTuple):
+    """Graph arrays (numpy)."""
+
+    em_row_ptr: object  # (S+1,) int32
+    em_ilabel: object  # (E_em,) int32
+    em_olabel: object  # (E_em,) int32
+    em_weight: object  # (E_em,) float32
+    em_next: object  # (E_em,) int32
+    em_score_idx: object  # (E_em,) int32  == ilabel - 1
+    eps_row_ptr: object  # (S+1,) int32
+    eps_olabel: object  # (E_eps,) int32
+    eps_weight: object  # (E_eps,) float32
+    eps_next: object  # (E_eps,) int32
+    final_cost: object  # (S,) float32 (INF == not final)
+
+
+@dataclasses.dataclass(frozen=True)
+class CsrGraph:
+    """Host-compiled decoding graph: sizes and metadata as plain ints,
+    array payload in ``arrays`` (numpy)."""
+
+    arrays: GraphArrays
+    num_states: int
+    num_emitting_arcs: int
+    num_eps_arcs: int
+    start_state: int
+    # Longest epsilon chain if the eps subgraph is acyclic, else None.
+    eps_depth: Optional[int]
+    max_em_out_degree: int
+    max_eps_out_degree: int
+    # Max score index referenced (== max ilabel - 1).
+    max_score_idx: int
+
+    @property
+    def has_eps(self) -> bool:
+        return self.num_eps_arcs > 0
+
+
+def load_graph_npz(path) -> CsrGraph:
+    """Load a graph written by ``kaldi_decoder_tpu.fst.csr.save_graph_npz``."""
+    with np.load(path) as z:
+        meta = z["meta"]
+        ga = GraphArrays(**{k: z[k] for k in GraphArrays._fields})
+    return CsrGraph(
+        arrays=ga,
+        num_states=int(meta[0]),
+        num_emitting_arcs=int(meta[1]),
+        num_eps_arcs=int(meta[2]),
+        start_state=int(meta[3]),
+        eps_depth=None if meta[4] < 0 else int(meta[4]),
+        max_em_out_degree=int(meta[5]),
+        max_eps_out_degree=int(meta[6]),
+        max_score_idx=int(meta[7]),
+    )
+
+
+def graph_from_numpy(graph) -> CsrGraph:
+    """The port's :class:`CsrGraph` from any object with the same fields
+    (the JAX package's ``CsrGraph``), each array carried as numpy."""
+    ga = GraphArrays(
+        **{k: np.asarray(getattr(graph.arrays, k)) for k in GraphArrays._fields}
+    )
+    return CsrGraph(
+        arrays=ga,
+        num_states=int(graph.num_states),
+        num_emitting_arcs=int(graph.num_emitting_arcs),
+        num_eps_arcs=int(graph.num_eps_arcs),
+        start_state=int(graph.start_state),
+        eps_depth=graph.eps_depth,
+        max_em_out_degree=int(graph.max_em_out_degree),
+        max_eps_out_degree=int(graph.max_eps_out_degree),
+        max_score_idx=int(graph.max_score_idx),
+    )
+
+
+def _eps_depth(S: int, eps_row_ptr: np.ndarray, eps_next: np.ndarray) -> Optional[int]:
+    """Longest chain length in the epsilon subgraph; None if cyclic
+    (Kahn's algorithm)."""
+    if len(eps_next) == 0:
+        return 0
+    indeg = np.zeros(S, dtype=np.int64)
+    np.add.at(indeg, eps_next, 1)
+    depth = np.zeros(S, dtype=np.int64)
+    queue = list(np.flatnonzero(indeg == 0))
+    processed = 0
+    while queue:
+        s = queue.pop()
+        processed += 1
+        lo, hi = int(eps_row_ptr[s]), int(eps_row_ptr[s + 1])
+        for a in range(lo, hi):
+            t = int(eps_next[a])
+            if depth[t] < depth[s] + 1:
+                depth[t] = depth[s] + 1
+            indeg[t] -= 1
+            if indeg[t] == 0:
+                queue.append(t)
+    if processed != S:
+        return None  # epsilon cycle
+    return int(depth.max())

@@ -1,0 +1,117 @@
+"""Build the port's native libraries at first use and load them with ctypes.
+
+CUDA sources (``kaldi_decoder_tpu_torch/csrc/*.cu``) are compiled by
+``nvcc`` for ``sm_90a`` into one shared library with a plain C
+interface; every pointer and the stream cross as ``c_void_p``.  Output
+goes to ``kaldi_decoder_tpu_torch/_build/`` under a name keyed by a hash
+of the sources and the command, so a changed source rebuilds and an
+unchanged one loads the library already there.  A failed build raises
+with the compiler's output; nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from typing import List
+
+PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BUILD_DIR = os.path.join(PKG_DIR, "_build")
+CSRC_DIR = os.path.join(PKG_DIR, "csrc")
+
+_lock = threading.Lock()
+# Compiler output of the builds made by this process (``-Xptxas -v``
+# register and shared-memory reports for the CUDA library).
+build_logs: dict = {}
+
+
+def build_library(name: str, sources: List[str], cmd: List[str]) -> str:
+    """Compile ``sources`` with ``cmd + ["-o", out] + sources`` into
+    ``_build/lib<name>-<hash>.so`` unless it is there; returns its path."""
+    h = hashlib.sha256(" ".join(cmd).encode())
+    for src in sources:
+        with open(src, "rb") as f:
+            h.update(f.read())
+    for hdr in sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
+        with open(hdr, "rb") as f:
+            h.update(f.read())
+    out = os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
+    with _lock:
+        if os.path.exists(out):
+            return out
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{out}.{os.getpid()}.tmp"
+        proc = subprocess.run(
+            cmd + ["-o", tmp] + sources, capture_output=True, text=True
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"building {name} failed ({' '.join(cmd)}):\n{proc.stderr}"
+            )
+        build_logs[name] = proc.stderr
+        os.replace(tmp, out)
+    return out
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    return os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
+
+
+def check(t, name: str, dtype, shape, device) -> None:
+    """Raise unless ``t`` has this dtype, shape and device and is contiguous."""
+    if t.device != device or t.dtype != dtype or tuple(t.shape) != tuple(shape):
+        raise ValueError(
+            f"{name}: expected {dtype} {tuple(shape)} on {device}, got "
+            f"{t.dtype} {tuple(t.shape)} on {t.device}"
+        )
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream(device) -> ctypes.c_void_p:
+    """The current CUDA stream of ``device``, for a launch."""
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+@functools.lru_cache(maxsize=None)
+def kernels() -> ctypes.CDLL:
+    """The CUDA kernel library (row gather, K1 expansion, K4 sweep),
+    built on first use."""
+    sources = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+    path = build_library(
+        "kdtorch_kernels",
+        sources,
+        [
+            _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+            "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+        ],
+    )
+    lib = ctypes.CDLL(path)
+    lib.kd_row_gather.restype = _I
+    lib.kd_row_gather.argtypes = [_P, _P, _L, _I, _I, _P, _P]
+    lib.kd_expand.restype = _I
+    lib.kd_expand.argtypes = [_P] * 8 + [_I] * 7 + [_P] * 11 + [_P]
+    lib.kd_sweep.restype = _I
+    lib.kd_sweep.argtypes = [_P] * 5 + [_I] * 7 + [_F, _F] + [_P] * 7 + [_P]
+    return lib

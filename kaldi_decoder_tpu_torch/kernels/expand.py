@@ -1,0 +1,116 @@
+"""K1: emitting arc expansion with the acoustic lookup and the beam filter.
+
+:func:`expand_filter` is the frame's expansion region: the active slots
+of a cost-sorted frontier (cost < cutoff) expand into candidate lanes
+with cost ``(alpha + w) + (-score)``, and lanes at or above
+``min(cost) + adaptive_beam`` are set to +inf.  On a CPU tensor it runs
+the plain torch version, :func:`expand_filter_plain`; on a CUDA tensor it
+launches ``csrc/expand.cu`` or raises.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from kaldi_decoder_tpu_torch.decoders.frontier import (
+    FrontierConfig,
+    StepState,
+    expand_emitting,
+)
+from kaldi_decoder_tpu_torch.fst.pack import EM_FIELDS, PackedGraph
+from kaldi_decoder_tpu_torch.kernels._build import check, kernels, ptr, stream
+from kaldi_decoder_tpu_torch.kernels.gather import row_gather
+
+INF = float("inf")
+
+
+class Expansion(NamedTuple):
+    dst: torch.Tensor  # (B, N) int32
+    cost: torch.Tensor  # (B, N) float32, +inf outside the beam
+    src_state: torch.Tensor  # (B, N) int32
+    arc_id: torch.Tensor  # (B, N) int32
+    overflow: torch.Tensor  # (B,) bool — remainder lane budget exceeded
+    next_cutoff: torch.Tensor  # (B,) float32 — min(cost) + adaptive_beam
+
+
+def expand_filter_plain(
+    states: torch.Tensor,  # (B, K) int32, cost-sorted frontier
+    costs: torch.Tensor,  # (B, K) float32, relative costs
+    cutoff: torch.Tensor,  # (B,) float32 — expand slots with cost < cutoff
+    adaptive_beam: torch.Tensor,  # (B,) float32
+    scores_t: torch.Tensor,  # (B, V) float32
+    pg: PackedGraph,
+    fc: FrontierConfig,
+) -> Expansion:
+    active = torch.isfinite(costs) & (costs < cutoff[:, None])
+    cand = expand_emitting(StepState(states, costs, None), active, scores_t, pg, fc)
+    next_cutoff = cand.cost.amin(dim=1) + adaptive_beam
+    keep = torch.isfinite(cand.cost) & (cand.cost < next_cutoff[:, None])
+    return Expansion(
+        dst=cand.dst,
+        cost=torch.where(keep, cand.cost, INF),
+        src_state=cand.src_state,
+        arc_id=cand.arc_id,
+        overflow=cand.overflow,
+        next_cutoff=next_cutoff,
+    )
+
+
+def expand_filter(states, costs, cutoff, adaptive_beam, scores_t, pg, fc) -> Expansion:
+    """K1 on the tensors' device: plain torch on the CPU, the CUDA kernels
+    on a card (the row gather of each slot's em_block row, then
+    ``csrc/expand.cu``).  ``expand_filter.launches`` counts K1 launches."""
+    dev = states.device
+    if dev.type == "cpu":
+        return expand_filter_plain(states, costs, cutoff, adaptive_beam, scores_t, pg, fc)
+    if dev.type != "cuda":
+        raise ValueError(f"expand_filter runs on cpu or cuda tensors, not {dev}")
+    B, K = states.shape
+    V = scores_t.shape[1]
+    KE, W, G, Ru = fc.expand_lanes, fc.block_width, fc.flat_group, fc.rem_units
+    if K != fc.frontier_size:
+        raise ValueError(f"frontier has {K} slots, config says {fc.frontier_size}")
+    check(states, "states", torch.int32, (B, K), dev)
+    check(costs, "costs", torch.float32, (B, K), dev)
+    check(cutoff, "cutoff", torch.float32, (B,), dev)
+    check(adaptive_beam, "adaptive_beam", torch.float32, (B,), dev)
+    check(scores_t, "scores_t", torch.float32, (B, V), dev)
+    check(pg.em_block, "em_block", torch.int32,
+           (pg.em_block.shape[0], W * EM_FIELDS + 2), dev)
+    check(pg.em_flat, "em_flat", torch.int32, (pg.em_flat.shape[0], G * EM_FIELDS), dev)
+
+    # One em_block row per frontier slot, dead and inactive slots
+    # included (their states are valid rows); K1 reads the active ones.
+    rows = row_gather(pg.em_block, states)
+    N = KE * W + Ru * G
+    i32 = dict(dtype=torch.int32, device=dev)
+    starts = torch.empty((B, KE), **i32)
+    n_units = torch.empty((B, KE), **i32)
+    total = torch.empty((B,), **i32)
+    last_nz = torch.empty((B,), **i32)
+    minkey = torch.empty((B,), **i32)
+    out = Expansion(
+        dst=torch.empty((B, N), **i32),
+        cost=torch.empty((B, N), dtype=torch.float32, device=dev),
+        src_state=torch.empty((B, N), **i32),
+        arc_id=torch.empty((B, N), **i32),
+        overflow=torch.empty((B,), dtype=torch.bool, device=dev),
+        next_cutoff=torch.empty((B,), dtype=torch.float32, device=dev),
+    )
+    rc = kernels().kd_expand(
+        ptr(states), ptr(costs), ptr(cutoff), ptr(adaptive_beam),
+        ptr(scores_t), ptr(rows), ptr(pg.em_block), ptr(pg.em_flat),
+        B, K, KE, W, G, Ru, V,
+        ptr(starts), ptr(n_units), ptr(total), ptr(last_nz), ptr(minkey),
+        ptr(out.dst), ptr(out.cost), ptr(out.src_state), ptr(out.arc_id),
+        ptr(out.overflow), ptr(out.next_cutoff), stream(dev),
+    )
+    if rc != 0:
+        raise RuntimeError(f"kd_expand launch failed: CUDA error {rc}")
+    expand_filter.launches += 1
+    return out
+
+
+expand_filter.launches = 0

@@ -1,0 +1,76 @@
+"""K4: the backward extra-cost sweep of one chunk.
+
+:func:`sweep_chunk` runs the plain torch sweep
+(:func:`kaldi_decoder_tpu_torch.decoders.sweep.sweep_plain`) on CPU
+tensors and launches ``csrc/sweep.cu`` on CUDA tensors, or raises.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from kaldi_decoder_tpu_torch.decoders.sweep import (
+    MARGIN,
+    SweepConfig,
+    SweepOut,
+    sweep_plain,
+)
+from kaldi_decoder_tpu_torch.kernels._build import check, kernels, ptr, stream
+
+
+def sweep_chunk(
+    frontier_states: torch.Tensor,  # (T, B, K) int32
+    frontier_costs: torch.Tensor,  # (T, B, K) float32
+    em_records: torch.Tensor,  # (T, B, R, 4) int32
+    init_states: torch.Tensor,  # (B, K) int32
+    rem: torch.Tensor,  # (B,) int32
+    sc: SweepConfig,
+    num_states: int,
+) -> SweepOut:
+    """K4 on the tensors' device; ``sweep_chunk.launches`` counts kernel
+    launches."""
+    dev = frontier_states.device
+    if dev.type == "cpu":
+        return sweep_plain(
+            frontier_states, frontier_costs, em_records, init_states, rem, sc,
+            num_states,
+        )
+    if dev.type != "cuda":
+        raise ValueError(f"sweep_chunk runs on cpu or cuda tensors, not {dev}")
+    T, K, R = sc.chunk_frames, sc.frontier_size, sc.em_records
+    B = init_states.shape[0]
+    check(frontier_states, "frontier_states", torch.int32, (T, B, K), dev)
+    check(frontier_costs, "frontier_costs", torch.float32, (T, B, K), dev)
+    check(em_records, "em_records", torch.int32, (T, B, R, 4), dev)
+    check(init_states, "init_states", torch.int32, (B, K), dev)
+    check(rem, "rem", torch.int32, (B,), dev)
+
+    i32 = dict(dtype=torch.int32, device=dev)
+    table = torch.empty((B, num_states), dtype=torch.float32, device=dev)
+    lebuf = torch.empty((B, R), dtype=torch.float32, device=dev)
+    out = SweepOut(
+        tok_rows=torch.empty((B, sc.tok_cap + K, 3), **i32),
+        tok_count=torch.empty((B,), **i32),
+        em_rows=torch.empty((B, sc.em_cap + R, 3), **i32),
+        em_count=torch.empty((B,), **i32),
+        overflow=torch.empty((B,), dtype=torch.bool, device=dev),
+    )
+    # The thresholds as float32, as the plain version's comparisons of
+    # float32 tensors with Python floats round them.
+    tok_thr = float(np.float32(sc.lattice_beam + 2 * MARGIN))
+    em_thr = float(np.float32(sc.lattice_beam + MARGIN))
+    rc = kernels().kd_sweep(
+        ptr(frontier_states), ptr(frontier_costs), ptr(em_records),
+        ptr(init_states), ptr(rem), T, B, K, R, num_states, sc.tok_cap,
+        sc.em_cap, tok_thr, em_thr, ptr(table), ptr(lebuf),
+        ptr(out.tok_rows), ptr(out.em_rows), ptr(out.tok_count),
+        ptr(out.em_count), ptr(out.overflow), stream(dev),
+    )
+    if rc != 0:
+        raise RuntimeError(f"kd_sweep launch failed: CUDA error {rc}")
+    sweep_chunk.launches += 1
+    return out
+
+
+sweep_chunk.launches = 0

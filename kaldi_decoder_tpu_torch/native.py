@@ -1,0 +1,82 @@
+"""The C++ ShortestPath of the host library, for the 1-best.
+
+The JAX package's host library (``kaldi_decoder_tpu/native/csrc/kdtpu_host.cc``)
+is compiled here from that source file with ``g++`` into
+``kaldi_decoder_tpu_torch/_build/`` at first use; the file is read as a
+source and nothing of the JAX package is imported.  Only
+``kd_shortest_path`` is bound, so the port's 1-best is the same
+ShortestPath (with the LatticeWeight natural-order tie-break) as the JAX
+decoder's.  A failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import os
+from typing import Optional
+
+import numpy as np
+
+from kaldi_decoder_tpu_torch.kernels._build import PKG_DIR, build_library
+
+HOST_SOURCE = os.path.join(
+    os.path.dirname(PKG_DIR), "kaldi_decoder_tpu", "native", "csrc", "kdtpu_host.cc"
+)
+
+_i64 = ctypes.c_int64
+_i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+_f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
+
+
+@functools.lru_cache(maxsize=None)
+def host_library() -> ctypes.CDLL:
+    path = build_library(
+        "kdtpu_host", [HOST_SOURCE], ["g++", "-O3", "-std=c++17", "-shared", "-fPIC"]
+    )
+    lib = ctypes.CDLL(path)
+    lib.kd_shortest_path.restype = _i64
+    lib.kd_shortest_path.argtypes = [
+        _i64, _i64, _i32p, _f32p, _f32p, _i32p, _f32p, _f32p, _i64, _i32p, _i64,
+    ]
+    return lib
+
+
+def shortest_path_arrays(
+    num_states: int,
+    src: np.ndarray,
+    w_total: np.ndarray,
+    dst: np.ndarray,
+    final_total: np.ndarray,
+    start: int,
+    w_graph: Optional[np.ndarray] = None,
+    final_graph: Optional[np.ndarray] = None,
+) -> Optional[np.ndarray]:
+    """Best-path arc indices (forward order) over flat lattice arrays, or
+    None if no successful path; raises on cyclic input (the signature of
+    ``kaldi_decoder_tpu.native.shortest_path_arrays``)."""
+    lib = host_library()
+    A = int(len(src))
+    cap = max(A, 1)
+    out = np.empty(cap, np.int32)
+    if w_graph is None:
+        w_graph = np.zeros(A, np.float32)
+    if final_graph is None:
+        final_graph = np.zeros(num_states, np.float32)
+    n = lib.kd_shortest_path(
+        num_states, A,
+        np.ascontiguousarray(src, np.int32),
+        np.ascontiguousarray(w_total, np.float32),
+        np.ascontiguousarray(w_graph, np.float32),
+        np.ascontiguousarray(dst, np.int32),
+        np.ascontiguousarray(final_total, np.float32),
+        np.ascontiguousarray(final_graph, np.float32),
+        start, out, cap,
+    )
+    if n == -1:
+        return None
+    if n == -2:
+        raise ValueError("shortest_path requires an acyclic FST")
+    if n < 0:
+        raise RuntimeError("kd_shortest_path capacity error")
+    return out[:n]

@@ -1,0 +1,180 @@
+"""The port's host-side copies against their originals, and its import
+without jax.
+
+The port carries jax-free copies of the JAX package's host modules
+(CSR graph, eps folding, packing, lattice pruning, workload synthesis,
+WER); each must give exactly what the original gives.
+"""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+
+from kaldi_decoder_tpu.decoders.lattice import BatchedLatticeDecoder as JaxDecoder
+from kaldi_decoder_tpu.fst import fold as jfold
+from kaldi_decoder_tpu.fst import hlg as jhlg
+from kaldi_decoder_tpu.fst import pack as jpack
+from kaldi_decoder_tpu.fst.csr import _eps_depth as jax_eps_depth
+from kaldi_decoder_tpu.fst.csr import save_graph_npz
+from kaldi_decoder_tpu.lattice import prune as jprune
+from kaldi_decoder_tpu.utils.wer import wer as jax_wer
+from kaldi_decoder_tpu_torch.fst import fold as pfold
+from kaldi_decoder_tpu_torch.fst import hlg as phlg
+from kaldi_decoder_tpu_torch.fst import pack as ppack
+from kaldi_decoder_tpu_torch.fst.csr import GraphArrays, _eps_depth, load_graph_npz
+from kaldi_decoder_tpu_torch.lattice import prune as pprune
+from kaldi_decoder_tpu_torch.utils.wer import wer
+
+from _torch_util import hlg_batch, small_hlg, small_noeps
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _graphs():
+    _, jg, pg = small_hlg()
+    jn, pn = small_noeps()
+    return {"hlg": (jg, pg), "noeps": (jn, pn)}
+
+
+def _assert_graph_equal(a, b):
+    for f in GraphArrays._fields:
+        x, y = np.asarray(getattr(a.arrays, f)), np.asarray(getattr(b.arrays, f))
+        assert x.dtype == y.dtype and np.array_equal(x, y), f
+    for f in ("num_states", "num_emitting_arcs", "num_eps_arcs", "start_state",
+              "eps_depth", "max_em_out_degree", "max_eps_out_degree", "max_score_idx"):
+        assert getattr(a, f) == getattr(b, f), f
+
+
+@pytest.mark.parametrize("name", ["hlg", "noeps"])
+def test_csr_load_and_eps_depth(name, tmp_path):
+    jg, _ = _graphs()[name]
+    save_graph_npz(jg, tmp_path / "g.npz")
+    pg = load_graph_npz(tmp_path / "g.npz")
+    _assert_graph_equal(jg, pg)
+    ga = jg.arrays
+    assert _eps_depth(jg.num_states, ga.eps_row_ptr, ga.eps_next) == jax_eps_depth(
+        jg.num_states, ga.eps_row_ptr, ga.eps_next
+    )
+
+
+@pytest.mark.parametrize("name,w_em,w_eps,group", [
+    ("hlg", 3, 1, 4), ("hlg", 5, 2, 8), ("noeps", 4, 1, 4),
+])
+def test_pack_matches_jax(name, w_em, w_eps, group):
+    jg, pg = _graphs()[name]
+    """The port packs the original's emitting tables (its device graph is
+    eps-free, so the eps tables are not built)."""
+    ref = jpack.pack_graph(jg, w_em, w_eps, group)
+    host = ppack.pack_graph(pg, w_em, group)
+    dev = ppack.pack_graph_device(pg, w_em, group, "cpu")
+    jdev = ppack.packed_from_numpy(jpack.pack_graph_device(jg, w_em, w_eps, group), "cpu")
+    for f, h, d, j in zip(ppack.PackedGraph._fields, host, dev, jdev):
+        r = np.asarray(getattr(ref, f))
+        assert np.array_equal(r, np.asarray(h)), f
+        assert np.array_equal(r.astype(d.numpy().dtype), d.numpy()), f
+        assert np.array_equal(j.numpy(), d.numpy()), f
+
+
+def test_fold_matches_jax():
+    _, jg, pg = small_hlg()
+    ref, got = jfold.fold_eps(jg), pfold.fold_eps(pg)
+    _assert_graph_equal(ref.device, got.device)
+    for f in ("path_ptr", "path_arcs", "eps_src"):
+        assert np.array_equal(getattr(ref, f), getattr(got, f)), f
+    for f in ("states", "costs", "eps_records"):
+        assert np.array_equal(getattr(ref.start, f), getattr(got.start, f)), f
+    assert ref.start.paths == got.start.paths
+    recs = np.array([[0, 0], [3, 7], [-1, -1], [5, 40]], np.int32)
+    for x, y in zip(ref.expand_em_records(recs), got.expand_em_records(recs)):
+        assert np.array_equal(x, y)
+
+
+def test_prune_matches_jax():
+    """Both copies of prune_lattice + flat_arc_arrays on the full records
+    of a JAX decode of the small HLG (unfolded, so eps links too)."""
+    _, jg, pg = small_hlg()
+    scores, lengths, _ = hlg_batch(2, seed=3)
+    dec = JaxDecoder(jg, None, lattice_beam=5.0, em_records=256, eps_records=64,
+                     pad_time_to=8, fold=False)
+    res = dec.decode(scores, lengths, device_prune=False)
+    for b in range(2):
+        L = int(lengths[b])
+        kw = dict(
+            frame_states=np.concatenate([res.init_states[None], res.frame_states[:L, b]]),
+            frame_costs=np.concatenate([res.init_costs[None], res.frame_costs[:L, b]]),
+            init_eps_records=res.init_eps_records,
+            em_records=res.em_records[:L, b],
+            eps_records=res.eps_records[:L, b],
+            scores=scores[b, :L],
+            lattice_beam=5.0,
+        )
+        ref = jprune.flat_arc_arrays(jprune.prune_lattice(graph=jg, **kw))
+        got = pprune.flat_arc_arrays(pprune.prune_lattice(graph=pg, **kw))
+        assert len(ref) == len(got)
+        for x, y in zip(ref, got):
+            assert np.array_equal(x, y)
+
+
+def test_workload_and_wer_copies():
+    for seed in (0, 1):
+        a, b = np.random.default_rng(seed), np.random.default_rng(seed)
+        lex = jhlg.random_lexicon(60, 12, a, 2, 5)
+        assert lex == phlg.random_lexicon(60, 12, b, 2, 5)
+        corpus = jhlg.sample_corpus(60, 20, a, mean_len=6.0)
+        assert corpus == phlg.sample_corpus(60, 20, b, mean_len=6.0)
+        toks = jhlg.words_to_tokens(corpus[0], dict(lex))
+        assert toks == phlg.words_to_tokens(corpus[0], dict(lex))
+        assert np.array_equal(
+            jhlg.synth_posteriors(toks, 12, a), phlg.synth_posteriors(toks, 12, b)
+        )
+        hyps = [c[1:] + [3] for c in corpus]
+        assert str(jax_wer(corpus, hyps)) == str(wer(corpus, hyps))
+
+
+def test_port_imports_and_decodes_without_jax():
+    """With jax unimportable, every module of the port imports and a small
+    eps-free graph decodes to a 1-best on the CPU."""
+    code = textwrap.dedent(
+        """
+        import sys
+        sys.modules["jax"] = None
+        import importlib, pkgutil
+        import numpy as np
+        import kaldi_decoder_tpu_torch as pkg
+        for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+            importlib.import_module(m.name)
+        assert not any(n == "jax" or n.startswith(("jax.", "kaldi_decoder_tpu."))
+                       for n in sys.modules if sys.modules[n] is not None)
+        from kaldi_decoder_tpu_torch import BatchedLatticeDecoder
+        from kaldi_decoder_tpu_torch.fst.csr import CsrGraph, GraphArrays
+        rng = np.random.default_rng(0)
+        S, E, V = 40, 200, 6
+        src = np.sort(rng.integers(0, S, E))
+        row = np.zeros(S + 1, np.int32); row[1:] = np.cumsum(np.bincount(src, minlength=S))
+        il = rng.integers(1, V + 1, E).astype(np.int32)
+        ga = GraphArrays(row, il, rng.integers(0, 9, E).astype(np.int32),
+                         rng.uniform(0, 3, E).astype(np.float32),
+                         rng.integers(0, S, E).astype(np.int32), il - 1,
+                         np.zeros(S + 1, np.int32), np.zeros(0, np.int32),
+                         np.zeros(0, np.float32), np.zeros(0, np.int32),
+                         np.where(rng.random(S) < 0.3, 0.5, np.inf).astype(np.float32))
+        deg = np.diff(row)
+        g = CsrGraph(ga, S, E, 0, 0, 0, int(deg.max()), 0, V - 1)
+        scores = np.log(rng.dirichlet(np.ones(V), size=(2, 12))).astype(np.float32)
+        dec = BatchedLatticeDecoder(g, None, lattice_beam=4.0, pad_time_to=4, device="cpu")
+        res = dec.decode(scores, chunk_frames=4)
+        labels = [res.best_path_labels(b) for b in range(2)]
+        assert all(isinstance(x, list) for x in labels), labels
+        print("OK")
+        """
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+        timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("OK")

@@ -1,0 +1,237 @@
+"""Twin tests of the port's frame ops against the JAX package, on the CPU.
+
+Each case makes its inputs with numpy from a seed, runs the JAX function
+(plain ``jnp``, vmapped over the batch) and the port's plain torch
+counterpart, and requires exact agreement: integers equal, floats equal
+bit for bit once -0.0 is folded onto +0.0.  Every float operation on this
+path is an add, a subtract, a compare or a min in the same order, so no
+tolerance is needed.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from kaldi_decoder_tpu.decoders import frontier as jfrontier
+from kaldi_decoder_tpu.decoders.lattice import BatchedLatticeDecoder as JaxDecoder
+from kaldi_decoder_tpu.decoders.sweep import build_sweep_fn as jax_build_sweep_fn
+from kaldi_decoder_tpu.decoders.sweep import sweep_config as jax_sweep_config
+from kaldi_decoder_tpu.ops.cutoff import get_cutoff as jax_get_cutoff
+from kaldi_decoder_tpu.ops.segment import dedup_select_rec as jax_dedup_select_rec
+from kaldi_decoder_tpu_torch.decoders.frontier import _cfg_for_device_graph
+from kaldi_decoder_tpu_torch.decoders.lattice_dev import lattice_config_for_graph
+from kaldi_decoder_tpu_torch.decoders.sweep import sweep_config, sweep_plain
+from kaldi_decoder_tpu_torch.fst.fold import fold_eps
+from kaldi_decoder_tpu_torch.fst.pack import packed_from_numpy
+from kaldi_decoder_tpu_torch.kernels.expand import expand_filter, expand_filter_plain
+from kaldi_decoder_tpu_torch.kernels.sweep import sweep_chunk
+from kaldi_decoder_tpu_torch.ops.cutoff import get_cutoff
+from kaldi_decoder_tpu_torch.ops.segment import dedup_select_rec
+
+from _torch_util import (
+    assert_same_config,
+    bits,
+    hlg_batch,
+    small_hlg,
+    twin_configs,
+)
+
+INF = np.float32(np.inf)
+
+
+def _frontier(rng, B, K, S, n_live):
+    """Cost-sorted frontier rows with n_live[b] finite slots."""
+    states = np.zeros((B, K), np.int32)
+    costs = np.full((B, K), INF, np.float32)
+    for b in range(B):
+        n = n_live[b]
+        states[b, :n] = rng.choice(S, size=n, replace=False)
+        costs[b, :n] = np.sort(rng.uniform(0.0, 12.0, n).astype(np.float32))
+        costs[b, 0] = 0.0
+    return states, costs
+
+
+@pytest.mark.parametrize(
+    "max_active,min_active,sort_first",
+    [
+        (64, 0, True),  # unconstrained fast path
+        (10, 0, True),  # max-active binds
+        (40, 30, True),  # min-active loosens the beam
+        (5000, 20, False),  # beam only; unsorted input
+    ],
+)
+def test_get_cutoff_branches(max_active, min_active, sort_first):
+    rng = np.random.default_rng(max_active + min_active)
+    B, K = 4, 64
+    costs = np.full((B, K), INF, np.float32)
+    for b, n in enumerate((64, 45, 20, 3)):
+        costs[b, :n] = rng.uniform(0, 25, n).astype(np.float32)
+    if sort_first:
+        costs = np.sort(costs, axis=1)
+    beam, delta = 7.5, 0.5
+    ref = jax.vmap(
+        lambda c: jax_get_cutoff(c, beam, max_active, min_active, delta,
+                                 costs_sorted=sort_first)
+    )(jnp.asarray(costs))
+    got = get_cutoff(torch.from_numpy(costs), beam, max_active, min_active, delta,
+                     costs_sorted=sort_first)
+    for r, g in zip(ref, got):
+        assert r.shape == tuple(g.shape)
+        if g.dtype == torch.float32:
+            np.testing.assert_array_equal(bits(r), bits(g.numpy()))
+        else:
+            np.testing.assert_array_equal(np.asarray(r), g.numpy())
+
+
+def _jax_expand_filter(states, costs, cutoff, adaptive, scores, pg, fc):
+    """The expansion region of the JAX lattice emit stage, vmapped."""
+
+    def one(s, c, cu, ab, sc):
+        active = jnp.isfinite(c) & (c < cu)
+        cand = jfrontier.expand_emitting(
+            jfrontier.StepState(s, c, jnp.float32(0)), active, sc, pg, fc
+        )
+        nc = jnp.min(cand.cost) + ab
+        ok = jnp.isfinite(cand.cost) & (cand.cost < nc)
+        return (cand.dst, jnp.where(ok, cand.cost, jnp.inf), cand.src_state,
+                cand.arc_id, cand.overflow, nc)
+
+    return jax.jit(jax.vmap(one))(states, costs, cutoff, adaptive, scores)
+
+
+@pytest.mark.parametrize("rem_budget", [4096, 24])  # 24: remainder overflow
+def test_expand_filter_matches_jax(rem_budget):
+    _, cg, pgraph = small_hlg()
+    jdec = JaxDecoder(cg, None, pad_time_to=8)
+    fold = fold_eps(pgraph)
+    jfc, pfc = twin_configs(jdec._dev_graph, fold.device, frontier_size=64,
+                            max_active=40, rem_budget=rem_budget)
+    assert_same_config(jfc, pfc)
+    from kaldi_decoder_tpu.fst.pack import pack_graph_device as jax_pack
+
+    jpg = jax_pack(jdec._dev_graph, jfc.block_width, jfc.eps_block_width, jfc.flat_group)
+    ppg = packed_from_numpy(jpg, "cpu")
+    rng = np.random.default_rng(rem_budget)
+    B, K, V = 3, 64, 12
+    states, costs = _frontier(rng, B, K, cg.num_states, (64, 30, 1))
+    scores = np.log(rng.dirichlet(np.ones(V), size=B)).astype(np.float32)
+    cut = get_cutoff(torch.from_numpy(costs), pfc.beam, pfc.max_active,
+                     pfc.min_active, pfc.beam_delta, costs_sorted=True)
+    ref = _jax_expand_filter(
+        jnp.asarray(states), jnp.asarray(costs), jnp.asarray(cut.cutoff.numpy()),
+        jnp.asarray(cut.adaptive_beam.numpy()), jnp.asarray(scores), jpg, jfc,
+    )
+    args = (torch.from_numpy(states), torch.from_numpy(costs), cut.cutoff,
+            cut.adaptive_beam, torch.from_numpy(scores), ppg, pfc)
+    got = expand_filter_plain(*args)
+    for name, r, g in zip(got._fields, ref, got):
+        r = np.asarray(r)
+        assert r.shape == tuple(g.shape), name
+        if r.dtype == np.float32:
+            np.testing.assert_array_equal(bits(r), bits(g.numpy()), err_msg=name)
+        else:
+            np.testing.assert_array_equal(r, g.numpy(), err_msg=name)
+    assert bool(got.overflow.any()) == (rem_budget == 24)
+    # The wrapper runs the plain version on CPU tensors and launches nothing.
+    before = expand_filter.launches
+    wrapped = expand_filter(*args)
+    assert expand_filter.launches == before == 0
+    for a, b in zip(wrapped, got):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("r", [12, 40, 400])  # r <= k, r > k, r > n
+def test_dedup_select_rec_ties(r):
+    rng = np.random.default_rng(r)
+    B, N, K, S = 3, 160, 16, 30
+    states = rng.integers(0, S, size=(B, N)).astype(np.int32)
+    # Quantised costs force equal (state, cost) pairs and equal slacks.
+    costs = (rng.integers(0, 12, size=(B, N)) * 0.5).astype(np.float32)
+    costs[rng.random((B, N)) < 0.2] = INF
+    costs[2] = INF  # an utterance with no candidates
+    pay = (rng.integers(0, 1000, size=(B, N)).astype(np.int32),
+           np.tile(np.arange(N, dtype=np.int32), (B, 1)))
+    slack_beam = 2.0
+    ref = jax.vmap(
+        lambda s, c, p0, p1: jax_dedup_select_rec(
+            s, c, K, S, r, slack_beam=slack_beam, payload=(p0, p1),
+            sweep_cols=True, need_idx=False,
+        )
+    )(jnp.asarray(states), jnp.asarray(costs), jnp.asarray(pay[0]), jnp.asarray(pay[1]))
+    got = dedup_select_rec(
+        torch.from_numpy(states), torch.from_numpy(costs), K, S, r, slack_beam,
+        payload=tuple(torch.from_numpy(p) for p in pay),
+    )
+    np.testing.assert_array_equal(np.asarray(ref.states), got.states.numpy())
+    np.testing.assert_array_equal(bits(ref.costs), bits(got.costs.numpy()))
+    np.testing.assert_array_equal(np.asarray(ref.num_unique), got.num_unique.numpy())
+    for rr, gg in zip(ref.recs, got.recs):
+        np.testing.assert_array_equal(np.asarray(rr), gg.numpy())
+    np.testing.assert_array_equal(np.asarray(ref.rec_overflow), got.rec_overflow.numpy())
+    np.testing.assert_array_equal(np.asarray(ref.rec_dst), got.rec_dst.numpy())
+    np.testing.assert_array_equal(bits(ref.rec_slack), bits(got.rec_slack.numpy()))
+
+
+@pytest.mark.parametrize("small_caps", [False, True])  # True: buffers overflow
+def test_sweep_matches_jax_chunk(small_caps):
+    """The port's sweep on a real JAX chunk (frontiers and records of a
+    decode of the small HLG) equals JAX's ``_sweep_one`` vmapped; with
+    small caps the clamped appends and overflow flags must agree too."""
+    _, cg, pgraph = small_hlg()
+    scores, lengths, _ = hlg_batch(3, seed=5)
+    C, B = 16, 3
+    kw = dict(lattice_beam=5.0, em_records=512, pad_time_to=8)
+    jdec = JaxDecoder(cg, None, **kw)
+    dev_graph = fold_eps(pgraph).device
+    jfc, pfc = twin_configs(jdec._dev_graph, dev_graph, frontier_size=64, max_active=48)
+    jdec = JaxDecoder(cg, jfc, **kw)
+    st0, _, _, _ = jdec._init(B)
+    rem = np.asarray(lengths, np.int32) - 4  # an utterance ends inside the chunk
+    rem[0] = 40  # and one runs past it
+    _, o = jdec._chunk_fn(jdec._pg_dev, jnp.asarray(scores[:, :C]), jnp.asarray(rem), st0)
+    jsc = jax_sweep_config(jdec.cfg, C)
+    pcfg = lattice_config_for_graph(
+        dev_graph, _cfg_for_device_graph(dev_graph, pfc), em_records=512,
+        lattice_beam=5.0,
+    )
+    psc = sweep_config(pcfg, C)
+    assert (psc.tok_cap, psc.em_cap, psc.em_records) == (
+        jsc.tok_cap, jsc.em_cap, jsc.em_records)
+    if small_caps:
+        jsc = dataclasses.replace(jsc, tok_cap=70, em_cap=90)
+        psc = dataclasses.replace(psc, tok_cap=70, em_cap=90)
+    ref = jax_build_sweep_fn(jsc)(
+        o.frontier_states, o.frontier_costs, o.em_records, o.eps_records,
+        st0.states, jnp.asarray(rem),
+    )
+    args = (
+        torch.from_numpy(np.asarray(o.frontier_states)),
+        torch.from_numpy(np.asarray(o.frontier_costs)),
+        torch.from_numpy(np.asarray(o.em_records)),
+        torch.from_numpy(np.asarray(st0.states)),
+        torch.from_numpy(rem),
+        psc,
+        cg.num_states,
+    )
+    got = sweep_plain(*args)
+    for name in ("tok", "em"):
+        rc = np.asarray(getattr(ref, f"{name}_count"))
+        np.testing.assert_array_equal(rc, getattr(got, f"{name}_count").numpy())
+        for b in range(B):
+            np.testing.assert_array_equal(
+                np.asarray(getattr(ref, f"{name}_rows"))[b, : rc[b]],
+                getattr(got, f"{name}_rows")[b, : rc[b]].numpy(),
+                err_msg=f"{name} b={b}",
+            )
+    assert not np.asarray(ref.eps_count).any()  # eps-free device graph
+    np.testing.assert_array_equal(np.asarray(ref.overflow), got.overflow.numpy())
+    assert bool(got.overflow.any()) == small_caps
+    before = sweep_chunk.launches
+    wrapped = sweep_chunk(*args)
+    assert sweep_chunk.launches == before == 0
+    for a, b in zip(wrapped, got):
+        assert torch.equal(a, b)
