@@ -10,27 +10,50 @@ frames, ``device_prune=True``.  The bench also asks for flat_group 8, but
 the JAX decoder runs the folded device graph at the default 4 (ROADMAP
 Queue 3), and so does the port; the smoke sets only what takes effect.
 
+The 1-best path runs on the same graph, utterances and beam settings:
+``BatchedViterbiDecoder`` (folded, K 4096, rem_budget 49152, B=16) and
+the streaming ``FasterDecoder`` on the unfolded graph (its own capacities,
+eps closure of depth 1 on every frame, B=1, 100 frames per call).
+
 Phases (any failure raises, and the process exits non-zero):
   0. device: a CUDA card must be present; prints its ``nvidia-smi`` name
      and power limit;
   1. build: the CUDA kernels (the row gather ``csrc/gather.cu``, K1
-     ``csrc/expand.cu``, K4 ``csrc/sweep.cu``) and the C++ host library,
-     from the checkout's sources;
+     ``csrc/expand.cu``, K4 ``csrc/sweep.cu``, K6 ``csrc/dedup.cu``) and
+     the C++ host library, from the checkout's sources;
   2. kernels: K1 on real frontiers, the row gather on a real frontier's
-     states (and on the lane-packed table of the TPU experiments), and K4
-     on one real chunk at bench shapes, each held against its plain torch
-     version (bitwise: every float operation on the path is an add,
-     subtract, compare or min in the same order) and timed with CUDA
-     events around the wrapper call (median of 10; host enqueue
-     included);
-  3. main path: ``BatchedLatticeDecoder.decode`` with the launch counters
-     set to 0 just before; the row gather and K1 must launch once per
-     frame and K4 once per chunk; the 1-best labels, per-frame ``num_active`` and overflow and
-     saturation counts must equal the JAX reference
-     (``tests/data/torch_port_bench_ref.json``); prints the WER and the
-     decode's wall time.
-The line before the last is a JSON object with each kernel's launches,
-error and times; the last is ``{"ok": true, "device": {...}}``.
+     states (and on the lane-packed table of the TPU experiments), K4 on
+     one real chunk, K1 with its source-slot output and K6 on the
+     emitting candidates of real Viterbi frames, and K6 on one eps
+     iteration's incumbent-first candidates of the unfolded graph, all at
+     bench shapes; then the row gather, K1 with its source slots and K6
+     (emitting and eps candidates) on a frame run by phase 5's own
+     streaming decoder, at its shapes (B=1); each held against its plain
+     torch version (bitwise:
+     every float operation on the path is an add, subtract, compare or
+     min in the same order) and timed with CUDA events around the wrapper
+     call (median of 10; host enqueue included);
+  3. lattice path: ``BatchedLatticeDecoder.decode`` with the launch
+     counters set to 0 just before; the row gather and K1 must launch
+     once per frame and K4 once per chunk; the 1-best labels, per-frame
+     ``num_active`` and overflow and saturation counts must equal the JAX
+     reference (``tests/data/torch_port_bench_ref.json``); prints the WER
+     and the decode's wall time;
+  4. batched 1-best path: ``BatchedViterbiDecoder.decode`` with the
+     counters set to 0 just before; the row gather, K1 and K6 must launch
+     once per frame; per utterance the 1-best output labels, the float32
+     bits of the best path's total cost, per-frame ``num_active``, a hash
+     of the per-frame best costs and the overflow and saturation counts
+     must equal the JAX reference
+     (``tests/data/torch_port_viterbi_ref.json``); prints the decode wall
+     time, the host 1-best time and the WER;
+  5. streaming API: ``FasterDecoder`` over the first utterances, the
+     counters set to 0 just before; K6 must launch (1 + eps_iters) times
+     per frame plus eps_iters times per ``init_decoding``; the same
+     fields must equal the JAX reference; prints ms per frame.
+The line before the last is a JSON object with each kernel's launches
+(summed over the counted runs of phases 3-5, and by phase), error and
+times; the last is ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py
 """
@@ -57,6 +80,13 @@ BENCH_CONFIG = dict(
 DECODER_KW = dict(lattice_beam=8.0, em_records=8192, pad_time_to=CHUNK)
 K1_FRAMES = (0, 1, 5, 20, 60, 150)  # frames whose frontiers K1 is checked on
 TIMING_REPS = 10
+VITERBI_CONFIG = dict(
+    beam=15.0, max_active=2560, min_active=200, frontier_size=4096, rem_budget=49152,
+)
+K6_FRAMES = (0, 5, 60, 150)  # Viterbi frames whose emitting candidates K6 is checked on
+EPS_FRAME = 60  # frame of the unfolded decode whose eps iteration K6 is checked on
+STREAM_FRAME = 60  # frame of the streaming decode its kernels are checked on
+FRAMES_PER_CALL = 100  # advance_decoding(max_num_frames=...) in phase 5
 
 
 def log(*a):
@@ -128,6 +158,36 @@ def float_bits_equal(a, b):
     return torch.equal(za, zb)
 
 
+def same_expansion(ref, got, where):
+    """Raise unless two K1 results are equal lane for lane (fields not
+    asked for are None in both); returns the largest cost difference."""
+    import torch
+
+    for name, r, g in zip(ref._fields, ref, got):
+        if r is None or g is None:
+            if r is not g:
+                raise AssertionError(f"K1 and plain differ in which fields they give: {name}")
+            continue
+        same = float_bits_equal(r, g) if r.dtype == torch.float32 else torch.equal(r, g)
+        if not same:
+            raise AssertionError(f"K1 differs from plain at {where}: {name}")
+    fin = torch.isfinite(ref.cost)
+    return float((ref.cost[fin] - got.cost[fin]).abs().max()) if fin.any() else 0.0
+
+
+def same_selection(ref, got, where):
+    """Raise unless two K6 results are equal slot for slot; returns the
+    largest cost difference."""
+    import torch
+
+    for name, r, g in zip(ref._fields, ref, got):
+        same = float_bits_equal(r, g) if r.dtype == torch.float32 else torch.equal(r, g)
+        if not same:
+            raise AssertionError(f"K6 differs from plain on {where}: {name}")
+    fin = torch.isfinite(ref.costs)
+    return float((ref.costs[fin] - got.costs[fin]).abs().max()) if fin.any() else 0.0
+
+
 def check_k1(dec, scores_tm):
     """K1 against its plain version on the frontiers of real frames."""
     import torch
@@ -150,13 +210,7 @@ def check_k1(dec, scores_tm):
             ref = expand_filter_plain(*args)
             got = expand_filter(*args)
             torch.cuda.synchronize()
-            for name, r, g in zip(ref._fields, ref, got):
-                same = float_bits_equal(r, g) if r.dtype == torch.float32 else torch.equal(r, g)
-                if not same:
-                    raise AssertionError(f"K1 differs from plain at frame {t}: {name}")
-            fin = torch.isfinite(ref.cost)
-            if fin.any():
-                max_err = max(max_err, float((ref.cost[fin] - got.cost[fin]).abs().max()))
+            max_err = max(max_err, same_expansion(ref, got, f"frame {t}"))
             overflowed += int(ref.overflow.sum())
             timed_args = args
         st, _ = lattice_frame_step_batched(st, scores_tm[t], active, dec._pg, dec.cfg, S)
@@ -242,18 +296,316 @@ def check_k4(dec, scores_tm, lengths):
     return float(max_err), ms, plain_ms
 
 
-def load_reference(scores, lengths, refs):
-    """The JAX reference, after checking that the rebuilt workload is the
-    one it was computed on (lengths, transcripts, score hashes)."""
+def check_emit_kernels(st, scores_t, pg, cfg, S, where):
+    """K1 with its source slots, then K6 on K1's candidates, each held
+    against its plain version on one real frame's frontier.  Returns the
+    two errors, the two calls' arguments, K1's lanes and the plain
+    selection."""
+    import torch
+
+    from kaldi_decoder_tpu_torch.kernels.dedup import dedup_select
+    from kaldi_decoder_tpu_torch.kernels.expand import expand_filter, expand_filter_plain
+    from kaldi_decoder_tpu_torch.ops.cutoff import get_cutoff
+    from kaldi_decoder_tpu_torch.ops.segment import dedup_select as dedup_select_plain
+
+    cut = get_cutoff(st.costs, cfg.beam, cfg.max_active, cfg.min_active,
+                     cfg.beam_delta, costs_sorted=True)
+    k1_args = (st.states, st.costs, cut.cutoff, cut.adaptive_beam, scores_t, pg, cfg)
+    ref = expand_filter_plain(*k1_args, with_src_slot=True)
+    ex = expand_filter(*k1_args, with_src_slot=True)
+    torch.cuda.synchronize()
+    k1_err = same_expansion(ref, ex, where)
+    em_args = (ex.dst, ex.cost, cfg.frontier_size, S)
+    sel = dedup_select_plain(*em_args)
+    got = dedup_select(*em_args)
+    torch.cuda.synchronize()
+    k6_err = same_selection(sel, got, f"the candidates of {where}")
+    return k1_err, k6_err, k1_args, em_args, ex, sel
+
+
+def check_eps_kernel(mid, next_cutoff, pg, cfg, S, where):
+    """K6 against its plain version on one eps iteration's candidates
+    (incumbents first) after a frame's emitting stage.  Returns the error,
+    the call's arguments and the slots won by eps lanes."""
+    import torch
+
+    from kaldi_decoder_tpu_torch.decoders.frontier import eps_candidates
+    from kaldi_decoder_tpu_torch.kernels.dedup import dedup_select
+    from kaldi_decoder_tpu_torch.ops.segment import dedup_select as dedup_select_plain
+
+    cs, cc, _, _, _ = eps_candidates(mid, next_cutoff, pg, cfg)
+    eps_args = (cs, cc, cfg.frontier_size, S)
+    ref = dedup_select_plain(*eps_args)
+    got = dedup_select(*eps_args)
+    torch.cuda.synchronize()
+    err = same_selection(ref, got, f"the eps candidates of {where}")
+    return err, eps_args, int((got.cand_idx >= cfg.frontier_size).sum())
+
+
+def check_k6(vdec, edec, scores_tm):
+    """K1 with its source slots, and K6, against their plain versions on
+    the emitting candidates of real frames of the batched Viterbi decode;
+    K6 on one eps iteration's candidates (incumbents first) of the
+    unfolded graph's decode."""
+    import torch
+
+    from kaldi_decoder_tpu_torch.decoders.frontier import frame_emit_stage, frame_step_batched
+    from kaldi_decoder_tpu_torch.kernels.dedup import dedup_select
+    from kaldi_decoder_tpu_torch.kernels.expand import expand_filter, expand_filter_plain
+    from kaldi_decoder_tpu_torch.ops.segment import dedup_select as dedup_select_plain
+
+    fc, S = vdec.cfg, vdec._dev_graph.num_states
+    active = torch.ones(B, dtype=torch.bool, device=vdec.device)
+    st, _ = vdec._init(B)
+    k1_err = k6_err = 0.0
+    uniq = []
+    for t in range(max(K6_FRAMES) + 1):
+        if t in K6_FRAMES:
+            e1, e6, k1_args, em_args, ex, sel = check_emit_kernels(
+                st, scores_tm[t], vdec._pg, fc, S, f"Viterbi frame {t}")
+            k1_err, k6_err = max(k1_err, e1), max(k6_err, e6)
+            uniq.append(int(sel.num_unique.max()))
+        st, _ = frame_step_batched(st, scores_tm[t], active, vdec._pg, fc, S)
+    k1_ms = cuda_ms(lambda: expand_filter(*k1_args, with_src_slot=True))
+    k1_plain = cuda_ms(lambda: expand_filter_plain(*k1_args, with_src_slot=True))
+    k6_ms = cuda_ms(lambda: dedup_select(*em_args))
+    k6_plain = cuda_ms(lambda: dedup_select_plain(*em_args))
+    log(f"K1 with src_slot: equal to plain on Viterbi frames {list(K6_FRAMES)}; kernel "
+        f"{k1_ms:.4f} ms, plain {k1_plain:.4f} ms (frame {max(K6_FRAMES)})")
+    log(f"K6 dedup_select, emitting candidates (B={B}, N={ex.cost.shape[1]}, "
+        f"K={fc.frontier_size}; most distinct states per frame {uniq}): equal to plain; "
+        f"kernel {k6_ms:.4f} ms, plain {k6_plain:.4f} ms (frame {max(K6_FRAMES)})")
+
+    ec, Se = edec.cfg, edec._dev_graph.num_states
+    st, _ = edec._init(B)
+    for t in range(EPS_FRAME):
+        st, _ = frame_step_batched(st, scores_tm[t], active, edec._pg, ec, Se)
+    mid, _, next_cutoff, _, _, _ = frame_emit_stage(st, scores_tm[EPS_FRAME], edec._pg, ec, Se)
+    err, eps_args, won = check_eps_kernel(mid, next_cutoff, edec._pg, ec, Se,
+                                          f"frame {EPS_FRAME}")
+    k6_err = max(k6_err, err)
+    eps_ms = cuda_ms(lambda: dedup_select(*eps_args))
+    eps_plain = cuda_ms(lambda: dedup_select_plain(*eps_args))
+    log(f"K6 dedup_select, eps iteration of the unfolded graph (B={B}, "
+        f"N={eps_args[1].shape[1]}, K={ec.frontier_size}, eps_iters={ec.eps_iters}, "
+        f"{won} slots won by eps lanes): equal to plain; kernel {eps_ms:.4f} ms, "
+        f"plain {eps_plain:.4f} ms (frame {EPS_FRAME})")
+    return dict(k1_err=k1_err, k1_ms=k1_ms, k1_plain=k1_plain, k6_err=k6_err,
+                k6_ms=k6_ms, k6_plain=k6_plain, eps_ms=eps_ms, eps_plain=eps_plain)
+
+
+def check_streaming_kernels(fd, scores_tm):
+    """The row gather, K1 with its source slots and K6 at the shapes of
+    the streaming decoder that phase 5 drives (B=1, its own K and
+    budgets, the unfolded graph): the decoder's own frames of utterance 0
+    up to ``STREAM_FRAME``, then that frame's em_block rows, emitting
+    candidates and first eps iteration, each held against its plain
+    version and timed."""
+    import torch
+
+    from kaldi_decoder_tpu_torch.decoders.frontier import StepState, frame_step_batched
+    from kaldi_decoder_tpu_torch.kernels.dedup import dedup_select
+    from kaldi_decoder_tpu_torch.kernels.expand import expand_filter, expand_filter_plain
+    from kaldi_decoder_tpu_torch.kernels.gather import row_gather, row_gather_plain
+    from kaldi_decoder_tpu_torch.ops.segment import dedup_select as dedup_select_plain
+
+    cfg, pg, S = fd._cfg, fd._pg, fd._graph.num_states
+    fd.init_decoding()
+    st = fd._state
+    scores_u = scores_tm[:, :1]
+    active = torch.ones(1, dtype=torch.bool, device=st.states.device)
+    for t in range(STREAM_FRAME):
+        st, _ = frame_step_batched(st, scores_u[t], active, pg, cfg, S)
+    got, want = row_gather(pg.em_block, st.states), row_gather_plain(pg.em_block, st.states)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"row gather differs from plain on streaming frame {STREAM_FRAME}")
+    where = f"streaming frame {STREAM_FRAME}"
+    k1_err, k6_err, k1_args, em_args, ex, sel = check_emit_kernels(
+        st, scores_u[STREAM_FRAME], pg, cfg, S, where)
+    mid = StepState(sel.states, sel.costs, st.base)
+    eps_err, eps_args, won = check_eps_kernel(mid, ex.next_cutoff, pg, cfg, S, where)
+    times = dict(
+        gather=(cuda_ms(lambda: row_gather(pg.em_block, st.states)),
+                cuda_ms(lambda: row_gather_plain(pg.em_block, st.states))),
+        k1=(cuda_ms(lambda: expand_filter(*k1_args, with_src_slot=True)),
+            cuda_ms(lambda: expand_filter_plain(*k1_args, with_src_slot=True))),
+        k6=(cuda_ms(lambda: dedup_select(*em_args)),
+            cuda_ms(lambda: dedup_select_plain(*em_args))),
+        k6_eps=(cuda_ms(lambda: dedup_select(*eps_args)),
+                cuda_ms(lambda: dedup_select_plain(*eps_args))),
+    )
+    log(f"streaming shapes (B=1, K={cfg.frontier_size}, rem_budget={cfg.rem_budget}, "
+        f"eps N={eps_args[1].shape[1]}, {won} slots won by eps lanes) on {where}: "
+        f"row gather, K1 with src_slot and K6 (emitting N={em_args[1].shape[1]}, eps) "
+        f"equal to plain; kernel/plain ms: "
+        + ", ".join(f"{k} {a:.4f}/{p:.4f}" for k, (a, p) in times.items()))
+    return dict(k1_err=k1_err, k6_err=max(k6_err, eps_err), times=times)
+
+
+def check_utterance(what, b, u, lat, num_active, best_costs, overflows, saturations):
+    """Raise unless one utterance's 1-best result equals its JAX reference."""
     import hashlib
 
-    with open(os.path.join(REPO, "tests", "data", "torch_port_bench_ref.json")) as f:
-        ref = json.load(f)
-    for b, u in enumerate(ref["utts"][:B]):
+    import numpy as np
+
+    from kaldi_decoder_tpu_torch.fst.ops import path_labels, path_total_cost
+
+    L = u["length"]
+    if lat is None:
+        raise AssertionError(f"{what}, utterance {b}: no best path")
+    if path_labels(lat) != u["olabels"]:
+        raise AssertionError(f"{what}, utterance {b}: 1-best differs from the JAX reference")
+    cost_bits = int(np.float32(path_total_cost(lat)).view(np.int32))
+    if cost_bits != u["path_cost_f32_bits"]:
+        raise AssertionError(f"{what}, utterance {b}: best path cost differs")
+    if [int(x) for x in num_active[:L]] != u["num_active"]:
+        bad = int(np.flatnonzero(num_active[:L] != np.asarray(u["num_active"]))[0])
+        raise AssertionError(f"{what}, utterance {b}: num_active differs first at frame {bad}")
+    digest = hashlib.sha256(np.ascontiguousarray(best_costs[:L], np.float32).tobytes())
+    if digest.hexdigest() != u["best_costs_sha256"]:
+        raise AssertionError(f"{what}, utterance {b}: per-frame best costs differ")
+    for key, arr in (("overflow_frames", overflows), ("saturated_frames", saturations)):
+        if int(arr[:L].sum()) != u[key]:
+            raise AssertionError(f"{what}, utterance {b}: {key} {int(arr[:L].sum())} != {u[key]}")
+
+
+def reset_counts():
+    import torch
+
+    from kaldi_decoder_tpu_torch.kernels.dedup import dedup_select
+    from kaldi_decoder_tpu_torch.kernels.expand import expand_filter
+    from kaldi_decoder_tpu_torch.kernels.gather import row_gather
+    from kaldi_decoder_tpu_torch.kernels.sweep import sweep_chunk
+
+    torch.cuda.synchronize()
+    for fn in (row_gather, expand_filter, sweep_chunk, dedup_select):
+        fn.launches = 0
+
+
+def read_counts():
+    from kaldi_decoder_tpu_torch.kernels.dedup import dedup_select
+    from kaldi_decoder_tpu_torch.kernels.expand import expand_filter
+    from kaldi_decoder_tpu_torch.kernels.gather import row_gather
+    from kaldi_decoder_tpu_torch.kernels.sweep import sweep_chunk
+
+    return dict(gather=row_gather.launches, k1=expand_filter.launches,
+                k4=sweep_chunk.launches, k6=dedup_select.launches)
+
+
+def viterbi_path(vdec, scores, lengths, refs, vref):
+    """Phase 4: the batched 1-best decode as a user calls it, counted,
+    then checked against the JAX reference."""
+    from kaldi_decoder_tpu_torch.fst.ops import path_labels
+    from kaldi_decoder_tpu_torch.utils.wer import wer
+
+    want = vref["viterbi"]["device_config"]
+    got_cfg = {f: getattr(vdec.cfg, f) for f in want}
+    if got_cfg != want:
+        raise AssertionError(f"Viterbi device config {got_cfg} != the reference's {want}")
+    reset_counts()
+    t0 = time.perf_counter()
+    res = vdec.decode(scores, lengths)
+    t_dec = time.perf_counter() - t0
+    n = read_counts()
+    frames = res.bp_emit.shape[0]
+    if n["gather"] != frames or n["k1"] != frames or n["k6"] != frames * (1 + vdec.cfg.eps_iters):
+        raise AssertionError(f"launch counts {n} for {frames} frames")
+    t1 = time.perf_counter()
+    lats = [res.best_path(b) for b in range(B)]
+    t_host = time.perf_counter() - t1
+    utts = vref["viterbi"]["utts"][:B]
+    for b, u in enumerate(utts):
+        check_utterance("Viterbi", b, u, lats[b], res.num_active[:, b], res.best_costs[:, b],
+                        res.overflows[:, b], res.saturations[:, b])
+    checked = len(utts)
+    st = wer(refs, [path_labels(lat) if lat is not None else [] for lat in lats])
+    audio_s = float(lengths.sum()) * 0.04
+    log(f"Viterbi path: decode {t_dec:.3f} s ({frames} frames, bp_emit download included; "
+        f"{audio_s / t_dec:.1f} audio-s/s), host 1-best (backtrace, fold expansion, "
+        f"RemoveEpsLocal) {t_host:.3f} s; row gather launches {n['gather']}, K1 {n['k1']}, "
+        f"K6 {n['k6']}; matches the JAX reference on {checked} utterances; overflow frames "
+        f"{int(res.overflows.sum())}, saturated frames {int(res.saturations.sum())}; {st}")
+    return n, t_dec, t_host
+
+
+def streaming_decoder(graph, vref, device="cuda"):
+    """The streaming decoder of phase 5, with the reference's options."""
+    from kaldi_decoder_tpu_torch import FasterDecoder, FasterDecoderOptions
+
+    return FasterDecoder(graph, FasterDecoderOptions(**vref["streaming"]["options"]),
+                         device=device)
+
+
+def streaming_path(fd, scores, vref):
+    """Phase 5: the streaming API on the unfolded graph, counted, then
+    checked against the JAX reference."""
+    import numpy as np
+
+    from kaldi_decoder_tpu_torch import DecodableCtc
+
+    sref = vref["streaming"]
+    want = sref["device_config"]
+    got_cfg = {f: getattr(fd._cfg, f) for f in want}
+    if got_cfg != want:
+        raise AssertionError(f"streaming config {got_cfg} != the reference's {want}")
+    D = fd._cfg.eps_iters
+    reset_counts()
+    t_dec = t_host = 0.0
+    frames = 0
+    for b, u in enumerate(sref["utts"]):
+        L = u["length"]
+        t0 = time.perf_counter()
+        fd.init_decoding()
+        decodable = DecodableCtc(scores[b, :L])
+        while fd.num_frames_decoded() < L:
+            fd.advance_decoding(decodable, max_num_frames=FRAMES_PER_CALL)
+        t1 = time.perf_counter()
+        ok, lat = fd.get_best_path()
+        t_host += time.perf_counter() - t1
+        t_dec += t1 - t0
+        frames += L
+        r = fd._result()
+        if not ok:
+            raise AssertionError(f"streaming, utterance {b}: get_best_path failed")
+        check_utterance("streaming", b, u, lat, r.num_active[:, 0], r.best_costs[:, 0],
+                        r.overflows[:, 0], r.saturations[:, 0])
+        if not np.array_equal(r.lengths, [L]):
+            raise AssertionError("streaming result lengths")
+    n = read_counts()
+    utts = len(sref["utts"])
+    want_k6 = frames * (1 + D) + utts * D
+    if n["gather"] != frames or n["k1"] != frames or n["k6"] != want_k6:
+        raise AssertionError(f"launch counts {n}: want {frames} gathers and K1, {want_k6} K6")
+    log(f"streaming path: FasterDecoder, {utts} utterances, {frames} frames, "
+        f"{FRAMES_PER_CALL} per advance_decoding, eps_iters={D}, K={fd._cfg.frontier_size}: "
+        f"{1000 * t_dec / frames:.3f} ms per frame (init + advance, downloads included), "
+        f"get_best_path {t_host:.3f} s; row gather launches {n['gather']}, K1 {n['k1']}, "
+        f"K6 {n['k6']}; matches the JAX reference")
+    return n, 1000 * t_dec / frames
+
+
+def check_workload(utts, scores, lengths, refs):
+    """Raise unless the rebuilt workload is the one a reference was
+    computed on (lengths, transcripts, score hashes)."""
+    import hashlib
+
+    for b, u in enumerate(utts):
         L = u["length"]
         if (L != int(lengths[b]) or u["ref_words"] != [int(w) for w in refs[b]]
                 or u["scores_sha256"] != hashlib.sha256(scores[b, :L].tobytes()).hexdigest()):
             raise AssertionError(f"utterance {b}: the rebuilt workload differs from the reference's")
+
+
+def load_reference(name, scores, lengths, refs):
+    """A committed JAX reference, after checking that the rebuilt workload
+    is the one it was computed on."""
+    with open(os.path.join(REPO, "tests", "data", name)) as f:
+        ref = json.load(f)
+    for part in ("utts", "viterbi", "streaming"):
+        if part in ref:
+            utts = ref[part] if part == "utts" else ref[part]["utts"]
+            check_workload(utts[:B], scores, lengths, refs)
     return ref
 
 
@@ -261,21 +613,15 @@ def main_path(dec, scores, lengths, refs, ref):
     """The decode as a user calls it, counted; then checks against the
     JAX reference."""
     import numpy as np
-    import torch
 
-    from kaldi_decoder_tpu_torch.kernels.expand import expand_filter
-    from kaldi_decoder_tpu_torch.kernels.gather import row_gather
-    from kaldi_decoder_tpu_torch.kernels.sweep import sweep_chunk
     from kaldi_decoder_tpu_torch.utils.wer import wer
 
-    torch.cuda.synchronize()
-    row_gather.launches = 0
-    expand_filter.launches = 0
-    sweep_chunk.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     res = dec.decode(scores, lengths, chunk_frames=CHUNK, device_prune=True)
     t_dec = time.perf_counter() - t0
-    gat, k1, k4 = row_gather.launches, expand_filter.launches, sweep_chunk.launches
+    n = read_counts()
+    gat, k1, k4 = n["gather"], n["k1"], n["k4"]
     if res.survivors is None:
         raise AssertionError("the device sweep overflowed and the decode fell back")
     frames = res.num_active.shape[0]
@@ -326,7 +672,11 @@ def main():
     sys.path.insert(0, REPO)
     import numpy as np
 
-    from kaldi_decoder_tpu_torch import BatchedLatticeDecoder, config_for_graph
+    from kaldi_decoder_tpu_torch import (
+        BatchedLatticeDecoder,
+        BatchedViterbiDecoder,
+        config_for_graph,
+    )
     from kaldi_decoder_tpu_torch.kernels import _build
     from kaldi_decoder_tpu_torch.native import host_library
 
@@ -355,7 +705,8 @@ def main():
     # 2. Kernels at bench shapes.
     t0 = time.perf_counter()
     graph, scores, lengths, refs = bench_workload()
-    ref = load_reference(scores, lengths, refs)
+    ref = load_reference("torch_port_bench_ref.json", scores, lengths, refs)
+    vref = load_reference("torch_port_viterbi_ref.json", scores, lengths, refs)
     fc = config_for_graph(graph, **BENCH_CONFIG)
     dec = BatchedLatticeDecoder(graph, fc, device="cuda", **DECODER_KW)
     # The device config re-derives flat_group (ROADMAP Queue 3).
@@ -369,25 +720,64 @@ def main():
     k1_err, k1_ms, k1_plain, states = check_k1(dec, scores_tm)
     gat_err, gat_ms, gat_plain = check_gather(dec, states)
     k4_err, k4_ms, k4_plain = check_k4(dec, scores_tm, lengths)
+    vfc = config_for_graph(graph, **VITERBI_CONFIG)
+    vdec = BatchedViterbiDecoder(graph, vfc, device="cuda")
+    edec = BatchedViterbiDecoder(graph, vfc, fold=False, device="cuda")
+    k6 = check_k6(vdec, edec, scores_tm)
+    del edec
+    fd = streaming_decoder(graph, vref)
+    sk = check_streaming_kernels(fd, scores_tm)
     del scores_tm, states
     torch.cuda.empty_cache()
 
-    # 3. Main path.
+    # 3. Lattice path.
     gat_n, k1_n, k4_n = main_path(dec, scores, lengths, refs, ref)
+    del dec
+    torch.cuda.empty_cache()
 
+    # 4. Batched 1-best path.
+    vn, _, _ = viterbi_path(vdec, scores, lengths, refs, vref)
+    del vdec
+    torch.cuda.empty_cache()
+
+    # 5. Streaming API.
+    sn, _ = streaming_path(fd, scores, vref)
+
+    by_path = {
+        "gather": {"lattice": gat_n, "viterbi": vn["gather"], "streaming": sn["gather"]},
+        "k1": {"lattice": k1_n, "viterbi": vn["k1"], "streaming": sn["k1"]},
+        "k4": {"lattice": k4_n},
+        "k6": {"viterbi": vn["k6"], "streaming": sn["k6"]},
+    }
+
+    st = sk["times"]
     log(json.dumps({"kernels": [
         {"name": "row_gather (em_block row per frontier slot)",
          "route": "cuda", "source": "kaldi_decoder_tpu_torch/csrc/gather.cu",
          "replaces": "scripts/gather_bench.py:139",
-         "launches": gat_n, "max_abs_err": gat_err, "ms": gat_ms, "plain_ms": gat_plain},
+         "launches": sum(by_path["gather"].values()), "launches_by_path": by_path["gather"],
+         "max_abs_err": gat_err, "ms": gat_ms, "plain_ms": gat_plain,
+         "ms_streaming": st["gather"][0], "plain_ms_streaming": st["gather"][1]},
         {"name": "K1 expand_filter (arc expansion + score lookup + beam filter)",
          "route": "cuda", "source": "kaldi_decoder_tpu_torch/csrc/expand.cu",
          "replaces": "kaldi_decoder_tpu/decoders/frontier.py:266",
-         "launches": k1_n, "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain},
+         "launches": sum(by_path["k1"].values()), "launches_by_path": by_path["k1"],
+         "max_abs_err": max(k1_err, k6["k1_err"], sk["k1_err"]), "ms": k1_ms,
+         "plain_ms": k1_plain, "ms_src_slot": k6["k1_ms"], "plain_ms_src_slot": k6["k1_plain"],
+         "ms_streaming": st["k1"][0], "plain_ms_streaming": st["k1"][1]},
         {"name": "K4 sweep_chunk (backward extra-cost sweep)",
          "route": "cuda", "source": "kaldi_decoder_tpu_torch/csrc/sweep.cu",
          "replaces": "kaldi_decoder_tpu/decoders/sweep.py:141",
-         "launches": k4_n, "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain},
+         "launches": k4_n, "launches_by_path": by_path["k4"],
+         "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain},
+        {"name": "K6 dedup_select (Viterbi dedup by state + top-K + winning lane)",
+         "route": "cuda", "source": "kaldi_decoder_tpu_torch/csrc/dedup.cu",
+         "replaces": "kaldi_decoder_tpu/ops/segment.py:160",
+         "launches": sum(by_path["k6"].values()), "launches_by_path": by_path["k6"],
+         "max_abs_err": max(k6["k6_err"], sk["k6_err"]), "ms": k6["k6_ms"],
+         "plain_ms": k6["k6_plain"], "ms_eps": k6["eps_ms"], "plain_ms_eps": k6["eps_plain"],
+         "ms_streaming": st["k6"][0], "plain_ms_streaming": st["k6"][1],
+         "ms_streaming_eps": st["k6_eps"][0], "plain_ms_streaming_eps": st["k6_eps"][1]},
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -43,4 +43,20 @@ __device__ __forceinline__ int block_exclusive_scan(int v, int* smem, int* total
 // one bit pattern before any bitwise min.
 __device__ __forceinline__ float canon_zero(float x) { return x == 0.0f ? 0.0f : x; }
 
+// Float -> uint key in IEEE total order (unsigned compare = float
+// compare, with -0.0 below +0.0), for non-NaN floats.
+__device__ __forceinline__ unsigned int total_order_key(float c) {
+  unsigned int u = __float_as_uint(c);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+// The same with -0.0 made +0.0 first: unsigned compare = float compare.
+__device__ __forceinline__ unsigned int ordered_key(float c) {
+  return total_order_key(canon_zero(c));
+}
+
+__device__ __forceinline__ float from_ordered_key(unsigned int k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+}
+
 }  // namespace kdtorch

@@ -7,6 +7,10 @@
 // kaldi_decoder_tpu_torch/kernels/expand.py:expand_filter_plain, and the
 // two agree lane for lane, bitwise.
 //
+// With a src_slot buffer it also writes each lane's source frontier slot
+// (block lane: its slot; remainder lane: its owner), the first half of
+// the Viterbi backpointer (decoders/frontier.py:frame_emit_stage).
+//
 // Each slot's em_block row arrives already gathered, (B, K, W*3+2), by
 // the row gather (gather.cu) that runs just before; an inactive slot
 // reads row 0 of em_block, as the reference's `safe` index does.
@@ -40,16 +44,6 @@ namespace {
 constexpr int EM_FIELDS = 3;
 constexpr int SCAN_THREADS = 1024;
 constexpr int LANE_THREADS = 256;
-
-// Order-preserving float -> uint key (for atomicMin); -0.0 becomes +0.0.
-__device__ __forceinline__ unsigned int min_key(float c) {
-  unsigned int u = __float_as_uint(kdtorch::canon_zero(c));
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-__device__ __forceinline__ float from_min_key(unsigned int k) {
-  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
-}
 
 __device__ __forceinline__ bool slot_active(float c, float cutoff) {
   return isfinite(c) && c < cutoff;
@@ -113,7 +107,7 @@ __global__ void __launch_bounds__(LANE_THREADS) expand_lanes_kernel(
     const int* __restrict__ last_nz, int K_full, int KE, int W, int G,
     int Ru, int V, int* __restrict__ dst, float* __restrict__ cost,
     int* __restrict__ src_state, int* __restrict__ arc_id,
-    unsigned int* __restrict__ minkey) {
+    int* __restrict__ src_slot, unsigned int* __restrict__ minkey) {
   const int b = blockIdx.y;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int NB = KE * W;
@@ -122,10 +116,11 @@ __global__ void __launch_bounds__(LANE_THREADS) expand_lanes_kernel(
   const float cut = cutoff[b];
   unsigned int key = 0xffffffffu;
   if (i < N) {
-    int d, sidx, st, arc;
+    int d, sidx, st, arc, slot;
     float c;
     if (i < NB) {
       const int k = i / W;
+      slot = k;
       const int w = i - k * W;
       const float a = costs[(long)b * K_full + k];
       const bool act = slot_active(a, cut);
@@ -153,6 +148,7 @@ __global__ void __launch_bounds__(LANE_THREADS) expand_lanes_kernel(
       } else {
         owner = last_nz[b];
       }
+      slot = owner;
       const float a = costs[(long)b * K_full + owner];
       const bool act = slot_active(a, cut);
       st = act ? states[(long)b * K_full + owner] : 0;
@@ -176,7 +172,8 @@ __global__ void __launch_bounds__(LANE_THREADS) expand_lanes_kernel(
     cost[o] = c;
     src_state[o] = st;
     arc_id[o] = arc;
-    key = min_key(c);
+    if (src_slot != nullptr) src_slot[o] = slot;
+    key = kdtorch::ordered_key(c);
   }
   key = __reduce_min_sync(0xffffffffu, key);
   if ((threadIdx.x & 31) == 0 && key != 0xffffffffu) atomicMin(&minkey[b], key);
@@ -188,7 +185,7 @@ __global__ void __launch_bounds__(LANE_THREADS) expand_filter_kernel(
     float* __restrict__ next_cutoff) {
   const int b = blockIdx.y;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const float nc = __fadd_rn(from_min_key(minkey[b]), adaptive_beam[b]);
+  const float nc = __fadd_rn(kdtorch::from_ordered_key(minkey[b]), adaptive_beam[b]);
   if (i < N) {
     const long o = (long)b * N + i;
     const float c = cost[o];
@@ -204,14 +201,15 @@ __global__ void __launch_bounds__(LANE_THREADS) expand_filter_kernel(
 // W*3+2) = em_block[states], em_block (S, W*3+2), em_flat (U, G*3);
 // scratch starts/n_units (B, KE), total/last_nz/minkey (B,); outputs
 // dst/cost/src_state/arc_id (B, N), overflow (B,) bytes, next_cutoff
-// (B,).  Returns cudaGetLastError() after the launches.
+// (B,); src_slot (B, N) or null (then not written: the lattice path
+// does not read it).  Returns cudaGetLastError() after the launches.
 extern "C" int kd_expand(
     const void* states, const void* costs, const void* cutoff,
     const void* adaptive_beam, const void* scores, const void* rows,
     const void* em_block, const void* em_flat, int B, int K_full, int KE,
     int W, int G, int Ru, int V, void* starts, void* n_units, void* total,
     void* last_nz, void* minkey, void* dst, void* cost, void* src_state, void* arc_id,
-    void* overflow, void* next_cutoff, void* stream) {
+    void* src_slot, void* overflow, void* next_cutoff, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int N = KE * W + Ru * G;
   expand_scan_kernel<<<B, SCAN_THREADS, 0, s>>>(
@@ -225,7 +223,7 @@ extern "C" int kd_expand(
       (const float*)scores, (const int*)rows, (const int*)em_block,
       (const int*)em_flat, (const int*)starts, (const int*)total,
       (const int*)last_nz, K_full, KE, W, G, Ru, V, (int*)dst, (float*)cost, (int*)src_state, (int*)arc_id,
-      (unsigned int*)minkey);
+      (int*)src_slot, (unsigned int*)minkey);
   expand_filter_kernel<<<grid, LANE_THREADS, 0, s>>>(
       (const unsigned int*)minkey, (const float*)adaptive_beam, N,
       (float*)cost, (float*)next_cutoff);

@@ -1,8 +1,9 @@
-"""Token frontier: configuration and emitting arc expansion, batched.
+"""Token frontier: configuration, arc expansion and the Viterbi frame, batched.
 
 The torch counterpart of ``kaldi_decoder_tpu/decoders/frontier.py``
 (``FrontierConfig``, ``config_for_graph``, ``StepState``, ``Candidates``,
-``_owner_of_lanes``, ``expand_emitting``) and of ``_cfg_for_device_graph``
+``_owner_of_lanes``, ``expand_emitting``, ``expand_eps``, ``StepOut``,
+the eps closure and the Viterbi frame step) and of ``_cfg_for_device_graph``
 and ``_folded_init`` from ``kaldi_decoder_tpu/decoders/viterbi.py``.  The
 JAX code is single-utterance and vmapped; here every array carries a
 leading batch dimension B.
@@ -13,7 +14,10 @@ a CUDA tensor the decoder runs the hand-written kernel
 held equal lane for lane.  Scores are read with a plain gather (the JAX
 default, a one-hot matrix product, was a TPU choice and equals the
 gather on finite scores), and the float order of each candidate cost is
-the original's: ``(alpha + w) + (-score)``.
+the original's: ``(alpha + w) + (-score)``.  Dedup and top-K of the
+Viterbi frame and of every eps iteration go through K6
+(:func:`kaldi_decoder_tpu_torch.kernels.dedup.dedup_select`), whose plain
+version is :func:`kaldi_decoder_tpu_torch.ops.segment.dedup_select`.
 """
 
 from __future__ import annotations
@@ -25,10 +29,15 @@ import numpy as np
 import torch
 
 from kaldi_decoder_tpu_torch.fst.csr import CsrGraph
-from kaldi_decoder_tpu_torch.fst.pack import EM_FIELDS, PackedGraph
+from kaldi_decoder_tpu_torch.fst.pack import EM_FIELDS, EPS_FIELDS, PackedGraph
+from kaldi_decoder_tpu_torch.kernels.dedup import dedup_select
+from kaldi_decoder_tpu_torch.ops.cutoff import get_cutoff
 from kaldi_decoder_tpu_torch.ops.segment import score_lookup
 
 INF = float("inf")
+
+# Backpointer arc-id sentinel: "no arc, token carried over" (identity).
+NO_ARC = -1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,9 +45,13 @@ class FrontierConfig:
     """Decode parameters: the reference's beam semantics
     (`faster-decoder.h:24-63`) plus fixed capacities.
 
-    The original's eps fields (``eps_block_width``, ``eps_rem_budget``,
-    ``eps_iters``, ``eps_exact``) size the eps closure on the device, which
-    the port does not run: its device graph is eps-free."""
+    The eps fields size the eps closure on the device: ``eps_block_width``
+    and ``eps_rem_budget`` are the block and remainder lanes of one eps
+    expansion, ``eps_iters`` the relaxations per frame (the graph's eps
+    depth; 0 on an eps-free device graph), and ``eps_exact`` is False when
+    the eps subgraph is cyclic, so that ``eps_iters`` is only a budget and
+    a frame still improving at its last iteration is flagged as an
+    overflow."""
 
     beam: float = 16.0
     max_active: int = 2**31 - 1
@@ -50,8 +63,15 @@ class FrontierConfig:
     block_width: int = 8
     # Flat lane budget for emitting remainder arcs (fat states).
     rem_budget: int = 4096
+    # Epsilon block width and remainder budget.
+    eps_block_width: int = 4
+    eps_rem_budget: int = 1024
     # Emitting arcs per remainder unit (em_flat row).
     flat_group: int = 4
+    # Epsilon-closure iterations per frame (the graph's eps depth if known).
+    eps_iters: int = 0
+    # True when eps_iters is the graph's exact (acyclic) eps depth.
+    eps_exact: bool = True
     # Capacity fields the caller set explicitly (None == hand-built
     # config, every field intentional); excluded from eq/hash.
     explicit: Optional[Tuple[str, ...]] = dataclasses.field(
@@ -67,7 +87,7 @@ class FrontierConfig:
             raise ValueError("need 0 <= min_active < max_active")
         if self.frontier_size < 1 or self.block_width < 1:
             raise ValueError("frontier_size and block_width must be >= 1")
-        if self.rem_budget < 1:
+        if self.rem_budget < 1 or self.eps_rem_budget < 1:
             raise ValueError("lane budgets must be >= 1")
 
     @property
@@ -119,18 +139,49 @@ def config_for_graph(graph: CsrGraph, base: Optional[FrontierConfig] = None, **k
         rem = int(max(2048, min(6 * K, 2 * exp_rem * K + 2048)))
         kw["rem_budget"] = min(rem, max(graph.num_emitting_arcs, 8))
     kw["rem_budget"] = max(8, kw["rem_budget"])
+
+    if graph.num_eps_arcs:
+        edeg = np.diff(graph.arrays.eps_row_ptr)
+        enz = edeg[edeg > 0]
+        ep50 = int(np.quantile(enz, 0.5)) if len(enz) else 1
+        We = kw.get(
+            "eps_block_width", max(1, min(ep50, 8, graph.max_eps_out_degree or 1))
+        )
+        kw["eps_block_width"] = max(1, We)
+        kw["eps_rem_budget"] = max(
+            8, kw.get("eps_rem_budget", min(max(512, K // 2), graph.num_eps_arcs))
+        )
+        depth = graph.eps_depth
+        if depth is None:
+            depth = 16  # cyclic eps subgraph: bounded fixed-point iterations
+            kw.setdefault("eps_exact", False)
+        kw.setdefault("eps_iters", depth)
+    else:
+        kw["eps_block_width"] = 1
+        kw["eps_rem_budget"] = 8
+        kw["eps_iters"] = 0
     out = FrontierConfig(explicit=explicit, **kw)
     out.validate()
     return out
 
 
-_CAPACITY_FIELDS = ("frontier_size", "block_width", "rem_budget")
+_CAPACITY_FIELDS = (
+    "frontier_size",
+    "block_width",
+    "rem_budget",
+    "eps_block_width",
+    "eps_rem_budget",
+    "eps_iters",
+)
+_EPS_FIELDS = ("eps_block_width", "eps_rem_budget", "eps_iters")
 
 
 def _cfg_for_device_graph(dev_graph: CsrGraph, config: Optional[FrontierConfig]):
     """Config sized for the (possibly eps-folded) device graph: beam
     fields from the caller, capacities the caller set explicitly kept,
-    the rest re-derived.
+    the rest re-derived.  The eps capacities follow the device graph
+    either way: re-derived when it has no eps arcs (a folded graph), or
+    when the caller's config was built for an eps-free graph.
 
     As in the original, ``flat_group`` is not carried over: the device
     config takes the default (see ROADMAP Queue 3)."""
@@ -140,6 +191,9 @@ def _cfg_for_device_graph(dev_graph: CsrGraph, config: Optional[FrontierConfig])
         f for f in _CAPACITY_FIELDS if f in config.explicit
     )
     kw = {f: getattr(config, f) for f in keep}
+    if not dev_graph.has_eps or config.eps_iters == 0:
+        for f in _EPS_FIELDS:
+            kw.pop(f, None)
     return config_for_graph(
         dev_graph,
         beam=config.beam,
@@ -284,3 +338,289 @@ def expand_emitting(
         arc_id=torch.cat([arc_blk.reshape(B, -1), arc_rem.reshape(B, -1)], dim=1),
         overflow=total > Ru,
     )
+
+
+def expand_eps(
+    st: StepState,
+    active: torch.Tensor,  # (B, K) bool
+    pg: PackedGraph,
+    cfg: FrontierConfig,
+) -> Candidates:
+    """Every eps arc of every active slot as a candidate lane: ``K * We``
+    block lanes, then ``eps_rem_budget`` remainder lanes of one arc each
+    for the arcs beyond We (there are no flat groups on the eps side).
+    Remainder lanes past the total keep the owner the lane map gives them
+    and cost +inf."""
+    K, W, R = cfg.frontier_size, cfg.eps_block_width, cfg.eps_rem_budget
+    states, costs = st.states, st.costs
+    B = states.shape[0]
+    dev = states.device
+    safe = torch.where(active, states, 0)
+
+    row = pg.eps_block[safe.long()]
+    row_lo = row[..., W * EPS_FIELDS]
+    deg = torch.where(active, row[..., W * EPS_FIELDS + 1], 0)
+    blk = row[..., : W * EPS_FIELDS].reshape(B, K, W, EPS_FIELDS)
+    w_arc = blk[..., 0].contiguous().view(torch.float32)
+    cost_blk = torch.where(active[..., None], costs[..., None] + w_arc, INF)
+    arc_blk = row_lo[..., None] + torch.arange(W, dtype=torch.int32, device=dev)
+    src_blk = torch.arange(K, dtype=torch.int32, device=dev)[:, None].expand(B, K, W)
+
+    rem_deg = (deg - W).clamp(min=0)
+    owner, starts, total = _owner_of_lanes(rem_deg, R)
+    own = owner.long()
+    j = torch.arange(R, dtype=torch.int32, device=dev)
+    valid = j < total[:, None]
+    arc_rem = (row_lo + W - starts).gather(1, own) + j
+    rows = pg.eps_flat[torch.where(valid, arc_rem, 0).long()]
+    cost_rem = torch.where(
+        valid, costs.gather(1, own) + rows[..., 0].contiguous().view(torch.float32), INF
+    )
+    return Candidates(
+        dst=torch.cat([blk[..., 1].reshape(B, -1), rows[..., 1]], dim=1),
+        cost=torch.cat([cost_blk.reshape(B, -1), cost_rem], dim=1),
+        src_slot=torch.cat([src_blk.reshape(B, -1), owner], dim=1),
+        src_state=torch.cat(
+            [safe[..., None].expand(B, K, W).reshape(B, -1), safe.gather(1, own)], dim=1
+        ),
+        arc_id=torch.cat([arc_blk.reshape(B, -1), arc_rem], dim=1),
+        overflow=total > R,
+    )
+
+
+class StepOut(NamedTuple):
+    """Per-frame outputs of the Viterbi frame step, (B, ...) each;
+    stacked over a chunk they gain a leading T."""
+
+    bp_emit: torch.Tensor  # (B, K, 2) int32: (prev_slot, emitting arc id)
+    bp_eps: torch.Tensor  # (B, D, K, 2) int32: per eps iteration
+    num_active: torch.Tensor  # (B,) int32
+    best_cost: torch.Tensor  # (B,) float32, absolute
+    cutoff: torch.Tensor  # (B,) float32, absolute cutoff used for expansion
+    overflow: torch.Tensor  # (B,) bool — any lane budget overflow this frame
+    # More distinct in-beam states than frontier slots: the frontier kept
+    # only its K cheapest, a hidden max_active=K the reference does not have.
+    saturated: torch.Tensor  # (B,) bool
+
+
+def _identity_bp(k: int, device) -> torch.Tensor:
+    """(K, 2) backpointers ``(slot, NO_ARC)``: every token carried over."""
+    slots = torch.arange(k, dtype=torch.int32, device=device)
+    return torch.stack([slots, torch.full_like(slots, NO_ARC)], dim=-1)
+
+
+def start_state(start: int, cfg: FrontierConfig, device) -> StepState:
+    """Frontier (B = 1) holding only the start token at cost 0
+    (`faster-decoder.cc:42-56` InitDecoding, before its eps closure)."""
+    K = cfg.frontier_size
+    states = torch.zeros((1, K), dtype=torch.int32, device=device)
+    costs = torch.full((1, K), INF, dtype=torch.float32, device=device)
+    states[0, 0] = start
+    costs[0, 0] = 0.0
+    return StepState(states, costs, torch.zeros((1,), dtype=torch.float32, device=device))
+
+
+def _backpointers(sel, cand_slot: torch.Tensor, cand_arc: torch.Tensor) -> torch.Tensor:
+    """(B, K, 2) ``(cand_slot, cand_arc)`` of each selected slot's winning
+    candidate; ``(0, NO_ARC)`` on empty slots."""
+    ok = sel.cand_idx >= 0
+    idx = torch.where(ok, sel.cand_idx, 0).long()
+    return torch.stack(
+        [
+            torch.where(ok, cand_slot.gather(1, idx), 0),
+            torch.where(ok, cand_arc.gather(1, idx), NO_ARC),
+        ],
+        dim=-1,
+    ).to(torch.int32)
+
+
+def eps_candidates(st: StepState, cutoff_rel: torch.Tensor, pg: PackedGraph,
+                   cfg: FrontierConfig):
+    """The candidate lanes of one eps relaxation: the K incumbents first,
+    then the eps arcs of the tokens at or under the cutoff, each with its
+    cost, or +inf above the cutoff.  Returns (state, cost, slot, arc)
+    (B, K + N_eps) and the expansion's overflow (B,)."""
+    K = cfg.frontier_size
+    B = st.states.shape[0]
+    cut = cutoff_rel[:, None]
+    active = torch.isfinite(st.costs) & (st.costs <= cut)
+    cand = expand_eps(st, active, pg, cfg)
+    ncost = torch.where(cand.cost <= cut, cand.cost, INF)
+    slots = torch.arange(K, dtype=torch.int32, device=st.states.device).expand(B, K)
+    return (
+        torch.cat([st.states, cand.dst], dim=1),
+        torch.cat([st.costs, ncost], dim=1),
+        torch.cat([slots, cand.src_slot], dim=1),
+        torch.cat([torch.full_like(slots, NO_ARC), cand.arc_id], dim=1),
+        cand.overflow,
+    )
+
+
+def eps_iteration(
+    st: StepState,
+    cutoff_rel: torch.Tensor,  # (B,)
+    pg: PackedGraph,
+    cfg: FrontierConfig,
+    num_states: int,
+):
+    """One epsilon relaxation of every row: expand the eps arcs of every
+    live token, merge with the incumbent frontier keeping per-state minima.
+
+    Reference semantics (`faster-decoder.cc:59-119`): tokens with cost >
+    cutoff are not expanded, new tokens with cost > cutoff are dropped,
+    and an incumbent is only replaced by a strictly cheaper token (the
+    incumbents go first, so K6's lowest-lane rule lets them win ties).
+    Returns (state, bp (B, K, 2), changed, overflow, saturated), the last
+    three (B,) bool."""
+    K = cfg.frontier_size
+    cand_state, cand_cost, cand_slot, cand_arc, overflow = eps_candidates(
+        st, cutoff_rel, pg, cfg
+    )
+    sel = dedup_select(cand_state, cand_cost, K, num_states)
+    bp = _backpointers(sel, cand_slot, cand_arc)
+    changed = ((sel.cand_idx >= 0) & (bp[..., 1] != NO_ARC)).any(dim=1)
+    sat = sel.num_unique > K
+    return StepState(sel.states, sel.costs, st.base), bp, changed, overflow, sat
+
+
+def eps_closure_batched(
+    st: StepState,  # (B, K)
+    cutoff_rel: torch.Tensor,  # (B,)
+    row_active: torch.Tensor,  # (B,) bool — rows past their length don't count
+    pg: PackedGraph,
+    cfg: FrontierConfig,
+    num_states: int,
+) -> Tuple[StepState, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Whole-batch epsilon closure, ``eps_iters`` iterations, no host sync.
+
+    The original's ``while_loop`` stops once no active row changed.  Here
+    every one of the ``eps_iters`` iterations runs, and the results are
+    those of the early exit, for this reason: an iteration that changes
+    nothing in a row had a dedup-sorted frontier as its input (the output
+    of a dedup/top-K) and no eps lane won a slot, so its output is that
+    same frontier; the next iteration then sees the same input and
+    returns the same frontier, identity backpointers on the live slots
+    and the same overflow and saturation flags, which the running OR
+    already holds.  Once every active row is unchanged, so is every later
+    iteration.  Two things are kept as the early exit leaves them: the
+    backpointers of an iteration the original never ran are the identity
+    ``(slot, NO_ARC)`` on every slot (a run iteration writes ``(0,
+    NO_ARC)`` on empty slots), which ``ran`` selects on the device; and
+    with ``eps_exact=False`` every active row is flagged when some active
+    row still changed at the last iteration.  Rows with ``row_active``
+    False may go on changing; the frame discards their results.
+
+    Returns (state, bp (B, D, K, 2), overflow (B,), saturated (B,))."""
+    K, D = cfg.frontier_size, cfg.eps_iters
+    B = st.states.shape[0]
+    dev = st.states.device
+    z = torch.zeros((B,), dtype=torch.bool, device=dev)
+    bps = torch.empty((B, D, K, 2), dtype=torch.int32, device=dev)
+    if D == 0:
+        return st, bps, z, z
+    ident = _identity_bp(K, dev)
+    ovf, sat = z, z
+    ran = torch.ones((), dtype=torch.bool, device=dev)
+    go = ran
+    for d in range(D):
+        st, bp, changed, o, s = eps_iteration(st, cutoff_rel, pg, cfg, num_states)
+        bps[:, d] = torch.where(ran, bp, ident)
+        ovf = ovf | (o & row_active)
+        sat = sat | (s & row_active)
+        go = (changed & row_active).any()
+        ran = ran & go
+    if not cfg.eps_exact:
+        ovf = ovf | (go & row_active)
+    return st, bps, ovf, sat
+
+
+def init_closure(pg: PackedGraph, start: int, num_states: int, cfg: FrontierConfig,
+                 device) -> Tuple[StepState, torch.Tensor]:
+    """InitDecoding's unbounded eps closure (`faster-decoder.cc:53`): the
+    batched closure with B = 1 and cutoff +inf.  Returns the (1, K)
+    frontier and its backpointers (D, K, 2)."""
+    st = start_state(start, cfg, device)
+    cut = torch.full((1,), INF, dtype=torch.float32, device=device)
+    active = torch.ones((1,), dtype=torch.bool, device=device)
+    st, bp, _, _ = eps_closure_batched(st, cut, active, pg, cfg, num_states)
+    return st, bp[0]
+
+
+def frame_emit_stage(
+    st: StepState,
+    scores_t: torch.Tensor,  # (B, V)
+    pg: PackedGraph,
+    cfg: FrontierConfig,
+    num_states: int,
+):
+    """Emitting stage of every row: GetCutoff, the expansion with the
+    beam filter (K1, with each lane's source slot), dedup and top-K (K6)
+    and the backpointer gather.
+
+    Returns (mid_state, bp_emit (B, K, 2), next_cutoff_rel, cutoff_abs,
+    overflow, saturated)."""
+    # Imported here: kernels.expand imports this module.
+    from kaldi_decoder_tpu_torch.kernels.expand import expand_filter
+
+    K = cfg.frontier_size
+    cut = get_cutoff(
+        st.costs, cfg.beam, cfg.max_active, cfg.min_active, cfg.beam_delta,
+        costs_sorted=True,
+    )
+    ex = expand_filter(
+        st.states, st.costs, cut.cutoff, cut.adaptive_beam, scores_t, pg, cfg,
+        with_src_slot=True,
+    )
+    sel = dedup_select(ex.dst, ex.cost, K, num_states)
+    bp_emit = _backpointers(sel, ex.src_slot, ex.arc_id)
+    mid = StepState(sel.states, sel.costs, st.base)
+    sat = sel.num_unique > K
+    return mid, bp_emit, ex.next_cutoff, st.base + cut.cutoff, ex.overflow, sat
+
+
+def frame_step_batched(
+    st: StepState,  # (B, K)
+    scores_t: torch.Tensor,  # (B, V)
+    frame_active: torch.Tensor,  # (B,) bool
+    pg: PackedGraph,
+    cfg: FrontierConfig,
+    num_states: int,
+) -> Tuple[StepState, StepOut]:
+    """Whole-batch Viterbi frame: emit stage, epsilon closure under the
+    emitting-stage cutoff (ProcessNonemitting(weight_cutoff),
+    `faster-decoder.cc:149-151`), rebase by each row's best cost, and the
+    freeze of rows whose utterance has ended (identity backpointers)."""
+    K = cfg.frontier_size
+    mid, bp_emit, next_cutoff, cutoff_abs, em_ovf, em_sat = frame_emit_stage(
+        st, scores_t, pg, cfg, num_states
+    )
+    mid, bp_eps, eps_ovf, eps_sat = eps_closure_batched(
+        mid, next_cutoff, frame_active, pg, cfg, num_states
+    )
+    m = mid.costs[:, 0]
+    m_safe = torch.where(torch.isfinite(m), m, 0.0)
+    fa = frame_active
+    final = StepState(
+        states=torch.where(fa[:, None], mid.states, st.states),
+        costs=torch.where(fa[:, None], mid.costs - m_safe[:, None], st.costs),
+        base=torch.where(fa, mid.base + m_safe, st.base),
+    )
+    ident = _identity_bp(K, st.states.device)
+    s0 = st.costs[:, 0]
+    out = StepOut(
+        bp_emit=torch.where(fa[:, None, None], bp_emit, ident),
+        bp_eps=torch.where(fa[:, None, None, None], bp_eps, ident),
+        # Counts ``mid``, before the rebase, as the original does.
+        num_active=torch.where(
+            fa,
+            torch.isfinite(mid.costs).sum(dim=1, dtype=torch.int32),
+            torch.isfinite(st.costs).sum(dim=1, dtype=torch.int32),
+        ),
+        best_cost=torch.where(
+            fa, mid.base + m_safe, st.base + torch.where(torch.isfinite(s0), s0, 0.0)
+        ),
+        cutoff=cutoff_abs,
+        overflow=fa & (em_ovf | eps_ovf),
+        saturated=fa & (em_sat | eps_sat),
+    )
+    return final, out

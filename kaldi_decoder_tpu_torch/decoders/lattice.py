@@ -275,7 +275,8 @@ class BatchedLatticeDecoder:
         if dev_graph.has_eps:
             raise NotImplementedError(
                 "the device graph keeps eps arcs (cyclic or negative eps, or "
-                "fold=False); the eps closure on the device is not ported "
+                "fold=False); the lattice decoder's eps path (the eps records "
+                "of the closure and the sweep's eps Bellman) is not ported "
                 "(ROADMAP Queue 1 item 10)"
             )
         fc = _cfg_for_device_graph(dev_graph, frontier)
@@ -285,7 +286,9 @@ class BatchedLatticeDecoder:
             dev_graph, fc, em_records=em_records, lattice_beam=self.lattice_beam
         )
         self.pad_time_to = pad_time_to
-        self._pg = pack_graph_device(dev_graph, fc.block_width, fc.flat_group, self.device)
+        self._pg = pack_graph_device(
+            dev_graph, fc.block_width, fc.eps_block_width, fc.flat_group, self.device
+        )
 
     def _init(self, batch: int):
         """Initial frontier (B, K) and its host copies (states, costs)."""

@@ -1,10 +1,10 @@
 """Flattened CSR decoding-graph representation (host side, numpy).
 
 A jax-free copy of ``kaldi_decoder_tpu/fst/csr.py`` (``GraphArrays``,
-``CsrGraph``, ``load_graph_npz`` and ``_eps_depth``), kept because
-importing the original imports jax.  ``compile_fst`` and the FST types
-are not copied: the port loads compiled graphs from ``.npz``.
-``tests/test_torch_host.py`` holds the copy equal to the original.
+``CsrGraph``, ``compile_fst``, ``load_graph_npz`` and ``_eps_depth``),
+kept because importing the original imports jax.
+``tests/test_torch_host.py`` and ``tests/test_torch_viterbi.py`` hold the
+copy equal to the original.
 
 Arcs are partitioned into emitting (ilabel > 0) and epsilon sub-CSRs;
 ``score_idx = ilabel - 1`` is stored per emitting arc, so the acoustic
@@ -18,6 +18,8 @@ import dataclasses
 from typing import NamedTuple, Optional
 
 import numpy as np
+
+from kaldi_decoder_tpu_torch.fst.fst import EPSILON, StdVectorFst
 
 
 class GraphArrays(NamedTuple):
@@ -56,6 +58,65 @@ class CsrGraph:
     @property
     def has_eps(self) -> bool:
         return self.num_eps_arcs > 0
+
+
+def compile_fst(fst: StdVectorFst) -> CsrGraph:
+    """Flatten a ``StdVectorFst`` into a :class:`CsrGraph`."""
+    if fst.start < 0:
+        raise ValueError("FST has no start state")
+    arrays = fst.to_arrays()
+    S = fst.num_states
+    row_ptr = arrays["row_ptr"]
+    il = arrays["ilabel"]
+    ol = arrays["olabel"]
+    w = arrays["weight"].astype(np.float32)
+    ns = arrays["nextstate"]
+
+    is_em = il != EPSILON
+    # Per-state counts for each partition.
+    state_of_arc = np.repeat(np.arange(S, dtype=np.int64), np.diff(row_ptr))
+    em_counts = np.bincount(state_of_arc[is_em], minlength=S)
+    eps_counts = np.bincount(state_of_arc[~is_em], minlength=S)
+
+    em_row_ptr = np.zeros(S + 1, dtype=np.int32)
+    em_row_ptr[1:] = np.cumsum(em_counts)
+    eps_row_ptr = np.zeros(S + 1, dtype=np.int32)
+    eps_row_ptr[1:] = np.cumsum(eps_counts)
+
+    # Stable partition keeps within-state arc order (same order the
+    # reference's ArcIterator sees them in).
+    em_sel = np.flatnonzero(is_em)
+    eps_sel = np.flatnonzero(~is_em)
+
+    em_ilabel = il[em_sel].astype(np.int32)
+    ga = GraphArrays(
+        em_row_ptr=em_row_ptr,
+        em_ilabel=em_ilabel,
+        em_olabel=ol[em_sel].astype(np.int32),
+        em_weight=w[em_sel],
+        em_next=ns[em_sel].astype(np.int32),
+        em_score_idx=(em_ilabel - 1).astype(np.int32),
+        eps_row_ptr=eps_row_ptr,
+        eps_olabel=ol[eps_sel].astype(np.int32),
+        eps_weight=w[eps_sel],
+        eps_next=ns[eps_sel].astype(np.int32),
+        final_cost=arrays["final"].astype(np.float32),
+    )
+
+    eps_depth = _eps_depth(S, eps_row_ptr, ga.eps_next)
+    em_deg = np.diff(em_row_ptr)
+    eps_deg = np.diff(eps_row_ptr)
+    return CsrGraph(
+        arrays=ga,
+        num_states=S,
+        num_emitting_arcs=int(len(em_sel)),
+        num_eps_arcs=int(len(eps_sel)),
+        start_state=int(fst.start),
+        eps_depth=eps_depth,
+        max_em_out_degree=int(em_deg.max()) if S else 0,
+        max_eps_out_degree=int(eps_deg.max()) if S else 0,
+        max_score_idx=int(em_ilabel.max() - 1) if len(em_sel) else -1,
+    )
 
 
 def load_graph_npz(path) -> CsrGraph:

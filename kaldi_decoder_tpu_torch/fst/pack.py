@@ -7,17 +7,19 @@ The layout is the JAX package's (``kaldi_decoder_tpu/fst/pack.py``):
   trailing ``[row_lo, deg]`` header;
 * ``em_flat (ceil(E/G), G*3)`` — all emitting arcs packed G per row for
   the remainder lanes (arcs beyond W of fat states); pad arcs carry +inf
-  weights.
+  weights;
+* ``eps_block (S, We*2 + 2)`` / ``eps_flat (E_eps, 2)`` — the same for eps
+  arcs, with fields ``[weight_bits, next]``; an eps-free graph gets the
+  empty tables the original gives it (all-padding blocks, no flat rows).
 
 Weights are float32 bit-cast into the int32 word.  Arc order in blocks
 matches the flat CSR order, so ``arc_id = row_ptr[s] + w`` for block lanes.
 
-Only the emitting tables are built: the port's device graph is eps-free,
-so the original's eps tables (and the row pointers and final costs,
-which no device code reads) are left out.  :func:`pack_graph` is a numpy
-copy of the original's ``pack_graph`` for these tables;
-:func:`pack_graph_device` uploads only the flat table and builds the
-block table on the given device, with the same result.
+The row pointers and final costs of the original's ``PackedGraph`` are
+left out: no device code reads them.  :func:`pack_graph` is a numpy copy
+of the original's ``pack_graph`` for these tables;
+:func:`pack_graph_device` uploads only the flat tables and builds the
+block tables on the given device, with the same result.
 """
 
 from __future__ import annotations
@@ -32,18 +34,21 @@ from kaldi_decoder_tpu_torch.fst.csr import CsrGraph
 INF_BITS = int(np.float32(np.inf).view(np.int32))
 
 EM_FIELDS = 3  # weight, next, score_idx
+EPS_FIELDS = 2  # weight, next
 FLAT_GROUP = 4
 
 
 class PackedGraph(NamedTuple):
-    """Packed emitting tables (numpy arrays or int32 tensors)."""
+    """Packed arc tables (numpy arrays or int32 tensors)."""
 
     em_block: object  # (S, W_em * 3 + 2) int32 — arcs + [row_lo, deg]
     em_flat: object  # (ceil(E_em/G), G*3) int32
+    eps_block: object  # (S, W_eps * 2 + 2) int32 — arcs + [row_lo, deg]
+    eps_flat: object  # (E_eps, 2) int32
 
 
 def _flat_tables(graph: CsrGraph, flat_group: int):
-    """(em_flat (E, 3), em_flat packed (ceil(E/G), G*3))."""
+    """(em_flat (E, 3), em_flat packed (ceil(E/G), G*3), eps_flat (E_eps, 2))."""
     ga = graph.arrays
     E = graph.num_emitting_arcs
     em_flat = (
@@ -61,7 +66,14 @@ def _flat_tables(graph: CsrGraph, flat_group: int):
     em_flat_p[:, 0] = INF_BITS
     em_flat_p[:, 1:] = 0
     em_flat_p[:E] = em_flat
-    return em_flat, em_flat_p.reshape(n_units, G * EM_FIELDS)
+    eps_flat = (
+        np.stack(
+            [np.ascontiguousarray(ga.eps_weight).view(np.int32), ga.eps_next], axis=1
+        ).astype(np.int32)
+        if graph.num_eps_arcs
+        else np.zeros((0, EPS_FIELDS), np.int32)
+    )
+    return em_flat, em_flat_p.reshape(n_units, G * EM_FIELDS), eps_flat
 
 
 def _blocks_numpy(row_ptr, flat, w: int, nfields: int):
@@ -80,13 +92,18 @@ def _blocks_numpy(row_ptr, flat, w: int, nfields: int):
     return np.concatenate([blk.reshape(S, w * nfields), hdr], axis=1)
 
 
-def pack_graph(graph: CsrGraph, w_em: int, flat_group: int = FLAT_GROUP) -> PackedGraph:
-    """Numpy packed tables (the emitting part of
-    ``kaldi_decoder_tpu.fst.pack.pack_graph``)."""
-    em_flat, em_flat_p = _flat_tables(graph, flat_group)
+def pack_graph(
+    graph: CsrGraph, w_em: int, w_eps: int, flat_group: int = FLAT_GROUP
+) -> PackedGraph:
+    """Numpy packed tables (``kaldi_decoder_tpu.fst.pack.pack_graph``
+    without the row pointers and final costs)."""
+    ga = graph.arrays
+    em_flat, em_flat_p, eps_flat = _flat_tables(graph, flat_group)
     return PackedGraph(
-        em_block=_blocks_numpy(graph.arrays.em_row_ptr, em_flat, w_em, EM_FIELDS),
+        em_block=_blocks_numpy(ga.em_row_ptr, em_flat, w_em, EM_FIELDS),
         em_flat=em_flat_p,
+        eps_block=_blocks_numpy(ga.eps_row_ptr, eps_flat, w_eps, EPS_FIELDS),
+        eps_flat=eps_flat,
     )
 
 
@@ -109,28 +126,33 @@ def _blocks_torch(row_ptr, flat, w: int, nfields: int):
     ).to(torch.int32).contiguous()
 
 
-def pack_graph_device(graph: CsrGraph, w_em: int, flat_group: int, device) -> PackedGraph:
+def pack_graph_device(
+    graph: CsrGraph, w_em: int, w_eps: int, flat_group: int, device
+) -> PackedGraph:
     """Packed tables as int32 tensors on ``device``.
 
-    Only the flat table is uploaded; the block table, which repeats the
-    flat arc data about W-fold, is built on the device.  The result
+    Only the flat tables are uploaded; the block tables, which repeat the
+    flat arc data about W-fold, are built on the device.  The result
     equals ``packed_from_numpy(pack_graph(...), device)``."""
-    _, em_flat_p = _flat_tables(graph, flat_group)
+    ga = graph.arrays
+    _, em_flat_p, eps_flat = _flat_tables(graph, flat_group)
 
     def up(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=torch.int32)
 
-    em_flat_t = up(em_flat_p)
+    em_flat_t, eps_flat_t = up(em_flat_p), up(eps_flat)
     return PackedGraph(
-        em_block=_blocks_torch(up(graph.arrays.em_row_ptr), em_flat_t, w_em, EM_FIELDS),
+        em_block=_blocks_torch(up(ga.em_row_ptr), em_flat_t, w_em, EM_FIELDS),
         em_flat=em_flat_t,
+        eps_block=_blocks_torch(up(ga.eps_row_ptr), eps_flat_t, w_eps, EPS_FIELDS),
+        eps_flat=eps_flat_t,
     )
 
 
 def packed_from_numpy(pg, device) -> PackedGraph:
-    """Carry the emitting tables of any ``PackedGraph``-shaped tuple (the
-    JAX package's device tables, or :func:`pack_graph`'s) onto ``device``
-    as tensors."""
+    """Carry the tables of any ``PackedGraph``-shaped tuple (the JAX
+    package's device tables, or :func:`pack_graph`'s) onto ``device`` as
+    tensors."""
     return PackedGraph(
         *(
             torch.from_numpy(np.array(np.asarray(getattr(pg, f)))).to(device)

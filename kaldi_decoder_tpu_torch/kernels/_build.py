@@ -96,8 +96,8 @@ def stream(device) -> ctypes.c_void_p:
 
 @functools.lru_cache(maxsize=None)
 def kernels() -> ctypes.CDLL:
-    """The CUDA kernel library (row gather, K1 expansion, K4 sweep),
-    built on first use."""
+    """The CUDA kernel library (row gather, K1 expansion, K4 sweep, K6
+    dedup), built on first use."""
     sources = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
     path = build_library(
         "kdtorch_kernels",
@@ -111,7 +111,11 @@ def kernels() -> ctypes.CDLL:
     lib.kd_row_gather.restype = _I
     lib.kd_row_gather.argtypes = [_P, _P, _L, _I, _I, _P, _P]
     lib.kd_expand.restype = _I
-    lib.kd_expand.argtypes = [_P] * 8 + [_I] * 7 + [_P] * 11 + [_P]
+    lib.kd_expand.argtypes = [_P] * 8 + [_I] * 7 + [_P] * 12 + [_P]
     lib.kd_sweep.restype = _I
     lib.kd_sweep.argtypes = [_P] * 5 + [_I] * 7 + [_F, _F] + [_P] * 7 + [_P]
+    lib.kd_dedup.restype = _I
+    lib.kd_dedup.argtypes = [_P, _P] + [_I] * 4 + [_P] * 7 + [_P]
+    lib.kd_dedup_smem_bytes.restype = _L
+    lib.kd_dedup_smem_bytes.argtypes = [_I, _I]
     return lib

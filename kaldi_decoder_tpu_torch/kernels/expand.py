@@ -3,14 +3,16 @@
 :func:`expand_filter` is the frame's expansion region: the active slots
 of a cost-sorted frontier (cost < cutoff) expand into candidate lanes
 with cost ``(alpha + w) + (-score)``, and lanes at or above
-``min(cost) + adaptive_beam`` are set to +inf.  On a CPU tensor it runs
+``min(cost) + adaptive_beam`` are set to +inf.  With ``with_src_slot`` it
+also gives each lane's source frontier slot (the Viterbi backpointer's
+first half); the lattice path leaves it out.  On a CPU tensor it runs
 the plain torch version, :func:`expand_filter_plain`; on a CUDA tensor it
 launches ``csrc/expand.cu`` or raises.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -33,6 +35,7 @@ class Expansion(NamedTuple):
     arc_id: torch.Tensor  # (B, N) int32
     overflow: torch.Tensor  # (B,) bool — remainder lane budget exceeded
     next_cutoff: torch.Tensor  # (B,) float32 — min(cost) + adaptive_beam
+    src_slot: Optional[torch.Tensor] = None  # (B, N) int32 with with_src_slot
 
 
 def expand_filter_plain(
@@ -43,6 +46,7 @@ def expand_filter_plain(
     scores_t: torch.Tensor,  # (B, V) float32
     pg: PackedGraph,
     fc: FrontierConfig,
+    with_src_slot: bool = False,
 ) -> Expansion:
     active = torch.isfinite(costs) & (costs < cutoff[:, None])
     cand = expand_emitting(StepState(states, costs, None), active, scores_t, pg, fc)
@@ -55,16 +59,21 @@ def expand_filter_plain(
         arc_id=cand.arc_id,
         overflow=cand.overflow,
         next_cutoff=next_cutoff,
+        src_slot=cand.src_slot if with_src_slot else None,
     )
 
 
-def expand_filter(states, costs, cutoff, adaptive_beam, scores_t, pg, fc) -> Expansion:
+def expand_filter(
+    states, costs, cutoff, adaptive_beam, scores_t, pg, fc, with_src_slot: bool = False
+) -> Expansion:
     """K1 on the tensors' device: plain torch on the CPU, the CUDA kernels
     on a card (the row gather of each slot's em_block row, then
     ``csrc/expand.cu``).  ``expand_filter.launches`` counts K1 launches."""
     dev = states.device
     if dev.type == "cpu":
-        return expand_filter_plain(states, costs, cutoff, adaptive_beam, scores_t, pg, fc)
+        return expand_filter_plain(
+            states, costs, cutoff, adaptive_beam, scores_t, pg, fc, with_src_slot
+        )
     if dev.type != "cuda":
         raise ValueError(f"expand_filter runs on cpu or cuda tensors, not {dev}")
     B, K = states.shape
@@ -98,6 +107,7 @@ def expand_filter(states, costs, cutoff, adaptive_beam, scores_t, pg, fc) -> Exp
         arc_id=torch.empty((B, N), **i32),
         overflow=torch.empty((B,), dtype=torch.bool, device=dev),
         next_cutoff=torch.empty((B,), dtype=torch.float32, device=dev),
+        src_slot=torch.empty((B, N), **i32) if with_src_slot else None,
     )
     rc = kernels().kd_expand(
         ptr(states), ptr(costs), ptr(cutoff), ptr(adaptive_beam),
@@ -105,6 +115,7 @@ def expand_filter(states, costs, cutoff, adaptive_beam, scores_t, pg, fc) -> Exp
         B, K, KE, W, G, Ru, V,
         ptr(starts), ptr(n_units), ptr(total), ptr(last_nz), ptr(minkey),
         ptr(out.dst), ptr(out.cost), ptr(out.src_state), ptr(out.arc_id),
+        ptr(out.src_slot) if with_src_slot else None,
         ptr(out.overflow), ptr(out.next_cutoff), stream(dev),
     )
     if rc != 0:

@@ -1,12 +1,14 @@
-"""The C++ ShortestPath of the host library, for the 1-best.
+"""The C++ ShortestPath and backpointer walk of the host library.
 
 The JAX package's host library (``kaldi_decoder_tpu/native/csrc/kdtpu_host.cc``)
 is compiled here from that source file with ``g++`` into
 ``kaldi_decoder_tpu_torch/_build/`` at first use; the file is read as a
-source and nothing of the JAX package is imported.  Only
-``kd_shortest_path`` is bound, so the port's 1-best is the same
+source and nothing of the JAX package is imported.  Two entry points are
+bound: ``kd_shortest_path``, so the lattice decoder's 1-best is the same
 ShortestPath (with the LatticeWeight natural-order tie-break) as the JAX
-decoder's.  A failed build raises.
+decoder's, and ``kd_backtrace``, the Viterbi decoder's walk of its
+backpointers (`faster-decoder.cc:393-406`).  A failed build raises; there
+is no Python fallback.
 """
 
 from __future__ import annotations
@@ -39,7 +41,40 @@ def host_library() -> ctypes.CDLL:
     lib.kd_shortest_path.argtypes = [
         _i64, _i64, _i32p, _f32p, _f32p, _i32p, _f32p, _f32p, _i64, _i32p, _i64,
     ]
+    lib.kd_backtrace.restype = _i64
+    lib.kd_backtrace.argtypes = [_i64, _i64, _i64, _i64, _i64, _i32p, _i32p, _i32p, _i32p, _i64]
     return lib
+
+
+def backtrace(
+    slot0: int,
+    bp_init: np.ndarray,  # (D_init, K, 2) int32
+    bp_emit: np.ndarray,  # (T, K, 2) int32
+    bp_eps: np.ndarray,  # (T, D, K, 2) int32
+) -> Optional[np.ndarray]:
+    """Walk backpointers from frontier slot ``slot0`` of the last frame;
+    returns (n, 3) int32 ``(is_eps, arc_id, frame)`` in forward order, or
+    None on a dead slot (search failure).  The signature and capacity rule
+    of ``kaldi_decoder_tpu.native.backtrace``."""
+    lib = host_library()
+    T, K = bp_emit.shape[0], bp_emit.shape[1]
+    D = bp_eps.shape[1] if bp_eps.ndim == 4 else 0
+    D_init = bp_init.shape[0] if bp_init.size else 0
+    cap = 3 * (T + D_init + T * D + 1)
+    out = np.empty((cap, 3), np.int32)
+
+    def flat(a):
+        return np.ascontiguousarray(a, np.int32).reshape(-1) if a.size else np.zeros(1, np.int32)
+
+    n = lib.kd_backtrace(
+        T, K, D, D_init, slot0, flat(bp_init), flat(bp_emit), flat(bp_eps),
+        out.reshape(-1), cap,
+    )
+    if n == -1:
+        return None
+    if n < 0:
+        raise RuntimeError("kd_backtrace capacity error")
+    return out[:n]
 
 
 def shortest_path_arrays(

@@ -1,22 +1,25 @@
 """Dedup by state, top-K frontier selection and lattice records, batched.
 
 The torch counterpart of ``kaldi_decoder_tpu/ops/segment.py``
-(``_sort_by_state``, ``_select``, ``dedup_select_rec``, ``score_lookup``)
-on (B, N) candidate arrays.  Record order decides which links a full
+(``_sort_by_state``, ``_select``, ``dedup_select``, ``dedup_select_rec``,
+``score_lookup``) on (B, N) candidate arrays.  Record order decides which links a full
 record buffer keeps, so the tie rules of the original are kept exactly:
 
 * the stable 2-key sort by (state, cost) is two stable sorts, by cost
   and then by state, so equal (state, cost) pairs keep candidate order;
 * ``lax.top_k`` keeps the lower index on ties, which is what a stable
   ascending sort of the leader costs gives (``torch.topk`` promises no
-  order on ties);
+  order on ties); its float order puts -0.0 below +0.0, where the sorts
+  take them as equal, so the leader costs are sorted by their IEEE
+  total-order keys;
 * extras are ordered by slack with a stable sort, so equal slacks keep
   the state-sorted order;
 * the segmented forward fill of each run's minimum is a gather at the
   index of the lane's run leader.
 
-This is the plain-torch version of the frame's dedup/select region on
-every device.
+:func:`dedup_select_rec` is the plain-torch version of the lattice
+frame's dedup/select region on every device; :func:`dedup_select` is the
+plain version of K6 (:mod:`kaldi_decoder_tpu_torch.kernels.dedup`).
 """
 
 from __future__ import annotations
@@ -26,6 +29,13 @@ from typing import NamedTuple, Tuple
 import torch
 
 INF = float("inf")
+
+
+class Selection(NamedTuple):
+    states: torch.Tensor  # (B, K) int32 — new frontier, cost-sorted
+    costs: torch.Tensor  # (B, K) float32 — +inf for empty slots
+    cand_idx: torch.Tensor  # (B, K) int32 — winning candidate lane, -1 if empty
+    num_unique: torch.Tensor  # (B,) int32 — distinct in-beam states
 
 
 class SelectionRec(NamedTuple):
@@ -49,7 +59,10 @@ def _sort_by_state(cand_state, cand_cost, num_states: int, payload):
     ``num_states`` and sink to the end.  Returns (s2, c2, pay2, leader):
     the first lane of each equal-state run is its per-state minimum."""
     skey = torch.where(torch.isfinite(cand_cost), cand_state, num_states)
-    _, by_cost = torch.sort(cand_cost, dim=1, stable=True)
+    # The original's sort comparator takes -0.0 and +0.0 as equal; fold
+    # them so that no backend's float sort tells them apart.
+    ckey = torch.where(cand_cost == 0, 0.0, cand_cost)
+    _, by_cost = torch.sort(ckey, dim=1, stable=True)
     s2, by_state = torch.sort(skey.gather(1, by_cost), dim=1, stable=True)
     perm = by_cost.gather(1, by_state)
     c2 = cand_cost.gather(1, perm)
@@ -59,18 +72,51 @@ def _sort_by_state(cand_state, cand_cost, num_states: int, payload):
     return s2, c2, pay2, leader
 
 
+def _total_order(x: torch.Tensor) -> torch.Tensor:
+    """int32 keys of float32 values in IEEE total order (-0.0 below +0.0),
+    the order of ``lax.top_k``."""
+    b = x.contiguous().view(torch.int32)
+    return torch.where(b < 0, b ^ 0x7FFFFFFF, b)
+
+
 def _select(s2, c2, leader, k: int, num_states: int):
     """The K cheapest run leaders form the new frontier.  Returns
     (states, costs, num_unique, pos) with ``pos`` the winners' sorted
     positions."""
     lcost = torch.where(leader & (s2 < num_states), c2, INF)
-    sorted_cost, pos = torch.sort(lcost, dim=1, stable=True)
-    costs = sorted_cost[:, :k]
+    _, pos = torch.sort(_total_order(lcost), dim=1, stable=True)
     pos = pos[:, :k]
+    costs = lcost.gather(1, pos)
     live = torch.isfinite(costs)
     states = torch.where(live, s2.gather(1, pos), 0).to(torch.int32)
     num_unique = torch.isfinite(lcost).sum(dim=1, dtype=torch.int32)
     return states, costs, num_unique, pos
+
+
+def dedup_select(
+    cand_state: torch.Tensor,  # (B, N) int32
+    cand_cost: torch.Tensor,  # (B, N) float32, +inf == invalid
+    k: int,
+    num_states: int,
+) -> Selection:
+    """Per-state min-cost dedup, then the K cheapest states, with each
+    slot's winning lane (the original's ``need_idx=True`` call).  A
+    state's winner is its cheapest lane, the lowest lane among equal
+    costs; the frontier is ordered by (cost, state).  With fewer than K
+    lanes the frontier is padded as an empty slot is (state 0, +inf,
+    lane -1)."""
+    B, n = cand_cost.shape
+    lane = torch.arange(n, dtype=torch.int32, device=cand_cost.device).expand(B, n)
+    s2, c2, (i2,), leader = _sort_by_state(cand_state, cand_cost, num_states, (lane,))
+    states, costs, num_unique, pos = _select(s2, c2, leader, k, num_states)
+    live = torch.isfinite(costs)
+    cand_idx = torch.where(live, i2.gather(1, pos), -1).to(torch.int32)
+    if n < k:
+        pad = k - n
+        states = torch.nn.functional.pad(states, (0, pad))
+        costs = torch.nn.functional.pad(costs, (0, pad), value=INF)
+        cand_idx = torch.nn.functional.pad(cand_idx, (0, pad), value=-1)
+    return Selection(states, costs, cand_idx, num_unique)
 
 
 def dedup_select_rec(

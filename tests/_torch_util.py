@@ -55,11 +55,13 @@ def twin_configs(jax_graph, port_graph, **kw):
 
 
 def assert_same_config(jfc, pfc):
-    """Every field of the port's config equals the JAX one's, and the JAX
-    config runs no eps closure (the port's device graph is eps-free)."""
+    """Every field of the port's config equals the JAX one's, and the
+    config runs no eps closure (the lattice path's device graph is
+    eps-free)."""
     for f in (
         "beam", "max_active", "min_active", "beam_delta", "frontier_size",
-        "block_width", "rem_budget", "flat_group",
+        "block_width", "rem_budget", "eps_block_width", "eps_rem_budget",
+        "flat_group", "eps_iters", "eps_exact",
     ):
         assert getattr(jfc, f) == getattr(pfc, f), f
     assert jfc.eps_iters == 0

@@ -65,12 +65,11 @@ def test_csr_load_and_eps_depth(name, tmp_path):
     ("hlg", 3, 1, 4), ("hlg", 5, 2, 8), ("noeps", 4, 1, 4),
 ])
 def test_pack_matches_jax(name, w_em, w_eps, group):
+    """The port packs the original's emitting and eps tables."""
     jg, pg = _graphs()[name]
-    """The port packs the original's emitting tables (its device graph is
-    eps-free, so the eps tables are not built)."""
     ref = jpack.pack_graph(jg, w_em, w_eps, group)
-    host = ppack.pack_graph(pg, w_em, group)
-    dev = ppack.pack_graph_device(pg, w_em, group, "cpu")
+    host = ppack.pack_graph(pg, w_em, w_eps, group)
+    dev = ppack.pack_graph_device(pg, w_em, w_eps, group, "cpu")
     jdev = ppack.packed_from_numpy(jpack.pack_graph_device(jg, w_em, w_eps, group), "cpu")
     for f, h, d, j in zip(ppack.PackedGraph._fields, host, dev, jdev):
         r = np.asarray(getattr(ref, f))

@@ -21,10 +21,12 @@ from kaldi_decoder_tpu_torch.decoders.lattice_dev import (
 )
 from kaldi_decoder_tpu_torch.decoders.sweep import sweep_config, sweep_plain
 from kaldi_decoder_tpu_torch.fst.csr import CsrGraph, GraphArrays
+from kaldi_decoder_tpu_torch.kernels.dedup import dedup_select
 from kaldi_decoder_tpu_torch.kernels.expand import expand_filter, expand_filter_plain
 from kaldi_decoder_tpu_torch.kernels.gather import row_gather, row_gather_plain
 from kaldi_decoder_tpu_torch.kernels.sweep import sweep_chunk
 from kaldi_decoder_tpu_torch.ops.cutoff import get_cutoff
+from kaldi_decoder_tpu_torch.ops.segment import dedup_select as dedup_select_plain
 
 B, T, V = 3, 24, 16
 
@@ -104,6 +106,9 @@ def test_expand_kernel_matches_plain(card, rem_budget):
         got = expand_filter(*args)
         torch.cuda.synchronize()
         for name, r, g in zip(ref._fields, ref, got):
+            if r is None:  # src_slot: not asked for
+                assert g is None
+                continue
             if r.dtype == torch.float32:
                 r, g = _bits(r), _bits(g)
             assert torch.equal(r, g), (t, name)
@@ -138,3 +143,73 @@ def test_sweep_kernel_matches_plain(card, small_caps):
         n, m = int(ref.tok_count[b]), int(ref.em_count[b])
         assert torch.equal(ref.tok_rows[b, :n], got.tok_rows[b, :n])
         assert torch.equal(ref.em_rows[b, :m], got.em_rows[b, :m])
+
+
+@pytest.mark.cuda
+def test_expand_kernel_src_slot_matches_plain(card):
+    """K1 with the source-slot output (the Viterbi path's call)."""
+    dec = _decoder(card, 16)  # remainder overflow: invalid remainder lanes too
+    fc = dec.cfg.frontier
+    st, _, _ = dec._init(B)
+    sc = _scores(card)
+    for t in range(6):
+        cut = get_cutoff(st.costs, fc.beam, fc.max_active, fc.min_active,
+                         fc.beam_delta, costs_sorted=True)
+        args = (st.states, st.costs, cut.cutoff, cut.adaptive_beam, sc[t], dec._pg, fc)
+        ref = expand_filter_plain(*args, with_src_slot=True)
+        got = expand_filter(*args, with_src_slot=True)
+        torch.cuda.synchronize()
+        assert torch.equal(ref.src_slot, got.src_slot), t
+        assert torch.equal(_bits(ref.cost), _bits(got.cost)), t
+        st, _ = lattice_frame_step_batched(
+            st, sc[t], torch.ones(B, dtype=torch.bool, device=card), dec._pg,
+            dec.cfg, dec._dev_graph.num_states,
+        )
+
+
+def _dedup_inputs(seed, N, K, S, n_valid, incumbents):
+    """(B, N) lanes with quantised costs (ties), a -0.0 cost, garbage
+    states on invalid lanes and, with ``incumbents``, a sorted frontier
+    in the first K lanes."""
+    rng = np.random.default_rng(seed)
+    states = rng.integers(0, S, (B, N)).astype(np.int32)
+    costs = np.full((B, N), np.inf, np.float32)
+    lo = K if incumbents else 0
+    for b in range(B):
+        lanes = lo + rng.choice(N - lo, size=min(n_valid, N - lo), replace=False)
+        costs[b, lanes] = rng.integers(0, 40, len(lanes)) * 0.25
+        costs[b, lanes[0]] = -0.0
+    states[~np.isfinite(costs)] = rng.integers(-5, 10 * S, int((~np.isfinite(costs)).sum()))
+    if incumbents:
+        for b in range(B):
+            n = K // 2 + b
+            st = rng.choice(S, size=n, replace=False)
+            co = np.sort(rng.integers(0, 20, n) * 0.25).astype(np.float32)
+            order = np.lexsort((st, co))
+            states[b, :K], costs[b, :K] = 0, np.inf
+            states[b, :n], costs[b, :n] = st[order], co[order]
+    return states, costs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,K,S,n_valid,incumbents", [
+    (3000, 64, 500, 2500, False),  # more states than K: radix select
+    (3000, 64, 500, 40, False),  # fewer states than K
+    (3000, 64, 500, 2500, True),  # incumbents first (an eps iteration)
+    (20, 64, 500, 15, False),  # fewer lanes than K
+    (5000, 4096, 100, 4000, False),  # fewer states than lanes, K > S
+    (60000, 4096, 102298, 50000, False),  # the bench's emitting shape
+])
+def test_dedup_kernel_matches_plain(card, N, K, S, n_valid, incumbents):
+    states, costs = _dedup_inputs(N + K, N, K, S, n_valid, incumbents)
+    st, co = torch.from_numpy(states).to(card), torch.from_numpy(costs).to(card)
+    ref = dedup_select_plain(st, co, K, S)
+    before = dedup_select.launches
+    for _ in range(2):  # a second call gives the same result
+        got = dedup_select(st, co, K, S)
+        torch.cuda.synchronize()
+        assert torch.equal(ref.states, got.states)
+        assert torch.equal(_bits(ref.costs), _bits(got.costs))
+        assert torch.equal(ref.cand_idx, got.cand_idx)
+        assert torch.equal(ref.num_unique, got.num_unique)
+    assert dedup_select.launches == before + 2

@@ -141,7 +141,8 @@ def test_expand_filter_matches_jax(rem_budget):
     wrapped = expand_filter(*args)
     assert expand_filter.launches == before == 0
     for a, b in zip(wrapped, got):
-        assert torch.equal(a, b)
+        # src_slot is None unless asked for (the lattice path's call).
+        assert (a is None and b is None) or torch.equal(a, b)
 
 
 @pytest.mark.parametrize("r", [12, 40, 400])  # r <= k, r > k, r > n
