@@ -31,8 +31,12 @@ Phases (any failure raises, and the process exits non-zero):
      streaming decoder, at its shapes (B=1); each held against its plain
      torch version (bitwise:
      every float operation on the path is an add, subtract, compare or
-     min in the same order) and timed with CUDA events around the wrapper
-     call (median of 10; host enqueue included);
+     min in the same order) and timed: device time per call (calls queued
+     back to back, CUDA events), wrapper time (CUDA events around one
+     call, host enqueue included), the call's bound (bytes over the
+     memory rate, operations over the float32 rate) and the share of it
+     reached; the row gather also against ``torch.index_select``, and
+     K1's call split by device activity (profiler);
   3. lattice path: ``BatchedLatticeDecoder.decode`` with the launch
      counters set to 0 just before; the row gather and K1 must launch
      once per frame and K4 once per chunk; the 1-best labels, per-frame
@@ -52,8 +56,9 @@ Phases (any failure raises, and the process exits non-zero):
      per frame plus eps_iters times per ``init_decoding``; the same
      fields must equal the JAX reference; prints ms per frame.
 The line before the last is a JSON object with each kernel's launches
-(summed over the counted runs of phases 3-5, and by phase), error and
-times; the last is ``{"ok": true, "device": {...}}``.
+(summed over the counted runs of phases 3-5, and by phase), error,
+times, bound and library-call time; the last is ``{"ok": true,
+"device": {...}}``.
 
     python3 chip_smoke.py
 """
@@ -132,8 +137,17 @@ def bench_workload():
     return graph, scores, lengths, refs
 
 
+def card_line():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
 def cuda_ms(fn, reps=TIMING_REPS):
-    """Median milliseconds of ``fn`` on the current stream (CUDA events),
+    """Median milliseconds of one call of ``fn`` on the current stream (CUDA
+    events around the call, so host enqueue and allocation are included),
     after one warm-up call."""
     import torch
 
@@ -148,6 +162,175 @@ def cuda_ms(fn, reps=TIMING_REPS):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def _queue_calls(fn, reps):
+    """Hold the stream with a sleep kernel long enough for the host to
+    queue ``reps`` calls of ``fn`` behind it, so that the device runs them
+    back to back and no host time shows between them."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    # About 2e6 cycles per ms at the card's boost clock; a slower clock
+    # only sleeps longer.
+    torch.cuda._sleep(int((1.5 * host_ms * reps + 1.0) * 2e6))
+
+
+def device_ms(fn, reps=TIMING_REPS):
+    """Device milliseconds per call of ``fn``, the calls run back to back
+    (CUDA events around ``reps`` queued calls): kernel time and the gaps
+    between the call's kernels, without host enqueue."""
+    import torch
+
+    _queue_calls(fn, reps)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def kernel_split(fn, reps=TIMING_REPS):
+    """The device activities of one call of ``fn`` in launch order, the
+    calls queued back to back as in :func:`device_ms`, from the profiler's
+    trace: ``[(name, mean µs, mean µs idle before it), ...]``; the first
+    entry's idle time is the gap after the previous call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _queue_calls(fn, reps)
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evs = sorted((e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.name),
+                 key=lambda e: e.time_range.start)
+    # The queued calls are the trace's last activities, and a call's
+    # activities are the period of their names.  What comes before them
+    # is not counted on: the trace can miss its first activities.
+    names = [e.name for e in evs]
+    n = next((p for p in range(1, len(evs) // reps + 1)
+              if all(names[-p * reps + i] == names[-p * reps + i + p]
+                     for i in range(p * (reps - 1)))), 0)
+    if n == 0:
+        raise AssertionError(f"no call of repeating activities in {len(evs)} for {reps} "
+                             "calls: " + ", ".join(e.name[:30] for e in evs[-12:]))
+    evs = evs[-n * reps:]
+    out = []
+    for p in range(n):
+        us = [evs[c * n + p].time_range.end - evs[c * n + p].time_range.start
+              for c in range(reps)]
+        gaps = [evs[c * n + p].time_range.start - evs[c * n + p - 1].time_range.end
+                for c in range(reps) if c * n + p > 0]
+        out.append((evs[p].name, statistics.mean(us), statistics.mean(gaps) if gaps else 0.0))
+    return out
+
+
+def format_split(split):
+    return "; ".join(f"{name[:40]} {us:.2f} µs (idle before {gap:.2f})"
+                     for name, us, gap in split)
+
+
+# The least time the card could take for a call's work: the larger of its
+# bytes (each input read once, each output written once) over the memory
+# rate and its operations over the float32 rate.  H100 SXM peaks at the
+# 700 W limit (NVIDIA's data sheet): 3.35 TB/s, 67 TFLOP/s float32 outside
+# the tensor cores.
+HBM_BYTES_PER_MS = 3.35e9
+FP32_OPS_PER_MS = 67e9
+
+
+def bound_ms(nbytes, nops):
+    """(ms, "bytes" or "operations") for a call's bytes and operations."""
+    b, o = nbytes / HBM_BYTES_PER_MS, nops / FP32_OPS_PER_MS
+    return (b, "bytes") if b >= o else (o, "operations")
+
+
+def gather_work(table, idx):
+    """Bytes and operations of a row gather: the indices, each distinct
+    row read once, every gathered row written."""
+    import torch
+
+    width = table.shape[1] * table.element_size()
+    rows = int(torch.unique(idx).numel())
+    return idx.numel() * 4 + rows * width + idx.numel() * width, 0
+
+
+def k1_work(states, costs, cutoff, adaptive_beam, scores_t, pg, fc, with_src_slot=False):
+    """Bytes and operations of one K1 call (row gather included): the
+    frontier prefix it reads, the em_block rows of the active slots, the
+    em_flat units the active slots' remainders use (capped at the budget),
+    the scores; every output lane written."""
+    import torch
+
+    from kaldi_decoder_tpu_torch.fst.pack import EM_FIELDS
+    from kaldi_decoder_tpu_torch.kernels.expand import remainder_units
+
+    KE, G, Ru, N = fc.expand_lanes, fc.flat_group, fc.rem_units, fc.num_candidates
+    B, V = scores_t.shape
+    c = costs[:, :KE]
+    n_act = int((torch.isfinite(c) & (c < cutoff[:, None])).sum())
+    units = int(remainder_units(states, costs, cutoff, pg, fc).clamp(max=Ru).sum())
+    outs = 5 if with_src_slot else 4
+    nbytes = (B * KE * 4 + n_act * 4 + B * 8 + B * V * 4 + n_act * pg.em_block.shape[1] * 4
+              + units * G * EM_FIELDS * 4 + outs * B * N * 4 + B * 5)
+    return nbytes, 3 * B * N  # two adds and a compare per lane
+
+
+def k4_work(fstates, fcosts, em, init_states, rem, out):
+    """Bytes and operations of one K4 chunk: of the frames an utterance
+    still emits (t < min(rem, T)), the live frontier slots (state and
+    cost) and the valid records; the chunk-entry states; the survivor rows
+    and counts written."""
+    import torch
+
+    T, B, K = fstates.shape
+    need = torch.arange(T, device=rem.device)[:, None] < rem.clamp(max=T)[None, :]
+    live = int((torch.isfinite(fcosts) & need[..., None]).sum())
+    valid = int(((em[..., 1] >= 0) & need[..., None]).sum())
+    kept = int(out.tok_count.sum()) + int(out.em_count.sum())
+    nbytes = live * 8 + valid * 16 + B * K * 4 + B * 4 + kept * 12 + B * 9
+    return nbytes, live + 3 * valid
+
+
+def k6_work(costs, K):
+    """Bytes and operations of one K6 call on (B, N) lane costs: every
+    lane's cost, the state of every finite lane, the (B, K) frontier and
+    winning lanes written."""
+    import torch
+
+    B, N = costs.shape
+    fin = int(torch.isfinite(costs).sum())
+    return B * N * 4 + fin * 4 + 3 * B * K * 4 + B * 4, 2 * fin
+
+
+def time_kernel(name, kern, plain, work, reps=TIMING_REPS, library=None):
+    """A kernel's wrapper against its plain version on the same inputs:
+    device time per call (:func:`device_ms`) and wrapper time
+    (:func:`cuda_ms`, host enqueue included) of each, the bound of the
+    call's ``work`` (bytes, operations) and, where one PyTorch call
+    computes the same function, that call's device time.  Logs them and
+    returns the kernels line's fields."""
+    t = dict(ms=device_ms(kern, reps), plain_ms=device_ms(plain, reps),
+             wrapper_ms=cuda_ms(kern, reps), plain_wrapper_ms=cuda_ms(plain, reps),
+             library_ms=device_ms(library, reps) if library else None)
+    t["bound_ms"], t["bound_by"] = bound_ms(*work)
+    t["share_of_bound"] = t["bound_ms"] / t["ms"]
+    lib = f", one PyTorch call {t['library_ms']:.4f}" if library else ""
+    log(f"  {name}: device {t['ms']:.4f} ms per call (plain {t['plain_ms']:.4f}{lib}); "
+        f"bound {t['bound_ms']:.4f} ms by {t['bound_by']} ({work[0] / 1e6:.2f} MB), "
+        f"{t['share_of_bound']:.1%} of it reached; wrapper {t['wrapper_ms']:.4f} ms "
+        f"(plain {t['plain_wrapper_ms']:.4f})")
+    return t
 
 
 def float_bits_equal(a, b):
@@ -188,6 +371,14 @@ def same_selection(ref, got, where):
     return float((ref.costs[fin] - got.costs[fin]).abs().max()) if fin.any() else 0.0
 
 
+def k1_clusters(fc, nb):
+    """The blocks per cluster K1 launches with for ``nb`` utterances."""
+    from kaldi_decoder_tpu_torch.kernels._build import kernels
+
+    return kernels().kd_expand_cluster(nb, fc.expand_lanes, fc.block_width, fc.flat_group,
+                                       fc.rem_units)
+
+
 def check_k1(dec, scores_tm):
     """K1 against its plain version on the frontiers of real frames."""
     import torch
@@ -214,12 +405,14 @@ def check_k1(dec, scores_tm):
             overflowed += int(ref.overflow.sum())
             timed_args = args
         st, _ = lattice_frame_step_batched(st, scores_tm[t], active, dec._pg, dec.cfg, S)
-    ms = cuda_ms(lambda: expand_filter(*timed_args))
-    plain_ms = cuda_ms(lambda: expand_filter_plain(*timed_args))
     log(f"K1 expand (row gather + K1): equal to plain on frames {list(K1_FRAMES)} "
-        f"(B={B}, lanes/utt={fc.num_candidates}, remainder overflows seen={overflowed}); "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (frame {max(K1_FRAMES)})")
-    return max_err, ms, plain_ms, timed_args[0]
+        f"(B={B}, lanes/utt={fc.num_candidates}, remainder overflows seen={overflowed}, "
+        f"clusters of {k1_clusters(fc, B)} blocks); timed on frame {max(K1_FRAMES)}:")
+    t = time_kernel("row gather + K1", lambda: expand_filter(*timed_args),
+                    lambda: expand_filter_plain(*timed_args), k1_work(*timed_args))
+    log(f"  device activities of one call: "
+        f"{format_split(kernel_split(lambda: expand_filter(*timed_args)))}")
+    return max_err, t, timed_args[0]
 
 
 def check_gather(dec, states):
@@ -246,16 +439,18 @@ def check_gather(dec, states):
             raise AssertionError(f"row gather differs from plain on the {name} table")
         max_err = max(max_err, int((got.long() - want.long()).abs().max()))
         rows[name] = got
-        times[name] = (cuda_ms(lambda: row_gather(table, idx)),
-                       cuda_ms(lambda: row_gather_plain(table, idx)))
         log(f"row gather, {name} table {tuple(table.shape)}, {idx.numel()} rows: "
-            f"equal to plain; kernel {times[name][0]:.4f} ms, plain {times[name][1]:.4f} ms")
+            "equal to plain")
+        times[name] = time_kernel(
+            f"row gather, {name}", lambda: row_gather(table, idx),
+            lambda: row_gather_plain(table, idx), gather_work(table, idx),
+            library=lambda: torch.index_select(table, 0, idx.flatten()))
     flat = states.reshape(-1)
     sub = rows["lane-packed"].view(-1, G, WID)[
         torch.arange(flat.numel(), device=flat.device), (flat % G).long(), :width]
     if not torch.equal(sub, rows["em_block"].view(-1, width)):
         raise AssertionError("lane-packed group rows do not hold the em_block rows")
-    return (max_err,) + times["em_block"]
+    return max_err, times["em_block"], times["lane-packed"]
 
 
 def check_k4(dec, scores_tm, lengths):
@@ -287,13 +482,16 @@ def check_k4(dec, scores_tm, lengths):
                 raise AssertionError(f"K4 differs from plain: {rows}[{b}]")
             if n:
                 max_err = max(max_err, int((r.long() - g.long()).abs().max()))
-    ms = cuda_ms(lambda: sweep_chunk(*args))
-    plain_ms = cuda_ms(lambda: sweep_plain(*args))
+    from kaldi_decoder_tpu_torch.kernels._build import kernels
+
+    C = kernels().kd_sweep_cluster(B, -(-sc.frontier_size // 4) * 4, sc.em_records)
     log(f"K4 sweep: equal to plain on chunk 0 (T={CHUNK}, B={B}; survivors tok "
-        f"{ref.tok_count.sum().item()}, em {ref.em_count.sum().item()}); "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per chunk")
+        f"{ref.tok_count.sum().item()}, em {ref.em_count.sum().item()}; clusters of {C} "
+        "blocks):")
+    t = time_kernel("K4, one chunk", lambda: sweep_chunk(*args), lambda: sweep_plain(*args),
+                    k4_work(*args[:5], got), reps=2)
     del o, ref, got
-    return float(max_err), ms, plain_ms
+    return float(max_err), t
 
 
 def check_emit_kernels(st, scores_t, pg, cfg, S, where):
@@ -366,15 +564,17 @@ def check_k6(vdec, edec, scores_tm):
             k1_err, k6_err = max(k1_err, e1), max(k6_err, e6)
             uniq.append(int(sel.num_unique.max()))
         st, _ = frame_step_batched(st, scores_tm[t], active, vdec._pg, fc, S)
-    k1_ms = cuda_ms(lambda: expand_filter(*k1_args, with_src_slot=True))
-    k1_plain = cuda_ms(lambda: expand_filter_plain(*k1_args, with_src_slot=True))
-    k6_ms = cuda_ms(lambda: dedup_select(*em_args))
-    k6_plain = cuda_ms(lambda: dedup_select_plain(*em_args))
-    log(f"K1 with src_slot: equal to plain on Viterbi frames {list(K6_FRAMES)}; kernel "
-        f"{k1_ms:.4f} ms, plain {k1_plain:.4f} ms (frame {max(K6_FRAMES)})")
+    log(f"K1 with src_slot: equal to plain on Viterbi frames {list(K6_FRAMES)}; "
+        f"timed on frame {max(K6_FRAMES)}:")
+    k1 = time_kernel("row gather + K1 with src_slot",
+                     lambda: expand_filter(*k1_args, with_src_slot=True),
+                     lambda: expand_filter_plain(*k1_args, with_src_slot=True),
+                     k1_work(*k1_args, with_src_slot=True))
     log(f"K6 dedup_select, emitting candidates (B={B}, N={ex.cost.shape[1]}, "
         f"K={fc.frontier_size}; most distinct states per frame {uniq}): equal to plain; "
-        f"kernel {k6_ms:.4f} ms, plain {k6_plain:.4f} ms (frame {max(K6_FRAMES)})")
+        f"timed on frame {max(K6_FRAMES)}:")
+    k6 = time_kernel("K6, emitting candidates", lambda: dedup_select(*em_args),
+                     lambda: dedup_select_plain(*em_args), k6_work(*em_args[1:3]))
 
     ec, Se = edec.cfg, edec._dev_graph.num_states
     st, _ = edec._init(B)
@@ -384,14 +584,12 @@ def check_k6(vdec, edec, scores_tm):
     err, eps_args, won = check_eps_kernel(mid, next_cutoff, edec._pg, ec, Se,
                                           f"frame {EPS_FRAME}")
     k6_err = max(k6_err, err)
-    eps_ms = cuda_ms(lambda: dedup_select(*eps_args))
-    eps_plain = cuda_ms(lambda: dedup_select_plain(*eps_args))
     log(f"K6 dedup_select, eps iteration of the unfolded graph (B={B}, "
         f"N={eps_args[1].shape[1]}, K={ec.frontier_size}, eps_iters={ec.eps_iters}, "
-        f"{won} slots won by eps lanes): equal to plain; kernel {eps_ms:.4f} ms, "
-        f"plain {eps_plain:.4f} ms (frame {EPS_FRAME})")
-    return dict(k1_err=k1_err, k1_ms=k1_ms, k1_plain=k1_plain, k6_err=k6_err,
-                k6_ms=k6_ms, k6_plain=k6_plain, eps_ms=eps_ms, eps_plain=eps_plain)
+        f"{won} slots won by eps lanes): equal to plain; timed on frame {EPS_FRAME}:")
+    eps = time_kernel("K6, eps candidates", lambda: dedup_select(*eps_args),
+                      lambda: dedup_select_plain(*eps_args), k6_work(*eps_args[1:3]))
+    return dict(k1_err=k1_err, k6_err=k6_err, k1=k1, k6=k6, eps=eps)
 
 
 def check_streaming_kernels(fd, scores_tm):
@@ -440,7 +638,12 @@ def check_streaming_kernels(fd, scores_tm):
         f"row gather, K1 with src_slot and K6 (emitting N={em_args[1].shape[1]}, eps) "
         f"equal to plain; kernel/plain ms: "
         + ", ".join(f"{k} {a:.4f}/{p:.4f}" for k, (a, p) in times.items()))
-    return dict(k1_err=k1_err, k6_err=max(k6_err, eps_err), times=times)
+    log(f"  K1 at B=1: clusters of {k1_clusters(cfg, 1)} blocks")
+    k1_dev = time_kernel("row gather + K1 with src_slot, streaming",
+                         lambda: expand_filter(*k1_args, with_src_slot=True),
+                         lambda: expand_filter_plain(*k1_args, with_src_slot=True),
+                         k1_work(*k1_args, with_src_slot=True))
+    return dict(k1_err=k1_err, k6_err=max(k6_err, eps_err), times=times, k1=k1_dev)
 
 
 def check_utterance(what, b, u, lat, num_active, best_costs, overflows, saturations):
@@ -684,11 +887,7 @@ def main():
     kind = torch.cuda.get_device_name(0)
     if "H100" not in kind:
         raise AssertionError(f"expected an H100, found {kind}")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-    log(smi)
+    log(card_line())
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, Python {sys.version.split()[0]}")
 
     # 1. Build.
@@ -717,9 +916,9 @@ def main():
         f"{dec._dev_graph.num_emitting_arcs} arcs; device config {dec.cfg.frontier}; "
         f"set-up {time.perf_counter() - t0:.1f} s")
     scores_tm = torch.from_numpy(np.ascontiguousarray(scores.transpose(1, 0, 2))).cuda()
-    k1_err, k1_ms, k1_plain, states = check_k1(dec, scores_tm)
-    gat_err, gat_ms, gat_plain = check_gather(dec, states)
-    k4_err, k4_ms, k4_plain = check_k4(dec, scores_tm, lengths)
+    k1_err, k1, states = check_k1(dec, scores_tm)
+    gat_err, gat, gat_packed = check_gather(dec, states)
+    k4_err, k4 = check_k4(dec, scores_tm, lengths)
     vfc = config_for_graph(graph, **VITERBI_CONFIG)
     vdec = BatchedViterbiDecoder(graph, vfc, device="cuda")
     edec = BatchedViterbiDecoder(graph, vfc, fold=False, device="cuda")
@@ -751,33 +950,37 @@ def main():
     }
 
     st = sk["times"]
+    fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "share_of_bound",
+              "wrapper_ms", "plain_wrapper_ms")
+
+    def entry(name, source, replaces, key, t, err, **extra):
+        return dict(name=name, route="cuda", source=f"kaldi_decoder_tpu_torch/csrc/{source}",
+                    replaces=replaces, launches=sum(by_path[key].values()),
+                    launches_by_path=by_path[key], max_abs_err=err,
+                    **{f: t[f] for f in fields}, **extra)
+
     log(json.dumps({"kernels": [
-        {"name": "row_gather (em_block row per frontier slot)",
-         "route": "cuda", "source": "kaldi_decoder_tpu_torch/csrc/gather.cu",
-         "replaces": "scripts/gather_bench.py:139",
-         "launches": sum(by_path["gather"].values()), "launches_by_path": by_path["gather"],
-         "max_abs_err": gat_err, "ms": gat_ms, "plain_ms": gat_plain,
-         "ms_streaming": st["gather"][0], "plain_ms_streaming": st["gather"][1]},
-        {"name": "K1 expand_filter (arc expansion + score lookup + beam filter)",
-         "route": "cuda", "source": "kaldi_decoder_tpu_torch/csrc/expand.cu",
-         "replaces": "kaldi_decoder_tpu/decoders/frontier.py:266",
-         "launches": sum(by_path["k1"].values()), "launches_by_path": by_path["k1"],
-         "max_abs_err": max(k1_err, k6["k1_err"], sk["k1_err"]), "ms": k1_ms,
-         "plain_ms": k1_plain, "ms_src_slot": k6["k1_ms"], "plain_ms_src_slot": k6["k1_plain"],
-         "ms_streaming": st["k1"][0], "plain_ms_streaming": st["k1"][1]},
-        {"name": "K4 sweep_chunk (backward extra-cost sweep)",
-         "route": "cuda", "source": "kaldi_decoder_tpu_torch/csrc/sweep.cu",
-         "replaces": "kaldi_decoder_tpu/decoders/sweep.py:141",
-         "launches": k4_n, "launches_by_path": by_path["k4"],
-         "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain},
-        {"name": "K6 dedup_select (Viterbi dedup by state + top-K + winning lane)",
-         "route": "cuda", "source": "kaldi_decoder_tpu_torch/csrc/dedup.cu",
-         "replaces": "kaldi_decoder_tpu/ops/segment.py:160",
-         "launches": sum(by_path["k6"].values()), "launches_by_path": by_path["k6"],
-         "max_abs_err": max(k6["k6_err"], sk["k6_err"]), "ms": k6["k6_ms"],
-         "plain_ms": k6["k6_plain"], "ms_eps": k6["eps_ms"], "plain_ms_eps": k6["eps_plain"],
-         "ms_streaming": st["k6"][0], "plain_ms_streaming": st["k6"][1],
-         "ms_streaming_eps": st["k6_eps"][0], "plain_ms_streaming_eps": st["k6_eps"][1]},
+        entry("row_gather (em_block row per frontier slot)", "gather.cu",
+              "scripts/gather_bench.py:139", "gather", gat, gat_err,
+              ms_lane_packed=gat_packed["ms"], plain_ms_lane_packed=gat_packed["plain_ms"],
+              wrapper_ms_streaming=st["gather"][0], plain_wrapper_ms_streaming=st["gather"][1]),
+        entry("K1 expand_filter (row gather + arc expansion + score lookup + beam filter)",
+              "expand.cu", "kaldi_decoder_tpu/decoders/frontier.py:266", "k1", k1,
+              max(k1_err, k6["k1_err"], sk["k1_err"]),
+              ms_src_slot=k6["k1"]["ms"], plain_ms_src_slot=k6["k1"]["plain_ms"],
+              bound_ms_src_slot=k6["k1"]["bound_ms"], ms_streaming=sk["k1"]["ms"],
+              bound_ms_streaming=sk["k1"]["bound_ms"],
+              wrapper_ms_streaming=st["k1"][0], plain_wrapper_ms_streaming=st["k1"][1]),
+        entry("K4 sweep_chunk (backward extra-cost sweep)", "sweep.cu",
+              "kaldi_decoder_tpu/decoders/sweep.py:141", "k4", k4, k4_err),
+        entry("K6 dedup_select (Viterbi dedup by state + top-K + winning lane)", "dedup.cu",
+              "kaldi_decoder_tpu/ops/segment.py:160", "k6", k6["k6"],
+              max(k6["k6_err"], sk["k6_err"]),
+              ms_eps=k6["eps"]["ms"], plain_ms_eps=k6["eps"]["plain_ms"],
+              bound_ms_eps=k6["eps"]["bound_ms"],
+              wrapper_ms_streaming=st["k6"][0], plain_wrapper_ms_streaming=st["k6"][1],
+              wrapper_ms_streaming_eps=st["k6_eps"][0],
+              plain_wrapper_ms_streaming_eps=st["k6_eps"][1]),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

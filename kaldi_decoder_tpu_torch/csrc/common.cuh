@@ -5,13 +5,20 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <map>
+#include <mutex>
+#include <tuple>
+
 namespace kdtorch {
 
-// Exclusive prefix sum of one int per thread across the block, in thread
-// order.  blockDim.x must be a multiple of 32 (at most 1024); every thread
-// of the block must call it.  `smem` holds 32 ints.  Returns the thread's
-// exclusive prefix and writes the block total to *total.
-__device__ __forceinline__ int block_exclusive_scan(int v, int* smem, int* total) {
+// Exclusive prefix of one int per thread across the block, in thread
+// order, under the associative `op` with `identity` (a sum by default).
+// blockDim.x must be a multiple of 32 (at most 1024); every thread of the
+// block must call it.  `smem` holds 32 ints.  Returns the thread's
+// exclusive prefix and writes the block's whole reduction to *total.
+template <typename Op>
+__device__ __forceinline__ int block_exclusive_scan(int v, int* smem, int* total, Op op,
+                                                    int identity) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
@@ -19,24 +26,28 @@ __device__ __forceinline__ int block_exclusive_scan(int v, int* smem, int* total
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
     int y = __shfl_up_sync(0xffffffffu, x, o);
-    if (lane >= o) x += y;
+    if (lane >= o) x = op(y, x);
   }
+  const int before_in_warp = __shfl_up_sync(0xffffffffu, x, 1);
   if (lane == 31) smem[warp] = x;
   __syncthreads();
   if (warp == 0) {
-    int s = lane < nwarps ? smem[lane] : 0;
+    int s = lane < nwarps ? smem[lane] : identity;
 #pragma unroll
     for (int o = 1; o < 32; o <<= 1) {
       int y = __shfl_up_sync(0xffffffffu, s, o);
-      if (lane >= o) s += y;
+      if (lane >= o) s = op(y, s);
     }
-    smem[lane] = s;  // inclusive prefix of the warp sums
+    smem[lane] = s;  // inclusive prefix of the warp reductions
   }
   __syncthreads();
-  const int before = warp > 0 ? smem[warp - 1] : 0;
+  const int before = warp > 0 ? smem[warp - 1] : identity;
   *total = smem[nwarps - 1];
   __syncthreads();  // smem may be reused by the next call
-  return before + x - v;
+  return op(before, lane > 0 ? before_in_warp : identity);
+}
+__device__ __forceinline__ int block_exclusive_scan(int v, int* smem, int* total) {
+  return block_exclusive_scan(v, smem, total, [](int a, int b) { return a + b; }, 0);
 }
 
 // -0.0 and +0.0 compare equal in the sorts of the reference; give them
@@ -57,6 +68,151 @@ __device__ __forceinline__ unsigned int ordered_key(float c) {
 
 __device__ __forceinline__ float from_ordered_key(unsigned int k) {
   return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+}
+
+// ---- Thread block clusters (sm_90) ----------------------------------------
+// A cluster barrier split in two: arrive (release: this thread's earlier
+// writes, shared and global, become visible to the cluster) and wait
+// (acquire).  Every thread of every block of the cluster takes part.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_sync() {
+  cluster_arrive();
+  cluster_wait();
+}
+
+// ---- Asynchronous bulk copies (TMA, 1-D) completing on an mbarrier --------
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// One thread initialises; the fence makes the barrier visible to the
+// async proxy before any copy completes on it.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// The issuing thread's arrival, announcing the bytes the copies will bring.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// Wait for the completion of the barrier's phase of parity `parity`.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// Copy `bytes` (a multiple of 16; both addresses 16-byte aligned) from
+// global to this block's shared memory; completion counts on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+// Order this thread's earlier shared-memory accesses (generic proxy)
+// before bulk copies it issues next into the same memory (async proxy).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// The launch configuration of `grid` blocks in clusters of `cluster`
+// blocks with `smem` bytes of dynamic shared memory.  Not copyable: the
+// configuration points at its own attribute.
+struct ClusterLaunch {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  ClusterLaunch(int grid, int cluster, int threads, size_t smem, cudaStream_t stream) {
+    cfg.gridDim = dim3(grid);
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+  ClusterLaunch(const ClusterLaunch&) = delete;
+  ClusterLaunch& operator=(const ClusterLaunch&) = delete;
+};
+
+// The most clusters of `cluster` blocks of `kernel` the card runs at once
+// (0 when one cluster does not fit).  Opts the kernel into `smem` bytes
+// of dynamic shared memory (needed above 48 KB; the setting is per device).
+template <typename... KArgs>
+int max_active_clusters(void (*kernel)(KArgs...), int cluster, int threads, size_t smem) {
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem) !=
+      cudaSuccess) {
+    cudaGetLastError();
+    return 0;
+  }
+  ClusterLaunch l(cluster, cluster, threads, smem, 0);
+  int n = 0;
+  if (cudaOccupancyMaxActiveClusters(&n, reinterpret_cast<const void*>(kernel), &l.cfg) !=
+      cudaSuccess) {
+    cudaGetLastError();
+    return 0;
+  }
+  return n;
+}
+
+// The cluster size for B independent clusters (one per utterance) of
+// `kernel`: the largest of 8, 4, 2, 1 at which all B clusters run at
+// once, else the largest that runs at all (0: none fits).  `smem(c)` is
+// the dynamic shared memory a block needs in a cluster of c blocks, a
+// function of the call's `shape` alone.  The occupancy queries run once
+// per kernel, device, B and shape; later calls read the answer kept.
+template <typename Smem, typename... KArgs>
+int pick_cluster(void (*kernel)(KArgs...), int B, int threads, long shape, Smem smem) {
+  static std::mutex mu;
+  static std::map<std::tuple<int, int, long>, int> picked;
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  const auto key = std::make_tuple(dev, B, shape);
+  std::lock_guard<std::mutex> hold(mu);
+  const auto it = picked.find(key);
+  if (it != picked.end()) return it->second;
+  int best = 0;
+  for (int c = 8; c >= 1; c /= 2) {
+    const int n = max_active_clusters(kernel, c, threads, smem(c));
+    if (n >= B) {
+      best = c;
+      break;
+    }
+    if (n > 0 && best == 0) best = c;
+  }
+  if (best > 0) picked[key] = best;
+  return best;
+}
+
+// Launch `kernel` as `grid` blocks in clusters of `cluster` blocks on
+// `stream`.  Returns the launch's error: a refused cluster launch is
+// reported, not retried.
+template <typename... KArgs, typename... Args>
+cudaError_t launch_cluster(void (*kernel)(KArgs...), int grid, int cluster, int threads,
+                           size_t smem, cudaStream_t stream, Args... args) {
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e != cudaSuccess) return e;
+  ClusterLaunch l(grid, cluster, threads, smem, stream);
+  e = cudaLaunchKernelEx(&l.cfg, kernel, static_cast<KArgs>(args)...);
+  return e != cudaSuccess ? e : cudaGetLastError();
 }
 
 }  // namespace kdtorch

@@ -16,216 +16,423 @@
 // reads row 0 of em_block, as the reference's `safe` index does.
 //
 // What bounds it: per frame and utterance it writes N = KE*W + Ru*G
-// candidate lanes of 16 bytes (56,832 lanes, about 0.9 MB, at the bench
-// shape; 14.5 MB for B=16) and reads one row header and arc per block
-// lane, one em_flat arc per remainder lane and one score per lane; the
-// reads hit rows of a few MB of tables, mostly in L2.  So it is bound by
-// the bytes of its output and by the scattered reads, not by arithmetic.
-// The design keeps the work to one pass over the lanes:
-//   1. scan   — one block per utterance: each active slot's remainder
-//               unit count from its row header, an exclusive scan
-//               over the slots (starts, total, overflow = total > Ru);
-//   2. lanes  — one thread per lane: a block lane reads its slot's arc;
-//               a remainder lane finds its owner slot by binary search
-//               over the starts (the last slot with start <= lane, which
-//               is what the scatter-max + running max of the reference
-//               computes) and reads its arc from em_flat.  The cost is
-//               (alpha + w) + (-score) with round-to-nearest adds, no
-//               contraction.  The utterance minimum is a warp min, then
-//               one atomicMin per warp on an order-preserving encoding;
-//   3. filter — cost < best + adaptive_beam ? cost : +inf.
+// candidate lanes of 16 bytes (20 with src_slot): 56,832 lanes, 14.5 MB
+// for B=16 at the bench shape, against reads of a few MB (the active
+// slots' rows, the em_flat units in use, the scores).  But a lane is a
+// chain of dependent loads (its arc from a row or from em_flat, then the
+// arc's score), so the kernel is bound by the latency of those loads and
+// of its cluster barriers, not by bytes.
+//
+// The design: one launch, one cluster of C blocks per utterance (C = 8,
+// 4, 2 or 1: the largest whose B clusters all run at once).  A block's
+// shared memory does not grow with the frontier or the lane count.
+//   1. Totals.  Every block reads the KE slots' costs and row headers,
+//      PER consecutive slots a thread, and counts the remainder units of
+//      the active ones: the utterance's total (overflow = total > Ru) and
+//      its last slot with units, the owner of every padding lane.
+//   2. Lanes.  Each block takes a contiguous range of lanes of equal
+//      weight (2 per block or padding lane, 3 per valid remainder lane),
+//      in tiles of TILE_UNITS*G lanes.  For a tile's units [j0, j1] the
+//      block places the owners by unit position in shared memory: a block
+//      scan of the unit counts gives each slot its start, a slot whose
+//      units meet the tile writes its fields at its first unit (at 0 for
+//      the owner of j0), and a running max over the positions gives each
+//      unit its owner.  That is the reference's scatter-max + running max,
+//      and its owner rule: the last slot whose start is <= the unit.  A
+//      remainder lane then reads its owner in one shared-memory lookup; a
+//      block lane reads its slot and row directly.  Each thread takes
+//      UNROLL lanes at a time, so that their arc loads and then their
+//      score loads are in flight together; writes are coalesced.  The cost
+//      is (alpha + w) + (-score) with round-to-nearest adds, no
+//      contraction.  A block keeps its first COST_CACHE lane costs in
+//      shared memory and writes the rest to the output, where the same
+//      thread reads them back.
+//   3. Filter.  One cluster barrier; warp 0 of each block reads the
+//      cluster's minima through distributed shared memory; every block
+//      filters its own costs (cost < min + adaptive_beam).  A final
+//      cluster barrier keeps each block's shared memory alive until the
+//      others have read its minimum.
 // Padding lanes compute what the reference computes (row 0 of em_flat,
 // the owner's state), so even masked lanes agree.
 
+#include <cooperative_groups.h>
+
+#include <algorithm>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int EM_FIELDS = 3;
-constexpr int SCAN_THREADS = 1024;
-constexpr int LANE_THREADS = 256;
+constexpr int THREADS = 512;
+constexpr int WARPS = THREADS / 32;
+constexpr int UNROLL = 4;              // lanes in flight per thread
+constexpr int PER = 5;                 // consecutive slots a thread reads per round
+constexpr int CHUNK = PER * THREADS;   // slots per round
+constexpr int TILE_UNITS = 2048;       // a lane tile is TILE_UNITS*G lanes
+// A tile that starts inside a unit meets TILE_UNITS + 1 units.
+constexpr int TILE_POS = TILE_UNITS + 1;
+constexpr int POS = (TILE_POS + THREADS - 1) / THREADS;  // unit positions per thread
+constexpr int MARK = 1 << 12;  // tags an owner's position placed for the tile at hand
+constexpr int COST_CACHE = 10240;      // lane costs a block keeps in shared memory
 
 __device__ __forceinline__ bool slot_active(float c, float cutoff) {
   return isfinite(c) && c < cutoff;
 }
 
-__global__ void __launch_bounds__(SCAN_THREADS) expand_scan_kernel(
-    const int* __restrict__ states, const float* __restrict__ costs,
-    const float* __restrict__ cutoff, const int* __restrict__ rows,
-    int K_full, int KE, int W, int G, int Ru,
-    int* __restrict__ starts, int* __restrict__ n_units,
-    int* __restrict__ total_out, int* __restrict__ last_nz,
-    unsigned int* __restrict__ minkey, unsigned char* __restrict__ overflow) {
-  __shared__ int smem[32];
-  __shared__ int last_sh;
-  const int b = blockIdx.x;
-  const int row_w = W * EM_FIELDS + 2;
-  const float cut = cutoff[b];
-  const int per = (KE + blockDim.x - 1) / blockDim.x;
-  const int k0 = min(threadIdx.x * per, KE);
-  const int k1 = min(k0 + per, KE);
-  if (threadIdx.x == 0) last_sh = -1;
-
-  int local = 0, my_last = -1;
-  for (int k = k0; k < k1; ++k) {
-    const float a = costs[(long)b * K_full + k];
-    int nu = 0;
-    if (slot_active(a, cut)) {
-      const int* row = rows + ((long)b * K_full + k) * row_w;
-      const int row_lo = row[W * EM_FIELDS];
-      const int deg = row[W * EM_FIELDS + 1];
-      if (deg > W) {
-        const int u_first = (row_lo + W) / G;
-        nu = (row_lo + deg - 1) / G - u_first + 1;
-      }
-    }
-    n_units[(long)b * KE + k] = nu;
-    if (nu > 0) my_last = k;
-    local += nu;
-  }
-  int total;
-  int run = kdtorch::block_exclusive_scan(local, smem, &total);
-  for (int k = k0; k < k1; ++k) {
-    starts[(long)b * KE + k] = run;
-    run += n_units[(long)b * KE + k];
-  }
-  if (my_last >= 0) atomicMax(&last_sh, my_last);
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    total_out[b] = total;
-    last_nz[b] = last_sh < 0 ? 0 : last_sh;
-    overflow[b] = total > Ru;
-    minkey[b] = 0xffffffffu;
-  }
+__device__ __forceinline__ int n_units(int lo, int deg, int W, int G) {
+  return deg > W ? (lo + deg - 1) / G - (lo + W) / G + 1 : 0;
 }
 
-__global__ void __launch_bounds__(LANE_THREADS) expand_lanes_kernel(
+// Two blocks fit on an SM, so that B clusters of 8 fit on the card at once.
+__global__ void __launch_bounds__(THREADS, 2) expand_kernel(
     const int* __restrict__ states, const float* __restrict__ costs,
-    const float* __restrict__ cutoff, const float* __restrict__ scores,
-    const int* __restrict__ rows, const int* __restrict__ em_block,
-    const int* __restrict__ em_flat, const int* __restrict__ starts, const int* __restrict__ total_in,
-    const int* __restrict__ last_nz, int K_full, int KE, int W, int G,
-    int Ru, int V, int* __restrict__ dst, float* __restrict__ cost,
-    int* __restrict__ src_state, int* __restrict__ arc_id,
-    int* __restrict__ src_slot, unsigned int* __restrict__ minkey) {
-  const int b = blockIdx.y;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    const float* __restrict__ cutoff, const float* __restrict__ adaptive_beam,
+    const float* __restrict__ scores, const int* __restrict__ rows,
+    const int* __restrict__ em_block, const int* __restrict__ em_flat, int K_full,
+    int KE, int W, int G, int Ru, int V, int ccap, int* __restrict__ dst,
+    float* __restrict__ cost, int* __restrict__ src_state, int* __restrict__ arc_id,
+    int* __restrict__ src_slot, unsigned char* __restrict__ overflow,
+    float* __restrict__ next_cutoff) {
+  const int row_w = W * EM_FIELDS + 2;
+  // A tile's owners by unit position: s_own maps a position to its
+  // owner's, where the owner's start, slot, cost, state, row_lo and
+  // degree are.  Then em_block's row 0 and this block's lane costs.
+  extern __shared__ int smem[];
+  int* const s_own = smem;
+  int* const o_start = s_own + TILE_POS;
+  int* const o_slot = o_start + TILE_POS;
+  float* const o_cost = reinterpret_cast<float*>(o_slot + TILE_POS);
+  int* const o_state = reinterpret_cast<int*>(o_cost + TILE_POS);
+  int* const o_lo = o_state + TILE_POS;
+  int* const o_deg = o_lo + TILE_POS;
+  int* const s_row0 = o_deg + TILE_POS;
+  float* const s_cc = reinterpret_cast<float*>(s_row0 + ((row_w + 3) & ~3));
+  __shared__ int scan_tmp[32];
+  __shared__ unsigned s_wmin[WARPS];
+  __shared__ int s_total, s_last;  // remainder units; the last slot with units (-1: none)
+  __shared__ int s_pad[5];         // padding lanes' owner: start, slot, state, row_lo, degree
+  __shared__ unsigned s_min;       // this block's minimum key, read by the cluster
+  __shared__ float s_nc;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int b = blockIdx.x / C;
+  const int tid = threadIdx.x;
   const int NB = KE * W;
   const int N = NB + Ru * G;
-  const int row_w = W * EM_FIELDS + 2;
+  const long slot0 = (long)b * K_full;
   const float cut = cutoff[b];
-  unsigned int key = 0xffffffffu;
-  if (i < N) {
-    int d, sidx, st, arc, slot;
-    float c;
-    if (i < NB) {
-      const int k = i / W;
-      slot = k;
-      const int w = i - k * W;
-      const float a = costs[(long)b * K_full + k];
-      const bool act = slot_active(a, cut);
-      st = act ? states[(long)b * K_full + k] : 0;
-      const int* row = act ? rows + ((long)b * K_full + k) * row_w : em_block;
-      d = row[w * EM_FIELDS + 1];
-      sidx = row[w * EM_FIELDS + 2];
-      arc = row[W * EM_FIELDS] + w;
-      c = act ? __fadd_rn(a, __int_as_float(row[w * EM_FIELDS])) : INFINITY;
-    } else {
-      const int r = i - NB;
-      const int j = r / G;
-      const int g = r - j * G;
-      const bool valid = j < total_in[b];
-      int owner;
-      if (valid) {
-        // Last slot whose first lane is <= j; it owns units (see header).
-        const int* sb = starts + (long)b * KE;
-        int lo = 0, hi = KE - 1;
-        while (lo < hi) {
-          const int mid = (lo + hi + 1) >> 1;
-          if (sb[mid] <= j) lo = mid; else hi = mid - 1;
-        }
-        owner = lo;
-      } else {
-        owner = last_nz[b];
-      }
-      slot = owner;
-      const float a = costs[(long)b * K_full + owner];
-      const bool act = slot_active(a, cut);
-      st = act ? states[(long)b * K_full + owner] : 0;
-      const int* row = act ? rows + ((long)b * K_full + owner) * row_w : em_block;
-      const int row_lo = row[W * EM_FIELDS];
-      const int deg = act ? row[W * EM_FIELDS + 1] : 0;
-      const int tail_lo = row_lo + W;
-      const int tail_hi = row_lo + deg;
-      const int u_first = deg > W ? tail_lo / G : 0;
-      const int unit = u_first - starts[(long)b * KE + owner] + j;
-      const int* fr = em_flat + (long)(valid ? unit : 0) * (G * EM_FIELDS) + g * EM_FIELDS;
-      d = fr[1];
-      sidx = fr[2];
-      arc = unit * G + g;
-      const bool in_range = valid && arc >= tail_lo && arc < tail_hi;
-      c = in_range ? __fadd_rn(a, __int_as_float(fr[0])) : INFINITY;
+
+  for (int i = tid; i < row_w; i += THREADS) s_row0[i] = em_block[i];
+  for (int p = tid; p < TILE_POS; p += THREADS) s_own[p] = -1;
+  if (tid == 0) {
+    s_total = 0;
+    s_last = -1;
+  }
+  __syncthreads();
+
+  // The slots [cb + tid*PER, + PER): costs, states, row headers and
+  // remainder unit counts (0 for an inactive slot).
+  float a[PER];
+  int st[PER], lo[PER], deg[PER], nu[PER];
+  auto load = [&](int cb) {
+    const int k0 = cb + tid * PER;
+#pragma unroll
+    for (int m = 0; m < PER; ++m) {
+      const long k = slot0 + min(k0 + m, KE - 1);
+      a[m] = costs[k];
+      st[m] = states[k];
+      lo[m] = rows[k * row_w + W * EM_FIELDS];
+      deg[m] = rows[k * row_w + W * EM_FIELDS + 1];
     }
-    c = __fadd_rn(c, -scores[(long)b * V + sidx]);
-    const long o = (long)b * N + i;
-    dst[o] = d;
-    cost[o] = c;
-    src_state[o] = st;
-    arc_id[o] = arc;
-    if (src_slot != nullptr) src_slot[o] = slot;
-    key = kdtorch::ordered_key(c);
+#pragma unroll
+    for (int m = 0; m < PER; ++m) {
+      nu[m] = k0 + m < KE && slot_active(a[m], cut) ? n_units(lo[m], deg[m], W, G) : 0;
+    }
+  };
+
+  // 1. Totals.
+  {
+    int units = 0, last = -1;
+    for (int cb = 0; cb < KE; cb += CHUNK) {
+      load(cb);
+#pragma unroll
+      for (int m = 0; m < PER; ++m) {
+        units += nu[m];
+        if (nu[m] > 0) last = cb + tid * PER + m;
+      }
+    }
+    units = __reduce_add_sync(0xffffffffu, units);
+    last = __reduce_max_sync(0xffffffffu, last);
+    if ((tid & 31) == 0) {
+      atomicAdd(&s_total, units);
+      atomicMax(&s_last, last);
+    }
+  }
+  __syncthreads();
+  const int total = s_total;
+  // Padding lanes' owner: the last slot with units (its start is the
+  // total less its units), else slot 0; written by the thread that holds
+  // it after one round, else read again.
+  const int o_pad = max(s_last, 0);
+  auto set_pad = [&](float c, int s, int l, int d) {
+    const bool act = slot_active(c, cut);
+    s_pad[0] = s_last >= 0 ? total - n_units(l, d, W, G) : 0;
+    s_pad[1] = o_pad;
+    s_pad[2] = act ? s : 0;
+    s_pad[3] = act ? l : s_row0[W * EM_FIELDS];
+    s_pad[4] = act ? d : 0;
+  };
+  if (KE <= CHUNK) {
+#pragma unroll
+    for (int m = 0; m < PER; ++m) {
+      if (tid * PER + m == o_pad) set_pad(a[m], st[m], lo[m], deg[m]);
+    }
+  } else if (tid == 0) {
+    const long k = slot0 + o_pad;
+    set_pad(costs[k], states[k], rows[k * row_w + W * EM_FIELDS],
+            rows[k * row_w + W * EM_FIELDS + 1]);
+  }
+  __syncthreads();
+
+  // 2. The lanes.  Block lanes and padding remainder lanes (units past
+  // the total) cost about the same; a valid remainder lane, whose arc
+  // comes from em_flat, costs about 3/2 of one.  Each block takes a
+  // contiguous range of lanes of equal weight (2 per cheap lane, 3 per
+  // valid remainder lane).
+  const int NV = NB + min(total, Ru) * G;  // lanes [NB, NV) are valid remainder lanes
+  const long weight = 2L * N + (NV - NB);
+  auto lane_at = [&](long w) {  // the first lane at or past weight w
+    const long wb = 2L * NB, wv = wb + 3L * (NV - NB);
+    if (w <= wb) return (int)((w + 1) / 2);
+    if (w <= wv) return NB + (int)((w - wb + 2) / 3);
+    return min(NV + (int)((w - wv + 1) / 2), N);
+  };
+  const int lane0 = lane_at(weight * rank / C);
+  const int lane_end = lane_at(weight * (rank + 1) / C);
+  const int TL = TILE_UNITS * G;  // a multiple of THREADS
+  const int n_tiles = (lane_end - lane0 + TL - 1) / TL;
+  // Tile n's lanes [t0, t1) and valid units [j0, j1] (none: j0 > j1).
+  auto tile = [&](int n, int& t0, int& t1, int& j0, int& j1) {
+    t0 = lane0 + n * TL;
+    t1 = min(t0 + TL, lane_end);
+    j0 = 0;
+    j1 = -1;
+    if (t1 > NB) {
+      j0 = (max(t0, NB) - NB) / G;
+      j1 = min((t1 - 1 - NB) / G, total - 1);
+    }
+  };
+  // The owners of units [j0, j1] by position j - j0.  With `fresh`, the
+  // registers still hold the totals' round, when there was only one.  An
+  // owner's position is marked with MARK added, so that what an earlier
+  // tile left (positions below MARK) loses every max to this tile's marks.
+  auto place = [&](int j0, int j1, bool fresh) {
+    const int L = j1 - j0 + 1;
+    int before = 0;  // units of the rounds before
+    for (int cb = 0; cb < KE && before <= j1; cb += CHUNK) {
+      if (!fresh || KE > CHUNK) load(cb);
+      int sum = 0;
+#pragma unroll
+      for (int m = 0; m < PER; ++m) sum += nu[m];
+      int round_units;
+      int start = before + kdtorch::block_exclusive_scan(sum, scan_tmp, &round_units);
+#pragma unroll
+      for (int m = 0; m < PER; ++m) {
+        if (nu[m] > 0 && start <= j1 && start + nu[m] > j0) {
+          const int p = max(start, j0) - j0;
+          s_own[p] = MARK + p;
+          o_start[p] = start;
+          o_slot[p] = cb + tid * PER + m;
+          o_cost[p] = a[m];
+          o_state[p] = st[m];
+          o_lo[p] = lo[m];
+          o_deg[p] = deg[m];
+        }
+        start += nu[m];
+      }
+      before += round_units;
+    }
+    __syncthreads();
+    // A running max gives each position its owner's.
+    int mark[POS], top = -1;
+#pragma unroll
+    for (int q = 0; q < POS; ++q) {
+      const int p = tid * POS + q;
+      mark[q] = p < L ? s_own[p] : -1;
+      top = max(top, mark[q]);
+    }
+    int whole;
+    int run = kdtorch::block_exclusive_scan(
+        top, scan_tmp, &whole, [](int x, int y) { return max(x, y); }, -1);
+#pragma unroll
+    for (int q = 0; q < POS; ++q) {
+      const int p = tid * POS + q;
+      run = max(run, mark[q]);
+      if (p < L) s_own[p] = run - MARK;
+    }
+    __syncthreads();
+  };
+
+  unsigned key = 0xffffffffu;
+  int t0, t1, j0, j1;
+  tile(0, t0, t1, j0, j1);
+  if (n_tiles > 0 && j0 <= j1) place(j0, j1, true);
+  for (int n = 0; n < n_tiles; ++n) {
+    tile(n, t0, t1, j0, j1);
+    if (n > 0 && j0 <= j1) {
+      __syncthreads();  // every thread is done with the tile before's owners
+      place(j0, j1, false);
+    }
+    for (int base = t0 + tid; base < t1; base += UNROLL * THREADS) {
+      int d[UNROLL], sidx[UNROLL], sst[UNROLL], arc[UNROLL], slot[UNROLL];
+      float cst[UNROLL];
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        const int i = base + u * THREADS;
+        sidx[u] = 0;
+        if (i >= t1) continue;
+        if (i < NB) {
+          const int k = i / W;
+          const int w = i - k * W;
+          const long ks = slot0 + k;
+          const float c = costs[ks];
+          const int s = states[ks];
+          const int* row = rows + ks * row_w;
+          const int r0 = row[w * EM_FIELDS], r1 = row[w * EM_FIELDS + 1];
+          const int r2 = row[w * EM_FIELDS + 2], rlo = row[W * EM_FIELDS];
+          const bool act = slot_active(c, cut);
+          d[u] = act ? r1 : s_row0[w * EM_FIELDS + 1];
+          sidx[u] = act ? r2 : s_row0[w * EM_FIELDS + 2];
+          arc[u] = (act ? rlo : s_row0[W * EM_FIELDS]) + w;
+          cst[u] = act ? __fadd_rn(c, __int_as_float(r0)) : INFINITY;
+          sst[u] = act ? s : 0;
+          slot[u] = k;
+        } else {
+          const int j = (i - NB) / G;
+          const int g = i - NB - j * G;
+          const bool valid = j < total;
+          int ostart, o, ostate, olo, odeg;
+          float oc = INFINITY;
+          if (valid) {
+            const int p = s_own[j - j0];
+            ostart = o_start[p];
+            o = o_slot[p];
+            oc = o_cost[p];
+            ostate = o_state[p];
+            olo = o_lo[p];
+            odeg = o_deg[p];
+          } else {
+            ostart = s_pad[0];
+            o = s_pad[1];
+            ostate = s_pad[2];
+            olo = s_pad[3];
+            odeg = s_pad[4];
+          }
+          const int tail_lo = olo + W, tail_hi = olo + odeg;
+          const int u_first = odeg > W ? tail_lo / G : 0;
+          const int unit = u_first - ostart + j;
+          const int* fr = em_flat + (long)(valid ? unit : 0) * (G * EM_FIELDS) + g * EM_FIELDS;
+          d[u] = fr[1];
+          sidx[u] = fr[2];
+          arc[u] = unit * G + g;
+          const bool in_range = valid && arc[u] >= tail_lo && arc[u] < tail_hi;
+          cst[u] = in_range ? __fadd_rn(oc, __int_as_float(fr[0])) : INFINITY;
+          sst[u] = ostate;
+          slot[u] = o;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        const int i = base + u * THREADS;
+        if (i >= t1) continue;
+        const float cc = __fadd_rn(cst[u], -scores[(long)b * V + sidx[u]]);
+        const long o = (long)b * N + i;
+        dst[o] = d[u];
+        src_state[o] = sst[u];
+        arc_id[o] = arc[u];
+        if (src_slot != nullptr) src_slot[o] = slot[u];
+        if (i - lane0 < ccap) s_cc[i - lane0] = cc; else cost[o] = cc;
+        key = min(key, kdtorch::ordered_key(cc));
+      }
+    }
   }
   key = __reduce_min_sync(0xffffffffu, key);
-  if ((threadIdx.x & 31) == 0 && key != 0xffffffffu) atomicMin(&minkey[b], key);
+  if ((tid & 31) == 0) s_wmin[tid >> 5] = key;
+  __syncthreads();
+  if (tid < 32) {
+    const unsigned v = __reduce_min_sync(0xffffffffu, tid < WARPS ? s_wmin[tid] : 0xffffffffu);
+    if (tid == 0) s_min = v;
+  }
+
+  // 3. The utterance's minimum across the cluster, then the filter.  Lane
+  // i is handled by thread (i - lane0) % THREADS in both loops, so a cost
+  // past the cache is read back by the thread that wrote it.
+  kdtorch::cluster_sync();
+  if (tid < 32) {
+    unsigned v = 0xffffffffu;
+    if (tid < C) v = *cluster.map_shared_rank(&s_min, tid);
+    v = __reduce_min_sync(0xffffffffu, v);
+    if (tid == 0) s_nc = __fadd_rn(kdtorch::from_ordered_key(v), adaptive_beam[b]);
+  }
+  kdtorch::cluster_arrive();  // this block is done reading the others' minima
+  __syncthreads();
+  const float nc = s_nc;
+  for (int i = lane0 + tid; i < lane_end; i += THREADS) {
+    const long o = (long)b * N + i;
+    const float cc = i - lane0 < ccap ? s_cc[i - lane0] : cost[o];
+    cost[o] = (isfinite(cc) && cc < nc) ? cc : INFINITY;
+  }
+  if (rank == 0 && tid == 0) {
+    next_cutoff[b] = nc;
+    overflow[b] = total > Ru;
+  }
+  kdtorch::cluster_wait();
 }
 
-__global__ void __launch_bounds__(LANE_THREADS) expand_filter_kernel(
-    const unsigned int* __restrict__ minkey,
-    const float* __restrict__ adaptive_beam, int N, float* __restrict__ cost,
-    float* __restrict__ next_cutoff) {
-  const int b = blockIdx.y;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const float nc = __fadd_rn(kdtorch::from_ordered_key(minkey[b]), adaptive_beam[b]);
-  if (i < N) {
-    const long o = (long)b * N + i;
-    const float c = cost[o];
-    cost[o] = (isfinite(c) && c < nc) ? c : INFINITY;
-  }
-  if (blockIdx.x == 0 && threadIdx.x == 0) next_cutoff[b] = nc;
+// A block's cost cache in a cluster of c blocks: its lanes weigh at most
+// 1/c of the total weight (at most 3N) plus a lane, and at least 2 each.
+int cost_cache(int N, int c) { return (int)std::min(3L * N / (2 * c) + 2, (long)COST_CACHE); }
+
+size_t expand_smem(int W, int ccap) {
+  return (size_t)7 * TILE_POS * sizeof(int) + (((W * EM_FIELDS + 2) + 3) & ~3) * sizeof(int) +
+         (size_t)ccap * sizeof(float);
 }
 
 }  // namespace
 
-// Launches the three passes on `stream`.  Shapes: states/costs (B,
-// K_full), cutoff/adaptive_beam (B,), scores (B, V), rows (B, K_full,
-// W*3+2) = em_block[states], em_block (S, W*3+2), em_flat (U, G*3);
-// scratch starts/n_units (B, KE), total/last_nz/minkey (B,); outputs
-// dst/cost/src_state/arc_id (B, N), overflow (B,) bytes, next_cutoff
-// (B,); src_slot (B, N) or null (then not written: the lattice path
-// does not read it).  Returns cudaGetLastError() after the launches.
+// The cluster size K1 launches with for B utterances of N = KE*W + Ru*G
+// lanes (kdtorch::pick_cluster); 0 when none fits.
+extern "C" int kd_expand_cluster(int B, int KE, int W, int G, int Ru) {
+  const int N = KE * W + Ru * G;
+  return kdtorch::pick_cluster(expand_kernel, B, THREADS, (long)W << 32 | N,
+                               [W, N](int c) { return expand_smem(W, cost_cache(N, c)); });
+}
+
+// Launches K1 on `stream`: B clusters of kd_expand_cluster blocks.  Shapes:
+// states/costs (B, K_full), cutoff/adaptive_beam (B,), scores (B, V),
+// rows (B, K_full, W*3+2) = em_block[states], em_block (S, W*3+2),
+// em_flat (U, G*3); outputs dst/cost/src_state/arc_id (B, N), overflow
+// (B,) bytes, next_cutoff (B,); src_slot (B, N) or null (then not
+// written: the lattice path does not read it).  Returns the launch's
+// CUDA error (0 on success).
 extern "C" int kd_expand(
     const void* states, const void* costs, const void* cutoff,
     const void* adaptive_beam, const void* scores, const void* rows,
     const void* em_block, const void* em_flat, int B, int K_full, int KE,
-    int W, int G, int Ru, int V, void* starts, void* n_units, void* total,
-    void* last_nz, void* minkey, void* dst, void* cost, void* src_state, void* arc_id,
+    int W, int G, int Ru, int V, void* dst, void* cost, void* src_state, void* arc_id,
     void* src_slot, void* overflow, void* next_cutoff, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int C = kd_expand_cluster(B, KE, W, G, Ru);
+  if (C == 0) return (int)cudaErrorInvalidConfiguration;
   const int N = KE * W + Ru * G;
-  expand_scan_kernel<<<B, SCAN_THREADS, 0, s>>>(
-      (const int*)states, (const float*)costs, (const float*)cutoff,
-      (const int*)rows, K_full, KE, W, G, Ru, (int*)starts, (int*)n_units,
-      (int*)total, (int*)last_nz, (unsigned int*)minkey,
-      (unsigned char*)overflow);
-  const dim3 grid((N + LANE_THREADS - 1) / LANE_THREADS, B);
-  expand_lanes_kernel<<<grid, LANE_THREADS, 0, s>>>(
-      (const int*)states, (const float*)costs, (const float*)cutoff,
-      (const float*)scores, (const int*)rows, (const int*)em_block,
-      (const int*)em_flat, (const int*)starts, (const int*)total,
-      (const int*)last_nz, K_full, KE, W, G, Ru, V, (int*)dst, (float*)cost, (int*)src_state, (int*)arc_id,
-      (int*)src_slot, (unsigned int*)minkey);
-  expand_filter_kernel<<<grid, LANE_THREADS, 0, s>>>(
-      (const unsigned int*)minkey, (const float*)adaptive_beam, N,
-      (float*)cost, (float*)next_cutoff);
-  return (int)cudaGetLastError();
+  const int ccap = cost_cache(N, C);
+  return (int)kdtorch::launch_cluster(
+      expand_kernel, B * C, C, THREADS, expand_smem(W, ccap),
+      static_cast<cudaStream_t>(stream), states, costs, cutoff, adaptive_beam, scores, rows,
+      em_block, em_flat, K_full, KE, W, G, Ru, V, ccap, dst, cost, src_state, arc_id, src_slot,
+      overflow, next_cutoff);
 }

@@ -1,12 +1,14 @@
 """Build the port's native libraries at first use and load them with ctypes.
 
-CUDA sources (``kaldi_decoder_tpu_torch/csrc/*.cu``) are compiled by
-``nvcc`` for ``sm_90a`` into one shared library with a plain C
-interface; every pointer and the stream cross as ``c_void_p``.  Output
-goes to ``kaldi_decoder_tpu_torch/_build/`` under a name keyed by a hash
-of the sources and the command, so a changed source rebuilds and an
-unchanged one loads the library already there.  A failed build raises
-with the compiler's output; nothing falls back.
+Each library's sources are compiled one process per source, all started
+together, and linked into one shared library with a plain C interface:
+the CUDA sources (``kaldi_decoder_tpu_torch/csrc/*.cu``) by ``nvcc`` for
+``sm_90a``, every pointer and the stream crossing as ``c_void_p``; the
+host library (``native.py``) by ``g++``.  Output goes to
+``kaldi_decoder_tpu_torch/_build/`` under a name keyed by a hash of the
+sources and the commands, so a changed source rebuilds and an unchanged
+one loads the library already there.  A failed build raises with the
+compiler's output; nothing falls back.
 """
 
 from __future__ import annotations
@@ -31,10 +33,13 @@ _lock = threading.Lock()
 build_logs: dict = {}
 
 
-def build_library(name: str, sources: List[str], cmd: List[str]) -> str:
-    """Compile ``sources`` with ``cmd + ["-o", out] + sources`` into
-    ``_build/lib<name>-<hash>.so`` unless it is there; returns its path."""
-    h = hashlib.sha256(" ".join(cmd).encode())
+def build_library(name: str, sources: List[str], compile_cmd: List[str],
+                  link_cmd: List[str]) -> str:
+    """Build ``sources`` into ``_build/lib<name>-<hash>.so`` unless it is
+    there; returns its path.  Every source is compiled on its own, all at
+    once (``compile_cmd + ["-c", "-o", obj, src]``), and the objects are
+    linked with ``link_cmd + ["-o", out] + objects``."""
+    h = hashlib.sha256(" ".join(compile_cmd + link_cmd).encode())
     for src in sources:
         with open(src, "rb") as f:
             h.update(f.read())
@@ -47,14 +52,24 @@ def build_library(name: str, sources: List[str], cmd: List[str]) -> str:
             return out
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{out}.{os.getpid()}.tmp"
-        proc = subprocess.run(
-            cmd + ["-o", tmp] + sources, capture_output=True, text=True
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"building {name} failed ({' '.join(cmd)}):\n{proc.stderr}"
-            )
-        build_logs[name] = proc.stderr
+        objs = [f"{tmp}.{i}.o" for i in range(len(sources))]
+        cmds = [compile_cmd + ["-c", "-o", o, s] for s, o in zip(sources, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for c in cmds]
+        logs = [p.communicate()[1] for p in procs]  # every compiler has ended
+        try:
+            for c, p, err in zip(cmds, procs, logs):
+                if p.returncode != 0:
+                    raise RuntimeError(f"building {name} failed ({' '.join(c)}):\n{err}")
+            proc = subprocess.run(link_cmd + ["-o", tmp] + objs, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"linking {name} failed ({' '.join(link_cmd)}):\n{proc.stderr}")
+        finally:
+            for o in objs:
+                if os.path.exists(o):
+                    os.remove(o)
+        build_logs[name] = "".join(logs)
         os.replace(tmp, out)
     return out
 
@@ -99,23 +114,33 @@ def kernels() -> ctypes.CDLL:
     """The CUDA kernel library (row gather, K1 expansion, K4 sweep, K6
     dedup), built on first use."""
     sources = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+    arch = ["-gencode", "arch=compute_90a,code=sm_90a"]
     path = build_library(
         "kdtorch_kernels",
         sources,
-        [
-            _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-            "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-        ],
+        [_nvcc()] + arch + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"],
+        [_nvcc()] + arch + ["-shared"],
     )
     lib = ctypes.CDLL(path)
     lib.kd_row_gather.restype = _I
     lib.kd_row_gather.argtypes = [_P, _P, _L, _I, _I, _P, _P]
     lib.kd_expand.restype = _I
-    lib.kd_expand.argtypes = [_P] * 8 + [_I] * 7 + [_P] * 12 + [_P]
+    lib.kd_expand.argtypes = [_P] * 8 + [_I] * 7 + [_P] * 7 + [_P]
+    lib.kd_expand_cluster.restype = _I
+    lib.kd_expand_cluster.argtypes = [_I] * 5
     lib.kd_sweep.restype = _I
     lib.kd_sweep.argtypes = [_P] * 5 + [_I] * 7 + [_F, _F] + [_P] * 7 + [_P]
+    lib.kd_sweep_cluster.restype = _I
+    lib.kd_sweep_cluster.argtypes = [_I] * 3
     lib.kd_dedup.restype = _I
     lib.kd_dedup.argtypes = [_P, _P] + [_I] * 4 + [_P] * 7 + [_P]
     lib.kd_dedup_smem_bytes.restype = _L
     lib.kd_dedup_smem_bytes.argtypes = [_I, _I]
+    lib.kd_error_string.restype = ctypes.c_char_p
+    lib.kd_error_string.argtypes = [_I]
     return lib
+
+
+def cuda_error(code: int) -> str:
+    """``CUDA error <code> (<its text>)``, for a wrapper's exception."""
+    return f"CUDA error {code} ({kernels().kd_error_string(code).decode()})"

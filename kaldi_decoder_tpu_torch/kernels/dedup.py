@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from kaldi_decoder_tpu_torch.kernels._build import check, kernels, ptr, stream
+from kaldi_decoder_tpu_torch.kernels._build import check, cuda_error, kernels, ptr, stream
 from kaldi_decoder_tpu_torch.ops.segment import Selection
 from kaldi_decoder_tpu_torch.ops.segment import dedup_select as dedup_select_plain
 
@@ -58,7 +58,7 @@ def dedup_select(
         stream(dev),
     )
     if rc != 0:
-        raise RuntimeError(f"kd_dedup launch failed: CUDA error {rc}")
+        raise RuntimeError(f"kd_dedup launch failed: {cuda_error(rc)}")
     dedup_select.launches += 1
     return out
 

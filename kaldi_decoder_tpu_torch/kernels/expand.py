@@ -22,7 +22,7 @@ from kaldi_decoder_tpu_torch.decoders.frontier import (
     expand_emitting,
 )
 from kaldi_decoder_tpu_torch.fst.pack import EM_FIELDS, PackedGraph
-from kaldi_decoder_tpu_torch.kernels._build import check, kernels, ptr, stream
+from kaldi_decoder_tpu_torch.kernels._build import check, cuda_error, kernels, ptr, stream
 from kaldi_decoder_tpu_torch.kernels.gather import row_gather
 
 INF = float("inf")
@@ -63,6 +63,19 @@ def expand_filter_plain(
     )
 
 
+def remainder_units(states, costs, cutoff, pg: PackedGraph, fc: FrontierConfig) -> torch.Tensor:
+    """(B,) int64: the em_flat units the active slots' remainder arcs ask
+    for (the ``total`` of the expansion's scan; more than
+    ``fc.rem_units`` means overflow)."""
+    KE, W, G = fc.expand_lanes, fc.block_width, fc.flat_group
+    c = costs[:, :KE]
+    active = torch.isfinite(c) & (c < cutoff[:, None])
+    row = pg.em_block[torch.where(active, states[:, :KE], 0).long()]
+    lo, deg = row[..., W * EM_FIELDS].long(), row[..., W * EM_FIELDS + 1].long()
+    n = torch.where(active & (deg > W), (lo + deg - 1) // G - (lo + W) // G + 1, 0)
+    return n.sum(dim=1)
+
+
 def expand_filter(
     states, costs, cutoff, adaptive_beam, scores_t, pg, fc, with_src_slot: bool = False
 ) -> Expansion:
@@ -91,15 +104,10 @@ def expand_filter(
     check(pg.em_flat, "em_flat", torch.int32, (pg.em_flat.shape[0], G * EM_FIELDS), dev)
 
     # One em_block row per frontier slot, dead and inactive slots
-    # included (their states are valid rows); K1 reads the active ones.
+    # included (their states are valid rows); K1 reads the first KE.
     rows = row_gather(pg.em_block, states)
     N = KE * W + Ru * G
     i32 = dict(dtype=torch.int32, device=dev)
-    starts = torch.empty((B, KE), **i32)
-    n_units = torch.empty((B, KE), **i32)
-    total = torch.empty((B,), **i32)
-    last_nz = torch.empty((B,), **i32)
-    minkey = torch.empty((B,), **i32)
     out = Expansion(
         dst=torch.empty((B, N), **i32),
         cost=torch.empty((B, N), dtype=torch.float32, device=dev),
@@ -112,14 +120,12 @@ def expand_filter(
     rc = kernels().kd_expand(
         ptr(states), ptr(costs), ptr(cutoff), ptr(adaptive_beam),
         ptr(scores_t), ptr(rows), ptr(pg.em_block), ptr(pg.em_flat),
-        B, K, KE, W, G, Ru, V,
-        ptr(starts), ptr(n_units), ptr(total), ptr(last_nz), ptr(minkey),
-        ptr(out.dst), ptr(out.cost), ptr(out.src_state), ptr(out.arc_id),
+        B, K, KE, W, G, Ru, V, ptr(out.dst), ptr(out.cost), ptr(out.src_state), ptr(out.arc_id),
         ptr(out.src_slot) if with_src_slot else None,
         ptr(out.overflow), ptr(out.next_cutoff), stream(dev),
     )
     if rc != 0:
-        raise RuntimeError(f"kd_expand launch failed: CUDA error {rc}")
+        raise RuntimeError(f"kd_expand launch failed: {cuda_error(rc)}")
     expand_filter.launches += 1
     return out
 

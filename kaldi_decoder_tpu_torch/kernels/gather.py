@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from kaldi_decoder_tpu_torch.kernels._build import check, kernels, ptr, stream
+from kaldi_decoder_tpu_torch.kernels._build import check, cuda_error, kernels, ptr, stream
 
 
 def row_gather_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -37,7 +37,7 @@ def row_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         ptr(table), ptr(idx), idx.numel(), R, W, ptr(out), stream(dev)
     )
     if rc != 0:
-        raise RuntimeError(f"kd_row_gather launch failed: CUDA error {rc}")
+        raise RuntimeError(f"kd_row_gather launch failed: {cuda_error(rc)}")
     row_gather.launches += 1
     return out
 

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from kaldi_decoder_tpu_torch.decoders.sweep import (
     MARGIN,
@@ -16,7 +17,7 @@ from kaldi_decoder_tpu_torch.decoders.sweep import (
     SweepOut,
     sweep_plain,
 )
-from kaldi_decoder_tpu_torch.kernels._build import check, kernels, ptr, stream
+from kaldi_decoder_tpu_torch.kernels._build import check, cuda_error, kernels, ptr, stream
 
 
 def sweep_chunk(
@@ -45,12 +46,27 @@ def sweep_chunk(
     check(em_records, "em_records", torch.int32, (T, B, R, 4), dev)
     check(init_states, "init_states", torch.int32, (B, K), dev)
     check(rem, "rem", torch.int32, (B,), dev)
+    # The kernel stages each frame's slab with 16-byte bulk copies, so its
+    # frontier has a multiple of 4 slots: another size is padded with dead
+    # slots (state -1, cost +inf), which join no table and emit no row.
+    K4 = -(-K // 4) * 4
+    if K4 != K:
+        pad = (0, K4 - K)
+        frontier_states = F.pad(frontier_states, pad, value=-1)
+        frontier_costs = F.pad(frontier_costs, pad, value=float("inf"))
+        init_states = F.pad(init_states, pad, value=-1)
+    for name, t in (("frontier_states", frontier_states), ("frontier_costs", frontier_costs),
+                    ("em_records", em_records)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
 
     i32 = dict(dtype=torch.int32, device=dev)
-    table = torch.empty((B, num_states), dtype=torch.float32, device=dev)
-    lebuf = torch.empty((B, R), dtype=torch.float32, device=dev)
+    table = torch.empty((2, B, num_states), dtype=torch.int64, device=dev)
+    # Extras of the slots and records a block does not stage.
+    spill = torch.empty((B * (K4 + R),), dtype=torch.float32, device=dev)
     out = SweepOut(
-        tok_rows=torch.empty((B, sc.tok_cap + K, 3), **i32),
+        # A frame appends at most K rows, so none lands in the padding's.
+        tok_rows=torch.empty((B, sc.tok_cap + K4, 3), **i32)[:, : sc.tok_cap + K],
         tok_count=torch.empty((B,), **i32),
         em_rows=torch.empty((B, sc.em_cap + R, 3), **i32),
         em_count=torch.empty((B,), **i32),
@@ -62,13 +78,12 @@ def sweep_chunk(
     em_thr = float(np.float32(sc.lattice_beam + MARGIN))
     rc = kernels().kd_sweep(
         ptr(frontier_states), ptr(frontier_costs), ptr(em_records),
-        ptr(init_states), ptr(rem), T, B, K, R, num_states, sc.tok_cap,
-        sc.em_cap, tok_thr, em_thr, ptr(table), ptr(lebuf),
-        ptr(out.tok_rows), ptr(out.em_rows), ptr(out.tok_count),
-        ptr(out.em_count), ptr(out.overflow), stream(dev),
+        ptr(init_states), ptr(rem), T, B, K4, R, num_states, sc.tok_cap,
+        sc.em_cap, tok_thr, em_thr, ptr(table), ptr(spill), ptr(out.tok_rows), ptr(out.em_rows),
+        ptr(out.tok_count), ptr(out.em_count), ptr(out.overflow), stream(dev),
     )
     if rc != 0:
-        raise RuntimeError(f"kd_sweep launch failed: CUDA error {rc}")
+        raise RuntimeError(f"kd_sweep launch failed: {cuda_error(rc)}")
     sweep_chunk.launches += 1
     return out
 

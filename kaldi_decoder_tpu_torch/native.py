@@ -34,7 +34,7 @@ _f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
 @functools.lru_cache(maxsize=None)
 def host_library() -> ctypes.CDLL:
     path = build_library(
-        "kdtpu_host", [HOST_SOURCE], ["g++", "-O3", "-std=c++17", "-shared", "-fPIC"]
+        "kdtpu_host", [HOST_SOURCE], ["g++", "-O3", "-std=c++17", "-fPIC"], ["g++", "-shared"]
     )
     lib = ctypes.CDLL(path)
     lib.kd_shortest_path.restype = _i64

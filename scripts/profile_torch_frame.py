@@ -14,7 +14,10 @@ step on the first chunk:
   wall time per frame);
 * the device time of one call of each hand-written kernel's wrapper
   and of its plain torch version, on the same inputs: the row gather and
-  K1 on the frontier after those frames, K4 on the first 500-frame chunk.
+  K1 on the frontier after those frames, K4 on the first 500-frame chunk;
+* the K1 and K4 calls split by device activity, in launch order (the
+  calls queued back to back): each kernel's time and the device's idle
+  time before it.
 
 Prints a summary and writes the profiler's full table of those frames to
 ``<out>/profile_torch_frame.txt``.
@@ -52,19 +55,24 @@ def _device_events(prof):
     return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
 
 
-def device_ms(fn, reps):
+def kernel_ms(fn, reps):
     """Device milliseconds per call of ``fn`` (all kernels, memsets and
-    copies it launches), from the profiler, after one warm-up call."""
+    copies it launches, without the gaps between them), from the
+    profiler, after one warm-up call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # The trace can miss a window's first device activity: let it be
+        # a short sleep kernel, left out of the sum.
+        torch.cuda._sleep(1000)
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return sum(_self_device_us(e) for e in _device_events(prof)) / 1e3 / reps
+    return sum(_self_device_us(e) for e in _device_events(prof)
+               if "spin_kernel" not in e.key) / 1e3 / reps
 
 
 def main():
@@ -78,7 +86,16 @@ def main():
 
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_frame: needs a CUDA card")
-    from chip_smoke import B, BENCH_CONFIG, CHUNK, DECODER_KW, bench_workload
+    from chip_smoke import (
+        B,
+        BENCH_CONFIG,
+        CHUNK,
+        DECODER_KW,
+        bench_workload,
+        card_line,
+        format_split,
+        kernel_split,
+    )
     from kaldi_decoder_tpu_torch import BatchedLatticeDecoder, config_for_graph
     from kaldi_decoder_tpu_torch.decoders.lattice_dev import (
         lattice_chunk,
@@ -90,6 +107,7 @@ def main():
     from kaldi_decoder_tpu_torch.kernels.sweep import sweep_chunk
     from kaldi_decoder_tpu_torch.ops.cutoff import get_cutoff
 
+    print(card_line())
     graph, scores, lengths, _ = bench_workload()
     dec = BatchedLatticeDecoder(graph, config_for_graph(graph, **BENCH_CONFIG),
                                 device="cuda", **DECODER_KW)
@@ -139,7 +157,7 @@ def main():
         (f"K4 sweep of one {CHUNK}-frame chunk", 1,
          lambda: sweep_chunk(*k4_args), lambda: sweep_plain(*k4_args)),
     ]
-    per_call = [(name, device_ms(kern, reps), device_ms(plain, reps))
+    per_call = [(name, kernel_ms(kern, reps), kernel_ms(plain, reps))
                 for name, reps, kern, plain in pairs]
 
     print(f"frames {WARM}..{WARM + WALL - 1}: wall {wall_ms:.4f} ms/frame (unprofiled)")
@@ -163,6 +181,9 @@ def main():
     print("device ms per call, kernel vs plain torch, same inputs:")
     for name, kern_ms, plain_ms in per_call:
         print(f"  {name}: kernel {kern_ms:.4f} ms, plain {plain_ms:.4f} ms")
+    print("device activities of one call, queued back to back:")
+    for name, reps, kern, _ in pairs[1:]:
+        print(f"  {name}: {format_split(kernel_split(kern, reps))}")
 
     os.makedirs(args.out, exist_ok=True)
     path = os.path.join(args.out, "profile_torch_frame.txt")

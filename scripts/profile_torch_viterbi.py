@@ -16,7 +16,8 @@ device time by kernel, device activities per frame and the busy share):
 Then the device time of one call of each hand-written kernel's wrapper
 and of its plain torch version, on the same inputs: K1 with its source
 slots and K6 on the Viterbi frontier after its frames, and K6 on one eps
-iteration's candidates of the unfolded graph at B=16.
+iteration's candidates of the unfolded graph at B=16; and the K1 call
+split by device activity (``chip_smoke.kernel_split``).
 
 Prints a summary and writes the profiler's full tables to
 ``<out>/profile_torch_viterbi.txt`` and ``<out>/profile_torch_streaming.txt``.
@@ -37,7 +38,7 @@ from profile_torch_frame import (
     _device_events,
     _self_device_us,
     _sort_key,
-    device_ms,
+    kernel_ms,
 )
 
 sys.path.insert(0, REPO)
@@ -99,7 +100,15 @@ def main():
 
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_viterbi: needs a CUDA card")
-    from chip_smoke import B, EPS_FRAME, VITERBI_CONFIG, bench_workload
+    from chip_smoke import (
+        B,
+        EPS_FRAME,
+        VITERBI_CONFIG,
+        bench_workload,
+        card_line,
+        format_split,
+        kernel_split,
+    )
     from kaldi_decoder_tpu_torch import (
         BatchedViterbiDecoder,
         FasterDecoder,
@@ -117,6 +126,7 @@ def main():
     from kaldi_decoder_tpu_torch.ops.cutoff import get_cutoff
     from kaldi_decoder_tpu_torch.ops.segment import dedup_select as dedup_select_plain
 
+    print(card_line())
     graph, scores, lengths, _ = bench_workload()
     scores_tm = torch.from_numpy(np.ascontiguousarray(scores.transpose(1, 0, 2))).cuda()
     rem = torch.from_numpy(lengths).cuda()
@@ -159,8 +169,10 @@ def main():
     ]
     print("device ms per call, kernel vs plain torch, same inputs:")
     for name, kern, plain in pairs:
-        print(f"  {name}: kernel {device_ms(kern, 20):.4f} ms, "
-              f"plain {device_ms(plain, 20):.4f} ms")
+        print(f"  {name}: kernel {kernel_ms(kern, 20):.4f} ms, "
+              f"plain {kernel_ms(plain, 20):.4f} ms")
+    print("device activities of one call of expand_filter with src_slot, queued back to back:")
+    print("  " + format_split(kernel_split(pairs[0][1], 20)))
     del vdec, edec, ex, em_args, eps_args, cs, cc, mid, est
     torch.cuda.empty_cache()
 

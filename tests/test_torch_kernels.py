@@ -21,8 +21,14 @@ from kaldi_decoder_tpu_torch.decoders.lattice_dev import (
 )
 from kaldi_decoder_tpu_torch.decoders.sweep import sweep_config, sweep_plain
 from kaldi_decoder_tpu_torch.fst.csr import CsrGraph, GraphArrays
+from kaldi_decoder_tpu_torch.fst.pack import pack_graph_device
+from kaldi_decoder_tpu_torch.kernels._build import kernels
 from kaldi_decoder_tpu_torch.kernels.dedup import dedup_select
-from kaldi_decoder_tpu_torch.kernels.expand import expand_filter, expand_filter_plain
+from kaldi_decoder_tpu_torch.kernels.expand import (
+    expand_filter,
+    expand_filter_plain,
+    remainder_units,
+)
 from kaldi_decoder_tpu_torch.kernels.gather import row_gather, row_gather_plain
 from kaldi_decoder_tpu_torch.kernels.sweep import sweep_chunk
 from kaldi_decoder_tpu_torch.ops.cutoff import get_cutoff
@@ -38,12 +44,15 @@ def card():
     return torch.device("cuda")
 
 
-def _graph(seed=0, S=400, E=3000):
+def _graph(seed=0, S=400, E=3000, fat=0):
     """Random eps-free graph with a few hub states, so fat states use the
-    remainder lanes."""
+    remainder lanes; with ``fat``, state 0 has ``fat`` more arcs."""
     rng = np.random.default_rng(seed)
     src = rng.integers(0, S, E)
     src[: E // 5] = rng.integers(0, 8, E // 5)
+    if fat:
+        src = np.concatenate([src, np.zeros(fat, src.dtype)])
+        E += fat
     src.sort()
     row = np.zeros(S + 1, np.int32)
     row[1:] = np.cumsum(np.bincount(src, minlength=S))
@@ -58,18 +67,27 @@ def _graph(seed=0, S=400, E=3000):
     return CsrGraph(ga, S, E, 0, 0, 0, int(np.diff(row).max()), 0, V - 1)
 
 
-def _decoder(device, rem_budget):
-    g = _graph()
-    fc = config_for_graph(g, frontier_size=64, max_active=48, beam=10.0,
+def _decoder(device, rem_budget, frontier_size=64, g=None, max_active=48, em_records=512):
+    g = g or _graph()
+    fc = config_for_graph(g, frontier_size=frontier_size, max_active=max_active, beam=10.0,
                           rem_budget=rem_budget)
-    return BatchedLatticeDecoder(g, fc, lattice_beam=5.0, em_records=512,
+    return BatchedLatticeDecoder(g, fc, lattice_beam=5.0, em_records=em_records,
                                  pad_time_to=8, device=device)
 
 
-def _scores(device):
+def _scores(device, nb=B):
     rng = np.random.default_rng(1)
-    s = np.log(rng.dirichlet(np.ones(V), size=(T, B))).astype(np.float32)
-    return torch.from_numpy(s).to(device)  # time-major (T, B, V)
+    s = np.log(rng.dirichlet(np.ones(V), size=(T, nb))).astype(np.float32)
+    return torch.from_numpy(s).to(device)  # time-major (T, nb, V)
+
+
+def _batch_for_cluster(query, want):
+    """The smallest batch at which ``query(B)``, a kernel's cluster-size
+    picker, answers ``want``."""
+    for nb in range(1, 1025):
+        if query(nb) == want:
+            return nb
+    raise AssertionError(f"no batch up to 1024 gets clusters of {want}")
 
 
 def _bits(x: torch.Tensor) -> torch.Tensor:
@@ -165,6 +183,206 @@ def test_expand_kernel_src_slot_matches_plain(card):
             st, sc[t], torch.ones(B, dtype=torch.bool, device=card), dec._pg,
             dec.cfg, dec._dev_graph.num_states,
         )
+
+
+def _frontier(card, S, nb, K):
+    """A cost-sorted frontier of ``nb`` utterances and K distinct states,
+    the best at cost 0, and utterance 2's slots past 20 dead."""
+    rng = np.random.default_rng(3)
+    states = torch.from_numpy(
+        np.stack([rng.choice(S, K, replace=False) for _ in range(nb)]).astype(np.int32))
+    costs = torch.from_numpy(np.sort(rng.uniform(0, 12, (nb, K)), axis=1).astype(np.float32))
+    costs[:, 0] = 0.0
+    costs[2, 20:] = float("inf")
+    return states.to(card), costs.to(card)
+
+
+def _same_expansion(ref, got):
+    for name, r, g in zip(ref._fields, ref, got):
+        if r is None:  # src_slot: not asked for
+            assert g is None
+            continue
+        if r.dtype == torch.float32:
+            r, g = _bits(r), _bits(g)
+        assert torch.equal(r, g), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_src_slot", [False, True])
+@pytest.mark.parametrize("case", [
+    "budget-exact", "budget-one-unit-short", "all-inactive", "fat-state",
+    "flat-group-1", "flat-group-8",
+])
+def test_expand_kernel_edge_cases(card, case, with_src_slot):
+    """K1 against plain where the kernel's partition of lanes over a
+    cluster's blocks could go wrong: a remainder budget filled exactly or
+    one unit short, no active slot, one state whose remainder spans
+    several blocks' lanes, one and eight arcs per remainder unit."""
+    fat = case == "fat-state"
+    g = _graph(fat=1500 if fat else 0)
+    G = {"flat-group-1": 1, "flat-group-8": 8}.get(case, 4)
+    kw = dict(frontier_size=64, max_active=48, beam=10.0, flat_group=G)
+
+    def setup(rem_budget):
+        fc = config_for_graph(g, rem_budget=rem_budget, **kw)
+        return fc, pack_graph_device(g, fc.block_width, fc.eps_block_width, G, card)
+
+    fc, pg = setup(4096)
+    states, costs = _frontier(card, g.num_states, B, 64)
+    if fat:
+        states[:, 0] = 0
+    cut = get_cutoff(costs, fc.beam, fc.max_active, fc.min_active, fc.beam_delta,
+                     costs_sorted=True)
+    cutoff = torch.full_like(cut.cutoff, -float("inf")) if case == "all-inactive" else cut.cutoff
+    totals = remainder_units(states, costs, cutoff, pg, fc)
+    if case.startswith("budget"):
+        units = int(totals.max()) - (case == "budget-one-unit-short")
+        fc, pg = setup(units * G)
+        assert fc.rem_units == units
+    if fat:  # the hub's remainder lanes outnumber one block's lanes
+        assert g.max_em_out_degree - fc.block_width > -(-fc.num_candidates // 8)
+    args = (states, costs, cutoff, cut.adaptive_beam, _scores(card)[0], pg, fc)
+    ref = expand_filter_plain(*args, with_src_slot=with_src_slot)
+    got = expand_filter(*args, with_src_slot=with_src_slot)
+    torch.cuda.synchronize()
+    _same_expansion(ref, got)
+    assert torch.equal(got.overflow, totals > fc.rem_units)
+    assert bool(got.overflow.any()) == (case == "budget-one-unit-short")
+
+
+def _sweep_inputs(card, frontier_size, rem, **kw):
+    dec = _decoder(card, 4096, frontier_size, **kw)
+    st0, _, _ = dec._init(len(rem))
+    rem = torch.tensor(rem, dtype=torch.int32, device=card)
+    S = dec._dev_graph.num_states
+    _, o = lattice_chunk(dec._pg, _scores(card, len(rem)), rem, st0, dec.cfg, S)
+    return [o.frontier_states, o.frontier_costs, o.em_records, st0.states, rem,
+            sweep_config(dec.cfg, T), S]
+
+
+def _same_sweep(ref, got):
+    assert got.tok_rows.shape == ref.tok_rows.shape
+    assert torch.equal(ref.tok_count, got.tok_count)
+    assert torch.equal(ref.em_count, got.em_count)
+    assert torch.equal(ref.overflow, got.overflow)
+    for b in range(ref.tok_count.shape[0]):
+        n, m = int(ref.tok_count[b]), int(ref.em_count[b])
+        assert torch.equal(ref.tok_rows[b, :n], got.tok_rows[b, :n])
+        assert torch.equal(ref.em_rows[b, :m], got.em_rows[b, :m])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    "rem-0-and-past-chunk", "caps-equal-counts", "caps-one-below-counts",
+    "blocks-without-slots", "frontier-size-10",
+])
+def test_sweep_kernel_edge_cases(card, case):
+    """K4 against plain: an utterance with every frame frozen beside one
+    running past the chunk; caps equal to the survivor counts and one
+    below; a frontier of 12 slots, so that most blocks of a cluster own no
+    slot (slots go to blocks in fours); a frontier of 10, which the
+    wrapper pads to 12 for the kernel's 16-byte copies."""
+    import dataclasses
+
+    rem = [0, 40, 13] if case == "rem-0-and-past-chunk" else [40, 9, 13]
+    K = {"blocks-without-slots": 12, "frontier-size-10": 10}.get(case, 64)
+    args = _sweep_inputs(card, K, rem)
+    assert args[0].shape[2] == K
+    if case.startswith("caps"):
+        full = sweep_plain(*args)
+        less = case == "caps-one-below-counts"
+        args[5] = dataclasses.replace(
+            args[5], tok_cap=int(full.tok_count.max()) - less,
+            em_cap=int(full.em_count.max()) - less)
+    ref = sweep_plain(*args)
+    got = sweep_chunk(*args)
+    torch.cuda.synchronize()
+    _same_sweep(ref, got)
+    assert bool(got.overflow.any()) == (case == "caps-one-below-counts")
+    if case == "rem-0-and-past-chunk":
+        assert int(got.tok_count[0]) == int(got.em_count[0]) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_src_slot", [False, True])
+@pytest.mark.parametrize("rem_budget,flat_group", [(49152, 4), (131072, 4), (32768, 1)])
+def test_expand_kernel_large_frontier(card, rem_budget, flat_group, with_src_slot):
+    """K1 against plain at a frontier of 8192 slots, all expanded (max_active
+    8192, block width 8): 65,536 block lanes plus the remainder's, so that
+    a block's lane costs outgrow its shared-memory cache at the larger
+    budget, and, with one arc per unit, a block's remainder lanes span
+    several tiles of owners."""
+    g = _graph(S=9000, E=90000)
+    fc = config_for_graph(g, frontier_size=8192, max_active=8192, beam=10.0,
+                          block_width=8, rem_budget=rem_budget, flat_group=flat_group)
+    assert (fc.expand_lanes, fc.block_width) == (8192, 8)
+    pg = pack_graph_device(g, fc.block_width, fc.eps_block_width, fc.flat_group, card)
+    states, costs = _frontier(card, g.num_states, B, 8192)
+    cut = get_cutoff(costs, fc.beam, fc.max_active, fc.min_active, fc.beam_delta,
+                     costs_sorted=True)
+    args = (states, costs, cut.cutoff, cut.adaptive_beam, _scores(card)[0], pg, fc)
+    ref = expand_filter_plain(*args, with_src_slot=with_src_slot)
+    got = expand_filter(*args, with_src_slot=with_src_slot)
+    torch.cuda.synchronize()
+    _same_expansion(ref, got)
+    assert int(remainder_units(*args[:3], pg, fc).max()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("clusters", [4, 2, 1])
+def test_expand_kernel_cluster_sizes(card, clusters):
+    """K1 against plain at a batch for which the cluster picker gives
+    clusters of 4, 2 and 1 blocks (all B clusters must run at once)."""
+    g = _graph()
+    fc = config_for_graph(g, frontier_size=64, max_active=48, beam=10.0, rem_budget=4096)
+    pg = pack_graph_device(g, fc.block_width, fc.eps_block_width, fc.flat_group, card)
+    shape = (fc.expand_lanes, fc.block_width, fc.flat_group, fc.rem_units)
+    nb = _batch_for_cluster(lambda n: kernels().kd_expand_cluster(n, *shape), clusters)
+    states, costs = _frontier(card, g.num_states, nb, 64)
+    cut = get_cutoff(costs, fc.beam, fc.max_active, fc.min_active, fc.beam_delta,
+                     costs_sorted=True)
+    args = (states, costs, cut.cutoff, cut.adaptive_beam, _scores(card, nb)[0], pg, fc)
+    for with_src_slot in (False, True):
+        ref = expand_filter_plain(*args, with_src_slot=with_src_slot)
+        got = expand_filter(*args, with_src_slot=with_src_slot)
+        torch.cuda.synchronize()
+        _same_expansion(ref, got)
+    assert kernels().kd_expand_cluster(nb, *shape) == clusters
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("clusters", [4, 2, 1])
+def test_sweep_kernel_cluster_sizes(card, clusters):
+    """K4 against plain at a batch for which the cluster picker gives
+    clusters of 4, 2 and 1 blocks."""
+    K, R = 64, 512
+    nb = _batch_for_cluster(lambda n: kernels().kd_sweep_cluster(n, K, R), clusters)
+    rem = [(7 * b) % 30 for b in range(nb)]
+    args = _sweep_inputs(card, K, rem)
+    assert tuple(args[2].shape[2:]) == (R, 4)
+    ref = sweep_plain(*args)
+    got = sweep_chunk(*args)
+    torch.cuda.synchronize()
+    _same_sweep(ref, got)
+    assert kernels().kd_sweep_cluster(nb, K, R) == clusters
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,R", [(4096, 16384), (32768, 8192)])
+def test_sweep_kernel_past_shared_memory(card, K, R):
+    """K4 against plain where a block's ranges outgrow its shared memory:
+    at K 4096 and R 16384 (clusters of 8) part of each block's records are
+    read from device memory; at K 32768 part of its slots and all of its
+    records."""
+    g = _graph(S=K + 1000, E=6 * K)
+    args = _sweep_inputs(card, K, [40, 9, 13], g=g, max_active=2**31 - 1, em_records=R)
+    assert args[0].shape[2] == K and args[2].shape[2] == R
+    assert kernels().kd_sweep_cluster(B, K, R) == 8
+    ref = sweep_plain(*args)
+    got = sweep_chunk(*args)
+    torch.cuda.synchronize()
+    _same_sweep(ref, got)
+    assert int(ref.em_count.min()) > 0
 
 
 def _dedup_inputs(seed, N, K, S, n_valid, incumbents):

@@ -103,29 +103,78 @@ def _jax_expand_filter(states, costs, cutoff, adaptive, scores, pg, fc):
     return jax.jit(jax.vmap(one))(states, costs, cutoff, adaptive, scores)
 
 
-@pytest.mark.parametrize("rem_budget", [4096, 24])  # 24: remainder overflow
-def test_expand_filter_matches_jax(rem_budget):
-    _, cg, pgraph = small_hlg()
-    jdec = JaxDecoder(cg, None, pad_time_to=8)
-    fold = fold_eps(pgraph)
-    jfc, pfc = twin_configs(jdec._dev_graph, fold.device, frontier_size=64,
-                            max_active=40, rem_budget=rem_budget)
-    assert_same_config(jfc, pfc)
-    from kaldi_decoder_tpu.fst.pack import pack_graph_device as jax_pack
+def _hub_graph(seed=2, S=200, E=900, hub=600, V=12):
+    """(JAX CsrGraph, port CsrGraph) of a random eps-free graph whose
+    state 0 has ``hub`` emitting arcs: a fat state whose remainder lanes
+    span several lane blocks of the CUDA kernel."""
+    from kaldi_decoder_tpu.fst.csr import CsrGraph as JaxCsrGraph
+    from kaldi_decoder_tpu.fst.csr import GraphArrays as JaxGraphArrays
+    from kaldi_decoder_tpu_torch.fst.csr import graph_from_numpy
 
-    jpg = jax_pack(jdec._dev_graph, jfc.block_width, jfc.eps_block_width, jfc.flat_group)
-    ppg = packed_from_numpy(jpg, "cpu")
-    rng = np.random.default_rng(rem_budget)
+    rng = np.random.default_rng(seed)
+    src = np.sort(np.concatenate([np.zeros(hub, np.int64), rng.integers(1, S, E - hub)]))
+    row = np.zeros(S + 1, np.int32)
+    row[1:] = np.cumsum(np.bincount(src, minlength=S))
+    il = rng.integers(1, V + 1, E).astype(np.int32)
+    ga = JaxGraphArrays(
+        row, il, rng.integers(0, 50, E).astype(np.int32),
+        rng.uniform(0, 4, E).astype(np.float32), rng.integers(0, S, E).astype(np.int32),
+        il - 1, np.zeros(S + 1, np.int32), np.zeros(0, np.int32), np.zeros(0, np.float32),
+        np.zeros(0, np.int32), np.full(S, 1.0, np.float32),
+    )
+    cg = JaxCsrGraph(ga, S, E, 0, 0, 0, int(np.diff(row).max()), 0, V - 1)
+    return cg, graph_from_numpy(cg)
+
+
+@pytest.mark.parametrize("graph,budget,flat_group,inactive", [
+    pytest.param("hlg", 4096, 4, False, id="4096"),
+    pytest.param("hlg", 24, 4, False, id="24"),  # remainder overflow
+    # The active slots fill the remainder budget exactly, or one unit short.
+    pytest.param("hlg", "exact", 4, False, id="budget-exact"),
+    pytest.param("hlg", "short", 4, False, id="budget-one-unit-short"),
+    pytest.param("hlg", 4096, 4, True, id="all-inactive"),  # cutoff -inf
+    pytest.param("hub", 1024, 4, False, id="fat-state"),
+    pytest.param("hlg", 4096, 1, False, id="flat-group-1"),
+    pytest.param("hlg", 4096, 8, False, id="flat-group-8"),
+])
+def test_expand_filter_matches_jax(graph, budget, flat_group, inactive):
+    from kaldi_decoder_tpu.fst.pack import pack_graph_device as jax_pack
+    from kaldi_decoder_tpu_torch.kernels.expand import remainder_units
+
+    rng = np.random.default_rng(budget if isinstance(budget, int) else 7)
     B, K, V = 3, 64, 12
-    states, costs = _frontier(rng, B, K, cg.num_states, (64, 30, 1))
+    if graph == "hlg":
+        _, cg, pgraph = small_hlg()
+        jgraph = JaxDecoder(cg, None, pad_time_to=8)._dev_graph
+        pdev = fold_eps(pgraph).device
+        states, costs = _frontier(rng, B, K, cg.num_states, (64, 30, 1))
+    else:
+        jgraph, pdev = _hub_graph()
+        states, costs = _frontier(rng, B, K, pdev.num_states, (64, 30, 1))
+        states[:, 0] = 0  # the hub, active in every row
+    kw = dict(frontier_size=64, max_active=40, flat_group=flat_group)
+
+    def configs(rem_budget):
+        jfc, pfc = twin_configs(jgraph, pdev, rem_budget=rem_budget, **kw)
+        assert_same_config(jfc, pfc)
+        jpg = jax_pack(jgraph, jfc.block_width, jfc.eps_block_width, jfc.flat_group)
+        return jfc, pfc, jpg, packed_from_numpy(jpg, "cpu")
+
+    jfc, pfc, jpg, ppg = configs(budget if isinstance(budget, int) else 4096)
     scores = np.log(rng.dirichlet(np.ones(V), size=B)).astype(np.float32)
     cut = get_cutoff(torch.from_numpy(costs), pfc.beam, pfc.max_active,
                      pfc.min_active, pfc.beam_delta, costs_sorted=True)
+    cutoff = torch.full_like(cut.cutoff, -INF) if inactive else cut.cutoff
+    totals = remainder_units(torch.from_numpy(states), torch.from_numpy(costs), cutoff, ppg, pfc)
+    if isinstance(budget, str):
+        units = int(totals.max()) - (budget == "short")
+        jfc, pfc, jpg, ppg = configs(units * flat_group)
+        assert pfc.rem_units == units
     ref = _jax_expand_filter(
-        jnp.asarray(states), jnp.asarray(costs), jnp.asarray(cut.cutoff.numpy()),
+        jnp.asarray(states), jnp.asarray(costs), jnp.asarray(cutoff.numpy()),
         jnp.asarray(cut.adaptive_beam.numpy()), jnp.asarray(scores), jpg, jfc,
     )
-    args = (torch.from_numpy(states), torch.from_numpy(costs), cut.cutoff,
+    args = (torch.from_numpy(states), torch.from_numpy(costs), cutoff,
             cut.adaptive_beam, torch.from_numpy(scores), ppg, pfc)
     got = expand_filter_plain(*args)
     for name, r, g in zip(got._fields, ref, got):
@@ -135,7 +184,15 @@ def test_expand_filter_matches_jax(rem_budget):
             np.testing.assert_array_equal(bits(r), bits(g.numpy()), err_msg=name)
         else:
             np.testing.assert_array_equal(r, g.numpy(), err_msg=name)
-    assert bool(got.overflow.any()) == (rem_budget == 24)
+    np.testing.assert_array_equal(got.overflow.numpy(), (totals > pfc.rem_units).numpy())
+    if budget == 24 or budget == "short":
+        assert bool(got.overflow.any())
+    else:
+        assert not bool(got.overflow.any())
+    if inactive:
+        assert not torch.isfinite(got.cost).any()
+    if graph == "hub":  # the hub's remainder spans more than a kernel block's lanes
+        assert pdev.max_em_out_degree - pfc.block_width > -(-pfc.num_candidates // 8)
     # The wrapper runs the plain version on CPU tensors and launches nothing.
     before = expand_filter.launches
     wrapped = expand_filter(*args)
@@ -177,8 +234,18 @@ def test_dedup_select_rec_ties(r):
     np.testing.assert_array_equal(bits(ref.rec_slack), bits(got.rec_slack.numpy()))
 
 
-@pytest.mark.parametrize("small_caps", [False, True])  # True: buffers overflow
-def test_sweep_matches_jax_chunk(small_caps):
+@pytest.mark.parametrize("caps,rems", [
+    pytest.param("default", "mixed", id="False"),
+    pytest.param("small", "mixed", id="True"),  # buffers overflow
+    # One utterance has no frame left (every frame frozen), one runs past
+    # the chunk.
+    pytest.param("default", "frozen", id="rem-0-and-past-chunk"),
+    # Caps equal to the largest survivor counts (no overflow), and one
+    # below them (overflow).
+    pytest.param("exact", "mixed", id="caps-equal-counts"),
+    pytest.param("one-below", "mixed", id="caps-one-below-counts"),
+])
+def test_sweep_matches_jax_chunk(caps, rems):
     """The port's sweep on a real JAX chunk (frontiers and records of a
     decode of the small HLG) equals JAX's ``_sweep_one`` vmapped; with
     small caps the clamped appends and overflow flags must agree too."""
@@ -193,6 +260,8 @@ def test_sweep_matches_jax_chunk(small_caps):
     st0, _, _, _ = jdec._init(B)
     rem = np.asarray(lengths, np.int32) - 4  # an utterance ends inside the chunk
     rem[0] = 40  # and one runs past it
+    if rems == "frozen":
+        rem[1] = 0
     _, o = jdec._chunk_fn(jdec._pg_dev, jnp.asarray(scores[:, :C]), jnp.asarray(rem), st0)
     jsc = jax_sweep_config(jdec.cfg, C)
     pcfg = lattice_config_for_graph(
@@ -202,14 +271,7 @@ def test_sweep_matches_jax_chunk(small_caps):
     psc = sweep_config(pcfg, C)
     assert (psc.tok_cap, psc.em_cap, psc.em_records) == (
         jsc.tok_cap, jsc.em_cap, jsc.em_records)
-    if small_caps:
-        jsc = dataclasses.replace(jsc, tok_cap=70, em_cap=90)
-        psc = dataclasses.replace(psc, tok_cap=70, em_cap=90)
-    ref = jax_build_sweep_fn(jsc)(
-        o.frontier_states, o.frontier_costs, o.em_records, o.eps_records,
-        st0.states, jnp.asarray(rem),
-    )
-    args = (
+    args = [
         torch.from_numpy(np.asarray(o.frontier_states)),
         torch.from_numpy(np.asarray(o.frontier_costs)),
         torch.from_numpy(np.asarray(o.em_records)),
@@ -217,6 +279,19 @@ def test_sweep_matches_jax_chunk(small_caps):
         torch.from_numpy(rem),
         psc,
         cg.num_states,
+    ]
+    if caps == "small":
+        tok_cap, em_cap = 70, 90
+    elif caps in ("exact", "one-below"):
+        full = sweep_plain(*args)
+        tok_cap = int(full.tok_count.max()) - (caps == "one-below")
+        em_cap = int(full.em_count.max()) - (caps == "one-below")
+    if caps != "default":
+        jsc = dataclasses.replace(jsc, tok_cap=tok_cap, em_cap=em_cap)
+        args[5] = psc = dataclasses.replace(psc, tok_cap=tok_cap, em_cap=em_cap)
+    ref = jax_build_sweep_fn(jsc)(
+        o.frontier_states, o.frontier_costs, o.em_records, o.eps_records,
+        st0.states, jnp.asarray(rem),
     )
     got = sweep_plain(*args)
     for name in ("tok", "em"):
@@ -230,7 +305,9 @@ def test_sweep_matches_jax_chunk(small_caps):
             )
     assert not np.asarray(ref.eps_count).any()  # eps-free device graph
     np.testing.assert_array_equal(np.asarray(ref.overflow), got.overflow.numpy())
-    assert bool(got.overflow.any()) == small_caps
+    assert bool(got.overflow.any()) == (caps in ("small", "one-below"))
+    if rems == "frozen":
+        assert int(got.tok_count[1]) == int(got.em_count[1]) == 0
     before = sweep_chunk.launches
     wrapped = sweep_chunk(*args)
     assert sweep_chunk.launches == before == 0
