@@ -36,7 +36,9 @@ Phases (any failure raises, and the process exits non-zero):
      call, host enqueue included), the call's bound (bytes over the
      memory rate, operations over the float32 rate) and the share of it
      reached; the row gather also against ``torch.index_select``, and
-     K1's call split by device activity (profiler);
+     K1's and each K6 call's split by device activity (profiler), with
+     K6's winners per utterance (the count that sizes its select) and
+     its cluster size;
   3. lattice path: ``BatchedLatticeDecoder.decode`` with the launch
      counters set to 0 just before; the row gather and K1 must launch
      once per frame and K4 once per chunk; the 1-best labels, per-frame
@@ -359,12 +361,14 @@ def same_expansion(ref, got, where):
 
 
 def same_selection(ref, got, where):
-    """Raise unless two K6 results are equal slot for slot; returns the
-    largest cost difference."""
+    """Raise unless two K6 results are equal slot for slot, costs by their
+    raw bits (a -0.0 stays -0.0); returns the largest cost difference."""
     import torch
 
     for name, r, g in zip(ref._fields, ref, got):
-        same = float_bits_equal(r, g) if r.dtype == torch.float32 else torch.equal(r, g)
+        if r.dtype == torch.float32:
+            r, g = r.view(torch.int32), g.view(torch.int32)
+        same = torch.equal(r, g)
         if not same:
             raise AssertionError(f"K6 differs from plain on {where}: {name}")
     fin = torch.isfinite(ref.costs)
@@ -377,6 +381,38 @@ def k1_clusters(fc, nb):
 
     return kernels().kd_expand_cluster(nb, fc.expand_lanes, fc.block_width, fc.flat_group,
                                        fc.rem_units)
+
+
+def k6_winners(args):
+    """The winners (distinct in-beam states) of each utterance in one K6
+    call: the count that sizes its select."""
+    from kaldi_decoder_tpu_torch.ops.segment import dedup_select as dedup_select_plain
+
+    return dedup_select_plain(*args).num_unique.tolist()
+
+
+def time_k6(name, args):
+    """K6 against its plain version on one call's arguments (time_kernel),
+    with its split by device activity and the split of its slowest
+    cluster into the kernel's steps; logs the winners per utterance and
+    the cluster size."""
+    from kaldi_decoder_tpu_torch.kernels.dedup import cluster_size, cluster_steps, dedup_select
+    from kaldi_decoder_tpu_torch.ops.segment import dedup_select as dedup_select_plain
+
+    n = k6_winners(args)
+    log(f"  {name}: winners per utterance {n} (K {args[2]}); clusters of "
+        f"{cluster_size(*args[0].shape)} blocks")
+    t = time_kernel(name, lambda: dedup_select(*args), lambda: dedup_select_plain(*args),
+                    k6_work(*args[1:3]))
+    log(f"  device activities of one call: {format_split(kernel_split(lambda: dedup_select(*args)))}")
+    dedup_select(*args)
+    c = cluster_steps(*args[0].shape)
+    t["steps_us"] = c["steps_us"]
+    log(f"  clusters end at (µs) {', '.join(f'{x:.2f}' for x in c['ends_us'])}; the slowest, "
+        f"utterance {c['slowest']}, in steps (µs): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in t["steps_us"].items()))
+    t["winners"] = n
+    return t
 
 
 def check_k1(dec, scores_tm):
@@ -540,17 +576,16 @@ def check_eps_kernel(mid, next_cutoff, pg, cfg, S, where):
     return err, eps_args, int((got.cand_idx >= cfg.frontier_size).sum())
 
 
-def check_k6(vdec, edec, scores_tm):
-    """K1 with its source slots, and K6, against their plain versions on
-    the emitting candidates of real frames of the batched Viterbi decode;
-    K6 on one eps iteration's candidates (incumbents first) of the
-    unfolded graph's decode."""
+def viterbi_k6_calls(vdec, edec, scores_tm):
+    """K1 with its source slots, and K6, held against their plain versions
+    on the emitting candidates of real frames of the batched Viterbi
+    decode, and K6 on one eps iteration's candidates (incumbents first) of
+    the unfolded graph's decode.  Returns the errors, K1's and K6's
+    arguments on the last checked frame, the eps call's and what the log
+    reports of them."""
     import torch
 
     from kaldi_decoder_tpu_torch.decoders.frontier import frame_emit_stage, frame_step_batched
-    from kaldi_decoder_tpu_torch.kernels.dedup import dedup_select
-    from kaldi_decoder_tpu_torch.kernels.expand import expand_filter, expand_filter_plain
-    from kaldi_decoder_tpu_torch.ops.segment import dedup_select as dedup_select_plain
 
     fc, S = vdec.cfg, vdec._dev_graph.num_states
     active = torch.ones(B, dtype=torch.bool, device=vdec.device)
@@ -564,17 +599,6 @@ def check_k6(vdec, edec, scores_tm):
             k1_err, k6_err = max(k1_err, e1), max(k6_err, e6)
             uniq.append(int(sel.num_unique.max()))
         st, _ = frame_step_batched(st, scores_tm[t], active, vdec._pg, fc, S)
-    log(f"K1 with src_slot: equal to plain on Viterbi frames {list(K6_FRAMES)}; "
-        f"timed on frame {max(K6_FRAMES)}:")
-    k1 = time_kernel("row gather + K1 with src_slot",
-                     lambda: expand_filter(*k1_args, with_src_slot=True),
-                     lambda: expand_filter_plain(*k1_args, with_src_slot=True),
-                     k1_work(*k1_args, with_src_slot=True))
-    log(f"K6 dedup_select, emitting candidates (B={B}, N={ex.cost.shape[1]}, "
-        f"K={fc.frontier_size}; most distinct states per frame {uniq}): equal to plain; "
-        f"timed on frame {max(K6_FRAMES)}:")
-    k6 = time_kernel("K6, emitting candidates", lambda: dedup_select(*em_args),
-                     lambda: dedup_select_plain(*em_args), k6_work(*em_args[1:3]))
 
     ec, Se = edec.cfg, edec._dev_graph.num_states
     st, _ = edec._init(B)
@@ -583,29 +607,45 @@ def check_k6(vdec, edec, scores_tm):
     mid, _, next_cutoff, _, _, _ = frame_emit_stage(st, scores_tm[EPS_FRAME], edec._pg, ec, Se)
     err, eps_args, won = check_eps_kernel(mid, next_cutoff, edec._pg, ec, Se,
                                           f"frame {EPS_FRAME}")
-    k6_err = max(k6_err, err)
+    return dict(k1_err=k1_err, k6_err=max(k6_err, err), k1_args=k1_args, em_args=em_args,
+                eps_args=eps_args, uniq=uniq, won=won, eps_iters=ec.eps_iters)
+
+
+def check_k6(vdec, edec, scores_tm):
+    """:func:`viterbi_k6_calls`, then K1 with its source slots and the two
+    K6 calls timed."""
+    from kaldi_decoder_tpu_torch.kernels.expand import expand_filter, expand_filter_plain
+
+    c = viterbi_k6_calls(vdec, edec, scores_tm)
+    k1_args, em_args, eps_args = c["k1_args"], c["em_args"], c["eps_args"]
+    log(f"K1 with src_slot: equal to plain on Viterbi frames {list(K6_FRAMES)}; "
+        f"timed on frame {max(K6_FRAMES)}:")
+    k1 = time_kernel("row gather + K1 with src_slot",
+                     lambda: expand_filter(*k1_args, with_src_slot=True),
+                     lambda: expand_filter_plain(*k1_args, with_src_slot=True),
+                     k1_work(*k1_args, with_src_slot=True))
+    log(f"K6 dedup_select, emitting candidates (B={B}, N={em_args[1].shape[1]}, "
+        f"K={em_args[2]}; most distinct states per frame {c['uniq']}): equal to plain; "
+        f"timed on frame {max(K6_FRAMES)}:")
+    k6 = time_k6("K6, emitting candidates", em_args)
     log(f"K6 dedup_select, eps iteration of the unfolded graph (B={B}, "
-        f"N={eps_args[1].shape[1]}, K={ec.frontier_size}, eps_iters={ec.eps_iters}, "
-        f"{won} slots won by eps lanes): equal to plain; timed on frame {EPS_FRAME}:")
-    eps = time_kernel("K6, eps candidates", lambda: dedup_select(*eps_args),
-                      lambda: dedup_select_plain(*eps_args), k6_work(*eps_args[1:3]))
-    return dict(k1_err=k1_err, k6_err=k6_err, k1=k1, k6=k6, eps=eps)
+        f"N={eps_args[1].shape[1]}, K={eps_args[2]}, eps_iters={c['eps_iters']}, "
+        f"{c['won']} slots won by eps lanes): equal to plain; timed on frame {EPS_FRAME}:")
+    eps = time_k6("K6, eps candidates", eps_args)
+    return dict(k1_err=c["k1_err"], k6_err=c["k6_err"], k1=k1, k6=k6, eps=eps)
 
 
-def check_streaming_kernels(fd, scores_tm):
-    """The row gather, K1 with its source slots and K6 at the shapes of
-    the streaming decoder that phase 5 drives (B=1, its own K and
-    budgets, the unfolded graph): the decoder's own frames of utterance 0
-    up to ``STREAM_FRAME``, then that frame's em_block rows, emitting
-    candidates and first eps iteration, each held against its plain
-    version and timed."""
+def streaming_k6_calls(fd, scores_tm):
+    """The row gather, K1 with its source slots and K6 held against their
+    plain versions at the shapes of the streaming decoder that phase 5
+    drives (B=1, its own K and budgets, the unfolded graph): the decoder's
+    own frames of utterance 0 up to ``STREAM_FRAME``, then that frame's
+    em_block rows, emitting candidates and first eps iteration.  Returns
+    the errors, the calls' arguments and the frontier's states."""
     import torch
 
     from kaldi_decoder_tpu_torch.decoders.frontier import StepState, frame_step_batched
-    from kaldi_decoder_tpu_torch.kernels.dedup import dedup_select
-    from kaldi_decoder_tpu_torch.kernels.expand import expand_filter, expand_filter_plain
     from kaldi_decoder_tpu_torch.kernels.gather import row_gather, row_gather_plain
-    from kaldi_decoder_tpu_torch.ops.segment import dedup_select as dedup_select_plain
 
     cfg, pg, S = fd._cfg, fd._pg, fd._graph.num_states
     fd.init_decoding()
@@ -623,9 +663,23 @@ def check_streaming_kernels(fd, scores_tm):
         st, scores_u[STREAM_FRAME], pg, cfg, S, where)
     mid = StepState(sel.states, sel.costs, st.base)
     eps_err, eps_args, won = check_eps_kernel(mid, ex.next_cutoff, pg, cfg, S, where)
+    return dict(k1_err=k1_err, k6_err=max(k6_err, eps_err), k1_args=k1_args, em_args=em_args,
+                eps_args=eps_args, won=won, states=st.states, where=where)
+
+
+def check_streaming_kernels(fd, scores_tm):
+    """:func:`streaming_k6_calls`, then each kernel timed at those shapes."""
+    from kaldi_decoder_tpu_torch.kernels.dedup import dedup_select
+    from kaldi_decoder_tpu_torch.kernels.expand import expand_filter, expand_filter_plain
+    from kaldi_decoder_tpu_torch.kernels.gather import row_gather, row_gather_plain
+    from kaldi_decoder_tpu_torch.ops.segment import dedup_select as dedup_select_plain
+
+    c = streaming_k6_calls(fd, scores_tm)
+    cfg, pg, states = fd._cfg, fd._pg, c["states"]
+    k1_args, em_args, eps_args = c["k1_args"], c["em_args"], c["eps_args"]
     times = dict(
-        gather=(cuda_ms(lambda: row_gather(pg.em_block, st.states)),
-                cuda_ms(lambda: row_gather_plain(pg.em_block, st.states))),
+        gather=(cuda_ms(lambda: row_gather(pg.em_block, states)),
+                cuda_ms(lambda: row_gather_plain(pg.em_block, states))),
         k1=(cuda_ms(lambda: expand_filter(*k1_args, with_src_slot=True)),
             cuda_ms(lambda: expand_filter_plain(*k1_args, with_src_slot=True))),
         k6=(cuda_ms(lambda: dedup_select(*em_args)),
@@ -634,7 +688,7 @@ def check_streaming_kernels(fd, scores_tm):
                 cuda_ms(lambda: dedup_select_plain(*eps_args))),
     )
     log(f"streaming shapes (B=1, K={cfg.frontier_size}, rem_budget={cfg.rem_budget}, "
-        f"eps N={eps_args[1].shape[1]}, {won} slots won by eps lanes) on {where}: "
+        f"eps N={eps_args[1].shape[1]}, {c['won']} slots won by eps lanes) on {c['where']}: "
         f"row gather, K1 with src_slot and K6 (emitting N={em_args[1].shape[1]}, eps) "
         f"equal to plain; kernel/plain ms: "
         + ", ".join(f"{k} {a:.4f}/{p:.4f}" for k, (a, p) in times.items()))
@@ -643,7 +697,10 @@ def check_streaming_kernels(fd, scores_tm):
                          lambda: expand_filter(*k1_args, with_src_slot=True),
                          lambda: expand_filter_plain(*k1_args, with_src_slot=True),
                          k1_work(*k1_args, with_src_slot=True))
-    return dict(k1_err=k1_err, k6_err=max(k6_err, eps_err), times=times, k1=k1_dev)
+    k6 = time_k6("K6, emitting candidates, streaming", em_args)
+    k6_eps = time_k6("K6, eps candidates, streaming", eps_args)
+    return dict(k1_err=c["k1_err"], k6_err=c["k6_err"], times=times, k1=k1_dev, k6=k6,
+                k6_eps=k6_eps)
 
 
 def check_utterance(what, b, u, lat, num_active, best_costs, overflows, saturations):
@@ -978,6 +1035,11 @@ def main():
               max(k6["k6_err"], sk["k6_err"]),
               ms_eps=k6["eps"]["ms"], plain_ms_eps=k6["eps"]["plain_ms"],
               bound_ms_eps=k6["eps"]["bound_ms"],
+              **{f"{f}{sfx}": t[f] for sfx, t in (
+                  ("_streaming", sk["k6"]), ("_streaming_eps", sk["k6_eps"]))
+                 for f in ("ms", "plain_ms", "bound_ms", "share_of_bound")},
+              winners={"emitting": k6["k6"]["winners"], "eps": k6["eps"]["winners"],
+                       "streaming": sk["k6"]["winners"] + sk["k6_eps"]["winners"]},
               wrapper_ms_streaming=st["k6"][0], plain_wrapper_ms_streaming=st["k6"][1],
               wrapper_ms_streaming_eps=st["k6_eps"][0],
               plain_wrapper_ms_streaming_eps=st["k6_eps"][1]),

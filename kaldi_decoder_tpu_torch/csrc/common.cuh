@@ -173,13 +173,15 @@ int max_active_clusters(void (*kernel)(KArgs...), int cluster, int threads, size
 }
 
 // The cluster size for B independent clusters (one per utterance) of
-// `kernel`: the largest of 8, 4, 2, 1 at which all B clusters run at
-// once, else the largest that runs at all (0: none fits).  `smem(c)` is
-// the dynamic shared memory a block needs in a cluster of c blocks, a
-// function of the call's `shape` alone.  The occupancy queries run once
-// per kernel, device, B and shape; later calls read the answer kept.
+// `kernel`: the largest of 8, 4, 2, 1 (at most `most`) at which all B
+// clusters run at once, else the largest that runs at all (0: none
+// fits).  `smem(c)` is the dynamic shared memory a block needs in a
+// cluster of c blocks, a function of the call's `shape` alone (which
+// `most` must be too).  The occupancy queries run once per kernel,
+// device, B and shape; later calls read the answer kept.
 template <typename Smem, typename... KArgs>
-int pick_cluster(void (*kernel)(KArgs...), int B, int threads, long shape, Smem smem) {
+int pick_cluster(void (*kernel)(KArgs...), int B, int threads, long shape, Smem smem,
+                 int most = 8) {
   static std::mutex mu;
   static std::map<std::tuple<int, int, long>, int> picked;
   int dev = 0;
@@ -190,6 +192,7 @@ int pick_cluster(void (*kernel)(KArgs...), int B, int threads, long shape, Smem 
   if (it != picked.end()) return it->second;
   int best = 0;
   for (int c = 8; c >= 1; c /= 2) {
+    if (c > most) continue;
     const int n = max_active_clusters(kernel, c, threads, smem(c));
     if (n >= B) {
       best = c;

@@ -17,250 +17,308 @@
 // lets incumbents win ties); the frontier is ordered by (cost, state)
 // ascending (top_k keeps the lower index among equal values, and an index
 // of the state-sorted array ranks by state), where top_k's float order
-// puts -0.0 below +0.0.
+// puts -0.0 below +0.0.  So a winner's key is (total-order cost bits << 32
+// | state): unique, its order is the frontier's, and it holds the winning
+// lane's cost bit for bit.
 //
 // What bounds it: per utterance it reads the N candidate lanes (8 bytes
-// each) twice, does one 8-byte atomicMin per finite lane into a
-// per-utterance table of S words (13 MB for B=16 at the bench's S, held
-// in L2, filled with all ones by the wrapper before each call), and
-// compacts the winners (12 bytes each).  At the bench shape (N = 56,832
-// lanes per utterance) that is a few tens of MB of mostly L2 traffic, so
-// it is bound by the lanes' bytes and the scattered atomics, not by
-// arithmetic; the select step is one block per utterance, bound by its
-// passes over the winner list.  The design:
-//   1. min     — one thread per lane: a finite lane does a 64-bit
-//                atomicMin of (ordered cost bits << 32 | lane) into
-//                table[b, dst], all ones on entry;
-//   2. winners — one thread per lane: a lane whose key is its state's
-//                table word is that state's winner; an atomicAdd counts
-//                num_unique and compacts (total-order cost bits << 32 |
-//                state) and the lane into a per-utterance list (order is
-//                free here);
-//   3. select  — one block per utterance: when more than K winners, a
-//                radix select (8 passes of 8 bits) finds the K-th
-//                smallest key; the keys at or under it (exactly
-//                min(K, n), since keys are unique) are bitonic-sorted in
-//                shared memory, and the block writes states, the winning
-//                lanes' original costs and the lanes, padding with
-//                (0, +inf, -1).
-// The table is not restored: a fresh fill per call costs one memset and
-// leaves no state between calls.  Lanes with +inf (or NaN) cost never
-// touch the table, so their dst may be anything.  N may be smaller than
-// K, and than S.
+// each), does one 8-byte atomicMin per finite lane into a per-utterance
+// table of S words (held in L2), and moves the winners (12 bytes each)
+// through shared and device memory; at the bench shape (B=16, N = 56,832,
+// K 4096) a few MB, mostly L2 traffic (the bound is about 1.4 µs), so what
+// holds it is the chain of dependent steps, each about 1-3 µs on the H100:
+// memory round trips, warp collectives and barriers.  One launch: a thread
+// block cluster of C blocks per utterance (csrc/common.cuh:pick_cluster,
+// at most 8 and at most the count that leaves a block 1024 lanes).  The
+// lanes go to the blocks in chunks of 32, round robin: K1 writes the
+// active slots' lanes first, so C ranges would give the first block most
+// of the finite lanes (measured: 4615 of 6958 in one utterance).
+//   1. min     — a finite lane does a 64-bit atomicMin of (ordered cost
+//                bits << 32 | lane) into table[b, dst] and is appended to
+//                its block's list of finite lanes; the block keeps their
+//                smallest and largest total-order cost key.  A cluster
+//                barrier, and every block reads the cluster's range
+//                through distributed shared memory.
+//   2. winners — a finite lane (from the list, not the lane arrays again)
+//                whose key is its state's table word is the winner: it
+//                restores the word to all ones, appends (key, lane) to its
+//                block's list and adds to the block's histogram of the
+//                first digit.
+//   3. select  — the select core (csrc/select_core.cuh) keeps the K
+//                smallest keys in order; the slots get the states, the
+//                costs decoded from the keys and the lanes, and are padded
+//                with (0, +inf, -1).
+// Both lists are in shared memory up to 2048 entries a block, the rest in
+// device memory.  How the design meets what held the one-block design back:
+//   * SMs: C blocks per utterance (8 at B=16's emitting call), the
+//     histograms merged through distributed shared memory; a launch the
+//     card refuses returns its CUDA error.
+//   * Passes and contention: the first digit is (key - key of the
+//     utterance's cheapest cost) >> shift, with the shift that fits the
+//     utterance's cost range (and, for one cost, its states) into 1024
+//     buckets: a monotone function of the key, so the buckets hold few keys
+//     (measured on the bench's calls: at most 110, the K-th key's at most
+//     65).  Its histogram is built where the winners are found,
+//     private to each block in shared memory, and a warp's neighbouring
+//     lanes with the same digit add once (select_core.cuh:run_add), so
+//     equal digits do not serialise.  Only the boundary bucket is refined,
+//     and only while it holds more than 256 keys and is not kept whole; each
+//     refining level takes its digit from the bucket's own key range, so
+//     all-equal costs resolve by state at once and any input in a few
+//     levels.
+//   * Order: a counting scatter by the digit's prefix puts every kept key
+//     in its bucket's range; each key's place inside its bucket is the
+//     number of smaller keys there, counted in shared memory by the block
+//     that owns the place.  No sort with a barrier per stage.
+//   * Size: what passes the shared-memory lists, and the scattered keys,
+//     live in device memory ((B, N + 256) scratch, two buffers used in
+//     turns); shared memory is 65 KB a block whatever K, N and S.
+//   * The table is not filled per call: every state touched has exactly
+//     one winner, which restores its word, so the wrapper keeps the table
+//     per device and stream, filled once (kernels/dedup.py).
+// Lanes with +inf (or NaN) cost never touch the table, so their dst may
+// be anything.  N may be smaller than K, and than S.
+
+#include <cooperative_groups.h>
 
 #include "common.cuh"
+#include "select_core.cuh"
 
 namespace {
 
-constexpr int LANE_THREADS = 256;
-constexpr int SELECT_THREADS = 1024;
+namespace cg = cooperative_groups;
+namespace sel = kdtorch::select;
+
+constexpr int THREADS = 512;
+constexpr int UNROLL = 8;     // lanes a thread has in flight
+constexpr int VCACHE = 2048;  // finite lanes a block keeps in shared memory
+constexpr int CACHE = 2048;   // winners a block keeps in shared memory
+constexpr int MIN_LANES = 1024;  // a block of a cluster has at least these lanes
+// Scratch rows are N + SCRATCH_PAD long: a block's spill region holds its
+// chunks of 32 lanes, which round up.
+constexpr int SCRATCH_PAD = 32 * sel::MAX_CLUSTER;
+constexpr size_t SMEM = (size_t)(VCACHE + CACHE) * (sizeof(unsigned long long) + sizeof(int));
 constexpr unsigned long long EMPTY = ~0ull;
 
 __device__ __forceinline__ bool lane_valid(float c, int d, int S) {
   return isfinite(c) && d >= 0 && d < S;
 }
 
-__global__ void __launch_bounds__(LANE_THREADS) dedup_min_kernel(
-    const int* __restrict__ dst, const float* __restrict__ cost, int N, int S,
-    unsigned long long* __restrict__ table) {
-  const int b = blockIdx.y;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= N) return;
-  const long o = (long)b * N + i;
-  const float c = cost[o];
-  const int d = dst[o];
-  if (!lane_valid(c, d, S)) return;
-  const unsigned long long key =
-      ((unsigned long long)kdtorch::ordered_key(c) << 32) | (unsigned int)i;
-  atomicMin(&table[(long)b * S + d], key);
+__device__ __forceinline__ unsigned long long min_key(float c, int lane) {
+  return ((unsigned long long)kdtorch::ordered_key(c) << 32) | (unsigned)lane;
 }
 
-__global__ void __launch_bounds__(LANE_THREADS) dedup_winners_kernel(
-    const int* __restrict__ dst, const float* __restrict__ cost, int N, int S,
-    const unsigned long long* __restrict__ table,
-    unsigned long long* __restrict__ keys, int* __restrict__ lanes,
-    int* __restrict__ count) {
-  const int b = blockIdx.y;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= N) return;
-  const long o = (long)b * N + i;
-  const float c = cost[o];
-  const int d = dst[o];
-  if (!lane_valid(c, d, S)) return;
-  const unsigned long long won =
-      ((unsigned long long)kdtorch::ordered_key(c) << 32) | (unsigned int)i;
-  if (table[(long)b * S + d] != won) return;
-  const int pos = atomicAdd(&count[b], 1);
-  keys[(long)b * N + pos] =
-      ((unsigned long long)kdtorch::total_order_key(c) << 32) | (unsigned int)d;
-  lanes[(long)b * N + pos] = i;
-}
-
-// Dynamic shared memory: P keys (8 bytes) then P lanes (4 bytes), with P
-// the power of two at or above min(K, N).
-__global__ void __launch_bounds__(SELECT_THREADS) dedup_select_kernel(
-    const float* __restrict__ cost, const unsigned long long* __restrict__ keys,
-    const int* __restrict__ lanes, const int* __restrict__ count, int N, int K,
-    int* __restrict__ out_states, float* __restrict__ out_costs,
-    int* __restrict__ out_idx) {
-  extern __shared__ unsigned long long sk[];
-  __shared__ int hist[256];
-  __shared__ unsigned long long prefix_sh;
-  __shared__ int remaining_sh, taken_sh;
-  const int b = blockIdx.x;
+__global__ void __launch_bounds__(THREADS, 2) dedup_kernel(
+    const int* __restrict__ dst, const float* __restrict__ cost, int N, int S, int K,
+    unsigned long long* __restrict__ table, unsigned long long* __restrict__ keys0,
+    int* __restrict__ vals0, unsigned long long* __restrict__ keys1, int* __restrict__ vals1,
+    int* __restrict__ out_states, float* __restrict__ out_costs, int* __restrict__ out_idx,
+    int* __restrict__ num_unique) {
+  // The block's finite lanes (cost bits << 32 | state, lane) and its
+  // winners (key, lane), each in shared memory up to its cache and past it
+  // in the block's region of a scratch buffer.
+  extern __shared__ unsigned long long smem_k[];
+  unsigned long long* const fin_k = smem_k;
+  unsigned long long* const win_k = smem_k + VCACHE;
+  int* const fin_v = reinterpret_cast<int*>(smem_k + VCACHE + CACHE);
+  int* const win_v = fin_v + VCACHE;
+  __shared__ sel::Shared sh;
+  __shared__ int s_fin;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int b = blockIdx.x / C;
   const int tid = threadIdx.x;
-  const int n = count[b];
-  const int kk = min(n, K);
-  int P = 1;
-  while (P < kk) P <<= 1;
-  int* sl = reinterpret_cast<int*>(sk + P);
-  const unsigned long long* kb = keys + (long)b * N;
-  const int* lb = lanes + (long)b * N;
+  const long row = (long)b * N;
+  const long srow = (long)b * (N + SCRATCH_PAD);
+  unsigned long long* const tab = table + (long)b * S;
+  // The lanes go to the blocks in chunks of 32, round robin: K1 puts the
+  // active slots' lanes first, so a split into C ranges would give the
+  // first block most of the finite lanes.  Local lane li of this block is
+  // lane lane_of(li); it has `mine` of them (the last chunk may pass N).
+  const int chunks = (N + 31) / 32;
+  const int mine = (chunks - rank + C - 1) / C * 32;
+  const int most = (chunks + C - 1) / C * 32;
+  auto lane_of = [&](int li) { return ((li >> 5) * C + rank) * 32 + (li & 31); };
+  unsigned long long* const fin_gk = keys1 + srow + (long)rank * most;  // free until the scatter
+  int* const fin_gv = vals1 + srow + (long)rank * most;
+  unsigned long long* const win_gk = keys0 + srow + (long)rank * most;
+  int* const win_gv = vals0 + srow + (long)rank * most;
 
-  // Radix select of the K-th smallest key (keys are unique).
-  unsigned long long thresh = EMPTY;
-  if (n > K) {
-    if (tid == 0) {
-      prefix_sh = 0;
-      remaining_sh = K;
-    }
-    unsigned long long mask = 0;
-    for (int shift = 56; shift >= 0; shift -= 8) {
-      for (int h = tid; h < 256; h += blockDim.x) hist[h] = 0;
-      __syncthreads();
-      const unsigned long long prefix = prefix_sh;
-      for (int j = tid; j < n; j += blockDim.x) {
-        const unsigned long long k = kb[j];
-        if ((k & mask) == prefix) atomicAdd(&hist[(k >> shift) & 255], 1);
-      }
-      __syncthreads();
-      if (tid < 32) {
-        // Each lane of warp 0 owns 8 consecutive bins; find the bin where
-        // the running count reaches `remaining`.
-        const int rem = remaining_sh;
-        int local[8];
-        int sum = 0;
-#pragma unroll
-        for (int q = 0; q < 8; ++q) {
-          local[q] = hist[tid * 8 + q];
-          sum += local[q];
-        }
-        int incl = sum;
-#pragma unroll
-        for (int o = 1; o < 32; o <<= 1) {
-          const int y = __shfl_up_sync(0xffffffffu, incl, o);
-          if (tid >= o) incl += y;
-        }
-        const int excl = incl - sum;
-        if (excl < rem && rem <= incl) {
-          int run = excl, digit = tid * 8 + 7;
-#pragma unroll
-          for (int q = 0; q < 8; ++q) {
-            if (run + local[q] >= rem) {
-              digit = tid * 8 + q;
-              break;
-            }
-            run += local[q];
-          }
-          prefix_sh = prefix | ((unsigned long long)digit << shift);
-          remaining_sh = rem - run;
-        }
-      }
-      mask |= 255ull << shift;
-      __syncthreads();
-    }
-    thresh = prefix_sh;
-  }
-
-  // Gather the kk keys at or under the threshold, pad, bitonic sort.
-  if (tid == 0) taken_sh = 0;
-  __syncthreads();
-  for (int j = tid; j < n; j += blockDim.x) {
-    const unsigned long long k = kb[j];
-    if (k <= thresh) {
-      const int pos = atomicAdd(&taken_sh, 1);
-      sk[pos] = k;
-      sl[pos] = lb[j];
-    }
-  }
-  for (int j = kk + tid; j < P; j += blockDim.x) {
-    sk[j] = EMPTY;
-    sl[j] = -1;
+  sel::mark_step(0, true);
+  for (int q = tid; q < sel::NB; q += THREADS) sh.hist[q] = 0;
+  if (tid == 0) {
+    sh.count = 0;
+    s_fin = 0;
+    sh.mm[0] = ~0ull;
+    sh.mm[1] = 0;
   }
   __syncthreads();
-  for (int size = 2; size <= P; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int t = tid; t < (P >> 1); t += blockDim.x) {
-        const int i = 2 * t - (t & (stride - 1));
-        const int j = i + stride;
-        const bool up = (i & size) == 0;
-        const unsigned long long a = sk[i], c = sk[j];
-        if ((a > c) == up) {
-          sk[i] = c;
-          sk[j] = a;
-          const int la = sl[i];
-          sl[i] = sl[j];
-          sl[j] = la;
+
+  // 1. Per-state minima; this block's finite lanes and cost-key range.
+  unsigned tlo = 0xffffffffu, thi = 0;
+  for (int l0 = 0; l0 < mine; l0 += THREADS * UNROLL) {
+    float c[UNROLL];
+    int d[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const int i = lane_of(l0 + u * THREADS + tid);
+      const bool here = l0 + u * THREADS + tid < mine && i < N;
+      c[u] = here ? cost[row + i] : INFINITY;
+      d[u] = here ? dst[row + i] : -1;
+    }
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const int i = lane_of(l0 + u * THREADS + tid);
+      const bool ok = lane_valid(c[u], d[u], S);
+      const int pos = sel::append_slot(&s_fin, ok);
+      if (ok) {
+        atomicMin(&tab[d[u]], min_key(c[u], i));
+        const unsigned t = kdtorch::total_order_key(c[u]);
+        tlo = min(tlo, t);
+        thi = max(thi, t);
+        const unsigned long long f =
+            ((unsigned long long)__float_as_uint(c[u]) << 32) | (unsigned)d[u];
+        if (pos < VCACHE) {
+          fin_k[pos] = f;
+          fin_v[pos] = i;
+        } else {
+          fin_gk[pos] = f;
+          fin_gv[pos] = i;
         }
       }
-      __syncthreads();
     }
   }
+  sel::mark_step(1);
+  tlo = __reduce_min_sync(0xffffffffu, tlo);
+  thi = __reduce_max_sync(0xffffffffu, thi);
+  if ((tid & 31) == 0 && tlo <= thi) {
+    atomicMin(&sh.mm[0], (unsigned long long)tlo);
+    atomicMax(&sh.mm[1], (unsigned long long)thi);
+  }
+  sel::sync_blocks(C);  // every lane's atomicMin is done; every range is set
+  sel::mark_step(2);
 
-  for (int j = tid; j < K; j += blockDim.x) {
-    const long o = (long)b * K + j;
-    if (j < kk) {
-      const int lane = sl[j];
-      out_states[o] = (int)(sk[j] & 0xffffffffull);
-      out_costs[o] = cost[(long)b * N + lane];
-      out_idx[o] = lane;
-    } else {
-      out_states[o] = 0;
-      out_costs[o] = INFINITY;
-      out_idx[o] = -1;
+  // The first digit: keys from the cheapest cost's onwards, the cost
+  // range (and the state bits below it) shifted into NB buckets.
+  unsigned long long tmin, tmax;
+  sel::cluster_min_max(sh, cluster, &tmin, &tmax);
+  unsigned long long base = 0;
+  int shift = 0;
+  if (tmin <= tmax) {
+    base = tmin << 32;
+    shift = sel::digit_shift(0, ((tmax - tmin) << 32) | (unsigned)(S - 1));
+  }
+  sel::mark_step(3);
+
+  // 2. Winners among the finite lanes: appended to the block's list,
+  // counted by digit.
+  const int nfin = s_fin;
+  for (int e0 = 0; e0 < nfin; e0 += THREADS * UNROLL) {
+    unsigned long long f[UNROLL], w[UNROLL];
+    int lane[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const int e = e0 + u * THREADS + tid;
+      f[u] = e >= nfin ? EMPTY : e < VCACHE ? fin_k[e] : fin_gk[e];
+      lane[u] = e >= nfin ? -1 : e < VCACHE ? fin_v[e] : fin_gv[e];
+    }
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) w[u] = f[u] != EMPTY ? tab[(unsigned)f[u]] : EMPTY;
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const float c = __uint_as_float((unsigned)(f[u] >> 32));
+      const int d = (int)(unsigned)f[u];
+      const bool win = f[u] != EMPTY && w[u] == min_key(c, lane[u]);
+      const int pos = sel::append_slot(&sh.count, win);
+      int q = 0;
+      if (win) {
+        tab[d] = EMPTY;
+        const unsigned long long key =
+            ((unsigned long long)kdtorch::total_order_key(c) << 32) | (unsigned)d;
+        q = (int)((key - base) >> shift);
+        if (pos < CACHE) {
+          win_k[pos] = key;
+          win_v[pos] = lane[u];
+        } else {
+          win_gk[pos] = key;
+          win_gv[pos] = lane[u];
+        }
+      }
+      sel::run_add(sh.hist, q, win);
     }
   }
+  sel::mark_step(4);
+  __syncthreads();
+  sel::mark_step(5);
+
+  // 3. The K smallest keys, in order.
+  const long out0 = (long)b * K;
+  auto emit = [&](int r, unsigned long long key, int lane) {
+    out_states[out0 + r] = (int)(key & 0xffffffffull);
+    out_costs[out0 + r] = kdtorch::from_ordered_key((unsigned)(key >> 32));
+    out_idx[out0 + r] = lane;
+  };
+  const sel::Entries in{win_k, win_v, CACHE, win_gk, win_gv, sh.count};
+  // Both caches are free once the winners are scattered: the core's stage.
+  const int n = sel::select_smallest<THREADS>(sh, cluster, in, keys0 + srow, vals0 + srow,
+                                              keys1 + srow, vals1 + srow, smem_k, VCACHE + CACHE,
+                                              base, shift, K, emit);
+  for (int r = min(n, K) + rank * THREADS + tid; r < K; r += C * THREADS) {
+    out_states[out0 + r] = 0;
+    out_costs[out0 + r] = INFINITY;
+    out_idx[out0 + r] = -1;
+  }
+  if (rank == 0 && tid == 0) num_unique[b] = n;
+  sel::mark_step(11, false, true);
 }
 
 }  // namespace
 
-// Shared memory the select step needs for K slots from N lanes.
-extern "C" long long kd_dedup_smem_bytes(int N, int K) {
-  const int kk = N < K ? N : K;
-  long long P = 1;
-  while (P < kk) P <<= 1;
-  return P * (long long)(sizeof(unsigned long long) + sizeof(int));
+// The cluster size K6 launches with for B utterances of N lanes
+// (kdtorch::pick_cluster, at most the power of two that leaves every block
+// MIN_LANES lanes: a smaller call spends less on cluster barriers); 0 when
+// none fits.
+extern "C" int kd_dedup_cluster(int B, int N) {
+  int most = 1;
+  while (most < sel::MAX_CLUSTER && (long)(2 * most) * MIN_LANES <= N) most *= 2;
+  return kdtorch::pick_cluster(dedup_kernel, B, THREADS, most, [](int) { return SMEM; }, most);
 }
 
-// Launches the three steps on `stream`.  Shapes: dst/cost (B, N); table
-// (B, S) 64-bit words, all ones on entry (scratch: changed on return);
-// scratch keys (B, N) 64-bit and lanes (B, N); outputs
-// states/costs/cand_idx (B, K), num_unique (B,).  Returns
-// cudaGetLastError() after the launches.
-extern "C" int kd_dedup(const void* dst, const void* cost, int B, int N, int S,
-                        int K, void* table, void* keys, void* lanes,
-                        void* states, void* costs, void* cand_idx,
-                        void* num_unique, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaMemsetAsync(num_unique, 0, sizeof(int) * (size_t)B, s);
-  const dim3 grid((N + LANE_THREADS - 1) / LANE_THREADS, B);
-  if (N > 0) {
-    dedup_min_kernel<<<grid, LANE_THREADS, 0, s>>>(
-        (const int*)dst, (const float*)cost, N, S, (unsigned long long*)table);
-    dedup_winners_kernel<<<grid, LANE_THREADS, 0, s>>>(
-        (const int*)dst, (const float*)cost, N, S,
-        (const unsigned long long*)table, (unsigned long long*)keys,
-        (int*)lanes, (int*)num_unique);
+// The global timer (ns) at the start and end of each of the last
+// launch's first `blocks` blocks (at most 1024), into ns[2 * blocks]; and
+// the SM clock at their sel::MARKS step marks (see kernels/dedup.py
+// STEPS) into clock[MARKS * blocks], with the SM's rated clock in kHz.
+// Synchronises with the device.
+extern "C" int kd_dedup_marks(unsigned long long* ns, long long* clock, int* clock_khz,
+                              int blocks) {
+  const int n = blocks < sel::MARKED_BLOCKS ? blocks : sel::MARKED_BLOCKS;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(clock_khz, cudaDevAttrClockRate, dev);
+  if (e == cudaSuccess) {
+    e = cudaMemcpyFromSymbol(ns, sel::block_ns, sizeof(unsigned long long) * 2 * n);
   }
-  const size_t smem = (size_t)kd_dedup_smem_bytes(N, K);
-  // The opt-in limit is an attribute of the current device, and the
-  // kernel's static arrays count against the default 48 KB too, so it is
-  // set on every launch (a cheap call).
-  const cudaError_t e = cudaFuncSetAttribute(
-      dedup_select_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  dedup_select_kernel<<<B, SELECT_THREADS, smem, s>>>(
-      (const float*)cost, (const unsigned long long*)keys, (const int*)lanes,
-      (const int*)num_unique, N, K, (int*)states, (float*)costs, (int*)cand_idx);
-  return (int)cudaGetLastError();
+  if (e == cudaSuccess) {
+    e = cudaMemcpyFromSymbol(clock, sel::step_clock, sizeof(long long) * sel::MARKS * n);
+  }
+  return (int)e;
+}
+
+// Launches K6 on `stream`.  Shapes: dst/cost (B, N); table (B, S) 64-bit
+// words, all ones on entry and restored on return; scratch keys0/keys1
+// (B, N + 256) 64-bit and vals0/vals1 (B, N + 256); outputs states/costs/cand_idx
+// (B, K), num_unique (B,).  Returns the launch's CUDA error (0 on
+// success).
+extern "C" int kd_dedup(const void* dst, const void* cost, int B, int N, int S, int K,
+                        void* table, void* keys0, void* vals0, void* keys1, void* vals1,
+                        void* states, void* costs, void* cand_idx, void* num_unique,
+                        void* stream) {
+  const int C = kd_dedup_cluster(B, N);
+  if (C == 0) return (int)cudaErrorInvalidConfiguration;
+  return (int)kdtorch::launch_cluster(
+      dedup_kernel, B * C, C, THREADS, SMEM, static_cast<cudaStream_t>(stream),
+      (const int*)dst, (const float*)cost, N, S, K, (unsigned long long*)table,
+      (unsigned long long*)keys0, (int*)vals0, (unsigned long long*)keys1, (int*)vals1,
+      (int*)states, (float*)costs, (int*)cand_idx, (int*)num_unique);
 }

@@ -133,9 +133,11 @@ def kernels() -> ctypes.CDLL:
     lib.kd_sweep_cluster.restype = _I
     lib.kd_sweep_cluster.argtypes = [_I] * 3
     lib.kd_dedup.restype = _I
-    lib.kd_dedup.argtypes = [_P, _P] + [_I] * 4 + [_P] * 7 + [_P]
-    lib.kd_dedup_smem_bytes.restype = _L
-    lib.kd_dedup_smem_bytes.argtypes = [_I, _I]
+    lib.kd_dedup.argtypes = [_P, _P] + [_I] * 4 + [_P] * 9 + [_P]
+    lib.kd_dedup_cluster.restype = _I
+    lib.kd_dedup_cluster.argtypes = [_I, _I]
+    lib.kd_dedup_marks.restype = _I
+    lib.kd_dedup_marks.argtypes = [_P, _P, _P, _I]
     lib.kd_error_string.restype = ctypes.c_char_p
     lib.kd_error_string.argtypes = [_I]
     return lib

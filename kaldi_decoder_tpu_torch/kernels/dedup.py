@@ -6,8 +6,11 @@ order, with each slot's winning lane.  On a CPU tensor it runs the plain
 torch version, :func:`kaldi_decoder_tpu_torch.ops.segment.dedup_select`;
 on a CUDA tensor it launches ``csrc/dedup.cu`` or raises.
 
-The kernel's per-state winner table, (B, S) 64-bit words, is scratch
-filled with all ones for each call, so no state is kept between calls.
+The kernel's per-state winner table ((B, S) 64-bit words, all ones) comes
+back from every call as it went in: each state's winner restores its
+word.  So it is made once per device and stream (:func:`_held_table`) and
+not filled per call; calls on one stream run in order, so they never
+share it at once.
 """
 
 from __future__ import annotations
@@ -18,9 +21,22 @@ from kaldi_decoder_tpu_torch.kernels._build import check, cuda_error, kernels, p
 from kaldi_decoder_tpu_torch.ops.segment import Selection
 from kaldi_decoder_tpu_torch.ops.segment import dedup_select as dedup_select_plain
 
-# Shared memory a block may take on sm_90 (232,448 bytes), less the
-# select step's own static arrays.
-MAX_SELECT_SMEM = 232448 - 2048
+SCRATCH_PAD = 256  # csrc/dedup.cu: SCRATCH_PAD
+
+# (device index, stream) -> the winner table, at least as large as the
+# largest call seen on that stream.
+_held: dict = {}
+
+
+def _held_table(dev: torch.device, B: int, S: int):
+    """The winner table (>= B*S int64, all ones) kept for the current
+    stream of ``dev``, and its key in the cache."""
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    table = _held.get(key)
+    if table is None or table.numel() < B * S:
+        table = _held[key] = torch.full((B * S,), -1, dtype=torch.int64, device=dev)
+    return table, key
+
 
 def dedup_select(
     cand_state: torch.Tensor,  # (B, N) int32
@@ -39,12 +55,13 @@ def dedup_select(
     check(cand_state, "cand_state", torch.int32, (B, N), dev)
     check(cand_cost, "cand_cost", torch.float32, (B, N), dev)
     lib = kernels()
-    if lib.kd_dedup_smem_bytes(N, k) > MAX_SELECT_SMEM:
-        raise ValueError(f"frontier size {k} needs more shared memory than a block has")
+    table, key = _held_table(dev, B, num_states)
     i32 = dict(dtype=torch.int32, device=dev)
-    table = torch.full((B, num_states), -1, dtype=torch.int64, device=dev)
-    keys = torch.empty((B, N), dtype=torch.int64, device=dev)
-    lanes = torch.empty((B, N), **i32)
+    # Scratch rows: N and the pad the kernel's spill regions round up to.
+    keys0 = torch.empty((B, N + SCRATCH_PAD), dtype=torch.int64, device=dev)
+    keys1 = torch.empty((B, N + SCRATCH_PAD), dtype=torch.int64, device=dev)
+    vals0 = torch.empty((B, N + SCRATCH_PAD), **i32)
+    vals1 = torch.empty((B, N + SCRATCH_PAD), **i32)
     out = Selection(
         states=torch.empty((B, k), **i32),
         costs=torch.empty((B, k), dtype=torch.float32, device=dev),
@@ -53,14 +70,65 @@ def dedup_select(
     )
     rc = lib.kd_dedup(
         ptr(cand_state), ptr(cand_cost), B, N, num_states, k,
-        ptr(table), ptr(keys), ptr(lanes),
+        ptr(table), ptr(keys0), ptr(vals0), ptr(keys1), ptr(vals1),
         ptr(out.states), ptr(out.costs), ptr(out.cand_idx), ptr(out.num_unique),
         stream(dev),
     )
     if rc != 0:
+        _held.pop(key, None)  # a launch may have run: the next call starts afresh
         raise RuntimeError(f"kd_dedup launch failed: {cuda_error(rc)}")
     dedup_select.launches += 1
     return out
 
 
 dedup_select.launches = 0
+
+
+def cluster_size(batch: int, lanes: int) -> int:
+    """The blocks per cluster K6 launches with for ``batch`` utterances of
+    ``lanes`` candidate lanes each (0: none fits)."""
+    return kernels().kd_dedup_cluster(batch, lanes)
+
+
+# The kernel's steps, between its 12 marks (csrc/dedup.cu, select_core.cuh).
+STEPS = ("min pass", "min barrier", "range", "winner pass", "winner sync", "histogram barrier",
+         "bucket starts", "scatter pass", "scatter barrier", "ranks", "padding")
+MARKS = 16
+
+
+def launch_marks(blocks: int) -> list:
+    """For each of the last launch's first ``blocks`` blocks (at most
+    1024; blocks ``c*C .. c*C + C-1`` are utterance c's cluster): its start
+    and end in µs of the global timer from the earliest start, and its time
+    per step in µs at the SM's rated clock (``STEPS`` in order; the
+    histogram step is mostly the wait at the cluster barrier, "ranks"
+    includes writing the slots).  Synchronises with the device."""
+    import ctypes
+
+    n = min(blocks, 1024)
+    ns = (ctypes.c_ulonglong * (2 * n))()
+    clock = (ctypes.c_longlong * (MARKS * n))()
+    khz = ctypes.c_int()
+    rc = kernels().kd_dedup_marks(ctypes.byref(ns), ctypes.byref(clock), ctypes.byref(khz), n)
+    if rc != 0:
+        raise RuntimeError(f"kd_dedup_marks failed: {cuda_error(rc)}")
+    t0 = min(ns[0::2])
+    out = []
+    for i in range(n):
+        c = clock[MARKS * i: MARKS * i + len(STEPS) + 1]
+        steps = {name: (c[j + 1] - c[j]) * 1e3 / khz.value for j, name in enumerate(STEPS)}
+        out.append(dict(start_us=(ns[2 * i] - t0) / 1e3, end_us=(ns[2 * i + 1] - t0) / 1e3,
+                        steps_us=steps))
+    return out
+
+
+def cluster_steps(batch: int, lanes: int) -> dict:
+    """The last launch's clusters (it had ``batch`` utterances of ``lanes``
+    lanes): their size, each one's end in µs from the first block's start,
+    the slowest one's utterance and the split of its first block into
+    ``STEPS``.  Synchronises with the device."""
+    C = cluster_size(batch, lanes)
+    marks = launch_marks(batch * C)
+    ends = [max(m["end_us"] for m in marks[c * C:(c + 1) * C]) for c in range(batch)]
+    slow = max(range(batch), key=lambda c: ends[c])
+    return dict(clusters=C, ends_us=ends, slowest=slow, steps_us=marks[slow * C]["steps_us"])

@@ -1,9 +1,12 @@
 """The C++ ShortestPath and backpointer walk of the host library.
 
-The JAX package's host library (``kaldi_decoder_tpu/native/csrc/kdtpu_host.cc``)
-is compiled here from that source file with ``g++`` into
-``kaldi_decoder_tpu_torch/_build/`` at first use; the file is read as a
-source and nothing of the JAX package is imported.  Two entry points are
+The JAX package's host library is compiled here with ``g++`` into
+``kaldi_decoder_tpu_torch/_build/`` at first use, from the port's own
+copy of its source, ``csrc/host/kdtpu_host.cc`` (a copy of
+``kaldi_decoder_tpu/native/csrc/kdtpu_host.cc``, line for line under a
+header but for one comment, held equal to it by
+``tests/test_torch_host.py``); nothing of the JAX package is read or
+imported.  Two entry points are
 bound: ``kd_shortest_path``, so the lattice decoder's 1-best is the same
 ShortestPath (with the LatticeWeight natural-order tie-break) as the JAX
 decoder's, and ``kd_backtrace``, the Viterbi decoder's walk of its
@@ -22,9 +25,8 @@ import numpy as np
 
 from kaldi_decoder_tpu_torch.kernels._build import PKG_DIR, build_library
 
-HOST_SOURCE = os.path.join(
-    os.path.dirname(PKG_DIR), "kaldi_decoder_tpu", "native", "csrc", "kdtpu_host.cc"
-)
+# Copies kaldi_decoder_tpu/native/csrc/kdtpu_host.cc (see its header).
+HOST_SOURCE = os.path.join(PKG_DIR, "csrc", "host", "kdtpu_host.cc")
 
 _i64 = ctypes.c_int64
 _i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")

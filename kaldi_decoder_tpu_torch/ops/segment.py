@@ -174,8 +174,10 @@ def dedup_select_rec(
         torch.where(ok_r, p.gather(1, order), -1).to(torch.int32) for p in pay2
     )
     rec_dst = torch.where(ok_r, s2.gather(1, order), -1).to(torch.int32)
-    # Winner rows carry key -1 but their slack is 0 by definition.
-    rec_slack = torch.where(ok_r, skey.clamp_min(0.0), INF).to(torch.float32)
+    # Winner rows carry key -1 but their slack is 0 by definition.  The
+    # original's ``maximum(key, 0.0)`` gives +0.0 for a -0.0 slack, where
+    # ``clamp_min`` would keep -0.0.
+    rec_slack = torch.where(ok_r, torch.where(skey > 0, skey, 0.0), INF).to(torch.float32)
     if take < r:  # record budget beyond the candidate count: pad
         pad = torch.full((B, r - take), -1, dtype=torch.int32, device=c2.device)
         recs = tuple(torch.cat([p, pad], dim=1) for p in recs)

@@ -23,6 +23,7 @@ from kaldi_decoder_tpu_torch.decoders.sweep import sweep_config, sweep_plain
 from kaldi_decoder_tpu_torch.fst.csr import CsrGraph, GraphArrays
 from kaldi_decoder_tpu_torch.fst.pack import pack_graph_device
 from kaldi_decoder_tpu_torch.kernels._build import kernels
+from kaldi_decoder_tpu_torch.kernels.dedup import cluster_size as dedup_cluster_size
 from kaldi_decoder_tpu_torch.kernels.dedup import dedup_select
 from kaldi_decoder_tpu_torch.kernels.expand import (
     expand_filter,
@@ -385,21 +386,38 @@ def test_sweep_kernel_past_shared_memory(card, K, R):
     assert int(ref.em_count.min()) > 0
 
 
-def _dedup_inputs(seed, N, K, S, n_valid, incumbents):
-    """(B, N) lanes with quantised costs (ties), a -0.0 cost, garbage
-    states on invalid lanes and, with ``incumbents``, a sorted frontier
-    in the first K lanes."""
+def _dedup_inputs(seed, N, K, S, n_valid, incumbents, nb=B, costs_of="grid"):
+    """(nb, N) lanes with a -0.0 cost, garbage states on invalid lanes and,
+    with ``incumbents``, a sorted frontier in the first K lanes.  Costs:
+    "grid" quantised to 0.25 (ties), "uniform" in [0, 15), "equal" all
+    3.5, "ulps" 500 neighbouring floats above 1.0 and one of 1e30, "front"
+    uniform on lanes in the first eighth only (K1 writes the active slots'
+    lanes first), "two" 1.0 (three in ten) or 2.0."""
     rng = np.random.default_rng(seed)
-    states = rng.integers(0, S, (B, N)).astype(np.int32)
-    costs = np.full((B, N), np.inf, np.float32)
+    states = rng.integers(0, S, (nb, N)).astype(np.int32)
+    costs = np.full((nb, N), np.inf, np.float32)
     lo = K if incumbents else 0
-    for b in range(B):
-        lanes = lo + rng.choice(N - lo, size=min(n_valid, N - lo), replace=False)
-        costs[b, lanes] = rng.integers(0, 40, len(lanes)) * 0.25
-        costs[b, lanes[0]] = -0.0
+    span = (N - lo) // 8 if costs_of == "front" else N - lo
+    for b in range(nb):
+        lanes = lo + rng.choice(span, size=min(n_valid, span), replace=False)
+        if costs_of == "grid":
+            costs[b, lanes] = rng.integers(0, 40, len(lanes)) * 0.25
+        elif costs_of in ("uniform", "front"):
+            costs[b, lanes] = rng.uniform(0, 15, len(lanes))
+        elif costs_of == "equal":
+            costs[b, lanes] = 3.5
+        elif costs_of == "two":
+            costs[b, lanes] = np.where(rng.random(len(lanes)) < 0.3, 1.0, 2.0)
+        else:
+            one = np.float32(1.0).view(np.int32)
+            costs[b, lanes] = (one + rng.integers(0, 500, len(lanes))).astype(np.int32).view(
+                np.float32)
+            costs[b, lanes[1]] = 1e30
+        if costs_of != "equal":
+            costs[b, lanes[0]] = -0.0
     states[~np.isfinite(costs)] = rng.integers(-5, 10 * S, int((~np.isfinite(costs)).sum()))
     if incumbents:
-        for b in range(B):
+        for b in range(nb):
             n = K // 2 + b
             st = rng.choice(S, size=n, replace=False)
             co = np.sort(rng.integers(0, 20, n) * 0.25).astype(np.float32)
@@ -409,9 +427,36 @@ def _dedup_inputs(seed, N, K, S, n_valid, incumbents):
     return states, costs
 
 
+def _k6_clusters(N):
+    """The cluster size K6 picks for N lanes when occupancy does not bind:
+    the most blocks, up to 8, that leave every block 1024 lanes."""
+    c = 1
+    while c < 8 and 2 * c * 1024 <= N:
+        c *= 2
+    return c
+
+
+def _same_dedup(card, states, costs, K, S):
+    """K6 twice against its plain version, bitwise (costs by raw bits, so
+    a -0.0 stays -0.0): the second call checks that the first left the
+    kept winner table and cost ranges as it found them."""
+    st, co = torch.from_numpy(states).to(card), torch.from_numpy(costs).to(card)
+    ref = dedup_select_plain(st, co, K, S)
+    before = dedup_select.launches
+    for _ in range(2):
+        got = dedup_select(st, co, K, S)
+        torch.cuda.synchronize()
+        assert torch.equal(ref.states, got.states)
+        assert torch.equal(ref.costs.view(torch.int32), got.costs.view(torch.int32))
+        assert torch.equal(ref.cand_idx, got.cand_idx)
+        assert torch.equal(ref.num_unique, got.num_unique)
+    assert dedup_select.launches == before + 2
+    return ref
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("N,K,S,n_valid,incumbents", [
-    (3000, 64, 500, 2500, False),  # more states than K: radix select
+    (3000, 64, 500, 2500, False),  # more states than K: a select
     (3000, 64, 500, 40, False),  # fewer states than K
     (3000, 64, 500, 2500, True),  # incumbents first (an eps iteration)
     (20, 64, 500, 15, False),  # fewer lanes than K
@@ -420,14 +465,55 @@ def _dedup_inputs(seed, N, K, S, n_valid, incumbents):
 ])
 def test_dedup_kernel_matches_plain(card, N, K, S, n_valid, incumbents):
     states, costs = _dedup_inputs(N + K, N, K, S, n_valid, incumbents)
-    st, co = torch.from_numpy(states).to(card), torch.from_numpy(costs).to(card)
-    ref = dedup_select_plain(st, co, K, S)
-    before = dedup_select.launches
-    for _ in range(2):  # a second call gives the same result
-        got = dedup_select(st, co, K, S)
-        torch.cuda.synchronize()
-        assert torch.equal(ref.states, got.states)
-        assert torch.equal(_bits(ref.costs), _bits(got.costs))
-        assert torch.equal(ref.cand_idx, got.cand_idx)
-        assert torch.equal(ref.num_unique, got.num_unique)
-    assert dedup_select.launches == before + 2
+    _same_dedup(card, states, costs, K, S)
+    assert dedup_cluster_size(B, N) == _k6_clusters(N)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,nb,N,K,S,n_valid,incumbents,costs_of", [
+    # Every finite cost equal: one cost bucket holds every key.
+    ("all-costs-equal", 3, 60000, 4096, 102298, 50000, False, "equal"),
+    # Costs on a 0.25 grid with a -0.0 lane: buckets of ~1000 keys, the
+    # boundary one refined by state.
+    ("grid-and-negative-zero", 3, 60000, 4096, 102298, 50000, False, "grid"),
+    # Costs a few ulps apart under one far outlier: the boundary bucket
+    # is refined twice (by cost ulps, then by state).
+    ("refined-twice", 3, 60000, 4096, 102298, 50000, False, "ulps"),
+    # Two costs: a kept bucket of ~21,000 keys, more than a block can
+    # stage, so its places are ranked from device memory; the K-th key's
+    # bucket is refined by state.
+    ("two-costs", 3, 131072, 32768, 102298, 120000, False, "two"),
+    # Past the one-block design's limit of 16,384.
+    ("K-32768", 3, 131072, 32768, 102298, 120000, False, "uniform"),
+    # The streaming decoder's emitting shape.
+    ("streaming-B1", 1, 18432, 2048, 102298, 15000, False, "uniform"),
+    # Fewer winners than K, and fewer lanes than K.
+    ("n-below-K", 3, 6000, 4096, 102298, 3000, False, "uniform"),
+    ("N-below-K", 3, 2000, 4096, 102298, 1800, False, "uniform"),
+    # Every finite lane in the first eighth, which the lane split must
+    # spread over the cluster's blocks.
+    ("front-loaded", 3, 60000, 4096, 102298, 7000, False, "front"),
+    # Incumbents first, at the batched eps iteration's shape.
+    ("incumbents-first", 3, 10240, 4096, 102298, 5000, True, "uniform"),
+])
+def test_dedup_kernel_edge_cases(card, case, nb, N, K, S, n_valid, incumbents, costs_of):
+    """K6 against plain where the select core's buckets, levels and sizes
+    could go wrong, each called twice in a row."""
+    states, costs = _dedup_inputs(N + K + nb, N, K, S, n_valid, incumbents, nb, costs_of)
+    ref = _same_dedup(card, states, costs, K, S)
+    n = ref.num_unique.cpu()
+    assert bool((n < K).all()) == (case in ("n-below-K", "N-below-K"))
+    assert dedup_cluster_size(nb, N) == _k6_clusters(N)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("clusters", [4, 2, 1])
+def test_dedup_kernel_cluster_sizes(card, clusters):
+    """K6 against plain at a batch for which the cluster picker gives
+    clusters of 4, 2 and 1 blocks (all B clusters must run at once) where
+    the lanes would allow 8."""
+    N = 40000
+    nb = _batch_for_cluster(lambda n: dedup_cluster_size(n, N), clusters)
+    states, costs = _dedup_inputs(nb, N, 256, 20000, 3000, False, nb, "uniform")
+    _same_dedup(card, states, costs, 256, 20000)
+    assert _k6_clusters(N) == 8 and dedup_cluster_size(nb, N) == clusters

@@ -234,6 +234,33 @@ def test_dedup_select_rec_ties(r):
     np.testing.assert_array_equal(bits(ref.rec_slack), bits(got.rec_slack.numpy()))
 
 
+def test_dedup_select_rec_negative_zero_slack():
+    """An extra link of cost -0.0 in the state of a +0.0 leader that comes
+    earlier in candidate order has slack -0.0 - (+0.0) = -0.0; the
+    original's ``maximum(key, 0.0)`` records it as +0.0.  Compared by raw
+    bits, without folding -0.0 onto +0.0."""
+    states = np.array([[5, 5, 7, 7, 9, 3]], np.int32)
+    costs = np.array([[0.0, -0.0, 1.0, 1.5, 2.0, INF]], np.float32)
+    pay = (np.arange(6, dtype=np.int32)[None],)
+    K, S, R, slack_beam = 4, 10, 8, 2.0
+    ref = jax.vmap(
+        lambda s, c, p: jax_dedup_select_rec(
+            s, c, K, S, R, slack_beam=slack_beam, payload=(p,), sweep_cols=True,
+            need_idx=False,
+        )
+    )(jnp.asarray(states), jnp.asarray(costs), jnp.asarray(pay[0]))
+    got = dedup_select_rec(
+        torch.from_numpy(states), torch.from_numpy(costs), K, S, R, slack_beam,
+        payload=(torch.from_numpy(pay[0]),),
+    )
+    np.testing.assert_array_equal(np.asarray(ref.recs[0]), got.recs[0].numpy())
+    assert got.recs[0][0, 3].item() == 1  # the -0.0 lane, recorded as an extra
+    np.testing.assert_array_equal(
+        np.asarray(ref.rec_slack, np.float32).view(np.int32),
+        got.rec_slack.numpy().view(np.int32),
+    )
+
+
 @pytest.mark.parametrize("caps,rems", [
     pytest.param("default", "mixed", id="False"),
     pytest.param("small", "mixed", id="True"),  # buffers overflow
