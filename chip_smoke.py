@@ -19,9 +19,12 @@ Phases (any failure raises, and the process exits non-zero):
   0. device: a CUDA card must be present; prints its ``nvidia-smi`` name
      and power limit;
   1. build: the CUDA kernels (the row gather ``csrc/gather.cu``, K1
-     ``csrc/expand.cu``, K4 ``csrc/sweep.cu``, K6 ``csrc/dedup.cu``) and
-     the C++ host library, from the checkout's sources;
-  2. kernels: K1 on real frontiers, the row gather on a real frontier's
+     ``csrc/expand.cu``, K2 ``csrc/dedup_rec.cu``, K4 ``csrc/sweep.cu``,
+     K6 ``csrc/dedup.cu``) and the C++ host library, from the checkout's
+     sources;
+  2. kernels: K1 on real frontiers, K2 on the lanes K1 gives there (every
+     field bitwise: frontier, ``num_unique``, record rows, overflow), the
+     row gather on a real frontier's
      states (and on the lane-packed table of the TPU experiments), K4 on
      one real chunk, K1 with its source-slot output and K6 on the
      emitting candidates of real Viterbi frames, and K6 on one eps
@@ -36,11 +39,12 @@ Phases (any failure raises, and the process exits non-zero):
      call, host enqueue included), the call's bound (bytes over the
      memory rate, operations over the float32 rate) and the share of it
      reached; the row gather also against ``torch.index_select``, and
-     K1's and each K6 call's split by device activity (profiler), with
-     K6's winners per utterance (the count that sizes its select) and
-     its cluster size;
+     K1's, K2's and each K6 call's split by device activity (profiler),
+     with K2's and K6's split of their slowest cluster into the kernel's
+     steps, K6's winners per utterance (the count that sizes its select)
+     and their cluster sizes;
   3. lattice path: ``BatchedLatticeDecoder.decode`` with the launch
-     counters set to 0 just before; the row gather and K1 must launch
+     counters set to 0 just before; the row gather, K1 and K2 must launch
      once per frame and K4 once per chunk; the 1-best labels, per-frame
      ``num_active`` and overflow and saturation counts must equal the JAX
      reference (``tests/data/torch_port_bench_ref.json``); prints the WER
@@ -315,6 +319,45 @@ def k6_work(costs, K):
     return B * N * 4 + fin * 4 + 3 * B * K * 4 + B * 4, 2 * fin
 
 
+def k2_work(cand_state, cand_cost, k, num_states, r, slack_beam, payload):
+    """Bytes and operations of one K2 call on (B, N) lanes: every lane's
+    cost, the state of every finite lane and the two payload columns of
+    each record written (the plain version's count) read; the (B, K)
+    frontier, the counts, the (B, R, 4) record rows and the overflow flags
+    written; a compare, a subtract and a compare per finite lane."""
+    import torch
+
+    from kaldi_decoder_tpu_torch.ops.segment import dedup_select_rec as dedup_select_rec_plain
+
+    B, N = cand_cost.shape
+    fin = int(torch.isfinite(cand_cost).sum())
+    sel = dedup_select_rec_plain(cand_state, cand_cost, k, num_states, r, slack_beam, payload)
+    taken = int((sel.rec_dst >= 0).sum())
+    return (B * N * 4 + fin * 4 + taken * 8 + B * k * 8 + B * 4 + B * r * 16 + B,
+            3 * fin)
+
+
+def same_records(ref, got, where):
+    """Raise unless K2's result equals the plain version's (``ref``, an
+    ``ops.segment.SelectionRec``) in every field, costs and slacks by raw
+    bits; returns the largest frontier cost difference."""
+    import torch
+
+    from kaldi_decoder_tpu_torch.kernels.dedup_rec import stack_records
+
+    want = stack_records(ref)
+    fields = dict(states=(ref.states, got.states), num_unique=(ref.num_unique, got.num_unique),
+                  costs=(ref.costs.view(torch.int32), got.costs.view(torch.int32)),
+                  rec_overflow=(ref.rec_overflow, got.rec_overflow),
+                  **{name: (want[..., c], got.records[..., c]) for c, name in
+                     enumerate(("src_state", "arc_id", "rec_dst", "rec_slack"))})
+    for name, (r, g) in fields.items():
+        if not torch.equal(r, g):
+            raise AssertionError(f"K2 differs from plain on {where}: {name}")
+    fin = torch.isfinite(ref.costs)
+    return float((ref.costs[fin] - got.costs[fin]).abs().max()) if fin.any() else 0.0
+
+
 def time_kernel(name, kern, plain, work, reps=TIMING_REPS, library=None):
     """A kernel's wrapper against its plain version on the same inputs:
     device time per call (:func:`device_ms`) and wrapper time
@@ -428,6 +471,8 @@ def check_k1(dec, scores_tm):
     st, _, _ = dec._init(B)
     active = torch.ones(B, dtype=torch.bool, device=dec.device)
     max_err, timed_args, overflowed = 0.0, None, 0
+    k2_args = []  # K2's arguments on K1's lanes, frame by frame
+    sb = dec.cfg.lattice_beam + 1e-4  # lattice_frame_step_batched's slack beam
     for t in range(max(K1_FRAMES) + 1):
         if t in K1_FRAMES:
             cut = get_cutoff(st.costs, fc.beam, fc.max_active, fc.min_active,
@@ -440,6 +485,8 @@ def check_k1(dec, scores_tm):
             max_err = max(max_err, same_expansion(ref, got, f"frame {t}"))
             overflowed += int(ref.overflow.sum())
             timed_args = args
+            k2_args.append((t, (got.dst, got.cost, fc.frontier_size, S, dec.cfg.em_records, sb,
+                                (got.src_state, got.arc_id))))
         st, _ = lattice_frame_step_batched(st, scores_tm[t], active, dec._pg, dec.cfg, S)
     log(f"K1 expand (row gather + K1): equal to plain on frames {list(K1_FRAMES)} "
         f"(B={B}, lanes/utt={fc.num_candidates}, remainder overflows seen={overflowed}, "
@@ -448,7 +495,52 @@ def check_k1(dec, scores_tm):
                     lambda: expand_filter_plain(*timed_args), k1_work(*timed_args))
     log(f"  device activities of one call: "
         f"{format_split(kernel_split(lambda: expand_filter(*timed_args)))}")
-    return max_err, t, timed_args[0]
+    return max_err, t, timed_args[0], k2_args
+
+
+def check_k2(k2_args):
+    """K2 against its plain version (the lattice path's region before K2,
+    records stacked as the frame emits them) on K1's lanes of each checked
+    frame, then timed on the last with its split by device activity and
+    the split of its slowest cluster into the kernel's steps."""
+    import torch
+
+    from kaldi_decoder_tpu_torch.kernels.dedup_rec import (
+        cluster_size,
+        cluster_steps,
+        dedup_select_rec,
+        stack_records,
+    )
+    from kaldi_decoder_tpu_torch.ops.segment import dedup_select_rec as dedup_select_rec_plain
+
+    max_err, eligible = 0.0, []
+    for t, args in k2_args:
+        ref = dedup_select_rec_plain(*args)
+        got = dedup_select_rec(*args)
+        torch.cuda.synchronize()
+        max_err = max(max_err, same_records(ref, got, f"the lanes of lattice frame {t}"))
+        eligible.append(int((ref.rec_dst >= 0).sum(dim=1).max()))
+    frames = [t for t, _ in k2_args]
+    args = k2_args[-1][1]
+    Bk, N = args[1].shape
+    log(f"K2 dedup_select_rec: equal to plain on lattice frames {frames} (B={Bk}, N={N}, "
+        f"K={args[2]}, R={args[4]}, slack beam {args[5]}; most records per utterance "
+        f"{eligible}; clusters of {cluster_size(Bk, N)} blocks); timed on frame {frames[-1]}:")
+
+    def plain():
+        sel = dedup_select_rec_plain(*args)
+        return stack_records(sel)
+
+    t = time_kernel("K2", lambda: dedup_select_rec(*args), plain, k2_work(*args))
+    log(f"  device activities of one call: "
+        f"{format_split(kernel_split(lambda: dedup_select_rec(*args)))}")
+    dedup_select_rec(*args)
+    c = cluster_steps(Bk, N)
+    t["steps_us"] = c["steps_us"]
+    log(f"  clusters end at (µs) {', '.join(f'{x:.2f}' for x in c['ends_us'])}; the slowest, "
+        f"utterance {c['slowest']}, in steps (µs): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in t["steps_us"].items()))
+    return max_err, t
 
 
 def check_gather(dec, states):
@@ -734,23 +826,26 @@ def reset_counts():
     import torch
 
     from kaldi_decoder_tpu_torch.kernels.dedup import dedup_select
+    from kaldi_decoder_tpu_torch.kernels.dedup_rec import dedup_select_rec
     from kaldi_decoder_tpu_torch.kernels.expand import expand_filter
     from kaldi_decoder_tpu_torch.kernels.gather import row_gather
     from kaldi_decoder_tpu_torch.kernels.sweep import sweep_chunk
 
     torch.cuda.synchronize()
-    for fn in (row_gather, expand_filter, sweep_chunk, dedup_select):
+    for fn in (row_gather, expand_filter, dedup_select_rec, sweep_chunk, dedup_select):
         fn.launches = 0
 
 
 def read_counts():
     from kaldi_decoder_tpu_torch.kernels.dedup import dedup_select
+    from kaldi_decoder_tpu_torch.kernels.dedup_rec import dedup_select_rec
     from kaldi_decoder_tpu_torch.kernels.expand import expand_filter
     from kaldi_decoder_tpu_torch.kernels.gather import row_gather
     from kaldi_decoder_tpu_torch.kernels.sweep import sweep_chunk
 
     return dict(gather=row_gather.launches, k1=expand_filter.launches,
-                k4=sweep_chunk.launches, k6=dedup_select.launches)
+                k2=dedup_select_rec.launches, k4=sweep_chunk.launches,
+                k6=dedup_select.launches)
 
 
 def viterbi_path(vdec, scores, lengths, refs, vref):
@@ -769,7 +864,8 @@ def viterbi_path(vdec, scores, lengths, refs, vref):
     t_dec = time.perf_counter() - t0
     n = read_counts()
     frames = res.bp_emit.shape[0]
-    if n["gather"] != frames or n["k1"] != frames or n["k6"] != frames * (1 + vdec.cfg.eps_iters):
+    if (n["gather"] != frames or n["k1"] != frames or n["k2"] != 0
+            or n["k6"] != frames * (1 + vdec.cfg.eps_iters)):
         raise AssertionError(f"launch counts {n} for {frames} frames")
     t1 = time.perf_counter()
     lats = [res.best_path(b) for b in range(B)]
@@ -835,7 +931,7 @@ def streaming_path(fd, scores, vref):
     n = read_counts()
     utts = len(sref["utts"])
     want_k6 = frames * (1 + D) + utts * D
-    if n["gather"] != frames or n["k1"] != frames or n["k6"] != want_k6:
+    if n["gather"] != frames or n["k1"] != frames or n["k2"] != 0 or n["k6"] != want_k6:
         raise AssertionError(f"launch counts {n}: want {frames} gathers and K1, {want_k6} K6")
     log(f"streaming path: FasterDecoder, {utts} utterances, {frames} frames, "
         f"{FRAMES_PER_CALL} per advance_decoding, eps_iters={D}, K={fd._cfg.frontier_size}: "
@@ -881,14 +977,14 @@ def main_path(dec, scores, lengths, refs, ref):
     res = dec.decode(scores, lengths, chunk_frames=CHUNK, device_prune=True)
     t_dec = time.perf_counter() - t0
     n = read_counts()
-    gat, k1, k4 = n["gather"], n["k1"], n["k4"]
+    gat, k1, k2, k4 = n["gather"], n["k1"], n["k2"], n["k4"]
     if res.survivors is None:
         raise AssertionError("the device sweep overflowed and the decode fell back")
     frames = res.num_active.shape[0]
-    if gat != frames or k1 != frames or k4 != len(res.survivors):
+    if gat != frames or k1 != frames or k2 != frames or k4 != len(res.survivors) or n["k6"]:
         raise AssertionError(
-            f"launch counts gather={gat}, K1={k1} (want {frames} each), "
-            f"K4={k4} (want {len(res.survivors)})"
+            f"launch counts gather={gat}, K1={k1}, K2={k2} (want {frames} each), "
+            f"K4={k4} (want {len(res.survivors)}), K6={n['k6']} (want 0)"
         )
     t1 = time.perf_counter()
     hyps = [res.best_path_labels(b) for b in range(B)]
@@ -917,11 +1013,11 @@ def main_path(dec, scores, lengths, refs, ref):
     audio_s = float(lengths.sum()) * 0.04
     log(f"main path: decode {t_dec:.3f} s (forward + sweep + survivor download, "
         f"{audio_s:.0f} audio-s, {audio_s / t_dec:.1f} audio-s/s), host 1-best "
-        f"{t_host:.3f} s; row gather launches {gat}, K1 launches {k1}, K4 launches "
-        f"{k4}; matches the JAX "
+        f"{t_host:.3f} s; row gather launches {gat}, K1 launches {k1}, K2 launches {k2}, "
+        f"K4 launches {k4}; matches the JAX "
         f"reference on {len(ref['utts'][:B])} utterances; overflow frames "
         f"{int(res.overflows.sum())}, saturated frames {int(res.saturations.sum())}; {st}")
-    return gat, k1, k4
+    return gat, k1, k2, k4
 
 
 def main():
@@ -973,7 +1069,9 @@ def main():
         f"{dec._dev_graph.num_emitting_arcs} arcs; device config {dec.cfg.frontier}; "
         f"set-up {time.perf_counter() - t0:.1f} s")
     scores_tm = torch.from_numpy(np.ascontiguousarray(scores.transpose(1, 0, 2))).cuda()
-    k1_err, k1, states = check_k1(dec, scores_tm)
+    k1_err, k1, states, k2_args = check_k1(dec, scores_tm)
+    k2_err, k2 = check_k2(k2_args)
+    del k2_args
     gat_err, gat, gat_packed = check_gather(dec, states)
     k4_err, k4 = check_k4(dec, scores_tm, lengths)
     vfc = config_for_graph(graph, **VITERBI_CONFIG)
@@ -987,7 +1085,7 @@ def main():
     torch.cuda.empty_cache()
 
     # 3. Lattice path.
-    gat_n, k1_n, k4_n = main_path(dec, scores, lengths, refs, ref)
+    gat_n, k1_n, k2_n, k4_n = main_path(dec, scores, lengths, refs, ref)
     del dec
     torch.cuda.empty_cache()
 
@@ -1002,6 +1100,7 @@ def main():
     by_path = {
         "gather": {"lattice": gat_n, "viterbi": vn["gather"], "streaming": sn["gather"]},
         "k1": {"lattice": k1_n, "viterbi": vn["k1"], "streaming": sn["k1"]},
+        "k2": {"lattice": k2_n},
         "k4": {"lattice": k4_n},
         "k6": {"viterbi": vn["k6"], "streaming": sn["k6"]},
     }
@@ -1028,6 +1127,9 @@ def main():
               bound_ms_src_slot=k6["k1"]["bound_ms"], ms_streaming=sk["k1"]["ms"],
               bound_ms_streaming=sk["k1"]["bound_ms"],
               wrapper_ms_streaming=st["k1"][0], plain_wrapper_ms_streaming=st["k1"][1]),
+        entry("K2 dedup_select_rec (lattice dedup by state + top-K + records)", "dedup_rec.cu",
+              "kaldi_decoder_tpu/ops/segment.py:177", "k2", k2, k2_err,
+              steps_us=k2["steps_us"]),
         entry("K4 sweep_chunk (backward extra-cost sweep)", "sweep.cu",
               "kaldi_decoder_tpu/decoders/sweep.py:141", "k4", k4, k4_err),
         entry("K6 dedup_select (Viterbi dedup by state + top-K + winning lane)", "dedup.cu",

@@ -9,7 +9,8 @@
 // emitting stage (decoders/frontier.py:frame_emit_stage) and every eps
 // iteration (eps_iteration, with the K incumbents as the first lanes).
 // Its plain torch version is kaldi_decoder_tpu_torch/ops/segment.py:
-// dedup_select, and the two agree slot for slot, bitwise.
+// dedup_select, and the two agree slot for slot, bitwise.  Steps 1-3
+// below are dedup_core.cuh's code, which K2 (dedup_rec.cu) shares.
 //
 // The tie rules are the original's: a state's winner is its cheapest
 // lane, the lowest lane among equal costs, with -0.0 equal to +0.0 (the
@@ -62,14 +63,15 @@
 //     private to each block in shared memory, and a warp's neighbouring
 //     lanes with the same digit add once (select_core.cuh:run_add), so
 //     equal digits do not serialise.  Only the boundary bucket is refined,
-//     and only while it holds more than 256 keys and is not kept whole; each
-//     refining level takes its digit from the bucket's own key range, so
-//     all-equal costs resolve by state at once and any input in a few
-//     levels.
+//     and only while it holds more than half the 4096-key stage and is not
+//     kept whole; each refining level takes its digit from the bucket's own
+//     key range, so all-equal costs resolve by state at once and any input
+//     in a few levels.
 //   * Order: a counting scatter by the digit's prefix puts every kept key
 //     in its bucket's range; each key's place inside its bucket is the
 //     number of smaller keys there, counted in shared memory by the block
-//     that owns the place.  No sort with a barrier per stage.
+//     that owns the place (a block whose buckets hold one of more than 128
+//     keys sorts them instead; the bench's calls never do).
 //   * Size: what passes the shared-memory lists, and the scattered keys,
 //     live in device memory ((B, N + 256) scratch, two buffers used in
 //     turns); shared memory is 65 KB a block whatever K, N and S.
@@ -82,31 +84,19 @@
 #include <cooperative_groups.h>
 
 #include "common.cuh"
+#include "dedup_core.cuh"
 #include "select_core.cuh"
 
 namespace {
 
 namespace cg = cooperative_groups;
 namespace sel = kdtorch::select;
+namespace dd = kdtorch::dedup;
 
 constexpr int THREADS = 512;
-constexpr int UNROLL = 8;     // lanes a thread has in flight
 constexpr int VCACHE = 2048;  // finite lanes a block keeps in shared memory
 constexpr int CACHE = 2048;   // winners a block keeps in shared memory
-constexpr int MIN_LANES = 1024;  // a block of a cluster has at least these lanes
-// Scratch rows are N + SCRATCH_PAD long: a block's spill region holds its
-// chunks of 32 lanes, which round up.
-constexpr int SCRATCH_PAD = 32 * sel::MAX_CLUSTER;
 constexpr size_t SMEM = (size_t)(VCACHE + CACHE) * (sizeof(unsigned long long) + sizeof(int));
-constexpr unsigned long long EMPTY = ~0ull;
-
-__device__ __forceinline__ bool lane_valid(float c, int d, int S) {
-  return isfinite(c) && d >= 0 && d < S;
-}
-
-__device__ __forceinline__ unsigned long long min_key(float c, int lane) {
-  return ((unsigned long long)kdtorch::ordered_key(c) << 32) | (unsigned)lane;
-}
 
 __global__ void __launch_bounds__(THREADS, 2) dedup_kernel(
     const int* __restrict__ dst, const float* __restrict__ cost, int N, int S, int K,
@@ -118,10 +108,7 @@ __global__ void __launch_bounds__(THREADS, 2) dedup_kernel(
   // winners (key, lane), each in shared memory up to its cache and past it
   // in the block's region of a scratch buffer.
   extern __shared__ unsigned long long smem_k[];
-  unsigned long long* const fin_k = smem_k;
-  unsigned long long* const win_k = smem_k + VCACHE;
-  int* const fin_v = reinterpret_cast<int*>(smem_k + VCACHE + CACHE);
-  int* const win_v = fin_v + VCACHE;
+  int* const smem_v = reinterpret_cast<int*>(smem_k + VCACHE + CACHE);
   __shared__ sel::Shared sh;
   __shared__ int s_fin;
   cg::cluster_group cluster = cg::this_cluster();
@@ -130,140 +117,24 @@ __global__ void __launch_bounds__(THREADS, 2) dedup_kernel(
   const int b = blockIdx.x / C;
   const int tid = threadIdx.x;
   const long row = (long)b * N;
-  const long srow = (long)b * (N + SCRATCH_PAD);
-  unsigned long long* const tab = table + (long)b * S;
-  // The lanes go to the blocks in chunks of 32, round robin: K1 puts the
-  // active slots' lanes first, so a split into C ranges would give the
-  // first block most of the finite lanes.  Local lane li of this block is
-  // lane lane_of(li); it has `mine` of them (the last chunk may pass N).
-  const int chunks = (N + 31) / 32;
-  const int mine = (chunks - rank + C - 1) / C * 32;
-  const int most = (chunks + C - 1) / C * 32;
-  auto lane_of = [&](int li) { return ((li >> 5) * C + rank) * 32 + (li & 31); };
-  unsigned long long* const fin_gk = keys1 + srow + (long)rank * most;  // free until the scatter
-  int* const fin_gv = vals1 + srow + (long)rank * most;
-  unsigned long long* const win_gk = keys0 + srow + (long)rank * most;
-  int* const win_gv = vals0 + srow + (long)rank * most;
+  const long srow = (long)b * (N + dd::SCRATCH_PAD);
+  const dd::LaneSplit ls(C, rank, N);
+  const long spill = srow + (long)rank * ls.most;
+  // The finite lanes' spill is free until the scatter, which is done with it.
+  const dd::List fin{smem_k, smem_v, VCACHE, keys1 + spill, vals1 + spill};
+  const dd::List win{smem_k + VCACHE, smem_v + VCACHE, CACHE, keys0 + spill, vals0 + spill};
 
-  sel::mark_step(0, true);
-  for (int q = tid; q < sel::NB; q += THREADS) sh.hist[q] = 0;
-  if (tid == 0) {
-    sh.count = 0;
-    s_fin = 0;
-    sh.mm[0] = ~0ull;
-    sh.mm[1] = 0;
-  }
-  __syncthreads();
-
-  // 1. Per-state minima; this block's finite lanes and cost-key range.
-  unsigned tlo = 0xffffffffu, thi = 0;
-  for (int l0 = 0; l0 < mine; l0 += THREADS * UNROLL) {
-    float c[UNROLL];
-    int d[UNROLL];
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const int i = lane_of(l0 + u * THREADS + tid);
-      const bool here = l0 + u * THREADS + tid < mine && i < N;
-      c[u] = here ? cost[row + i] : INFINITY;
-      d[u] = here ? dst[row + i] : -1;
-    }
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const int i = lane_of(l0 + u * THREADS + tid);
-      const bool ok = lane_valid(c[u], d[u], S);
-      const int pos = sel::append_slot(&s_fin, ok);
-      if (ok) {
-        atomicMin(&tab[d[u]], min_key(c[u], i));
-        const unsigned t = kdtorch::total_order_key(c[u]);
-        tlo = min(tlo, t);
-        thi = max(thi, t);
-        const unsigned long long f =
-            ((unsigned long long)__float_as_uint(c[u]) << 32) | (unsigned)d[u];
-        if (pos < VCACHE) {
-          fin_k[pos] = f;
-          fin_v[pos] = i;
-        } else {
-          fin_gk[pos] = f;
-          fin_gv[pos] = i;
-        }
-      }
-    }
-  }
-  sel::mark_step(1);
-  tlo = __reduce_min_sync(0xffffffffu, tlo);
-  thi = __reduce_max_sync(0xffffffffu, thi);
-  if ((tid & 31) == 0 && tlo <= thi) {
-    atomicMin(&sh.mm[0], (unsigned long long)tlo);
-    atomicMax(&sh.mm[1], (unsigned long long)thi);
-  }
-  sel::sync_blocks(C);  // every lane's atomicMin is done; every range is set
-  sel::mark_step(2);
-
-  // The first digit: keys from the cheapest cost's onwards, the cost
-  // range (and the state bits below it) shifted into NB buckets.
-  unsigned long long tmin, tmax;
-  sel::cluster_min_max(sh, cluster, &tmin, &tmax);
-  unsigned long long base = 0;
-  int shift = 0;
-  if (tmin <= tmax) {
-    base = tmin << 32;
-    shift = sel::digit_shift(0, ((tmax - tmin) << 32) | (unsigned)(S - 1));
-  }
-  sel::mark_step(3);
-
-  // 2. Winners among the finite lanes: appended to the block's list,
-  // counted by digit.
-  const int nfin = s_fin;
-  for (int e0 = 0; e0 < nfin; e0 += THREADS * UNROLL) {
-    unsigned long long f[UNROLL], w[UNROLL];
-    int lane[UNROLL];
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const int e = e0 + u * THREADS + tid;
-      f[u] = e >= nfin ? EMPTY : e < VCACHE ? fin_k[e] : fin_gk[e];
-      lane[u] = e >= nfin ? -1 : e < VCACHE ? fin_v[e] : fin_gv[e];
-    }
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) w[u] = f[u] != EMPTY ? tab[(unsigned)f[u]] : EMPTY;
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const float c = __uint_as_float((unsigned)(f[u] >> 32));
-      const int d = (int)(unsigned)f[u];
-      const bool win = f[u] != EMPTY && w[u] == min_key(c, lane[u]);
-      const int pos = sel::append_slot(&sh.count, win);
-      int q = 0;
-      if (win) {
-        tab[d] = EMPTY;
-        const unsigned long long key =
-            ((unsigned long long)kdtorch::total_order_key(c) << 32) | (unsigned)d;
-        q = (int)((key - base) >> shift);
-        if (pos < CACHE) {
-          win_k[pos] = key;
-          win_v[pos] = lane[u];
-        } else {
-          win_gk[pos] = key;
-          win_gv[pos] = lane[u];
-        }
-      }
-      sel::run_add(sh.hist, q, win);
-    }
-  }
-  sel::mark_step(4);
-  __syncthreads();
-  sel::mark_step(5);
-
-  // 3. The K smallest keys, in order.
   const long out0 = (long)b * K;
   auto emit = [&](int r, unsigned long long key, int lane) {
     out_states[out0 + r] = (int)(key & 0xffffffffull);
     out_costs[out0 + r] = kdtorch::from_ordered_key((unsigned)(key >> 32));
     out_idx[out0 + r] = lane;
   };
-  const sel::Entries in{win_k, win_v, CACHE, win_gk, win_gv, sh.count};
   // Both caches are free once the winners are scattered: the core's stage.
-  const int n = sel::select_smallest<THREADS>(sh, cluster, in, keys0 + srow, vals0 + srow,
-                                              keys1 + srow, vals1 + srow, smem_k, VCACHE + CACHE,
-                                              base, shift, K, emit);
+  const int n = dd::frontier<THREADS>(sh, cluster, ls, dst, cost, row, N, S, K,
+                                      table + (long)b * S, true, fin, win, &s_fin, nullptr,
+                                      keys0 + srow, vals0 + srow, keys1 + srow, vals1 + srow,
+                                      smem_k, smem_v, VCACHE + CACHE, emit);
   for (int r = min(n, K) + rank * THREADS + tid; r < K; r += C * THREADS) {
     out_states[out0 + r] = 0;
     out_costs[out0 + r] = INFINITY;
@@ -276,33 +147,17 @@ __global__ void __launch_bounds__(THREADS, 2) dedup_kernel(
 }  // namespace
 
 // The cluster size K6 launches with for B utterances of N lanes
-// (kdtorch::pick_cluster, at most the power of two that leaves every block
-// MIN_LANES lanes: a smaller call spends less on cluster barriers); 0 when
-// none fits.
+// (kdtorch::pick_cluster, at most dd::cluster_cap(N)); 0 when none fits.
 extern "C" int kd_dedup_cluster(int B, int N) {
-  int most = 1;
-  while (most < sel::MAX_CLUSTER && (long)(2 * most) * MIN_LANES <= N) most *= 2;
+  const int most = dd::cluster_cap(N);
   return kdtorch::pick_cluster(dedup_kernel, B, THREADS, most, [](int) { return SMEM; }, most);
 }
 
-// The global timer (ns) at the start and end of each of the last
-// launch's first `blocks` blocks (at most 1024), into ns[2 * blocks]; and
-// the SM clock at their sel::MARKS step marks (see kernels/dedup.py
-// STEPS) into clock[MARKS * blocks], with the SM's rated clock in kHz.
-// Synchronises with the device.
+// The last K6 launch's step marks (sel::read_marks; the steps are
+// kernels/dedup.py STEPS).
 extern "C" int kd_dedup_marks(unsigned long long* ns, long long* clock, int* clock_khz,
                               int blocks) {
-  const int n = blocks < sel::MARKED_BLOCKS ? blocks : sel::MARKED_BLOCKS;
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(clock_khz, cudaDevAttrClockRate, dev);
-  if (e == cudaSuccess) {
-    e = cudaMemcpyFromSymbol(ns, sel::block_ns, sizeof(unsigned long long) * 2 * n);
-  }
-  if (e == cudaSuccess) {
-    e = cudaMemcpyFromSymbol(clock, sel::step_clock, sizeof(long long) * sel::MARKS * n);
-  }
-  return (int)e;
+  return sel::read_marks(ns, clock, clock_khz, blocks);
 }
 
 // Launches K6 on `stream`.  Shapes: dst/cost (B, N); table (B, S) 64-bit

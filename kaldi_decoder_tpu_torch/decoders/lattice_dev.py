@@ -4,10 +4,14 @@ The torch counterpart of ``kaldi_decoder_tpu/decoders/lattice_dev.py``
 (``LatticeDevConfig``, ``lattice_config_for_graph``, ``lattice_emit_stage``,
 ``lattice_frame_step_batched`` and the chunk scan) for device graphs with
 no eps arcs.  Each frame runs GetCutoff, the expansion region K1
-(:func:`kaldi_decoder_tpu_torch.kernels.expand.expand_filter`), dedup /
-top-K / records (:func:`kaldi_decoder_tpu_torch.ops.segment.dedup_select_rec`)
-and the cost rebase; record rows are
-``[src_state, arc_id, dst_state, slack_bits]``.  The JAX ``lax.scan`` over
+(:func:`kaldi_decoder_tpu_torch.kernels.expand.expand_filter`), the dedup /
+top-K / records region K2
+(:func:`kaldi_decoder_tpu_torch.kernels.dedup_rec.dedup_select_rec`) and
+the cost rebase; record rows are
+``[src_state, arc_id, dst_state, slack_bits]``.  On the card K1 and K2
+are the hand-written kernels; their plain torch versions
+(``kernels.expand.expand_filter_plain``, ``ops.segment.dedup_select_rec``)
+run for CPU tensors and are the kernels' oracles.  The JAX ``lax.scan`` over
 a chunk's frames is a Python loop here.
 """
 
@@ -21,9 +25,9 @@ import torch
 from kaldi_decoder_tpu_torch.decoders.frontier import FrontierConfig, StepState
 from kaldi_decoder_tpu_torch.fst.csr import CsrGraph
 from kaldi_decoder_tpu_torch.fst.pack import PackedGraph
+from kaldi_decoder_tpu_torch.kernels.dedup_rec import dedup_select_rec
 from kaldi_decoder_tpu_torch.kernels.expand import expand_filter
 from kaldi_decoder_tpu_torch.ops.cutoff import get_cutoff
-from kaldi_decoder_tpu_torch.ops.segment import dedup_select_rec
 
 INF = float("inf")
 
@@ -75,7 +79,7 @@ def lattice_emit_stage(
     slack_beam: float,
 ):
     """GetCutoff, expansion with the beam filter (K1), then dedup,
-    frontier selection and records."""
+    frontier selection and records (K2)."""
     K = fc.frontier_size
     cut = get_cutoff(
         st.costs, fc.beam, fc.max_active, fc.min_active, fc.beam_delta,
@@ -88,13 +92,10 @@ def lattice_emit_stage(
         ex.dst, ex.cost, K, num_states, r_em, slack_beam,
         payload=(ex.src_state, ex.arc_id),
     )
-    em_rec = torch.stack(
-        sel.recs + (sel.rec_dst, sel.rec_slack.view(torch.int32)), dim=-1
-    )
     mid = StepState(sel.states, sel.costs, st.base)
     ovf = ex.overflow | sel.rec_overflow
     sat = sel.num_unique > K
-    return mid, em_rec, st.base + cut.cutoff, ovf, sat
+    return mid, sel.records, st.base + cut.cutoff, ovf, sat
 
 
 def lattice_frame_step_batched(

@@ -111,8 +111,8 @@ def stream(device) -> ctypes.c_void_p:
 
 @functools.lru_cache(maxsize=None)
 def kernels() -> ctypes.CDLL:
-    """The CUDA kernel library (row gather, K1 expansion, K4 sweep, K6
-    dedup), built on first use."""
+    """The CUDA kernel library (row gather, K1 expansion, K2 lattice
+    dedup and records, K4 sweep, K6 dedup), built on first use."""
     sources = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
     arch = ["-gencode", "arch=compute_90a,code=sm_90a"]
     path = build_library(
@@ -138,6 +138,12 @@ def kernels() -> ctypes.CDLL:
     lib.kd_dedup_cluster.argtypes = [_I, _I]
     lib.kd_dedup_marks.restype = _I
     lib.kd_dedup_marks.argtypes = [_P, _P, _P, _I]
+    lib.kd_dedup_rec.restype = _I
+    lib.kd_dedup_rec.argtypes = [_P] * 4 + [_I] * 5 + [_F, _I] + [_P] * 14 + [_P]
+    lib.kd_dedup_rec_cluster.restype = _I
+    lib.kd_dedup_rec_cluster.argtypes = [_I, _I]
+    lib.kd_dedup_rec_marks.restype = _I
+    lib.kd_dedup_rec_marks.argtypes = [_P, _P, _P, _I]
     lib.kd_error_string.restype = ctypes.c_char_p
     lib.kd_error_string.argtypes = [_I]
     return lib

@@ -93,42 +93,46 @@ def cluster_size(batch: int, lanes: int) -> int:
 # The kernel's steps, between its 12 marks (csrc/dedup.cu, select_core.cuh).
 STEPS = ("min pass", "min barrier", "range", "winner pass", "winner sync", "histogram barrier",
          "bucket starts", "scatter pass", "scatter barrier", "ranks", "padding")
-MARKS = 16
+MARKS = 24  # csrc/select_core.cuh: MARKS
 
 
-def launch_marks(blocks: int) -> list:
+def launch_marks(blocks: int, reader: str = "kd_dedup_marks", steps=STEPS) -> list:
     """For each of the last launch's first ``blocks`` blocks (at most
     1024; blocks ``c*C .. c*C + C-1`` are utterance c's cluster): its start
     and end in µs of the global timer from the earliest start, and its time
-    per step in µs at the SM's rated clock (``STEPS`` in order; the
+    per step in µs at the SM's rated clock (``steps`` in order; the
     histogram step is mostly the wait at the cluster barrier, "ranks"
-    includes writing the slots).  Synchronises with the device."""
+    includes writing the slots).  ``reader`` is the library function that
+    reads the kernel's marks (K6's by default).  Synchronises with the
+    device."""
     import ctypes
 
     n = min(blocks, 1024)
     ns = (ctypes.c_ulonglong * (2 * n))()
     clock = (ctypes.c_longlong * (MARKS * n))()
     khz = ctypes.c_int()
-    rc = kernels().kd_dedup_marks(ctypes.byref(ns), ctypes.byref(clock), ctypes.byref(khz), n)
+    rc = getattr(kernels(), reader)(ctypes.byref(ns), ctypes.byref(clock), ctypes.byref(khz), n)
     if rc != 0:
-        raise RuntimeError(f"kd_dedup_marks failed: {cuda_error(rc)}")
+        raise RuntimeError(f"{reader} failed: {cuda_error(rc)}")
     t0 = min(ns[0::2])
     out = []
     for i in range(n):
-        c = clock[MARKS * i: MARKS * i + len(STEPS) + 1]
-        steps = {name: (c[j + 1] - c[j]) * 1e3 / khz.value for j, name in enumerate(STEPS)}
+        c = clock[MARKS * i: MARKS * i + len(steps) + 1]
+        times = {name: (c[j + 1] - c[j]) * 1e3 / khz.value for j, name in enumerate(steps)}
         out.append(dict(start_us=(ns[2 * i] - t0) / 1e3, end_us=(ns[2 * i + 1] - t0) / 1e3,
-                        steps_us=steps))
+                        steps_us=times))
     return out
 
 
-def cluster_steps(batch: int, lanes: int) -> dict:
+def cluster_steps(batch: int, lanes: int, clusters: int = 0, reader: str = "kd_dedup_marks",
+                  steps=STEPS) -> dict:
     """The last launch's clusters (it had ``batch`` utterances of ``lanes``
-    lanes): their size, each one's end in µs from the first block's start,
-    the slowest one's utterance and the split of its first block into
-    ``STEPS``.  Synchronises with the device."""
-    C = cluster_size(batch, lanes)
-    marks = launch_marks(batch * C)
+    lanes, in clusters of ``clusters`` blocks, K6's size by default): their
+    size, each one's end in µs from the first block's start, the slowest
+    one's utterance and the split of its first block into ``steps``.
+    Synchronises with the device."""
+    C = clusters or cluster_size(batch, lanes)
+    marks = launch_marks(batch * C, reader, steps)
     ends = [max(m["end_us"] for m in marks[c * C:(c + 1) * C]) for c in range(batch)]
     slow = max(range(batch), key=lambda c: ends[c])
     return dict(clusters=C, ends_us=ends, slowest=slow, steps_us=marks[slow * C]["steps_us"])

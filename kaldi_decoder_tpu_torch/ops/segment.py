@@ -17,9 +17,11 @@ record buffer keeps, so the tie rules of the original are kept exactly:
 * the segmented forward fill of each run's minimum is a gather at the
   index of the lane's run leader.
 
-:func:`dedup_select_rec` is the plain-torch version of the lattice
-frame's dedup/select region on every device; :func:`dedup_select` is the
-plain version of K6 (:mod:`kaldi_decoder_tpu_torch.kernels.dedup`).
+:func:`dedup_select_rec` is the plain version of K2
+(:mod:`kaldi_decoder_tpu_torch.kernels.dedup_rec`), the lattice frame's
+dedup/select/records region, and :func:`dedup_select` the plain version
+of K6 (:mod:`kaldi_decoder_tpu_torch.kernels.dedup`): the wrappers run
+them for CPU tensors, and on the card they are the kernels' oracles.
 """
 
 from __future__ import annotations
@@ -165,7 +167,10 @@ def dedup_select_rec(
     extra_ok = (~leader) & run_sel & finite & (slack <= slack_beam)
     # Winner links first (key -1 guarantees them a slot), then extras by
     # ascending slack; the stable sort keeps state-sorted order on ties.
+    # The original's comparator takes a -0.0 slack as equal to +0.0: fold
+    # them so that no backend's float sort tells them apart.
     key = torch.where(win_link, -1.0, torch.where(extra_ok, slack, INF))
+    key = torch.where(key == 0, 0.0, key)
     skey, order = torch.sort(key, dim=1, stable=True)
     take = min(r, n)
     skey, order = skey[:, :take], order[:, :take]

@@ -14,8 +14,9 @@ step on the first chunk:
   wall time per frame);
 * the device time of one call of each hand-written kernel's wrapper
   and of its plain torch version, on the same inputs: the row gather and
-  K1 on the frontier after those frames, K4 on the first 500-frame chunk;
-* the K1 and K4 calls split by device activity, in launch order (the
+  K1 on the frontier after those frames, K2 on the lanes K1 gives there,
+  K4 on the first 500-frame chunk;
+* the K1, K2 and K4 calls split by device activity, in launch order (the
   calls queued back to back): each kernel's time and the device's idle
   time before it.
 
@@ -102,10 +103,12 @@ def main():
         lattice_frame_step_batched,
     )
     from kaldi_decoder_tpu_torch.decoders.sweep import sweep_config, sweep_plain
+    from kaldi_decoder_tpu_torch.kernels.dedup_rec import dedup_select_rec, stack_records
     from kaldi_decoder_tpu_torch.kernels.expand import expand_filter, expand_filter_plain
     from kaldi_decoder_tpu_torch.kernels.gather import row_gather, row_gather_plain
     from kaldi_decoder_tpu_torch.kernels.sweep import sweep_chunk
     from kaldi_decoder_tpu_torch.ops.cutoff import get_cutoff
+    from kaldi_decoder_tpu_torch.ops.segment import dedup_select_rec as dedup_select_rec_plain
 
     print(card_line())
     graph, scores, lengths, _ = bench_workload()
@@ -144,6 +147,9 @@ def main():
                      costs_sorted=True)
     k1_args = (st.states, st.costs, cut.cutoff, cut.adaptive_beam, scores_tm[t],
                dec._pg, fc)
+    ex = expand_filter(*k1_args)
+    k2_args = (ex.dst, ex.cost, fc.frontier_size, S, dec.cfg.em_records,
+               dec.cfg.lattice_beam + 1e-4, (ex.src_state, ex.arc_id))
     st0, _, _ = dec._init(B)
     _, o = lattice_chunk(dec._pg, scores_tm[:CHUNK], rem, st0, dec.cfg, S)
     k4_args = (o.frontier_states, o.frontier_costs, o.em_records, st0.states, rem,
@@ -154,6 +160,9 @@ def main():
          lambda: row_gather_plain(dec._pg.em_block, st.states)),
         ("expand_filter (row gather + K1)", 20,
          lambda: expand_filter(*k1_args), lambda: expand_filter_plain(*k1_args)),
+        ("K2 dedup_select_rec (dedup + top-K + records)", 20,
+         lambda: dedup_select_rec(*k2_args),
+         lambda: stack_records(dedup_select_rec_plain(*k2_args))),
         (f"K4 sweep of one {CHUNK}-frame chunk", 1,
          lambda: sweep_chunk(*k4_args), lambda: sweep_plain(*k4_args)),
     ]
@@ -176,7 +185,8 @@ def main():
         print(row(e))
     print("the port's own kernels in those frames (ms/frame, calls/frame):")
     for e in dev:
-        if any(k in e.key for k in ("row_gather_kernel", "expand_", "sweep_kernel")):
+        if any(k in e.key for k in ("row_gather_kernel", "expand_", "dedup_rec_kernel",
+                                    "sweep_kernel")):
             print(row(e))
     print("device ms per call, kernel vs plain torch, same inputs:")
     for name, kern_ms, plain_ms in per_call:

@@ -25,6 +25,8 @@ from kaldi_decoder_tpu_torch.fst.pack import pack_graph_device
 from kaldi_decoder_tpu_torch.kernels._build import kernels
 from kaldi_decoder_tpu_torch.kernels.dedup import cluster_size as dedup_cluster_size
 from kaldi_decoder_tpu_torch.kernels.dedup import dedup_select
+from kaldi_decoder_tpu_torch.kernels.dedup_rec import cluster_size as rec_cluster_size
+from kaldi_decoder_tpu_torch.kernels.dedup_rec import dedup_select_rec, stack_records
 from kaldi_decoder_tpu_torch.kernels.expand import (
     expand_filter,
     expand_filter_plain,
@@ -34,6 +36,7 @@ from kaldi_decoder_tpu_torch.kernels.gather import row_gather, row_gather_plain
 from kaldi_decoder_tpu_torch.kernels.sweep import sweep_chunk
 from kaldi_decoder_tpu_torch.ops.cutoff import get_cutoff
 from kaldi_decoder_tpu_torch.ops.segment import dedup_select as dedup_select_plain
+from kaldi_decoder_tpu_torch.ops.segment import dedup_select_rec as dedup_select_rec_plain
 
 B, T, V = 3, 24, 16
 
@@ -474,7 +477,7 @@ def test_dedup_kernel_matches_plain(card, N, K, S, n_valid, incumbents):
     # Every finite cost equal: one cost bucket holds every key.
     ("all-costs-equal", 3, 60000, 4096, 102298, 50000, False, "equal"),
     # Costs on a 0.25 grid with a -0.0 lane: buckets of ~1000 keys, the
-    # boundary one refined by state.
+    # boundary one ranked whole by the stage's sort.
     ("grid-and-negative-zero", 3, 60000, 4096, 102298, 50000, False, "grid"),
     # Costs a few ulps apart under one far outlier: the boundary bucket
     # is refined twice (by cost ulps, then by state).
@@ -517,3 +520,144 @@ def test_dedup_kernel_cluster_sizes(card, clusters):
     states, costs = _dedup_inputs(nb, N, 256, 20000, 3000, False, nb, "uniform")
     _same_dedup(card, states, costs, 256, 20000)
     assert _k6_clusters(N) == 8 and dedup_cluster_size(nb, N) == clusters
+
+
+LATTICE_BEAM = 8.0 + 1e-4  # the lattice path's slack beam at lattice beam 8
+
+
+def _rec_inputs(seed, nb, N, S, n_valid, costs_of):
+    """(nb, N) lanes for K2: those of :func:`_dedup_inputs` (no
+    incumbents), or "motivation": groups of four lanes of one state in
+    random lane order, a leader of -1000 or -999.5 and three extras of
+    cost 1.0, nextafter(1.0, 2.0) and 1.0 + 2 ulps, whose slacks round to
+    one float (equal slack, equal state, distinct costs); or "empty-and-
+    equal": row 0 uniform, row 1 without a finite lane, row 2 every cost
+    equal."""
+    if costs_of == "motivation":
+        rng = np.random.default_rng(seed)
+        G = n_valid // 4
+        states = rng.integers(-5, 10 * S, (nb, N)).astype(np.int32)
+        costs = np.full((nb, N), np.inf, np.float32)
+        one = np.float32(1.0).view(np.int32)
+        extra = np.array([one, one + 1, one + 2], np.int32).view(np.float32)
+        for b in range(nb):
+            lanes = rng.permutation(N)[: 4 * G].reshape(G, 4)
+            st = rng.choice(S, size=G, replace=False)
+            states[b, lanes] = st[:, None]
+            costs[b, lanes[:, 0]] = -1000.0 + 0.5 * rng.integers(0, 2, G)
+            costs[b, lanes[:, 1:]] = rng.permuted(np.tile(extra, (G, 1)), axis=1)
+        return states, costs
+    if costs_of == "crowded":
+        # One slack value over a run of neighbouring states with a few far
+        # away (the LM's word-start arcs): the record digit cannot split
+        # it, and the blocks that share its bucket sort their stage.
+        rng = np.random.default_rng(seed)
+        states = rng.integers(-5, 10 * S, (nb, N)).astype(np.int32)
+        costs = np.full((nb, N), np.inf, np.float32)
+        G = n_valid // 2
+        for b in range(nb):
+            lanes = rng.permutation(N)[: 2 * G].reshape(G, 2)
+            st = np.arange(G) + 4
+            st[rng.choice(G, size=8, replace=False)] = S - 1 - np.arange(8)
+            states[b, lanes] = st[:, None]
+            costs[b, lanes[:, 0]] = rng.uniform(0, 4, G).astype(np.float32)
+            costs[b, lanes[:, 1]] = costs[b, lanes[:, 0]] + np.float32(2.5)
+        return states, costs
+    if costs_of == "empty-and-equal":
+        states, costs = _dedup_inputs(seed, N, 0, S, n_valid, False, nb, "uniform")
+        costs[1] = np.inf
+        costs[2][np.isfinite(costs[2])] = 3.5
+        return states, costs
+    return _dedup_inputs(seed, N, 0, S, n_valid, False, nb, costs_of)
+
+
+def _same_rec(card, states, costs, K, S, R, beam=LATTICE_BEAM, calls=2):
+    """K2 ``calls`` times against its plain version, every field by raw
+    bits (a -0.0 stays -0.0): a later call checks that the one before left
+    the shared winner table as it found it.  Returns the plain result."""
+    nb, N = costs.shape
+    rng = np.random.default_rng(N + K + R)
+    pay = tuple(torch.from_numpy(x).to(card) for x in (
+        rng.integers(0, S, (nb, N)).astype(np.int32),
+        np.tile(np.arange(N, dtype=np.int32), (nb, 1))))
+    st, co = torch.from_numpy(states).to(card), torch.from_numpy(costs).to(card)
+    ref = dedup_select_rec_plain(st, co, K, S, R, beam, pay)
+    want = stack_records(ref)
+    before = dedup_select_rec.launches
+    for _ in range(calls):
+        got = dedup_select_rec(st, co, K, S, R, beam, pay)
+        torch.cuda.synchronize()
+        assert torch.equal(ref.states, got.states)
+        assert torch.equal(ref.costs.view(torch.int32), got.costs.view(torch.int32))
+        assert torch.equal(ref.num_unique, got.num_unique)
+        for col, name in enumerate(("src_state", "arc_id", "rec_dst", "rec_slack")):
+            assert torch.equal(want[..., col], got.records[..., col]), name
+        assert torch.equal(ref.rec_overflow, got.rec_overflow)
+    assert dedup_select_rec.launches == before + calls
+    return ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,nb,N,K,S,R,n_valid,costs_of", [
+    # The bench's shape: R > K, R <= K, and a budget past the lanes (padding).
+    ("bench-r-above-k", 3, 60000, 4096, 102298, 8192, 50000, "uniform"),
+    ("bench-r-below-k", 3, 60000, 4096, 102298, 2048, 50000, "uniform"),
+    ("r-above-n", 3, 3000, 64, 500, 4096, 2500, "uniform"),
+    # Quantised costs with a -0.0 lane: equal (state, cost) pairs, equal
+    # slacks, and states tied with the K-th cost that top-K drops but that
+    # keep their records (the boundary quirk).
+    ("quantised", 3, 60000, 4096, 102298, 8192, 50000, "grid"),
+    ("quantised-few-states", 3, 20000, 256, 2000, 8192, 15000, "grid"),
+    # Equal slack and state, distinct costs, at scale (and overflow).
+    ("equal-slack", 3, 60000, 4096, 102298, 8192, 48000, "motivation"),
+    # More eligible links than R.
+    ("overflow", 3, 60000, 4096, 102298, 4200, 50000, "ulps"),
+    # A row with no finite lane and a row with every cost equal.
+    ("empty-and-equal", 3, 60000, 4096, 102298, 8192, 50000, "empty-and-equal"),
+    # Finite lanes in the first eighth only (K1's layout).
+    ("front-loaded", 3, 60000, 4096, 102298, 8192, 7000, "front"),
+    # The recall point's capacities.
+    ("recall-point", 2, 131072, 8192, 102298, 16384, 120000, "uniform"),
+    # Thousands of extras of one slack over crowded states: the record
+    # select's sort, with and without overflow.
+    ("crowded", 3, 60000, 4096, 102298, 8192, 12000, "crowded"),
+    ("crowded-overflow", 3, 60000, 2048, 102298, 3000, 12000, "crowded"),
+])
+def test_dedup_rec_kernel_matches_plain(card, case, nb, N, K, S, R, n_valid, costs_of):
+    """K2 against plain, bitwise, each called twice."""
+    states, costs = _rec_inputs(N + K + R, nb, N, S, n_valid, costs_of)
+    beam = 3000.0 if costs_of == "motivation" else LATTICE_BEAM
+    ref = _same_rec(card, states, costs, K, S, R, beam)
+    assert rec_cluster_size(nb, N) == _k6_clusters(N)
+    if case == "quantised":  # the boundary quirk: a record into a state not kept
+        kept = set(ref.states[0].tolist())
+        assert any(d >= 0 and d not in kept for d in ref.rec_dst[0].tolist())
+    if case in ("overflow", "equal-slack", "crowded-overflow"):
+        assert bool(ref.rec_overflow.all())
+    if case == "empty-and-equal":
+        assert int(ref.num_unique[1]) == 0 and not bool(ref.rec_overflow[1])
+    if case == "r-above-n":
+        assert bool((ref.rec_dst[:, N:] == -1).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("clusters", [8, 4, 2, 1])
+def test_dedup_rec_kernel_cluster_sizes(card, clusters):
+    """K2 against plain at a batch for which the cluster picker gives
+    clusters of 8, 4, 2 and 1 blocks where the lanes would allow 8."""
+    N = 40000
+    nb = _batch_for_cluster(lambda n: rec_cluster_size(n, N), clusters)
+    states, costs = _rec_inputs(nb, nb, N, 20000, 3000, "grid")
+    _same_rec(card, states, costs, 256, 20000, 1024)
+    assert _k6_clusters(N) == 8 and rec_cluster_size(nb, N) == clusters
+
+
+@pytest.mark.cuda
+def test_dedup_rec_and_dedup_share_the_table(card):
+    """K6 and K2 in turn on one stream share the kept winner table: each
+    must find it all ones, at two sizes."""
+    for nb, S in ((3, 102298), (5, 20000), (3, 102298)):
+        states, costs = _rec_inputs(nb + S, nb, 20000, S, 15000, "grid")
+        _same_dedup(card, states, costs, 1024, S)
+        _same_rec(card, states, costs, 1024, S, 4096, calls=1)
+        _same_dedup(card, states, costs, 1024, S)

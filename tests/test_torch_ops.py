@@ -27,6 +27,7 @@ from kaldi_decoder_tpu_torch.decoders.lattice_dev import lattice_config_for_grap
 from kaldi_decoder_tpu_torch.decoders.sweep import sweep_config, sweep_plain
 from kaldi_decoder_tpu_torch.fst.fold import fold_eps
 from kaldi_decoder_tpu_torch.fst.pack import packed_from_numpy
+from kaldi_decoder_tpu_torch.kernels import dedup_rec
 from kaldi_decoder_tpu_torch.kernels.expand import expand_filter, expand_filter_plain
 from kaldi_decoder_tpu_torch.kernels.sweep import sweep_chunk
 from kaldi_decoder_tpu_torch.ops.cutoff import get_cutoff
@@ -259,6 +260,94 @@ def test_dedup_select_rec_negative_zero_slack():
         np.asarray(ref.rec_slack, np.float32).view(np.int32),
         got.rec_slack.numpy().view(np.int32),
     )
+
+
+def _rec_twins(states, costs, pay, K, S, R, slack_beam):
+    """The JAX and the port's ``dedup_select_rec`` (the lattice call) on
+    the same numpy input, every field compared by raw bits (-0.0 not
+    folded).  Returns the port's result."""
+    ref = jax.vmap(
+        lambda s, c, *p: jax_dedup_select_rec(
+            s, c, K, S, R, slack_beam=slack_beam, payload=p, sweep_cols=True, need_idx=False,
+        )
+    )(jnp.asarray(states), jnp.asarray(costs), *(jnp.asarray(p) for p in pay))
+    got = dedup_select_rec(
+        torch.from_numpy(states), torch.from_numpy(costs), K, S, R, slack_beam,
+        payload=tuple(torch.from_numpy(p) for p in pay),
+    )
+
+    def raw(x):
+        x = np.asarray(x)
+        return x.view(np.int32) if x.dtype == np.float32 else x
+
+    for name in ("states", "costs", "num_unique", "rec_overflow", "rec_dst", "rec_slack"):
+        np.testing.assert_array_equal(raw(getattr(ref, name)), raw(getattr(got, name).numpy()),
+                                      err_msg=name)
+    for rr, gg in zip(ref.recs, got.recs):
+        np.testing.assert_array_equal(np.asarray(rr), gg.numpy())
+    return got
+
+
+NEXT_1 = np.nextafter(np.float32(1.0), np.float32(2.0))
+
+
+@pytest.mark.parametrize("case", ["equal-slack", "negative-zero-leader", "boundary-quirk"])
+def test_dedup_select_rec_tie_rules(case):
+    """K2's tie rules, pinned against JAX on raw bits.  equal-slack: state
+    5's leader costs -1000, and lanes of cost nextafter(1, 2) (lane 0) and
+    1 (lane 2) both get slack 1001 after float32 rounding; they keep the
+    (state, cost, lane) order, so lane 2 is recorded before lane 0.
+    negative-zero-leader: a -0.0 leader with a +0.0 extra of slack +0.0.
+    boundary-quirk: state 8 ties the K-th frontier cost, top-K drops it
+    (state 6 comes first), and its links are recorded all the same."""
+    if case == "equal-slack":
+        states = np.array([[5, 5, 5, 7, 9]], np.int32)
+        costs = np.array([[NEXT_1, -1000.0, 1.0, 3.0, INF]], np.float32)
+        K, S, R, beam = 2, 10, 6, 3000.0
+        want = [1, 3, 2, 0, -1, -1]
+    elif case == "negative-zero-leader":
+        states = np.array([[4, 4, 6, 6, 4, 9]], np.int32)
+        costs = np.array([[-0.0, 0.0, 0.5, 0.5, 0.25, INF]], np.float32)
+        K, S, R, beam = 4, 10, 8, 2.0
+        want = [0, 2, 1, 3, 4, -1, -1, -1]
+    else:
+        states = np.array([[3, 8, 6, 8, 6, 3, 1]], np.int32)
+        costs = np.array([[1.0, 2.0, 2.0, 2.5, 3.0, 1.5, INF]], np.float32)
+        K, S, R, beam = 2, 10, 8, 5.0
+        want = [0, 2, 1, 5, 3, 4, -1, -1]
+    lanes = np.arange(states.shape[1], dtype=np.int32)[None]
+    got = _rec_twins(states, costs, (lanes, lanes + 100), K, S, R, beam)
+    assert got.recs[0][0].tolist() == want
+    if case == "boundary-quirk":
+        assert 8 not in got.states[0].tolist() and 8 in got.rec_dst[0].tolist()
+    if case == "negative-zero-leader":
+        assert np.signbit(got.costs[0, 0].item())  # the -0.0 leader keeps its sign
+
+
+@pytest.mark.parametrize("r", [12, 40, 400])  # r <= k, r > k, r > n
+def test_dedup_rec_wrapper_on_cpu(r):
+    """K2's wrapper on CPU tensors runs the plain version, launches
+    nothing, and gives its record columns as (B, R, 4) rows."""
+    rng = np.random.default_rng(100 + r)
+    B, N, K, S = 3, 160, 16, 30
+    states = torch.from_numpy(rng.integers(0, S, size=(B, N)).astype(np.int32))
+    costs = (rng.integers(0, 12, size=(B, N)) * 0.5).astype(np.float32)
+    costs[rng.random((B, N)) < 0.2] = INF
+    costs = torch.from_numpy(costs)
+    pay = tuple(torch.from_numpy(rng.integers(0, 1000, size=(B, N)).astype(np.int32))
+                for _ in range(2))
+    ref = dedup_select_rec(states, costs, K, S, r, 2.0, payload=pay)
+    before = dedup_rec.dedup_select_rec.launches
+    got = dedup_rec.dedup_select_rec(states, costs, K, S, r, 2.0, payload=pay)
+    assert dedup_rec.dedup_select_rec.launches == before == 0
+    assert torch.equal(got.states, ref.states) and torch.equal(got.num_unique, ref.num_unique)
+    assert torch.equal(got.costs.view(torch.int32), ref.costs.view(torch.int32))
+    assert torch.equal(got.rec_overflow, ref.rec_overflow)
+    assert got.records.shape == (B, r, 4) and got.records.dtype == torch.int32
+    assert torch.equal(got.records[..., 0], ref.recs[0])
+    assert torch.equal(got.records[..., 1], ref.recs[1])
+    assert torch.equal(got.records[..., 2], ref.rec_dst)
+    assert torch.equal(got.records[..., 3], ref.rec_slack.view(torch.int32))
 
 
 @pytest.mark.parametrize("caps,rems", [
