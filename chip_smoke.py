@@ -22,8 +22,9 @@ Phases (any failure raises, and the process exits non-zero):
      ``csrc/expand.cu``, K2 ``csrc/dedup_rec.cu``, K4 ``csrc/sweep.cu``,
      K6 ``csrc/dedup.cu``) and the C++ host library, from the checkout's
      sources;
-  2. kernels: K1 on real frontiers, K2 on the lanes K1 gives there (every
-     field bitwise: frontier, ``num_unique``, record rows, overflow), the
+  2. kernels: K1 on real frontiers, K2 on the lanes K1 gives there and on
+     lattice frame 250's (every field bitwise: frontier, ``num_unique``,
+     record rows, overflow; timed on frames 150 and 250), the
      row gather on a real frontier's
      states (and on the lane-packed table of the TPU experiments), K4 on
      one real chunk, K1 with its source-slot output and K6 on the
@@ -90,6 +91,7 @@ BENCH_CONFIG = dict(
 )
 DECODER_KW = dict(lattice_beam=8.0, em_records=8192, pad_time_to=CHUNK)
 K1_FRAMES = (0, 1, 5, 20, 60, 150)  # frames whose frontiers K1 is checked on
+K2_FRAMES = (150, 250)  # lattice frames on whose lanes K2 is timed (and checked, with K1's)
 TIMING_REPS = 10
 VITERBI_CONFIG = dict(
     beam=15.0, max_active=2560, min_active=200, frontier_size=4096, rem_budget=49152,
@@ -473,18 +475,19 @@ def check_k1(dec, scores_tm):
     max_err, timed_args, overflowed = 0.0, None, 0
     k2_args = []  # K2's arguments on K1's lanes, frame by frame
     sb = dec.cfg.lattice_beam + 1e-4  # lattice_frame_step_batched's slack beam
-    for t in range(max(K1_FRAMES) + 1):
-        if t in K1_FRAMES:
+    for t in range(max(K1_FRAMES + K2_FRAMES) + 1):
+        if t in K1_FRAMES or t in K2_FRAMES:
             cut = get_cutoff(st.costs, fc.beam, fc.max_active, fc.min_active,
                              fc.beam_delta, costs_sorted=True)
             args = (st.states, st.costs, cut.cutoff, cut.adaptive_beam,
                     scores_tm[t], dec._pg, fc)
-            ref = expand_filter_plain(*args)
             got = expand_filter(*args)
-            torch.cuda.synchronize()
-            max_err = max(max_err, same_expansion(ref, got, f"frame {t}"))
-            overflowed += int(ref.overflow.sum())
-            timed_args = args
+            if t in K1_FRAMES:
+                ref = expand_filter_plain(*args)
+                torch.cuda.synchronize()
+                max_err = max(max_err, same_expansion(ref, got, f"frame {t}"))
+                overflowed += int(ref.overflow.sum())
+                timed_args = args
             k2_args.append((t, (got.dst, got.cost, fc.frontier_size, S, dec.cfg.em_records, sb,
                                 (got.src_state, got.arc_id))))
         st, _ = lattice_frame_step_batched(st, scores_tm[t], active, dec._pg, dec.cfg, S)
@@ -501,8 +504,9 @@ def check_k1(dec, scores_tm):
 def check_k2(k2_args):
     """K2 against its plain version (the lattice path's region before K2,
     records stacked as the frame emits them) on K1's lanes of each checked
-    frame, then timed on the last with its split by device activity and
-    the split of its slowest cluster into the kernel's steps."""
+    frame, then timed on each of ``K2_FRAMES`` with its split by device
+    activity and the split of its slowest cluster into the kernel's steps.
+    Returns the largest cost difference and the timings by frame."""
     import torch
 
     from kaldi_decoder_tpu_torch.kernels.dedup_rec import (
@@ -521,26 +525,33 @@ def check_k2(k2_args):
         max_err = max(max_err, same_records(ref, got, f"the lanes of lattice frame {t}"))
         eligible.append(int((ref.rec_dst >= 0).sum(dim=1).max()))
     frames = [t for t, _ in k2_args]
-    args = k2_args[-1][1]
-    Bk, N = args[1].shape
+    Bk, N = k2_args[-1][1][1].shape
+    a = k2_args[-1][1]
     log(f"K2 dedup_select_rec: equal to plain on lattice frames {frames} (B={Bk}, N={N}, "
-        f"K={args[2]}, R={args[4]}, slack beam {args[5]}; most records per utterance "
-        f"{eligible}; clusters of {cluster_size(Bk, N)} blocks); timed on frame {frames[-1]}:")
+        f"K={a[2]}, R={a[4]}, slack beam {a[5]}; most records per utterance "
+        f"{eligible}; clusters of {cluster_size(Bk, N)} blocks); timed on frames "
+        f"{list(K2_FRAMES)}:")
+    timed = {}
+    for t, args in k2_args:
+        if t not in K2_FRAMES:
+            continue
 
-    def plain():
-        sel = dedup_select_rec_plain(*args)
-        return stack_records(sel)
+        def kern():
+            return dedup_select_rec(*args)
 
-    t = time_kernel("K2", lambda: dedup_select_rec(*args), plain, k2_work(*args))
-    log(f"  device activities of one call: "
-        f"{format_split(kernel_split(lambda: dedup_select_rec(*args)))}")
-    dedup_select_rec(*args)
-    c = cluster_steps(Bk, N)
-    t["steps_us"] = c["steps_us"]
-    log(f"  clusters end at (µs) {', '.join(f'{x:.2f}' for x in c['ends_us'])}; the slowest, "
-        f"utterance {c['slowest']}, in steps (µs): "
-        + ", ".join(f"{k} {v:.2f}" for k, v in t["steps_us"].items()))
-    return max_err, t
+        def plain():
+            return stack_records(dedup_select_rec_plain(*args))
+
+        log(f" lattice frame {t}:")
+        timed[t] = time_kernel("K2", kern, plain, k2_work(*args))
+        log(f"  device activities of one call: {format_split(kernel_split(kern))}")
+        kern()
+        c = cluster_steps(Bk, N)
+        timed[t]["steps_us"] = c["steps_us"]
+        log(f"  clusters end at (µs) {', '.join(f'{x:.2f}' for x in c['ends_us'])}; the "
+            f"slowest, utterance {c['slowest']}, in steps (µs): "
+            + ", ".join(f"{k} {v:.2f}" for k, v in c["steps_us"].items()))
+    return max_err, timed
 
 
 def check_gather(dec, states):
@@ -1070,7 +1081,8 @@ def main():
         f"set-up {time.perf_counter() - t0:.1f} s")
     scores_tm = torch.from_numpy(np.ascontiguousarray(scores.transpose(1, 0, 2))).cuda()
     k1_err, k1, states, k2_args = check_k1(dec, scores_tm)
-    k2_err, k2 = check_k2(k2_args)
+    k2_err, k2_by_frame = check_k2(k2_args)
+    k2 = k2_by_frame[K2_FRAMES[0]]
     del k2_args
     gat_err, gat, gat_packed = check_gather(dec, states)
     k4_err, k4 = check_k4(dec, scores_tm, lengths)
@@ -1129,7 +1141,9 @@ def main():
               wrapper_ms_streaming=st["k1"][0], plain_wrapper_ms_streaming=st["k1"][1]),
         entry("K2 dedup_select_rec (lattice dedup by state + top-K + records)", "dedup_rec.cu",
               "kaldi_decoder_tpu/ops/segment.py:177", "k2", k2, k2_err,
-              steps_us=k2["steps_us"]),
+              frame=K2_FRAMES[0], steps_us=k2["steps_us"],
+              **{f"{f}_frame{t}": k2_by_frame[t][f] for t in K2_FRAMES[1:]
+                 for f in ("ms", "plain_ms", "bound_ms", "share_of_bound", "steps_us")}),
         entry("K4 sweep_chunk (backward extra-cost sweep)", "sweep.cu",
               "kaldi_decoder_tpu/decoders/sweep.py:141", "k4", k4, k4_err),
         entry("K6 dedup_select (Viterbi dedup by state + top-K + winning lane)", "dedup.cu",

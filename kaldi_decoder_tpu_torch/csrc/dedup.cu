@@ -70,8 +70,11 @@
 //   * Order: a counting scatter by the digit's prefix puts every kept key
 //     in its bucket's range; each key's place inside its bucket is the
 //     number of smaller keys there, counted in shared memory by the block
-//     that owns the place (a block whose buckets hold one of more than 128
-//     keys sorts them instead; the bench's calls never do).
+//     that owns the place, in every bucket: K6 does not sort a crowded one
+//     (over 128 keys) as K2 does, whose sort's registers cost K6, at 64 a
+//     thread for two blocks an SM, 3.5-6% a call (measured); the count
+//     grows with the square of a bucket's size, and the bench's calls have
+//     buckets of at most 110 keys at frame 150.
 //   * Size: what passes the shared-memory lists, and the scattered keys,
 //     live in device memory ((B, N + 256) scratch, two buffers used in
 //     turns); shared memory is 65 KB a block whatever K, N and S.
@@ -131,10 +134,11 @@ __global__ void __launch_bounds__(THREADS, 2) dedup_kernel(
     out_idx[out0 + r] = lane;
   };
   // Both caches are free once the winners are scattered: the core's stage.
-  const int n = dd::frontier<THREADS>(sh, cluster, ls, dst, cost, row, N, S, K,
-                                      table + (long)b * S, true, fin, win, &s_fin, nullptr,
-                                      keys0 + srow, vals0 + srow, keys1 + srow, vals1 + srow,
-                                      smem_k, smem_v, VCACHE + CACHE, emit);
+  const int n = dd::frontier<THREADS, false>(sh, cluster, ls, dst, cost, row, N, S, K,
+                                             table + (long)b * S, true, fin, win, &s_fin, nullptr,
+                                             keys0 + srow, vals0 + srow, keys1 + srow,
+                                             vals1 + srow, smem_k, smem_v, VCACHE + CACHE,
+                                             nullptr, emit);
   for (int r = min(n, K) + rank * THREADS + tid; r < K; r += C * THREADS) {
     out_states[out0 + r] = 0;
     out_costs[out0 + r] = INFINITY;

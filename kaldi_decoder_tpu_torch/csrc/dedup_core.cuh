@@ -91,17 +91,18 @@ struct List {
 // (ordered cost << 32 | winning lane) word and the caller restores it
 // from `win` once no lane reads it (K2).  With fin_total, thread 0 writes
 // the cluster's count of finite lanes there.  emit(rank, key, lane) as in
-// sel::select_smallest, whose buffers and stage these are.  Returns the
-// row's number of winners once this block's emits are done; no lane
-// reads the table after the select's first cluster barrier.
-template <int THREADS, class Emit>
+// sel::select_smallest, whose buffers, stage, sort tables and
+// SORT_CROWDED these are.  Returns the row's number of winners once this
+// block's emits are done; no lane reads the table after the select's
+// first cluster barrier.
+template <int THREADS, bool SORT_CROWDED, class Emit>
 __device__ int frontier(sel::Shared& sh, cg::cluster_group& cluster, const LaneSplit& ls,
                         const int* __restrict__ dst, const float* __restrict__ cost, long row,
                         int N, int S, int K, unsigned long long* __restrict__ tab, bool restore,
                         const List& fin, const List& win, int* s_fin, int* fin_total,
                         unsigned long long* keys0, int* vals0, unsigned long long* keys1,
                         int* vals1, unsigned long long* stage, int* stage_v, int stage_cap,
-                        Emit emit) {
+                        sel::SortTables* tables, Emit emit) {
   const int C = ls.C;
   const int tid = threadIdx.x;
   sel::mark_step(0, true);
@@ -202,8 +203,9 @@ __device__ int frontier(sel::Shared& sh, cg::cluster_group& cluster, const LaneS
   sel::mark_step(5);
 
   // 3. The K smallest keys, in order.
-  return sel::select_smallest<THREADS>(sh, cluster, win.entries(sh.count), keys0, vals0, keys1,
-                                       vals1, stage, stage_v, stage_cap, dig, K, emit);
+  return sel::select_smallest<THREADS, SORT_CROWDED>(sh, cluster, win.entries(sh.count), keys0,
+                                                     vals0, keys1, vals1, stage, stage_v,
+                                                     stage_cap, tables, dig, K, emit);
 }
 
 }  // namespace dedup

@@ -58,12 +58,20 @@
 // utterance share one slack value (a bigram weight difference, over the
 // word-start states), and their states crowd a few thousand ids under
 // outliers tens of thousands away; no interpolating digit splits them
-// (measured: buckets of up to 2,226 keys).  There the select core's sort
-// serves: a block whose staged buckets hold one of more than
-// sel::SORT_ABOVE (128) keys sorts its stage (a bitonic sort in shared
-// memory) instead of counting, and a boundary bucket of up to half the
-// stage, here 4096 of 8192 keys, is ranked at once rather than refined by
-// further levels.
+// (measured: buckets of up to 2,226 keys).  The select core ranks such a
+// crowded bucket (more than sel::SORT_ABOVE = 128 keys) by sorting it
+// alone: the block that owns its first place radix-sorts its keys over
+// the bits in which they differ, the slack's and the state's apart (a
+// bucket of a few slacks over a few thousand states takes two to four
+// passes of 8 bits; sel::sort_bucket), then orders each run of equal
+// keys by RecTie, the only place the lane costs are read.  A boundary
+// bucket of up to half the stage, here 4096 of 8192 keys, is ranked at
+// once rather than refined by further levels.  A crowded bucket larger
+// than the stage (one the level's digit leaves whole below the boundary)
+// is radix-sorted in device memory, in its own range of the select's
+// spare buffer: the sort is linear in its size there too, where a
+// further level would have to refine every bucket below the boundary and
+// not only the boundary one.
 
 // c_K.  The select core's emits come after its last cluster barrier, so
 // slot K-1, written by whichever block ranks it, is read after one more.
@@ -87,13 +95,13 @@
 // record pass over the block's compacted finite lanes, from shared memory
 // and not the lane arrays again; two barriers for the bins; the record
 // select), and on frames with large groups of equal slack the sort of the
-// blocks that own them.  One cluster launch per call, the cluster sized
+// crowded buckets, by the blocks that own them.  One cluster launch per call, the cluster sized
 // as K6's (common.cuh:pick_cluster, at least 1024 lanes a block, here at
 // one block an SM); a launch the card refuses returns its CUDA error.
 //
 // Size: the finite lanes and winners are in shared memory up to 2048 each
 // a block and the records up to 4096, the rest in device memory ((B, N + 256) scratch:
-// four 64-bit and four 32-bit buffers); shared memory is 137 KB a block
+// four 64-bit and four 32-bit buffers); shared memory is 154 KB a block
 // (one block an SM) whatever K, R, N and S.
 
 #include <cooperative_groups.h>
@@ -119,7 +127,8 @@ constexpr int WBINS = 256;   // the record digit's fine bins for winners
 constexpr int XBINS = 768;   // and for extras
 constexpr int FINE = WBINS + XBINS;
 constexpr int FPT = FINE / THREADS;  // fine bins a thread merges
-constexpr size_t SMEM = (size_t)STAGE * (sizeof(unsigned long long) + sizeof(int));
+constexpr size_t SMEM =
+    (size_t)STAGE * (sizeof(unsigned long long) + sizeof(int)) + sizeof(sel::SortTables);
 constexpr unsigned long long EXTRA = 1ull << 63;
 constexpr unsigned INF_BITS = 0x7f800000u;
 
@@ -132,7 +141,7 @@ constexpr unsigned INF_BITS = 0x7f800000u;
 struct RecDigit {
   int shift_w;
   float scale_x;
-  int total;                          // records of the row
+  double per_bucket;                  // NB / the row's records
   const int* n;                       // records per bin
   const int* at;                      // records in the bins below
   const unsigned long long* lo;       // the lower end of the bin's key range
@@ -146,7 +155,7 @@ struct RecDigit {
     const int f = fine(k);
     const double x = (double)(k - lo[f]) * __longlong_as_double((long long)per_key[f]);
     const int place = at[f] + min(n[f] - 1, (int)x);
-    return (int)((long long)place * sel::NB / total);
+    return min(sel::NB - 1, (int)(place * per_bucket));
   }
 };
 
@@ -181,6 +190,7 @@ __global__ void __launch_bounds__(THREADS, 1) dedup_rec_kernel(
   int* const fin_v = reinterpret_cast<int*>(rec_k + RCACHE);
   int* const win_v = fin_v + VCACHE;
   int* const rec_v = win_v + CACHE;
+  sel::SortTables* const tables = reinterpret_cast<sel::SortTables*>(rec_v + RCACHE);
   __shared__ sel::Shared sh;
   // The record digit's fine bins: this block's count per bin and the
   // smallest and largest high and low halves of its keys (native 32-bit
@@ -231,9 +241,10 @@ __global__ void __launch_bounds__(THREADS, 1) dedup_rec_kernel(
     if (winners_only && r < R) put_rec(r, pay0[row + lane], pay1[row + lane], d, 0u);
   };
   // The record list's cache is free until the record pass: the stage.
-  const int n = dd::frontier<THREADS>(sh, cluster, ls, dst, cost, row, N, S, K, tab, false, fin,
-                                      win, &s_fin, &s_total, keys0 + srow, vals0 + srow,
-                                      keys1 + srow, vals1 + srow, rec_k, rec_v, RCACHE, emit);
+  const int n = dd::frontier<THREADS, true>(sh, cluster, ls, dst, cost, row, N, S, K, tab, false,
+                                            fin, win, &s_fin, &s_total, keys0 + srow,
+                                            vals0 + srow, keys1 + srow, vals1 + srow, rec_k,
+                                            rec_v, RCACHE, tables, emit);
   for (int r = min(n, K) + rank * THREADS + tid; r < K; r += C * THREADS) {
     out_states[out0 + r] = 0;
     out_costs[out0 + r] = INFINITY;
@@ -260,7 +271,7 @@ __global__ void __launch_bounds__(THREADS, 1) dedup_rec_kernel(
       bin_half[2][f] = bin_half[3][f] = 0;
     }
     if (tid == 0) s_rec = 0;
-    RecDigit dig{max(0, sel::bit_length((unsigned long long)(S - 1)) - 8), 0.0f, 0,
+    RecDigit dig{max(0, sel::bit_length((unsigned long long)(S - 1)) - 8), 0.0f, 0.0,
                  bin_n, bin_at, bin_lo, bin_scale};
     const float scale_x = (float)XBINS / slack_beam;
     dig.scale_x = slack_beam > 0.0f && isfinite(scale_x) ? scale_x : 0.0f;
@@ -342,7 +353,9 @@ __global__ void __launch_bounds__(THREADS, 1) dedup_rec_kernel(
         }
       }
     }
-    int p = kdtorch::block_exclusive_scan(tot.x + tot.y, sh.scan_tmp, &dig.total);
+    int total;
+    int p = kdtorch::block_exclusive_scan(tot.x + tot.y, sh.scan_tmp, &total);
+    dig.per_bucket = (double)sel::NB / max(1, total);
     sel::mark_step(15);
     sel::sync_blocks(C);
 #pragma unroll
@@ -374,17 +387,18 @@ __global__ void __launch_bounds__(THREADS, 1) dedup_rec_kernel(
 
     // 5. The R smallest record keys, in order.  The three caches are the
     // stage (the records' own is free once they are scattered), so a
-    // boundary bucket of up to STAGE / 2 keys is ranked at once: the
-    // digit can leave one slack value of thousands of extras (and a few
-    // others) in one bucket, which further levels would split only a few
-    // keys at a time.  The select's steps are marked from 18 on.
+    // boundary bucket of up to STAGE / 2 keys is ranked at once, and a
+    // crowded one sorted in shared memory: the digit can leave one slack
+    // value of thousands of extras (and a few others) in one bucket, which
+    // further levels would split only a few keys at a time.  The select's
+    // steps are marked from 18 on.
     auto remit = [&](int r, unsigned long long key, int lane) {
       const unsigned slack_bits = key & EXTRA ? (unsigned)(key >> 32) & 0x7fffffffu : 0u;
       put_rec(r, pay0[row + lane], pay1[row + lane], (int)(unsigned)key, slack_bits);
     };
-    eligible = sel::select_smallest<THREADS>(sh, cluster, recs.entries(s_rec), keys0 + srow,
-                                             vals0 + srow, keys1 + srow, vals1 + srow, fin_k,
-                                             fin_v, STAGE, dig, R, remit, RecTie{cost + row}, 18);
+    eligible = sel::select_smallest<THREADS, true>(
+        sh, cluster, recs.entries(s_rec), keys0 + srow, vals0 + srow, keys1 + srow, vals1 + srow,
+        fin_k, fin_v, STAGE, tables, dig, R, remit, RecTie{cost + row}, 18);
     taken = min(eligible, R);
   }
   for (int r = taken + rank * THREADS + tid; r < R; r += C * THREADS) put_rec(r, -1, -1, -1, INF_BITS);

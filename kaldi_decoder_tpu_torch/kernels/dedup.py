@@ -102,8 +102,9 @@ def launch_marks(blocks: int, reader: str = "kd_dedup_marks", steps=STEPS) -> li
     and end in µs of the global timer from the earliest start, and its time
     per step in µs at the SM's rated clock (``steps`` in order; the
     histogram step is mostly the wait at the cluster barrier, "ranks"
-    includes writing the slots).  ``reader`` is the library function that
-    reads the kernel's marks (K6's by default).  Synchronises with the
+    holds any later level, K2's sorts of crowded buckets and writing the
+    slots).  ``reader`` is the library function that reads the kernel's
+    marks (K6's by default).  Synchronises with the
     device."""
     import ctypes
 

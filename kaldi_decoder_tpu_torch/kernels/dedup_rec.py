@@ -108,7 +108,7 @@ def cluster_size(batch: int, lanes: int) -> int:
 STEPS = k6.STEPS + ("c_K barrier", "record pass", "bin barrier", "restore and bin merge",
                     "second bin barrier", "record histogram", "record histogram barrier",
                     "record bucket starts", "record scatter pass", "record scatter barrier",
-                    "record ranks", "levels and padding")
+                    "record ranks", "record padding")
 
 
 def cluster_steps(batch: int, lanes: int) -> dict:

@@ -395,7 +395,9 @@ def _dedup_inputs(seed, N, K, S, n_valid, incumbents, nb=B, costs_of="grid"):
     "grid" quantised to 0.25 (ties), "uniform" in [0, 15), "equal" all
     3.5, "ulps" 500 neighbouring floats above 1.0 and one of 1e30, "front"
     uniform on lanes in the first eighth only (K1 writes the active slots'
-    lanes first), "two" 1.0 (three in ten) or 2.0."""
+    lanes first), "two" 1.0 (three in ten) or 2.0, "spike" 1.0 on 1000
+    lanes of distinct states and uniform in [2, 15) elsewhere (a bucket of
+    1000 keys below the K-th)."""
     rng = np.random.default_rng(seed)
     states = rng.integers(0, S, (nb, N)).astype(np.int32)
     costs = np.full((nb, N), np.inf, np.float32)
@@ -411,6 +413,10 @@ def _dedup_inputs(seed, N, K, S, n_valid, incumbents, nb=B, costs_of="grid"):
             costs[b, lanes] = 3.5
         elif costs_of == "two":
             costs[b, lanes] = np.where(rng.random(len(lanes)) < 0.3, 1.0, 2.0)
+        elif costs_of == "spike":
+            costs[b, lanes] = rng.uniform(2, 15, len(lanes))
+            costs[b, lanes[:1000]] = 1.0
+            states[b, lanes[:1000]] = rng.choice(S, size=1000, replace=False)
         else:
             one = np.float32(1.0).view(np.int32)
             costs[b, lanes] = (one + rng.integers(0, 500, len(lanes))).astype(np.int32).view(
@@ -498,6 +504,8 @@ def test_dedup_kernel_matches_plain(card, N, K, S, n_valid, incumbents):
     ("front-loaded", 3, 60000, 4096, 102298, 7000, False, "front"),
     # Incumbents first, at the batched eps iteration's shape.
     ("incumbents-first", 3, 10240, 4096, 102298, 5000, True, "uniform"),
+    # A bucket of 1000 keys below the K-th: its owner's radix sort.
+    ("crowded-bucket", 3, 60000, 4096, 102298, 50000, False, "spike"),
 ])
 def test_dedup_kernel_edge_cases(card, case, nb, N, K, S, n_valid, incumbents, costs_of):
     """K6 against plain where the select core's buckets, levels and sizes
@@ -510,15 +518,19 @@ def test_dedup_kernel_edge_cases(card, case, nb, N, K, S, n_valid, incumbents, c
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("clusters", [4, 2, 1])
-def test_dedup_kernel_cluster_sizes(card, clusters):
+@pytest.mark.parametrize("case,K,n_valid,clusters", [
+    *(pytest.param("uniform", 256, 3000, c, id=str(c)) for c in (4, 2, 1)),
+    # test_dedup_kernel_edge_cases' crowded-bucket at each cluster size.
+    *(pytest.param("spike", 4096, 30000, c, id=f"crowded-bucket-{c}") for c in (8, 4, 2, 1)),
+])
+def test_dedup_kernel_cluster_sizes(card, case, K, n_valid, clusters):
     """K6 against plain at a batch for which the cluster picker gives
-    clusters of 4, 2 and 1 blocks (all B clusters must run at once) where
-    the lanes would allow 8."""
+    clusters of 8, 4, 2 and 1 blocks (all B clusters must run at once)
+    where the lanes would allow 8."""
     N = 40000
     nb = _batch_for_cluster(lambda n: dedup_cluster_size(n, N), clusters)
-    states, costs = _dedup_inputs(nb, N, 256, 20000, 3000, False, nb, "uniform")
-    _same_dedup(card, states, costs, 256, 20000)
+    states, costs = _dedup_inputs(nb, N, K, 20000, n_valid, False, nb, case)
+    _same_dedup(card, states, costs, K, 20000)
     assert _k6_clusters(N) == 8 and dedup_cluster_size(nb, N) == clusters
 
 
@@ -563,6 +575,49 @@ def _rec_inputs(seed, nb, N, S, n_valid, costs_of):
             costs[b, lanes[:, 0]] = rng.uniform(0, 4, G).astype(np.float32)
             costs[b, lanes[:, 1]] = costs[b, lanes[:, 0]] + np.float32(2.5)
         return states, costs
+    if costs_of == "crowded-ties":
+        # A quarter of n_valid states (4 up, a few near S-1), each with a
+        # leader and three extras of one slack, 5.0, and distinct costs:
+        # leader -4.0 and extras 1.0, 1.0 + 2^-23, 1.0 + 2^-22, or leader
+        # -5.0 and extras -0.0, +0.0 (equal costs: lane order), 2^-30.
+        # Crowded buckets of runs of three equal keys.
+        rng = np.random.default_rng(seed)
+        states = rng.integers(-5, 10 * S, (nb, N)).astype(np.int32)
+        costs = np.full((nb, N), np.inf, np.float32)
+        G = n_valid // 4
+        one = np.float32(1.0).view(np.int32)
+        a = np.array([-4.0, *np.array([one, one + 1, one + 2], np.int32).view(np.float32)],
+                     np.float32)
+        z = np.array([-5.0, -0.0, 0.0, 2.0 ** -30], np.float32)
+        for b in range(nb):
+            lanes = rng.permutation(N)[: 4 * G].reshape(G, 4)
+            st = np.arange(G) + 4
+            st[rng.choice(G, size=8, replace=False)] = S - 1 - np.arange(8)
+            states[b, lanes] = st[:, None]
+            costs[b, lanes] = np.where(rng.random(G)[:, None] < 0.5, a, z)
+        return states, costs
+    if costs_of in ("crowded-exact", "crowded-huge"):
+        # A third of n_valid states (4 up, a few near S-1), each with a
+        # leader on a 1/8 grid ("huge": all 0.0, so every state ties c_K)
+        # and two extras of its cost + 2.5 (slack 2.5 exactly, equal costs:
+        # lane order), and 16 of them a third extra of slack
+        # nextafter(2.5, 3): the record digit's bin spans two slacks, so
+        # every extra of slack 2.5 lands in one bucket.
+        rng = np.random.default_rng(seed)
+        states = rng.integers(-5, 10 * S, (nb, N)).astype(np.int32)
+        costs = np.full((nb, N), np.inf, np.float32)
+        G = n_valid // 3
+        for b in range(nb):
+            lanes = rng.permutation(N)[: 3 * G + 16]
+            st = np.arange(G) + 4
+            st[rng.choice(G, size=8, replace=False)] = S - 1 - np.arange(8)
+            lead = (rng.integers(0, 32, G) / 8 * (costs_of == "crowded-exact")).astype(np.float32)
+            lead[:16] = 0.0  # lead + nextafter(2.5, 3) is exact
+            states[b, lanes[: 3 * G]] = np.repeat(st, 3)
+            costs[b, lanes[: 3 * G]] = (lead[:, None] + np.float32([0.0, 2.5, 2.5])).ravel()
+            states[b, lanes[3 * G:]] = st[:16]
+            costs[b, lanes[3 * G:]] = lead[:16] + np.nextafter(np.float32(2.5), np.float32(3))
+        return states, costs
     if costs_of == "empty-and-equal":
         states, costs = _dedup_inputs(seed, N, 0, S, n_valid, False, nb, "uniform")
         costs[1] = np.inf
@@ -597,6 +652,22 @@ def _same_rec(card, states, costs, K, S, R, beam=LATTICE_BEAM, calls=2):
     return ref
 
 
+# Crowded buckets of the record select (case: nb, N, K, S, R, n_valid,
+# costs_of): runs of equal keys with distinct costs and -0.0; 10,000
+# extras of one slack, so the boundary bucket exceeds half the 8192-key
+# stage (R 12000) or a kept bucket exceeds the stage (R 16384, sorted in
+# device memory); the recall point's capacities.
+CROWDED = {
+    "crowded-ties": ("crowded-ties", 3, 60000, 4096, 102298, 8192, 6000, "crowded-ties"),
+    "crowded-past-stage": ("crowded-past-stage", 3, 60000, 8192, 102298, 12000, 15000,
+                           "crowded-exact"),
+    "crowded-kept-past-stage": ("crowded-kept-past-stage", 3, 60000, 8192, 102298, 16384,
+                                15000, "crowded-exact"),
+    "crowded-recall": ("crowded-recall", 2, 131072, 8192, 102298, 16384, 24000,
+                       "crowded-exact"),
+}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case,nb,N,K,S,R,n_valid,costs_of", [
     # The bench's shape: R > K, R <= K, and a budget past the lanes (padding).
@@ -622,6 +693,10 @@ def _same_rec(card, states, costs, K, S, R, beam=LATTICE_BEAM, calls=2):
     # select's sort, with and without overflow.
     ("crowded", 3, 60000, 4096, 102298, 8192, 12000, "crowded"),
     ("crowded-overflow", 3, 60000, 2048, 102298, 3000, 12000, "crowded"),
+    *(pytest.param(*CROWDED[c], id=c) for c in CROWDED),
+    # 70,000 extras of one slack kept whole: a bucket sorted in device
+    # memory past one tile of the sort (16 warps of 4064 keys).
+    ("crowded-huge", 2, 131072, 4096, 102298, 131072, 105000, "crowded-huge"),
 ])
 def test_dedup_rec_kernel_matches_plain(card, case, nb, N, K, S, R, n_valid, costs_of):
     """K2 against plain, bitwise, each called twice."""
@@ -632,8 +707,11 @@ def test_dedup_rec_kernel_matches_plain(card, case, nb, N, K, S, R, n_valid, cos
     if case == "quantised":  # the boundary quirk: a record into a state not kept
         kept = set(ref.states[0].tolist())
         assert any(d >= 0 and d not in kept for d in ref.rec_dst[0].tolist())
-    if case in ("overflow", "equal-slack", "crowded-overflow"):
+    if case in ("overflow", "equal-slack", "crowded-overflow", "crowded-past-stage",
+                "crowded-recall"):
         assert bool(ref.rec_overflow.all())
+    if case == "crowded-kept-past-stage":
+        assert not bool(ref.rec_overflow.any())
     if case == "empty-and-equal":
         assert int(ref.num_unique[1]) == 0 and not bool(ref.rec_overflow[1])
     if case == "r-above-n":
@@ -641,14 +719,21 @@ def test_dedup_rec_kernel_matches_plain(card, case, nb, N, K, S, R, n_valid, cos
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("clusters", [8, 4, 2, 1])
-def test_dedup_rec_kernel_cluster_sizes(card, clusters):
+@pytest.mark.parametrize("case,clusters", [
+    *(pytest.param("grid", c, id=str(c)) for c in (8, 4, 2, 1)),
+    *(pytest.param(k, c, id=f"{k}-{c}") for k in CROWDED for c in (8, 4, 2, 1)),
+])
+def test_dedup_rec_kernel_cluster_sizes(card, case, clusters):
     """K2 against plain at a batch for which the cluster picker gives
-    clusters of 8, 4, 2 and 1 blocks where the lanes would allow 8."""
-    N = 40000
+    clusters of 8, 4, 2 and 1 blocks where the lanes would allow 8: grid
+    costs, and each crowded case of test_dedup_rec_kernel_matches_plain."""
+    if case == "grid":
+        _, N, K, S, R, n_valid, costs_of = None, 40000, 256, 20000, 1024, 3000, "grid"
+    else:
+        _, _, N, K, S, R, n_valid, costs_of = CROWDED[case]
     nb = _batch_for_cluster(lambda n: rec_cluster_size(n, N), clusters)
-    states, costs = _rec_inputs(nb, nb, N, 20000, 3000, "grid")
-    _same_rec(card, states, costs, 256, 20000, 1024)
+    states, costs = _rec_inputs(nb, nb, N, S, n_valid, costs_of)
+    _same_rec(card, states, costs, K, S, R)
     assert _k6_clusters(N) == 8 and rec_cluster_size(nb, N) == clusters
 
 

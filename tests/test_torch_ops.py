@@ -324,6 +324,34 @@ def test_dedup_select_rec_tie_rules(case):
         assert np.signbit(got.costs[0, 0].item())  # the -0.0 leader keeps its sign
 
 
+def test_dedup_select_rec_crowded_matches_jax():
+    """The plain ``dedup_select_rec`` against JAX on raw bits at the shape
+    that sets K2's speed: states 4..2646 (eight moved near S-1), each with
+    a leader and three extras of one slack, 5.0 (leader -4.0 and extras
+    1.0, 1.0 + 2^-23, 1.0 + 2^-22, or leader -5.0 and extras -0.0, +0.0,
+    2^-30: runs of equal (slack, state) keys with distinct costs, and
+    equal costs ranked by lane), in random lane order, and R cutting
+    inside the extras (overflow)."""
+    rng = np.random.default_rng(7)
+    B, N, S, G = 2, 16384, 102298, 2643
+    one = np.float32(1.0).view(np.int32)
+    a = np.array([-4.0, *np.array([one, one + 1, one + 2], np.int32).view(np.float32)],
+                 np.float32)
+    z = np.array([-5.0, -0.0, 0.0, 2.0 ** -30], np.float32)
+    states = rng.integers(0, S, (B, N)).astype(np.int32)
+    costs = np.full((B, N), INF, np.float32)
+    for b in range(B):
+        lanes = rng.permutation(N)[: 4 * G].reshape(G, 4)
+        st = np.arange(G) + 4
+        st[rng.choice(G, size=8, replace=False)] = S - 1 - np.arange(8)
+        states[b, lanes] = st[:, None]
+        costs[b, lanes] = np.where(rng.random(G)[:, None] < 0.5, a, z)
+    lanes = np.tile(np.arange(N, dtype=np.int32), (B, 1))
+    got = _rec_twins(states, costs, (lanes, lanes + 100), 2048, S, 8192, 8.0 + 1e-4)
+    slack = got.rec_slack[got.rec_dst >= 0]
+    assert int((slack == 5.0).sum()) == B * (8192 - G) and bool(got.rec_overflow.all())
+
+
 @pytest.mark.parametrize("r", [12, 40, 400])  # r <= k, r > k, r > n
 def test_dedup_rec_wrapper_on_cpu(r):
     """K2's wrapper on CPU tensors runs the plain version, launches
