@@ -18,10 +18,12 @@ eps closure of depth 1 on every frame, B=1, 100 frames per call).
 Phases (any failure raises, and the process exits non-zero):
   0. device: a CUDA card must be present; prints its ``nvidia-smi`` name
      and power limit;
-  1. build: the CUDA kernels (the row gather ``csrc/gather.cu``, K1
-     ``csrc/expand.cu``, K2 ``csrc/dedup_rec.cu``, K4 ``csrc/sweep.cu``,
-     K6 ``csrc/dedup.cu``) and the C++ host library, from the checkout's
-     sources;
+  1. build: the CUDA kernels (K1 ``csrc/expand.cu``, which reads each
+     active slot's em_block row itself, K2 ``csrc/dedup_rec.cu``, K4
+     ``csrc/sweep.cu``, K6 ``csrc/dedup.cu``, and the standalone row
+     gather ``csrc/gather.cu``, the counterpart of the TPU experiments'
+     gathers, which no path calls) and the C++ host library, from the
+     checkout's sources;
   2. kernels: K1 on real frontiers, K2 on the lanes K1 gives there and on
      lattice frame 250's (every field bitwise: frontier, ``num_unique``,
      record rows, overflow; timed on frames 150 and 250), the
@@ -39,29 +41,31 @@ Phases (any failure raises, and the process exits non-zero):
      back to back, CUDA events), wrapper time (CUDA events around one
      call, host enqueue included), the call's bound (bytes over the
      memory rate, operations over the float32 rate) and the share of it
-     reached; the row gather also against ``torch.index_select``, and
+     reached; the row gather also against ``torch.index_select`` and an
+     empty kernel's time (the launch floor), and
      K1's, K2's and each K6 call's split by device activity (profiler),
      with K2's and K6's split of their slowest cluster into the kernel's
      steps, K6's winners per utterance (the count that sizes its select)
      and their cluster sizes;
   3. lattice path: ``BatchedLatticeDecoder.decode`` with the launch
-     counters set to 0 just before; the row gather, K1 and K2 must launch
-     once per frame and K4 once per chunk; the 1-best labels, per-frame
-     ``num_active`` and overflow and saturation counts must equal the JAX
-     reference (``tests/data/torch_port_bench_ref.json``); prints the WER
+     counters set to 0 just before; K1 (row gather folded in) and K2 must
+     launch once per frame, K4 once per chunk and the row gather never;
+     the 1-best labels, per-frame ``num_active`` and overflow and
+     saturation counts must equal the JAX reference (``tests/data/torch_port_bench_ref.json``); prints the WER
      and the decode's wall time;
   4. batched 1-best path: ``BatchedViterbiDecoder.decode`` with the
-     counters set to 0 just before; the row gather, K1 and K6 must launch
-     once per frame; per utterance the 1-best output labels, the float32
-     bits of the best path's total cost, per-frame ``num_active``, a hash
+     counters set to 0 just before; K1 and K6 must launch once per frame
+     and the row gather never; per utterance the 1-best output labels,
+     the float32 bits of the best path's total cost, per-frame ``num_active``, a hash
      of the per-frame best costs and the overflow and saturation counts
      must equal the JAX reference
      (``tests/data/torch_port_viterbi_ref.json``); prints the decode wall
      time, the host 1-best time and the WER;
   5. streaming API: ``FasterDecoder`` over the first utterances, the
-     counters set to 0 just before; K6 must launch (1 + eps_iters) times
-     per frame plus eps_iters times per ``init_decoding``; the same
-     fields must equal the JAX reference; prints ms per frame.
+     counters set to 0 just before; K1 must launch once per frame, K6
+     (1 + eps_iters) times per frame plus eps_iters times per
+     ``init_decoding``, the row gather never; the same fields must equal
+     the JAX reference; prints ms per frame.
 The line before the last is a JSON object with each kernel's launches
 (summed over the counted runs of phases 3-5, and by phase), error,
 times, bound and library-call time; the last is ``{"ok": true,
@@ -274,7 +278,7 @@ def gather_work(table, idx):
 
 
 def k1_work(states, costs, cutoff, adaptive_beam, scores_t, pg, fc, with_src_slot=False):
-    """Bytes and operations of one K1 call (row gather included): the
+    """Bytes and operations of one K1 call (its row reads included): the
     frontier prefix it reads, the em_block rows of the active slots, the
     em_flat units the active slots' remainders use (capped at the budget),
     the scores; every output lane written."""
@@ -405,6 +409,24 @@ def same_expansion(ref, got, where):
     return float((ref.cost[fin] - got.cost[fin]).abs().max()) if fin.any() else 0.0
 
 
+def check_unread_states(ref, args, num_states, where, with_src_slot=False):
+    """K1 on the frontier of ``args`` with every state it must not read
+    (an inactive slot's, or a slot's at ``expand_lanes`` or beyond) set to
+    -1 and to ``num_states + 7`` must equal ``ref``, the plain version on
+    the frontier as it is."""
+    import torch
+
+    from kaldi_decoder_tpu_torch.kernels.expand import expand_filter
+
+    states, costs, cutoff, fc = args[0], args[1], args[2], args[6]
+    k = torch.arange(states.shape[1], device=states.device)
+    read = torch.isfinite(costs) & (costs < cutoff[:, None]) & (k < fc.expand_lanes)
+    for value in (-1, num_states + 7):
+        got = expand_filter(torch.where(read, states, value), *args[1:],
+                            with_src_slot=with_src_slot)
+        same_expansion(ref, got, f"{where}, unread states set to {value}")
+
+
 def same_selection(ref, got, where):
     """Raise unless two K6 results are equal slot for slot, costs by their
     raw bits (a -0.0 stays -0.0); returns the largest cost difference."""
@@ -486,15 +508,17 @@ def check_k1(dec, scores_tm):
                 ref = expand_filter_plain(*args)
                 torch.cuda.synchronize()
                 max_err = max(max_err, same_expansion(ref, got, f"frame {t}"))
+                check_unread_states(ref, args, S, f"frame {t}")
                 overflowed += int(ref.overflow.sum())
                 timed_args = args
             k2_args.append((t, (got.dst, got.cost, fc.frontier_size, S, dec.cfg.em_records, sb,
                                 (got.src_state, got.arc_id))))
         st, _ = lattice_frame_step_batched(st, scores_tm[t], active, dec._pg, dec.cfg, S)
-    log(f"K1 expand (row gather + K1): equal to plain on frames {list(K1_FRAMES)} "
+    log(f"K1 expand (row gather folded in): equal to plain on frames {list(K1_FRAMES)}, "
+        "also with the states it must not read set to -1 and to S + 7 "
         f"(B={B}, lanes/utt={fc.num_candidates}, remainder overflows seen={overflowed}, "
         f"clusters of {k1_clusters(fc, B)} blocks); timed on frame {max(K1_FRAMES)}:")
-    t = time_kernel("row gather + K1", lambda: expand_filter(*timed_args),
+    t = time_kernel("K1 (row gather folded in)", lambda: expand_filter(*timed_args),
                     lambda: expand_filter_plain(*timed_args), k1_work(*timed_args))
     log(f"  device activities of one call: "
         f"{format_split(kernel_split(lambda: expand_filter(*timed_args)))}")
@@ -554,24 +578,53 @@ def check_k2(k2_args):
     return max_err, timed
 
 
+def launch_floor(device):
+    """Device milliseconds per launch of an empty kernel, launches queued
+    back to back (:func:`device_ms`): the floor under any launch's time."""
+    from kaldi_decoder_tpu_torch.kernels._build import cuda_error, kernels, stream
+
+    lib = kernels()
+
+    def empty():
+        rc = lib.kd_empty(stream(device))
+        if rc != 0:
+            raise RuntimeError(f"kd_empty launch failed: {cuda_error(rc)}")
+
+    return device_ms(empty)
+
+
+LANE_GROUP, LANE_WIDTH = 8, 16  # the lane-packed table: 8 rows of 16 words a group row
+
+
+def gather_tables(em_block, states):
+    """(name, table, indices) of the two row gathers phase 2 checks: em_block
+    rows at ``states``, and the group rows of the lane-packed (ceil(S/8),
+    128) table that two of the TPU experiments gathered from."""
+    import torch
+
+    S, width = em_block.shape
+    G = LANE_GROUP
+    packed = torch.zeros((-(-S // G) * G, LANE_WIDTH), dtype=torch.int32, device=em_block.device)
+    packed[:S, :width] = em_block
+    group_idx = torch.div(states, G, rounding_mode="floor").reshape(-1)
+    return (("em_block", em_block, states), ("lane-packed", packed.view(-1, G * LANE_WIDTH),
+                                             group_idx))
+
+
 def check_gather(dec, states):
     """The row gather against plain indexing: em_block rows of a real
-    frontier's B*K states (the main path's call, and the (B, 4096) row
-    gather of the TPU experiments), and the group rows of the lane-packed
-    (ceil(S/8), 128) table that two of them gathered from."""
+    frontier's B*K states (the rows K1 reads itself on the main path, and
+    the (B, 4096) row gather of the TPU experiments), and the group rows
+    of the lane-packed (ceil(S/8), 128) table that two of them gathered
+    from; then the launch floor."""
     import torch
 
     from kaldi_decoder_tpu_torch.kernels.gather import row_gather, row_gather_plain
 
     em_block = dec._pg.em_block
-    S, width = em_block.shape
-    G, WID = 8, 16
-    packed = torch.zeros((-(-S // G) * G, WID), dtype=torch.int32, device=em_block.device)
-    packed[:S, :width] = em_block
-    packed = packed.view(-1, G * WID)
-    group_idx = torch.div(states, G, rounding_mode="floor").reshape(-1)
+    width = em_block.shape[1]
     max_err, times, rows = 0, {}, {}
-    for name, table, idx in (("em_block", em_block, states), ("lane-packed", packed, group_idx)):
+    for name, table, idx in gather_tables(em_block, states):
         got, want = row_gather(table, idx), row_gather_plain(table, idx)
         torch.cuda.synchronize()
         if not torch.equal(got, want):
@@ -585,10 +638,13 @@ def check_gather(dec, states):
             lambda: row_gather_plain(table, idx), gather_work(table, idx),
             library=lambda: torch.index_select(table, 0, idx.flatten()))
     flat = states.reshape(-1)
-    sub = rows["lane-packed"].view(-1, G, WID)[
-        torch.arange(flat.numel(), device=flat.device), (flat % G).long(), :width]
+    sub = rows["lane-packed"].view(-1, LANE_GROUP, LANE_WIDTH)[
+        torch.arange(flat.numel(), device=flat.device), (flat % LANE_GROUP).long(), :width]
     if not torch.equal(sub, rows["em_block"].view(-1, width)):
         raise AssertionError("lane-packed group rows do not hold the em_block rows")
+    floor = launch_floor(em_block.device)
+    log(f"launch floor: an empty kernel takes {floor:.4f} ms per launch, queued back to back")
+    times["em_block"]["launch_floor_ms"] = floor
     return max_err, times["em_block"], times["lane-packed"]
 
 
@@ -652,6 +708,7 @@ def check_emit_kernels(st, scores_t, pg, cfg, S, where):
     ex = expand_filter(*k1_args, with_src_slot=True)
     torch.cuda.synchronize()
     k1_err = same_expansion(ref, ex, where)
+    check_unread_states(ref, k1_args, S, where, with_src_slot=True)
     em_args = (ex.dst, ex.cost, cfg.frontier_size, S)
     sel = dedup_select_plain(*em_args)
     got = dedup_select(*em_args)
@@ -723,7 +780,7 @@ def check_k6(vdec, edec, scores_tm):
     k1_args, em_args, eps_args = c["k1_args"], c["em_args"], c["eps_args"]
     log(f"K1 with src_slot: equal to plain on Viterbi frames {list(K6_FRAMES)}; "
         f"timed on frame {max(K6_FRAMES)}:")
-    k1 = time_kernel("row gather + K1 with src_slot",
+    k1 = time_kernel("K1 (row gather folded in) with src_slot",
                      lambda: expand_filter(*k1_args, with_src_slot=True),
                      lambda: expand_filter_plain(*k1_args, with_src_slot=True),
                      k1_work(*k1_args, with_src_slot=True))
@@ -796,7 +853,7 @@ def check_streaming_kernels(fd, scores_tm):
         f"equal to plain; kernel/plain ms: "
         + ", ".join(f"{k} {a:.4f}/{p:.4f}" for k, (a, p) in times.items()))
     log(f"  K1 at B=1: clusters of {k1_clusters(cfg, 1)} blocks")
-    k1_dev = time_kernel("row gather + K1 with src_slot, streaming",
+    k1_dev = time_kernel("K1 (row gather folded in) with src_slot, streaming",
                          lambda: expand_filter(*k1_args, with_src_slot=True),
                          lambda: expand_filter_plain(*k1_args, with_src_slot=True),
                          k1_work(*k1_args, with_src_slot=True))
@@ -875,7 +932,7 @@ def viterbi_path(vdec, scores, lengths, refs, vref):
     t_dec = time.perf_counter() - t0
     n = read_counts()
     frames = res.bp_emit.shape[0]
-    if (n["gather"] != frames or n["k1"] != frames or n["k2"] != 0
+    if (n["gather"] != 0 or n["k1"] != frames or n["k2"] != 0
             or n["k6"] != frames * (1 + vdec.cfg.eps_iters)):
         raise AssertionError(f"launch counts {n} for {frames} frames")
     t1 = time.perf_counter()
@@ -942,8 +999,8 @@ def streaming_path(fd, scores, vref):
     n = read_counts()
     utts = len(sref["utts"])
     want_k6 = frames * (1 + D) + utts * D
-    if n["gather"] != frames or n["k1"] != frames or n["k2"] != 0 or n["k6"] != want_k6:
-        raise AssertionError(f"launch counts {n}: want {frames} gathers and K1, {want_k6} K6")
+    if n["gather"] != 0 or n["k1"] != frames or n["k2"] != 0 or n["k6"] != want_k6:
+        raise AssertionError(f"launch counts {n}: want no gather, {frames} K1, {want_k6} K6")
     log(f"streaming path: FasterDecoder, {utts} utterances, {frames} frames, "
         f"{FRAMES_PER_CALL} per advance_decoding, eps_iters={D}, K={fd._cfg.frontier_size}: "
         f"{1000 * t_dec / frames:.3f} ms per frame (init + advance, downloads included), "
@@ -992,9 +1049,9 @@ def main_path(dec, scores, lengths, refs, ref):
     if res.survivors is None:
         raise AssertionError("the device sweep overflowed and the decode fell back")
     frames = res.num_active.shape[0]
-    if gat != frames or k1 != frames or k2 != frames or k4 != len(res.survivors) or n["k6"]:
+    if gat or k1 != frames or k2 != frames or k4 != len(res.survivors) or n["k6"]:
         raise AssertionError(
-            f"launch counts gather={gat}, K1={k1}, K2={k2} (want {frames} each), "
+            f"launch counts gather={gat} (want 0), K1={k1}, K2={k2} (want {frames} each), "
             f"K4={k4} (want {len(res.survivors)}), K6={n['k6']} (want 0)"
         )
     t1 = time.perf_counter()
@@ -1128,11 +1185,13 @@ def main():
                     **{f: t[f] for f in fields}, **extra)
 
     log(json.dumps({"kernels": [
-        entry("row_gather (em_block row per frontier slot)", "gather.cu",
-              "scripts/gather_bench.py:139", "gather", gat, gat_err,
+        entry("row_gather (standalone, em_block row per frontier slot; folded into K1 on "
+              "the paths)", "gather.cu", "scripts/gather_bench.py:139", "gather", gat, gat_err,
+              launch_floor_ms=gat["launch_floor_ms"],
               ms_lane_packed=gat_packed["ms"], plain_ms_lane_packed=gat_packed["plain_ms"],
               wrapper_ms_streaming=st["gather"][0], plain_wrapper_ms_streaming=st["gather"][1]),
-        entry("K1 expand_filter (row gather + arc expansion + score lookup + beam filter)",
+        entry("K1 expand_filter (row gather folded in + arc expansion + score lookup + "
+              "beam filter)",
               "expand.cu", "kaldi_decoder_tpu/decoders/frontier.py:266", "k1", k1,
               max(k1_err, k6["k1_err"], sk["k1_err"]),
               ms_src_slot=k6["k1"]["ms"], plain_ms_src_slot=k6["k1"]["plain_ms"],

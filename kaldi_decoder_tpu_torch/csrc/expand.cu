@@ -11,25 +11,32 @@
 // (block lane: its slot; remainder lane: its owner), the first half of
 // the Viterbi backpointer (decoders/frontier.py:frame_emit_stage).
 //
-// Each slot's em_block row arrives already gathered, (B, K, W*3+2), by
-// the row gather (gather.cu) that runs just before; an inactive slot
-// reads row 0 of em_block, as the reference's `safe` index does.
+// The row gather of the reference (`row = pg.em_block[safe]`) is folded
+// into this launch: K1 takes no gathered `rows` buffer.  It reads the
+// em_block row of each active slot among the first KE straight from
+// em_block[states[k]], and never reads the state of an inactive slot or
+// of a slot at KE or beyond, which may hold anything: such a slot takes
+// its fields from row 0 of em_block (staged in shared memory), as the
+// reference's `safe` index does.
 //
 // What bounds it: per frame and utterance it writes N = KE*W + Ru*G
 // candidate lanes of 16 bytes (20 with src_slot): 56,832 lanes, 14.5 MB
 // for B=16 at the bench shape, against reads of a few MB (the active
 // slots' rows, the em_flat units in use, the scores).  But a lane is a
-// chain of dependent loads (its arc from a row or from em_flat, then the
-// arc's score), so the kernel is bound by the latency of those loads and
-// of its cluster barriers, not by bytes.
+// chain of dependent loads (its slot's state, then its arc from a row or
+// from em_flat, then the arc's score), so the kernel is bound by the
+// latency of those loads and of its cluster barriers, not by bytes.  The
+// rows are L2 hits: the 4.5 MB em_block stays in the 50 MB L2.
 //
 // The design: one launch, one cluster of C blocks per utterance (C = 8,
 // 4, 2 or 1: the largest whose B clusters all run at once).  A block's
 // shared memory does not grow with the frontier or the lane count.
-//   1. Totals.  Every block reads the KE slots' costs and row headers,
-//      PER consecutive slots a thread, and counts the remainder units of
-//      the active ones: the utterance's total (overflow = total > Ru) and
-//      its last slot with units, the owner of every padding lane.
+//   1. Totals.  Every block reads the KE slots' costs and states, PER
+//      consecutive slots a thread, then the row headers of the active
+//      ones (all of a thread's state loads first, then all its header
+//      loads), and counts their remainder units: the utterance's total
+//      (overflow = total > Ru) and its last slot with units, the owner of
+//      every padding lane.
 //   2. Lanes.  Each block takes a contiguous range of lanes of equal
 //      weight (2 per block or padding lane, 3 per valid remainder lane),
 //      in tiles of TILE_UNITS*G lanes.  For a tile's units [j0, j1] the
@@ -40,13 +47,15 @@
 //      unit its owner.  That is the reference's scatter-max + running max,
 //      and its owner rule: the last slot whose start is <= the unit.  A
 //      remainder lane then reads its owner in one shared-memory lookup; a
-//      block lane reads its slot and row directly.  Each thread takes
-//      UNROLL lanes at a time, so that their arc loads and then their
-//      score loads are in flight together; writes are coalesced.  The cost
-//      is (alpha + w) + (-score) with round-to-nearest adds, no
-//      contraction.  A block keeps its first COST_CACHE lane costs in
-//      shared memory and writes the rest to the output, where the same
-//      thread reads them back.
+//      block lane reads its slot's cost and state, then its word of the
+//      slot's row.  Each thread takes UNROLL lanes at a time, in rounds
+//      of loads: the block lanes' slots, then every lane's arc (row or
+//      em_flat), then every lane's score, so that each round's loads are
+//      in flight together; writes are coalesced.  The cost is
+//      (alpha + w) + (-score) with round-to-nearest adds, no contraction.
+//      A block keeps its first COST_CACHE lane costs in shared memory and
+//      writes the rest to the output, where the same thread reads them
+//      back.
 //   3. Filter.  One cluster barrier; warp 0 of each block reads the
 //      cluster's minima through distributed shared memory; every block
 //      filters its own costs (cost < min + adaptive_beam).  A final
@@ -90,11 +99,10 @@ __device__ __forceinline__ int n_units(int lo, int deg, int W, int G) {
 __global__ void __launch_bounds__(THREADS, 2) expand_kernel(
     const int* __restrict__ states, const float* __restrict__ costs,
     const float* __restrict__ cutoff, const float* __restrict__ adaptive_beam,
-    const float* __restrict__ scores, const int* __restrict__ rows,
-    const int* __restrict__ em_block, const int* __restrict__ em_flat, int K_full,
-    int KE, int W, int G, int Ru, int V, int ccap, int* __restrict__ dst,
-    float* __restrict__ cost, int* __restrict__ src_state, int* __restrict__ arc_id,
-    int* __restrict__ src_slot, unsigned char* __restrict__ overflow,
+    const float* __restrict__ scores, const int* __restrict__ em_block,
+    const int* __restrict__ em_flat, int K_full, int KE, int W, int G, int Ru, int V,
+    int ccap, int* __restrict__ dst, float* __restrict__ cost, int* __restrict__ src_state,
+    int* __restrict__ arc_id, int* __restrict__ src_slot, unsigned char* __restrict__ overflow,
     float* __restrict__ next_cutoff) {
   const int row_w = W * EM_FIELDS + 2;
   // A tile's owners by unit position: s_own maps a position to its
@@ -136,7 +144,8 @@ __global__ void __launch_bounds__(THREADS, 2) expand_kernel(
   __syncthreads();
 
   // The slots [cb + tid*PER, + PER): costs, states, row headers and
-  // remainder unit counts (0 for an inactive slot).
+  // remainder unit counts.  Only an active slot's header is read; an
+  // inactive one keeps 0 units (its header is never used).
   float a[PER];
   int st[PER], lo[PER], deg[PER], nu[PER];
   auto load = [&](int cb) {
@@ -146,13 +155,16 @@ __global__ void __launch_bounds__(THREADS, 2) expand_kernel(
       const long k = slot0 + min(k0 + m, KE - 1);
       a[m] = costs[k];
       st[m] = states[k];
-      lo[m] = rows[k * row_w + W * EM_FIELDS];
-      deg[m] = rows[k * row_w + W * EM_FIELDS + 1];
     }
 #pragma unroll
     for (int m = 0; m < PER; ++m) {
-      nu[m] = k0 + m < KE && slot_active(a[m], cut) ? n_units(lo[m], deg[m], W, G) : 0;
+      const bool act = k0 + m < KE && slot_active(a[m], cut);
+      const int* hdr = em_block + (long)(act ? st[m] : 0) * row_w + W * EM_FIELDS;
+      lo[m] = act ? hdr[0] : 0;
+      deg[m] = act ? hdr[1] : 0;
     }
+#pragma unroll
+    for (int m = 0; m < PER; ++m) nu[m] = n_units(lo[m], deg[m], W, G);
   };
 
   // 1. Totals.
@@ -194,8 +206,11 @@ __global__ void __launch_bounds__(THREADS, 2) expand_kernel(
     }
   } else if (tid == 0) {
     const long k = slot0 + o_pad;
-    set_pad(costs[k], states[k], rows[k * row_w + W * EM_FIELDS],
-            rows[k * row_w + W * EM_FIELDS + 1]);
+    const float c = costs[k];
+    const int s = states[k];
+    const bool act = slot_active(c, cut);
+    const int* hdr = em_block + (long)(act ? s : 0) * row_w + W * EM_FIELDS;
+    set_pad(c, s, act ? hdr[0] : 0, act ? hdr[1] : 0);
   }
   __syncthreads();
 
@@ -289,28 +304,41 @@ __global__ void __launch_bounds__(THREADS, 2) expand_kernel(
       place(j0, j1, false);
     }
     for (int base = t0 + tid; base < t1; base += UNROLL * THREADS) {
-      int d[UNROLL], sidx[UNROLL], sst[UNROLL], arc[UNROLL], slot[UNROLL];
+      // cst is the lane's source cost (+inf: no arc), wt its arc weight.
+      int d[UNROLL], sidx[UNROLL], sst[UNROLL], arc[UNROLL], slot[UNROLL], wt[UNROLL];
       float cst[UNROLL];
+      // Round one: the block lanes' slots (cost and state).
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        const int i = base + u * THREADS;
+        cst[u] = INFINITY;
+        sst[u] = 0;
+        if (i < t1 && i < NB) {
+          const long ks = slot0 + i / W;
+          cst[u] = costs[ks];
+          sst[u] = states[ks];
+        }
+      }
+      // Round two: every lane's arc, from its slot's row or from em_flat.
 #pragma unroll
       for (int u = 0; u < UNROLL; ++u) {
         const int i = base + u * THREADS;
         sidx[u] = 0;
+        wt[u] = 0;
         if (i >= t1) continue;
         if (i < NB) {
           const int k = i / W;
           const int w = i - k * W;
-          const long ks = slot0 + k;
-          const float c = costs[ks];
-          const int s = states[ks];
-          const int* row = rows + ks * row_w;
-          const int r0 = row[w * EM_FIELDS], r1 = row[w * EM_FIELDS + 1];
-          const int r2 = row[w * EM_FIELDS + 2], rlo = row[W * EM_FIELDS];
-          const bool act = slot_active(c, cut);
-          d[u] = act ? r1 : s_row0[w * EM_FIELDS + 1];
-          sidx[u] = act ? r2 : s_row0[w * EM_FIELDS + 2];
-          arc[u] = (act ? rlo : s_row0[W * EM_FIELDS]) + w;
-          cst[u] = act ? __fadd_rn(c, __int_as_float(r0)) : INFINITY;
-          sst[u] = act ? s : 0;
+          const bool act = slot_active(cst[u], cut);
+          const int* row = em_block + (long)(act ? sst[u] : 0) * row_w;
+          d[u] = act ? row[w * EM_FIELDS + 1] : s_row0[w * EM_FIELDS + 1];
+          sidx[u] = act ? row[w * EM_FIELDS + 2] : s_row0[w * EM_FIELDS + 2];
+          arc[u] = (act ? row[W * EM_FIELDS] : s_row0[W * EM_FIELDS]) + w;
+          wt[u] = act ? row[w * EM_FIELDS] : 0;
+          if (!act) {
+            cst[u] = INFINITY;
+            sst[u] = 0;
+          }
           slot[u] = k;
         } else {
           const int j = (i - NB) / G;
@@ -341,16 +369,19 @@ __global__ void __launch_bounds__(THREADS, 2) expand_kernel(
           sidx[u] = fr[2];
           arc[u] = unit * G + g;
           const bool in_range = valid && arc[u] >= tail_lo && arc[u] < tail_hi;
-          cst[u] = in_range ? __fadd_rn(oc, __int_as_float(fr[0])) : INFINITY;
+          cst[u] = in_range ? oc : INFINITY;
+          wt[u] = in_range ? fr[0] : 0;
           sst[u] = ostate;
           slot[u] = o;
         }
       }
+      // Round three: every lane's score.  +inf plus a weight stays +inf.
 #pragma unroll
       for (int u = 0; u < UNROLL; ++u) {
         const int i = base + u * THREADS;
         if (i >= t1) continue;
-        const float cc = __fadd_rn(cst[u], -scores[(long)b * V + sidx[u]]);
+        const float cc = __fadd_rn(__fadd_rn(cst[u], __int_as_float(wt[u])),
+                                   -scores[(long)b * V + sidx[u]]);
         const long o = (long)b * N + i;
         dst[o] = d[u];
         src_state[o] = sst[u];
@@ -415,24 +446,24 @@ extern "C" int kd_expand_cluster(int B, int KE, int W, int G, int Ru) {
 
 // Launches K1 on `stream`: B clusters of kd_expand_cluster blocks.  Shapes:
 // states/costs (B, K_full), cutoff/adaptive_beam (B,), scores (B, V),
-// rows (B, K_full, W*3+2) = em_block[states], em_block (S, W*3+2),
-// em_flat (U, G*3); outputs dst/cost/src_state/arc_id (B, N), overflow
-// (B,) bytes, next_cutoff (B,); src_slot (B, N) or null (then not
-// written: the lattice path does not read it).  Returns the launch's
+// em_block (S, W*3+2), em_flat (U, G*3); outputs dst/cost/src_state/arc_id
+// (B, N), overflow (B,) bytes, next_cutoff (B,); src_slot (B, N) or null
+// (then not written: the lattice path does not read it).  Only the states
+// of active slots among the first KE are read.  Returns the launch's
 // CUDA error (0 on success).
 extern "C" int kd_expand(
     const void* states, const void* costs, const void* cutoff,
-    const void* adaptive_beam, const void* scores, const void* rows,
-    const void* em_block, const void* em_flat, int B, int K_full, int KE,
-    int W, int G, int Ru, int V, void* dst, void* cost, void* src_state, void* arc_id,
-    void* src_slot, void* overflow, void* next_cutoff, void* stream) {
+    const void* adaptive_beam, const void* scores, const void* em_block,
+    const void* em_flat, int B, int K_full, int KE, int W, int G, int Ru, int V, void* dst,
+    void* cost, void* src_state, void* arc_id, void* src_slot, void* overflow, void* next_cutoff,
+    void* stream) {
   const int C = kd_expand_cluster(B, KE, W, G, Ru);
   if (C == 0) return (int)cudaErrorInvalidConfiguration;
   const int N = KE * W + Ru * G;
   const int ccap = cost_cache(N, C);
   return (int)kdtorch::launch_cluster(
       expand_kernel, B * C, C, THREADS, expand_smem(W, ccap),
-      static_cast<cudaStream_t>(stream), states, costs, cutoff, adaptive_beam, scores, rows,
+      static_cast<cudaStream_t>(stream), states, costs, cutoff, adaptive_beam, scores,
       em_block, em_flat, K_full, KE, W, G, Ru, V, ccap, dst, cost, src_state, arc_id, src_slot,
       overflow, next_cutoff);
 }

@@ -124,8 +124,10 @@ def kernels() -> ctypes.CDLL:
     lib = ctypes.CDLL(path)
     lib.kd_row_gather.restype = _I
     lib.kd_row_gather.argtypes = [_P, _P, _L, _I, _I, _P, _P]
+    lib.kd_empty.restype = _I
+    lib.kd_empty.argtypes = [_P]
     lib.kd_expand.restype = _I
-    lib.kd_expand.argtypes = [_P] * 8 + [_I] * 7 + [_P] * 7 + [_P]
+    lib.kd_expand.argtypes = [_P] * 7 + [_I] * 7 + [_P] * 7 + [_P]
     lib.kd_expand_cluster.restype = _I
     lib.kd_expand_cluster.argtypes = [_I] * 5
     lib.kd_sweep.restype = _I

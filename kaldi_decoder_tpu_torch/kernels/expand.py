@@ -7,7 +7,9 @@ with cost ``(alpha + w) + (-score)``, and lanes at or above
 also gives each lane's source frontier slot (the Viterbi backpointer's
 first half); the lattice path leaves it out.  On a CPU tensor it runs
 the plain torch version, :func:`expand_filter_plain`; on a CUDA tensor it
-launches ``csrc/expand.cu`` or raises.
+launches ``csrc/expand.cu`` or raises.  The kernel reads each active
+slot's ``em_block`` row itself (the reference's row gather, folded into
+the launch) and never reads the state of an inactive slot.
 """
 
 from __future__ import annotations
@@ -23,7 +25,6 @@ from kaldi_decoder_tpu_torch.decoders.frontier import (
 )
 from kaldi_decoder_tpu_torch.fst.pack import EM_FIELDS, PackedGraph
 from kaldi_decoder_tpu_torch.kernels._build import check, cuda_error, kernels, ptr, stream
-from kaldi_decoder_tpu_torch.kernels.gather import row_gather
 
 INF = float("inf")
 
@@ -79,9 +80,10 @@ def remainder_units(states, costs, cutoff, pg: PackedGraph, fc: FrontierConfig) 
 def expand_filter(
     states, costs, cutoff, adaptive_beam, scores_t, pg, fc, with_src_slot: bool = False
 ) -> Expansion:
-    """K1 on the tensors' device: plain torch on the CPU, the CUDA kernels
-    on a card (the row gather of each slot's em_block row, then
-    ``csrc/expand.cu``).  ``expand_filter.launches`` counts K1 launches."""
+    """K1 on the tensors' device: plain torch on the CPU, one launch of
+    ``csrc/expand.cu`` on a card, which reads each active slot's em_block
+    row itself (the reference's row gather, folded in).
+    ``expand_filter.launches`` counts K1 launches."""
     dev = states.device
     if dev.type == "cpu":
         return expand_filter_plain(
@@ -103,9 +105,6 @@ def expand_filter(
            (pg.em_block.shape[0], W * EM_FIELDS + 2), dev)
     check(pg.em_flat, "em_flat", torch.int32, (pg.em_flat.shape[0], G * EM_FIELDS), dev)
 
-    # One em_block row per frontier slot, dead and inactive slots
-    # included (their states are valid rows); K1 reads the first KE.
-    rows = row_gather(pg.em_block, states)
     N = KE * W + Ru * G
     i32 = dict(dtype=torch.int32, device=dev)
     out = Expansion(
@@ -119,7 +118,7 @@ def expand_filter(
     )
     rc = kernels().kd_expand(
         ptr(states), ptr(costs), ptr(cutoff), ptr(adaptive_beam),
-        ptr(scores_t), ptr(rows), ptr(pg.em_block), ptr(pg.em_flat),
+        ptr(scores_t), ptr(pg.em_block), ptr(pg.em_flat),
         B, K, KE, W, G, Ru, V, ptr(out.dst), ptr(out.cost), ptr(out.src_state), ptr(out.arc_id),
         ptr(out.src_slot) if with_src_slot else None,
         ptr(out.overflow), ptr(out.next_cutoff), stream(dev),

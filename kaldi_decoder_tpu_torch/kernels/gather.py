@@ -2,11 +2,11 @@
 
 The counterpart of the Pallas row gathers under ``scripts/gather*_bench.py``,
 which gather rows of the packed ``em_block`` table for a frontier's states
-(``kaldi_decoder_tpu/decoders/frontier.py:expand_emitting``).  On the main
-path :func:`kaldi_decoder_tpu_torch.kernels.expand.expand_filter` gathers one
-row per frontier slot with it.  On a CPU tensor :func:`row_gather` runs the
-plain torch version, :func:`row_gather_plain`; on a CUDA tensor it launches
-``csrc/gather.cu`` or raises.
+(``kaldi_decoder_tpu/decoders/frontier.py:expand_emitting``).  The main
+path does not call it: K1 (:func:`kaldi_decoder_tpu_torch.kernels.expand.expand_filter`)
+reads each active slot's row inside its own launch.  On a CPU tensor
+:func:`row_gather` runs the plain torch version, :func:`row_gather_plain`;
+on a CUDA tensor it launches ``csrc/gather.cu`` or raises.
 """
 
 from __future__ import annotations

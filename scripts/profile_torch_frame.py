@@ -158,7 +158,7 @@ def main():
         ("row gather, em_block row per slot", 20,
          lambda: row_gather(dec._pg.em_block, st.states),
          lambda: row_gather_plain(dec._pg.em_block, st.states)),
-        ("expand_filter (row gather + K1)", 20,
+        ("expand_filter (K1, row gather folded in)", 20,
          lambda: expand_filter(*k1_args), lambda: expand_filter_plain(*k1_args)),
         ("K2 dedup_select_rec (dedup + top-K + records)", 20,
          lambda: dedup_select_rec(*k2_args),

@@ -159,7 +159,7 @@ def main():
     cs, cc, _, _, _ = eps_candidates(mid, next_cutoff, edec._pg, ec)
     eps_args = (cs, cc, ec.frontier_size, Se)
     pairs = [
-        ("expand_filter with src_slot (row gather + K1)",
+        ("expand_filter with src_slot (K1, row gather folded in)",
          lambda: expand_filter(*k1_args, with_src_slot=True),
          lambda: expand_filter_plain(*k1_args, with_src_slot=True)),
         (f"K6 dedup_select, emitting candidates (N={ex.cost.shape[1]})",

@@ -114,6 +114,93 @@ def test_row_gather_kernel_matches_plain(card, width):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("width", [11, 16, 128])  # 16 and 128: the 16-byte vector path
+@pytest.mark.parametrize("case", ["n-below-32", "n-not-a-multiple-of-32", "out-of-range"])
+def test_row_gather_kernel_shapes(card, width, case):
+    """The gather's warp tiles of 32 rows: a single partial tile, a
+    partial last tile after full ones (over more tiles than one wave of
+    blocks holds), and indices outside the table, whose rows the kernel
+    writes as zeros (the plain version raises on them)."""
+    rng = np.random.default_rng(width)
+    R = 1000
+    table = rng.integers(-(1 << 30), 1 << 30, size=(R, width)).astype(np.int32)
+    n = {"n-below-32": 7, "n-not-a-multiple-of-32": 300_011}.get(case, 4133)
+    idx = rng.integers(0, R, size=n).astype(np.int32)
+    bad = np.zeros(n, bool)
+    if case == "out-of-range":
+        bad[rng.choice(n, 200, replace=False)] = True
+        idx[bad] = rng.choice([-1, -(1 << 31), R, R + 5, (1 << 31) - 1], bad.sum())
+    want = np.where(bad[:, None], 0, table[np.where(bad, 0, idx)])
+    table, idx = torch.from_numpy(table).to(card), torch.from_numpy(idx).to(card)
+    before = row_gather.launches
+    for _ in range(2):
+        got = row_gather(table, idx)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), torch.from_numpy(want))
+    assert row_gather.launches == before + 2
+
+
+def _read_only_where_active(card, S, nb, K, n_active):
+    """A cost-sorted frontier of ``nb`` utterances and K distinct states,
+    the best at cost 0: ``n_active`` slots (None: all) within a beam of
+    10, then slots far outside it, and the second half dead."""
+    rng = np.random.default_rng(nb + K)
+    states = np.stack([rng.choice(S, K, replace=False) for _ in range(nb)]).astype(np.int32)
+    costs = np.sort(rng.uniform(0, 12, (nb, K)), axis=1).astype(np.float32)
+    costs[:, 0] = 0.0
+    if n_active is not None:
+        costs[:, n_active:] = 100.0 + costs[:, n_active:]
+        costs[:, K // 2:] = np.inf
+    return torch.from_numpy(states).to(card), torch.from_numpy(costs).to(card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("active", [None, 1, 3], ids=["many", "one", "three"])
+@pytest.mark.parametrize("batch", ["B1", "B16", "C8", "C4", "C2", "C1"])
+@pytest.mark.parametrize("K,max_active,S,E", [
+    pytest.param(64, 40, 400, 3000, id="K64-KE40"),
+    # KE 3000: past one round of PER slots a thread (2560), so the
+    # padding lanes' owner is read by one thread.
+    pytest.param(8192, 3000, 9000, 90000, id="K8192-KE3000"),
+])
+def test_expand_kernel_reads_only_active_states(card, K, max_active, S, E, batch, active):
+    """K1 reads the em_block row of each active slot among the first KE
+    itself: with every other state set to -1 or to S + 7 it must equal the
+    plain version on the frontier as it is, bitwise, at B=1 and 16 and at
+    every cluster size, with KE not a multiple of 32 times the cluster
+    size, and with sparse active sets of one and of three slots."""
+    g = _graph(S=S, E=E)
+    fc = config_for_graph(g, frontier_size=K, max_active=max_active, min_active=0, beam=10.0,
+                          rem_budget=4096)
+    assert fc.expand_lanes == max_active and fc.expand_lanes % 32
+    pg = pack_graph_device(g, fc.block_width, fc.eps_block_width, fc.flat_group, card)
+    shape = (fc.expand_lanes, fc.block_width, fc.flat_group, fc.rem_units)
+    if batch.startswith("B"):
+        nb = int(batch[1:])
+    else:
+        nb = _batch_for_cluster(lambda n: kernels().kd_expand_cluster(n, *shape), int(batch[1:]))
+    states, costs = _read_only_where_active(card, S, nb, K, active)
+    cut = get_cutoff(costs, fc.beam, fc.max_active, fc.min_active, fc.beam_delta,
+                     costs_sorted=True)
+    k = torch.arange(K, device=card)
+    read = torch.isfinite(costs) & (costs < cut.cutoff[:, None]) & (k < fc.expand_lanes)
+    if active is not None:
+        assert bool((read.sum(dim=1) == active).all())
+    args = (states, costs, cut.cutoff, cut.adaptive_beam, _scores(card, nb)[0], pg, fc)
+    for with_src_slot in (False, True):
+        ref = expand_filter_plain(*args, with_src_slot=with_src_slot)
+        for value in (-1, S + 7):
+            before = expand_filter.launches
+            got = expand_filter(torch.where(read, states, value), *args[1:],
+                                with_src_slot=with_src_slot)
+            torch.cuda.synchronize()
+            assert expand_filter.launches == before + 1
+            _same_expansion(ref, got)
+    if batch.startswith("C"):
+        assert kernels().kd_expand_cluster(nb, *shape) == int(batch[1:])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("rem_budget", [4096, 16])  # 16: remainder overflow
 def test_expand_kernel_matches_plain(card, rem_budget):
     dec = _decoder(card, rem_budget)

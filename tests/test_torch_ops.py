@@ -88,8 +88,9 @@ def test_get_cutoff_branches(max_active, min_active, sort_first):
             np.testing.assert_array_equal(np.asarray(r), g.numpy())
 
 
-def _jax_expand_filter(states, costs, cutoff, adaptive, scores, pg, fc):
-    """The expansion region of the JAX lattice emit stage, vmapped."""
+def _jax_expand_filter(states, costs, cutoff, adaptive, scores, pg, fc, with_src_slot=False):
+    """The expansion region of the JAX lattice emit stage, vmapped; with
+    ``with_src_slot``, each lane's source slot last."""
 
     def one(s, c, cu, ab, sc):
         active = jnp.isfinite(c) & (c < cu)
@@ -98,8 +99,9 @@ def _jax_expand_filter(states, costs, cutoff, adaptive, scores, pg, fc):
         )
         nc = jnp.min(cand.cost) + ab
         ok = jnp.isfinite(cand.cost) & (cand.cost < nc)
-        return (cand.dst, jnp.where(ok, cand.cost, jnp.inf), cand.src_state,
-                cand.arc_id, cand.overflow, nc)
+        out = (cand.dst, jnp.where(ok, cand.cost, jnp.inf), cand.src_state,
+               cand.arc_id, cand.overflow, nc)
+        return out + (cand.src_slot,) if with_src_slot else out
 
     return jax.jit(jax.vmap(one))(states, costs, cutoff, adaptive, scores)
 
