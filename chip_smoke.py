@@ -13,7 +13,10 @@ Queue 3), and so does the port; the smoke sets only what takes effect.
 The 1-best path runs on the same graph, utterances and beam settings:
 ``BatchedViterbiDecoder`` (folded, K 4096, rem_budget 49152, B=16) and
 the streaming ``FasterDecoder`` on the unfolded graph (its own capacities,
-eps closure of depth 1 on every frame, B=1, 100 frames per call).
+eps closure of depth 1 on every frame, B=1, 100 frames per call).  The
+lattice decoder's eps path runs on the unfolded graph too:
+``BatchedLatticeDecoder(fold=False)`` with the lattice config above, and
+the streaming ``LatticeFasterDecoder`` and ``LatticeSimpleDecoder``.
 
 Phases (any failure raises, and the process exits non-zero):
   0. device: a CUDA card must be present; prints its ``nvidia-smi`` name
@@ -65,7 +68,29 @@ Phases (any failure raises, and the process exits non-zero):
      counters set to 0 just before; K1 must launch once per frame, K6
      (1 + eps_iters) times per frame plus eps_iters times per
      ``init_decoding``, the row gather never; the same fields must equal
-     the JAX reference; prints ms per frame.
+     the JAX reference; prints ms per frame;
+  6. the lattice decode without folding: ``BatchedLatticeDecoder(graph,
+     config, fold=False)`` on the unfolded graph (eps depth 1), B=16,
+     chunks of 500, ``device_prune=True``, the counters set to 0 just
+     before; K1 must launch once per frame, K2 (1 + eps_iters) times per
+     frame plus eps_iters for the start closure, K4 once per chunk, K6
+     and the row gather never; per utterance the 1-best labels, the
+     float32 bits of the best path's cost, ``num_active``, the overflow
+     and saturation counts, the raw lattice's size and a sha256 of its
+     arcs and of its finals, ``reached_final`` and
+     ``final_relative_cost`` must equal the JAX reference
+     (``tests/data/torch_port_lattice_eps_ref.json``);
+  7. the streaming lattice API on the unfolded graph:
+     ``LatticeFasterDecoder`` over the first 2 utterances, 100 frames per
+     ``advance_decoding``, then ``LatticeSimpleDecoder.decode`` of the
+     first, each counted (K1 once a frame, K2 (1 + eps_iters) times a
+     frame plus eps_iters per ``init_decoding``, K4, K6 and the row gather
+     never) and checked as phase 6 against the same reference; prints ms
+     per frame.
+Phase 2 also holds K2's eps call (incumbents first) on the eps
+iterations of the unfolded lattice decode at frames 150 and 250, and K4
+with eps records on its first 500-frame chunk, against their plain
+versions, bitwise, and times them.
 The line before the last is a JSON object with each kernel's launches
 (summed over the counted runs of phases 3-5, and by phase), error,
 times, bound and library-call time; the last is ``{"ok": true,
@@ -96,6 +121,9 @@ BENCH_CONFIG = dict(
 DECODER_KW = dict(lattice_beam=8.0, em_records=8192, pad_time_to=CHUNK)
 K1_FRAMES = (0, 1, 5, 20, 60, 150)  # frames whose frontiers K1 is checked on
 K2_FRAMES = (150, 250)  # lattice frames on whose lanes K2 is timed (and checked, with K1's)
+# Frames of the unfolded lattice decode on whose eps iteration K2's eps call
+# is checked and timed.
+K2_EPS_FRAMES = (150, 250)
 TIMING_REPS = 10
 VITERBI_CONFIG = dict(
     beam=15.0, max_active=2560, min_active=200, frontier_size=4096, rem_budget=49152,
@@ -298,20 +326,22 @@ def k1_work(states, costs, cutoff, adaptive_beam, scores_t, pg, fc, with_src_slo
     return nbytes, 3 * B * N  # two adds and a compare per lane
 
 
-def k4_work(fstates, fcosts, em, init_states, rem, out):
+def k4_work(fstates, fcosts, em, init_states, rem, out, eps=None):
     """Bytes and operations of one K4 chunk: of the frames an utterance
     still emits (t < min(rem, T)), the live frontier slots (state and
-    cost) and the valid records; the chunk-entry states; the survivor rows
-    and counts written."""
+    cost), the valid records and, with ``eps``, the valid eps records
+    (one Bellman pass over them); the chunk-entry states; the survivor
+    rows and counts written."""
     import torch
 
     T, B, K = fstates.shape
     need = torch.arange(T, device=rem.device)[:, None] < rem.clamp(max=T)[None, :]
     live = int((torch.isfinite(fcosts) & need[..., None]).sum())
     valid = int(((em[..., 1] >= 0) & need[..., None]).sum())
-    kept = int(out.tok_count.sum()) + int(out.em_count.sum())
-    nbytes = live * 8 + valid * 16 + B * K * 4 + B * 4 + kept * 12 + B * 9
-    return nbytes, live + 3 * valid
+    kept = int(out.tok_count.sum()) + int(out.em_count.sum()) + int(out.eps_count.sum())
+    veps = 0 if eps is None else int(((eps[..., 1] >= 0) & need[..., None, None]).sum())
+    nbytes = live * 8 + (valid + veps) * 16 + B * K * 4 + B * 4 + kept * 12 + B * 13
+    return nbytes, live + 3 * valid + 3 * veps
 
 
 def k6_work(costs, K):
@@ -325,21 +355,24 @@ def k6_work(costs, K):
     return B * N * 4 + fin * 4 + 3 * B * K * 4 + B * 4, 2 * fin
 
 
-def k2_work(cand_state, cand_cost, k, num_states, r, slack_beam, payload):
+def k2_work(cand_state, cand_cost, k, num_states, r, slack_beam, payload, num_incumbents=0):
     """Bytes and operations of one K2 call on (B, N) lanes: every lane's
     cost, the state of every finite lane and the two payload columns of
     each record written (the plain version's count) read; the (B, K)
-    frontier, the counts, the (B, R, 4) record rows and the overflow flags
-    written; a compare, a subtract and a compare per finite lane."""
+    frontier (and, for the eps call, its winning lanes), the counts, the
+    (B, R, 4) record rows and the overflow flags written; a compare, a
+    subtract and a compare per finite lane."""
     import torch
 
     from kaldi_decoder_tpu_torch.ops.segment import dedup_select_rec as dedup_select_rec_plain
 
     B, N = cand_cost.shape
     fin = int(torch.isfinite(cand_cost).sum())
-    sel = dedup_select_rec_plain(cand_state, cand_cost, k, num_states, r, slack_beam, payload)
+    sel = dedup_select_rec_plain(cand_state, cand_cost, k, num_states, r, slack_beam, payload,
+                                 num_incumbents)
     taken = int((sel.rec_dst >= 0).sum())
-    return (B * N * 4 + fin * 4 + taken * 8 + B * k * 8 + B * 4 + B * r * 16 + B,
+    idx = B * k * 4 if num_incumbents else 0
+    return (B * N * 4 + fin * 4 + taken * 8 + B * k * 8 + idx + B * 4 + B * r * 16 + B,
             3 * fin)
 
 
@@ -355,6 +388,7 @@ def same_records(ref, got, where):
     fields = dict(states=(ref.states, got.states), num_unique=(ref.num_unique, got.num_unique),
                   costs=(ref.costs.view(torch.int32), got.costs.view(torch.int32)),
                   rec_overflow=(ref.rec_overflow, got.rec_overflow),
+                  **({} if ref.cand_idx is None else {"cand_idx": (ref.cand_idx, got.cand_idx)}),
                   **{name: (want[..., c], got.records[..., c]) for c, name in
                      enumerate(("src_state", "arc_id", "rec_dst", "rec_slack"))})
     for name, (r, g) in fields.items():
@@ -492,7 +526,7 @@ def check_k1(dec, scores_tm):
 
     fc = dec.cfg.frontier
     S = dec._dev_graph.num_states
-    st, _, _ = dec._init(B)
+    st, _, _, _ = dec._init(B)
     active = torch.ones(B, dtype=torch.bool, device=dec.device)
     max_err, timed_args, overflowed = 0.0, None, 0
     k2_args = []  # K2's arguments on K1's lanes, frame by frame
@@ -648,6 +682,27 @@ def check_gather(dec, states):
     return max_err, times["em_block"], times["lane-packed"]
 
 
+def same_sweep(ref, got, what):
+    """Raise unless K4's result equals the plain sweep's in every count,
+    flag and survivor row; returns the largest row difference."""
+    import torch
+
+    for name in ("tok_count", "em_count", "eps_count", "overflow"):
+        if not torch.equal(getattr(ref, name), getattr(got, name)):
+            raise AssertionError(f"{what} differs from plain: {name}")
+    max_err = 0
+    for b in range(ref.tok_count.shape[0]):
+        for rows, count in (("tok_rows", "tok_count"), ("em_rows", "em_count"),
+                            ("eps_rows", "eps_count")):
+            n = int(getattr(ref, count)[b])
+            r, g = getattr(ref, rows)[b, :n], getattr(got, rows)[b, :n]
+            if not torch.equal(r, g):
+                raise AssertionError(f"{what} differs from plain: {rows}[{b}]")
+            if n:
+                max_err = max(max_err, int((r.long() - g.long()).abs().max()))
+    return max_err
+
+
 def check_k4(dec, scores_tm, lengths):
     """K4 against the plain sweep on the first real chunk."""
     import torch
@@ -657,7 +712,7 @@ def check_k4(dec, scores_tm, lengths):
     from kaldi_decoder_tpu_torch.kernels.sweep import sweep_chunk
 
     S = dec._dev_graph.num_states
-    st0, _, _ = dec._init(B)
+    st0, _, _, _ = dec._init(B)
     rem = torch.from_numpy(lengths).to(dec.device)
     _, o = lattice_chunk(dec._pg, scores_tm[:CHUNK], rem, st0, dec.cfg, S)
     sc = sweep_config(dec.cfg, CHUNK)
@@ -665,18 +720,7 @@ def check_k4(dec, scores_tm, lengths):
     ref = sweep_plain(*args)
     got = sweep_chunk(*args)
     torch.cuda.synchronize()
-    for name in ("tok_count", "em_count", "overflow"):
-        if not torch.equal(getattr(ref, name), getattr(got, name)):
-            raise AssertionError(f"K4 differs from plain: {name}")
-    max_err = 0
-    for b in range(B):
-        for rows, count in (("tok_rows", "tok_count"), ("em_rows", "em_count")):
-            n = int(getattr(ref, count)[b])
-            r, g = getattr(ref, rows)[b, :n], getattr(got, rows)[b, :n]
-            if not torch.equal(r, g):
-                raise AssertionError(f"K4 differs from plain: {rows}[{b}]")
-            if n:
-                max_err = max(max_err, int((r.long() - g.long()).abs().max()))
+    max_err = same_sweep(ref, got, "K4")
     from kaldi_decoder_tpu_torch.kernels._build import kernels
 
     C = kernels().kd_sweep_cluster(B, -(-sc.frontier_size // 4) * 4, sc.em_records)
@@ -1009,6 +1053,264 @@ def streaming_path(fd, scores, vref):
     return n, 1000 * t_dec / frames
 
 
+def unfolded_lattice_decoder(graph, device="cuda"):
+    """The lattice decoder of phase 6: the bench's lattice config on the
+    unfolded graph (``fold=False``), so that the device runs the eps path."""
+    from kaldi_decoder_tpu_torch import BatchedLatticeDecoder, config_for_graph
+
+    return BatchedLatticeDecoder(graph, config_for_graph(graph, **BENCH_CONFIG), fold=False,
+                                 device=device, **DECODER_KW)
+
+
+def check_k2_eps(udec, scores_tm):
+    """K2's eps call (the K incumbents first) against its plain version on
+    the eps iteration of the unfolded lattice decode at each of
+    ``K2_EPS_FRAMES``, then timed there.  Returns the largest cost
+    difference and the timings by frame."""
+    import torch
+
+    from kaldi_decoder_tpu_torch.decoders.lattice_dev import (
+        eps_rec_candidates,
+        lattice_emit_stage,
+        lattice_frame_step_batched,
+    )
+    from kaldi_decoder_tpu_torch.kernels.dedup_rec import (
+        cluster_size,
+        dedup_select_rec,
+        stack_records,
+    )
+    from kaldi_decoder_tpu_torch.ops.segment import dedup_select_rec as dedup_select_rec_plain
+
+    cfg, fc, S = udec.cfg, udec.cfg.frontier, udec._dev_graph.num_states
+    K = fc.frontier_size
+    sb = cfg.lattice_beam + 1e-4
+    st, _, _, _ = udec._init(B)
+    active = torch.ones(B, dtype=torch.bool, device=udec.device)
+    calls, max_err, won = [], 0.0, []
+    for t in range(max(K2_EPS_FRAMES) + 1):
+        if t in K2_EPS_FRAMES:
+            mid, _, next_cutoff, _, _, _ = lattice_emit_stage(
+                st, scores_tm[t], udec._pg, fc, S, cfg.em_records, sb)
+            cs, cc, pay, _ = eps_rec_candidates(mid, next_cutoff, udec._pg, fc)
+            args = (cs, cc, K, S, K + cfg.eps_records, sb, pay)
+            ref = dedup_select_rec_plain(*args, num_incumbents=K)
+            got = dedup_select_rec(*args, num_incumbents=K)
+            torch.cuda.synchronize()
+            max_err = max(max_err, same_records(ref, got, f"the eps lanes of unfolded frame {t}"))
+            won.append(int((ref.cand_idx >= K).sum()))
+            calls.append((t, args))
+        st, _ = lattice_frame_step_batched(st, scores_tm[t], active, udec._pg, cfg, S)
+    N = calls[0][1][1].shape[1]
+    log(f"K2 dedup_select_rec, eps call (B={B}, N={N}, K={K}, R={K + cfg.eps_records}, "
+        f"{K} incumbents; slots won by eps lanes {won}; clusters of "
+        f"{cluster_size(B, N)} blocks): equal to plain on unfolded "
+        f"frames {list(K2_EPS_FRAMES)}; timed there:")
+    timed = {}
+    for t, args in calls:
+        log(f" unfolded frame {t}:")
+        timed[t] = time_kernel(
+            "K2, eps call", lambda: dedup_select_rec(*args, num_incumbents=K),
+            lambda: stack_records(dedup_select_rec_plain(*args, num_incumbents=K)),
+            k2_work(*args, num_incumbents=K))
+    return max_err, timed
+
+
+def check_k4_eps(udec, scores_tm, lengths):
+    """K4 with eps records against the plain sweep on the first 500-frame
+    chunk of the unfolded lattice decode, then timed."""
+    import torch
+
+    from kaldi_decoder_tpu_torch.decoders.lattice_dev import lattice_chunk
+    from kaldi_decoder_tpu_torch.decoders.sweep import sweep_config, sweep_plain
+    from kaldi_decoder_tpu_torch.kernels._build import kernels
+    from kaldi_decoder_tpu_torch.kernels.sweep import sweep_chunk
+
+    S = udec._dev_graph.num_states
+    st0, _, _, _ = udec._init(B)
+    rem = torch.from_numpy(lengths).to(udec.device)
+    _, o = lattice_chunk(udec._pg, scores_tm[:CHUNK], rem, st0, udec.cfg, S)
+    sc = sweep_config(udec.cfg, CHUNK)
+    args = (o.frontier_states, o.frontier_costs, o.em_records, st0.states, rem, sc, S,
+            o.eps_records)
+    ref = sweep_plain(*args)
+    got = sweep_chunk(*args)
+    torch.cuda.synchronize()
+    max_err = same_sweep(ref, got, "K4 with eps")
+    log(f"K4 sweep with eps records: equal to plain on chunk 0 of the unfolded decode "
+        f"(T={CHUNK}, B={B}, D={sc.eps_iters}, Re={sc.eps_records}, Bellman bound "
+        f"{sc.eps_bound}; survivors tok {ref.tok_count.sum().item()}, em "
+        f"{ref.em_count.sum().item()}, eps {ref.eps_count.sum().item()}; overflow "
+        f"{int(ref.overflow.sum())}; clusters of "
+        f"{kernels().kd_sweep_cluster(B, -(-sc.frontier_size // 4) * 4, sc.em_records)} blocks):")
+    t = time_kernel("K4 with eps, one chunk", lambda: sweep_chunk(*args),
+                    lambda: sweep_plain(*args), k4_work(*args[:5], got, eps=o.eps_records),
+                    reps=2)
+    del o, ref, got
+    return float(max_err), t
+
+
+def lattice_digest(lat):
+    """(states, arcs, sha256 of the arcs in state order as int32 rows
+    (src, dst, ilabel, olabel, graph weight bits, acoustic weight bits),
+    sha256 of the start state and the final weights' bits) of a Lattice of
+    either package, or (0, 0, "", "") for None."""
+    import hashlib
+
+    import numpy as np
+
+    if lat is None:
+        return 0, 0, "", ""
+    a = lat.to_arrays()
+    S = len(a["final"])
+    src = np.repeat(np.arange(S, dtype=np.int32), np.diff(a["row_ptr"]))
+    w = np.ascontiguousarray(a["weight"], np.float32).reshape(-1, 2).view(np.int32)
+    arcs = np.stack([src, a["nextstate"], a["ilabel"], a["olabel"], w[:, 0], w[:, 1]], axis=1)
+    fin = np.ascontiguousarray(a["final"], np.float32).reshape(-1, 2).view(np.int32)
+    head = np.array([a["start"]], np.int32)
+    return (S, int(arcs.shape[0]),
+            hashlib.sha256(np.ascontiguousarray(arcs, np.int32).tobytes()).hexdigest(),
+            hashlib.sha256(head.tobytes() + fin.tobytes()).hexdigest())
+
+
+def check_lattice_utterance(what, b, u, raw, best, stats, reached, frc):
+    """Raise unless one utterance's lattice result equals its JAX
+    reference (``scripts/make_torch_lattice_eps_reference.py``)."""
+    import numpy as np
+
+    from kaldi_decoder_tpu_torch.fst.ops import path_labels, path_total_cost
+
+    L = u["length"]
+    if best is None or path_labels(best) != u["olabels"]:
+        raise AssertionError(f"{what}, utterance {b}: 1-best differs from the JAX reference")
+    if int(np.float32(path_total_cost(best)).view(np.int32)) != u["path_cost_f32_bits"]:
+        raise AssertionError(f"{what}, utterance {b}: best path cost differs")
+    na = np.asarray(stats.active_per_frame[:L])
+    if [int(x) for x in na] != u["num_active"]:
+        bad = int(np.flatnonzero(na != np.asarray(u["num_active"]))[0])
+        raise AssertionError(f"{what}, utterance {b}: num_active differs first at frame {bad}")
+    got = dict(overflow_frames=stats.arc_budget_overflows,
+               saturated_frames=stats.frontier_saturated_frames,
+               reached_final=bool(reached), final_relative_cost=float(frc).hex())
+    got.update(zip(("lattice_states", "lattice_arcs", "lattice_arcs_sha256",
+                    "lattice_finals_sha256"), lattice_digest(raw)))
+    for key, val in got.items():
+        if val != u[key]:
+            raise AssertionError(f"{what}, utterance {b}: {key} {val} != {u[key]}")
+
+
+def lattice_eps_path(udec, scores, lengths, refs, lref):
+    """Phase 6: the batched lattice decode without folding as a user calls
+    it, counted, then checked against the JAX reference."""
+    from kaldi_decoder_tpu_torch.utils.wer import wer
+
+    want = lref["batched"]["device_config"]
+    got_cfg = dict({f: getattr(udec.cfg.frontier, f) for f in want
+                    if hasattr(udec.cfg.frontier, f)},
+                   em_records=udec.cfg.em_records, eps_records=udec.cfg.eps_records,
+                   lattice_beam=udec.cfg.lattice_beam)
+    if got_cfg != want:
+        raise AssertionError(f"unfolded lattice config {got_cfg} != the reference's {want}")
+    D = udec.cfg.frontier.eps_iters
+    reset_counts()
+    t0 = time.perf_counter()
+    res = udec.decode(scores, lengths, chunk_frames=CHUNK, device_prune=True)
+    t_dec = time.perf_counter() - t0
+    n = read_counts()
+    if res.survivors is None:
+        raise AssertionError("the device sweep overflowed and the decode fell back")
+    frames = res.num_active.shape[0]
+    want_n = dict(gather=0, k1=frames, k2=frames * (1 + D) + D, k4=len(res.survivors), k6=0)
+    if n != want_n:
+        raise AssertionError(f"launch counts {n}, want {want_n}")
+    t1 = time.perf_counter()
+    hyps = []
+    for b, u in enumerate(lref["batched"]["utts"][:B]):
+        hyps.append(res.best_path_labels(b))
+        if hyps[-1] != u["labels"]:
+            raise AssertionError(f"unfolded lattice, utterance {b}: labels differ")
+        check_lattice_utterance("unfolded lattice", b, u, res.raw_lattice(b), res.best_path(b),
+                                res.stats(b), res.reached_final(b), res.final_relative_cost(b))
+    t_host = time.perf_counter() - t1
+    eps_rows = sum(int(c["eps_count"].sum()) for c in res.survivors)
+    audio_s = float(lengths.sum()) * 0.04
+    log(f"lattice path without folding: decode {t_dec:.3f} s (forward + sweep + survivor "
+        f"download, {audio_s:.0f} audio-s, {audio_s / t_dec:.1f} audio-s/s), host lattices, "
+        f"best paths and checks {t_host:.3f} s; eps_iters={D}, eps survivor rows {eps_rows}; "
+        f"launches {n}; matches the JAX reference (labels, cost bits, num_active, lattice "
+        f"digests) on {len(hyps)} utterances; overflow frames {int(res.overflows.sum())}, "
+        f"saturated frames {int(res.saturations.sum())}; {wer(refs, hyps)}")
+    return n, t_dec
+
+
+def streaming_lattice_path(graph, scores, lref, device="cuda"):
+    """Phase 7: ``LatticeFasterDecoder`` over the reference's utterances,
+    100 frames per ``advance_decoding``, then ``LatticeSimpleDecoder`` on
+    the first; each counted, then checked against the JAX reference.
+    Returns the launch counts of each and the faster decoder's ms per
+    frame."""
+    from kaldi_decoder_tpu_torch import (
+        DecodableCtc,
+        LatticeFasterDecoder,
+        LatticeFasterDecoderConfig,
+        LatticeSimpleDecoder,
+        LatticeSimpleDecoderConfig,
+    )
+
+    def device_config(dec):
+        c = dec._dev_cfg
+        return dict({f: getattr(c.frontier, f) for f in (
+            "beam", "max_active", "min_active", "beam_delta", "frontier_size", "block_width",
+            "rem_budget", "flat_group", "eps_block_width", "eps_rem_budget", "eps_iters",
+            "eps_exact")}, em_records=c.em_records, eps_records=c.eps_records,
+            lattice_beam=c.lattice_beam)
+
+    out = {}
+    for kind, make, cfg_cls in (("faster", LatticeFasterDecoder, LatticeFasterDecoderConfig),
+                                ("simple", LatticeSimpleDecoder, LatticeSimpleDecoderConfig)):
+        part = lref[kind]
+        dec = make(graph, cfg_cls(**part["config"]), device=device)
+        if device_config(dec) != part["device_config"]:
+            raise AssertionError(f"{kind}: config {device_config(dec)} != the reference's")
+        D = dec._dev_cfg.frontier.eps_iters
+        reset_counts()
+        t_dec = t_host = 0.0
+        frames = 0
+        for b, u in enumerate(part["utts"]):
+            L = u["length"]
+            t0 = time.perf_counter()
+            if kind == "faster":
+                dec.init_decoding()
+                decodable = DecodableCtc(scores[b, :L])
+                while dec.num_frames_decoded() < L:
+                    dec.advance_decoding(decodable, max_num_frames=FRAMES_PER_CALL)
+                dec.finalize_decoding()
+            else:
+                dec.decode(DecodableCtc(scores[b, :L]))
+            t1 = time.perf_counter()
+            ok_raw, raw = dec.get_raw_lattice()
+            ok, best = dec.get_best_path()
+            if not (ok and ok_raw):
+                raise AssertionError(f"{kind} lattice, utterance {b}: no lattice")
+            check_lattice_utterance(f"{kind} lattice", b, u, raw, best, dec.stats(),
+                                    dec.reached_final(), dec.final_relative_cost())
+            t_host += time.perf_counter() - t1
+            t_dec += t1 - t0
+            frames += L
+        n = read_counts()
+        utts = len(part["utts"])
+        want_n = dict(gather=0, k1=frames, k2=frames * (1 + D) + utts * D, k4=0, k6=0)
+        if n != want_n:
+            raise AssertionError(f"{kind} lattice: launch counts {n}, want {want_n}")
+        log(f"streaming lattice path: {type(dec).__name__}, {utts} utterance(s), {frames} "
+            f"frames{f', {FRAMES_PER_CALL} per advance_decoding' if kind == 'faster' else ''}, "
+            f"eps_iters={D}, K={dec._dev_cfg.frontier.frontier_size}: "
+            f"{1000 * t_dec / frames:.3f} ms per frame (init + advance + finalize, downloads "
+            f"and the host lattice's folding and pruning included), lattice and best path "
+            f"{t_host:.3f} s; launches {n}; matches the JAX reference")
+        out[kind] = (n, 1000 * t_dec / frames)
+    return out
+
+
 def check_workload(utts, scores, lengths, refs):
     """Raise unless the rebuilt workload is the one a reference was
     computed on (lengths, transcripts, score hashes)."""
@@ -1026,10 +1328,9 @@ def load_reference(name, scores, lengths, refs):
     is the one it was computed on."""
     with open(os.path.join(REPO, "tests", "data", name)) as f:
         ref = json.load(f)
-    for part in ("utts", "viterbi", "streaming"):
-        if part in ref:
-            utts = ref[part] if part == "utts" else ref[part]["utts"]
-            check_workload(utts[:B], scores, lengths, refs)
+    for part, val in ref.items():
+        if part == "utts" or (isinstance(val, dict) and "utts" in val):
+            check_workload((val if part == "utts" else val["utts"])[:B], scores, lengths, refs)
     return ref
 
 
@@ -1127,6 +1428,7 @@ def main():
     graph, scores, lengths, refs = bench_workload()
     ref = load_reference("torch_port_bench_ref.json", scores, lengths, refs)
     vref = load_reference("torch_port_viterbi_ref.json", scores, lengths, refs)
+    lref = load_reference("torch_port_lattice_eps_ref.json", scores, lengths, refs)
     fc = config_for_graph(graph, **BENCH_CONFIG)
     dec = BatchedLatticeDecoder(graph, fc, device="cuda", **DECODER_KW)
     # The device config re-derives flat_group (ROADMAP Queue 3).
@@ -1143,6 +1445,10 @@ def main():
     del k2_args
     gat_err, gat, gat_packed = check_gather(dec, states)
     k4_err, k4 = check_k4(dec, scores_tm, lengths)
+    udec = unfolded_lattice_decoder(graph)
+    k2e_err, k2e_by_frame = check_k2_eps(udec, scores_tm)
+    k4e_err, k4e = check_k4_eps(udec, scores_tm, lengths)
+    del udec
     vfc = config_for_graph(graph, **VITERBI_CONFIG)
     vdec = BatchedViterbiDecoder(graph, vfc, device="cuda")
     edec = BatchedViterbiDecoder(graph, vfc, fold=False, device="cuda")
@@ -1165,7 +1471,18 @@ def main():
 
     # 5. Streaming API.
     sn, _ = streaming_path(fd, scores, vref)
+    del fd
+    torch.cuda.empty_cache()
 
+    # 6. Lattice path without folding (the device eps path).
+    un, _ = lattice_eps_path(unfolded_lattice_decoder(graph), scores, lengths, refs, lref)
+    torch.cuda.empty_cache()
+
+    # 7. Streaming lattice API.
+    ln = streaming_lattice_path(graph, scores, lref)
+    fn, sln = ln["faster"][0], ln["simple"][0]
+
+    later = {"lattice_unfolded": un, "faster_lattice": fn, "simple_lattice": sln}
     by_path = {
         "gather": {"lattice": gat_n, "viterbi": vn["gather"], "streaming": sn["gather"]},
         "k1": {"lattice": k1_n, "viterbi": vn["k1"], "streaming": sn["k1"]},
@@ -1173,6 +1490,8 @@ def main():
         "k4": {"lattice": k4_n},
         "k6": {"viterbi": vn["k6"], "streaming": sn["k6"]},
     }
+    for key, paths in by_path.items():
+        paths.update({p: n[key] for p, n in later.items()})
 
     st = sk["times"]
     fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "share_of_bound",
@@ -1198,13 +1517,21 @@ def main():
               bound_ms_src_slot=k6["k1"]["bound_ms"], ms_streaming=sk["k1"]["ms"],
               bound_ms_streaming=sk["k1"]["bound_ms"],
               wrapper_ms_streaming=st["k1"][0], plain_wrapper_ms_streaming=st["k1"][1]),
-        entry("K2 dedup_select_rec (lattice dedup by state + top-K + records)", "dedup_rec.cu",
-              "kaldi_decoder_tpu/ops/segment.py:177", "k2", k2, k2_err,
+        entry("K2 dedup_select_rec (lattice dedup by state + top-K + records; emitting and "
+              "eps calls)", "dedup_rec.cu",
+              "kaldi_decoder_tpu/ops/segment.py:177", "k2", k2, max(k2_err, k2e_err),
               frame=K2_FRAMES[0], steps_us=k2["steps_us"],
               **{f"{f}_frame{t}": k2_by_frame[t][f] for t in K2_FRAMES[1:]
-                 for f in ("ms", "plain_ms", "bound_ms", "share_of_bound", "steps_us")}),
-        entry("K4 sweep_chunk (backward extra-cost sweep)", "sweep.cu",
-              "kaldi_decoder_tpu/decoders/sweep.py:141", "k4", k4, k4_err),
+                 for f in ("ms", "plain_ms", "bound_ms", "share_of_bound", "steps_us")},
+              **{f"{f}_eps_frame{t}": k2e_by_frame[t][f] for t in K2_EPS_FRAMES
+                 for f in ("ms", "plain_ms", "bound_ms", "bound_by", "share_of_bound",
+                           "wrapper_ms", "plain_wrapper_ms")}),
+        entry("K4 sweep_chunk (backward extra-cost sweep; with eps records, the eps Bellman)",
+              "sweep.cu", "kaldi_decoder_tpu/decoders/sweep.py:141", "k4", k4,
+              max(k4_err, k4e_err),
+              **{f"{f}_eps": k4e[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                              "share_of_bound", "wrapper_ms",
+                                              "plain_wrapper_ms")}),
         entry("K6 dedup_select (Viterbi dedup by state + top-K + winning lane)", "dedup.cu",
               "kaldi_decoder_tpu/ops/segment.py:160", "k6", k6["k6"],
               max(k6["k6_err"], sk["k6_err"]),

@@ -7,11 +7,13 @@ package's layout (``fst/``, ``ops/``, ``decoders/``, ``decodable/``,
 are carried as tested copies.  Every public entry takes an explicit
 ``device``; nothing picks one on its own.
 
-The ported slices are :class:`BatchedLatticeDecoder` on an eps-folded
-graph, with the device backward sweep (``device_prune=True``), and the
-1-best path: :class:`BatchedViterbiDecoder` and the reference's
-streaming API, :class:`SimpleDecoder` and :class:`FasterDecoder`, with
-the device eps closure.  The public names are the JAX package's
+The ported slices are :class:`BatchedLatticeDecoder`, on an eps-folded
+graph or one that keeps its eps arcs on the device, with the device
+backward sweep (``device_prune=True``); the reference's streaming
+lattice API, :class:`LatticeSimpleDecoder` and
+:class:`LatticeFasterDecoder`; and the 1-best path:
+:class:`BatchedViterbiDecoder` and the streaming :class:`SimpleDecoder`
+and :class:`FasterDecoder`, with the device eps closure.  The public names are the JAX package's
 (``kaldi_decoder_tpu/__init__.py``) for what is ported.
 """
 
@@ -30,7 +32,11 @@ from kaldi_decoder_tpu_torch.decoders.api import (
 from kaldi_decoder_tpu_torch.decoders.frontier import FrontierConfig, config_for_graph
 from kaldi_decoder_tpu_torch.decoders.lattice import (
     BatchedLatticeDecoder,
+    LatticeFasterDecoder,
+    LatticeFasterDecoderConfig,
     LatticeResult,
+    LatticeSimpleDecoder,
+    LatticeSimpleDecoderConfig,
     PendingDecode,
 )
 from kaldi_decoder_tpu_torch.decoders.viterbi import BatchedViterbiDecoder, ViterbiResult
@@ -46,7 +52,11 @@ __all__ = [
     "FasterDecoder",
     "FasterDecoderOptions",
     "FrontierConfig",
+    "LatticeFasterDecoder",
+    "LatticeFasterDecoderConfig",
     "LatticeResult",
+    "LatticeSimpleDecoder",
+    "LatticeSimpleDecoderConfig",
     "PendingDecode",
     "SimpleDecoder",
     "ViterbiResult",

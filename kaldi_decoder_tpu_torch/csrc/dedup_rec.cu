@@ -3,13 +3,15 @@
 //
 // Replaces the XLA-compiled region of the JAX package's lattice frame made
 // of kaldi_decoder_tpu/ops/segment.py:dedup_select_rec (:177) with its
-// _sort_by_state (:101) and _select (:136), as the lattice emitting stage
-// calls it (decoders/lattice_dev.py:257: need_idx=False, sweep_cols=True,
-// no incumbents, payload (src_state, arc_id)): the stable sort by (state,
-// cost), top_k over the run leaders, the segmented fill of each run's
-// minimum, the slack filter and the stable sort of the record keys.  Its
-// plain torch version is kaldi_decoder_tpu_torch/ops/segment.py:
-// dedup_select_rec; the two agree bitwise in every field.
+// _sort_by_state (:101) and _select (:136), in its two calls: the lattice
+// emitting stage's (decoders/lattice_dev.py:257: need_idx=False,
+// sweep_cols=True, no incumbents, payload (src_state, arc_id)) and each
+// record-emitting eps iteration's (lattice_dev.py:164: num_incumbents=K,
+// need_idx=True): the stable sort by (state, cost), top_k over the run
+// leaders, the segmented fill of each run's minimum, the slack filter and
+// the stable sort of the record keys.  Its plain torch version is
+// kaldi_decoder_tpu_torch/ops/segment.py:dedup_select_rec; the two agree
+// bitwise in every field.
 //
 // What it computes, per utterance of N lanes:
 //   frontier  K6's (dedup.cu), from the same code (dedup_core.cuh): a
@@ -33,6 +35,14 @@
 //   Record rows are (src_state, arc_id, dst state, slack bits), written
 //   straight into the (B, R, 4) int32 buffer the lattice frame emits;
 //   slack is +0.0 for winners and for a -0.0 slack.
+//   The eps call (the kernel's INCUMBENTS instance; the emitting call's
+//   instance is compiled without any of it): lanes below num_incumbents
+//   are the carried tokens.  They take part in the dedup and the frontier
+//   as any lane (the lowest lane wins a tie, so an incumbent keeps its
+//   slot against an equal-cost eps lane) but are never records: the
+//   record pass skips them, and with R <= K a slot an incumbent won is a
+//   padding row.  It also writes each slot's winning lane (cand_idx, -1 on
+//   an empty slot), which the caller's "changed" test reads.
 //
 // The record key.  A record's order is (class, slack, state, cost, lane),
 // wider than 64 bits.  The key is (class, slack, state): a winner's is its
@@ -90,7 +100,9 @@
 // states once, and the payload of the records it writes
 // (chip_smoke.k2_work); at the bench shape (B 16, N 56,832, K 4096,
 // R 8192) at most 10.9 MB, 3.3 µs at the memory rate, and 6.74 MB, 2.0 µs
-// on the lanes of the bench's lattice frame 150.  What holds it is its chain of dependent steps, each 1-3 µs (K6's
+// on the lanes of the bench's lattice frame 150.  The eps call at the
+// bench's unfolded shape (N 10,240, K 4096, R 6144) moves 3.13 MB, 0.9 µs,
+// and takes 0.035 ms (H100 80GB HBM3 at 700 W, chip_smoke.py phase 2).  What holds it is its chain of dependent steps, each 1-3 µs (K6's
 // min pass, barrier, winner pass and select; a barrier for c_K; the
 // record pass over the block's compacted finite lanes, from shared memory
 // and not the lane arrays again; two barriers for the bins; the record
@@ -170,9 +182,11 @@ struct RecTie {
   }
 };
 
+template <bool INCUMBENTS>
 __global__ void __launch_bounds__(THREADS, 1) dedup_rec_kernel(
     const int* __restrict__ dst, const float* __restrict__ cost, const int* __restrict__ pay0,
     const int* __restrict__ pay1, int N, int S, int K, int R, float slack_beam,
+    int num_incumbents, int* __restrict__ out_cand_idx,
     unsigned long long* __restrict__ table, unsigned long long* __restrict__ keys0,
     int* __restrict__ vals0, unsigned long long* __restrict__ keys1, int* __restrict__ vals1,
     unsigned long long* __restrict__ keys_fin, int* __restrict__ vals_fin,
@@ -238,7 +252,14 @@ __global__ void __launch_bounds__(THREADS, 1) dedup_rec_kernel(
     const int d = (int)(key & 0xffffffffull);
     out_states[out0 + r] = d;
     out_costs[out0 + r] = kdtorch::from_ordered_key((unsigned)(key >> 32));
-    if (winners_only && r < R) put_rec(r, pay0[row + lane], pay1[row + lane], d, 0u);
+    if constexpr (INCUMBENTS) out_cand_idx[out0 + r] = lane;
+    if (winners_only && r < R) {
+      if (INCUMBENTS && lane < num_incumbents) {
+        put_rec(r, -1, -1, -1, INF_BITS);
+      } else {
+        put_rec(r, pay0[row + lane], pay1[row + lane], d, 0u);
+      }
+    }
   };
   // The record list's cache is free until the record pass: the stage.
   const int n = dd::frontier<THREADS, true>(sh, cluster, ls, dst, cost, row, N, S, K, tab, false,
@@ -248,6 +269,7 @@ __global__ void __launch_bounds__(THREADS, 1) dedup_rec_kernel(
   for (int r = min(n, K) + rank * THREADS + tid; r < K; r += C * THREADS) {
     out_states[out0 + r] = 0;
     out_costs[out0 + r] = INFINITY;
+    if constexpr (INCUMBENTS) out_cand_idx[out0 + r] = -1;
   }
   if (rank == 0 && tid == 0) num_unique[b] = n;
   sel::mark_step(11);
@@ -296,6 +318,7 @@ __global__ void __launch_bounds__(THREADS, 1) dedup_rec_kernel(
         const bool is_win = w[u] == dd::min_key(c, lane[u]);
         const float slack = __fsub_rn(c, m);
         const bool take = f[u] != dd::EMPTY && m <= c_k &&
+                          (!INCUMBENTS || lane[u] >= num_incumbents) &&
                           (is_win || (slack <= slack_beam && isfinite(slack)));
         const unsigned long long key =
             is_win ? (unsigned long long)(unsigned)d
@@ -414,8 +437,8 @@ __global__ void __launch_bounds__(THREADS, 1) dedup_rec_kernel(
 // fits.
 extern "C" int kd_dedup_rec_cluster(int B, int N) {
   const int most = dd::cluster_cap(N);
-  return kdtorch::pick_cluster(dedup_rec_kernel, B, THREADS, most, [](int) { return SMEM; },
-                               most);
+  return kdtorch::pick_cluster(dedup_rec_kernel<false>, B, THREADS, most,
+                               [](int) { return SMEM; }, most);
 }
 
 // The last K2 launch's step marks (sel::read_marks; the steps are
@@ -429,22 +452,26 @@ extern "C" int kd_dedup_rec_marks(unsigned long long* ns, long long* clock, int*
 // (B, S) 64-bit words, all ones on entry and restored on return; scratch
 // keys0/keys1/keys_fin/keys_win (B, N + 256) 64-bit and the four vals
 // (B, N + 256) 32-bit; outputs states/costs (B, K), num_unique (B,),
-// rec (B, R, 4) int32, rec_overflow (B,) bool.  num_incumbents (lanes
-// that are carried tokens, not links: the eps records' call) must be 0
-// for now.  Returns the launch's CUDA error (0 on success).
+// rec (B, R, 4) int32, rec_overflow (B,) bool.  num_incumbents > 0 (the
+// eps call: the first lanes are carried tokens, not links) launches the
+// INCUMBENTS instance, which also writes cand_idx (B, K) int32; with 0,
+// cand_idx is not touched and may be null.  Returns the launch's CUDA
+// error (0 on success).
 extern "C" int kd_dedup_rec(const void* dst, const void* cost, const void* pay0,
                             const void* pay1, int B, int N, int S, int K, int R, float slack_beam,
                             int num_incumbents, void* table, void* keys0, void* vals0,
                             void* keys1, void* vals1, void* keys_fin, void* vals_fin,
                             void* keys_win, void* vals_win, void* states, void* costs,
-                            void* num_unique, void* rec, void* rec_overflow, void* stream) {
-  if (num_incumbents != 0) return (int)cudaErrorNotSupported;
+                            void* num_unique, void* rec, void* rec_overflow, void* cand_idx,
+                            void* stream) {
   const int C = kd_dedup_rec_cluster(B, N);
   if (C == 0) return (int)cudaErrorInvalidConfiguration;
   return (int)kdtorch::launch_cluster(
-      dedup_rec_kernel, B * C, C, THREADS, SMEM, static_cast<cudaStream_t>(stream),
+      num_incumbents > 0 ? dedup_rec_kernel<true> : dedup_rec_kernel<false>, B * C, C, THREADS,
+      SMEM, static_cast<cudaStream_t>(stream),
       (const int*)dst, (const float*)cost, (const int*)pay0, (const int*)pay1, N, S, K, R,
-      slack_beam, (unsigned long long*)table, (unsigned long long*)keys0, (int*)vals0,
+      slack_beam, num_incumbents, (int*)cand_idx, (unsigned long long*)table,
+      (unsigned long long*)keys0, (int*)vals0,
       (unsigned long long*)keys1, (int*)vals1, (unsigned long long*)keys_fin, (int*)vals_fin,
       (unsigned long long*)keys_win, (int*)vals_win, (int*)states, (float*)costs,
       (int*)num_unique, (int*)rec, (unsigned char*)rec_overflow);

@@ -1,11 +1,12 @@
-// K4: the windowed backward extra-cost sweep of one chunk (no eps links).
+// K4: the windowed backward extra-cost sweep of one chunk.
 //
 // Replaces the XLA-compiled reverse scan of the JAX package's
 // kaldi_decoder_tpu/decoders/sweep.py:_sweep_one (with _join_min,
-// _compact_rows and _append) for graphs whose device side has no eps
-// arcs.  Its plain torch version is
-// kaldi_decoder_tpu_torch/decoders/sweep.py:sweep_plain; survivor counts,
-// overflow flags and rows[:count] agree exactly.
+// _compact_rows and _append), with and without eps links (the eps
+// Bellman and the eps rows, sweep.py:168-241, are the kernel's kEps
+// instance; the eps-free instance has none of their code).  Its plain
+// torch version is kaldi_decoder_tpu_torch/decoders/sweep.py:sweep_plain;
+// survivor counts, overflow flags and rows[:count] agree exactly.
 //
 // What bounds it: the sweep is sequential over the chunk's T frames; per
 // frame and utterance it reads the K frontier slots (8 bytes each) and R
@@ -13,6 +14,10 @@
 // frame the work is parallel but small and made of dependent phases
 // (join by state, keep, compact, join back), so the loop is bound by the
 // latency of those phases and of the barriers between them, not by bytes.
+// Eps records add two barriers a Bellman pass and one for the counts to
+// each frame: on the bench's unfolded decode (D 1, Re 2048) a 500-frame
+// chunk takes 6.25 ms against 3.06 without (H100 80GB HBM3 at 700 W,
+// chip_smoke.py phase 2), for 1 MB more of eps records read.
 //
 // The design:
 //   * one thread block cluster of C blocks per utterance (C = 8, 4, 2 or
@@ -52,7 +57,27 @@
 //     ranks read through distributed shared memory, so the row order and
 //     the appends, clamped at the caps as the reference's
 //     dynamic_update_slice appends are, stay exactly those of the
-//     reference.
+//     reference;
+//   * with eps links (kEps), a frame's slot extras are refined, before any
+//     token or link is kept, by Bellman passes over the frame's D x Re eps
+//     records, which each block reads from device memory (a contiguous
+//     range of them a block, as for the emitting records).  Table A
+//     already holds the slot extras joined by state; a pass (a) takes each
+//     record's le = A[dst] + slack and joins max(le, 0) by source state
+//     into table E, the third table, whose entries never mix with table
+//     B's emitting links; (b) after a cluster barrier, lowers each slot's
+//     extra to E[its state] where that is smaller, joins the lowered
+//     value into table A and raises the block's "lowered" flag; (c) after
+//     a second barrier every block reads the cluster's flags.  Extras only
+//     fall from one pass to the next, so neither table is reset between
+//     passes: the min over the passes of an entry is the latest pass's
+//     value.  Passes stop when none lowers an extra, or at the bound (D +
+//     2 when the eps graph is exact, else min(K, D * Re) + 2); a frame
+//     still changing at the bound inside the emitted range sets the
+//     overflow flag.  Table A then holds the final extras for the
+//     emitting records; the tokens and the eps links within the beam are
+//     counted, and after one more barrier the eps links are appended to
+//     their own rows (stable, clamped at eps_cap, as the tokens are).
 
 #include <cooperative_groups.h>
 
@@ -135,7 +160,8 @@ __device__ __forceinline__ int2 cluster_counts(cg::cluster_group& cluster, int* 
 // Two blocks fit on an SM, so that B clusters of 8 fit on the card at once.
 // kSpill: some block's ranges are larger than what it stages (the launch
 // chooses by shape); without it the kernel has no device-memory branch.
-template <bool kSpill>
+// kEps: the frames carry eps records (D > 0).
+template <bool kSpill, bool kEps>
 __global__ void __launch_bounds__(THREADS, 2) sweep_kernel(
     const int* __restrict__ fstates, const float* __restrict__ fcosts,
     const int* __restrict__ em, const int* __restrict__ init_states,
@@ -143,12 +169,15 @@ __global__ void __launch_bounds__(THREADS, 2) sweep_kernel(
     int Rs, int tok_cap, int em_cap, float tok_thr, float em_thr,
     unsigned long long* __restrict__ table, float* __restrict__ spill,
     int* __restrict__ tok_rows, int* __restrict__ em_rows, int* __restrict__ tok_count,
-    int* __restrict__ em_count, unsigned char* __restrict__ overflow) {
+    int* __restrict__ em_count, unsigned char* __restrict__ overflow,
+    const int* __restrict__ eps, int DRe, int eps_bound, int eps_cap,
+    int* __restrict__ eps_rows, int* __restrict__ eps_count) {
   // NBUF slabs of [states (Ks) | costs (Ks) | records (Rs x int4)], then
   // the slot extras (Ks) and the link extras (Rs).
   extern __shared__ int4 smem4[];
   __shared__ uint64_t slab_full[NBUF];
-  __shared__ int tok_pre[33], em_pre[33];
+  __shared__ int tok_pre[33], em_pre[33], eps_pre[33];
+  __shared__ int lowered;  // the block lowered a slot extra in this Bellman pass
 
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks();
@@ -168,8 +197,10 @@ __global__ void __launch_bounds__(THREADS, 2) sweep_kernel(
   float* const le_d = spill + (long)B * K + (long)b * R + rb0;
   unsigned long long* const tab_a = table + (long)b * S;
   unsigned long long* const tab_b = table + ((long)B + b) * S;
+  unsigned long long* const tab_e = table + (2L * B + b) * S;  // kEps only
   int* const tok_out = tok_rows + (long)b * (tok_cap + K) * 3;
   int* const em_out = em_rows + (long)b * (em_cap + R) * 3;
+  int* const eps_out = eps_rows + (long)b * (eps_cap + DRe) * 3;
 
   // Contiguous per-thread ranges of the block's slots and records, so
   // that thread order is row order.  Only the thread that owns a slot or
@@ -178,6 +209,21 @@ __global__ void __launch_bounds__(THREADS, 2) sweep_kernel(
   const int k0 = min(tid * perK, nk), k1 = min(k0 + perK, nk);
   const int perR = (nr + THREADS - 1) / THREADS;
   const int r0 = min(tid * perR, nr), r1 = min(r0 + perR, nr);
+  // The block's eps records (kEps): a contiguous range, in contiguous
+  // per-thread ranges, read from device memory.
+  const int Eb = (DRe + C - 1) / C;
+  const int eb0 = min(rank * Eb, DRe), ne = min(eb0 + Eb, DRe) - eb0;
+  const int perE = (ne + THREADS - 1) / THREADS;
+  const int j0 = min(tid * perE, ne), j1 = min(j0 + perE, ne);
+  auto eps_record = [&](int t, int j) {
+    return reinterpret_cast<const int4*>(eps)[((long)t * B + b) * DRe + eb0 + j];
+  };
+  // An eps record's le = extra(dst) + slack, from table A (+inf on padding).
+  auto eps_le = [&](int t, int4 q) {
+    return q.y >= 0 ? __fadd_rn(q.z >= 0 ? table_get(tab_a, q.z, t) : INFINITY,
+                                __int_as_float(q.w))
+                    : INFINITY;
+  };
 
   // Frame t's slab into buffer t % NBUF (one thread).
   auto load_slab = [&](int t) {
@@ -224,6 +270,7 @@ __global__ void __launch_bounds__(THREADS, 2) sweep_kernel(
   for (long s = (long)rank * THREADS + tid; s < S; s += (long)C * THREADS) {
     tab_a[s] = ~0ull;
     tab_b[s] = ~0ull;
+    if (kEps) tab_e[s] = ~0ull;
   }
   if (tid == 0) {
     for (int i = 0; i < NBUF; ++i) kdtorch::mbar_init(&slab_full[i], 1);
@@ -236,7 +283,7 @@ __global__ void __launch_bounds__(THREADS, 2) sweep_kernel(
   wait_slab(T - 1);
 
   const int boundary = min(rem[b], T);  // token frame with extra == 0
-  int tok_off = 0, em_off = 0;          // the same in every thread of the cluster
+  int tok_off = 0, em_off = 0, eps_off = 0;  // the same in every thread of the cluster
   bool ovf = false;
   int em_pos = 0;  // where this thread's first kept link of frame t+1 goes
 
@@ -261,7 +308,8 @@ __global__ void __launch_bounds__(THREADS, 2) sweep_kernel(
     const bool emit = f <= boundary;  // frames past the boundary are frozen
 
     // Extras of frame f and its surviving tokens; the extras joined by
-    // state into table A.
+    // state into table A.  With eps links the tokens are counted once the
+    // Bellman passes have refined the extras.
     int cnt = 0;
     for (int m = 0; m < perK; ++m) {  // the same trip count in every lane
       const int k = k0 + m;
@@ -269,16 +317,74 @@ __global__ void __launch_bounds__(THREADS, 2) sweep_kernel(
       const bool live = mine && isfinite(slot_cost(t, k));
       const float e = !mine ? INFINITY : at_boundary ? (live ? 0.0f : INFINITY) : get_extra(k);
       if (mine) set_extra(k, e);
-      cnt += emit && live && e <= tok_thr;
+      if (!kEps) cnt += emit && live && e <= tok_thr;
       table_min(tab_a, mine ? slot_state(t, k) : -1, t, e, mine);
     }
-    int tok_pos = publish_counts(cnt, tok_pre);
+    int tok_pos = kEps ? 0 : publish_counts(cnt, tok_pre);
     // (1) table A complete, token counts published.  The output rows of
     // frame t+1's links go out between arrival and wait, so that the
     // barrier's release does not wait for them.
     kdtorch::cluster_arrive();
     if (t + 1 < T) write_em_rows(t + 1);
     kdtorch::cluster_wait();
+
+    if constexpr (kEps) {
+      // The eps Bellman within frame f.
+      bool changed = true;  // the same in every thread of the cluster
+      for (int it = 0; changed && it < eps_bound; ++it) {
+        // (a) Each eps record's max(le, 0) joined by source state into E.
+        for (int m = 0; m < perE; ++m) {  // the same trip count in every lane
+          const int j = j0 + m;
+          const int4 q = j < j1 ? eps_record(t, j) : make_int4(-1, -1, -1, 0);
+          table_min(tab_e, q.x, t, fmaxf(eps_le(t, q), 0.0f), q.y >= 0);
+        }
+        kdtorch::cluster_sync();
+        // (b) Slot extras lowered to E; the lowered ones joined into A.
+        bool low = false;
+        for (int m = 0; m < perK; ++m) {
+          const int k = k0 + m;
+          const bool mine = k < k1;
+          const int s = mine ? slot_state(t, k) : -1;
+          const float u = s >= 0 ? table_get(tab_e, s, t) : INFINITY;
+          const bool lower = mine && u < get_extra(k);
+          if (lower) set_extra(k, u);
+          low |= lower;
+          table_min(tab_a, s, t, u, lower);
+        }
+        const int any = __syncthreads_or(low);
+        if (tid == 0) lowered = any;
+        // (c) A complete for the next pass; the cluster's flags.
+        kdtorch::cluster_sync();
+        const int lane = tid & 31;
+        changed = __any_sync(0xffffffffu, lane < C && *cluster.map_shared_rank(&lowered, lane));
+      }
+      ovf |= changed && emit;
+      // The frame's tokens and eps links within the beam, counted.
+      for (int k = k0; k < k1; ++k) {
+        cnt += emit && isfinite(slot_cost(t, k)) && get_extra(k) <= tok_thr;
+      }
+      tok_pos = publish_counts(cnt, tok_pre);
+      int ecnt = 0;
+      for (int j = j0; j < j1; ++j) ecnt += emit && eps_le(t, eps_record(t, j)) <= em_thr;
+      int eps_pos = publish_counts(ecnt, eps_pre);
+      kdtorch::cluster_sync();
+      const int2 ce = cluster_counts(cluster, eps_pre, rank, C);
+      const int eoff_w = min(eps_off, eps_cap);
+      eps_pos += eoff_w + ce.x + eps_pre[warp];
+      const int enew = eoff_w + ce.y;
+      ovf |= enew > eps_cap;
+      eps_off = min(enew, eps_cap + DRe);
+      for (int j = j0; j < j1; ++j) {
+        const int4 q = eps_record(t, j);
+        if (emit && eps_le(t, q) <= em_thr) {
+          int* row = eps_out + (long)eps_pos * 3;
+          row[0] = f;
+          row[1] = q.x;
+          row[2] = q.y;
+          ++eps_pos;
+        }
+      }
+    }
 
     int2 cc = cluster_counts(cluster, tok_pre, rank, C);
     int off_w = min(tok_off, tok_cap);
@@ -347,6 +453,7 @@ __global__ void __launch_bounds__(THREADS, 2) sweep_kernel(
   if (rank == 0 && tid == 0) {
     tok_count[b] = min(tok_off, tok_cap);
     em_count[b] = min(em_off, em_cap);
+    eps_count[b] = min(eps_off, eps_cap);  // 0 without eps links
     overflow[b] = ovf;
   }
   kdtorch::cluster_wait();
@@ -372,30 +479,37 @@ struct Ranges {
 // The cluster size K4 launches with for B utterances of K slots and R
 // records a frame (kdtorch::pick_cluster); 0 when none fits.
 extern "C" int kd_sweep_cluster(int B, int K, int R) {
-  return kdtorch::pick_cluster(sweep_kernel<true>, B, THREADS, (long)K << 32 | R,
+  return kdtorch::pick_cluster(sweep_kernel<true, false>, B, THREADS, (long)K << 32 | R,
                                [K, R](int c) { return Ranges(K, R, c).smem(); });
 }
 
 // Launches the sweep of one chunk on `stream`, one cluster per utterance.
 // Shapes: fstates/fcosts (T, B, K) with K a multiple of 4, em (T, B, R,
 // 4), all three 16-byte aligned; init_states (B, K), rem (B,); scratch
-// table (2, B, S) of 64-bit entries and spill (B*K + B*R) floats; outputs
-// tok_rows (B, tok_cap + K, 3), em_rows (B, em_cap + R, 3),
-// tok_count/em_count (B,), overflow (B,) bytes.  Returns the launch's
-// CUDA error (0 on success).
+// table (2, B, S) of 64-bit entries ((3, B, S) with eps records) and
+// spill (B*K + B*R) floats; outputs tok_rows (B, tok_cap + K, 3), em_rows
+// (B, em_cap + R, 3), tok_count/em_count (B,), overflow (B,) bytes.  With
+// DRe = D * Re > 0 eps records, eps (T, B, D, Re, 4), 16-byte aligned, is
+// read and eps_rows (B, eps_cap + DRe, 3) written; with DRe = 0 eps is
+// not read and eps_rows not written.  eps_count (B,) is written either
+// way (0 without eps links).  Returns the launch's CUDA error (0 on
+// success).
 extern "C" int kd_sweep(
     const void* fstates, const void* fcosts, const void* em,
     const void* init_states, const void* rem, int T, int B, int K, int R,
     int S, int tok_cap, int em_cap, float tok_thr, float em_thr, void* table, void* spill,
     void* tok_rows, void* em_rows, void* tok_count, void* em_count, void* overflow,
+    const void* eps, int DRe, int eps_bound, int eps_cap, void* eps_rows, void* eps_count,
     void* stream) {
   const int C = kd_sweep_cluster(B, K, R);
   if (C == 0) return (int)cudaErrorInvalidConfiguration;
   const Ranges g(K, R, C);
   const bool past_smem = g.Ks < g.Kb || g.Rs < g.Rb;
+  auto kernel = DRe > 0 ? (past_smem ? sweep_kernel<true, true> : sweep_kernel<false, true>)
+                        : (past_smem ? sweep_kernel<true, false> : sweep_kernel<false, false>);
   return (int)kdtorch::launch_cluster(
-      past_smem ? sweep_kernel<true> : sweep_kernel<false>, B * C, C, THREADS, g.smem(),
-      static_cast<cudaStream_t>(stream),
+      kernel, B * C, C, THREADS, g.smem(), static_cast<cudaStream_t>(stream),
       fstates, fcosts, em, init_states, rem, T, B, K, R, S, g.Kb, g.Rb, g.Ks, g.Rs, tok_cap,
-      em_cap, tok_thr, em_thr, table, spill, tok_rows, em_rows, tok_count, em_count, overflow);
+      em_cap, tok_thr, em_thr, table, spill, tok_rows, em_rows, tok_count, em_count, overflow,
+      eps, DRe, eps_bound, eps_cap, eps_rows, eps_count);
 }

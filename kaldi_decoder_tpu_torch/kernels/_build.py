@@ -131,7 +131,8 @@ def kernels() -> ctypes.CDLL:
     lib.kd_expand_cluster.restype = _I
     lib.kd_expand_cluster.argtypes = [_I] * 5
     lib.kd_sweep.restype = _I
-    lib.kd_sweep.argtypes = [_P] * 5 + [_I] * 7 + [_F, _F] + [_P] * 7 + [_P]
+    lib.kd_sweep.argtypes = ([_P] * 5 + [_I] * 7 + [_F, _F] + [_P] * 7 + [_P] + [_I] * 3
+                             + [_P, _P] + [_P])
     lib.kd_sweep_cluster.restype = _I
     lib.kd_sweep_cluster.argtypes = [_I] * 3
     lib.kd_dedup.restype = _I
@@ -141,7 +142,7 @@ def kernels() -> ctypes.CDLL:
     lib.kd_dedup_marks.restype = _I
     lib.kd_dedup_marks.argtypes = [_P, _P, _P, _I]
     lib.kd_dedup_rec.restype = _I
-    lib.kd_dedup_rec.argtypes = [_P] * 4 + [_I] * 5 + [_F, _I] + [_P] * 14 + [_P]
+    lib.kd_dedup_rec.argtypes = [_P] * 4 + [_I] * 5 + [_F, _I] + [_P] * 15 + [_P]
     lib.kd_dedup_rec_cluster.restype = _I
     lib.kd_dedup_rec_cluster.argtypes = [_I, _I]
     lib.kd_dedup_rec_marks.restype = _I

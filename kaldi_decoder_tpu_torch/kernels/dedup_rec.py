@@ -1,11 +1,14 @@
 """K2: the lattice frame's dedup by state, top-K frontier and records.
 
-:func:`dedup_select_rec` is the lattice path's call of
+:func:`dedup_select_rec` is the lattice path's two calls of
 :func:`kaldi_decoder_tpu_torch.ops.segment.dedup_select_rec` (payload
-``(src_state, arc_id)``, no incumbents), with the records as one (B, R, 4)
-int32 array of rows ``[src_state, arc_id, dst_state, slack_bits]``.  On a
-CPU tensor it runs the plain version and stacks its columns; on a CUDA
-tensor it launches ``csrc/dedup_rec.cu`` or raises.
+``(src_state, arc_id)``): the emitting stage's, with no incumbents, and
+each eps iteration's, whose first ``num_incumbents`` lanes are the carried
+tokens and which also gives each slot's winning lane.  The records come
+as one (B, R, 4) int32 array of rows ``[src_state, arc_id, dst_state,
+slack_bits]``.  On a CPU tensor it runs the plain version and stacks its
+columns; on a CUDA tensor it launches ``csrc/dedup_rec.cu`` (the eps call
+in the kernel's incumbents instance) or raises.
 
 K2 shares K6's winner table (:mod:`kaldi_decoder_tpu_torch.kernels.dedup`),
 kept per device and stream, and leaves it all ones as K6 does.
@@ -14,7 +17,7 @@ kept per device and stream, and leaves it all ones as K6 does.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -30,6 +33,8 @@ class LatticeSelection(NamedTuple):
     num_unique: torch.Tensor  # (B,) int32 — distinct in-beam states
     records: torch.Tensor  # (B, R, 4) int32 — [src_state, arc_id, dst, slack bits], -1 padded
     rec_overflow: torch.Tensor  # (B,) bool — eligible links exceeded R
+    # (B, K) int32 winning lane per slot, -1 if empty; the eps call's only.
+    cand_idx: Optional[torch.Tensor] = None
 
 
 def stack_records(sel: SelectionRec) -> torch.Tensor:
@@ -46,16 +51,19 @@ def dedup_select_rec(
     r: int,
     slack_beam: float,
     payload: Tuple[torch.Tensor, ...],  # (src_state, arc_id), each (B, N) int32
+    num_incumbents: int = 0,
 ) -> LatticeSelection:
     """K2 on the tensors' device.  Finite lanes must have a state in
     ``[0, num_states)``; ``slack_beam`` is compared in float32, as the
-    plain version compares it.  ``dedup_select_rec.launches`` counts K2
-    launches."""
+    plain version compares it.  With ``num_incumbents`` the first lanes
+    are carried tokens, never records, and ``cand_idx`` is given.
+    ``dedup_select_rec.launches`` counts K2 launches."""
     dev = cand_state.device
     if dev.type == "cpu":
-        sel = dedup_select_rec_plain(cand_state, cand_cost, k, num_states, r, slack_beam, payload)
+        sel = dedup_select_rec_plain(cand_state, cand_cost, k, num_states, r, slack_beam, payload,
+                                     num_incumbents)
         return LatticeSelection(sel.states, sel.costs, sel.num_unique, stack_records(sel),
-                                sel.rec_overflow)
+                                sel.rec_overflow, sel.cand_idx)
     if dev.type != "cuda":
         raise ValueError(f"dedup_select_rec runs on cpu or cuda tensors, not {dev}")
     if len(payload) != 2:
@@ -78,14 +86,15 @@ def dedup_select_rec(
         num_unique=torch.empty((B,), **i32),
         records=torch.empty((B, r, 4), **i32),
         rec_overflow=torch.empty((B,), dtype=torch.bool, device=dev),
+        cand_idx=torch.empty((B, k), **i32) if num_incumbents else None,
     )
     rc = lib.kd_dedup_rec(
         ptr(cand_state), ptr(cand_cost), ptr(payload[0]), ptr(payload[1]),
-        B, N, num_states, k, r, ctypes.c_float(slack_beam), 0, ptr(table),
+        B, N, num_states, k, r, ctypes.c_float(slack_beam), num_incumbents, ptr(table),
         ptr(keys[0]), ptr(vals[0]), ptr(keys[1]), ptr(vals[1]),
         ptr(keys[2]), ptr(vals[2]), ptr(keys[3]), ptr(vals[3]),
         ptr(out.states), ptr(out.costs), ptr(out.num_unique), ptr(out.records),
-        ptr(out.rec_overflow), stream(dev),
+        ptr(out.rec_overflow), ptr(out.cand_idx) if num_incumbents else None, stream(dev),
     )
     if rc != 0:
         k6._held.pop(key, None)  # a launch may have run: the next call starts afresh

@@ -1,12 +1,11 @@
 """Host lattice construction: backward extra-cost pruning + flat arcs.
 
 A jax-free copy of ``kaldi_decoder_tpu/lattice/prune.py`` (its
-``prune_lattice``, ``prune_token_structure``, ``flat_arc_arrays`` and
-their helpers).  Importing any module of ``kaldi_decoder_tpu`` imports
-jax, which the port must run without, so the port carries this copy;
-``tests/test_torch_host.py`` holds it equal to the original.  The raw
-``Lattice`` FST builder and ``IncrementalLattice`` are not copied: the
-slice's 1-best reads the flat arc arrays.
+``prune_lattice``, ``prune_token_structure``, ``raw_lattice_to_fst``,
+``flat_arc_arrays``, the streaming ``IncrementalLattice`` and their
+helpers).  Importing any module of ``kaldi_decoder_tpu`` imports jax,
+which the port must run without, so the port carries this copy;
+``tests/test_torch_host.py`` holds it equal to the original.
 
 Consumes the device lattice decoder's outputs (per-frame token frontiers =
 alpha values, and arc records) and reproduces the reference's finalization
@@ -42,6 +41,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from kaldi_decoder_tpu_torch.fst.csr import CsrGraph
+from kaldi_decoder_tpu_torch.fst.fst import Lattice
 
 INF = float("inf")
 
@@ -365,6 +365,57 @@ def prune_token_structure(
     )
 
 
+def raw_lattice_to_fst(
+    pl: PrunedLattice, use_final_probs: bool = True
+) -> Optional[Lattice]:
+    """GetRawLattice (`lattice-simple-decoder.cc:584-657`): tokens→states,
+    links→arcs; returns None if the lattice is empty."""
+    lat = Lattice()
+    offsets = []
+    n = 0
+    for f in range(pl.num_frames + 1):
+        offsets.append(n)
+        n += len(pl.tokens[f].states)
+    if n == 0:
+        return None
+    lat.add_states(n)
+
+    def add_links(lk: FrameLinks, src_off: int, dst_off: int):
+        for i in range(len(lk.src)):
+            if not lk.keep[i]:
+                continue
+            lat.add_arc(
+                src_off + int(lk.src[i]),
+                int(lk.ilabel[i]),
+                int(lk.olabel[i]),
+                (float(lk.graph_cost[i]), float(lk.ac_cost[i])),
+                dst_off + int(lk.dst[i]),
+            )
+
+    for f in range(pl.num_frames + 1):
+        add_links(pl.eps_links[f], offsets[f], offsets[f])
+        if f < pl.num_frames:
+            add_links(pl.em_links[f], offsets[f], offsets[f + 1])
+
+    # Final weights (lattice-simple-decoder.cc:640-648).
+    last_off = offsets[pl.num_frames]
+    nlast = len(pl.tokens[pl.num_frames].states)
+    if use_final_probs and pl.final_costs:
+        for i, c in pl.final_costs.items():
+            lat.set_final(last_off + int(i), (c, 0.0))
+    else:
+        for i in range(nlast):
+            lat.set_final(last_off + i, (0.0, 0.0))
+
+    # Start state: the frame-0 token sitting on the graph's start state.
+    # (The reference relies on insertion order, :612-617; we look it up.)
+    start_tok = pl.tokens[0].index_of(np.array([pl.start_state], dtype=np.int64))[0]
+    if start_tok < 0:
+        return None
+    lat.set_start(int(start_tok))
+    return lat
+
+
 def flat_arc_arrays(pl: PrunedLattice, use_final_probs: bool = True):
     """PrunedLattice -> flat CSR-free arc arrays (vectorized, no Python
     FST object): the production serving path feeds these straight into
@@ -426,3 +477,217 @@ def flat_arc_arrays(pl: PrunedLattice, use_final_probs: bool = True):
     if start_tok < 0:
         return None
     return n, src, dst, il, ol, wg, wa, final_graph, int(start_tok)
+
+
+def _links_compact(lk: FrameLinks, keep: np.ndarray) -> FrameLinks:
+    return FrameLinks(
+        src=lk.src[keep],
+        dst=lk.dst[keep],
+        ilabel=lk.ilabel[keep],
+        olabel=lk.olabel[keep],
+        graph_cost=lk.graph_cost[keep],
+        ac_cost=lk.ac_cost[keep],
+        keep=np.ones(int(keep.sum()), dtype=bool),
+    )
+
+
+def _links_copy(lk: FrameLinks) -> FrameLinks:
+    return FrameLinks(
+        src=lk.src.copy(),
+        dst=lk.dst.copy(),
+        ilabel=lk.ilabel.copy(),
+        olabel=lk.olabel.copy(),
+        graph_cost=lk.graph_cost.copy(),
+        ac_cost=lk.ac_cost.copy(),
+        keep=lk.keep.copy(),
+    )
+
+
+class IncrementalLattice:
+    """Streaming host lattice with windowed pruning (the ``prune_interval``
+    capability, `lattice-simple-decoder.cc:198-223` PruneActiveTokens).
+
+    Frames are appended as device chunks arrive (scores are consumed at
+    append time and not retained); ``prune_active_tokens`` runs the
+    backward extra-cost sweep from the live frontier — whose tokens carry
+    extra 0, the reference's Token-constructor initialisation — pruning
+    links whose extra lower bound already exceeds ``lattice_beam`` and
+    deleting unreachable tokens.  Because true extra costs only grow as
+    more audio arrives, everything pruned here is provably outside the
+    final lattice: ``finalize`` yields the identical lattice to a
+    one-shot decode.  The sweep stops early once a frame's extras settle
+    within ``delta = lattice_beam * prune_scale``
+    (`lattice-simple-decoder.cc:228-305` delta semantics).
+    """
+
+    def __init__(
+        self,
+        graph: CsrGraph,
+        lattice_beam: float,
+        prune_scale: float = 0.1,
+    ):
+        self.graph = graph
+        self.lattice_beam = float(lattice_beam)
+        self.delta = float(lattice_beam) * float(prune_scale)
+        self.tokens: List[FrameTokens] = []
+        self.em_links: List[FrameLinks] = []  # frame f -> f+1
+        self.eps_links: List[FrameLinks] = []  # within frame f
+        self.dead = False  # an empty frontier was appended
+
+    @property
+    def num_frames(self) -> int:
+        return max(len(self.tokens) - 1, 0)
+
+    def live_links(self) -> int:
+        return sum(len(l.src) for l in self.em_links) + sum(
+            len(l.src) for l in self.eps_links
+        )
+
+    def live_tokens(self) -> int:
+        return sum(len(t.states) for t in self.tokens)
+
+    def init_frame(self, states, costs, init_eps_records) -> None:
+        toks = _frame_tokens(np.asarray(states), np.asarray(costs))
+        self.tokens = [toks]
+        self.em_links = []
+        self.eps_links = [
+            _collect_eps_links(np.asarray(init_eps_records), toks, self.graph)
+        ]
+        self.dead = len(toks.states) == 0
+
+    def append_frame(self, states, costs, em_records, eps_records, scores_t):
+        """Add the frame whose frontier is (states, costs); ``em_records``
+        link the previous frame to it, ``eps_records`` are its intra-frame
+        epsilon links, ``scores_t`` the acoustic row that produced it."""
+        toks = _frame_tokens(np.asarray(states), np.asarray(costs))
+        self.em_links.append(
+            _collect_em_links(
+                np.asarray(em_records), self.tokens[-1], toks, self.graph,
+                np.asarray(scores_t),
+            )
+        )
+        self.tokens.append(toks)
+        self.eps_links.append(
+            _collect_eps_links(np.asarray(eps_records), toks, self.graph)
+        )
+        self.dead = self.dead or len(toks.states) == 0
+
+    # -- windowed pruning ---------------------------------------------------
+
+    def _sweep_frame(self, f: int, base: np.ndarray) -> np.ndarray:
+        """extra = min over links of (extra(next) + slack), links above the
+        lattice beam dropped; intra-frame eps fixed point (mirrors the
+        backward loop in prune_token_structure, without final folding)."""
+        toks = self.tokens[f]
+        lb = self.lattice_beam
+        if f < len(self.tokens) - 1:
+            lk = self.em_links[f]
+            nxt = self.tokens[f + 1]
+            if len(lk.src):
+                slack = (
+                    toks.alpha[lk.src]
+                    + lk.graph_cost
+                    + lk.ac_cost
+                    - nxt.alpha[lk.dst]
+                )
+                le = nxt.extra[lk.dst] + slack
+                lk.keep = le <= lb
+                le = np.maximum(le, 0.0)
+                kept = lk.keep & np.isfinite(le)
+                np.minimum.at(base, lk.src[kept], le[kept])
+                self.em_links[f] = _links_compact(lk, lk.keep)
+        extra = base.copy()
+        ek = self.eps_links[f]
+        if len(ek.src):
+            slack = toks.alpha[ek.src] + ek.graph_cost - toks.alpha[ek.dst]
+            for _ in range(len(ek.src) + 1):
+                le = extra[ek.dst] + slack
+                ek.keep = le <= lb
+                le = np.maximum(le, 0.0)
+                new_extra = base.copy()
+                kept = ek.keep & np.isfinite(le)
+                np.minimum.at(new_extra, ek.src[kept], le[kept])
+                converged = np.all(
+                    approx_equal_array(
+                        np.minimum(new_extra, 1e30),
+                        np.minimum(extra, 1e30),
+                        1e-6,
+                    )
+                )
+                extra = new_extra
+                if converged:
+                    break
+            self.eps_links[f] = _links_compact(ek, ek.keep)
+        return extra
+
+    def _delete_dead(self, f: int) -> None:
+        toks = self.tokens[f]
+        alive = np.isfinite(toks.extra)
+        if np.all(alive):
+            return
+        new_index = np.cumsum(alive) - 1
+        remap = np.where(alive, new_index, -1)
+        toks.states = toks.states[alive]
+        toks.alpha = toks.alpha[alive]
+        toks.extra = toks.extra[alive]
+
+        def _remap(lk: FrameLinks, side: str):
+            idx = getattr(lk, side)
+            if len(idx) == 0:
+                return lk
+            mapped = remap[idx]
+            keep = mapped >= 0
+            setattr(lk, side, np.where(keep, mapped, 0))
+            return _links_compact(lk, lk.keep & keep)
+
+        self.eps_links[f] = _remap(_remap(self.eps_links[f], "src"), "dst")
+        if f < len(self.tokens) - 1:
+            self.em_links[f] = _remap(self.em_links[f], "src")
+        if f > 0:
+            self.em_links[f - 1] = _remap(self.em_links[f - 1], "dst")
+
+    def prune_active_tokens(self) -> None:
+        """PruneActiveTokens(lattice_beam * prune_scale): backward sweep
+        from the live frontier with early stop, then dead-token deletion
+        (`lattice-simple-decoder.cc:198-223`, `:310-334`)."""
+        L = len(self.tokens) - 1
+        if L < 0 or self.dead:
+            return
+        # Frontier tokens are alive by definition: extra = 0
+        # (lattice-simple-decoder.h:200 Token ctor).
+        first_changed = L
+        for f in range(L, -1, -1):
+            toks = self.tokens[f]
+            base = (
+                np.zeros(len(toks.states))
+                if f == L
+                else np.full(len(toks.states), INF)
+            )
+            extra = self._sweep_frame(f, base)
+            changed = not np.all(
+                np.abs(np.minimum(extra, 1e30) - np.minimum(toks.extra, 1e30))
+                <= self.delta
+            )
+            toks.extra = extra
+            first_changed = f
+            if not changed:
+                break
+        for f in range(first_changed, L):  # never delete the live frontier
+            self._delete_dead(f)
+
+    # -- finalization ---------------------------------------------------------
+
+    def finalize(self, use_final_probs: bool = True) -> Optional[PrunedLattice]:
+        """FinalizeDecoding on a copy of the retained structure (the
+        incremental state stays valid for further appends)."""
+        if self.dead or not self.tokens:
+            return None
+        tokens = [
+            FrameTokens(t.states.copy(), t.alpha.copy(), np.full(len(t.states), INF))
+            for t in self.tokens
+        ]
+        em = [_links_copy(l) for l in self.em_links]
+        eps = [_links_copy(l) for l in self.eps_links]
+        return prune_token_structure(
+            tokens, em, eps, self.graph, self.lattice_beam, use_final_probs
+        )

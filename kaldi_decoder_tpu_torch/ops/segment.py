@@ -26,7 +26,7 @@ them for CPU tensors, and on the card they are the kernels' oracles.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -48,6 +48,9 @@ class SelectionRec(NamedTuple):
     rec_overflow: torch.Tensor  # (B,) bool — eligible links exceeded R
     rec_dst: torch.Tensor  # (B, R) int32 — destination state per record
     rec_slack: torch.Tensor  # (B, R) float32 — link slack, +inf on padding
+    # (B, K) int32 winning lane per slot, -1 if empty: the eps call's
+    # (num_incumbents > 0); None for the emitting call.
+    cand_idx: Optional[torch.Tensor] = None
 
 
 def score_lookup(score_idx: torch.Tensor, scores_t: torch.Tensor) -> torch.Tensor:
@@ -129,19 +132,37 @@ def dedup_select_rec(
     r: int,
     slack_beam: float,
     payload: Tuple[torch.Tensor, ...],  # (B, N) int32 columns to record
+    num_incumbents: int = 0,
 ) -> SelectionRec:
     """Per-state min-cost dedup, the K cheapest states, and lattice
     records: the winners' own links first, then up to ``r`` minus the
     winners extra links by smallest slack ``cost - winner_cost(dst)`` at
-    most ``slack_beam``.  The lattice path's call of the original:
-    ``need_idx=False``, ``sweep_cols=True``, no incumbents."""
-    s2, c2, pay2, leader = _sort_by_state(cand_state, cand_cost, num_states, payload)
+    most ``slack_beam``.  The original's calls with ``sweep_cols=True``:
+    the lattice emitting stage's (``need_idx=False``, no incumbents) and,
+    with ``num_incumbents``, the eps iteration's (``need_idx=True``): its
+    first ``num_incumbents`` lanes are carried tokens, not links, so they
+    take part in the dedup and the frontier (the lowest lane wins a tie,
+    so an incumbent keeps its slot against an equal-cost eps lane) but
+    never become records, and ``cand_idx`` gives each slot's winning
+    lane."""
+    B, n = cand_cost.shape
+    extra = ()
+    if num_incumbents:
+        extra = (torch.arange(n, dtype=torch.int32, device=cand_cost.device).expand(B, n),)
+    s2, c2, pay2, leader = _sort_by_state(cand_state, cand_cost, num_states, payload + extra)
     states, costs, num_unique, pos = _select(s2, c2, leader, k, num_states)
-    B, n = c2.shape
+    cand_idx = None
+    is_link = True
+    if num_incumbents:
+        pay2, i2 = pay2[:-1], pay2[-1]
+        cand_idx = torch.where(torch.isfinite(costs), i2.gather(1, pos), -1).to(torch.int32)
+        is_link = i2 >= num_incumbents
 
     if r <= k:
         # Winners-only budget: records are the frontier winners in slot order.
         okr = torch.isfinite(costs[:, :r])
+        if num_incumbents:
+            okr = okr & (cand_idx[:, :r] >= num_incumbents)
         posk = pos[:, :r]
         recs = tuple(
             torch.where(okr, p.gather(1, posk), -1).to(torch.int32) for p in pay2
@@ -155,6 +176,7 @@ def dedup_select_rec(
             rec_overflow=num_valid > r,
             rec_dst=torch.where(okr, states[:, :r], -1).to(torch.int32),
             rec_slack=torch.where(okr, 0.0, INF).to(torch.float32),
+            cand_idx=cand_idx,
         )
 
     lane = torch.arange(n, device=c2.device).expand(B, n)
@@ -163,8 +185,8 @@ def dedup_select_rec(
     slack = c2 - run_min
     run_sel = run_min <= costs[:, k - 1 : k]
     finite = torch.isfinite(c2)
-    win_link = leader & run_sel & finite
-    extra_ok = (~leader) & run_sel & finite & (slack <= slack_beam)
+    win_link = leader & run_sel & finite & is_link
+    extra_ok = (~leader) & run_sel & finite & is_link & (slack <= slack_beam)
     # Winner links first (key -1 guarantees them a slot), then extras by
     # ascending slack; the stable sort keeps state-sorted order on ties.
     # The original's comparator takes a -0.0 slack as equal to +0.0: fold
@@ -197,4 +219,5 @@ def dedup_select_rec(
         rec_overflow=rec_overflow,
         rec_dst=rec_dst,
         rec_slack=rec_slack,
+        cand_idx=cand_idx,
     )

@@ -20,10 +20,15 @@ step on the first chunk:
   calls queued back to back): each kernel's time and the device's idle
   time before it.
 
+With ``--unfolded`` the decoder keeps the graph's eps arcs on the device
+(``fold=False``): each frame also runs the record-emitting eps closure
+(K5's plain-torch expansion and K2's eps call), K2's eps call is timed
+beside its emitting call, and K4 runs with the chunk's eps records.
+
 Prints a summary and writes the profiler's full table of those frames to
 ``<out>/profile_torch_frame.txt``.
 
-    python3 scripts/profile_torch_frame.py [--out chiprun_out]
+    python3 scripts/profile_torch_frame.py [--out DIR] [--unfolded]
 """
 
 import argparse
@@ -79,6 +84,8 @@ def kernel_ms(fn, reps):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=os.path.join(REPO, "chiprun_out"))
+    ap.add_argument("--unfolded", action="store_true",
+                    help="keep the eps arcs on the device (fold=False): the eps path")
     args = ap.parse_args()
 
     import numpy as np
@@ -99,7 +106,9 @@ def main():
     )
     from kaldi_decoder_tpu_torch import BatchedLatticeDecoder, config_for_graph
     from kaldi_decoder_tpu_torch.decoders.lattice_dev import (
+        eps_rec_candidates,
         lattice_chunk,
+        lattice_emit_stage,
         lattice_frame_step_batched,
     )
     from kaldi_decoder_tpu_torch.decoders.sweep import sweep_config, sweep_plain
@@ -113,11 +122,13 @@ def main():
     print(card_line())
     graph, scores, lengths, _ = bench_workload()
     dec = BatchedLatticeDecoder(graph, config_for_graph(graph, **BENCH_CONFIG),
-                                device="cuda", **DECODER_KW)
+                                fold=not args.unfolded, device="cuda", **DECODER_KW)
+    print(f"device graph: {'unfolded' if args.unfolded else 'folded'}, eps_iters "
+          f"{dec.cfg.frontier.eps_iters}")
     S = dec._dev_graph.num_states
     scores_tm = torch.from_numpy(np.ascontiguousarray(scores.transpose(1, 0, 2))).cuda()
     rem = torch.from_numpy(lengths).cuda()
-    st, _, _ = dec._init(B)
+    st, _, _, _ = dec._init(B)
 
     def frames(lo, hi):
         nonlocal st
@@ -150,11 +161,25 @@ def main():
     ex = expand_filter(*k1_args)
     k2_args = (ex.dst, ex.cost, fc.frontier_size, S, dec.cfg.em_records,
                dec.cfg.lattice_beam + 1e-4, (ex.src_state, ex.arc_id))
-    st0, _, _ = dec._init(B)
+    st0, _, _, _ = dec._init(B)
     _, o = lattice_chunk(dec._pg, scores_tm[:CHUNK], rem, st0, dec.cfg, S)
     k4_args = (o.frontier_states, o.frontier_costs, o.em_records, st0.states, rem,
                sweep_config(dec.cfg, CHUNK), S)
-    pairs = [
+    if args.unfolded:
+        k4_args += (o.eps_records,)
+    pairs = []
+    if args.unfolded:
+        sb = dec.cfg.lattice_beam + 1e-4
+        mid, _, next_cutoff, _, _, _ = lattice_emit_stage(
+            st, scores_tm[t], dec._pg, fc, S, dec.cfg.em_records, sb)
+        cs_, cc_, pay_, _ = eps_rec_candidates(mid, next_cutoff, dec._pg, fc)
+        K = fc.frontier_size
+        eps_args = (cs_, cc_, K, S, K + dec.cfg.eps_records, sb, pay_)
+        pairs.append(("K2 dedup_select_rec, eps call (incumbents first)", 20,
+                      lambda: dedup_select_rec(*eps_args, num_incumbents=K),
+                      lambda: stack_records(
+                          dedup_select_rec_plain(*eps_args, num_incumbents=K))))
+    pairs += [
         ("row gather, em_block row per slot", 20,
          lambda: row_gather(dec._pg.em_block, st.states),
          lambda: row_gather_plain(dec._pg.em_block, st.states)),
@@ -192,8 +217,9 @@ def main():
     for name, kern_ms, plain_ms in per_call:
         print(f"  {name}: kernel {kern_ms:.4f} ms, plain {plain_ms:.4f} ms")
     print("device activities of one call, queued back to back:")
-    for name, reps, kern, _ in pairs[1:]:
-        print(f"  {name}: {format_split(kernel_split(kern, reps))}")
+    for name, reps, kern, _ in pairs:
+        if not name.startswith("row gather"):
+            print(f"  {name}: {format_split(kernel_split(kern, reps))}")
 
     os.makedirs(args.out, exist_ok=True)
     path = os.path.join(args.out, "profile_torch_frame.txt")

@@ -78,7 +78,7 @@ def main():
     fc, S = dec.cfg.frontier, dec._dev_graph.num_states
     scores_tm = torch.from_numpy(np.ascontiguousarray(scores.transpose(1, 0, 2))).cuda()
     rem = torch.from_numpy(lengths).cuda()
-    st, _, _ = dec._init(cs.B)
+    st, _, _, _ = dec._init(cs.B)
     calls = {}
     for t in range(max(FRAMES) + 1):
         if t in FRAMES:

@@ -54,17 +54,17 @@ def twin_configs(jax_graph, port_graph, **kw):
     return jax_config_for_graph(jax_graph, **kw), config_for_graph(port_graph, **kw)
 
 
-def assert_same_config(jfc, pfc):
+def assert_same_config(jfc, pfc, eps=False):
     """Every field of the port's config equals the JAX one's, and the
-    config runs no eps closure (the lattice path's device graph is
-    eps-free)."""
+    config runs an eps closure exactly when ``eps`` (a device graph that
+    keeps its eps arcs)."""
     for f in (
         "beam", "max_active", "min_active", "beam_delta", "frontier_size",
         "block_width", "rem_budget", "eps_block_width", "eps_rem_budget",
         "flat_group", "eps_iters", "eps_exact",
     ):
         assert getattr(jfc, f) == getattr(pfc, f), f
-    assert jfc.eps_iters == 0
+    assert (jfc.eps_iters > 0) == eps
 
 
 def bits(x):
@@ -72,3 +72,18 @@ def bits(x):
     x = np.asarray(x, np.float32).copy()
     x[x == 0] = 0.0
     return x.view(np.int32)
+
+
+def same_fst(a, b):
+    """Two FSTs (of either package, or both None) with the same arrays,
+    float32 weights by their raw bits."""
+    if a is None or b is None:
+        assert a is None and b is None
+        return
+    x, y = a.to_arrays(), b.to_arrays()
+    assert x.keys() == y.keys() and type(a).__name__ == type(b).__name__
+    for k in x:
+        xa, ya = np.asarray(x[k]), np.asarray(y[k])
+        if xa.dtype == np.float32:
+            xa, ya = xa.view(np.int32), ya.view(np.int32)
+        assert np.array_equal(xa, ya), k

@@ -2,8 +2,9 @@
 
 ``BatchedLatticeDecoder.decode(device_prune=True)`` of both packages on
 the same graph, scores and config: the per-chunk survivor rows and
-counts, the per-frame stats and the 1-best labels of every utterance must
-be equal.  Cases cover an eps-folded HLG, a graph with no eps arcs,
+counts (eps rows included), the per-frame stats and the 1-best labels of
+every utterance must be equal.  Cases cover an eps-folded HLG, the same
+HLG unfolded (the device eps path), a graph with no eps arcs,
 remainder-lane overflow and frontier saturation.
 """
 
@@ -28,6 +29,8 @@ CASES = {
     # saturation; None: not checked)
     "hlg": ("hlg", dict(frontier_size=64, max_active=48), dict(em_records=512),
             False, None),
+    "hlg_unfolded": ("hlg", dict(frontier_size=64, max_active=48),
+                     dict(em_records=512, fold=False), False, None),
     "hlg_overflow": ("hlg", dict(frontier_size=64, max_active=48, rem_budget=16),
                      dict(em_records=512), True, None),
     "hlg_saturated": ("hlg", dict(frontier_size=16, max_active=12, min_active=4),
@@ -40,10 +43,12 @@ CASES = {
 def _twins(case):
     kind, fkw, dkw, _, _ = CASES[case]
     dkw = dict(dict(lattice_beam=5.0, pad_time_to=8), **dkw)
+    fold = dkw.get("fold", True)
     if kind == "hlg":
         _, jg, pg = small_hlg()
         scores, lengths, _ = hlg_batch(3, seed=11)
-        jdev, pdev = JaxDecoder(jg, None, pad_time_to=8)._dev_graph, fold_eps(pg).device
+        jdev = JaxDecoder(jg, None, pad_time_to=8, fold=fold)._dev_graph
+        pdev = fold_eps(pg).device if fold else pg
     else:
         jg, pg = small_noeps()
         scores, lengths = noeps_batch(3, 30, seed=2)
@@ -51,8 +56,9 @@ def _twins(case):
     jfc, pfc = twin_configs(jdev, pdev, **fkw)
     jdec = JaxDecoder(jg, jfc, **dkw)
     pdec = BatchedLatticeDecoder(pg, pfc, device="cpu", **dkw)
-    assert_same_config(jdec.cfg.frontier, pdec.cfg.frontier)
+    assert_same_config(jdec.cfg.frontier, pdec.cfg.frontier, eps=not fold)
     assert jdec.cfg.em_records == pdec.cfg.em_records
+    assert jdec.cfg.eps_records == pdec.cfg.eps_records
     return jdec, pdec, scores, lengths
 
 
@@ -73,9 +79,9 @@ def test_slice_matches_jax(case):
     for jc, pc in zip(jres.survivors, pres.survivors):
         assert jc["frame0"] == pc["frame0"]
         np.testing.assert_array_equal(jc["overflow"], pc["overflow"])
-        # The JAX sweep keeps no eps links on an eps-free device graph.
-        assert not np.asarray(jc["eps_count"]).any()
-        for name in ("tok", "em"):
+        # The JAX sweep keeps eps links only where the device graph has eps arcs.
+        assert np.asarray(jc["eps_count"]).any() == (jdec.cfg.frontier.eps_iters > 0)
+        for name in ("tok", "em", "eps"):
             cnt = np.asarray(jc[f"{name}_count"])
             np.testing.assert_array_equal(cnt, pc[f"{name}_count"])
             for b in range(B):
@@ -132,9 +138,3 @@ def test_sweep_overflow_falls_back_to_full_records(monkeypatch):
     for b in range(scores.shape[0]):
         assert res.best_path_labels(b) == full.best_path_labels(b)
 
-
-def test_eps_on_the_device_is_refused():
-    """A device graph that keeps eps arcs raises instead of decoding."""
-    _, _, pg = small_hlg()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        BatchedLatticeDecoder(pg, None, fold=False, device="cpu")

@@ -29,7 +29,7 @@ from kaldi_decoder_tpu_torch.fst.csr import GraphArrays, _eps_depth, load_graph_
 from kaldi_decoder_tpu_torch.lattice import prune as pprune
 from kaldi_decoder_tpu_torch.utils.wer import wer
 
-from _torch_util import hlg_batch, small_hlg, small_noeps
+from _torch_util import hlg_batch, same_fst, small_hlg, small_noeps
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -116,6 +116,98 @@ def test_prune_matches_jax():
         assert len(ref) == len(got)
         for x, y in zip(ref, got):
             assert np.array_equal(x, y)
+
+
+def _unfolded_decode(batch=2, seed=3):
+    """A JAX decode of the small HLG on its unfolded graph (eps links in
+    every frame), full records."""
+    _, jg, pg = small_hlg()
+    scores, lengths, _ = hlg_batch(batch, seed=seed)
+    dec = JaxDecoder(jg, None, lattice_beam=5.0, em_records=256, eps_records=64,
+                     pad_time_to=8, fold=False)
+    return jg, pg, scores, lengths, dec.decode(scores, lengths, device_prune=False)
+
+
+def _prune_inputs(res, scores, b, L):
+    return dict(
+        frame_states=np.concatenate([res.init_states[None], res.frame_states[:L, b]]),
+        frame_costs=np.concatenate([res.init_costs[None], res.frame_costs[:L, b]]),
+        init_eps_records=res.init_eps_records,
+        em_records=res.em_records[:L, b],
+        eps_records=res.eps_records[:L, b],
+        scores=scores[b, :L],
+        lattice_beam=5.0,
+    )
+
+
+def _port_fst(fst):
+    """The port's FST class of the same kind, from a JAX FST's arrays."""
+    from kaldi_decoder_tpu_torch.fst import fst as pfst
+
+    cls = getattr(pfst, type(fst).__name__)
+    return cls.from_arrays(**fst.to_arrays())
+
+
+@pytest.mark.parametrize("use_final_probs", [True, False])
+def test_raw_lattice_and_shortest_path_match_jax(use_final_probs):
+    """raw_lattice_to_fst of both copies' pruned lattices, then both
+    ShortestPath copies on it and both topological orders."""
+    from kaldi_decoder_tpu.fst.ops import shortest_path as jshortest
+    from kaldi_decoder_tpu.fst.ops import topological_order as jtopo
+    from kaldi_decoder_tpu_torch.fst.ops import shortest_path, topological_order
+
+    jg, pg, scores, lengths, res = _unfolded_decode()
+    for b in range(2):
+        kw = _prune_inputs(res, scores, b, int(lengths[b]))
+        jl = jprune.raw_lattice_to_fst(
+            jprune.prune_lattice(graph=jg, use_final_probs=use_final_probs, **kw),
+            use_final_probs)
+        pl = pprune.raw_lattice_to_fst(
+            pprune.prune_lattice(graph=pg, use_final_probs=use_final_probs, **kw),
+            use_final_probs)
+        same_fst(jl, pl)
+        assert any(a.ilabel == 0 for s in range(pl.num_states) for a in pl.arcs(s))
+        same_fst(jshortest(jl), shortest_path(pl))
+        assert jtopo(jl) == topological_order(pl) is not None
+
+
+def test_shortest_path_of_a_cyclic_fst_matches_jax():
+    """A cyclic FST goes through the Dijkstra fallback in both copies."""
+    from kaldi_decoder_tpu.fst.ops import shortest_path as jshortest
+    from kaldi_decoder_tpu.fst.ops import topological_order as jtopo
+    from kaldi_decoder_tpu.fst.topo import random_fst
+    from kaldi_decoder_tpu_torch.fst.ops import shortest_path, topological_order
+
+    for seed in range(3):
+        jf = random_fst(30, 5, np.random.default_rng(seed), eps_prob=0.4,
+                        acyclic_eps=False)
+        pf = _port_fst(jf)
+        assert jtopo(jf) is None and topological_order(pf) is None
+        same_fst(jshortest(jf), shortest_path(pf))
+
+
+def test_incremental_lattice_matches_jax():
+    """Both IncrementalLattice copies fed the same frames, pruned every 5
+    frames: the same live counts after each prune, and the same finalized
+    lattice with and without final probs."""
+    jg, pg, scores, lengths, res = _unfolded_decode(batch=1, seed=4)
+    L = int(lengths[0])
+    incs = [jprune.IncrementalLattice(jg, 5.0, 0.1),
+            pprune.IncrementalLattice(pg, 5.0, 0.1)]
+    for inc in incs:
+        inc.init_frame(res.init_states, res.init_costs, res.init_eps_records)
+    for t in range(L):
+        for inc in incs:
+            inc.append_frame(res.frame_states[t, 0], res.frame_costs[t, 0],
+                             res.em_records[t, 0], res.eps_records[t, 0], scores[0, t])
+            if t % 5 == 4:
+                inc.prune_active_tokens()
+        assert incs[0].live_links() == incs[1].live_links()
+        assert incs[0].live_tokens() == incs[1].live_tokens()
+    for ufp in (True, False):
+        j, p = incs[0].finalize(ufp), incs[1].finalize(ufp)
+        same_fst(jprune.raw_lattice_to_fst(j, ufp), pprune.raw_lattice_to_fst(p, ufp))
+        assert j.final_relative_cost == p.final_relative_cost
 
 
 def test_workload_and_wer_copies():

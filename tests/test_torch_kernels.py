@@ -19,8 +19,8 @@ from kaldi_decoder_tpu_torch.decoders.lattice_dev import (
     lattice_chunk,
     lattice_frame_step_batched,
 )
-from kaldi_decoder_tpu_torch.decoders.sweep import sweep_config, sweep_plain
-from kaldi_decoder_tpu_torch.fst.csr import CsrGraph, GraphArrays
+from kaldi_decoder_tpu_torch.decoders.sweep import SweepConfig, sweep_config, sweep_plain
+from kaldi_decoder_tpu_torch.fst.csr import CsrGraph, GraphArrays, _eps_depth
 from kaldi_decoder_tpu_torch.fst.pack import pack_graph_device
 from kaldi_decoder_tpu_torch.kernels._build import kernels
 from kaldi_decoder_tpu_torch.kernels.dedup import cluster_size as dedup_cluster_size
@@ -205,7 +205,7 @@ def test_expand_kernel_reads_only_active_states(card, K, max_active, S, E, batch
 def test_expand_kernel_matches_plain(card, rem_budget):
     dec = _decoder(card, rem_budget)
     fc = dec.cfg.frontier
-    st, _, _ = dec._init(B)
+    st, _, _, _ = dec._init(B)
     sc = _scores(card)
     for t in range(T):
         cut = get_cutoff(st.costs, fc.beam, fc.max_active, fc.min_active,
@@ -231,7 +231,7 @@ def test_expand_kernel_matches_plain(card, rem_budget):
 @pytest.mark.parametrize("small_caps", [False, True])
 def test_sweep_kernel_matches_plain(card, small_caps):
     dec = _decoder(card, 4096)
-    st0, _, _ = dec._init(B)
+    st0, _, _, _ = dec._init(B)
     rem = torch.tensor([40, 9, 13], dtype=torch.int32, device=card)
     S = dec._dev_graph.num_states
     _, o = lattice_chunk(dec._pg, _scores(card), rem, st0, dec.cfg, S)
@@ -259,7 +259,7 @@ def test_expand_kernel_src_slot_matches_plain(card):
     """K1 with the source-slot output (the Viterbi path's call)."""
     dec = _decoder(card, 16)  # remainder overflow: invalid remainder lanes too
     fc = dec.cfg.frontier
-    st, _, _ = dec._init(B)
+    st, _, _, _ = dec._init(B)
     sc = _scores(card)
     for t in range(6):
         cut = get_cutoff(st.costs, fc.beam, fc.max_active, fc.min_active,
@@ -343,7 +343,7 @@ def test_expand_kernel_edge_cases(card, case, with_src_slot):
 
 def _sweep_inputs(card, frontier_size, rem, **kw):
     dec = _decoder(card, 4096, frontier_size, **kw)
-    st0, _, _ = dec._init(len(rem))
+    st0, _, _, _ = dec._init(len(rem))
     rem = torch.tensor(rem, dtype=torch.int32, device=card)
     S = dec._dev_graph.num_states
     _, o = lattice_chunk(dec._pg, _scores(card, len(rem)), rem, st0, dec.cfg, S)
@@ -833,3 +833,224 @@ def test_dedup_rec_and_dedup_share_the_table(card):
         _same_dedup(card, states, costs, 1024, S)
         _same_rec(card, states, costs, 1024, S, 4096, calls=1)
         _same_dedup(card, states, costs, 1024, S)
+
+
+# ---------------------------------------------------------------------------
+# K2's eps call and K4 with eps records
+# ---------------------------------------------------------------------------
+
+
+def _eps_graph(depth, seed=0, S=400, E=3000, E_eps=300):
+    """:func:`_graph` with eps arcs: with ``depth`` D, from each layer of
+    the states to the next of D + 1 layers (an eps graph of depth D);
+    with ``depth=None``, a ring through the states 0, 1, ... (cyclic)."""
+    g = _graph(seed, S, E)
+    rng = np.random.default_rng(seed + 1)
+    if depth is None:
+        src = np.arange(S, dtype=np.int64)
+        nxt = (src + 1) % S
+    else:
+        layer = rng.integers(0, depth + 1, S)
+        src = rng.choice(np.flatnonzero(layer < depth), E_eps)
+        nxt = np.array([rng.choice(np.flatnonzero(layer == layer[s] + 1)) for s in src])
+    order = np.argsort(src, kind="stable")
+    src, nxt = src[order], nxt[order].astype(np.int32)
+    row = np.zeros(S + 1, np.int32)
+    row[1:] = np.cumsum(np.bincount(src, minlength=S))
+    ga = g.arrays._replace(
+        eps_row_ptr=row, eps_olabel=rng.integers(0, 50, len(src)).astype(np.int32),
+        eps_weight=rng.uniform(0, 2, len(src)).astype(np.float32), eps_next=nxt)
+    d = _eps_depth(S, row, nxt)
+    assert d == depth
+    return CsrGraph(ga, S, g.num_emitting_arcs, len(src), 0, d, g.max_em_out_degree,
+                    int(np.diff(row).max()), g.max_score_idx)
+
+
+def _eps_sweep_inputs(card, depth, rem, frontier_size=64, eps_records=None):
+    """A real chunk of the lattice decode on :func:`_eps_graph` (fold=False):
+    the sweep's arguments, eps records last."""
+    g = _eps_graph(depth)
+    fc = config_for_graph(g, frontier_size=frontier_size, max_active=48, beam=10.0,
+                          rem_budget=4096)
+    dec = BatchedLatticeDecoder(g, fc, lattice_beam=5.0, em_records=512,
+                                eps_records=eps_records, pad_time_to=8, fold=False,
+                                device=card)
+    assert dec.cfg.frontier.eps_iters == (depth or 16)
+    st0, _, _, _ = dec._init(len(rem))
+    rem = torch.tensor(rem, dtype=torch.int32, device=card)
+    S = g.num_states
+    _, o = lattice_chunk(dec._pg, _scores(card, len(rem)), rem, st0, dec.cfg, S)
+    return [o.frontier_states, o.frontier_costs, o.em_records, st0.states, rem,
+            sweep_config(dec.cfg, T), S, o.eps_records]
+
+
+def _same_eps_sweep(ref, got):
+    _same_sweep(ref, got)
+    assert torch.equal(ref.eps_count, got.eps_count)
+    for b in range(ref.eps_count.shape[0]):
+        n = int(ref.eps_count[b])
+        assert torch.equal(ref.eps_rows[b, :n], got.eps_rows[b, :n])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["D1", "D3", "D3-small-caps", "cyclic", "empty-eps"])
+def test_sweep_eps_kernel_matches_plain(card, case):
+    """K4's eps instance against plain on real chunks of an eps graph of
+    depth 1 and 3 (and the cyclic ring, eps_exact False), an utterance
+    ending inside the chunk and one past it; with caps small enough that
+    the eps rows overflow; and with every eps record padding."""
+    import dataclasses
+
+    depth = {"D1": 1, "cyclic": None}.get(case, 3)
+    args = _eps_sweep_inputs(card, depth, [40, 9, 13])
+    if case == "D3-small-caps":
+        args[5] = dataclasses.replace(args[5], eps_cap=5)
+    if case == "empty-eps":
+        args[7] = torch.full_like(args[7], -1)
+    assert args[5].eps_exact == (depth is not None)
+    ref = sweep_plain(*args)
+    before = sweep_chunk.launches
+    got = sweep_chunk(*args)
+    torch.cuda.synchronize()
+    assert sweep_chunk.launches == before + 1
+    _same_eps_sweep(ref, got)
+    assert bool(got.overflow.any()) == (case == "D3-small-caps")
+    assert (int(got.eps_count.sum()) == 0) == (case == "empty-eps")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("K", [64, 32768])  # 32768: the shared-memory spill instance
+def test_sweep_eps_kernel_bellman_bound(card, exact, K):
+    """Records of a two-state eps cycle with slack -1 lower the extras by 1
+    a pass, so the Bellman is still changing at its bound (D + 2, or
+    min(K, D * Re) + 2 with eps_exact False) on every frame that holds
+    them: kernel and plain agree on the rows and set the overflow flag.
+    At K 32768 part of each block's slots are read from device memory."""
+    rng = np.random.default_rng(3)
+    Tn, nb, R, D, Re, S = 6, 2, 16, 2, 4, max(2 * K, 20)
+    fs = np.stack([np.stack([rng.choice(S, K, replace=False) for _ in range(nb)])
+                   for _ in range(Tn)]).astype(np.int32)
+    fc = np.sort(rng.uniform(0, 3, (Tn, nb, K)), axis=-1).astype(np.float32)
+    fc[:, :, -2:] = np.inf
+    em = np.full((Tn, nb, R, 4), -1, np.int32)
+    em[..., 0] = rng.integers(0, S, (Tn, nb, R))
+    em[..., 1] = rng.integers(0, 100, (Tn, nb, R))
+    for t in range(1, Tn):
+        em[t, :, :8, 0] = fs[t - 1, :, :8]
+    em[..., 2] = fs[:, :, rng.integers(0, K, R)]
+    em[..., 3] = rng.uniform(10, 20, (Tn, nb, R)).astype(np.float32).view(np.int32)
+    eps = np.full((Tn, nb, D, Re, 4), -1, np.int32)
+    neg = np.float32(-1.0).view(np.int32)
+    for t in range(Tn):
+        for b in range(nb):
+            a, c = fs[t, b, 0], fs[t, b, 1]
+            eps[t, b, 0, 0] = (a, 7, c, neg)
+            eps[t, b, 0, 1] = (c, 8, a, neg)
+            eps[t, b, 1, 0] = (fs[t, b, 2], 9, a, np.float32(0.5).view(np.int32))
+    init = rng.choice(S, (nb, K)).astype(np.int32)
+    sc = SweepConfig(frontier_size=K, em_records=R, chunk_frames=Tn, lattice_beam=60.0,
+                     tok_cap=200 + K, em_cap=200, eps_records=Re, eps_iters=D,
+                     eps_exact=exact, eps_cap=100)
+    args = [torch.from_numpy(x).to(card) for x in (fs, fc, em, init)]
+    args += [torch.tensor([Tn, 3], dtype=torch.int32, device=card), sc, S,
+             torch.from_numpy(eps).to(card)]
+    ref = sweep_plain(*args)
+    got = sweep_chunk(*args)
+    torch.cuda.synchronize()
+    _same_eps_sweep(ref, got)
+    assert bool(got.overflow.all())
+
+
+def _same_rec_eps(card, states, costs, K, S, R, beam=LATTICE_BEAM, calls=2):
+    """K2's eps call (the first K lanes incumbents, payload -1 there)
+    ``calls`` times against its plain version, every field by raw bits,
+    ``cand_idx`` included.  Returns the plain result."""
+    nb, N = costs.shape
+    rng = np.random.default_rng(N + K + R)
+    src = rng.integers(0, S, (nb, N)).astype(np.int32)
+    arc = np.tile(np.arange(N, dtype=np.int32), (nb, 1))
+    src[:, :K] = arc[:, :K] = -1
+    pay = (torch.from_numpy(src).to(card), torch.from_numpy(arc).to(card))
+    st, co = torch.from_numpy(states).to(card), torch.from_numpy(costs).to(card)
+    ref = dedup_select_rec_plain(st, co, K, S, R, beam, pay, num_incumbents=K)
+    want = stack_records(ref)
+    before = dedup_select_rec.launches
+    for _ in range(calls):
+        got = dedup_select_rec(st, co, K, S, R, beam, pay, num_incumbents=K)
+        torch.cuda.synchronize()
+        assert torch.equal(ref.states, got.states)
+        assert torch.equal(ref.costs.view(torch.int32), got.costs.view(torch.int32))
+        assert torch.equal(ref.num_unique, got.num_unique)
+        assert torch.equal(ref.cand_idx, got.cand_idx)
+        assert torch.equal(want, got.records)
+        assert torch.equal(ref.rec_overflow, got.rec_overflow)
+    assert dedup_select_rec.launches == before + calls
+    return ref
+
+
+def _eps_call_inputs(seed, nb, N, K, S, n_valid, case):
+    """(nb, N) lanes of an eps iteration: a sorted frontier of incumbents
+    in the first K lanes, then eps lanes (grid costs with a -0.0).  "ties":
+    the first eps lanes on the incumbents' states at their costs; "no-eps-
+    winner": every eps lane on a live incumbent's state and dearer;
+    "all-incumbents": a full frontier of K incumbents cheaper than every
+    eps lane."""
+    states, costs = _dedup_inputs(seed, N, K, S, n_valid, True, nb, "grid")
+    rng = np.random.default_rng(seed + 1)
+    for b in range(nb):
+        live = int(np.isfinite(costs[b, :K]).sum())
+        if case == "ties":
+            states[b, K:K + 8], costs[b, K:K + 8] = states[b, :8], costs[b, :8]
+        elif case == "no-eps-winner":
+            fin = np.isfinite(costs[b, K:])
+            states[b, K:][fin] = states[b, rng.integers(0, live, int(fin.sum()))]
+            costs[b, K:][fin] += 100.0
+        elif case == "all-incumbents":
+            states[b, :K] = rng.choice(S, K, replace=False)
+            costs[b, :K] = np.sort(rng.integers(0, 8, K) * 0.25)
+            costs[b, K:][np.isfinite(costs[b, K:])] += 10.0
+    return states, costs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,nb,N,K,S,R,n_valid", [
+    # The bench's eps call: K 4096, N = 2K + 2048, R = K + 2048.
+    ("bench", 16, 10240, 4096, 102298, 6144, 5000),
+    ("ties", 3, 10240, 4096, 102298, 6144, 5000),
+    ("no-eps-winner", 3, 10240, 4096, 102298, 6144, 5000),
+    ("all-incumbents", 3, 10240, 4096, 102298, 6144, 5000),
+    # More eligible links than r_eps = 8: the caller's spill row is valid.
+    ("spill", 3, 10240, 4096, 102298, 4104, 5000),
+    # The winners-only budget (R <= K): incumbent winners are padding.
+    ("winners-only", 3, 10240, 4096, 102298, 2048, 5000),
+    # More eligible links than R: rec_overflow.
+    ("small-overflow", 3, 3000, 64, 500, 96, 2500),
+])
+def test_dedup_rec_eps_kernel_matches_plain(card, case, nb, N, K, S, R, n_valid):
+    """K2's eps call against plain, bitwise, each called twice."""
+    states, costs = _eps_call_inputs(N + K + R, nb, N, K, S, n_valid, case)
+    ref = _same_rec_eps(card, states, costs, K, S, R)
+    won = ref.cand_idx
+    if case in ("no-eps-winner", "all-incumbents"):
+        assert bool((won < K).all())
+    else:
+        assert bool((won >= K).any())
+    if case == "ties":
+        assert not bool(torch.isin(torch.arange(K, K + 8, device=card), won).any())
+    if case == "spill":
+        assert bool((ref.recs[1][:, R - K] >= 0).all())
+    assert bool(ref.rec_overflow.all()) == (case in ("winners-only", "small-overflow"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("clusters", [8, 4, 2, 1])
+def test_dedup_rec_eps_kernel_cluster_sizes(card, clusters):
+    """K2's eps call at a batch for which the cluster picker gives clusters
+    of 8, 4, 2 and 1 blocks."""
+    N, K, S, R = 20480, 4096, 102298, 6144
+    nb = _batch_for_cluster(lambda n: rec_cluster_size(n, N), clusters)
+    states, costs = _eps_call_inputs(nb, nb, N, K, S, 9000, "ties")
+    _same_rec_eps(card, states, costs, K, S, R)
+    assert rec_cluster_size(nb, N) == clusters
+
