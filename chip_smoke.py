@@ -86,13 +86,50 @@ Phases (any failure raises, and the process exits non-zero):
      first, each counted (K1 once a frame, K2 (1 + eps_iters) times a
      frame plus eps_iters per ``init_decoding``, K4, K6 and the row gather
      never) and checked as phase 6 against the same reference; prints ms
-     per frame.
+     per frame;
+  8. the graph file and the CLI: the unfolded bench graph (102,298
+     states, 4,266,835 emitting and 5,282 eps arcs) built as a
+     ``StdVectorFst`` from its CSR arrays, written with ``write_fst`` and
+     read back with ``load_graph``, which must equal the ``.npz`` graph
+     array for array; then ``cli.main(["decode", "--graph", <file>, ...,
+     "--device", "cuda"])`` on phase 7's two utterances saved as ``.npy``:
+     the lattice decoder (phase 7's config, lattice files, n-best of 5),
+     whose hyps must equal the ``LatticeFasterDecoder`` labels and whose
+     lattice files, read back with ``read_fst``, the raw lattices of
+     ``tests/data/torch_port_lattice_eps_ref.json``; then the faster
+     decoder with phase 5's options, whose hyps must equal the streaming
+     labels of ``tests/data/torch_port_viterbi_ref.json``; the CLI's
+     decoders must derive phases 7's and 5's device configs from the
+     file's graph; each run counted (as phases 7 and 5); prints the
+     seconds to build, write and read the graph and per utterance;
+  9. the CTC encoder: ``CtcEncoder`` at its default config (80 features,
+     hidden 256, 4 layers, vocab 500, subsampling 4), seeded numpy weights
+     carried across by ``encoder_from_numpy``, on 16 utterances of 4000
+     feature frames (1000 posterior frames each), TF32 off; the
+     posteriors must be within 1e-4 of the same module in float64 on the
+     CPU; then decoded by ``BatchedLatticeDecoder`` at phase 3's config,
+     counted as phase 3 (K1 and K2 once a frame, K4 once a chunk); then
+     K1 and K2 on frames ``ENCODER_FRAMES`` of that decode and K4 on its
+     first chunk held against their plain versions (the untrained
+     scores overflow far more often than the bench's);
+  10. link recall: the port's ``OracleLatticeDecoder`` (host) against
+     ``BatchedLatticeDecoder(device_prune=False)`` on utterance 0 trimmed
+     to the reference's frames, at em_records 4096, 8192 and 16384 (the
+     bench's decoder config, ``kaldi_decoder_tpu_torch.lattice.recall``);
+     recall, link counts, extra links, overflow and saturated frames,
+     best-path match and device config must equal
+     ``tests/data/torch_port_recall_ref.json`` (the JAX decoder and
+     oracle); each decode counted (K1 and K2 once a frame, no K4).
 Phase 2 also holds K2's eps call (incumbents first) on the eps
 iterations of the unfolded lattice decode at frames 150 and 250, and K4
 with eps records on its first 500-frame chunk, against their plain
-versions, bitwise, and times them.
+versions, bitwise, and times them; K2's emitting and eps calls at the
+streaming lattice decoder's B=1 shapes (phase 7's decoder, frame 60);
+and K1 and K2 at phase 10's recall shapes (B=1, K 4096, each em_records
+budget) on every frame of the recall utterance, timed on the frame with
+the most records.
 The line before the last is a JSON object with each kernel's launches
-(summed over the counted runs of phases 3-5, and by phase), error,
+(summed over the counted runs of phases 3-10, and by phase), error,
 times, bound and library-call time; the last is ``{"ok": true,
 "device": {...}}``.
 
@@ -104,6 +141,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -132,6 +170,14 @@ K6_FRAMES = (0, 5, 60, 150)  # Viterbi frames whose emitting candidates K6 is ch
 EPS_FRAME = 60  # frame of the unfolded decode whose eps iteration K6 is checked on
 STREAM_FRAME = 60  # frame of the streaming decode its kernels are checked on
 FRAMES_PER_CALL = 100  # advance_decoding(max_num_frames=...) in phase 5
+# The recall measurement (phase 10, scripts/measure_recall_torch.py):
+# bench.make_decoder's lattice decoder (bench.py:170-187; the device
+# re-derives flat_group 4, ROADMAP Queue 3) at each em_records budget, and
+# the oracle at the same beams (scripts/measure_recall.py:59-62).
+RECALL_CONFIG = dict(BENCH_CONFIG, eps_rem_budget=2048, flat_group=8)
+RECALL_KW = dict(lattice_beam=8.0, eps_records=1024, pad_time_to=CHUNK)
+RECALL_BUDGETS = (4096, 8192, 16384)
+ENCODER_FRAMES = (1, 150, 600)  # frames of phase 9's decode whose K1 and K2 calls it holds
 
 
 def log(*a):
@@ -516,38 +562,54 @@ def time_k6(name, args):
     return t
 
 
+def lattice_frontiers(dec, scores_tm, frames):
+    """Step ``dec``'s lattice frame over ``scores_tm`` (T, B, V) from the
+    start, and before each frame of ``frames`` yield (t, K1's arguments
+    there) as the frame would call K1."""
+    import torch
+
+    from kaldi_decoder_tpu_torch.decoders.lattice_dev import lattice_frame_step_batched
+    from kaldi_decoder_tpu_torch.ops.cutoff import get_cutoff
+
+    fc, S, Bn = dec.cfg.frontier, dec._dev_graph.num_states, scores_tm.shape[1]
+    st, _, _, _ = dec._init(Bn)
+    active = torch.ones(Bn, dtype=torch.bool, device=dec.device)
+    for t in range(max(frames) + 1):
+        if t in frames:
+            cut = get_cutoff(st.costs, fc.beam, fc.max_active, fc.min_active,
+                             fc.beam_delta, costs_sorted=True)
+            yield t, (st.states, st.costs, cut.cutoff, cut.adaptive_beam, scores_tm[t],
+                      dec._pg, fc)
+        st, _ = lattice_frame_step_batched(st, scores_tm[t], active, dec._pg, dec.cfg, S)
+
+
+def k2_lanes(dec, ex):
+    """K2's arguments on K1's lanes ``ex`` in ``dec``'s lattice frame."""
+    sb = dec.cfg.lattice_beam + 1e-4  # lattice_frame_step_batched's slack beam
+    return (ex.dst, ex.cost, dec.cfg.frontier.frontier_size, dec._dev_graph.num_states,
+            dec.cfg.em_records, sb, (ex.src_state, ex.arc_id))
+
+
 def check_k1(dec, scores_tm):
     """K1 against its plain version on the frontiers of real frames."""
     import torch
 
-    from kaldi_decoder_tpu_torch.decoders.lattice_dev import lattice_frame_step_batched
     from kaldi_decoder_tpu_torch.kernels.expand import expand_filter, expand_filter_plain
-    from kaldi_decoder_tpu_torch.ops.cutoff import get_cutoff
 
     fc = dec.cfg.frontier
     S = dec._dev_graph.num_states
-    st, _, _, _ = dec._init(B)
-    active = torch.ones(B, dtype=torch.bool, device=dec.device)
     max_err, timed_args, overflowed = 0.0, None, 0
     k2_args = []  # K2's arguments on K1's lanes, frame by frame
-    sb = dec.cfg.lattice_beam + 1e-4  # lattice_frame_step_batched's slack beam
-    for t in range(max(K1_FRAMES + K2_FRAMES) + 1):
-        if t in K1_FRAMES or t in K2_FRAMES:
-            cut = get_cutoff(st.costs, fc.beam, fc.max_active, fc.min_active,
-                             fc.beam_delta, costs_sorted=True)
-            args = (st.states, st.costs, cut.cutoff, cut.adaptive_beam,
-                    scores_tm[t], dec._pg, fc)
-            got = expand_filter(*args)
-            if t in K1_FRAMES:
-                ref = expand_filter_plain(*args)
-                torch.cuda.synchronize()
-                max_err = max(max_err, same_expansion(ref, got, f"frame {t}"))
-                check_unread_states(ref, args, S, f"frame {t}")
-                overflowed += int(ref.overflow.sum())
-                timed_args = args
-            k2_args.append((t, (got.dst, got.cost, fc.frontier_size, S, dec.cfg.em_records, sb,
-                                (got.src_state, got.arc_id))))
-        st, _ = lattice_frame_step_batched(st, scores_tm[t], active, dec._pg, dec.cfg, S)
+    for t, args in lattice_frontiers(dec, scores_tm, set(K1_FRAMES + K2_FRAMES)):
+        got = expand_filter(*args)
+        if t in K1_FRAMES:
+            ref = expand_filter_plain(*args)
+            torch.cuda.synchronize()
+            max_err = max(max_err, same_expansion(ref, got, f"frame {t}"))
+            check_unread_states(ref, args, S, f"frame {t}")
+            overflowed += int(ref.overflow.sum())
+            timed_args = args
+        k2_args.append((t, k2_lanes(dec, got)))
     log(f"K1 expand (row gather folded in): equal to plain on frames {list(K1_FRAMES)}, "
         "also with the states it must not read set to -1 and to S + 7 "
         f"(B={B}, lanes/utt={fc.num_candidates}, remainder overflows seen={overflowed}, "
@@ -557,6 +619,82 @@ def check_k1(dec, scores_tm):
     log(f"  device activities of one call: "
         f"{format_split(kernel_split(lambda: expand_filter(*timed_args)))}")
     return max_err, t, timed_args[0], k2_args
+
+
+def hold_lattice_frames(dec, scores_tm, frames, what):
+    """K1 and K2 held against their plain versions on ``dec``'s own
+    ``frames`` of ``scores_tm`` (T, B, V): K1 bitwise, also with the states
+    it must not read set to -1 and to S + 7, then K2 on K1's lanes, every
+    field.  Returns the two largest errors, the remainder overflows and
+    the record overflows seen, the most records an utterance took (and
+    the frame), and that frame's K1 and K2 arguments."""
+    import torch
+
+    from kaldi_decoder_tpu_torch.kernels.dedup_rec import dedup_select_rec
+    from kaldi_decoder_tpu_torch.kernels.expand import expand_filter, expand_filter_plain
+    from kaldi_decoder_tpu_torch.ops.segment import dedup_select_rec as dedup_select_rec_plain
+
+    S = dec._dev_graph.num_states
+    k1_err = k2_err = 0.0
+    seen = dict(remainder_overflows=0, record_overflows=0, most_records=-1, at_frame=None)
+    for t, k1_args in lattice_frontiers(dec, scores_tm, frames):
+        where = f"{what} frame {t}"
+        ref = expand_filter_plain(*k1_args)
+        got = expand_filter(*k1_args)
+        torch.cuda.synchronize()
+        k1_err = max(k1_err, same_expansion(ref, got, where))
+        check_unread_states(ref, k1_args, S, where)
+        k2_args = k2_lanes(dec, got)
+        rref = dedup_select_rec_plain(*k2_args)
+        rgot = dedup_select_rec(*k2_args)
+        torch.cuda.synchronize()
+        k2_err = max(k2_err, same_records(rref, rgot, f"the lanes of {where}"))
+        seen["remainder_overflows"] += int(ref.overflow.sum())
+        seen["record_overflows"] += int(rref.rec_overflow.sum())
+        taken = int((rref.rec_dst >= 0).sum(dim=1).max())
+        if taken >= seen["most_records"]:
+            seen.update(most_records=taken, at_frame=t)
+            busiest = k1_args, k2_args
+    return k1_err, k2_err, seen, *busiest
+
+
+def check_recall_kernels(graph, scores_tm, frames):
+    """K1 and K2 at the shapes of phase 10's recall decodes (B=1, K 4096,
+    em_records 4096, 8192 and 16384): each budget's decoder's own frames
+    of utterance 0, every one that phase 10 decodes (``frames``), held
+    against the plain versions (:func:`hold_lattice_frames`); K1 and each
+    budget's K2 timed on the frame where K2 takes the most records.
+    Returns the two largest errors and the timings."""
+    from kaldi_decoder_tpu_torch.kernels.dedup_rec import (
+        cluster_size,
+        dedup_select_rec,
+        stack_records,
+    )
+    from kaldi_decoder_tpu_torch.kernels.expand import expand_filter, expand_filter_plain
+    from kaldi_decoder_tpu_torch.ops.segment import dedup_select_rec as dedup_select_rec_plain
+
+    k1_err = k2_err = 0.0
+    timed = {}
+    for r in RECALL_BUDGETS:
+        dec = recall_decoder(graph, r, "cuda")
+        e1, e2, seen, k1_args, k2_args = hold_lattice_frames(
+            dec, scores_tm[:, :1], frames, f"recall (em_records {r})")
+        k1_err, k2_err = max(k1_err, e1), max(k2_err, e2)
+        N = k2_args[1].shape[1]
+        log(f"K1 and K2 at the recall decode's shapes (B=1, K={k2_args[2]}, em_records={r}, "
+            f"flat_group {dec.cfg.frontier.flat_group}, N={N}; K2 clusters of "
+            f"{cluster_size(1, N)} blocks): equal to plain on utterance 0's frames "
+            f"0-{max(frames)} ({seen}); timed on frame {seen['at_frame']}:")
+        if "k1" not in timed:
+            timed["k1"] = time_kernel("K1, recall decode", lambda: expand_filter(*k1_args),
+                                      lambda: expand_filter_plain(*k1_args), k1_work(*k1_args))
+        timed[r] = time_kernel(f"K2, recall decode, em_records {r}",
+                               lambda: dedup_select_rec(*k2_args),
+                               lambda: stack_records(dedup_select_rec_plain(*k2_args)),
+                               k2_work(*k2_args))
+        timed[r].update(frame=seen["at_frame"], records=seen["most_records"])
+        del dec
+    return k1_err, k2_err, timed
 
 
 def check_k2(k2_args):
@@ -703,8 +841,11 @@ def same_sweep(ref, got, what):
     return max_err
 
 
-def check_k4(dec, scores_tm, lengths):
-    """K4 against the plain sweep on the first real chunk."""
+def hold_k4(dec, scores_tm, lengths, what):
+    """K4 against the plain sweep on ``dec``'s first chunk of ``scores_tm``
+    (T, B, V), every count, flag and survivor row.  Returns the largest
+    row difference, the call's arguments, and the plain and kernel
+    results."""
     import torch
 
     from kaldi_decoder_tpu_torch.decoders.lattice_dev import lattice_chunk
@@ -712,24 +853,32 @@ def check_k4(dec, scores_tm, lengths):
     from kaldi_decoder_tpu_torch.kernels.sweep import sweep_chunk
 
     S = dec._dev_graph.num_states
-    st0, _, _, _ = dec._init(B)
+    st0, _, _, _ = dec._init(scores_tm.shape[1])
     rem = torch.from_numpy(lengths).to(dec.device)
     _, o = lattice_chunk(dec._pg, scores_tm[:CHUNK], rem, st0, dec.cfg, S)
-    sc = sweep_config(dec.cfg, CHUNK)
-    args = (o.frontier_states, o.frontier_costs, o.em_records, st0.states, rem, sc, S)
+    args = (o.frontier_states, o.frontier_costs, o.em_records, st0.states, rem,
+            sweep_config(dec.cfg, CHUNK), S)
     ref = sweep_plain(*args)
     got = sweep_chunk(*args)
     torch.cuda.synchronize()
-    max_err = same_sweep(ref, got, "K4")
-    from kaldi_decoder_tpu_torch.kernels._build import kernels
+    return same_sweep(ref, got, what), args, ref, got
 
+
+def check_k4(dec, scores_tm, lengths):
+    """K4 against the plain sweep on the first real chunk."""
+    from kaldi_decoder_tpu_torch.decoders.sweep import sweep_plain
+    from kaldi_decoder_tpu_torch.kernels._build import kernels
+    from kaldi_decoder_tpu_torch.kernels.sweep import sweep_chunk
+
+    max_err, args, ref, got = hold_k4(dec, scores_tm, lengths, "K4")
+    sc = args[5]
     C = kernels().kd_sweep_cluster(B, -(-sc.frontier_size // 4) * 4, sc.em_records)
     log(f"K4 sweep: equal to plain on chunk 0 (T={CHUNK}, B={B}; survivors tok "
         f"{ref.tok_count.sum().item()}, em {ref.em_count.sum().item()}; clusters of {C} "
         "blocks):")
     t = time_kernel("K4, one chunk", lambda: sweep_chunk(*args), lambda: sweep_plain(*args),
                     k4_work(*args[:5], got), reps=2)
-    del o, ref, got
+    del ref, got
     return float(max_err), t
 
 
@@ -905,6 +1054,77 @@ def check_streaming_kernels(fd, scores_tm):
     k6_eps = time_k6("K6, eps candidates, streaming", eps_args)
     return dict(k1_err=c["k1_err"], k6_err=c["k6_err"], times=times, k1=k1_dev, k6=k6,
                 k6_eps=k6_eps)
+
+
+def streaming_lattice_decoder(graph, lref):
+    """The streaming lattice decoder of phase 7, with the reference's config."""
+    from kaldi_decoder_tpu_torch import LatticeFasterDecoder, LatticeFasterDecoderConfig
+
+    return LatticeFasterDecoder(graph, LatticeFasterDecoderConfig(**lref["faster"]["config"]),
+                                device="cuda")
+
+
+def check_streaming_k2(ld, scores_tm):
+    """K2's emitting and eps calls held against their plain versions at
+    the shapes of the streaming lattice decoder that phase 7 drives (B=1,
+    K 2048, em_records 4096, eps_records 1280, the unfolded graph): the
+    decoder's own frames of utterance 0 up to ``STREAM_FRAME``, then that
+    frame's emitting lanes (K1's) and its first eps iteration's
+    (incumbents first); each timed.  Returns the largest error and the
+    two calls' timings."""
+    import torch
+
+    from kaldi_decoder_tpu_torch.decoders.lattice_dev import (
+        eps_rec_candidates,
+        lattice_emit_stage,
+        lattice_frame_step_batched,
+    )
+    from kaldi_decoder_tpu_torch.kernels.dedup_rec import (
+        cluster_size,
+        dedup_select_rec,
+        stack_records,
+    )
+    from kaldi_decoder_tpu_torch.kernels.expand import expand_filter
+    from kaldi_decoder_tpu_torch.ops.cutoff import get_cutoff
+    from kaldi_decoder_tpu_torch.ops.segment import dedup_select_rec as dedup_select_rec_plain
+
+    cfg, pg, S = ld._dev_cfg, ld._pg, ld._graph.num_states
+    fc, K = cfg.frontier, cfg.frontier.frontier_size
+    sb = cfg.lattice_beam + 1e-4
+    ld.init_decoding()
+    st = ld._state
+    scores_u = scores_tm[:, :1]
+    active = torch.ones(1, dtype=torch.bool, device=st.states.device)
+    for t in range(STREAM_FRAME):
+        st, _ = lattice_frame_step_batched(st, scores_u[t], active, pg, cfg, S)
+    cut = get_cutoff(st.costs, fc.beam, fc.max_active, fc.min_active, fc.beam_delta,
+                     costs_sorted=True)
+    ex = expand_filter(st.states, st.costs, cut.cutoff, cut.adaptive_beam,
+                       scores_u[STREAM_FRAME], pg, fc)
+    em_args = (ex.dst, ex.cost, K, S, cfg.em_records, sb, (ex.src_state, ex.arc_id))
+    mid, _, next_cutoff, _, _, _ = lattice_emit_stage(st, scores_u[STREAM_FRAME], pg, fc, S,
+                                                      cfg.em_records, sb)
+    cs, cc, pay, _ = eps_rec_candidates(mid, next_cutoff, pg, fc)
+    eps_args = (cs, cc, K, S, K + cfg.eps_records, sb, pay)
+    where = f"streaming lattice frame {STREAM_FRAME}"
+    err = 0.0
+    for args, inc, what in ((em_args, 0, "the emitting lanes"), (eps_args, K, "the eps lanes")):
+        ref = dedup_select_rec_plain(*args, num_incumbents=inc)
+        got = dedup_select_rec(*args, num_incumbents=inc)
+        torch.cuda.synchronize()
+        err = max(err, same_records(ref, got, f"{what} of {where}"))
+    log(f"K2 at the streaming lattice decoder's shapes (B=1, K={K}, em_records="
+        f"{cfg.em_records}, eps_records={cfg.eps_records}; emitting N={ex.cost.shape[1]}, "
+        f"eps N={cc.shape[1]}; clusters of {cluster_size(1, ex.cost.shape[1])} and "
+        f"{cluster_size(1, cc.shape[1])} blocks): equal to plain on {where}; timed there:")
+    timed = {}
+    for key, args, inc in (("em", em_args, 0), ("eps", eps_args, K)):
+        timed[key] = time_kernel(
+            f"K2, {'emitting' if key == 'em' else 'eps'} call, streaming",
+            lambda: dedup_select_rec(*args, num_incumbents=inc),
+            lambda: stack_records(dedup_select_rec_plain(*args, num_incumbents=inc)),
+            k2_work(*args, num_incumbents=inc))
+    return err, timed
 
 
 def check_utterance(what, b, u, lat, num_active, best_costs, overflows, saturations):
@@ -1242,6 +1462,16 @@ def lattice_eps_path(udec, scores, lengths, refs, lref):
     return n, t_dec
 
 
+def lattice_device_config(dec):
+    """The streaming lattice decoder's device config, as the reference records it."""
+    c = dec._dev_cfg
+    return dict({f: getattr(c.frontier, f) for f in (
+        "beam", "max_active", "min_active", "beam_delta", "frontier_size", "block_width",
+        "rem_budget", "flat_group", "eps_block_width", "eps_rem_budget", "eps_iters",
+        "eps_exact")}, em_records=c.em_records, eps_records=c.eps_records,
+        lattice_beam=c.lattice_beam)
+
+
 def streaming_lattice_path(graph, scores, lref, device="cuda"):
     """Phase 7: ``LatticeFasterDecoder`` over the reference's utterances,
     100 frames per ``advance_decoding``, then ``LatticeSimpleDecoder`` on
@@ -1256,21 +1486,13 @@ def streaming_lattice_path(graph, scores, lref, device="cuda"):
         LatticeSimpleDecoderConfig,
     )
 
-    def device_config(dec):
-        c = dec._dev_cfg
-        return dict({f: getattr(c.frontier, f) for f in (
-            "beam", "max_active", "min_active", "beam_delta", "frontier_size", "block_width",
-            "rem_budget", "flat_group", "eps_block_width", "eps_rem_budget", "eps_iters",
-            "eps_exact")}, em_records=c.em_records, eps_records=c.eps_records,
-            lattice_beam=c.lattice_beam)
-
     out = {}
     for kind, make, cfg_cls in (("faster", LatticeFasterDecoder, LatticeFasterDecoderConfig),
                                 ("simple", LatticeSimpleDecoder, LatticeSimpleDecoderConfig)):
         part = lref[kind]
         dec = make(graph, cfg_cls(**part["config"]), device=device)
-        if device_config(dec) != part["device_config"]:
-            raise AssertionError(f"{kind}: config {device_config(dec)} != the reference's")
+        if lattice_device_config(dec) != part["device_config"]:
+            raise AssertionError(f"{kind}: config {lattice_device_config(dec)} != the reference's")
         D = dec._dev_cfg.frontier.eps_iters
         reset_counts()
         t_dec = t_host = 0.0
@@ -1309,6 +1531,317 @@ def streaming_lattice_path(graph, scores, lref, device="cuda"):
             f"{t_host:.3f} s; launches {n}; matches the JAX reference")
         out[kind] = (n, 1000 * t_dec / frames)
     return out
+
+
+def csr_to_fst(graph):
+    """A ``StdVectorFst`` built from a compiled graph's CSR arrays, each
+    state's emitting arcs before its eps arcs, so that compiling it gives
+    the graph back (``compile_fst`` partitions stably)."""
+    import numpy as np
+
+    from kaldi_decoder_tpu_torch.fst.fst import StdVectorFst
+
+    ga, S = graph.arrays, graph.num_states
+    em_deg, eps_deg = np.diff(ga.em_row_ptr), np.diff(ga.eps_row_ptr)
+    row = np.zeros(S + 1, np.int64)
+    row[1:] = np.cumsum(em_deg + eps_deg)
+    E = int(row[-1])
+    pos_em = np.repeat(row[:-1], em_deg) + (np.arange(graph.num_emitting_arcs)
+                                           - np.repeat(ga.em_row_ptr[:-1], em_deg))
+    pos_eps = np.repeat(row[:-1] + em_deg, eps_deg) + (np.arange(graph.num_eps_arcs)
+                                                      - np.repeat(ga.eps_row_ptr[:-1], eps_deg))
+    il, ol, ns = (np.zeros(E, np.int32) for _ in range(3))
+    w = np.zeros(E, np.float32)
+    il[pos_em], ol[pos_em], w[pos_em], ns[pos_em] = (ga.em_ilabel, ga.em_olabel, ga.em_weight,
+                                                     ga.em_next)
+    ol[pos_eps], w[pos_eps], ns[pos_eps] = ga.eps_olabel, ga.eps_weight, ga.eps_next
+    return StdVectorFst.from_arrays(row, il, ol, w, ns, ga.final_cost, graph.start_state)
+
+
+def same_graph(want, got, what):
+    import numpy as np
+
+    for name in want.arrays._fields:
+        a, b = getattr(want.arrays, name), getattr(got.arrays, name)
+        if a.dtype != b.dtype or not np.array_equal(a, b):
+            raise AssertionError(f"{what}: {name} differs")
+    for f in ("num_states", "num_emitting_arcs", "num_eps_arcs", "start_state", "eps_depth",
+              "max_em_out_degree", "max_eps_out_degree", "max_score_idx"):
+        if getattr(want, f) != getattr(got, f):
+            raise AssertionError(f"{what}: {f} {getattr(got, f)} != {getattr(want, f)}")
+
+
+def run_cli(argv):
+    """``kaldi_decoder_tpu_torch.cli.main(argv)``, its JSON lines parsed."""
+    import contextlib
+    import io
+
+    from kaldi_decoder_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    if rc != 0:
+        raise AssertionError(f"cli exited {rc}")
+    return [json.loads(line) for line in buf.getvalue().splitlines()]
+
+
+def graph_file_path(graph, scores, vref, lref, tmp):
+    """Phase 8: the bench graph written as an OpenFst binary and read back
+    with ``load_graph``; then the CLI as a user runs it on that file, the
+    lattice decoder with lattice files and n-best, then the faster
+    decoder, each counted and checked against the JAX references."""
+    import numpy as np
+    import torch
+
+    from kaldi_decoder_tpu_torch import cli
+    from kaldi_decoder_tpu_torch.fst import load_graph, read_fst, write_fst
+
+    t0 = time.perf_counter()
+    fst = csr_to_fst(graph)
+    t_build = time.perf_counter() - t0
+    path = os.path.join(tmp, "HLG.fst")
+    t0 = time.perf_counter()
+    write_fst(fst, path)
+    t_write = time.perf_counter() - t0
+    del fst
+    t0 = time.perf_counter()
+    fgraph = load_graph(path)
+    t_read = time.perf_counter() - t0
+    same_graph(graph, fgraph, "load_graph of the written file")
+    log(f"graph file: {graph.num_states} states, {graph.num_emitting_arcs} emitting + "
+        f"{graph.num_eps_arcs} eps arcs, {os.path.getsize(path)} bytes; StdVectorFst from the "
+        f"CSR arrays {t_build:.3f} s, write_fst {t_write:.3f} s, load_graph {t_read:.3f} s; "
+        "equal to the .npz graph array for array")
+
+    lutts, sutts = lref["faster"]["utts"], vref["streaming"]["utts"]
+    npys = []
+    for b, u in enumerate(lutts):
+        if sutts[b]["length"] != u["length"]:
+            raise AssertionError("the two references' utterances differ in length")
+        npys.append(os.path.join(tmp, f"utt{b}.npy"))
+        np.save(npys[-1], scores[b, : u["length"]])
+    lat_dir = os.path.join(tmp, "lats")
+    os.makedirs(lat_dir)
+    lcfg, sopt = lref["faster"]["config"], vref["streaming"]["options"]
+    lattice_argv = ["decode", "--graph", path, "--logits", *npys, "--decoder", "lattice",
+                    "--beam", f"{lcfg['beam']:g}", "--max-active", str(lcfg["max_active"]),
+                    "--min-active", str(lcfg["min_active"]),
+                    "--lattice-beam", f"{lcfg['lattice_beam']:g}", "--nbest", "5",
+                    "--lattice-dir", lat_dir, "--device", "cuda"]
+    faster_argv = ["decode", "--graph", path, "--logits", *npys, "--decoder", "faster",
+                   "--beam", f"{sopt['beam']:g}", "--max-active", str(sopt["max_active"]),
+                   "--min-active", str(sopt["min_active"]), "--device", "cuda"]
+    parser, dev = cli.build_parser(), torch.device("cuda")
+    ld = cli.make_decoder(parser.parse_args(lattice_argv), fgraph, dev)
+    if lattice_device_config(ld) != lref["faster"]["device_config"]:
+        raise AssertionError(f"cli lattice config {lattice_device_config(ld)} != phase 7's")
+    fd = cli.make_decoder(parser.parse_args(faster_argv), fgraph, dev)
+    want = vref["streaming"]["device_config"]
+    if {f: getattr(fd._cfg, f) for f in want} != want:
+        raise AssertionError("cli faster decoder config != phase 5's")
+    D = ld._dev_cfg.frontier.eps_iters
+    del ld, fd, fgraph
+    frames = sum(u["length"] for u in lutts)
+
+    out = {}
+    for kind, argv, utts in (("lattice", lattice_argv, lutts), ("faster", faster_argv, sutts)):
+        reset_counts()
+        t0 = time.perf_counter()
+        lines = run_cli(argv)
+        secs = time.perf_counter() - t0
+        n = read_counts()
+        k2 = frames * (1 + D) + len(utts) * D if kind == "lattice" else 0
+        k6 = frames * (1 + D) + len(utts) * D if kind == "faster" else 0
+        want_n = dict(gather=0, k1=frames, k2=k2, k4=0, k6=k6)
+        if n != want_n:
+            raise AssertionError(f"cli {kind}: launch counts {n}, want {want_n}")
+        if len(lines) != len(utts):
+            raise AssertionError(f"cli {kind}: {len(lines)} lines for {len(utts)} utterances")
+        for b, (rec, u) in enumerate(zip(lines, utts)):
+            if rec.get("hyp") != " ".join(map(str, u["olabels"])):
+                raise AssertionError(f"cli {kind}, utterance {b}: hyp differs from the JAX "
+                                     "reference")
+            if kind == "lattice":
+                if rec["reached_final"] != u["reached_final"]:
+                    raise AssertionError(f"cli lattice, utterance {b}: reached_final")
+                digest = lattice_digest(read_fst(rec["lattice"]))
+                want_d = tuple(u[k] for k in ("lattice_states", "lattice_arcs",
+                                              "lattice_arcs_sha256", "lattice_finals_sha256"))
+                if digest != want_d:
+                    raise AssertionError(f"cli lattice, utterance {b}: the lattice file read "
+                                         "back differs from the reference's raw lattice")
+                nb = rec["nbest"]
+                if nb[0]["hyp"] != rec["hyp"] or [x["cost"] for x in nb] != sorted(
+                        x["cost"] for x in nb):
+                    raise AssertionError(f"cli lattice, utterance {b}: n-best malformed")
+        log(f"cli decode --decoder {kind} on the graph file ({len(utts)} utterances, {frames} "
+            f"frames): {secs:.3f} s, {secs / len(utts):.3f} s per utterance (the cli's own "
+            f"seconds: {[rec['seconds'] for rec in lines]}); launches {n}; hyps equal the JAX "
+            "reference" + ("; lattice files read back equal the reference's raw lattices, "
+                           f"n-best of {[len(rec['nbest']) for rec in lines]}"
+                           if kind == "lattice" else ""))
+        out[kind] = (n, secs / len(utts))
+    return out, dict(build_s=t_build, write_s=t_write, read_s=t_read)
+
+
+def encoder_params(cfg, rng):
+    """Encoder weights in the layout of ``kaldi_decoder_tpu.models.ctc.init_params``,
+    drawn from the numpy generator ``rng`` with its scales."""
+    import numpy as np
+
+    F_in, H, V = cfg.num_features * cfg.subsampling, cfg.hidden_dim, cfg.vocab_size
+
+    def normal(rows, cols):
+        return (rng.standard_normal((rows, cols)) / np.sqrt(rows)).astype(np.float32)
+
+    params = {"in_proj": normal(F_in, H), "out_proj": normal(H, V),
+              "out_bias": np.zeros(V, np.float32), "layers": []}
+    for _ in range(cfg.num_layers):
+        params["layers"].append({"w1": normal(H, 4 * H), "w2": normal(4 * H, H),
+                                 "scale": np.ones(H, np.float32)})
+    return params
+
+
+def encoder_path(graph, fc):
+    """Phase 9: ``CtcEncoder`` (the default config, seeded numpy weights
+    carried across by ``encoder_from_numpy``) on B utterances of 4T feature
+    frames on the card, held against the same module in float64 on the
+    CPU; then its posteriors decoded by ``BatchedLatticeDecoder`` at phase
+    3's config, counted as phase 3 is; then K1 and K2 on frames
+    ``ENCODER_FRAMES`` of that decode, and K4 on its first chunk, held
+    against their plain versions."""
+    import numpy as np
+    import torch
+
+    from kaldi_decoder_tpu_torch import BatchedLatticeDecoder
+    from kaldi_decoder_tpu_torch.models import CtcEncoderConfig, encoder_from_numpy
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on")
+    cfg = CtcEncoderConfig()
+    if cfg.vocab_size != V:
+        raise AssertionError(f"encoder vocabulary {cfg.vocab_size} != the graph's {V}")
+    rng = np.random.default_rng(SEED + 100)
+    params = encoder_params(cfg, rng)
+    feats = rng.standard_normal((B, T * cfg.subsampling, cfg.num_features)).astype(np.float32)
+    enc = encoder_from_numpy(params, cfg, "cuda")
+    feats_d = torch.from_numpy(feats).cuda()
+    with torch.no_grad():
+        post = enc(feats_d)
+        ms = device_ms(lambda: enc(feats_d))
+        t0 = time.perf_counter()
+        ref = encoder_from_numpy(params, cfg, "cpu").double()(torch.from_numpy(feats).double())
+        t_cpu = time.perf_counter() - t0
+    err = float((post.cpu().double() - ref).abs().max())
+    if post.shape != (B, T, V) or not torch.isfinite(post).all() or err > 1e-4:
+        raise AssertionError(f"encoder posteriors {tuple(post.shape)}, max |err| {err} against "
+                             "float64 on the CPU (limit 1e-4)")
+    log(f"encoder: {cfg} on {B} x {T * cfg.subsampling} "
+        f"feature frames -> {tuple(post.shape)} posteriors in {ms:.3f} ms (device, CUDA events, "
+        f"TF32 off); max |err| {err:.3e} against float64 on the CPU ({t_cpu:.1f} s there)")
+    scores = post.cpu().numpy()
+    lengths = np.full(B, T, np.int32)
+    del ref, enc, feats_d
+    dec = BatchedLatticeDecoder(graph, fc, device="cuda", **DECODER_KW)
+    reset_counts()
+    t0 = time.perf_counter()
+    res = dec.decode(scores, lengths, chunk_frames=CHUNK, device_prune=True)
+    t_dec = time.perf_counter() - t0
+    n = read_counts()
+    if res.survivors is None:
+        raise AssertionError("the device sweep overflowed and the decode fell back")
+    frames = res.num_active.shape[0]
+    want_n = dict(gather=0, k1=frames, k2=frames, k4=len(res.survivors), k6=0)
+    if n != want_n:
+        raise AssertionError(f"encoder decode: launch counts {n}, want {want_n}")
+    hyps = [res.best_path_labels(b) for b in range(B)]
+    if not all(isinstance(h, list) for h in hyps):
+        raise AssertionError("an encoder utterance produced no 1-best")
+    if not all(((res.num_active[:, b] >= 1) & (res.num_active[:, b] <= fc.frontier_size)).all()
+               for b in range(B)):
+        raise AssertionError("encoder decode: per-frame stats malformed")
+    log(f"encoder -> lattice decode: {t_dec:.3f} s (B={B}, T={T}); launches {n}; words per "
+        f"utterance {[len(h) for h in hyps]}; overflow frames {int(res.overflows.sum())}, "
+        f"saturated frames {int(res.saturations.sum())}")
+    post_tm = post.transpose(0, 1).contiguous()
+    k1_err, k2_err, seen, _, _ = hold_lattice_frames(dec, post_tm, ENCODER_FRAMES,
+                                                     "the encoder decode's")
+    k4_err, _, sref, _ = hold_k4(dec, post_tm, lengths, "K4 on the encoder decode's chunk 0")
+    log(f"  K1 and K2 equal to plain on the encoder decode's frames {list(ENCODER_FRAMES)} "
+        f"({seen}); K4 on its chunk 0 (survivors tok {sref.tok_count.sum().item()}, em "
+        f"{sref.em_count.sum().item()}, overflow {sref.overflow.sum().item()})")
+    del post, post_tm, sref
+    return n, dict(encoder_ms=ms, decode_s=t_dec, max_abs_err=err,
+                   kernel_errs=dict(k1=k1_err, k2=k2_err, k4=float(k4_err)))
+
+
+def recall_decoder(graph, em_records, device):
+    """The recall measurement's lattice decoder at ``em_records``."""
+    from kaldi_decoder_tpu_torch import BatchedLatticeDecoder, config_for_graph
+
+    return BatchedLatticeDecoder(graph, config_for_graph(graph, **RECALL_CONFIG),
+                                 em_records=em_records, device=device, **RECALL_KW)
+
+
+def recall_oracle(graph):
+    """The recall measurement's oracle: deterministic cutoff, GetCutoff's
+    max_active, on the compiled graph through ``CsrFstView``."""
+    from kaldi_decoder_tpu_torch.decoders.ref_lattice import OracleLatticeDecoder
+    from kaldi_decoder_tpu_torch.fst.csr import CsrFstView
+
+    return OracleLatticeDecoder(
+        CsrFstView(graph), beam=RECALL_CONFIG["beam"], lattice_beam=RECALL_KW["lattice_beam"],
+        deterministic_cutoff=True, max_active=RECALL_CONFIG["max_active"],
+        min_active=RECALL_CONFIG["min_active"])
+
+
+def recall_path(graph, scores, rref):
+    """Phase 10: link recall of the port's ``BatchedLatticeDecoder``
+    (``device_prune=False``) against the port's oracle on utterance 0,
+    trimmed to the reference's frames, at each em_records budget; every
+    field must equal the JAX reference's (``tests/data/torch_port_recall_ref.json``)."""
+    import hashlib
+
+    import numpy as np
+
+    from kaldi_decoder_tpu_torch.lattice.recall import device_recall, oracle_lattice
+
+    Tr = rref["workload"]["frames"]
+    sc = np.ascontiguousarray(scores[0, :Tr])
+    if hashlib.sha256(sc.tobytes()).hexdigest() != rref["workload"]["scores_sha256"]:
+        raise AssertionError("recall: the rebuilt utterance differs from the reference's")
+    if [b["em_records"] for b in rref["budgets"]] != list(RECALL_BUDGETS):
+        raise AssertionError("recall: the reference's budgets are not RECALL_BUDGETS")
+    olinks, olabels, t_oracle = oracle_lattice(recall_oracle(graph), sc)
+    if len(olinks) != rref["oracle"]["links"] or olabels != rref["oracle"]["labels"]:
+        raise AssertionError(f"recall: the oracle's {len(olinks)} links or best path differ "
+                             "from the JAX oracle's")
+    log(f"recall: oracle on utterance 0, T={Tr}: {len(olinks)} links, {t_oracle:.1f} s on the "
+        "host; equal to the JAX oracle's")
+    counts, rows = [], []
+    for want in rref["budgets"]:
+        dec = recall_decoder(graph, want["em_records"], "cuda")
+        reset_counts()
+        got = device_recall(dec, sc, olinks, olabels, CHUNK)
+        counts.append(read_counts())
+        del dec
+        frames = -(-Tr // CHUNK) * CHUNK
+        want_n = dict(gather=0, k1=frames, k2=frames, k4=0, k6=0)
+        if counts[-1] != want_n:
+            raise AssertionError(f"recall: launch counts {counts[-1]}, want {want_n}")
+        for key, val in want.items():
+            if key != "seconds" and got[key] != val:
+                raise AssertionError(f"recall at em_records {want['em_records']}: {key} "
+                                     f"{got[key]} != {val}")
+        rows.append(got)
+        log(f"  em_records {got['em_records']}: recall {got['recall']} ({got['common_links']} of "
+            f"{got['oracle_links']} links), extra {got['extra']}, overflow frames "
+            f"{got['overflow_frames']}, saturated {got['saturated_frames']}, best path match "
+            f"{got['best_path_match']}; decode + host prune {got['seconds']:.2f} s; launches "
+            f"{counts[-1]}; equal to the JAX reference")
+    total = {k: sum(c[k] for c in counts) for k in counts[0]}
+    return total, dict(oracle_s=t_oracle, rows=rows)
 
 
 def check_workload(utts, scores, lengths, refs):
@@ -1390,6 +1923,7 @@ def main_path(dec, scores, lengths, refs, ref):
 
 
 def main():
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -1429,6 +1963,8 @@ def main():
     ref = load_reference("torch_port_bench_ref.json", scores, lengths, refs)
     vref = load_reference("torch_port_viterbi_ref.json", scores, lengths, refs)
     lref = load_reference("torch_port_lattice_eps_ref.json", scores, lengths, refs)
+    with open(os.path.join(REPO, "tests", "data", "torch_port_recall_ref.json")) as f:
+        rref = json.load(f)
     fc = config_for_graph(graph, **BENCH_CONFIG)
     dec = BatchedLatticeDecoder(graph, fc, device="cuda", **DECODER_KW)
     # The device config re-derives flat_group (ROADMAP Queue 3).
@@ -1456,6 +1992,9 @@ def main():
     del edec
     fd = streaming_decoder(graph, vref)
     sk = check_streaming_kernels(fd, scores_tm)
+    k2s_err, k2s = check_streaming_k2(streaming_lattice_decoder(graph, lref), scores_tm)
+    k1r_err, k2r_err, kr = check_recall_kernels(graph, scores_tm,
+                                                range(rref["workload"]["frames"]))
     del scores_tm, states
     torch.cuda.empty_cache()
 
@@ -1481,8 +2020,29 @@ def main():
     # 7. Streaming lattice API.
     ln = streaming_lattice_path(graph, scores, lref)
     fn, sln = ln["faster"][0], ln["simple"][0]
+    torch.cuda.empty_cache()
 
-    later = {"lattice_unfolded": un, "faster_lattice": fn, "simple_lattice": sln}
+    # 8. The graph file and the CLI.
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        cn, gio = graph_file_path(graph, scores, vref, lref, tmp)
+    log(f"phase 8 (graph file and CLI): {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    # 9. The CTC encoder into the lattice decoder.
+    t0 = time.perf_counter()
+    en, enc = encoder_path(graph, fc)
+    log(f"phase 9 (encoder and its decode): {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    # 10. Link recall.
+    t0 = time.perf_counter()
+    rn, rec = recall_path(graph, scores, rref)
+    log(f"phase 10 (link recall): {time.perf_counter() - t0:.1f} s")
+
+    later = {"lattice_unfolded": un, "faster_lattice": fn, "simple_lattice": sln,
+             "cli_lattice": cn["lattice"][0], "cli_faster": cn["faster"][0], "encoder": en,
+             "recall": rn}
     by_path = {
         "gather": {"lattice": gat_n, "viterbi": vn["gather"], "streaming": sn["gather"]},
         "k1": {"lattice": k1_n, "viterbi": vn["k1"], "streaming": sn["k1"]},
@@ -1503,6 +2063,8 @@ def main():
                     launches_by_path=by_path[key], max_abs_err=err,
                     **{f: t[f] for f in fields}, **extra)
 
+    log(f"all phases: {time.perf_counter() - t_start:.1f} s")
+    log(json.dumps({"graph_file": gio, "encoder": enc, "recall": rec}))
     log(json.dumps({"kernels": [
         entry("row_gather (standalone, em_block row per frontier slot; folded into K1 on "
               "the paths)", "gather.cu", "scripts/gather_bench.py:139", "gather", gat, gat_err,
@@ -1512,23 +2074,32 @@ def main():
         entry("K1 expand_filter (row gather folded in + arc expansion + score lookup + "
               "beam filter)",
               "expand.cu", "kaldi_decoder_tpu/decoders/frontier.py:266", "k1", k1,
-              max(k1_err, k6["k1_err"], sk["k1_err"]),
+              max(k1_err, k6["k1_err"], sk["k1_err"], k1r_err, enc["kernel_errs"]["k1"]),
               ms_src_slot=k6["k1"]["ms"], plain_ms_src_slot=k6["k1"]["plain_ms"],
               bound_ms_src_slot=k6["k1"]["bound_ms"], ms_streaming=sk["k1"]["ms"],
               bound_ms_streaming=sk["k1"]["bound_ms"],
+              **{f"{f}_recall": kr["k1"][f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                      "share_of_bound")},
               wrapper_ms_streaming=st["k1"][0], plain_wrapper_ms_streaming=st["k1"][1]),
         entry("K2 dedup_select_rec (lattice dedup by state + top-K + records; emitting and "
               "eps calls)", "dedup_rec.cu",
-              "kaldi_decoder_tpu/ops/segment.py:177", "k2", k2, max(k2_err, k2e_err),
+              "kaldi_decoder_tpu/ops/segment.py:177", "k2", k2,
+              max(k2_err, k2e_err, k2s_err, k2r_err, enc["kernel_errs"]["k2"]),
               frame=K2_FRAMES[0], steps_us=k2["steps_us"],
               **{f"{f}_frame{t}": k2_by_frame[t][f] for t in K2_FRAMES[1:]
                  for f in ("ms", "plain_ms", "bound_ms", "share_of_bound", "steps_us")},
               **{f"{f}_eps_frame{t}": k2e_by_frame[t][f] for t in K2_EPS_FRAMES
                  for f in ("ms", "plain_ms", "bound_ms", "bound_by", "share_of_bound",
-                           "wrapper_ms", "plain_wrapper_ms")}),
+                           "wrapper_ms", "plain_wrapper_ms")},
+              **{f"{f}_streaming{sfx}": k2s[key][f] for key, sfx in (("em", ""), ("eps", "_eps"))
+                 for f in ("ms", "plain_ms", "bound_ms", "bound_by", "share_of_bound",
+                           "wrapper_ms", "plain_wrapper_ms")},
+              **{f"{f}_recall_em{r}": kr[r][f] for r in RECALL_BUDGETS
+                 for f in ("ms", "plain_ms", "bound_ms", "bound_by", "share_of_bound", "frame",
+                           "records")}),
         entry("K4 sweep_chunk (backward extra-cost sweep; with eps records, the eps Bellman)",
               "sweep.cu", "kaldi_decoder_tpu/decoders/sweep.py:141", "k4", k4,
-              max(k4_err, k4e_err),
+              max(k4_err, k4e_err, enc["kernel_errs"]["k4"]),
               **{f"{f}_eps": k4e[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
                                               "share_of_bound", "wrapper_ms",
                                               "plain_wrapper_ms")}),

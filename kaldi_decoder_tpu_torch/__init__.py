@@ -13,7 +13,14 @@ backward sweep (``device_prune=True``); the reference's streaming
 lattice API, :class:`LatticeSimpleDecoder` and
 :class:`LatticeFasterDecoder`; and the 1-best path:
 :class:`BatchedViterbiDecoder` and the streaming :class:`SimpleDecoder`
-and :class:`FasterDecoder`, with the device eps closure.  The public names are the JAX package's
+and :class:`FasterDecoder`, with the device eps closure.  Around them:
+the OpenFst graph files (``fst.read_fst``, ``fst.write_fst``,
+``fst.load_graph``), the graph builders (``fst.ctc_topo``, ...), the
+oracle decoders (:class:`OracleSimpleDecoder`,
+:class:`OracleLatticeDecoder`), lattice post-processing
+(``lattice.post``), the CTC encoder (``models``), the profiling hooks
+(``utils.profiling``) and the command line (``python -m
+kaldi_decoder_tpu_torch.cli``).  The public names are the JAX package's
 (``kaldi_decoder_tpu/__init__.py``) for what is ported.
 """
 
@@ -24,23 +31,25 @@ from kaldi_decoder_tpu_torch.decodable import (
     DecodableInterface,
     DecodableMatrix,
 )
-from kaldi_decoder_tpu_torch.decoders.api import (
+from kaldi_decoder_tpu_torch.decoders import (
+    BatchedLatticeDecoder,
+    BatchedViterbiDecoder,
     FasterDecoder,
     FasterDecoderOptions,
-    SimpleDecoder,
-)
-from kaldi_decoder_tpu_torch.decoders.frontier import FrontierConfig, config_for_graph
-from kaldi_decoder_tpu_torch.decoders.lattice import (
-    BatchedLatticeDecoder,
+    FrontierConfig,
     LatticeFasterDecoder,
     LatticeFasterDecoderConfig,
     LatticeResult,
     LatticeSimpleDecoder,
     LatticeSimpleDecoderConfig,
-    PendingDecode,
+    OracleLatticeDecoder,
+    OracleSimpleDecoder,
+    SimpleDecoder,
+    ViterbiResult,
+    config_for_graph,
 )
-from kaldi_decoder_tpu_torch.decoders.viterbi import BatchedViterbiDecoder, ViterbiResult
-from kaldi_decoder_tpu_torch.fst.csr import CsrGraph, compile_fst, load_graph_npz
+from kaldi_decoder_tpu_torch.decoders.lattice import PendingDecode
+from kaldi_decoder_tpu_torch.fst.csr import CsrGraph, compile_fst, load_graph, load_graph_npz
 
 __all__ = [
     "BatchedLatticeDecoder",
@@ -57,11 +66,14 @@ __all__ = [
     "LatticeResult",
     "LatticeSimpleDecoder",
     "LatticeSimpleDecoderConfig",
+    "OracleLatticeDecoder",
+    "OracleSimpleDecoder",
     "PendingDecode",
     "SimpleDecoder",
     "ViterbiResult",
     "compile_fst",
     "config_for_graph",
+    "load_graph",
     "load_graph_npz",
     "__version__",
 ]

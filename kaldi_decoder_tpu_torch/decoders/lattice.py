@@ -69,6 +69,7 @@ from kaldi_decoder_tpu_torch.lattice.prune import (
     raw_lattice_to_fst,
 )
 from kaldi_decoder_tpu_torch.utils.logging import DecodeStats
+from kaldi_decoder_tpu_torch.utils.profiling import annotate
 
 logger = logging.getLogger(__name__)
 
@@ -522,25 +523,26 @@ class BatchedLatticeDecoder:
         eps = self.cfg.frontier.eps_iters > 0
         stc = st0
         chunks = []
-        for lo in range(0, Tp, C):
-            chunk_init = stc.states
-            stc, o = lattice_chunk(self._pg, scores_dev[lo : lo + C], rem, stc, self.cfg, S)
-            sw = None
-            if device_prune:
-                sw = sweep_chunk(
-                    o.frontier_states, o.frontier_costs, o.em_records,
-                    chunk_init, rem, sc, S, o.eps_records if eps else None,
-                )
-                # The sweep consumed the big per-frame buffers; keep the
-                # small per-frame stats only.
-                o = o._replace(em_records=None, eps_records=None, frontier_states=None,
-                               frontier_costs=None)
-            else:
-                # Full-record mode: fetch each chunk as it is produced, so
-                # device memory holds one chunk's buffers at a time.
-                o = LatticeStepOut(*(x.cpu().numpy() for x in o))
-            rem = (rem - C).clamp(min=0)
-            chunks.append((lo, o, sw))
+        with annotate("kdtpu.lattice_decode", device=self.device):
+            for lo in range(0, Tp, C):
+                chunk_init = stc.states
+                stc, o = lattice_chunk(self._pg, scores_dev[lo : lo + C], rem, stc, self.cfg, S)
+                sw = None
+                if device_prune:
+                    sw = sweep_chunk(
+                        o.frontier_states, o.frontier_costs, o.em_records,
+                        chunk_init, rem, sc, S, o.eps_records if eps else None,
+                    )
+                    # The sweep consumed the big per-frame buffers; keep the
+                    # small per-frame stats only.
+                    o = o._replace(em_records=None, eps_records=None, frontier_states=None,
+                                   frontier_costs=None)
+                else:
+                    # Full-record mode: fetch each chunk as it is produced, so
+                    # device memory holds one chunk's buffers at a time.
+                    o = LatticeStepOut(*(x.cpu().numpy() for x in o))
+                rem = (rem - C).clamp(min=0)
+                chunks.append((lo, o, sw))
         return PendingDecode(
             decoder=self,
             scores=scores,
@@ -727,13 +729,15 @@ class _StreamingLattice:
                 f"decodable has only {scores.shape[1]} indices"
             )
         t0 = time.perf_counter()
-        scores_tm = torch.from_numpy(np.ascontiguousarray(scores, np.float32)[:, None])
-        lengths = torch.full((1,), n_new, dtype=torch.int32, device=self.device)
-        stf, outs = lattice_chunk(
-            self._pg, scores_tm.to(self.device), lengths, self._state, self._dev_cfg,
-            self._graph.num_states,
-        )
-        frame_states = outs.frontier_states[:, 0].cpu().numpy()
+        with annotate("kdtpu.advance_decoding", step=self._num_frames_decoded,
+                      device=self.device):
+            scores_tm = torch.from_numpy(np.ascontiguousarray(scores, np.float32)[:, None])
+            lengths = torch.full((1,), n_new, dtype=torch.int32, device=self.device)
+            stf, outs = lattice_chunk(
+                self._pg, scores_tm.to(self.device), lengths, self._state, self._dev_cfg,
+                self._graph.num_states,
+            )
+            frame_states = outs.frontier_states[:, 0].cpu().numpy()
         self._wall_s += time.perf_counter() - t0
         self._state = stf
         frame_costs = outs.frontier_costs[:, 0].cpu().numpy()

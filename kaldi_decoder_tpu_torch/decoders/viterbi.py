@@ -19,7 +19,6 @@ from __future__ import annotations
 
 import dataclasses
 import logging
-import time
 from typing import Optional, Tuple
 
 import numpy as np
@@ -40,6 +39,7 @@ from kaldi_decoder_tpu_torch.fst.fst import INF, Lattice
 from kaldi_decoder_tpu_torch.fst.ops import remove_eps_local
 from kaldi_decoder_tpu_torch.fst.pack import PackedGraph, pack_graph_device
 from kaldi_decoder_tpu_torch.utils.logging import DecodeStats
+from kaldi_decoder_tpu_torch.utils.profiling import WallTimer, annotate
 
 logger = logging.getLogger(__name__)
 
@@ -316,16 +316,15 @@ class BatchedViterbiDecoder:
         scores_tm[:T] = scores.transpose(1, 0, 2)
 
         st0, bp_init = self._init(B)
-        t0 = time.perf_counter()
-        stf, outs = viterbi_chunk(
-            self._pg,
-            torch.from_numpy(scores_tm).to(self.device),
-            torch.from_numpy(lengths).to(self.device),
-            st0, self.cfg, self._dev_graph.num_states,
-        )
-        # The download doubles as the device sync; keep it in the timer.
-        bp_emit = outs.bp_emit.cpu().numpy()
-        wall = time.perf_counter() - t0
+        with WallTimer() as timer, annotate("kdtpu.viterbi_decode", device=self.device):
+            stf, outs = viterbi_chunk(
+                self._pg,
+                torch.from_numpy(scores_tm).to(self.device),
+                torch.from_numpy(lengths).to(self.device),
+                st0, self.cfg, self._dev_graph.num_states,
+            )
+            # The download doubles as the device sync; keep it in the timer.
+            bp_emit = outs.bp_emit.cpu().numpy()
         return ViterbiResult(
             graph=self.graph,
             cfg=self.cfg,
@@ -333,7 +332,7 @@ class BatchedViterbiDecoder:
             lengths=lengths,
             bp_init=bp_init,
             fold=self.fold,
-            wall_seconds=wall,
+            wall_seconds=timer.elapsed,
             bp_emit=bp_emit,
             bp_eps=outs.bp_eps.cpu().numpy(),
             frontier_states=stf.states.cpu().numpy(),

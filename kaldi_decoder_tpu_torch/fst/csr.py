@@ -1,10 +1,14 @@
 """Flattened CSR decoding-graph representation (host side, numpy).
 
 A jax-free copy of ``kaldi_decoder_tpu/fst/csr.py`` (``GraphArrays``,
-``CsrGraph``, ``compile_fst``, ``load_graph_npz`` and ``_eps_depth``),
-kept because importing the original imports jax.
-``tests/test_torch_host.py`` and ``tests/test_torch_viterbi.py`` hold the
-copy equal to the original.
+``CsrGraph``, ``compile_fst``, ``load_graph`` (:135), ``save_graph_npz``
+(:152), ``load_graph_npz``, ``_ArcView`` and ``CsrFstView`` (:189-239) and
+``_eps_depth``), kept because importing the original imports jax.
+``tests/test_torch_host.py``, ``tests/test_torch_viterbi.py`` and
+``tests/test_torch_fst_io.py`` hold the copy equal to the original.
+:func:`load_graph` always compiles in the port's host library and raises
+if it cannot be built; the original falls back to
+``compile_fst(read_fst(path))`` when its library is unavailable.
 
 Arcs are partitioned into emitting (ilabel > 0) and epsilon sub-CSRs;
 ``score_idx = ilabel - 1`` is stored per emitting arc, so the acoustic
@@ -119,8 +123,36 @@ def compile_fst(fst: StdVectorFst) -> CsrGraph:
     )
 
 
+def load_graph(path) -> CsrGraph:
+    """OpenFst binary file -> CsrGraph, the production graph-load path: the
+    host library parses the file and compiles the emitting/epsilon CSR in
+    C++ without a Python FST."""
+    from kaldi_decoder_tpu_torch import native
+
+    return native.load_csr(str(path))
+
+
+def save_graph_npz(graph: CsrGraph, path) -> None:
+    """Serialize a compiled graph to ``.npz`` (fast reload for large
+    graphs: skips FST parsing, partitioning and eps-depth analysis)."""
+    meta = np.array(
+        [
+            graph.num_states,
+            graph.num_emitting_arcs,
+            graph.num_eps_arcs,
+            graph.start_state,
+            -1 if graph.eps_depth is None else graph.eps_depth,
+            graph.max_em_out_degree,
+            graph.max_eps_out_degree,
+            graph.max_score_idx,
+        ],
+        dtype=np.int64,
+    )
+    np.savez_compressed(path, meta=meta, **graph.arrays._asdict())
+
+
 def load_graph_npz(path) -> CsrGraph:
-    """Load a graph written by ``kaldi_decoder_tpu.fst.csr.save_graph_npz``."""
+    """Inverse of :func:`save_graph_npz` (reads the JAX package's files too)."""
     with np.load(path) as z:
         meta = z["meta"]
         ga = GraphArrays(**{k: z[k] for k in GraphArrays._fields})
@@ -154,6 +186,57 @@ def graph_from_numpy(graph) -> CsrGraph:
         max_eps_out_degree=int(graph.max_eps_out_degree),
         max_score_idx=int(graph.max_score_idx),
     )
+
+
+class _ArcView(NamedTuple):
+    ilabel: int
+    olabel: int
+    weight: float
+    nextstate: int
+
+
+class CsrFstView:
+    """Read-only FST interface over a compiled :class:`CsrGraph`.
+
+    Lets FST-consuming host code (the oracle decoders, graph inspectors)
+    run directly on a compiled graph without materializing a
+    ``StdVectorFst``.  Arc order: emitting arcs first, then epsilon arcs
+    (the partition order of ``compile_fst``).
+    """
+
+    def __init__(self, graph: CsrGraph):
+        self._g = graph
+        self._ga = graph.arrays
+
+    @property
+    def start(self) -> int:
+        return self._g.start_state
+
+    @property
+    def num_states(self) -> int:
+        return self._g.num_states
+
+    def final(self, state: int) -> float:
+        return float(self._ga.final_cost[state])
+
+    def num_input_epsilons(self, state: int) -> int:
+        ga = self._ga
+        return int(ga.eps_row_ptr[state + 1] - ga.eps_row_ptr[state])
+
+    def arcs(self, state: int):
+        ga = self._ga
+        for a in range(int(ga.em_row_ptr[state]), int(ga.em_row_ptr[state + 1])):
+            yield _ArcView(
+                int(ga.em_ilabel[a]), int(ga.em_olabel[a]),
+                float(ga.em_weight[a]), int(ga.em_next[a]),
+            )
+        for a in range(
+            int(ga.eps_row_ptr[state]), int(ga.eps_row_ptr[state + 1])
+        ):
+            yield _ArcView(
+                0, int(ga.eps_olabel[a]),
+                float(ga.eps_weight[a]), int(ga.eps_next[a]),
+            )
 
 
 def _eps_depth(S: int, eps_row_ptr: np.ndarray, eps_next: np.ndarray) -> Optional[int]:

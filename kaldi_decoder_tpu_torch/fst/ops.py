@@ -1,12 +1,14 @@
-"""Host FST algorithms applied to best paths.
+"""Host FST algorithms: best paths, trimming and composition.
 
 A jax-free copy of the parts of ``kaldi_decoder_tpu/fst/ops.py`` that the
 1-best and lattice results need: ``connect``, ``topological_order``,
 ``remove_eps_local`` (the ``fst::RemoveEpsLocal`` cleanup of best paths,
 `kaldi-decoder/csrc/faster-decoder.cc:422`), ``shortest_path``
 (``fst::ShortestPath`` over lattices, `lattice-simple-decoder.cc:578`),
-``path_labels`` and ``path_total_cost``.  ``tests/test_torch_viterbi.py``
-and ``tests/test_torch_host.py`` hold the copy equal to the original.
+``path_labels``, ``path_total_cost`` and ``compose`` (lines 384-581, the
+weighted composition that builds HL/HLG graphs).
+``tests/test_torch_viterbi.py``, ``tests/test_torch_host.py`` and
+``tests/test_torch_fst_io.py`` hold the copy equal to the original.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from kaldi_decoder_tpu_torch.fst.fst import EPSILON, INF, VectorFst
+from kaldi_decoder_tpu_torch.fst.fst import EPSILON, INF, StdVectorFst, VectorFst
 
 
 def connect(fst: VectorFst) -> VectorFst:
@@ -322,3 +324,201 @@ def path_total_cost(fst: VectorFst) -> float:
     if fst.is_final(s):
         total += _arc_cost(fst, fst.final(s))
     return total
+
+
+def compose(a: VectorFst, b: VectorFst) -> StdVectorFst:
+    """Weighted composition ``a ∘ b`` over the tropical semiring.
+
+    The capability the reference gets from kaldifst/OpenFst's ``compose``
+    (used by icefall to build HL/HLG decoding graphs fed to the decoders,
+    the reference's `README.md:16-20`); here it builds realistic test and
+    production graphs natively (e.g. ``compose(ctc_topo(V), lexicon_fst(...))``).
+
+    Uses the standard 3-state epsilon-sequencing filter so epsilon output
+    labels of ``a`` and epsilon input labels of ``b`` compose without
+    generating redundant interleavings:
+
+    * real match (olabel_a == ilabel_b > 0): any filter state -> 0
+    * eps-eps joint move: only from filter 0 -> 0
+    * a-side eps-output move (b holds): filter 0/1 -> 1
+    * b-side eps-input move (a holds): filter 0/2 -> 2
+
+    Vectorized batched BFS over (state_a, state_b, filter) triples: each
+    round joins all frontier pairs' arcs with numpy searchsorted/repeat
+    (no per-arc Python), so HL-scale compositions (tens of thousands of
+    output states) take well under a second.
+    """
+    if a.num_states == 0 or b.num_states == 0 or a.start < 0 or b.start < 0:
+        return StdVectorFst()
+    A = a.to_arrays()
+    B = b.to_arrays()
+    if A["weight"].ndim != 1 or B["weight"].ndim != 1:
+        raise TypeError("compose supports tropical (standard) FSTs")
+    rowA = A["row_ptr"].astype(np.int64)
+    SB = b.num_states
+
+    # Sort b's arcs by (state, ilabel) so each (state, label) block is one
+    # searchsorted range on a combined key.
+    degB = np.diff(B["row_ptr"]).astype(np.int64)
+    srcB = np.repeat(np.arange(SB, dtype=np.int64), degB)
+    orderB = np.lexsort((B["ilabel"], srcB))
+    bil = B["ilabel"][orderB].astype(np.int64)
+    bol = B["olabel"][orderB]
+    bw = B["weight"][orderB]
+    bnext = B["nextstate"][orderB]
+    # Key stride must exceed every label that can be probed (a-side olabels
+    # too, else a large olabel overflows into the next state's key block).
+    maxlab = 1 + max(
+        int(bil.max()) if len(bil) else 0,
+        int(A["olabel"].max()) if len(A["olabel"]) else 0,
+    )
+    bkey = srcB[orderB] * maxlab + bil
+
+    def enc(sa, sb, f):
+        return (sa.astype(np.int64) * SB + sb) * 3 + f
+
+    start_key = int(enc(np.int64(a.start), np.int64(b.start), 0))
+    ids = {start_key: 0}
+    out = StdVectorFst()
+    out.add_state()
+    out.set_start(0)
+
+    finals_a = np.array(
+        [a.final(s) for s in range(a.num_states)], dtype=np.float64
+    )
+    finals_b = np.array(
+        [b.final(s) for s in range(SB)], dtype=np.float64
+    )
+
+    # Per-round arc sink: (src_id, ilabel, olabel, weight, dst_key).
+    arc_src: List[np.ndarray] = []
+    arc_il: List[np.ndarray] = []
+    arc_ol: List[np.ndarray] = []
+    arc_w: List[np.ndarray] = []
+    arc_dk: List[np.ndarray] = []
+
+    frontier = np.array([[a.start, b.start, 0]], dtype=np.int64)
+    frontier_ids = np.array([0], dtype=np.int64)
+
+    def ragged_join(starts, counts):
+        """(starts, counts) -> (owner, flat_index) arrays."""
+        total = int(counts.sum())
+        owner = np.repeat(np.arange(len(counts)), counts)
+        within = np.arange(total, dtype=np.int64) - np.repeat(
+            np.cumsum(counts) - counts, counts
+        )
+        return owner, starts[owner] + within
+
+    while len(frontier):
+        sa, sb, ff = frontier[:, 0], frontier[:, 1], frontier[:, 2]
+        pid = frontier_ids
+
+        # Flatten all a-side arcs of the frontier pairs.
+        degs = rowA[sa + 1] - rowA[sa]
+        p_of, aidx = ragged_join(rowA[sa], degs)
+        ail = A["ilabel"][aidx].astype(np.int64)
+        aol = A["olabel"][aidx].astype(np.int64)
+        aw = A["weight"][aidx].astype(np.float64)
+        anext = A["nextstate"][aidx].astype(np.int64)
+        a_sb = sb[p_of]
+        a_f = ff[p_of]
+
+        segs = []  # (src_id, il, ol, w, dst_key)
+
+        # Real matches + eps-eps joint moves against b's sorted arcs.
+        joint = (aol > 0) | ((aol == 0) & (a_f == 0))
+        if np.any(joint):
+            j = np.flatnonzero(joint)
+            want = a_sb[j] * maxlab + aol[j]
+            lo = np.searchsorted(bkey, want, side="left")
+            hi = np.searchsorted(bkey, want, side="right")
+            jo, bidx = ragged_join(lo, hi - lo)
+            ja = j[jo]
+            segs.append((
+                pid[p_of[ja]],
+                ail[ja],
+                bol[bidx].astype(np.int64),
+                aw[ja] + bw[bidx],
+                enc(anext[ja], bnext[bidx].astype(np.int64), np.int64(0)),
+            ))
+
+        # a-side eps-output solo move (b holds still): filter 0/1 -> 1.
+        solo_a = (aol == 0) & (a_f != 2)
+        if np.any(solo_a):
+            m = np.flatnonzero(solo_a)
+            segs.append((
+                pid[p_of[m]],
+                ail[m],
+                np.zeros(len(m), np.int64),
+                aw[m],
+                enc(anext[m], a_sb[m], np.int64(1)),
+            ))
+
+        # b-side eps-input solo move (a holds still): filter 0/2 -> 2.
+        solo_b_ok = ff != 1
+        if np.any(solo_b_ok):
+            q = np.flatnonzero(solo_b_ok)
+            want_lo = sb[q] * maxlab  # label 0 block
+            lo = np.searchsorted(bkey, want_lo, side="left")
+            hi = np.searchsorted(bkey, want_lo + 1, side="left")
+            qo, bidx = ragged_join(lo, hi - lo)
+            qq = q[qo]
+            segs.append((
+                pid[qq],
+                np.zeros(len(qq), np.int64),
+                bol[bidx].astype(np.int64),
+                bw[bidx].astype(np.float64),
+                enc(sa[qq], bnext[bidx].astype(np.int64), np.int64(2)),
+            ))
+
+        if not segs:
+            break
+        src = np.concatenate([s[0] for s in segs])
+        il = np.concatenate([s[1] for s in segs])
+        ol = np.concatenate([s[2] for s in segs])
+        w = np.concatenate([s[3] for s in segs])
+        dk = np.concatenate([s[4] for s in segs])
+        arc_src.append(src)
+        arc_il.append(il)
+        arc_ol.append(ol)
+        arc_w.append(w)
+        arc_dk.append(dk)
+
+        # New triples -> ids; unseen ones form the next frontier.
+        uniq = np.unique(dk)
+        fresh = [k for k in uniq.tolist() if k not in ids]
+        if fresh:
+            base = len(ids)
+            for i, k in enumerate(fresh):
+                ids[k] = base + i
+            out.add_states(len(fresh))
+            fr = np.array(fresh, dtype=np.int64)
+            f_new = fr % 3
+            pair = fr // 3
+            frontier = np.stack([pair // SB, pair % SB, f_new], axis=1)
+            frontier_ids = np.arange(base, base + len(fresh), dtype=np.int64)
+        else:
+            frontier = np.zeros((0, 3), np.int64)
+            frontier_ids = np.zeros((0,), np.int64)
+
+    # Emit arcs (map dst keys -> ids) grouped by source, order preserved.
+    if arc_src:
+        src = np.concatenate(arc_src)
+        il = np.concatenate(arc_il)
+        ol = np.concatenate(arc_ol)
+        w = np.concatenate(arc_w)
+        dk = np.concatenate(arc_dk)
+        dst = np.array([ids[int(k)] for k in dk], dtype=np.int64)
+        order = np.argsort(src, kind="stable")
+        for i in order:
+            out.add_arc(int(src[i]), int(il[i]), int(ol[i]), float(w[i]), int(dst[i]))
+
+    # Final weights: final_a(sa) (+) final_b(sb), any filter state.
+    key_arr = np.array(sorted(ids, key=ids.get), dtype=np.int64)
+    pair = key_arr // 3
+    fa = finals_a[pair // SB]
+    fb = finals_b[pair % SB]
+    tot = fa + fb
+    for s in np.flatnonzero(np.isfinite(tot)):
+        out.set_final(int(s), float(tot[s]))
+    return connect(out)

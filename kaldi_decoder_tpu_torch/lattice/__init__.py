@@ -1,1 +1,2 @@
-"""Host lattice pruning."""
+"""Host lattices: pruning (``prune``), post-processing (``post``) and link
+recall against the oracle (``recall``)."""

@@ -1,1 +1,1 @@
-"""Utilities."""
+"""Utilities: decode statistics, WER and profiling hooks."""

@@ -7,6 +7,7 @@ packages; the JAX side runs on the CPU as the rest of the suite does.
 import functools
 
 import numpy as np
+import pytest
 
 from kaldi_decoder_tpu.decoders.frontier import config_for_graph as jax_config_for_graph
 from kaldi_decoder_tpu.fst.csr import compile_fst
@@ -49,6 +50,28 @@ def noeps_batch(batch: int, T: int, seed: int):
     return scores, lengths
 
 
+def jax_host_library():
+    """The JAX package's C++ host library, loaded.
+
+    Five sites of the JAX package take a Python fallback when
+    ``kaldi_decoder_tpu.native.available()`` is false, and one of them
+    (``LatticeResult.best_path_labels`` on a cyclic lattice) answers
+    where the C++ route, and the port's, raise.  When test workers build
+    the library at once, the loser of the race caches the failure in
+    ``native._tried``; by then the winner's library is on disk, so the
+    cache flag is reset and the load tried once more.  A twin test calls
+    this before it computes an expected value through one of those
+    sites, and fails, never skips, if the library still does not load."""
+    from kaldi_decoder_tpu import native
+
+    if native.get_lib() is None:
+        native._tried = False
+        if native.get_lib() is None:
+            pytest.fail("the JAX package's host library did not build or load (twice); "
+                        "its Python fallbacks would give the expected values")
+    return native.get_lib()
+
+
 def twin_configs(jax_graph, port_graph, **kw):
     """The same frontier config built by both packages."""
     return jax_config_for_graph(jax_graph, **kw), config_for_graph(port_graph, **kw)
@@ -72,6 +95,14 @@ def bits(x):
     x = np.asarray(x, np.float32).copy()
     x[x == 0] = 0.0
     return x.view(np.int32)
+
+
+def port_fst(fst):
+    """The port's FST class of the same kind, from a JAX FST's arrays."""
+    from kaldi_decoder_tpu_torch.fst import fst as pfst
+
+    cls = getattr(pfst, type(fst).__name__)
+    return cls.from_arrays(**fst.to_arrays())
 
 
 def same_fst(a, b):

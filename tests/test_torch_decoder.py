@@ -18,6 +18,7 @@ from kaldi_decoder_tpu_torch.fst.fold import fold_eps
 from _torch_util import (
     assert_same_config,
     hlg_batch,
+    jax_host_library,
     noeps_batch,
     small_hlg,
     small_noeps,
@@ -90,6 +91,7 @@ def test_slice_matches_jax(case):
                     pc[f"{name}_rows"][b, : cnt[b]],
                     err_msg=f"{name} rows, chunk {jc['frame0']}, b={b}",
                 )
+    jax_host_library()
     for b in range(B):
         assert jres.best_path_labels(b) == pres.best_path_labels(b), b
         assert not pres.sweep_overflowed(b)

@@ -29,7 +29,7 @@ from kaldi_decoder_tpu_torch.fst.csr import GraphArrays, _eps_depth, load_graph_
 from kaldi_decoder_tpu_torch.lattice import prune as pprune
 from kaldi_decoder_tpu_torch.utils.wer import wer
 
-from _torch_util import hlg_batch, same_fst, small_hlg, small_noeps
+from _torch_util import hlg_batch, jax_host_library, port_fst, same_fst, small_hlg, small_noeps
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -140,14 +140,6 @@ def _prune_inputs(res, scores, b, L):
     )
 
 
-def _port_fst(fst):
-    """The port's FST class of the same kind, from a JAX FST's arrays."""
-    from kaldi_decoder_tpu_torch.fst import fst as pfst
-
-    cls = getattr(pfst, type(fst).__name__)
-    return cls.from_arrays(**fst.to_arrays())
-
-
 @pytest.mark.parametrize("use_final_probs", [True, False])
 def test_raw_lattice_and_shortest_path_match_jax(use_final_probs):
     """raw_lattice_to_fst of both copies' pruned lattices, then both
@@ -157,6 +149,7 @@ def test_raw_lattice_and_shortest_path_match_jax(use_final_probs):
     from kaldi_decoder_tpu_torch.fst.ops import shortest_path, topological_order
 
     jg, pg, scores, lengths, res = _unfolded_decode()
+    jax_host_library()
     for b in range(2):
         kw = _prune_inputs(res, scores, b, int(lengths[b]))
         jl = jprune.raw_lattice_to_fst(
@@ -178,10 +171,11 @@ def test_shortest_path_of_a_cyclic_fst_matches_jax():
     from kaldi_decoder_tpu.fst.topo import random_fst
     from kaldi_decoder_tpu_torch.fst.ops import shortest_path, topological_order
 
+    jax_host_library()
     for seed in range(3):
         jf = random_fst(30, 5, np.random.default_rng(seed), eps_prob=0.4,
                         acyclic_eps=False)
-        pf = _port_fst(jf)
+        pf = port_fst(jf)
         assert jtopo(jf) is None and topological_order(pf) is None
         same_fst(jshortest(jf), shortest_path(pf))
 
@@ -245,8 +239,10 @@ def test_host_source_copy_matches_original():
 
 
 def test_port_imports_and_decodes_without_jax():
-    """With jax unimportable, every module of the port imports and a small
-    eps-free graph decodes to a 1-best on the CPU."""
+    """With jax unimportable, every module of the port (the graph files,
+    oracles, post-processing, encoder, profiling and the CLI included) and
+    ``chip_smoke.py`` and ``scripts/measure_recall_torch.py`` import, and a
+    small eps-free graph decodes to a 1-best on the CPU."""
     code = textwrap.dedent(
         """
         import sys
@@ -254,8 +250,16 @@ def test_port_imports_and_decodes_without_jax():
         import importlib, pkgutil
         import numpy as np
         import kaldi_decoder_tpu_torch as pkg
-        for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
-            importlib.import_module(m.name)
+        names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+        for name in names:
+            importlib.import_module(name)
+        for name in ("cli", "fst.io", "fst.topo", "fst.synthetic", "decoders.ref_simple",
+                     "decoders.ref_lattice", "lattice.post", "lattice.recall", "models.ctc",
+                     "utils.profiling"):
+            assert "kaldi_decoder_tpu_torch." + name in names, name
+        import chip_smoke
+        sys.path.insert(0, "scripts")
+        import measure_recall_torch
         assert not any(n == "jax" or n.startswith(("jax.", "kaldi_decoder_tpu."))
                        for n in sys.modules if sys.modules[n] is not None)
         from kaldi_decoder_tpu_torch import BatchedLatticeDecoder

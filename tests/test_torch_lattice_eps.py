@@ -48,7 +48,7 @@ from kaldi_decoder_tpu_torch.fst.csr import graph_from_numpy
 from kaldi_decoder_tpu_torch.kernels.dedup_rec import dedup_select_rec, stack_records
 from kaldi_decoder_tpu_torch.ops.segment import dedup_select_rec as dedup_select_rec_plain
 
-from _torch_util import assert_same_config, hlg_batch, same_fst, small_hlg
+from _torch_util import assert_same_config, hlg_batch, jax_host_library, same_fst, small_hlg
 
 V_RING = 3
 
@@ -306,6 +306,7 @@ def _same_field(jres, pres, field):
 
 
 def _same_results(jres, pres, B):
+    jax_host_library()
     for field in ("num_active", "cutoffs", "overflows", "saturations", "init_states",
                   "init_costs", "init_eps_records"):
         _same_field(jres, pres, field)
@@ -371,6 +372,7 @@ def test_lattice_result_api_matches_jax(fold):
     _, _, scores, lengths, _, _ = _graph("hlg")
     jres = jdec.decode(scores, lengths, chunk_frames=8)
     pres = pdec.decode(scores, lengths, chunk_frames=8)
+    jax_host_library()
     for b in range(scores.shape[0]):
         for ufp in (True, False):
             same_fst(jres.raw_lattice(b, ufp), pres.raw_lattice(b, ufp))
@@ -418,6 +420,7 @@ def test_streaming_lattice_matches_jax(kind, kw):
     assert pd._dev_cfg.frontier.eps_iters > 0
     _stream(jd, JaxDecodableCtc(scores[0, :L]), L, 9)
     _stream(pd, DecodableCtc(scores[0, :L]), L, 9)
+    jax_host_library()
     same_fst(jd.get_raw_lattice()[1], pd.get_raw_lattice()[1])
     jok, jbest = jd.get_best_path()
     pok, pbest = pd.get_best_path()
@@ -444,6 +447,7 @@ def test_streaming_lattice_without_final_probs_matches_jax():
                            (pd, DecodableCtc(scores[0, :L]))):
         dec.init_decoding()
         dec.advance_decoding(decodable)
+    jax_host_library()
     same_fst(jd.get_raw_lattice(False)[1], pd.get_raw_lattice(False)[1])
     same_fst(jd.get_best_path(False)[1], pd.get_best_path(False)[1])
     pd.finalize_decoding()

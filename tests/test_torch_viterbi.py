@@ -54,7 +54,7 @@ from kaldi_decoder_tpu_torch.kernels.expand import expand_filter_plain
 from kaldi_decoder_tpu_torch.ops.cutoff import get_cutoff
 from kaldi_decoder_tpu_torch.ops.segment import dedup_select as dedup_select_plain
 
-from _torch_util import bits, hlg_batch, small_hlg, twin_configs
+from _torch_util import bits, hlg_batch, jax_host_library, small_hlg, twin_configs
 from test_cyclic_eps import eps_ring
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -292,6 +292,7 @@ def test_viterbi_decode_matches_jax(case):
               "num_active", "best_costs", "cutoffs", "overflows", "saturations", "lengths"):
         _eq(getattr(jr, f), getattr(pr, f), f)
     B = scores.shape[0]
+    jax_host_library()
     for b in range(B):
         js, ps = jr.stats(b), pr.stats(b)
         assert (js.arc_budget_overflows, js.frontier_saturated_frames) == (
@@ -342,6 +343,7 @@ def test_expand_src_slot_matches_jax():
 
 
 def _api_result_equal(jd, pd):
+    jax_host_library()
     jr, pr = jd._result(), pd._result()
     for f in ("bp_init", "bp_emit", "bp_eps", "frontier_states", "frontier_costs",
               "num_active", "best_costs", "cutoffs", "overflows", "saturations"):
@@ -474,7 +476,8 @@ def test_fst_and_remove_eps_local_copies(seed):
 
 def test_decodes_without_jax():
     """With jax unimportable, the 1-best path imports and decodes on the
-    CPU through both entry points."""
+    CPU through both entry points, and the graph written and read back
+    through the port's file layer decodes the same with its oracle."""
     code = textwrap.dedent(
         """
         import sys
@@ -504,6 +507,16 @@ def test_decodes_without_jax():
         d.decode(DecodableCtc(logp))
         ok, lat = d.get_best_path()
         assert ok and d._cfg.eps_iters == 2 and isinstance(path_labels(lat), list)
+        import tempfile, os
+        from kaldi_decoder_tpu_torch import OracleSimpleDecoder, load_graph
+        from kaldi_decoder_tpu_torch.fst import read_fst, write_fst
+        with tempfile.TemporaryDirectory() as tmp:
+            write_fst(fst, os.path.join(tmp, "g.fst"))
+            assert read_fst(os.path.join(tmp, "g.fst")) == fst
+            assert load_graph(os.path.join(tmp, "g.fst")).num_eps_arcs == 2
+        o = OracleSimpleDecoder(fst, beam=8.0)
+        o.decode(DecodableCtc(logp))
+        assert path_labels(o.get_best_path()) == path_labels(lat)
         assert not any(n == "jax" or n.startswith(("jax.", "kaldi_decoder_tpu."))
                        for n in sys.modules if sys.modules[n] is not None)
         print("OK")
