@@ -120,6 +120,39 @@ Phases (any failure raises, and the process exits non-zero):
      best-path match and device config must equal
      ``tests/data/torch_port_recall_ref.json`` (the JAX decoder and
      oracle); each decode counted (K1 and K2 once a frame, no K4).
+  11-13. more than one rank, each phase at P = 1 in this process over
+     NCCL (``initialize_distributed(backend="nccl")``, ``make_mesh(1)``)
+     and at P = 2 in two spawned ranks sharing ``cuda:0`` over gloo (NCCL
+     refuses two ranks on one card; gloo stages each exchange through the
+     host), each rank building the workload itself and loading the
+     kernels the parent built:
+  11. data parallel: ``BatchedLatticeDecoder`` at phase 3's config with
+     ``mesh=make_mesh(P)``, each rank decoding its 16 / P utterances and
+     gathering the rest (one collective first makes the group's
+     communicator, outside the timed decode); checked on every rank as
+     phase 3 (launch counts per rank, every utterance against
+     ``torch_port_bench_ref.json``); then rank 0 holds K1 and K2 on its
+     rows' frames 0-250 and K4 on its rows' first chunk against plain and
+     times them, while the other rank waits: phase 2's checks at a rank's
+     shapes (B = 16 / P);
+  12. ``ShardedViterbiDecoder`` on a ``("model",)`` mesh of the P ranks,
+     the unfolded graph, ``SHARD_CONFIG`` (K 2048 a shard), the first
+     ``SHARD_FRAMES`` frames; K1 once a frame and K6 (1 + eps_iters)
+     times a frame plus eps_iters, per rank; per utterance the 1-best
+     labels, the best path cost's bits, ``num_active``, a hash of the
+     per-frame best costs and the overflow and saturation counts against
+     ``tests/data/torch_port_shard_ref.json`` (the JAX sharded decoders on
+     the CPU at P = 1 and 2), on every rank;
+  13. ``ShardedLatticeDecoder`` on the same shards, lattice beam 8: K1
+     once a frame, K2 (1 + eps_iters) times a frame plus eps_iters; per
+     utterance as phase 6, and utterance 0's pruned links
+     (``pruned_links``), against the same reference.
+     Each of 11-13 prints its collectives by kind and per frame; 12-13
+     also their wall and device (profiled run) ms a frame and busy
+     share.  Rank 0 of 12 and 13 holds K1 and K6 or K2 (emitting and eps
+     calls) on frame ``SHARD_FRAME``'s inputs, captured from the counted
+     decode (``CallCapture``), against plain and times them, while the
+     other rank waits: phase 2's checks at the shard shapes.
 Phase 2 also holds K2's eps call (incumbents first) on the eps
 iterations of the unfolded lattice decode at frames 150 and 250, and K4
 with eps records on its first 500-frame chunk, against their plain
@@ -129,7 +162,7 @@ and K1 and K2 at phase 10's recall shapes (B=1, K 4096, each em_records
 budget) on every frame of the recall utterance, timed on the frame with
 the most records.
 The line before the last is a JSON object with each kernel's launches
-(summed over the counted runs of phases 3-10, and by phase), error,
+(summed over the counted runs of phases 3-13, and by phase), error,
 times, bound and library-call time; the last is ``{"ok": true,
 "device": {...}}``.
 
@@ -178,10 +211,24 @@ RECALL_CONFIG = dict(BENCH_CONFIG, eps_rem_budget=2048, flat_group=8)
 RECALL_KW = dict(lattice_beam=8.0, eps_records=1024, pad_time_to=CHUNK)
 RECALL_BUDGETS = (4096, 8192, 16384)
 ENCODER_FRAMES = (1, 150, 600)  # frames of phase 9's decode whose K1 and K2 calls it holds
+# Phases 12-13: the sharded decoders on the unfolded graph, per shard half
+# the bench's K and rem_budget (P = 2 holds the bench's capacity), on the
+# first SHARD_FRAMES frames (the JAX reference's cut,
+# scripts/make_torch_shard_reference.py).
+SHARD_CONFIG = dict(beam=15.0, max_active=2560, min_active=200, frontier_size=2048,
+                    rem_budget=24576)
+SHARD_FRAMES = 250
+SHARD_LATTICE_BEAM = 8.0
+SHARD_FRAME = 150  # frame whose K1, K6 and K2 calls phase 2 holds at the shard shapes
+PARALLEL_TIMEOUT = 900  # seconds phases 11-13's two ranks may take
+
+
+# Set in phases 11-13's spawned ranks: their lines say whose they are.
+LOG_PREFIX = ""
 
 
 def log(*a):
-    print(*a, flush=True)
+    print(*((LOG_PREFIX,) if LOG_PREFIX else ()), *a, flush=True)
 
 
 def bench_workload():
@@ -1392,6 +1439,40 @@ def lattice_digest(lat):
             hashlib.sha256(head.tobytes() + fin.tobytes()).hexdigest())
 
 
+def pruned_links(pl):
+    """(count, sha256) of a PrunedLattice's kept links (of either
+    package), each as the int32 row (frame, source state, frame of the
+    destination, destination state, ilabel, olabel, graph cost bits,
+    acoustic cost bits), the rows sorted; (0, "") for None."""
+    import hashlib
+
+    import numpy as np
+
+    if pl is None:
+        return 0, ""
+    rows = []
+    for f in range(pl.num_frames + 1):
+        for lk, fd in ((pl.eps_links[f], f),
+                       (pl.em_links[f] if f < pl.num_frames else None, f + 1)):
+            if lk is None or not len(lk.src):
+                continue
+            keep = np.asarray(lk.keep, bool)
+            src = np.asarray(pl.tokens[f].states)[np.asarray(lk.src)[keep]]
+            dst = np.asarray(pl.tokens[fd].states)[np.asarray(lk.dst)[keep]]
+            n = len(src)
+            rows.append(np.stack([
+                np.full(n, f), src, np.full(n, fd), dst,
+                np.asarray(lk.ilabel)[keep], np.asarray(lk.olabel)[keep],
+                np.asarray(lk.graph_cost, np.float32)[keep].view(np.int32),
+                np.asarray(lk.ac_cost, np.float32)[keep].view(np.int32),
+            ], axis=1).astype(np.int32))
+    if not rows:
+        return 0, hashlib.sha256(b"").hexdigest()
+    links = np.concatenate(rows)
+    links = links[np.lexsort(links.T[::-1])]
+    return int(len(links)), hashlib.sha256(np.ascontiguousarray(links).tobytes()).hexdigest()
+
+
 def check_lattice_utterance(what, b, u, raw, best, stats, reached, frc):
     """Raise unless one utterance's lattice result equals its JAX
     reference (``scripts/make_torch_lattice_eps_reference.py``)."""
@@ -1869,7 +1950,7 @@ def load_reference(name, scores, lengths, refs):
 
 def main_path(dec, scores, lengths, refs, ref):
     """The decode as a user calls it, counted; then checks against the
-    JAX reference."""
+    JAX reference.  Returns the launch counts and the decode's seconds."""
     import numpy as np
 
     from kaldi_decoder_tpu_torch.utils.wer import wer
@@ -1919,7 +2000,450 @@ def main_path(dec, scores, lengths, refs, ref):
         f"K4 launches {k4}; matches the JAX "
         f"reference on {len(ref['utts'][:B])} utterances; overflow frames "
         f"{int(res.overflows.sum())}, saturated frames {int(res.saturations.sum())}; {st}")
-    return gat, k1, k2, k4
+    return gat, k1, k2, k4, t_dec
+
+
+class CallCapture:
+    """While active, the kernel wrappers ``names`` of ``module`` (the
+    names the module calls them by) keep the arguments of their calls at
+    the given indices, tensors cloned; every call still goes to the
+    wrapper, which counts its launch as always."""
+
+    def __init__(self, module, want):
+        self.module, self.want = module, want  # name -> call indices to keep
+        self.calls = {n: 0 for n in want}
+        self.kept = {}
+        self.orig = {n: getattr(module, n) for n in want}
+
+    def __enter__(self):
+        for n in self.want:
+            setattr(self.module, n, self._wrap(n))
+        return self
+
+    def __exit__(self, *exc):
+        for n, f in self.orig.items():
+            setattr(self.module, n, f)
+
+    def _wrap(self, n):
+        import torch
+
+        def clone(x):
+            if isinstance(x, torch.Tensor):
+                return x.clone()
+            if isinstance(x, tuple):
+                items = [clone(v) for v in x]
+                return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+            return x
+
+        def call(*args, **kw):
+            i = self.calls[n]
+            self.calls[n] += 1
+            if i in self.want[n]:
+                self.kept[n, i] = (clone(args), {k: clone(v) for k, v in kw.items()})
+            return self.orig[n](*args, **kw)
+
+        return call
+
+
+def shard_call_index(frame, eps_iters, eps=False):
+    """The index of a frame's K6 (Viterbi) or K2 (lattice) call in a
+    sharded decode: the start closure's ``eps_iters`` calls first, then
+    per frame the emitting call and one per eps iteration."""
+    return eps_iters + frame * (1 + eps_iters) + (1 if eps else 0)
+
+
+def hold_shard_kernels(kept, kind, eps_iters, tag):
+    """K1 and K6 (Viterbi) or K2 (lattice) on the calls of frame
+    SHARD_FRAME that a sharded decode made (``kept``, a CallCapture's),
+    held against their plain versions (bitwise) and timed; returns
+    ({kernel: max |err|}, {kernel_call: time_kernel fields})."""
+    from kaldi_decoder_tpu_torch.kernels.dedup import dedup_select
+    from kaldi_decoder_tpu_torch.kernels.dedup_rec import dedup_select_rec
+    from kaldi_decoder_tpu_torch.kernels.expand import expand_filter, expand_filter_plain
+    from kaldi_decoder_tpu_torch.ops.segment import dedup_select as dedup_select_plain
+    from kaldi_decoder_tpu_torch.ops.segment import dedup_select_rec as dedup_select_rec_plain
+
+    errs, times = {}, {}
+    args, kw = kept["expand_filter", SHARD_FRAME]
+    where = f"{tag}, frame {SHARD_FRAME}"
+    errs["k1"] = same_expansion(expand_filter_plain(*args, **kw), expand_filter(*args, **kw),
+                                where)
+    times["k1"] = time_kernel(f"K1 at {where} (B={args[0].shape[0]}, K {args[0].shape[1]})",
+                              lambda: expand_filter(*args, **kw),
+                              lambda: expand_filter_plain(*args, **kw), k1_work(*args, **kw))
+    name = "dedup_select" if kind == "viterbi" else "dedup_select_rec"
+    calls = [("", False)] + ([("_eps", True)] if eps_iters else [])
+    for sfx, eps in calls:
+        args, kw = kept[name, shard_call_index(SHARD_FRAME, eps_iters, eps)]
+        shape = f"B={args[0].shape[0]}, N {args[0].shape[1]}, K {args[2]}, S {args[3]}"
+        if kind == "viterbi":
+            got = dedup_select(*args)
+            errs["k6" + sfx] = same_selection(dedup_select_plain(*args), got, where + sfx)
+            times["k6" + sfx] = time_kernel(f"K6{sfx} at {where} ({shape})",
+                                            lambda: dedup_select(*args),
+                                            lambda: dedup_select_plain(*args), k6_work(*args[1:3]))
+        else:
+            got = dedup_select_rec(*args, **kw)
+            errs["k2" + sfx] = same_records(dedup_select_rec_plain(*args, **kw), got, where + sfx)
+            times["k2" + sfx] = time_kernel(f"K2{sfx} at {where} ({shape}, R {args[4]})",
+                                            lambda: dedup_select_rec(*args, **kw),
+                                            lambda: dedup_select_rec_plain(*args, **kw),
+                                            k2_work(*args, **kw))
+    return errs, times
+
+
+def profiled_device_ms(fn, top=6):
+    """One run of ``fn`` under the profiler: its device milliseconds in
+    kernels and in copies (a gloo exchange stages through the host), the
+    ``top`` activities by device time [(name, ms, count)], and the run's
+    wall seconds (profiled)."""
+    import collections
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name][0] += (e.time_range.end - e.time_range.start) / 1e3
+            by_name[e.name][1] += 1
+    copies = sum(ms for name, (ms, _) in by_name.items() if name.startswith(("Memcpy", "Memset")))
+    kernels = sum(ms for ms, _ in by_name.values()) - copies
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    return kernels, copies, [(name[:60], ms, n) for name, (ms, n) in ranked], wall
+
+
+def shard_reference(scores, lengths, refs):
+    """The JAX sharded decoders' reference and the workload cut to its
+    frames, after checking that the cut workload is the reference's."""
+    import numpy as np
+
+    with open(os.path.join(REPO, "tests", "data", "torch_port_shard_ref.json")) as f:
+        sref = json.load(f)
+    F = sref["workload"]["frames"]
+    if F != SHARD_FRAMES or sref["requested"] != dict(SHARD_CONFIG, lattice_beam=SHARD_LATTICE_BEAM):
+        raise AssertionError("the shard reference was made for another cut or config")
+    sc = np.ascontiguousarray(scores[:, :F])
+    sl = np.minimum(lengths, F).astype(np.int32)
+    for part in sref["parts"].values():
+        check_workload(part["viterbi"][:B], sc, sl, refs)
+        check_workload(part["lattice"][:B], sc, sl, refs)
+    return sref, sc, sl
+
+
+def shard_path(kind, graph, sc, sl, refs, sref, P, rank):
+    """Phase 12 (``kind`` "viterbi") or 13 ("lattice"): the sharded decoder
+    on a ``("model",)`` mesh of the P ranks, counted (kernel launches and
+    collectives), checked against the JAX reference on this rank's whole
+    result; then a profiled run for the device time; rank 0 holds K1 and
+    K6 or K2 on frame SHARD_FRAME's calls of the counted run.  Returns
+    (launch counts, the phase's numbers, kernel errors, kernel times)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from kaldi_decoder_tpu_torch import config_for_graph
+    from kaldi_decoder_tpu_torch.parallel import (
+        ShardedLatticeDecoder,
+        ShardedViterbiDecoder,
+        make_mesh,
+    )
+    from kaldi_decoder_tpu_torch.parallel import graph_shard
+    from kaldi_decoder_tpu_torch.parallel.mesh import collective_calls
+
+    what = f"phase {12 if kind == 'viterbi' else 13} (P={P})"
+    want = sref["parts"][str(P)]
+    mesh = make_mesh(P, "model", device_type="cuda")
+    fc = config_for_graph(graph, **SHARD_CONFIG)
+    if kind == "viterbi":
+        dec = ShardedViterbiDecoder(graph, fc, mesh=mesh, pad_time_to=SHARD_FRAMES, device="cuda")
+        sh = dec.cfg
+    else:
+        dec = ShardedLatticeDecoder(graph, fc, lattice_beam=SHARD_LATTICE_BEAM, mesh=mesh,
+                                    pad_time_to=SHARD_FRAMES, device="cuda")
+        sh = dec.cfg.shard
+    got_cfg = dict({k: getattr(sh.frontier, k) for k in want["shard_config"]
+                    if hasattr(sh.frontier, k)}, num_parts=sh.num_parts, part_size=sh.part_size,
+                   route_cap=sh.route_cap, eps_route_cap=sh.eps_route_cap)
+    if kind == "lattice":
+        got_cfg.update(em_records=dec.cfg.em_records, eps_records=dec.cfg.eps_records,
+                       lattice_beam=dec.cfg.lattice_beam)
+    if got_cfg != {k: want["shard_config"][k] for k in got_cfg}:
+        raise AssertionError(f"{what}: shard config {got_cfg} != the reference's "
+                             f"{want['shard_config']}")
+    D = sh.frontier.eps_iters
+    kname = "dedup_select" if kind == "viterbi" else "dedup_select_rec"
+    capture = {"expand_filter": {SHARD_FRAME},
+               kname: {shard_call_index(SHARD_FRAME, D), shard_call_index(SHARD_FRAME, D, True)}}
+    dist.barrier()
+    reset_counts()
+    collective_calls.clear()
+    t0 = time.perf_counter()
+    with CallCapture(graph_shard, capture) as cap:
+        res = dec.decode(sc, sl)
+    t_dec = time.perf_counter() - t0
+    n = read_counts()
+    coll = dict(collective_calls)
+    frames = res.num_active.shape[0]
+    k = "k6" if kind == "viterbi" else "k2"
+    want_n = dict(gather=0, k1=frames, k2=0, k4=0, k6=0)
+    want_n[k] = D + frames * (1 + D)
+    if n != want_n:
+        raise AssertionError(f"{what}: launch counts {n}, want {want_n}")
+    t1 = time.perf_counter()
+    for b, u in enumerate(want[kind][:B]):
+        if kind == "viterbi":
+            check_utterance(what, b, u, res.best_path(b), res.num_active[:, b],
+                            res.best_costs[:, b], res.overflows[:, b], res.saturations[:, b])
+        else:
+            check_lattice_utterance(what, b, u, res.raw_lattice(b), res.best_path(b),
+                                    res.stats(b), res.reached_final(b),
+                                    res.final_relative_cost(b))
+            if res.best_path_labels(b) != u["labels"]:
+                raise AssertionError(f"{what}, utterance {b}: best_path_labels differ")
+    if kind == "lattice":
+        links = pruned_links(res._prune(0))
+        if list(links) != [want["links0"]["count"], want["links0"]["sha256"]]:
+            raise AssertionError(f"{what}: utterance 0's pruned links {links} != the "
+                                 f"reference's {want['links0']}")
+    t_host = time.perf_counter() - t1
+    k_ms, c_ms, ranked, t_prof = profiled_device_ms(lambda: dec.decode(sc, sl))
+    n_coll = sum(coll.values())
+    wall_ms = t_dec * 1e3 / frames
+    dev_ms = (k_ms + c_ms) / frames
+    out = dict(P=P, decode_s=t_dec, host_s=t_host, frames=frames, wall_ms_per_frame=wall_ms,
+               device_ms_per_frame=dev_ms, kernel_ms_per_frame=k_ms / frames,
+               copy_ms_per_frame=c_ms / frames, busy=dev_ms / wall_ms,
+               top_activities_ms_per_frame=[(name, ms / frames, cnt / frames)
+                                            for name, ms, cnt in ranked],
+               collectives=coll, collectives_per_frame=n_coll / frames,
+               overflow_frames=int(res.overflows.sum()),
+               saturated_frames=int(res.saturations.sum()))
+    log(f"{what}: decode {t_dec:.3f} s for {frames} frames ({wall_ms:.3f} ms a frame), device "
+        f"{dev_ms:.4f} ms a frame ({k_ms / frames:.4f} in kernels, {c_ms / frames:.4f} in "
+        f"copies; profiled run, {t_prof:.3f} s), busy {out['busy']:.3f}; launches {n}; "
+        f"collectives {coll} ({n_coll / frames:.2f} a frame); checks {t_host:.2f} s; equal to "
+        f"the JAX reference on {B} utterances"
+        + ("" if kind == "viterbi" else f" and utterance 0's {links[0]} pruned links"))
+    log("  device time a frame by activity: " + "; ".join(
+        f"{name} {ms:.4f} ms ({cnt:.1f} calls)" for name, ms, cnt in out["top_activities_ms_per_frame"]))
+    errs, times = {}, {}
+    if rank == 0:  # the other rank waits at the barrier: the card is this rank's alone
+        errs, times = hold_shard_kernels(cap.kept, kind, D, f"P={P} {kind} shard 0")
+    dist.barrier()
+    del cap, res, dec
+    torch.cuda.empty_cache()
+    return n, out, errs, times
+
+
+def hold_rank_kernels(dec, scores, lengths, rows, tag):
+    """K1, K2 and K4 at the shapes of a data-parallel rank (its rows of
+    the batch): K1 and K2 on the rank's frames K1_FRAMES and K2_FRAMES
+    (:func:`hold_lattice_frames`), K4 on its first chunk (:func:`hold_k4`),
+    each held against its plain version and timed, K1 and K2 on the frame
+    where K2 takes the most records.  Returns ({kernel: max |err|},
+    {kernel: time_kernel fields})."""
+    import numpy as np
+    import torch
+
+    from kaldi_decoder_tpu_torch.decoders.sweep import sweep_plain
+    from kaldi_decoder_tpu_torch.kernels._build import kernels
+    from kaldi_decoder_tpu_torch.kernels.dedup_rec import (
+        cluster_size,
+        dedup_select_rec,
+        stack_records,
+    )
+    from kaldi_decoder_tpu_torch.kernels.expand import expand_filter, expand_filter_plain
+    from kaldi_decoder_tpu_torch.kernels.sweep import sweep_chunk
+    from kaldi_decoder_tpu_torch.ops.segment import dedup_select_rec as dedup_select_rec_plain
+
+    scores_tm = torch.from_numpy(np.ascontiguousarray(scores[rows].transpose(1, 0, 2))).cuda()
+    Bl = scores_tm.shape[1]
+    fc = dec.cfg.frontier
+    frames = sorted(set(K1_FRAMES + K2_FRAMES))
+    k1_err, k2_err, seen, k1_args, k2_args = hold_lattice_frames(dec, scores_tm, set(frames), tag)
+    N = k2_args[1].shape[1]
+    log(f"K1 and K2 at {tag}'s shapes (B={Bl}, K={fc.frontier_size}, em_records "
+        f"{dec.cfg.em_records}, N={N}; K1 clusters of {k1_clusters(fc, Bl)} blocks, K2 of "
+        f"{cluster_size(Bl, N)}): equal to plain on the rank's frames {frames} ({seen}); "
+        f"timed on frame {seen['at_frame']}:")
+    times = {"k1": time_kernel(f"K1, {tag}", lambda: expand_filter(*k1_args),
+                               lambda: expand_filter_plain(*k1_args), k1_work(*k1_args)),
+             "k2": time_kernel(f"K2, {tag}", lambda: dedup_select_rec(*k2_args),
+                               lambda: stack_records(dedup_select_rec_plain(*k2_args)),
+                               k2_work(*k2_args))}
+    k4_err, args, ref, got = hold_k4(dec, scores_tm, lengths[rows], f"K4 at {tag}")
+    sc = args[5]
+    C = kernels().kd_sweep_cluster(Bl, -(-sc.frontier_size // 4) * 4, sc.em_records)
+    log(f"K4 at {tag}'s shapes: equal to plain on the rank's chunk 0 (T={CHUNK}, B={Bl}; "
+        f"survivors tok {ref.tok_count.sum().item()}, em {ref.em_count.sum().item()}; clusters "
+        f"of {C} blocks):")
+    times["k4"] = time_kernel(f"K4, {tag}, one chunk", lambda: sweep_chunk(*args),
+                              lambda: sweep_plain(*args), k4_work(*args[:5], got), reps=2)
+    del ref, got, scores_tm
+    torch.cuda.empty_cache()
+    return dict(k1=k1_err, k2=k2_err, k4=float(k4_err)), times
+
+
+def data_parallel_path(graph, scores, lengths, refs, ref, P, rank):
+    """Phase 11: ``BatchedLatticeDecoder`` at phase 3's config on a
+    ``("data",)`` mesh of the P ranks, each decoding its rows; checked as
+    phase 3 (main_path) on this rank's whole result; then a profiled run
+    for the device time; rank 0 holds K1, K2 and K4 at its rows' shapes.
+    Returns (launch counts, numbers, kernel errors, kernel times)."""
+    import torch
+    import torch.distributed as dist
+
+    from kaldi_decoder_tpu_torch import BatchedLatticeDecoder, config_for_graph
+    from kaldi_decoder_tpu_torch.parallel import make_mesh
+    from kaldi_decoder_tpu_torch.parallel.mesh import all_gather_object, collective_calls
+
+    dec = BatchedLatticeDecoder(graph, config_for_graph(graph, **BENCH_CONFIG),
+                                mesh=make_mesh(P, device_type="cuda"), device="cuda", **DECODER_KW)
+    # The group's first collective creates its communicator: not in the
+    # timed decode.
+    all_gather_object(None, dec._rows.group)
+    collective_calls.clear()
+    t0 = time.perf_counter()
+    gat, k1, k2, k4, t_dec = main_path(dec, scores, lengths, refs, ref)
+    t_all = time.perf_counter() - t0
+    coll = dict(collective_calls)
+    k_ms, c_ms, _, t_prof = profiled_device_ms(
+        lambda: dec.decode(scores, lengths, chunk_frames=CHUNK, device_prune=True))
+    frames = k1
+    out = dict(P=P, decode_s=t_dec, seconds=t_all, collectives=coll,
+               wall_ms_per_frame=t_dec * 1e3 / frames,
+               device_ms_per_frame=(k_ms + c_ms) / frames, kernel_ms_per_frame=k_ms / frames,
+               copy_ms_per_frame=c_ms / frames)
+    log(f"phase 11 (P={P}): rows {dec._rows.rows(B)} of {B} on this rank; decode (gather "
+        f"included) {t_dec:.3f} s, {out['wall_ms_per_frame']:.3f} ms a frame; device "
+        f"{out['device_ms_per_frame']:.4f} ms a frame ({out['kernel_ms_per_frame']:.4f} in "
+        f"kernels; profiled run, {t_prof:.3f} s); collectives {coll} (none in the frame loop); "
+        f"decode, gather and checks {t_all:.2f} s")
+    errs, times = {}, {}
+    if rank == 0:  # the other rank waits at the barrier: the card is this rank's alone
+        errs, times = hold_rank_kernels(dec, scores, lengths, dec._rows.rows(B),
+                                        f"phase 11 (P={P}) rank 0")
+    dist.barrier()
+    del dec
+    torch.cuda.empty_cache()
+    return dict(gather=gat, k1=k1, k2=k2, k4=k4, k6=0), out, errs, times
+
+
+def parallel_phases(P, rank, workload=None):
+    """Phases 11-13 on this rank of a group of P ranks (the default
+    group, already made), on ``workload`` (bench_workload()'s, rebuilt
+    when not given).  Returns {phase: (launches, numbers, kernel errors,
+    kernel times)}."""
+    graph, scores, lengths, refs = workload or bench_workload()
+    ref = load_reference("torch_port_bench_ref.json", scores, lengths, refs)
+    sref, sc, sl = shard_reference(scores, lengths, refs)
+    out = {}
+    t0 = time.perf_counter()
+    out["data_parallel"] = data_parallel_path(graph, scores, lengths, refs, ref, P, rank)
+    log(f"phase 11 (P={P}): {time.perf_counter() - t0:.1f} s")
+    for phase, kind in ((12, "viterbi"), (13, "lattice")):
+        t0 = time.perf_counter()
+        out[f"shard_{kind}"] = shard_path(kind, graph, sc, sl, refs, sref, P, rank)
+        log(f"phase {phase} (P={P}): {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def parallel_rank(rank, port, queue):
+    """One of phases 11-13's two ranks (a spawned process): both on
+    ``cuda:0``, over a gloo group (NCCL refuses two ranks on one card),
+    which stages each exchange through the host.  Puts (rank, "ok",
+    results) or (rank, "error", traceback) on ``queue``."""
+    global LOG_PREFIX
+    LOG_PREFIX = f"[rank {rank}]"
+    try:
+        sys.path.insert(0, REPO)
+        import torch
+        import torch.distributed as dist
+
+        from kaldi_decoder_tpu_torch.parallel import initialize_distributed
+
+        torch.cuda.set_device(0)
+        initialize_distributed(backend="gloo", init_method=f"tcp://localhost:{port}",
+                               rank=rank, world_size=2)
+        try:
+            out = parallel_phases(2, rank)
+        finally:
+            dist.destroy_process_group()
+        queue.put((rank, "ok", out))
+    except BaseException:
+        queue.put((rank, "error", traceback.format_exc()))
+        raise
+
+
+def run_parallel_ranks():
+    """Phases 11-13 at P = 2: two spawned ranks on ``cuda:0`` over gloo.
+    Returns each rank's results; raises if a rank fails or time runs out,
+    and ends both processes either way."""
+    import multiprocessing as mp
+    import queue as queue_mod
+
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=parallel_rank, args=(r, port, q)) for r in range(2)]
+    for p in procs:
+        p.start()
+    results = {}
+    try:
+        deadline = time.time() + PARALLEL_TIMEOUT
+        while len(results) < 2:
+            try:
+                rank, status, out = q.get(timeout=max(1.0, deadline - time.time()))
+            except queue_mod.Empty:
+                raise AssertionError(f"phases 11-13 at P=2: no result within "
+                                     f"{PARALLEL_TIMEOUT} s") from None
+            if status != "ok":
+                raise AssertionError(f"phases 11-13 at P=2, rank {rank} failed:\n{out}")
+            results[rank] = out
+        for p in procs:
+            p.join(timeout=60)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    if any(p.exitcode != 0 for p in procs):
+        raise AssertionError(f"phases 11-13 at P=2: exit codes {[p.exitcode for p in procs]}")
+    return [results[0], results[1]]
+
+
+def run_parallel_nccl(workload):
+    """Phases 11-13 at P = 1 in this process, over NCCL, on ``workload``."""
+    import torch
+    import torch.distributed as dist
+
+    from kaldi_decoder_tpu_torch.parallel import initialize_distributed
+
+    torch.cuda.set_device(0)
+    initialize_distributed(backend="nccl", init_method=f"tcp://localhost:{free_port()}",
+                           rank=0, world_size=1)
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"backend {dist.get_backend()}, expected nccl")
+        return parallel_phases(1, 0, workload)
+    finally:
+        dist.destroy_process_group()
 
 
 def main():
@@ -1999,7 +2523,7 @@ def main():
     torch.cuda.empty_cache()
 
     # 3. Lattice path.
-    gat_n, k1_n, k2_n, k4_n = main_path(dec, scores, lengths, refs, ref)
+    gat_n, k1_n, k2_n, k4_n, _ = main_path(dec, scores, lengths, refs, ref)
     del dec
     torch.cuda.empty_cache()
 
@@ -2039,10 +2563,34 @@ def main():
     t0 = time.perf_counter()
     rn, rec = recall_path(graph, scores, rref)
     log(f"phase 10 (link recall): {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    # 11-13. Data parallel and the sharded decoders: P = 1 in this process
+    # over NCCL, then P = 2 in two spawned ranks on cuda:0 over gloo.
+    t0 = time.perf_counter()
+    par = {1: [run_parallel_nccl((graph, scores, lengths, refs))]}
+    torch.cuda.empty_cache()
+    par[2] = run_parallel_ranks()
+    log(f"phases 11-13: {time.perf_counter() - t0:.1f} s")
 
     later = {"lattice_unfolded": un, "faster_lattice": fn, "simple_lattice": sln,
              "cli_lattice": cn["lattice"][0], "cli_faster": cn["faster"][0], "encoder": en,
              "recall": rn}
+    for P, ranks in par.items():  # a P = 2 path's launches are its two ranks' sum
+        for phase in ranks[0]:
+            later[f"{phase}_p{P}"] = {k: sum(r[phase][0][k] for r in ranks)
+                                      for k in ranks[0][phase][0]}
+    # Phase 2 at the data-parallel rank's and the shard shapes: rank 0's holds.
+    sk_err = {}
+    for P in par:
+        for ph in ("data_parallel", "shard_viterbi", "shard_lattice"):
+            for k, v in par[P][0][ph][2].items():
+                sk_err[k] = max(sk_err.get(k, 0.0), v)
+
+    def shard_times(kernel, phase):
+        return {f"{f}_{phase}{sfx}_p{P}": par[P][0][phase][3][kernel + sfx][f]
+                for P in par for sfx in ("", "_eps") if kernel + sfx in par[P][0][phase][3]
+                for f in ("ms", "plain_ms", "bound_ms", "bound_by", "share_of_bound")}
     by_path = {
         "gather": {"lattice": gat_n, "viterbi": vn["gather"], "streaming": sn["gather"]},
         "k1": {"lattice": k1_n, "viterbi": vn["k1"], "streaming": sn["k1"]},
@@ -2064,7 +2612,9 @@ def main():
                     **{f: t[f] for f in fields}, **extra)
 
     log(f"all phases: {time.perf_counter() - t_start:.1f} s")
-    log(json.dumps({"graph_file": gio, "encoder": enc, "recall": rec}))
+    log(json.dumps({"graph_file": gio, "encoder": enc, "recall": rec,
+                    "parallel": {f"{ph}_p{P}": [r[ph][1] for r in ranks]
+                                 for P, ranks in par.items() for ph in ranks[0]}}))
     log(json.dumps({"kernels": [
         entry("row_gather (standalone, em_block row per frontier slot; folded into K1 on "
               "the paths)", "gather.cu", "scripts/gather_bench.py:139", "gather", gat, gat_err,
@@ -2074,7 +2624,10 @@ def main():
         entry("K1 expand_filter (row gather folded in + arc expansion + score lookup + "
               "beam filter)",
               "expand.cu", "kaldi_decoder_tpu/decoders/frontier.py:266", "k1", k1,
-              max(k1_err, k6["k1_err"], sk["k1_err"], k1r_err, enc["kernel_errs"]["k1"]),
+              max(k1_err, k6["k1_err"], sk["k1_err"], k1r_err, enc["kernel_errs"]["k1"],
+                  sk_err["k1"]),
+              **shard_times("k1", "data_parallel"), **shard_times("k1", "shard_viterbi"),
+              **shard_times("k1", "shard_lattice"),
               ms_src_slot=k6["k1"]["ms"], plain_ms_src_slot=k6["k1"]["plain_ms"],
               bound_ms_src_slot=k6["k1"]["bound_ms"], ms_streaming=sk["k1"]["ms"],
               bound_ms_streaming=sk["k1"]["bound_ms"],
@@ -2084,8 +2637,10 @@ def main():
         entry("K2 dedup_select_rec (lattice dedup by state + top-K + records; emitting and "
               "eps calls)", "dedup_rec.cu",
               "kaldi_decoder_tpu/ops/segment.py:177", "k2", k2,
-              max(k2_err, k2e_err, k2s_err, k2r_err, enc["kernel_errs"]["k2"]),
-              frame=K2_FRAMES[0], steps_us=k2["steps_us"],
+              max(k2_err, k2e_err, k2s_err, k2r_err, enc["kernel_errs"]["k2"], sk_err["k2"],
+                  sk_err.get("k2_eps", 0.0)),
+              frame=K2_FRAMES[0], steps_us=k2["steps_us"], **shard_times("k2", "data_parallel"),
+              **shard_times("k2", "shard_lattice"),
               **{f"{f}_frame{t}": k2_by_frame[t][f] for t in K2_FRAMES[1:]
                  for f in ("ms", "plain_ms", "bound_ms", "share_of_bound", "steps_us")},
               **{f"{f}_eps_frame{t}": k2e_by_frame[t][f] for t in K2_EPS_FRAMES
@@ -2099,13 +2654,15 @@ def main():
                            "records")}),
         entry("K4 sweep_chunk (backward extra-cost sweep; with eps records, the eps Bellman)",
               "sweep.cu", "kaldi_decoder_tpu/decoders/sweep.py:141", "k4", k4,
-              max(k4_err, k4e_err, enc["kernel_errs"]["k4"]),
+              max(k4_err, k4e_err, enc["kernel_errs"]["k4"], sk_err["k4"]),
+              **shard_times("k4", "data_parallel"),
               **{f"{f}_eps": k4e[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
                                               "share_of_bound", "wrapper_ms",
                                               "plain_wrapper_ms")}),
         entry("K6 dedup_select (Viterbi dedup by state + top-K + winning lane)", "dedup.cu",
               "kaldi_decoder_tpu/ops/segment.py:160", "k6", k6["k6"],
-              max(k6["k6_err"], sk["k6_err"]),
+              max(k6["k6_err"], sk["k6_err"], sk_err["k6"], sk_err.get("k6_eps", 0.0)),
+              **shard_times("k6", "shard_viterbi"),
               ms_eps=k6["eps"]["ms"], plain_ms_eps=k6["eps"]["plain_ms"],
               bound_ms_eps=k6["eps"]["bound_ms"],
               **{f"{f}{sfx}": t[f] for sfx, t in (

@@ -61,6 +61,13 @@ from kaldi_decoder_tpu_torch.fst.fst import INF, Lattice
 from kaldi_decoder_tpu_torch.fst.ops import shortest_path
 from kaldi_decoder_tpu_torch.fst.pack import pack_graph_device
 from kaldi_decoder_tpu_torch.kernels.sweep import sweep_chunk
+from kaldi_decoder_tpu_torch.parallel.mesh import (
+    all_gather_object,
+    batch_sharding,
+    check_device,
+    concat_parts,
+    local_batch,
+)
 from kaldi_decoder_tpu_torch.lattice.prune import (
     IncrementalLattice,
     PrunedLattice,
@@ -407,25 +414,42 @@ class BatchedLatticeDecoder:
     with FasterDecoder's adaptive-beam and max-active pruning
     (`faster-decoder.cc:244-336`).
 
+    ``graph`` is a ``CsrGraph`` or a ``StdVectorFst``, which is compiled.
     A graph with eps arcs is folded to an eps-free device graph
     (``fold=True``, where it can be folded); otherwise the device keeps the
-    eps arcs and runs the eps path."""
+    eps arcs and runs the eps path.
+
+    With ``mesh`` (a :func:`kaldi_decoder_tpu_torch.parallel.make_mesh`
+    mesh, every rank of it constructing the decoder and decoding the same
+    batch) the batch is padded to a multiple of the mesh's size and split
+    over its ``data_axis`` dimension: each rank decodes its rows on
+    ``device`` with the whole graph, with no collective in the frame loop,
+    and the downloaded results are gathered, so that every rank's result
+    holds every row."""
 
     def __init__(
         self,
-        graph: CsrGraph,
+        graph,
         frontier: Optional[FrontierConfig] = None,
         lattice_beam: float = 10.0,
         em_records: Optional[int] = None,
         eps_records: Optional[int] = None,
         pad_time_to: int = 128,
+        mesh=None,
+        data_axis: str = "data",
         fold: bool = True,
         *,
         device,
     ):
-        if not isinstance(graph, CsrGraph):
-            raise TypeError(f"expected a kaldi_decoder_tpu_torch CsrGraph, got {type(graph)!r}")
         self.device = torch.device(device)
+        self.mesh = mesh
+        self._rows = None
+        self._batch_multiple = 1
+        if mesh is not None:
+            self.device = check_device(mesh, device)
+            self._rows = batch_sharding(mesh, data_axis)
+            self._batch_multiple = mesh.size()
+        graph = _as_graph(graph)
         self.graph = graph
         self.fold = fold_eps(graph) if fold and graph.has_eps else None
         dev_graph = self.fold.device if self.fold is not None else graph
@@ -511,13 +535,12 @@ class BatchedLatticeDecoder:
             # Whole chunks only: the last chunk is padded, not shortened.
             C = max(_round_up(chunk_frames, self.pad_time_to), 1)
             Tp = _round_up(Tp, C)
-        scores_tm = np.zeros((Tp, B, V), np.float32)
-        scores_tm[:T] = scores.transpose(1, 0, 2)
+        scores_tm, lengths_p = local_batch(scores, lengths, Tp, self._rows, self._batch_multiple)
 
         t0 = time.perf_counter()
-        st0, init_states, init_costs, init_recs = self._init(B)
+        st0, init_states, init_costs, init_recs = self._init(scores_tm.shape[1])
         scores_dev = torch.from_numpy(scores_tm).to(self.device)
-        rem = torch.from_numpy(lengths).to(self.device)
+        rem = torch.from_numpy(lengths_p).to(self.device)
         S = self._dev_graph.num_states
         sc = sweep_config(self.cfg, C) if device_prune else None
         eps = self.cfg.frontier.eps_iters > 0
@@ -579,6 +602,12 @@ class BatchedLatticeDecoder:
                         "overflow": ovf.astype(bool),
                     }
                 )
+            stats = [
+                [x.cpu().numpy() for x in (o.num_active, o.cutoff, o.overflow, o.saturated)]
+                for _, o, _ in chunks
+            ]
+            if self._rows is not None:
+                survivors, stats = self._gather_swept(survivors, stats)
             if any(c["overflow"].any() for c in survivors):
                 # The windowed sweep kept more than its buffers hold (or a
                 # frame's eps Bellman had not settled at its bound): take
@@ -591,10 +620,6 @@ class BatchedLatticeDecoder:
                     pending.scores, pending.lengths,
                     chunk_frames=pending.chunk_frames, device_prune=False,
                 )
-            stats = [
-                [x.cpu().numpy() for x in (o.num_active, o.cutoff, o.overflow, o.saturated)]
-                for _, o, _ in chunks
-            ]
         else:
             outs = LatticeStepOut(
                 *(
@@ -602,6 +627,9 @@ class BatchedLatticeDecoder:
                     for i in range(len(LatticeStepOut._fields))
                 )
             )
+            if self._rows is not None:
+                parts = all_gather_object(outs, self._rows.group)
+                outs = LatticeStepOut(*(np.concatenate(f, axis=1) for f in zip(*parts)))
             frame_states, frame_costs = outs.frontier_states, outs.frontier_costs
             em_records, eps_records = outs.em_records, outs.eps_records
             stats = [[outs.num_active, outs.cutoff, outs.overflow, outs.saturated]]
@@ -629,6 +657,19 @@ class BatchedLatticeDecoder:
             fold=self.fold,
             wall_seconds=time.perf_counter() - pending.t0,
         )
+
+    def _gather_swept(self, survivors, stats):
+        """Every rank's survivor chunks and per-frame stats, rows in rank
+        order (row buffers padded with -1 past their counts)."""
+        parts = all_gather_object((survivors, stats), self._rows.group)
+        merged = []
+        for i, chunk in enumerate(survivors):
+            c = {k: concat_parts([p[0][i][k] for p in parts], axis=0)
+                 for k in chunk if k != "frame0"}
+            merged.append(dict(c, frame0=chunk["frame0"]))
+        stats = [[np.concatenate([p[1][i][j] for p in parts], axis=1) for j in range(4)]
+                 for i in range(len(stats))]
+        return merged, stats
 
 
 @dataclasses.dataclass

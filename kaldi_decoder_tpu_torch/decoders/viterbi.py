@@ -38,6 +38,12 @@ from kaldi_decoder_tpu_torch.fst.fold import fold_eps
 from kaldi_decoder_tpu_torch.fst.fst import INF, Lattice
 from kaldi_decoder_tpu_torch.fst.ops import remove_eps_local
 from kaldi_decoder_tpu_torch.fst.pack import PackedGraph, pack_graph_device
+from kaldi_decoder_tpu_torch.parallel.mesh import (
+    all_gather_object,
+    batch_sharding,
+    check_device,
+    local_batch,
+)
 from kaldi_decoder_tpu_torch.utils.logging import DecodeStats
 from kaldi_decoder_tpu_torch.utils.profiling import WallTimer, annotate
 
@@ -260,13 +266,23 @@ class BatchedViterbiDecoder:
 
     With ``fold`` the eps arcs of an acyclic, non-negative eps subgraph are
     folded into the emitting arcs on the host, and the device graph is
-    eps-free; otherwise the device runs the eps closure every frame."""
+    eps-free; otherwise the device runs the eps closure every frame.
+
+    With ``mesh`` (a :func:`kaldi_decoder_tpu_torch.parallel.make_mesh`
+    mesh, every rank of it constructing the decoder and calling ``decode``
+    with the same arguments) the batch is padded to a multiple of the
+    mesh's size and split over its ``data_axis`` dimension: each rank
+    decodes its rows on ``device`` with the whole graph, with no
+    collective in the frame loop, and the downloaded results are gathered,
+    so that every rank's result holds every row."""
 
     def __init__(
         self,
         graph: CsrGraph,
         config: Optional[FrontierConfig] = None,
         pad_time_to: int = 128,
+        mesh=None,
+        data_axis: str = "data",
         fold: bool = True,
         *,
         device,
@@ -274,6 +290,13 @@ class BatchedViterbiDecoder:
         if not isinstance(graph, CsrGraph):
             raise TypeError(f"expected a kaldi_decoder_tpu_torch CsrGraph, got {type(graph)!r}")
         self.device = torch.device(device)
+        self.mesh = mesh
+        self._rows = None
+        self._batch_multiple = 1
+        if mesh is not None:
+            self.device = check_device(mesh, device)
+            self._rows = batch_sharding(mesh, data_axis)
+            self._batch_multiple = mesh.size()
         self.graph = graph
         self.fold = _maybe_fold(graph, fold)
         dev_graph = self.fold.device if self.fold is not None else graph
@@ -312,27 +335,19 @@ class BatchedViterbiDecoder:
         lengths = np.asarray(lengths, dtype=np.int32)
 
         Tp = max(_round_up(T, self.pad_time_to), self.pad_time_to)
-        scores_tm = np.zeros((Tp, B, V), np.float32)
-        scores_tm[:T] = scores.transpose(1, 0, 2)
+        scores_tm, lengths_p = local_batch(scores, lengths, Tp, self._rows, self._batch_multiple)
 
-        st0, bp_init = self._init(B)
+        st0, bp_init = self._init(lengths_p.shape[0])
         with WallTimer() as timer, annotate("kdtpu.viterbi_decode", device=self.device):
             stf, outs = viterbi_chunk(
                 self._pg,
                 torch.from_numpy(scores_tm).to(self.device),
-                torch.from_numpy(lengths).to(self.device),
+                torch.from_numpy(lengths_p).to(self.device),
                 st0, self.cfg, self._dev_graph.num_states,
             )
             # The download doubles as the device sync; keep it in the timer.
             bp_emit = outs.bp_emit.cpu().numpy()
-        return ViterbiResult(
-            graph=self.graph,
-            cfg=self.cfg,
-            scores=scores,
-            lengths=lengths,
-            bp_init=bp_init,
-            fold=self.fold,
-            wall_seconds=timer.elapsed,
+        out = dict(
             bp_emit=bp_emit,
             bp_eps=outs.bp_eps.cpu().numpy(),
             frontier_states=stf.states.cpu().numpy(),
@@ -342,4 +357,20 @@ class BatchedViterbiDecoder:
             cutoffs=outs.cutoff.cpu().numpy(),
             overflows=outs.overflow.cpu().numpy(),
             saturations=outs.saturated.cpu().numpy(),
+        )
+        if self._rows is not None:
+            # Every rank's rows: the frontiers are (B, K), the rest (T, B, ...).
+            parts = all_gather_object(out, self._rows.group)
+            out = {k: np.concatenate([p[k] for p in parts],
+                                     axis=0 if k in ("frontier_states", "frontier_costs") else 1)
+                   for k in out}
+        return ViterbiResult(
+            graph=self.graph,
+            cfg=self.cfg,
+            scores=scores,
+            lengths=lengths,
+            bp_init=bp_init,
+            fold=self.fold,
+            wall_seconds=timer.elapsed,
+            **out,
         )

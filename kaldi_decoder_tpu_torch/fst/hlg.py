@@ -1,22 +1,29 @@
-"""Workload synthesis for HLG decoding: lexicon, corpus, CTC posteriors.
+"""Native HLG decoding graphs and workload synthesis: lexicon, corpus, CTC posteriors.
 
-A jax-free copy of ``random_lexicon``, ``sample_corpus``,
-``words_to_tokens`` and ``synth_posteriors`` from
-``kaldi_decoder_tpu/fst/hlg.py``, kept because importing the original
-imports jax.  With them the bench's utterances and transcripts are rebuilt
-from the seed exactly as ``bench.py`` builds them, from the cached graph,
-on any numpy: ``sample_corpus`` draws its Zipf samples through
-``_zipf``, numpy's pre-2.3 algorithm, so the corpus that built the cached
-graph does not change with numpy's version.  Graph composition
-(``build_hlg``) is not copied.
+A jax-free copy of ``kaldi_decoder_tpu/fst/hlg.py`` (``random_lexicon``,
+``sample_corpus``, ``HlgGraph``, ``build_hlg``, ``make_hlg``,
+``words_to_tokens``, ``synth_posteriors``, ``make_utterances``), kept
+because importing the original imports jax.  With them the bench's
+utterances and transcripts are rebuilt from the seed exactly as
+``bench.py`` builds them, from the cached graph, on any numpy:
+``sample_corpus`` draws its Zipf samples through ``_zipf``, numpy's
+pre-2.3 algorithm, so the corpus that built the cached graph does not
+change with numpy's version; and a test graph is built from a seed
+(``make_hlg``: ``connect(ctc_topo ∘ L ∘ bigram-G)``) without the JAX
+package.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
+
+from kaldi_decoder_tpu_torch.fst.fst import StdVectorFst
+from kaldi_decoder_tpu_torch.fst.ops import compose, connect
+from kaldi_decoder_tpu_torch.fst.topo import ctc_topo, lexicon_fst, ngram_fst
 
 
 def random_lexicon(
@@ -85,6 +92,59 @@ def sample_corpus(
     return out
 
 
+@dataclasses.dataclass
+class HlgGraph:
+    """A built HLG plus everything needed to synthesize/score utterances."""
+
+    hlg: StdVectorFst
+    lexicon: List[Tuple[int, List[int]]]
+    num_tokens: int  # V — CTC ids incl. blank 0; graph ilabels are id+1
+    corpus: List[List[int]]
+
+    @property
+    def pron(self) -> Dict[int, List[int]]:
+        return dict(self.lexicon)
+
+
+def build_hlg(
+    lexicon: Sequence[Tuple[int, Sequence[int]]],
+    sentences: Sequence[Sequence[int]],
+    num_tokens: int,
+    modified_topo: bool = False,
+) -> StdVectorFst:
+    """HLG = connect(ctc_topo(V) ∘ L ∘ G).
+
+    Composition order matches the icefall recipes feeding the reference:
+    the H side consumes ``token_id + 1`` input labels (the DecodableCtc
+    ``index - 1`` convention, `decodable-ctc.cc:22-29`), L maps token
+    sequences to word ids, the bigram G weighs word sequences and adds
+    epsilon backoff arcs.
+    """
+    H = ctc_topo(num_tokens, modified=modified_topo)
+    L = lexicon_fst(list(lexicon))
+    G = ngram_fst(sentences)
+    HL = compose(H, L)
+    HLG = compose(HL, G)
+    return connect(HLG)
+
+
+def make_hlg(
+    num_words: int = 1000,
+    num_tokens: int = 50,
+    num_sentences: int = 2000,
+    seed: int = 0,
+    modified_topo: bool = False,
+    min_len: int = 3,
+    max_len: int = 8,
+) -> HlgGraph:
+    """One-call native HLG: random lexicon + Zipf corpus + bigram G."""
+    rng = np.random.default_rng(seed)
+    lex = random_lexicon(num_words, num_tokens, rng, min_len, max_len)
+    corpus = sample_corpus(num_words, num_sentences, rng)
+    hlg = build_hlg(lex, corpus, num_tokens, modified_topo)
+    return HlgGraph(hlg=hlg, lexicon=lex, num_tokens=num_tokens, corpus=corpus)
+
+
 def words_to_tokens(
     words: Sequence[int], pron: Dict[int, List[int]]
 ) -> List[int]:
@@ -131,3 +191,42 @@ def synth_posteriors(
     logp[np.arange(T), arr] += peak
     logp -= np.log(np.exp(logp).sum(axis=1, keepdims=True))
     return logp.astype(np.float32)
+
+
+def make_utterances(
+    g: HlgGraph,
+    batch: int,
+    rng: np.random.Generator,
+    words_per_utt: Tuple[int, int] = (3, 8),
+    from_corpus: bool = True,
+    **synth_kw,
+) -> Tuple[np.ndarray, np.ndarray, List[List[int]]]:
+    """Sample transcripts and synthesize a padded posterior batch.
+
+    Returns (scores (B, T, V), lengths (B,), transcripts).  Transcripts
+    come from the G training corpus by default so the grammar assigns
+    them reasonable probability (out-of-LM word sequences are still
+    decodable through backoff).
+    """
+    transcripts: List[List[int]] = []
+    per_utt: List[np.ndarray] = []
+    pron = g.pron
+    lo, hi = words_per_utt
+    sent_pool = [s for s in g.corpus if lo <= len(s) <= hi] if from_corpus else []
+    for _ in range(batch):
+        if sent_pool:
+            words = list(sent_pool[int(rng.integers(len(sent_pool)))])
+        else:
+            n = int(rng.integers(lo, hi + 1))
+            words = [int(w) for w in rng.integers(1, len(g.lexicon) + 1, size=n)]
+        transcripts.append(words)
+        toks = words_to_tokens(words, pron)
+        per_utt.append(synth_posteriors(toks, g.num_tokens, rng, **synth_kw))
+    T = max(s.shape[0] for s in per_utt)
+    V = g.num_tokens
+    scores = np.full((batch, T, V), np.log(1.0 / V), np.float32)
+    lengths = np.zeros(batch, np.int32)
+    for b, s in enumerate(per_utt):
+        scores[b, : s.shape[0]] = s
+        lengths[b] = s.shape[0]
+    return scores, lengths, transcripts

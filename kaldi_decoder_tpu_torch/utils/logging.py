@@ -1,7 +1,9 @@
-"""Per-utterance decode statistics.
+"""Logging and per-utterance decode statistics.
 
-A jax-free copy of ``DecodeStats`` from ``kaldi_decoder_tpu/utils/logging.py``:
-the reference's log lines and soft failure signals
+A jax-free copy of ``get_logger`` and ``DecodeStats`` from
+``kaldi_decoder_tpu/utils/logging.py``: the package's logger (the parent
+of its modules' ``logging.getLogger(__name__)``, so named after this
+package), and the reference's log lines and soft failure signals
 (`lattice-simple-decoder.cc:146-153`, `simple-decoder.cc:78-100`) as
 structured per-utterance data.
 """
@@ -9,9 +11,16 @@ structured per-utterance data.
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import Optional
 
 import numpy as np
+
+_LOGGER_NAME = "kaldi_decoder_tpu_torch"
+
+
+def get_logger() -> logging.Logger:
+    return logging.getLogger(_LOGGER_NAME)
 
 
 @dataclasses.dataclass

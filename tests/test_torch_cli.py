@@ -13,9 +13,9 @@ import numpy as np
 import pytest
 
 from kaldi_decoder_tpu.cli import main as jax_main
-from kaldi_decoder_tpu.fst.hlg import make_hlg, make_utterances
-from kaldi_decoder_tpu.fst.io import write_const_fst, write_fst
 from kaldi_decoder_tpu_torch.cli import main
+from kaldi_decoder_tpu_torch.fst.hlg import make_hlg, make_utterances
+from kaldi_decoder_tpu_torch.fst.io import write_const_fst, write_fst
 
 from _torch_util import jax_host_library
 

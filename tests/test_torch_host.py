@@ -220,6 +220,51 @@ def test_workload_and_wer_copies():
         assert str(jax_wer(corpus, hyps)) == str(wer(corpus, hyps))
 
 
+def test_math_and_logging_copies():
+    """``approx_equal``, ``approx_equal_array`` and ``get_logger`` are the
+    JAX package's, exported alike; each logger is its package's root."""
+    import itertools
+    import logging
+
+    from kaldi_decoder_tpu import utils as jutils
+    from kaldi_decoder_tpu.utils import math as jmath
+    from kaldi_decoder_tpu_torch import utils as putils
+    from kaldi_decoder_tpu_torch.utils import math as pmath
+
+    assert putils.__all__ == jutils.__all__
+    vals = [0.0, -0.0, 1.0, 1.0005, 1.002, -1.0, 1e-30, 3.5e8, 3.5003e8, np.inf, -np.inf,
+            np.nan]
+    for a, b in itertools.product(vals, vals):
+        for tol in (0.001, 1e-5):
+            assert putils.approx_equal(a, b, tol) == jutils.approx_equal(a, b, tol), (a, b, tol)
+    a, b = np.repeat(vals, len(vals)), np.tile(vals, len(vals))
+    for tol in (0.001, 1e-5):
+        assert np.array_equal(pmath.approx_equal_array(a, b, tol),
+                              jmath.approx_equal_array(a, b, tol))
+    assert pprune.approx_equal_array is pmath.approx_equal_array
+    for utils, pkg in ((jutils, "kaldi_decoder_tpu"), (putils, "kaldi_decoder_tpu_torch")):
+        root = utils.get_logger()
+        assert isinstance(root, logging.Logger) and root.name == pkg
+        assert logging.getLogger(f"{pkg}.decoders.lattice").parent is root
+
+
+def test_make_hlg_and_utterances_copies():
+    """``make_hlg`` (``build_hlg`` of the same lexicon and corpus) and
+    ``make_utterances`` equal the JAX package's from the same seeds."""
+    for kw in (dict(num_words=30, num_tokens=10, num_sentences=50, seed=1),
+               dict(num_words=40, num_tokens=12, num_sentences=120, seed=3,
+                    modified_topo=True)):
+        j, p = jhlg.make_hlg(**kw), phlg.make_hlg(**kw)
+        assert type(p).__module__ == "kaldi_decoder_tpu_torch.fst.hlg"
+        assert (p.lexicon, p.num_tokens, p.corpus) == (j.lexicon, j.num_tokens, j.corpus)
+        same_fst(j.hlg, p.hlg)
+        assert p.pron == j.pron
+        for seed in (0, 5):
+            a = jhlg.make_utterances(j, 3, np.random.default_rng(seed), words_per_utt=(2, 5))
+            b = phlg.make_utterances(p, 3, np.random.default_rng(seed), words_per_utt=(2, 5))
+            assert np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1]) and a[2] == b[2]
+
+
 def test_host_source_copy_matches_original():
     """The port builds its host library from its own copy of the JAX
     package's C++ source.  Under a two-line header naming the original,

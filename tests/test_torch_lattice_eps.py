@@ -13,6 +13,8 @@ raw bits:
   eps graph and the ring (converged, and unconverged with the flag set),
   swept and full, chunked and one-shot;
 * ``LatticeResult``'s lattice API with fold on and off;
+* ``BatchedLatticeDecoder`` built from a ``StdVectorFst`` read from an
+  OpenFst file, as the reference takes one, folded and not;
 * ``LatticeSimpleDecoder`` and ``LatticeFasterDecoder``.
 """
 
@@ -362,6 +364,31 @@ def test_batched_unfolded_matches_jax(name):
     elif name == "ring8":
         assert not pres.overflows.any()
     assert pres.eps_records[pres.eps_records[..., 1] >= 0].shape[0] > 0
+
+
+@pytest.mark.parametrize("fold", [True, False])
+def test_batched_decoder_takes_an_fst(fold, tmp_path):
+    """``BatchedLatticeDecoder`` compiles a ``StdVectorFst`` as the
+    reference does (``_as_graph``): the HLG of ``make_hlg(num_words=30,
+    num_tokens=10, num_sentences=50, seed=1)``, written by ``write_fst``
+    and read back by the port's ``read_fst``, against the JAX decoder
+    given the FST itself, ``lattice_beam`` 5 and ``pad_time_to`` 8; every
+    field, survivor row, lattice and label of the decodes are equal."""
+    from kaldi_decoder_tpu.fst.hlg import make_hlg, make_utterances
+    from kaldi_decoder_tpu.fst.io import write_fst
+    from kaldi_decoder_tpu_torch.fst import StdVectorFst as PortFst
+    from kaldi_decoder_tpu_torch.fst import read_fst
+
+    g = make_hlg(num_words=30, num_tokens=10, num_sentences=50, seed=1)
+    path = str(tmp_path / "hlg.fst")
+    write_fst(g.hlg, path)
+    fst = read_fst(path)
+    assert isinstance(fst, PortFst)
+    scores, lengths, _ = make_utterances(g, 3, np.random.default_rng(0))
+    jdec = jlattice.BatchedLatticeDecoder(g.hlg, lattice_beam=5.0, pad_time_to=8, fold=fold)
+    pdec = BatchedLatticeDecoder(fst, lattice_beam=5.0, pad_time_to=8, fold=fold, device="cpu")
+    assert (pdec.fold is None) == (not fold)
+    _same_results(jdec.decode(scores, lengths), pdec.decode(scores, lengths), 3)
 
 
 @pytest.mark.parametrize("fold", [True, False])
