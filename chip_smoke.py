@@ -22,8 +22,9 @@ Phases (any failure raises, and the process exits non-zero):
   0. device: a CUDA card must be present; prints its ``nvidia-smi`` name
      and power limit;
   1. build: the CUDA kernels (K1 ``csrc/expand.cu``, which reads each
-     active slot's em_block row itself, K2 ``csrc/dedup_rec.cu``, K4
-     ``csrc/sweep.cu``, K6 ``csrc/dedup.cu``, and the standalone row
+     active slot's em_block row itself, K2 ``csrc/dedup_rec.cu``, K3
+     ``csrc/frame.cu``, the frame driver's tail, K4 ``csrc/sweep.cu``, K6
+     ``csrc/dedup.cu``, and the standalone row
      gather ``csrc/gather.cu``, the counterpart of the TPU experiments'
      gathers, which no path calls) and the C++ host library, from the
      checkout's sources;
@@ -153,6 +154,20 @@ Phases (any failure raises, and the process exits non-zero):
      calls) on frame ``SHARD_FRAME``'s inputs, captured from the counted
      decode (``CallCapture``), against plain and times them, while the
      other rank waits: phase 2's checks at the shard shapes.
+Every chunk loop of phases 3-11 but the sharded ones (12-13, which
+exchange over torch.distributed every frame) runs through the frame
+driver (``decoders/driver.py``): each frame is replayed from one captured
+CUDA graph of K1, K2 or K6, the eps closure and K3, and K3 launches once a
+frame and its first-frame mode once a chunk or call, which the launch
+counts check, with the frames replayed.  Phases 3-7 and 11 also measure
+their loop replayed from the graph and as the loop before the frame driver
+(``driver.eager_frames``), in turns: wall ms a frame, device ms and
+activities a frame (profiler), busy share; phases 3-4 also the whole
+decode's seconds both ways.  Phase 2 holds K3 (its first-frame mode
+against ``get_cutoff``, its frame tail against ``frame_tail_plain``,
+bitwise) on a frame of each path's own driver: the lattice, unfolded
+lattice and 1-best frames at B=16 and the streaming decoders' at B=1,
+and times it.
 Phase 2 also holds K2's eps call (incumbents first) on the eps
 iterations of the unfolded lattice decode at frames 150 and 250, and K4
 with eps records on its first 500-frame chunk, against their plain
@@ -161,7 +176,8 @@ streaming lattice decoder's B=1 shapes (phase 7's decoder, frame 60);
 and K1 and K2 at phase 10's recall shapes (B=1, K 4096, each em_records
 budget) on every frame of the recall utterance, timed on the frame with
 the most records.
-The line before the last is a JSON object with each kernel's launches
+A line ``{"frame_loops": ...}`` gives those loop measurements.  The line
+before the last is a JSON object with each kernel's launches
 (summed over the counted runs of phases 3-13, and by phase), error,
 times, bound and library-call time; the last is ``{"ok": true,
 "device": {...}}``.
@@ -203,6 +219,12 @@ K6_FRAMES = (0, 5, 60, 150)  # Viterbi frames whose emitting candidates K6 is ch
 EPS_FRAME = 60  # frame of the unfolded decode whose eps iteration K6 is checked on
 STREAM_FRAME = 60  # frame of the streaming decode its kernels are checked on
 FRAMES_PER_CALL = 100  # advance_decoding(max_num_frames=...) in phase 5
+# Frames over which each path's loop is measured replayed from the frame
+# driver's graph and as the loop before the frame driver (loop_walls): the
+# batched paths' first chunk's first frames, the streaming decoders'
+# first calls on utterance 0.
+WALL_FRAMES = 200
+WALL_STREAM_FRAMES = 300
 # The recall measurement (phase 10, scripts/measure_recall_torch.py):
 # bench.make_decoder's lattice decoder (bench.py:170-187; the device
 # re-derives flat_group 4, ROADMAP Queue 3) at each em_records budget, and
@@ -349,21 +371,28 @@ def kernel_split(fn, reps=TIMING_REPS):
                  key=lambda e: e.time_range.start)
     # The queued calls are the trace's last activities, and a call's
     # activities are the period of their names.  What comes before them
-    # is not counted on: the trace can miss its first activities.
+    # is not counted on: the trace can miss its first activities, so the
+    # period is looked for over the last calls it kept, at least half.
     names = [e.name for e in evs]
-    n = next((p for p in range(1, len(evs) // reps + 1)
-              if all(names[-p * reps + i] == names[-p * reps + i + p]
-                     for i in range(p * (reps - 1)))), 0)
+    n = calls = 0
+    for p in range(1, len(evs) + 1):
+        m = min(reps, len(evs) // p)
+        if m < max(2, reps // 2):
+            break
+        tail = names[len(names) - p * m:]
+        if all(tail[i] == tail[i + p] for i in range(p * (m - 1))):
+            n, calls = p, m
+            break
     if n == 0:
         raise AssertionError(f"no call of repeating activities in {len(evs)} for {reps} "
                              "calls: " + ", ".join(e.name[:30] for e in evs[-12:]))
-    evs = evs[-n * reps:]
+    evs = evs[-n * calls:]
     out = []
     for p in range(n):
         us = [evs[c * n + p].time_range.end - evs[c * n + p].time_range.start
-              for c in range(reps)]
+              for c in range(calls)]
         gaps = [evs[c * n + p].time_range.start - evs[c * n + p - 1].time_range.end
-                for c in range(reps) if c * n + p > 0]
+                for c in range(calls) if c * n + p > 0]
         out.append((evs[p].name, statistics.mean(us), statistics.mean(gaps) if gaps else 0.0))
     return out
 
@@ -1202,29 +1231,217 @@ def check_utterance(what, b, u, lat, num_active, best_costs, overflows, saturati
 
 
 def reset_counts():
+    """Every kernel wrapper's launch count, and the frame driver's replay
+    count, set to 0."""
     import torch
 
+    from kaldi_decoder_tpu_torch.decoders import driver
     from kaldi_decoder_tpu_torch.kernels.dedup import dedup_select
     from kaldi_decoder_tpu_torch.kernels.dedup_rec import dedup_select_rec
     from kaldi_decoder_tpu_torch.kernels.expand import expand_filter
+    from kaldi_decoder_tpu_torch.kernels.frame import frame_start, frame_tail
     from kaldi_decoder_tpu_torch.kernels.gather import row_gather
     from kaldi_decoder_tpu_torch.kernels.sweep import sweep_chunk
 
     torch.cuda.synchronize()
-    for fn in (row_gather, expand_filter, dedup_select_rec, sweep_chunk, dedup_select):
+    for fn in (row_gather, expand_filter, dedup_select_rec, sweep_chunk, dedup_select, frame_tail,
+               frame_start):
         fn.launches = 0
+    driver.replays = 0
 
 
 def read_counts():
+    """The launch counts since :func:`reset_counts`: K3's frame tail as
+    ``k3``, its first-frame mode as ``k3_start``."""
     from kaldi_decoder_tpu_torch.kernels.dedup import dedup_select
     from kaldi_decoder_tpu_torch.kernels.dedup_rec import dedup_select_rec
     from kaldi_decoder_tpu_torch.kernels.expand import expand_filter
+    from kaldi_decoder_tpu_torch.kernels.frame import frame_start, frame_tail
     from kaldi_decoder_tpu_torch.kernels.gather import row_gather
     from kaldi_decoder_tpu_torch.kernels.sweep import sweep_chunk
 
     return dict(gather=row_gather.launches, k1=expand_filter.launches,
                 k2=dedup_select_rec.launches, k4=sweep_chunk.launches,
-                k6=dedup_select.launches)
+                k6=dedup_select.launches, k3=frame_tail.launches, k3_start=frame_start.launches)
+
+
+def read_replays(what, frames):
+    """The frames the frame driver replayed from its captured graph since
+    :func:`reset_counts`; raises unless some were, and every frame but a
+    driver's first (run before its capture) was."""
+    from kaldi_decoder_tpu_torch.decoders import driver
+
+    n = driver.replays
+    if not 0 < n <= frames:
+        raise AssertionError(f"{what}: {n} replays for {frames} frames")
+    return n
+
+
+def k3_work(tin, fa, width):
+    """Bytes and operations of one K3 frame tail: of a row still decoding,
+    its frontier (states and costs) and records or backpointer inputs
+    read (on the 1-best path the winning lanes' source slots and arcs
+    once each) and its carried state written; of a frozen row, the
+    carried state read; of every row, its rows of the stacked outputs
+    written, the next scores row read and written and some 48 bytes of
+    per-row scalars; a subtract and a compare a slot."""
+    B, K = tin.mid_states.shape
+    act = int(fa.sum())
+    row = K * 8  # a frontier row: states and costs
+    if tin.em_records is not None:
+        recs = (tin.em_records[0].numel() + tin.eps_records[0].numel()) * 4
+        nbytes = act * (row + recs + row) + (B - act) * row + B * (row + recs)
+    else:
+        eps = tin.bp_eps[0].numel() * 4
+        won = int((tin.cand_idx[fa] >= 0).sum())
+        nbytes = (act * (row + K * 4 + eps + row) + won * 8 + (B - act) * row
+                  + B * (K * 8 + eps))
+    return nbytes + B * (2 * width * 4 + 48), 2 * B * K
+
+
+def check_k3(what, lattice, pg, cfg, num_states, scores_tm, lengths, st0, frame):
+    """K3 on a chunk of a path's own driver (its frames before ``frame``
+    run by the frame driver's frame, launched from the host): the first-frame
+    mode against ``get_cutoff`` and frame ``frame``'s tail against
+    ``frame_tail_plain``, bitwise in every field (the state written in
+    place, row ``frame`` of every stacked output, the next frame's K1
+    inputs, ``t``); then timed on that frame's inputs, on a chunk of its
+    own whose rows the timed calls fill.  Returns the kernels line's
+    fields."""
+    import torch
+
+    from kaldi_decoder_tpu_torch.decoders import driver
+    from kaldi_decoder_tpu_torch.decoders.frontier import StepState
+    from kaldi_decoder_tpu_torch.kernels.frame import frame_tail, frame_tail_plain
+    from kaldi_decoder_tpu_torch.ops.cutoff import get_cutoff
+
+    def same(ref, got):
+        if ref.dtype == torch.float32:
+            ref, got = ref.view(torch.int32), got.view(torch.int32)
+        return torch.equal(ref, got)
+
+    C, Bn, Vn = scores_tm.shape
+    drv = driver.driver_for(lattice, pg, cfg, num_states, Bn, Vn, scores_tm.device)
+    fc, s = drv.fc, drv.slots
+    io = drv.begin(scores_tm, lengths, st0)
+    cut = get_cutoff(st0.costs, fc.beam, fc.max_active, fc.min_active, fc.beam_delta,
+                     costs_sorted=True)
+    torch.cuda.synchronize()
+    if not (same(cut.cutoff, s.cutoff) and same(cut.adaptive_beam, s.adaptive_beam)
+            and same(io.scores[0], s.scores_t) and same(lengths > 0, s.active)
+            and all(same(a, b) for a, b in zip(st0, s.state))):
+        raise AssertionError(f"K3's first-frame mode differs from plain on {what}")
+    for _ in range(frame):
+        drv.frame()
+    tin = drv.body()
+    st = StepState(*(x.clone() for x in s.state))
+    cut_t, fa = s.cutoff.clone(), lengths > frame
+    final, out, nxt = frame_tail_plain(st, cut_t, tin, fa, fc)
+    frame_tail(s, tin, fc)
+    torch.cuda.synchronize()
+    fields = dict(zip(("states", "costs", "base"), zip(final, s.state)),
+                  **{f: (r, getattr(io.outs, f)[frame]) for f, r in zip(out._fields, out)},
+                  next_cutoff=(nxt.cutoff, s.cutoff),
+                  next_adaptive_beam=(nxt.adaptive_beam, s.adaptive_beam),
+                  next_scores=(io.scores[frame + 1], s.scores_t),
+                  next_active=(lengths > frame + 1, s.active))
+    for name, (r, g) in fields.items():
+        if not same(r, g):
+            raise AssertionError(f"K3 differs from plain on {what}, frame {frame}: {name}")
+    if s.args[0].item() != frame + 1:
+        raise AssertionError(f"K3 on {what}: t {s.args[0].item()} after frame {frame}")
+    log(f"K3 frame tail on {what} (B={Bn}, K={fc.frontier_size}, "
+        f"{'records ' + str(tuple(tin.em_records.shape[1:])) if lattice else 'backpointers'}, "
+        f"eps_iters {fc.eps_iters}): the first-frame mode and frame {frame} equal to plain, "
+        f"{int((~fa).sum())} of {Bn} rows frozen; timed on frame {frame}:")
+    # The timed calls fill the rows of a chunk of their own from the same state.
+    n = 2 * TIMING_REPS + 8
+    drv.begin(scores_tm[frame:frame + n].contiguous(), (lengths - frame).clamp(min=0), st)
+    t = time_kernel(f"K3 ({what})", lambda: frame_tail(s, tin, fc),
+                    lambda: frame_tail_plain(st, cut_t, tin, fa, fc), k3_work(tin, fa, Vn))
+    s.io = None
+    return t
+
+
+def graph_pool(lattice, pg, cfg, num_states, batch):
+    """(allocated, reserved) bytes that the capture of the frame driver of
+    these arguments kept: its graph's private memory pool."""
+    from kaldi_decoder_tpu_torch.decoders import driver
+
+    return driver.driver_for(lattice, pg, cfg, num_states, batch, V, "cuda:0").pool_bytes
+
+
+def stream_run(dec, logp):
+    """A streaming decode of ``logp`` as phases 5 and 7 call it:
+    ``init_decoding``, then ``advance_decoding`` of FRAMES_PER_CALL frames
+    until every frame is decoded."""
+    from kaldi_decoder_tpu_torch import DecodableCtc
+
+    def run():
+        dec.init_decoding()
+        decodable = DecodableCtc(logp)
+        while dec.num_frames_decoded() < len(logp):
+            dec.advance_decoding(decodable, max_num_frames=FRAMES_PER_CALL)
+    return run
+
+
+def eager_decode_s(run):
+    """Seconds of one ``run`` as the loop before the frame driver ran it."""
+    from kaldi_decoder_tpu_torch.decoders import driver
+
+    with driver.eager_frames():
+        t0 = time.perf_counter()
+        run()
+        return time.perf_counter() - t0
+
+
+def loop_walls(what, run, frames):
+    """A path's ``run`` (a chunk or a decode as the phase calls it, of
+    ``frames`` frames) replayed from the frame driver's captured graph and
+    as the loop before the frame driver ran it (``driver.eager_frames``), in
+    turns (graph, loop, loop, graph): wall ms a frame (the card
+    synchronised around a run; both runs of a mode), device ms and
+    activities a frame (one profiled run of each mode) and the busy share
+    (device over the unprofiled wall, the mean of the two).  Logs them;
+    returns {"graph": ..., "loop": ...}."""
+    import contextlib
+
+    import torch
+
+    from kaldi_decoder_tpu_torch.decoders import driver
+
+    walls = {"graph": [], "loop": []}
+    replays = 0
+    for mode in ("graph", "loop", "loop", "graph"):
+        with driver.eager_frames() if mode == "loop" else contextlib.nullcontext():
+            torch.cuda.synchronize()
+            r0 = driver.replays
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            walls[mode].append((time.perf_counter() - t0) * 1e3 / frames)
+            replays += driver.replays - r0 if mode == "graph" else 0
+    out = {}
+    for mode in ("graph", "loop"):
+        with driver.eager_frames() if mode == "loop" else contextlib.nullcontext():
+            kern, copies, by_name, _ = profiled_device_ms(run, top=None)
+        dev, acts = kern + copies, sum(n for _, _, n in by_name)
+        wall = statistics.mean(walls[mode])
+        out[mode] = dict(wall_ms=walls[mode], device_ms=dev / frames, activities=acts / frames,
+                         busy=dev / frames / wall if acts else None)
+    if replays == 0:
+        raise AssertionError(f"{what}: no frame replayed from the captured graph")
+    out["graph"]["replays"] = replays // 2
+
+    def fmt(m):
+        busy = "not measured (no device activity in the trace)" if out[m]["busy"] is None \
+            else f"{out[m]['busy']:.3f}"
+        return (f"wall {', '.join(f'{w:.4f}' for w in out[m]['wall_ms'])} ms a frame, device "
+                f"{out[m]['device_ms']:.4f} ms and {out[m]['activities']:.1f} activities a "
+                f"frame, busy {busy}")
+    log(f"  {what}, {frames} frames: graph ({out['graph']['replays']} replays a run): "
+        f"{fmt('graph')}; the loop before the frame driver: {fmt('loop')}")
+    return out
 
 
 def viterbi_path(vdec, scores, lengths, refs, vref):
@@ -1244,8 +1461,10 @@ def viterbi_path(vdec, scores, lengths, refs, vref):
     n = read_counts()
     frames = res.bp_emit.shape[0]
     if (n["gather"] != 0 or n["k1"] != frames or n["k2"] != 0
-            or n["k6"] != frames * (1 + vdec.cfg.eps_iters)):
+            or n["k6"] != frames * (1 + vdec.cfg.eps_iters) or n["k3"] != frames
+            or n["k3_start"] != 1):
         raise AssertionError(f"launch counts {n} for {frames} frames")
+    replays = read_replays("Viterbi path", frames)
     t1 = time.perf_counter()
     lats = [res.best_path(b) for b in range(B)]
     t_host = time.perf_counter() - t1
@@ -1259,8 +1478,9 @@ def viterbi_path(vdec, scores, lengths, refs, vref):
     log(f"Viterbi path: decode {t_dec:.3f} s ({frames} frames, bp_emit download included; "
         f"{audio_s / t_dec:.1f} audio-s/s), host 1-best (backtrace, fold expansion, "
         f"RemoveEpsLocal) {t_host:.3f} s; row gather launches {n['gather']}, K1 {n['k1']}, "
-        f"K6 {n['k6']}; matches the JAX reference on {checked} utterances; overflow frames "
-        f"{int(res.overflows.sum())}, saturated frames {int(res.saturations.sum())}; {st}")
+        f"K6 {n['k6']}, K3 {n['k3']} (first-frame mode {n['k3_start']}), {replays} frames "
+        f"replayed from the captured graph; matches the JAX reference on {checked} "
+        f"utterances; overflow frames {int(res.overflows.sum())}, saturated frames {int(res.saturations.sum())}; {st}")
     return n, t_dec, t_host
 
 
@@ -1287,9 +1507,10 @@ def streaming_path(fd, scores, vref):
     D = fd._cfg.eps_iters
     reset_counts()
     t_dec = t_host = 0.0
-    frames = 0
+    frames = calls = 0
     for b, u in enumerate(sref["utts"]):
         L = u["length"]
+        calls += -(-L // FRAMES_PER_CALL)
         t0 = time.perf_counter()
         fd.init_decoding()
         decodable = DecodableCtc(scores[b, :L])
@@ -1310,13 +1531,17 @@ def streaming_path(fd, scores, vref):
     n = read_counts()
     utts = len(sref["utts"])
     want_k6 = frames * (1 + D) + utts * D
-    if n["gather"] != 0 or n["k1"] != frames or n["k2"] != 0 or n["k6"] != want_k6:
-        raise AssertionError(f"launch counts {n}: want no gather, {frames} K1, {want_k6} K6")
+    if (n["gather"] != 0 or n["k1"] != frames or n["k2"] != 0 or n["k6"] != want_k6
+            or n["k3"] != frames or n["k3_start"] != calls):
+        raise AssertionError(f"launch counts {n}: want no gather, {frames} K1 and K3, {want_k6} "
+                             f"K6, {calls} K3 first frames")
+    replays = read_replays("streaming path", frames)
     log(f"streaming path: FasterDecoder, {utts} utterances, {frames} frames, "
         f"{FRAMES_PER_CALL} per advance_decoding, eps_iters={D}, K={fd._cfg.frontier_size}: "
         f"{1000 * t_dec / frames:.3f} ms per frame (init + advance, downloads included), "
         f"get_best_path {t_host:.3f} s; row gather launches {n['gather']}, K1 {n['k1']}, "
-        f"K6 {n['k6']}; matches the JAX reference")
+        f"K6 {n['k6']}, K3 {n['k3']} (first-frame mode {n['k3_start']}), {replays} frames "
+        f"replayed from the captured graph; matches the JAX reference")
     return n, 1000 * t_dec / frames
 
 
@@ -1520,9 +1745,11 @@ def lattice_eps_path(udec, scores, lengths, refs, lref):
     if res.survivors is None:
         raise AssertionError("the device sweep overflowed and the decode fell back")
     frames = res.num_active.shape[0]
-    want_n = dict(gather=0, k1=frames, k2=frames * (1 + D) + D, k4=len(res.survivors), k6=0)
+    want_n = dict(gather=0, k1=frames, k2=frames * (1 + D) + D, k4=len(res.survivors), k6=0,
+                  k3=frames, k3_start=len(res.survivors))
     if n != want_n:
         raise AssertionError(f"launch counts {n}, want {want_n}")
+    replays = read_replays("lattice path without folding", frames)
     t1 = time.perf_counter()
     hyps = []
     for b, u in enumerate(lref["batched"]["utts"][:B]):
@@ -1537,7 +1764,8 @@ def lattice_eps_path(udec, scores, lengths, refs, lref):
     log(f"lattice path without folding: decode {t_dec:.3f} s (forward + sweep + survivor "
         f"download, {audio_s:.0f} audio-s, {audio_s / t_dec:.1f} audio-s/s), host lattices, "
         f"best paths and checks {t_host:.3f} s; eps_iters={D}, eps survivor rows {eps_rows}; "
-        f"launches {n}; matches the JAX reference (labels, cost bits, num_active, lattice "
+        f"launches {n}, {replays} frames replayed from the captured graph; matches the JAX "
+        f"reference (labels, cost bits, num_active, lattice "
         f"digests) on {len(hyps)} utterances; overflow frames {int(res.overflows.sum())}, "
         f"saturated frames {int(res.saturations.sum())}; {wer(refs, hyps)}")
     return n, t_dec
@@ -1577,9 +1805,10 @@ def streaming_lattice_path(graph, scores, lref, device="cuda"):
         D = dec._dev_cfg.frontier.eps_iters
         reset_counts()
         t_dec = t_host = 0.0
-        frames = 0
+        frames = calls = 0
         for b, u in enumerate(part["utts"]):
             L = u["length"]
+            calls += -(-L // FRAMES_PER_CALL) if kind == "faster" else 1
             t0 = time.perf_counter()
             if kind == "faster":
                 dec.init_decoding()
@@ -1601,16 +1830,26 @@ def streaming_lattice_path(graph, scores, lref, device="cuda"):
             frames += L
         n = read_counts()
         utts = len(part["utts"])
-        want_n = dict(gather=0, k1=frames, k2=frames * (1 + D) + utts * D, k4=0, k6=0)
+        want_n = dict(gather=0, k1=frames, k2=frames * (1 + D) + utts * D, k4=0, k6=0,
+                      k3=frames, k3_start=calls)
         if n != want_n:
             raise AssertionError(f"{kind} lattice: launch counts {n}, want {want_n}")
+        replays = read_replays(f"{kind} lattice", frames)
         log(f"streaming lattice path: {type(dec).__name__}, {utts} utterance(s), {frames} "
             f"frames{f', {FRAMES_PER_CALL} per advance_decoding' if kind == 'faster' else ''}, "
             f"eps_iters={D}, K={dec._dev_cfg.frontier.frontier_size}: "
             f"{1000 * t_dec / frames:.3f} ms per frame (init + advance + finalize, downloads "
             f"and the host lattice's folding and pruning included), lattice and best path "
-            f"{t_host:.3f} s; launches {n}; matches the JAX reference")
-        out[kind] = (n, 1000 * t_dec / frames)
+            f"{t_host:.3f} s; launches {n}, {replays} frames replayed from the captured graph; "
+            f"matches the JAX reference")
+        walls = None
+        if kind == "faster":
+            walls = loop_walls("phase 7, LatticeFasterDecoder on utterance 0",
+                               stream_run(dec, scores[0, :WALL_STREAM_FRAMES]),
+                               WALL_STREAM_FRAMES)
+            walls["graph_pool_bytes"] = graph_pool(True, dec._pg, dec._dev_cfg,
+                                                   dec._graph.num_states, 1)
+        out[kind] = (n, 1000 * t_dec / frames, walls)
     return out
 
 
@@ -1734,9 +1973,10 @@ def graph_file_path(graph, scores, vref, lref, tmp):
         n = read_counts()
         k2 = frames * (1 + D) + len(utts) * D if kind == "lattice" else 0
         k6 = frames * (1 + D) + len(utts) * D if kind == "faster" else 0
-        want_n = dict(gather=0, k1=frames, k2=k2, k4=0, k6=k6)
+        want_n = dict(gather=0, k1=frames, k2=k2, k4=0, k6=k6, k3=frames, k3_start=len(utts))
         if n != want_n:
             raise AssertionError(f"cli {kind}: launch counts {n}, want {want_n}")
+        read_replays(f"cli {kind}", frames)
         if len(lines) != len(utts):
             raise AssertionError(f"cli {kind}: {len(lines)} lines for {len(utts)} utterances")
         for b, (rec, u) in enumerate(zip(lines, utts)):
@@ -1833,9 +2073,11 @@ def encoder_path(graph, fc):
     if res.survivors is None:
         raise AssertionError("the device sweep overflowed and the decode fell back")
     frames = res.num_active.shape[0]
-    want_n = dict(gather=0, k1=frames, k2=frames, k4=len(res.survivors), k6=0)
+    want_n = dict(gather=0, k1=frames, k2=frames, k4=len(res.survivors), k6=0, k3=frames,
+                  k3_start=len(res.survivors))
     if n != want_n:
         raise AssertionError(f"encoder decode: launch counts {n}, want {want_n}")
+    read_replays("encoder decode", frames)
     hyps = [res.best_path_labels(b) for b in range(B)]
     if not all(isinstance(h, list) for h in hyps):
         raise AssertionError("an encoder utterance produced no 1-best")
@@ -1908,9 +2150,11 @@ def recall_path(graph, scores, rref):
         counts.append(read_counts())
         del dec
         frames = -(-Tr // CHUNK) * CHUNK
-        want_n = dict(gather=0, k1=frames, k2=frames, k4=0, k6=0)
+        want_n = dict(gather=0, k1=frames, k2=frames, k4=0, k6=0, k3=frames,
+                      k3_start=frames // CHUNK)
         if counts[-1] != want_n:
             raise AssertionError(f"recall: launch counts {counts[-1]}, want {want_n}")
+        read_replays("recall", frames)
         for key, val in want.items():
             if key != "seconds" and got[key] != val:
                 raise AssertionError(f"recall at em_records {want['em_records']}: {key} "
@@ -1964,11 +2208,15 @@ def main_path(dec, scores, lengths, refs, ref):
     if res.survivors is None:
         raise AssertionError("the device sweep overflowed and the decode fell back")
     frames = res.num_active.shape[0]
-    if gat or k1 != frames or k2 != frames or k4 != len(res.survivors) or n["k6"]:
+    chunks = len(res.survivors)
+    if (gat or k1 != frames or k2 != frames or k4 != chunks or n["k6"] or n["k3"] != frames
+            or n["k3_start"] != chunks):
         raise AssertionError(
-            f"launch counts gather={gat} (want 0), K1={k1}, K2={k2} (want {frames} each), "
-            f"K4={k4} (want {len(res.survivors)}), K6={n['k6']} (want 0)"
+            f"launch counts gather={gat} (want 0), K1={k1}, K2={k2}, K3={n['k3']} (want "
+            f"{frames} each), K4={k4}, K3's first-frame mode {n['k3_start']} (want {chunks} "
+            f"each), K6={n['k6']} (want 0)"
         )
+    replays = read_replays("main path", frames)
     t1 = time.perf_counter()
     hyps = [res.best_path_labels(b) for b in range(B)]
     t_host = time.perf_counter() - t1
@@ -1997,10 +2245,11 @@ def main_path(dec, scores, lengths, refs, ref):
     log(f"main path: decode {t_dec:.3f} s (forward + sweep + survivor download, "
         f"{audio_s:.0f} audio-s, {audio_s / t_dec:.1f} audio-s/s), host 1-best "
         f"{t_host:.3f} s; row gather launches {gat}, K1 launches {k1}, K2 launches {k2}, "
-        f"K4 launches {k4}; matches the JAX "
+        f"K4 launches {k4}, K3 launches {n['k3']} (first-frame mode {n['k3_start']}), "
+        f"{replays} frames replayed from the captured graph; matches the JAX "
         f"reference on {len(ref['utts'][:B])} utterances; overflow frames "
         f"{int(res.overflows.sum())}, saturated frames {int(res.saturations.sum())}; {st}")
-    return gat, k1, k2, k4, t_dec
+    return n, t_dec
 
 
 class CallCapture:
@@ -2095,8 +2344,8 @@ def hold_shard_kernels(kept, kind, eps_iters, tag):
 def profiled_device_ms(fn, top=6):
     """One run of ``fn`` under the profiler: its device milliseconds in
     kernels and in copies (a gloo exchange stages through the host), the
-    ``top`` activities by device time [(name, ms, count)], and the run's
-    wall seconds (profiled)."""
+    ``top`` activities by device time [(name, ms, count)] (all with
+    None), and the run's wall seconds (profiled)."""
     import collections
 
     import torch
@@ -2193,7 +2442,7 @@ def shard_path(kind, graph, sc, sl, refs, sref, P, rank):
     coll = dict(collective_calls)
     frames = res.num_active.shape[0]
     k = "k6" if kind == "viterbi" else "k2"
-    want_n = dict(gather=0, k1=frames, k2=0, k4=0, k6=0)
+    want_n = dict(gather=0, k1=frames, k2=0, k4=0, k6=0, k3=0, k3_start=0)  # no driver
     want_n[k] = D + frames * (1 + D)
     if n != want_n:
         raise AssertionError(f"{what}: launch counts {n}, want {want_n}")
@@ -2298,10 +2547,12 @@ def data_parallel_path(graph, scores, lengths, refs, ref, P, rank):
     phase 3 (main_path) on this rank's whole result; then a profiled run
     for the device time; rank 0 holds K1, K2 and K4 at its rows' shapes.
     Returns (launch counts, numbers, kernel errors, kernel times)."""
+    import numpy as np
     import torch
     import torch.distributed as dist
 
     from kaldi_decoder_tpu_torch import BatchedLatticeDecoder, config_for_graph
+    from kaldi_decoder_tpu_torch.decoders.lattice_dev import lattice_chunk
     from kaldi_decoder_tpu_torch.parallel import make_mesh
     from kaldi_decoder_tpu_torch.parallel.mesh import all_gather_object, collective_calls
 
@@ -2312,12 +2563,12 @@ def data_parallel_path(graph, scores, lengths, refs, ref, P, rank):
     all_gather_object(None, dec._rows.group)
     collective_calls.clear()
     t0 = time.perf_counter()
-    gat, k1, k2, k4, t_dec = main_path(dec, scores, lengths, refs, ref)
+    n, t_dec = main_path(dec, scores, lengths, refs, ref)
     t_all = time.perf_counter() - t0
     coll = dict(collective_calls)
     k_ms, c_ms, _, t_prof = profiled_device_ms(
         lambda: dec.decode(scores, lengths, chunk_frames=CHUNK, device_prune=True))
-    frames = k1
+    frames = n["k1"]
     out = dict(P=P, decode_s=t_dec, seconds=t_all, collectives=coll,
                wall_ms_per_frame=t_dec * 1e3 / frames,
                device_ms_per_frame=(k_ms + c_ms) / frames, kernel_ms_per_frame=k_ms / frames,
@@ -2327,6 +2578,14 @@ def data_parallel_path(graph, scores, lengths, refs, ref, P, rank):
         f"{out['device_ms_per_frame']:.4f} ms a frame ({out['kernel_ms_per_frame']:.4f} in "
         f"kernels; profiled run, {t_prof:.3f} s); collectives {coll} (none in the frame loop); "
         f"decode, gather and checks {t_all:.2f} s")
+    rows = dec._rows.rows(B)
+    sc_tm = torch.from_numpy(np.ascontiguousarray(
+        scores[rows, :WALL_FRAMES].transpose(1, 0, 2))).cuda()
+    rem, st0 = torch.from_numpy(lengths[rows]).cuda(), dec._init(rows.stop - rows.start)[0]
+    out["frame_loops"] = loop_walls(
+        f"phase 11 (P={P}) rank {rank}, its rows' chunk loop",
+        lambda: lattice_chunk(dec._pg, sc_tm, rem, st0, dec.cfg, dec._dev_graph.num_states),
+        WALL_FRAMES)
     errs, times = {}, {}
     if rank == 0:  # the other rank waits at the barrier: the card is this rank's alone
         errs, times = hold_rank_kernels(dec, scores, lengths, dec._rows.rows(B),
@@ -2334,7 +2593,7 @@ def data_parallel_path(graph, scores, lengths, refs, ref, P, rank):
     dist.barrier()
     del dec
     torch.cuda.empty_cache()
-    return dict(gather=gat, k1=k1, k2=k2, k4=k4, k6=0), out, errs, times
+    return n, out, errs, times
 
 
 def parallel_phases(P, rank, workload=None):
@@ -2499,51 +2758,118 @@ def main():
         f"{dec._dev_graph.num_emitting_arcs} arcs; device config {dec.cfg.frontier}; "
         f"set-up {time.perf_counter() - t0:.1f} s")
     scores_tm = torch.from_numpy(np.ascontiguousarray(scores.transpose(1, 0, 2))).cuda()
+    rem = torch.from_numpy(lengths).cuda()
     k1_err, k1, states, k2_args = check_k1(dec, scores_tm)
     k2_err, k2_by_frame = check_k2(k2_args)
     k2 = k2_by_frame[K2_FRAMES[0]]
     del k2_args
     gat_err, gat, gat_packed = check_gather(dec, states)
     k4_err, k4 = check_k4(dec, scores_tm, lengths)
+    k3 = {"lattice": check_k3("the lattice frame (phase 3)", True, dec._pg, dec.cfg,
+                              dec._dev_graph.num_states, scores_tm[:CHUNK], rem,
+                              dec._init(B)[0], K2_FRAMES[0])}
     udec = unfolded_lattice_decoder(graph)
     k2e_err, k2e_by_frame = check_k2_eps(udec, scores_tm)
     k4e_err, k4e = check_k4_eps(udec, scores_tm, lengths)
+    k3["unfolded"] = check_k3("the unfolded lattice frame (phase 6)", True, udec._pg, udec.cfg,
+                              udec._dev_graph.num_states, scores_tm[:CHUNK], rem,
+                              udec._init(B)[0], K2_EPS_FRAMES[0])
     del udec
     vfc = config_for_graph(graph, **VITERBI_CONFIG)
     vdec = BatchedViterbiDecoder(graph, vfc, device="cuda")
     edec = BatchedViterbiDecoder(graph, vfc, fold=False, device="cuda")
     k6 = check_k6(vdec, edec, scores_tm)
     del edec
+    k3["viterbi"] = check_k3("the 1-best frame (phase 4)", False, vdec._pg, vdec.cfg,
+                             vdec._dev_graph.num_states, scores_tm[:CHUNK], rem,
+                             vdec._init(B)[0], K6_FRAMES[-1])
     fd = streaming_decoder(graph, vref)
     sk = check_streaming_kernels(fd, scores_tm)
+    one_call = torch.tensor([FRAMES_PER_CALL], dtype=torch.int32, device="cuda")
+    fd.init_decoding()
+    k3["streaming"] = check_k3("the streaming 1-best frame (phase 5)", False, fd._pg, fd._cfg,
+                               fd._graph.num_states, scores_tm[:FRAMES_PER_CALL, :1], one_call,
+                               fd._state, STREAM_FRAME)
     k2s_err, k2s = check_streaming_k2(streaming_lattice_decoder(graph, lref), scores_tm)
+    ld = streaming_lattice_decoder(graph, lref)
+    ld.init_decoding()
+    k3["streaming_lattice"] = check_k3("the streaming lattice frame (phase 7)", True, ld._pg,
+                                       ld._dev_cfg, ld._graph.num_states,
+                                       scores_tm[:FRAMES_PER_CALL, :1], one_call, ld._state,
+                                       STREAM_FRAME)
+    del ld
     k1r_err, k2r_err, kr = check_recall_kernels(graph, scores_tm,
                                                 range(rref["workload"]["frames"]))
-    del scores_tm, states
+    del states
     torch.cuda.empty_cache()
 
+    # 3-7: each path's loop also measured replayed from the frame driver's
+    # graph against the loop before the frame driver (loop_walls).
+    from kaldi_decoder_tpu_torch.decoders import driver
+    from kaldi_decoder_tpu_torch.decoders.lattice_dev import lattice_chunk
+    from kaldi_decoder_tpu_torch.decoders.viterbi import viterbi_chunk
+
+    loops = {}
+    sc_w = scores_tm[:WALL_FRAMES]
+
     # 3. Lattice path.
-    gat_n, k1_n, k2_n, k4_n, _ = main_path(dec, scores, lengths, refs, ref)
+    n3, t3 = main_path(dec, scores, lengths, refs, ref)
+    st0, S = dec._init(B)[0], dec._dev_graph.num_states
+    loops["lattice"] = loop_walls("phase 3, the lattice chunk loop", lambda: lattice_chunk(
+        dec._pg, sc_w, rem, st0, dec.cfg, S), WALL_FRAMES)
+    loops["lattice"]["decode_s"] = {"graph": t3, "loop": eager_decode_s(
+        lambda: dec.decode(scores, lengths, chunk_frames=CHUNK, device_prune=True))}
+    pool = loops["lattice"]["graph_pool_bytes"] = graph_pool(True, dec._pg, dec.cfg, S, B)
+    log(f"  phase 3 decode: {t3:.3f} s replayed from the graph (the counted run), "
+        f"{loops['lattice']['decode_s']['loop']:.3f} s as the loop before the frame driver; the "
+        f"captured frame's memory pool: {pool[0]} bytes allocated, {pool[1]} reserved")
     del dec
     torch.cuda.empty_cache()
 
     # 4. Batched 1-best path.
-    vn, _, _ = viterbi_path(vdec, scores, lengths, refs, vref)
-    del vdec
+    vn, t4, _ = viterbi_path(vdec, scores, lengths, refs, vref)
+    st0, S = vdec._init(B)[0], vdec._dev_graph.num_states
+    loops["viterbi"] = loop_walls("phase 4, the 1-best chunk loop", lambda: viterbi_chunk(
+        vdec._pg, sc_w, rem, st0, vdec.cfg, S), WALL_FRAMES)
+    loops["viterbi"]["decode_s"] = {"graph": t4,
+                                    "loop": eager_decode_s(lambda: vdec.decode(scores, lengths))}
+    pool = loops["viterbi"]["graph_pool_bytes"] = graph_pool(False, vdec._pg, vdec.cfg, S, B)
+    log(f"  phase 4 decode: {t4:.3f} s replayed from the graph (the counted run), "
+        f"{loops['viterbi']['decode_s']['loop']:.3f} s as the loop before the frame driver; the "
+        f"captured frame's memory pool: {pool[0]} bytes allocated, {pool[1]} reserved")
+    del vdec, st0
     torch.cuda.empty_cache()
 
     # 5. Streaming API.
     sn, _ = streaming_path(fd, scores, vref)
+    loops["streaming"] = loop_walls("phase 5, FasterDecoder on utterance 0",
+                                    stream_run(fd, scores[0, :WALL_STREAM_FRAMES]),
+                                    WALL_STREAM_FRAMES)
+    pool = loops["streaming"]["graph_pool_bytes"] = graph_pool(
+        False, fd._pg, fd._cfg, fd._graph.num_states, 1)
+    log(f"  phase 5: the captured frame's memory pool: {pool[0]} bytes allocated, {pool[1]} "
+        "reserved")
     del fd
     torch.cuda.empty_cache()
 
     # 6. Lattice path without folding (the device eps path).
-    un, _ = lattice_eps_path(unfolded_lattice_decoder(graph), scores, lengths, refs, lref)
+    udec = unfolded_lattice_decoder(graph)
+    un, _ = lattice_eps_path(udec, scores, lengths, refs, lref)
+    st0, S = udec._init(B)[0], udec._dev_graph.num_states
+    loops["lattice_unfolded"] = loop_walls(
+        "phase 6, the unfolded lattice chunk loop",
+        lambda: lattice_chunk(udec._pg, sc_w, rem, st0, udec.cfg, S), WALL_FRAMES)
+    pool = loops["lattice_unfolded"]["graph_pool_bytes"] = graph_pool(True, udec._pg, udec.cfg,
+                                                                      S, B)
+    log(f"  phase 6: the captured frame's memory pool: {pool[0]} bytes allocated, {pool[1]} "
+        "reserved")
+    del udec, st0, sc_w, scores_tm
     torch.cuda.empty_cache()
 
     # 7. Streaming lattice API.
     ln = streaming_lattice_path(graph, scores, lref)
     fn, sln = ln["faster"][0], ln["simple"][0]
+    loops["streaming_lattice"] = ln["faster"][2]
     torch.cuda.empty_cache()
 
     # 8. The graph file and the CLI.
@@ -2592,10 +2918,13 @@ def main():
                 for P in par for sfx in ("", "_eps") if kernel + sfx in par[P][0][phase][3]
                 for f in ("ms", "plain_ms", "bound_ms", "bound_by", "share_of_bound")}
     by_path = {
-        "gather": {"lattice": gat_n, "viterbi": vn["gather"], "streaming": sn["gather"]},
-        "k1": {"lattice": k1_n, "viterbi": vn["k1"], "streaming": sn["k1"]},
-        "k2": {"lattice": k2_n},
-        "k4": {"lattice": k4_n},
+        "gather": {"lattice": n3["gather"], "viterbi": vn["gather"], "streaming": sn["gather"]},
+        "k1": {"lattice": n3["k1"], "viterbi": vn["k1"], "streaming": sn["k1"]},
+        "k2": {"lattice": n3["k2"]},
+        "k3": {"lattice": n3["k3"], "viterbi": vn["k3"], "streaming": sn["k3"]},
+        "k3_start": {"lattice": n3["k3_start"], "viterbi": vn["k3_start"],
+                     "streaming": sn["k3_start"]},
+        "k4": {"lattice": n3["k4"]},
         "k6": {"viterbi": vn["k6"], "streaming": sn["k6"]},
     }
     for key, paths in by_path.items():
@@ -2612,6 +2941,7 @@ def main():
                     **{f: t[f] for f in fields}, **extra)
 
     log(f"all phases: {time.perf_counter() - t_start:.1f} s")
+    log(json.dumps({"frame_loops": loops}))
     log(json.dumps({"graph_file": gio, "encoder": enc, "recall": rec,
                     "parallel": {f"{ph}_p{P}": [r[ph][1] for r in ranks]
                                  for P, ranks in par.items() for ph in ranks[0]}}))
@@ -2652,6 +2982,16 @@ def main():
               **{f"{f}_recall_em{r}": kr[r][f] for r in RECALL_BUDGETS
                  for f in ("ms", "plain_ms", "bound_ms", "bound_by", "share_of_bound", "frame",
                            "records")}),
+        entry("K3 frame_tail (GetCutoff, rebase, freeze, each frame's outputs into the chunk's "
+              "rows, the next frame's K1 inputs; the frame driver's tail, replayed from its "
+              "captured CUDA graph)", "frame.cu",
+              "kaldi_decoder_tpu/decoders/lattice_dev.py:394", "k3", k3["lattice"], 0.0,
+              first_frame_launches=sum(by_path["k3_start"].values()),
+              first_frame_launches_by_path=by_path["k3_start"],
+              **{f"{f}_{p}": k3[p][f] for p in ("viterbi", "unfolded", "streaming",
+                                                  "streaming_lattice")
+                 for f in ("ms", "plain_ms", "bound_ms", "bound_by", "share_of_bound",
+                           "wrapper_ms", "plain_wrapper_ms")}),
         entry("K4 sweep_chunk (backward extra-cost sweep; with eps records, the eps Bellman)",
               "sweep.cu", "kaldi_decoder_tpu/decoders/sweep.py:141", "k4", k4,
               max(k4_err, k4e_err, enc["kernel_errs"]["k4"], sk_err["k4"]),

@@ -420,11 +420,12 @@ def start_state(start: int, cfg: FrontierConfig, device) -> StepState:
     return StepState(states, costs, torch.zeros((1,), dtype=torch.float32, device=device))
 
 
-def _backpointers(sel, cand_slot: torch.Tensor, cand_arc: torch.Tensor) -> torch.Tensor:
+def _backpointers(cand_idx: torch.Tensor, cand_slot: torch.Tensor,
+                  cand_arc: torch.Tensor) -> torch.Tensor:
     """(B, K, 2) ``(cand_slot, cand_arc)`` of each selected slot's winning
-    candidate; ``(0, NO_ARC)`` on empty slots."""
-    ok = sel.cand_idx >= 0
-    idx = torch.where(ok, sel.cand_idx, 0).long()
+    candidate ``cand_idx`` (B, K); ``(0, NO_ARC)`` on empty slots."""
+    ok = cand_idx >= 0
+    idx = torch.where(ok, cand_idx, 0).long()
     return torch.stack(
         [
             torch.where(ok, cand_slot.gather(1, idx), 0),
@@ -477,7 +478,7 @@ def eps_iteration(
         st, cutoff_rel, pg, cfg
     )
     sel = dedup_select(cand_state, cand_cost, K, num_states)
-    bp = _backpointers(sel, cand_slot, cand_arc)
+    bp = _backpointers(sel.cand_idx, cand_slot, cand_arc)
     changed = ((sel.cand_idx >= 0) & (bp[..., 1] != NO_ARC)).any(dim=1)
     sat = sel.num_unique > K
     return StepState(sel.states, sel.costs, st.base), bp, changed, overflow, sat
@@ -546,6 +547,22 @@ def init_closure(pg: PackedGraph, start: int, num_states: int, cfg: FrontierConf
     return st, bp[0]
 
 
+def _emit(st: StepState, cutoff, adaptive_beam, scores_t, pg: PackedGraph,
+          cfg: FrontierConfig, num_states: int, bufs=None):
+    """K1 with each lane's source slot under the frame's GetCutoff
+    (``cutoff``, ``adaptive_beam``), then dedup and top-K (K6).  ``bufs``:
+    on a card, K1's and K6's output buffers and K6's scratch, or None."""
+    # Imported here: kernels.expand imports this module.
+    from kaldi_decoder_tpu_torch.kernels.expand import expand_filter
+
+    ex_out, sel_out, scratch = bufs or (None, None, None)
+    ex = expand_filter(st.states, st.costs, cutoff, adaptive_beam, scores_t, pg, cfg,
+                       with_src_slot=True, out=ex_out)
+    sel = dedup_select(ex.dst, ex.cost, cfg.frontier_size, num_states, out=sel_out,
+                       scratch=scratch)
+    return ex, sel
+
+
 def frame_emit_stage(
     st: StepState,
     scores_t: torch.Tensor,  # (B, V)
@@ -559,23 +576,47 @@ def frame_emit_stage(
 
     Returns (mid_state, bp_emit (B, K, 2), next_cutoff_rel, cutoff_abs,
     overflow, saturated)."""
-    # Imported here: kernels.expand imports this module.
-    from kaldi_decoder_tpu_torch.kernels.expand import expand_filter
-
-    K = cfg.frontier_size
     cut = get_cutoff(
         st.costs, cfg.beam, cfg.max_active, cfg.min_active, cfg.beam_delta,
         costs_sorted=True,
     )
-    ex = expand_filter(
-        st.states, st.costs, cut.cutoff, cut.adaptive_beam, scores_t, pg, cfg,
-        with_src_slot=True,
-    )
-    sel = dedup_select(ex.dst, ex.cost, K, num_states)
-    bp_emit = _backpointers(sel, ex.src_slot, ex.arc_id)
+    ex, sel = _emit(st, cut.cutoff, cut.adaptive_beam, scores_t, pg, cfg, num_states)
+    bp_emit = _backpointers(sel.cand_idx, ex.src_slot, ex.arc_id)
     mid = StepState(sel.states, sel.costs, st.base)
-    sat = sel.num_unique > K
+    sat = sel.num_unique > cfg.frontier_size
     return mid, bp_emit, ex.next_cutoff, st.base + cut.cutoff, ex.overflow, sat
+
+
+def frame_body(
+    st: StepState,  # (B, K)
+    cutoff: torch.Tensor,  # (B,) the frame's GetCutoff, relative to st.base
+    adaptive_beam: torch.Tensor,  # (B,)
+    scores_t: torch.Tensor,  # (B, V)
+    frame_active: torch.Tensor,  # (B,) bool
+    pg: PackedGraph,
+    cfg: FrontierConfig,
+    num_states: int,
+    bufs=None,
+):
+    """The Viterbi frame before its tail: K1 and K6, then the eps closure
+    under K1's next cutoff (ProcessNonemitting(weight_cutoff),
+    `faster-decoder.cc:149-151`).  ``bufs`` as :func:`_emit`'s.  Returns
+    the :class:`kaldi_decoder_tpu_torch.kernels.frame.TailInputs` of the
+    frame's tail (K3)."""
+    # Imported here: kernels.frame imports this module.
+    from kaldi_decoder_tpu_torch.kernels.frame import TailInputs
+
+    ex, sel = _emit(st, cutoff, adaptive_beam, scores_t, pg, cfg, num_states, bufs)
+    mid = StepState(sel.states, sel.costs, st.base)
+    bp_eps = sel.states.new_empty((st.states.shape[0], 0, cfg.frontier_size, 2))
+    eps_ovf = eps_sat = None  # an eps-free device graph: no closure
+    if cfg.eps_iters:
+        mid, bp_eps, eps_ovf, eps_sat = eps_closure_batched(
+            mid, ex.next_cutoff, frame_active, pg, cfg, num_states
+        )
+    return TailInputs(mid.states, mid.costs, ex.overflow, sel.num_unique, eps_ovf, eps_sat,
+                      cand_idx=sel.cand_idx, src_slot=ex.src_slot, arc_id=ex.arc_id,
+                      bp_eps=bp_eps)
 
 
 def frame_step_batched(
@@ -586,41 +627,17 @@ def frame_step_batched(
     cfg: FrontierConfig,
     num_states: int,
 ) -> Tuple[StepState, StepOut]:
-    """Whole-batch Viterbi frame: emit stage, epsilon closure under the
-    emitting-stage cutoff (ProcessNonemitting(weight_cutoff),
-    `faster-decoder.cc:149-151`), rebase by each row's best cost, and the
-    freeze of rows whose utterance has ended (identity backpointers)."""
-    K = cfg.frontier_size
-    mid, bp_emit, next_cutoff, cutoff_abs, em_ovf, em_sat = frame_emit_stage(
-        st, scores_t, pg, cfg, num_states
+    """Whole-batch Viterbi frame: GetCutoff, :func:`frame_body`, then its
+    tail (the rebase by each row's best cost and the freeze of rows whose
+    utterance has ended, with identity backpointers;
+    ``kernels.frame.frame_tail_plain``)."""
+    from kaldi_decoder_tpu_torch.kernels.frame import frame_tail_plain
+
+    cut = get_cutoff(
+        st.costs, cfg.beam, cfg.max_active, cfg.min_active, cfg.beam_delta,
+        costs_sorted=True,
     )
-    mid, bp_eps, eps_ovf, eps_sat = eps_closure_batched(
-        mid, next_cutoff, frame_active, pg, cfg, num_states
-    )
-    m = mid.costs[:, 0]
-    m_safe = torch.where(torch.isfinite(m), m, 0.0)
-    fa = frame_active
-    final = StepState(
-        states=torch.where(fa[:, None], mid.states, st.states),
-        costs=torch.where(fa[:, None], mid.costs - m_safe[:, None], st.costs),
-        base=torch.where(fa, mid.base + m_safe, st.base),
-    )
-    ident = _identity_bp(K, st.states.device)
-    s0 = st.costs[:, 0]
-    out = StepOut(
-        bp_emit=torch.where(fa[:, None, None], bp_emit, ident),
-        bp_eps=torch.where(fa[:, None, None, None], bp_eps, ident),
-        # Counts ``mid``, before the rebase, as the original does.
-        num_active=torch.where(
-            fa,
-            torch.isfinite(mid.costs).sum(dim=1, dtype=torch.int32),
-            torch.isfinite(st.costs).sum(dim=1, dtype=torch.int32),
-        ),
-        best_cost=torch.where(
-            fa, mid.base + m_safe, st.base + torch.where(torch.isfinite(s0), s0, 0.0)
-        ),
-        cutoff=cutoff_abs,
-        overflow=fa & (em_ovf | eps_ovf),
-        saturated=fa & (em_sat | eps_sat),
-    )
+    tin = frame_body(st, cut.cutoff, cut.adaptive_beam, scores_t, frame_active, pg, cfg,
+                     num_states)
+    final, out, _ = frame_tail_plain(st, cut.cutoff, tin, frame_active, cfg)
     return final, out

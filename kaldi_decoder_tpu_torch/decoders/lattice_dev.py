@@ -15,8 +15,11 @@ first), and the cost rebase; record rows are
 ``[src_state, arc_id, dst_state, slack_bits]``.  On the card K1 and K2
 are the hand-written kernels; their plain torch versions
 (``kernels.expand.expand_filter_plain``, ``ops.segment.dedup_select_rec``)
-run for CPU tensors and are the kernels' oracles.  The JAX ``lax.scan`` over
-a chunk's frames is a Python loop here.
+run for CPU tensors and are the kernels' oracles.  A frame ends with its
+tail, K3 (``kernels.frame``: the rebase, the freeze, the outputs, the next
+frame's GetCutoff).  The JAX ``lax.scan`` over a chunk's frames is the
+frame driver here (:mod:`kaldi_decoder_tpu_torch.decoders.driver`): on a
+card one captured CUDA graph of a frame, replayed once a frame.
 """
 
 from __future__ import annotations
@@ -94,6 +97,22 @@ class LatticeStepOut(NamedTuple):
     saturated: torch.Tensor  # (B,) bool — more in-beam states than K
 
 
+def _lattice_emit(st: StepState, cutoff, adaptive_beam, scores_t, pg: PackedGraph,
+                  fc: FrontierConfig, num_states: int, r_em: int, slack_beam: float,
+                  bufs=None):
+    """K1 under the frame's GetCutoff (``cutoff``, ``adaptive_beam``), then
+    dedup, frontier selection and records (K2).  ``bufs``: on a card, K1's
+    and K2's output buffers and K2's scratch, or None."""
+    ex_out, sel_out, scratch = bufs or (None, None, None)
+    ex = expand_filter(st.states, st.costs, cutoff, adaptive_beam, scores_t, pg, fc,
+                       out=ex_out)
+    sel = dedup_select_rec(
+        ex.dst, ex.cost, fc.frontier_size, num_states, r_em, slack_beam,
+        payload=(ex.src_state, ex.arc_id), out=sel_out, scratch=scratch,
+    )
+    return ex, sel
+
+
 def lattice_emit_stage(
     st: StepState,
     scores_t: torch.Tensor,  # (B, V)
@@ -105,21 +124,15 @@ def lattice_emit_stage(
 ):
     """GetCutoff, expansion with the beam filter (K1), then dedup,
     frontier selection and records (K2)."""
-    K = fc.frontier_size
     cut = get_cutoff(
         st.costs, fc.beam, fc.max_active, fc.min_active, fc.beam_delta,
         costs_sorted=True,
     )
-    ex = expand_filter(
-        st.states, st.costs, cut.cutoff, cut.adaptive_beam, scores_t, pg, fc
-    )
-    sel = dedup_select_rec(
-        ex.dst, ex.cost, K, num_states, r_em, slack_beam,
-        payload=(ex.src_state, ex.arc_id),
-    )
+    ex, sel = _lattice_emit(st, cut.cutoff, cut.adaptive_beam, scores_t, pg, fc, num_states,
+                            r_em, slack_beam)
     mid = StepState(sel.states, sel.costs, st.base)
     ovf = ex.overflow | sel.rec_overflow
-    sat = sel.num_unique > K
+    sat = sel.num_unique > fc.frontier_size
     return mid, sel.records, ex.next_cutoff, st.base + cut.cutoff, ovf, sat
 
 
@@ -259,6 +272,41 @@ def eps_closure_rec_batched(
     return st, recs, ovf, sat
 
 
+def lattice_frame_body(
+    st: StepState,  # (B, K)
+    cutoff: torch.Tensor,  # (B,) the frame's GetCutoff, relative to st.base
+    adaptive_beam: torch.Tensor,  # (B,)
+    scores_t: torch.Tensor,  # (B, V)
+    frame_active: torch.Tensor,  # (B,) bool
+    pg: PackedGraph,
+    cfg: LatticeDevConfig,
+    num_states: int,
+    bufs=None,
+):
+    """The lattice frame before its tail: K1 and K2, then, on a device
+    graph with eps arcs, the record-emitting eps closure under K1's next
+    cutoff.  ``bufs`` as :func:`_lattice_emit`'s.  Returns the
+    :class:`kaldi_decoder_tpu_torch.kernels.frame.TailInputs` of the
+    frame's tail (K3)."""
+    # Imported here: kernels.frame imports this module.
+    from kaldi_decoder_tpu_torch.kernels.frame import TailInputs
+
+    fc = cfg.frontier
+    sb = cfg.lattice_beam + 1e-4  # headroom: host prune re-checks in f64
+    ex, sel = _lattice_emit(st, cutoff, adaptive_beam, scores_t, pg, fc, num_states,
+                            cfg.em_records, sb, bufs)
+    mid = StepState(sel.states, sel.costs, st.base)
+    eps_rec = sel.records.new_empty((st.states.shape[0], 0, cfg.eps_records, REC_COLS))
+    eps_ovf = eps_sat = None  # an eps-free device graph: no closure, no eps records
+    if fc.eps_iters:
+        mid, eps_rec, eps_ovf, eps_sat = eps_closure_rec_batched(
+            mid, ex.next_cutoff, frame_active, pg, fc, num_states, cfg.eps_records, sb
+        )
+    return TailInputs(mid.states, mid.costs, ex.overflow, sel.num_unique, eps_ovf, eps_sat,
+                      rec_overflow=sel.rec_overflow, em_records=sel.records,
+                      eps_records=eps_rec)
+
+
 def lattice_frame_step_batched(
     st: StepState,  # (B, K)
     scores_t: torch.Tensor,  # (B, V)
@@ -267,42 +315,20 @@ def lattice_frame_step_batched(
     cfg: LatticeDevConfig,
     num_states: int,
 ) -> Tuple[StepState, LatticeStepOut]:
-    """One whole-batch lattice frame: emit stage, the record-emitting eps
-    closure under the emitting stage's cutoff, rebase by each row's best
-    cost, and the freeze of rows whose utterance has ended (their records
-    -1)."""
+    """One whole-batch lattice frame: GetCutoff, :func:`lattice_frame_body`,
+    then its tail (the rebase by each row's best cost and the freeze of
+    rows whose utterance has ended, their records -1;
+    ``kernels.frame.frame_tail_plain``)."""
+    from kaldi_decoder_tpu_torch.kernels.frame import frame_tail_plain
+
     fc = cfg.frontier
-    sb = cfg.lattice_beam + 1e-4  # headroom: host prune re-checks in f64
-    mid, em_rec, next_cutoff, cutoff_abs, ovf, sat = lattice_emit_stage(
-        st, scores_t, pg, fc, num_states, cfg.em_records, sb
+    cut = get_cutoff(
+        st.costs, fc.beam, fc.max_active, fc.min_active, fc.beam_delta,
+        costs_sorted=True,
     )
-    fa = frame_active
-    if fc.eps_iters:
-        mid, eps_rec, eps_ovf, eps_sat = eps_closure_rec_batched(
-            mid, next_cutoff, fa, pg, fc, num_states, cfg.eps_records, sb
-        )
-        eps_rec = torch.where(fa[:, None, None, None], eps_rec, -1)
-        ovf, sat = ovf | eps_ovf, sat | eps_sat
-    else:  # an eps-free device graph: no closure, no eps records
-        eps_rec = em_rec.new_empty((em_rec.shape[0], 0, cfg.eps_records, REC_COLS))
-    m = mid.costs[:, 0]
-    m_safe = torch.where(torch.isfinite(m), m, 0.0)
-    final = StepState(
-        states=torch.where(fa[:, None], mid.states, st.states),
-        costs=torch.where(fa[:, None], mid.costs - m_safe[:, None], st.costs),
-        base=torch.where(fa, mid.base + m_safe, st.base),
-    )
-    out = LatticeStepOut(
-        em_records=torch.where(fa[:, None, None], em_rec, -1),
-        eps_records=eps_rec,
-        frontier_states=final.states,
-        frontier_costs=final.base[:, None] + final.costs,
-        num_active=torch.isfinite(final.costs).sum(dim=1, dtype=torch.int32),
-        best_cost=final.base,
-        cutoff=cutoff_abs,
-        overflow=fa & ovf,
-        saturated=fa & sat,
-    )
+    tin = lattice_frame_body(st, cut.cutoff, cut.adaptive_beam, scores_t, frame_active, pg,
+                             cfg, num_states)
+    final, out, _ = frame_tail_plain(st, cut.cutoff, tin, frame_active, fc)
     return final, out
 
 
@@ -328,19 +354,12 @@ def lattice_chunk(
     cfg: LatticeDevConfig,
     num_states: int,
 ) -> Tuple[StepState, LatticeStepOut]:
-    """C frames from ``st0``; frames t >= lengths are no-ops for that row.
-    Returns the final state and the per-frame outputs stacked (C, B, ...)."""
-    C = scores_tm.shape[0]
-    st = st0
-    outs = None
-    for t in range(C):
-        st, o = lattice_frame_step_batched(
-            st, scores_tm[t], lengths > t, pg, cfg, num_states
-        )
-        if outs is None:
-            outs = LatticeStepOut(
-                *(torch.empty((C,) + x.shape, dtype=x.dtype, device=x.device) for x in o)
-            )
-        for buf, x in zip(outs, o):
-            buf[t].copy_(x)
-    return st, outs
+    """C frames from ``st0`` (the original's jitted ``lax.scan``); frames
+    t >= lengths are no-ops for that row.  Returns the final state and the
+    per-frame outputs stacked (C, B, ...).  The frames run through
+    :mod:`kaldi_decoder_tpu_torch.decoders.driver`: on a card one captured
+    CUDA graph of a frame is replayed for each."""
+    # Imported here: the frame driver imports this module.
+    from kaldi_decoder_tpu_torch.decoders.driver import run_chunk
+
+    return run_chunk(True, pg, scores_tm, lengths, st0, cfg, num_states)

@@ -2,11 +2,14 @@
 
 The torch counterpart of ``kaldi_decoder_tpu/decoders/viterbi.py``
 (``_batched_init``, ``_maybe_fold``, ``ViterbiResult``,
-``BatchedViterbiDecoder``).  A Python loop over frames advances B
-utterances in lockstep; each frame runs
-:func:`kaldi_decoder_tpu_torch.decoders.frontier.frame_step_batched`
-(GetCutoff, the row gather and K1, K6 and the backpointer gather, the eps
-closure, the rebase).  Per-frame backpointers ``(prev_slot, arc_id)`` stay
+``BatchedViterbiDecoder``).  The frame driver
+(:mod:`kaldi_decoder_tpu_torch.decoders.driver`; on a card one captured
+CUDA graph of a frame, replayed once a frame) advances B utterances in
+lockstep; each frame runs
+:func:`kaldi_decoder_tpu_torch.decoders.frontier.frame_body` (K1, which
+reads the em_block rows itself, K6, the eps closure) and K3, its tail
+(the backpointer gather, the rebase, the outputs, the next frame's
+GetCutoff).  Per-frame backpointers ``(prev_slot, arc_id)`` stay
 on the device and are downloaded once; the host walks them backwards with
 the C++ backtrace of the host library, exactly like the reference's
 ``Token::prev_`` chain walk (`kaldi-decoder/csrc/faster-decoder.cc:356-424`)
@@ -30,9 +33,9 @@ from kaldi_decoder_tpu_torch.decoders.frontier import (
     StepState,
     _cfg_for_device_graph,
     _folded_init,
-    frame_step_batched,
     init_closure,
 )
+from kaldi_decoder_tpu_torch.decoders.driver import run_chunk
 from kaldi_decoder_tpu_torch.fst.csr import CsrGraph
 from kaldi_decoder_tpu_torch.fst.fold import fold_eps
 from kaldi_decoder_tpu_torch.fst.fst import INF, Lattice
@@ -63,19 +66,10 @@ def viterbi_chunk(
     num_states: int,
 ) -> Tuple[StepState, StepOut]:
     """T frames from ``st0`` (the original's jitted ``lax.scan``).
-    Returns the final state and the per-frame outputs stacked (T, B, ...)."""
-    T = scores_tm.shape[0]
-    st = st0
-    outs = None
-    for t in range(T):
-        st, o = frame_step_batched(st, scores_tm[t], lengths > t, pg, cfg, num_states)
-        if outs is None:
-            outs = StepOut(
-                *(torch.empty((T,) + x.shape, dtype=x.dtype, device=x.device) for x in o)
-            )
-        for buf, x in zip(outs, o):
-            buf[t].copy_(x)
-    return st, outs
+    Returns the final state and the per-frame outputs stacked (T, B, ...).
+    The frames run through :mod:`kaldi_decoder_tpu_torch.decoders.driver`:
+    on a card one captured CUDA graph of a frame is replayed for each."""
+    return run_chunk(False, pg, scores_tm, lengths, st0, cfg, num_states)
 
 
 def _batched_init(pg, graph: CsrGraph, cfg: FrontierConfig, batch: int, device):

@@ -98,6 +98,16 @@ def check(t, name: str, dtype, shape, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def check_like(got, want, name: str, device) -> None:
+    """Raise unless each tensor of the tuple ``got`` has the dtype and
+    shape of ``want``'s (a template, e.g. on the meta device) and lies
+    contiguous on ``device``; fields that ``want`` leaves None are not
+    checked."""
+    for field, g, w in zip(got._fields, got, want):
+        if w is not None:
+            check(g, f"{name}.{field}", w.dtype, w.shape, device)
+
+
 def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
@@ -112,7 +122,8 @@ def stream(device) -> ctypes.c_void_p:
 @functools.lru_cache(maxsize=None)
 def kernels() -> ctypes.CDLL:
     """The CUDA kernel library (row gather, K1 expansion, K2 lattice
-    dedup and records, K4 sweep, K6 dedup), built on first use."""
+    dedup and records, K3 frame tail, K4 sweep, K6 dedup), built on first
+    use."""
     sources = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
     arch = ["-gencode", "arch=compute_90a,code=sm_90a"]
     path = build_library(
@@ -147,6 +158,11 @@ def kernels() -> ctypes.CDLL:
     lib.kd_dedup_rec_cluster.argtypes = [_I, _I]
     lib.kd_dedup_rec_marks.restype = _I
     lib.kd_dedup_rec_marks.argtypes = [_P, _P, _P, _I]
+    lib.kd_frame_start.restype = _I
+    lib.kd_frame_start.argtypes = ([_P] + [_I] * 3 + [_L, _F, _I, _I, _F] + [_P] * 7 + [_P] * 5
+                                   + [_P] * 9 + [_P])
+    lib.kd_frame_tail.restype = _I
+    lib.kd_frame_tail.argtypes = [_P] + [_I] * 8 + [_F, _I, _I, _F] + [_P] * 7 + [_P] * 13 + [_P]
     lib.kd_error_string.restype = ctypes.c_char_p
     lib.kd_error_string.argtypes = [_I]
     return lib

@@ -15,9 +15,18 @@ share it at once.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
-from kaldi_decoder_tpu_torch.kernels._build import check, cuda_error, kernels, ptr, stream
+from kaldi_decoder_tpu_torch.kernels._build import (
+    check,
+    check_like,
+    cuda_error,
+    kernels,
+    ptr,
+    stream,
+)
 from kaldi_decoder_tpu_torch.ops.segment import Selection
 from kaldi_decoder_tpu_torch.ops.segment import dedup_select as dedup_select_plain
 
@@ -38,14 +47,48 @@ def _held_table(dev: torch.device, B: int, S: int):
     return table, key
 
 
+def empty_selection(batch: int, k: int, device) -> Selection:
+    """Uninitialised output buffers of K6 (``dedup_select``'s ``out``)."""
+    i32 = dict(dtype=torch.int32, device=device)
+    return Selection(
+        states=torch.empty((batch, k), **i32),
+        costs=torch.empty((batch, k), dtype=torch.float32, device=device),
+        cand_idx=torch.empty((batch, k), **i32),
+        num_unique=torch.empty((batch,), **i32),
+    )
+
+
+def empty_scratch(batch: int, lanes: int, device, pairs: int = 2):
+    """K6's (``pairs`` = 2) or K2's (4) scratch rows for ``batch`` rows of
+    ``lanes`` lanes: a tuple of ``pairs`` int64 key rows, then as many
+    int32 value rows, each (batch, lanes + SCRATCH_PAD)."""
+    shape = (batch, lanes + SCRATCH_PAD)
+    return (tuple(torch.empty(shape, dtype=torch.int64, device=device) for _ in range(pairs))
+            + tuple(torch.empty(shape, dtype=torch.int32, device=device) for _ in range(pairs)))
+
+
+def check_scratch(scratch, batch: int, lanes: int, device, pairs: int = 2) -> None:
+    """Raise unless ``scratch`` is :func:`empty_scratch`'s layout."""
+    if len(scratch) != 2 * pairs:
+        raise ValueError(f"scratch: expected {2 * pairs} rows, got {len(scratch)}")
+    for i, x in enumerate(scratch):
+        check(x, f"scratch[{i}]", torch.int64 if i < pairs else torch.int32,
+              (batch, lanes + SCRATCH_PAD), device)
+
+
 def dedup_select(
     cand_state: torch.Tensor,  # (B, N) int32
     cand_cost: torch.Tensor,  # (B, N) float32, +inf == invalid
     k: int,
     num_states: int,
+    out: Optional[Selection] = None,
+    scratch=None,
 ) -> Selection:
     """K6 on the tensors' device.  Finite lanes must have a state in
-    ``[0, num_states)``.  ``dedup_select.launches`` counts K6 launches."""
+    ``[0, num_states)``.  On a card, ``out`` (from
+    :func:`empty_selection`) and ``scratch`` (from :func:`empty_scratch`)
+    are used instead of fresh buffers, so that a captured frame allocates
+    nothing.  ``dedup_select.launches`` counts K6 launches."""
     dev = cand_state.device
     if dev.type == "cpu":
         return dedup_select_plain(cand_state, cand_cost, k, num_states)
@@ -56,18 +99,16 @@ def dedup_select(
     check(cand_cost, "cand_cost", torch.float32, (B, N), dev)
     lib = kernels()
     table, key = _held_table(dev, B, num_states)
-    i32 = dict(dtype=torch.int32, device=dev)
     # Scratch rows: N and the pad the kernel's spill regions round up to.
-    keys0 = torch.empty((B, N + SCRATCH_PAD), dtype=torch.int64, device=dev)
-    keys1 = torch.empty((B, N + SCRATCH_PAD), dtype=torch.int64, device=dev)
-    vals0 = torch.empty((B, N + SCRATCH_PAD), **i32)
-    vals1 = torch.empty((B, N + SCRATCH_PAD), **i32)
-    out = Selection(
-        states=torch.empty((B, k), **i32),
-        costs=torch.empty((B, k), dtype=torch.float32, device=dev),
-        cand_idx=torch.empty((B, k), **i32),
-        num_unique=torch.empty((B,), **i32),
-    )
+    if scratch is None:
+        scratch = empty_scratch(B, N, dev)
+    else:
+        check_scratch(scratch, B, N, dev)
+    keys0, keys1, vals0, vals1 = scratch
+    if out is None:
+        out = empty_selection(B, k, dev)
+    else:
+        check_like(out, empty_selection(B, k, "meta"), "out", dev)
     rc = lib.kd_dedup(
         ptr(cand_state), ptr(cand_cost), B, N, num_states, k,
         ptr(table), ptr(keys0), ptr(vals0), ptr(keys1), ptr(vals1),

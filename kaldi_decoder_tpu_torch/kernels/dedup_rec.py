@@ -22,7 +22,14 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from kaldi_decoder_tpu_torch.kernels import dedup as k6
-from kaldi_decoder_tpu_torch.kernels._build import check, cuda_error, kernels, ptr, stream
+from kaldi_decoder_tpu_torch.kernels._build import (
+    check,
+    check_like,
+    cuda_error,
+    kernels,
+    ptr,
+    stream,
+)
 from kaldi_decoder_tpu_torch.ops.segment import SelectionRec
 from kaldi_decoder_tpu_torch.ops.segment import dedup_select_rec as dedup_select_rec_plain
 
@@ -43,6 +50,21 @@ def stack_records(sel: SelectionRec) -> torch.Tensor:
     return torch.stack(sel.recs + (sel.rec_dst, sel.rec_slack.view(torch.int32)), dim=-1)
 
 
+def empty_lattice_selection(batch: int, k: int, r: int, device,
+                            with_cand_idx: bool = False) -> LatticeSelection:
+    """Uninitialised output buffers of K2 (``dedup_select_rec``'s ``out``);
+    ``with_cand_idx`` for the eps call's."""
+    i32 = dict(dtype=torch.int32, device=device)
+    return LatticeSelection(
+        states=torch.empty((batch, k), **i32),
+        costs=torch.empty((batch, k), dtype=torch.float32, device=device),
+        num_unique=torch.empty((batch,), **i32),
+        records=torch.empty((batch, r, 4), **i32),
+        rec_overflow=torch.empty((batch,), dtype=torch.bool, device=device),
+        cand_idx=torch.empty((batch, k), **i32) if with_cand_idx else None,
+    )
+
+
 def dedup_select_rec(
     cand_state: torch.Tensor,  # (B, N) int32
     cand_cost: torch.Tensor,  # (B, N) float32, +inf == invalid
@@ -52,11 +74,16 @@ def dedup_select_rec(
     slack_beam: float,
     payload: Tuple[torch.Tensor, ...],  # (src_state, arc_id), each (B, N) int32
     num_incumbents: int = 0,
+    out: Optional[LatticeSelection] = None,
+    scratch=None,
 ) -> LatticeSelection:
     """K2 on the tensors' device.  Finite lanes must have a state in
     ``[0, num_states)``; ``slack_beam`` is compared in float32, as the
     plain version compares it.  With ``num_incumbents`` the first lanes
-    are carried tokens, never records, and ``cand_idx`` is given.
+    are carried tokens, never records, and ``cand_idx`` is given.  On a
+    card, ``out`` (from :func:`empty_lattice_selection`) and ``scratch``
+    (``kernels.dedup.empty_scratch(B, N, device, pairs=4)``) are used
+    instead of fresh buffers, so that a captured frame allocates nothing.
     ``dedup_select_rec.launches`` counts K2 launches."""
     dev = cand_state.device
     if dev.type == "cpu":
@@ -75,19 +102,17 @@ def dedup_select_rec(
         check(p, f"payload[{i}]", torch.int32, (B, N), dev)
     lib = kernels()
     table, key = k6._held_table(dev, B, num_states)
-    i32 = dict(dtype=torch.int32, device=dev)
     # Scratch rows: N and the pad the kernel's spill regions round up to.
-    keys = [torch.empty((B, N + k6.SCRATCH_PAD), dtype=torch.int64, device=dev)
-            for _ in range(4)]
-    vals = [torch.empty((B, N + k6.SCRATCH_PAD), **i32) for _ in range(4)]
-    out = LatticeSelection(
-        states=torch.empty((B, k), **i32),
-        costs=torch.empty((B, k), dtype=torch.float32, device=dev),
-        num_unique=torch.empty((B,), **i32),
-        records=torch.empty((B, r, 4), **i32),
-        rec_overflow=torch.empty((B,), dtype=torch.bool, device=dev),
-        cand_idx=torch.empty((B, k), **i32) if num_incumbents else None,
-    )
+    if scratch is None:
+        scratch = k6.empty_scratch(B, N, dev, pairs=4)
+    else:
+        k6.check_scratch(scratch, B, N, dev, pairs=4)
+    keys, vals = scratch[:4], scratch[4:]
+    if out is None:
+        out = empty_lattice_selection(B, k, r, dev, bool(num_incumbents))
+    else:
+        check_like(out, empty_lattice_selection(B, k, r, "meta", bool(num_incumbents)), "out",
+                   dev)
     rc = lib.kd_dedup_rec(
         ptr(cand_state), ptr(cand_cost), ptr(payload[0]), ptr(payload[1]),
         B, N, num_states, k, r, ctypes.c_float(slack_beam), num_incumbents, ptr(table),

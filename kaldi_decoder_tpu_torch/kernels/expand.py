@@ -24,7 +24,14 @@ from kaldi_decoder_tpu_torch.decoders.frontier import (
     expand_emitting,
 )
 from kaldi_decoder_tpu_torch.fst.pack import EM_FIELDS, PackedGraph
-from kaldi_decoder_tpu_torch.kernels._build import check, cuda_error, kernels, ptr, stream
+from kaldi_decoder_tpu_torch.kernels._build import (
+    check,
+    check_like,
+    cuda_error,
+    kernels,
+    ptr,
+    stream,
+)
 
 INF = float("inf")
 
@@ -77,12 +84,30 @@ def remainder_units(states, costs, cutoff, pg: PackedGraph, fc: FrontierConfig) 
     return n.sum(dim=1)
 
 
+def empty_expansion(batch: int, lanes: int, device, with_src_slot: bool = False) -> Expansion:
+    """Uninitialised output buffers of K1 for ``batch`` rows of ``lanes``
+    candidate lanes (``expand_filter``'s ``out``)."""
+    i32 = dict(dtype=torch.int32, device=device)
+    return Expansion(
+        dst=torch.empty((batch, lanes), **i32),
+        cost=torch.empty((batch, lanes), dtype=torch.float32, device=device),
+        src_state=torch.empty((batch, lanes), **i32),
+        arc_id=torch.empty((batch, lanes), **i32),
+        overflow=torch.empty((batch,), dtype=torch.bool, device=device),
+        next_cutoff=torch.empty((batch,), dtype=torch.float32, device=device),
+        src_slot=torch.empty((batch, lanes), **i32) if with_src_slot else None,
+    )
+
+
 def expand_filter(
-    states, costs, cutoff, adaptive_beam, scores_t, pg, fc, with_src_slot: bool = False
+    states, costs, cutoff, adaptive_beam, scores_t, pg, fc, with_src_slot: bool = False,
+    out: Optional[Expansion] = None,
 ) -> Expansion:
     """K1 on the tensors' device: plain torch on the CPU, one launch of
     ``csrc/expand.cu`` on a card, which reads each active slot's em_block
-    row itself (the reference's row gather, folded in).
+    row itself (the reference's row gather, folded in).  On a card,
+    ``out`` (from :func:`empty_expansion`) is written and returned instead
+    of fresh buffers, so that a captured frame allocates nothing.
     ``expand_filter.launches`` counts K1 launches."""
     dev = states.device
     if dev.type == "cpu":
@@ -106,16 +131,10 @@ def expand_filter(
     check(pg.em_flat, "em_flat", torch.int32, (pg.em_flat.shape[0], G * EM_FIELDS), dev)
 
     N = KE * W + Ru * G
-    i32 = dict(dtype=torch.int32, device=dev)
-    out = Expansion(
-        dst=torch.empty((B, N), **i32),
-        cost=torch.empty((B, N), dtype=torch.float32, device=dev),
-        src_state=torch.empty((B, N), **i32),
-        arc_id=torch.empty((B, N), **i32),
-        overflow=torch.empty((B,), dtype=torch.bool, device=dev),
-        next_cutoff=torch.empty((B,), dtype=torch.float32, device=dev),
-        src_slot=torch.empty((B, N), **i32) if with_src_slot else None,
-    )
+    if out is None:
+        out = empty_expansion(B, N, dev, with_src_slot)
+    else:
+        check_like(out, empty_expansion(B, N, "meta", with_src_slot), "out", dev)
     rc = kernels().kd_expand(
         ptr(states), ptr(costs), ptr(cutoff), ptr(adaptive_beam),
         ptr(scores_t), ptr(pg.em_block), ptr(pg.em_flat),

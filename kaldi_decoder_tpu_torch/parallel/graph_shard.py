@@ -423,7 +423,7 @@ def _sharded_eps_iteration(st: StepState, cutoff_rel, pg, cfg: ShardConfig, sh: 
     cand_arc = torch.cat([torch.full((B, K), NO_ARC, dtype=torch.int32,
                                      device=st.states.device), rt.arc], dim=1)
     sel = dedup_select(cand_state, cand_cost, K, Sp)
-    bp = _backpointers(sel, cand_slot, cand_arc)
+    bp = _backpointers(sel.cand_idx, cand_slot, cand_arc)
     changed_local = ((sel.cand_idx >= 0) & (bp[..., 1] != NO_ARC)).any()
     changed = all_reduce(_flags(changed_local), "max", sh.group)[0] > 0
     ovf = rt.overflow.any() | cand.overflow.any()
@@ -558,7 +558,7 @@ def _sharded_frame(st: StepState, scores_t, frame_active, pg, cfg: ShardConfig, 
     rt = _route(ex.dst, ncost, sh.my_base + ex.src_slot, sh.em_off + ex.arc_id,
                 Sp, Pn, cfg.route_cap, sh.group)
     sel = dedup_select(rt.state_local, rt.cost, K, Sp)
-    bp_emit = _backpointers(sel, rt.gslot, rt.arc)
+    bp_emit = _backpointers(sel.cand_idx, rt.gslot, rt.arc)
     em_sat = (sel.num_unique > K).any()
     mid = StepState(sel.states, sel.costs, st.base)
     mid, bp_eps, eps_ovf, eps_sat = _sharded_eps_closure(mid, next_cutoff, pg, cfg, sh)

@@ -9,6 +9,8 @@ side of the same wrappers is covered by ``tests/test_torch_ops.py`` and
 ``tests/test_torch_gather.py``.
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -1054,3 +1056,253 @@ def test_dedup_rec_eps_kernel_cluster_sizes(card, clusters):
     _same_rec_eps(card, states, costs, K, S, R)
     assert rec_cluster_size(nb, N) == clusters
 
+
+
+# ---------------------------------------------------------------------------
+# K3, the frame tail, and the frame driver's captured graph
+# ---------------------------------------------------------------------------
+
+TAIL_CASES = {
+    # name: (lattice, B, K, R, D, Re, N, V): the bench's lattice and 1-best
+    # frames (B=16, K 4096, R 8192), the unfolded lattice frame, and the
+    # streaming decoders' B=1 frames with an eps closure of depth 1.
+    "lattice": (True, 16, 4096, 8192, 0, 1024, 0, 500),
+    "lattice-eps": (True, 16, 4096, 8192, 1, 2048, 0, 500),
+    "viterbi": (False, 16, 4096, 0, 0, 0, 56832, 500),
+    "streaming-viterbi": (False, 1, 2048, 0, 1, 0, 18432, 500),
+    "streaming-lattice": (True, 1, 2048, 4096, 1, 3328, 0, 500),
+}
+TAIL_CFG = dict(beam=15.0, max_active=2560, min_active=200, beam_delta=0.5)
+
+
+def _sorted_costs(rng, nb, K, live):
+    """(nb, K) cost-sorted rows, row b with ``live[b % len(live)]`` finite
+    costs (duplicates and a -0.0 among them), +inf after."""
+    costs = np.full((nb, K), np.inf, np.float32)
+    for b in range(nb):
+        n = min(K, live[b % len(live)])
+        c = np.sort(np.round(rng.uniform(-3, 3 + 30 * (b % 3), n), 1)).astype(np.float32)
+        if n > 2:
+            c[1] = -0.0 if c[1] == 0 else c[1]
+        costs[b, :n] = c
+    return costs
+
+
+def _tail_case(card, name, t, seed=0):
+    """A chunk of t + 2 frames on the card (scores, lengths ending at t,
+    t + 1 and t + 2, a start state, empty outputs), slots for it, and one
+    frame's tail inputs: random frontiers (a full row, rows of 3000, 300,
+    150 and 0 live tokens, duplicates and a -0.0 among them), records or
+    backpointer inputs, flags."""
+    from kaldi_decoder_tpu_torch.decoders.driver import chunk_outputs
+    from kaldi_decoder_tpu_torch.decoders.frontier import FrontierConfig, StepState
+    from kaldi_decoder_tpu_torch.decoders.lattice_dev import LatticeDevConfig
+    from kaldi_decoder_tpu_torch.kernels.frame import FrameIO, FrameSlots, TailInputs
+
+    lattice, nb, K, R, D, Re, N, Vs = TAIL_CASES[name]
+    rng = np.random.default_rng(seed)
+    fc = FrontierConfig(frontier_size=K, eps_iters=D, **TAIL_CFG)
+    cfg = LatticeDevConfig(fc, em_records=R, eps_records=Re) if lattice else fc
+    live = [K, 3000, 300, 150, 0]
+
+    def dev(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(card)
+
+    def ints(*shape, lo=-1, hi=1 << 20):
+        return dev(rng.integers(lo, hi, shape).astype(np.int32))
+
+    def flags():
+        return dev(rng.random(nb) < 0.4)
+
+    C = t + 2
+    st0 = StepState(ints(nb, K, lo=0), dev(_sorted_costs(rng, nb, K, live[::-1])),
+                    dev(rng.uniform(-50, 50, nb).astype(np.float32)))
+    lengths = dev(np.array([t + b % 3 for b in range(nb)], np.int32))
+    io = FrameIO(dev(rng.normal(size=(C, nb, Vs)).astype(np.float32)), lengths, st0,
+                 chunk_outputs(lattice, cfg, C, nb, card))
+    tin = TailInputs(
+        ints(nb, K, lo=0), dev(_sorted_costs(rng, nb, K, live)), flags(),
+        dev(rng.choice([K - 5, K, K + 1, 9000], nb).astype(np.int32)),
+        flags() if D else None, flags() if D else None,
+        rec_overflow=flags() if lattice else None,
+        em_records=ints(nb, R, 4) if lattice else None,
+        eps_records=ints(nb, D, Re, 4) if lattice else None,
+        cand_idx=None if lattice else ints(nb, K, lo=-1, hi=N),
+        src_slot=None if lattice else ints(nb, N, lo=0, hi=K),
+        arc_id=None if lattice else ints(nb, N),
+        bp_eps=None if lattice else ints(nb, D, K, 2),
+    )
+    return FrameSlots(nb, K, Vs, card), io, tin, fc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(TAIL_CASES))
+def test_frame_tail_kernel_matches_plain(card, name):
+    """K3's first-frame mode against ``get_cutoff`` and its frame mode
+    against ``frame_tail_plain``, bitwise, at the paths' shapes: the state
+    written in place, row t of every stacked output (frozen rows' records
+    -1 and backpointers the identity), the next frame's cutoff, adaptive
+    beam, scores row and active rows, t advanced and the done count
+    cleared; then the chunk's last frame, which loads no scores row."""
+    from kaldi_decoder_tpu_torch.decoders.frontier import StepState
+    from kaldi_decoder_tpu_torch.kernels.frame import frame_start, frame_tail, frame_tail_plain
+
+    t = 5
+    s, io, tin, fc = _tail_case(card, name, t)
+    before = frame_start.launches, frame_tail.launches
+    frame_start(s, io, fc)
+    torch.cuda.synchronize()
+    cut = get_cutoff(io.st0.costs, fc.beam, fc.max_active, fc.min_active, fc.beam_delta,
+                     costs_sorted=True)
+    for ref, got, what in ((cut.cutoff, s.cutoff, "cutoff"),
+                           (cut.adaptive_beam, s.adaptive_beam, "adaptive_beam"),
+                           (io.scores[0], s.scores_t, "scores_t"),
+                           (io.lengths > 0, s.active, "active")):
+        assert torch.equal(ref.view(torch.int32) if ref.dtype == torch.float32 else ref,
+                           got.view(torch.int32) if got.dtype == torch.float32 else got), what
+    for ref, got in zip(io.st0, s.state):
+        assert torch.equal(ref, got)
+    assert s.args[:3].tolist() == [0, io.scores.shape[0], 0]
+    for frame in (t, io.scores.shape[0] - 1):
+        s.args[0] = frame
+        st = [x.clone() for x in s.state]
+        final, out, nxt = frame_tail_plain(StepState(*st), s.cutoff.clone(), tin,
+                                           io.lengths > frame, fc)
+        assert bool((io.lengths <= frame).any())  # a frozen row
+        scores_t = s.scores_t.clone()
+        frame_tail(s, tin, fc)
+        torch.cuda.synchronize()
+        for ref, got in zip(final, s.state):
+            assert torch.equal(ref.view(torch.int32), got.view(torch.int32)), frame
+        for f, ref in zip(out._fields, out):
+            got = getattr(io.outs, f)[frame]
+            if ref.dtype == torch.float32:
+                ref, got = ref.view(torch.int32), got.view(torch.int32)
+            assert torch.equal(ref, got), (frame, f)
+        assert torch.equal(nxt.cutoff.view(torch.int32), s.cutoff.view(torch.int32))
+        assert torch.equal(nxt.adaptive_beam.view(torch.int32),
+                           s.adaptive_beam.view(torch.int32))
+        want = io.scores[frame + 1] if frame + 1 < io.scores.shape[0] else scores_t
+        assert torch.equal(want, s.scores_t)
+        assert torch.equal(io.lengths > frame + 1, s.active)
+        assert s.args[0].item() == frame + 1 and s.args[2].item() == 0
+    assert (frame_start.launches, frame_tail.launches) == (before[0] + 1, before[1] + 2)
+
+
+def _chunks(card, nb, lengths_per_decode, C):
+    """Scores (C, nb, V) and lengths for each decode, from one seed each."""
+    out = []
+    for i, lens in enumerate(lengths_per_decode):
+        rng = np.random.default_rng(40 + i)
+        s = np.log(rng.dirichlet(np.ones(V), size=(C, nb))).astype(np.float32)
+        out.append((torch.from_numpy(s).to(card), torch.tensor(lens, dtype=torch.int32,
+                                                                 device=card)))
+    return out
+
+
+def _same_outputs(ref, got, what):
+    for f in ref._fields:
+        r, g = getattr(ref, f), getattr(got, f)
+        if r.dtype == torch.float32:
+            r, g = r.view(torch.int32), g.view(torch.int32)
+        assert torch.equal(r, g), (what, f)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["lattice", "lattice-eps", "viterbi", "viterbi-eps"])
+def test_graph_driver_matches_eager_loop(card, kind):
+    """The frame driver's captured graph against the loop it replaced
+    (``driver.eager_frames``: the frame steps launched from the host, the
+    plain-torch tail), bitwise, over two decodes of other lengths and
+    scores on one driver (and a chunk from the first one's final state);
+    K1, K2 or K6 launch as often as in that loop, K3 once a frame, its
+    first-frame mode once a chunk, and every frame but the frame driver's first
+    is a replay."""
+    from kaldi_decoder_tpu_torch.decoders import driver
+    from kaldi_decoder_tpu_torch.decoders.viterbi import BatchedViterbiDecoder, viterbi_chunk
+    from kaldi_decoder_tpu_torch.kernels.frame import frame_start, frame_tail
+
+    eps = kind.endswith("eps")
+    g = _eps_graph(1) if eps else _graph()
+    fc = config_for_graph(g, frontier_size=64, max_active=48, beam=10.0, rem_budget=4096)
+    if kind.startswith("lattice"):
+        dec = BatchedLatticeDecoder(g, fc, lattice_beam=5.0, em_records=512, pad_time_to=8,
+                                    fold=False, device=card)
+        st0, cfg, run = dec._init(B)[0], dec.cfg, lattice_chunk
+    else:
+        dec = BatchedViterbiDecoder(g, fc, pad_time_to=8, fold=False, device=card)
+        st0, cfg, run = dec._init(B)[0], dec.cfg, viterbi_chunk
+    S = g.num_states
+    counted = (expand_filter, dedup_select_rec, dedup_select, frame_tail, frame_start)
+    decodes = _chunks(card, B, [[20, 7, 13], [11, 20, 3]], 20)
+    results = []
+    for eager in (True, False):
+        n0, r0 = [f.launches for f in counted], driver.replays
+        got = []
+        with driver.eager_frames() if eager else contextlib.nullcontext():
+            for scores, lengths in decodes:
+                got.append(run(dec._pg, scores, lengths, st0, cfg, S))
+            stf = got[0][0]
+            got.append(run(dec._pg, decodes[1][0][:9], decodes[1][1], stf, cfg, S))
+        torch.cuda.synchronize()
+        results.append((got, [f.launches - n for f, n in zip(counted, n0)],
+                        driver.replays - r0))
+    (eager, n_eager, _), (graph, n_graph, replays) = results
+    for i, ((se, oe), (sg, og)) in enumerate(zip(eager, graph)):
+        _same_outputs(oe, og, i)
+        for r, g_ in zip(se, sg):
+            assert torch.equal(r.view(torch.int32), g_.view(torch.int32)), i
+    frames = 20 + 20 + 9
+    assert n_graph[:3] == n_eager[:3], (n_graph, n_eager)  # K1, K2, K6
+    assert n_graph[3:] == [frames, 3] and n_eager[3:] == [0, 0]  # K3: the eager tail is plain
+    assert replays == frames - 1  # the frame driver's first frame ran eagerly, then the capture
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lattice", [False, True])
+def test_graph_driver_streaming_calls(card, lattice):
+    """The streaming decoders on one captured frame: a call of 100 frames,
+    then one of 37, then one of 1, equal to the same calls run eagerly,
+    bitwise (their results and the frames' stats)."""
+    from kaldi_decoder_tpu_torch import (
+        DecodableCtc,
+        FasterDecoder,
+        FasterDecoderOptions,
+        LatticeFasterDecoder,
+        LatticeFasterDecoderConfig,
+    )
+    from kaldi_decoder_tpu_torch.decoders import driver
+
+    g = _eps_graph(1)
+    rng = np.random.default_rng(7)
+    logp = np.log(rng.dirichlet(np.ones(V), size=138)).astype(np.float32)
+    results = []
+    for eager in (True, False):
+        if lattice:
+            d = LatticeFasterDecoder(
+                g, LatticeFasterDecoderConfig(beam=10.0, max_active=48, min_active=20), device=card)
+        else:
+            d = FasterDecoder(g, FasterDecoderOptions(beam=10.0, max_active=48), device=card)
+        r0 = driver.replays
+        with driver.eager_frames() if eager else contextlib.nullcontext():
+            d.init_decoding()
+            for end in (100, 137, 138):
+                d.advance_decoding(DecodableCtc(logp[:end]))
+        torch.cuda.synchronize()
+        results.append((d, driver.replays - r0))
+    (de, _), (dg, replays) = results
+    assert replays > 0
+    if lattice:
+        (oke, le), (okg, lg) = de.get_raw_lattice(), dg.get_raw_lattice()
+        assert oke and okg
+        assert le.to_arrays().keys() == lg.to_arrays().keys()
+        for k, v in le.to_arrays().items():
+            assert np.array_equal(np.asarray(v), np.asarray(lg.to_arrays()[k])), k
+    else:
+        re_, rg = de._result(), dg._result()
+        for f in ("bp_emit", "bp_eps", "num_active", "best_costs", "cutoffs", "overflows",
+                  "saturations", "frontier_states", "frontier_costs"):
+            a, b = getattr(re_, f), getattr(rg, f)
+            if a.dtype == np.float32:
+                a, b = a.view(np.int32), b.view(np.int32)
+            assert np.array_equal(a, b), f
