@@ -23,8 +23,9 @@ Phases (any failure raises, and the process exits non-zero):
      and power limit;
   1. build: the CUDA kernels (K1 ``csrc/expand.cu``, which reads each
      active slot's em_block row itself, K2 ``csrc/dedup_rec.cu``, K3
-     ``csrc/frame.cu``, the frame driver's tail, K4 ``csrc/sweep.cu``, K6
-     ``csrc/dedup.cu``, and the standalone row
+     ``csrc/frame.cu``, the frame driver's tail, K4 ``csrc/sweep.cu``, K5
+     and the eps step ``csrc/eps.cu``, K6 ``csrc/dedup.cu``, and the
+     standalone row
      gather ``csrc/gather.cu``, the counterpart of the TPU experiments'
      gathers, which no path calls) and the C++ host library, from the
      checkout's sources;
@@ -59,23 +60,26 @@ Phases (any failure raises, and the process exits non-zero):
      and the decode's wall time;
   4. batched 1-best path: ``BatchedViterbiDecoder.decode`` with the
      counters set to 0 just before; K1 and K6 must launch once per frame
-     and the row gather never; per utterance the 1-best output labels,
-     the float32 bits of the best path's total cost, per-frame ``num_active``, a hash
-     of the per-frame best costs and the overflow and saturation counts
+     and the row gather, K5 and the eps step never (a folded graph); per
+     utterance the 1-best output labels, the float32 bits of the best
+     path's total cost, per-frame ``num_active``, a hash of the per-frame
+     best costs and the overflow and saturation counts
      must equal the JAX reference
      (``tests/data/torch_port_viterbi_ref.json``); prints the decode wall
      time, the host 1-best time and the WER;
   5. streaming API: ``FasterDecoder`` over the first utterances, the
      counters set to 0 just before; K1 must launch once per frame, K6
      (1 + eps_iters) times per frame plus eps_iters times per
-     ``init_decoding``, the row gather never; the same fields must equal
+     ``init_decoding``, K5 and the eps step eps_iters times per frame and
+     per ``init_decoding``, the row gather never; the same fields must equal
      the JAX reference; prints ms per frame;
   6. the lattice decode without folding: ``BatchedLatticeDecoder(graph,
      config, fold=False)`` on the unfolded graph (eps depth 1), B=16,
      chunks of 500, ``device_prune=True``, the counters set to 0 just
      before; K1 must launch once per frame, K2 (1 + eps_iters) times per
-     frame plus eps_iters for the start closure, K4 once per chunk, K6
-     and the row gather never; per utterance the 1-best labels, the
+     frame plus eps_iters for the start closure, K5 and the eps step
+     eps_iters times per frame and for the start closure, K4 once per
+     chunk, K6 and the row gather never; per utterance the 1-best labels, the
      float32 bits of the best path's cost, ``num_active``, the overflow
      and saturation counts, the raw lattice's size and a sha256 of its
      arcs and of its finals, ``reached_final`` and
@@ -85,9 +89,10 @@ Phases (any failure raises, and the process exits non-zero):
      ``LatticeFasterDecoder`` over the first 2 utterances, 100 frames per
      ``advance_decoding``, then ``LatticeSimpleDecoder.decode`` of the
      first, each counted (K1 once a frame, K2 (1 + eps_iters) times a
-     frame plus eps_iters per ``init_decoding``, K4, K6 and the row gather
-     never) and checked as phase 6 against the same reference; prints ms
-     per frame;
+     frame plus eps_iters per ``init_decoding``, K5 and the eps step
+     eps_iters times a frame and per ``init_decoding``, K4, K6 and the row
+     gather never) and checked as phase 6 against the same reference;
+     prints ms per frame;
   8. the graph file and the CLI: the unfolded bench graph (102,298
      states, 4,266,835 emitting and 5,282 eps arcs) built as a
      ``StdVectorFst`` from its CSR arrays, written with ``write_fst`` and
@@ -143,15 +148,17 @@ Phases (any failure raises, and the process exits non-zero):
      labels, the best path cost's bits, ``num_active``, a hash of the
      per-frame best costs and the overflow and saturation counts against
      ``tests/data/torch_port_shard_ref.json`` (the JAX sharded decoders on
-     the CPU at P = 1 and 2), on every rank;
+     the CPU at P = 1 and 2), on every rank; K5 eps_iters times a frame
+     plus eps_iters, the eps step never (the sharded closure keeps its own
+     bookkeeping between its exchanges);
   13. ``ShardedLatticeDecoder`` on the same shards, lattice beam 8: K1
      once a frame, K2 (1 + eps_iters) times a frame plus eps_iters; per
      utterance as phase 6, and utterance 0's pruned links
      (``pruned_links``), against the same reference.
      Each of 11-13 prints its collectives by kind and per frame; 12-13
      also their wall and device (profiled run) ms a frame and busy
-     share.  Rank 0 of 12 and 13 holds K1 and K6 or K2 (emitting and eps
-     calls) on frame ``SHARD_FRAME``'s inputs, captured from the counted
+     share.  Rank 0 of 12 and 13 holds K5, K1 and K6 or K2 (emitting and
+     eps calls) on frame ``SHARD_FRAME``'s inputs, captured from the counted
      decode (``CallCapture``), against plain and times them, while the
      other rank waits: phase 2's checks at the shard shapes.
 Every chunk loop of phases 3-11 but the sharded ones (12-13, which
@@ -168,8 +175,12 @@ against ``get_cutoff``, its frame tail against ``frame_tail_plain``,
 bitwise) on a frame of each path's own driver: the lattice, unfolded
 lattice and 1-best frames at B=16 and the streaming decoders' at B=1,
 and times it.
-Phase 2 also holds K2's eps call (incumbents first) on the eps
-iterations of the unfolded lattice decode at frames 150 and 250, and K4
+Phase 2 also holds K5, K2's eps call (incumbents first, on K5's lanes)
+and the eps step on the eps iterations of the unfolded lattice decode at
+frames 150 and 250 (each timed, K5 and the eps step with their bound
+and share), K5, K6 and the eps step on the streaming ``FasterDecoder``'s
+frame 60 and on its start closure (cutoff +inf), K5 and the eps step on
+the streaming ``LatticeFasterDecoder``'s frame 60, and K4
 with eps records on its first 500-frame chunk, against their plain
 versions, bitwise, and times them; K2's emitting and eps calls at the
 streaming lattice decoder's B=1 shapes (phase 7's decoder, frame 60);
@@ -496,6 +507,128 @@ def k2_work(cand_state, cand_cost, k, num_states, r, slack_beam, payload, num_in
     idx = B * k * 4 if num_incumbents else 0
     return (B * N * 4 + fin * 4 + taken * 8 + B * k * 8 + idx + B * 4 + B * r * 16 + B,
             3 * fin)
+
+
+def k5_work(lanes, states, costs, cutoff_rel, pg, fc):
+    """Bytes and operations of one K5 call: the frontier (states and
+    costs) and the cutoffs read, the eps_block rows of the active slots and
+    the eps_flat arcs of the remainder lanes in use (capped at the budget);
+    every output lane's columns (those asked for) and the overflow flags
+    written; an add and a compare an arc lane."""
+    import torch
+
+    B, K = states.shape
+    We, R = fc.eps_block_width, fc.eps_rem_budget
+    act = torch.isfinite(costs) & (costs <= cutoff_rel[:, None])
+    deg = pg.eps_block[torch.where(act, states, 0).long(), -1]
+    rem = torch.where(act, (deg - We).clamp(min=0), 0).sum(dim=1).clamp(max=R)
+    N = lanes.dst.shape[1]
+    cols = sum(x is not None for x in lanes[:5])
+    nbytes = (B * K * 8 + B * 4 + int(act.sum()) * pg.eps_block.shape[1] * 4 + int(rem.sum()) * 8
+              + cols * B * N * 4 + B)
+    return nbytes, 2 * B * (K * We + R)
+
+
+def eps_step_work(sel, carry):
+    """Bytes and operations of one eps step: the winning lanes (and, on
+    the 1-best path, the source slot and arc of each winning lane) or the
+    lattice frontier's lanes and costs and the records (with the spill
+    row), the per-row flags read; the iteration's backpointers or records
+    and the flags written; a compare a slot."""
+    import torch
+
+    B, K = sel.states.shape
+    if getattr(sel, "records", None) is not None:
+        r = carry.out.shape[2]
+        nbytes = B * K * 8 + B * (r + 1) * 16 + B * r * 16
+    else:
+        nbytes = B * K * 4 + int((sel.cand_idx >= 0).sum()) * 8 + B * K * 8
+    return nbytes + B * 12 + 12, B * K
+
+
+def same_fields(ref, got, what, where):
+    """Raise unless two tuples of tensors (fields None in both allowed)
+    are equal field by field, floats by their raw bits."""
+    import torch
+
+    for name, r, g in zip(ref._fields, ref, got):
+        if (r is None) != (g is None):
+            raise AssertionError(f"{what} and plain differ in which fields they give: {name}")
+        if r is None:
+            continue
+        if r.dtype == torch.float32:
+            r, g = r.view(torch.int32), g.view(torch.int32)
+        if not torch.equal(r, g):
+            raise AssertionError(f"{what} differs from plain on {where}: {name}")
+
+
+def hold_k5(st, cutoff_rel, pg, fc, lattice, where, timed=False):
+    """K5 (the K incumbents first; the lattice paths' columns when
+    ``lattice``) against its plain version on a frontier, bitwise in every
+    column; with ``timed`` also timed.  Returns (K5's lanes, the
+    time_kernel fields or None)."""
+    import torch
+
+    from kaldi_decoder_tpu_torch.kernels.eps import (
+        blocks_per_row,
+        expand_eps_lanes,
+        expand_eps_lanes_plain,
+    )
+
+    args = (st.states, st.costs, cutoff_rel, pg, fc, True)
+    kw = dict(with_src_slot=not lattice, with_src_state=lattice)
+    ref = expand_eps_lanes_plain(*args, **kw)
+    got = expand_eps_lanes(*args, **kw)
+    torch.cuda.synchronize()
+    same_fields(ref, got, "K5", where)
+    if not timed:
+        return got, None
+    B, N = got.dst.shape
+    log(f"K5 expand_eps_lanes on {where} (B={B}, K={fc.frontier_size}, We="
+        f"{fc.eps_block_width}, R={fc.eps_rem_budget}, N={N}, "
+        f"{int((ref.cost[:, fc.frontier_size:] < float('inf')).sum())} arc lanes under the "
+        f"cutoff, overflow rows {int(ref.overflow.sum())}; {blocks_per_row(B, N)} blocks a "
+        "row): equal to plain, bitwise; timed there:")
+    out = got
+    t = time_kernel(f"K5, {where}", lambda: expand_eps_lanes(*args, **kw, out=out),
+                    lambda: expand_eps_lanes_plain(*args, **kw),
+                    k5_work(got, st.states, st.costs, cutoff_rel, pg, fc))
+    # The blocks a row: the kernel's choice against each size it can take.
+    t["ms_by_blocks"] = {c: device_ms(lambda: expand_eps_lanes(*args, **kw, out=out, blocks=c))
+                         for c in (8, 4, 2, 1)}
+    log("  K5 device ms by blocks a row: " + ", ".join(
+        f"{c}: {ms:.4f}" for c, ms in t["ms_by_blocks"].items()))
+    return got, t
+
+
+def hold_eps_step(sel, lanes, iters, exact, where, timed=False):
+    """The eps step (iteration 0 of ``iters``, every row active) against
+    its plain version on one eps iteration's dedup result ``sel`` and K5's
+    ``lanes``, bitwise in every field of the carry; with ``timed`` also
+    timed.  Returns the time_kernel fields or None."""
+    import torch
+
+    from kaldi_decoder_tpu_torch.kernels.eps import empty_eps_carry, eps_step, eps_step_plain
+
+    B, K = sel.states.shape
+    lattice = getattr(sel, "records", None) is not None
+    width = (sel.records.shape[1] - K) if lattice else K
+    dev = sel.states.device
+    carries = [empty_eps_carry(B, iters, width, lattice, dev) for _ in range(2)]
+    active = torch.ones((B,), dtype=torch.bool, device=dev)
+    args = (active, lanes.overflow, sel, exact, lanes)
+    eps_step_plain(0, carries[0], *args)
+    eps_step(0, carries[1], *args)
+    torch.cuda.synchronize()
+    ref, got = carries
+    ref.out[:, 1:] = got.out[:, 1:]  # rows of the iterations not run: unwritten in both
+    same_fields(ref, got, "the eps step", where)
+    if not timed:
+        return None
+    log(f"eps step on {where} (B={B}, K={K}, {'records ' + str(width) if lattice else 'backpointers'}"
+        f", {int(got.changed.sum())} rows changed): equal to plain, bitwise; timed there:")
+    return time_kernel(f"eps step, {where}", lambda: eps_step(0, got, *args),
+                       lambda: eps_step_plain(0, ref, *args), eps_step_work(sel, got))
 
 
 def same_records(ref, got, where):
@@ -986,23 +1119,25 @@ def check_emit_kernels(st, scores_t, pg, cfg, S, where):
     return k1_err, k6_err, k1_args, em_args, ex, sel
 
 
-def check_eps_kernel(mid, next_cutoff, pg, cfg, S, where):
-    """K6 against its plain version on one eps iteration's candidates
-    (incumbents first) after a frame's emitting stage.  Returns the error,
-    the call's arguments and the slots won by eps lanes."""
+def check_eps_kernel(mid, next_cutoff, pg, cfg, S, where, timed=False):
+    """K5, then K6 on its lanes (incumbents first), then the eps step,
+    each held against its plain version on one eps iteration after a
+    frame's emitting stage (``timed``: K5 and the eps step timed there).
+    Returns K6's error, its arguments, the slots won by eps lanes and K5's
+    and the eps step's time_kernel fields (None untimed)."""
     import torch
 
-    from kaldi_decoder_tpu_torch.decoders.frontier import eps_candidates
     from kaldi_decoder_tpu_torch.kernels.dedup import dedup_select
     from kaldi_decoder_tpu_torch.ops.segment import dedup_select as dedup_select_plain
 
-    cs, cc, _, _, _ = eps_candidates(mid, next_cutoff, pg, cfg)
-    eps_args = (cs, cc, cfg.frontier_size, S)
+    lanes, k5 = hold_k5(mid, next_cutoff, pg, cfg, False, where, timed)
+    eps_args = (lanes.dst, lanes.cost, cfg.frontier_size, S)
     ref = dedup_select_plain(*eps_args)
     got = dedup_select(*eps_args)
     torch.cuda.synchronize()
     err = same_selection(ref, got, f"the eps candidates of {where}")
-    return err, eps_args, int((got.cand_idx >= cfg.frontier_size).sum())
+    step = hold_eps_step(got, lanes, cfg.eps_iters, cfg.eps_exact, where, timed)
+    return err, eps_args, int((got.cand_idx >= cfg.frontier_size).sum()), k5, step
 
 
 def viterbi_k6_calls(vdec, edec, scores_tm):
@@ -1034,8 +1169,8 @@ def viterbi_k6_calls(vdec, edec, scores_tm):
     for t in range(EPS_FRAME):
         st, _ = frame_step_batched(st, scores_tm[t], active, edec._pg, ec, Se)
     mid, _, next_cutoff, _, _, _ = frame_emit_stage(st, scores_tm[EPS_FRAME], edec._pg, ec, Se)
-    err, eps_args, won = check_eps_kernel(mid, next_cutoff, edec._pg, ec, Se,
-                                          f"frame {EPS_FRAME}")
+    err, eps_args, won, _, _ = check_eps_kernel(mid, next_cutoff, edec._pg, ec, Se,
+                                                f"frame {EPS_FRAME}")
     return dict(k1_err=k1_err, k6_err=max(k6_err, err), k1_args=k1_args, em_args=em_args,
                 eps_args=eps_args, uniq=uniq, won=won, eps_iters=ec.eps_iters)
 
@@ -1069,11 +1204,17 @@ def streaming_k6_calls(fd, scores_tm):
     plain versions at the shapes of the streaming decoder that phase 5
     drives (B=1, its own K and budgets, the unfolded graph): the decoder's
     own frames of utterance 0 up to ``STREAM_FRAME``, then that frame's
-    em_block rows, emitting candidates and first eps iteration.  Returns
-    the errors, the calls' arguments and the frontier's states."""
+    em_block rows, emitting candidates and first eps iteration (K5, K6,
+    the eps step, K5 and the eps step timed), and the first iteration of
+    the decoder's start closure.  Returns the errors, the calls' arguments,
+    the frontier's states and K5's and the eps step's timings."""
     import torch
 
-    from kaldi_decoder_tpu_torch.decoders.frontier import StepState, frame_step_batched
+    from kaldi_decoder_tpu_torch.decoders.frontier import (
+        StepState,
+        frame_step_batched,
+        start_state,
+    )
     from kaldi_decoder_tpu_torch.kernels.gather import row_gather, row_gather_plain
 
     cfg, pg, S = fd._cfg, fd._pg, fd._graph.num_states
@@ -1091,9 +1232,16 @@ def streaming_k6_calls(fd, scores_tm):
     k1_err, k6_err, k1_args, em_args, ex, sel = check_emit_kernels(
         st, scores_u[STREAM_FRAME], pg, cfg, S, where)
     mid = StepState(sel.states, sel.costs, st.base)
-    eps_err, eps_args, won = check_eps_kernel(mid, ex.next_cutoff, pg, cfg, S, where)
-    return dict(k1_err=k1_err, k6_err=max(k6_err, eps_err), k1_args=k1_args, em_args=em_args,
-                eps_args=eps_args, won=won, states=st.states, where=where)
+    eps_err, eps_args, won, k5, step = check_eps_kernel(mid, ex.next_cutoff, pg, cfg, S, where,
+                                                        timed=True)
+    # InitDecoding's closure: the start token alone, cutoff +inf.
+    st0 = start_state(fd._graph.start_state, cfg, st.states.device)
+    inf = torch.full((1,), float("inf"), dtype=torch.float32, device=st.states.device)
+    init_err, _, _, k5_init, step_init = check_eps_kernel(
+        st0, inf, pg, cfg, S, "the streaming decoder's start closure (cutoff +inf)", timed=True)
+    return dict(k1_err=k1_err, k6_err=max(k6_err, eps_err, init_err), k1_args=k1_args,
+                em_args=em_args, eps_args=eps_args, won=won, states=st.states, where=where,
+                k5=k5, eps_step=step, k5_init=k5_init, eps_step_init=step_init)
 
 
 def check_streaming_kernels(fd, scores_tm):
@@ -1129,7 +1277,8 @@ def check_streaming_kernels(fd, scores_tm):
     k6 = time_k6("K6, emitting candidates, streaming", em_args)
     k6_eps = time_k6("K6, eps candidates, streaming", eps_args)
     return dict(k1_err=c["k1_err"], k6_err=c["k6_err"], times=times, k1=k1_dev, k6=k6,
-                k6_eps=k6_eps)
+                k6_eps=k6_eps, k5=c["k5"], eps_step=c["eps_step"], k5_init=c["k5_init"],
+                eps_step_init=c["eps_step_init"])
 
 
 def streaming_lattice_decoder(graph, lref):
@@ -1146,12 +1295,12 @@ def check_streaming_k2(ld, scores_tm):
     K 2048, em_records 4096, eps_records 1280, the unfolded graph): the
     decoder's own frames of utterance 0 up to ``STREAM_FRAME``, then that
     frame's emitting lanes (K1's) and its first eps iteration's
-    (incumbents first); each timed.  Returns the largest error and the
-    two calls' timings."""
+    (incumbents first, K5's), each timed; and K5 and the eps step of that
+    iteration held against plain and timed.  Returns the largest error and
+    the calls' timings."""
     import torch
 
     from kaldi_decoder_tpu_torch.decoders.lattice_dev import (
-        eps_rec_candidates,
         lattice_emit_stage,
         lattice_frame_step_batched,
     )
@@ -1180,15 +1329,17 @@ def check_streaming_k2(ld, scores_tm):
     em_args = (ex.dst, ex.cost, K, S, cfg.em_records, sb, (ex.src_state, ex.arc_id))
     mid, _, next_cutoff, _, _, _ = lattice_emit_stage(st, scores_u[STREAM_FRAME], pg, fc, S,
                                                       cfg.em_records, sb)
-    cs, cc, pay, _ = eps_rec_candidates(mid, next_cutoff, pg, fc)
-    eps_args = (cs, cc, K, S, K + cfg.eps_records, sb, pay)
     where = f"streaming lattice frame {STREAM_FRAME}"
+    lanes, k5 = hold_k5(mid, next_cutoff, pg, fc, True, where, timed=True)
+    cc = lanes.cost
+    eps_args = (lanes.dst, cc, K, S, K + cfg.eps_records, sb, (lanes.src_state, lanes.arc_id))
     err = 0.0
     for args, inc, what in ((em_args, 0, "the emitting lanes"), (eps_args, K, "the eps lanes")):
         ref = dedup_select_rec_plain(*args, num_incumbents=inc)
         got = dedup_select_rec(*args, num_incumbents=inc)
         torch.cuda.synchronize()
         err = max(err, same_records(ref, got, f"{what} of {where}"))
+    step = hold_eps_step(got, lanes, fc.eps_iters, fc.eps_exact, where, timed=True)
     log(f"K2 at the streaming lattice decoder's shapes (B=1, K={K}, em_records="
         f"{cfg.em_records}, eps_records={cfg.eps_records}; emitting N={ex.cost.shape[1]}, "
         f"eps N={cc.shape[1]}; clusters of {cluster_size(1, ex.cost.shape[1])} and "
@@ -1200,6 +1351,7 @@ def check_streaming_k2(ld, scores_tm):
             lambda: dedup_select_rec(*args, num_incumbents=inc),
             lambda: stack_records(dedup_select_rec_plain(*args, num_incumbents=inc)),
             k2_work(*args, num_incumbents=inc))
+    timed["k5"], timed["eps_step"] = k5, step
     return err, timed
 
 
@@ -1238,23 +1390,26 @@ def reset_counts():
     from kaldi_decoder_tpu_torch.decoders import driver
     from kaldi_decoder_tpu_torch.kernels.dedup import dedup_select
     from kaldi_decoder_tpu_torch.kernels.dedup_rec import dedup_select_rec
+    from kaldi_decoder_tpu_torch.kernels.eps import eps_step, expand_eps_lanes
     from kaldi_decoder_tpu_torch.kernels.expand import expand_filter
     from kaldi_decoder_tpu_torch.kernels.frame import frame_start, frame_tail
     from kaldi_decoder_tpu_torch.kernels.gather import row_gather
     from kaldi_decoder_tpu_torch.kernels.sweep import sweep_chunk
 
     torch.cuda.synchronize()
-    for fn in (row_gather, expand_filter, dedup_select_rec, sweep_chunk, dedup_select, frame_tail,
-               frame_start):
+    for fn in (row_gather, expand_filter, dedup_select_rec, sweep_chunk, expand_eps_lanes,
+               dedup_select, eps_step, frame_tail, frame_start):
         fn.launches = 0
     driver.replays = 0
 
 
 def read_counts():
     """The launch counts since :func:`reset_counts`: K3's frame tail as
-    ``k3``, its first-frame mode as ``k3_start``."""
+    ``k3``, its first-frame mode as ``k3_start``, K5 as ``k5`` and the eps
+    step as ``eps_step``."""
     from kaldi_decoder_tpu_torch.kernels.dedup import dedup_select
     from kaldi_decoder_tpu_torch.kernels.dedup_rec import dedup_select_rec
+    from kaldi_decoder_tpu_torch.kernels.eps import eps_step, expand_eps_lanes
     from kaldi_decoder_tpu_torch.kernels.expand import expand_filter
     from kaldi_decoder_tpu_torch.kernels.frame import frame_start, frame_tail
     from kaldi_decoder_tpu_torch.kernels.gather import row_gather
@@ -1262,7 +1417,9 @@ def read_counts():
 
     return dict(gather=row_gather.launches, k1=expand_filter.launches,
                 k2=dedup_select_rec.launches, k4=sweep_chunk.launches,
-                k6=dedup_select.launches, k3=frame_tail.launches, k3_start=frame_start.launches)
+                k5=expand_eps_lanes.launches, k6=dedup_select.launches,
+                eps_step=eps_step.launches, k3=frame_tail.launches,
+                k3_start=frame_start.launches)
 
 
 def read_replays(what, frames):
@@ -1460,9 +1617,10 @@ def viterbi_path(vdec, scores, lengths, refs, vref):
     t_dec = time.perf_counter() - t0
     n = read_counts()
     frames = res.bp_emit.shape[0]
+    D = vdec.cfg.eps_iters
     if (n["gather"] != 0 or n["k1"] != frames or n["k2"] != 0
-            or n["k6"] != frames * (1 + vdec.cfg.eps_iters) or n["k3"] != frames
-            or n["k3_start"] != 1):
+            or n["k6"] != frames * (1 + D) or n["k5"] != frames * D
+            or n["eps_step"] != frames * D or n["k3"] != frames or n["k3_start"] != 1):
         raise AssertionError(f"launch counts {n} for {frames} frames")
     replays = read_replays("Viterbi path", frames)
     t1 = time.perf_counter()
@@ -1531,17 +1689,20 @@ def streaming_path(fd, scores, vref):
     n = read_counts()
     utts = len(sref["utts"])
     want_k6 = frames * (1 + D) + utts * D
+    want_k5 = frames * D + utts * D  # and as many eps steps: each frame's and each start closure's
     if (n["gather"] != 0 or n["k1"] != frames or n["k2"] != 0 or n["k6"] != want_k6
+            or n["k5"] != want_k5 or n["eps_step"] != want_k5
             or n["k3"] != frames or n["k3_start"] != calls):
         raise AssertionError(f"launch counts {n}: want no gather, {frames} K1 and K3, {want_k6} "
-                             f"K6, {calls} K3 first frames")
+                             f"K6, {want_k5} K5 and eps steps, {calls} K3 first frames")
     replays = read_replays("streaming path", frames)
     log(f"streaming path: FasterDecoder, {utts} utterances, {frames} frames, "
         f"{FRAMES_PER_CALL} per advance_decoding, eps_iters={D}, K={fd._cfg.frontier_size}: "
         f"{1000 * t_dec / frames:.3f} ms per frame (init + advance, downloads included), "
         f"get_best_path {t_host:.3f} s; row gather launches {n['gather']}, K1 {n['k1']}, "
-        f"K6 {n['k6']}, K3 {n['k3']} (first-frame mode {n['k3_start']}), {replays} frames "
-        f"replayed from the captured graph; matches the JAX reference")
+        f"K6 {n['k6']}, K5 {n['k5']}, eps step {n['eps_step']}, K3 {n['k3']} (first-frame "
+        f"mode {n['k3_start']}), {replays} frames replayed from the captured graph; matches "
+        "the JAX reference")
     return n, 1000 * t_dec / frames
 
 
@@ -1557,12 +1718,13 @@ def unfolded_lattice_decoder(graph, device="cuda"):
 def check_k2_eps(udec, scores_tm):
     """K2's eps call (the K incumbents first) against its plain version on
     the eps iteration of the unfolded lattice decode at each of
-    ``K2_EPS_FRAMES``, then timed there.  Returns the largest cost
-    difference and the timings by frame."""
+    ``K2_EPS_FRAMES``, then timed there; K5, whose lanes it takes, and the
+    eps step after it, held against their plain versions and timed on the
+    same iterations.  Returns the largest cost difference, K2's timings by
+    frame and K5's and the eps step's by frame."""
     import torch
 
     from kaldi_decoder_tpu_torch.decoders.lattice_dev import (
-        eps_rec_candidates,
         lattice_emit_stage,
         lattice_frame_step_batched,
     )
@@ -1578,17 +1740,21 @@ def check_k2_eps(udec, scores_tm):
     sb = cfg.lattice_beam + 1e-4
     st, _, _, _ = udec._init(B)
     active = torch.ones(B, dtype=torch.bool, device=udec.device)
-    calls, max_err, won = [], 0.0, []
+    calls, max_err, won, eps_kernels = [], 0.0, [], {}
     for t in range(max(K2_EPS_FRAMES) + 1):
         if t in K2_EPS_FRAMES:
             mid, _, next_cutoff, _, _, _ = lattice_emit_stage(
                 st, scores_tm[t], udec._pg, fc, S, cfg.em_records, sb)
-            cs, cc, pay, _ = eps_rec_candidates(mid, next_cutoff, udec._pg, fc)
-            args = (cs, cc, K, S, K + cfg.eps_records, sb, pay)
+            where = f"unfolded lattice frame {t}"
+            lanes, k5 = hold_k5(mid, next_cutoff, udec._pg, fc, True, where, timed=True)
+            args = (lanes.dst, lanes.cost, K, S, K + cfg.eps_records, sb,
+                    (lanes.src_state, lanes.arc_id))
             ref = dedup_select_rec_plain(*args, num_incumbents=K)
             got = dedup_select_rec(*args, num_incumbents=K)
             torch.cuda.synchronize()
             max_err = max(max_err, same_records(ref, got, f"the eps lanes of unfolded frame {t}"))
+            step = hold_eps_step(got, lanes, fc.eps_iters, fc.eps_exact, where, timed=True)
+            eps_kernels[t] = dict(k5=k5, eps_step=step)
             won.append(int((ref.cand_idx >= K).sum()))
             calls.append((t, args))
         st, _ = lattice_frame_step_batched(st, scores_tm[t], active, udec._pg, cfg, S)
@@ -1604,7 +1770,7 @@ def check_k2_eps(udec, scores_tm):
             "K2, eps call", lambda: dedup_select_rec(*args, num_incumbents=K),
             lambda: stack_records(dedup_select_rec_plain(*args, num_incumbents=K)),
             k2_work(*args, num_incumbents=K))
-    return max_err, timed
+    return max_err, timed, eps_kernels
 
 
 def check_k4_eps(udec, scores_tm, lengths):
@@ -1745,8 +1911,9 @@ def lattice_eps_path(udec, scores, lengths, refs, lref):
     if res.survivors is None:
         raise AssertionError("the device sweep overflowed and the decode fell back")
     frames = res.num_active.shape[0]
-    want_n = dict(gather=0, k1=frames, k2=frames * (1 + D) + D, k4=len(res.survivors), k6=0,
-                  k3=frames, k3_start=len(res.survivors))
+    want_n = dict(gather=0, k1=frames, k2=frames * (1 + D) + D, k4=len(res.survivors),
+                  k5=frames * D + D, k6=0, eps_step=frames * D + D, k3=frames,
+                  k3_start=len(res.survivors))
     if n != want_n:
         raise AssertionError(f"launch counts {n}, want {want_n}")
     replays = read_replays("lattice path without folding", frames)
@@ -1830,7 +1997,8 @@ def streaming_lattice_path(graph, scores, lref, device="cuda"):
             frames += L
         n = read_counts()
         utts = len(part["utts"])
-        want_n = dict(gather=0, k1=frames, k2=frames * (1 + D) + utts * D, k4=0, k6=0,
+        want_n = dict(gather=0, k1=frames, k2=frames * (1 + D) + utts * D, k4=0,
+                      k5=frames * D + utts * D, k6=0, eps_step=frames * D + utts * D,
                       k3=frames, k3_start=calls)
         if n != want_n:
             raise AssertionError(f"{kind} lattice: launch counts {n}, want {want_n}")
@@ -1973,7 +2141,9 @@ def graph_file_path(graph, scores, vref, lref, tmp):
         n = read_counts()
         k2 = frames * (1 + D) + len(utts) * D if kind == "lattice" else 0
         k6 = frames * (1 + D) + len(utts) * D if kind == "faster" else 0
-        want_n = dict(gather=0, k1=frames, k2=k2, k4=0, k6=k6, k3=frames, k3_start=len(utts))
+        k5 = frames * D + len(utts) * D  # both decoders; as many eps steps
+        want_n = dict(gather=0, k1=frames, k2=k2, k4=0, k5=k5, k6=k6, eps_step=k5, k3=frames,
+                      k3_start=len(utts))
         if n != want_n:
             raise AssertionError(f"cli {kind}: launch counts {n}, want {want_n}")
         read_replays(f"cli {kind}", frames)
@@ -2073,8 +2243,8 @@ def encoder_path(graph, fc):
     if res.survivors is None:
         raise AssertionError("the device sweep overflowed and the decode fell back")
     frames = res.num_active.shape[0]
-    want_n = dict(gather=0, k1=frames, k2=frames, k4=len(res.survivors), k6=0, k3=frames,
-                  k3_start=len(res.survivors))
+    want_n = dict(gather=0, k1=frames, k2=frames, k4=len(res.survivors), k5=0, k6=0,
+                  eps_step=0, k3=frames, k3_start=len(res.survivors))
     if n != want_n:
         raise AssertionError(f"encoder decode: launch counts {n}, want {want_n}")
     read_replays("encoder decode", frames)
@@ -2150,7 +2320,7 @@ def recall_path(graph, scores, rref):
         counts.append(read_counts())
         del dec
         frames = -(-Tr // CHUNK) * CHUNK
-        want_n = dict(gather=0, k1=frames, k2=frames, k4=0, k6=0, k3=frames,
+        want_n = dict(gather=0, k1=frames, k2=frames, k4=0, k5=0, k6=0, eps_step=0, k3=frames,
                       k3_start=frames // CHUNK)
         if counts[-1] != want_n:
             raise AssertionError(f"recall: launch counts {counts[-1]}, want {want_n}")
@@ -2210,11 +2380,11 @@ def main_path(dec, scores, lengths, refs, ref):
     frames = res.num_active.shape[0]
     chunks = len(res.survivors)
     if (gat or k1 != frames or k2 != frames or k4 != chunks or n["k6"] or n["k3"] != frames
-            or n["k3_start"] != chunks):
+            or n["k3_start"] != chunks or n["k5"] or n["eps_step"]):
         raise AssertionError(
             f"launch counts gather={gat} (want 0), K1={k1}, K2={k2}, K3={n['k3']} (want "
             f"{frames} each), K4={k4}, K3's first-frame mode {n['k3_start']} (want {chunks} "
-            f"each), K6={n['k6']} (want 0)"
+            f"each), K6={n['k6']}, K5={n['k5']}, eps step {n['eps_step']} (want 0 each)"
         )
     replays = read_replays("main path", frames)
     t1 = time.perf_counter()
@@ -2302,19 +2472,35 @@ def shard_call_index(frame, eps_iters, eps=False):
 
 
 def hold_shard_kernels(kept, kind, eps_iters, tag):
-    """K1 and K6 (Viterbi) or K2 (lattice) on the calls of frame
-    SHARD_FRAME that a sharded decode made (``kept``, a CallCapture's),
-    held against their plain versions (bitwise) and timed; returns
-    ({kernel: max |err|}, {kernel_call: time_kernel fields})."""
+    """K5 (its first eps iteration's call), K1 and K6 (Viterbi) or K2
+    (lattice) on the calls of frame SHARD_FRAME that a sharded decode made
+    (``kept``, a CallCapture's), held against their plain versions
+    (bitwise) and timed; returns ({kernel: max |err|}, {kernel_call:
+    time_kernel fields})."""
+    import torch
+
     from kaldi_decoder_tpu_torch.kernels.dedup import dedup_select
     from kaldi_decoder_tpu_torch.kernels.dedup_rec import dedup_select_rec
+    from kaldi_decoder_tpu_torch.kernels.eps import expand_eps_lanes, expand_eps_lanes_plain
     from kaldi_decoder_tpu_torch.kernels.expand import expand_filter, expand_filter_plain
     from kaldi_decoder_tpu_torch.ops.segment import dedup_select as dedup_select_plain
     from kaldi_decoder_tpu_torch.ops.segment import dedup_select_rec as dedup_select_rec_plain
 
     errs, times = {}, {}
-    args, kw = kept["expand_filter", SHARD_FRAME]
     where = f"{tag}, frame {SHARD_FRAME}"
+    if eps_iters:
+        args, kw = kept["expand_eps_lanes", eps_iters + SHARD_FRAME * eps_iters]
+        ref = expand_eps_lanes_plain(*args, **kw)
+        got = expand_eps_lanes(*args, **kw)
+        torch.cuda.synchronize()
+        same_fields(ref, got, "K5", where)
+        errs["k5"] = 0.0
+        out = got
+        times["k5"] = time_kernel(
+            f"K5 at {where} (B={args[0].shape[0]}, K {args[0].shape[1]}, no incumbents, N "
+            f"{got.dst.shape[1]})", lambda: expand_eps_lanes(*args, **kw, out=out),
+            lambda: expand_eps_lanes_plain(*args, **kw), k5_work(got, *args[:5]))
+    args, kw = kept["expand_filter", SHARD_FRAME]
     errs["k1"] = same_expansion(expand_filter_plain(*args, **kw), expand_filter(*args, **kw),
                                 where)
     times["k1"] = time_kernel(f"K1 at {where} (B={args[0].shape[0]}, K {args[0].shape[1]})",
@@ -2430,7 +2616,8 @@ def shard_path(kind, graph, sc, sl, refs, sref, P, rank):
     D = sh.frontier.eps_iters
     kname = "dedup_select" if kind == "viterbi" else "dedup_select_rec"
     capture = {"expand_filter": {SHARD_FRAME},
-               kname: {shard_call_index(SHARD_FRAME, D), shard_call_index(SHARD_FRAME, D, True)}}
+               kname: {shard_call_index(SHARD_FRAME, D), shard_call_index(SHARD_FRAME, D, True)},
+               "expand_eps_lanes": {D + SHARD_FRAME * D}}
     dist.barrier()
     reset_counts()
     collective_calls.clear()
@@ -2442,7 +2629,9 @@ def shard_path(kind, graph, sc, sl, refs, sref, P, rank):
     coll = dict(collective_calls)
     frames = res.num_active.shape[0]
     k = "k6" if kind == "viterbi" else "k2"
-    want_n = dict(gather=0, k1=frames, k2=0, k4=0, k6=0, k3=0, k3_start=0)  # no driver
+    # No driver, and the sharded closure keeps its bookkeeping: no eps step.
+    want_n = dict(gather=0, k1=frames, k2=0, k4=0, k5=D + frames * D, k6=0, eps_step=0, k3=0,
+                  k3_start=0)
     want_n[k] = D + frames * (1 + D)
     if n != want_n:
         raise AssertionError(f"{what}: launch counts {n}, want {want_n}")
@@ -2769,7 +2958,7 @@ def main():
                               dec._dev_graph.num_states, scores_tm[:CHUNK], rem,
                               dec._init(B)[0], K2_FRAMES[0])}
     udec = unfolded_lattice_decoder(graph)
-    k2e_err, k2e_by_frame = check_k2_eps(udec, scores_tm)
+    k2e_err, k2e_by_frame, eps_by_frame = check_k2_eps(udec, scores_tm)
     k4e_err, k4e = check_k4_eps(udec, scores_tm, lengths)
     k3["unfolded"] = check_k3("the unfolded lattice frame (phase 6)", True, udec._pg, udec.cfg,
                               udec._dev_graph.num_states, scores_tm[:CHUNK], rem,
@@ -2926,6 +3115,9 @@ def main():
                      "streaming": sn["k3_start"]},
         "k4": {"lattice": n3["k4"]},
         "k6": {"viterbi": vn["k6"], "streaming": sn["k6"]},
+        "k5": {"lattice": n3["k5"], "viterbi": vn["k5"], "streaming": sn["k5"]},
+        "eps_step": {"lattice": n3["eps_step"], "viterbi": vn["eps_step"],
+                     "streaming": sn["eps_step"]},
     }
     for key, paths in by_path.items():
         paths.update({p: n[key] for p, n in later.items()})
@@ -2939,6 +3131,13 @@ def main():
                     replaces=replaces, launches=sum(by_path[key].values()),
                     launches_by_path=by_path[key], max_abs_err=err,
                     **{f: t[f] for f in fields}, **extra)
+
+    def eps_timed(kernel):
+        """K5's or the eps step's timings at the shapes other than the
+        unfolded lattice frame K2_EPS_FRAMES[0]'s, by where they were taken."""
+        return {f"frame{t}": eps_by_frame[t][kernel] for t in K2_EPS_FRAMES[1:]} | {
+            "streaming": sk[kernel], "streaming_init": sk[kernel + "_init"],
+            "streaming_lattice": k2s[kernel]}
 
     log(f"all phases: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"frame_loops": loops}))
@@ -3013,6 +3212,23 @@ def main():
               wrapper_ms_streaming=st["k6"][0], plain_wrapper_ms_streaming=st["k6"][1],
               wrapper_ms_streaming_eps=st["k6_eps"][0],
               plain_wrapper_ms_streaming_eps=st["k6_eps"][1]),
+        entry("K5 expand_eps_lanes (an eps iteration's candidate lanes: the incumbents, the "
+              "eps block lanes and the remainder lanes through the owner map, under the cutoff)",
+              "eps.cu", "kaldi_decoder_tpu/decoders/frontier.py:366", "k5",
+              eps_by_frame[K2_EPS_FRAMES[0]]["k5"], 0.0, frame=K2_EPS_FRAMES[0],
+              ms_by_blocks=eps_by_frame[K2_EPS_FRAMES[0]]["k5"]["ms_by_blocks"],
+              ms_by_blocks_streaming=sk["k5"]["ms_by_blocks"],
+              **{f"{f}_{key}": t[f] for key, t in eps_timed("k5").items()
+                 for f in ("ms", "plain_ms", "bound_ms", "bound_by", "share_of_bound",
+                           "wrapper_ms", "plain_wrapper_ms")},
+              **shard_times("k5", "shard_viterbi"), **shard_times("k5", "shard_lattice")),
+        entry("eps step (an eps iteration's closing step after the dedup call: backpointers or "
+              "records, changed, the running overflow and saturation, ran and the batch's go)",
+              "eps.cu", "kaldi_decoder_tpu/decoders/frontier.py:530", "eps_step",
+              eps_by_frame[K2_EPS_FRAMES[0]]["eps_step"], 0.0, frame=K2_EPS_FRAMES[0],
+              **{f"{f}_{key}": t[f] for key, t in eps_timed("eps_step").items()
+                 for f in ("ms", "plain_ms", "bound_ms", "bound_by", "share_of_bound",
+                           "wrapper_ms", "plain_wrapper_ms")}),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

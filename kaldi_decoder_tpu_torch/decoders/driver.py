@@ -7,9 +7,11 @@ over its batched frame step (``kaldi_decoder_tpu/decoders/lattice_dev.py``
 so the device never waits on the host between frames.  Here a
 :class:`FrameDriver` keeps one batch's frame on static buffers
 (:class:`kaldi_decoder_tpu_torch.kernels.frame.FrameSlots` and K1's, K2's
-or K6's outputs and scratch): a frame is the body (K1, then K2 or K6, then
-on a graph with eps arcs the eps closure, plain torch around K2's or K6's
-eps calls) and K3, the frame tail, which rebases, writes row ``t`` of the
+or K6's outputs and scratch, and on a graph with eps arcs the eps
+closure's: K5's lanes, the eps calls' outputs and scratch, the closure's
+carry): a frame is the body (K1, then K2 or K6, then on a graph with eps
+arcs the eps closure, each iteration K5, K6 or K2's eps call and the eps
+step) and K3, the frame tail, which rebases, writes row ``t`` of the
 chunk's outputs, prepares the next frame's K1 inputs and advances ``t`` on
 the device.  So on a card the frame is captured once into a
 ``torch.cuda.CUDAGraph`` per (batch, config, device graph, score width)
@@ -34,7 +36,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
-from typing import Optional, Union
+from typing import NamedTuple, Optional, Union
 
 import torch
 
@@ -55,11 +57,20 @@ from kaldi_decoder_tpu_torch.decoders.lattice_dev import (
 from kaldi_decoder_tpu_torch.fst.pack import PackedGraph
 from kaldi_decoder_tpu_torch.kernels import dedup as k6
 from kaldi_decoder_tpu_torch.kernels.dedup_rec import dedup_select_rec, empty_lattice_selection
-from kaldi_decoder_tpu_torch.kernels.expand import empty_expansion, expand_filter
+from kaldi_decoder_tpu_torch.kernels.eps import (
+    EpsBufs,
+    empty_eps_carry,
+    empty_eps_lanes,
+    eps_lane_count,
+    eps_step,
+    expand_eps_lanes,
+)
+from kaldi_decoder_tpu_torch.kernels.expand import Expansion, empty_expansion, expand_filter
 from kaldi_decoder_tpu_torch.kernels.frame import FrameIO, FrameSlots, frame_start, frame_tail
 
 # The wrappers whose launches a captured frame holds.
-COUNTED = (expand_filter, dedup_select_rec, k6.dedup_select, frame_tail)
+COUNTED = (expand_filter, dedup_select_rec, k6.dedup_select, expand_eps_lanes, eps_step,
+           frame_tail)
 # Drivers kept (each holds its static buffers, graph and device graph).
 MAX_DRIVERS = 4
 
@@ -84,6 +95,46 @@ def eager_frames():
         _eager = before
 
 
+class FrameBufs(NamedTuple):
+    """A frame's static buffers on a card: K1's outputs, K2's or K6's
+    outputs and scratch, and the eps closure's (None without one)."""
+
+    expansion: Expansion
+    selection: object
+    scratch: tuple
+    eps: Optional[EpsBufs]
+
+
+def frame_buffers(lattice: bool, cfg, batch: int, device) -> FrameBufs:
+    """Uninitialised static buffers of one frame of ``batch`` rows: the
+    lattice frame's when ``lattice`` (``cfg`` a ``LatticeDevConfig``),
+    else the Viterbi frame's."""
+    fc = cfg.frontier if lattice else cfg
+    K, N = fc.frontier_size, fc.num_candidates
+    if lattice:
+        sel = empty_lattice_selection(batch, K, cfg.em_records, device)
+        scratch = k6.empty_scratch(batch, N, device, pairs=4)
+    else:
+        sel = k6.empty_selection(batch, K, device)
+        scratch = k6.empty_scratch(batch, N, device)
+    eps = None
+    if fc.eps_iters:
+        Ne = eps_lane_count(fc, incumbents=True)
+        lanes = empty_eps_lanes(batch, Ne, device, with_src_slot=not lattice,
+                                with_src_state=lattice)
+        if lattice:
+            r_eps = cfg.eps_records
+            eps = EpsBufs(lanes, empty_lattice_selection(batch, K, K + r_eps, device, True),
+                          k6.empty_scratch(batch, Ne, device, pairs=4),
+                          empty_eps_carry(batch, fc.eps_iters, r_eps, True, device))
+        else:
+            eps = EpsBufs(lanes, k6.empty_selection(batch, K, device),
+                          k6.empty_scratch(batch, Ne, device),
+                          empty_eps_carry(batch, fc.eps_iters, K, False, device))
+    return FrameBufs(empty_expansion(batch, N, device, with_src_slot=not lattice), sel, scratch,
+                     eps)
+
+
 class FrameDriver:
     """One batch's frames on static buffers: the lattice frame when
     ``lattice``, else the Viterbi frame, of ``batch`` rows of scores
@@ -103,14 +154,7 @@ class FrameDriver:
         self.per_replay = None  # launches of COUNTED a replay holds
         self.pool_bytes = None  # (allocated, reserved) bytes the capture kept
         if dev.type == "cuda":
-            N = self.fc.num_candidates
-            if lattice:
-                sel = empty_lattice_selection(batch, K, cfg.em_records, dev)
-                scratch = k6.empty_scratch(batch, N, dev, pairs=4)
-            else:
-                sel = k6.empty_selection(batch, K, dev)
-                scratch = k6.empty_scratch(batch, N, dev)
-            self.bufs = (empty_expansion(batch, N, dev, with_src_slot=not lattice), sel, scratch)
+            self.bufs = frame_buffers(lattice, cfg, batch, dev)
             # The capture stream's winner table, made before any capture.
             self.stream = torch.cuda.Stream(dev)
             with torch.cuda.stream(self.stream):
@@ -118,7 +162,8 @@ class FrameDriver:
             self.stream.synchronize()
 
     def body(self):
-        """The frame's K1, K2 or K6 and eps closure on the slots; returns
+        """The frame's K1, K2 or K6 and eps closure (K5, K6 or K2's eps
+        call, the eps step) on the slots; returns
         the tail's inputs."""
         s = self.slots
         fn = lattice_frame_body if self.lattice else frame_body

@@ -9,13 +9,17 @@ Each frame runs GetCutoff, the expansion region K1
 (:func:`kaldi_decoder_tpu_torch.kernels.expand.expand_filter`), the dedup /
 top-K / records region K2
 (:func:`kaldi_decoder_tpu_torch.kernels.dedup_rec.dedup_select_rec`), then,
-on a device graph with eps arcs, ``eps_iters`` eps iterations (K5, the plain
-torch ``frontier.expand_eps``, then K2's eps call with the K incumbents
-first), and the cost rebase; record rows are
-``[src_state, arc_id, dst_state, slack_bits]``.  On the card K1 and K2
-are the hand-written kernels; their plain torch versions
-(``kernels.expand.expand_filter_plain``, ``ops.segment.dedup_select_rec``)
-run for CPU tensors and are the kernels' oracles.  A frame ends with its
+on a device graph with eps arcs, ``eps_iters`` eps iterations, each K5
+(``kernels.eps.expand_eps_lanes``, the K incumbents first), K2's eps call
+and the eps step (``kernels.eps.eps_step``); record rows are
+``[src_state, arc_id, dst_state, slack_bits]``.  On the card K1, K2, K5
+and the eps step are the hand-written kernels; their plain torch versions
+(``kernels.expand.expand_filter_plain``, ``ops.segment.dedup_select_rec``,
+``kernels.eps.expand_eps_lanes_plain`` and ``eps_step_plain``) run for
+CPU tensors and are the kernels' oracles.  The start closure
+(:func:`eps_closure_rec`, which stops each row on its own and runs once
+an ``init_decoding``) runs the same iteration, and keeps its own per-row
+bookkeeping as torch ops.  A frame ends with its
 tail, K3 (``kernels.frame``: the rebase, the freeze, the outputs, the next
 frame's GetCutoff).  The JAX ``lax.scan`` over a chunk's frames is the
 frame driver here (:mod:`kaldi_decoder_tpu_torch.decoders.driver`): on a
@@ -30,15 +34,14 @@ from typing import NamedTuple, Tuple
 import torch
 
 from kaldi_decoder_tpu_torch.decoders.frontier import (
-    NO_ARC,
     FrontierConfig,
     StepState,
-    expand_eps,
     start_state,
 )
 from kaldi_decoder_tpu_torch.fst.csr import CsrGraph
 from kaldi_decoder_tpu_torch.fst.pack import PackedGraph
 from kaldi_decoder_tpu_torch.kernels.dedup_rec import dedup_select_rec
+from kaldi_decoder_tpu_torch.kernels.eps import empty_eps_carry, eps_step, expand_eps_lanes
 from kaldi_decoder_tpu_torch.kernels.expand import expand_filter
 from kaldi_decoder_tpu_torch.ops.cutoff import get_cutoff
 
@@ -101,9 +104,10 @@ def _lattice_emit(st: StepState, cutoff, adaptive_beam, scores_t, pg: PackedGrap
                   fc: FrontierConfig, num_states: int, r_em: int, slack_beam: float,
                   bufs=None):
     """K1 under the frame's GetCutoff (``cutoff``, ``adaptive_beam``), then
-    dedup, frontier selection and records (K2).  ``bufs``: on a card, K1's
-    and K2's output buffers and K2's scratch, or None."""
-    ex_out, sel_out, scratch = bufs or (None, None, None)
+    dedup, frontier selection and records (K2).  ``bufs``: on a card, the
+    frame driver's ``FrameBufs`` (K1's and K2's output buffers and K2's
+    scratch are used here), or None."""
+    ex_out, sel_out, scratch = bufs[:3] if bufs is not None else (None, None, None)
     ex = expand_filter(st.states, st.costs, cutoff, adaptive_beam, scores_t, pg, fc,
                        out=ex_out)
     sel = dedup_select_rec(
@@ -138,21 +142,34 @@ def lattice_emit_stage(
 
 def eps_rec_candidates(st: StepState, cutoff_rel: torch.Tensor, pg: PackedGraph,
                        cfg: FrontierConfig):
-    """The lanes of K2's eps call: the K incumbents (payload -1), then the
-    eps arcs (K5, ``expand_eps``) of the tokens at or under the cutoff,
-    +inf above it.  Returns (state, cost, (src_state, arc_id)) of shape
-    (B, K + N_eps) and the expansion's overflow (B,)."""
-    cut = cutoff_rel[:, None]
-    active = torch.isfinite(st.costs) & (st.costs <= cut)
-    cand = expand_eps(st, active, pg, cfg)
-    ncost = torch.where(cand.cost <= cut, cand.cost, INF)
-    none = torch.full_like(st.states, NO_ARC)
-    return (
-        torch.cat([st.states, cand.dst], dim=1),
-        torch.cat([st.costs, ncost], dim=1),
-        (torch.cat([none, cand.src_state], dim=1), torch.cat([none, cand.arc_id], dim=1)),
-        cand.overflow,
+    """The lanes of K2's eps call (K5, ``kernels.eps.expand_eps_lanes``):
+    the K incumbents (payload -1), then the eps arcs of the tokens at or
+    under the cutoff, +inf above it.  Returns (state, cost, (src_state,
+    arc_id)) of shape (B, K + N_eps) and the expansion's overflow (B,)."""
+    lanes = expand_eps_lanes(st.states, st.costs, cutoff_rel, pg, cfg, incumbents=True,
+                             with_src_slot=False)
+    return lanes.dst, lanes.cost, (lanes.src_state, lanes.arc_id), lanes.overflow
+
+
+def _eps_relax_rec(st: StepState, cutoff_rel: torch.Tensor, pg: PackedGraph,
+                   cfg: FrontierConfig, num_states: int, slack_beam: float, d: int, carry,
+                   row_active: torch.Tensor, exact: bool, bufs=None) -> StepState:
+    """Iteration ``d`` of a record-emitting eps closure on its ``carry``
+    (``kernels.eps.EpsCarry``, records of ``r_eps`` rows): K5's lanes, the
+    K incumbents first with payload -1, then K2's eps call, then the eps
+    step.  ``bufs``: on a card, K5's and K2's output buffers and K2's
+    scratch, or None.  Returns the new frontier."""
+    K = cfg.frontier_size
+    r_eps = carry.out.shape[2]
+    lanes_out, sel_out, scratch = bufs or (None, None, None)
+    lanes = expand_eps_lanes(st.states, st.costs, cutoff_rel, pg, cfg, incumbents=True,
+                             with_src_slot=False, out=lanes_out)
+    sel = dedup_select_rec(
+        lanes.dst, lanes.cost, K, num_states, K + r_eps, slack_beam,
+        (lanes.src_state, lanes.arc_id), num_incumbents=K, out=sel_out, scratch=scratch,
     )
+    eps_step(d, carry, row_active, lanes.overflow, sel, exact)
+    return StepState(sel.states, sel.costs, st.base)
 
 
 def eps_iteration_rec(
@@ -168,23 +185,18 @@ def eps_iteration_rec(
     in-beam eps candidate may become a record (the reference creates a
     ForwardLink per eps arc under the cutoff,
     `lattice-simple-decoder.cc:170-186`), while the frontier keeps only
-    per-state minima.  K2's eps call: the K incumbents go first, with
-    payload -1, and the record budget is K + ``r_eps``, so that fresh
+    per-state minima.  K5, then K2's eps call: the K incumbents go first,
+    with payload -1, and the record budget is K + ``r_eps``, so that fresh
     winner links never crowd out the slack extras; the first ``r_eps``
     rows are the iteration's records and a valid row just past them means
-    links were dropped.  Returns (state, records (B, r_eps, 4), changed,
-    overflow, saturated), the last three (B,) bool; a row changed when a
-    slot was won by an eps lane."""
-    K = cfg.frontier_size
-    cand_state, cand_cost, payload, exp_ovf = eps_rec_candidates(st, cutoff_rel, pg, cfg)
-    sel = dedup_select_rec(
-        cand_state, cand_cost, K, num_states, K + r_eps, slack_beam, payload, num_incumbents=K
-    )
-    spill = sel.records[:, r_eps, 1] >= 0
-    changed = ((sel.cand_idx >= K) & torch.isfinite(sel.costs)).any(dim=1)
-    ovf = exp_ovf | sel.rec_overflow | spill
-    sat = sel.num_unique > K
-    return StepState(sel.states, sel.costs, st.base), sel.records[:, :r_eps], changed, ovf, sat
+    links were dropped; then the eps step.  Returns (state, records (B,
+    r_eps, 4), changed, overflow, saturated), the last three (B,) bool; a
+    row changed when a slot was won by an eps lane."""
+    B, dev = st.states.shape[0], st.states.device
+    carry = empty_eps_carry(B, 1, r_eps, True, dev)
+    every = torch.ones((B,), dtype=torch.bool, device=dev)
+    nxt = _eps_relax_rec(st, cutoff_rel, pg, cfg, num_states, slack_beam, 0, carry, every, True)
+    return nxt, carry.out[:, 0], carry.changed, carry.overflow, carry.saturated
 
 
 def eps_closure_rec(
@@ -235,41 +247,34 @@ def eps_closure_rec_batched(
     num_states: int,
     r_eps: int,
     slack_beam: float,
+    bufs=None,
 ):
     """The frame's record-emitting eps closure, ``eps_iters`` iterations,
-    no host sync.  The original's ``while_loop`` stops the whole batch once
-    no active row changed; as in ``frontier.eps_closure_batched`` every
-    iteration runs here and gives the early exit's results: a row an
-    iteration leaves unchanged is at a fixed point, so a later iteration
-    gives it the same frontier, records and flags.  What the early exit
-    leaves is kept: an iteration the original never ran writes records of
-    -1 on every row (``ran``, on the device); one that ran keeps the
-    records of rows that had already converged, as the original's loop
-    writes them; with ``eps_exact=False`` every active row is flagged when
-    some active row still changed at the last iteration.  Returns (state,
-    records (B, D, r_eps, 4), overflow (B,), saturated (B,))."""
+    no host sync: each is K5, K2's eps call and the eps step
+    (:func:`_eps_relax_rec`).  The original's ``while_loop`` stops the
+    whole batch once no active row changed; as in
+    ``frontier.eps_closure_batched`` every iteration runs here and gives
+    the early exit's results: a row an iteration leaves unchanged is at a
+    fixed point, so a later iteration gives it the same frontier, records
+    and flags.  What the early exit leaves is kept: an iteration the
+    original never ran writes records of -1 on every row (``ran``, on the
+    device); one that ran keeps the records of rows that had already
+    converged, as the original's loop writes them; with ``eps_exact=False``
+    every active row is flagged when some active row still changed at the
+    last iteration.  ``bufs``: on a card, ``kernels.eps.EpsBufs`` (the
+    frame driver's static buffers), or None.  Returns (state, records (B,
+    D, r_eps, 4), overflow (B,), saturated (B,))."""
     D = fc.eps_iters
     B = st.states.shape[0]
     dev = st.states.device
-    z = torch.zeros((B,), dtype=torch.bool, device=dev)
-    recs = torch.empty((B, D, r_eps, REC_COLS), dtype=torch.int32, device=dev)
     if D == 0:
-        return st, recs, z, z
-    ovf, sat = z, z
-    ran = torch.ones((), dtype=torch.bool, device=dev)
-    go = ran
+        z = torch.zeros((B,), dtype=torch.bool, device=dev)
+        return st, torch.empty((B, 0, r_eps, REC_COLS), dtype=torch.int32, device=dev), z, z
+    carry = bufs.carry if bufs is not None else empty_eps_carry(B, D, r_eps, True, dev)
     for d in range(D):
-        st, rec, changed, o, s = eps_iteration_rec(
-            st, cutoff_rel, pg, fc, num_states, r_eps, slack_beam
-        )
-        recs[:, d] = torch.where(ran, rec, -1)
-        ovf = ovf | (o & row_active)
-        sat = sat | (s & row_active)
-        go = (changed & row_active).any()
-        ran = ran & go
-    if not fc.eps_exact:
-        ovf = ovf | (go & row_active)  # cyclic-eps budget: unconverged
-    return st, recs, ovf, sat
+        st = _eps_relax_rec(st, cutoff_rel, pg, fc, num_states, slack_beam, d, carry,
+                            row_active, fc.eps_exact, bufs[:3] if bufs is not None else None)
+    return st, carry.out, carry.overflow, carry.saturated
 
 
 def lattice_frame_body(
@@ -285,7 +290,8 @@ def lattice_frame_body(
 ):
     """The lattice frame before its tail: K1 and K2, then, on a device
     graph with eps arcs, the record-emitting eps closure under K1's next
-    cutoff.  ``bufs`` as :func:`_lattice_emit`'s.  Returns the
+    cutoff.  ``bufs`` as :func:`_lattice_emit`'s, its ``eps`` the
+    closure's.  Returns the
     :class:`kaldi_decoder_tpu_torch.kernels.frame.TailInputs` of the
     frame's tail (K3)."""
     # Imported here: kernels.frame imports this module.
@@ -300,7 +306,8 @@ def lattice_frame_body(
     eps_ovf = eps_sat = None  # an eps-free device graph: no closure, no eps records
     if fc.eps_iters:
         mid, eps_rec, eps_ovf, eps_sat = eps_closure_rec_batched(
-            mid, ex.next_cutoff, frame_active, pg, fc, num_states, cfg.eps_records, sb
+            mid, ex.next_cutoff, frame_active, pg, fc, num_states, cfg.eps_records, sb,
+            bufs.eps if bufs is not None else None,
         )
     return TailInputs(mid.states, mid.costs, ex.overflow, sel.num_unique, eps_ovf, eps_sat,
                       rec_overflow=sel.rec_overflow, em_records=sel.records,

@@ -122,8 +122,8 @@ def stream(device) -> ctypes.c_void_p:
 @functools.lru_cache(maxsize=None)
 def kernels() -> ctypes.CDLL:
     """The CUDA kernel library (row gather, K1 expansion, K2 lattice
-    dedup and records, K3 frame tail, K4 sweep, K6 dedup), built on first
-    use."""
+    dedup and records, K3 frame tail, K4 sweep, K5 eps lanes and the eps
+    step, K6 dedup), built on first use."""
     sources = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
     arch = ["-gencode", "arch=compute_90a,code=sm_90a"]
     path = build_library(
@@ -163,6 +163,12 @@ def kernels() -> ctypes.CDLL:
                                    + [_P] * 9 + [_P])
     lib.kd_frame_tail.restype = _I
     lib.kd_frame_tail.argtypes = [_P] + [_I] * 8 + [_F, _I, _I, _F] + [_P] * 7 + [_P] * 13 + [_P]
+    lib.kd_expand_eps.restype = _I
+    lib.kd_expand_eps.argtypes = [_P] * 5 + [_I] * 6 + [_P] * 6 + [_P]
+    lib.kd_expand_eps_blocks.restype = _I
+    lib.kd_expand_eps_blocks.argtypes = [_I, _I]
+    lib.kd_eps_step.restype = _I
+    lib.kd_eps_step.argtypes = [_I] * 9 + [_P] * 9 + [_P] * 5 + [_P]
     lib.kd_error_string.restype = ctypes.c_char_p
     lib.kd_error_string.argtypes = [_I]
     return lib

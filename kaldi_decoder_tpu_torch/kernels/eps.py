@@ -1,0 +1,308 @@
+"""K5: the eps iteration's candidate lanes; and the eps step, its closing step.
+
+One eps relaxation of a frame's frontier is K5, the dedup call (K6 on the
+1-best paths, K2's eps call with the K incumbents first on the lattice
+paths), then the eps step:
+
+- :func:`expand_eps_lanes` gives the candidate lanes of the tokens at or
+  under the cutoff: with ``incumbents`` the K tokens themselves first, as
+  ``(state, cost, slot, -1, -1)``, then every eps arc of every active slot
+  (``frontier.expand_eps``: K*We block lanes, then ``eps_rem_budget``
+  remainder lanes through the owner map), each costing ``alpha + w``, or
+  +inf above the cutoff.  The columns are ``dst, cost, src_slot,
+  src_state, arc_id`` and the expansion's ``overflow`` (B,); the 1-best
+  calls read ``src_slot``, the lattice calls ``src_state``, and a caller
+  may leave out the column it does not read.
+- :func:`eps_step` takes the dedup call's result and updates the
+  closure's :class:`EpsCarry` in place: iteration ``d``'s backpointers
+  (1-best: each slot's ``(src_slot, arc_id)`` of its winning lane) or
+  records (lattice: the first ``r_eps`` rows), the identity or -1 once the
+  batch has stopped; the running overflow and saturation of the active
+  rows; each row's ``changed``; ``ran`` (the batch has not stopped) and,
+  at the last iteration of a cyclic eps budget, the overflow of every
+  active row when some active row still changed.
+
+On CPU tensors the wrappers run the plain torch versions,
+:func:`expand_eps_lanes_plain` and :func:`eps_step_plain`; on CUDA tensors
+they launch ``csrc/eps.cu`` or raise.  The carry lives in device memory,
+so that an eps closure replays in a captured frame; each wrapper takes
+``out=`` buffers (:func:`empty_eps_lanes`, :func:`empty_eps_carry`) so that
+a captured frame allocates nothing.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from kaldi_decoder_tpu_torch.decoders.frontier import (
+    NO_ARC,
+    FrontierConfig,
+    StepState,
+    _backpointers,
+    _identity_bp,
+    expand_eps,
+)
+from kaldi_decoder_tpu_torch.fst.pack import EPS_FIELDS, PackedGraph
+from kaldi_decoder_tpu_torch.kernels._build import (
+    check,
+    check_like,
+    cuda_error,
+    kernels,
+    ptr,
+    stream,
+)
+
+INF = float("inf")
+# EpsCarry.flags: ran, the batch's `go` accumulator, blocks done (csrc/eps.cu Flags).
+FLAG_WORDS = 3
+
+
+class EpsLanes(NamedTuple):
+    dst: torch.Tensor  # (B, N) int32
+    cost: torch.Tensor  # (B, N) float32, +inf above the cutoff
+    src_slot: Optional[torch.Tensor]  # (B, N) int32, or None when not asked for
+    src_state: Optional[torch.Tensor]  # (B, N) int32 (-1 on incumbents), or None
+    arc_id: torch.Tensor  # (B, N) int32 (-1 on incumbents)
+    overflow: torch.Tensor  # (B,) bool — remainder lane budget exceeded
+
+
+class EpsCarry(NamedTuple):
+    """An eps closure's state across its D iterations, updated in place."""
+
+    flags: torch.Tensor  # (FLAG_WORDS,) int32: ran, and the kernel's two counters (0)
+    overflow: torch.Tensor  # (B,) bool, running over the iterations
+    saturated: torch.Tensor  # (B,) bool, running
+    changed: torch.Tensor  # (B,) bool, the last iteration's
+    out: torch.Tensor  # (B, D, K, 2) int32 backpointers, or (B, D, r_eps, 4) records
+
+
+class EpsBufs(NamedTuple):
+    """Static buffers of a frame's eps closure (the frame driver's): K5's
+    lanes, the dedup call's output and scratch, the carry."""
+
+    lanes: EpsLanes
+    selection: object  # kernels.dedup.empty_selection / dedup_rec.empty_lattice_selection
+    scratch: tuple
+    carry: EpsCarry
+
+
+def eps_lane_count(fc: FrontierConfig, incumbents: bool) -> int:
+    """Lanes a row of one eps expansion: the incumbents, K*We, R."""
+    K = fc.frontier_size
+    return (K if incumbents else 0) + K * fc.eps_block_width + fc.eps_rem_budget
+
+
+def expand_eps_lanes_plain(
+    states: torch.Tensor,  # (B, K) int32
+    costs: torch.Tensor,  # (B, K) float32, relative
+    cutoff_rel: torch.Tensor,  # (B,) float32: expand slots with cost <= cutoff
+    pg: PackedGraph,
+    fc: FrontierConfig,
+    incumbents: bool,
+    with_src_slot: bool = True,
+    with_src_state: bool = True,
+) -> EpsLanes:
+    cut = cutoff_rel[:, None]
+    active = torch.isfinite(costs) & (costs <= cut)
+    cand = expand_eps(StepState(states, costs, None), active, pg, fc)
+    ncost = torch.where(cand.cost <= cut, cand.cost, INF)
+    cols = (cand.dst, ncost, cand.src_slot, cand.src_state, cand.arc_id)
+    if incumbents:
+        B, K = states.shape
+        slots = torch.arange(K, dtype=torch.int32, device=states.device).expand(B, K)
+        none = torch.full_like(states, NO_ARC)
+        cols = tuple(torch.cat([x, c], dim=1)
+                     for x, c in zip((states, costs, slots, none, none), cols))
+    dst, cost, src_slot, src_state, arc_id = cols
+    return EpsLanes(dst, cost, src_slot if with_src_slot else None,
+                    src_state if with_src_state else None, arc_id, cand.overflow)
+
+
+def empty_eps_lanes(batch: int, lanes: int, device, with_src_slot: bool = True,
+                    with_src_state: bool = True) -> EpsLanes:
+    """Uninitialised output buffers of K5 (``expand_eps_lanes``'s ``out``)."""
+    i32 = dict(dtype=torch.int32, device=device)
+
+    def col(want=True):
+        return torch.empty((batch, lanes), **i32) if want else None
+    return EpsLanes(col(), torch.empty((batch, lanes), dtype=torch.float32, device=device),
+                    col(with_src_slot), col(with_src_state), col(),
+                    torch.empty((batch,), dtype=torch.bool, device=device))
+
+
+def expand_eps_lanes(
+    states, costs, cutoff_rel, pg: PackedGraph, fc: FrontierConfig, incumbents: bool,
+    with_src_slot: bool = True, with_src_state: bool = True,
+    out: Optional[EpsLanes] = None, blocks: int = 0,
+) -> EpsLanes:
+    """K5 on the tensors' device: plain torch on the CPU, one launch of
+    ``csrc/eps.cu`` on a card, which reads each active slot's eps_block row
+    itself.  On a card, ``out`` (from :func:`empty_eps_lanes`) is written
+    and returned instead of fresh buffers, and ``blocks`` (8, 4, 2 or 1)
+    sets the blocks a row instead of :func:`blocks_per_row`'s choice.
+    ``expand_eps_lanes.launches`` counts K5 launches."""
+    dev = states.device
+    if dev.type == "cpu":
+        return expand_eps_lanes_plain(states, costs, cutoff_rel, pg, fc, incumbents,
+                                      with_src_slot, with_src_state)
+    if dev.type != "cuda":
+        raise ValueError(f"expand_eps_lanes runs on cpu or cuda tensors, not {dev}")
+    B, K = states.shape
+    We, R = fc.eps_block_width, fc.eps_rem_budget
+    if K != fc.frontier_size:
+        raise ValueError(f"frontier has {K} slots, config says {fc.frontier_size}")
+    if blocks not in (0, 1, 2, 4, 8):
+        raise ValueError(f"blocks must be 0 (chosen), 1, 2, 4 or 8, not {blocks}")
+    check(states, "states", torch.int32, (B, K), dev)
+    check(costs, "costs", torch.float32, (B, K), dev)
+    check(cutoff_rel, "cutoff_rel", torch.float32, (B,), dev)
+    check(pg.eps_block, "eps_block", torch.int32,
+          (pg.eps_block.shape[0], We * EPS_FIELDS + 2), dev)
+    if pg.eps_flat.shape[0] == 0:
+        raise ValueError("expand_eps_lanes needs a graph with eps arcs")
+    check(pg.eps_flat, "eps_flat", torch.int32, (pg.eps_flat.shape[0], EPS_FIELDS), dev)
+    N = eps_lane_count(fc, incumbents)
+    if out is None:
+        out = empty_eps_lanes(B, N, dev, with_src_slot, with_src_state)
+    else:
+        check_like(out, empty_eps_lanes(B, N, "meta", with_src_slot, with_src_state), "out", dev)
+        if (out.src_slot is None) != (not with_src_slot) or \
+                (out.src_state is None) != (not with_src_state):
+            raise ValueError("out's source columns differ from the ones asked for")
+    rc = kernels().kd_expand_eps(
+        ptr(states), ptr(costs), ptr(cutoff_rel), ptr(pg.eps_block), ptr(pg.eps_flat),
+        B, K, We, R, K if incumbents else 0, blocks, ptr(out.dst), ptr(out.cost),
+        ptr(out.src_slot) if with_src_slot else None,
+        ptr(out.src_state) if with_src_state else None, ptr(out.arc_id), ptr(out.overflow),
+        stream(dev),
+    )
+    if rc != 0:
+        raise RuntimeError(f"kd_expand_eps launch failed: {cuda_error(rc)}")
+    expand_eps_lanes.launches += 1
+    return out
+
+
+expand_eps_lanes.launches = 0
+
+
+def blocks_per_row(batch: int, lanes: int) -> int:
+    """The blocks a row K5 launches with for ``batch`` rows of ``lanes``
+    lanes each."""
+    return kernels().kd_expand_eps_blocks(batch, lanes)
+
+
+def empty_eps_carry(batch: int, iters: int, width: int, lattice: bool, device) -> EpsCarry:
+    """An eps closure's carry for ``batch`` rows and ``iters`` iterations:
+    ``out`` is (B, D, width, 4) records (``width`` = r_eps) when
+    ``lattice``, else (B, D, width, 2) backpointers (``width`` = K).  The
+    flags start at 0, as the kernel leaves them."""
+    b = dict(dtype=torch.bool, device=device)
+    return EpsCarry(
+        flags=torch.zeros((FLAG_WORDS,), dtype=torch.int32, device=device),
+        overflow=torch.zeros((batch,), **b), saturated=torch.zeros((batch,), **b),
+        changed=torch.zeros((batch,), **b),
+        out=torch.empty((batch, iters, width, 4 if lattice else 2), dtype=torch.int32,
+                        device=device),
+    )
+
+
+def _is_lattice(sel) -> bool:
+    return getattr(sel, "records", None) is not None
+
+
+def eps_step_plain(d: int, carry: EpsCarry, row_active: torch.Tensor,
+                   exp_overflow: torch.Tensor, sel, exact: bool,
+                   lanes: Optional[EpsLanes] = None) -> None:
+    """Iteration ``d`` of the closure's D (``carry.out.shape[1]``) after
+    its dedup call ``sel``: a ``kernels.dedup_rec.LatticeSelection`` of
+    K2's eps call (lattice; records of ``K + r_eps`` rows), else the
+    K6 ``Selection`` of ``lanes`` (K5's, with ``src_slot``).
+    ``exp_overflow`` (B,) is K5's.  Updates ``carry`` in place."""
+    K = sel.states.shape[1]
+    D = carry.out.shape[1]
+    dev = sel.states.device
+    ran = carry.flags[0] != 0 if d else torch.ones((), dtype=torch.bool, device=dev)
+    if _is_lattice(sel):
+        r_eps = carry.out.shape[2]
+        spill = sel.records[:, r_eps, 1] >= 0
+        changed = ((sel.cand_idx >= K) & torch.isfinite(sel.costs)).any(dim=1)
+        o = exp_overflow | sel.rec_overflow | spill
+        carry.out[:, d] = torch.where(ran, sel.records[:, :r_eps], -1)
+    else:
+        bp = _backpointers(sel.cand_idx, lanes.src_slot, lanes.arc_id)
+        changed = ((sel.cand_idx >= 0) & (bp[..., 1] != NO_ARC)).any(dim=1)
+        o = exp_overflow
+        carry.out[:, d] = torch.where(ran, bp, _identity_bp(K, dev))
+    s = sel.num_unique > K
+    ovf = o & row_active
+    sat = s & row_active
+    if d:
+        ovf, sat = carry.overflow | ovf, carry.saturated | sat
+    go = (changed & row_active).any()
+    if d == D - 1 and not exact:
+        ovf = ovf | (go & row_active)  # cyclic-eps budget: unconverged
+    carry.overflow.copy_(ovf)
+    carry.saturated.copy_(sat)
+    carry.changed.copy_(changed)
+    carry.flags[0] = (ran & go).to(torch.int32)
+
+
+def eps_step(d: int, carry: EpsCarry, row_active: torch.Tensor, exp_overflow: torch.Tensor,
+             sel, exact: bool, lanes: Optional[EpsLanes] = None) -> None:
+    """The eps step on the tensors' device: :func:`eps_step_plain` on the
+    CPU, one launch of ``csrc/eps.cu`` on a card, which carries ``ran``
+    and the batch's ``go`` in ``carry.flags``.  ``eps_step.launches``
+    counts its launches."""
+    dev = sel.states.device
+    if dev.type == "cpu":
+        return eps_step_plain(d, carry, row_active, exp_overflow, sel, exact, lanes)
+    if dev.type != "cuda":
+        raise ValueError(f"eps_step runs on cpu or cuda tensors, not {dev}")
+    B, K = sel.states.shape
+    D = carry.out.shape[1]
+    if not 0 <= d < D:
+        raise ValueError(f"iteration {d} of {D}")
+    lattice = _is_lattice(sel)
+    check(sel.cand_idx, "cand_idx", torch.int32, (B, K), dev)
+    check(sel.num_unique, "num_unique", torch.int32, (B,), dev)
+    check(row_active, "row_active", torch.bool, (B,), dev)
+    check(exp_overflow, "exp_overflow", torch.bool, (B,), dev)
+    check(carry.flags, "carry.flags", torch.int32, (FLAG_WORDS,), dev)
+    for name in ("overflow", "saturated", "changed"):
+        check(getattr(carry, name), f"carry.{name}", torch.bool, (B,), dev)
+    N = R_rec = r_eps = 0
+    if lattice:
+        r_eps, R_rec = carry.out.shape[2], sel.records.shape[1]
+        if R_rec <= r_eps:
+            raise ValueError(f"K2's eps call has {R_rec} record rows, need more than {r_eps}")
+        check(sel.costs, "sel.costs", torch.float32, (B, K), dev)
+        check(sel.rec_overflow, "rec_overflow", torch.bool, (B,), dev)
+        check(sel.records, "records", torch.int32, (B, R_rec, 4), dev)
+        check(carry.out, "carry.out", torch.int32, (B, D, r_eps, 4), dev)
+    else:
+        if lanes is None or lanes.src_slot is None:
+            raise ValueError("the 1-best eps step needs K5's lanes with src_slot")
+        N = lanes.src_slot.shape[1]
+        check(lanes.src_slot, "src_slot", torch.int32, (B, N), dev)
+        check(lanes.arc_id, "arc_id", torch.int32, (B, N), dev)
+        check(carry.out, "carry.out", torch.int32, (B, D, K, 2), dev)
+
+    def opt(x):
+        return ptr(x) if x is not None else None
+
+    rc = kernels().kd_eps_step(
+        int(lattice), B, K, N, D, d, int(exact), R_rec, r_eps, ptr(sel.cand_idx),
+        ptr(sel.num_unique), ptr(sel.costs) if lattice else None, ptr(exp_overflow),
+        ptr(sel.rec_overflow) if lattice else None, ptr(sel.records) if lattice else None,
+        None if lattice else opt(lanes.src_slot), None if lattice else opt(lanes.arc_id),
+        ptr(row_active), ptr(carry.flags), ptr(carry.overflow), ptr(carry.saturated),
+        ptr(carry.changed), ptr(carry.out), stream(dev),
+    )
+    if rc != 0:
+        raise RuntimeError(f"kd_eps_step launch failed: {cuda_error(rc)}")
+    eps_step.launches += 1
+
+
+eps_step.launches = 0

@@ -29,9 +29,11 @@ frontier; K6 (``kernels.dedup.dedup_select``) on the routed lanes, ``P *
 route_cap`` wide with ``part_size`` states, and again each eps iteration
 with the K incumbents first; K2 (``kernels.dedup_rec.dedup_select_rec``)
 on the routed lanes and, with ``num_incumbents = K``, each eps iteration
-of the lattice path.  The eps expansion (``frontier.expand_eps``, K5) and
-the routing's sort, scan and scatter (:func:`_route`, K7) are plain torch
-on the card too.
+of the lattice path; K5 (``kernels.eps.expand_eps_lanes``, without
+incumbents) gives each eps iteration's lanes.  The routing's sort, scan
+and scatter (:func:`_route`, K7) and the sharded eps closure's
+bookkeeping, which runs between the exchanges, are plain torch on the
+card too.
 """
 
 from __future__ import annotations
@@ -49,7 +51,6 @@ from kaldi_decoder_tpu_torch.decoders.frontier import (
     _backpointers,
     _identity_bp,
     config_for_graph,
-    expand_eps,
 )
 from kaldi_decoder_tpu_torch.fst.csr import CsrGraph, GraphArrays
 from kaldi_decoder_tpu_torch.fst.pack import (
@@ -62,6 +63,7 @@ from kaldi_decoder_tpu_torch.fst.pack import (
 )
 from kaldi_decoder_tpu_torch.kernels.dedup import dedup_select
 from kaldi_decoder_tpu_torch.kernels.dedup_rec import dedup_select_rec
+from kaldi_decoder_tpu_torch.kernels.eps import expand_eps_lanes
 from kaldi_decoder_tpu_torch.kernels.expand import expand_filter
 from kaldi_decoder_tpu_torch.parallel.mesh import (
     all_gather_cat,
@@ -409,11 +411,9 @@ def _sharded_eps_iteration(st: StepState, cutoff_rel, pg, cfg: ShardConfig, sh: 
     fc = cfg.frontier
     K, Sp, Pn = fc.frontier_size, cfg.part_size, cfg.num_parts
     B = st.states.shape[0]
-    cut = cutoff_rel[:, None]
-    active = torch.isfinite(st.costs) & (st.costs <= cut)
-    cand = expand_eps(st, active, pg, fc)
-    ncost = torch.where(cand.cost <= cut, cand.cost, INF)
-    rt = _route(cand.dst, ncost, sh.my_base + cand.src_slot, sh.eps_off + cand.arc_id,
+    cand = expand_eps_lanes(st.states, st.costs, cutoff_rel, pg, fc, incumbents=False,
+                            with_src_state=False)
+    rt = _route(cand.dst, cand.cost, sh.my_base + cand.src_slot, sh.eps_off + cand.arc_id,
                 Sp, Pn, cfg.eps_route_cap, sh.group)
     # Incumbents first (win cost ties, like FindOrAddToken keep-existing).
     inc_slots = sh.my_base + torch.arange(K, dtype=torch.int32, device=st.states.device)
@@ -802,17 +802,15 @@ def _sharded_lattice_eps_iteration(st: StepState, cutoff_rel, pg, cfg: ShardLatt
     K, Sp, Pn = fc.frontier_size, sc.part_size, sc.num_parts
     B = st.states.shape[0]
     dev = st.states.device
-    cut = cutoff_rel[:, None]
-    active = torch.isfinite(st.costs) & (st.costs <= cut)
-    cand = expand_eps(st, active, pg, fc)
-    ncost = torch.where(cand.cost <= cut, cand.cost, INF)
+    cand = expand_eps_lanes(st.states, st.costs, cutoff_rel, pg, fc, incumbents=False,
+                            with_src_state=False)
     # Route (dst, cost, GLOBAL src state, global arc): the lattice needs
     # source states, not slots.
     src_state_g = torch.where(
-        torch.isfinite(ncost), st.states.gather(1, cand.src_slot.long()) + sh.me * Sp, 0
+        torch.isfinite(cand.cost), st.states.gather(1, cand.src_slot.long()) + sh.me * Sp, 0
     )
     sb = cfg.lattice_beam + 1e-4
-    rt = _route(cand.dst, ncost, src_state_g, sh.eps_off + cand.arc_id, Sp, Pn,
+    rt = _route(cand.dst, cand.cost, src_state_g, sh.eps_off + cand.arc_id, Sp, Pn,
                 sc.eps_route_cap, sh.group, local_slack_beam=sb)
     cand_state = torch.cat([st.states, rt.state_local], dim=1)
     cand_cost = torch.cat([st.costs, rt.cost], dim=1)

@@ -10,6 +10,7 @@ side of the same wrappers is covered by ``tests/test_torch_ops.py`` and
 """
 
 import contextlib
+import functools
 
 import numpy as np
 import pytest
@@ -29,6 +30,13 @@ from kaldi_decoder_tpu_torch.kernels.dedup import cluster_size as dedup_cluster_
 from kaldi_decoder_tpu_torch.kernels.dedup import dedup_select
 from kaldi_decoder_tpu_torch.kernels.dedup_rec import cluster_size as rec_cluster_size
 from kaldi_decoder_tpu_torch.kernels.dedup_rec import dedup_select_rec, stack_records
+from kaldi_decoder_tpu_torch.kernels.eps import (
+    empty_eps_carry,
+    eps_step,
+    eps_step_plain,
+    expand_eps_lanes,
+    expand_eps_lanes_plain,
+)
 from kaldi_decoder_tpu_torch.kernels.expand import (
     expand_filter,
     expand_filter_plain,
@@ -1233,7 +1241,8 @@ def test_graph_driver_matches_eager_loop(card, kind):
         dec = BatchedViterbiDecoder(g, fc, pad_time_to=8, fold=False, device=card)
         st0, cfg, run = dec._init(B)[0], dec.cfg, viterbi_chunk
     S = g.num_states
-    counted = (expand_filter, dedup_select_rec, dedup_select, frame_tail, frame_start)
+    counted = (expand_filter, dedup_select_rec, dedup_select, expand_eps_lanes, eps_step,
+               frame_tail, frame_start)
     decodes = _chunks(card, B, [[20, 7, 13], [11, 20, 3]], 20)
     results = []
     for eager in (True, False):
@@ -1253,8 +1262,9 @@ def test_graph_driver_matches_eager_loop(card, kind):
         for r, g_ in zip(se, sg):
             assert torch.equal(r.view(torch.int32), g_.view(torch.int32)), i
     frames = 20 + 20 + 9
-    assert n_graph[:3] == n_eager[:3], (n_graph, n_eager)  # K1, K2, K6
-    assert n_graph[3:] == [frames, 3] and n_eager[3:] == [0, 0]  # K3: the eager tail is plain
+    assert n_graph[:5] == n_eager[:5], (n_graph, n_eager)  # K1, K2, K6, K5, the eps step
+    assert (n_graph[3] > 0) == eps and (n_graph[4] > 0) == eps
+    assert n_graph[5:] == [frames, 3] and n_eager[5:] == [0, 0]  # K3: the eager tail is plain
     assert replays == frames - 1  # the frame driver's first frame ran eagerly, then the capture
 
 
@@ -1306,3 +1316,173 @@ def test_graph_driver_streaming_calls(card, lattice):
             if a.dtype == np.float32:
                 a, b = a.view(np.int32), b.view(np.int32)
             assert np.array_equal(a, b), f
+
+
+# ---------------------------------------------------------------------------
+# K5 and the eps step
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _fat_eps_graph(S=600, E_eps=4000, seed=0):
+    """:func:`_graph` with eps arcs, half of them from six hub states
+    (hundreds each, far more than an eps block), the rest scattered;
+    cyclic."""
+    g = _graph(seed, S, 3000)
+    rng = np.random.default_rng(seed + 2)
+    src = np.concatenate([rng.integers(0, 6, E_eps // 2),
+                          rng.integers(0, S, E_eps - E_eps // 2)])
+    src.sort()
+    row = np.zeros(S + 1, np.int32)
+    row[1:] = np.cumsum(np.bincount(src, minlength=S))
+    nxt = rng.integers(0, S, E_eps).astype(np.int32)
+    ga = g.arrays._replace(
+        eps_row_ptr=row, eps_olabel=rng.integers(0, 50, E_eps).astype(np.int32),
+        eps_weight=rng.uniform(0, 2, E_eps).astype(np.float32), eps_next=nxt)
+    return CsrGraph(ga, S, g.num_emitting_arcs, E_eps, 0, _eps_depth(S, row, nxt),
+                    g.max_em_out_degree, int(np.diff(row).max()), g.max_score_idx)
+
+
+def _eps_frontier(card, S, K, nb, seed=0, hubs=0):
+    """Cost-sorted frontier rows (costs on a 0.25 grid, one -0.0): row b
+    holds K, K/2, 0 and K/3 tokens in turn (row 0 with the first ``hubs``
+    states among them)."""
+    rng = np.random.default_rng(seed)
+    states = np.zeros((nb, K), np.int32)
+    costs = np.full((nb, K), np.inf, np.float32)
+    for b in range(nb):
+        n = (K, K // 2, 0, K // 3)[b % 4]
+        if n == 0:
+            continue
+        if b == 0 and hubs:
+            st = np.concatenate([np.arange(hubs), rng.choice(np.arange(hubs, S), n - hubs,
+                                                             replace=False)])
+        else:
+            st = rng.choice(S, n, replace=False)
+        co = (rng.integers(0, 20, n) * 0.25).astype(np.float32)
+        co[0] = -0.0
+        order = np.lexsort((st, co))
+        states[b, :n], costs[b, :n] = st[order], co[order]
+    return (torch.from_numpy(states).to(card), torch.from_numpy(costs).to(card))
+
+
+def _same_lanes(ref, got, what):
+    for f in ref._fields:
+        r, g = getattr(ref, f), getattr(got, f)
+        assert (r is None) == (g is None), (what, f)
+        if r is None:
+            continue
+        if r.dtype == torch.float32:
+            r, g = r.view(torch.int32), g.view(torch.int32)  # raw bits: -0.0 stays -0.0
+        assert torch.equal(r, g), (what, f)
+
+
+# case: (states, frontier size, eps block width, eps remainder budget, cutoffs)
+EPS_LANE_CASES = {
+    "many": (600, 256, 2, 2500, (3.0, 1.5, 2.0, -1.0)),  # past one tile of owners
+    "overflow": (600, 256, 1, 8, (3.0, 1.5, 2.0, -1.0)),
+    "inf-cutoff": (600, 256, 2, 2500, (np.inf,) * 4),
+    "big-K": (10000, 8192, 1, 5000, (4.0, 2.0, 2.0, -1.0)),  # two rounds of the slot scan
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocks", [0, 8, 4, 2, 1])
+@pytest.mark.parametrize("incumbents", [True, False])
+@pytest.mark.parametrize("case", sorted(EPS_LANE_CASES))
+def test_expand_eps_kernel_matches_plain(card, case, incumbents, blocks):
+    """K5 against its plain version, every column bitwise (raw cost bits),
+    at each blocks-a-row it can launch with (0: its own choice), with and
+    without the incumbents first: hub states with far more eps arcs than
+    the block width, a remainder budget that overflows, an empty row, a
+    row with no slot under its cutoff, a cutoff of +inf, a frontier
+    larger than one round of the slot scan."""
+    S, K, We, R, cuts = EPS_LANE_CASES[case]
+    g = _fat_eps_graph(S)
+    fc = config_for_graph(g, frontier_size=K, max_active=K, beam=10.0, eps_block_width=We,
+                          eps_rem_budget=R)
+    assert (fc.frontier_size, fc.eps_block_width, fc.eps_rem_budget) == (K, We, R)
+    pg = pack_graph_device(g, fc.block_width, We, fc.flat_group, card)
+    states, costs = _eps_frontier(card, S, K, 4, hubs=6)
+    cut = torch.tensor(cuts, dtype=torch.float32, device=card)
+    ref = expand_eps_lanes_plain(states, costs, cut, pg, fc, incumbents)
+    assert bool(ref.overflow.any()) == (case == "overflow")
+    for _ in range(2):
+        got = expand_eps_lanes(states, costs, cut, pg, fc, incumbents, blocks=blocks)
+        torch.cuda.synchronize()
+        _same_lanes(ref, got, case)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cols", [(True, False), (False, True)])
+def test_expand_eps_kernel_columns(card, cols):
+    """K5 writes only the source columns asked for, into ``out``."""
+    from kaldi_decoder_tpu_torch.kernels.eps import empty_eps_lanes, eps_lane_count
+
+    S, K, We, R, cuts = EPS_LANE_CASES["many"]
+    g = _fat_eps_graph(S)
+    fc = config_for_graph(g, frontier_size=K, max_active=K, beam=10.0, eps_block_width=We,
+                          eps_rem_budget=R)
+    pg = pack_graph_device(g, fc.block_width, We, fc.flat_group, card)
+    states, costs = _eps_frontier(card, S, K, 4, hubs=6)
+    cut = torch.tensor(cuts, dtype=torch.float32, device=card)
+    ref = expand_eps_lanes_plain(states, costs, cut, pg, fc, True, *cols)
+    out = empty_eps_lanes(4, eps_lane_count(fc, True), card, *cols)
+    got = expand_eps_lanes(states, costs, cut, pg, fc, True, *cols, out=out)
+    torch.cuda.synchronize()
+    assert got is out
+    _same_lanes(ref, got, cols)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("lattice", [False, True])
+@pytest.mark.parametrize("graph", ["depth1", "ring"])
+def test_eps_step_kernel_matches_plain(card, graph, lattice, exact):
+    """The eps step against its plain version over two closures of three
+    iterations on one carry (``ran`` and the batch's ``go`` carried in
+    device memory, reset by each closure's first iteration), each
+    iteration on the lanes of K5 and the dedup call (K6, or K2's eps call
+    with the K incumbents first) of the frontier the one before left:
+    every field of the carry bitwise after every step, a row inactive.  On
+    the depth-1 graph the batch stops after one iteration (``ran`` turns
+    false, later rows the identity or -1); on the ring it never stops, so
+    without ``exact`` the last iteration flags every active row."""
+    from kaldi_decoder_tpu_torch.decoders.frontier import StepState
+
+    g = _eps_graph(1 if graph == "depth1" else None)
+    fc = config_for_graph(g, frontier_size=64, max_active=48, beam=10.0, rem_budget=4096)
+    dec = BatchedLatticeDecoder(g, fc, lattice_beam=5.0, em_records=512, pad_time_to=8,
+                                fold=False, device=card)
+    fc, pg, S, K = dec.cfg.frontier, dec._pg, g.num_states, dec.cfg.frontier.frontier_size
+    r_eps, D, nb = dec.cfg.eps_records, 3, 4
+    width = r_eps if lattice else K
+    carry_k = empty_eps_carry(nb, D, width, lattice, card)
+    carry_p = empty_eps_carry(nb, D, width, lattice, card)
+    row_active = torch.tensor([True, True, False, True], device=card)
+    cut = torch.tensor([3.0, 1.5, 2.0, 2.5], dtype=torch.float32, device=card)
+    sb = dec.cfg.lattice_beam + 1e-4
+    for closure in range(2):
+        states, costs = _eps_frontier(card, S, K, nb, seed=closure)
+        st = StepState(states, costs, None)
+        for d in range(D):
+            lanes = expand_eps_lanes(st.states, st.costs, cut, pg, fc, True,
+                                     with_src_slot=not lattice, with_src_state=lattice)
+            if lattice:
+                sel = dedup_select_rec(lanes.dst, lanes.cost, K, S, K + r_eps, sb,
+                                       (lanes.src_state, lanes.arc_id), num_incumbents=K)
+            else:
+                sel = dedup_select(lanes.dst, lanes.cost, K, S)
+            eps_step(d, carry_k, row_active, lanes.overflow, sel, exact, lanes)
+            eps_step_plain(d, carry_p, row_active, lanes.overflow, sel, exact, lanes)
+            torch.cuda.synchronize()
+            assert carry_k.flags[1:].tolist() == [0, 0]  # the kernel's counters, cleared
+            assert bool(carry_k.flags[0]) == bool(carry_p.flags[0]), (closure, d)
+            for f in ("overflow", "saturated", "changed"):
+                assert torch.equal(getattr(carry_k, f), getattr(carry_p, f)), (closure, d, f)
+            assert torch.equal(carry_k.out[:, d], carry_p.out[:, d]), (closure, d)
+            st = StepState(sel.states, sel.costs, None)
+        if graph == "depth1":
+            assert not bool(carry_k.flags[0])
+        elif not exact:
+            assert bool(carry_k.overflow[row_active].all())
