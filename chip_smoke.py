@@ -174,11 +174,12 @@ decode's seconds both ways.  Phase 2 holds K3 (its first-frame mode
 against ``get_cutoff``, its frame tail against ``frame_tail_plain``,
 bitwise) on a frame of each path's own driver: the lattice, unfolded
 lattice and 1-best frames at B=16 and the streaming decoders' at B=1,
-and times it.
+at its own cluster size and at 8, 4, 2 and 1 blocks a row, and times it
+at each.
 Phase 2 also holds K5, K2's eps call (incumbents first, on K5's lanes)
 and the eps step on the eps iterations of the unfolded lattice decode at
 frames 150 and 250 (each timed, K5 and the eps step with their bound
-and share), K5, K6 and the eps step on the streaming ``FasterDecoder``'s
+and share; K5 held and timed at each cluster size), K5, K6 and the eps step on the streaming ``FasterDecoder``'s
 frame 60 and on its start closure (cutoff +inf), K5 and the eps step on
 the streaming ``LatticeFasterDecoder``'s frame 60, and K4
 with eps records on its first 500-frame chunk, against their plain
@@ -223,6 +224,7 @@ K2_FRAMES = (150, 250)  # lattice frames on whose lanes K2 is timed (and checked
 # is checked and timed.
 K2_EPS_FRAMES = (150, 250)
 TIMING_REPS = 10
+CLUSTER_SIZES = (8, 4, 2, 1)  # the blocks a row K3 and K5 are held and timed at
 VITERBI_CONFIG = dict(
     beam=15.0, max_active=2560, min_active=200, frontier_size=4096, rem_budget=49152,
 )
@@ -593,11 +595,18 @@ def hold_k5(st, cutoff_rel, pg, fc, lattice, where, timed=False):
     t = time_kernel(f"K5, {where}", lambda: expand_eps_lanes(*args, **kw, out=out),
                     lambda: expand_eps_lanes_plain(*args, **kw),
                     k5_work(got, st.states, st.costs, cutoff_rel, pg, fc))
-    # The blocks a row: the kernel's choice against each size it can take.
+    # The cluster sizes (blocks a row): each equal to plain, bitwise, and
+    # timed against the kernel's choice.
+    for c in CLUSTER_SIZES:
+        same_fields(ref, expand_eps_lanes(*args, **kw, out=out, blocks=c),
+                    f"K5 at {c} blocks a row", where)
+    torch.cuda.synchronize()
     t["ms_by_blocks"] = {c: device_ms(lambda: expand_eps_lanes(*args, **kw, out=out, blocks=c))
-                         for c in (8, 4, 2, 1)}
-    log("  K5 device ms by blocks a row: " + ", ".join(
-        f"{c}: {ms:.4f}" for c, ms in t["ms_by_blocks"].items()))
+                         for c in CLUSTER_SIZES}
+    t["share_by_blocks"] = {c: t["bound_ms"] / ms for c, ms in t["ms_by_blocks"].items()}
+    log("  K5 at each cluster size, equal to plain: device ms (share of the bound) "
+        + ", ".join(f"{c}: {ms:.4f} ({t['share_by_blocks'][c]:.1%})"
+                    for c, ms in t["ms_by_blocks"].items()))
     return got, t
 
 
@@ -1469,7 +1478,7 @@ def check_k3(what, lattice, pg, cfg, num_states, scores_tm, lengths, st0, frame)
 
     from kaldi_decoder_tpu_torch.decoders import driver
     from kaldi_decoder_tpu_torch.decoders.frontier import StepState
-    from kaldi_decoder_tpu_torch.kernels.frame import frame_tail, frame_tail_plain
+    from kaldi_decoder_tpu_torch.kernels.frame import cluster_size, frame_tail, frame_tail_plain
     from kaldi_decoder_tpu_torch.ops.cutoff import get_cutoff
 
     def same(ref, got):
@@ -1494,28 +1503,51 @@ def check_k3(what, lattice, pg, cfg, num_states, scores_tm, lengths, st0, frame)
     st = StepState(*(x.clone() for x in s.state))
     cut_t, fa = s.cutoff.clone(), lengths > frame
     final, out, nxt = frame_tail_plain(st, cut_t, tin, fa, fc)
-    frame_tail(s, tin, fc)
-    torch.cuda.synchronize()
-    fields = dict(zip(("states", "costs", "base"), zip(final, s.state)),
-                  **{f: (r, getattr(io.outs, f)[frame]) for f, r in zip(out._fields, out)},
-                  next_cutoff=(nxt.cutoff, s.cutoff),
-                  next_adaptive_beam=(nxt.adaptive_beam, s.adaptive_beam),
-                  next_scores=(io.scores[frame + 1], s.scores_t),
-                  next_active=(lengths > frame + 1, s.active))
-    for name, (r, g) in fields.items():
-        if not same(r, g):
-            raise AssertionError(f"K3 differs from plain on {what}, frame {frame}: {name}")
-    if s.args[0].item() != frame + 1:
-        raise AssertionError(f"K3 on {what}: t {s.args[0].item()} after frame {frame}")
+    # The kernel's choice, then each cluster size, on the same slots.
+    kept = (*s.state, s.cutoff, s.adaptive_beam, s.active, s.scores_t, s.args)
+    snap = [x.clone() for x in kept]
+    for clusters in (0, *CLUSTER_SIZES):
+        for x, y in zip(kept, snap):
+            x.copy_(y)
+        frame_tail(s, tin, fc, clusters=clusters)
+        torch.cuda.synchronize()
+        fields = dict(zip(("states", "costs", "base"), zip(final, s.state)),
+                      **{f: (r, getattr(io.outs, f)[frame]) for f, r in zip(out._fields, out)},
+                      next_cutoff=(nxt.cutoff, s.cutoff),
+                      next_adaptive_beam=(nxt.adaptive_beam, s.adaptive_beam),
+                      next_scores=(io.scores[frame + 1], s.scores_t),
+                      next_active=(lengths > frame + 1, s.active))
+        for name, (r, g) in fields.items():
+            if not same(r, g):
+                raise AssertionError(f"K3 at {clusters or 'its own'} blocks a row differs from "
+                                     f"plain on {what}, frame {frame}: {name}")
+        if s.args[0].item() != frame + 1 or s.args[2].item() != 0:
+            raise AssertionError(f"K3 on {what}: t {s.args[0].item()}, done "
+                                 f"{s.args[2].item()} after frame {frame}")
+    chosen = cluster_size(Bn, fc.frontier_size)
     log(f"K3 frame tail on {what} (B={Bn}, K={fc.frontier_size}, "
         f"{'records ' + str(tuple(tin.em_records.shape[1:])) if lattice else 'backpointers'}, "
-        f"eps_iters {fc.eps_iters}): the first-frame mode and frame {frame} equal to plain, "
+        f"eps_iters {fc.eps_iters}; clusters of {chosen} blocks a row): the first-frame mode "
+        f"and frame {frame} equal to plain at its own and every cluster size, "
         f"{int((~fa).sum())} of {Bn} rows frozen; timed on frame {frame}:")
-    # The timed calls fill the rows of a chunk of their own from the same state.
+    # The timed calls fill the rows of a chunk of their own from the same
+    # state, begun again for each cluster size.
     n = 2 * TIMING_REPS + 8
-    drv.begin(scores_tm[frame:frame + n].contiguous(), (lengths - frame).clamp(min=0), st)
+
+    def begin():
+        drv.begin(scores_tm[frame:frame + n].contiguous(), (lengths - frame).clamp(min=0), st)
+    begin()
     t = time_kernel(f"K3 ({what})", lambda: frame_tail(s, tin, fc),
                     lambda: frame_tail_plain(st, cut_t, tin, fa, fc), k3_work(tin, fa, Vn))
+    t["clusters"] = chosen
+    t["ms_by_clusters"] = {}
+    for c in CLUSTER_SIZES:
+        begin()
+        t["ms_by_clusters"][c] = device_ms(lambda: frame_tail(s, tin, fc, clusters=c))
+    t["share_by_clusters"] = {c: t["bound_ms"] / ms for c, ms in t["ms_by_clusters"].items()}
+    log("  K3 at each cluster size: device ms (share of the bound) " + ", ".join(
+        f"{c}: {ms:.4f} ({t['share_by_clusters'][c]:.1%})"
+        for c, ms in t["ms_by_clusters"].items()))
     s.io = None
     return t
 
@@ -3187,10 +3219,11 @@ def main():
               "kaldi_decoder_tpu/decoders/lattice_dev.py:394", "k3", k3["lattice"], 0.0,
               first_frame_launches=sum(by_path["k3_start"].values()),
               first_frame_launches_by_path=by_path["k3_start"],
+              clusters=k3["lattice"]["clusters"], ms_by_clusters=k3["lattice"]["ms_by_clusters"],
               **{f"{f}_{p}": k3[p][f] for p in ("viterbi", "unfolded", "streaming",
                                                   "streaming_lattice")
                  for f in ("ms", "plain_ms", "bound_ms", "bound_by", "share_of_bound",
-                           "wrapper_ms", "plain_wrapper_ms")}),
+                           "wrapper_ms", "plain_wrapper_ms", "clusters", "ms_by_clusters")}),
         entry("K4 sweep_chunk (backward extra-cost sweep; with eps records, the eps Bellman)",
               "sweep.cu", "kaldi_decoder_tpu/decoders/sweep.py:141", "k4", k4,
               max(k4_err, k4e_err, enc["kernel_errs"]["k4"], sk_err["k4"]),

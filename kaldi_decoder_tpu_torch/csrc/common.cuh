@@ -124,6 +124,51 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned b
       "l"(src), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
 }
+// Wait for the completion of the barrier's phase of parity `parity`, with
+// acquire at cluster scope: what other blocks' stores (store_remote)
+// completed on the phase is visible after it.  A phase still open after
+// some 2^34 cycles (seconds) traps: a store that never came is a fault.
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, unsigned parity) {
+  const long long start = clock64();
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+    if (!done && clock64() - start > (1ll << 34)) __trap();
+  } while (!done);
+}
+
+// ---- Stores into another block's shared memory (sm_90 st.async) ----------
+// The address of *p in block `rank` of the cluster, as a shared::cluster
+// address.
+__device__ __forceinline__ uint32_t cluster_addr(const void* p, unsigned rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(a) : "r"(smem_addr(p)), "r"(rank));
+  return a;
+}
+// Block `rank`'s copy of *dst = v, a store that completes its bytes on
+// that block's copy of the mbarrier *bar (whose phase expects them), so
+// that the receiver waits on its own barrier and on no cluster barrier.
+// The receiver must run (a cluster barrier after its mbar_init) first.
+__device__ __forceinline__ void store_remote(int4* dst, int4 v, uint64_t* bar, unsigned rank) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.s32 [%0], {%1, %2, %3, %4}, [%5];\n"
+      ::"r"(cluster_addr(dst, rank)), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w),
+      "r"(cluster_addr(bar, rank))
+      : "memory");
+}
+__device__ __forceinline__ void store_remote(unsigned* dst, unsigned v, uint64_t* bar,
+                                             unsigned rank) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];\n"
+               ::"r"(cluster_addr(dst, rank)), "r"(v), "r"(cluster_addr(bar, rank))
+               : "memory");
+}
+
 // Order this thread's earlier shared-memory accesses (generic proxy)
 // before bulk copies it issues next into the same memory (async proxy).
 __device__ __forceinline__ void fence_proxy_async() {

@@ -39,29 +39,54 @@
 // source slots and arcs) or the records, and writes one iteration's row
 // of backpointers (K int2) or records (r_eps int4): under 1 MB at B=16.
 //
-// K5's design: B*C blocks, C per row (8, 4, 2 or 1; the most with B*C
-// blocks on the card's SMs and at least MIN_LANES lanes a block).  A
-// row's lanes are cut into C equal ranges; no block needs another's
-// results (the cutoff is given: there is no min pass and no filter
-// barrier, unlike K1), so the C blocks are not a cluster and never wait
-// for each other.  A block whose range holds no remainder lane writes its
-// incumbent and block lanes at once.  A block with remainder lanes first
-// scans the row's K slots as K1 does (csrc/expand.cu steps 1-2, at
-// G = 1): PER consecutive slots a thread, costs and states first, then
-// the active slots' eps_block headers, the remainder degrees
-// max(deg - We, 0) and their block scan; then, for each tile of TILE of
-// its remainder lanes, it places the owners by lane position in shared
-// memory (a slot whose lanes meet the tile writes its start, slot, cost,
-// state and row_lo at its first lane in the tile, and a running max over
-// the positions gives every lane its owner: the reference's scatter-max
-// and running max, whose owner is the last slot with remainder arcs
-// whose start is <= the lane).  Lanes past the total take the last slot
-// with remainder arcs as their owner (slot 0 when none has), as the
-// reference's lane map gives them.  An inactive slot reads row 0 of
-// eps_block, staged in shared memory, as the reference's `safe` index
-// does.  Each thread takes UNROLL lanes at a time, in rounds of loads
-// (the slots, then the arcs) before coalesced writes.  The last block of
-// a row writes its overflow (total > R).
+// K5's design: one cluster of C blocks a row (C = 8, 4, 2 or 1: the
+// largest whose B clusters all run at once with at least MIN_LANES lanes a
+// block).  A lane is at most three dependent loads deep (its slot's cost
+// and state, that state's eps_block header or row, the arc), and a
+// remainder lane also needs the row's scan of remainder degrees up to its
+// owner; the design keeps everything else off that chain.  The row's
+// slots, its incumbent and block lanes and its lanes past the total are
+// each cut into C equal shares (shifts: C is a power of two); the
+// remainder lanes that a block's slots own are written by that block.
+//   1. Every block issues the loads of its first incumbent and block lanes
+//      (each a chain of its slot's cost and state, then its word of the
+//      slot's row; an inactive slot reads row 0 of eps_block, as the
+//      reference's `safe` index does) and of its slots together, then
+//      scans its slots as K1 does (csrc/expand.cu steps 1-2): PER
+//      consecutive slots a thread, costs and states first, then the eps_
+//      block headers, the remainder degrees max(deg - We, 0) of the active
+//      slots; a block scan gives each slot its start in the block and the
+//      block's total.  The block's part (its total, its last slot with
+//      remainder arcs with that slot's state, row_lo and degree, its first
+//      slot's) goes into the shared memory of every block of the cluster
+//      as two 16-byte st.async stores, which complete on the receiver's
+//      mbarrier: no cluster barrier but the one each block arrives at when
+//      it starts (so that every block runs, its mbarrier set, before any
+//      store reaches it).
+//   2. While the parts land, the block places its own owners in its shared
+//      memory by their start in the block (each at its first position in a
+//      window of TILE, with the start, slot, cost, safe state and row_lo)
+//      and runs a running max over the positions (the reference's
+//      scatter-max and running max: a lane's owner is the last slot with
+//      remainder arcs whose start is <= the lane), and writes its first
+//      incumbent and block lanes.
+//   3. Once its mbarrier has the C parts, each warp reduces them: the
+//      block's first start, the row's total (overflow = total > R) and the
+//      pad owner, the last slot with remainder arcs (slot 0 when none has),
+//      which the reference's lane map gives every lane past the total.  The
+//      block writes its owned remainder lanes (below min(total, R)): the
+//      owner in one shared-memory lookup, then its eps_flat arc; then the
+//      rest of its incumbent and block lanes and its share of the lanes
+//      past the total.
+// No block reads another's shared memory, and each waits for every part
+// stored into its own.  A block whose slots own more than TILE remainder
+// lanes places and writes them a window at a time; a block keeps its
+// slots' registers from step 1 to 2 unless they take more than one round
+// of the scan (K/C > CHUNK), and reloads them otherwise.  Each thread
+// takes UNROLL lanes at a time, in rounds of loads before coalesced
+// writes.  Measured (PERF.md, scripts/profile_torch_k5_steps.py): a
+// cluster barrier costs some 0.5 µs on the H100 and a release before it
+// as much; the two dependent loads take half a block's time at B = 1.
 //
 // The eps step's design: one block of STEP_THREADS a row.  The 1-best
 // instance loads UNROLL winning lanes a thread, then their source slots
@@ -71,165 +96,283 @@
 // batch's `go` accumulator and a count of blocks done), so the step
 // replays in a captured frame: every block reads `ran` first; a block
 // whose row is active and changed ORs into the accumulator; each counts
-// itself done with an atomic after a fence (K3's idiom), and the last one
+// itself done with an atomic after a fence, and the last one
 // writes `ran &= go`, the last iteration's budget flags, and clears the
 // accumulator and the count.
 
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int EPS_FIELDS = 2;  // weight bits, next state
-constexpr int THREADS = 512;
-constexpr int PER = 8;                // consecutive slots a thread reads per round
-constexpr int CHUNK = PER * THREADS;  // slots per round
-constexpr int TILE = 1024;            // remainder lanes whose owners are placed at a time
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+constexpr int PER = 4;                // the most consecutive slots a thread reads per round
+constexpr int CHUNK = PER * THREADS;  // the most slots per round
+constexpr int TILE = 2048;            // remainder lane positions a block resolves at a time
 constexpr int POS = TILE / THREADS;   // positions per thread in the running max
-constexpr int MARK = 1 << 12;         // tags an owner's position placed for the tile at hand
-constexpr int UNROLL = 4;             // lanes in flight per thread
+constexpr int MARK = 1 << 12;         // tags an owner's position placed for the window at hand
+constexpr int UNROLL = 8;             // lanes in flight per thread
 constexpr int MIN_LANES = 512;        // the fewest lanes a block of K5 takes
+constexpr int MOST = 8;               // the most blocks a row
 
 __device__ __forceinline__ bool slot_active(float c, float cutoff) {
   return isfinite(c) && c <= cutoff;
 }
 
-__global__ void __launch_bounds__(THREADS) expand_eps_kernel(
+// K5's step marks: the SM clock at each, by thread 0 of row 0's blocks.
+// Built only with KD_STEP_MARKS (scripts/profile_torch_k5_steps.py).
+#ifdef KD_STEP_MARKS
+constexpr int STEP_MARKS = 9;
+__device__ long long k5_marks[MOST * STEP_MARKS];
+#define K5_MARK(i) \
+  if (tid == 0 && b == 0) k5_marks[rank * STEP_MARKS + (i)] = clock64()
+#else
+#define K5_MARK(i)
+#endif
+
+// A block's part of the row's slot scan, as every block of the cluster
+// receives it (two 16-byte stores): its slots' remainder arcs; its last
+// slot with some (-1: none) and that slot's safe state, row_lo and
+// remainder arcs; its first slot's safe state and row_lo.
+struct __align__(16) Part {
+  int units, last, state, lo, nu, state0, lo0, unused;
+};
+
+// Block `rank` of a cluster of 2^lg blocks: its share [x, y) of n items.
+__device__ __forceinline__ int2 even_share(int n, int lg, int rank) {
+  return make_int2((int)(((long)n * rank) >> lg), (int)(((long)n * (rank + 1)) >> lg));
+}
+
+__global__ void __launch_bounds__(THREADS, 2) expand_eps_kernel(
     const int* __restrict__ states, const float* __restrict__ costs,
     const float* __restrict__ cutoff, const int* __restrict__ eps_block,
-    const int* __restrict__ eps_flat, int K, int We, int R, int inc, int C,
-    int* __restrict__ dst, float* __restrict__ cost, int* __restrict__ src_slot,
-    int* __restrict__ src_state, int* __restrict__ arc_id, unsigned char* __restrict__ overflow) {
+    const int* __restrict__ eps_flat, int K, int We, int R, int inc, int* __restrict__ dst,
+    float* __restrict__ cost, int* __restrict__ src_slot, int* __restrict__ src_state,
+    int* __restrict__ arc_id, unsigned char* __restrict__ overflow) {
   const int row_w = We * EPS_FIELDS + 2;
-  // A tile's owners by lane position: s_own maps a position to its
-  // owner's, where the owner's start, slot, cost, safe state and row_lo
-  // are.  Then eps_block's row 0.
-  __shared__ int s_own[TILE];
-  __shared__ int o_start[TILE], o_slot[TILE], o_state[TILE], o_lo[TILE];
+  // A window's owners by the block's remainder position: s_own maps a
+  // position to its owner's, where the owner's arc base (row_lo + We less
+  // its start in the block), slot, cost and safe state are.
+  __shared__ int s_own[TILE], o_base[TILE], o_slot[TILE], o_state[TILE];
   __shared__ float o_cost[TILE];
   __shared__ int scan_tmp[32];
-  __shared__ int s_total, s_last;  // remainder arcs; the last slot with some (-1: none)
-  __shared__ int s_pad[4];         // lanes past the total: their owner's start, slot, state, row_lo
-  extern __shared__ int s_row0[];
+  __shared__ int4 s_wlast[WARPS];  // each warp's last slot with remainder arcs: slot, state, lo, nu
+  __shared__ int2 s_first;         // the block's first slot's safe state and row_lo
+  __shared__ Part s_part[MOST];    // every block's part, pushed by that block
+  __shared__ uint64_t s_parts;     // its phase completes when the C parts have landed
 
-  const int b = blockIdx.x / C;
-  const int rank = blockIdx.x % C;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();  // 1, 2, 4 or 8
+  const int lg = __ffs(C) - 1;
+  const int rank = (int)cluster.block_rank();
+  const int b = blockIdx.x >> lg;
   const int tid = threadIdx.x;
-  const int NB = K * We;
-  const int rbase = inc + NB;  // the first remainder lane
+  const int rbase = inc + K * We;  // the first remainder lane
   const int N = rbase + R;
   const long slot0 = (long)b * K;
   const long lane_row = (long)b * N;
   const float cut = cutoff[b];
-  const int lane0 = (int)((long)N * rank / C);
-  const int lane_end = (int)((long)N * (rank + 1) / C);
+  const int2 kr = even_share(K, lg, rank);     // the block's slots
+  const int2 lr = even_share(rbase, lg, rank);  // its incumbent and block lanes
+  const int2 pr = even_share(R, lg, rank);      // its share of the lanes past the total
+  // Block lane q's slot and arc in its slot's row (We is 1 on every path).
+  const auto slot_of = [We](int q) { return We == 1 ? q : q / We; };
+  const int per = max(1, min(PER, (kr.y - kr.x + THREADS - 1) / THREADS));
+  const int chunk = per * THREADS;
+  const bool one_round = kr.y - kr.x <= chunk;
 
-  for (int i = tid; i < row_w; i += THREADS) s_row0[i] = eps_block[i];
+  K5_MARK(0);
   for (int p = tid; p < TILE; p += THREADS) s_own[p] = -1;
   if (tid == 0) {
-    s_total = 0;
-    s_last = -1;
+    kdtorch::mbar_init(&s_parts, 1);
+    kdtorch::mbar_arrive_expect_tx(&s_parts, C * (unsigned)sizeof(Part));
   }
-  __syncthreads();
+  kdtorch::cluster_arrive();  // the block runs, its barrier is set
+  const int d0 = eps_flat[1];  // the lanes past the total: row 0 of eps_flat
 
-  // The slots [cb + tid*PER, + PER): costs, safe states (0 when inactive),
-  // row_lo (row 0's when inactive) and remainder degrees (0 when inactive).
-  float a[PER];
-  int st[PER], lo[PER], nu[PER];
-  auto load = [&](int cb) {
-    const int k0 = cb + tid * PER;
+  // The block's incumbent and block lanes base + u*THREADS (c: the lane's
+  // source cost, +inf when it has no arc; w: its arc weight), in two
+  // rounds of loads (the slots, then the arcs; an inactive slot reads row
+  // 0 of eps_block, as the reference's `safe` index does) before
+  // coalesced writes.
+  int ld[UNROLL], lss[UNROLL], larc[UNROLL], lw[UNROLL];
+  float lc[UNROLL];
+  auto lanes_slots = [&](int base) {
 #pragma unroll
-    for (int m = 0; m < PER; ++m) {
-      const long k = slot0 + min(k0 + m, K - 1);
-      a[m] = costs[k];
-      st[m] = states[k];
+    for (int u = 0; u < UNROLL; ++u) {
+      const int i = base + u * THREADS;
+      lc[u] = INFINITY;
+      lss[u] = 0;
+      if (i < lr.y) {
+        const long k = slot0 + (i < inc ? i : slot_of(i - inc));
+        lc[u] = costs[k];
+        lss[u] = states[k];
+      }
     }
+  };
+  auto lanes_arcs = [&](int base) {
 #pragma unroll
-    for (int m = 0; m < PER; ++m) {
-      const bool act = k0 + m < K && slot_active(a[m], cut);
-      const int* hdr = eps_block + (long)(act ? st[m] : 0) * row_w + We * EPS_FIELDS;
-      lo[m] = act ? hdr[0] : s_row0[We * EPS_FIELDS];
-      nu[m] = act ? max(hdr[1] - We, 0) : 0;
-      if (!act) st[m] = 0;
+    for (int u = 0; u < UNROLL; ++u) {
+      const int i = base + u * THREADS;
+      lw[u] = 0;
+      if (i >= lr.y) continue;
+      if (i < inc) {  // an incumbent: the token itself, no arc
+        ld[u] = lss[u];
+        larc[u] = -1;
+        lss[u] = -1;
+      } else {
+        const int e = i - inc - slot_of(i - inc) * We;
+        const bool act = slot_active(lc[u], cut);
+        if (!act) {
+          lc[u] = INFINITY;
+          lss[u] = 0;
+        }
+        const int* row = eps_block + (long)lss[u] * row_w;
+        ld[u] = row[e * EPS_FIELDS + 1];
+        larc[u] = row[We * EPS_FIELDS] + e;
+        lw[u] = act ? row[e * EPS_FIELDS] : 0;
+      }
+    }
+  };
+  // An arc lane's cost is alpha + w, +inf above the cutoff (+inf plus a
+  // weight stays +inf); an incumbent's its own.
+  auto lanes_store = [&](int base) {
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const int i = base + u * THREADS;
+      if (i >= lr.y) continue;
+      float cc = lc[u];
+      if (i >= inc) {
+        cc = __fadd_rn(cc, __int_as_float(lw[u]));
+        if (!(cc <= cut)) cc = INFINITY;
+      }
+      const long o = lane_row + i;
+      dst[o] = ld[u];
+      cost[o] = cc;
+      arc_id[o] = larc[u];
+      if (src_slot != nullptr) src_slot[o] = i < inc ? i : slot_of(i - inc);
+      if (src_state != nullptr) src_state[o] = lss[u];
     }
   };
 
-  int total = 0;
-  const bool has_rem = lane_end > rbase;
-  if (has_rem) {
-    // Totals: the row's remainder arcs and its last slot with some.
-    int units = 0, last = -1;
-    for (int cb = 0; cb < K; cb += CHUNK) {
-      load(cb);
+  // The slots kr.x + cb + [tid*per, + per): costs, safe states (0 when
+  // inactive), row_lo (row 0's when inactive) and remainder degrees (0
+  // when inactive or past the block's slots).
+  float a[PER];
+  int st[PER], lo[PER], nu[PER];
+  auto load_slots = [&](int cb) {
+    const int k0 = kr.x + cb + tid * per;
 #pragma unroll
-      for (int m = 0; m < PER; ++m) {
-        units += nu[m];
-        if (nu[m] > 0) last = cb + tid * PER + m;
+    for (int m = 0; m < PER; ++m) {
+      const long k = slot0 + min(k0 + m, K - 1);
+      if (m < per) {
+        a[m] = costs[k];
+        st[m] = states[k];
       }
     }
-    units = __reduce_add_sync(0xffffffffu, units);
-    last = __reduce_max_sync(0xffffffffu, last);
-    if ((tid & 31) == 0) {
-      atomicAdd(&s_total, units);
-      atomicMax(&s_last, last);
+  };
+  auto load_heads = [&](int cb) {
+    const int k0 = kr.x + cb + tid * per;
+#pragma unroll
+    for (int m = 0; m < PER; ++m) {
+      const bool act = m < per && k0 + m < kr.y && slot_active(a[m], cut);
+      if (!act) st[m] = 0;
+      const int* hdr = eps_block + (long)st[m] * row_w + We * EPS_FIELDS;
+      lo[m] = hdr[0];
+      nu[m] = act ? max(hdr[1] - We, 0) : 0;
     }
-    __syncthreads();
-    total = s_total;
-    // The lanes past the total: owned by the last slot with remainder
-    // arcs (its start is the total less its arcs), else slot 0.
-    const int o_pad = max(s_last, 0);
-    auto set_pad = [&](int s, int l, int n) {
-      s_pad[0] = s_last >= 0 ? total - n : 0;
-      s_pad[1] = o_pad;
-      s_pad[2] = s;
-      s_pad[3] = l;
-    };
-    if (K <= CHUNK) {
+  };
+
+  // 1. The block's first lanes and its slots, loads in flight together;
+  // then the block's remainder arcs, its last slot with some, and (one
+  // round) each thread's first start in the block.
+  const int lb0 = lr.x + tid;
+  lanes_slots(lb0);
+  load_slots(0);
+  lanes_arcs(lb0);
+  int pre = 0, units = 0;
+  int4 last = make_int4(-1, 0, 0, 0);  // the thread's last slot with remainder arcs
+  {
+    int sum = 0, cb = 0;
+    do {  // once at least, so that a block with no slots has no remainder degrees
+      if (cb > 0) load_slots(cb);
+      load_heads(cb);
+      if (cb == 0 && tid == 0) s_first = make_int2(st[0], lo[0]);
 #pragma unroll
       for (int m = 0; m < PER; ++m) {
-        if (tid * PER + m == o_pad) set_pad(st[m], lo[m], nu[m]);
+        sum += nu[m];
+        if (nu[m] > 0) last = make_int4(kr.x + cb + tid * per + m, st[m], lo[m], nu[m]);
       }
-    } else if (tid == 0) {
-      const long k = slot0 + o_pad;
-      const float c = costs[k];
-      const int s = states[k];
-      const bool act = slot_active(c, cut);
-      const int* hdr = eps_block + (long)(act ? s : 0) * row_w + We * EPS_FIELDS;
-      set_pad(act ? s : 0, act ? hdr[0] : s_row0[We * EPS_FIELDS],
-              act ? max(hdr[1] - We, 0) : 0);
-    }
-    __syncthreads();
-    if (rank == C - 1 && tid == 0) overflow[b] = total > R;
+      cb += chunk;
+    } while (cb < kr.y - kr.x);
+    K5_MARK(1);
+    const int wl = __reduce_max_sync(0xffffffffu, last.x);
+    if (wl < 0 ? (tid & 31) == 0 : last.x == wl) s_wlast[tid >> 5] = last;
+    pre = kdtorch::block_exclusive_scan(sum, scan_tmp, &units);  // its barriers publish s_wlast
   }
 
-  // The owners of remainder lanes [j0, j1] by position j - j0.  With
-  // `fresh`, the registers still hold the totals' round, when there was
-  // only one.  An owner's position is marked with MARK added, so that what
-  // an earlier tile left (positions below MARK) loses every max to this
-  // tile's marks; position 0 is always marked (by the owner of j0).
-  auto place = [&](int j0, int j1, bool fresh) {
-    const int L = j1 - j0 + 1;
-    int before = 0;  // remainder arcs of the rounds before
-    for (int cb = 0; cb < K && before <= j1; cb += CHUNK) {
-      if (!fresh || K > CHUNK) load(cb);
-      int sum = 0;
+  K5_MARK(2);
+  // The block's part, into every block of the cluster.
+  kdtorch::cluster_wait();  // every block runs
+  K5_MARK(3);
+  if (tid < 32) {  // the block's last slot with remainder arcs, from its warps'
+    const int4 w = tid < WARPS ? s_wlast[tid] : make_int4(-1, 0, 0, 0);
+    const int top = __reduce_max_sync(0xffffffffu, w.x);
+    const int at = __ffs(__ballot_sync(0xffffffffu, w.x == top)) - 1;
+    const int4 l = make_int4(top, __shfl_sync(0xffffffffu, w.y, at),
+                             __shfl_sync(0xffffffffu, w.z, at), __shfl_sync(0xffffffffu, w.w, at));
+    if (tid < C) {
+      int4* to = reinterpret_cast<int4*>(s_part + rank);
+      kdtorch::store_remote(to, make_int4(units, l.x, l.y, l.z), &s_parts, tid);
+      kdtorch::store_remote(to + 1, make_int4(l.w, s_first.x, s_first.y, 0), &s_parts, tid);
+    }
+  }
+
+  K5_MARK(4);
+  // 2. While the parts land: the owners of the block's first window of
+  // remainder positions [w0, w0 + TILE), each slot's arcs at its start in
+  // the block.  An owner's span [start, start + n) is placed at its first
+  // position in the window (0 when it owns the window's first position)
+  // with MARK added, so that what an earlier window left (below MARK)
+  // loses every max to this window's; a running max gives every position
+  // its owner (the reference's scatter-max and running max: the last slot
+  // with remainder arcs whose start is <= the lane).
+  auto place_slots = [&](int w0, int start, int cb) {
 #pragma unroll
-      for (int m = 0; m < PER; ++m) sum += nu[m];
-      int round_units;
-      int start = before + kdtorch::block_exclusive_scan(sum, scan_tmp, &round_units);
-#pragma unroll
-      for (int m = 0; m < PER; ++m) {
-        if (nu[m] > 0 && start <= j1 && start + nu[m] > j0) {
-          const int p = max(start, j0) - j0;
-          s_own[p] = MARK + p;
-          o_start[p] = start;
-          o_slot[p] = cb + tid * PER + m;
-          o_cost[p] = a[m];
-          o_state[p] = st[m];
-          o_lo[p] = lo[m];
-        }
-        start += nu[m];
+    for (int m = 0; m < PER; ++m) {
+      const int n = nu[m];
+      if (n > 0 && start < w0 + TILE && start + n > w0) {
+        const int p = max(start, w0) - w0;
+        s_own[p] = MARK + p;
+        o_base[p] = lo[m] + We - start;
+        o_slot[p] = kr.x + cb + tid * per + m;
+        o_cost[p] = a[m];
+        o_state[p] = st[m];
       }
-      before += round_units;
+      start += n;
+    }
+  };
+  auto place_window = [&](int w0, int L) {
+    if (one_round) {
+      place_slots(w0, pre, 0);
+    } else {
+      int before = 0;
+      for (int cb = 0; cb < kr.y - kr.x && before < w0 + TILE; cb += chunk) {
+        load_slots(cb);
+        load_heads(cb);
+        int sum = 0;
+#pragma unroll
+        for (int m = 0; m < PER; ++m) sum += nu[m];
+        int round_units;
+        const int start = before + kdtorch::block_exclusive_scan(sum, scan_tmp, &round_units);
+        place_slots(w0, start, cb);
+        before += round_units;
+      }
     }
     __syncthreads();
     int mark[POS], top = -1;
@@ -250,106 +393,86 @@ __global__ void __launch_bounds__(THREADS) expand_eps_kernel(
     }
     __syncthreads();
   };
+  if (units > 0) place_window(0, min(units, TILE));
+  lanes_store(lb0);
 
-  bool placed = false;
-  for (int t0 = lane0; t0 < lane_end; t0 += TILE) {
-    const int t1 = min(t0 + TILE, lane_end);
-    // The tile's valid remainder lanes [j0, j1] (none: j0 > j1).
-    const int j0 = max(t0, rbase) - rbase;
-    const int j1 = min(t1 - 1 - rbase, total - 1);
-    if (t1 > rbase && j0 <= j1) {
-      if (placed) __syncthreads();  // every thread is done with the tile before's owners
-      place(j0, j1, !placed);
-      placed = true;
-    }
-    for (int base = t0 + tid; base < t1; base += UNROLL * THREADS) {
-      // c is the lane's source cost (+inf: no arc), w its arc weight.
-      int d[UNROLL], ss[UNROLL], sl[UNROLL], arc[UNROLL], w[UNROLL];
-      float c[UNROLL];
-      // Round one: the incumbent and block lanes' slots.
+  K5_MARK(5);
+  // 3. The row's totals, from every block's part (each warp reads them).
+  kdtorch::mbar_wait_cluster(&s_parts, 0);
+  K5_MARK(6);
+  const int lane = tid & 31;
+  Part q{0, -1, 0, 0, 0, 0, 0, 0};
+  if (lane < C) q = s_part[lane];
+  const int total = __reduce_add_sync(0xffffffffu, q.units);
+  const int first = __reduce_add_sync(0xffffffffu, lane < rank ? q.units : 0);
+  const int last_all = __reduce_max_sync(0xffffffffu, q.last);
+  // The pad owner's part: the block of the last slot with remainder arcs,
+  // else the block of slot 0.
+  const bool holds0 = lane < C && even_share(K, lg, lane).x == 0 && even_share(K, lg, lane).y > 0;
+  const int hp = __ffs(__ballot_sync(0xffffffffu, last_all >= 0 ? q.last == last_all && lane < C
+                                                               : holds0)) - 1;
+  const int p_state = __shfl_sync(0xffffffffu, last_all >= 0 ? q.state : q.state0, hp);
+  const int p_lo = __shfl_sync(0xffffffffu, last_all >= 0 ? q.lo : q.lo0, hp);
+  const int p_nu = __shfl_sync(0xffffffffu, q.nu, hp);
+  if (rank == 0 && tid == 0) overflow[b] = total > R;
+  const int owned = min(total, R);  // remainder lanes [0, owned) have an owner's arc
+
+  // 4. The block's owned remainder lanes first + [0, span), a window at a
+  // time: the owner in one shared-memory lookup, then its eps_flat arc.
+  const int span = min(units, max(owned - first, 0));
+  for (int w0 = 0; w0 < span; w0 += TILE) {
+    if (w0 > 0) place_window(w0, min(units - w0, TILE));
+    const int L = min(span - w0, TILE);
+    for (int p00 = tid; p00 < L; p00 += UNROLL * THREADS) {
+      int d[UNROLL], w[UNROLL], o[UNROLL];
 #pragma unroll
       for (int u = 0; u < UNROLL; ++u) {
-        const int i = base + u * THREADS;
-        c[u] = INFINITY;
-        ss[u] = 0;
-        if (i < t1 && i < rbase) {
-          const long k = slot0 + (i < inc ? i : (i - inc) / We);
-          c[u] = costs[k];
-          ss[u] = states[k];
-        }
-      }
-      // Round two: every arc lane's arc, from its slot's row or eps_flat.
-#pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        const int i = base + u * THREADS;
-        w[u] = 0;
-        if (i >= t1) continue;
-        if (i < inc) {  // an incumbent: the token itself, no arc
-          d[u] = ss[u];
-          sl[u] = i;
-          arc[u] = -1;
-          ss[u] = -1;
-        } else if (i < rbase) {
-          const int q = i - inc;
-          const int k = q / We;
-          const int e = q - k * We;
-          const bool act = slot_active(c[u], cut);
-          const int* row = eps_block + (long)(act ? ss[u] : 0) * row_w;
-          d[u] = act ? row[e * EPS_FIELDS + 1] : s_row0[e * EPS_FIELDS + 1];
-          arc[u] = (act ? row[We * EPS_FIELDS] : s_row0[We * EPS_FIELDS]) + e;
-          w[u] = act ? row[e * EPS_FIELDS] : 0;
-          if (!act) {
-            c[u] = INFINITY;
-            ss[u] = 0;
-          }
-          sl[u] = k;
-        } else {
-          const int j = i - rbase;
-          const bool valid = j < total;
-          int ostart, o, ostate, olo;
-          float oc = INFINITY;
-          if (valid) {
-            const int p = s_own[j - j0];
-            ostart = o_start[p];
-            o = o_slot[p];
-            oc = o_cost[p];
-            ostate = o_state[p];
-            olo = o_lo[p];
-          } else {
-            ostart = s_pad[0];
-            o = s_pad[1];
-            ostate = s_pad[2];
-            olo = s_pad[3];
-          }
-          arc[u] = olo + We - ostart + j;
-          const int* fr = eps_flat + (long)(valid ? arc[u] : 0) * EPS_FIELDS;
+        const int p = p00 + u * THREADS;
+        if (p < L) {
+          o[u] = s_own[p];
+          const int* fr = eps_flat + (long)(o_base[o[u]] + w0 + p) * EPS_FIELDS;
           d[u] = fr[1];
-          w[u] = valid ? fr[0] : 0;
-          c[u] = oc;
-          ss[u] = ostate;
-          sl[u] = o;
+          w[u] = fr[0];
         }
       }
-      // The writes: an arc lane's cost is alpha + w, +inf above the
-      // cutoff (+inf plus a weight stays +inf); an incumbent's its own.
 #pragma unroll
       for (int u = 0; u < UNROLL; ++u) {
-        const int i = base + u * THREADS;
-        if (i >= t1) continue;
-        float cc = c[u];
-        if (i >= inc) {
-          cc = __fadd_rn(cc, __int_as_float(w[u]));
-          if (!(cc <= cut)) cc = INFINITY;
-        }
-        const long o = lane_row + i;
-        dst[o] = d[u];
-        cost[o] = cc;
-        arc_id[o] = arc[u];
-        if (src_slot != nullptr) src_slot[o] = sl[u];
-        if (src_state != nullptr) src_state[o] = ss[u];
+        const int p = p00 + u * THREADS;
+        if (p >= L) continue;
+        float cc = __fadd_rn(o_cost[o[u]], __int_as_float(w[u]));
+        if (!(cc <= cut)) cc = INFINITY;
+        const long at = lane_row + rbase + first + w0 + p;
+        dst[at] = d[u];
+        cost[at] = cc;
+        arc_id[at] = o_base[o[u]] + w0 + p;
+        if (src_slot != nullptr) src_slot[at] = o_slot[o[u]];
+        if (src_state != nullptr) src_state[at] = o_state[o[u]];
       }
     }
+    __syncthreads();  // every thread is done with the window's owners
   }
+
+  K5_MARK(7);
+  // 5. The rest of the block's incumbent and block lanes; its share of the
+  // lanes past the total: the pad owner's arcs (its start is the total
+  // less its arcs; slot 0's from 0 when no slot has remainder arcs), row 0
+  // of eps_flat, +inf.
+  for (int base = lb0 + UNROLL * THREADS; base < lr.y; base += UNROLL * THREADS) {
+    lanes_slots(base);
+    lanes_arcs(base);
+    lanes_store(base);
+  }
+  const int pad_base = p_lo + We - (last_all >= 0 ? total - p_nu : 0);
+  const int pad_slot = max(last_all, 0);
+  for (int j = max(pr.x, owned) + tid; j < pr.y; j += THREADS) {
+    const long at = lane_row + rbase + j;
+    dst[at] = d0;
+    cost[at] = INFINITY;
+    arc_id[at] = pad_base + j;
+    if (src_slot != nullptr) src_slot[at] = pad_slot;
+    if (src_state != nullptr) src_state[at] = p_state;
+  }
+  K5_MARK(8);
 }
 
 // ---- The eps step -----------------------------------------------------------
@@ -460,49 +583,54 @@ __global__ void __launch_bounds__(STEP_THREADS) eps_step_kernel(StepArgs a) {
   }
 }
 
-int sm_count() {
-  int dev = 0, n = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
-    cudaGetLastError();
-    return 0;
-  }
-  return n;
-}
-
 }  // namespace
 
-// The blocks a row K5 launches with for B rows of N lanes: the largest of
-// 8, 4, 2, 1 with B*C blocks on the card's SMs and N/C >= MIN_LANES.
+// The blocks a row (a cluster) K5 launches with for B rows of N lanes:
+// kdtorch::pick_cluster's choice, at most the largest of 8, 4, 2, 1 with
+// N/C >= MIN_LANES; 0 when none fits.
 extern "C" int kd_expand_eps_blocks(int B, int N) {
-  const int sms = sm_count();
-  int c = 8;
-  while (c > 1 && ((long)B * c > sms || N / c < MIN_LANES)) c /= 2;
-  return c;
+  int most = MOST;
+  while (most > 1 && N / most < MIN_LANES) most /= 2;
+  return kdtorch::pick_cluster(expand_eps_kernel, B, THREADS, N, [](int) { return (size_t)0; },
+                               most);
 }
 
-// Launches K5 on `stream`: B*C blocks (C = `blocks`, or
+#ifdef KD_STEP_MARKS
+// The last K5 launch's marks, row 0's blocks in rank order (MOST *
+// STEP_MARKS int64), and the SM's rated clock in kHz.
+extern "C" int kd_expand_eps_marks(long long* clock, int* clock_khz) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(clock_khz, cudaDevAttrClockRate, dev);
+  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(clock, k5_marks, sizeof(k5_marks));
+  return (int)e;
+}
+#endif
+
+// Launches K5 on `stream`: B clusters of C blocks (C = `blocks`, or
 // kd_expand_eps_blocks when 0).  Shapes: states/costs (B, K), cutoff (B,),
 // eps_block (S, We*2+2), eps_flat (E, 2) int32; outputs dst/cost/arc_id
 // (B, N) with N = inc + K*We + R (inc: 0, or K for the incumbents first),
 // src_slot and src_state (B, N) or null (then not written), overflow (B,)
-// bytes.  Returns the launch's CUDA error (0 on success).
+// bytes.  Returns the launch's CUDA error (0 on success; a refused cluster
+// launch is reported).
 extern "C" int kd_expand_eps(const void* states, const void* costs, const void* cutoff,
                              const void* eps_block, const void* eps_flat, int B, int K, int We,
                              int R, int inc, int blocks, void* dst, void* cost, void* src_slot,
                              void* src_state, void* arc_id, void* overflow, void* stream) {
-  if (B < 1 || K < 1 || We < 1 || R < 1 || (inc != 0 && inc != K))
+  if (B < 1 || K < 1 || We < 1 || R < 1 || (inc != 0 && inc != K) || blocks < 0 ||
+      blocks > MOST || (blocks & (blocks - 1)) != 0)
     return (int)cudaErrorInvalidValue;
   const int N = inc + K * We + R;
   const int C = blocks > 0 ? blocks : kd_expand_eps_blocks(B, N);
-  const size_t smem = (size_t)(We * EPS_FIELDS + 2) * sizeof(int);
-  expand_eps_kernel<<<B * C, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+  if (C < 1) return (int)cudaErrorInvalidConfiguration;
+  return (int)kdtorch::launch_cluster(
+      expand_eps_kernel, B * C, C, THREADS, 0, static_cast<cudaStream_t>(stream),
       static_cast<const int*>(states), static_cast<const float*>(costs),
       static_cast<const float*>(cutoff), static_cast<const int*>(eps_block),
-      static_cast<const int*>(eps_flat), K, We, R, inc, C, static_cast<int*>(dst),
+      static_cast<const int*>(eps_flat), K, We, R, inc, static_cast<int*>(dst),
       static_cast<float*>(cost), static_cast<int*>(src_slot), static_cast<int*>(src_state),
       static_cast<int*>(arc_id), static_cast<unsigned char*>(overflow));
-  return (int)cudaGetLastError();
 }
 
 // Launches the eps step of iteration d of D on `stream`: B blocks, the

@@ -23,35 +23,60 @@
 // serves every frame and every chunk length: the start kernel writes the
 // chunk's tensors and t = 0 there; each frame's tail reads t, writes row t
 // and the next frame's inputs of K1 (cutoff, adaptive_beam, the scores
-// row t + 1, and the rows still active), and the last block to finish
+// row t + 1, and the rows still active), and the last row to finish
 // advances t.
 //
-// What bounds it: bytes.  A block reads the row's frontier (K states and
-// costs) and its records (R rows of 16 bytes; eps records D * Re rows; on
-// the 1-best path the K backpointers gathered from K1's lanes and D * K
-// eps backpointers) and writes them once into the chunk's buffers and the
-// carried state: about 6 MB at B = 16, K 4096, R 8192, under 2 µs at the
-// card's 3.35 TB/s.  With one block a row and B = 16 it runs on 16 SMs, so
-// what it reaches is what 16 SMs can move, a few µs; that is well under
-// the frame, and the loop's launches, which it replaces, cost far more.
+// What bounds it: bytes at B = 16, latency at B = 1.  A row's frontier (K
+// states and costs), its records (R rows of 16 bytes; eps records D * Re
+// rows; on the 1-best path the K backpointers gathered from K1's lanes and
+// D * K eps backpointers) are read and written once into the chunk's
+// buffers and the carried state: about 6 MB at B = 16, K 4096, R 8192,
+// under 2 µs at the card's 3.35 TB/s.  At B = 1 the bytes take well under
+// 0.1 µs, and what is left is the chain of dependent steps.
 //
-// The design: one block of THREADS a row, K <= 4096 slots a row (8 slots
-// a thread at K 4096).  The frontier, the records (one int4 a record) and
-// the backpointers (one int2 a slot) are copied with coalesced loads and
-// stores, UNROLL loads in flight a thread before its stores, so that 16
-// blocks still keep many bytes in flight; the counts of finite costs are
-// block sums; one thread then runs GetCutoff on the row it has just
-// written (visible to it after the block's barrier).  Every block reads
-// the frame index once, at its start; each counts itself done with an
-// atomic after a fence, and the last one writes t + 1 and clears the
-// count, so no block can see the new t before every block has read the
-// old one.
+// The design: a cluster of G blocks of THREADS a row (G = 8, 4, 2 or 1:
+// the largest whose B clusters all run at once with at least MIN_SLOTS
+// slots a block; the shares by shifts), so that at B = 16 some 128 SMs
+// move the bytes.  Block r takes its 1/G of each of the row's arrays
+// (ranges of a multiple of 32 items, in rank order; a block may own none):
+// its frontier slots, its records or backpointers, its part of the next
+// scores row.  Nothing of
+// that waits on another block.  A thread issues its loads before it needs
+// to know whether the row is live: the frame's frontier, records and
+// backpointer inputs are read at once (a frozen row then reads its
+// carried slots), the scores row as soon as t is known.  The counts of
+// finite costs (final and before the rebase) are one packed sum a warp,
+// which each block stores into rank 0's shared memory with st.async (after
+// the one cluster barrier, which tells that rank 0 runs with its mbarrier
+// set); the other blocks are then done, and rank 0 waits on its mbarrier
+// for the G * WARPS counts and adds them in its own shared memory.  Rank
+// 0 runs GetCutoff from the row's inputs, loaded at its start beside t (a
+// live row's costs at 0, max_active and min_active less m_safe, the
+// subtraction the copy makes; a frozen row's carried costs, which no block
+// writes), so no block reads back what another has just written.  What a
+// row's blocks read and the tail writes in place is written only by the
+// block that reads it (the old cutoff, the carried best cost of a frozen
+// row) or by rank 0 once every block has stored its counts, which it does
+// after it has read it (the base).  The frame index: every thread reads t
+// at its start and arrives at the cluster barrier with it in hand; rank
+// 0's second warp waits there at once and counts the row done with an
+// atomic whose answer it reads at its end, so the round trip overlaps the
+// copies; the last of the B rows writes t + 1 and clears the count, so no
+// block sees the new t before every block has read the old one.
+
+#include <cooperative_groups.h>
 
 #include "common.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int THREADS = 512;
+constexpr int START_THREADS = 512;  // the first-frame mode: one block a row
+constexpr int THREADS = 256;        // a block of the tail's cluster
+constexpr int WARPS = THREADS / 32;
+constexpr int MIN_SLOTS = 256;      // the fewest frontier slots a block of the tail takes
+constexpr int MOST = 8;             // the most blocks a row
 constexpr int OUTS = 9;  // the lattice frame's outputs; the 1-best frame has 7
 
 // The frame's arguments in device memory, as int64 words (kernels/frame.py
@@ -59,7 +84,7 @@ constexpr int OUTS = 9;  // the lattice frame's outputs; the 1-best frame has 7
 struct FrameArgs {
   long long t;               // the frame to run
   long long frames;          // the chunk's frame count C
-  unsigned long long done;   // blocks done with frame t
+  unsigned long long done;   // rows done with frame t
   const float* scores;       // (C, B, V)
   const int* lengths;        // (B,) frames still to decode from t = 0
   void* out[OUTS];           // the stacked outputs, in LatticeStepOut / StepOut order
@@ -69,15 +94,14 @@ struct Cut {
   float cutoff, adaptive;
 };
 
-// GetCutoff of one cost-sorted row with `count` finite costs, with the
+// GetCutoff of one cost-sorted row with `count` finite costs, given its
+// costs at 0, min(max_active, K-1) and min(min_active, K-1), with the
 // plain version's branch order and float arithmetic (ops/cutoff.py).
-__device__ Cut get_cutoff(const float* costs, int count, int K, float beam, int max_active,
-                          int min_active, float beam_delta) {
-  const float best = costs[0];
+__device__ Cut get_cutoff(float best, float at_max, float at_min, int count, float beam,
+                          int max_active, int min_active, float beam_delta) {
   const float beam_cutoff = best + beam;
-  const float max_cut = count > max_active ? costs[min(max_active, K - 1)] : INFINITY;
-  const float min_cut =
-      count > min_active ? (min_active == 0 ? best : costs[min(min_active, K - 1)]) : INFINITY;
+  const float max_cut = count > max_active ? at_max : INFINITY;
+  const float min_cut = count > min_active ? (min_active == 0 ? best : at_min) : INFINITY;
   const bool use_max = max_cut < beam_cutoff;
   const bool use_min = !use_max && min_cut > beam_cutoff;
   Cut c;
@@ -88,26 +112,42 @@ __device__ Cut get_cutoff(const float* costs, int count, int K, float beam, int 
 }
 
 // Loads a thread keeps in flight before its stores: a frontier's slots,
-// a row's records or backpointers.
+// a row's records or backpointers, the scores row.
 constexpr int UNROLL = 8;
 
-// dst[i] = live ? src[i] : fill(i) for i < n, by the block: UNROLL loads a
-// thread issued before any of its stores.
+// dst[i] = live ? src[i] : fill(i) for i in [r.x, r.y), by the block:
+// UNROLL loads a thread issued before any of its stores.  The loads do
+// not wait for `live`: a frozen row's inputs are read and dropped.
 template <typename T, typename Fill>
-__device__ __forceinline__ void copy_row(T* dst, const T* src, int n, bool live, Fill fill) {
-  for (int i0 = threadIdx.x; i0 < n; i0 += UNROLL * blockDim.x) {
+__device__ __forceinline__ void copy_share(T* dst, const T* src, int2 r, bool live, Fill fill) {
+  for (int i0 = r.x + (int)threadIdx.x; i0 < r.y; i0 += UNROLL * THREADS) {
     T v[UNROLL];
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
-      const int i = i0 + u * blockDim.x;
-      if (i < n) v[u] = live ? src[i] : fill(i);
+      const int i = i0 + u * THREADS;
+      if (i < r.y) v[u] = src[i];
     }
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
-      const int i = i0 + u * blockDim.x;
-      if (i < n) dst[i] = v[u];
+      const int i = i0 + u * THREADS;
+      if (i < r.y) dst[i] = live ? v[u] : fill(i);
     }
   }
+}
+
+// Block `rank` of 2^lg's share [x, y) of n items: ranges of a multiple of
+// 32 items in rank order (a block may own none).
+__device__ __forceinline__ int2 share(int n, int lg, int rank) {
+  const int per = (((n + (1 << lg) - 1) >> lg) + 31) & ~31;
+  const int lo = min(n, rank * per);
+  return make_int2(lo, min(n, lo + per));
+}
+
+// x as the compiler must have it here: its first use, and the wait for the
+// load that gives it, stay after the loads issued before this point.
+__device__ __forceinline__ int pin(int x) {
+  asm volatile("" : "+r"(x));
+  return x;
 }
 
 __device__ __forceinline__ int block_sum(int v, int* smem) {
@@ -144,10 +184,11 @@ struct StartIn {
   void* out[OUTS];
 };
 
-// The first-frame mode: the chunk's start state into the slots, its
-// GetCutoff, scores row 0, the active rows; block 0 writes FrameArgs.
-__global__ void __launch_bounds__(THREADS) frame_start_kernel(FrameArgs* args, Config cfg,
-                                                              Slots s, StartIn in) {
+// The first-frame mode, once a chunk: one block a row.  The chunk's start
+// state into the slots, its GetCutoff, scores row 0, the active rows;
+// block 0 writes FrameArgs.
+__global__ void __launch_bounds__(START_THREADS) frame_start_kernel(FrameArgs* args, Config cfg,
+                                                                    Slots s, StartIn in) {
   __shared__ int smem[32];
   const int b = blockIdx.x;
   const size_t row = (size_t)b * cfg.K;
@@ -163,10 +204,12 @@ __global__ void __launch_bounds__(THREADS) frame_start_kernel(FrameArgs* args, C
   const int len = in.lengths[b];
   if (threadIdx.x == 0) {
     s.base[b] = in.st0_base[b];
-    const Cut c = get_cutoff(s.costs + row, n, cfg.K, cfg.beam, cfg.max_active, cfg.min_active,
-                             cfg.beam_delta);
-    s.cutoff[b] = c.cutoff;
-    s.adaptive_beam[b] = c.adaptive;
+    const float* c = s.costs + row;
+    const Cut cut = get_cutoff(c[0], c[min(cfg.max_active, cfg.K - 1)],
+                               c[min(cfg.min_active, cfg.K - 1)], n, cfg.beam, cfg.max_active,
+                               cfg.min_active, cfg.beam_delta);
+    s.cutoff[b] = cut.cutoff;
+    s.adaptive_beam[b] = cut.adaptive;
     s.active[b] = 0 < len;
   }
   if (in.frames > 0) {
@@ -209,57 +252,117 @@ struct TailIn {
 template <bool LATTICE>
 __global__ void __launch_bounds__(THREADS) frame_tail_kernel(FrameArgs* args, Config cfg,
                                                              Slots s, TailIn in) {
-  __shared__ int smem[32];
-  __shared__ long long sh_t;
-  const int b = blockIdx.x;
+  __shared__ unsigned s_part[MOST * WARPS];  // rank 0's: every warp's counts, packed
+  __shared__ uint64_t s_counts;               // rank 0's: complete when they have landed
+  cg::cluster_group cluster = cg::this_cluster();
+  const int G = (int)cluster.num_blocks();  // 1, 2, 4 or 8
+  const int lg = __ffs(G) - 1;
+  const int rank = (int)cluster.block_rank();
+  const int b = blockIdx.x >> lg;
+  const int tid = threadIdx.x;
   const int K = cfg.K;
-  if (threadIdx.x == 0) sh_t = args->t;
-  __syncthreads();
-  const long long t = sh_t;
-  const int len = args->lengths[b];
-  const bool fa = t < len;
   const size_t row = (size_t)b * K;
-  const size_t orow = (size_t)t * cfg.B + b;  // row (t, b) of the stacked outputs
-  const float m = in.mid_costs[row];
-  const float m_safe = isfinite(m) ? m : 0.0f;
-  const float base_old = s.base[b];
-  const float base_new = fa ? base_old + m_safe : base_old;
-  const float s0 = s.costs[row];  // the carried best cost (read before any write)
-  __syncthreads();
+  const bool lead = rank == 0 && tid == 0;  // writes the row's scalars
+  const bool counter = rank == 0 && (tid >> 5) == 1;  // the warp that counts the row done
+  if (lead) {
+    kdtorch::mbar_init(&s_counts, 1);
+    kdtorch::mbar_arrive_expect_tx(&s_counts, G * WARPS * (unsigned)sizeof(unsigned));
+  }
 
+  // What does not wait: the frame index and the chunk's tensors, the row's
+  // length, best cost and base (every thread, a broadcast load); rank 0's
+  // GetCutoff inputs and flags.
+  const long long t = __ldcg(&args->t);
+  const long long frames = args->frames;
+  const float* scores = args->scores;
+  const int* lengths = args->lengths;
+  const float m = in.mid_costs[row];
+  const float base_old = s.base[b];
+  const int i_max = min(cfg.max_active, K - 1), i_min = min(cfg.min_active, K - 1);
+  float at_max = 0.0f, at_min = 0.0f, cut_old = 0.0f;
+  bool ovf = false, sat = false;
+  if (lead) {
+    at_max = in.mid_costs[row + i_max];
+    at_min = in.mid_costs[row + i_min];
+    cut_old = s.cutoff[b];
+    ovf = in.em_ovf[b];
+    if (LATTICE) ovf = ovf || in.rec_ovf[b];
+    if (in.eps_ovf) ovf = ovf || in.eps_ovf[b];
+    sat = in.num_unique[b] > K;
+    if (in.eps_sat) sat = sat || in.eps_sat[b];
+  }
+  const int len = lengths[b];
+  // The block's part of the next scores row: its first loads, once t is known.
+  const int2 vr = share(cfg.V, lg, rank);
+  const bool next = t + 1 < frames;
+  const float* vsrc = scores + ((size_t)(t + 1) * cfg.B + b) * cfg.V;
+  float* vdst = s.scores_t + (size_t)b * cfg.V;
+  constexpr int VU = 2;
+  float sv[VU];
+#pragma unroll
+  for (int u = 0; u < VU; ++u) {
+    const int i = vr.x + tid + u * THREADS;
+    if (next && i < vr.y) sv[u] = vsrc[i];
+  }
+  if (t < 0) __trap();  // t in hand (a branch on it) before the barrier
+  kdtorch::cluster_arrive();  // the one cluster barrier: the block runs and has read t
+  // Every block of the row has read t: rank 0's second warp counts the row
+  // done at once, and reads the count at its end.
+  unsigned long long seen = 0;
+  if (counter) {
+    kdtorch::cluster_wait();
+    if (tid == 32) seen = atomicAdd(&args->done, 1ull);
+  }
+
+  // The block's slots of the frontier the row keeps: the frame's, read at
+  // once; the carried one when the row is frozen.
+  const size_t orow = (size_t)t * cfg.B + b;  // row (t, b) of the stacked outputs
+  const int2 kr = share(K, lg, rank);
   int n_final = 0, n_mid = 0;
+  bool fa = false;
+  float m_safe = 0.0f, base_new = base_old;
   int* out_states = LATTICE ? static_cast<int*>(args->out[2]) + orow * K : nullptr;
   float* out_costs = LATTICE ? static_cast<float*>(args->out[3]) + orow * K : nullptr;
   int2* out_bp = LATTICE ? nullptr : static_cast<int2*>(args->out[0]) + orow * K;
-  for (int k0 = threadIdx.x; k0 < K; k0 += UNROLL * blockDim.x) {
-    // The thread's slots of the frontier the row keeps (the frame's, or
-    // the carried one when frozen), loads first.
+  for (int k0 = kr.x + tid; k0 < kr.y; k0 += UNROLL * THREADS) {
     int st[UNROLL], ci[UNROLL];
     float c[UNROLL];
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const int k = k0 + u * blockDim.x;
-      if (k < K) {
-        st[u] = fa ? in.mid_states[row + k] : s.states[row + k];
-        c[u] = fa ? in.mid_costs[row + k] : s.costs[row + k];
-        ci[u] = LATTICE || !fa ? -1 : in.cand_idx[row + k];
-      }
-    }
     int2 bp[UNROLL];  // 1-best: each slot's winning lane's (source slot, arc)
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
-      const int k = k0 + u * blockDim.x;
-      if (!LATTICE && k < K) {
-        const size_t lane = (size_t)b * in.N + (ci[u] >= 0 ? ci[u] : 0);
-        bp[u] = !fa ? make_int2(k, -1)  // a frozen row carries every token over
-                    : ci[u] >= 0 ? make_int2(in.src_slot[lane], in.arc_id[lane])
-                                 : make_int2(0, -1);
+      const int k = k0 + u * THREADS;
+      if (k < kr.y) {
+        st[u] = in.mid_states[row + k];
+        c[u] = in.mid_costs[row + k];
+        ci[u] = LATTICE ? -1 : in.cand_idx[row + k];
       }
     }
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
-      const int k = k0 + u * blockDim.x;
-      if (k >= K) continue;
+      const int k = k0 + u * THREADS;
+      if (!LATTICE && k < kr.y) {
+        const size_t lane = (size_t)b * in.N + (ci[u] >= 0 ? ci[u] : 0);
+        bp[u] = ci[u] >= 0 ? make_int2(in.src_slot[lane], in.arc_id[lane]) : make_int2(0, -1);
+      }
+    }
+    fa = t < pin(len);
+    m_safe = isfinite(m) ? m : 0.0f;
+    base_new = fa ? base_old + m_safe : base_old;
+    if (!fa) {
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        const int k = k0 + u * THREADS;
+        if (k < kr.y) {
+          st[u] = s.states[row + k];
+          c[u] = s.costs[row + k];
+          bp[u] = make_int2(k, -1);  // a frozen row carries every token over
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const int k = k0 + u * THREADS;
+      if (k >= kr.y) continue;
       if (fa) {
         n_mid += isfinite(c[u]);
         c[u] = c[u] - m_safe;
@@ -275,55 +378,78 @@ __global__ void __launch_bounds__(THREADS) frame_tail_kernel(FrameArgs* args, Co
       }
     }
   }
+  fa = t < len;
+  m_safe = isfinite(m) ? m : 0.0f;
+  base_new = fa ? base_old + m_safe : base_old;
+  // A frozen row's GetCutoff reads its carried costs, which no block writes.
+  float best = m - m_safe;
+  if (lead) {
+    if (fa) {
+      at_max = at_max - m_safe;
+      at_min = at_min - m_safe;
+    } else {
+      best = s.costs[row];
+      at_max = s.costs[row + i_max];
+      at_min = s.costs[row + i_min];
+    }
+  }
   if (LATTICE) {
     const auto none = [](int) { return make_int4(-1, -1, -1, -1); };
-    copy_row(static_cast<int4*>(args->out[0]) + orow * in.R, in.em_rec + (size_t)b * in.R,
-             in.R, fa, none);
+    copy_share(static_cast<int4*>(args->out[0]) + orow * in.R, in.em_rec + (size_t)b * in.R,
+               share(in.R, lg, rank), fa, none);
     const int n_eps = in.D * in.Re;
-    copy_row(static_cast<int4*>(args->out[1]) + orow * n_eps, in.eps_rec + (size_t)b * n_eps,
-             n_eps, fa, none);
+    copy_share(static_cast<int4*>(args->out[1]) + orow * n_eps,
+               in.eps_rec + (size_t)b * n_eps, share(n_eps, lg, rank), fa, none);
   } else {
     const int n_eps = in.D * K;
-    copy_row(static_cast<int2*>(args->out[1]) + orow * n_eps, in.bp_eps + (size_t)b * n_eps,
-             n_eps, fa, [K](int i) { return make_int2(i % K, -1); });
+    copy_share(static_cast<int2*>(args->out[1]) + orow * n_eps, in.bp_eps + (size_t)b * n_eps,
+               share(n_eps, lg, rank), fa, [K](int i) { return make_int2(i % K, -1); });
   }
-  n_final = block_sum(n_final, smem);  // its barriers make the row visible to thread 0
-  n_mid = block_sum(n_mid, smem);
-
-  if (threadIdx.x == 0) {
-    // The stacked outputs' common tail: num_active, best_cost, cutoff,
-    // overflow, saturated (LatticeStepOut from index 4, StepOut from 2).
-    constexpr int o = LATTICE ? 4 : 2;
-    static_cast<int*>(args->out[o])[orow] = LATTICE ? n_final : (fa ? n_mid : n_final);
-    static_cast<float*>(args->out[o + 1])[orow] =
-        LATTICE || fa ? base_new : base_old + (isfinite(s0) ? s0 : 0.0f);
-    static_cast<float*>(args->out[o + 2])[orow] = base_old + s.cutoff[b];
-    bool ovf = in.em_ovf[b];
-    if (LATTICE) ovf = ovf || in.rec_ovf[b];
-    if (in.eps_ovf) ovf = ovf || in.eps_ovf[b];
-    bool sat = in.num_unique[b] > K;
-    if (in.eps_sat) sat = sat || in.eps_sat[b];
-    static_cast<unsigned char*>(args->out[o + 3])[orow] = fa && ovf;
-    static_cast<unsigned char*>(args->out[o + 4])[orow] = fa && sat;
-    s.base[b] = base_new;
-    // The next frame's K1 inputs: GetCutoff on the row just written.
-    const Cut c = get_cutoff(s.costs + row, n_final, K, cfg.beam, cfg.max_active,
-                             cfg.min_active, cfg.beam_delta);
-    s.cutoff[b] = c.cutoff;
-    s.adaptive_beam[b] = c.adaptive;
-    s.active[b] = t + 1 < len;
-  }
-  if (t + 1 < args->frames) {
-    const float* src = args->scores + ((size_t)(t + 1) * cfg.B + b) * cfg.V;
-    float* dst = s.scores_t + (size_t)b * cfg.V;
-    for (int i = threadIdx.x; i < cfg.V; i += blockDim.x) dst[i] = src[i];
-  }
-  if (threadIdx.x == 0) {
-    __threadfence();
-    if (atomicAdd(&args->done, 1ull) == gridDim.x - 1) {  // every block has read t
-      args->t = t + 1;
-      args->done = 0;
+  if (next) {
+#pragma unroll
+    for (int u = 0; u < VU; ++u) {
+      const int i = vr.x + tid + u * THREADS;
+      if (i < vr.y) vdst[i] = sv[u];
     }
+    for (int i = vr.x + tid + VU * THREADS; i < vr.y; i += THREADS) vdst[i] = vsrc[i];
+  }
+
+  // The counts: one packed sum a warp (each at most K < 2^16), into rank
+  // 0's shared memory.  The other blocks are then done: nothing reads
+  // their shared memory.
+  const unsigned packed = __reduce_add_sync(0xffffffffu, (unsigned)n_final | (unsigned)n_mid << 16);
+  if (!counter) kdtorch::cluster_wait();  // rank 0 runs, its barrier is set
+  if ((tid & 31) == 0)
+    kdtorch::store_remote(s_part + rank * WARPS + (tid >> 5), packed, &s_counts, 0);
+  if (rank != 0) return;
+  kdtorch::mbar_wait_cluster(&s_counts, 0);  // every block has read t and base_old; its counts
+  if (tid < 32) {
+    unsigned v = 0;
+    for (int i = tid; i < G * WARPS; i += 32) v += s_part[i];
+    v = __reduce_add_sync(0xffffffffu, v);
+    if (tid == 0) {
+      const int nf = (int)(v & 0xffffu), nm = (int)(v >> 16);
+      // The stacked outputs' common tail: num_active, best_cost, cutoff,
+      // overflow, saturated (LatticeStepOut from index 4, StepOut from 2).
+      constexpr int o = LATTICE ? 4 : 2;
+      static_cast<int*>(args->out[o])[orow] = LATTICE ? nf : (fa ? nm : nf);
+      static_cast<float*>(args->out[o + 1])[orow] =
+          LATTICE || fa ? base_new : base_old + (isfinite(best) ? best : 0.0f);
+      static_cast<float*>(args->out[o + 2])[orow] = base_old + cut_old;
+      static_cast<unsigned char*>(args->out[o + 3])[orow] = fa && ovf;
+      static_cast<unsigned char*>(args->out[o + 4])[orow] = fa && sat;
+      s.base[b] = base_new;
+      // The next frame's K1 inputs: GetCutoff of the row as the copy wrote it.
+      const Cut c = get_cutoff(best, at_max, at_min, nf, cfg.beam, cfg.max_active,
+                               cfg.min_active, cfg.beam_delta);
+      s.cutoff[b] = c.cutoff;
+      s.adaptive_beam[b] = c.adaptive;
+      s.active[b] = t + 1 < len;
+    }
+  } else if (tid == 32 && seen == (unsigned long long)cfg.B - 1) {
+    // The last row counted: every block of every row has read t.
+    args->t = t + 1;
+    args->done = 0;
   }
 }
 
@@ -332,6 +458,13 @@ Slots slots(void* states, void* costs, void* base, void* cutoff, void* adaptive_
   return Slots{static_cast<int*>(states), static_cast<float*>(costs), static_cast<float*>(base),
                static_cast<float*>(cutoff), static_cast<float*>(adaptive_beam),
                static_cast<unsigned char*>(active), static_cast<float*>(scores_t)};
+}
+
+// The most blocks a row's cluster takes for K slots: at least MIN_SLOTS a block.
+int cluster_cap(int K) {
+  int c = MOST;
+  while (c > 1 && K / c < MIN_SLOTS) c /= 2;
+  return c;
 }
 
 }  // namespace
@@ -355,20 +488,29 @@ extern "C" int kd_frame_start(void* args, int B, int K, int V, long long frames,
              static_cast<const float*>(st0_base), static_cast<const float*>(scores),
              static_cast<const int*>(lengths), frames,
              {out0, out1, out2, out3, out4, out5, out6, out7, out8}};
-  frame_start_kernel<<<B, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  frame_start_kernel<<<B, START_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<FrameArgs*>(args), cfg,
       slots(states, costs, base, cutoff, adaptive_beam, active, scores_t), in);
   return (int)cudaGetLastError();
 }
 
-// One frame's tail on `stream`: B blocks, the lattice instance when
-// `lattice` is set.  Shapes as kd_frame_start's slots; mid states/costs
+// The cluster size the tail launches with for B rows of K slots
+// (kdtorch::pick_cluster, at most cluster_cap(K)); 0 when none fits.  The
+// 1-best instance takes what the lattice one is given.
+extern "C" int kd_frame_tail_cluster(int B, int K) {
+  return kdtorch::pick_cluster(frame_tail_kernel<true>, B, THREADS, K,
+                               [](int) { return (size_t)0; }, cluster_cap(K));
+}
+
+// One frame's tail on `stream`: B clusters of G blocks (G = `clusters`, or
+// kd_frame_tail_cluster's when 0), the lattice instance when `lattice` is
+// set.  K < 2^16.  Shapes as kd_frame_start's slots; mid states/costs
 // (B, K); em_ovf, eps_ovf, eps_sat, rec_ovf (B,) bool (eps_ovf and eps_sat
 // null without an eps closure); num_unique (B,) int32.  Lattice: em_rec
 // (B, R, 4) int32, eps_rec (B, D, Re, 4).  1-best: cand_idx (B, K),
 // src_slot and arc_id (B, N) int32, bp_eps (B, D, K, 2).  The frame index,
 // the chunk's scores, lengths and outputs come from `args`.  Returns the
-// launch's CUDA error (0 on success).
+// launch's CUDA error (0 on success; a refused cluster launch is reported).
 extern "C" int kd_frame_tail(void* args, int lattice, int B, int K, int V, int R, int D, int Re,
                              int N, float beam, int max_active, int min_active, float beam_delta,
                              void* states, void* costs, void* base, void* cutoff,
@@ -377,21 +519,26 @@ extern "C" int kd_frame_tail(void* args, int lattice, int B, int K, int V, int R
                              const void* num_unique, const void* eps_ovf, const void* eps_sat,
                              const void* rec_ovf, const void* em_rec, const void* eps_rec,
                              const void* cand_idx, const void* src_slot, const void* arc_id,
-                             const void* bp_eps, void* stream) {
-  if (B < 1 || K < 1) return (int)cudaErrorInvalidValue;
+                             const void* bp_eps, int clusters, void* stream) {
+  if (B < 1 || K < 1 || K >= (1 << 16) || clusters < 0 || clusters > MOST ||
+      (clusters & (clusters - 1)) != 0)
+    return (int)cudaErrorInvalidValue;
+  const int G = clusters > 0 ? clusters : kd_frame_tail_cluster(B, K);
+  if (G < 1) return (int)cudaErrorInvalidConfiguration;
   const Config cfg{B, K, V, beam, max_active, min_active, beam_delta};
-  TailIn in{static_cast<const int*>(mid_states), static_cast<const float*>(mid_costs),
-            static_cast<const unsigned char*>(em_ovf), static_cast<const int*>(num_unique),
-            static_cast<const unsigned char*>(eps_ovf), static_cast<const unsigned char*>(eps_sat),
-            D, static_cast<const unsigned char*>(rec_ovf), static_cast<const int4*>(em_rec),
-            static_cast<const int4*>(eps_rec), R, Re, static_cast<const int*>(cand_idx),
-            static_cast<const int*>(src_slot), static_cast<const int*>(arc_id),
-            static_cast<const int2*>(bp_eps), N};
+  const TailIn in{static_cast<const int*>(mid_states), static_cast<const float*>(mid_costs),
+                  static_cast<const unsigned char*>(em_ovf), static_cast<const int*>(num_unique),
+                  static_cast<const unsigned char*>(eps_ovf),
+                  static_cast<const unsigned char*>(eps_sat), D,
+                  static_cast<const unsigned char*>(rec_ovf), static_cast<const int4*>(em_rec),
+                  static_cast<const int4*>(eps_rec), R, Re, static_cast<const int*>(cand_idx),
+                  static_cast<const int*>(src_slot), static_cast<const int*>(arc_id),
+                  static_cast<const int2*>(bp_eps), N};
   const Slots s = slots(states, costs, base, cutoff, adaptive_beam, active, scores_t);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (lattice)
-    frame_tail_kernel<true><<<B, THREADS, 0, st>>>(static_cast<FrameArgs*>(args), cfg, s, in);
-  else
-    frame_tail_kernel<false><<<B, THREADS, 0, st>>>(static_cast<FrameArgs*>(args), cfg, s, in);
-  return (int)cudaGetLastError();
+  FrameArgs* a = static_cast<FrameArgs*>(args);
+  return (int)(lattice ? kdtorch::launch_cluster(frame_tail_kernel<true>, B * G, G, THREADS, 0,
+                                                 st, a, cfg, s, in)
+                       : kdtorch::launch_cluster(frame_tail_kernel<false>, B * G, G, THREADS, 0,
+                                                 st, a, cfg, s, in));
 }

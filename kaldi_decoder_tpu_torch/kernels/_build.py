@@ -162,7 +162,10 @@ def kernels() -> ctypes.CDLL:
     lib.kd_frame_start.argtypes = ([_P] + [_I] * 3 + [_L, _F, _I, _I, _F] + [_P] * 7 + [_P] * 5
                                    + [_P] * 9 + [_P])
     lib.kd_frame_tail.restype = _I
-    lib.kd_frame_tail.argtypes = [_P] + [_I] * 8 + [_F, _I, _I, _F] + [_P] * 7 + [_P] * 13 + [_P]
+    lib.kd_frame_tail.argtypes = ([_P] + [_I] * 8 + [_F, _I, _I, _F] + [_P] * 7 + [_P] * 13
+                                  + [_I, _P])
+    lib.kd_frame_tail_cluster.restype = _I
+    lib.kd_frame_tail_cluster.argtypes = [_I, _I]
     lib.kd_expand_eps.restype = _I
     lib.kd_expand_eps.argtypes = [_P] * 5 + [_I] * 6 + [_P] * 6 + [_P]
     lib.kd_expand_eps_blocks.restype = _I

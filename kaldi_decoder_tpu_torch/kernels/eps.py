@@ -139,9 +139,10 @@ def expand_eps_lanes(
 ) -> EpsLanes:
     """K5 on the tensors' device: plain torch on the CPU, one launch of
     ``csrc/eps.cu`` on a card, which reads each active slot's eps_block row
-    itself.  On a card, ``out`` (from :func:`empty_eps_lanes`) is written
-    and returned instead of fresh buffers, and ``blocks`` (8, 4, 2 or 1)
-    sets the blocks a row instead of :func:`blocks_per_row`'s choice.
+    itself: a cluster of blocks a row, which scan the row's slots once
+    between them.  On a card, ``out`` (from :func:`empty_eps_lanes`) is
+    written and returned instead of fresh buffers, and ``blocks`` (8, 4, 2
+    or 1) sets the cluster size instead of :func:`blocks_per_row`'s choice.
     ``expand_eps_lanes.launches`` counts K5 launches."""
     dev = states.device
     if dev.type == "cpu":
@@ -188,8 +189,8 @@ expand_eps_lanes.launches = 0
 
 
 def blocks_per_row(batch: int, lanes: int) -> int:
-    """The blocks a row K5 launches with for ``batch`` rows of ``lanes``
-    lanes each."""
+    """The blocks a row (a cluster) K5 launches with for ``batch`` rows of
+    ``lanes`` lanes each."""
     return kernels().kd_expand_eps_blocks(batch, lanes)
 
 

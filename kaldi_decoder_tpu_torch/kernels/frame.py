@@ -17,6 +17,7 @@ captured once in a CUDA graph and replayed for every frame of every chunk
 (the tail of the original's ``lattice_frame_step_batched`` and of its
 ``frame_step_batched``); on CPU tensors the wrappers run it and
 ``get_cutoff``, on CUDA tensors they launch ``csrc/frame.cu`` or raise.
+On a card the tail is a cluster of blocks a row (:func:`cluster_size`).
 """
 
 from __future__ import annotations
@@ -37,8 +38,8 @@ from kaldi_decoder_tpu_torch.decoders.lattice_dev import LatticeStepOut
 from kaldi_decoder_tpu_torch.kernels._build import check, cuda_error, kernels, ptr, stream
 from kaldi_decoder_tpu_torch.ops.cutoff import get_cutoff
 
-# csrc/frame.cu FrameArgs: t, frames, done, scores, lengths, then the
-# nine output pointers, each one int64 word.
+# csrc/frame.cu FrameArgs: t, frames, done (rows done with frame t),
+# scores, lengths, then the nine output pointers, each one int64 word.
 ARGS_WORDS = 14
 OUTS = 9
 
@@ -229,11 +230,20 @@ def frame_start(slots: FrameSlots, io: FrameIO, fc: FrontierConfig) -> None:
 frame_start.launches = 0
 
 
-def frame_tail(slots: FrameSlots, tin: TailInputs, fc: FrontierConfig) -> None:
+def cluster_size(batch: int, k: int) -> int:
+    """The blocks a row (a cluster) K3's tail launches with for ``batch``
+    rows of ``k`` slots."""
+    return kernels().kd_frame_tail_cluster(batch, k)
+
+
+def frame_tail(slots: FrameSlots, tin: TailInputs, fc: FrontierConfig,
+               clusters: int = 0) -> None:
     """K3 on the slots' device: the tail of frame ``t`` (``slots.args[0]``)
     of the chunk ``slots.io``, in place; see :func:`frame_tail_plain`.  On
     a card ``t`` is read and advanced on the device, so a captured frame
-    replays as any frame.  ``frame_tail.launches`` counts K3 launches."""
+    replays as any frame, and ``clusters`` (8, 4, 2 or 1) sets the blocks a
+    row instead of :func:`cluster_size`'s choice.  ``frame_tail.launches``
+    counts K3 launches."""
     st = slots.state
     dev = st.states.device
     if dev.type == "cpu":
@@ -256,6 +266,10 @@ def frame_tail(slots: FrameSlots, tin: TailInputs, fc: FrontierConfig) -> None:
     B, K = st.states.shape
     if K != fc.frontier_size:
         raise ValueError(f"frontier has {K} slots, config says {fc.frontier_size}")
+    if K >= 1 << 16:
+        raise ValueError(f"K3 takes fewer than 65536 slots a row, not {K}")
+    if clusters not in (0, 1, 2, 4, 8):
+        raise ValueError(f"clusters must be 0 (chosen), 1, 2, 4 or 8, not {clusters}")
     V = _check_slots(slots, B, K, dev)
     check(tin.mid_states, "mid_states", torch.int32, (B, K), dev)
     check(tin.mid_costs, "mid_costs", torch.float32, (B, K), dev)
@@ -294,7 +308,7 @@ def frame_tail(slots: FrameSlots, tin: TailInputs, fc: FrontierConfig) -> None:
         ptr(tin.mid_states), ptr(tin.mid_costs), ptr(tin.em_overflow), ptr(tin.num_unique),
         opt(tin.eps_overflow), opt(tin.eps_saturated), opt(tin.rec_overflow),
         opt(tin.em_records), opt(tin.eps_records), opt(tin.cand_idx), opt(tin.src_slot),
-        opt(tin.arc_id), opt(tin.bp_eps), stream(dev),
+        opt(tin.arc_id), opt(tin.bp_eps), clusters, stream(dev),
     )
     if rc != 0:
         raise RuntimeError(f"kd_frame_tail launch failed: {cuda_error(rc)}")

@@ -1079,6 +1079,9 @@ TAIL_CASES = {
     "viterbi": (False, 16, 4096, 0, 0, 0, 56832, 500),
     "streaming-viterbi": (False, 1, 2048, 0, 1, 0, 18432, 500),
     "streaming-lattice": (True, 1, 2048, 4096, 1, 3328, 0, 500),
+    # K < G * 32: some blocks of a row's cluster own no slot (nor record).
+    "small-K-lattice": (True, 16, 64, 96, 1, 40, 0, 50),
+    "small-K-viterbi": (False, 5, 64, 0, 1, 0, 300, 50),
 }
 TAIL_CFG = dict(beam=15.0, max_active=2560, min_active=200, beam_delta=0.5)
 
@@ -1097,11 +1100,11 @@ def _sorted_costs(rng, nb, K, live):
 
 
 def _tail_case(card, name, t, seed=0):
-    """A chunk of t + 2 frames on the card (scores, lengths ending at t,
-    t + 1 and t + 2, a start state, empty outputs), slots for it, and one
-    frame's tail inputs: random frontiers (a full row, rows of 3000, 300,
-    150 and 0 live tokens, duplicates and a -0.0 among them), records or
-    backpointer inputs, flags."""
+    """A chunk of t + 3 frames on the card (scores, lengths ending at t + 1,
+    t + 2, t + 3 and t in turn, a start state, empty outputs), slots for
+    it, and one frame's tail inputs: random frontiers (a full row, rows of
+    3000, 300, 150 and 0 live tokens, duplicates and a -0.0 among them),
+    records or backpointer inputs, flags."""
     from kaldi_decoder_tpu_torch.decoders.driver import chunk_outputs
     from kaldi_decoder_tpu_torch.decoders.frontier import FrontierConfig, StepState
     from kaldi_decoder_tpu_torch.decoders.lattice_dev import LatticeDevConfig
@@ -1122,10 +1125,10 @@ def _tail_case(card, name, t, seed=0):
     def flags():
         return dev(rng.random(nb) < 0.4)
 
-    C = t + 2
+    C = t + 3
     st0 = StepState(ints(nb, K, lo=0), dev(_sorted_costs(rng, nb, K, live[::-1])),
                     dev(rng.uniform(-50, 50, nb).astype(np.float32)))
-    lengths = dev(np.array([t + b % 3 for b in range(nb)], np.int32))
+    lengths = dev(np.array([t + (b + 1) % 4 for b in range(nb)], np.int32))
     io = FrameIO(dev(rng.normal(size=(C, nb, Vs)).astype(np.float32)), lengths, st0,
                  chunk_outputs(lattice, cfg, C, nb, card))
     tin = TailInputs(
@@ -1144,19 +1147,34 @@ def _tail_case(card, name, t, seed=0):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("clusters", [0, 8, 4, 2, 1])
 @pytest.mark.parametrize("name", sorted(TAIL_CASES))
-def test_frame_tail_kernel_matches_plain(card, name):
+def test_frame_tail_kernel_matches_plain(card, name, clusters):
     """K3's first-frame mode against ``get_cutoff`` and its frame mode
-    against ``frame_tail_plain``, bitwise, at the paths' shapes: the state
-    written in place, row t of every stacked output (frozen rows' records
-    -1 and backpointers the identity), the next frame's cutoff, adaptive
-    beam, scores row and active rows, t advanced and the done count
-    cleared; then the chunk's last frame, which loads no scores row."""
+    against ``frame_tail_plain``, bitwise, at the paths' shapes and at each
+    cluster size (0: its own choice, more than one block a row at the
+    paths' shapes): three frames in a row on the same slots, so that ``t``,
+    the base and the cutoff each frame leaves are the next one's; each
+    frame the state written in place, row t of every stacked output
+    (frozen rows' records -1 and backpointers the identity), the next
+    frame's cutoff, adaptive beam, scores row and active rows, t advanced
+    and the done count cleared.  At B > 1 every frame has a frozen row
+    beside a live one; at B = 1 the row is live, then frozen; from B = 5 a
+    row has no finite cost (slot 0 +inf); the chunk's last frame loads no
+    scores row."""
     from kaldi_decoder_tpu_torch.decoders.frontier import StepState
-    from kaldi_decoder_tpu_torch.kernels.frame import frame_start, frame_tail, frame_tail_plain
+    from kaldi_decoder_tpu_torch.kernels.frame import (
+        cluster_size,
+        frame_start,
+        frame_tail,
+        frame_tail_plain,
+    )
 
     t = 5
     s, io, tin, fc = _tail_case(card, name, t)
+    nb, K = tin.mid_states.shape
+    if clusters == 0 and K >= 2048:
+        assert cluster_size(nb, K) > 1
     before = frame_start.launches, frame_tail.launches
     frame_start(s, io, fc)
     torch.cuda.synchronize()
@@ -1171,14 +1189,19 @@ def test_frame_tail_kernel_matches_plain(card, name):
     for ref, got in zip(io.st0, s.state):
         assert torch.equal(ref, got)
     assert s.args[:3].tolist() == [0, io.scores.shape[0], 0]
-    for frame in (t, io.scores.shape[0] - 1):
-        s.args[0] = frame
+    if nb >= 5:
+        assert not bool(torch.isfinite(tin.mid_costs[:, 0]).all())  # a row with slot 0 +inf
+    s.args[0] = t
+    for frame in range(t, io.scores.shape[0]):
+        fa = io.lengths > frame
+        if nb > 1:
+            assert bool(fa.any()) and not bool(fa.all())  # a frozen row beside a live one
+        else:
+            assert bool(fa[0]) == (frame == t)
         st = [x.clone() for x in s.state]
-        final, out, nxt = frame_tail_plain(StepState(*st), s.cutoff.clone(), tin,
-                                           io.lengths > frame, fc)
-        assert bool((io.lengths <= frame).any())  # a frozen row
+        final, out, nxt = frame_tail_plain(StepState(*st), s.cutoff.clone(), tin, fa, fc)
         scores_t = s.scores_t.clone()
-        frame_tail(s, tin, fc)
+        frame_tail(s, tin, fc, clusters=clusters)
         torch.cuda.synchronize()
         for ref, got in zip(final, s.state):
             assert torch.equal(ref.view(torch.int32), got.view(torch.int32)), frame
@@ -1187,14 +1210,14 @@ def test_frame_tail_kernel_matches_plain(card, name):
             if ref.dtype == torch.float32:
                 ref, got = ref.view(torch.int32), got.view(torch.int32)
             assert torch.equal(ref, got), (frame, f)
-        assert torch.equal(nxt.cutoff.view(torch.int32), s.cutoff.view(torch.int32))
+        assert torch.equal(nxt.cutoff.view(torch.int32), s.cutoff.view(torch.int32)), frame
         assert torch.equal(nxt.adaptive_beam.view(torch.int32),
-                           s.adaptive_beam.view(torch.int32))
+                           s.adaptive_beam.view(torch.int32)), frame
         want = io.scores[frame + 1] if frame + 1 < io.scores.shape[0] else scores_t
-        assert torch.equal(want, s.scores_t)
-        assert torch.equal(io.lengths > frame + 1, s.active)
+        assert torch.equal(want, s.scores_t), frame
+        assert torch.equal(io.lengths > frame + 1, s.active), frame
         assert s.args[0].item() == frame + 1 and s.args[2].item() == 0
-    assert (frame_start.launches, frame_tail.launches) == (before[0] + 1, before[1] + 2)
+    assert (frame_start.launches, frame_tail.launches) == (before[0] + 1, before[1] + 3)
 
 
 def _chunks(card, nb, lengths_per_decode, C):
@@ -1343,6 +1366,24 @@ def _fat_eps_graph(S=600, E_eps=4000, seed=0):
                     g.max_em_out_degree, int(np.diff(row).max()), g.max_score_idx)
 
 
+@functools.lru_cache(maxsize=None)
+def _hub_eps_graph(S=600, E_eps=1000, hub=3000, seed=0):
+    """:func:`_graph` with ``hub`` eps arcs from state 0 and ``E_eps``
+    scattered ones, so that state 0's remainder lanes span thousands."""
+    g = _graph(seed, S, 3000)
+    rng = np.random.default_rng(seed + 2)
+    src = np.sort(np.concatenate([np.zeros(hub, np.int64), rng.integers(0, S, E_eps)]))
+    E = hub + E_eps
+    row = np.zeros(S + 1, np.int32)
+    row[1:] = np.cumsum(np.bincount(src, minlength=S))
+    nxt = rng.integers(0, S, E).astype(np.int32)
+    ga = g.arrays._replace(
+        eps_row_ptr=row, eps_olabel=rng.integers(0, 50, E).astype(np.int32),
+        eps_weight=rng.uniform(0, 2, E).astype(np.float32), eps_next=nxt)
+    return CsrGraph(ga, S, g.num_emitting_arcs, E, 0, _eps_depth(S, row, nxt),
+                    g.max_em_out_degree, int(np.diff(row).max()), g.max_score_idx)
+
+
 def _eps_frontier(card, S, K, nb, seed=0, hubs=0):
     """Cost-sorted frontier rows (costs on a 0.25 grid, one -0.0): row b
     holds K, K/2, 0 and K/3 tokens in turn (row 0 with the first ``hubs``
@@ -1383,7 +1424,23 @@ EPS_LANE_CASES = {
     "overflow": (600, 256, 1, 8, (3.0, 1.5, 2.0, -1.0)),
     "inf-cutoff": (600, 256, 2, 2500, (np.inf,) * 4),
     "big-K": (10000, 8192, 1, 5000, (4.0, 2.0, 2.0, -1.0)),  # two rounds of the slot scan
+    # Row 0's slot of state 0 owns some 3000 remainder lanes: more than one
+    # window of owners (csrc/eps.cu TILE, 2048 positions) of the block of
+    # the row's cluster that writes them.
+    "span-crosses": (600, 256, 1, 4000, (3.0, 1.5, 2.0, -1.0)),
 }
+# case: (its graph, the hub states in row 0), when not _fat_eps_graph's six
+EPS_LANE_GRAPHS = {"span-crosses": (_hub_eps_graph, 1)}
+EPS_TILE = 2048  # csrc/eps.cu TILE: the remainder positions a block places at a time
+
+
+def _longest_span(g, states, costs, cut, We):
+    """The most remainder lanes one slot under its row's cutoff owns: its
+    eps arcs past the block width."""
+    row = torch.as_tensor(np.asarray(g.arrays.eps_row_ptr), device=states.device).long()
+    deg = row[states.long() + 1] - row[states.long()]
+    act = torch.isfinite(costs) & (costs <= cut[:, None])
+    return int(torch.where(act, (deg - We).clamp(min=0), torch.zeros_like(deg)).max())
 
 
 @pytest.mark.cuda
@@ -1392,21 +1449,26 @@ EPS_LANE_CASES = {
 @pytest.mark.parametrize("case", sorted(EPS_LANE_CASES))
 def test_expand_eps_kernel_matches_plain(card, case, incumbents, blocks):
     """K5 against its plain version, every column bitwise (raw cost bits),
-    at each blocks-a-row it can launch with (0: its own choice), with and
-    without the incumbents first: hub states with far more eps arcs than
-    the block width, a remainder budget that overflows, an empty row, a
-    row with no slot under its cutoff, a cutoff of +inf, a frontier
-    larger than one round of the slot scan."""
+    at each cluster size (blocks a row) it can launch with (0: its own
+    choice), with and without the incumbents first: hub states with far
+    more eps arcs than the block width, a remainder budget that overflows,
+    an empty row, a row with no slot under its cutoff, a cutoff of +inf, a
+    frontier larger than one round of the slot scan, blocks holding more
+    remainder lanes than one window of owners, an owner whose remainder
+    lanes span more than one window."""
     S, K, We, R, cuts = EPS_LANE_CASES[case]
-    g = _fat_eps_graph(S)
+    graph, hubs = EPS_LANE_GRAPHS.get(case, (_fat_eps_graph, 6))
+    g = graph(S)
     fc = config_for_graph(g, frontier_size=K, max_active=K, beam=10.0, eps_block_width=We,
                           eps_rem_budget=R)
     assert (fc.frontier_size, fc.eps_block_width, fc.eps_rem_budget) == (K, We, R)
     pg = pack_graph_device(g, fc.block_width, We, fc.flat_group, card)
-    states, costs = _eps_frontier(card, S, K, 4, hubs=6)
+    states, costs = _eps_frontier(card, S, K, 4, hubs=hubs)
     cut = torch.tensor(cuts, dtype=torch.float32, device=card)
     ref = expand_eps_lanes_plain(states, costs, cut, pg, fc, incumbents)
     assert bool(ref.overflow.any()) == (case == "overflow")
+    if case == "span-crosses":
+        assert _longest_span(g, states, costs, cut, We) > EPS_TILE
     for _ in range(2):
         got = expand_eps_lanes(states, costs, cut, pg, fc, incumbents, blocks=blocks)
         torch.cuda.synchronize()
