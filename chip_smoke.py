@@ -143,26 +143,31 @@ Phases (any failure raises, and the process exits non-zero):
      shapes (B = 16 / P);
   12. ``ShardedViterbiDecoder`` on a ``("model",)`` mesh of the P ranks,
      the unfolded graph, ``SHARD_CONFIG`` (K 2048 a shard), the first
-     ``SHARD_FRAMES`` frames; K1 once a frame and K6 (1 + eps_iters)
-     times a frame plus eps_iters, per rank; per utterance the 1-best
-     labels, the best path cost's bits, ``num_active``, a hash of the
-     per-frame best costs and the overflow and saturation counts against
-     ``tests/data/torch_port_shard_ref.json`` (the JAX sharded decoders on
-     the CPU at P = 1 and 2), on every rank; K5 eps_iters times a frame
-     plus eps_iters, the eps step never (the sharded closure keeps its own
-     bookkeeping between its exchanges);
-  13. ``ShardedLatticeDecoder`` on the same shards, lattice beam 8: K1
-     once a frame, K2 (1 + eps_iters) times a frame plus eps_iters; per
-     utterance as phase 6, and utterance 0's pruned links
-     (``pruned_links``), against the same reference.
+     ``SHARD_FRAMES`` frames; per rank K1 and K3's shard mode once a
+     frame, K6 and K7 (its send and its receive side) (1 + eps_iters)
+     times a frame plus eps_iters, K5 and the eps step's shard mode
+     eps_iters times a frame plus eps_iters (the start closure's); per
+     utterance the 1-best labels, the best path cost's bits,
+     ``num_active``, a hash of the per-frame best costs and the overflow
+     and saturation counts against ``tests/data/torch_port_shard_ref.json``
+     (the JAX sharded decoders on the CPU at P = 1 and 2), on every rank;
+  13. ``ShardedLatticeDecoder`` on the same shards, lattice beam 8: as 12
+     with K2 in K6's place; per utterance as phase 6, and utterance 0's
+     pruned links (``pruned_links``), against the same reference.
      Each of 11-13 prints its collectives by kind and per frame; 12-13
-     also their wall and device (profiled run) ms a frame and busy
-     share.  Rank 0 of 12 and 13 holds K5, K1 and K6 or K2 (emitting and
-     eps calls) on frame ``SHARD_FRAME``'s inputs, captured from the counted
-     decode (``CallCapture``), against plain and times them, while the
-     other rank waits: phase 2's checks at the shard shapes.
+     also their wall and device (profiled run) ms a frame, busy share,
+     launches a frame, and device activities a frame split into the
+     port's kernels, collectives and copies, and other (only
+     ``_global_cutoff``'s torch ops; their names are printed).  Rank 0 of
+     12 and 13 holds K5, K1, K6 or K2 (emitting and eps calls), K7's send
+     and receive sides (emitting and eps calls), the eps step's shard mode
+     and K3's shard mode on frame ``SHARD_FRAME``'s inputs, captured from
+     the counted decode (``CallCapture``), against plain (bitwise) and
+     times them, while the other rank waits: phase 2's checks at the
+     shard shapes.
 Every chunk loop of phases 3-11 but the sharded ones (12-13, which
-exchange over torch.distributed every frame) runs through the frame
+exchange over torch.distributed every frame, and run K3's shard mode
+once a frame from the host) runs through the frame
 driver (``decoders/driver.py``): each frame is replayed from one captured
 CUDA graph of K1, K2 or K6, the eps closure and K3, and K3 launches once a
 frame and its first-frame mode once a chunk or call, which the launch
@@ -256,6 +261,7 @@ SHARD_FRAMES = 250
 SHARD_LATTICE_BEAM = 8.0
 SHARD_FRAME = 150  # frame whose K1, K6 and K2 calls phase 2 holds at the shard shapes
 PARALLEL_TIMEOUT = 900  # seconds phases 11-13's two ranks may take
+GC_CALLS = 8  # calls of _global_cutoff profiled alone in phases 12-13
 
 
 # Set in phases 11-13's spawned ranks: their lines say whose they are.
@@ -1403,32 +1409,42 @@ def reset_counts():
     from kaldi_decoder_tpu_torch.kernels.expand import expand_filter
     from kaldi_decoder_tpu_torch.kernels.frame import frame_start, frame_tail
     from kaldi_decoder_tpu_torch.kernels.gather import row_gather
+    from kaldi_decoder_tpu_torch.kernels.route import route_recv, route_send
     from kaldi_decoder_tpu_torch.kernels.sweep import sweep_chunk
 
     torch.cuda.synchronize()
     for fn in (row_gather, expand_filter, dedup_select_rec, sweep_chunk, expand_eps_lanes,
-               dedup_select, eps_step, frame_tail, frame_start):
+               dedup_select, eps_step, frame_tail, frame_start, route_send, route_recv):
         fn.launches = 0
     driver.replays = 0
 
 
 def read_counts():
-    """The launch counts since :func:`reset_counts`: K3's frame tail as
-    ``k3``, its first-frame mode as ``k3_start``, K5 as ``k5`` and the eps
-    step as ``eps_step``."""
+    """The launch counts since :func:`reset_counts`: K3's frame tail (and
+    its shard mode) as ``k3``, its first-frame mode as ``k3_start``, K5 as
+    ``k5``, the eps step (and its shard mode) as ``eps_step``, K7's send
+    and receive sides as ``k7_send`` and ``k7_recv``."""
     from kaldi_decoder_tpu_torch.kernels.dedup import dedup_select
     from kaldi_decoder_tpu_torch.kernels.dedup_rec import dedup_select_rec
     from kaldi_decoder_tpu_torch.kernels.eps import eps_step, expand_eps_lanes
     from kaldi_decoder_tpu_torch.kernels.expand import expand_filter
     from kaldi_decoder_tpu_torch.kernels.frame import frame_start, frame_tail
     from kaldi_decoder_tpu_torch.kernels.gather import row_gather
+    from kaldi_decoder_tpu_torch.kernels.route import route_recv, route_send
     from kaldi_decoder_tpu_torch.kernels.sweep import sweep_chunk
 
     return dict(gather=row_gather.launches, k1=expand_filter.launches,
                 k2=dedup_select_rec.launches, k4=sweep_chunk.launches,
                 k5=expand_eps_lanes.launches, k6=dedup_select.launches,
                 eps_step=eps_step.launches, k3=frame_tail.launches,
-                k3_start=frame_start.launches)
+                k3_start=frame_start.launches, k7_send=route_send.launches,
+                k7_recv=route_recv.launches)
+
+
+def launch_counts(**want):
+    """A dict of launch counts as :func:`read_counts` gives them: ``want``,
+    K7's sides 0 unless given."""
+    return dict(dict(k7_send=0, k7_recv=0), **want)
 
 
 def read_replays(what, frames):
@@ -1943,9 +1959,9 @@ def lattice_eps_path(udec, scores, lengths, refs, lref):
     if res.survivors is None:
         raise AssertionError("the device sweep overflowed and the decode fell back")
     frames = res.num_active.shape[0]
-    want_n = dict(gather=0, k1=frames, k2=frames * (1 + D) + D, k4=len(res.survivors),
-                  k5=frames * D + D, k6=0, eps_step=frames * D + D, k3=frames,
-                  k3_start=len(res.survivors))
+    want_n = launch_counts(gather=0, k1=frames, k2=frames * (1 + D) + D,
+                           k4=len(res.survivors), k5=frames * D + D, k6=0,
+                           eps_step=frames * D + D, k3=frames, k3_start=len(res.survivors))
     if n != want_n:
         raise AssertionError(f"launch counts {n}, want {want_n}")
     replays = read_replays("lattice path without folding", frames)
@@ -2029,9 +2045,9 @@ def streaming_lattice_path(graph, scores, lref, device="cuda"):
             frames += L
         n = read_counts()
         utts = len(part["utts"])
-        want_n = dict(gather=0, k1=frames, k2=frames * (1 + D) + utts * D, k4=0,
-                      k5=frames * D + utts * D, k6=0, eps_step=frames * D + utts * D,
-                      k3=frames, k3_start=calls)
+        want_n = launch_counts(gather=0, k1=frames, k2=frames * (1 + D) + utts * D, k4=0,
+                               k5=frames * D + utts * D, k6=0, eps_step=frames * D + utts * D,
+                               k3=frames, k3_start=calls)
         if n != want_n:
             raise AssertionError(f"{kind} lattice: launch counts {n}, want {want_n}")
         replays = read_replays(f"{kind} lattice", frames)
@@ -2174,8 +2190,8 @@ def graph_file_path(graph, scores, vref, lref, tmp):
         k2 = frames * (1 + D) + len(utts) * D if kind == "lattice" else 0
         k6 = frames * (1 + D) + len(utts) * D if kind == "faster" else 0
         k5 = frames * D + len(utts) * D  # both decoders; as many eps steps
-        want_n = dict(gather=0, k1=frames, k2=k2, k4=0, k5=k5, k6=k6, eps_step=k5, k3=frames,
-                      k3_start=len(utts))
+        want_n = launch_counts(gather=0, k1=frames, k2=k2, k4=0, k5=k5, k6=k6, eps_step=k5,
+                               k3=frames, k3_start=len(utts))
         if n != want_n:
             raise AssertionError(f"cli {kind}: launch counts {n}, want {want_n}")
         read_replays(f"cli {kind}", frames)
@@ -2275,8 +2291,8 @@ def encoder_path(graph, fc):
     if res.survivors is None:
         raise AssertionError("the device sweep overflowed and the decode fell back")
     frames = res.num_active.shape[0]
-    want_n = dict(gather=0, k1=frames, k2=frames, k4=len(res.survivors), k5=0, k6=0,
-                  eps_step=0, k3=frames, k3_start=len(res.survivors))
+    want_n = launch_counts(gather=0, k1=frames, k2=frames, k4=len(res.survivors), k5=0,
+                           k6=0, eps_step=0, k3=frames, k3_start=len(res.survivors))
     if n != want_n:
         raise AssertionError(f"encoder decode: launch counts {n}, want {want_n}")
     read_replays("encoder decode", frames)
@@ -2352,8 +2368,8 @@ def recall_path(graph, scores, rref):
         counts.append(read_counts())
         del dec
         frames = -(-Tr // CHUNK) * CHUNK
-        want_n = dict(gather=0, k1=frames, k2=frames, k4=0, k5=0, k6=0, eps_step=0, k3=frames,
-                      k3_start=frames // CHUNK)
+        want_n = launch_counts(gather=0, k1=frames, k2=frames, k4=0, k5=0, k6=0, eps_step=0,
+                               k3=frames, k3_start=frames // CHUNK)
         if counts[-1] != want_n:
             raise AssertionError(f"recall: launch counts {counts[-1]}, want {want_n}")
         read_replays("recall", frames)
@@ -2476,16 +2492,6 @@ class CallCapture:
             setattr(self.module, n, f)
 
     def _wrap(self, n):
-        import torch
-
-        def clone(x):
-            if isinstance(x, torch.Tensor):
-                return x.clone()
-            if isinstance(x, tuple):
-                items = [clone(v) for v in x]
-                return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
-            return x
-
         def call(*args, **kw):
             i = self.calls[n]
             self.calls[n] += 1
@@ -2496,11 +2502,82 @@ class CallCapture:
         return call
 
 
+def clone(x):
+    """``x`` with every tensor in it (in tuples and named tuples) cloned."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, tuple):
+        items = [clone(v) for v in x]
+        return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+    return x
+
+
 def shard_call_index(frame, eps_iters, eps=False):
-    """The index of a frame's K6 (Viterbi) or K2 (lattice) call in a
+    """The index of a frame's K6 (Viterbi), K2 (lattice) or K7 call in a
     sharded decode: the start closure's ``eps_iters`` calls first, then
     per frame the emitting call and one per eps iteration."""
     return eps_iters + frame * (1 + eps_iters) + (1 if eps else 0)
+
+
+def k7_send_work(args, got):
+    """Bytes and operations of K7's send side: each lane's destination and
+    cost read, each kept lane's payload (and its slot's state, when the
+    call maps slots to states) read, the whole send buffer and the flags
+    written, the cutoff read; a compare a lane."""
+    from kaldi_decoder_tpu_torch.fst.pack import INF_BITS
+
+    B, N = args[0].shape
+    kept = int((got.buf[..., 1] != INF_BITS).sum())
+    cutoff, slot_states = args[8], args[9]
+    nbytes = (B * N * 8 + kept * (8 + (4 if slot_states is not None else 0))
+              + got.buf.numel() * 4 + B + (B * 4 if cutoff is not None else 0))
+    return nbytes, B * N
+
+
+def k7_recv_work(recv, got):
+    """Bytes and operations of K7's receive side: the received buffer and
+    the incumbents read, four columns of every lane written; a compare a
+    lane."""
+    B, L = got.cost.shape
+    inc = L - recv.shape[0] * recv.shape[2]
+    return recv.numel() * 4 + B * inc * 8 + B * L * 16, B * L
+
+
+def eps_step_shard_work(sel, carry, lanes, stopped):
+    """Bytes and operations of one eps step's shard mode: the winning lanes
+    and their routed slot and arc (1-best) or the frontier's costs and the
+    records (lattice), the per-row flags read; the iteration's
+    backpointers or links, and, unless stopped, the selection's frontier
+    read and written as the carried one; a compare a slot."""
+    B, K = sel.states.shape
+    rows = carry.out.shape[2]
+    if getattr(sel, "records", None) is not None:
+        nbytes = B * K * 8 + sel.records[:, :, 0].numel() * 16
+    else:
+        nbytes = B * K * 4 + int((sel.cand_idx >= 0).sum()) * 8
+    nbytes += B * rows * 8 + (0 if stopped else B * K * 16) + B * 24 + 64
+    return nbytes, B * K
+
+
+def k3_shard_work(tin, fa):
+    """Bytes and operations of K3's shard mode: of a live row, the
+    closure's frontier read and the carried one written; of every row its
+    stacked outputs written (the frontier, the records or backpointers) and
+    their inputs read (records; the winning lanes' slots and arcs once
+    each and the eps backpointers); some 40 bytes of per-row scalars; a
+    subtract and an add a slot."""
+    B, K = tin.mid_states.shape
+    act = int(fa.sum())
+    nbytes = act * K * 16 + B * 40
+    if tin.em_records is not None:
+        nbytes += B * (tin.em_records[0, :, 0].numel() * 24 + tin.eps_records[0].numel() * 8
+                       + K * 8)
+    else:
+        won = int((tin.cand_idx[fa] >= 0).sum())
+        nbytes += B * K * 12 + won * 8 + B * tin.bp_eps[0].numel() * 8
+    return nbytes, 2 * B * K
 
 
 def hold_shard_kernels(kept, kind, eps_iters, tag):
@@ -2518,7 +2595,7 @@ def hold_shard_kernels(kept, kind, eps_iters, tag):
     from kaldi_decoder_tpu_torch.ops.segment import dedup_select as dedup_select_plain
     from kaldi_decoder_tpu_torch.ops.segment import dedup_select_rec as dedup_select_rec_plain
 
-    errs, times = {}, {}
+    errs, times = hold_shard_route(kept, eps_iters, tag)
     where = f"{tag}, frame {SHARD_FRAME}"
     if eps_iters:
         args, kw = kept["expand_eps_lanes", eps_iters + SHARD_FRAME * eps_iters]
@@ -2559,6 +2636,103 @@ def hold_shard_kernels(kept, kind, eps_iters, tag):
     return errs, times
 
 
+def hold_shard_route(kept, eps_iters, tag):
+    """K7's send and receive sides (the emitting call and the first eps
+    iteration's), the eps step's shard mode (that iteration's step) and
+    K3's shard mode on frame SHARD_FRAME's calls of a sharded decode
+    (``kept``, a CallCapture's), each against its plain version on the
+    card, bitwise, and timed; returns ({kernel: max |err|}, {kernel_call:
+    time_kernel fields})."""
+    import torch
+
+    from kaldi_decoder_tpu_torch.kernels.eps import eps_step_shard, eps_step_shard_plain
+    from kaldi_decoder_tpu_torch.kernels.frame import (
+        empty_shard_outs,
+        frame_tail_shard,
+        frame_tail_shard_plain,
+        shard_args,
+    )
+    from kaldi_decoder_tpu_torch.kernels.route import (
+        route_recv,
+        route_recv_plain,
+        route_send,
+        route_send_plain,
+    )
+
+    errs, times = {}, {}
+    where = f"{tag}, frame {SHARD_FRAME}"
+    calls = [("", False)] + ([("_eps", True)] if eps_iters else [])
+    for sfx, eps in calls:
+        i = shard_call_index(SHARD_FRAME, eps_iters, eps)
+        args, kw = kept["route_send", i]
+        out = kw["out"]
+        ref = route_send_plain(*args)
+        got = route_send(*args, out=out)
+        torch.cuda.synchronize()
+        same_fields(ref, got._replace(scratch=None), "K7's send side", where + sfx)
+        B, N = args[0].shape
+        P, cap = args[5], args[6]
+        times["k7_send" + sfx] = time_kernel(
+            f"K7 send{sfx} at {where} (B={B}, N {N}, P {P}, cap {cap}, "
+            f"{'slack ' + str(args[7]) if args[7] is not None else 'leaders'})",
+            lambda: route_send(*args, out=out), lambda: route_send_plain(*args),
+            k7_send_work(args, got))
+        args, kw = kept["route_recv", i]
+        out = kw["out"]
+        ref = route_recv_plain(*args)
+        got = route_recv(*args, out=out)
+        torch.cuda.synchronize()
+        same_fields(ref, got, "K7's receive side", where + sfx)
+        times["k7_recv" + sfx] = time_kernel(
+            f"K7 receive{sfx} at {where} (B={B}, lanes {got.cost.shape[1]})",
+            lambda: route_recv(*args, out=out), lambda: route_recv_plain(*args),
+            k7_recv_work(args[0], got))
+    errs["k7_send"] = errs["k7_recv"] = 0.0
+    if eps_iters:
+        args, kw = kept["eps_step_shard", eps_iters + SHARD_FRAME * eps_iters]
+        ref_args, got_args = clone(args), clone(args)
+        eps_step_shard_plain(*ref_args, **kw)
+        eps_step_shard(*got_args, **kw)
+        torch.cuda.synchronize()
+        same_fields(ref_args[1], got_args[1], "the eps step's shard mode (carry)", where)
+        for name, r, g in zip(("states", "costs"), ref_args[2:4], got_args[2:4]):
+            if not torch.equal(r.view(torch.int32), g.view(torch.int32)):
+                raise AssertionError(f"the eps step's shard mode differs from plain on {where}: "
+                                     f"the carried {name}")
+        sel = args[4]
+        times["eps_step_shard"] = time_kernel(
+            f"eps step, shard mode, at {where} (B={sel.states.shape[0]}, K "
+            f"{sel.states.shape[1]}, width {args[1].out.shape[2]})",
+            lambda: eps_step_shard(*got_args, **kw), lambda: eps_step_shard_plain(*ref_args, **kw),
+            eps_step_shard_work(sel, args[1], kw.get("lanes"), False))
+        errs["eps_step_shard"] = 0.0
+    args, _ = kept["frame_tail_shard", SHARD_FRAME]
+    targs, st, cutoff, tin, lengths, outs, slot_base = args
+    t = int(targs[0])
+    fa = lengths > t
+    final, ref = frame_tail_shard_plain(st, cutoff, tin, fa, slot_base)
+    got = clone(args)
+    frame_tail_shard(*got)
+    torch.cuda.synchronize()
+    same_fields(final, got[1], "K3's shard mode (state)", where)
+    same_fields(ref, type(ref)(*(x[t] for x in got[5])), "K3's shard mode (outputs)", where)
+    if got[0].tolist() != [t + 1, 0]:
+        raise AssertionError(f"K3's shard mode on {where}: t and the count {got[0].tolist()}")
+    # Timed on a table of its own from t = 0, into outputs of 64 rows (the
+    # calls timed are fewer).
+    B, K = st.states.shape
+    lattice = tin.em_records is not None
+    t_outs = empty_shard_outs(64, B, K, outs[1].shape[2], lattice, st.states.device,
+                              *((outs[0].shape[2], outs[1].shape[3]) if lattice else ()))
+    t_args, t_st = shard_args(st.states.device), clone(st)
+    times["k3_shard"] = time_kernel(
+        f"K3 shard mode at {where} (B={B}, K {K}, {'lattice' if lattice else '1-best'})",
+        lambda: frame_tail_shard(t_args, t_st, cutoff, tin, lengths, t_outs, slot_base),
+        lambda: frame_tail_shard_plain(st, cutoff, tin, fa, slot_base), k3_shard_work(tin, fa))
+    errs["k3_shard"] = 0.0
+    return errs, times
+
+
 def profiled_device_ms(fn, top=6):
     """One run of ``fn`` under the profiler: its device milliseconds in
     kernels and in copies (a gloo exchange stages through the host), the
@@ -2585,6 +2759,41 @@ def profiled_device_ms(fn, top=6):
     kernels = sum(ms for ms, _ in by_name.values()) - copies
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
     return kernels, copies, [(name[:60], ms, n) for name, (ms, n) in ranked], wall
+
+
+def port_kernel_names(root):
+    """The names of the ``__global__`` functions of the port's CUDA
+    sources under ``root``."""
+    import glob
+    import re
+
+    names = set()
+    for src in glob.glob(os.path.join(root, "kaldi_decoder_tpu_torch", "csrc", "*.cu*")):
+        with open(src) as f:
+            names.update(re.findall(
+                r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)", f.read()))
+    return names
+
+
+def activity_split(acts, kernel_names):
+    """A profiled run's device activities ``acts`` [(name, ms, count)]
+    grouped: the port's kernels (a name of ``kernel_names``), collectives
+    and copies (NCCL's kernels, memcpy and memset), other.  Returns
+    {group: (ms, count, [(name, count), ...])}."""
+    import re
+
+    out = {g: [0.0, 0, []] for g in ("port_kernels", "collectives_copies", "other")}
+    for name, ms, cnt in acts:
+        if any(re.search(rf"\b{k}\b", name) for k in kernel_names):
+            g = "port_kernels"
+        elif name.startswith(("Memcpy", "Memset")) or "nccl" in name.lower():
+            g = "collectives_copies"
+        else:
+            g = "other"
+        out[g][0] += ms
+        out[g][1] += cnt
+        out[g][2].append((name, cnt))
+    return {g: tuple(v) for g, v in out.items()}
 
 
 def shard_reference(scores, lengths, refs):
@@ -2647,9 +2856,10 @@ def shard_path(kind, graph, sc, sl, refs, sref, P, rank):
                              f"{want['shard_config']}")
     D = sh.frontier.eps_iters
     kname = "dedup_select" if kind == "viterbi" else "dedup_select_rec"
-    capture = {"expand_filter": {SHARD_FRAME},
-               kname: {shard_call_index(SHARD_FRAME, D), shard_call_index(SHARD_FRAME, D, True)},
-               "expand_eps_lanes": {D + SHARD_FRAME * D}}
+    routed = {shard_call_index(SHARD_FRAME, D), shard_call_index(SHARD_FRAME, D, True)}
+    capture = {"expand_filter": {SHARD_FRAME}, kname: routed, "route_send": routed,
+               "route_recv": routed, "expand_eps_lanes": {D + SHARD_FRAME * D},
+               "eps_step_shard": {D + SHARD_FRAME * D}, "frame_tail_shard": {SHARD_FRAME}}
     dist.barrier()
     reset_counts()
     collective_calls.clear()
@@ -2661,10 +2871,14 @@ def shard_path(kind, graph, sc, sl, refs, sref, P, rank):
     coll = dict(collective_calls)
     frames = res.num_active.shape[0]
     k = "k6" if kind == "viterbi" else "k2"
-    # No driver, and the sharded closure keeps its bookkeeping: no eps step.
-    want_n = dict(gather=0, k1=frames, k2=0, k4=0, k5=D + frames * D, k6=0, eps_step=0, k3=0,
-                  k3_start=0)
-    want_n[k] = D + frames * (1 + D)
+    # No driver: K3's shard mode once a frame, no first-frame mode; K7's
+    # sides once an emitting call and an eps iteration, the eps step's
+    # shard mode once an eps iteration, the start closure's included.
+    routes = D + frames * (1 + D)
+    want_n = launch_counts(gather=0, k1=frames, k2=0, k4=0, k5=D + frames * D, k6=0,
+                           eps_step=D + frames * D, k3=frames, k3_start=0, k7_send=routes,
+                           k7_recv=routes)
+    want_n[k] = routes
     if n != want_n:
         raise AssertionError(f"{what}: launch counts {n}, want {want_n}")
     t1 = time.perf_counter()
@@ -2684,7 +2898,24 @@ def shard_path(kind, graph, sc, sl, refs, sref, P, rank):
             raise AssertionError(f"{what}: utterance 0's pruned links {links} != the "
                                  f"reference's {want['links0']}")
     t_host = time.perf_counter() - t1
-    k_ms, c_ms, ranked, t_prof = profiled_device_ms(lambda: dec.decode(sc, sl))
+    k_ms, c_ms, acts, t_prof = profiled_device_ms(lambda: dec.decode(sc, sl), top=None)
+    names = port_kernel_names(REPO)
+    split = activity_split(acts, names)
+    ranked = acts[:6]
+    # The frame's torch ops are _global_cutoff's: GC_CALLS calls of it
+    # alone, on frame SHARD_FRAME's state, under the profiler (every rank
+    # calls it; the trace can miss its first activities, never a later
+    # call's).
+    st = cap.kept["frame_tail_shard", SHARD_FRAME][0][1]
+    gc = activity_split(profiled_device_ms(
+        lambda: [graph_shard._global_cutoff(st, sh, dec._sh.group) for _ in range(GC_CALLS)],
+        top=None)[2], names)
+    gc_names = {name for name, _ in gc["other"][2]}
+    stray = [(name, cnt / frames) for name, cnt in split["other"][2]
+             if cnt >= frames and name not in gc_names]
+    if stray:
+        raise AssertionError(f"{what}: torch ops a frame that _global_cutoff does not run: "
+                             f"{stray}")
     n_coll = sum(coll.values())
     wall_ms = t_dec * 1e3 / frames
     dev_ms = (k_ms + c_ms) / frames
@@ -2694,6 +2925,12 @@ def shard_path(kind, graph, sc, sl, refs, sref, P, rank):
                top_activities_ms_per_frame=[(name, ms / frames, cnt / frames)
                                             for name, ms, cnt in ranked],
                collectives=coll, collectives_per_frame=n_coll / frames,
+               launches_per_frame=sum(n.values()) / frames,
+               activities_per_frame=sum(v[1] for v in split.values()) / frames,
+               split_per_frame={g: (ms / frames, cnt / frames)
+                                for g, (ms, cnt, _) in split.items()},
+               other_activities=split["other"][2],
+               global_cutoff_activities=gc["other"][1] / GC_CALLS,
                overflow_frames=int(res.overflows.sum()),
                saturated_frames=int(res.saturations.sum()))
     log(f"{what}: decode {t_dec:.3f} s for {frames} frames ({wall_ms:.3f} ms a frame), device "
@@ -2704,6 +2941,13 @@ def shard_path(kind, graph, sc, sl, refs, sref, P, rank):
         + ("" if kind == "viterbi" else f" and utterance 0's {links[0]} pruned links"))
     log("  device time a frame by activity: " + "; ".join(
         f"{name} {ms:.4f} ms ({cnt:.1f} calls)" for name, ms, cnt in out["top_activities_ms_per_frame"]))
+    log(f"  a frame: {out['launches_per_frame']:.2f} launches of the port's kernels; "
+        f"{out['activities_per_frame']:.2f} device activities: " + "; ".join(
+            f"{g} {cnt:.2f} ({ms:.4f} ms)" for g, (ms, cnt) in out["split_per_frame"].items())
+        + f"; _global_cutoff alone runs {gc['other'][1] / GC_CALLS:.2f} torch activities a "
+        "call, and every "
+        "other activity that runs once a frame or more is one of them: " + "; ".join(
+            f"{name} ({cnt / frames:.2f} a frame)" for name, cnt in split["other"][2]))
     errs, times = {}, {}
     if rank == 0:  # the other rank waits at the barrier: the card is this rank's alone
         errs, times = hold_shard_kernels(cap.kept, kind, D, f"P={P} {kind} shard 0")
@@ -3134,10 +3378,21 @@ def main():
             for k, v in par[P][0][ph][2].items():
                 sk_err[k] = max(sk_err.get(k, 0.0), v)
 
-    def shard_times(kernel, phase):
+    def shard_times(kernel, phase, but=None):
         return {f"{f}_{phase}{sfx}_p{P}": par[P][0][phase][3][kernel + sfx][f]
                 for P in par for sfx in ("", "_eps") if kernel + sfx in par[P][0][phase][3]
-                for f in ("ms", "plain_ms", "bound_ms", "bound_by", "share_of_bound")}
+                and (P, phase, sfx) != but
+                for f in ("ms", "plain_ms", "bound_ms", "bound_by", "share_of_bound",
+                          "wrapper_ms", "plain_wrapper_ms")}
+
+    def shard_entry(name, source, replaces, key, by, **extra):
+        """A kernel of the sharded phases alone: its fields from P = 1's
+        phase 12 (its emitting call), the other calls beside them."""
+        first = (1, "shard_viterbi", "")
+        t = par[1][0]["shard_viterbi"][3][by]
+        return entry(name, source, replaces, key, t, sk_err[by],
+                     **shard_times(by, "shard_viterbi", but=first),
+                     **shard_times(by, "shard_lattice"), **extra)
     by_path = {
         "gather": {"lattice": n3["gather"], "viterbi": vn["gather"], "streaming": sn["gather"]},
         "k1": {"lattice": n3["k1"], "viterbi": vn["k1"], "streaming": sn["k1"]},
@@ -3150,9 +3405,16 @@ def main():
         "k5": {"lattice": n3["k5"], "viterbi": vn["k5"], "streaming": sn["k5"]},
         "eps_step": {"lattice": n3["eps_step"], "viterbi": vn["eps_step"],
                      "streaming": sn["eps_step"]},
+        **{k: {"lattice": n3[k], "viterbi": vn[k], "streaming": sn[k]}
+           for k in ("k7_send", "k7_recv")},
     }
+    # The sharded phases' eps steps and K3 launches are the shard modes'.
+    shard_phases = [p for p in later if p.startswith("shard_")]
     for key, paths in by_path.items():
-        paths.update({p: n[key] for p, n in later.items()})
+        paths.update({p: n[key] for p, n in later.items()
+                      if key not in ("eps_step", "k3") or p not in shard_phases})
+    by_path["eps_step_shard"] = {p: later[p]["eps_step"] for p in shard_phases}
+    by_path["k3_shard"] = {p: later[p]["k3"] for p in shard_phases}
 
     st = sk["times"]
     fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "share_of_bound",
@@ -3262,6 +3524,21 @@ def main():
               **{f"{f}_{key}": t[f] for key, t in eps_timed("eps_step").items()
                  for f in ("ms", "plain_ms", "bound_ms", "bound_by", "share_of_bound",
                            "wrapper_ms", "plain_wrapper_ms")}),
+        shard_entry("K7 route_send (the shard route's send side: the beam filter and payload "
+                    "offsets, the stable (owner, state, cost) order, the local dedup or slack "
+                    "keep, the within-owner places, the (P, B, cap, 4) send buffer, overflow)",
+                    "route.cu", "kaldi_decoder_tpu/parallel/graph_shard.py:213", "k7_send",
+                    "k7_send"),
+        shard_entry("K7 route_recv (the shard route's receive side: the received buffer as the "
+                    "dedup call's lanes, after the incumbents on an eps iteration)", "route.cu",
+                    "kaldi_decoder_tpu/parallel/graph_shard.py:313", "k7_recv", "k7_recv"),
+        shard_entry("eps step, shard mode (a sharded eps iteration's closing step: backpointers "
+                    "or links, the batch-wide stop, the carry, the local changed, the frame's "
+                    "local values)", "eps.cu", "kaldi_decoder_tpu/parallel/graph_shard.py:422",
+                    "eps_step_shard", "eps_step_shard"),
+        shard_entry("K3 frame_tail, shard mode (the sharded frame's rebase, freeze and outputs "
+                    "into row t)", "frame.cu", "kaldi_decoder_tpu/parallel/graph_shard.py:540",
+                    "k3_shard", "k3_shard"),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -663,3 +663,221 @@ extern "C" int kd_eps_step(int lattice, int B, int K, int N, int D, int d, int e
     eps_step_kernel<false><<<B, STEP_THREADS, 0, st>>>(a);
   return (int)cudaGetLastError();
 }
+
+// ---- The eps step's shard mode ----------------------------------------------
+//
+// Replaces the bookkeeping of the JAX package's sharded closure, which runs
+// between the exchanges (kaldi_decoder_tpu/parallel/graph_shard.py:380-445
+// _sharded_eps_iteration / _sharded_eps_closure, :834-920 the lattice
+// ones): the backpointers with global slots (or the first r_eps record
+// links and the spill test), the local `changed`, the carry under the
+// batch-wide stop (state kept, identity or -1 rows), the running overflow
+// and saturation.  Plain version: kernels/eps.py eps_step_shard_plain.
+// Unlike the unsharded step, `stop` is batch-wide and not masked by the
+// rows still decoding: stop_d = stop_{d-1} | !changed_d, where changed_d is
+// the MAX over the ranks of the local flag this step writes, reduced by
+// the caller between two steps; the step of iteration d applies stop_{d-1}
+// (the carried stop, or the reduced flag of d - 1 zero).  At the closure's
+// last iteration (`reduce`) it also writes what the frame then reduces over
+// the ranks: each row's smallest finite cost (its first smallest in slot
+// order, the bits of that slot) and count of finite costs, and the flag
+// pair (the emitting call's flags are folded in at d = 0, where no stop
+// masks them).  Bounds: the bytes of the K winning lanes' payload or the
+// records and one iteration's row of backpointers or links, under 1 MB at
+// B = 16.  One block a row; the batch's flags as in the unsharded step.
+
+namespace {
+
+// kernels/eps.py ShardEpsCarry.flags (SHARD_FLAG_WORDS).
+struct ShardFlags {
+  int stop;        // the batch has stopped before this iteration
+  int go, o, s;    // OR of the rows' changed, overflow, saturation, this iteration
+  unsigned done;   // blocks done with this iteration
+  int ovf, sat;    // running over the iterations, unless stopped
+};
+
+struct ShardStepArgs {
+  int B, K, N, D, d, width, R_rec, slot_base, reduce;
+  const int* cand_idx;              // (B, K)
+  const int* num_unique;            // (B,)
+  const int* sel_states;            // (B, K)
+  const float* sel_costs;           // (B, K)
+  const unsigned char* rec_ovf;     // (B,) lattice
+  const int4* records;              // (B, R_rec) lattice
+  const int* gslot;                 // (B, N) the routed lanes (1-best)
+  const int* arc;                   // (B, N)
+  const unsigned char* exp_ovf;     // (B,) K5's
+  const unsigned char* route_ovf;   // (B,) the route's
+  const unsigned char* em_ovf[3];   // (B,) each or null: the emitting call's
+  const int* em_num_unique;         // (B,) or null
+  const int* changed_prev;          // (1,) the reduced flag of iteration d - 1
+  ShardFlags* flags;
+  int* changed;                     // (1,) this iteration's local flag
+  int* states;                      // (B, K) the carried frontier, in place
+  float* costs;
+  int2* out;                        // (B, D, width)
+  float* red_min;                   // (B,)
+  int* red_count;                   // (B,)
+  int* red_flags;                   // (2,)
+};
+
+template <bool LATTICE>
+__global__ void __launch_bounds__(STEP_THREADS) eps_step_shard_kernel(ShardStepArgs a) {
+  __shared__ int s_stop;
+  __shared__ int smem[32];
+  __shared__ unsigned long long s_min;
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    s_stop = a.d > 0 && (__ldcg(&a.flags->stop) != 0 || __ldcg(a.changed_prev) == 0);
+    s_min = ~0ull;
+  }
+  __syncthreads();
+  const bool stop = s_stop != 0;
+  const int K = a.K;
+  const size_t row = (size_t)b * K;
+  int2* dst = a.out + ((size_t)b * a.D + a.d) * a.width;
+  bool changed = false;
+  int links = 0;
+  if (LATTICE) {
+    for (int k = tid; k < K; k += STEP_THREADS)
+      changed |= a.cand_idx[row + k] >= K && isfinite(a.sel_costs[row + k]);
+    const int4* rec = a.records + (size_t)b * a.R_rec;
+    for (int r = tid; r < a.R_rec; r += STEP_THREADS) {
+      const int4 v = rec[r];
+      links += v.z >= 0;
+      if (r < a.width) dst[r] = stop ? make_int2(-1, -1) : make_int2(v.x, v.y);
+    }
+  } else {
+    const size_t lanes = (size_t)b * a.N;
+    for (int k0 = tid; k0 < K; k0 += STEP_UNROLL * STEP_THREADS) {
+      int ci[STEP_UNROLL];
+      int2 bp[STEP_UNROLL];
+#pragma unroll
+      for (int u = 0; u < STEP_UNROLL; ++u) {
+        const int k = k0 + u * STEP_THREADS;
+        ci[u] = k < K ? a.cand_idx[row + k] : -1;
+      }
+#pragma unroll
+      for (int u = 0; u < STEP_UNROLL; ++u)
+        bp[u] = ci[u] >= 0 ? make_int2(a.gslot[lanes + ci[u]], a.arc[lanes + ci[u]])
+                           : make_int2(0, -1);
+#pragma unroll
+      for (int u = 0; u < STEP_UNROLL; ++u) {
+        const int k = k0 + u * STEP_THREADS;
+        if (k >= K) continue;
+        changed |= ci[u] >= 0 && bp[u].y != -1;
+        dst[k] = stop ? make_int2(a.slot_base + k, -1) : bp[u];
+      }
+    }
+  }
+  // The carried frontier: the selection's unless stopped.
+  unsigned long long mn = ~0ull;
+  int finite = 0;
+  for (int k = tid; k < K; k += STEP_THREADS) {
+    float c;
+    if (!stop) {
+      a.states[row + k] = a.sel_states[row + k];
+      c = a.sel_costs[row + k];
+      a.costs[row + k] = c;
+    } else {
+      c = a.costs[row + k];
+    }
+    if (isfinite(c)) {
+      mn = min(mn, (unsigned long long)kdtorch::ordered_key(c) << 32 | (unsigned)k);
+      ++finite;
+    }
+  }
+  changed = __syncthreads_or(changed);
+  int total_links = 0, total_finite = 0;
+  if (LATTICE) kdtorch::block_exclusive_scan(links, smem, &total_links);
+  if (a.reduce) {
+    kdtorch::block_exclusive_scan(finite, smem, &total_finite);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) mn = min(mn, __shfl_xor_sync(0xffffffffu, mn, o));
+    if ((tid & 31) == 0) atomicMin(&s_min, mn);
+    __syncthreads();  // s_min, and the carried costs written above
+  }
+  if (tid != 0) return;
+  bool o = a.exp_ovf[b] || a.route_ovf[b];
+  if (LATTICE) o = o || a.rec_ovf[b] || total_links > a.width;
+  bool s = a.num_unique[b] > K;
+  for (int i = 0; i < 3; ++i)
+    if (a.em_ovf[i] != nullptr) o = o || a.em_ovf[i][b];
+  if (a.em_num_unique != nullptr) s = s || a.em_num_unique[b] > K;
+  if (a.reduce) {
+    a.red_min[b] = s_min == ~0ull ? INFINITY : a.costs[row + (unsigned)(s_min & 0xffffffffu)];
+    a.red_count[b] = total_finite;
+  }
+  if (changed) atomicOr(&a.flags->go, 1);
+  if (o) atomicOr(&a.flags->o, 1);
+  if (s) atomicOr(&a.flags->s, 1);
+  __threadfence();
+  if (atomicAdd(&a.flags->done, 1u) == gridDim.x - 1) {  // every block has read `stop`
+    __threadfence();
+    const bool go = atomicOr(&a.flags->go, 0) != 0;
+    const bool any_o = atomicOr(&a.flags->o, 0) != 0;
+    const bool any_s = atomicOr(&a.flags->s, 0) != 0;
+    const bool ovf = (a.d > 0 && a.flags->ovf != 0) || (!stop && any_o);
+    const bool sat = (a.d > 0 && a.flags->sat != 0) || (!stop && any_s);
+    a.flags->stop = stop;
+    a.flags->ovf = ovf;
+    a.flags->sat = sat;
+    a.flags->go = a.flags->o = a.flags->s = 0;
+    a.flags->done = 0;
+    *a.changed = go;
+    if (a.reduce) {
+      a.red_flags[0] = ovf;
+      a.red_flags[1] = sat;
+    }
+  }
+}
+
+}  // namespace
+
+// Launches the eps step's shard mode for iteration d of D on `stream`: B
+// blocks, the lattice instance when `lattice` is set.  Shapes: cand_idx,
+// sel_states (B, K) int32, sel_costs (B, K) float32, num_unique (B,)
+// int32; exp_ovf, route_ovf and the em_ovf given (B,) bool, em_num_unique
+// (B,) int32 or null; changed_prev (1,) int32 (read when d > 0); flags 7
+// int32 words, changed (1,) int32; states/costs (B, K) the carried
+// frontier; out (B, D, width, 2) int32; red_min (B,) float32, red_count
+// (B,) int32, red_flags (2,) int32 (written when `reduce`).  1-best:
+// gslot/arc (B, N) int32, width = K; lattice: rec_ovf (B,) bool, records
+// (B, R_rec, 4) int32 with R_rec >= width.  Returns the launch's CUDA
+// error.
+extern "C" int kd_eps_step_shard(int lattice, int B, int K, int N, int D, int d, int width,
+                                 int R_rec, int slot_base, int reduce, const void* cand_idx,
+                                 const void* num_unique, const void* sel_states,
+                                 const void* sel_costs, const void* rec_ovf, const void* records,
+                                 const void* gslot, const void* arc, const void* exp_ovf,
+                                 const void* route_ovf, const void* em_ovf0, const void* em_ovf1,
+                                 const void* em_ovf2, const void* em_num_unique,
+                                 const void* changed_prev, void* flags, void* changed,
+                                 void* states, void* costs, void* out, void* red_min,
+                                 void* red_count, void* red_flags, void* stream) {
+  if (B < 1 || K < 1 || D < 1 || d < 0 || d >= D || width < 1 ||
+      (lattice && R_rec < width) || (!lattice && width != K) || (d > 0 && changed_prev == nullptr))
+    return (int)cudaErrorInvalidValue;
+  using U8 = const unsigned char*;
+  const ShardStepArgs a{B, K, N, D, d, width, R_rec, slot_base, reduce,
+                        static_cast<const int*>(cand_idx), static_cast<const int*>(num_unique),
+                        static_cast<const int*>(sel_states), static_cast<const float*>(sel_costs),
+                        static_cast<U8>(rec_ovf), static_cast<const int4*>(records),
+                        static_cast<const int*>(gslot), static_cast<const int*>(arc),
+                        static_cast<U8>(exp_ovf), static_cast<U8>(route_ovf),
+                        {static_cast<U8>(em_ovf0), static_cast<U8>(em_ovf1),
+                         static_cast<U8>(em_ovf2)},
+                        static_cast<const int*>(em_num_unique),
+                        static_cast<const int*>(changed_prev), static_cast<ShardFlags*>(flags),
+                        static_cast<int*>(changed), static_cast<int*>(states),
+                        static_cast<float*>(costs), static_cast<int2*>(out),
+                        static_cast<float*>(red_min), static_cast<int*>(red_count),
+                        static_cast<int*>(red_flags)};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (lattice)
+    eps_step_shard_kernel<true><<<B, STEP_THREADS, 0, st>>>(a);
+  else
+    eps_step_shard_kernel<false><<<B, STEP_THREADS, 0, st>>>(a);
+  return (int)cudaGetLastError();
+}

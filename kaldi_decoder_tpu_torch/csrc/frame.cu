@@ -542,3 +542,163 @@ extern "C" int kd_frame_tail(void* args, int lattice, int B, int K, int V, int R
                        : kdtorch::launch_cluster(frame_tail_kernel<false>, B * G, G, THREADS, 0,
                                                  st, a, cfg, s, in));
 }
+
+// ---- The shard mode -----------------------------------------------------------
+//
+// Replaces the sharded frame's tail in the JAX package
+// (kaldi_decoder_tpu/parallel/graph_shard.py: _rebase's wheres, the step
+// outputs' wheres of _sharded_frame and _sharded_lattice_frame, and the
+// stacking of lax.scan's outputs over a chunk), after the rebase's
+// reductions over the ranks: m_safe is the global best cost, or 0 where
+// no rank holds a token; a live row's frontier becomes the closure's less
+// m_safe and its base base + m_safe; a row whose utterance has ended keeps
+// its state, its outputs the identity backpointers or -1 links; every
+// output goes into row t of the chunk's stacked buffers, t read from the
+// table in device memory and advanced by the last row done.  No GetCutoff:
+// the sharded cutoff is global and computed before the frame.  Plain
+// version: kernels/frame.py frame_tail_shard_plain; bitwise equal (the
+// float operations are its own: mid - m_safe, base + m_safe, base + costs,
+// base + cutoff).  Bounds: bytes (each output written once, each input read
+// once: about 1.5 MB at B = 16, K 2048, R 4096), a few µs of a launch and
+// one dependent chain at these sizes.  One block a row.
+
+namespace {
+
+constexpr int SHARD_THREADS = 512;
+
+struct ShardTailArgs {
+  long long* targs;          // t, rows done with it (kernels/frame.py SHARD_ARGS_WORDS)
+  int lattice, B, K, N, D, R, Re, slot_base;
+  const int* lengths;        // (B,)
+  int* states;               // (B, K) the carried state, in place
+  float* costs;
+  float* base;               // (B,)
+  const float* cutoff;       // (B,) the frame's, relative to base
+  const int* mid_states;     // (B, K)
+  const float* mid_costs;
+  const float* best;         // (B,) reduced MIN
+  const int* num_active;     // (B,) reduced SUM
+  const int* flags;          // (2,) reduced MAX
+  const int4* em_rec;        // (B, R) lattice
+  const int2* eps_rec;       // (B, D, Re) lattice
+  const int* cand_idx;       // (B, K) 1-best
+  const int* gslot;          // (B, N)
+  const int* arc;            // (B, N)
+  const int2* bp_eps;        // (B, D, K)
+  void* out[8];              // ShardLatticeStepOut / ShardStepOut order
+};
+
+__global__ void __launch_bounds__(SHARD_THREADS) frame_tail_shard_kernel(ShardTailArgs a) {
+  __shared__ long long s_t;
+  __shared__ float s_base;
+  const int b = blockIdx.x, tid = threadIdx.x;
+  if (tid == 0) {
+    s_t = __ldcg(&a.targs[0]);
+    s_base = a.base[b];
+  }
+  __syncthreads();
+  const long long t = s_t;
+  const bool fa = a.lengths[b] > t;
+  const float base = s_base;
+  const float m = a.best[b];
+  const float ms = isfinite(m) ? m : 0.f;
+  const float nbase = fa ? __fadd_rn(base, ms) : base;
+  const int K = a.K;
+  const size_t row = (size_t)b * K;
+  const size_t trow = (size_t)t * a.B + b;
+  if (a.lattice) {
+    int* fs = static_cast<int*>(a.out[2]) + trow * K;
+    float* fc = static_cast<float*>(a.out[3]) + trow * K;
+    for (int k = tid; k < K; k += SHARD_THREADS) {
+      int s;
+      float c;
+      if (fa) {
+        s = a.mid_states[row + k];
+        c = __fsub_rn(a.mid_costs[row + k], ms);
+        a.states[row + k] = s;
+        a.costs[row + k] = c;
+      } else {
+        s = a.states[row + k];
+        c = a.costs[row + k];
+      }
+      fs[k] = s;
+      fc[k] = __fadd_rn(nbase, c);
+    }
+    int2* er = static_cast<int2*>(a.out[0]) + trow * a.R;
+    const int4* src = a.em_rec + (size_t)b * a.R;
+    for (int r = tid; r < a.R; r += SHARD_THREADS) {
+      const int4 v = src[r];
+      er[r] = fa ? make_int2(v.x, v.y) : make_int2(-1, -1);
+    }
+    const int n = a.D * a.Re;
+    int2* pr = static_cast<int2*>(a.out[1]) + trow * n;
+    const int2* ps = a.eps_rec + (size_t)b * n;
+    for (int i = tid; i < n; i += SHARD_THREADS) pr[i] = fa ? ps[i] : make_int2(-1, -1);
+  } else {
+    int2* be = static_cast<int2*>(a.out[0]) + trow * K;
+    const size_t lanes = (size_t)b * a.N;
+    for (int k = tid; k < K; k += SHARD_THREADS) {
+      if (fa) {
+        a.states[row + k] = a.mid_states[row + k];
+        a.costs[row + k] = __fsub_rn(a.mid_costs[row + k], ms);
+      }
+      const int ci = a.cand_idx[row + k];
+      const int2 bp = ci >= 0 ? make_int2(a.gslot[lanes + ci], a.arc[lanes + ci]) : make_int2(0, -1);
+      be[k] = fa ? bp : make_int2(a.slot_base + k, -1);
+    }
+    const int n = a.D * K;
+    int2* pe = static_cast<int2*>(a.out[1]) + trow * n;
+    const int2* ps = a.bp_eps + (size_t)b * n;
+    for (int i = tid; i < n; i += SHARD_THREADS)
+      pe[i] = fa ? ps[i] : make_int2(a.slot_base + i % K, -1);
+  }
+  if (tid != 0) return;
+  const int at = a.lattice ? 4 : 2;  // num_active, then (1-best) best_cost, cutoff, flags
+  static_cast<int*>(a.out[at])[trow] = fa ? a.num_active[b] : 0;
+  if (!a.lattice) static_cast<float*>(a.out[3])[trow] = nbase;
+  static_cast<float*>(a.out[at + (a.lattice ? 1 : 2)])[trow] = __fadd_rn(base, a.cutoff[b]);
+  static_cast<unsigned char*>(a.out[at + (a.lattice ? 2 : 3)])[trow] = fa && a.flags[0] > 0;
+  static_cast<unsigned char*>(a.out[at + (a.lattice ? 3 : 4)])[trow] = fa && a.flags[1] > 0;
+  a.base[b] = nbase;
+  __threadfence();
+  unsigned long long* done = reinterpret_cast<unsigned long long*>(&a.targs[1]);
+  if (atomicAdd(done, 1ull) == (unsigned long long)(gridDim.x - 1)) {  // every row has read t
+    a.targs[0] = t + 1;
+    *done = 0;
+  }
+}
+
+}  // namespace
+
+// K3's shard mode on `stream`: B blocks.  args: 2 int64 words (t, rows
+// done); lengths (B,) int32; the carried states/costs (B, K), base (B,);
+// cutoff (B,) float32; mid states/costs (B, K); best (B,) float32,
+// num_active (B,) int32, flags (2,) int32 (the reductions over the
+// ranks).  Lattice: em_rec (B, R, 4), eps_rec (B, D, Re, 2) int32; out0..7
+// ShardLatticeStepOut's stacked (T, B, ...) buffers.  1-best: cand_idx (B,
+// K), gslot/arc (B, N), bp_eps (B, D, K, 2) int32; out0..6 ShardStepOut's.
+// An output or input of no elements (D = 0) may be null.  Returns the
+// launch's CUDA error.
+extern "C" int kd_frame_tail_shard(void* args, int lattice, int B, int K, int N, int D, int R,
+                                   int Re, int slot_base, const void* lengths, void* states,
+                                   void* costs, void* base, const void* cutoff,
+                                   const void* mid_states, const void* mid_costs,
+                                   const void* best, const void* num_active, const void* flags,
+                                   const void* em_rec, const void* eps_rec, const void* cand_idx,
+                                   const void* gslot, const void* arc, const void* bp_eps,
+                                   void* out0, void* out1, void* out2, void* out3, void* out4,
+                                   void* out5, void* out6, void* out7, void* stream) {
+  if (B < 1 || K < 1 || D < 0 || R < 0 || Re < 0) return (int)cudaErrorInvalidValue;
+  const ShardTailArgs a{static_cast<long long*>(args), lattice, B, K, N, D, R, Re, slot_base,
+                        static_cast<const int*>(lengths), static_cast<int*>(states),
+                        static_cast<float*>(costs), static_cast<float*>(base),
+                        static_cast<const float*>(cutoff), static_cast<const int*>(mid_states),
+                        static_cast<const float*>(mid_costs), static_cast<const float*>(best),
+                        static_cast<const int*>(num_active), static_cast<const int*>(flags),
+                        static_cast<const int4*>(em_rec), static_cast<const int2*>(eps_rec),
+                        static_cast<const int*>(cand_idx), static_cast<const int*>(gslot),
+                        static_cast<const int*>(arc), static_cast<const int2*>(bp_eps),
+                        {out0, out1, out2, out3, out4, out5, out6, out7}};
+  frame_tail_shard_kernel<<<B, SHARD_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
+}

@@ -122,8 +122,9 @@ def stream(device) -> ctypes.c_void_p:
 @functools.lru_cache(maxsize=None)
 def kernels() -> ctypes.CDLL:
     """The CUDA kernel library (row gather, K1 expansion, K2 lattice
-    dedup and records, K3 frame tail, K4 sweep, K5 eps lanes and the eps
-    step, K6 dedup), built on first use."""
+    dedup and records, K3 frame tail and its shard mode, K4 sweep, K5 eps
+    lanes and the eps step with its shard mode, K6 dedup, K7 shard route),
+    built on first use."""
     sources = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
     arch = ["-gencode", "arch=compute_90a,code=sm_90a"]
     path = build_library(
@@ -172,6 +173,14 @@ def kernels() -> ctypes.CDLL:
     lib.kd_expand_eps_blocks.argtypes = [_I, _I]
     lib.kd_eps_step.restype = _I
     lib.kd_eps_step.argtypes = [_I] * 9 + [_P] * 9 + [_P] * 5 + [_P]
+    lib.kd_eps_step_shard.restype = _I
+    lib.kd_eps_step_shard.argtypes = [_I] * 10 + [_P] * 23 + [_P]
+    lib.kd_frame_tail_shard.restype = _I
+    lib.kd_frame_tail_shard.argtypes = [_P] + [_I] * 8 + [_P] * 16 + [_P] * 8 + [_P]
+    lib.kd_route_send.restype = _I
+    lib.kd_route_send.argtypes = [_P] * 6 + [_I] * 9 + [_F] + [_P] * 6 + [_P]
+    lib.kd_route_recv.restype = _I
+    lib.kd_route_recv.argtypes = [_P] * 3 + [_I] * 7 + [_P] * 4 + [_P]
     lib.kd_error_string.restype = ctypes.c_char_p
     lib.kd_error_string.argtypes = [_I]
     return lib

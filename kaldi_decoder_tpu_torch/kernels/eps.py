@@ -22,9 +22,19 @@ paths), then the eps step:
   at the last iteration of a cyclic eps budget, the overflow of every
   active row when some active row still changed.
 
+The sharded decoders' closure (``parallel/graph_shard.py``) routes each
+iteration's lanes between K5 and the dedup call and reduces its
+``changed`` over the ranks, so its step, :func:`eps_step_shard`, is a mode
+of its own: it applies the batch-wide ``stop`` of the iterations before
+(the carried state kept, the identity or -1 rows written), then writes
+this iteration's local ``changed`` for the next MAX reduction, and at the
+closure's last iteration the local values the frame's rebase and flags
+reduce.
+
 On CPU tensors the wrappers run the plain torch versions,
-:func:`expand_eps_lanes_plain` and :func:`eps_step_plain`; on CUDA tensors
-they launch ``csrc/eps.cu`` or raise.  The carry lives in device memory,
+:func:`expand_eps_lanes_plain`, :func:`eps_step_plain` and
+:func:`eps_step_shard_plain`; on CUDA tensors they launch ``csrc/eps.cu``
+or raise.  The carry lives in device memory,
 so that an eps closure replays in a captured frame; each wrapper takes
 ``out=`` buffers (:func:`empty_eps_lanes`, :func:`empty_eps_carry`) so that
 a captured frame allocates nothing.
@@ -57,6 +67,10 @@ from kaldi_decoder_tpu_torch.kernels._build import (
 INF = float("inf")
 # EpsCarry.flags: ran, the batch's `go` accumulator, blocks done (csrc/eps.cu Flags).
 FLAG_WORDS = 3
+# ShardEpsCarry.flags: stop, the batch's `go`, overflow and saturation
+# accumulators, blocks done, the running overflow and saturation
+# (csrc/eps.cu ShardFlags).
+SHARD_FLAG_WORDS = 7
 
 
 class EpsLanes(NamedTuple):
@@ -307,3 +321,163 @@ def eps_step(d: int, carry: EpsCarry, row_active: torch.Tensor, exp_overflow: to
 
 
 eps_step.launches = 0
+
+
+class ShardEpsCarry(NamedTuple):
+    """A sharded eps closure's state across its D iterations, updated in
+    place, beside the carried frontier."""
+
+    flags: torch.Tensor  # (SHARD_FLAG_WORDS,) int32, zero before the first iteration
+    changed: torch.Tensor  # (1,) int32: this iteration's local `changed`, for a MAX reduction
+    out: torch.Tensor  # (B, D, width, 2) int32: backpointers (width K) or links (width r_eps)
+    # The closure's last iteration, with ``reduce``: the local values the
+    # frame reduces over the ranks.
+    red_min: torch.Tensor  # (B,) float32: the carried frontier's smallest finite cost, or +inf
+    red_count: torch.Tensor  # (B,) int32: its finite costs
+    red_flags: torch.Tensor  # (2,) int32: the closure's overflow and saturation (any row)
+
+
+def empty_shard_eps_carry(batch: int, iters: int, width: int, device) -> ShardEpsCarry:
+    """A sharded eps closure's carry for ``batch`` rows and ``iters``
+    iterations of ``width`` backpointers or links a row."""
+    i32 = dict(dtype=torch.int32, device=device)
+    return ShardEpsCarry(
+        flags=torch.zeros((SHARD_FLAG_WORDS,), **i32),
+        changed=torch.zeros((1,), **i32),
+        out=torch.empty((batch, iters, width, 2), **i32),
+        red_min=torch.empty((batch,), dtype=torch.float32, device=device),
+        red_count=torch.empty((batch,), **i32),
+        red_flags=torch.zeros((2,), **i32),
+    )
+
+
+def eps_step_shard_plain(d: int, carry: ShardEpsCarry, states: torch.Tensor,
+                         costs: torch.Tensor, sel, exp_overflow: torch.Tensor,
+                         route_overflow: torch.Tensor, changed_prev: Optional[torch.Tensor],
+                         slot_base: int, lanes=None, em_overflow=(), em_num_unique=None,
+                         reduce: bool = False) -> None:
+    """Iteration ``d`` of a sharded closure's D (``carry.out.shape[1]``)
+    after its dedup call ``sel`` (K6's ``Selection`` of the routed lanes
+    ``lanes``, which give each lane's ``gslot`` and ``arc``; or K2's
+    ``LatticeSelection`` of its eps call, records of ``K + r_eps`` rows).
+    ``stop`` is the iterations' before: false at d = 0, else the carried
+    stop or ``changed_prev`` (the MAX-reduced ``carry.changed`` of d - 1)
+    zero.  Unless stopped, the carried frontier (``states``, ``costs``,
+    (B, K), in place) becomes ``sel``'s and row d of ``carry.out`` the
+    backpointers ``(gslot, arc)`` of each slot's winning lane (1-best) or
+    the first r_eps records' ``(src, arc)`` (lattice); once stopped, the
+    identity ``(slot_base + k, NO_ARC)`` or -1.  The batch's overflow (K5's
+    ``exp_overflow``, the route's ``route_overflow``, the lattice's record
+    overflow and spill, and ``em_overflow``, the emitting call's) and
+    saturation (``num_unique > K``, and ``em_num_unique``'s) run on unless
+    stopped.  ``carry.changed`` gets the local ``changed``; with
+    ``reduce``, ``red_min``, ``red_count`` and ``red_flags`` the frame's
+    local values."""
+    K = sel.states.shape[1]
+    dev = sel.states.device
+    if d == 0:
+        stop = torch.zeros((), dtype=torch.bool, device=dev)
+    else:
+        stop = (carry.flags[0] != 0) | (changed_prev[0] == 0)
+    if _is_lattice(sel):
+        width = carry.out.shape[2]
+        changed = ((sel.cand_idx >= K) & torch.isfinite(sel.costs)).any()
+        # Spill: links beyond the r_eps rows kept are dropped: record overflow.
+        spill = (sel.records[..., 2] >= 0).sum(dim=1) > width
+        o = exp_overflow | route_overflow | sel.rec_overflow | spill
+        carry.out[:, d] = torch.where(stop, -1, sel.records[:, :width, :2])
+    else:
+        bp = _backpointers(sel.cand_idx, lanes.gslot, lanes.arc)
+        changed = ((sel.cand_idx >= 0) & (bp[..., 1] != NO_ARC)).any()
+        o = exp_overflow | route_overflow
+        ident = _identity_bp(K, dev)
+        ident[:, 0] += slot_base
+        carry.out[:, d] = torch.where(stop, ident, bp)
+    s = sel.num_unique > K
+    for x in em_overflow:
+        o = o | x
+    if em_num_unique is not None:
+        s = s | (em_num_unique > K)
+    states.copy_(torch.where(stop, states, sel.states))
+    costs.copy_(torch.where(stop, costs, sel.costs))
+    ovf = ~stop & o.any()
+    sat = ~stop & s.any()
+    if d:
+        ovf, sat = ovf | (carry.flags[5] != 0), sat | (carry.flags[6] != 0)
+    carry.flags[0], carry.flags[5], carry.flags[6] = stop, ovf, sat
+    carry.changed[0] = changed
+    if reduce:
+        carry.red_min.copy_(torch.where(torch.isfinite(costs), costs, INF).amin(dim=1))
+        carry.red_count.copy_(torch.isfinite(costs).sum(dim=1, dtype=torch.int32))
+        carry.red_flags[0], carry.red_flags[1] = ovf, sat
+
+
+def eps_step_shard(d: int, carry: ShardEpsCarry, states, costs, sel, exp_overflow,
+                   route_overflow, changed_prev, slot_base: int, lanes=None, em_overflow=(),
+                   em_num_unique=None, reduce: bool = False) -> None:
+    """The sharded eps step on the tensors' device: :func:`eps_step_shard_plain`
+    on the CPU, one launch of ``csrc/eps.cu`` on a card (a block a row,
+    the batch's flags in ``carry.flags``), counted in
+    ``eps_step.launches``.  ``em_overflow`` holds at most three (B,) bool
+    tensors.  A row's smallest cost is its first smallest in slot order,
+    as ``torch.amin`` takes it on the CPU."""
+    dev = sel.states.device
+    if dev.type == "cpu":
+        return eps_step_shard_plain(d, carry, states, costs, sel, exp_overflow, route_overflow,
+                                    changed_prev, slot_base, lanes, em_overflow, em_num_unique,
+                                    reduce)
+    if dev.type != "cuda":
+        raise ValueError(f"eps_step_shard runs on cpu or cuda tensors, not {dev}")
+    B, K = sel.states.shape
+    D, width = carry.out.shape[1:3]
+    if not 0 <= d < D:
+        raise ValueError(f"iteration {d} of {D}")
+    if d > 0:
+        check(changed_prev, "changed_prev", torch.int32, (1,), dev)
+    if len(em_overflow) > 3:
+        raise ValueError(f"at most three emitting overflow flags, not {len(em_overflow)}")
+    lattice = _is_lattice(sel)
+    check(states, "states", torch.int32, (B, K), dev)
+    check(costs, "costs", torch.float32, (B, K), dev)
+    check(sel.states, "sel.states", torch.int32, (B, K), dev)
+    check(sel.costs, "sel.costs", torch.float32, (B, K), dev)
+    check(sel.cand_idx, "cand_idx", torch.int32, (B, K), dev)
+    check(sel.num_unique, "num_unique", torch.int32, (B,), dev)
+    for i, x in enumerate((exp_overflow, route_overflow) + tuple(em_overflow)):
+        check(x, f"overflow[{i}]", torch.bool, (B,), dev)
+    if em_num_unique is not None:
+        check(em_num_unique, "em_num_unique", torch.int32, (B,), dev)
+    check(carry.flags, "carry.flags", torch.int32, (SHARD_FLAG_WORDS,), dev)
+    check(carry.changed, "carry.changed", torch.int32, (1,), dev)
+    check(carry.out, "carry.out", torch.int32, (B, D, width, 2), dev)
+    check(carry.red_min, "carry.red_min", torch.float32, (B,), dev)
+    check(carry.red_count, "carry.red_count", torch.int32, (B,), dev)
+    check(carry.red_flags, "carry.red_flags", torch.int32, (2,), dev)
+    N = R_rec = 0
+    if lattice:
+        R_rec = sel.records.shape[1]
+        if R_rec < width:
+            raise ValueError(f"K2's eps call has {R_rec} record rows, fewer than {width}")
+        check(sel.rec_overflow, "rec_overflow", torch.bool, (B,), dev)
+        check(sel.records, "records", torch.int32, (B, R_rec, 4), dev)
+    else:
+        if width != K:
+            raise ValueError(f"the 1-best closure keeps {K} backpointers a row, not {width}")
+        N = lanes.gslot.shape[1]
+        check(lanes.gslot, "lanes.gslot", torch.int32, (B, N), dev)
+        check(lanes.arc, "lanes.arc", torch.int32, (B, N), dev)
+    em = [ptr(x) for x in em_overflow] + [None] * (3 - len(em_overflow))
+    rc = kernels().kd_eps_step_shard(
+        int(lattice), B, K, N, D, d, width, R_rec, slot_base, int(reduce),
+        ptr(sel.cand_idx), ptr(sel.num_unique), ptr(sel.states), ptr(sel.costs),
+        ptr(sel.rec_overflow) if lattice else None, ptr(sel.records) if lattice else None,
+        None if lattice else ptr(lanes.gslot), None if lattice else ptr(lanes.arc),
+        ptr(exp_overflow), ptr(route_overflow), *em,
+        ptr(em_num_unique) if em_num_unique is not None else None,
+        ptr(changed_prev) if d > 0 else None, ptr(carry.flags), ptr(carry.changed),
+        ptr(states), ptr(costs), ptr(carry.out), ptr(carry.red_min), ptr(carry.red_count),
+        ptr(carry.red_flags), stream(dev),
+    )
+    if rc != 0:
+        raise RuntimeError(f"kd_eps_step_shard launch failed: {cuda_error(rc)}")
+    eps_step.launches += 1

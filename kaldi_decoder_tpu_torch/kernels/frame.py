@@ -18,6 +18,15 @@ captured once in a CUDA graph and replayed for every frame of every chunk
 ``frame_step_batched``); on CPU tensors the wrappers run it and
 ``get_cutoff``, on CUDA tensors they launch ``csrc/frame.cu`` or raise.
 On a card the tail is a cluster of blocks a row (:func:`cluster_size`).
+
+The sharded decoders' frame (``parallel/graph_shard.py``) ends with K3's
+shard mode, :func:`frame_tail_shard`, after the rebase's reductions over
+the ranks: the rebase by the global best cost, the freeze of ended rows
+and the frame's outputs into row ``t`` of the chunk's stacked
+:class:`ShardStepOut` or :class:`ShardLatticeStepOut`, with ``t`` in
+device memory (:func:`shard_args`).  It runs no GetCutoff: the sharded
+cutoff is global (``graph_shard._global_cutoff``).  Its plain version is
+:func:`frame_tail_shard_plain`.
 """
 
 from __future__ import annotations
@@ -35,13 +44,22 @@ from kaldi_decoder_tpu_torch.decoders.frontier import (
     _identity_bp,
 )
 from kaldi_decoder_tpu_torch.decoders.lattice_dev import LatticeStepOut
-from kaldi_decoder_tpu_torch.kernels._build import check, cuda_error, kernels, ptr, stream
+from kaldi_decoder_tpu_torch.kernels._build import (
+    check,
+    check_like,
+    cuda_error,
+    kernels,
+    ptr,
+    stream,
+)
 from kaldi_decoder_tpu_torch.ops.cutoff import get_cutoff
 
 # csrc/frame.cu FrameArgs: t, frames, done (rows done with frame t),
 # scores, lengths, then the nine output pointers, each one int64 word.
 ARGS_WORDS = 14
 OUTS = 9
+# csrc/frame.cu ShardTailArgs' table in device memory: t, rows done with it.
+SHARD_ARGS_WORDS = 2
 
 
 class TailInputs(NamedTuple):
@@ -316,3 +334,196 @@ def frame_tail(slots: FrameSlots, tin: TailInputs, fc: FrontierConfig,
 
 
 frame_tail.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The shard mode
+# ---------------------------------------------------------------------------
+
+
+class ShardStepOut(NamedTuple):
+    """Per-frame outputs of the sharded Viterbi frame, (B, ...) each, the
+    slot axes local; stacked over a chunk they gain a leading T."""
+
+    bp_emit: torch.Tensor  # (B, K, 2) int32 (global slot, global arc)
+    bp_eps: torch.Tensor  # (B, D, K, 2) int32
+    num_active: torch.Tensor  # (B,) int32, global
+    best_cost: torch.Tensor  # (B,) float32, absolute
+    cutoff: torch.Tensor  # (B,) float32, absolute
+    overflow: torch.Tensor  # (B,) bool
+    saturated: torch.Tensor  # (B,) bool
+
+
+class ShardLatticeStepOut(NamedTuple):
+    """Per-frame outputs of the sharded lattice frame, (B, ...) each, the
+    record and slot axes local; stacked over a chunk they gain a leading T."""
+
+    em_records: torch.Tensor  # (B, R_em, 2) (global src state, global arc)
+    eps_records: torch.Tensor  # (B, D, R_eps, 2)
+    frontier_states: torch.Tensor  # (B, K) local state ids
+    frontier_costs: torch.Tensor  # (B, K) absolute costs
+    num_active: torch.Tensor  # (B,) int32, global
+    cutoff: torch.Tensor  # (B,) float32
+    overflow: torch.Tensor  # (B,) bool
+    saturated: torch.Tensor  # (B,) bool
+
+
+class ShardTailInputs(NamedTuple):
+    """What K3's shard mode reads of a sharded frame: the frontier after
+    the eps closure, the rebase's reductions over the ranks, and the
+    lattice records or the 1-best backpointer inputs."""
+
+    mid_states: torch.Tensor  # (B, K) int32
+    mid_costs: torch.Tensor  # (B, K) float32, relative to the carried base
+    best: torch.Tensor  # (B,) float32, the MIN over the ranks of each row's best cost
+    num_active: torch.Tensor  # (B,) int32, the SUM over the ranks of the finite costs
+    flags: torch.Tensor  # (2,) int32, the MAX over the ranks of (overflow, saturated)
+    # Lattice.
+    em_records: Optional[torch.Tensor] = None  # (B, R, 4) int32, K2's emitting call's
+    eps_records: Optional[torch.Tensor] = None  # (B, D, Re, 2) int32, the closure's links
+    # 1-best.
+    cand_idx: Optional[torch.Tensor] = None  # (B, K) int32, K6's winning routed lane
+    gslot: Optional[torch.Tensor] = None  # (B, N) int32, the routed lanes' global slots
+    arc: Optional[torch.Tensor] = None  # (B, N) int32, their global arcs
+    bp_eps: Optional[torch.Tensor] = None  # (B, D, K, 2) int32, the closure's
+
+
+def empty_shard_outs(frames: int, batch: int, k: int, eps_iters: int, lattice: bool,
+                     device, em_records: int = 0, eps_records: int = 0):
+    """A chunk's stacked outputs of ``frames`` sharded frames (uninitialised)."""
+    i32 = dict(dtype=torch.int32, device=device)
+    f32 = dict(dtype=torch.float32, device=device)
+    b8 = dict(dtype=torch.bool, device=device)
+    T, B, K, D = frames, batch, k, eps_iters
+    if lattice:
+        return ShardLatticeStepOut(
+            torch.empty((T, B, em_records, 2), **i32),
+            torch.empty((T, B, D, eps_records, 2), **i32),
+            torch.empty((T, B, K), **i32), torch.empty((T, B, K), **f32),
+            torch.empty((T, B), **i32), torch.empty((T, B), **f32),
+            torch.empty((T, B), **b8), torch.empty((T, B), **b8))
+    return ShardStepOut(
+        torch.empty((T, B, K, 2), **i32), torch.empty((T, B, D, K, 2), **i32),
+        torch.empty((T, B), **i32), torch.empty((T, B), **f32), torch.empty((T, B), **f32),
+        torch.empty((T, B), **b8), torch.empty((T, B), **b8))
+
+
+def shard_args(device) -> torch.Tensor:
+    """K3's shard-mode table, ``t`` = 0: ``t`` is word 0."""
+    return torch.zeros((SHARD_ARGS_WORDS,), dtype=torch.int64, device=device)
+
+
+def frame_tail_shard_plain(st: StepState, cutoff: torch.Tensor, tin: ShardTailInputs,
+                           frame_active: torch.Tensor, slot_base: int):
+    """One sharded frame's tail: the rebase by the global best cost (0
+    where no rank holds a token), the freeze of rows with ``frame_active``
+    False (their state kept, their records -1, their backpointers the
+    identity ``(slot_base + k, NO_ARC)``) and the frame's outputs.
+    ``st`` is the state the frame started from, ``cutoff`` (B,) its global
+    cutoff relative to ``st.base``.  Returns (the new state, the frame's
+    ``ShardLatticeStepOut`` when ``tin`` has records, else
+    ``ShardStepOut``)."""
+    K = tin.mid_states.shape[1]
+    fa = frame_active
+    m = tin.best
+    m_safe = torch.where(torch.isfinite(m), m, 0.0)
+    final = StepState(
+        states=torch.where(fa[:, None], tin.mid_states, st.states),
+        costs=torch.where(fa[:, None], tin.mid_costs - m_safe[:, None], st.costs),
+        base=torch.where(fa, st.base + m_safe, st.base),
+    )
+    flags = tin.flags > 0
+    num_active = torch.where(fa, tin.num_active, 0)
+    if tin.em_records is not None:
+        out = ShardLatticeStepOut(
+            em_records=torch.where(fa[:, None, None], tin.em_records[..., :2], -1),
+            eps_records=torch.where(fa[:, None, None, None], tin.eps_records, -1),
+            frontier_states=final.states,
+            frontier_costs=final.base[:, None] + final.costs,
+            num_active=num_active,
+            cutoff=st.base + cutoff,
+            overflow=fa & flags[0],
+            saturated=fa & flags[1],
+        )
+    else:
+        ident = _identity_bp(K, st.states.device)
+        ident[:, 0] += slot_base
+        out = ShardStepOut(
+            bp_emit=torch.where(fa[:, None, None],
+                                _backpointers(tin.cand_idx, tin.gslot, tin.arc), ident),
+            bp_eps=torch.where(fa[:, None, None, None], tin.bp_eps, ident),
+            num_active=num_active,
+            best_cost=torch.where(fa, st.base + m_safe, st.base),
+            cutoff=st.base + cutoff,
+            overflow=fa & flags[0],
+            saturated=fa & flags[1],
+        )
+    return final, out
+
+
+def frame_tail_shard(args: torch.Tensor, st: StepState, cutoff: torch.Tensor,
+                     tin: ShardTailInputs, lengths: torch.Tensor, outs, slot_base: int) -> None:
+    """K3's shard mode on the tensors' device: the tail of frame ``t``
+    (``args[0]``, from :func:`shard_args`) of a chunk whose rows decode
+    ``lengths`` frames, in place: ``st`` becomes the new state and row t
+    of ``outs`` (from :func:`empty_shard_outs`) the frame's outputs, and
+    ``t`` advances.  On a card one launch of ``csrc/frame.cu`` (a block a
+    row), counted in ``frame_tail.launches``; see
+    :func:`frame_tail_shard_plain`."""
+    dev = st.states.device
+    if dev.type == "cpu":
+        t = int(args[0])
+        final, out = frame_tail_shard_plain(st, cutoff, tin, lengths > t, slot_base)
+        for dst, src in zip(st, final):
+            dst.copy_(src)
+        for buf, x in zip(outs, out):
+            buf[t].copy_(x)
+        args[0] = t + 1
+        return
+    if dev.type != "cuda":
+        raise ValueError(f"frame_tail_shard runs on cpu or cuda tensors, not {dev}")
+    B, K = st.states.shape
+    check(args, "args", torch.int64, (SHARD_ARGS_WORDS,), dev)
+    check(st.states, "state.states", torch.int32, (B, K), dev)
+    check(st.costs, "state.costs", torch.float32, (B, K), dev)
+    check(st.base, "state.base", torch.float32, (B,), dev)
+    check(cutoff, "cutoff", torch.float32, (B,), dev)
+    check(lengths, "lengths", torch.int32, (B,), dev)
+    check(tin.mid_states, "mid_states", torch.int32, (B, K), dev)
+    check(tin.mid_costs, "mid_costs", torch.float32, (B, K), dev)
+    check(tin.best, "best", torch.float32, (B,), dev)
+    check(tin.num_active, "num_active", torch.int32, (B,), dev)
+    check(tin.flags, "flags", torch.int32, (2,), dev)
+    lattice = tin.em_records is not None
+    T = outs[0].shape[0]
+    N = R = Re = 0
+    if lattice:
+        R = tin.em_records.shape[1]
+        D, Re = tin.eps_records.shape[1:3]
+        check(tin.em_records, "em_records", torch.int32, (B, R, 4), dev)
+        check(tin.eps_records, "eps_records", torch.int32, (B, D, Re, 2), dev)
+        want = empty_shard_outs(T, B, K, D, True, "meta", R, Re)
+    else:
+        N = tin.gslot.shape[1]
+        D = tin.bp_eps.shape[1]
+        check(tin.cand_idx, "cand_idx", torch.int32, (B, K), dev)
+        check(tin.gslot, "gslot", torch.int32, (B, N), dev)
+        check(tin.arc, "arc", torch.int32, (B, N), dev)
+        check(tin.bp_eps, "bp_eps", torch.int32, (B, D, K, 2), dev)
+        want = empty_shard_outs(T, B, K, D, False, "meta")
+    check_like(outs, want, "outs", dev)
+
+    def opt(x):
+        return None if x is None or x.numel() == 0 else ptr(x)
+
+    o = [opt(x) for x in outs] + [None] * (8 - len(outs))
+    rc = kernels().kd_frame_tail_shard(
+        ptr(args), int(lattice), B, K, N, D, R, Re, slot_base,
+        ptr(lengths), ptr(st.states), ptr(st.costs), ptr(st.base), ptr(cutoff),
+        ptr(tin.mid_states), ptr(tin.mid_costs), ptr(tin.best), ptr(tin.num_active),
+        ptr(tin.flags), opt(tin.em_records), opt(tin.eps_records), opt(tin.cand_idx),
+        opt(tin.gslot), opt(tin.arc), opt(tin.bp_eps), *o, stream(dev),
+    )
+    if rc != 0:
+        raise RuntimeError(f"kd_frame_tail_shard launch failed: {cuda_error(rc)}")
+    frame_tail.launches += 1

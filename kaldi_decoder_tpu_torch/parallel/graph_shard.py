@@ -22,18 +22,29 @@ emitting ones, for a fixed ``eps_iters`` iterations whose results after
 the last global change are discarded on the device (``changed`` is
 reduced with MAX, never read by the host).
 
-On the card the frame runs the port's hand-written kernels at shard
+On a card the frame runs the port's hand-written kernels at shard
 shapes: K1 (``kernels.expand.expand_filter``, the ``src_slot`` variant on
 the Viterbi path, the lattice variant on the lattice path) on the local
-frontier; K6 (``kernels.dedup.dedup_select``) on the routed lanes, ``P *
-route_cap`` wide with ``part_size`` states, and again each eps iteration
-with the K incumbents first; K2 (``kernels.dedup_rec.dedup_select_rec``)
-on the routed lanes and, with ``num_incumbents = K``, each eps iteration
-of the lattice path; K5 (``kernels.eps.expand_eps_lanes``, without
-incumbents) gives each eps iteration's lanes.  The routing's sort, scan
-and scatter (:func:`_route`, K7) and the sharded eps closure's
-bookkeeping, which runs between the exchanges, are plain torch on the
-card too.
+frontier; K7 (``kernels.route``: ``route_send`` before each
+``all_to_all``, with the global beam filter and the payload's global
+offsets folded in, ``route_recv`` after it, with the K incumbents first on
+an eps iteration); K6 (``kernels.dedup.dedup_select``) on the routed
+lanes, ``P * route_cap`` wide with ``part_size`` states, and again each
+eps iteration with the K incumbents first; K2
+(``kernels.dedup_rec.dedup_select_rec``) on the routed lanes and, with
+``num_incumbents = K``, each eps iteration of the lattice path; K5
+(``kernels.eps.expand_eps_lanes``, without incumbents) gives each eps
+iteration's lanes; the eps step's shard mode
+(``kernels.eps.eps_step_shard``) closes each eps iteration (the
+backpointers or links, the batch-wide stop, the carry, the local
+``changed`` and, at the last, the frame's local values that the rebase
+reduces); K3's shard mode (``kernels.frame.frame_tail_shard``) ends the
+frame (the rebase, the freeze, every output into row t of the chunk's
+stacked buffers, ``t`` on the device).  Between them run only the
+collectives, whose kinds, order and number a frame are the original's,
+and :func:`_global_cutoff`, which stays torch: a MIN reduction of each
+row's best cost and, when max_active or min_active can bind, a SUM
+reduction, an all-gather and one stable sort of the merged prefixes.
 """
 
 from __future__ import annotations
@@ -45,11 +56,8 @@ import numpy as np
 import torch
 
 from kaldi_decoder_tpu_torch.decoders.frontier import (
-    NO_ARC,
     FrontierConfig,
     StepState,
-    _backpointers,
-    _identity_bp,
     config_for_graph,
 )
 from kaldi_decoder_tpu_torch.fst.csr import CsrGraph, GraphArrays
@@ -63,8 +71,25 @@ from kaldi_decoder_tpu_torch.fst.pack import (
 )
 from kaldi_decoder_tpu_torch.kernels.dedup import dedup_select
 from kaldi_decoder_tpu_torch.kernels.dedup_rec import dedup_select_rec
-from kaldi_decoder_tpu_torch.kernels.eps import expand_eps_lanes
+from kaldi_decoder_tpu_torch.kernels.eps import (
+    ShardEpsCarry,
+    empty_shard_eps_carry,
+    eps_step_shard,
+    expand_eps_lanes,
+)
 from kaldi_decoder_tpu_torch.kernels.expand import expand_filter
+from kaldi_decoder_tpu_torch.kernels.frame import (
+    ShardTailInputs,
+    empty_shard_outs,
+    frame_tail_shard,
+    shard_args,
+)
+from kaldi_decoder_tpu_torch.kernels.route import (
+    empty_route_lanes,
+    empty_route_send,
+    route_recv,
+    route_send,
+)
 from kaldi_decoder_tpu_torch.parallel.mesh import (
     all_gather_cat,
     all_gather_object,
@@ -232,12 +257,13 @@ def local_part(
 
 
 # ---------------------------------------------------------------------------
-# Token routing (K7, plain torch)
+# Token routing (K7)
 # ---------------------------------------------------------------------------
 
 
 class Routed(NamedTuple):
-    """Per-rank receive buffers after the all_to_all (flattened P*C)."""
+    """Per-rank receive buffers after the all_to_all (flattened P*C, after
+    the incumbents when the call had them)."""
 
     state_local: torch.Tensor  # (B, P*C) int32, Sp == invalid sentinel
     cost: torch.Tensor  # (B, P*C) float32, +inf invalid
@@ -246,89 +272,31 @@ class Routed(NamedTuple):
     overflow: torch.Tensor  # (B,) bool — a (src, dst) bucket overflowed
 
 
-def route_buffers(
-    dst_g: torch.Tensor,  # (B, N) global destination states
-    cost: torch.Tensor,  # (B, N) +inf invalid
-    gslot: torch.Tensor,  # (B, N) global source slot (or state)
-    arc_g: torch.Tensor,  # (B, N) global arc id
-    sp: int,
-    num_parts: int,
-    cap: int,
-    local_slack_beam: Optional[float] = None,
-):
-    """The send side of :func:`_route`: the (P, B, cap, 4) int32 buffer
-    whose slice p goes to rank p, rows ``[local state, cost bits, slot,
-    arc]``, and the overflow flag (B,).
-
-    One 3-key sort by (owner, local state, cost) groups candidates and
-    performs the local pre-routing dedup: each (owner, state) run's leader
-    is its local per-state minimum.  It is a stable sort by cost, then a
-    stable sort by the (owner, state) key, so equal keys keep candidate
-    order; the original's comparator takes -0.0 and +0.0 as equal, so
-    they are folded for the cost sort.  With ``local_slack_beam`` None
-    (best-path decode) only leaders are routed; with a beam (lattice
-    decode) non-leaders are routed while ``cost - local minimum`` is at
-    most the beam (the global slack is no smaller, so what is dropped is
-    beyond the lattice beam).  Within-run positions place survivors in the
-    fixed (P, cap) buffer; a bucket overflow drops candidates and sets the
-    flag."""
-    B, N = dst_g.shape
-    dev = dst_g.device
-    valid = torch.isfinite(cost)
-    owner = torch.div(dst_g, sp, rounding_mode="floor")
-    key = torch.where(valid, owner, num_parts)
-    dloc = torch.where(valid, dst_g - owner * sp, sp)
-    _, by_cost = torch.sort(torch.where(cost == 0, 0.0, cost), dim=1, stable=True)
-    okey = key.long() * (sp + 1) + dloc.long()
-    _, by_key = torch.sort(okey.gather(1, by_cost), dim=1, stable=True)
-    perm = by_cost.gather(1, by_key)
-    k2, d2, c2, s2, a2 = (x.gather(1, perm) for x in (key, dloc, cost, gslot, arc_g))
-
-    lane = torch.arange(N, device=dev).expand(B, N)
-    first = torch.ones((B, N), dtype=torch.bool, device=dev)
-    # (owner, state)-run leaders: the local per-state minima.
-    state_leader = first.clone()
-    state_leader[:, 1:] = (k2[:, 1:] != k2[:, :-1]) | (d2[:, 1:] != d2[:, :-1])
-    if local_slack_beam is None:
-        keep = state_leader & (k2 < num_parts)
-    else:
-        run_min = c2.gather(1, torch.where(state_leader, lane, 0).cummax(dim=1).values)
-        keep = (k2 < num_parts) & (c2 - run_min <= local_slack_beam)
-    # Position among kept lanes within each owner run (exclusive count).
-    owner_leader = first
-    owner_leader[:, 1:] = k2[:, 1:] != k2[:, :-1]
-    kept = keep.to(torch.int32)
-    csum = kept.cumsum(dim=1, dtype=torch.int32)
-    start = torch.where(owner_leader, lane, 0).cummax(dim=1).values
-    within = (csum - kept) - (csum.gather(1, start) - kept.gather(1, start))
-    ok = keep & (within < cap)
-    flat = num_parts * cap
-    tgt = torch.where(ok, k2 * cap + within, flat).long()
-    rows = torch.stack(
-        [d2, torch.where(ok, c2, INF).view(torch.int32), s2, a2], dim=-1
-    ).to(torch.int32)
-    send = torch.zeros((B, flat + 1, 4), dtype=torch.int32, device=dev)
-    send[..., 1] = INF_BITS
-    send[..., 3] = NO_ARC
-    # Targets are unique but for the spill column ``flat``, which is dropped.
-    send.scatter_(1, tgt[..., None].expand(B, N, 4), rows)
-    send = send[:, :flat].reshape(B, num_parts, cap, 4).transpose(0, 1).contiguous()
-    return send, (keep & (within >= cap)).any(dim=1)
-
-
 def _route(dst_g, cost, gslot, arc_g, sp: int, num_parts: int, cap: int, group,
-           local_slack_beam: Optional[float] = None) -> Routed:
-    """Bucket candidates by owner rank (:func:`route_buffers`) and
+           local_slack_beam: Optional[float] = None, *, cutoff=None, slot_states=None,
+           slot_add: int = 0, arc_add: int = 0, incumbents=None, inc_slot_base=None,
+           bufs: Optional[dict] = None, key: str = "") -> Routed:
+    """K7: bucket the lanes by owner rank (``kernels.route.route_send``,
+    with the beam filter ``cutoff`` and the payload offsets folded in),
     exchange them over ``group`` with one ``all_to_all`` of the four
-    columns."""
-    B = dst_g.shape[0]
-    send, ovf = route_buffers(dst_g, cost, gslot, arc_g, sp, num_parts, cap, local_slack_beam)
-    recv = all_to_all(send, group)  # (P, B, cap, 4): slice p from rank p
-    recv = recv.transpose(0, 1).reshape(B, num_parts * cap, 4)
-    c = recv[..., 1].contiguous().view(torch.float32)
-    # Invalid entries carry cost=+inf; make their state the dedup sentinel.
-    d = torch.where(torch.isfinite(c), recv[..., 0], sp)
-    return Routed(d, c, recv[..., 2].contiguous(), recv[..., 3].contiguous(), ovf)
+    columns, and lay out what arrived for the dedup call
+    (``route_recv``), after the ``incumbents`` ((states, costs), with
+    slots ``inc_slot_base + k`` or -1) when given.  On a card ``bufs``
+    keeps the buffers of each call site ``key``, made at its first call."""
+    out = (None, None)
+    if bufs is not None and dst_g.is_cuda:
+        if key not in bufs:
+            B, N = dst_g.shape
+            inc = incumbents[0].shape[1] if incumbents is not None else 0
+            bufs[key] = (empty_route_send(B, N, num_parts, cap, dst_g.device),
+                         empty_route_lanes(B, inc + num_parts * cap, dst_g.device))
+        out = bufs[key]
+    send = route_send(dst_g, cost, gslot, arc_g, sp, num_parts, cap, local_slack_beam, cutoff,
+                      slot_states, slot_add, arc_add, out=out[0])
+    recv = all_to_all(send.buf, group)  # (P, B, cap, 4): slice p from rank p
+    inc_states, inc_costs = incumbents if incumbents is not None else (None, None)
+    lanes = route_recv(recv, sp, inc_states, inc_costs, inc_slot_base, out=out[1])
+    return Routed(*lanes, send.overflow)
 
 
 # ---------------------------------------------------------------------------
@@ -380,6 +348,37 @@ def shard_config_for(
     )
 
 
+@dataclasses.dataclass(frozen=True)
+class ShardLatticeConfig:
+    """ShardConfig + per-shard record budgets (lattice_dev analogue)."""
+
+    shard: ShardConfig
+    em_records: int  # per shard: frontier winners + slack-selected extras
+    eps_records: int  # per shard, per eps iteration
+    lattice_beam: float = 10.0
+
+
+def shard_lattice_config_for(
+    sg,
+    base: FrontierConfig,
+    lattice_beam: float,
+    em_records=None,
+    eps_records=None,
+    route_cap=None,
+    eps_route_cap=None,
+) -> ShardLatticeConfig:
+    sc = shard_config_for(sg, base, route_cap, eps_route_cap)
+    K = sc.k_local
+    em_r = em_records or (K + max(512, 2048 // sg.num_parts))
+    eps_r = eps_records or max(64, (sc.num_parts * sc.eps_route_cap) // 4)
+    return ShardLatticeConfig(
+        shard=sc,
+        em_records=int(em_r),
+        eps_records=int(eps_r),
+        lattice_beam=float(lattice_beam),
+    )
+
+
 class _Shard(NamedTuple):
     """This rank's place: its model group and index, the global id of its
     first slot, and its parts' arc offsets."""
@@ -391,10 +390,22 @@ class _Shard(NamedTuple):
     eps_off: int
 
 
-def _identity_bp_g(k: int, my_base: int, device) -> torch.Tensor:
-    ident = _identity_bp(k, device)
-    ident[:, 0] += my_base
-    return ident
+class _Bufs(NamedTuple):
+    """A decode's buffers: each route call site's on a card (made at its
+    first call), the eps closure's carry, and the chunk's K3 table, row
+    lengths and stacked outputs (set by :func:`sharded_chunk`)."""
+
+    routes: dict
+    carry: ShardEpsCarry
+    args: torch.Tensor
+    chunk: dict
+
+
+def _bufs(sc: ShardConfig, batch: int, width: int, device) -> _Bufs:
+    """The buffers of a decode of ``batch`` rows, its eps closure keeping
+    ``width`` backpointers (K) or links (eps_records) an iteration."""
+    return _Bufs({}, empty_shard_eps_carry(batch, sc.frontier.eps_iters, width, device),
+                 shard_args(device), {})
 
 
 def _masked_min(costs: torch.Tensor) -> torch.Tensor:
@@ -406,54 +417,83 @@ def _flags(*xs) -> torch.Tensor:
     return torch.stack([x.reshape(()) for x in xs]).to(torch.int32)
 
 
-def _sharded_eps_iteration(st: StepState, cutoff_rel, pg, cfg: ShardConfig, sh: _Shard):
-    """One routed epsilon relaxation over all shards."""
+def _sharded_eps_iteration(st: StepState, cutoff_rel, pg, cfg: ShardConfig, sh: _Shard,
+                           bufs: _Bufs):
+    """One routed epsilon relaxation: K5's lanes, routed (K7) with the K
+    incumbents first (they win cost ties, like FindOrAddToken
+    keep-existing), K6.  Returns (the selection, the routed lanes, K5's
+    overflow)."""
     fc = cfg.frontier
-    K, Sp, Pn = fc.frontier_size, cfg.part_size, cfg.num_parts
-    B = st.states.shape[0]
     cand = expand_eps_lanes(st.states, st.costs, cutoff_rel, pg, fc, incumbents=False,
                             with_src_state=False)
-    rt = _route(cand.dst, cand.cost, sh.my_base + cand.src_slot, sh.eps_off + cand.arc_id,
-                Sp, Pn, cfg.eps_route_cap, sh.group)
-    # Incumbents first (win cost ties, like FindOrAddToken keep-existing).
-    inc_slots = sh.my_base + torch.arange(K, dtype=torch.int32, device=st.states.device)
-    cand_state = torch.cat([st.states, rt.state_local], dim=1)
-    cand_cost = torch.cat([st.costs, rt.cost], dim=1)
-    cand_slot = torch.cat([inc_slots.expand(B, K), rt.gslot], dim=1)
-    cand_arc = torch.cat([torch.full((B, K), NO_ARC, dtype=torch.int32,
-                                     device=st.states.device), rt.arc], dim=1)
-    sel = dedup_select(cand_state, cand_cost, K, Sp)
-    bp = _backpointers(sel.cand_idx, cand_slot, cand_arc)
-    changed_local = ((sel.cand_idx >= 0) & (bp[..., 1] != NO_ARC)).any()
-    changed = all_reduce(_flags(changed_local), "max", sh.group)[0] > 0
-    ovf = rt.overflow.any() | cand.overflow.any()
-    sat = (sel.num_unique > K).any()
-    return StepState(sel.states, sel.costs, st.base), bp, changed, ovf, sat
+    rt = _route(cand.dst, cand.cost, cand.src_slot, cand.arc_id, cfg.part_size,
+                cfg.num_parts, cfg.eps_route_cap, sh.group, slot_add=sh.my_base,
+                arc_add=sh.eps_off, incumbents=(st.states, st.costs), inc_slot_base=sh.my_base,
+                bufs=bufs.routes, key="eps")
+    sel = dedup_select(rt.state_local, rt.cost, fc.frontier_size, cfg.part_size)
+    return sel, rt, cand.overflow
 
 
-def _sharded_eps_closure(st: StepState, cutoff_rel, pg, cfg: ShardConfig, sh: _Shard):
-    """``eps_iters`` routed relaxations; an iteration after the last
-    global change keeps the frontier and writes identity backpointers,
-    selected on the device.  Returns (state, bp (B, D, K, 2), overflow,
-    saturated), the flags () bool."""
-    fc = cfg.frontier
-    K, D = fc.frontier_size, fc.eps_iters
-    B = st.states.shape[0]
-    dev = st.states.device
-    bps = torch.empty((B, D, K, 2), dtype=torch.int32, device=dev)
-    stop = torch.zeros((), dtype=torch.bool, device=dev)
-    ovf, sat = stop, stop
-    if D == 0:
-        return st, bps, ovf, sat
-    ident = _identity_bp_g(K, sh.my_base, dev)
+def _sharded_lattice_eps_iteration(st: StepState, cutoff_rel, pg, cfg: "ShardLatticeConfig",
+                                   sh: _Shard, bufs: _Bufs):
+    """Routed epsilon relaxation emitting (global src_state, global arc)
+    link records: the routed lanes (their payload the source slot's state
+    as a global id: the lattice needs source states, not slots) after the
+    K incumbents go through K2's eps call, which carries each lane's
+    (source state, arc) into its records (the original maps record
+    indices back through ``_rec_from_idx``); they are the winners' links
+    first, then extras by slack, then -1 rows.  The original compacts the
+    link rows of its ``K + eps_records`` records into ``eps_records``
+    rows, keeping the earliest; the link rows being a prefix, the eps
+    step keeps the first ``eps_records`` rows."""
+    sc = cfg.shard
+    fc = sc.frontier
+    K, Sp = fc.frontier_size, sc.part_size
+    cand = expand_eps_lanes(st.states, st.costs, cutoff_rel, pg, fc, incumbents=False,
+                            with_src_state=False)
+    sb = cfg.lattice_beam + 1e-4
+    rt = _route(cand.dst, cand.cost, cand.src_slot, cand.arc_id, Sp, sc.num_parts,
+                sc.eps_route_cap, sh.group, local_slack_beam=sb, slot_states=st.states,
+                slot_add=sh.me * Sp, arc_add=sh.eps_off, incumbents=(st.states, st.costs),
+                bufs=bufs.routes, key="eps")
+    sel = dedup_select_rec(rt.state_local, rt.cost, K, Sp, K + cfg.eps_records, sb,
+                           payload=(rt.gslot, rt.arc), num_incumbents=K)
+    return sel, rt, cand.overflow
+
+
+def _sharded_eps_closure(iteration, st: StepState, sc: ShardConfig, sh: _Shard, bufs: _Bufs,
+                         em_overflow=(), em_num_unique=None, reduce: bool = False):
+    """``eps_iters`` routed relaxations (``iteration(st)``: the 1-best or
+    the lattice one) of the frontier ``st``, which the eps step
+    (``kernels.eps.eps_step_shard``) updates in place; an iteration after
+    the last global change keeps the frontier and writes identity
+    backpointers or -1 links, selected on the device (``changed`` is
+    reduced with MAX over ``sh.group`` after every step, never read by
+    the host).  With ``reduce`` the last step also writes the frame's
+    local values (best cost, finite count, the flag pair with the
+    emitting call's ``em_overflow`` and ``em_num_unique`` folded in).
+    Returns the carry, whose ``out`` (B, D, width, 2) holds every
+    iteration's backpointers or links."""
+    D = sc.frontier.eps_iters
+    carry = bufs.carry
+    if D == 0:  # no eps step to write the frame's local values: torch reductions
+        if reduce:
+            K = sc.frontier.frontier_size
+            carry.red_min.copy_(_masked_min(st.costs))
+            carry.red_count.copy_(torch.isfinite(st.costs).sum(dim=1, dtype=torch.int32))
+            ovf = torch.stack([x.any() for x in em_overflow]).any()
+            carry.red_flags.copy_(_flags(ovf, (em_num_unique > K).any()))
+        return carry
+    red = None
     for d in range(D):
-        nxt, bp, changed, o, s = _sharded_eps_iteration(st, cutoff_rel, pg, cfg, sh)
-        st = StepState(*(torch.where(stop, old, new) for new, old in zip(nxt, st)))
-        bps[:, d] = torch.where(stop, ident, bp)
-        ovf = ovf | (~stop & o)
-        sat = sat | (~stop & s)
-        stop = stop | ~changed
-    return st, bps, ovf, sat
+        sel, rt, exp_overflow = iteration(st)
+        first = d == 0
+        eps_step_shard(d, carry, st.states, st.costs, sel, exp_overflow, rt.overflow, red,
+                       sh.my_base, lanes=rt, em_overflow=em_overflow if first else (),
+                       em_num_unique=em_num_unique if first else None,
+                       reduce=reduce and d == D - 1)
+        red = all_reduce(carry.changed, "max", sh.group)
+    return carry
 
 
 def _global_cutoff(st: StepState, cfg: ShardConfig, group):
@@ -502,99 +542,105 @@ def _global_cutoff(st: StepState, cfg: ShardConfig, group):
 
 def _emit_expand(st: StepState, scores_t, pg, fc: FrontierConfig, cutoff, adaptive_beam,
                  group, with_src_slot: bool):
-    """K1 on the local frontier under the global cutoff, then the global
-    beam filter: lanes at or above ``min over shards of min(cost) +
-    adaptive_beam``.  K1's own filter, by its shard's minimum, drops only
-    lanes the global one drops too, and the minimum of the shards'
-    ``min + adaptive_beam`` is the global ``min + adaptive_beam`` (float
-    rounding is monotonic).  Returns (expansion, costs filtered, the next
-    cutoff (B,))."""
+    """K1 on the local frontier under the global cutoff, and the global
+    beam filter's cutoff: ``min over shards of min(cost) +
+    adaptive_beam``, which the route applies (lanes at or above it go
+    +inf).  K1's own filter, by its shard's minimum, drops only lanes the
+    global one drops too, and the minimum of the shards' ``min +
+    adaptive_beam`` is the global ``min + adaptive_beam`` (float rounding
+    is monotonic).  Returns (expansion, the next cutoff (B,))."""
     ex = expand_filter(st.states, st.costs, cutoff, adaptive_beam, scores_t, pg, fc,
                        with_src_slot=with_src_slot)
-    next_cutoff = all_reduce(ex.next_cutoff, "min", group)
-    ncost = torch.where(ex.cost < next_cutoff[:, None], ex.cost, INF)
-    return ex, ncost, next_cutoff
+    return ex, all_reduce(ex.next_cutoff, "min", group)
 
 
-def _rebase(st: StepState, mid: StepState, frame_active, group):
-    """The global rebase by the best cost, and the freeze of rows whose
-    utterance has ended.  Returns (final state, the rebase (B,) with 0
-    where no token lives, num_active (B,))."""
-    m = all_reduce(_masked_min(mid.costs), "min", group)
-    m_safe = torch.where(torch.isfinite(m), m, 0.0)
-    fa = frame_active
-    final = StepState(
-        states=torch.where(fa[:, None], mid.states, st.states),
-        costs=torch.where(fa[:, None], mid.costs - m_safe[:, None], st.costs),
-        base=torch.where(fa, mid.base + m_safe, st.base),
-    )
-    num_active = all_reduce(torch.isfinite(mid.costs).sum(dim=1, dtype=torch.int32), "sum", group)
-    return final, m_safe, num_active
+def _reduced(carry: ShardEpsCarry, group):
+    """The rebase's reductions over ``group`` of the eps closure's local
+    values: the global best cost (MIN), the global finite count (SUM) and
+    the frame's flags (MAX)."""
+    return (all_reduce(carry.red_min, "min", group), all_reduce(carry.red_count, "sum", group),
+            all_reduce(carry.red_flags, "max", group))
 
 
-class ShardStepOut(NamedTuple):
-    """Per-frame outputs of the sharded Viterbi frame, (B, ...) each, the
-    slot axes local; stacked over a chunk they gain a leading T."""
-
-    bp_emit: torch.Tensor  # (B, K, 2) int32 (global slot, global arc)
-    bp_eps: torch.Tensor  # (B, D, K, 2) int32
-    num_active: torch.Tensor  # (B,) int32, global
-    best_cost: torch.Tensor  # (B,) float32, absolute
-    cutoff: torch.Tensor  # (B,) float32, absolute
-    overflow: torch.Tensor  # (B,) bool
-    saturated: torch.Tensor  # (B,) bool
-
-
-def _sharded_frame(st: StepState, scores_t, frame_active, pg, cfg: ShardConfig, sh: _Shard):
-    """One sharded frame: global GetCutoff, local expand (K1), route, local
-    dedup (K6), routed eps closure, global rebase."""
+def _sharded_frame(st: StepState, scores_t, pg, cfg: ShardConfig, sh: _Shard, bufs: _Bufs):
+    """One sharded frame: global GetCutoff, local expand (K1), route (K7),
+    local dedup (K6), routed eps closure, global rebase by K3's shard
+    mode, which updates ``st`` and writes row t of the chunk's outputs."""
     fc = cfg.frontier
     K, Sp, Pn = fc.frontier_size, cfg.part_size, cfg.num_parts
-    dev = st.states.device
 
     cutoff, adaptive_beam = _global_cutoff(st, cfg, sh.group)
-    ex, ncost, next_cutoff = _emit_expand(st, scores_t, pg, fc, cutoff, adaptive_beam,
-                                          sh.group, with_src_slot=True)
-    rt = _route(ex.dst, ncost, sh.my_base + ex.src_slot, sh.em_off + ex.arc_id,
-                Sp, Pn, cfg.route_cap, sh.group)
+    ex, next_cutoff = _emit_expand(st, scores_t, pg, fc, cutoff, adaptive_beam, sh.group,
+                                   with_src_slot=True)
+    rt = _route(ex.dst, ex.cost, ex.src_slot, ex.arc_id, Sp, Pn, cfg.route_cap, sh.group,
+                cutoff=next_cutoff, slot_add=sh.my_base, arc_add=sh.em_off, bufs=bufs.routes,
+                key="em")
     sel = dedup_select(rt.state_local, rt.cost, K, Sp)
-    bp_emit = _backpointers(sel.cand_idx, rt.gslot, rt.arc)
-    em_sat = (sel.num_unique > K).any()
     mid = StepState(sel.states, sel.costs, st.base)
-    mid, bp_eps, eps_ovf, eps_sat = _sharded_eps_closure(mid, next_cutoff, pg, cfg, sh)
-    final, m_safe, num_active = _rebase(st, mid, frame_active, sh.group)
-    # Per-shard flags are OR-reduced over the model group.
-    flags = all_reduce(_flags((ex.overflow | rt.overflow).any() | eps_ovf, em_sat | eps_sat),
-                       "max", sh.group) > 0
-    fa = frame_active
-    ident = _identity_bp_g(K, sh.my_base, dev)
-    out = ShardStepOut(
-        bp_emit=torch.where(fa[:, None, None], bp_emit, ident),
-        bp_eps=torch.where(fa[:, None, None, None], bp_eps, ident),
-        num_active=torch.where(fa, num_active, 0),
-        best_cost=torch.where(fa, mid.base + m_safe, st.base),
-        cutoff=st.base + cutoff,
-        overflow=fa & flags[0],
-        saturated=fa & flags[1],
-    )
-    return final, out
+    carry = _sharded_eps_closure(
+        lambda s: _sharded_eps_iteration(s, next_cutoff, pg, cfg, sh, bufs), mid, cfg, sh, bufs,
+        em_overflow=(ex.overflow, rt.overflow), em_num_unique=sel.num_unique, reduce=True)
+    best, num_active, flags = _reduced(carry, sh.group)
+    tin = ShardTailInputs(mid.states, mid.costs, best, num_active, flags, cand_idx=sel.cand_idx,
+                          gslot=rt.gslot, arc=rt.arc, bp_eps=carry.out)
+    frame_tail_shard(bufs.args, st, cutoff, tin, bufs.chunk["lengths"], bufs.chunk["outs"],
+                     sh.my_base)
 
 
-def sharded_chunk(frame, pg, scores_tm, lengths, st0: StepState, cfg, sh: _Shard):
+def _sharded_lattice_frame(st: StepState, scores_t, pg, cfg: ShardLatticeConfig, sh: _Shard,
+                           bufs: _Bufs):
+    """One sharded lattice frame: global GetCutoff, expand (K1), route
+    (K7) with source states, per-shard dedup + slack-selected records
+    (K2), routed record-emitting eps closure, global rebase by K3's shard
+    mode."""
+    sc = cfg.shard
+    fc = sc.frontier
+    K, Sp, Pn = fc.frontier_size, sc.part_size, sc.num_parts
+
+    cutoff, adaptive_beam = _global_cutoff(st, sc, sh.group)
+    ex, next_cutoff = _emit_expand(st, scores_t, pg, fc, cutoff, adaptive_beam, sh.group,
+                                   with_src_slot=False)
+    # K1's src_state is the source slot's state on every lane of an active
+    # slot, so on every finite lane.
+    sb = cfg.lattice_beam + 1e-4
+    rt = _route(ex.dst, ex.cost, ex.src_state, ex.arc_id, Sp, Pn, sc.route_cap, sh.group,
+                local_slack_beam=sb, cutoff=next_cutoff, slot_add=sh.me * Sp, arc_add=sh.em_off,
+                bufs=bufs.routes, key="em")
+    # K2 carries each lane's (source state, arc) into its records, what
+    # the original's ``_rec_from_idx`` does with record indices.
+    sel = dedup_select_rec(rt.state_local, rt.cost, K, Sp, cfg.em_records, sb,
+                           payload=(rt.gslot, rt.arc))
+    mid = StepState(sel.states, sel.costs, st.base)
+    carry = _sharded_eps_closure(
+        lambda s: _sharded_lattice_eps_iteration(s, next_cutoff, pg, cfg, sh, bufs), mid, sc, sh,
+        bufs, em_overflow=(rt.overflow, ex.overflow, sel.rec_overflow),
+        em_num_unique=sel.num_unique, reduce=True)
+    best, num_active, flags = _reduced(carry, sh.group)
+    tin = ShardTailInputs(mid.states, mid.costs, best, num_active, flags,
+                          em_records=sel.records, eps_records=carry.out)
+    frame_tail_shard(bufs.args, st, cutoff, tin, bufs.chunk["lengths"], bufs.chunk["outs"],
+                     sh.my_base)
+
+
+def sharded_chunk(frame, pg, scores_tm, lengths, st0: StepState, cfg, sh: _Shard, bufs: _Bufs):
     """T sharded frames (``frame``: :func:`_sharded_frame` or
     :func:`_sharded_lattice_frame`) from ``st0``, the original's
-    ``lax.scan`` in ``shard_map``; frames t >= lengths are no-ops.
-    Returns the final state and the per-frame outputs stacked (T, B, ...)."""
-    T = scores_tm.shape[0]
-    st, outs = st0, None
+    ``lax.scan`` in ``shard_map``; frames t >= lengths are no-ops.  K3's
+    shard mode writes each frame's outputs into row t of the chunk's
+    stacked buffers, ``t`` in ``bufs.args``.  Returns the final state and
+    the per-frame outputs stacked (T, B, ...)."""
+    T, B = scores_tm.shape[:2]
+    lattice = isinstance(cfg, ShardLatticeConfig)
+    sc = cfg.shard if lattice else cfg
+    fc = sc.frontier
+    bufs.args.zero_()
+    bufs.chunk.update(lengths=lengths, outs=empty_shard_outs(
+        T, B, fc.frontier_size, fc.eps_iters, lattice, scores_tm.device,
+        cfg.em_records if lattice else 0, cfg.eps_records if lattice else 0))
+    st = StepState(*(x.clone() for x in st0))
     for t in range(T):
-        st, o = frame(st, scores_tm[t], lengths > t, pg, cfg, sh)
-        if outs is None:
-            outs = type(o)(*(torch.empty((T,) + x.shape, dtype=x.dtype, device=x.device)
-                             for x in o))
-        for buf, x in zip(outs, o):
-            buf[t].copy_(x)
-    return st, outs
+        frame(st, scores_tm[t], pg, cfg, sh, bufs)
+    return st, bufs.chunk["outs"]
 
 
 # ---------------------------------------------------------------------------
@@ -720,14 +766,18 @@ class ShardedViterbiDecoder(_ShardedDecoder):
         from kaldi_decoder_tpu_torch.decoders.viterbi import ViterbiResult
 
         scores, lengths, scores_tm, lengths_dev = self._batch(scores, lengths)
-        cut = torch.full((scores_tm.shape[1],), INF, dtype=torch.float32, device=self.device)
-        st0, bp_init, _, _ = _sharded_eps_closure(
-            self._init_state(scores_tm.shape[1]), cut, self._pg, self.cfg, self._sh
-        )
+        B = scores_tm.shape[1]
+        bufs = _bufs(self.cfg, B, self.cfg.k_local, self.device)
+        cut = torch.full((B,), INF, dtype=torch.float32, device=self.device)
+        st0 = self._init_state(B)
+        carry = _sharded_eps_closure(
+            lambda s: _sharded_eps_iteration(s, cut, self._pg, self.cfg, self._sh, bufs),
+            st0, self.cfg, self._sh, bufs)
+        bp_init = carry.out[0].clone()  # the init closure is batch-invariant
         stf, outs = sharded_chunk(_sharded_frame, self._pg, scores_tm, lengths_dev, st0,
-                                  self.cfg, self._sh)
+                                  self.cfg, self._sh, bufs)
         out = dict(
-            bp_init=bp_init[0].cpu().numpy(),  # the init closure is batch-invariant
+            bp_init=bp_init.cpu().numpy(),
             bp_emit=outs.bp_emit.cpu().numpy(),
             bp_eps=outs.bp_eps.cpu().numpy(),
             frontier_states=self._global_states(stf.states).cpu().numpy(),
@@ -753,162 +803,6 @@ class ShardedViterbiDecoder(_ShardedDecoder):
 # ---------------------------------------------------------------------------
 # Sharded lattice decoding
 # ---------------------------------------------------------------------------
-
-
-@dataclasses.dataclass(frozen=True)
-class ShardLatticeConfig:
-    """ShardConfig + per-shard record budgets (lattice_dev analogue)."""
-
-    shard: ShardConfig
-    em_records: int  # per shard: frontier winners + slack-selected extras
-    eps_records: int  # per shard, per eps iteration
-    lattice_beam: float = 10.0
-
-
-def shard_lattice_config_for(
-    sg,
-    base: FrontierConfig,
-    lattice_beam: float,
-    em_records=None,
-    eps_records=None,
-    route_cap=None,
-    eps_route_cap=None,
-) -> ShardLatticeConfig:
-    sc = shard_config_for(sg, base, route_cap, eps_route_cap)
-    K = sc.k_local
-    em_r = em_records or (K + max(512, 2048 // sg.num_parts))
-    eps_r = eps_records or max(64, (sc.num_parts * sc.eps_route_cap) // 4)
-    return ShardLatticeConfig(
-        shard=sc,
-        em_records=int(em_r),
-        eps_records=int(eps_r),
-        lattice_beam=float(lattice_beam),
-    )
-
-
-def _sharded_lattice_eps_iteration(st: StepState, cutoff_rel, pg, cfg: ShardLatticeConfig,
-                                   sh: _Shard):
-    """Routed epsilon relaxation emitting (global src_state, global arc)
-    link records: the routed lanes after the K incumbents go through K2's
-    eps call, which carries each lane's (source state, arc) into its
-    records (the original maps record indices back through
-    ``_rec_from_idx``); they are the winners' links first, then extras by
-    slack, then -1 rows.  The original compacts the link rows of its
-    ``K + eps_records`` records into ``eps_records`` rows, keeping the
-    earliest; the link rows being a prefix, that is the first
-    ``eps_records`` rows."""
-    sc = cfg.shard
-    fc = sc.frontier
-    K, Sp, Pn = fc.frontier_size, sc.part_size, sc.num_parts
-    B = st.states.shape[0]
-    dev = st.states.device
-    cand = expand_eps_lanes(st.states, st.costs, cutoff_rel, pg, fc, incumbents=False,
-                            with_src_state=False)
-    # Route (dst, cost, GLOBAL src state, global arc): the lattice needs
-    # source states, not slots.
-    src_state_g = torch.where(
-        torch.isfinite(cand.cost), st.states.gather(1, cand.src_slot.long()) + sh.me * Sp, 0
-    )
-    sb = cfg.lattice_beam + 1e-4
-    rt = _route(cand.dst, cand.cost, src_state_g, sh.eps_off + cand.arc_id, Sp, Pn,
-                sc.eps_route_cap, sh.group, local_slack_beam=sb)
-    cand_state = torch.cat([st.states, rt.state_local], dim=1)
-    cand_cost = torch.cat([st.costs, rt.cost], dim=1)
-    no_link = torch.full((B, K), -1, dtype=torch.int32, device=dev)
-    sel = dedup_select_rec(
-        cand_state, cand_cost, K, Sp, K + cfg.eps_records, sb,
-        payload=(torch.cat([no_link, rt.gslot], dim=1), torch.cat([no_link, rt.arc], dim=1)),
-        num_incumbents=K,
-    )
-    is_link = sel.records[..., 2] >= 0  # the record's destination, -1 on padding
-    rec = sel.records[:, : cfg.eps_records, :2]
-    changed_local = ((sel.cand_idx >= K) & torch.isfinite(sel.costs)).any()
-    changed = all_reduce(_flags(changed_local), "max", sh.group)[0] > 0
-    # Spill: eligible links beyond the eps_records rows are dropped by the
-    # compaction above — record overflow, flagged.
-    spill = (is_link.sum(dim=1) > cfg.eps_records).any()
-    ovf = rt.overflow.any() | cand.overflow.any() | sel.rec_overflow.any() | spill
-    sat = (sel.num_unique > K).any()
-    return StepState(sel.states, sel.costs, st.base), rec, changed, ovf, sat
-
-
-def _sharded_lattice_eps_closure(st: StepState, cutoff_rel, pg, cfg: ShardLatticeConfig,
-                                 sh: _Shard):
-    """``eps_iters`` record-emitting routed relaxations, the iterations
-    after the last global change discarded on the device.  Returns (state,
-    records (B, D, R_eps, 2), overflow, saturated)."""
-    D = cfg.shard.frontier.eps_iters
-    B = st.states.shape[0]
-    dev = st.states.device
-    recs = torch.full((B, D, cfg.eps_records, 2), -1, dtype=torch.int32, device=dev)
-    stop = torch.zeros((), dtype=torch.bool, device=dev)
-    ovf, sat = stop, stop
-    for d in range(D):
-        nxt, rec, changed, o, s = _sharded_lattice_eps_iteration(st, cutoff_rel, pg, cfg, sh)
-        st = StepState(*(torch.where(stop, old, new) for new, old in zip(nxt, st)))
-        recs[:, d] = torch.where(stop, -1, rec)
-        ovf = ovf | (~stop & o)
-        sat = sat | (~stop & s)
-        stop = stop | ~changed
-    return st, recs, ovf, sat
-
-
-class ShardLatticeStepOut(NamedTuple):
-    """Per-frame outputs of the sharded lattice frame, (B, ...) each, the
-    record and slot axes local; stacked over a chunk they gain a leading T."""
-
-    em_records: torch.Tensor  # (B, R_em, 2) (global src state, global arc)
-    eps_records: torch.Tensor  # (B, D, R_eps, 2)
-    frontier_states: torch.Tensor  # (B, K) local state ids
-    frontier_costs: torch.Tensor  # (B, K) absolute costs
-    num_active: torch.Tensor  # (B,) int32, global
-    cutoff: torch.Tensor  # (B,) float32
-    overflow: torch.Tensor  # (B,) bool
-    saturated: torch.Tensor  # (B,) bool
-
-
-def _sharded_lattice_frame(st: StepState, scores_t, frame_active, pg, cfg: ShardLatticeConfig,
-                           sh: _Shard):
-    """One sharded lattice frame: global GetCutoff, expand (K1), route
-    with source states, per-shard dedup + slack-selected records (K2),
-    routed record-emitting eps closure, global rebase."""
-    sc = cfg.shard
-    fc = sc.frontier
-    K, Sp, Pn = fc.frontier_size, sc.part_size, sc.num_parts
-
-    cutoff, adaptive_beam = _global_cutoff(st, sc, sh.group)
-    ex, ncost, next_cutoff = _emit_expand(st, scores_t, pg, fc, cutoff, adaptive_beam,
-                                          sh.group, with_src_slot=False)
-    # K1's src_state is the source slot's state on every lane of an active
-    # slot, so on every finite lane.
-    src_state_g = torch.where(torch.isfinite(ncost), ex.src_state + sh.me * Sp, 0)
-    sb = cfg.lattice_beam + 1e-4
-    rt = _route(ex.dst, ncost, src_state_g, sh.em_off + ex.arc_id, Sp, Pn, sc.route_cap,
-                sh.group, local_slack_beam=sb)
-    # K2 carries each lane's (source state, arc) into its records, what
-    # the original's ``_rec_from_idx`` does with record indices.
-    sel = dedup_select_rec(rt.state_local, rt.cost, K, Sp, cfg.em_records, sb,
-                           payload=(rt.gslot, rt.arc))
-    em_rec = sel.records[..., :2]
-    em_sat = (sel.num_unique > K).any()
-    em_ovf = rt.overflow.any() | ex.overflow.any() | sel.rec_overflow.any()
-
-    mid = StepState(sel.states, sel.costs, st.base)
-    mid, eps_recs, eps_ovf, eps_sat = _sharded_lattice_eps_closure(mid, next_cutoff, pg, cfg, sh)
-    final, _, num_active = _rebase(st, mid, frame_active, sh.group)
-    flags = all_reduce(_flags(em_ovf | eps_ovf, em_sat | eps_sat), "max", sh.group) > 0
-    fa = frame_active
-    out = ShardLatticeStepOut(
-        em_records=torch.where(fa[:, None, None], em_rec, -1),
-        eps_records=torch.where(fa[:, None, None, None], eps_recs, -1),
-        frontier_states=final.states,
-        frontier_costs=final.base[:, None] + final.costs,
-        num_active=torch.where(fa, num_active, 0),
-        cutoff=st.base + cutoff,
-        overflow=fa & flags[0],
-        saturated=fa & flags[1],
-    )
-    return final, out
 
 
 class ShardedLatticeDecoder(_ShardedDecoder):
@@ -950,16 +844,21 @@ class ShardedLatticeDecoder(_ShardedDecoder):
         from kaldi_decoder_tpu_torch.decoders.lattice_dev import LatticeDevConfig
 
         scores, lengths, scores_tm, lengths_dev = self._batch(scores, lengths)
-        cut = torch.full((scores_tm.shape[1],), INF, dtype=torch.float32, device=self.device)
-        st0, init_recs, _, _ = _sharded_lattice_eps_closure(
-            self._init_state(scores_tm.shape[1]), cut, self._pg, self.cfg, self._sh
-        )
+        B = scores_tm.shape[1]
+        sc = self.cfg.shard
+        bufs = _bufs(sc, B, self.cfg.eps_records, self.device)
+        cut = torch.full((B,), INF, dtype=torch.float32, device=self.device)
+        st0 = self._init_state(B)
+        carry = _sharded_eps_closure(
+            lambda s: _sharded_lattice_eps_iteration(s, cut, self._pg, self.cfg, self._sh, bufs),
+            st0, sc, self._sh, bufs)
+        init_recs = carry.out[0].clone()
         _, outs = sharded_chunk(_sharded_lattice_frame, self._pg, scores_tm, lengths_dev, st0,
-                                self.cfg, self._sh)
+                                self.cfg, self._sh, bufs)
         out = dict(
             init_states=self._global_states(st0.states[0]).cpu().numpy(),
             init_costs=(st0.base[0] + st0.costs[0]).cpu().numpy(),
-            init_eps_records=init_recs[0].cpu().numpy(),
+            init_eps_records=init_recs.cpu().numpy(),
             frame_states=self._global_states(outs.frontier_states).cpu().numpy(),
             frame_costs=outs.frontier_costs.cpu().numpy(),
             em_records=outs.em_records.cpu().numpy(),
@@ -976,7 +875,6 @@ class ShardedLatticeDecoder(_ShardedDecoder):
             batch_axes=dict(frame_states=1, frame_costs=1, em_records=1, eps_records=1,
                             num_active=1, cutoffs=1, overflows=1, saturations=1),
         )
-        sc = self.cfg.shard
         result_cfg = LatticeDevConfig(
             frontier=dataclasses.replace(sc.frontier, frontier_size=sc.k_total),
             em_records=sc.num_parts * self.cfg.em_records,

@@ -1,0 +1,206 @@
+#!/usr/bin/env python3
+"""The sharded decoders' frame (``chip_smoke.py`` phases 12-13) of one tree
+of the torch port, measured on one NVIDIA card.
+
+Builds the kernels of the port under ``--tree`` (default: this checkout),
+rebuilds the bench workload from its seed, cuts it as phases 12-13 do
+(``SHARD_FRAMES`` frames, ``SHARD_CONFIG``) and runs the
+``ShardedViterbiDecoder`` and the ``ShardedLatticeDecoder`` of the tree's
+package at P = 1 in this process over NCCL and at P = 2 in two spawned
+ranks sharing ``cuda:0`` over gloo.  For each: one decode to warm up,
+``--reps`` timed decodes (wall ms a frame, host clock around a decode
+that ends in a synchronise), then one decode under the profiler: device
+ms a frame (kernels and copies), busy share (device over wall), device
+activities a frame split into the tree's own kernels (the ``__global__``
+functions of its ``csrc``), collectives and copies, and other (with their
+names), and the collectives a frame by kind.  The decodes' results are
+not checked here (``chip_smoke.py`` does that).  Prints one JSON line and
+writes it to ``chiprun_out/profile_shard_<tag>.json``.  To compare two
+trees on one card, run both in one command, in turns:
+
+    python3 scripts/profile_torch_shard.py --tree build/parent --tag parent
+    python3 scripts/profile_torch_shard.py --tag new
+"""
+
+import argparse
+import importlib.util
+import json
+import os
+import sys
+import time
+import traceback
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TIMEOUT = 900  # seconds the two ranks may take
+
+
+def smoke():
+    """``chip_smoke.py`` of this checkout, for its helpers (the package
+    they import at call time is the tree's, first on the path)."""
+    path = os.path.join(REPO, "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return cs
+
+
+def measure(tree, P, rank, reps):
+    """Both sharded decoders on this rank of a group of P (the default
+    group, made): {kind: numbers}."""
+    import torch
+    import torch.distributed as dist
+
+    from kaldi_decoder_tpu_torch import config_for_graph
+    from kaldi_decoder_tpu_torch.parallel import (
+        ShardedLatticeDecoder,
+        ShardedViterbiDecoder,
+        make_mesh,
+    )
+    from kaldi_decoder_tpu_torch.parallel.mesh import collective_calls
+
+    cs = smoke()
+    graph, scores, lengths, refs = cs.bench_workload()
+    _, sc, sl = cs.shard_reference(scores, lengths, refs)
+    mesh = make_mesh(P, "model", device_type="cuda")
+    fc = config_for_graph(graph, **cs.SHARD_CONFIG)
+    names = cs.port_kernel_names(tree)
+    out = {}
+    for kind in ("viterbi", "lattice"):
+        if kind == "viterbi":
+            dec = ShardedViterbiDecoder(graph, fc, mesh=mesh, pad_time_to=cs.SHARD_FRAMES,
+                                        device="cuda")
+        else:
+            dec = ShardedLatticeDecoder(graph, fc, lattice_beam=cs.SHARD_LATTICE_BEAM,
+                                        mesh=mesh, pad_time_to=cs.SHARD_FRAMES, device="cuda")
+        res = dec.decode(sc, sl)
+        frames = res.num_active.shape[0]
+        walls = []
+        for _ in range(reps):
+            dist.barrier()
+            torch.cuda.synchronize()
+            collective_calls.clear()
+            t0 = time.perf_counter()
+            dec.decode(sc, sl)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3 / frames)
+        coll = dict(collective_calls)
+        dist.barrier()
+        k_ms, c_ms, acts, _ = cs.profiled_device_ms(lambda: dec.decode(sc, sl), top=None)
+        split = cs.activity_split(acts, names)
+        dev = (k_ms + c_ms) / frames
+        out[kind] = dict(
+            frames=frames, wall_ms_per_frame=walls, device_ms_per_frame=dev,
+            kernel_ms_per_frame=k_ms / frames, copy_ms_per_frame=c_ms / frames,
+            busy=dev / (sum(walls) / len(walls)),
+            activities_per_frame=sum(v[1] for v in split.values()) / frames,
+            split_per_frame={g: dict(ms=ms / frames, activities=n / frames)
+                             for g, (ms, n, _) in split.items()},
+            other=[(name, n / frames) for name, n in split["other"][2]],
+            collectives_per_frame={k: v / frames for k, v in coll.items()},
+            collectives_a_frame=sum(coll.values()) / frames)
+        del dec, res
+        torch.cuda.empty_cache()
+    return out
+
+
+def rank_main(tree, rank, port, reps, queue):
+    """One of the two P = 2 ranks (a spawned process) on ``cuda:0`` over gloo."""
+    try:
+        sys.path.insert(0, tree)
+        import torch
+        import torch.distributed as dist
+
+        from kaldi_decoder_tpu_torch.parallel import initialize_distributed
+
+        torch.cuda.set_device(0)
+        initialize_distributed(backend="gloo", init_method=f"tcp://localhost:{port}",
+                               rank=rank, world_size=2)
+        try:
+            queue.put((rank, "ok", measure(tree, 2, rank, reps)))
+        finally:
+            dist.destroy_process_group()
+    except BaseException:
+        queue.put((rank, "error", traceback.format_exc()))
+        raise
+
+
+def two_ranks(tree, reps):
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    port = smoke().free_port()
+    procs = [ctx.Process(target=rank_main, args=(tree, r, port, reps, q)) for r in range(2)]
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        deadline = time.time() + TIMEOUT
+        while len(got) < 2:
+            rank, status, out = q.get(timeout=max(1.0, deadline - time.time()))
+            if status != "ok":
+                raise RuntimeError(f"rank {rank} failed:\n{out}")
+            got[rank] = out
+        for p in procs:
+            p.join(timeout=60)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    return [got[0], got[1]]
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--tree", default=REPO,
+                    help="root of the checkout whose port is measured")
+    ap.add_argument("--tag", default="new", help="name of the output file's run")
+    ap.add_argument("--reps", type=int, default=2, help="timed decodes of each")
+    args = ap.parse_args()
+    tree = os.path.abspath(args.tree)
+    sys.path.insert(0, tree)
+    import torch
+    import torch.distributed as dist
+
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_torch_shard: no CUDA device")
+    import kaldi_decoder_tpu_torch
+    from kaldi_decoder_tpu_torch.kernels import _build
+    from kaldi_decoder_tpu_torch.parallel import initialize_distributed
+
+    if not kaldi_decoder_tpu_torch.__file__.startswith(tree):
+        raise SystemExit(f"imported {kaldi_decoder_tpu_torch.__file__}, not the tree's")
+    cs = smoke()
+    t0 = time.perf_counter()
+    _build.kernels()
+    build_s = time.perf_counter() - t0
+    torch.cuda.set_device(0)
+    initialize_distributed(backend="nccl", init_method=f"tcp://localhost:{cs.free_port()}",
+                           rank=0, world_size=1)
+    try:
+        p1 = measure(tree, 1, 0, args.reps)
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    p2 = two_ranks(tree, args.reps)
+    line = json.dumps({"tag": args.tag, "tree": args.tree, "card": cs.card_line(),
+                       "build_s": build_s, "p1": p1, "p2": p2})
+    os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
+    name = os.path.join(REPO, "chiprun_out", f"profile_shard_{args.tag}.json")
+    with open(name, "w") as f:
+        f.write(line + "\n")
+    for P, ranks in ((1, [p1]), (2, p2)):
+        for kind in ("viterbi", "lattice"):
+            r = ranks[0][kind]
+            split = ", ".join(f"{g} {v['activities']:.2f}"
+                              for g, v in r["split_per_frame"].items())
+            print(f"{args.tag} P={P} {kind}: wall {r['wall_ms_per_frame']} ms a frame, device "
+                  f"{r['device_ms_per_frame']:.4f}, busy {r['busy']:.3f}, activities "
+                  f"{r['activities_per_frame']:.2f} a frame {split}; collectives "
+                  f"{r['collectives_a_frame']:.2f} a frame", flush=True)
+    print(line)
+
+
+if __name__ == "__main__":
+    main()

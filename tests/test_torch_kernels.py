@@ -1548,3 +1548,294 @@ def test_eps_step_kernel_matches_plain(card, graph, lattice, exact):
             assert not bool(carry_k.flags[0])
         elif not exact:
             assert bool(carry_k.overflow[row_active].all())
+
+
+# ---------------------------------------------------------------------------
+# K7, the shard route, and the shard modes of the eps step and K3
+# ---------------------------------------------------------------------------
+
+SHARD_SLACK = 8.0 + 1e-4  # the sharded lattice path's slack beam at lattice beam 8
+
+
+def _route_lanes(seed, nb, N, P):
+    """(dst, cost, src, arc, sp) numpy lanes of a route call: about four
+    lanes a state, costs on a 0.25 grid (ties), -0.0 beside +0.0, +inf
+    lanes, a run minimum beside its slack-beam neighbours (the floats
+    either side of min + slack), row nb-1 all +inf when nb > 1."""
+    rng = np.random.default_rng(seed)
+    sp = max(16, N // (4 * P))
+    dst = rng.integers(0, P * sp, size=(nb, N)).astype(np.int32)
+    cost = (rng.integers(-4, 60, size=(nb, N)) * 0.25).astype(np.float32)
+    cost[:, ::7] = -0.0
+    cost[:, 3::5] = np.inf
+    for i in range(8, N - 4, 97):
+        m = np.float32(rng.uniform(-2.0, 10.0))
+        near = np.float32(m + np.float32(SHARD_SLACK))
+        dst[:, i:i + 4] = dst[:, i:i + 1]
+        cost[:, i:i + 4] = (m, near, np.nextafter(near, np.float32(np.inf)),
+                            np.nextafter(near, np.float32(-np.inf)))
+    if nb > 1:
+        cost[nb - 1] = np.inf
+    src = rng.integers(0, 2048, size=(nb, N)).astype(np.int32)
+    arc = rng.integers(0, 1 << 20, size=(nb, N)).astype(np.int32)
+    return dst, cost, src, arc, sp
+
+
+def _same_bits(want, got, what):
+    if want.dtype == torch.float32:
+        want, got = want.view(torch.int32), got.view(torch.int32)
+    assert torch.equal(want, got), what
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("beam", [None, SHARD_SLACK], ids=["leaders", "slack"])
+@pytest.mark.parametrize("P", [1, 2, 4])
+@pytest.mark.parametrize("N", [30720, 3072])
+@pytest.mark.parametrize("nb", [16, 1])
+def test_route_send_kernel_matches_plain(card, nb, N, P, beam):
+    """K7's send side against ``route_send_plain``, every int32 of the send
+    buffer and the overflow flag, at the shard shapes: with the cap at N,
+    at exactly the fullest bucket's kept lanes (no overflow) and one under
+    it (overflow); plain and with the beam filter, the slot map and the
+    offsets folded in; the same out buffers reused call after call."""
+    from kaldi_decoder_tpu_torch.kernels.route import (
+        empty_route_send,
+        route_send,
+        route_send_plain,
+    )
+
+    dst, cost, src, arc, sp = _route_lanes(nb * 1000 + N + P, nb, N, P)
+    t = [torch.from_numpy(x).to(card) for x in (dst, cost, src, arc)]
+    rng = np.random.default_rng(N)
+    cutoff = torch.from_numpy(rng.uniform(0.0, 12.0, size=nb).astype(np.float32)).to(card)
+    cutoff[0] = float("inf")
+    states = torch.from_numpy(rng.integers(0, sp, size=(nb, 2048)).astype(np.int32))
+    states = states.to(card)
+    full = route_send_plain(*t, sp, P, N, beam)
+    kept = (full.buf[..., 1] != np.float32(np.inf).view(np.int32)).sum(dim=2)  # (P, B)
+    most = int(kept.max())
+    for cap in (N, most, most - 1):
+        out = empty_route_send(nb, N, P, cap, card)
+        for folded in (False, True):
+            kw = dict(cutoff=cutoff, slot_states=states, slot_add=7 * P, arc_add=-3) \
+                if folded else {}
+            want = route_send_plain(*t, sp, P, cap, beam, **kw)
+            before = route_send.launches
+            got = route_send(*t, sp, P, cap, beam, **kw, out=out)
+            torch.cuda.synchronize()
+            assert route_send.launches == before + 1
+            where = f"cap {cap}, folded {folded}"
+            _same_bits(want.buf, got.buf, f"send buffer, {where}")
+            _same_bits(want.overflow, got.overflow, f"overflow, {where}")
+            if cap == most - 1 and not folded:
+                assert bool(got.overflow.any()), "a bucket must overflow"
+            if cap == most and not folded:
+                assert not bool(got.overflow.any()), "the fullest bucket fits exactly"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inc", ["none", "slots", "links"])
+@pytest.mark.parametrize("P", [1, 2, 4])
+@pytest.mark.parametrize("nb", [16, 1])
+def test_route_recv_kernel_matches_plain(card, nb, P, inc):
+    """K7's receive side against ``route_recv_plain``: a received buffer
+    with +inf and -0.0 costs, without incumbents and with the K
+    incumbents first (slots my_base + k, or -1 links)."""
+    from kaldi_decoder_tpu_torch.kernels.route import route_recv, route_recv_plain
+
+    rng = np.random.default_rng(nb + P)
+    cap, K, sp = 3072 // P * 2, 2048, 5000
+    recv = rng.integers(-5, 1 << 20, size=(P, nb, cap, 4)).astype(np.int32)
+    c = (rng.integers(-4, 60, size=(P, nb, cap)) * 0.25).astype(np.float32)
+    c[..., ::3] = np.inf
+    c[..., 1::7] = -0.0
+    recv[..., 1] = c.view(np.int32)
+    recv = torch.from_numpy(recv).to(card)
+    args = (None, None, None)
+    if inc != "none":
+        st = torch.from_numpy(rng.integers(0, sp, size=(nb, K)).astype(np.int32)).to(card)
+        co = torch.from_numpy(np.sort(rng.uniform(0, 9, size=(nb, K)).astype(np.float32),
+                                      axis=1)).to(card)
+        co[:, K - 100:] = float("inf")
+        args = (st, co, 4096 if inc == "slots" else None)
+    want = route_recv_plain(recv, sp, *args)
+    before = route_recv.launches
+    got = route_recv(recv, sp, *args)
+    torch.cuda.synchronize()
+    assert route_recv.launches == before + 1
+    for name, w, g in zip(want._fields, want, got):
+        _same_bits(w, g, name)
+
+
+def _shard_selection(rng, card, nb, K, N, lattice, r_eps):
+    """A dedup call's result as the sharded eps iteration gives it: a
+    cost-sorted frontier (+inf tail), winning lanes in [0, N) or -1, the
+    distinct counts; on the lattice path records (K + r_eps rows, links a
+    prefix, -1 after) and their overflow."""
+    from kaldi_decoder_tpu_torch.kernels.dedup_rec import LatticeSelection
+    from kaldi_decoder_tpu_torch.ops.segment import Selection
+
+    costs = np.sort((rng.integers(0, 40, size=(nb, K)) * 0.25).astype(np.float32), axis=1)
+    live = rng.integers(K // 2, K + 1, size=nb)
+    for b in range(nb):
+        costs[b, live[b]:] = np.inf
+    cand = rng.integers(0, N, size=(nb, K)).astype(np.int32)
+    cand[~np.isfinite(costs)] = -1
+    cand[:, ::5] = np.minimum(cand[:, ::5], K - 1)  # incumbents win some slots
+    t = dict(states=torch.from_numpy(rng.integers(0, 9000, size=(nb, K)).astype(np.int32)),
+             costs=torch.from_numpy(costs),
+             num_unique=torch.from_numpy(rng.integers(K - 8, K + 8, size=nb)
+                                         .astype(np.int32)),
+             cand_idx=torch.from_numpy(cand))
+    t = {k: v.to(card) for k, v in t.items()}
+    if not lattice:
+        return Selection(t["states"], t["costs"], t["cand_idx"], t["num_unique"])
+    R = K + r_eps
+    rec = rng.integers(0, 1 << 20, size=(nb, R, 4)).astype(np.int32)
+    links = rng.integers(r_eps - 20, r_eps + 20, size=nb)
+    for b in range(nb):
+        rec[b, links[b]:] = -1
+    return LatticeSelection(t["states"], t["costs"], t["num_unique"],
+                            torch.from_numpy(rec).to(card),
+                            torch.from_numpy(rng.random(nb) < 0.2).to(card), t["cand_idx"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stops", [True, False], ids=["stops", "runs-on"])
+@pytest.mark.parametrize("lattice", [False, True], ids=["1-best", "lattice"])
+@pytest.mark.parametrize("nb", [16, 1])
+def test_eps_step_shard_kernel_matches_plain(card, nb, lattice, stops):
+    """The eps step's shard mode against ``eps_step_shard_plain`` over a
+    D = 2 closure on one carry: iteration 0 with the emitting call's flags
+    folded in, iteration 1 given the reduced flag 0 (the batch stops: the
+    frontier kept, identity or -1 rows) or 1, and reducing: after each
+    step every field of the carry and the carried frontier bitwise."""
+    from kaldi_decoder_tpu_torch.kernels.eps import (
+        empty_shard_eps_carry,
+        eps_step,
+        eps_step_shard,
+        eps_step_shard_plain,
+    )
+    from kaldi_decoder_tpu_torch.kernels.route import RouteLanes
+
+    rng = np.random.default_rng(nb * 10 + lattice)
+    K, P, cap, r_eps, my_base = 2048, 2, 3072, 1536, 2048
+    N = K + P * cap
+    width = r_eps if lattice else K
+    carries = [empty_shard_eps_carry(nb, 2, width, card) for _ in range(2)]
+    st = torch.from_numpy(rng.integers(0, 9000, size=(nb, K)).astype(np.int32)).to(card)
+    co = torch.from_numpy(np.sort(rng.uniform(0, 5, size=(nb, K)).astype(np.float32),
+                                  axis=1)).to(card)
+    fronts = [(st.clone(), co.clone()) for _ in range(2)]
+    arcs = rng.integers(0, 1 << 20, size=(nb, N)).astype(np.int32)
+    arcs[:, :K] = -1  # the incumbents' NO_ARC
+    slots = rng.integers(0, 4096, size=(nb, N)).astype(np.int32)
+    lanes = RouteLanes(None, None, torch.from_numpy(slots).to(card),
+                       torch.from_numpy(arcs).to(card))
+
+    def flags(p):
+        return torch.from_numpy(rng.random(nb) < p).to(card)
+
+    em = (flags(0.1), flags(0.1))
+    em_nu = torch.from_numpy(rng.integers(K - 4, K + 2, size=nb).astype(np.int32)).to(card)
+    red = torch.tensor([0 if stops else 1], dtype=torch.int32, device=card)
+    for d in range(2):
+        sel = _shard_selection(rng, card, nb, K, N, lattice, r_eps)
+        exp_ovf, route_ovf = flags(0.05), flags(0.05)
+        kw = dict(lanes=lanes, em_overflow=em if d == 0 else (),
+                  em_num_unique=em_nu if d == 0 else None, reduce=d == 1)
+        args = (sel, exp_ovf, route_ovf, red if d else None, my_base)
+        eps_step_shard_plain(d, carries[0], *fronts[0], *args, **kw)
+        before = eps_step.launches
+        eps_step_shard(d, carries[1], *fronts[1], *args, **kw)
+        torch.cuda.synchronize()
+        assert eps_step.launches == before + 1
+        for name, w, g in zip(carries[0]._fields, *carries):
+            if name == "out":
+                w, g = w[:, : d + 1], g[:, : d + 1]
+            if name in ("red_min", "red_count") and not kw["reduce"]:
+                continue  # written by the reducing step alone
+            _same_bits(w, g, f"iteration {d}: carry.{name}")
+        for w, g, name in zip(*fronts, ("states", "costs")):
+            _same_bits(w, g, f"iteration {d}: carried {name}")
+    if stops:  # the second row of every row: the identity or -1
+        out = carries[1].out[:, 1]
+        if lattice:
+            assert bool((out == -1).all())
+        else:
+            slots = (my_base + torch.arange(K, device=card)).expand(nb, K)
+            assert torch.equal(out[..., 0], slots.to(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lattice", [False, True], ids=["1-best", "lattice"])
+@pytest.mark.parametrize("nb", [16, 1])
+def test_frame_tail_shard_kernel_matches_plain(card, nb, lattice):
+    """K3's shard mode against ``frame_tail_shard_plain`` over two frames
+    of one chunk on the same table and state: row t of every stacked
+    output and the state written in place, bitwise, t advanced and the
+    count cleared; row 0 freezes after the first frame (at B = 1 it is
+    live, then frozen), row 1 has no token on any rank (best +inf)."""
+    from kaldi_decoder_tpu_torch.decoders.frontier import StepState
+    from kaldi_decoder_tpu_torch.kernels.frame import (
+        ShardTailInputs,
+        empty_shard_outs,
+        frame_tail,
+        frame_tail_shard,
+        frame_tail_shard_plain,
+        shard_args,
+    )
+
+    rng = np.random.default_rng(nb + 100 * lattice)
+    K, D, R, Re, T, my_base = 2048, 1, 4096, 1536, 4, 2048
+    N = 2 * 30720
+    f32 = dict(dtype=torch.float32, device=card)
+
+    def ints(lo, hi, shape):
+        return torch.from_numpy(rng.integers(lo, hi, size=shape).astype(np.int32)).to(card)
+
+    st0 = StepState(ints(0, 9000, (nb, K)),
+                    torch.from_numpy(np.sort(rng.uniform(0, 9, size=(nb, K)), axis=1)
+                                     .astype(np.float32)).to(card),
+                    torch.from_numpy(rng.uniform(-50, 0, size=nb).astype(np.float32))
+                    .to(card))
+    sts = [StepState(*(x.clone() for x in st0)) for _ in range(2)]
+    outs = [empty_shard_outs(T, nb, K, D, lattice, card, R, Re) for _ in range(2)]
+    for o in outs:
+        for x in o:
+            x.zero_()
+    targs = [shard_args(card) for _ in range(2)]
+    lengths = torch.full((nb,), T, dtype=torch.int32, device=card)
+    lengths[0] = 1
+    for t in range(2):
+        mid_c = np.sort(rng.uniform(-1, 9, size=(nb, K)).astype(np.float32), axis=1)
+        mid_c[:, K - 300:] = np.inf
+        best = mid_c[:, 0] + rng.uniform(-0.5, 0, size=nb).astype(np.float32)
+        if nb > 1:
+            best[1] = np.inf
+        extra = {}
+        if lattice:
+            extra = dict(em_records=ints(-1, 1 << 20, (nb, R, 4)),
+                         eps_records=ints(-1, 1 << 20, (nb, D, Re, 2)))
+        else:
+            cand = ints(-1, N, (nb, K))
+            extra = dict(cand_idx=cand, gslot=ints(0, 4096, (nb, N)),
+                         arc=ints(-1, 1 << 20, (nb, N)),
+                         bp_eps=ints(-1, 4096, (nb, D, K, 2)))
+        tin = ShardTailInputs(ints(0, 9000, (nb, K)), torch.from_numpy(mid_c).to(card),
+                              torch.from_numpy(best).to(card), ints(0, 4 * K, (nb,)),
+                              torch.tensor([t, 1 - t], dtype=torch.int32, device=card),
+                              **extra)
+        cutoff = torch.from_numpy(rng.uniform(5, 15, size=nb).astype(np.float32)).to(card)
+        final, want = frame_tail_shard_plain(sts[0], cutoff, tin, lengths > t, my_base)
+        before = frame_tail.launches
+        frame_tail_shard(targs[1], sts[1], cutoff, tin, lengths, outs[1], my_base)
+        torch.cuda.synchronize()
+        assert frame_tail.launches == before + 1
+        for name, w, g in zip(final._fields, final, sts[1]):
+            _same_bits(w, g, f"frame {t}: state.{name}")
+        for name, w, g in zip(want._fields, want, outs[1]):
+            _same_bits(w, g[t], f"frame {t}: {name}")
+        assert targs[1].tolist() == [t + 1, 0]
+        for dst, src in zip(sts[0], final):
+            dst.copy_(src)
