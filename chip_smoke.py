@@ -143,8 +143,9 @@ Phases (any failure raises, and the process exits non-zero):
      shapes (B = 16 / P);
   12. ``ShardedViterbiDecoder`` on a ``("model",)`` mesh of the P ranks,
      the unfolded graph, ``SHARD_CONFIG`` (K 2048 a shard), the first
-     ``SHARD_FRAMES`` frames; per rank K1 and K3's shard mode once a
-     frame, K6 and K7 (its send and its receive side) (1 + eps_iters)
+     ``SHARD_FRAMES`` frames; per rank K8 (its local half and its merge),
+     K1 and K3's shard mode once a frame, K6 and K7 (its send and its
+     receive side) (1 + eps_iters)
      times a frame plus eps_iters, K5 and the eps step's shard mode
      eps_iters times a frame plus eps_iters (the start closure's); per
      utterance the 1-best labels, the best path cost's bits,
@@ -157,11 +158,12 @@ Phases (any failure raises, and the process exits non-zero):
      Each of 11-13 prints its collectives by kind and per frame; 12-13
      also their wall and device (profiled run) ms a frame, busy share,
      launches a frame, and device activities a frame split into the
-     port's kernels, collectives and copies, and other (only
-     ``_global_cutoff``'s torch ops; their names are printed).  Rank 0 of
-     12 and 13 holds K5, K1, K6 or K2 (emitting and eps calls), K7's send
-     and receive sides (emitting and eps calls), the eps step's shard mode
-     and K3's shard mode on frame ``SHARD_FRAME``'s inputs, captured from
+     port's kernels, collectives and copies, and other (their names are
+     printed; none may run once a frame or more).  Rank 0 of 12 and 13
+     holds K5, K1, K6 or K2 (emitting and eps calls), K7's send (at every
+     cluster size too) and receive sides (emitting and eps calls), the eps
+     step's shard mode, K3's shard mode and K8's halves on frame
+     ``SHARD_FRAME``'s inputs, captured from
      the counted decode (``CallCapture``), against plain (bitwise) and
      times them, while the other rank waits: phase 2's checks at the
      shard shapes.
@@ -261,7 +263,6 @@ SHARD_FRAMES = 250
 SHARD_LATTICE_BEAM = 8.0
 SHARD_FRAME = 150  # frame whose K1, K6 and K2 calls phase 2 holds at the shard shapes
 PARALLEL_TIMEOUT = 900  # seconds phases 11-13's two ranks may take
-GC_CALLS = 8  # calls of _global_cutoff profiled alone in phases 12-13
 
 
 # Set in phases 11-13's spawned ranks: their lines say whose they are.
@@ -1403,6 +1404,7 @@ def reset_counts():
     import torch
 
     from kaldi_decoder_tpu_torch.decoders import driver
+    from kaldi_decoder_tpu_torch.kernels.cutoff import global_cutoff_local, global_cutoff_merge
     from kaldi_decoder_tpu_torch.kernels.dedup import dedup_select
     from kaldi_decoder_tpu_torch.kernels.dedup_rec import dedup_select_rec
     from kaldi_decoder_tpu_torch.kernels.eps import eps_step, expand_eps_lanes
@@ -1414,7 +1416,8 @@ def reset_counts():
 
     torch.cuda.synchronize()
     for fn in (row_gather, expand_filter, dedup_select_rec, sweep_chunk, expand_eps_lanes,
-               dedup_select, eps_step, frame_tail, frame_start, route_send, route_recv):
+               dedup_select, eps_step, frame_tail, frame_start, route_send, route_recv,
+               global_cutoff_local, global_cutoff_merge):
         fn.launches = 0
     driver.replays = 0
 
@@ -1423,7 +1426,9 @@ def read_counts():
     """The launch counts since :func:`reset_counts`: K3's frame tail (and
     its shard mode) as ``k3``, its first-frame mode as ``k3_start``, K5 as
     ``k5``, the eps step (and its shard mode) as ``eps_step``, K7's send
-    and receive sides as ``k7_send`` and ``k7_recv``."""
+    and receive sides as ``k7_send`` and ``k7_recv``, K8's local half and
+    merge as ``k8_local`` and ``k8_merge``."""
+    from kaldi_decoder_tpu_torch.kernels.cutoff import global_cutoff_local, global_cutoff_merge
     from kaldi_decoder_tpu_torch.kernels.dedup import dedup_select
     from kaldi_decoder_tpu_torch.kernels.dedup_rec import dedup_select_rec
     from kaldi_decoder_tpu_torch.kernels.eps import eps_step, expand_eps_lanes
@@ -1438,13 +1443,14 @@ def read_counts():
                 k5=expand_eps_lanes.launches, k6=dedup_select.launches,
                 eps_step=eps_step.launches, k3=frame_tail.launches,
                 k3_start=frame_start.launches, k7_send=route_send.launches,
-                k7_recv=route_recv.launches)
+                k7_recv=route_recv.launches, k8_local=global_cutoff_local.launches,
+                k8_merge=global_cutoff_merge.launches)
 
 
 def launch_counts(**want):
     """A dict of launch counts as :func:`read_counts` gives them: ``want``,
-    K7's sides 0 unless given."""
-    return dict(dict(k7_send=0, k7_recv=0), **want)
+    K7's sides and K8's halves 0 unless given."""
+    return dict(dict(k7_send=0, k7_recv=0, k8_local=0, k8_merge=0), **want)
 
 
 def read_replays(what, frames):
@@ -2636,15 +2642,38 @@ def hold_shard_kernels(kept, kind, eps_iters, tag):
     return errs, times
 
 
+def k8_local_work(costs, m):
+    """Bytes and operations of K8's local half: a row's costs read, its
+    best cost, count and m-cost prefix written; a compare a slot."""
+    B, K = costs.shape
+    return B * K * 4 + B * m * 4 + B * 8, B * K
+
+
+def k8_merge_work(best, merged):
+    """Bytes and operations of K8's merge: the reduced best costs and
+    counts and the gathered prefixes read, the cutoff and adaptive beam
+    written; a compare a merged cost (the early return: an add a row)."""
+    B = best.shape[0]
+    n = merged.numel() if merged is not None else 0
+    return n * 4 + B * 16, max(n, B)
+
+
 def hold_shard_route(kept, eps_iters, tag):
     """K7's send and receive sides (the emitting call and the first eps
-    iteration's), the eps step's shard mode (that iteration's step) and
-    K3's shard mode on frame SHARD_FRAME's calls of a sharded decode
-    (``kept``, a CallCapture's), each against its plain version on the
-    card, bitwise, and timed; returns ({kernel: max |err|}, {kernel_call:
-    time_kernel fields})."""
+    iteration's; the send side at each cluster size too), the eps step's
+    shard mode (that iteration's step), K3's shard mode and K8's local
+    half and merge on frame SHARD_FRAME's calls of a sharded decode
+    (``kept``, a CallCapture's), each against its plain version (K8's on
+    CPU copies, as the JAX package is held to it), bitwise, and timed;
+    returns ({kernel: max |err|}, {kernel_call: time_kernel fields})."""
     import torch
 
+    from kaldi_decoder_tpu_torch.kernels.cutoff import (
+        global_cutoff_local,
+        global_cutoff_local_plain,
+        global_cutoff_merge,
+        global_cutoff_merge_plain,
+    )
     from kaldi_decoder_tpu_torch.kernels.eps import eps_step_shard, eps_step_shard_plain
     from kaldi_decoder_tpu_torch.kernels.frame import (
         empty_shard_outs,
@@ -2657,6 +2686,7 @@ def hold_shard_route(kept, eps_iters, tag):
         route_recv_plain,
         route_send,
         route_send_plain,
+        send_cluster_size,
     )
 
     errs, times = {}, {}
@@ -2672,11 +2702,22 @@ def hold_shard_route(kept, eps_iters, tag):
         same_fields(ref, got._replace(scratch=None), "K7's send side", where + sfx)
         B, N = args[0].shape
         P, cap = args[5], args[6]
-        times["k7_send" + sfx] = time_kernel(
+        t = time_kernel(
             f"K7 send{sfx} at {where} (B={B}, N {N}, P {P}, cap {cap}, "
-            f"{'slack ' + str(args[7]) if args[7] is not None else 'leaders'})",
+            f"{'slack ' + str(args[7]) if args[7] is not None else 'leaders'}, "
+            f"{send_cluster_size(N)} blocks a row)",
             lambda: route_send(*args, out=out), lambda: route_send_plain(*args),
             k7_send_work(args, got))
+        t["clusters"], t["ms_by_clusters"] = send_cluster_size(N), {}
+        for g in (1, 2, 4, 8):
+            got = route_send(*args, out=out, clusters=g)
+            torch.cuda.synchronize()
+            same_fields(ref, got._replace(scratch=None), f"K7's send side at {g} blocks a row",
+                        where + sfx)
+            t["ms_by_clusters"][g] = device_ms(lambda: route_send(*args, out=out, clusters=g))
+        log(f"    at 1, 2, 4, 8 blocks a row: " + ", ".join(
+            f"{ms:.4f}" for ms in t["ms_by_clusters"].values()) + " ms, each equal to plain")
+        times["k7_send" + sfx] = t
         args, kw = kept["route_recv", i]
         out = kw["out"]
         ref = route_recv_plain(*args)
@@ -2730,6 +2771,30 @@ def hold_shard_route(kept, eps_iters, tag):
         lambda: frame_tail_shard(t_args, t_st, cutoff, tin, lengths, t_outs, slot_base),
         lambda: frame_tail_shard_plain(st, cutoff, tin, fa, slot_base), k3_shard_work(tin, fa))
     errs["k3_shard"] = 0.0
+    (costs, m), kw = kept["global_cutoff_local", SHARD_FRAME]
+    out = kw["out"]
+    ref = global_cutoff_local_plain(costs.cpu(), m)
+    got = global_cutoff_local(costs, m, out=out)
+    torch.cuda.synchronize()
+    same_fields(ref, type(got)(*(x.cpu() for x in got)), "K8's local half", where)
+    times["k8_local"] = time_kernel(
+        f"K8 local half at {where} (B={costs.shape[0]}, K {costs.shape[1]}, m {m})",
+        lambda: global_cutoff_local(costs, m, out=out),
+        lambda: global_cutoff_local_plain(costs, m), k8_local_work(costs, m))
+    args, kw = kept["global_cutoff_merge", SHARD_FRAME]
+    out = kw["out"]
+    best, merged = args[0], args[2]
+    ref = global_cutoff_merge_plain(*(x.cpu() if torch.is_tensor(x) else x for x in args))
+    got = global_cutoff_merge(*args, out=out)
+    torch.cuda.synchronize()
+    same_fields(ref, type(got)(*(x.cpu() for x in got)), "K8's merge", where)
+    shape = (f"P {merged.shape[0]}, m {merged.shape[2]}" if merged is not None
+             else "the early return")
+    times["k8_merge"] = time_kernel(
+        f"K8 merge at {where} (B={best.shape[0]}, {shape}, max_active {args[5]}, "
+        f"min_active {args[6]})", lambda: global_cutoff_merge(*args, out=out),
+        lambda: global_cutoff_merge_plain(*args), k8_merge_work(best, merged))
+    errs["k8_local"] = errs["k8_merge"] = 0.0
     return errs, times
 
 
@@ -2859,7 +2924,8 @@ def shard_path(kind, graph, sc, sl, refs, sref, P, rank):
     routed = {shard_call_index(SHARD_FRAME, D), shard_call_index(SHARD_FRAME, D, True)}
     capture = {"expand_filter": {SHARD_FRAME}, kname: routed, "route_send": routed,
                "route_recv": routed, "expand_eps_lanes": {D + SHARD_FRAME * D},
-               "eps_step_shard": {D + SHARD_FRAME * D}, "frame_tail_shard": {SHARD_FRAME}}
+               "eps_step_shard": {D + SHARD_FRAME * D}, "frame_tail_shard": {SHARD_FRAME},
+               "global_cutoff_local": {SHARD_FRAME}, "global_cutoff_merge": {SHARD_FRAME}}
     dist.barrier()
     reset_counts()
     collective_calls.clear()
@@ -2871,13 +2937,14 @@ def shard_path(kind, graph, sc, sl, refs, sref, P, rank):
     coll = dict(collective_calls)
     frames = res.num_active.shape[0]
     k = "k6" if kind == "viterbi" else "k2"
-    # No driver: K3's shard mode once a frame, no first-frame mode; K7's
-    # sides once an emitting call and an eps iteration, the eps step's
-    # shard mode once an eps iteration, the start closure's included.
+    # No driver: K3's shard mode and K8's halves once a frame, no
+    # first-frame mode; K7's sides once an emitting call and an eps
+    # iteration, the eps step's shard mode once an eps iteration, the start
+    # closure's included.
     routes = D + frames * (1 + D)
     want_n = launch_counts(gather=0, k1=frames, k2=0, k4=0, k5=D + frames * D, k6=0,
                            eps_step=D + frames * D, k3=frames, k3_start=0, k7_send=routes,
-                           k7_recv=routes)
+                           k7_recv=routes, k8_local=frames, k8_merge=frames)
     want_n[k] = routes
     if n != want_n:
         raise AssertionError(f"{what}: launch counts {n}, want {want_n}")
@@ -2902,20 +2969,11 @@ def shard_path(kind, graph, sc, sl, refs, sref, P, rank):
     names = port_kernel_names(REPO)
     split = activity_split(acts, names)
     ranked = acts[:6]
-    # The frame's torch ops are _global_cutoff's: GC_CALLS calls of it
-    # alone, on frame SHARD_FRAME's state, under the profiler (every rank
-    # calls it; the trace can miss its first activities, never a later
-    # call's).
-    st = cap.kept["frame_tail_shard", SHARD_FRAME][0][1]
-    gc = activity_split(profiled_device_ms(
-        lambda: [graph_shard._global_cutoff(st, sh, dec._sh.group) for _ in range(GC_CALLS)],
-        top=None)[2], names)
-    gc_names = {name for name, _ in gc["other"][2]}
-    stray = [(name, cnt / frames) for name, cnt in split["other"][2]
-             if cnt >= frames and name not in gc_names]
+    # A frame runs the port's kernels, the collectives and copies only.
+    stray = [(name, cnt / frames) for name, cnt in split["other"][2] if cnt >= frames]
     if stray:
-        raise AssertionError(f"{what}: torch ops a frame that _global_cutoff does not run: "
-                             f"{stray}")
+        raise AssertionError(f"{what}: device activities a frame that are neither the port's "
+                             f"kernels, collectives nor copies: {stray}")
     n_coll = sum(coll.values())
     wall_ms = t_dec * 1e3 / frames
     dev_ms = (k_ms + c_ms) / frames
@@ -2930,7 +2988,6 @@ def shard_path(kind, graph, sc, sl, refs, sref, P, rank):
                split_per_frame={g: (ms / frames, cnt / frames)
                                 for g, (ms, cnt, _) in split.items()},
                other_activities=split["other"][2],
-               global_cutoff_activities=gc["other"][1] / GC_CALLS,
                overflow_frames=int(res.overflows.sum()),
                saturated_frames=int(res.saturations.sum()))
     log(f"{what}: decode {t_dec:.3f} s for {frames} frames ({wall_ms:.3f} ms a frame), device "
@@ -2944,10 +3001,9 @@ def shard_path(kind, graph, sc, sl, refs, sref, P, rank):
     log(f"  a frame: {out['launches_per_frame']:.2f} launches of the port's kernels; "
         f"{out['activities_per_frame']:.2f} device activities: " + "; ".join(
             f"{g} {cnt:.2f} ({ms:.4f} ms)" for g, (ms, cnt) in out["split_per_frame"].items())
-        + f"; _global_cutoff alone runs {gc['other'][1] / GC_CALLS:.2f} torch activities a "
-        "call, and every "
-        "other activity that runs once a frame or more is one of them: " + "; ".join(
-            f"{name} ({cnt / frames:.2f} a frame)" for name, cnt in split["other"][2]))
+        + "; other activities, each under once a frame: " + ("; ".join(
+            f"{name} ({cnt / frames:.2f} a frame)" for name, cnt in split["other"][2])
+            or "none"))
     errs, times = {}, {}
     if rank == 0:  # the other rank waits at the barrier: the card is this rank's alone
         errs, times = hold_shard_kernels(cap.kept, kind, D, f"P={P} {kind} shard 0")
@@ -3383,7 +3439,8 @@ def main():
                 for P in par for sfx in ("", "_eps") if kernel + sfx in par[P][0][phase][3]
                 and (P, phase, sfx) != but
                 for f in ("ms", "plain_ms", "bound_ms", "bound_by", "share_of_bound",
-                          "wrapper_ms", "plain_wrapper_ms")}
+                          "wrapper_ms", "plain_wrapper_ms", "clusters", "ms_by_clusters")
+                if f in par[P][0][phase][3][kernel + sfx]}
 
     def shard_entry(name, source, replaces, key, by, **extra):
         """A kernel of the sharded phases alone: its fields from P = 1's
@@ -3406,7 +3463,7 @@ def main():
         "eps_step": {"lattice": n3["eps_step"], "viterbi": vn["eps_step"],
                      "streaming": sn["eps_step"]},
         **{k: {"lattice": n3[k], "viterbi": vn[k], "streaming": sn[k]}
-           for k in ("k7_send", "k7_recv")},
+           for k in ("k7_send", "k7_recv", "k8_local", "k8_merge")},
     }
     # The sharded phases' eps steps and K3 launches are the shard modes'.
     shard_phases = [p for p in later if p.startswith("shard_")]
@@ -3526,9 +3583,11 @@ def main():
                            "wrapper_ms", "plain_wrapper_ms")}),
         shard_entry("K7 route_send (the shard route's send side: the beam filter and payload "
                     "offsets, the stable (owner, state, cost) order, the local dedup or slack "
-                    "keep, the within-owner places, the (P, B, cap, 4) send buffer, overflow)",
+                    "keep, the within-owner places, the (P, B, cap, 4) send buffer, overflow; "
+                    "a cluster of blocks a row)",
                     "route.cu", "kaldi_decoder_tpu/parallel/graph_shard.py:213", "k7_send",
-                    "k7_send"),
+                    "k7_send", **{f: par[1][0]["shard_viterbi"][3]["k7_send"][f]
+                                  for f in ("clusters", "ms_by_clusters")}),
         shard_entry("K7 route_recv (the shard route's receive side: the received buffer as the "
                     "dedup call's lanes, after the incumbents on an eps iteration)", "route.cu",
                     "kaldi_decoder_tpu/parallel/graph_shard.py:313", "k7_recv", "k7_recv"),
@@ -3539,6 +3598,14 @@ def main():
         shard_entry("K3 frame_tail, shard mode (the sharded frame's rebase, freeze and outputs "
                     "into row t)", "frame.cu", "kaldi_decoder_tpu/parallel/graph_shard.py:540",
                     "k3_shard", "k3_shard"),
+        shard_entry("K8 global_cutoff_local (the sharded GetCutoff's local half: each row's "
+                    "best cost, finite count and cost prefix, before the collectives)",
+                    "cutoff.cu", "kaldi_decoder_tpu/parallel/graph_shard.py:447", "k8_local",
+                    "k8_local"),
+        shard_entry("K8 global_cutoff_merge (the sharded GetCutoff's merge: the order "
+                    "statistics of the gathered prefixes without a sort, GetCutoff's branch "
+                    "and the adaptive beam)", "cutoff.cu",
+                    "kaldi_decoder_tpu/parallel/graph_shard.py:447", "k8_merge", "k8_merge"),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

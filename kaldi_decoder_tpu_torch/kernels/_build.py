@@ -123,8 +123,8 @@ def stream(device) -> ctypes.c_void_p:
 def kernels() -> ctypes.CDLL:
     """The CUDA kernel library (row gather, K1 expansion, K2 lattice
     dedup and records, K3 frame tail and its shard mode, K4 sweep, K5 eps
-    lanes and the eps step with its shard mode, K6 dedup, K7 shard route),
-    built on first use."""
+    lanes and the eps step with its shard mode, K6 dedup, K7 shard route,
+    K8 sharded GetCutoff), built on first use."""
     sources = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
     arch = ["-gencode", "arch=compute_90a,code=sm_90a"]
     path = build_library(
@@ -178,7 +178,13 @@ def kernels() -> ctypes.CDLL:
     lib.kd_frame_tail_shard.restype = _I
     lib.kd_frame_tail_shard.argtypes = [_P] + [_I] * 8 + [_P] * 16 + [_P] * 8 + [_P]
     lib.kd_route_send.restype = _I
-    lib.kd_route_send.argtypes = [_P] * 6 + [_I] * 9 + [_F] + [_P] * 6 + [_P]
+    lib.kd_route_send.argtypes = [_P] * 6 + [_I] * 9 + [_F] + [_P] * 6 + [_I, _P]
+    lib.kd_route_send_cluster.restype = _I
+    lib.kd_route_send_cluster.argtypes = [_I]
+    lib.kd_cutoff_local.restype = _I
+    lib.kd_cutoff_local.argtypes = [_P] + [_I] * 3 + [_P] * 3 + [_P]
+    lib.kd_cutoff_merge.restype = _I
+    lib.kd_cutoff_merge.argtypes = [_P] * 3 + [_I] * 5 + [_F, _F] + [_P] * 2 + [_P]
     lib.kd_route_recv.restype = _I
     lib.kd_route_recv.argtypes = [_P] * 3 + [_I] * 7 + [_P] * 4 + [_P]
     lib.kd_error_string.restype = ctypes.c_char_p

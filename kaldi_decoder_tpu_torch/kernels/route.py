@@ -27,7 +27,10 @@ On CPU tensors the wrappers run the plain torch versions,
 :func:`route_send_plain` and :func:`route_recv_plain`; on CUDA tensors
 they launch ``csrc/route.cu`` or raise.  Each takes ``out=`` buffers
 (:func:`empty_route_send`, :func:`empty_route_lanes`) sized once a
-decode.
+decode.  On a card the send side is a cluster of blocks a row
+(:func:`send_cluster_size`), each block's share of the row in its shared
+memory up to ``SMEM_LANES`` lanes, past it in the scratch rows of
+:func:`empty_route_send`.
 """
 
 from __future__ import annotations
@@ -50,6 +53,8 @@ from kaldi_decoder_tpu_torch.kernels._build import (
 
 INF = float("inf")
 MAX_PARTS = 64  # csrc/route.cu: the most ranks a route takes
+MIN_LANES = 768  # csrc/route.cu: the fewest lanes a block of the send side's cluster takes
+SMEM_LANES = 7936  # csrc/route.cu: the most lanes a block keeps in shared memory
 
 
 class RouteSend(NamedTuple):
@@ -57,7 +62,7 @@ class RouteSend(NamedTuple):
 
     buf: torch.Tensor  # (P, B, cap, 4) int32: [local state, cost bits, slot, arc]
     overflow: torch.Tensor  # (B,) bool — a (row, owner) bucket overflowed
-    scratch: Optional[tuple] = None  # two (B, N) int64 key rows, two (B, N) int32 value rows
+    scratch: Optional[tuple] = None  # two (B, N) int64 rows, two (B, N) int32 rows
 
 
 class RouteLanes(NamedTuple):
@@ -148,7 +153,9 @@ def route_send_plain(
 
 def empty_route_send(batch: int, lanes: int, num_parts: int, cap: int, device) -> RouteSend:
     """Uninitialised buffers of K7's send side (``route_send``'s ``out``)
-    for ``batch`` rows of ``lanes`` lanes, with its sort's scratch."""
+    for ``batch`` rows of ``lanes`` lanes, with its scratch: the sort's
+    two element rows, a cost key and a count a lane, read only where a
+    block's share of a row exceeds ``SMEM_LANES``."""
     i64 = dict(dtype=torch.int64, device=device)
     i32 = dict(dtype=torch.int32, device=device)
     shape = (batch, lanes)
@@ -160,14 +167,22 @@ def empty_route_send(batch: int, lanes: int, num_parts: int, cap: int, device) -
     )
 
 
+def send_cluster_size(lanes: int) -> int:
+    """The blocks a row (a cluster) K7's send side launches with for rows
+    of ``lanes`` lanes."""
+    return kernels().kd_route_send_cluster(lanes)
+
+
 def route_send(dst_g, cost, src, arc, sp: int, num_parts: int, cap: int,
                local_slack_beam: Optional[float] = None, cutoff=None, slot_states=None,
                slot_add: int = 0, arc_add: int = 0,
-               out: Optional[RouteSend] = None) -> RouteSend:
+               out: Optional[RouteSend] = None, clusters: int = 0) -> RouteSend:
     """K7's send side on the tensors' device: :func:`route_send_plain` on
-    the CPU, one launch of ``csrc/route.cu`` on a card (a block a row),
-    into ``out`` (from :func:`empty_route_send`) when given.  On a card a
-    valid lane's destination must lie in ``[0, num_parts * sp)``.
+    the CPU, one launch of ``csrc/route.cu`` on a card (a cluster of
+    blocks a row; ``clusters`` (8, 4, 2 or 1) sets their number instead of
+    :func:`send_cluster_size`'s choice), into ``out`` (from
+    :func:`empty_route_send`) when given.  On a card a valid lane's
+    destination must lie in ``[0, num_parts * sp)``.
     ``route_send.launches`` counts its launches."""
     dev = dst_g.device
     if dev.type == "cpu":
@@ -180,6 +195,10 @@ def route_send(dst_g, cost, src, arc, sp: int, num_parts: int, cap: int,
         raise ValueError(f"route_send takes 1 to {MAX_PARTS} parts, not {num_parts}")
     if sp < 1 or cap < 1 or num_parts * sp >= 1 << 31:
         raise ValueError(f"part size {sp} and cap {cap} must be positive, P*Sp below 2^31")
+    if N < 1:
+        raise ValueError("route_send takes at least one lane a row")
+    if clusters not in (0, 1, 2, 4, 8):
+        raise ValueError(f"clusters must be 0 (chosen), 1, 2, 4 or 8, not {clusters}")
     for name, x, dtype in (("dst_g", dst_g, torch.int32), ("cost", cost, torch.float32),
                            ("src", src, torch.int32), ("arc", arc, torch.int32)):
         check(x, name, dtype, (B, N), dev)
@@ -195,7 +214,7 @@ def route_send(dst_g, cost, src, arc, sp: int, num_parts: int, cap: int,
         check(out.buf, "out.buf", torch.int32, (num_parts, B, cap, 4), dev)
         check(out.overflow, "out.overflow", torch.bool, (B,), dev)
         if out.scratch is None or len(out.scratch) != 4:
-            raise ValueError("out needs the sort's four scratch rows (empty_route_send)")
+            raise ValueError("out needs the four scratch rows (empty_route_send)")
         for i, x in enumerate(out.scratch):
             check(x, f"scratch[{i}]", torch.int64 if i < 2 else torch.int32, (B, N), dev)
     k0, k1, v0, v1 = out.scratch
@@ -206,7 +225,8 @@ def route_send(dst_g, cost, src, arc, sp: int, num_parts: int, cap: int,
         ptr(slot_states) if slot_states is not None else None,
         B, N, K, sp, num_parts, cap, slot_add, arc_add, int(lattice),
         ctypes.c_float(local_slack_beam if lattice else 0.0),
-        ptr(k0), ptr(k1), ptr(v0), ptr(v1), ptr(out.buf), ptr(out.overflow), stream(dev),
+        ptr(k0), ptr(k1), ptr(v0), ptr(v1), ptr(out.buf), ptr(out.overflow), clusters,
+        stream(dev),
     )
     if rc != 0:
         raise RuntimeError(f"kd_route_send launch failed: {cuda_error(rc)}")

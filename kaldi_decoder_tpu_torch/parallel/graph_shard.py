@@ -40,11 +40,11 @@ backpointers or links, the batch-wide stop, the carry, the local
 ``changed`` and, at the last, the frame's local values that the rebase
 reduces); K3's shard mode (``kernels.frame.frame_tail_shard``) ends the
 frame (the rebase, the freeze, every output into row t of the chunk's
-stacked buffers, ``t`` on the device).  Between them run only the
-collectives, whose kinds, order and number a frame are the original's,
-and :func:`_global_cutoff`, which stays torch: a MIN reduction of each
-row's best cost and, when max_active or min_active can bind, a SUM
-reduction, an all-gather and one stable sort of the merged prefixes.
+stacked buffers, ``t`` on the device); :func:`_global_cutoff` opens
+each frame with K8 (``kernels.cutoff``: ``global_cutoff_local`` before
+its collectives, ``global_cutoff_merge`` after them).  Between them run only
+the collectives, whose kinds, order and number a frame are the
+original's.
 """
 
 from __future__ import annotations
@@ -69,6 +69,12 @@ from kaldi_decoder_tpu_torch.fst.pack import (
     pack_graph,
     pack_graph_device,
 )
+from kaldi_decoder_tpu_torch.kernels.cutoff import (
+    empty_cutoff,
+    empty_cutoff_local,
+    global_cutoff_local,
+    global_cutoff_merge,
+)
 from kaldi_decoder_tpu_torch.kernels.dedup import dedup_select
 from kaldi_decoder_tpu_torch.kernels.dedup_rec import dedup_select_rec
 from kaldi_decoder_tpu_torch.kernels.eps import (
@@ -91,7 +97,7 @@ from kaldi_decoder_tpu_torch.kernels.route import (
     route_send,
 )
 from kaldi_decoder_tpu_torch.parallel.mesh import (
-    all_gather_cat,
+    all_gather_into,
     all_gather_object,
     all_reduce,
     all_to_all,
@@ -392,20 +398,22 @@ class _Shard(NamedTuple):
 
 class _Bufs(NamedTuple):
     """A decode's buffers: each route call site's on a card (made at its
-    first call), the eps closure's carry, and the chunk's K3 table, row
-    lengths and stacked outputs (set by :func:`sharded_chunk`)."""
+    first call), the eps closure's carry, the chunk's K3 table, row
+    lengths and stacked outputs (set by :func:`sharded_chunk`), and K8's
+    on a card (made at its first call)."""
 
     routes: dict
     carry: ShardEpsCarry
     args: torch.Tensor
     chunk: dict
+    cutoff: dict
 
 
 def _bufs(sc: ShardConfig, batch: int, width: int, device) -> _Bufs:
     """The buffers of a decode of ``batch`` rows, its eps closure keeping
     ``width`` backpointers (K) or links (eps_records) an iteration."""
     return _Bufs({}, empty_shard_eps_carry(batch, sc.frontier.eps_iters, width, device),
-                 shard_args(device), {})
+                 shard_args(device), {}, {})
 
 
 def _masked_min(costs: torch.Tensor) -> torch.Tensor:
@@ -496,48 +504,42 @@ def _sharded_eps_closure(iteration, st: StepState, sc: ShardConfig, sh: _Shard, 
     return carry
 
 
-def _global_cutoff(st: StepState, cfg: ShardConfig, group):
+def _global_cutoff(st: StepState, cfg: ShardConfig, group, bufs: Optional[_Bufs] = None):
     """GetCutoff with *global* semantics over all shards' frontiers
     (`faster-decoder.cc:244-336`): beam cutoff from the global best, the
     max/min-active order statistics over the union of the per-shard
     (sorted) frontiers.  Returns (cutoff (B,), adaptive_beam (B,)).
 
-    When neither bound can bind (max_active >= total capacity and
-    min_active == 0) only the global best is exchanged; otherwise each
-    shard contributes its cost prefix of length m = min(needed+1, K) —
-    the global n-th smallest is always within the union of per-shard
-    n+1-prefixes — through one all-gather, and the order statistics are
-    read off a stable sort of the merged prefixes (keyed with -0.0 and
-    +0.0 equal, as the original's sort compares them).
+    K8's local half gives each row's best cost, finite count and cost
+    prefix of length m = min(needed+1, K) — the global n-th smallest is
+    always within the union of per-shard n+1-prefixes; the best is reduced
+    (MIN) over ``group`` and, unless neither bound can bind (max_active >=
+    total capacity and min_active == 0), the count (SUM) and the prefixes
+    (one all-gather); K8's merge then reads the order statistics off the
+    merged prefixes and takes GetCutoff's branch.  On a card ``bufs``
+    keeps K8's buffers, made at the first call.
     """
     fc = cfg.frontier
     K = fc.frontier_size
-    best = all_reduce(_masked_min(st.costs), "min", group)  # (B,)
-    beam_cutoff = best + fc.beam
-    if fc.max_active >= cfg.k_total and fc.min_active == 0:
-        return beam_cutoff, torch.full_like(best, fc.beam)
-
-    count = all_reduce(torch.isfinite(st.costs).sum(dim=1, dtype=torch.int32), "sum", group)
-    m = int(min(max(fc.max_active, fc.min_active) + 1, K))
-    merged = all_gather_cat(st.costs[:, :m].contiguous(), 1, group)  # (B, P*m)
-    order = torch.sort(torch.where(merged == 0, 0.0, merged), dim=1, stable=True).indices
-    merged = merged.gather(1, order)
-    PM = merged.shape[1]
-    max_cut = torch.where(count > fc.max_active, merged[:, min(fc.max_active, PM - 1)], INF)
-    min_cut = torch.where(
-        count > fc.min_active,
-        best if fc.min_active == 0 else merged[:, min(fc.min_active, PM - 1)],
-        INF,
-    )
-    use_max = max_cut < beam_cutoff
-    use_min = (~use_max) & (min_cut > beam_cutoff)
-    cutoff = torch.where(use_max, max_cut, torch.where(use_min, min_cut, beam_cutoff))
-    adaptive = torch.where(
-        use_max,
-        max_cut - best + fc.beam_delta,
-        torch.where(use_min, min_cut - best + fc.beam_delta, fc.beam),
-    ).to(torch.float32)
-    return cutoff, adaptive
+    early = fc.max_active >= cfg.k_total and fc.min_active == 0
+    m = 1 if early else int(min(max(fc.max_active, fc.min_active) + 1, K))
+    out = {}
+    if bufs is not None and st.costs.is_cuda:
+        if not bufs.cutoff:
+            B = st.costs.shape[0]
+            dev = st.costs.device
+            bufs.cutoff.update(local=empty_cutoff_local(B, m, dev), out=empty_cutoff(B, dev),
+                               merged=torch.empty((cfg.num_parts, B, m), dtype=torch.float32,
+                                                  device=dev))
+        out = bufs.cutoff
+    loc = global_cutoff_local(st.costs, m, out=out.get("local"))
+    best = all_reduce(loc.best, "min", group)  # (B,)
+    count = merged = None
+    if not early:
+        count = all_reduce(loc.count, "sum", group)
+        merged = all_gather_into(loc.prefix, out.get("merged"), group)  # (P, B, m)
+    return global_cutoff_merge(best, count, merged, fc.beam, fc.beam_delta, fc.max_active,
+                               fc.min_active, out=out.get("out"))
 
 
 def _emit_expand(st: StepState, scores_t, pg, fc: FrontierConfig, cutoff, adaptive_beam,
@@ -569,7 +571,7 @@ def _sharded_frame(st: StepState, scores_t, pg, cfg: ShardConfig, sh: _Shard, bu
     fc = cfg.frontier
     K, Sp, Pn = fc.frontier_size, cfg.part_size, cfg.num_parts
 
-    cutoff, adaptive_beam = _global_cutoff(st, cfg, sh.group)
+    cutoff, adaptive_beam = _global_cutoff(st, cfg, sh.group, bufs)
     ex, next_cutoff = _emit_expand(st, scores_t, pg, fc, cutoff, adaptive_beam, sh.group,
                                    with_src_slot=True)
     rt = _route(ex.dst, ex.cost, ex.src_slot, ex.arc_id, Sp, Pn, cfg.route_cap, sh.group,
@@ -597,7 +599,7 @@ def _sharded_lattice_frame(st: StepState, scores_t, pg, cfg: ShardLatticeConfig,
     fc = sc.frontier
     K, Sp, Pn = fc.frontier_size, sc.part_size, sc.num_parts
 
-    cutoff, adaptive_beam = _global_cutoff(st, sc, sh.group)
+    cutoff, adaptive_beam = _global_cutoff(st, sc, sh.group, bufs)
     ex, next_cutoff = _emit_expand(st, scores_t, pg, fc, cutoff, adaptive_beam, sh.group,
                                    with_src_slot=False)
     # K1's src_state is the source slot's state on every lane of an active

@@ -186,14 +186,22 @@ def all_reduce(x: torch.Tensor, op: str, group) -> torch.Tensor:
     return y.to(x.device)
 
 
-def all_gather_cat(x: torch.Tensor, dim: int, group) -> torch.Tensor:
-    """Every rank's ``x`` (same shape) concatenated along ``dim`` in rank
-    order of ``group``."""
+def all_gather_into(x: torch.Tensor, out: Optional[torch.Tensor], group) -> torch.Tensor:
+    """Every rank's ``x`` (same shape) stacked in rank order of ``group``
+    into ``out`` (P, *x.shape) on ``x``'s device (a new tensor when None),
+    with no copy on the device but the host's staging over gloo."""
     collective_calls["all_gather"] += 1
-    y = x.cpu() if staged(x, group) else x.contiguous()
-    out = [torch.empty_like(y) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(out, y, group=group)
-    return torch.cat(out, dim=dim).to(x.device)
+    shape = (dist.get_world_size(group),) + tuple(x.shape)
+    if out is None:
+        out = torch.empty(shape, dtype=x.dtype, device=x.device)
+    if dist.get_backend(group) != "gloo":
+        dist.all_gather_into_tensor(out, x.contiguous(), group=group)
+        return out
+    host = out if out.device.type == "cpu" else torch.empty(shape, dtype=x.dtype)
+    dist.all_gather(list(host.unbind(0)), x.cpu().contiguous(), group=group)
+    if host is not out:
+        out.copy_(host)
+    return out
 
 
 def all_to_all(x: torch.Tensor, group) -> torch.Tensor:

@@ -13,8 +13,15 @@ that ends in a synchronise), then one decode under the profiler: device
 ms a frame (kernels and copies), busy share (device over wall), device
 activities a frame split into the tree's own kernels (the ``__global__``
 functions of its ``csrc``), collectives and copies, and other (with their
-names), and the collectives a frame by kind.  The decodes' results are
-not checked here (``chip_smoke.py`` does that).  Prints one JSON line and
+names), and the collectives a frame by kind.  With ``--runs`` it times
+nothing: one decode of each at P = 1 records, for every K7 send call,
+the (owner, state) runs of its valid lanes (the lanes of a row with one
+destination: what the send side dedups): how many, the longest, the
+99th and 99.9th percentiles by run, the run length of the 99th
+percentile lane, and the bits in which a row's cost keys differ (the
+passes a sort on the cost would take), for the emitting and the eps
+calls apart.  The decodes' results are not checked here
+(``chip_smoke.py`` does that).  Prints one JSON line and
 writes it to ``chiprun_out/profile_shard_<tag>.json``.  To compare two
 trees on one card, run both in one command, in turns:
 
@@ -42,6 +49,90 @@ def smoke():
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
     return cs
+
+
+def run_lengths(decode):
+    """The (owner, state) run lengths of every K7 send call's valid lanes
+    in one ``decode()``: {lanes a row: summary}."""
+    import numpy as np
+    import torch
+
+    from kaldi_decoder_tpu_torch.parallel import graph_shard
+
+    hist, kbits = {}, {}
+    inner = graph_shard.route_send
+
+    def counted(*args, **kw):
+        dst, cost, sp, parts = args[0], args[1], args[4], args[5]
+        cutoff = args[8] if len(args) > 8 else kw.get("cutoff")
+        valid = torch.isfinite(cost) & (dst >= 0) & (dst < parts * sp)
+        if cutoff is not None:
+            valid &= cost < cutoff[:, None]
+        rows = torch.arange(dst.shape[0], device=dst.device)[:, None] * (parts * sp)
+        _, counts = torch.unique((rows + dst)[valid], return_counts=True)
+        h = torch.bincount(counts).cpu().numpy()
+        u = torch.where(cost == 0, 0.0, cost).view(torch.int32).long() & 0xFFFFFFFF
+        key = torch.where(u >= 1 << 31, u ^ 0xFFFFFFFF, u | 1 << 31)  # common.cuh:ordered_key
+        lo = torch.where(valid, key, 1 << 32).amin(dim=1)
+        hi = torch.where(valid, key, -1).amax(dim=1)
+        diff = torch.where(hi > lo, lo ^ hi, 0).cpu().tolist()
+        row_bits = kbits.setdefault(dst.shape[1], {})
+        for x in diff:
+            row_bits[int(x).bit_length()] = row_bits.get(int(x).bit_length(), 0) + 1
+        old = hist.get(dst.shape[1], np.zeros(1, np.int64))
+        n = max(len(old), len(h))
+        hist[dst.shape[1]] = np.pad(old, (0, n - len(old))) + np.pad(h, (0, n - len(h)))
+        return inner(*args, **kw)
+
+    graph_shard.route_send = counted
+    try:
+        decode()
+    finally:
+        graph_shard.route_send = inner
+    out = {}
+    for lanes, h in sorted(hist.items()):
+        length = np.arange(len(h))
+        by_run = np.cumsum(h) / h.sum()
+        by_lane = np.cumsum(h * length) / (h * length).sum()
+        out[lanes] = dict(runs=int(h.sum()), longest=int(length[h > 0].max()),
+                          p99=int(np.searchsorted(by_run, 0.99)),
+                          p999=int(np.searchsorted(by_run, 0.999)),
+                          lane_p99=int(np.searchsorted(by_lane, 0.99)),
+                          over_32=int(h[33:].sum()), over_256=int(h[257:].sum()),
+                          key_bits=dict(sorted(kbits[lanes].items())))
+    return out
+
+
+def runs_main(tree):
+    """``--runs``: each sharded decoder once at P = 1 (after a warm-up
+    decode) with K7's send calls recorded: {kind: run_lengths}."""
+    import torch
+
+    from kaldi_decoder_tpu_torch import config_for_graph
+    from kaldi_decoder_tpu_torch.parallel import (
+        ShardedLatticeDecoder,
+        ShardedViterbiDecoder,
+        make_mesh,
+    )
+
+    cs = smoke()
+    graph, scores, lengths, refs = cs.bench_workload()
+    _, sc, sl = cs.shard_reference(scores, lengths, refs)
+    mesh = make_mesh(1, "model", device_type="cuda")
+    fc = config_for_graph(graph, **cs.SHARD_CONFIG)
+    out = {}
+    for kind in ("viterbi", "lattice"):
+        if kind == "viterbi":
+            dec = ShardedViterbiDecoder(graph, fc, mesh=mesh, pad_time_to=cs.SHARD_FRAMES,
+                                        device="cuda")
+        else:
+            dec = ShardedLatticeDecoder(graph, fc, lattice_beam=cs.SHARD_LATTICE_BEAM,
+                                        mesh=mesh, pad_time_to=cs.SHARD_FRAMES, device="cuda")
+        dec.decode(sc, sl)
+        out[kind] = run_lengths(lambda: dec.decode(sc, sl))
+        del dec
+        torch.cuda.empty_cache()
+    return out
 
 
 def measure(tree, P, rank, reps):
@@ -157,6 +248,8 @@ def main():
                     help="root of the checkout whose port is measured")
     ap.add_argument("--tag", default="new", help="name of the output file's run")
     ap.add_argument("--reps", type=int, default=2, help="timed decodes of each")
+    ap.add_argument("--runs", action="store_true",
+                    help="record K7's (owner, state) run lengths at P = 1 instead of timing")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
@@ -179,14 +272,27 @@ def main():
     initialize_distributed(backend="nccl", init_method=f"tcp://localhost:{cs.free_port()}",
                            rank=0, world_size=1)
     try:
-        p1 = measure(tree, 1, 0, args.reps)
+        if args.runs:
+            runs = runs_main(tree)
+        else:
+            p1 = measure(tree, 1, 0, args.reps)
     finally:
         dist.destroy_process_group()
+    os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
+    if args.runs:
+        line = json.dumps({"tag": args.tag, "tree": args.tree, "card": cs.card_line(),
+                           "k7_send_runs": runs})
+        with open(os.path.join(REPO, "chiprun_out", f"k7_runs_{args.tag}.json"), "w") as f:
+            f.write(line + "\n")
+        for kind, r in runs.items():
+            for lanes, v in r.items():
+                print(f"{args.tag} {kind}, K7 send calls of {lanes} lanes a row: {v}", flush=True)
+        print(line)
+        return
     torch.cuda.empty_cache()
     p2 = two_ranks(tree, args.reps)
     line = json.dumps({"tag": args.tag, "tree": args.tree, "card": cs.card_line(),
                        "build_s": build_s, "p1": p1, "p2": p2})
-    os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     name = os.path.join(REPO, "chiprun_out", f"profile_shard_{args.tag}.json")
     with open(name, "w") as f:
         f.write(line + "\n")

@@ -12,7 +12,10 @@ A job is ``{"world": n, "cases": {name: case}}``, each case a dict with
 ``args`` and ``kw`` of the constructor, and ``scores`` and ``lengths`` to
 decode; or ``call`` (a function of ``parallel.graph_shard`` taking the
 mesh's ``model`` group as ``group``), ``rank_args`` (its arguments on each
-rank) and ``kw``.
+rank) and ``kw``.  A decoder case may name ``capture``: functions of
+``parallel.graph_shard`` whose calls' positional arguments (tensors
+cloned) the rank keeps during the decode; its result is then (the decode
+result, {name: [arguments of each call]}).
 
     python tests/_torch_dist_worker.py JOB RANK
 """
@@ -82,7 +85,25 @@ def main():
             continue
         cls = getattr(parallel, case["decoder"], None) or getattr(decoders, case["decoder"])
         dec = cls(*case["args"], mesh=mesh, device="cpu", **case["kw"])
-        results[name] = dec.decode(case["scores"], case["lengths"])
+        captured = {fn: [] for fn in case.get("capture", ())}
+        orig = {fn: getattr(graph_shard, fn) for fn in captured}
+
+        def keep(fn):
+            def call(*args, **kw):
+                captured[fn].append(tuple(
+                    x.clone() if isinstance(x, torch.Tensor) else x for x in args))
+                return orig[fn](*args, **kw)
+
+            return call
+
+        for fn in captured:
+            setattr(graph_shard, fn, keep(fn))
+        try:
+            res = dec.decode(case["scores"], case["lengths"])
+        finally:
+            for fn, f in orig.items():
+                setattr(graph_shard, fn, f)
+        results[name] = (res, captured) if captured else res
     with open(f"{path}.rank{rank}", "wb") as f:
         pickle.dump(results, f)
     dist.destroy_process_group()

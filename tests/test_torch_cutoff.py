@@ -1,0 +1,298 @@
+"""K8, the sharded frame's GetCutoff (``kernels.cutoff``), against the JAX
+``_global_cutoff`` on the CPU.
+
+The JAX side runs ``kaldi_decoder_tpu.parallel.graph_shard._global_cutoff``
+under ``shard_map`` on P of the suite's virtual CPU devices; the port
+composes K8's two plain halves in one process, with the collectives
+between them done in place (a MIN of the shards' best costs, a SUM of
+their counts, their prefixes stacked in shard order).  Inputs are made
+with numpy from fixed seeds, each shard's rows in IEEE total order as
+the frontier's select leaves them.  Exactness: cutoff and adaptive beam
+equal by their raw bits.
+
+Cases at P = 1, 2 and 4: max_active binding, min_active binding,
+min_active 0, max_active past the merged prefixes (the ``P*m - 1``
+clamp) and the early return; each on rows with -0.0 and +0.0 tied within
+a shard and across shards at the order statistics, an all-+inf row, a
+count exactly at max_active and one above, negative costs with ties.
+Beside them: the local half's values; a rank-select merge in plain torch
+(what ``csrc/cutoff.cu`` computes: no sort, each element's rank from
+binary searches of the other shards' prefixes) against the sort-based
+plain version on every case; and the states a sharded decode (P = 2,
+both decoders, over gloo) hands ``_global_cutoff``: each shard's row in
+order under the canonical key, as the kernel needs, and the composed
+halves equal to JAX on them.
+"""
+
+import tempfile
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.sharding import Mesh
+from jax.sharding import PartitionSpec as JP
+
+from kaldi_decoder_tpu.decoders.frontier import FrontierConfig as JaxFrontierConfig
+from kaldi_decoder_tpu.decoders.frontier import StepState as JaxStepState
+from kaldi_decoder_tpu.fst import compile_fst as jax_compile
+from kaldi_decoder_tpu.fst import random_fst
+from kaldi_decoder_tpu.parallel import graph_shard as jgs
+from kaldi_decoder_tpu_torch.decoders.frontier import FrontierConfig, config_for_graph
+from kaldi_decoder_tpu_torch.fst.csr import graph_from_numpy
+from kaldi_decoder_tpu_torch.kernels.cutoff import (
+    GlobalCutoff,
+    global_cutoff_local,
+    global_cutoff_local_plain,
+    global_cutoff_merge,
+    global_cutoff_merge_plain,
+)
+
+from _torch_dist_worker import run_ranks
+
+try:
+    from jax import shard_map
+except ImportError:  # pragma: no cover
+    from jax.experimental.shard_map import shard_map
+
+K, B = 16, 6
+INF = np.float32(np.inf)
+
+# name -> config kwargs, given P (max_active past P*K for the clamp, at
+# P*K with min_active 0 for the early return).
+CONFIGS = {
+    "max_active": lambda P: dict(beam=9.0, max_active=5, min_active=3, beam_delta=0.5),
+    "min_active": lambda P: dict(beam=0.75, max_active=12, min_active=6, beam_delta=0.25),
+    "min_active_0": lambda P: dict(beam=9.0, max_active=5, min_active=0, beam_delta=0.5),
+    "clamp": lambda P: dict(beam=30.0, max_active=P * K + 3, min_active=4, beam_delta=0.5),
+    "early": lambda P: dict(beam=9.0, max_active=P * K, min_active=0, beam_delta=0.5),
+}
+
+
+def total_order(a: np.ndarray) -> np.ndarray:
+    """``a``'s rows sorted in IEEE total order (-0.0 before +0.0), as the
+    frontier's select leaves a shard's costs."""
+    u = a.view(np.uint32)
+    key = np.where(u & 0x80000000, ~u, u | 0x80000000)
+    return np.take_along_axis(a, np.argsort(key, axis=1, kind="stable"), axis=1)
+
+
+def shard_costs(seed: int, P: int, kw: dict) -> list:
+    """P (B, K) float32 cost rows, one per shard: 0 random costs on a 0.5
+    grid with +inf tails; 1 -0.0 and +0.0 ties within and across shards
+    at the order statistics; 2 all +inf; 3 and 4 a count of exactly
+    max_active and one above (where the shards can hold it); 5 negative
+    costs with exact ties across shards."""
+    rng = np.random.default_rng(seed)
+    rows = np.full((P, B, K), INF, np.float32)
+    lo = min(K - 5, max(4, kw["max_active"] // P + 2))  # zeros enough to hold rank max_active
+    for q in range(P):
+        n = int(rng.integers(K // 2, K + 1))
+        rows[q, 0, :n] = rng.integers(0, 40, size=n) * 0.5
+        z = int(rng.integers(lo, K - 4))
+        rows[q, 1, :z] = np.where(rng.random(z) < 0.5, -0.0, 0.0)
+        rows[q, 1, z:] = rng.integers(1, 20, size=K - z) * 0.25
+        rows[q, 5, :] = rng.integers(-6, 3, size=K) * 0.5
+        rows[q, 5, K - 3:] = INF
+    for r, total in ((3, kw["max_active"]), (4, kw["max_active"] + 1)):
+        total = min(total, P * K)
+        cuts = np.sort(rng.choice(np.arange(1, total), size=P - 1, replace=False)) \
+            if P > 1 and total > P else np.array([], np.int64)
+        counts = np.diff(np.concatenate([[0], cuts, [total]])).astype(int)
+        if counts.max() > K:  # spread evenly where a random split overfills a shard
+            counts = np.array([total // P + (q < total % P) for q in range(P)])
+        for q in range(P):
+            rows[q, r, :counts[q]] = rng.uniform(-1.0, 8.0, size=counts[q]).astype(np.float32)
+    return [total_order(rows[q]) for q in range(P)]
+
+
+def port_global_cutoff(costs: list, kw: dict, merge=global_cutoff_merge, k: int = K):
+    """The port's ``_global_cutoff`` over the shards ``costs`` (frontiers
+    of ``k`` slots) in one process: K8's local half per shard, the
+    collectives in place, the merge (``merge``: the wrapper, or the
+    rank-select version)."""
+    P = len(costs)
+    fc = FrontierConfig(frontier_size=k, **kw)
+    early = fc.max_active >= P * k and fc.min_active == 0
+    m = 1 if early else int(min(max(fc.max_active, fc.min_active) + 1, k))
+    locs = [global_cutoff_local(torch.from_numpy(c), m) for c in costs]
+    best = locs[0].best
+    for loc in locs[1:]:
+        best = torch.minimum(best, loc.best)
+    count = merged = None
+    if not early:
+        count = sum(loc.count for loc in locs).to(torch.int32)
+        merged = torch.stack([loc.prefix for loc in locs])
+    return merge(best, count, merged, fc.beam, fc.beam_delta, fc.max_active, fc.min_active)
+
+
+def rank_select_merge(best, count, merged, beam, beam_delta, max_active, min_active):
+    """What ``csrc/cutoff.cu``'s merge computes, in plain torch: no sort;
+    element (q, j) of a row (shard q's prefix, position j, each prefix in
+    order under the canonical key) has rank j plus, for every other shard
+    q', the number of q''s keys at or below its own (q' < q) or below it
+    (q' > q); the elements at ranks max_active and min_active (clamped)
+    feed GetCutoff's branch."""
+    beam_cutoff = best + beam
+    if merged is None:
+        return GlobalCutoff(beam_cutoff, torch.full_like(best, beam))
+    P, Bn, m = merged.shape
+    canon = torch.where(merged == 0, 0.0, merged)
+    rank = torch.arange(m).expand(P, Bn, m).clone()
+    for q in range(P):
+        for q2 in range(P):
+            if q2 != q:
+                rank[q] += torch.searchsorted(canon[q2].contiguous(), canon[q].contiguous(),
+                                              right=q2 < q)
+    flat_rank = rank.permute(1, 0, 2).reshape(Bn, P * m)
+    flat = merged.permute(1, 0, 2).reshape(Bn, P * m)
+    assert torch.equal(flat_rank.sort(dim=1).values, torch.arange(P * m).expand(Bn, P * m))
+
+    def at(r):
+        hit = (flat_rank == min(r, P * m - 1)).int()
+        return flat.gather(1, hit.argmax(dim=1, keepdim=True))[:, 0]
+
+    max_cut = torch.where(count > max_active, at(max_active), np.inf)
+    min_cut = torch.where(count > min_active, best if min_active == 0 else at(min_active), np.inf)
+    use_max = max_cut < beam_cutoff
+    use_min = (~use_max) & (min_cut > beam_cutoff)
+    return GlobalCutoff(
+        torch.where(use_max, max_cut, torch.where(use_min, min_cut, beam_cutoff)),
+        torch.where(use_max, max_cut - best + beam_delta,
+                    torch.where(use_min, min_cut - best + beam_delta, beam)))
+
+
+def jax_global_cutoff(costs: list, kw: dict, k: int = K) -> list:
+    """The JAX ``_global_cutoff`` on P virtual devices, one shard each:
+    [cutoff (P, B), adaptive beam (P, B)] as numpy."""
+    P = len(costs)
+    cfg = jgs.ShardConfig(frontier=JaxFrontierConfig(frontier_size=k, **kw), num_parts=P,
+                          part_size=50, route_cap=64, eps_route_cap=64)
+    mesh = Mesh(np.array(jax.devices()[:P]), ("model",))
+
+    def f(c):
+        st = JaxStepState(jnp.zeros(c.shape[1:], jnp.int32), c[0],
+                          jnp.zeros((c.shape[1],), jnp.float32))
+        return tuple(x[None] for x in jgs._global_cutoff(st, cfg, "model"))
+
+    spec = JP("model")
+    fn = shard_map(f, mesh=mesh, in_specs=(spec,), out_specs=(spec, spec), check_vma=False)
+    return [np.asarray(x) for x in jax.jit(fn)(jnp.asarray(np.stack(costs)))]
+
+
+def same_bits(want, got, what):
+    want, got = np.asarray(want, np.float32), np.asarray(got, np.float32)
+    assert want.shape == got.shape, (what, want.shape, got.shape)
+    assert np.array_equal(want.view(np.int32), got.view(np.int32)), (what, want, got)
+
+
+CASES = [(P, name) for P in (1, 2, 4) for name in CONFIGS]
+
+
+@pytest.mark.parametrize("P,name", CASES, ids=[f"P{P}-{n}" for P, n in CASES])
+def test_global_cutoff_halves_match_jax(P, name):
+    """K8's plain halves, composed around the collectives, equal the JAX
+    ``_global_cutoff`` bit for bit on every shard's result."""
+    kw = CONFIGS[name](P)
+    costs = shard_costs(100 * P + len(name), P, kw)
+    got = port_global_cutoff(costs, kw)
+    want = jax_global_cutoff(costs, kw)
+    for q in range(P):
+        same_bits(want[0][q], got.cutoff.numpy(), f"shard {q}: cutoff")
+        same_bits(want[1][q], got.adaptive_beam.numpy(), f"shard {q}: adaptive beam")
+    finite = sum(np.isfinite(c).sum(axis=1) for c in costs)
+    if name == "max_active":
+        assert (finite > kw["max_active"]).any() and (finite == kw["max_active"]).any()
+        assert np.isinf(got.cutoff.numpy()[2]), "the all-+inf row keeps an infinite cutoff"
+    zeros = got.cutoff.numpy()[1]
+    if name in ("max_active", "min_active_0"):
+        assert zeros == 0.0, "row 1's order statistic is a zero"
+
+
+@pytest.mark.parametrize("P,name", CASES, ids=[f"P{P}-{n}" for P, n in CASES])
+def test_rank_select_merge_matches_sort(P, name):
+    """The rank-select merge (the kernel's method) equals the sort-based
+    plain merge bit for bit."""
+    kw = CONFIGS[name](P)
+    costs = shard_costs(100 * P + len(name), P, kw)
+    want = port_global_cutoff(costs, kw, merge=global_cutoff_merge_plain)
+    got = port_global_cutoff(costs, kw, merge=rank_select_merge)
+    same_bits(want.cutoff, got.cutoff, "cutoff")
+    same_bits(want.adaptive_beam, got.adaptive_beam, "adaptive beam")
+
+
+@pytest.mark.parametrize("width", [16, 128, 2048])
+def test_local_half(width):
+    """The local half: a row's first smallest finite cost in slot order
+    (its bits: -0.0 and +0.0 mixed past the widths ``amin`` vectorises),
+    the finite count, the prefix copied; +inf for a row with none."""
+    rng = np.random.default_rng(width)
+    c = rng.choice(np.array([0.0, -0.0, 1.5, -2.0, np.inf], np.float32), size=(5, width))
+    c[1] = rng.choice(np.array([0.0, -0.0, np.inf], np.float32), size=width)
+    c[2] = np.inf
+    c[3, 0], c[3, 1:] = 0.0, rng.choice(np.array([-0.0, 3.0], np.float32), size=width - 1)
+    m = min(width, 7)
+    got = global_cutoff_local_plain(torch.from_numpy(c), m)
+    masked = np.where(np.isfinite(c), c, INF)
+    first = np.array([r[np.flatnonzero(r == r.min())[0]] for r in masked], np.float32)
+    same_bits(first, got.best, "best")
+    assert not np.signbit(got.best[3].item()), "row 3's first zero is +0.0"
+    assert got.count.dtype == torch.int32
+    assert got.count.tolist() == np.isfinite(c).sum(axis=1).tolist()
+    same_bits(c[:, :m], got.prefix, "prefix")
+    assert got.prefix.is_contiguous()
+
+
+def _decoder_cases():
+    """A Viterbi and a lattice decode at P = 2 with max_active binding,
+    each keeping the states it hands K8's local half."""
+    rng = np.random.default_rng(9)
+    V, T = 5, 12
+    g = graph_from_numpy(jax_compile(random_fst(60, V, rng, mean_arcs_per_state=5.0)))
+    scores = np.log(rng.dirichlet(np.ones(V), size=(2, T))).astype(np.float32)
+    ckw = dict(beam=20.0, max_active=6, min_active=2, frontier_size=16)
+    cases = {}
+    for kind, dkw in (("ShardedViterbiDecoder", dict(pad_time_to=8)),
+                      ("ShardedLatticeDecoder", dict(lattice_beam=6.0, pad_time_to=8,
+                                                     em_records=128, eps_records=64))):
+        cases[kind] = dict(decoder=kind, mesh=((2,), ("model",)),
+                           args=(g, config_for_graph(g, **ckw)), kw=dkw, scores=scores,
+                           lengths=None, capture=("global_cutoff_local",))
+    return cases, ckw
+
+
+@pytest.fixture(scope="module")
+def decoded():
+    cases, ckw = _decoder_cases()
+    with tempfile.TemporaryDirectory() as tmp:
+        return run_ranks(dict(world=2, cases=cases), tmp), ckw
+
+
+@pytest.mark.parametrize("kind", ["ShardedViterbiDecoder", "ShardedLatticeDecoder"])
+def test_decoder_states_suit_the_merge(decoded, kind):
+    """On the states a sharded decode hands ``_global_cutoff`` (every
+    frame, both shards): each row in order under the canonical key, as
+    the kernel's merge reads it; the composed halves equal to JAX and the
+    rank-select merge to the sort-based one."""
+    ranks, ckw = decoded
+    calls = [r[kind][1]["global_cutoff_local"] for r in ranks]
+    assert len(calls[0]) == len(calls[1]) > 8
+    kw = {k: v for k, v in ckw.items() if k != "frontier_size"}
+    k = ckw["frontier_size"]
+    bound = 0
+    for i, (a, b) in enumerate(zip(*calls)):
+        costs = [a[0].numpy(), b[0].numpy()]
+        for q, c in enumerate(costs):
+            assert (c[:, 1:] >= c[:, :-1]).all(), f"call {i}, shard {q}: a row out of order"
+        want = jax_global_cutoff(costs, kw, k)
+        got = port_global_cutoff(costs, kw, k=k)
+        alt = port_global_cutoff(costs, kw, rank_select_merge, k)
+        for q in range(2):
+            same_bits(want[0][q], got.cutoff, f"call {i}: cutoff")
+            same_bits(want[1][q], got.adaptive_beam, f"call {i}: adaptive beam")
+        same_bits(got.cutoff, alt.cutoff, f"call {i}: rank-select cutoff")
+        same_bits(got.adaptive_beam, alt.adaptive_beam, f"call {i}: rank-select adaptive beam")
+        bound += int((sum(np.isfinite(c).sum(axis=1) for c in costs) > kw["max_active"]).sum())
+    assert bound > 0, "max_active must bind on some frame"
+

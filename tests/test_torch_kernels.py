@@ -1839,3 +1839,226 @@ def test_frame_tail_shard_kernel_matches_plain(card, nb, lattice):
         assert targs[1].tolist() == [t + 1, 0]
         for dst, src in zip(sts[0], final):
             dst.copy_(src)
+
+
+def _route_cluster_cases():
+    """(clusters, N) for K7's send side forced to each cluster size: the
+    shard shapes, and N at and one past the lanes a cluster of that size
+    keeps in shared memory (the switch to the scratch rows)."""
+    from kaldi_decoder_tpu_torch.kernels.route import SMEM_LANES
+
+    return [(g, n) for g in (1, 2, 4, 8) for n in (3072, 30720, SMEM_LANES * g, SMEM_LANES * g + 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("beam", [None, SHARD_SLACK], ids=["leaders", "slack"])
+@pytest.mark.parametrize("P", [1, 2, 4])
+@pytest.mark.parametrize("clusters,N", _route_cluster_cases(),
+                         ids=[f"G{g}-N{n}" for g, n in _route_cluster_cases()])
+def test_route_send_kernel_every_cluster_size(card, clusters, N, P, beam):
+    """K7's send side at each cluster size it can take (forced), against
+    ``route_send_plain`` bitwise at B=16: ±0 and exact-cost ties, lanes
+    either side of the slack beam, an all-invalid row; cap at N, at the
+    fullest bucket exactly and one under; the filter and offsets folded
+    or not."""
+    from kaldi_decoder_tpu_torch.kernels.route import (
+        empty_route_send,
+        route_send,
+        route_send_plain,
+    )
+
+    nb = 16
+    dst, cost, src, arc, sp = _route_lanes(7 * N + P + clusters, nb, N, P)
+    t = [torch.from_numpy(x).to(card) for x in (dst, cost, src, arc)]
+    rng = np.random.default_rng(N + clusters)
+    cutoff = torch.from_numpy(rng.uniform(0.0, 12.0, size=nb).astype(np.float32)).to(card)
+    cutoff[0] = float("inf")
+    states = torch.from_numpy(rng.integers(0, sp, size=(nb, 2048)).astype(np.int32)).to(card)
+    full = route_send_plain(*t, sp, P, N, beam)
+    most = int((full.buf[..., 1] != np.float32(np.inf).view(np.int32)).sum(dim=2).max())
+    for cap in (N, most, most - 1):
+        out = empty_route_send(nb, N, P, cap, card)
+        for folded in (False, True):
+            kw = dict(cutoff=cutoff, slot_states=states, slot_add=7 * P, arc_add=-3) \
+                if folded else {}
+            want = route_send_plain(*t, sp, P, cap, beam, **kw)
+            before = route_send.launches
+            got = route_send(*t, sp, P, cap, beam, **kw, out=out, clusters=clusters)
+            torch.cuda.synchronize()
+            assert route_send.launches == before + 1
+            where = f"cap {cap}, folded {folded}"
+            _same_bits(want.buf, got.buf, f"send buffer, {where}")
+            _same_bits(want.overflow, got.overflow, f"overflow, {where}")
+            if cap == most - 1 and not folded:
+                assert bool(got.overflow.any()), "a bucket must overflow"
+            if cap == most and not folded:
+                assert not bool(got.overflow.any()), "the fullest bucket fits exactly"
+
+
+def _hub_lanes(seed, nb, N, P):
+    """(dst, cost, src, arc, sp) lanes with long (owner, state) runs:
+    row 0 sends ``hub`` lanes (4,096 at N 30,720) to one state with costs
+    falling in lane order, row 1 the same lanes at -0.0 and +0.0 (every
+    fifth at 1.5), row 2 every lane to one state, row 3 all lanes to eight
+    states, interleaved (N / 8 lanes a run), row 4 the hub with costs
+    rising by a step that keeps every lane within the slack beam, and rows
+    5 and 6 one run of 128 lanes and one of 129, their costs shuffled
+    within the slack beam (ranks out of lane order); the other rows as
+    ``_route_lanes``."""
+    dst, cost, src, arc, sp = _route_lanes(seed, nb, N, P)
+    rng = np.random.default_rng(seed + 1)
+    hub = min(4096, 2 * N // 3)
+    at = np.sort(rng.choice(N, size=hub, replace=False))
+    state = P * sp - 3  # the last owner's
+    dst[0, at] = state
+    cost[0, at] = np.linspace(40.0, -2.0, hub, dtype=np.float32)
+    dst[1, at] = state
+    cost[1, at] = np.where(at % 3 == 0, -0.0, 0.0)
+    cost[1, at[::5]] = 1.5
+    dst[2] = 7
+    cost[2] = np.where(np.isfinite(cost[2]), cost[2], 3.0)
+    dst[3] = rng.integers(0, 8, size=N) * (P * sp // 8)
+    dst[4, at] = state // 2
+    cost[4, at] = np.float32(1.0) + np.arange(hub, dtype=np.float32) * np.float32(SHARD_SLACK / hub)
+    for r, run in ((5, 128), (6, 129)):
+        dst[r, dst[r] == state] = 0
+        lanes = np.sort(rng.choice(N, size=run, replace=False))
+        dst[r, lanes] = state
+        cost[r, lanes] = rng.permutation(np.linspace(0.5, 0.5 + SHARD_SLACK, run, dtype=np.float32))
+    return dst, cost, src, arc, sp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("beam", [None, SHARD_SLACK], ids=["leaders", "slack"])
+@pytest.mark.parametrize("P", [1, 2])
+@pytest.mark.parametrize("N", [30720, 3072])
+@pytest.mark.parametrize("clusters", [1, 2, 4, 8])
+def test_route_send_kernel_long_runs(card, clusters, N, P, beam):
+    """K7's send side on (owner, state) runs of thousands of lanes (a hub
+    state: falling costs, exact and ±0 ties, a whole row, runs crossing
+    every block of the cluster, a run wholly within the slack beam) at
+    each cluster size, against ``route_send_plain`` bitwise at B=8: cap at
+    N, at the fullest bucket exactly and one under; filter folded or not."""
+    from kaldi_decoder_tpu_torch.kernels.route import (
+        empty_route_send,
+        route_send,
+        route_send_plain,
+    )
+
+    nb = 8
+    dst, cost, src, arc, sp = _hub_lanes(11 * N + P + clusters, nb, N, P)
+    t = [torch.from_numpy(x).to(card) for x in (dst, cost, src, arc)]
+    cutoff = torch.full((nb,), 30.0, dtype=torch.float32, device=card)
+    full = route_send_plain(*t, sp, P, N, beam)
+    most = int((full.buf[..., 1] != np.float32(np.inf).view(np.int32)).sum(dim=2).max())
+    for cap in (N, most, most - 1):
+        out = empty_route_send(nb, N, P, cap, card)
+        for folded in (False, True):
+            kw = dict(cutoff=cutoff, slot_add=5, arc_add=2) if folded else {}
+            want = route_send_plain(*t, sp, P, cap, beam, **kw)
+            got = route_send(*t, sp, P, cap, beam, **kw, out=out, clusters=clusters)
+            torch.cuda.synchronize()
+            where = f"cap {cap}, folded {folded}"
+            _same_bits(want.buf, got.buf, f"send buffer, {where}")
+            _same_bits(want.overflow, got.overflow, f"overflow, {where}")
+            if cap == most - 1 and not folded:
+                assert bool(got.overflow.any()), "a bucket must overflow"
+
+
+@pytest.mark.cuda
+def test_route_send_cluster_choice(card):
+    """The cluster sizes K7's send side picks: the largest that fits, at
+    most one block per MIN_LANES lanes (4 at the eps shape, N 3,072; 8 at
+    the emitting shape, N 30,720)."""
+    from kaldi_decoder_tpu_torch.kernels.route import MIN_LANES, send_cluster_size
+
+    assert send_cluster_size(3072) == 4
+    assert send_cluster_size(2 * MIN_LANES - 1) == 1
+    assert send_cluster_size(30720) == 8
+
+
+def _cutoff_shards(rng, P, nb, K, max_active):
+    """P shards' (nb, K) cost rows, each in IEEE total order: random costs
+    on a 0.25 grid with +inf tails; -0.0 and +0.0 ties at the order
+    statistics; an all-+inf row; counts of exactly max_active and one
+    above; negative costs with ties."""
+    rows = np.full((P, nb, K), np.inf, np.float32)
+    for q in range(P):
+        n = int(rng.integers(K // 2, K + 1))
+        rows[q, :, :n] = rng.integers(-8, 80, size=(nb, n)) * 0.25
+        z = int(rng.integers(min(K - 1, max_active // P + 2), K))
+        rows[q, 1 % nb, :z] = np.where(rng.random(z) < 0.5, -0.0, 0.0)
+    if nb > 2:
+        rows[:, 2] = np.inf
+    for r, total in ((3, max_active), (4, max_active + 1)):
+        if r < nb:
+            total = min(total, P * K)
+            rows[:, r] = np.inf
+            for q in range(P):
+                c = total // P + (q < total % P)
+                rows[q, r, :c] = rng.uniform(-1.0, 8.0, size=c)
+    u = rows.view(np.uint32)
+    key = np.where(u & 0x80000000, ~u, u | 0x80000000)
+    return np.take_along_axis(rows, np.argsort(key, axis=2, kind="stable"), axis=2)
+
+
+CUTOFF_CONFIGS = {  # name -> (beam, max_active, min_active, beam_delta), given P and K
+    "max_active": lambda P, K: (15.0, min(2560, P * K - 1), 200, 0.5),
+    "min_active": lambda P, K: (0.5, P * K - 1, min(200, K - 2), 0.25),
+    "min_active_0": lambda P, K: (15.0, min(2560, P * K - 1), 0, 0.5),
+    "clamp": lambda P, K: (30.0, P * K + 3, 4, 0.5),
+    "early": lambda P, K: (15.0, P * K, 0, 0.5),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(CUTOFF_CONFIGS))
+@pytest.mark.parametrize("P,K", [(1, 2048), (2, 2048), (4, 2048), (64, 128)])
+@pytest.mark.parametrize("nb", [16, 1])
+def test_global_cutoff_kernels_match_plain(card, nb, P, K, name):
+    """K8's local half (each shard) and merge against their plain versions
+    run on CPU copies of the same inputs, bitwise: the best cost, count
+    and prefix; the cutoff and adaptive beam, the early return included."""
+    from kaldi_decoder_tpu_torch.kernels.cutoff import (
+        empty_cutoff,
+        empty_cutoff_local,
+        global_cutoff_local,
+        global_cutoff_local_plain,
+        global_cutoff_merge,
+        global_cutoff_merge_plain,
+    )
+
+    beam, max_active, min_active, beam_delta = CUTOFF_CONFIGS[name](P, K)
+    early = max_active >= P * K and min_active == 0
+    m = 1 if early else min(max(max_active, min_active) + 1, K)
+    rng = np.random.default_rng(P * 1000 + K + nb + len(name))
+    shards = _cutoff_shards(rng, P, nb, K, max_active)
+    locs = []
+    out = empty_cutoff_local(nb, m, card)
+    for q in range(P):
+        costs = torch.from_numpy(shards[q])
+        want = global_cutoff_local_plain(costs, m)
+        before = global_cutoff_local.launches
+        got = global_cutoff_local(costs.to(card), m, out=out)
+        torch.cuda.synchronize()
+        assert global_cutoff_local.launches == before + 1
+        for field, w, g in zip(want._fields, want, got):
+            _same_bits(w, g.cpu(), f"shard {q}: {field}")
+        locs.append(want)
+    best = locs[0].best
+    for loc in locs[1:]:
+        best = torch.minimum(best, loc.best)
+    count = merged = None
+    if not early:
+        count = sum(loc.count for loc in locs).to(torch.int32)
+        merged = torch.stack([loc.prefix for loc in locs])
+    want = global_cutoff_merge_plain(best, count, merged, beam, beam_delta, max_active,
+                                     min_active)
+    before = global_cutoff_merge.launches
+    got = global_cutoff_merge(best.to(card), None if early else count.to(card),
+                              None if early else merged.to(card), beam, beam_delta, max_active,
+                              min_active, out=empty_cutoff(nb, card))
+    torch.cuda.synchronize()
+    assert global_cutoff_merge.launches == before + 1
+    _same_bits(want.cutoff, got.cutoff.cpu(), "cutoff")
+    _same_bits(want.adaptive_beam, got.adaptive_beam.cpu(), "adaptive beam")

@@ -213,7 +213,7 @@ def test_mesh_helpers(one_rank_group):
     pmesh.collective_calls.clear()
     x = torch.tensor([3.0, -0.0])
     assert pmesh.all_reduce(x, "min", g).tolist() == [3.0, -0.0]
-    assert pmesh.all_gather_cat(x[None], 1, g).shape == (1, 2)
+    assert pmesh.all_gather_into(x[None], None, g).tolist() == [[[3.0, -0.0]]]
     assert pmesh.all_to_all(x[None], g).tolist() == [[3.0, -0.0]]
     assert pmesh.all_gather_object({"a": 1}, g) == [{"a": 1}]
     assert not pmesh.staged(x, g)
