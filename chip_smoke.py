@@ -24,7 +24,9 @@ Phases (any failure raises, and the process exits non-zero):
   1. build: the CUDA kernels (K1 ``csrc/expand.cu``, which reads each
      active slot's em_block row itself, K2 ``csrc/dedup_rec.cu``, K3
      ``csrc/frame.cu``, the frame driver's tail, K4 ``csrc/sweep.cu``, K5
-     and the eps step ``csrc/eps.cu``, K6 ``csrc/dedup.cu``, and the
+     ``csrc/eps.cu``, K6 ``csrc/dedup.cu``, the eps step
+     ``csrc/eps_step.cuh`` (the last step of K6's and K2's eps calls), and
+     the
      standalone row
      gather ``csrc/gather.cu``, the counterpart of the TPU experiments'
      gathers, which no path calls) and the C++ host library, from the
@@ -70,15 +72,17 @@ Phases (any failure raises, and the process exits non-zero):
   5. streaming API: ``FasterDecoder`` over the first utterances, the
      counters set to 0 just before; K1 must launch once per frame, K6
      (1 + eps_iters) times per frame plus eps_iters times per
-     ``init_decoding``, K5 and the eps step eps_iters times per frame and
-     per ``init_decoding``, the row gather never; the same fields must equal
+     ``init_decoding``, K5 and the eps step (inside K6's eps calls, none
+     alone) eps_iters times per frame and per ``init_decoding``, the row
+     gather never; the same fields must equal
      the JAX reference; prints ms per frame;
   6. the lattice decode without folding: ``BatchedLatticeDecoder(graph,
      config, fold=False)`` on the unfolded graph (eps depth 1), B=16,
      chunks of 500, ``device_prune=True``, the counters set to 0 just
      before; K1 must launch once per frame, K2 (1 + eps_iters) times per
      frame plus eps_iters for the start closure, K5 and the eps step
-     eps_iters times per frame and for the start closure, K4 once per
+     (inside K2's eps calls, none alone) eps_iters times per frame and for
+     the start closure, K4 once per
      chunk, K6 and the row gather never; per utterance the 1-best labels, the
      float32 bits of the best path's cost, ``num_active``, the overflow
      and saturation counts, the raw lattice's size and a sha256 of its
@@ -89,7 +93,8 @@ Phases (any failure raises, and the process exits non-zero):
      ``LatticeFasterDecoder`` over the first 2 utterances, 100 frames per
      ``advance_decoding``, then ``LatticeSimpleDecoder.decode`` of the
      first, each counted (K1 once a frame, K2 (1 + eps_iters) times a
-     frame plus eps_iters per ``init_decoding``, K5 and the eps step
+     frame plus eps_iters per ``init_decoding``, K5 and the eps step (inside
+     K2's eps calls)
      eps_iters times a frame and per ``init_decoding``, K4, K6 and the row
      gather never) and checked as phase 6 against the same reference;
      prints ms per frame;
@@ -184,10 +189,13 @@ lattice and 1-best frames at B=16 and the streaming decoders' at B=1,
 at its own cluster size and at 8, 4, 2 and 1 blocks a row, and times it
 at each.
 Phase 2 also holds K5, K2's eps call (incumbents first, on K5's lanes)
-and the eps step on the eps iterations of the unfolded lattice decode at
-frames 150 and 250 (each timed, K5 and the eps step with their bound
-and share; K5 held and timed at each cluster size), K5, K6 and the eps step on the streaming ``FasterDecoder``'s
-frame 60 and on its start closure (cutoff +inf), K5 and the eps step on
+and that call with the eps step as its last step (against K2's plain
+version then ``eps_step_plain``) on the eps iterations of the unfolded
+lattice decode at frames 150 and 250 (each timed, K5 and the fused call
+with their bound and share, the fused call beside the same call without
+the step; K5 held and timed at each cluster size), K5, K6 and K6 with the
+eps step on the streaming ``FasterDecoder``'s frame 60 and on its start
+closure (cutoff +inf), K5 and K2 with the eps step on
 the streaming ``LatticeFasterDecoder``'s frame 60, and K4
 with eps records on its first 500-frame chunk, against their plain
 versions, bitwise, and times them; K2's emitting and eps calls at the
@@ -205,6 +213,7 @@ times, bound and library-call time; the last is ``{"ok": true,
 """
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -539,20 +548,18 @@ def k5_work(lanes, states, costs, cutoff_rel, pg, fc):
 
 
 def eps_step_work(sel, carry):
-    """Bytes and operations of one eps step: the winning lanes (and, on
-    the 1-best path, the source slot and arc of each winning lane) or the
-    lattice frontier's lanes and costs and the records (with the spill
-    row), the per-row flags read; the iteration's backpointers or records
-    and the flags written; a compare a slot."""
-    import torch
-
+    """Bytes and operations of the eps step as the last step of its dedup
+    call: on the 1-best path the source slot and arc of each slot's
+    winning lane read, on the lattice path the spill row; the iteration's
+    backpointers or records and the row and batch flags written; a compare
+    a slot.  (The winning lanes and records it takes are the call's own,
+    in registers.)"""
     B, K = sel.states.shape
     if getattr(sel, "records", None) is not None:
-        r = carry.out.shape[2]
-        nbytes = B * K * 8 + B * (r + 1) * 16 + B * r * 16
+        nbytes = B * 16 + B * carry.out.shape[2] * 16
     else:
-        nbytes = B * K * 4 + int((sel.cand_idx >= 0).sum()) * 8 + B * K * 8
-    return nbytes + B * 12 + 12, B * K
+        nbytes = int((sel.cand_idx >= 0).sum()) * 8 + B * K * 8
+    return nbytes + B * 5 + 8, B * K
 
 
 def same_fields(ref, got, what, where):
@@ -617,34 +624,75 @@ def hold_k5(st, cutoff_rel, pg, fc, lattice, where, timed=False):
     return got, t
 
 
-def hold_eps_step(sel, lanes, iters, exact, where, timed=False):
-    """The eps step (iteration 0 of ``iters``, every row active) against
-    its plain version on one eps iteration's dedup result ``sel`` and K5's
-    ``lanes``, bitwise in every field of the carry; with ``timed`` also
-    timed.  Returns the time_kernel fields or None."""
+def hold_eps_step(lanes, args, iters, exact, where, timed=False):
+    """The eps dedup call on K5's ``lanes`` (``args``: the dedup call's
+    arguments, K6's ``(dst, cost, K, S)`` or K2's ``(dst, cost, K, S, R,
+    slack_beam, payload)`` with the K incumbents first), which runs the eps
+    step as its last step (iteration 0 of ``iters``, every row active),
+    against its plain composition (the dedup call's plain version, then
+    ``eps_step_plain``), bitwise in every field of the selection and of the
+    carry; with ``timed`` also timed, beside the same dedup call without
+    the step (``dedup_alone_ms``; ``step_ms`` the difference).  Returns the
+    time_kernel fields or None."""
     import torch
 
-    from kaldi_decoder_tpu_torch.kernels.eps import empty_eps_carry, eps_step, eps_step_plain
+    from kaldi_decoder_tpu_torch.kernels.dedup import dedup_select
+    from kaldi_decoder_tpu_torch.kernels.dedup_rec import (
+        LatticeSelection,
+        dedup_select_rec,
+        stack_records,
+    )
+    from kaldi_decoder_tpu_torch.kernels.eps import empty_eps_carry, eps_dedup, eps_step_plain
+    from kaldi_decoder_tpu_torch.ops.segment import dedup_select as dedup_select_plain
+    from kaldi_decoder_tpu_torch.ops.segment import dedup_select_rec as dedup_select_rec_plain
 
-    B, K = sel.states.shape
-    lattice = getattr(sel, "records", None) is not None
-    width = (sel.records.shape[1] - K) if lattice else K
-    dev = sel.states.device
-    carries = [empty_eps_carry(B, iters, width, lattice, dev) for _ in range(2)]
+    lattice = len(args) > 4
+    K, S = args[2], args[3]
+    B = lanes.dst.shape[0]
+    width = args[4] - K if lattice else K
+    dev = lanes.dst.device
+    ref_c, got_c = (empty_eps_carry(B, iters, width, lattice, dev) for _ in range(2))
     active = torch.ones((B,), dtype=torch.bool, device=dev)
-    args = (active, lanes.overflow, sel, exact, lanes)
-    eps_step_plain(0, carries[0], *args)
-    eps_step(0, carries[1], *args)
+
+    def plain(carry):
+        if lattice:
+            p = dedup_select_rec_plain(*args, num_incumbents=K)
+            sel = LatticeSelection(p.states, p.costs, p.num_unique, stack_records(p),
+                                   p.rec_overflow, p.cand_idx)
+        else:
+            sel = dedup_select_plain(*args)
+        eps_step_plain(0, carry, active, lanes.overflow, sel, exact, lanes)
+        return sel
+
+    def fused(carry, out=None):
+        return eps_dedup(0, carry, active, lanes, exact, K, S, args[5] if lattice else None,
+                         out=out)
+
+    ref = plain(ref_c)
+    got = fused(got_c)
     torch.cuda.synchronize()
-    ref, got = carries
-    ref.out[:, 1:] = got.out[:, 1:]  # rows of the iterations not run: unwritten in both
-    same_fields(ref, got, "the eps step", where)
+    same_fields(ref, got, "the eps dedup call", where)
+    ref_c.out[:, 1:] = got_c.out[:, 1:]  # rows of the iterations not run: unwritten in both
+    same_fields(ref_c, got_c, "the eps step inside the eps dedup call", where)
     if not timed:
         return None
-    log(f"eps step on {where} (B={B}, K={K}, {'records ' + str(width) if lattice else 'backpointers'}"
-        f", {int(got.changed.sum())} rows changed): equal to plain, bitwise; timed there:")
-    return time_kernel(f"eps step, {where}", lambda: eps_step(0, got, *args),
-                       lambda: eps_step_plain(0, ref, *args), eps_step_work(sel, got))
+    log(f"eps step inside the eps dedup call ({'K2' if lattice else 'K6'}) on {where} (B={B}, "
+        f"K={K}, {'records ' + str(width) if lattice else 'backpointers'}, "
+        f"{int(got_c.changed.sum())} rows changed): equal to the dedup call's plain version "
+        "then eps_step_plain, bitwise; timed there:")
+    dedup_work = (k2_work(*args, num_incumbents=K) if lattice else k6_work(args[1], K))
+    step_work = eps_step_work(got, got_c)
+    t = time_kernel(f"eps dedup call with the eps step, {where}", lambda: fused(got_c, got),
+                    lambda: plain(ref_c), (dedup_work[0] + step_work[0],
+                                           dedup_work[1] + step_work[1]))
+    alone = (lambda: dedup_select_rec(*args, num_incumbents=K, out=got)) if lattice else \
+        (lambda: dedup_select(*args, out=got))
+    t["dedup_alone_ms"] = device_ms(alone)
+    t["step_ms"] = t["ms"] - t["dedup_alone_ms"]
+    t["step_bound_ms"], _ = bound_ms(*step_work)
+    log(f"  the same dedup call without the step: {t['dedup_alone_ms']:.4f} ms; the step adds "
+        f"{t['step_ms']:.4f} ms (its own bound {t['step_bound_ms']:.5f} ms)")
+    return t
 
 
 def same_records(ref, got, where):
@@ -1136,9 +1184,10 @@ def check_emit_kernels(st, scores_t, pg, cfg, S, where):
 
 
 def check_eps_kernel(mid, next_cutoff, pg, cfg, S, where, timed=False):
-    """K5, then K6 on its lanes (incumbents first), then the eps step,
-    each held against its plain version on one eps iteration after a
-    frame's emitting stage (``timed``: K5 and the eps step timed there).
+    """K5, then K6 on its lanes (incumbents first), then K6 with the eps
+    step as its last step, each held against its plain version on one eps
+    iteration after a frame's emitting stage (``timed``: K5 and the fused
+    call timed there).
     Returns K6's error, its arguments, the slots won by eps lanes and K5's
     and the eps step's time_kernel fields (None untimed)."""
     import torch
@@ -1152,7 +1201,7 @@ def check_eps_kernel(mid, next_cutoff, pg, cfg, S, where, timed=False):
     got = dedup_select(*eps_args)
     torch.cuda.synchronize()
     err = same_selection(ref, got, f"the eps candidates of {where}")
-    step = hold_eps_step(got, lanes, cfg.eps_iters, cfg.eps_exact, where, timed)
+    step = hold_eps_step(lanes, eps_args, cfg.eps_iters, cfg.eps_exact, where, timed)
     return err, eps_args, int((got.cand_idx >= cfg.frontier_size).sum()), k5, step
 
 
@@ -1355,11 +1404,12 @@ def check_streaming_k2(ld, scores_tm):
         got = dedup_select_rec(*args, num_incumbents=inc)
         torch.cuda.synchronize()
         err = max(err, same_records(ref, got, f"{what} of {where}"))
-    step = hold_eps_step(got, lanes, fc.eps_iters, fc.eps_exact, where, timed=True)
+    step = hold_eps_step(lanes, eps_args, fc.eps_iters, fc.eps_exact, where, timed=True)
     log(f"K2 at the streaming lattice decoder's shapes (B=1, K={K}, em_records="
         f"{cfg.em_records}, eps_records={cfg.eps_records}; emitting N={ex.cost.shape[1]}, "
         f"eps N={cc.shape[1]}; clusters of {cluster_size(1, ex.cost.shape[1])} and "
-        f"{cluster_size(1, cc.shape[1])} blocks): equal to plain on {where}; timed there:")
+        f"{cluster_size(1, cc.shape[1], incumbents=True)} blocks): equal to plain on {where}; "
+        f"timed there:")
     timed = {}
     for key, args, inc in (("em", em_args, 0), ("eps", eps_args, K)):
         timed[key] = time_kernel(
@@ -1407,7 +1457,7 @@ def reset_counts():
     from kaldi_decoder_tpu_torch.kernels.cutoff import global_cutoff_local, global_cutoff_merge
     from kaldi_decoder_tpu_torch.kernels.dedup import dedup_select
     from kaldi_decoder_tpu_torch.kernels.dedup_rec import dedup_select_rec
-    from kaldi_decoder_tpu_torch.kernels.eps import eps_step, expand_eps_lanes
+    from kaldi_decoder_tpu_torch.kernels.eps import eps_dedup, eps_step_shard, expand_eps_lanes
     from kaldi_decoder_tpu_torch.kernels.expand import expand_filter
     from kaldi_decoder_tpu_torch.kernels.frame import frame_start, frame_tail
     from kaldi_decoder_tpu_torch.kernels.gather import row_gather
@@ -1416,8 +1466,8 @@ def reset_counts():
 
     torch.cuda.synchronize()
     for fn in (row_gather, expand_filter, dedup_select_rec, sweep_chunk, expand_eps_lanes,
-               dedup_select, eps_step, frame_tail, frame_start, route_send, route_recv,
-               global_cutoff_local, global_cutoff_merge):
+               dedup_select, eps_dedup, eps_step_shard, frame_tail, frame_start, route_send,
+               route_recv, global_cutoff_local, global_cutoff_merge):
         fn.launches = 0
     driver.replays = 0
 
@@ -1425,13 +1475,15 @@ def reset_counts():
 def read_counts():
     """The launch counts since :func:`reset_counts`: K3's frame tail (and
     its shard mode) as ``k3``, its first-frame mode as ``k3_start``, K5 as
-    ``k5``, the eps step (and its shard mode) as ``eps_step``, K7's send
-    and receive sides as ``k7_send`` and ``k7_recv``, K8's local half and
-    merge as ``k8_local`` and ``k8_merge``."""
+    ``k5``, the standalone eps step (its shard mode, the only one left) as
+    ``eps_step``, the eps steps run as the last step of an eps dedup call
+    (each also a K6 or K2 launch) as ``eps_dedup``, K7's send and receive
+    sides as ``k7_send`` and ``k7_recv``, K8's local half and merge as
+    ``k8_local`` and ``k8_merge``."""
     from kaldi_decoder_tpu_torch.kernels.cutoff import global_cutoff_local, global_cutoff_merge
     from kaldi_decoder_tpu_torch.kernels.dedup import dedup_select
     from kaldi_decoder_tpu_torch.kernels.dedup_rec import dedup_select_rec
-    from kaldi_decoder_tpu_torch.kernels.eps import eps_step, expand_eps_lanes
+    from kaldi_decoder_tpu_torch.kernels.eps import eps_dedup, eps_step_shard, expand_eps_lanes
     from kaldi_decoder_tpu_torch.kernels.expand import expand_filter
     from kaldi_decoder_tpu_torch.kernels.frame import frame_start, frame_tail
     from kaldi_decoder_tpu_torch.kernels.gather import row_gather
@@ -1441,7 +1493,8 @@ def read_counts():
     return dict(gather=row_gather.launches, k1=expand_filter.launches,
                 k2=dedup_select_rec.launches, k4=sweep_chunk.launches,
                 k5=expand_eps_lanes.launches, k6=dedup_select.launches,
-                eps_step=eps_step.launches, k3=frame_tail.launches,
+                eps_step=eps_step_shard.launches, eps_dedup=eps_dedup.launches,
+                k3=frame_tail.launches,
                 k3_start=frame_start.launches, k7_send=route_send.launches,
                 k7_recv=route_recv.launches, k8_local=global_cutoff_local.launches,
                 k8_merge=global_cutoff_merge.launches)
@@ -1449,8 +1502,9 @@ def read_counts():
 
 def launch_counts(**want):
     """A dict of launch counts as :func:`read_counts` gives them: ``want``,
-    K7's sides and K8's halves 0 unless given."""
-    return dict(dict(k7_send=0, k7_recv=0, k8_local=0, k8_merge=0), **want)
+    the eps steps inside a dedup call, K7's sides and K8's halves 0 unless
+    given."""
+    return dict(dict(eps_dedup=0, k7_send=0, k7_recv=0, k8_local=0, k8_merge=0), **want)
 
 
 def read_replays(what, frames):
@@ -1674,7 +1728,8 @@ def viterbi_path(vdec, scores, lengths, refs, vref):
     D = vdec.cfg.eps_iters
     if (n["gather"] != 0 or n["k1"] != frames or n["k2"] != 0
             or n["k6"] != frames * (1 + D) or n["k5"] != frames * D
-            or n["eps_step"] != frames * D or n["k3"] != frames or n["k3_start"] != 1):
+            or n["eps_step"] != 0 or n["eps_dedup"] != frames * D or n["k3"] != frames
+            or n["k3_start"] != 1):
         raise AssertionError(f"launch counts {n} for {frames} frames")
     replays = read_replays("Viterbi path", frames)
     t1 = time.perf_counter()
@@ -1743,18 +1798,22 @@ def streaming_path(fd, scores, vref):
     n = read_counts()
     utts = len(sref["utts"])
     want_k6 = frames * (1 + D) + utts * D
-    want_k5 = frames * D + utts * D  # and as many eps steps: each frame's and each start closure's
+    # As many eps steps as K5 launches (each frame's and each start
+    # closure's), each the last step of a K6 launch: none alone.
+    want_k5 = frames * D + utts * D
     if (n["gather"] != 0 or n["k1"] != frames or n["k2"] != 0 or n["k6"] != want_k6
-            or n["k5"] != want_k5 or n["eps_step"] != want_k5
+            or n["k5"] != want_k5 or n["eps_step"] != 0 or n["eps_dedup"] != want_k5
             or n["k3"] != frames or n["k3_start"] != calls):
-        raise AssertionError(f"launch counts {n}: want no gather, {frames} K1 and K3, {want_k6} "
-                             f"K6, {want_k5} K5 and eps steps, {calls} K3 first frames")
+        raise AssertionError(f"launch counts {n}: want no gather and no standalone eps step, "
+                             f"{frames} K1 and K3, {want_k6} K6, {want_k5} K5 and eps steps "
+                             f"inside K6, {calls} K3 first frames")
     replays = read_replays("streaming path", frames)
     log(f"streaming path: FasterDecoder, {utts} utterances, {frames} frames, "
         f"{FRAMES_PER_CALL} per advance_decoding, eps_iters={D}, K={fd._cfg.frontier_size}: "
         f"{1000 * t_dec / frames:.3f} ms per frame (init + advance, downloads included), "
         f"get_best_path {t_host:.3f} s; row gather launches {n['gather']}, K1 {n['k1']}, "
-        f"K6 {n['k6']}, K5 {n['k5']}, eps step {n['eps_step']}, K3 {n['k3']} (first-frame "
+        f"K6 {n['k6']}, K5 {n['k5']}, eps steps {n['eps_dedup']} inside K6 and "
+        f"{n['eps_step']} alone, K3 {n['k3']} (first-frame "
         f"mode {n['k3_start']}), {replays} frames replayed from the captured graph; matches "
         "the JAX reference")
     return n, 1000 * t_dec / frames
@@ -1773,7 +1832,8 @@ def check_k2_eps(udec, scores_tm):
     """K2's eps call (the K incumbents first) against its plain version on
     the eps iteration of the unfolded lattice decode at each of
     ``K2_EPS_FRAMES``, then timed there; K5, whose lanes it takes, and the
-    eps step after it, held against their plain versions and timed on the
+    eps call with the eps step as its last step, held against their plain
+    versions and timed on the
     same iterations.  Returns the largest cost difference, K2's timings by
     frame and K5's and the eps step's by frame."""
     import torch
@@ -1807,7 +1867,7 @@ def check_k2_eps(udec, scores_tm):
             got = dedup_select_rec(*args, num_incumbents=K)
             torch.cuda.synchronize()
             max_err = max(max_err, same_records(ref, got, f"the eps lanes of unfolded frame {t}"))
-            step = hold_eps_step(got, lanes, fc.eps_iters, fc.eps_exact, where, timed=True)
+            step = hold_eps_step(lanes, args, fc.eps_iters, fc.eps_exact, where, timed=True)
             eps_kernels[t] = dict(k5=k5, eps_step=step)
             won.append(int((ref.cand_idx >= K).sum()))
             calls.append((t, args))
@@ -1815,7 +1875,7 @@ def check_k2_eps(udec, scores_tm):
     N = calls[0][1][1].shape[1]
     log(f"K2 dedup_select_rec, eps call (B={B}, N={N}, K={K}, R={K + cfg.eps_records}, "
         f"{K} incumbents; slots won by eps lanes {won}; clusters of "
-        f"{cluster_size(B, N)} blocks): equal to plain on unfolded "
+        f"{cluster_size(B, N, incumbents=True)} blocks): equal to plain on unfolded "
         f"frames {list(K2_EPS_FRAMES)}; timed there:")
     timed = {}
     for t, args in calls:
@@ -1966,8 +2026,8 @@ def lattice_eps_path(udec, scores, lengths, refs, lref):
         raise AssertionError("the device sweep overflowed and the decode fell back")
     frames = res.num_active.shape[0]
     want_n = launch_counts(gather=0, k1=frames, k2=frames * (1 + D) + D,
-                           k4=len(res.survivors), k5=frames * D + D, k6=0,
-                           eps_step=frames * D + D, k3=frames, k3_start=len(res.survivors))
+                           k4=len(res.survivors), k5=frames * D + D, k6=0, eps_step=0,
+                           eps_dedup=frames * D + D, k3=frames, k3_start=len(res.survivors))
     if n != want_n:
         raise AssertionError(f"launch counts {n}, want {want_n}")
     replays = read_replays("lattice path without folding", frames)
@@ -2052,8 +2112,8 @@ def streaming_lattice_path(graph, scores, lref, device="cuda"):
         n = read_counts()
         utts = len(part["utts"])
         want_n = launch_counts(gather=0, k1=frames, k2=frames * (1 + D) + utts * D, k4=0,
-                               k5=frames * D + utts * D, k6=0, eps_step=frames * D + utts * D,
-                               k3=frames, k3_start=calls)
+                               k5=frames * D + utts * D, k6=0, eps_step=0,
+                               eps_dedup=frames * D + utts * D, k3=frames, k3_start=calls)
         if n != want_n:
             raise AssertionError(f"{kind} lattice: launch counts {n}, want {want_n}")
         replays = read_replays(f"{kind} lattice", frames)
@@ -2195,9 +2255,9 @@ def graph_file_path(graph, scores, vref, lref, tmp):
         n = read_counts()
         k2 = frames * (1 + D) + len(utts) * D if kind == "lattice" else 0
         k6 = frames * (1 + D) + len(utts) * D if kind == "faster" else 0
-        k5 = frames * D + len(utts) * D  # both decoders; as many eps steps
-        want_n = launch_counts(gather=0, k1=frames, k2=k2, k4=0, k5=k5, k6=k6, eps_step=k5,
-                               k3=frames, k3_start=len(utts))
+        k5 = frames * D + len(utts) * D  # both decoders; as many eps steps inside K2 or K6
+        want_n = launch_counts(gather=0, k1=frames, k2=k2, k4=0, k5=k5, k6=k6, eps_step=0,
+                               eps_dedup=k5, k3=frames, k3_start=len(utts))
         if n != want_n:
             raise AssertionError(f"cli {kind}: launch counts {n}, want {want_n}")
         read_replays(f"cli {kind}", frames)
@@ -2434,11 +2494,12 @@ def main_path(dec, scores, lengths, refs, ref):
     frames = res.num_active.shape[0]
     chunks = len(res.survivors)
     if (gat or k1 != frames or k2 != frames or k4 != chunks or n["k6"] or n["k3"] != frames
-            or n["k3_start"] != chunks or n["k5"] or n["eps_step"]):
+            or n["k3_start"] != chunks or n["k5"] or n["eps_step"] or n["eps_dedup"]):
         raise AssertionError(
             f"launch counts gather={gat} (want 0), K1={k1}, K2={k2}, K3={n['k3']} (want "
             f"{frames} each), K4={k4}, K3's first-frame mode {n['k3_start']} (want {chunks} "
-            f"each), K6={n['k6']}, K5={n['k5']}, eps step {n['eps_step']} (want 0 each)"
+            f"each), K6={n['k6']}, K5={n['k5']}, eps step {n['eps_step']} alone and "
+            f"{n['eps_dedup']} inside a dedup call (want 0 each)"
         )
     replays = read_replays("main path", frames)
     t1 = time.perf_counter()
@@ -2649,13 +2710,24 @@ def k8_local_work(costs, m):
     return B * K * 4 + B * m * 4 + B * 8, B * K
 
 
-def k8_merge_work(best, merged):
-    """Bytes and operations of K8's merge: the reduced best costs and
-    counts and the gathered prefixes read, the cutoff and adaptive beam
-    written; a compare a merged cost (the early return: an add a row)."""
+def k8_merge_work(best, count, merged, beam, beam_delta, max_active, min_active):
+    """Bytes and operations of K8's merge (its wrapper's arguments), as
+    the function needs them: a row's best cost and count read and its
+    cutoff and adaptive beam written (the early return: no count), and,
+    for each order statistic that GetCutoff's branch reads on this call's
+    counts (max_active's where the count passes it, min_active's where it
+    passes that and min_active is not 0), the keys that finding one
+    order statistic of P sorted prefixes of m must read: 1 at P = 1
+    (rank = position), P * ceil(log2 m) past it; a compare a key (the
+    early return: an add a row)."""
     B = best.shape[0]
-    n = merged.numel() if merged is not None else 0
-    return n * 4 + B * 16, max(n, B)
+    if merged is None:
+        return B * 12, B
+    P, _, m = merged.shape
+    c = count.cpu()
+    targets = int((c > max_active).sum()) + (int((c > min_active).sum()) if min_active else 0)
+    keys = targets * (1 if P == 1 else P * max(1, math.ceil(math.log2(m))))
+    return B * 16 + keys * 4, max(keys, B)
 
 
 def hold_shard_route(kept, eps_iters, tag):
@@ -2793,7 +2865,7 @@ def hold_shard_route(kept, eps_iters, tag):
     times["k8_merge"] = time_kernel(
         f"K8 merge at {where} (B={best.shape[0]}, {shape}, max_active {args[5]}, "
         f"min_active {args[6]})", lambda: global_cutoff_merge(*args, out=out),
-        lambda: global_cutoff_merge_plain(*args), k8_merge_work(best, merged))
+        lambda: global_cutoff_merge_plain(*args), k8_merge_work(*args))
     errs["k8_local"] = errs["k8_merge"] = 0.0
     return errs, times
 
@@ -3462,6 +3534,8 @@ def main():
         "k5": {"lattice": n3["k5"], "viterbi": vn["k5"], "streaming": sn["k5"]},
         "eps_step": {"lattice": n3["eps_step"], "viterbi": vn["eps_step"],
                      "streaming": sn["eps_step"]},
+        "eps_dedup": {"lattice": n3["eps_dedup"], "viterbi": vn["eps_dedup"],
+                      "streaming": sn["eps_dedup"]},
         **{k: {"lattice": n3[k], "viterbi": vn[k], "streaming": sn[k]}
            for k in ("k7_send", "k7_recv", "k8_local", "k8_merge")},
     }
@@ -3574,13 +3648,20 @@ def main():
                  for f in ("ms", "plain_ms", "bound_ms", "bound_by", "share_of_bound",
                            "wrapper_ms", "plain_wrapper_ms")},
               **shard_times("k5", "shard_viterbi"), **shard_times("k5", "shard_lattice")),
-        entry("eps step (an eps iteration's closing step after the dedup call: backpointers or "
-              "records, changed, the running overflow and saturation, ran and the batch's go)",
-              "eps.cu", "kaldi_decoder_tpu/decoders/frontier.py:530", "eps_step",
+        entry("eps step (an eps iteration's closing step, the last step of its dedup call, "
+              "K6 or K2's eps call: backpointers or records, changed, the running overflow and "
+              "saturation, ran and the batch's go; timed as the whole call, dedup_alone_ms the "
+              "same call without it, step_ms the difference)",
+              "eps_step.cuh", "kaldi_decoder_tpu/decoders/frontier.py:530", "eps_dedup",
               eps_by_frame[K2_EPS_FRAMES[0]]["eps_step"], 0.0, frame=K2_EPS_FRAMES[0],
+              standalone_launches_by_path={p: n for p, n in by_path["eps_step"].items()
+                                           if p not in shard_phases},
+              **{f: eps_by_frame[K2_EPS_FRAMES[0]]["eps_step"][f]
+                 for f in ("dedup_alone_ms", "step_ms", "step_bound_ms")},
               **{f"{f}_{key}": t[f] for key, t in eps_timed("eps_step").items()
                  for f in ("ms", "plain_ms", "bound_ms", "bound_by", "share_of_bound",
-                           "wrapper_ms", "plain_wrapper_ms")}),
+                           "wrapper_ms", "plain_wrapper_ms", "dedup_alone_ms", "step_ms",
+                           "step_bound_ms")}),
         shard_entry("K7 route_send (the shard route's send side: the beam filter and payload "
                     "offsets, the stable (owner, state, cost) order, the local dedup or slack "
                     "keep, the within-owner places, the (P, B, cap, 4) send buffer, overflow; "

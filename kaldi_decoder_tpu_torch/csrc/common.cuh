@@ -228,10 +228,10 @@ template <typename Smem, typename... KArgs>
 int pick_cluster(void (*kernel)(KArgs...), int B, int threads, long shape, Smem smem,
                  int most = 8) {
   static std::mutex mu;
-  static std::map<std::tuple<int, int, long>, int> picked;
+  static std::map<std::tuple<const void*, int, int, long>, int> picked;
   int dev = 0;
   if (cudaGetDevice(&dev) != cudaSuccess) return 0;
-  const auto key = std::make_tuple(dev, B, shape);
+  const auto key = std::make_tuple(reinterpret_cast<const void*>(kernel), dev, B, shape);
   std::lock_guard<std::mutex> hold(mu);
   const auto it = picked.find(key);
   if (it != picked.end()) return it->second;

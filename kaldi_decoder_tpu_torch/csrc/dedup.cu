@@ -83,11 +83,17 @@
 //     per device and stream, filled once (kernels/dedup.py).
 // Lanes with +inf (or NaN) cost never touch the table, so their dst may
 // be anything.  N may be smaller than K, and than S.
+//
+// The eps call's instance (STEP) also runs the eps step (eps_step.cuh) as
+// its last step: each slot's backpointer where the slot is written, then
+// the row's flags after one more cluster barrier.  The emitting calls and
+// the sharded closure's eps calls launch the instance without it.
 
 #include <cooperative_groups.h>
 
 #include "common.cuh"
 #include "dedup_core.cuh"
+#include "eps_step.cuh"
 #include "select_core.cuh"
 
 namespace {
@@ -95,18 +101,20 @@ namespace {
 namespace cg = cooperative_groups;
 namespace sel = kdtorch::select;
 namespace dd = kdtorch::dedup;
+namespace ep = kdtorch::eps;
 
 constexpr int THREADS = 512;
 constexpr int VCACHE = 2048;  // finite lanes a block keeps in shared memory
 constexpr int CACHE = 2048;   // winners a block keeps in shared memory
 constexpr size_t SMEM = (size_t)(VCACHE + CACHE) * (sizeof(unsigned long long) + sizeof(int));
 
+template <bool STEP>
 __global__ void __launch_bounds__(THREADS, 2) dedup_kernel(
     const int* __restrict__ dst, const float* __restrict__ cost, int N, int S, int K,
     unsigned long long* __restrict__ table, unsigned long long* __restrict__ keys0,
     int* __restrict__ vals0, unsigned long long* __restrict__ keys1, int* __restrict__ vals1,
     int* __restrict__ out_states, float* __restrict__ out_costs, int* __restrict__ out_idx,
-    int* __restrict__ num_unique) {
+    int* __restrict__ num_unique, const ep::Step step) {
   // The block's finite lanes (cost bits << 32 | state, lane) and its
   // winners (key, lane), each in shared memory up to its cache and past it
   // in the block's region of a scratch buffer.
@@ -127,11 +135,18 @@ __global__ void __launch_bounds__(THREADS, 2) dedup_kernel(
   const dd::List fin{smem_k, smem_v, VCACHE, keys1 + spill, vals1 + spill};
   const dd::List win{smem_k + VCACHE, smem_v + VCACHE, CACHE, keys0 + spill, vals0 + spill};
 
+  // The eps step's: `ran`, read before anything is written; the block's
+  // `changed`; the cluster's, in rank 0's parts.
+  __shared__ int s_any[2], s_parts[ep::MAX_CLUSTER];
+  const bool ran = STEP ? ep::read_ran(step) : true;
+  if (STEP && tid == 0) s_any[0] = s_any[1] = 0;  // before the core's first barrier
+
   const long out0 = (long)b * K;
   auto emit = [&](int r, unsigned long long key, int lane) {
     out_states[out0 + r] = (int)(key & 0xffffffffull);
     out_costs[out0 + r] = kdtorch::from_ordered_key((unsigned)(key >> 32));
     out_idx[out0 + r] = lane;
+    if constexpr (STEP) ep::backpointer(step, b, K, N, r, lane, ran, s_any);
   };
   // Both caches are free once the winners are scattered: the core's stage.
   const int n = dd::frontier<THREADS, false>(sh, cluster, ls, dst, cost, row, N, S, K,
@@ -143,18 +158,24 @@ __global__ void __launch_bounds__(THREADS, 2) dedup_kernel(
     out_states[out0 + r] = 0;
     out_costs[out0 + r] = INFINITY;
     out_idx[out0 + r] = -1;
+    if constexpr (STEP) ep::empty_slot(step, b, K, r, ran);
   }
   if (rank == 0 && tid == 0) num_unique[b] = n;
+  if constexpr (STEP) {
+    ep::finish(step, cluster, b, (int)(gridDim.x / C), ran, s_any, s_parts, n > K, false);
+  }
   sel::mark_step(11, false, true);
 }
 
 }  // namespace
 
-// The cluster size K6 launches with for B utterances of N lanes
+// The cluster size K6 launches with for B utterances of N lanes, with the
+// eps step (`step` nonzero: the STEP instance) or without
 // (kdtorch::pick_cluster, at most dd::cluster_cap(N)); 0 when none fits.
-extern "C" int kd_dedup_cluster(int B, int N) {
+extern "C" int kd_dedup_cluster(int B, int N, int step) {
   const int most = dd::cluster_cap(N);
-  return kdtorch::pick_cluster(dedup_kernel, B, THREADS, most, [](int) { return SMEM; }, most);
+  return kdtorch::pick_cluster(step ? dedup_kernel<true> : dedup_kernel<false>, B, THREADS,
+                               most, [](int) { return SMEM; }, most);
 }
 
 // The last K6 launch's step marks (sel::read_marks; the steps are
@@ -167,17 +188,24 @@ extern "C" int kd_dedup_marks(unsigned long long* ns, long long* clock, int* clo
 // Launches K6 on `stream`.  Shapes: dst/cost (B, N); table (B, S) 64-bit
 // words, all ones on entry and restored on return; scratch keys0/keys1
 // (B, N + 256) 64-bit and vals0/vals1 (B, N + 256); outputs states/costs/cand_idx
-// (B, K), num_unique (B,).  Returns the launch's CUDA error (0 on
+// (B, K), num_unique (B,).  `step`: null, or a host pointer to the eps
+// step of an eps iteration (kdtorch::eps::Step; its src_slot/arc_id are
+// the (B, N) lanes' and its out (B, D, K, 2) int32), which the STEP
+// instance runs as its last step.  Returns the launch's CUDA error (0 on
 // success).
 extern "C" int kd_dedup(const void* dst, const void* cost, int B, int N, int S, int K,
                         void* table, void* keys0, void* vals0, void* keys1, void* vals1,
                         void* states, void* costs, void* cand_idx, void* num_unique,
-                        void* stream) {
-  const int C = kd_dedup_cluster(B, N);
+                        const void* step, void* stream) {
+  const ep::Step st = ep::step_of(step);
+  if (st.on() && (B > ep::MAX_ROWS || st.width != K || st.d < 0 || st.d >= st.D))
+    return (int)cudaErrorInvalidValue;
+  const int C = kd_dedup_cluster(B, N, st.on());
   if (C == 0) return (int)cudaErrorInvalidConfiguration;
   return (int)kdtorch::launch_cluster(
-      dedup_kernel, B * C, C, THREADS, SMEM, static_cast<cudaStream_t>(stream),
-      (const int*)dst, (const float*)cost, N, S, K, (unsigned long long*)table,
-      (unsigned long long*)keys0, (int*)vals0, (unsigned long long*)keys1, (int*)vals1,
-      (int*)states, (float*)costs, (int*)cand_idx, (int*)num_unique);
+      st.on() ? dedup_kernel<true> : dedup_kernel<false>, B * C, C, THREADS, SMEM,
+      static_cast<cudaStream_t>(stream), (const int*)dst, (const float*)cost, N, S, K,
+      (unsigned long long*)table, (unsigned long long*)keys0, (int*)vals0,
+      (unsigned long long*)keys1, (int*)vals1, (int*)states, (float*)costs, (int*)cand_idx,
+      (int*)num_unique, st);
 }

@@ -42,7 +42,12 @@
 //   slot against an equal-cost eps lane) but are never records: the
 //   record pass skips them, and with R <= K a slot an incumbent won is a
 //   padding row.  It also writes each slot's winning lane (cand_idx, -1 on
-//   an empty slot), which the caller's "changed" test reads.
+//   an empty slot).  On an unsharded eps iteration its STEP instance runs
+//   the eps step (eps_step.cuh) as its last step: `changed` from each slot
+//   it emits, each record row it writes copied into the iteration's row
+//   (the block that writes row r_eps notes the spill), and after one more
+//   cluster barrier the row's flags.  The sharded eps calls launch the
+//   instance without it, whose registers the step would crowd.
 //
 // The record key.  A record's order is (class, slack, state, cost, lane),
 // wider than 64 bits.  The key is (class, slack, state): a winner's is its
@@ -120,6 +125,7 @@
 
 #include "common.cuh"
 #include "dedup_core.cuh"
+#include "eps_step.cuh"
 #include "select_core.cuh"
 
 namespace {
@@ -127,6 +133,7 @@ namespace {
 namespace cg = cooperative_groups;
 namespace sel = kdtorch::select;
 namespace dd = kdtorch::dedup;
+namespace ep = kdtorch::eps;
 
 constexpr int THREADS = 512;
 constexpr int VCACHE = 2048;  // finite lanes a block keeps in shared memory
@@ -182,7 +189,7 @@ struct RecTie {
   }
 };
 
-template <bool INCUMBENTS>
+template <bool INCUMBENTS, bool STEP>
 __global__ void __launch_bounds__(THREADS, 1) dedup_rec_kernel(
     const int* __restrict__ dst, const float* __restrict__ cost, const int* __restrict__ pay0,
     const int* __restrict__ pay1, int N, int S, int K, int R, float slack_beam,
@@ -192,7 +199,7 @@ __global__ void __launch_bounds__(THREADS, 1) dedup_rec_kernel(
     unsigned long long* __restrict__ keys_fin, int* __restrict__ vals_fin,
     unsigned long long* __restrict__ keys_win, int* __restrict__ vals_win,
     int* __restrict__ out_states, float* __restrict__ out_costs, int* __restrict__ num_unique,
-    int* __restrict__ rec, unsigned char* __restrict__ rec_overflow) {
+    int* __restrict__ rec, unsigned char* __restrict__ rec_overflow, const ep::Step step) {
   // Three lists, each (key, lane) in shared memory up to its cache and past
   // it in the block's region of a scratch buffer: the finite lanes (cost
   // bits << 32 | state), the winners (total-order cost << 32 | state), the
@@ -236,6 +243,13 @@ __global__ void __launch_bounds__(THREADS, 1) dedup_rec_kernel(
   unsigned long long* const tab = table + (long)b * S;
   const long out0 = (long)b * K;
   const bool winners_only = R <= K;
+  // The eps step's (the STEP instance, an eps call): `ran`, read before
+  // anything is written; the block's `changed` and spill flags; the
+  // cluster's, in rank 0's parts.
+  static_assert(INCUMBENTS || !STEP, "the eps step follows an eps call");
+  __shared__ int s_any[2], s_parts[ep::MAX_CLUSTER];
+  const bool ran = STEP ? ep::read_ran(step) : true;
+  if (STEP && tid == 0) s_any[0] = s_any[1] = 0;  // before the core's first barrier
   // This block's winners restore their table words, once every lane of
   // the cluster has read the table.
   auto restore_table = [&]() {
@@ -243,16 +257,21 @@ __global__ void __launch_bounds__(THREADS, 1) dedup_rec_kernel(
     for (int e = tid; e < nwin; e += THREADS) tab[(unsigned)win.key(e)] = dd::EMPTY;
   };
   auto put_rec = [&](int r, int p0, int p1, int d, unsigned slack_bits) {
-    *reinterpret_cast<int4*>(rec + ((long)b * R + r) * 4) =
-        make_int4(p0, p1, d, (int)slack_bits);
+    const int4 v = make_int4(p0, p1, d, (int)slack_bits);
+    *reinterpret_cast<int4*>(rec + ((long)b * R + r) * 4) = v;
+    if constexpr (STEP) ep::record(step, b, r, v, ran, s_any);
   };
 
   // 1-3. The frontier; with R <= K its first R slots are the records.
   auto emit = [&](int r, unsigned long long key, int lane) {
     const int d = (int)(key & 0xffffffffull);
+    const float c = kdtorch::from_ordered_key((unsigned)(key >> 32));
     out_states[out0 + r] = d;
-    out_costs[out0 + r] = kdtorch::from_ordered_key((unsigned)(key >> 32));
-    if constexpr (INCUMBENTS) out_cand_idx[out0 + r] = lane;
+    out_costs[out0 + r] = c;
+    if constexpr (INCUMBENTS) {
+      out_cand_idx[out0 + r] = lane;
+      if (STEP && lane >= K && isfinite(c)) s_any[0] = 1;  // won by an eps lane
+    }
     if (winners_only && r < R) {
       if (INCUMBENTS && lane < num_incumbents) {
         put_rec(r, -1, -1, -1, INF_BITS);
@@ -427,17 +446,31 @@ __global__ void __launch_bounds__(THREADS, 1) dedup_rec_kernel(
   for (int r = taken + rank * THREADS + tid; r < R; r += C * THREADS) put_rec(r, -1, -1, -1, INF_BITS);
   if (rank == 0 && tid == 0) rec_overflow[b] = eligible > R;
   if (winners_only) restore_table();  // the frontier select's first barrier is passed
+  if constexpr (STEP) {
+    ep::finish(step, cluster, b, (int)(gridDim.x / C), ran, s_any, s_parts, n > K,
+               eligible > R);
+  }
   sel::mark_step(23, false, true);
+}
+
+// The instance of K2 a call launches: with incumbents (the eps call) or
+// without; with incumbents, with the eps step as its last step or
+// without.
+decltype(&dedup_rec_kernel<false, false>) rec_instance(bool incumbents, bool step) {
+  return !incumbents ? dedup_rec_kernel<false, false>
+         : step      ? dedup_rec_kernel<true, true>
+                     : dedup_rec_kernel<true, false>;
 }
 
 }  // namespace
 
-// The cluster size K2 launches with for B utterances of N lanes: K6's
-// rule (dedup.cu:kd_dedup_cluster) with K2's shared memory; 0 when none
-// fits.
-extern "C" int kd_dedup_rec_cluster(int B, int N) {
+// The cluster size K2 launches with for B utterances of N lanes, in the
+// instance that `incumbents` and `step` (nonzero: the eps call, and with
+// it the eps step) pick: K6's rule (dedup.cu:kd_dedup_cluster) with K2's
+// shared memory; 0 when none fits.
+extern "C" int kd_dedup_rec_cluster(int B, int N, int incumbents, int step) {
   const int most = dd::cluster_cap(N);
-  return kdtorch::pick_cluster(dedup_rec_kernel<false>, B, THREADS, most,
+  return kdtorch::pick_cluster(rec_instance(incumbents, step), B, THREADS, most,
                                [](int) { return SMEM; }, most);
 }
 
@@ -455,24 +488,31 @@ extern "C" int kd_dedup_rec_marks(unsigned long long* ns, long long* clock, int*
 // rec (B, R, 4) int32, rec_overflow (B,) bool.  num_incumbents > 0 (the
 // eps call: the first lanes are carried tokens, not links) launches the
 // INCUMBENTS instance, which also writes cand_idx (B, K) int32; with 0,
-// cand_idx is not touched and may be null.  Returns the launch's CUDA
-// error (0 on success).
+// cand_idx is not touched and may be null.  `step`: null, or (with
+// num_incumbents == K) a host pointer to the eps step of an eps iteration
+// (kdtorch::eps::Step; width r_eps < R, out (B, D, r_eps, 4) int32), which
+// the INCUMBENTS instance then runs as its last step.  Returns the
+// launch's CUDA error (0 on success).
 extern "C" int kd_dedup_rec(const void* dst, const void* cost, const void* pay0,
                             const void* pay1, int B, int N, int S, int K, int R, float slack_beam,
                             int num_incumbents, void* table, void* keys0, void* vals0,
                             void* keys1, void* vals1, void* keys_fin, void* vals_fin,
                             void* keys_win, void* vals_win, void* states, void* costs,
                             void* num_unique, void* rec, void* rec_overflow, void* cand_idx,
-                            void* stream) {
-  const int C = kd_dedup_rec_cluster(B, N);
+                            const void* step, void* stream) {
+  const ep::Step st = ep::step_of(step);
+  if (st.on() && (num_incumbents != K || B > ep::MAX_ROWS || st.width < 1 || st.width >= R ||
+                  st.d < 0 || st.d >= st.D))
+    return (int)cudaErrorInvalidValue;
+  const int C = kd_dedup_rec_cluster(B, N, num_incumbents != 0, st.on());
   if (C == 0) return (int)cudaErrorInvalidConfiguration;
   return (int)kdtorch::launch_cluster(
-      num_incumbents > 0 ? dedup_rec_kernel<true> : dedup_rec_kernel<false>, B * C, C, THREADS,
-      SMEM, static_cast<cudaStream_t>(stream),
+      rec_instance(num_incumbents != 0, st.on()), B * C, C, THREADS, SMEM,
+      static_cast<cudaStream_t>(stream),
       (const int*)dst, (const float*)cost, (const int*)pay0, (const int*)pay1, N, S, K, R,
       slack_beam, num_incumbents, (int*)cand_idx, (unsigned long long*)table,
       (unsigned long long*)keys0, (int*)vals0,
       (unsigned long long*)keys1, (int*)vals1, (unsigned long long*)keys_fin, (int*)vals_fin,
       (unsigned long long*)keys_win, (int*)vals_win, (int*)states, (float*)costs,
-      (int*)num_unique, (int*)rec, (unsigned char*)rec_overflow);
+      (int*)num_unique, (int*)rec, (unsigned char*)rec_overflow, st);
 }

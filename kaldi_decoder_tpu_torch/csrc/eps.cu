@@ -1,32 +1,23 @@
-// K5: the eps iteration's candidate lanes; and the eps step, its closing
-// step after the dedup call.
+// K5: the eps iteration's candidate lanes; and the eps step's shard mode.
 //
 // Replaces the XLA-compiled region of one eps relaxation that the JAX
-// package runs inside its frame (kaldi_decoder_tpu/decoders/frontier.py
-// eps_iteration and its eps_closure_batched loop body; lattice_dev.py
-// eps_iteration_rec and eps_closure_rec_batched), around the dedup call
-// (K6 on the 1-best paths, K2's eps call on the lattice paths), which is
-// a kernel of its own:
+// package runs inside its frame before the dedup call (kaldi_decoder_tpu/
+// decoders/frontier.py eps_iteration and its eps_closure_batched loop
+// body; lattice_dev.py eps_iteration_rec and eps_closure_rec_batched):
 //   - K5 (kd_expand_eps): frontier.py:366 expand_eps with _owner_of_lanes
 //     and the candidate assembly of eps_iteration / eps_iteration_rec: the
 //     active slots (finite cost <= cutoff), optionally the K incumbents
 //     first as lanes (state, cost, slot, -1, -1), then K*We block lanes,
 //     then R remainder lanes of one arc each through the owner map, each
-//     lane's cost (alpha + w) set to +inf above the cutoff;
-//   - the eps step (kd_eps_step): the rest of the iteration and of the
-//     closure's loop body.  1-best: each slot's (source slot, arc)
-//     backpointer from its winning lane, `changed`, `saturated`, the
-//     backpointers into iteration d's row (identity once the batch has
-//     stopped).  Lattice: the spill row past r_eps, `changed` (a slot won
-//     by an eps lane), the records into iteration d's row (-1 once
-//     stopped).  Both: the running overflow and saturation of the active
-//     rows, the batch-wide `go`, `ran &= go`, and at the last iteration of
-//     a cyclic eps budget the overflow of every active row when some
-//     active row still changed.
-// Their plain versions are kaldi_decoder_tpu_torch/kernels/eps.py
-// expand_eps_lanes_plain and eps_step_plain.  A float is only added
-// (alpha + w, round to nearest, no contraction), compared or copied, so
-// every output is bitwise equal to plain.
+//     lane's cost (alpha + w) set to +inf above the cutoff.
+// The rest of the iteration, the eps step, runs as the last step of the
+// dedup call that follows (K6 on the 1-best paths, K2's eps call on the
+// lattice paths; eps_step.cuh); the sharded closure's step is a mode of
+// its own, at the end of this file.  Their plain versions are
+// kaldi_decoder_tpu_torch/kernels/eps.py expand_eps_lanes_plain and
+// eps_step_shard_plain.  A float is only added (alpha + w, round to
+// nearest, no contraction), compared or copied, so every output is
+// bitwise equal to plain.
 //
 // What bounds them: bytes, and before that the latency of dependent
 // loads.  K5 at the unfolded lattice frame (B=16, K 4096, We 1, R 2048,
@@ -35,9 +26,6 @@
 // writes four int32/float columns of 10,240 lanes: about 2.8 MB, 0.0008
 // ms at 3.35 TB/s.  A lane is a chain (its slot's state, then the row's
 // arc; or the owner's place, then the eps_flat arc), so expect a few µs.
-// The eps step reads the K winning lanes (and on the 1-best path their
-// source slots and arcs) or the records, and writes one iteration's row
-// of backpointers (K int2) or records (r_eps int4): under 1 MB at B=16.
 //
 // K5's design: one cluster of C blocks a row (C = 8, 4, 2 or 1: the
 // largest whose B clusters all run at once with at least MIN_LANES lanes a
@@ -87,18 +75,6 @@
 // writes.  Measured (PERF.md, scripts/profile_torch_k5_steps.py): a
 // cluster barrier costs some 0.5 µs on the H100 and a release before it
 // as much; the two dependent loads take half a block's time at B = 1.
-//
-// The eps step's design: one block of STEP_THREADS a row.  The 1-best
-// instance loads UNROLL winning lanes a thread, then their source slots
-// and arcs, then writes the backpointers; the lattice instance checks
-// the K slots and copies r_eps records as int4.  `changed` is a block
-// OR.  The closure's state lives in device memory (flags: `ran`, the
-// batch's `go` accumulator and a count of blocks done), so the step
-// replays in a captured frame: every block reads `ran` first; a block
-// whose row is active and changed ORs into the accumulator; each counts
-// itself done with an atomic after a fence, and the last one
-// writes `ran &= go`, the last iteration's budget flags, and clears the
-// accumulator and the count.
 
 #include <cooperative_groups.h>
 
@@ -475,114 +451,6 @@ __global__ void __launch_bounds__(THREADS, 2) expand_eps_kernel(
   K5_MARK(8);
 }
 
-// ---- The eps step -----------------------------------------------------------
-
-constexpr int STEP_THREADS = 512;
-constexpr int STEP_UNROLL = 4;
-
-// The closure's state in device memory (kernels/eps.py EpsCarry.flags).
-struct Flags {
-  int ran;            // the closure has not stopped before this iteration
-  int go;             // OR of the active rows' `changed`, this iteration
-  unsigned done;      // blocks done with this iteration
-};
-
-struct StepArgs {
-  int B, K, N, D, d, exact, R_rec, r_eps;
-  const int* cand_idx;              // (B, K) the dedup call's winning lane per slot
-  const int* num_unique;            // (B,)
-  const float* sel_costs;           // (B, K) the dedup call's frontier costs (lattice)
-  const unsigned char* exp_ovf;     // (B,) K5's overflow
-  const unsigned char* rec_ovf;     // (B,) K2's record overflow (lattice)
-  const int4* records;              // (B, R_rec) K2's records (lattice)
-  const int* src_slot;              // (B, N) K5's lanes (1-best)
-  const int* arc_id;                // (B, N)
-  const unsigned char* row_active;  // (B,)
-  Flags* flags;
-  unsigned char* ovf;               // (B,) running overflow
-  unsigned char* sat;               // (B,) running saturation
-  unsigned char* changed;           // (B,) this iteration's
-  void* out;                        // (B, D, K) int2 backpointers or (B, D, r_eps) int4 records
-};
-
-template <bool LATTICE>
-__global__ void __launch_bounds__(STEP_THREADS) eps_step_kernel(StepArgs a) {
-  __shared__ int s_ran;
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  if (tid == 0) s_ran = a.d == 0 ? 1 : __ldcg(&a.flags->ran);
-  __syncthreads();
-  const bool ran = s_ran != 0;
-  const int K = a.K;
-  const size_t row = (size_t)b * K;
-  bool changed = false;
-  if (LATTICE) {
-    for (int k = tid; k < K; k += STEP_THREADS)
-      changed |= a.cand_idx[row + k] >= K && isfinite(a.sel_costs[row + k]);
-    const int4* src = a.records + (size_t)b * a.R_rec;
-    int4* dst = static_cast<int4*>(a.out) + ((size_t)b * a.D + a.d) * a.r_eps;
-    for (int r0 = tid; r0 < a.r_eps; r0 += STEP_UNROLL * STEP_THREADS) {
-      int4 v[STEP_UNROLL];
-#pragma unroll
-      for (int u = 0; u < STEP_UNROLL; ++u) {
-        const int r = r0 + u * STEP_THREADS;
-        if (r < a.r_eps) v[u] = ran ? src[r] : make_int4(-1, -1, -1, -1);
-      }
-#pragma unroll
-      for (int u = 0; u < STEP_UNROLL; ++u) {
-        const int r = r0 + u * STEP_THREADS;
-        if (r < a.r_eps) dst[r] = v[u];
-      }
-    }
-  } else {
-    int2* dst = static_cast<int2*>(a.out) + ((size_t)b * a.D + a.d) * K;
-    const size_t lanes = (size_t)b * a.N;
-    for (int k0 = tid; k0 < K; k0 += STEP_UNROLL * STEP_THREADS) {
-      int ci[STEP_UNROLL];
-      int2 bp[STEP_UNROLL];
-#pragma unroll
-      for (int u = 0; u < STEP_UNROLL; ++u) {
-        const int k = k0 + u * STEP_THREADS;
-        ci[u] = k < K ? a.cand_idx[row + k] : -1;
-      }
-#pragma unroll
-      for (int u = 0; u < STEP_UNROLL; ++u) {
-        bp[u] = ci[u] >= 0 ? make_int2(a.src_slot[lanes + ci[u]], a.arc_id[lanes + ci[u]])
-                           : make_int2(0, -1);
-      }
-#pragma unroll
-      for (int u = 0; u < STEP_UNROLL; ++u) {
-        const int k = k0 + u * STEP_THREADS;
-        if (k >= K) continue;
-        changed |= ci[u] >= 0 && bp[u].y != -1;
-        dst[k] = ran ? bp[u] : make_int2(k, -1);
-      }
-    }
-  }
-  changed = __syncthreads_or(changed);
-  if (tid != 0) return;
-  const bool ra = a.row_active[b];
-  bool o = a.exp_ovf[b];
-  if (LATTICE) o = o || a.rec_ovf[b] || a.records[(size_t)b * a.R_rec + a.r_eps].y >= 0;
-  const bool s = a.num_unique[b] > K;
-  a.ovf[b] = (a.d > 0 && a.ovf[b]) || (o && ra);
-  a.sat[b] = (a.d > 0 && a.sat[b]) || (s && ra);
-  a.changed[b] = changed;
-  if (changed && ra) atomicOr(&a.flags->go, 1);
-  __threadfence();
-  if (atomicAdd(&a.flags->done, 1u) == gridDim.x - 1) {  // every block has read `ran`
-    __threadfence();
-    const bool go = atomicOr(&a.flags->go, 0) != 0;
-    a.flags->ran = ran && go;
-    a.flags->go = 0;
-    a.flags->done = 0;
-    if (a.d == a.D - 1 && !a.exact && go) {  // a cyclic eps budget: possibly unconverged
-      for (int r = 0; r < a.B; ++r)
-        if (a.row_active[r]) a.ovf[r] = 1;
-    }
-  }
-}
-
 }  // namespace
 
 // The blocks a row (a cluster) K5 launches with for B rows of N lanes:
@@ -633,37 +501,6 @@ extern "C" int kd_expand_eps(const void* states, const void* costs, const void* 
       static_cast<int*>(arc_id), static_cast<unsigned char*>(overflow));
 }
 
-// Launches the eps step of iteration d of D on `stream`: B blocks, the
-// lattice instance when `lattice` is set.  Shapes: cand_idx (B, K) int32,
-// num_unique (B,) int32, exp_ovf/row_active (B,) bool; flags 3 int32
-// words; ovf/sat/changed (B,) bool; 1-best: src_slot/arc_id (B, N) int32,
-// out (B, D, K, 2) int32; lattice: sel_costs (B, K) float32, rec_ovf (B,)
-// bool, records (B, R_rec, 4) int32 with R_rec > r_eps, out (B, D, r_eps,
-// 4) int32.  Returns the launch's CUDA error (0 on success).
-extern "C" int kd_eps_step(int lattice, int B, int K, int N, int D, int d, int exact, int R_rec,
-                           int r_eps, const void* cand_idx, const void* num_unique,
-                           const void* sel_costs, const void* exp_ovf, const void* rec_ovf,
-                           const void* records, const void* src_slot, const void* arc_id,
-                           const void* row_active, void* flags, void* ovf, void* sat,
-                           void* changed, void* out, void* stream) {
-  if (B < 1 || K < 1 || D < 1 || d < 0 || d >= D || (lattice && R_rec <= r_eps))
-    return (int)cudaErrorInvalidValue;
-  const StepArgs a{B, K, N, D, d, exact, R_rec, r_eps,
-                   static_cast<const int*>(cand_idx), static_cast<const int*>(num_unique),
-                   static_cast<const float*>(sel_costs), static_cast<const unsigned char*>(exp_ovf),
-                   static_cast<const unsigned char*>(rec_ovf), static_cast<const int4*>(records),
-                   static_cast<const int*>(src_slot), static_cast<const int*>(arc_id),
-                   static_cast<const unsigned char*>(row_active), static_cast<Flags*>(flags),
-                   static_cast<unsigned char*>(ovf), static_cast<unsigned char*>(sat),
-                   static_cast<unsigned char*>(changed), out};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (lattice)
-    eps_step_kernel<true><<<B, STEP_THREADS, 0, st>>>(a);
-  else
-    eps_step_kernel<false><<<B, STEP_THREADS, 0, st>>>(a);
-  return (int)cudaGetLastError();
-}
-
 // ---- The eps step's shard mode ----------------------------------------------
 //
 // Replaces the bookkeeping of the JAX package's sharded closure, which runs
@@ -684,9 +521,17 @@ extern "C" int kd_eps_step(int lattice, int B, int K, int N, int D, int d, int e
 // pair (the emitting call's flags are folded in at d = 0, where no stop
 // masks them).  Bounds: the bytes of the K winning lanes' payload or the
 // records and one iteration's row of backpointers or links, under 1 MB at
-// B = 16.  One block a row; the batch's flags as in the unsharded step.
+// B = 16.  One block a row of STEP_THREADS; the batch's flags carried in
+// device memory: every block reads `stop` first, ORs into the accumulators
+// and counts itself done with an atomic after a fence, and the last one
+// writes the iteration's flags and clears the accumulators and the count.
+// (The unsharded step runs as the last step of the eps dedup call,
+// eps_step.cuh.)
 
 namespace {
+
+constexpr int STEP_THREADS = 512;
+constexpr int STEP_UNROLL = 4;
 
 // kernels/eps.py ShardEpsCarry.flags (SHARD_FLAG_WORDS).
 struct ShardFlags {

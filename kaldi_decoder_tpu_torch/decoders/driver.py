@@ -61,15 +61,15 @@ from kaldi_decoder_tpu_torch.kernels.eps import (
     EpsBufs,
     empty_eps_carry,
     empty_eps_lanes,
+    eps_dedup,
     eps_lane_count,
-    eps_step,
     expand_eps_lanes,
 )
 from kaldi_decoder_tpu_torch.kernels.expand import Expansion, empty_expansion, expand_filter
 from kaldi_decoder_tpu_torch.kernels.frame import FrameIO, FrameSlots, frame_start, frame_tail
 
 # The wrappers whose launches a captured frame holds.
-COUNTED = (expand_filter, dedup_select_rec, k6.dedup_select, expand_eps_lanes, eps_step,
+COUNTED = (expand_filter, dedup_select_rec, k6.dedup_select, expand_eps_lanes, eps_dedup,
            frame_tail)
 # Drivers kept (each holds its static buffers, graph and device graph).
 MAX_DRIVERS = 4
@@ -162,8 +162,8 @@ class FrameDriver:
             self.stream.synchronize()
 
     def body(self):
-        """The frame's K1, K2 or K6 and eps closure (K5, K6 or K2's eps
-        call, the eps step) on the slots; returns
+        """The frame's K1, K2 or K6 and eps closure (K5, then K6 or K2's
+        eps call with the eps step as its last step) on the slots; returns
         the tail's inputs."""
         s = self.slots
         fn = lattice_frame_body if self.lattice else frame_body

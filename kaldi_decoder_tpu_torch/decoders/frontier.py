@@ -21,7 +21,8 @@ Viterbi frame and of every eps iteration go through K6
 version is :func:`kaldi_decoder_tpu_torch.ops.segment.dedup_select`.
 Likewise :func:`expand_eps` is the plain core of K5: an eps iteration's
 lanes come from :func:`kaldi_decoder_tpu_torch.kernels.eps.expand_eps_lanes`
-and its closing step from ``kernels.eps.eps_step``, each a hand-written
+and its dedup call and closing step from ``kernels.eps.eps_dedup`` (on a
+card one K6 launch whose last step is the eps step), each a hand-written
 kernel on a card.
 """
 
@@ -459,17 +460,17 @@ def _eps_relax(st: StepState, cutoff_rel: torch.Tensor, pg: PackedGraph, cfg: Fr
                bufs=None) -> StepState:
     """Iteration ``d`` of an eps closure on its ``carry``
     (``kernels.eps.EpsCarry``): K5's lanes, the K incumbents first, then
-    K6, then the eps step.  ``bufs``: on a card, K5's and K6's output
-    buffers and K6's scratch, or None.  Returns the new frontier."""
+    K6 with the eps step as its last step (``kernels.eps.eps_dedup``).
+    ``bufs``: on a card, K5's and K6's output buffers and K6's scratch, or
+    None.  Returns the new frontier."""
     # Imported here: kernels.eps imports this module.
-    from kaldi_decoder_tpu_torch.kernels.eps import eps_step, expand_eps_lanes
+    from kaldi_decoder_tpu_torch.kernels.eps import eps_dedup, expand_eps_lanes
 
     lanes_out, sel_out, scratch = bufs or (None, None, None)
     lanes = expand_eps_lanes(st.states, st.costs, cutoff_rel, pg, cfg, incumbents=True,
                              with_src_state=False, out=lanes_out)
-    sel = dedup_select(lanes.dst, lanes.cost, cfg.frontier_size, num_states, out=sel_out,
-                       scratch=scratch)
-    eps_step(d, carry, row_active, lanes.overflow, sel, exact, lanes)
+    sel = eps_dedup(d, carry, row_active, lanes, exact, cfg.frontier_size, num_states,
+                    out=sel_out, scratch=scratch)
     return StepState(sel.states, sel.costs, st.base)
 
 

@@ -10,10 +10,11 @@ Each frame runs GetCutoff, the expansion region K1
 top-K / records region K2
 (:func:`kaldi_decoder_tpu_torch.kernels.dedup_rec.dedup_select_rec`), then,
 on a device graph with eps arcs, ``eps_iters`` eps iterations, each K5
-(``kernels.eps.expand_eps_lanes``, the K incumbents first), K2's eps call
-and the eps step (``kernels.eps.eps_step``); record rows are
-``[src_state, arc_id, dst_state, slack_bits]``.  On the card K1, K2, K5
-and the eps step are the hand-written kernels; their plain torch versions
+(``kernels.eps.expand_eps_lanes``, the K incumbents first), then K2's eps
+call with the eps step as its last step (``kernels.eps.eps_dedup``);
+record rows are ``[src_state, arc_id, dst_state, slack_bits]``.  On the
+card K1, K2 (the eps step inside its eps call) and K5 are the
+hand-written kernels; their plain torch versions
 (``kernels.expand.expand_filter_plain``, ``ops.segment.dedup_select_rec``,
 ``kernels.eps.expand_eps_lanes_plain`` and ``eps_step_plain``) run for
 CPU tensors and are the kernels' oracles.  The start closure
@@ -41,7 +42,7 @@ from kaldi_decoder_tpu_torch.decoders.frontier import (
 from kaldi_decoder_tpu_torch.fst.csr import CsrGraph
 from kaldi_decoder_tpu_torch.fst.pack import PackedGraph
 from kaldi_decoder_tpu_torch.kernels.dedup_rec import dedup_select_rec
-from kaldi_decoder_tpu_torch.kernels.eps import empty_eps_carry, eps_step, expand_eps_lanes
+from kaldi_decoder_tpu_torch.kernels.eps import empty_eps_carry, eps_dedup, expand_eps_lanes
 from kaldi_decoder_tpu_torch.kernels.expand import expand_filter
 from kaldi_decoder_tpu_torch.ops.cutoff import get_cutoff
 
@@ -156,19 +157,15 @@ def _eps_relax_rec(st: StepState, cutoff_rel: torch.Tensor, pg: PackedGraph,
                    row_active: torch.Tensor, exact: bool, bufs=None) -> StepState:
     """Iteration ``d`` of a record-emitting eps closure on its ``carry``
     (``kernels.eps.EpsCarry``, records of ``r_eps`` rows): K5's lanes, the
-    K incumbents first with payload -1, then K2's eps call, then the eps
-    step.  ``bufs``: on a card, K5's and K2's output buffers and K2's
-    scratch, or None.  Returns the new frontier."""
-    K = cfg.frontier_size
-    r_eps = carry.out.shape[2]
+    K incumbents first with payload -1, then K2's eps call with the eps
+    step as its last step (``kernels.eps.eps_dedup``).  ``bufs``: on a
+    card, K5's and K2's output buffers and K2's scratch, or None.  Returns
+    the new frontier."""
     lanes_out, sel_out, scratch = bufs or (None, None, None)
     lanes = expand_eps_lanes(st.states, st.costs, cutoff_rel, pg, cfg, incumbents=True,
                              with_src_slot=False, out=lanes_out)
-    sel = dedup_select_rec(
-        lanes.dst, lanes.cost, K, num_states, K + r_eps, slack_beam,
-        (lanes.src_state, lanes.arc_id), num_incumbents=K, out=sel_out, scratch=scratch,
-    )
-    eps_step(d, carry, row_active, lanes.overflow, sel, exact)
+    sel = eps_dedup(d, carry, row_active, lanes, exact, cfg.frontier_size, num_states,
+                    slack_beam, out=sel_out, scratch=scratch)
     return StepState(sel.states, sel.costs, st.base)
 
 

@@ -123,8 +123,9 @@ def stream(device) -> ctypes.c_void_p:
 def kernels() -> ctypes.CDLL:
     """The CUDA kernel library (row gather, K1 expansion, K2 lattice
     dedup and records, K3 frame tail and its shard mode, K4 sweep, K5 eps
-    lanes and the eps step with its shard mode, K6 dedup, K7 shard route,
-    K8 sharded GetCutoff), built on first use."""
+    lanes and the eps step's shard mode, K6 dedup, the eps step as the
+    last step of K6's and K2's eps calls, K7 shard route, K8 sharded
+    GetCutoff), built on first use."""
     sources = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
     arch = ["-gencode", "arch=compute_90a,code=sm_90a"]
     path = build_library(
@@ -148,15 +149,15 @@ def kernels() -> ctypes.CDLL:
     lib.kd_sweep_cluster.restype = _I
     lib.kd_sweep_cluster.argtypes = [_I] * 3
     lib.kd_dedup.restype = _I
-    lib.kd_dedup.argtypes = [_P, _P] + [_I] * 4 + [_P] * 9 + [_P]
+    lib.kd_dedup.argtypes = [_P, _P] + [_I] * 4 + [_P] * 10 + [_P]
     lib.kd_dedup_cluster.restype = _I
-    lib.kd_dedup_cluster.argtypes = [_I, _I]
+    lib.kd_dedup_cluster.argtypes = [_I, _I, _I]
     lib.kd_dedup_marks.restype = _I
     lib.kd_dedup_marks.argtypes = [_P, _P, _P, _I]
     lib.kd_dedup_rec.restype = _I
-    lib.kd_dedup_rec.argtypes = [_P] * 4 + [_I] * 5 + [_F, _I] + [_P] * 15 + [_P]
+    lib.kd_dedup_rec.argtypes = [_P] * 4 + [_I] * 5 + [_F, _I] + [_P] * 16 + [_P]
     lib.kd_dedup_rec_cluster.restype = _I
-    lib.kd_dedup_rec_cluster.argtypes = [_I, _I]
+    lib.kd_dedup_rec_cluster.argtypes = [_I] * 4
     lib.kd_dedup_rec_marks.restype = _I
     lib.kd_dedup_rec_marks.argtypes = [_P, _P, _P, _I]
     lib.kd_frame_start.restype = _I
@@ -171,8 +172,6 @@ def kernels() -> ctypes.CDLL:
     lib.kd_expand_eps.argtypes = [_P] * 5 + [_I] * 6 + [_P] * 6 + [_P]
     lib.kd_expand_eps_blocks.restype = _I
     lib.kd_expand_eps_blocks.argtypes = [_I, _I]
-    lib.kd_eps_step.restype = _I
-    lib.kd_eps_step.argtypes = [_I] * 9 + [_P] * 9 + [_P] * 5 + [_P]
     lib.kd_eps_step_shard.restype = _I
     lib.kd_eps_step_shard.argtypes = [_I] * 10 + [_P] * 23 + [_P]
     lib.kd_frame_tail_shard.restype = _I

@@ -15,6 +15,7 @@ share it at once.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -83,14 +84,21 @@ def dedup_select(
     num_states: int,
     out: Optional[Selection] = None,
     scratch=None,
+    step=None,
 ) -> Selection:
     """K6 on the tensors' device.  Finite lanes must have a state in
     ``[0, num_states)``.  On a card, ``out`` (from
     :func:`empty_selection`) and ``scratch`` (from :func:`empty_scratch`)
     are used instead of fresh buffers, so that a captured frame allocates
-    nothing.  ``dedup_select.launches`` counts K6 launches."""
+    nothing, and ``step`` (``kernels.eps.StepArgs``, from
+    ``kernels.eps.eps_dedup``, which checks it) makes the call run the eps
+    step as its last step.  ``dedup_select.launches`` counts K6
+    launches."""
     dev = cand_state.device
     if dev.type == "cpu":
+        if step is not None:
+            raise ValueError("the eps step runs inside K6 on a card only: on the CPU call "
+                             "kernels.eps.eps_dedup")
         return dedup_select_plain(cand_state, cand_cost, k, num_states)
     if dev.type != "cuda":
         raise ValueError(f"dedup_select runs on cpu or cuda tensors, not {dev}")
@@ -113,7 +121,7 @@ def dedup_select(
         ptr(cand_state), ptr(cand_cost), B, N, num_states, k,
         ptr(table), ptr(keys0), ptr(vals0), ptr(keys1), ptr(vals1),
         ptr(out.states), ptr(out.costs), ptr(out.cand_idx), ptr(out.num_unique),
-        stream(dev),
+        ctypes.c_void_p(ctypes.addressof(step)) if step is not None else None, stream(dev),
     )
     if rc != 0:
         _held.pop(key, None)  # a launch may have run: the next call starts afresh
@@ -125,10 +133,11 @@ def dedup_select(
 dedup_select.launches = 0
 
 
-def cluster_size(batch: int, lanes: int) -> int:
+def cluster_size(batch: int, lanes: int, step: bool = False) -> int:
     """The blocks per cluster K6 launches with for ``batch`` utterances of
-    ``lanes`` candidate lanes each (0: none fits)."""
-    return kernels().kd_dedup_cluster(batch, lanes)
+    ``lanes`` candidate lanes each, with the eps step as its last step
+    (``step``, the fused eps call) or without (0: none fits)."""
+    return kernels().kd_dedup_cluster(batch, lanes, int(step))
 
 
 # The kernel's steps, between its 12 marks (csrc/dedup.cu, select_core.cuh).
@@ -147,8 +156,6 @@ def launch_marks(blocks: int, reader: str = "kd_dedup_marks", steps=STEPS) -> li
     slots).  ``reader`` is the library function that reads the kernel's
     marks (K6's by default).  Synchronises with the
     device."""
-    import ctypes
-
     n = min(blocks, 1024)
     ns = (ctypes.c_ulonglong * (2 * n))()
     clock = (ctypes.c_longlong * (MARKS * n))()

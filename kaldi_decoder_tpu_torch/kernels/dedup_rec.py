@@ -76,6 +76,7 @@ def dedup_select_rec(
     num_incumbents: int = 0,
     out: Optional[LatticeSelection] = None,
     scratch=None,
+    step=None,
 ) -> LatticeSelection:
     """K2 on the tensors' device.  Finite lanes must have a state in
     ``[0, num_states)``; ``slack_beam`` is compared in float32, as the
@@ -83,10 +84,16 @@ def dedup_select_rec(
     are carried tokens, never records, and ``cand_idx`` is given.  On a
     card, ``out`` (from :func:`empty_lattice_selection`) and ``scratch``
     (``kernels.dedup.empty_scratch(B, N, device, pairs=4)``) are used
-    instead of fresh buffers, so that a captured frame allocates nothing.
-    ``dedup_select_rec.launches`` counts K2 launches."""
+    instead of fresh buffers, so that a captured frame allocates nothing,
+    and ``step`` (``kernels.eps.StepArgs``, from ``kernels.eps.eps_dedup``,
+    which checks it; with ``num_incumbents`` == k) makes the eps call run
+    the eps step as its last step.  ``dedup_select_rec.launches`` counts
+    K2 launches."""
     dev = cand_state.device
     if dev.type == "cpu":
+        if step is not None:
+            raise ValueError("the eps step runs inside K2 on a card only: on the CPU call "
+                             "kernels.eps.eps_dedup")
         sel = dedup_select_rec_plain(cand_state, cand_cost, k, num_states, r, slack_beam, payload,
                                      num_incumbents)
         return LatticeSelection(sel.states, sel.costs, sel.num_unique, stack_records(sel),
@@ -119,7 +126,8 @@ def dedup_select_rec(
         ptr(keys[0]), ptr(vals[0]), ptr(keys[1]), ptr(vals[1]),
         ptr(keys[2]), ptr(vals[2]), ptr(keys[3]), ptr(vals[3]),
         ptr(out.states), ptr(out.costs), ptr(out.num_unique), ptr(out.records),
-        ptr(out.rec_overflow), ptr(out.cand_idx) if num_incumbents else None, stream(dev),
+        ptr(out.rec_overflow), ptr(out.cand_idx) if num_incumbents else None,
+        ctypes.c_void_p(ctypes.addressof(step)) if step is not None else None, stream(dev),
     )
     if rc != 0:
         k6._held.pop(key, None)  # a launch may have run: the next call starts afresh
@@ -131,10 +139,12 @@ def dedup_select_rec(
 dedup_select_rec.launches = 0
 
 
-def cluster_size(batch: int, lanes: int) -> int:
+def cluster_size(batch: int, lanes: int, incumbents: bool = False, step: bool = False) -> int:
     """The blocks per cluster K2 launches with for ``batch`` utterances of
-    ``lanes`` candidate lanes each (0: none fits)."""
-    return kernels().kd_dedup_rec_cluster(batch, lanes)
+    ``lanes`` candidate lanes each, in the eps call's instance
+    (``incumbents``), with the eps step as its last step (``step``, the
+    fused eps call) or without, or in the emitting call's (0: none fits)."""
+    return kernels().kd_dedup_rec_cluster(batch, lanes, int(incumbents), int(step))
 
 
 # The kernel's steps, between its 24 marks (csrc/dedup_rec.cu); the

@@ -1,8 +1,8 @@
 """K5: the eps iteration's candidate lanes; and the eps step, its closing step.
 
-One eps relaxation of a frame's frontier is K5, the dedup call (K6 on the
-1-best paths, K2's eps call with the K incumbents first on the lattice
-paths), then the eps step:
+One eps relaxation of a frame's frontier is K5, then the dedup call (K6 on
+the 1-best paths, K2's eps call with the K incumbents first on the lattice
+paths) with the eps step as its last step:
 
 - :func:`expand_eps_lanes` gives the candidate lanes of the tokens at or
   under the cutoff: with ``incumbents`` the K tokens themselves first, as
@@ -13,35 +13,39 @@ paths), then the eps step:
   src_state, arc_id`` and the expansion's ``overflow`` (B,); the 1-best
   calls read ``src_slot``, the lattice calls ``src_state``, and a caller
   may leave out the column it does not read.
-- :func:`eps_step` takes the dedup call's result and updates the
-  closure's :class:`EpsCarry` in place: iteration ``d``'s backpointers
-  (1-best: each slot's ``(src_slot, arc_id)`` of its winning lane) or
-  records (lattice: the first ``r_eps`` rows), the identity or -1 once the
-  batch has stopped; the running overflow and saturation of the active
-  rows; each row's ``changed``; ``ran`` (the batch has not stopped) and,
-  at the last iteration of a cyclic eps budget, the overflow of every
-  active row when some active row still changed.
+- :func:`eps_dedup` is the dedup call on those lanes, which also updates
+  the closure's :class:`EpsCarry` in place (:func:`eps_step_plain` says
+  what): iteration ``d``'s backpointers (1-best: each slot's ``(src_slot,
+  arc_id)`` of its winning lane) or records (lattice: the first ``r_eps``
+  rows), the identity or -1 once the batch has stopped; the running
+  overflow and saturation of the active rows; each row's ``changed``;
+  ``ran`` (the batch has not stopped) and, at the last iteration of a
+  cyclic eps budget, the overflow of every active row when some active
+  row still changed.  On a card that is one launch of K6 or K2 whose last
+  step is the eps step (``csrc/eps_step.cuh``).
 
 The sharded decoders' closure (``parallel/graph_shard.py``) routes each
 iteration's lanes between K5 and the dedup call and reduces its
-``changed`` over the ranks, so its step, :func:`eps_step_shard`, is a mode
-of its own: it applies the batch-wide ``stop`` of the iterations before
-(the carried state kept, the identity or -1 rows written), then writes
-this iteration's local ``changed`` for the next MAX reduction, and at the
-closure's last iteration the local values the frame's rebase and flags
-reduce.
+``changed`` over the ranks, so its step, :func:`eps_step_shard`, is a
+launch of its own: it applies the batch-wide ``stop`` of the iterations
+before (the carried state kept, the identity or -1 rows written), then
+writes this iteration's local ``changed`` for the next MAX reduction, and
+at the closure's last iteration the local values the frame's rebase and
+flags reduce.
 
 On CPU tensors the wrappers run the plain torch versions,
-:func:`expand_eps_lanes_plain`, :func:`eps_step_plain` and
-:func:`eps_step_shard_plain`; on CUDA tensors they launch ``csrc/eps.cu``
-or raise.  The carry lives in device memory,
-so that an eps closure replays in a captured frame; each wrapper takes
-``out=`` buffers (:func:`empty_eps_lanes`, :func:`empty_eps_carry`) so that
-a captured frame allocates nothing.
+:func:`expand_eps_lanes_plain`, the dedup call's plain version then
+:func:`eps_step_plain`, and :func:`eps_step_shard_plain`; on CUDA tensors
+they launch ``csrc/eps.cu``, ``csrc/dedup.cu`` or ``csrc/dedup_rec.cu``
+or raise.  The carry lives in device memory, so that an eps closure
+replays in a captured frame; each wrapper takes ``out=`` buffers
+(:func:`empty_eps_lanes`, :func:`empty_eps_carry`) so that a captured
+frame allocates nothing.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Optional
 
 import torch
@@ -63,10 +67,14 @@ from kaldi_decoder_tpu_torch.kernels._build import (
     ptr,
     stream,
 )
+from kaldi_decoder_tpu_torch.kernels.dedup import dedup_select
+from kaldi_decoder_tpu_torch.kernels.dedup_rec import dedup_select_rec
 
 INF = float("inf")
-# EpsCarry.flags: ran, the batch's `go` accumulator, blocks done (csrc/eps.cu Flags).
-FLAG_WORDS = 3
+# EpsCarry.flags: ran, and the clusters done with the iteration (low half)
+# beside the active rows that changed (high half) (csrc/eps_step.cuh Flags).
+FLAG_WORDS = 2
+MAX_ROWS = (1 << 16) - 1  # rows an eps call with the step takes: each half counts up to B
 # ShardEpsCarry.flags: stop, the batch's `go`, overflow and saturation
 # accumulators, blocks done, the running overflow and saturation
 # (csrc/eps.cu ShardFlags).
@@ -85,7 +93,7 @@ class EpsLanes(NamedTuple):
 class EpsCarry(NamedTuple):
     """An eps closure's state across its D iterations, updated in place."""
 
-    flags: torch.Tensor  # (FLAG_WORDS,) int32: ran, and the kernel's two counters (0)
+    flags: torch.Tensor  # (FLAG_WORDS,) int32: ran, and the kernel's count word (0)
     overflow: torch.Tensor  # (B,) bool, running over the iterations
     saturated: torch.Tensor  # (B,) bool, running
     changed: torch.Tensor  # (B,) bool, the last iteration's
@@ -264,63 +272,81 @@ def eps_step_plain(d: int, carry: EpsCarry, row_active: torch.Tensor,
     carry.flags[0] = (ran & go).to(torch.int32)
 
 
-def eps_step(d: int, carry: EpsCarry, row_active: torch.Tensor, exp_overflow: torch.Tensor,
-             sel, exact: bool, lanes: Optional[EpsLanes] = None) -> None:
-    """The eps step on the tensors' device: :func:`eps_step_plain` on the
-    CPU, one launch of ``csrc/eps.cu`` on a card, which carries ``ran``
-    and the batch's ``go`` in ``carry.flags``.  ``eps_step.launches``
-    counts its launches."""
-    dev = sel.states.device
+class StepArgs(ctypes.Structure):
+    """The eps step of one eps dedup call, as the kernels take it
+    (``csrc/eps_step.cuh`` Step): flags null runs none."""
+
+    _fields_ = [("d", ctypes.c_int), ("D", ctypes.c_int), ("exact", ctypes.c_int),
+                ("width", ctypes.c_int)] + [
+        (name, ctypes.c_void_p) for name in ("src_slot", "arc_id", "row_active", "exp_ovf",
+                                             "flags", "ovf", "sat", "changed", "out")]
+
+
+def eps_dedup(d: int, carry: EpsCarry, row_active: torch.Tensor, lanes: EpsLanes, exact: bool,
+              k: int, num_states: int, slack_beam: Optional[float] = None, out=None,
+              scratch=None):
+    """Iteration ``d`` of the closure's D (``carry.out.shape[1]``): the
+    dedup call on K5's ``lanes`` (the K incumbents first), then the eps
+    step on ``carry``.  The lattice paths' (``slack_beam`` given, ``carry``
+    of r_eps records a row): K2's eps call of ``k + r_eps`` records; the
+    1-best paths' (``lanes`` with ``src_slot``): K6.  On the CPU, the dedup
+    call's plain version and :func:`eps_step_plain`; on a card one launch
+    of K6 or K2 that runs the step as its last step, into ``out`` and with
+    ``scratch`` (as the dedup wrappers take them) when given.  Returns the
+    selection.  ``eps_dedup.launches`` counts the steps run inside a dedup
+    launch (each is counted as a K6 or K2 launch too)."""
+    lattice = slack_beam is not None
+    r_eps = carry.out.shape[2]
+
+    def dedup(step=None):
+        if lattice:
+            return dedup_select_rec(lanes.dst, lanes.cost, k, num_states, k + r_eps, slack_beam,
+                                    (lanes.src_state, lanes.arc_id), num_incumbents=k,
+                                    out=out, scratch=scratch, step=step)
+        return dedup_select(lanes.dst, lanes.cost, k, num_states, out=out, scratch=scratch,
+                            step=step)
+
+    dev = lanes.dst.device
     if dev.type == "cpu":
-        return eps_step_plain(d, carry, row_active, exp_overflow, sel, exact, lanes)
+        sel = dedup()
+        eps_step_plain(d, carry, row_active, lanes.overflow, sel, exact, lanes)
+        return sel
     if dev.type != "cuda":
-        raise ValueError(f"eps_step runs on cpu or cuda tensors, not {dev}")
-    B, K = sel.states.shape
+        raise ValueError(f"eps_dedup runs on cpu or cuda tensors, not {dev}")
+    B = lanes.dst.shape[0]
     D = carry.out.shape[1]
     if not 0 <= d < D:
         raise ValueError(f"iteration {d} of {D}")
-    lattice = _is_lattice(sel)
-    check(sel.cand_idx, "cand_idx", torch.int32, (B, K), dev)
-    check(sel.num_unique, "num_unique", torch.int32, (B,), dev)
+    if B > MAX_ROWS:
+        raise ValueError(f"an eps call with the step takes at most {MAX_ROWS} rows, not {B}")
     check(row_active, "row_active", torch.bool, (B,), dev)
-    check(exp_overflow, "exp_overflow", torch.bool, (B,), dev)
+    check(lanes.overflow, "lanes.overflow", torch.bool, (B,), dev)
     check(carry.flags, "carry.flags", torch.int32, (FLAG_WORDS,), dev)
     for name in ("overflow", "saturated", "changed"):
         check(getattr(carry, name), f"carry.{name}", torch.bool, (B,), dev)
-    N = R_rec = r_eps = 0
+    N = lanes.dst.shape[1]
     if lattice:
-        r_eps, R_rec = carry.out.shape[2], sel.records.shape[1]
-        if R_rec <= r_eps:
-            raise ValueError(f"K2's eps call has {R_rec} record rows, need more than {r_eps}")
-        check(sel.costs, "sel.costs", torch.float32, (B, K), dev)
-        check(sel.rec_overflow, "rec_overflow", torch.bool, (B,), dev)
-        check(sel.records, "records", torch.int32, (B, R_rec, 4), dev)
+        if lanes.src_state is None:
+            raise ValueError("the lattice eps call needs K5's lanes with src_state")
         check(carry.out, "carry.out", torch.int32, (B, D, r_eps, 4), dev)
     else:
-        if lanes is None or lanes.src_slot is None:
+        if lanes.src_slot is None:
             raise ValueError("the 1-best eps step needs K5's lanes with src_slot")
-        N = lanes.src_slot.shape[1]
-        check(lanes.src_slot, "src_slot", torch.int32, (B, N), dev)
-        check(lanes.arc_id, "arc_id", torch.int32, (B, N), dev)
-        check(carry.out, "carry.out", torch.int32, (B, D, K, 2), dev)
-
-    def opt(x):
-        return ptr(x) if x is not None else None
-
-    rc = kernels().kd_eps_step(
-        int(lattice), B, K, N, D, d, int(exact), R_rec, r_eps, ptr(sel.cand_idx),
-        ptr(sel.num_unique), ptr(sel.costs) if lattice else None, ptr(exp_overflow),
-        ptr(sel.rec_overflow) if lattice else None, ptr(sel.records) if lattice else None,
-        None if lattice else opt(lanes.src_slot), None if lattice else opt(lanes.arc_id),
-        ptr(row_active), ptr(carry.flags), ptr(carry.overflow), ptr(carry.saturated),
-        ptr(carry.changed), ptr(carry.out), stream(dev),
-    )
-    if rc != 0:
-        raise RuntimeError(f"kd_eps_step launch failed: {cuda_error(rc)}")
-    eps_step.launches += 1
+        check(lanes.src_slot, "lanes.src_slot", torch.int32, (B, N), dev)
+        check(lanes.arc_id, "lanes.arc_id", torch.int32, (B, N), dev)
+        check(carry.out, "carry.out", torch.int32, (B, D, k, 2), dev)
+    step = StepArgs(d, D, int(exact), r_eps if lattice else k,
+                    None if lattice else lanes.src_slot.data_ptr(),
+                    None if lattice else lanes.arc_id.data_ptr(), row_active.data_ptr(),
+                    lanes.overflow.data_ptr(), carry.flags.data_ptr(),
+                    carry.overflow.data_ptr(), carry.saturated.data_ptr(),
+                    carry.changed.data_ptr(), carry.out.data_ptr())
+    sel = dedup(step)
+    eps_dedup.launches += 1
+    return sel
 
 
-eps_step.launches = 0
+eps_dedup.launches = 0
 
 
 class ShardEpsCarry(NamedTuple):
@@ -418,7 +444,7 @@ def eps_step_shard(d: int, carry: ShardEpsCarry, states, costs, sel, exp_overflo
     """The sharded eps step on the tensors' device: :func:`eps_step_shard_plain`
     on the CPU, one launch of ``csrc/eps.cu`` on a card (a block a row,
     the batch's flags in ``carry.flags``), counted in
-    ``eps_step.launches``.  ``em_overflow`` holds at most three (B,) bool
+    ``eps_step_shard.launches``.  ``em_overflow`` holds at most three (B,) bool
     tensors.  A row's smallest cost is its first smallest in slot order,
     as ``torch.amin`` takes it on the CPU."""
     dev = sel.states.device
@@ -480,4 +506,7 @@ def eps_step_shard(d: int, carry: ShardEpsCarry, states, costs, sel, exp_overflo
     )
     if rc != 0:
         raise RuntimeError(f"kd_eps_step_shard launch failed: {cuda_error(rc)}")
-    eps_step.launches += 1
+    eps_step_shard.launches += 1
+
+
+eps_step_shard.launches = 0

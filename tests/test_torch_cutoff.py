@@ -15,10 +15,15 @@ min_active 0, max_active past the merged prefixes (the ``P*m - 1``
 clamp) and the early return; each on rows with -0.0 and +0.0 tied within
 a shard and across shards at the order statistics, an all-+inf row, a
 count exactly at max_active and one above, negative costs with ties.
-Beside them: the local half's values; a rank-select merge in plain torch
-(what ``csrc/cutoff.cu`` computes: no sort, each element's rank from
-binary searches of the other shards' prefixes) against the sort-based
-plain version on every case; and the states a sharded decode (P = 2,
+Edge cases of the merge at P = 2, 3, 4 and 8 (``EDGE_CASES``): keys
+equal across every shard, -0.0 beside +0.0 at the order statistics,
+prefixes all +inf, ranks clamped to ``P*m - 1``.  Beside them: the local
+half's values; a model of the kernel's merge in plain numpy and torch
+(``search_merge``: what ``csrc/cutoff.cu`` computes step for step, no
+sort: a direct read at P = 1, its warp's merge-path search at P = 2, its
+co-rank searches at P > 2) against the sort-based plain version on every
+case and on wide synthetic shards (m 2048, where the searches take
+several rounds); and the states a sharded decode (P = 2,
 both decoders, over gloo) hands ``_global_cutoff``: each shard's row in
 order under the canonical key, as the kernel needs, and the composed
 halves equal to JAX on them.
@@ -111,7 +116,7 @@ def port_global_cutoff(costs: list, kw: dict, merge=global_cutoff_merge, k: int 
     """The port's ``_global_cutoff`` over the shards ``costs`` (frontiers
     of ``k`` slots) in one process: K8's local half per shard, the
     collectives in place, the merge (``merge``: the wrapper, or the
-    rank-select version)."""
+    kernel's method, :func:`search_merge`)."""
     P = len(costs)
     fc = FrontierConfig(frontier_size=k, **kw)
     early = fc.max_active >= P * k and fc.min_active == 0
@@ -127,34 +132,119 @@ def port_global_cutoff(costs: list, kw: dict, merge=global_cutoff_merge, k: int 
     return merge(best, count, merged, fc.beam, fc.beam_delta, fc.max_active, fc.min_active)
 
 
-def rank_select_merge(best, count, merged, beam, beam_delta, max_active, min_active):
-    """What ``csrc/cutoff.cu``'s merge computes, in plain torch: no sort;
-    element (q, j) of a row (shard q's prefix, position j, each prefix in
-    order under the canonical key) has rank j plus, for every other shard
-    q', the number of q''s keys at or below its own (q' < q) or below it
-    (q' > q); the elements at ranks max_active and min_active (clamped)
-    feed GetCutoff's branch."""
+def _keys(vals: np.ndarray) -> np.ndarray:
+    """The kernel's ordered keys (``common.cuh:ordered_key``): -0.0 as
+    +0.0, then IEEE total order as unsigned integers."""
+    u = np.where(vals == 0, np.float32(0.0), vals).astype(np.float32).view(np.uint32)
+    return np.where(u & 0x80000000, ~u, u | 0x80000000).astype(np.int64)
+
+
+LANES = np.arange(32)
+
+
+def _rank_of_two(key, val, m: int, r: int):
+    """``csrc/cutoff.cu:rank_of_two``, lane for lane: the element at rank
+    ``r`` of one row's two prefixes (``key``/``val``, shard after shard)
+    by a merge-path search, 32 candidates a round and a ballot keeping
+    the gap between the last that comes before and the next."""
+    k = r + 1
+    lo, hi = max(0, k - m), min(k, m)
+    for _ in range(64):
+        if lo >= hi:
+            break
+        gap = hi - lo
+        c = lo + LANES * gap // 32 if gap > 32 else lo + LANES
+        valid = c < hi
+        cv = np.where(valid, c, lo)
+        yes = np.flatnonzero(valid & (key[cv] <= key[m + k - 1 - cv]))
+        no = np.flatnonzero(valid & ~np.isin(LANES, yes))
+        if yes.size:
+            lo = int(c[yes[-1]]) + 1
+        if no.size:
+            hi = int(c[no[0]])
+    else:
+        raise AssertionError("the merge-path search does not end")
+    if lo == 0:
+        return val[m + k - 1]
+    if lo == k:
+        return val[k - 1]
+    a, b = lo - 1, m + k - lo - 1
+    return val[b] if key[a] <= key[b] else val[a]
+
+
+def _find_rank(key, val, P: int, m: int, q: int, r: int):
+    """``csrc/cutoff.cu:find_rank``, lane for lane: shard ``q``'s element
+    at rank ``r`` of the merged order, or None where another shard holds
+    it, by a 32-ary search over q's positions; each candidate ranked by
+    its position plus a branchless binary search of every other shard
+    (upper bound for the shards before q, lower bound for those after)."""
+    top = 1
+    while 2 * top <= m:
+        top *= 2
+    lo, hi, lo_rank = -1, m, -1
+    for _ in range(64):
+        if hi - lo <= 1:
+            break
+        gap = hi - lo
+        c = lo + (LANES + 1) * gap // 33 if gap > 33 else lo + 1 + LANES
+        valid = c < hi
+        kc = key[q * m + np.where(valid, c, 0)]
+        rank = c.copy()
+        for q2 in range(P):
+            if q2 == q:
+                continue
+            pos = np.zeros(32, np.int64)
+            step = top
+            while step > 0:
+                nxt = pos + step
+                kk = key[q2 * m + np.minimum(nxt, m) - 1]
+                pos = np.where((nxt <= m) & ((kk <= kc) if q2 < q else (kk < kc)), nxt, pos)
+                step >>= 1
+            rank = rank + pos
+        yes = np.flatnonzero(valid & (rank <= r))
+        no = np.flatnonzero(valid & (rank > r))
+        if yes.size:
+            lo, lo_rank = int(c[yes[-1]]), int(rank[yes[-1]])
+        if no.size:
+            hi = int(c[no[0]])
+    else:
+        raise AssertionError("the co-rank search does not end")
+    return val[q * m + lo] if lo >= 0 and lo_rank == r else None
+
+
+def search_merge(best, count, merged, beam, beam_delta, max_active, min_active):
+    """What ``csrc/cutoff.cu``'s merge computes, step for step, in plain
+    numpy and torch: no sort; for each target rank that GetCutoff's branch
+    reads (max_active's, min_active's; clamped to ``P*m - 1``) the element
+    there, read directly at P = 1 (rank = position), found by the
+    merge-path search at P = 2 (:func:`_rank_of_two`) and by the co-rank
+    search of every shard at P > 2 (:func:`_find_rank`, exactly one shard
+    holding it); then the branch."""
     beam_cutoff = best + beam
     if merged is None:
         return GlobalCutoff(beam_cutoff, torch.full_like(best, beam))
     P, Bn, m = merged.shape
-    canon = torch.where(merged == 0, 0.0, merged)
-    rank = torch.arange(m).expand(P, Bn, m).clone()
-    for q in range(P):
-        for q2 in range(P):
-            if q2 != q:
-                rank[q] += torch.searchsorted(canon[q2].contiguous(), canon[q].contiguous(),
-                                              right=q2 < q)
-    flat_rank = rank.permute(1, 0, 2).reshape(Bn, P * m)
-    flat = merged.permute(1, 0, 2).reshape(Bn, P * m)
-    assert torch.equal(flat_rank.sort(dim=1).values, torch.arange(P * m).expand(Bn, P * m))
-
-    def at(r):
-        hit = (flat_rank == min(r, P * m - 1)).int()
-        return flat.gather(1, hit.argmax(dim=1, keepdim=True))[:, 0]
-
-    max_cut = torch.where(count > max_active, at(max_active), np.inf)
-    min_cut = torch.where(count > min_active, best if min_active == 0 else at(min_active), np.inf)
+    vals = merged.permute(1, 0, 2).reshape(Bn, P * m).numpy()
+    keys = _keys(vals)
+    r_at = (min(max_active, P * m - 1), min(min_active, P * m - 1))
+    at = np.zeros((2, Bn), np.float32)
+    for b in range(Bn):
+        want = (int(count[b]) > max_active, int(count[b]) > min_active and min_active != 0)
+        for t in (0, 1):
+            if not want[t]:
+                continue
+            if P == 1:
+                at[t, b] = vals[b, r_at[t]]
+            elif P == 2:
+                at[t, b] = _rank_of_two(keys[b], vals[b], m, r_at[t])
+            else:
+                found = [_find_rank(keys[b], vals[b], P, m, q, r_at[t]) for q in range(P)]
+                hits = [v for v in found if v is not None]
+                assert len(hits) == 1, (b, t, found)
+                at[t, b] = hits[0]
+    at = torch.from_numpy(at)
+    max_cut = torch.where(count > max_active, at[0], np.inf)
+    min_cut = torch.where(count > min_active, best if min_active == 0 else at[1], np.inf)
     use_max = max_cut < beam_cutoff
     use_min = (~use_max) & (min_cut > beam_cutoff)
     return GlobalCutoff(
@@ -212,12 +302,12 @@ def test_global_cutoff_halves_match_jax(P, name):
 
 @pytest.mark.parametrize("P,name", CASES, ids=[f"P{P}-{n}" for P, n in CASES])
 def test_rank_select_merge_matches_sort(P, name):
-    """The rank-select merge (the kernel's method) equals the sort-based
-    plain merge bit for bit."""
+    """The kernel's method, step for step (:func:`search_merge`), equals
+    the sort-based plain merge bit for bit."""
     kw = CONFIGS[name](P)
     costs = shard_costs(100 * P + len(name), P, kw)
     want = port_global_cutoff(costs, kw, merge=global_cutoff_merge_plain)
-    got = port_global_cutoff(costs, kw, merge=rank_select_merge)
+    got = port_global_cutoff(costs, kw, merge=search_merge)
     same_bits(want.cutoff, got.cutoff, "cutoff")
     same_bits(want.adaptive_beam, got.adaptive_beam, "adaptive beam")
 
@@ -274,7 +364,7 @@ def test_decoder_states_suit_the_merge(decoded, kind):
     """On the states a sharded decode hands ``_global_cutoff`` (every
     frame, both shards): each row in order under the canonical key, as
     the kernel's merge reads it; the composed halves equal to JAX and the
-    rank-select merge to the sort-based one."""
+    kernel's method (:func:`search_merge`) to the sort-based one."""
     ranks, ckw = decoded
     calls = [r[kind][1]["global_cutoff_local"] for r in ranks]
     assert len(calls[0]) == len(calls[1]) > 8
@@ -287,12 +377,105 @@ def test_decoder_states_suit_the_merge(decoded, kind):
             assert (c[:, 1:] >= c[:, :-1]).all(), f"call {i}, shard {q}: a row out of order"
         want = jax_global_cutoff(costs, kw, k)
         got = port_global_cutoff(costs, kw, k=k)
-        alt = port_global_cutoff(costs, kw, rank_select_merge, k)
+        alt = port_global_cutoff(costs, kw, search_merge, k)
         for q in range(2):
             same_bits(want[0][q], got.cutoff, f"call {i}: cutoff")
             same_bits(want[1][q], got.adaptive_beam, f"call {i}: adaptive beam")
-        same_bits(got.cutoff, alt.cutoff, f"call {i}: rank-select cutoff")
-        same_bits(got.adaptive_beam, alt.adaptive_beam, f"call {i}: rank-select adaptive beam")
+        same_bits(got.cutoff, alt.cutoff, f"call {i}: search-merge cutoff")
+        same_bits(got.adaptive_beam, alt.adaptive_beam, f"call {i}: search-merge adaptive beam")
         bound += int((sum(np.isfinite(c).sum(axis=1) for c in costs) > kw["max_active"]).sum())
     assert bound > 0, "max_active must bind on some frame"
 
+
+def edge_costs(seed: int, P: int, case: str) -> list:
+    """P (B, K) shards for the merge's edge cases.  "equal": every shard
+    holds the same costs (each key once in every shard, ties by shard
+    only), row 1 a few values many times; "zeros": -0.0 and +0.0 in turn
+    at the front of every shard, row 1 a shard of -0.0 beside one of
+    +0.0; "inf": row 0 all +inf in shard 0 only, row 1 in every shard but
+    the last, row 2 everywhere; "clamp": full shards, so that the ranks
+    past P*m - 1 read the last element."""
+    rng = np.random.default_rng(seed)
+    rows = np.full((P, B, K), INF, np.float32)
+    base = (rng.integers(0, 40, size=(B, K)) * 0.25).astype(np.float32)
+    for q in range(P):
+        rows[q] = base if case == "equal" else rng.integers(0, 40, size=(B, K)) * 0.25
+    if case == "equal":
+        rows[:, 1] = rng.choice(np.array([0.5, 1.0, 2.0], np.float32), size=K)
+    elif case == "zeros":
+        n = min(K - 2, 10)
+        for q in range(P):
+            rows[q, :, :n] = np.where(np.arange(n) % 2 == q % 2, -0.0, 0.0)
+            rows[q, 1, :n] = -0.0 if q % 2 else 0.0
+    elif case == "inf":
+        rows[0, 0] = INF
+        rows[:P - 1, 1] = INF
+        rows[:, 2] = INF
+    return [total_order(rows[q]) for q in range(P)]
+
+
+EDGE_CONFIGS = {
+    "equal": lambda P: dict(beam=9.0, max_active=5, min_active=3, beam_delta=0.5),
+    "zeros": lambda P: dict(beam=9.0, max_active=P + 3, min_active=2, beam_delta=0.5),
+    "inf": lambda P: dict(beam=0.75, max_active=12, min_active=6, beam_delta=0.25),
+    "clamp": lambda P: dict(beam=30.0, max_active=P * K + 3, min_active=P * K - 1,
+                            beam_delta=0.5),
+}
+EDGE_CASES = [(P, c) for P in (2, 3, 4, 8) for c in EDGE_CONFIGS]
+
+
+@pytest.mark.parametrize("P,case", EDGE_CASES, ids=[f"P{P}-{c}" for P, c in EDGE_CASES])
+def test_global_cutoff_merge_edges_match_jax(P, case):
+    """The merge's edge cases: K8's plain halves composed around the
+    collectives, and the kernel's method (:func:`search_merge`), equal the
+    JAX ``_global_cutoff`` bit for bit on every shard's result."""
+    kw = EDGE_CONFIGS[case](P)
+    costs = edge_costs(1000 * P + len(case), P, case)
+    want = jax_global_cutoff(costs, kw)
+    for merge in (global_cutoff_merge, search_merge):
+        got = port_global_cutoff(costs, kw, merge=merge)
+        for q in range(P):
+            same_bits(want[0][q], got.cutoff.numpy(), f"{merge.__name__}, shard {q}: cutoff")
+            same_bits(want[1][q], got.adaptive_beam.numpy(),
+                      f"{merge.__name__}, shard {q}: adaptive beam")
+    got = got.cutoff.numpy()
+    if case == "zeros":
+        assert got[1] == 0.0, "row 1's order statistic is a zero"
+    elif case == "inf":
+        assert np.isinf(got[2]) and np.isfinite(got[0])
+    elif case == "clamp":
+        assert np.isfinite(got).all(), "min_active at P*K - 1 binds on full shards"
+
+
+def wide_shards(seed: int, P: int, nb: int, m: int) -> torch.Tensor:
+    """(P, nb, m) prefixes as wide as the sharded phases' (m 2048), each
+    row in IEEE total order: costs on a 0.25 grid (ties within and across
+    shards), a run of -0.0 and +0.0 in turn at the front, +inf tails of
+    different lengths."""
+    rng = np.random.default_rng(seed)
+    rows = (rng.integers(-8, 120, size=(P, nb, m)) * 0.25).astype(np.float32)
+    rows[:, :, :m // 16] = np.where(np.arange(m // 16) % 2, -0.0, 0.0).astype(np.float32)
+    for q in range(P):
+        rows[q, :, m - int(rng.integers(0, m // 4)):] = INF
+    return torch.from_numpy(np.stack([total_order(rows[q]) for q in range(P)]))
+
+
+@pytest.mark.parametrize("P", [2, 3, 4, 8])
+def test_search_merge_wide_matches_sort(P):
+    """The kernel's method (:func:`search_merge`) against the sort-based
+    plain merge, bit for bit, on rows of m 2048, where each search takes
+    several rounds: at the sharded phases' targets (max_active 2560,
+    min_active 200), at the ends of the merged order and past it (the
+    clamp); rows whose count leaves a target unread and rows that read
+    both."""
+    m, nb = 2048, 4
+    merged = wide_shards(P, P, nb, m)
+    finite = torch.isfinite(merged).sum(dim=(0, 2), dtype=torch.int32)
+    count = torch.where(torch.arange(nb) % 2 == 1, 1 << 20, finite).to(torch.int32)
+    best = torch.where(torch.isfinite(merged), merged, INF).amin(dim=(0, 2))
+    for max_active, min_active in ((2560, 200), (P * m - 1, 1), (P * m + 5, P * m - 1)):
+        a = (best, count, merged, 15.0, 0.5, max_active, min_active)
+        want, got = global_cutoff_merge_plain(*a), search_merge(*a)
+        same_bits(want.cutoff, got.cutoff, (max_active, min_active, "cutoff"))
+        same_bits(want.adaptive_beam, got.adaptive_beam,
+                  (max_active, min_active, "adaptive beam"))

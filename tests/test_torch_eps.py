@@ -9,8 +9,14 @@ arrays past the K incumbents, as the sharded decoders build them).
 ``kernels.eps.eps_step_plain``, composed with K5's and the dedup call's
 plain versions over D = 2 iterations, is held against the JAX
 ``eps_closure_batched`` and ``eps_closure_rec_batched`` on the cyclic
-eps ring.  Inputs are made with numpy; every comparison is exact
-(float32 by its bits, -0.0 folded onto +0.0 where the JAX sorts fold it).
+eps ring; so is ``kernels.eps.eps_dedup`` on the CPU (the dedup call's
+plain version, then ``eps_step_plain``: the plain version of the card's
+dedup call with the eps step as its last step) over whole closures of
+D = 2 and 3: a batch that stops at iteration 0, inactive rows in the
+middle of the batch, the last iteration of a cyclic budget, a lattice row
+whose spill row is hit.  Inputs are made with numpy; every comparison is
+exact (float32 by its bits, -0.0 folded onto +0.0 where the JAX sorts
+fold it).
 """
 
 import jax
@@ -30,6 +36,7 @@ from kaldi_decoder_tpu_torch.kernels.dedup_rec import dedup_select_rec
 from kaldi_decoder_tpu_torch.kernels.eps import (
     EpsLanes,
     empty_eps_carry,
+    eps_dedup,
     eps_step_plain,
     expand_eps_lanes_plain,
 )
@@ -148,14 +155,14 @@ def test_expand_eps_lanes_plain_matches_jax(monkeypatch, graph, eps_rem_budget, 
     assert padding > 0
 
 
-def _ring_twins(exact):
-    """The 8-state eps ring's JAX and port configs (K 8, D = 2, eps_exact
-    as given) and packed tables."""
+def _ring_twins(exact, iters=2):
+    """The 8-state eps ring's JAX and port configs (K 8, D = ``iters``,
+    eps_exact as given) and packed tables."""
     cg = jax_compile_fst(_eps_ring(8))
     pg = graph_from_numpy(cg)
-    jfc, pfc = twin_configs(cg, pg, beam=50.0, min_active=0, frontier_size=8, eps_iters=2,
-                            eps_exact=exact)
-    assert (pfc.frontier_size, pfc.eps_iters, pfc.eps_exact) == (8, 2, exact)
+    jfc, pfc = twin_configs(cg, pg, beam=50.0, min_active=0, frontier_size=8,
+                            eps_iters=iters, eps_exact=exact)
+    assert (pfc.frontier_size, pfc.eps_iters, pfc.eps_exact) == (8, iters, exact)
     jpg = jax_pack(cg, jfc.block_width, jfc.eps_block_width, jfc.flat_group)
     return cg, jfc, pfc, jpg, packed_from_numpy(jpg, "cpu")
 
@@ -221,7 +228,7 @@ def test_eps_step_plain_closure_matches_jax(case, exact, lattice):
         "records" if lattice else "backpointers")
     _eq(jres[2], carry.overflow.numpy(), "overflow")
     _eq(jres[3], carry.saturated.numpy(), "saturated")
-    assert carry.flags[1:].tolist() == [0, 0]
+    assert carry.flags[1:].tolist() == [0]
     if case == "stops":
         assert ran == [False, False]
         assert bool(carry.changed[1])  # the inactive row changed, and did not count
@@ -231,3 +238,84 @@ def test_eps_step_plain_closure_matches_jax(case, exact, lattice):
     else:
         assert ran == [True, True]
         assert carry.overflow[0].item() == (not exact)
+
+
+# case: rows' tokens {state: cost}, their cutoffs, the rows still
+# decoding, D and r_eps.  "stop0": no active row changes at iteration 0
+# (rows closed under the ring's eps arcs, a row above its cutoff, an empty
+# row), so the batch stops there and iterations 1 and 2 write the identity
+# or -1; "inactive": rows 1 and 3 no longer decode (they change, and do
+# not count) between rows that do; "cyclic": RING_CASES' "runs" at D = 3,
+# a cyclic budget whose last iteration still changes; "spill": every token
+# on the ring at one cost, whose eps lanes tie their incumbents and are all
+# links, past r_eps = 2 (lattice only).
+EDGE_CASES = {
+    "stop0": ([{s: 0.0 for s in range(8)}, {0: 5.0}, {}, {s: 0.5 for s in range(8)}],
+              [10.0, 1.0, 10.0, 10.0], [True] * 4, 3, R_EPS),
+    "inactive": ([{0: 0.0}, {0: 0.0, 4: 1.0}, {3: 1.0, 5: 0.5}, {2: 0.25}, {}],
+                 [10.0] * 5, [True, False, True, False, True], 3, R_EPS),
+    "cyclic": (RING_CASES["runs"][0], [10.0, np.inf, 10.0], RING_CASES["runs"][1], 3, R_EPS),
+    "spill": ([{s: 0.0 for s in range(8)}, {0: 0.0}, {s: 0.0 for s in range(4)}],
+              [10.0] * 3, [True] * 3, 2, 2),
+}
+EDGE = [(c, lat) for c in sorted(EDGE_CASES) for lat in (False, True)
+        if lat or c != "spill"]
+
+
+@pytest.mark.parametrize("case,lattice", EDGE,
+                         ids=[f"{c}-{'lattice' if lat else 'viterbi'}" for c, lat in EDGE])
+def test_eps_dedup_plain_closure_matches_jax(case, lattice):
+    """``kernels.eps.eps_dedup`` on the CPU, over a whole closure (K5's
+    plain lanes, then the dedup call's plain version and the eps step's,
+    as one call), against the JAX batched closure: the frontier of the
+    rows still decoding, each iteration's backpointers or records, the
+    overflow and saturation flags, exactly; ``ran`` as the JAX loop leaves
+    it.  The cyclic budget (``eps_exact`` False) throughout, so that its
+    last iteration's overflow is in every case."""
+    tokens, cutoff, active, D, r_eps = EDGE_CASES[case]
+    cg, jfc, pfc, jpg, ppg = _ring_twins(False, D)
+    S, K, B = cg.num_states, pfc.frontier_size, len(tokens)
+    states = np.zeros((B, K), np.int32)
+    costs = np.full((B, K), np.inf, np.float32)
+    for b, row in enumerate(tokens):
+        order = sorted(row, key=lambda s: (row[s], s))
+        states[b, :len(order)] = order
+        costs[b, :len(order)] = [row[s] for s in order]
+    cutoff = np.array(cutoff, np.float32)
+    row_active = np.array(active)
+    jst = jfrontier.StepState(jnp.asarray(states), jnp.asarray(costs), jnp.zeros(B))
+    args = (jst, jnp.asarray(cutoff), jnp.asarray(row_active), jpg, jfc, S)
+    if lattice:
+        jres = jlattice_dev.eps_closure_rec_batched(*args, r_eps, SLACK)
+    else:
+        jres = jfrontier.eps_closure_batched(*args)
+
+    st = StepState(torch.from_numpy(states), torch.from_numpy(costs), None)
+    cut, ra = torch.from_numpy(cutoff), torch.from_numpy(row_active)
+    carry = empty_eps_carry(B, D, r_eps if lattice else K, lattice, "cpu")
+    ran = []
+    for d in range(D):
+        lanes = expand_eps_lanes_plain(st.states, st.costs, cut, ppg, pfc, True,
+                                       with_src_slot=not lattice, with_src_state=lattice)
+        sel = eps_dedup(d, carry, ra, lanes, False, K, S, SLACK if lattice else None)
+        st = StepState(sel.states, sel.costs, None)
+        ran.append(bool(carry.flags[0]))
+    _eq(np.asarray(jres[0].states)[row_active], st.states.numpy()[row_active], "states")
+    _eq(np.asarray(jres[0].costs)[row_active], st.costs.numpy()[row_active], "costs")
+    _eq(np.swapaxes(np.asarray(jres[1]), 0, 1), carry.out.numpy(),
+        "records" if lattice else "backpointers")
+    _eq(jres[2], carry.overflow.numpy(), "overflow")
+    _eq(jres[3], carry.saturated.numpy(), "saturated")
+    assert carry.flags[1:].tolist() == [0]
+    stopped = -1 if lattice else torch.stack(
+        [torch.arange(K, dtype=torch.int32), torch.full((K,), -1, dtype=torch.int32)], dim=-1)
+    if case == "stop0":
+        assert ran == [False] * D
+        assert all((carry.out[:, d] == stopped).all() for d in range(1, D))
+        assert not carry.overflow.any()
+    elif case == "inactive":
+        assert ran[0] and carry.changed[1] and carry.changed[3]
+    elif case == "cyclic":
+        assert ran == [True] * D and bool(carry.overflow[0]) and not bool(carry.overflow[2])
+    else:
+        assert carry.overflow[[0, 2]].all(), "rows 0 and 2 have more links than r_eps"

@@ -31,9 +31,9 @@ from kaldi_decoder_tpu_torch.kernels.dedup import dedup_select
 from kaldi_decoder_tpu_torch.kernels.dedup_rec import cluster_size as rec_cluster_size
 from kaldi_decoder_tpu_torch.kernels.dedup_rec import dedup_select_rec, stack_records
 from kaldi_decoder_tpu_torch.kernels.eps import (
+    EpsLanes,
     empty_eps_carry,
-    eps_step,
-    eps_step_plain,
+    eps_dedup,
     expand_eps_lanes,
     expand_eps_lanes_plain,
 )
@@ -1264,7 +1264,7 @@ def test_graph_driver_matches_eager_loop(card, kind):
         dec = BatchedViterbiDecoder(g, fc, pad_time_to=8, fold=False, device=card)
         st0, cfg, run = dec._init(B)[0], dec.cfg, viterbi_chunk
     S = g.num_states
-    counted = (expand_filter, dedup_select_rec, dedup_select, expand_eps_lanes, eps_step,
+    counted = (expand_filter, dedup_select_rec, dedup_select, expand_eps_lanes, eps_dedup,
                frame_tail, frame_start)
     decodes = _chunks(card, B, [[20, 7, 13], [11, 20, 3]], 20)
     results = []
@@ -1496,58 +1496,90 @@ def test_expand_eps_kernel_columns(card, cols):
     _same_lanes(ref, got, cols)
 
 
+def _eps_closures(card, graph, lattice, exact, nb, eps_rem_budget=None, D=3):
+    """Two closures of D iterations on one carry (``ran`` and the count
+    word carried in device memory, reset by each closure's first
+    iteration), each iteration's lanes K5's of the frontier the one before
+    left: the fused call (``eps_dedup``: K6, or K2's eps call with the K
+    incumbents first, whose last step is the eps step) against its plain
+    composition on CPU copies of the same lanes (the dedup call's plain
+    version, then ``eps_step_plain``), bitwise after every iteration: the
+    selection (costs by raw bits) and every field of the carry.  Rows
+    cycle through 64, 32, 0 and 21 tokens; every fourth from the third is
+    inactive.  On the depth-1 graph the batch stops after its first
+    iteration (``ran`` turns false, later rows the identity or -1); on the
+    ring it never stops, so without ``exact`` the last iteration flags
+    every active row.  Returns the eps lanes a row."""
+    g = _eps_graph(1 if graph == "depth1" else None)
+    kw = dict(eps_rem_budget=eps_rem_budget) if eps_rem_budget else {}
+    fc = config_for_graph(g, frontier_size=64, max_active=48, beam=10.0, rem_budget=4096, **kw)
+    dec = BatchedLatticeDecoder(g, fc, lattice_beam=5.0, em_records=512, pad_time_to=8,
+                                fold=False, device=card)
+    fc, pg, S, K = dec.cfg.frontier, dec._pg, g.num_states, dec.cfg.frontier.frontier_size
+    r_eps = dec.cfg.eps_records
+    width = r_eps if lattice else K
+    carry_k = empty_eps_carry(nb, D, width, lattice, card)
+    carry_p = empty_eps_carry(nb, D, width, lattice, "cpu")
+    row_active = torch.arange(nb) % 4 != 2
+    cut = torch.tensor([(3.0, 1.5, 2.0, 2.5)[b % 4] for b in range(nb)], dtype=torch.float32)
+    sb = dec.cfg.lattice_beam + 1e-4 if lattice else None
+    counter = dedup_select_rec if lattice else dedup_select
+    before = (counter.launches, eps_dedup.launches)
+    for closure in range(2):
+        states, costs = _eps_frontier(card, S, K, nb, seed=closure)
+        for d in range(D):
+            lanes = expand_eps_lanes(states, costs, cut.to(card), pg, fc, True,
+                                     with_src_slot=not lattice, with_src_state=lattice)
+            got = eps_dedup(d, carry_k, row_active.to(card), lanes, exact, K, S, sb)
+            cpu = EpsLanes(*(x.cpu() if x is not None else None for x in lanes))
+            want = eps_dedup(d, carry_p, row_active, cpu, exact, K, S, sb)
+            torch.cuda.synchronize()
+            where = (closure, d)
+            for f, w, x in zip(want._fields, want, got):
+                if w is not None:
+                    _same_bits(w, x.cpu(), (where, f))
+            assert carry_k.flags[1:].tolist() == [0], where  # the count word, cleared
+            assert bool(carry_k.flags[0]) == bool(carry_p.flags[0]), where
+            for f in ("overflow", "saturated", "changed"):
+                assert torch.equal(getattr(carry_k, f).cpu(), getattr(carry_p, f)), (where, f)
+            assert torch.equal(carry_k.out[:, d].cpu(), carry_p.out[:, d]), where
+            states, costs = got.states, got.costs
+        if graph == "depth1":
+            assert not bool(carry_k.flags[0])
+        elif not exact:
+            assert bool(carry_k.overflow.cpu()[row_active].all())
+    assert (counter.launches, eps_dedup.launches) == (before[0] + 2 * D, before[1] + 2 * D)
+    return lanes.dst.shape[1]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("exact", [True, False])
 @pytest.mark.parametrize("lattice", [False, True])
 @pytest.mark.parametrize("graph", ["depth1", "ring"])
 def test_eps_step_kernel_matches_plain(card, graph, lattice, exact):
-    """The eps step against its plain version over two closures of three
-    iterations on one carry (``ran`` and the batch's ``go`` carried in
-    device memory, reset by each closure's first iteration), each
-    iteration on the lanes of K5 and the dedup call (K6, or K2's eps call
-    with the K incumbents first) of the frontier the one before left:
-    every field of the carry bitwise after every step, a row inactive.  On
-    the depth-1 graph the batch stops after one iteration (``ran`` turns
-    false, later rows the identity or -1); on the ring it never stops, so
-    without ``exact`` the last iteration flags every active row."""
-    from kaldi_decoder_tpu_torch.decoders.frontier import StepState
+    """The eps step, run as the last step of the eps dedup call, against
+    the dedup call's plain version followed by ``eps_step_plain``
+    (:func:`_eps_closures`) at four rows, one inactive, ``eps_exact``
+    both ways."""
+    _eps_closures(card, graph, lattice, exact, 4)
 
-    g = _eps_graph(1 if graph == "depth1" else None)
-    fc = config_for_graph(g, frontier_size=64, max_active=48, beam=10.0, rem_budget=4096)
-    dec = BatchedLatticeDecoder(g, fc, lattice_beam=5.0, em_records=512, pad_time_to=8,
-                                fold=False, device=card)
-    fc, pg, S, K = dec.cfg.frontier, dec._pg, g.num_states, dec.cfg.frontier.frontier_size
-    r_eps, D, nb = dec.cfg.eps_records, 3, 4
-    width = r_eps if lattice else K
-    carry_k = empty_eps_carry(nb, D, width, lattice, card)
-    carry_p = empty_eps_carry(nb, D, width, lattice, card)
-    row_active = torch.tensor([True, True, False, True], device=card)
-    cut = torch.tensor([3.0, 1.5, 2.0, 2.5], dtype=torch.float32, device=card)
-    sb = dec.cfg.lattice_beam + 1e-4
-    for closure in range(2):
-        states, costs = _eps_frontier(card, S, K, nb, seed=closure)
-        st = StepState(states, costs, None)
-        for d in range(D):
-            lanes = expand_eps_lanes(st.states, st.costs, cut, pg, fc, True,
-                                     with_src_slot=not lattice, with_src_state=lattice)
-            if lattice:
-                sel = dedup_select_rec(lanes.dst, lanes.cost, K, S, K + r_eps, sb,
-                                       (lanes.src_state, lanes.arc_id), num_incumbents=K)
-            else:
-                sel = dedup_select(lanes.dst, lanes.cost, K, S)
-            eps_step(d, carry_k, row_active, lanes.overflow, sel, exact, lanes)
-            eps_step_plain(d, carry_p, row_active, lanes.overflow, sel, exact, lanes)
-            torch.cuda.synchronize()
-            assert carry_k.flags[1:].tolist() == [0, 0]  # the kernel's counters, cleared
-            assert bool(carry_k.flags[0]) == bool(carry_p.flags[0]), (closure, d)
-            for f in ("overflow", "saturated", "changed"):
-                assert torch.equal(getattr(carry_k, f), getattr(carry_p, f)), (closure, d, f)
-            assert torch.equal(carry_k.out[:, d], carry_p.out[:, d]), (closure, d)
-            st = StepState(sel.states, sel.costs, None)
-        if graph == "depth1":
-            assert not bool(carry_k.flags[0])
-        elif not exact:
-            assert bool(carry_k.overflow[row_active].all())
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("clusters", [8, 4, 2, 1])
+@pytest.mark.parametrize("lattice", [False, True])
+@pytest.mark.parametrize("nb", [1, 16])
+def test_eps_dedup_kernel_cluster_sizes(card, nb, lattice, clusters):
+    """The fused eps call (:func:`_eps_closures`, on the ring and on the
+    depth-1 graph where the batch stops) at B 1 and 16 with eps lanes of
+    each cluster size's width: at B = 1 the call runs clusters of 8, 4, 2
+    and 1 blocks (a row of N lanes takes at most the power of two that
+    leaves every block 1024 lanes); at B = 16 at most that many."""
+    R = {8: 9216, 4: 6144, 2: 3072, 1: 1024}[clusters]
+    for graph in ("ring", "depth1"):
+        N = _eps_closures(card, graph, lattice, False, nb, eps_rem_budget=R)
+        size = (rec_cluster_size(nb, N, incumbents=True, step=True) if lattice
+                else dedup_cluster_size(nb, N, step=True))
+        assert size == clusters if nb == 1 else 1 <= size <= clusters, (N, size)
 
 
 # ---------------------------------------------------------------------------
@@ -1712,7 +1744,6 @@ def test_eps_step_shard_kernel_matches_plain(card, nb, lattice, stops):
     step every field of the carry and the carried frontier bitwise."""
     from kaldi_decoder_tpu_torch.kernels.eps import (
         empty_shard_eps_carry,
-        eps_step,
         eps_step_shard,
         eps_step_shard_plain,
     )
@@ -1746,10 +1777,10 @@ def test_eps_step_shard_kernel_matches_plain(card, nb, lattice, stops):
                   em_num_unique=em_nu if d == 0 else None, reduce=d == 1)
         args = (sel, exp_ovf, route_ovf, red if d else None, my_base)
         eps_step_shard_plain(d, carries[0], *fronts[0], *args, **kw)
-        before = eps_step.launches
+        before = eps_step_shard.launches
         eps_step_shard(d, carries[1], *fronts[1], *args, **kw)
         torch.cuda.synchronize()
-        assert eps_step.launches == before + 1
+        assert eps_step_shard.launches == before + 1
         for name, w, g in zip(carries[0]._fields, *carries):
             if name == "out":
                 w, g = w[:, : d + 1], g[:, : d + 1]
@@ -2060,5 +2091,65 @@ def test_global_cutoff_kernels_match_plain(card, nb, P, K, name):
                               min_active, out=empty_cutoff(nb, card))
     torch.cuda.synchronize()
     assert global_cutoff_merge.launches == before + 1
+    _same_bits(want.cutoff, got.cutoff.cpu(), "cutoff")
+    _same_bits(want.adaptive_beam, got.adaptive_beam.cpu(), "adaptive beam")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["max_active", "min_active", "clamp"])
+@pytest.mark.parametrize("m", [4096, 2048, 1000, 3])
+@pytest.mark.parametrize("P", [1, 2, 4, 8])
+def test_global_cutoff_merge_kernel_shapes(card, P, m, name):
+    """K8's merge (staged in shared memory at P >= 2) against
+    ``global_cutoff_merge_plain`` on CPU copies, bitwise, at B 16, P 1 to
+    8 and prefixes of up to 4096 costs (128 KB a row at P = 8): the shards
+    of :func:`_cutoff_shards` (-0.0 and +0.0 ties at the order statistics,
+    an all-+inf row, counts at max_active and one above) with every key of
+    row 0 in every shard (ties across shards)."""
+    from kaldi_decoder_tpu_torch.kernels.cutoff import (
+        global_cutoff_merge,
+        global_cutoff_merge_plain,
+    )
+
+    beam, max_active, min_active, beam_delta = CUTOFF_CONFIGS[name](P, m)
+    rng = np.random.default_rng(P * 7 + m)
+    merged = _cutoff_shards(rng, P, 16, m, max_active)
+    merged[:, 0] = merged[0, 0]
+    merged = torch.from_numpy(np.ascontiguousarray(merged))
+    count = torch.isfinite(merged).sum(dim=(0, 2), dtype=torch.int32)
+    best = torch.where(torch.isfinite(merged), merged, np.inf).amin(dim=(0, 2))
+    want = global_cutoff_merge_plain(best, count, merged, beam, beam_delta, max_active,
+                                     min_active)
+    got = global_cutoff_merge(best.to(card), count.to(card), merged.to(card), beam, beam_delta,
+                              max_active, min_active)
+    torch.cuda.synchronize()
+    _same_bits(want.cutoff, got.cutoff.cpu(), "cutoff")
+    _same_bits(want.adaptive_beam, got.adaptive_beam.cpu(), "adaptive beam")
+
+
+@pytest.mark.cuda
+def test_global_cutoff_merge_kernel_refuses_past_shared_memory(card):
+    """A row of P*m costs past what a block's shared memory holds (P = 2,
+    m 32,768: 256 KB) raises, and launches nothing; P = 1 at that width
+    needs no stage and runs."""
+    from kaldi_decoder_tpu_torch.kernels.cutoff import (
+        global_cutoff_merge,
+        global_cutoff_merge_plain,
+    )
+
+    m = 32768
+    rng = np.random.default_rng(5)
+    merged = torch.from_numpy(np.ascontiguousarray(_cutoff_shards(rng, 2, 2, m, 100)))
+    count = torch.isfinite(merged).sum(dim=(0, 2), dtype=torch.int32)
+    best = torch.where(torch.isfinite(merged), merged, np.inf).amin(dim=(0, 2))
+    before = global_cutoff_merge.launches
+    with pytest.raises(RuntimeError, match="kd_cutoff_merge launch failed"):
+        global_cutoff_merge(best.to(card), count.to(card), merged.to(card), 15.0, 0.5, 100, 20)
+    torch.cuda.synchronize()
+    assert global_cutoff_merge.launches == before
+    one = merged[:1]
+    want = global_cutoff_merge_plain(best, count, one, 15.0, 0.5, 100, 20)
+    got = global_cutoff_merge(best.to(card), count.to(card), one.to(card), 15.0, 0.5, 100, 20)
+    torch.cuda.synchronize()
     _same_bits(want.cutoff, got.cutoff.cpu(), "cutoff")
     _same_bits(want.adaptive_beam, got.adaptive_beam.cpu(), "adaptive beam")
