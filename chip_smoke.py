@@ -240,7 +240,7 @@ K2_FRAMES = (150, 250)  # lattice frames on whose lanes K2 is timed (and checked
 # is checked and timed.
 K2_EPS_FRAMES = (150, 250)
 TIMING_REPS = 10
-CLUSTER_SIZES = (8, 4, 2, 1)  # the blocks a row K3 and K5 are held and timed at
+CLUSTER_SIZES = (8, 4, 2, 1)  # the blocks a row K3, K5 and the shard modes are held and timed at
 VITERBI_CONFIG = dict(
     beam=15.0, max_active=2560, min_active=200, frontier_size=4096, rem_budget=49152,
 )
@@ -2746,12 +2746,17 @@ def hold_shard_route(kept, eps_iters, tag):
         global_cutoff_merge,
         global_cutoff_merge_plain,
     )
-    from kaldi_decoder_tpu_torch.kernels.eps import eps_step_shard, eps_step_shard_plain
+    from kaldi_decoder_tpu_torch.kernels.eps import (
+        eps_step_shard,
+        eps_step_shard_plain,
+        shard_step_cluster_size,
+    )
     from kaldi_decoder_tpu_torch.kernels.frame import (
         empty_shard_outs,
         frame_tail_shard,
         frame_tail_shard_plain,
         shard_args,
+        shard_cluster_size,
     )
     from kaldi_decoder_tpu_torch.kernels.route import (
         route_recv,
@@ -2803,45 +2808,81 @@ def hold_shard_route(kept, eps_iters, tag):
     errs["k7_send"] = errs["k7_recv"] = 0.0
     if eps_iters:
         args, kw = kept["eps_step_shard", eps_iters + SHARD_FRAME * eps_iters]
-        ref_args, got_args = clone(args), clone(args)
+        ref_args = clone(args)
         eps_step_shard_plain(*ref_args, **kw)
-        eps_step_shard(*got_args, **kw)
-        torch.cuda.synchronize()
-        same_fields(ref_args[1], got_args[1], "the eps step's shard mode (carry)", where)
-        for name, r, g in zip(("states", "costs"), ref_args[2:4], got_args[2:4]):
-            if not torch.equal(r.view(torch.int32), g.view(torch.int32)):
-                raise AssertionError(f"the eps step's shard mode differs from plain on {where}: "
-                                     f"the carried {name}")
         sel = args[4]
-        times["eps_step_shard"] = time_kernel(
-            f"eps step, shard mode, at {where} (B={sel.states.shape[0]}, K "
-            f"{sel.states.shape[1]}, width {args[1].out.shape[2]})",
+        B, K = sel.states.shape
+        chosen = shard_step_cluster_size(B, K)
+
+        def held(g):
+            """The step on a fresh copy of the captured arguments at g blocks
+            a row (0: its own choice), held bitwise; returns the copy."""
+            got_args = clone(args)
+            eps_step_shard(*got_args, **kw, clusters=g)
+            torch.cuda.synchronize()
+            same_fields(ref_args[1], got_args[1],
+                        f"the eps step's shard mode (carry) at {g or chosen} blocks a row", where)
+            for name, r, gt in zip(("states", "costs"), ref_args[2:4], got_args[2:4]):
+                if not torch.equal(r.view(torch.int32), gt.view(torch.int32)):
+                    raise AssertionError(f"the eps step's shard mode differs from plain on "
+                                         f"{where} at {g or chosen} blocks a row: the carried "
+                                         f"{name}")
+            return got_args
+
+        got_args = held(0)
+        t = time_kernel(
+            f"eps step, shard mode, at {where} (B={B}, K {K}, width {args[1].out.shape[2]}, "
+            f"{chosen} blocks a row)",
             lambda: eps_step_shard(*got_args, **kw), lambda: eps_step_shard_plain(*ref_args, **kw),
             eps_step_shard_work(sel, args[1], kw.get("lanes"), False))
+        t["clusters"], t["ms_by_clusters"] = chosen, {}
+        for g in CLUSTER_SIZES:
+            g_args = held(g)
+            t["ms_by_clusters"][g] = device_ms(lambda: eps_step_shard(*g_args, **kw, clusters=g))
+        t["share_by_clusters"] = {g: t["bound_ms"] / ms for g, ms in t["ms_by_clusters"].items()}
+        log(f"    chosen {chosen} blocks a row; at 8, 4, 2, 1: device ms (share of the bound) "
+            + ", ".join(f"{g}: {ms:.4f} ({t['share_by_clusters'][g]:.1%})"
+                        for g, ms in t["ms_by_clusters"].items()) + ", each equal to plain")
+        times["eps_step_shard"] = t
         errs["eps_step_shard"] = 0.0
     args, _ = kept["frame_tail_shard", SHARD_FRAME]
     targs, st, cutoff, tin, lengths, outs, slot_base = args
     t = int(targs[0])
     fa = lengths > t
     final, ref = frame_tail_shard_plain(st, cutoff, tin, fa, slot_base)
-    got = clone(args)
-    frame_tail_shard(*got)
-    torch.cuda.synchronize()
-    same_fields(final, got[1], "K3's shard mode (state)", where)
-    same_fields(ref, type(ref)(*(x[t] for x in got[5])), "K3's shard mode (outputs)", where)
-    if got[0].tolist() != [t + 1, 0]:
-        raise AssertionError(f"K3's shard mode on {where}: t and the count {got[0].tolist()}")
-    # Timed on a table of its own from t = 0, into outputs of 64 rows (the
-    # calls timed are fewer).
     B, K = st.states.shape
+    chosen = shard_cluster_size(B, K)
+    for g in (0,) + CLUSTER_SIZES:
+        at = f"{where}, {g or chosen} blocks a row"
+        got = clone(args)
+        frame_tail_shard(*got, clusters=g)
+        torch.cuda.synchronize()
+        same_fields(final, got[1], "K3's shard mode (state)", at)
+        same_fields(ref, type(ref)(*(x[t] for x in got[5])), "K3's shard mode (outputs)", at)
+        if got[0].tolist() != [t + 1, 0]:
+            raise AssertionError(f"K3's shard mode on {at}: t and the count {got[0].tolist()}")
+    # Timed on a table of its own from t = 0, into outputs of 64 rows (the
+    # calls timed are fewer), begun again for each cluster size.
     lattice = tin.em_records is not None
     t_outs = empty_shard_outs(64, B, K, outs[1].shape[2], lattice, st.states.device,
                               *((outs[0].shape[2], outs[1].shape[3]) if lattice else ()))
     t_args, t_st = shard_args(st.states.device), clone(st)
-    times["k3_shard"] = time_kernel(
-        f"K3 shard mode at {where} (B={B}, K {K}, {'lattice' if lattice else '1-best'})",
+    tk = time_kernel(
+        f"K3 shard mode at {where} (B={B}, K {K}, {'lattice' if lattice else '1-best'}, "
+        f"{chosen} blocks a row)",
         lambda: frame_tail_shard(t_args, t_st, cutoff, tin, lengths, t_outs, slot_base),
         lambda: frame_tail_shard_plain(st, cutoff, tin, fa, slot_base), k3_shard_work(tin, fa))
+    tk["clusters"], tk["ms_by_clusters"] = chosen, {}
+    for g in CLUSTER_SIZES:
+        t_args, t_st = shard_args(st.states.device), clone(st)
+        tk["ms_by_clusters"][g] = device_ms(
+            lambda: frame_tail_shard(t_args, t_st, cutoff, tin, lengths, t_outs, slot_base,
+                                     clusters=g))
+    tk["share_by_clusters"] = {g: tk["bound_ms"] / ms for g, ms in tk["ms_by_clusters"].items()}
+    log(f"    chosen {chosen} blocks a row; at 8, 4, 2, 1: device ms (share of the bound) "
+        + ", ".join(f"{g}: {ms:.4f} ({tk['share_by_clusters'][g]:.1%})"
+                    for g, ms in tk["ms_by_clusters"].items()) + ", each equal to plain")
+    times["k3_shard"] = tk
     errs["k3_shard"] = 0.0
     (costs, m), kw = kept["global_cutoff_local", SHARD_FRAME]
     out = kw["out"]
@@ -3511,7 +3552,8 @@ def main():
                 for P in par for sfx in ("", "_eps") if kernel + sfx in par[P][0][phase][3]
                 and (P, phase, sfx) != but
                 for f in ("ms", "plain_ms", "bound_ms", "bound_by", "share_of_bound",
-                          "wrapper_ms", "plain_wrapper_ms", "clusters", "ms_by_clusters")
+                          "wrapper_ms", "plain_wrapper_ms", "clusters", "ms_by_clusters",
+                          "share_by_clusters")
                 if f in par[P][0][phase][3][kernel + sfx]}
 
     def shard_entry(name, source, replaces, key, by, **extra):
@@ -3674,11 +3716,16 @@ def main():
                     "kaldi_decoder_tpu/parallel/graph_shard.py:313", "k7_recv", "k7_recv"),
         shard_entry("eps step, shard mode (a sharded eps iteration's closing step: backpointers "
                     "or links, the batch-wide stop, the carry, the local changed, the frame's "
-                    "local values)", "eps.cu", "kaldi_decoder_tpu/parallel/graph_shard.py:422",
-                    "eps_step_shard", "eps_step_shard"),
+                    "local values; a cluster of blocks a row)", "eps.cu",
+                    "kaldi_decoder_tpu/parallel/graph_shard.py:422", "eps_step_shard",
+                    "eps_step_shard", **{f: par[1][0]["shard_viterbi"][3]["eps_step_shard"][f]
+                                         for f in ("clusters", "ms_by_clusters",
+                                                   "share_by_clusters")}),
         shard_entry("K3 frame_tail, shard mode (the sharded frame's rebase, freeze and outputs "
-                    "into row t)", "frame.cu", "kaldi_decoder_tpu/parallel/graph_shard.py:540",
-                    "k3_shard", "k3_shard"),
+                    "into row t; a cluster of blocks a row)", "frame.cu",
+                    "kaldi_decoder_tpu/parallel/graph_shard.py:540", "k3_shard", "k3_shard",
+                    **{f: par[1][0]["shard_viterbi"][3]["k3_shard"][f]
+                       for f in ("clusters", "ms_by_clusters", "share_by_clusters")}),
         shard_entry("K8 global_cutoff_local (the sharded GetCutoff's local half: each row's "
                     "best cost, finite count and cost prefix, before the collectives)",
                     "cutoff.cu", "kaldi_decoder_tpu/parallel/graph_shard.py:447", "k8_local",

@@ -3,6 +3,7 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stddef.h>
 #include <stdint.h>
 
 #include <map>
@@ -48,6 +49,21 @@ __device__ __forceinline__ int block_exclusive_scan(int v, int* smem, int* total
 }
 __device__ __forceinline__ int block_exclusive_scan(int v, int* smem, int* total) {
   return block_exclusive_scan(v, smem, total, [](int a, int b) { return a + b; }, 0);
+}
+
+// Block `rank` of 2^lg's share [x, y) of n items: ranges of a multiple of
+// 32 items in rank order (a block may own none).
+__device__ __forceinline__ int2 share(int n, int lg, int rank) {
+  const int per = (((n + (1 << lg) - 1) >> lg) + 31) & ~31;
+  const int lo = min(n, rank * per);
+  return make_int2(lo, min(n, lo + per));
+}
+
+// x as the compiler must have it here: its first use, and the wait for the
+// load that gives it, stay after the loads issued before this point.
+__device__ __forceinline__ int pin(int x) {
+  asm volatile("" : "+r"(x));
+  return x;
 }
 
 // -0.0 and +0.0 compare equal in the sorts of the reference; give them

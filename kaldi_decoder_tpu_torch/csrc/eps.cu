@@ -501,6 +501,7 @@ extern "C" int kd_expand_eps(const void* states, const void* costs, const void* 
       static_cast<int*>(arc_id), static_cast<unsigned char*>(overflow));
 }
 
+
 // ---- The eps step's shard mode ----------------------------------------------
 //
 // Replaces the bookkeeping of the JAX package's sharded closure, which runs
@@ -519,26 +520,74 @@ extern "C" int kd_expand_eps(const void* states, const void* costs, const void* 
 // the ranks: each row's smallest finite cost (its first smallest in slot
 // order, the bits of that slot) and count of finite costs, and the flag
 // pair (the emitting call's flags are folded in at d = 0, where no stop
-// masks them).  Bounds: the bytes of the K winning lanes' payload or the
-// records and one iteration's row of backpointers or links, under 1 MB at
-// B = 16.  One block a row of STEP_THREADS; the batch's flags carried in
-// device memory: every block reads `stop` first, ORs into the accumulators
-// and counts itself done with an atomic after a fence, and the last one
-// writes the iteration's flags and clears the accumulators and the count.
+// masks them).  A value is only copied or compared: bitwise equal to plain.
 // (The unsharded step runs as the last step of the eps dedup call,
 // eps_step.cuh.)
+//
+// What bounds it: bytes, the K winning lanes' routed slot and arc (1-best)
+// or the records (lattice), the selection and the carried frontier, one
+// iteration's row of backpointers or links: 1.1-1.9 MB at B = 16, K 2048,
+// some 0.0003-0.0006 ms at 3.35 TB/s; at these sizes what is left is a
+// launch and a chain of dependent loads.
+//
+// The design: a cluster of G blocks a row (G = 8, 4, 2 or 1: the largest
+// whose B clusters all run at once with at least STEP_MIN_SLOTS slots a
+// block), so that at B = 16 some 128 SMs move the bytes.  Block r takes
+// its 1/G of the row's K slots and of its R_rec records (ranges of a
+// multiple of 32, in rank order; a block may own none) and writes the
+// backpointer or link rows and carried slots it owns.  Every thread issues
+// its loads at its start, beside the two flag loads that give `stop`
+// (cand_idx then the routed lanes' gslot and arc, the selection, the
+// carried costs, the records) and selects by `stop` afterwards: when the
+// batch has stopped no block writes the carried frontier, so reading it
+// early is safe.  Each block reduces its partials (the changed bit, the
+// link and finite counts, the 64-bit (ordered cost, slot) min key and that
+// slot's cost bits) and stores them into rank 0's shared memory with
+// st.async, completing on rank 0's mbarrier, after the one cluster barrier
+// that tells that rank 0 runs with its mbarrier set: no remote atomic (a
+// 64-bit atomicMin on another block's shared memory lost updates at 8
+// blocks a row, PERF.md).  The min key carries the slot, so the first
+// smallest in slot order is the same whatever the split.  Rank 0 alone
+// writes the row's scalars (red_min, red_count) and does the batch-wide
+// part: one acquire-release 64-bit add on ShardFlags.count that counts its
+// cluster done and carries whether its row changed, overflowed or
+// saturated (16 bits each), whose answer tells the last of the B clusters
+// the batch's three flags: it writes stop, the running overflow and
+// saturation, `changed` and clears the count.  The hazard: flags.stop is
+// overwritten by the last cluster, so every block of every row must have
+// read it first; each block stores its partials only after it has used
+// `stop`, and rank 0 counts its row done only once its mbarrier holds
+// every block's partials.
 
 namespace {
 
-constexpr int STEP_THREADS = 512;
-constexpr int STEP_UNROLL = 4;
+constexpr int STEP_THREADS = 256;
+constexpr int STEP_WARPS = STEP_THREADS / 32;
+constexpr int STEP_UNROLL = 4;        // slots and records in flight a thread
+constexpr int STEP_MIN_SLOTS = 256;   // the fewest slots a block of the step takes
+constexpr unsigned long long ROW_DONE = 1ull, ROW_CHANGED = 1ull << 16,
+                             ROW_OVF = 1ull << 32, ROW_SAT = 1ull << 48;
+constexpr int STEP_MAX_ROWS = (1 << 16) - 1;  // each 16-bit field of the count holds up to B
 
-// kernels/eps.py ShardEpsCarry.flags (SHARD_FLAG_WORDS).
+// kernels/eps.py ShardEpsCarry.flags (SHARD_FLAG_WORDS int32 words; the
+// plain version writes words 0, 5 and 6, the kernel leaves the rest 0).
 struct ShardFlags {
-  int stop;        // the batch has stopped before this iteration
-  int go, o, s;    // OR of the rows' changed, overflow, saturation, this iteration
-  unsigned done;   // blocks done with this iteration
-  int ovf, sat;    // running over the iterations, unless stopped
+  int stop;                  // the batch has stopped before this iteration
+  int unused1;
+  unsigned long long count;  // this iteration: ROW_DONE, ROW_CHANGED, ROW_OVF, ROW_SAT each
+  int unused4;
+  int ovf, sat;              // running over the iterations, unless stopped
+};
+static_assert(offsetof(ShardFlags, count) == 8 && offsetof(ShardFlags, ovf) == 20 &&
+                  offsetof(ShardFlags, sat) == 24,
+              "ShardFlags' words");
+
+// A block's partials, stored into rank 0's shared memory as two 16-byte
+// stores: its smallest (ordered cost, slot) key (~0: no finite cost) and
+// that slot's cost bits, its finite and link counts, its changed bit.
+struct __align__(16) StepPart {
+  unsigned key_hi, key_lo, bits;
+  int finite, links, changed, unused0, unused1;
 };
 
 struct ShardStepArgs {
@@ -566,131 +615,231 @@ struct ShardStepArgs {
   int* red_flags;                   // (2,)
 };
 
+__device__ __forceinline__ unsigned long long min_key(unsigned long long v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = min(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
 template <bool LATTICE>
 __global__ void __launch_bounds__(STEP_THREADS) eps_step_shard_kernel(ShardStepArgs a) {
-  __shared__ int s_stop;
-  __shared__ int smem[32];
-  __shared__ unsigned long long s_min;
-  const int b = blockIdx.x;
+  __shared__ StepPart s_part[MOST];  // rank 0's: every block's partials
+  __shared__ uint64_t s_parts;       // rank 0's: complete when they have landed
+  __shared__ unsigned long long w_key[STEP_WARPS];
+  __shared__ unsigned w_bits[STEP_WARPS];
+  __shared__ int4 w_sums[STEP_WARPS];  // each warp's finite, links, changed
+  cg::cluster_group cluster = cg::this_cluster();
+  const int G = (int)cluster.num_blocks();  // 1, 2, 4 or 8
+  const int lg = __ffs(G) - 1;
+  const int rank = (int)cluster.block_rank();
+  const int b = blockIdx.x >> lg;
   const int tid = threadIdx.x;
-  if (tid == 0) {
-    s_stop = a.d > 0 && (__ldcg(&a.flags->stop) != 0 || __ldcg(a.changed_prev) == 0);
-    s_min = ~0ull;
+  const bool lead = rank == 0 && tid == 0;  // writes the row's scalars and counts it done
+  if (lead) {
+    kdtorch::mbar_init(&s_parts, 1);
+    kdtorch::mbar_arrive_expect_tx(&s_parts, G * (unsigned)sizeof(StepPart));
+  }
+
+  // What does not wait: the flags that give `stop` (every thread, a
+  // broadcast load); rank 0's row flags.
+  const bool later = a.d > 0;
+  int f_stop = 0, f_prev = 1;
+  if (later) {
+    f_stop = __ldcg(&a.flags->stop);
+    f_prev = __ldcg(a.changed_prev);
+  }
+  const int K = a.K;
+  bool o = false, s = false;
+  if (lead) {
+    o = a.exp_ovf[b] || a.route_ovf[b];
+    if (LATTICE) o = o || a.rec_ovf[b];
+    for (int i = 0; i < 3; ++i)
+      if (a.em_ovf[i] != nullptr) o = o || a.em_ovf[i][b];
+    s = a.num_unique[b] > K;
+    if (a.em_num_unique != nullptr) s = s || a.em_num_unique[b] > K;
+  }
+  kdtorch::cluster_arrive();  // the block runs (rank 0: its mbarrier is set)
+
+  // The block's slots and records, a round of loads before any store.
+  const size_t row = (size_t)b * K;
+  const size_t lanes = (size_t)b * a.N;
+  const int4* rec = a.records + (size_t)b * a.R_rec;
+  int2* dst = a.out + ((size_t)b * a.D + a.d) * a.width;
+  const int2 kr = kdtorch::share(K, lg, rank);
+  const int2 rr = LATTICE ? kdtorch::share(a.R_rec, lg, rank) : make_int2(0, 0);
+  const int nk = kr.y - kr.x, nr = rr.y - rr.x;
+  bool changed = false;
+  int finite = 0, links = 0;
+  unsigned long long mn = ~0ull;  // the thread's smallest (ordered cost, slot)
+  unsigned mbits = 0;             // that slot's cost bits
+  for (int i0 = tid; i0 < max(nk, nr); i0 += STEP_UNROLL * STEP_THREADS) {
+    int ci[STEP_UNROLL], ss[STEP_UNROLL];
+    float sc[STEP_UNROLL], oc[STEP_UNROLL];
+    int2 bp[STEP_UNROLL];
+    int4 rv[STEP_UNROLL];
+#pragma unroll
+    for (int u = 0; u < STEP_UNROLL; ++u) {
+      const int i = i0 + u * STEP_THREADS;
+      if (i < nk) {
+        const size_t k = row + kr.x + i;
+        ci[u] = a.cand_idx[k];
+        ss[u] = a.sel_states[k];
+        sc[u] = a.sel_costs[k];
+        oc[u] = a.costs[k];
+      }
+      if (LATTICE && i < nr) rv[u] = rec[rr.x + i];
+    }
+    if (!LATTICE) {
+#pragma unroll
+      for (int u = 0; u < STEP_UNROLL; ++u) {
+        if (i0 + u * STEP_THREADS < nk)
+          bp[u] = ci[u] >= 0 ? make_int2(a.gslot[lanes + ci[u]], a.arc[lanes + ci[u]])
+                             : make_int2(0, -1);
+      }
+    }
+    const bool stop = later && (kdtorch::pin(f_stop) != 0 || kdtorch::pin(f_prev) == 0);
+#pragma unroll
+    for (int u = 0; u < STEP_UNROLL; ++u) {
+      const int i = i0 + u * STEP_THREADS;
+      if (i < nk) {
+        const int k = kr.x + i;
+        if (LATTICE) {
+          changed |= ci[u] >= K && isfinite(sc[u]);
+        } else {
+          changed |= ci[u] >= 0 && bp[u].y != -1;
+          dst[k] = stop ? make_int2(a.slot_base + k, -1) : bp[u];
+        }
+        float c = oc[u];
+        if (!stop) {  // the carried frontier: the selection's unless stopped
+          a.states[row + k] = ss[u];
+          a.costs[row + k] = sc[u];
+          c = sc[u];
+        }
+        if (isfinite(c)) {
+          const unsigned long long key =
+              (unsigned long long)kdtorch::ordered_key(c) << 32 | (unsigned)k;
+          if (key < mn) {
+            mn = key;
+            mbits = __float_as_uint(c);
+          }
+          ++finite;
+        }
+      }
+      if (LATTICE && i < nr) {
+        const int r = rr.x + i;
+        links += rv[u].z >= 0;
+        if (r < a.width) dst[r] = stop ? make_int2(-1, -1) : make_int2(rv[u].x, rv[u].y);
+      }
+    }
+  }
+
+  // The block's partials: each warp's, then warp 0's over the warps, into
+  // rank 0's shared memory.  A key holds its slot, so one lane holds it.
+  const int lane = tid & 31, warp = tid >> 5;
+  const unsigned long long wm = min_key(mn);
+  const int wf = __reduce_add_sync(0xffffffffu, finite);
+  const int wl = LATTICE ? __reduce_add_sync(0xffffffffu, links) : 0;
+  const int wc = (int)__reduce_or_sync(0xffffffffu, changed ? 1u : 0u);
+  if (mn == wm && wm != ~0ull) w_bits[warp] = mbits;
+  if (lane == 0) {
+    w_key[warp] = wm;
+    w_sums[warp] = make_int4(wf, wl, wc, 0);
   }
   __syncthreads();
-  const bool stop = s_stop != 0;
-  const int K = a.K;
-  const size_t row = (size_t)b * K;
-  int2* dst = a.out + ((size_t)b * a.D + a.d) * a.width;
-  bool changed = false;
-  int links = 0;
-  if (LATTICE) {
-    for (int k = tid; k < K; k += STEP_THREADS)
-      changed |= a.cand_idx[row + k] >= K && isfinite(a.sel_costs[row + k]);
-    const int4* rec = a.records + (size_t)b * a.R_rec;
-    for (int r = tid; r < a.R_rec; r += STEP_THREADS) {
-      const int4 v = rec[r];
-      links += v.z >= 0;
-      if (r < a.width) dst[r] = stop ? make_int2(-1, -1) : make_int2(v.x, v.y);
-    }
-  } else {
-    const size_t lanes = (size_t)b * a.N;
-    for (int k0 = tid; k0 < K; k0 += STEP_UNROLL * STEP_THREADS) {
-      int ci[STEP_UNROLL];
-      int2 bp[STEP_UNROLL];
-#pragma unroll
-      for (int u = 0; u < STEP_UNROLL; ++u) {
-        const int k = k0 + u * STEP_THREADS;
-        ci[u] = k < K ? a.cand_idx[row + k] : -1;
-      }
-#pragma unroll
-      for (int u = 0; u < STEP_UNROLL; ++u)
-        bp[u] = ci[u] >= 0 ? make_int2(a.gslot[lanes + ci[u]], a.arc[lanes + ci[u]])
-                           : make_int2(0, -1);
-#pragma unroll
-      for (int u = 0; u < STEP_UNROLL; ++u) {
-        const int k = k0 + u * STEP_THREADS;
-        if (k >= K) continue;
-        changed |= ci[u] >= 0 && bp[u].y != -1;
-        dst[k] = stop ? make_int2(a.slot_base + k, -1) : bp[u];
-      }
-    }
+  kdtorch::cluster_wait();  // every block runs: rank 0's mbarrier is set
+  if (warp == 0) {
+    const unsigned long long k = lane < STEP_WARPS ? w_key[lane] : ~0ull;
+    const int4 v = lane < STEP_WARPS ? w_sums[lane] : make_int4(0, 0, 0, 0);
+    const unsigned long long bm = min_key(k);
+    const int at = __ffs(__ballot_sync(0xffffffffu, k == bm)) - 1;
+    const unsigned bits = __shfl_sync(0xffffffffu, lane < STEP_WARPS ? w_bits[lane] : 0u, at);
+    const int bf = __reduce_add_sync(0xffffffffu, v.x);
+    const int bl = __reduce_add_sync(0xffffffffu, v.y);
+    const int bc = (int)__reduce_or_sync(0xffffffffu, (unsigned)v.z);
+    int4* to = reinterpret_cast<int4*>(s_part + rank);
+    if (lane == 0)
+      kdtorch::store_remote(to, make_int4((int)(bm >> 32), (int)(unsigned)bm, (int)bits, bf),
+                            &s_parts, 0);
+    if (lane == 1) kdtorch::store_remote(to + 1, make_int4(bl, bc, 0, 0), &s_parts, 0);
   }
-  // The carried frontier: the selection's unless stopped.
-  unsigned long long mn = ~0ull;
-  int finite = 0;
-  for (int k = tid; k < K; k += STEP_THREADS) {
-    float c;
-    if (!stop) {
-      a.states[row + k] = a.sel_states[row + k];
-      c = a.sel_costs[row + k];
-      a.costs[row + k] = c;
-    } else {
-      c = a.costs[row + k];
-    }
-    if (isfinite(c)) {
-      mn = min(mn, (unsigned long long)kdtorch::ordered_key(c) << 32 | (unsigned)k);
-      ++finite;
-    }
-  }
-  changed = __syncthreads_or(changed);
-  int total_links = 0, total_finite = 0;
-  if (LATTICE) kdtorch::block_exclusive_scan(links, smem, &total_links);
+  if (rank != 0 || warp != 0) return;
+
+  // Rank 0: the row's totals, from every block's partials.
+  kdtorch::mbar_wait_cluster(&s_parts, 0);
+  StepPart q{~0u, ~0u, 0u, 0, 0, 0, 0, 0};
+  if (lane < G) q = s_part[lane];
+  const unsigned long long key = (unsigned long long)q.key_hi << 32 | q.key_lo;
+  const unsigned long long rm = min_key(key);
+  const int at = __ffs(__ballot_sync(0xffffffffu, key == rm)) - 1;
+  const unsigned rbits = __shfl_sync(0xffffffffu, q.bits, at);
+  const int total_finite = __reduce_add_sync(0xffffffffu, q.finite);
+  const int total_links = __reduce_add_sync(0xffffffffu, q.links);
+  const bool row_changed = __reduce_or_sync(0xffffffffu, (unsigned)q.changed) != 0;
+  if (!lead) return;
+  if (LATTICE) o = o || total_links > a.width;  // the spill: links past the rows kept
   if (a.reduce) {
-    kdtorch::block_exclusive_scan(finite, smem, &total_finite);
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) mn = min(mn, __shfl_xor_sync(0xffffffffu, mn, o));
-    if ((tid & 31) == 0) atomicMin(&s_min, mn);
-    __syncthreads();  // s_min, and the carried costs written above
-  }
-  if (tid != 0) return;
-  bool o = a.exp_ovf[b] || a.route_ovf[b];
-  if (LATTICE) o = o || a.rec_ovf[b] || total_links > a.width;
-  bool s = a.num_unique[b] > K;
-  for (int i = 0; i < 3; ++i)
-    if (a.em_ovf[i] != nullptr) o = o || a.em_ovf[i][b];
-  if (a.em_num_unique != nullptr) s = s || a.em_num_unique[b] > K;
-  if (a.reduce) {
-    a.red_min[b] = s_min == ~0ull ? INFINITY : a.costs[row + (unsigned)(s_min & 0xffffffffu)];
+    a.red_min[b] = rm == ~0ull ? INFINITY : __uint_as_float(rbits);
     a.red_count[b] = total_finite;
   }
-  if (changed) atomicOr(&a.flags->go, 1);
-  if (o) atomicOr(&a.flags->o, 1);
-  if (s) atomicOr(&a.flags->s, 1);
-  __threadfence();
-  if (atomicAdd(&a.flags->done, 1u) == gridDim.x - 1) {  // every block has read `stop`
-    __threadfence();
-    const bool go = atomicOr(&a.flags->go, 0) != 0;
-    const bool any_o = atomicOr(&a.flags->o, 0) != 0;
-    const bool any_s = atomicOr(&a.flags->s, 0) != 0;
-    const bool ovf = (a.d > 0 && a.flags->ovf != 0) || (!stop && any_o);
-    const bool sat = (a.d > 0 && a.flags->sat != 0) || (!stop && any_s);
-    a.flags->stop = stop;
-    a.flags->ovf = ovf;
-    a.flags->sat = sat;
-    a.flags->go = a.flags->o = a.flags->s = 0;
-    a.flags->done = 0;
-    *a.changed = go;
-    if (a.reduce) {
-      a.red_flags[0] = ovf;
-      a.red_flags[1] = sat;
-    }
+  // The count, acquire-release at device scope: the last cluster's reads
+  // and writes after every other's count.
+  const unsigned long long mine =
+      ROW_DONE + (row_changed ? ROW_CHANGED : 0) + (o ? ROW_OVF : 0) + (s ? ROW_SAT : 0);
+  unsigned long long seen;
+  asm volatile("atom.acq_rel.gpu.add.u64 %0, [%1], %2;\n"
+               : "=l"(seen)
+               : "l"(&a.flags->count), "l"(mine)
+               : "memory");
+  seen += mine;
+  if ((seen & 0xffffu) != (unsigned)a.B) return;
+  // The last cluster: every block of every row has read `stop`.
+  const bool stop = later && (f_stop != 0 || f_prev == 0);
+  const bool go = ((seen >> 16) & 0xffffu) != 0;
+  const bool any_o = ((seen >> 32) & 0xffffu) != 0;
+  const bool any_s = (seen >> 48) != 0;
+  const bool ovf = (later && a.flags->ovf != 0) || (!stop && any_o);
+  const bool sat = (later && a.flags->sat != 0) || (!stop && any_s);
+  a.flags->stop = stop;
+  a.flags->ovf = ovf;
+  a.flags->sat = sat;
+  a.flags->count = 0;
+  *a.changed = go;
+  if (a.reduce) {
+    a.red_flags[0] = ovf;
+    a.red_flags[1] = sat;
   }
+}
+
+// The most blocks a row's cluster takes for K slots: at least STEP_MIN_SLOTS a block.
+int step_cluster_cap(int K) {
+  int c = MOST;
+  while (c > 1 && K / c < STEP_MIN_SLOTS) c /= 2;
+  return c;
 }
 
 }  // namespace
 
+// The blocks a row (a cluster) the eps step's shard mode launches with for
+// B rows of K slots (kdtorch::pick_cluster, at most step_cluster_cap(K));
+// 0 when none fits.  The 1-best instance takes what the lattice one is given.
+extern "C" int kd_eps_step_shard_cluster(int B, int K) {
+  return kdtorch::pick_cluster(eps_step_shard_kernel<true>, B, STEP_THREADS, K,
+                               [](int) { return (size_t)0; }, step_cluster_cap(K));
+}
+
 // Launches the eps step's shard mode for iteration d of D on `stream`: B
-// blocks, the lattice instance when `lattice` is set.  Shapes: cand_idx,
-// sel_states (B, K) int32, sel_costs (B, K) float32, num_unique (B,)
-// int32; exp_ovf, route_ovf and the em_ovf given (B,) bool, em_num_unique
-// (B,) int32 or null; changed_prev (1,) int32 (read when d > 0); flags 7
-// int32 words, changed (1,) int32; states/costs (B, K) the carried
-// frontier; out (B, D, width, 2) int32; red_min (B,) float32, red_count
-// (B,) int32, red_flags (2,) int32 (written when `reduce`).  1-best:
-// gslot/arc (B, N) int32, width = K; lattice: rec_ovf (B,) bool, records
-// (B, R_rec, 4) int32 with R_rec >= width.  Returns the launch's CUDA
-// error.
+// clusters of G blocks (G = `clusters`, or kd_eps_step_shard_cluster's when
+// 0), the lattice instance when `lattice` is set.  B < 2^16.  Shapes:
+// cand_idx, sel_states (B, K) int32, sel_costs (B, K) float32, num_unique
+// (B,) int32; exp_ovf, route_ovf and the em_ovf given (B,) bool,
+// em_num_unique (B,) int32 or null; changed_prev (1,) int32 (read when
+// d > 0); flags 7 int32 words (ShardFlags, 8-byte aligned), changed (1,)
+// int32; states/costs (B, K) the carried frontier; out (B, D, width, 2)
+// int32; red_min (B,) float32, red_count (B,) int32, red_flags (2,) int32
+// (written when `reduce`).  1-best: gslot/arc (B, N) int32, width = K;
+// lattice: rec_ovf (B,) bool, records (B, R_rec, 4) int32 with R_rec >=
+// width.  Returns the launch's CUDA error (a refused cluster launch is
+// reported).
 extern "C" int kd_eps_step_shard(int lattice, int B, int K, int N, int D, int d, int width,
                                  int R_rec, int slot_base, int reduce, const void* cand_idx,
                                  const void* num_unique, const void* sel_states,
@@ -700,10 +849,14 @@ extern "C" int kd_eps_step_shard(int lattice, int B, int K, int N, int D, int d,
                                  const void* em_ovf2, const void* em_num_unique,
                                  const void* changed_prev, void* flags, void* changed,
                                  void* states, void* costs, void* out, void* red_min,
-                                 void* red_count, void* red_flags, void* stream) {
-  if (B < 1 || K < 1 || D < 1 || d < 0 || d >= D || width < 1 ||
-      (lattice && R_rec < width) || (!lattice && width != K) || (d > 0 && changed_prev == nullptr))
+                                 void* red_count, void* red_flags, int clusters, void* stream) {
+  if (B < 1 || B > STEP_MAX_ROWS || K < 1 || D < 1 || d < 0 || d >= D || width < 1 ||
+      (lattice && R_rec < width) || (!lattice && width != K) ||
+      (d > 0 && changed_prev == nullptr) || reinterpret_cast<uintptr_t>(flags) % 8 != 0 ||
+      clusters < 0 || clusters > MOST || (clusters & (clusters - 1)) != 0)
     return (int)cudaErrorInvalidValue;
+  const int G = clusters > 0 ? clusters : kd_eps_step_shard_cluster(B, K);
+  if (G < 1) return (int)cudaErrorInvalidConfiguration;
   using U8 = const unsigned char*;
   const ShardStepArgs a{B, K, N, D, d, width, R_rec, slot_base, reduce,
                         static_cast<const int*>(cand_idx), static_cast<const int*>(num_unique),
@@ -720,9 +873,8 @@ extern "C" int kd_eps_step_shard(int lattice, int B, int K, int N, int D, int d,
                         static_cast<float*>(red_min), static_cast<int*>(red_count),
                         static_cast<int*>(red_flags)};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (lattice)
-    eps_step_shard_kernel<true><<<B, STEP_THREADS, 0, st>>>(a);
-  else
-    eps_step_shard_kernel<false><<<B, STEP_THREADS, 0, st>>>(a);
-  return (int)cudaGetLastError();
+  return (int)(lattice ? kdtorch::launch_cluster(eps_step_shard_kernel<true>, B * G, G,
+                                                 STEP_THREADS, 0, st, a)
+                       : kdtorch::launch_cluster(eps_step_shard_kernel<false>, B * G, G,
+                                                 STEP_THREADS, 0, st, a));
 }

@@ -135,20 +135,8 @@ __device__ __forceinline__ void copy_share(T* dst, const T* src, int2 r, bool li
   }
 }
 
-// Block `rank` of 2^lg's share [x, y) of n items: ranges of a multiple of
-// 32 items in rank order (a block may own none).
-__device__ __forceinline__ int2 share(int n, int lg, int rank) {
-  const int per = (((n + (1 << lg) - 1) >> lg) + 31) & ~31;
-  const int lo = min(n, rank * per);
-  return make_int2(lo, min(n, lo + per));
-}
-
-// x as the compiler must have it here: its first use, and the wait for the
-// load that gives it, stay after the loads issued before this point.
-__device__ __forceinline__ int pin(int x) {
-  asm volatile("" : "+r"(x));
-  return x;
-}
+using kdtorch::pin;
+using kdtorch::share;
 
 __device__ __forceinline__ int block_sum(int v, int* smem) {
   int total;
@@ -558,17 +546,39 @@ extern "C" int kd_frame_tail(void* args, int lattice, int B, int K, int V, int R
 // the sharded cutoff is global and computed before the frame.  Plain
 // version: kernels/frame.py frame_tail_shard_plain; bitwise equal (the
 // float operations are its own: mid - m_safe, base + m_safe, base + costs,
-// base + cutoff).  Bounds: bytes (each output written once, each input read
-// once: about 1.5 MB at B = 16, K 2048, R 4096), a few µs of a launch and
-// one dependent chain at these sizes.  One block a row.
+// base + cutoff).
+//
+// What bounds it: bytes, each output written once and each input read
+// once: 1.6-2.6 MB at B = 16, K 2048, R 4096 / 3072, some 0.0005-0.0008 ms
+// at 3.35 TB/s; at these sizes what is left is a launch, the frame index
+// and, on the 1-best path, the backpointer gather's two dependent loads
+// (cand_idx, then the winning lane's slot and arc).
+//
+// The design is the unsharded tail's (above): a cluster of G blocks of
+// THREADS a row (G = 8, 4, 2 or 1, the largest whose B clusters all run at
+// once with at least MIN_SLOTS slots a block), so that at B = 16 some 128
+// SMs move the bytes.  Block r takes its 1/G of the row's K frontier slots
+// (the carried state, the frontier or backpointer outputs), of its R em
+// records and of its D * Re eps links or D * K eps backpointers (ranges of
+// a multiple of 32 in rank order; a block may own none), all in one round
+// of loads a thread before its stores: the loads do not wait for the row's
+// liveness, a frozen row then reads its carried slots, which no block
+// writes.  Every thread reads t at its start, beside the row's length,
+// base and global best cost, and arrives at the one cluster barrier with t
+// in hand; rank 0's second warp waits there at once and counts the row
+// done with an atomic whose answer it reads at its end, so the round trip
+// overlaps the copies; the last of the B rows writes t + 1 and clears the
+// count, so no block sees the new t before every block has read the old
+// one.  The counts of the outputs are the reductions' (num_active), so no
+// block hands anything to another.  Only rank 0 writes the row's scalars
+// (num_active, best_cost, cutoff, the flags) and the base, after the
+// cluster barrier: every block of its row has read the old base.
 
 namespace {
 
-constexpr int SHARD_THREADS = 512;
-
 struct ShardTailArgs {
   long long* targs;          // t, rows done with it (kernels/frame.py SHARD_ARGS_WORDS)
-  int lattice, B, K, N, D, R, Re, slot_base;
+  int B, K, N, D, R, Re, slot_base;
   const int* lengths;        // (B,)
   int* states;               // (B, K) the carried state, in place
   float* costs;
@@ -588,81 +598,150 @@ struct ShardTailArgs {
   void* out[8];              // ShardLatticeStepOut / ShardStepOut order
 };
 
-__global__ void __launch_bounds__(SHARD_THREADS) frame_tail_shard_kernel(ShardTailArgs a) {
-  __shared__ long long s_t;
-  __shared__ float s_base;
-  const int b = blockIdx.x, tid = threadIdx.x;
-  if (tid == 0) {
-    s_t = __ldcg(&a.targs[0]);
-    s_base = a.base[b];
-  }
-  __syncthreads();
-  const long long t = s_t;
-  const bool fa = a.lengths[b] > t;
-  const float base = s_base;
+// Loads a thread keeps in flight of each of the block's arrays.
+constexpr int SHARD_UNROLL = 4;
+
+template <bool LATTICE>
+__global__ void __launch_bounds__(THREADS) frame_tail_shard_kernel(ShardTailArgs a) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int G = (int)cluster.num_blocks();  // 1, 2, 4 or 8
+  const int lg = __ffs(G) - 1;
+  const int rank = (int)cluster.block_rank();
+  const int b = blockIdx.x >> lg;
+  const int tid = threadIdx.x;
+  const bool lead = rank == 0 && tid == 0;  // writes the row's scalars
+  const bool counter = rank == 0 && (tid >> 5) == 1;  // the warp that counts the row done
+  unsigned long long* done = reinterpret_cast<unsigned long long*>(&a.targs[1]);
+
+  // What does not wait: the frame index, the row's length, base and global
+  // best cost (every thread, broadcast loads); rank 0's scalars' inputs.
+  const long long t = __ldcg(&a.targs[0]);
+  const int len = a.lengths[b];
+  const float base = a.base[b];
   const float m = a.best[b];
-  const float ms = isfinite(m) ? m : 0.f;
-  const float nbase = fa ? __fadd_rn(base, ms) : base;
+  float cut = 0.0f;
+  int na = 0;
+  bool f0 = false, f1 = false;
+  if (lead) {
+    cut = a.cutoff[b];
+    na = a.num_active[b];
+    f0 = a.flags[0] > 0;
+    f1 = a.flags[1] > 0;
+  }
+  if (t < 0) __trap();  // t in hand (a branch on it) before the barrier
+  kdtorch::cluster_arrive();  // the one cluster barrier: the block runs and has read t, base
+  // Every block of the row has read t: rank 0's second warp counts the row
+  // done at once, and reads the count at its end.
+  unsigned long long seen = 0;
+  if (counter) {
+    kdtorch::cluster_wait();
+    if (tid == 32) seen = atomicAdd(done, 1ull);
+  }
+
+  // The block's shares: its slots; its em records (lattice) or eps
+  // backpointers (1-best); its eps links (lattice).
   const int K = a.K;
   const size_t row = (size_t)b * K;
-  const size_t trow = (size_t)t * a.B + b;
-  if (a.lattice) {
-    int* fs = static_cast<int*>(a.out[2]) + trow * K;
-    float* fc = static_cast<float*>(a.out[3]) + trow * K;
-    for (int k = tid; k < K; k += SHARD_THREADS) {
-      int s;
-      float c;
-      if (fa) {
-        s = a.mid_states[row + k];
-        c = __fsub_rn(a.mid_costs[row + k], ms);
-        a.states[row + k] = s;
-        a.costs[row + k] = c;
-      } else {
-        s = a.states[row + k];
-        c = a.costs[row + k];
+  const size_t trow = (size_t)t * a.B + b;  // row (t, b) of the stacked outputs
+  const float ms = isfinite(m) ? m : 0.0f;
+  const int n1 = LATTICE ? a.R : a.D * K;
+  const int n2 = LATTICE ? a.D * a.Re : 0;
+  const int2 kr = share(K, lg, rank), r1 = share(n1, lg, rank), r2 = share(n2, lg, rank);
+  const int nk = kr.y - kr.x, m1 = r1.y - r1.x, m2 = r2.y - r2.x;
+  const size_t lanes = (size_t)b * a.N;
+  const int4* em_src = LATTICE ? a.em_rec + (size_t)b * n1 : nullptr;
+  const int2* eps_src = LATTICE ? a.eps_rec + (size_t)b * n2 : a.bp_eps + (size_t)b * n1;
+  int* fs = LATTICE ? static_cast<int*>(a.out[2]) + trow * K : nullptr;  // the frontier
+  float* fc = LATTICE ? static_cast<float*>(a.out[3]) + trow * K : nullptr;
+  int2* o0 = static_cast<int2*>(a.out[0]) + trow * (LATTICE ? n1 : K);  // em links / backpointers
+  int2* o1 = static_cast<int2*>(a.out[1]) + trow * (LATTICE ? n2 : n1);  // eps links / bps
+  bool fa = false;
+  float nbase = base;
+  for (int i0 = tid; i0 < max(nk, max(m1, m2)); i0 += SHARD_UNROLL * THREADS) {
+    int st[SHARD_UNROLL], ci[SHARD_UNROLL];
+    float c[SHARD_UNROLL];
+    int2 bp[SHARD_UNROLL], e1[SHARD_UNROLL], e2[SHARD_UNROLL];
+    int4 v1[SHARD_UNROLL];
+#pragma unroll
+    for (int u = 0; u < SHARD_UNROLL; ++u) {
+      const int i = i0 + u * THREADS;
+      if (i < nk) {
+        st[u] = a.mid_states[row + kr.x + i];
+        c[u] = a.mid_costs[row + kr.x + i];
+        if (!LATTICE) ci[u] = a.cand_idx[row + kr.x + i];
       }
-      fs[k] = s;
-      fc[k] = __fadd_rn(nbase, c);
-    }
-    int2* er = static_cast<int2*>(a.out[0]) + trow * a.R;
-    const int4* src = a.em_rec + (size_t)b * a.R;
-    for (int r = tid; r < a.R; r += SHARD_THREADS) {
-      const int4 v = src[r];
-      er[r] = fa ? make_int2(v.x, v.y) : make_int2(-1, -1);
-    }
-    const int n = a.D * a.Re;
-    int2* pr = static_cast<int2*>(a.out[1]) + trow * n;
-    const int2* ps = a.eps_rec + (size_t)b * n;
-    for (int i = tid; i < n; i += SHARD_THREADS) pr[i] = fa ? ps[i] : make_int2(-1, -1);
-  } else {
-    int2* be = static_cast<int2*>(a.out[0]) + trow * K;
-    const size_t lanes = (size_t)b * a.N;
-    for (int k = tid; k < K; k += SHARD_THREADS) {
-      if (fa) {
-        a.states[row + k] = a.mid_states[row + k];
-        a.costs[row + k] = __fsub_rn(a.mid_costs[row + k], ms);
+      if (i < m1) {
+        if (LATTICE)
+          v1[u] = em_src[r1.x + i];
+        else
+          e1[u] = eps_src[r1.x + i];
       }
-      const int ci = a.cand_idx[row + k];
-      const int2 bp = ci >= 0 ? make_int2(a.gslot[lanes + ci], a.arc[lanes + ci]) : make_int2(0, -1);
-      be[k] = fa ? bp : make_int2(a.slot_base + k, -1);
+      if (LATTICE && i < m2) e2[u] = eps_src[r2.x + i];
     }
-    const int n = a.D * K;
-    int2* pe = static_cast<int2*>(a.out[1]) + trow * n;
-    const int2* ps = a.bp_eps + (size_t)b * n;
-    for (int i = tid; i < n; i += SHARD_THREADS)
-      pe[i] = fa ? ps[i] : make_int2(a.slot_base + i % K, -1);
+    if (!LATTICE) {  // each slot's winning lane's (global slot, global arc)
+#pragma unroll
+      for (int u = 0; u < SHARD_UNROLL; ++u) {
+        if (i0 + u * THREADS < nk)
+          bp[u] = ci[u] >= 0 ? make_int2(a.gslot[lanes + ci[u]], a.arc[lanes + ci[u]])
+                             : make_int2(0, -1);
+      }
+    }
+    fa = t < pin(len);
+    nbase = fa ? __fadd_rn(base, ms) : base;
+    if (!fa) {  // a frozen row keeps its carried slots
+#pragma unroll
+      for (int u = 0; u < SHARD_UNROLL; ++u) {
+        const int i = i0 + u * THREADS;
+        if (i < nk) {
+          st[u] = a.states[row + kr.x + i];
+          c[u] = a.costs[row + kr.x + i];
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < SHARD_UNROLL; ++u) {
+      const int i = i0 + u * THREADS;
+      if (i < nk) {
+        const int k = kr.x + i;
+        if (fa) {
+          c[u] = __fsub_rn(c[u], ms);
+          a.states[row + k] = st[u];
+          a.costs[row + k] = c[u];
+        }
+        if (LATTICE) {
+          fs[k] = st[u];
+          fc[k] = __fadd_rn(nbase, c[u]);
+        } else {
+          o0[k] = fa ? bp[u] : make_int2(a.slot_base + k, -1);
+        }
+      }
+      if (i < m1) {
+        const int j = r1.x + i;
+        if (LATTICE)
+          o0[j] = fa ? make_int2(v1[u].x, v1[u].y) : make_int2(-1, -1);
+        else
+          o1[j] = fa ? e1[u] : make_int2(a.slot_base + j % K, -1);
+      }
+      if (LATTICE && i < m2) {
+        const int j = r2.x + i;
+        o1[j] = fa ? e2[u] : make_int2(-1, -1);
+      }
+    }
   }
-  if (tid != 0) return;
-  const int at = a.lattice ? 4 : 2;  // num_active, then (1-best) best_cost, cutoff, flags
-  static_cast<int*>(a.out[at])[trow] = fa ? a.num_active[b] : 0;
-  if (!a.lattice) static_cast<float*>(a.out[3])[trow] = nbase;
-  static_cast<float*>(a.out[at + (a.lattice ? 1 : 2)])[trow] = __fadd_rn(base, a.cutoff[b]);
-  static_cast<unsigned char*>(a.out[at + (a.lattice ? 2 : 3)])[trow] = fa && a.flags[0] > 0;
-  static_cast<unsigned char*>(a.out[at + (a.lattice ? 3 : 4)])[trow] = fa && a.flags[1] > 0;
-  a.base[b] = nbase;
-  __threadfence();
-  unsigned long long* done = reinterpret_cast<unsigned long long*>(&a.targs[1]);
-  if (atomicAdd(done, 1ull) == (unsigned long long)(gridDim.x - 1)) {  // every row has read t
+  if (!counter) kdtorch::cluster_wait();  // rank 0: every block of the row has read base
+  if (rank != 0) return;
+  fa = t < len;
+  nbase = fa ? __fadd_rn(base, ms) : base;
+  if (lead) {
+    const int at = LATTICE ? 4 : 2;  // num_active, then (1-best) best_cost, cutoff, flags
+    static_cast<int*>(a.out[at])[trow] = fa ? na : 0;
+    if (!LATTICE) static_cast<float*>(a.out[3])[trow] = nbase;
+    static_cast<float*>(a.out[at + (LATTICE ? 1 : 2)])[trow] = __fadd_rn(base, cut);
+    static_cast<unsigned char*>(a.out[at + (LATTICE ? 2 : 3)])[trow] = fa && f0;
+    static_cast<unsigned char*>(a.out[at + (LATTICE ? 3 : 4)])[trow] = fa && f1;
+    a.base[b] = nbase;
+  } else if (tid == 32 && seen == (unsigned long long)a.B - 1) {
+    // The last row counted: every block of every row has read t.
     a.targs[0] = t + 1;
     *done = 0;
   }
@@ -670,15 +749,25 @@ __global__ void __launch_bounds__(SHARD_THREADS) frame_tail_shard_kernel(ShardTa
 
 }  // namespace
 
-// K3's shard mode on `stream`: B blocks.  args: 2 int64 words (t, rows
-// done); lengths (B,) int32; the carried states/costs (B, K), base (B,);
-// cutoff (B,) float32; mid states/costs (B, K); best (B,) float32,
-// num_active (B,) int32, flags (2,) int32 (the reductions over the
-// ranks).  Lattice: em_rec (B, R, 4), eps_rec (B, D, Re, 2) int32; out0..7
-// ShardLatticeStepOut's stacked (T, B, ...) buffers.  1-best: cand_idx (B,
-// K), gslot/arc (B, N), bp_eps (B, D, K, 2) int32; out0..6 ShardStepOut's.
-// An output or input of no elements (D = 0) may be null.  Returns the
-// launch's CUDA error.
+// The cluster size K3's shard mode launches with for B rows of K slots
+// (kdtorch::pick_cluster, at most cluster_cap(K)); 0 when none fits.  The
+// 1-best instance takes what the lattice one is given.
+extern "C" int kd_frame_tail_shard_cluster(int B, int K) {
+  return kdtorch::pick_cluster(frame_tail_shard_kernel<true>, B, THREADS, K,
+                               [](int) { return (size_t)0; }, cluster_cap(K));
+}
+
+// K3's shard mode on `stream`: B clusters of G blocks (G = `clusters`, or
+// kd_frame_tail_shard_cluster's when 0), the lattice instance when
+// `lattice` is set.  args: 2 int64 words (t, rows done); lengths (B,)
+// int32; the carried states/costs (B, K), base (B,); cutoff (B,) float32;
+// mid states/costs (B, K); best (B,) float32, num_active (B,) int32, flags
+// (2,) int32 (the reductions over the ranks).  Lattice: em_rec (B, R, 4),
+// eps_rec (B, D, Re, 2) int32; out0..7 ShardLatticeStepOut's stacked (T, B,
+// ...) buffers.  1-best: cand_idx (B, K), gslot/arc (B, N), bp_eps (B, D,
+// K, 2) int32; out0..6 ShardStepOut's.  An output or input of no elements
+// (D = 0) may be null.  Returns the launch's CUDA error (a refused cluster
+// launch is reported).
 extern "C" int kd_frame_tail_shard(void* args, int lattice, int B, int K, int N, int D, int R,
                                    int Re, int slot_base, const void* lengths, void* states,
                                    void* costs, void* base, const void* cutoff,
@@ -687,9 +776,14 @@ extern "C" int kd_frame_tail_shard(void* args, int lattice, int B, int K, int N,
                                    const void* em_rec, const void* eps_rec, const void* cand_idx,
                                    const void* gslot, const void* arc, const void* bp_eps,
                                    void* out0, void* out1, void* out2, void* out3, void* out4,
-                                   void* out5, void* out6, void* out7, void* stream) {
-  if (B < 1 || K < 1 || D < 0 || R < 0 || Re < 0) return (int)cudaErrorInvalidValue;
-  const ShardTailArgs a{static_cast<long long*>(args), lattice, B, K, N, D, R, Re, slot_base,
+                                   void* out5, void* out6, void* out7, int clusters,
+                                   void* stream) {
+  if (B < 1 || K < 1 || D < 0 || R < 0 || Re < 0 || clusters < 0 || clusters > MOST ||
+      (clusters & (clusters - 1)) != 0)
+    return (int)cudaErrorInvalidValue;
+  const int G = clusters > 0 ? clusters : kd_frame_tail_shard_cluster(B, K);
+  if (G < 1) return (int)cudaErrorInvalidConfiguration;
+  const ShardTailArgs a{static_cast<long long*>(args), B, K, N, D, R, Re, slot_base,
                         static_cast<const int*>(lengths), static_cast<int*>(states),
                         static_cast<float*>(costs), static_cast<float*>(base),
                         static_cast<const float*>(cutoff), static_cast<const int*>(mid_states),
@@ -699,6 +793,9 @@ extern "C" int kd_frame_tail_shard(void* args, int lattice, int B, int K, int N,
                         static_cast<const int*>(cand_idx), static_cast<const int*>(gslot),
                         static_cast<const int*>(arc), static_cast<const int2*>(bp_eps),
                         {out0, out1, out2, out3, out4, out5, out6, out7}};
-  frame_tail_shard_kernel<<<B, SHARD_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)(lattice ? kdtorch::launch_cluster(frame_tail_shard_kernel<true>, B * G, G,
+                                                 THREADS, 0, st, a)
+                       : kdtorch::launch_cluster(frame_tail_shard_kernel<false>, B * G, G,
+                                                 THREADS, 0, st, a));
 }

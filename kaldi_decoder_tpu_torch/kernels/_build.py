@@ -173,9 +173,13 @@ def kernels() -> ctypes.CDLL:
     lib.kd_expand_eps_blocks.restype = _I
     lib.kd_expand_eps_blocks.argtypes = [_I, _I]
     lib.kd_eps_step_shard.restype = _I
-    lib.kd_eps_step_shard.argtypes = [_I] * 10 + [_P] * 23 + [_P]
+    lib.kd_eps_step_shard.argtypes = [_I] * 10 + [_P] * 23 + [_I, _P]
+    lib.kd_eps_step_shard_cluster.restype = _I
+    lib.kd_eps_step_shard_cluster.argtypes = [_I, _I]
     lib.kd_frame_tail_shard.restype = _I
-    lib.kd_frame_tail_shard.argtypes = [_P] + [_I] * 8 + [_P] * 16 + [_P] * 8 + [_P]
+    lib.kd_frame_tail_shard.argtypes = [_P] + [_I] * 8 + [_P] * 16 + [_P] * 8 + [_I, _P]
+    lib.kd_frame_tail_shard_cluster.restype = _I
+    lib.kd_frame_tail_shard_cluster.argtypes = [_I, _I]
     lib.kd_route_send.restype = _I
     lib.kd_route_send.argtypes = [_P] * 6 + [_I] * 9 + [_F] + [_P] * 6 + [_I, _P]
     lib.kd_route_send_cluster.restype = _I

@@ -74,10 +74,12 @@ INF = float("inf")
 # EpsCarry.flags: ran, and the clusters done with the iteration (low half)
 # beside the active rows that changed (high half) (csrc/eps_step.cuh Flags).
 FLAG_WORDS = 2
-MAX_ROWS = (1 << 16) - 1  # rows an eps call with the step takes: each half counts up to B
-# ShardEpsCarry.flags: stop, the batch's `go`, overflow and saturation
-# accumulators, blocks done, the running overflow and saturation
-# (csrc/eps.cu ShardFlags).
+MAX_ROWS = (1 << 16) - 1  # rows a step takes (either kind): its 16-bit counts reach B
+# ShardEpsCarry.flags: stop; words 2-3 the kernel's count of the rows done
+# with the iteration (beside those that changed, overflowed, saturated;
+# 0 between launches); words 5 and 6 the running overflow and saturation
+# (csrc/eps.cu ShardFlags).  Words 0, 5 and 6 are all the plain version
+# writes; the kernel leaves words 1-4 at 0.
 SHARD_FLAG_WORDS = 7
 
 
@@ -438,15 +440,23 @@ def eps_step_shard_plain(d: int, carry: ShardEpsCarry, states: torch.Tensor,
         carry.red_flags[0], carry.red_flags[1] = ovf, sat
 
 
+def shard_step_cluster_size(batch: int, k: int) -> int:
+    """The blocks a row (a cluster) the eps step's shard mode launches with
+    for ``batch`` rows of ``k`` slots."""
+    return kernels().kd_eps_step_shard_cluster(batch, k)
+
+
 def eps_step_shard(d: int, carry: ShardEpsCarry, states, costs, sel, exp_overflow,
                    route_overflow, changed_prev, slot_base: int, lanes=None, em_overflow=(),
-                   em_num_unique=None, reduce: bool = False) -> None:
+                   em_num_unique=None, reduce: bool = False, clusters: int = 0) -> None:
     """The sharded eps step on the tensors' device: :func:`eps_step_shard_plain`
-    on the CPU, one launch of ``csrc/eps.cu`` on a card (a block a row,
-    the batch's flags in ``carry.flags``), counted in
-    ``eps_step_shard.launches``.  ``em_overflow`` holds at most three (B,) bool
-    tensors.  A row's smallest cost is its first smallest in slot order,
-    as ``torch.amin`` takes it on the CPU."""
+    on the CPU, one launch of ``csrc/eps.cu`` on a card (a cluster of
+    blocks a row, the batch's flags in ``carry.flags``), counted in
+    ``eps_step_shard.launches``; ``clusters`` (8, 4, 2 or 1) sets the
+    blocks a row instead of :func:`shard_step_cluster_size`'s choice.
+    ``em_overflow`` holds at most three (B,) bool tensors.  A row's
+    smallest cost is its first smallest in slot order, as ``torch.amin``
+    takes it on the CPU."""
     dev = sel.states.device
     if dev.type == "cpu":
         return eps_step_shard_plain(d, carry, states, costs, sel, exp_overflow, route_overflow,
@@ -458,6 +468,10 @@ def eps_step_shard(d: int, carry: ShardEpsCarry, states, costs, sel, exp_overflo
     D, width = carry.out.shape[1:3]
     if not 0 <= d < D:
         raise ValueError(f"iteration {d} of {D}")
+    if B > MAX_ROWS:
+        raise ValueError(f"the eps step's shard mode takes at most {MAX_ROWS} rows, not {B}")
+    if clusters not in (0, 1, 2, 4, 8):
+        raise ValueError(f"clusters must be 0 (chosen), 1, 2, 4 or 8, not {clusters}")
     if d > 0:
         check(changed_prev, "changed_prev", torch.int32, (1,), dev)
     if len(em_overflow) > 3:
@@ -502,7 +516,7 @@ def eps_step_shard(d: int, carry: ShardEpsCarry, states, costs, sel, exp_overflo
         ptr(em_num_unique) if em_num_unique is not None else None,
         ptr(changed_prev) if d > 0 else None, ptr(carry.flags), ptr(carry.changed),
         ptr(states), ptr(costs), ptr(carry.out), ptr(carry.red_min), ptr(carry.red_count),
-        ptr(carry.red_flags), stream(dev),
+        ptr(carry.red_flags), clusters, stream(dev),
     )
     if rc != 0:
         raise RuntimeError(f"kd_eps_step_shard launch failed: {cuda_error(rc)}")

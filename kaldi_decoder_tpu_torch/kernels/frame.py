@@ -17,7 +17,8 @@ captured once in a CUDA graph and replayed for every frame of every chunk
 (the tail of the original's ``lattice_frame_step_batched`` and of its
 ``frame_step_batched``); on CPU tensors the wrappers run it and
 ``get_cutoff``, on CUDA tensors they launch ``csrc/frame.cu`` or raise.
-On a card the tail is a cluster of blocks a row (:func:`cluster_size`).
+On a card the tail is a cluster of blocks a row (:func:`cluster_size`),
+and so is its shard mode (:func:`shard_cluster_size`).
 
 The sharded decoders' frame (``parallel/graph_shard.py``) ends with K3's
 shard mode, :func:`frame_tail_shard`, after the rebase's reductions over
@@ -461,15 +462,23 @@ def frame_tail_shard_plain(st: StepState, cutoff: torch.Tensor, tin: ShardTailIn
     return final, out
 
 
+def shard_cluster_size(batch: int, k: int) -> int:
+    """The blocks a row (a cluster) K3's shard mode launches with for
+    ``batch`` rows of ``k`` slots."""
+    return kernels().kd_frame_tail_shard_cluster(batch, k)
+
+
 def frame_tail_shard(args: torch.Tensor, st: StepState, cutoff: torch.Tensor,
-                     tin: ShardTailInputs, lengths: torch.Tensor, outs, slot_base: int) -> None:
+                     tin: ShardTailInputs, lengths: torch.Tensor, outs, slot_base: int,
+                     clusters: int = 0) -> None:
     """K3's shard mode on the tensors' device: the tail of frame ``t``
     (``args[0]``, from :func:`shard_args`) of a chunk whose rows decode
     ``lengths`` frames, in place: ``st`` becomes the new state and row t
     of ``outs`` (from :func:`empty_shard_outs`) the frame's outputs, and
-    ``t`` advances.  On a card one launch of ``csrc/frame.cu`` (a block a
-    row), counted in ``frame_tail.launches``; see
-    :func:`frame_tail_shard_plain`."""
+    ``t`` advances.  On a card one launch of ``csrc/frame.cu`` (a cluster
+    of blocks a row; ``clusters``, 8, 4, 2 or 1, sets the blocks a row
+    instead of :func:`shard_cluster_size`'s choice), counted in
+    ``frame_tail.launches``; see :func:`frame_tail_shard_plain`."""
     dev = st.states.device
     if dev.type == "cpu":
         t = int(args[0])
@@ -483,6 +492,8 @@ def frame_tail_shard(args: torch.Tensor, st: StepState, cutoff: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"frame_tail_shard runs on cpu or cuda tensors, not {dev}")
     B, K = st.states.shape
+    if clusters not in (0, 1, 2, 4, 8):
+        raise ValueError(f"clusters must be 0 (chosen), 1, 2, 4 or 8, not {clusters}")
     check(args, "args", torch.int64, (SHARD_ARGS_WORDS,), dev)
     check(st.states, "state.states", torch.int32, (B, K), dev)
     check(st.costs, "state.costs", torch.float32, (B, K), dev)
@@ -522,7 +533,7 @@ def frame_tail_shard(args: torch.Tensor, st: StepState, cutoff: torch.Tensor,
         ptr(lengths), ptr(st.states), ptr(st.costs), ptr(st.base), ptr(cutoff),
         ptr(tin.mid_states), ptr(tin.mid_costs), ptr(tin.best), ptr(tin.num_active),
         ptr(tin.flags), opt(tin.em_records), opt(tin.eps_records), opt(tin.cand_idx),
-        opt(tin.gslot), opt(tin.arc), opt(tin.bp_eps), *o, stream(dev),
+        opt(tin.gslot), opt(tin.arc), opt(tin.bp_eps), *o, clusters, stream(dev),
     )
     if rc != 0:
         raise RuntimeError(f"kd_frame_tail_shard launch failed: {cuda_error(rc)}")

@@ -13,7 +13,14 @@ that ends in a synchronise), then one decode under the profiler: device
 ms a frame (kernels and copies), busy share (device over wall), device
 activities a frame split into the tree's own kernels (the ``__global__``
 functions of its ``csrc``), collectives and copies, and other (with their
-names), and the collectives a frame by kind.  With ``--runs`` it times
+names), and the collectives a frame by kind.  Rank 0 also times the eps
+step's shard mode and K3's shard mode on the inputs of frame
+``SHARD_FRAME`` that the warm-up decode passed them (kept by the smoke's
+``CallCapture``), while the other rank waits: held bitwise against their
+plain versions, device ms by CUDA events over calls back to back, bound
+and share of the bound (the smoke's work counts), at the kernel's own
+cluster size and, where the tree's wrappers take ``clusters``, at 8, 4,
+2 and 1 blocks a row.  With ``--runs`` it times
 nothing: one decode of each at P = 1 records, for every K7 send call,
 the (owner, state) runs of its valid lanes (the lanes of a row with one
 destination: what the send side dedups): how many, the longest, the
@@ -135,9 +142,82 @@ def runs_main(tree):
     return out
 
 
+def time_shard_kernels(cs, kept, eps_iters):
+    """The eps step's shard mode and K3's shard mode on frame SHARD_FRAME's
+    captured calls (``kept``, a CallCapture's), each held against its plain
+    version and timed: {kernel: {ms, ms_by_clusters, clusters, bound_ms,
+    bound_by, share_of_bound}}."""
+    import inspect
+
+    import torch
+
+    from kaldi_decoder_tpu_torch.kernels import eps as keps
+    from kaldi_decoder_tpu_torch.kernels import frame as kframe
+
+    def sizes(fn):
+        """(clusters argument, label) of each timed size: the default, and
+        8, 4, 2, 1 where the wrapper takes ``clusters``."""
+        if "clusters" not in inspect.signature(fn).parameters:
+            return [({}, "default")]
+        return [({}, "default")] + [(dict(clusters=g), g) for g in (8, 4, 2, 1)]
+
+    out = {}
+    if eps_iters:
+        args, kw = kept["eps_step_shard", eps_iters + cs.SHARD_FRAME * eps_iters]
+        ref = cs.clone(args)
+        keps.eps_step_shard_plain(*ref, **kw)
+        sel = args[4]
+        chosen = getattr(keps, "shard_step_cluster_size", None)
+        t = dict(clusters=chosen(*sel.states.shape) if chosen else 1, ms_by_clusters={})
+        for extra, label in sizes(keps.eps_step_shard):
+            got = cs.clone(args)
+            keps.eps_step_shard(*got, **kw, **extra)
+            torch.cuda.synchronize()
+            cs.same_fields(ref[1], got[1], "the eps step's shard mode", f"{label} blocks")
+            for r, g in zip(ref[2:4], got[2:4]):
+                if not torch.equal(r.view(torch.int32), g.view(torch.int32)):
+                    raise AssertionError(f"the eps step's shard mode at {label}: carried frontier")
+            t["ms_by_clusters"][label] = cs.device_ms(
+                lambda: keps.eps_step_shard(*got, **kw, **extra))
+        t["ms"] = t["ms_by_clusters"].pop("default")
+        t["bound_ms"], t["bound_by"] = cs.bound_ms(
+            *cs.eps_step_shard_work(sel, args[1], kw.get("lanes"), False))
+        t["share_of_bound"] = t["bound_ms"] / t["ms"]
+        out["eps_step_shard"] = t
+    args, _ = kept["frame_tail_shard", cs.SHARD_FRAME]
+    targs, st, cutoff, tin, lengths, outs, slot_base = args
+    row = int(targs[0])
+    fa = lengths > row
+    B, K = st.states.shape
+    lattice = tin.em_records is not None
+    final, ref = kframe.frame_tail_shard_plain(st, cutoff, tin, fa, slot_base)
+    chosen = getattr(kframe, "shard_cluster_size", None)
+    t = dict(clusters=chosen(B, K) if chosen else 1, ms_by_clusters={})
+    for extra, label in sizes(kframe.frame_tail_shard):
+        got = cs.clone(args)
+        kframe.frame_tail_shard(*got, **extra)
+        torch.cuda.synchronize()
+        cs.same_fields(final, got[1], "K3's shard mode (state)", f"{label} blocks")
+        cs.same_fields(ref, type(ref)(*(x[row] for x in got[5])), "K3's shard mode (outputs)",
+                       f"{label} blocks")
+        # Timed on a table of its own from t = 0, into outputs of 64 rows.
+        t_outs = kframe.empty_shard_outs(
+            64, B, K, outs[1].shape[2], lattice, st.states.device,
+            *((outs[0].shape[2], outs[1].shape[3]) if lattice else ()))
+        t_args, t_st = kframe.shard_args(st.states.device), cs.clone(st)
+        t["ms_by_clusters"][label] = cs.device_ms(lambda: kframe.frame_tail_shard(
+            t_args, t_st, cutoff, tin, lengths, t_outs, slot_base, **extra))
+    t["ms"] = t["ms_by_clusters"].pop("default")
+    t["bound_ms"], t["bound_by"] = cs.bound_ms(*cs.k3_shard_work(tin, fa))
+    t["share_of_bound"] = t["bound_ms"] / t["ms"]
+    out["k3_shard"] = t
+    return out
+
+
 def measure(tree, P, rank, reps):
     """Both sharded decoders on this rank of a group of P (the default
-    group, made): {kind: numbers}."""
+    group, made), and on rank 0 the two shard-mode kernels on frame
+    SHARD_FRAME's inputs: {kind: numbers}."""
     import torch
     import torch.distributed as dist
 
@@ -147,6 +227,7 @@ def measure(tree, P, rank, reps):
         ShardedViterbiDecoder,
         make_mesh,
     )
+    from kaldi_decoder_tpu_torch.parallel import graph_shard
     from kaldi_decoder_tpu_torch.parallel.mesh import collective_calls
 
     cs = smoke()
@@ -163,7 +244,11 @@ def measure(tree, P, rank, reps):
         else:
             dec = ShardedLatticeDecoder(graph, fc, lattice_beam=cs.SHARD_LATTICE_BEAM,
                                         mesh=mesh, pad_time_to=cs.SHARD_FRAMES, device="cuda")
-        res = dec.decode(sc, sl)
+        D = (dec.cfg if kind == "viterbi" else dec.cfg.shard).frontier.eps_iters
+        capture = {"eps_step_shard": {D + cs.SHARD_FRAME * D},
+                   "frame_tail_shard": {cs.SHARD_FRAME}}
+        with cs.CallCapture(graph_shard, capture) as cap:
+            res = dec.decode(sc, sl)
         frames = res.num_active.shape[0]
         walls = []
         for _ in range(reps):
@@ -189,7 +274,10 @@ def measure(tree, P, rank, reps):
             other=[(name, n / frames) for name, n in split["other"][2]],
             collectives_per_frame={k: v / frames for k, v in coll.items()},
             collectives_a_frame=sum(coll.values()) / frames)
-        del dec, res
+        if rank == 0:  # the other rank waits at the barrier: the card is this rank's alone
+            out[kind]["kernels"] = time_shard_kernels(cs, cap.kept, D)
+        dist.barrier()
+        del dec, res, cap
         torch.cuda.empty_cache()
     return out
 
@@ -305,6 +393,11 @@ def main():
                   f"{r['device_ms_per_frame']:.4f}, busy {r['busy']:.3f}, activities "
                   f"{r['activities_per_frame']:.2f} a frame {split}; collectives "
                   f"{r['collectives_a_frame']:.2f} a frame", flush=True)
+            for name, k in r["kernels"].items():
+                print(f"{args.tag} P={P} {kind} frame {cs.SHARD_FRAME}: {name} {k['ms']:.4f} ms "
+                      f"at {k['clusters']} blocks a row (bound {k['bound_ms']:.4f} by "
+                      f"{k['bound_by']}, {k['share_of_bound']:.1%}); by blocks a row "
+                      f"{k['ms_by_clusters']}", flush=True)
     print(line)
 
 

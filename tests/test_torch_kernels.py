@@ -1732,20 +1732,27 @@ def _shard_selection(rng, card, nb, K, N, lattice, r_eps):
                             torch.from_numpy(rng.random(nb) < 0.2).to(card), t["cand_idx"])
 
 
+SHARD_CLUSTERS = [0, 8, 4, 2, 1]  # the chosen size, then each size forced
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("clusters", SHARD_CLUSTERS)
 @pytest.mark.parametrize("stops", [True, False], ids=["stops", "runs-on"])
 @pytest.mark.parametrize("lattice", [False, True], ids=["1-best", "lattice"])
 @pytest.mark.parametrize("nb", [16, 1])
-def test_eps_step_shard_kernel_matches_plain(card, nb, lattice, stops):
+def test_eps_step_shard_kernel_matches_plain(card, nb, lattice, stops, clusters):
     """The eps step's shard mode against ``eps_step_shard_plain`` over a
     D = 2 closure on one carry: iteration 0 with the emitting call's flags
     folded in, iteration 1 given the reduced flag 0 (the batch stops: the
     frontier kept, identity or -1 rows) or 1, and reducing: after each
-    step every field of the carry and the carried frontier bitwise."""
+    step every field of the carry and the carried frontier bitwise; at
+    the kernel's own cluster size (more than one block a row at B = 16)
+    and at 8, 4, 2 and 1 blocks a row."""
     from kaldi_decoder_tpu_torch.kernels.eps import (
         empty_shard_eps_carry,
         eps_step_shard,
         eps_step_shard_plain,
+        shard_step_cluster_size,
     )
     from kaldi_decoder_tpu_torch.kernels.route import RouteLanes
 
@@ -1753,6 +1760,8 @@ def test_eps_step_shard_kernel_matches_plain(card, nb, lattice, stops):
     K, P, cap, r_eps, my_base = 2048, 2, 3072, 1536, 2048
     N = K + P * cap
     width = r_eps if lattice else K
+    if nb == 16 and clusters == 0:
+        assert shard_step_cluster_size(nb, K) > 1
     carries = [empty_shard_eps_carry(nb, 2, width, card) for _ in range(2)]
     st = torch.from_numpy(rng.integers(0, 9000, size=(nb, K)).astype(np.int32)).to(card)
     co = torch.from_numpy(np.sort(rng.uniform(0, 5, size=(nb, K)).astype(np.float32),
@@ -1778,7 +1787,7 @@ def test_eps_step_shard_kernel_matches_plain(card, nb, lattice, stops):
         args = (sel, exp_ovf, route_ovf, red if d else None, my_base)
         eps_step_shard_plain(d, carries[0], *fronts[0], *args, **kw)
         before = eps_step_shard.launches
-        eps_step_shard(d, carries[1], *fronts[1], *args, **kw)
+        eps_step_shard(d, carries[1], *fronts[1], *args, **kw, clusters=clusters)
         torch.cuda.synchronize()
         assert eps_step_shard.launches == before + 1
         for name, w, g in zip(carries[0]._fields, *carries):
@@ -1799,14 +1808,75 @@ def test_eps_step_shard_kernel_matches_plain(card, nb, lattice, stops):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("clusters", SHARD_CLUSTERS)
+@pytest.mark.parametrize("zero", [False, True], ids=["equal-bits", "signed-zero"])
+@pytest.mark.parametrize("lattice", [False, True], ids=["1-best", "lattice"])
+def test_eps_step_shard_kernel_min_ties(card, lattice, zero, clusters):
+    """The reducing step's smallest finite cost when it ties across two
+    blocks' slot ranges (slots 1000 and 1100 of K 2048: blocks 3 and 4 at 8
+    blocks a row, 1 and 2 at 4, 0 and 1 at 2; two warps of one block at 1),
+    every other finite cost larger: the same bits at both (every field of
+    the carry bitwise against ``eps_step_shard_plain``), or -0.0 and +0.0,
+    which slot first alternating by row: red_min has the bits of the first
+    in slot order, the rule the kernel keeps, and equals plain's by value
+    (``torch.amin`` leaves open which zero it returns), every other field
+    bitwise."""
+    from kaldi_decoder_tpu_torch.kernels.eps import (
+        empty_shard_eps_carry,
+        eps_step_shard,
+        eps_step_shard_plain,
+    )
+    from kaldi_decoder_tpu_torch.kernels.route import RouteLanes
+
+    nb, K, P, cap, r_eps, my_base = 16, 2048, 2, 3072, 1536, 0
+    N = K + P * cap
+    rng = np.random.default_rng(7 + lattice + 2 * zero)
+    sel = _shard_selection(rng, card, nb, K, N, lattice, r_eps)
+    costs = rng.uniform(1, 5, size=(nb, K)).astype(np.float32)
+    costs[:, 1900:] = np.inf
+    first, second = (np.float32(-0.0), np.float32(0.0)) if zero else (0.5, 0.5)
+    costs[0::2, 1000], costs[0::2, 1100] = first, second
+    costs[1::2, 1000], costs[1::2, 1100] = second, first
+    sel.costs.copy_(torch.from_numpy(costs))
+    width = r_eps if lattice else K
+    carries = [empty_shard_eps_carry(nb, 1, width, card) for _ in range(2)]
+    fronts = [(torch.zeros((nb, K), dtype=torch.int32, device=card),
+               torch.zeros((nb, K), dtype=torch.float32, device=card)) for _ in range(2)]
+    lanes = RouteLanes(None, None, torch.from_numpy(rng.integers(0, 4096, size=(nb, N))
+                                                    .astype(np.int32)).to(card),
+                       torch.from_numpy(rng.integers(-1, 1 << 20, size=(nb, N))
+                                        .astype(np.int32)).to(card))
+    no = torch.zeros((nb,), dtype=torch.bool, device=card)
+    args = (sel, no, no, None, my_base)
+    eps_step_shard_plain(0, carries[0], *fronts[0], *args, lanes=lanes, reduce=True)
+    eps_step_shard(0, carries[1], *fronts[1], *args, lanes=lanes, reduce=True,
+                   clusters=clusters)
+    torch.cuda.synchronize()
+    canon = np.where(costs == 0, np.float32(0.0), costs)
+    at = np.argmin(np.where(np.isfinite(costs), canon, np.inf), axis=1)  # first smallest
+    want = torch.from_numpy(costs[np.arange(nb), at].copy())
+    _same_bits(want, carries[1].red_min.cpu(), "red_min: the first smallest in slot order")
+    for name, w, g in zip(carries[0]._fields, *carries):
+        if name == "red_min" and zero:
+            assert torch.equal(w, g), "red_min differs from plain by value"
+        else:
+            _same_bits(w, g, f"carry.{name}")
+    for w, g, name in zip(*fronts, ("states", "costs")):
+        _same_bits(w, g, f"carried {name}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("clusters", SHARD_CLUSTERS)
 @pytest.mark.parametrize("lattice", [False, True], ids=["1-best", "lattice"])
 @pytest.mark.parametrize("nb", [16, 1])
-def test_frame_tail_shard_kernel_matches_plain(card, nb, lattice):
+def test_frame_tail_shard_kernel_matches_plain(card, nb, lattice, clusters):
     """K3's shard mode against ``frame_tail_shard_plain`` over two frames
     of one chunk on the same table and state: row t of every stacked
     output and the state written in place, bitwise, t advanced and the
     count cleared; row 0 freezes after the first frame (at B = 1 it is
-    live, then frozen), row 1 has no token on any rank (best +inf)."""
+    live, then frozen), row 1 has no token on any rank (best +inf); at
+    the kernel's own cluster size (more than one block a row at B = 16)
+    and at 8, 4, 2 and 1 blocks a row."""
     from kaldi_decoder_tpu_torch.decoders.frontier import StepState
     from kaldi_decoder_tpu_torch.kernels.frame import (
         ShardTailInputs,
@@ -1815,11 +1885,14 @@ def test_frame_tail_shard_kernel_matches_plain(card, nb, lattice):
         frame_tail_shard,
         frame_tail_shard_plain,
         shard_args,
+        shard_cluster_size,
     )
 
     rng = np.random.default_rng(nb + 100 * lattice)
     K, D, R, Re, T, my_base = 2048, 1, 4096, 1536, 4, 2048
     N = 2 * 30720
+    if nb == 16 and clusters == 0:
+        assert shard_cluster_size(nb, K) > 1
     f32 = dict(dtype=torch.float32, device=card)
 
     def ints(lo, hi, shape):
@@ -1860,7 +1933,8 @@ def test_frame_tail_shard_kernel_matches_plain(card, nb, lattice):
         cutoff = torch.from_numpy(rng.uniform(5, 15, size=nb).astype(np.float32)).to(card)
         final, want = frame_tail_shard_plain(sts[0], cutoff, tin, lengths > t, my_base)
         before = frame_tail.launches
-        frame_tail_shard(targs[1], sts[1], cutoff, tin, lengths, outs[1], my_base)
+        frame_tail_shard(targs[1], sts[1], cutoff, tin, lengths, outs[1], my_base,
+                         clusters=clusters)
         torch.cuda.synchronize()
         assert frame_tail.launches == before + 1
         for name, w, g in zip(final._fields, final, sts[1]):
