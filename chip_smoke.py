@@ -2628,16 +2628,20 @@ def eps_step_shard_work(sel, carry, lanes, stopped):
     return nbytes, B * K
 
 
-def k3_shard_work(tin, fa):
+def k3_shard_work(tin, fa, local=None):
     """Bytes and operations of K3's shard mode: of a live row, the
     closure's frontier read and the carried one written; of every row its
     stacked outputs written (the frontier, the records or backpointers) and
     their inputs read (records; the winning lanes' slots and arcs once
-    each and the eps backpointers); some 40 bytes of per-row scalars; a
-    subtract and an add a slot."""
+    each and the eps backpointers); some 40 bytes of per-row scalars; with
+    ``local``, the next frame's local half of a live row (two scalars in,
+    two out, its prefix of m written); a subtract and an add a slot."""
     B, K = tin.mid_states.shape
     act = int(fa.sum())
     nbytes = act * K * 16 + B * 40
+    if local is not None:
+        m = local.prefix.shape[1] if local.prefix is not None else 0
+        nbytes += act * (16 + m * 4)
     if tin.em_records is not None:
         nbytes += B * (tin.em_records[0, :, 0].numel() * 24 + tin.eps_records[0].numel() * 8
                        + K * 8)
@@ -2683,10 +2687,9 @@ def hold_shard_kernels(kept, kind, eps_iters, tag):
                               lambda: expand_filter(*args, **kw),
                               lambda: expand_filter_plain(*args, **kw), k1_work(*args, **kw))
     name = "dedup_select" if kind == "viterbi" else "dedup_select_rec"
-    calls = [("", False)] + ([("_eps", True)] if eps_iters else [])
-    for sfx, eps in calls:
-        args, kw = kept[name, shard_call_index(SHARD_FRAME, eps_iters, eps)]
-        shape = f"B={args[0].shape[0]}, N {args[0].shape[1]}, K {args[2]}, S {args[3]}"
+    args, kw = kept[name, shard_call_index(SHARD_FRAME, eps_iters)]
+    shape = f"B={args[0].shape[0]}, N {args[0].shape[1]}, K {args[2]}, S {args[3]}"
+    for sfx in ("",):
         if kind == "viterbi":
             got = dedup_select(*args)
             errs["k6" + sfx] = same_selection(dedup_select_plain(*args), got, where + sfx)
@@ -2700,12 +2703,96 @@ def hold_shard_kernels(kept, kind, eps_iters, tag):
                                             lambda: dedup_select_rec(*args, **kw),
                                             lambda: dedup_select_rec_plain(*args, **kw),
                                             k2_work(*args, **kw))
+    if eps_iters:
+        k = "k6_eps" if kind == "viterbi" else "k2_eps"
+        args, kw = kept[name, shard_call_index(SHARD_FRAME, eps_iters, True)]
+        errs[k], times[k] = hold_routed_call(args, kw, kind, where + "_eps")
     return errs, times
+
+
+def hold_routed_call(args, kw, kind, where):
+    """A sharded eps call with K7's receive side folded in (K6, or K2's eps
+    call, on ``kw["routed"]``, the K incumbents and the received buffer
+    read in place): held bitwise against its plain version on CPU copies
+    (the lanes laid out by ``routed_lanes_plain``, the dedup call's plain
+    version) and against the flat instance on the lanes laid out on the
+    card; timed (the plain version: the layout and the dedup call's plain
+    version on the card), beside the flat instance on the laid-out lanes
+    (``dedup_alone_ms``, what the call cost before the fold, whose
+    receive launch laid the lanes out; ``fold_ms`` the difference).
+    Returns (max |err|, the time_kernel fields)."""
+    import torch
+
+    from kaldi_decoder_tpu_torch.kernels.dedup import dedup_select
+    from kaldi_decoder_tpu_torch.kernels.dedup_rec import dedup_select_rec
+    from kaldi_decoder_tpu_torch.kernels.route import routed_lanes_plain
+    from kaldi_decoder_tpu_torch.ops.segment import dedup_select as dedup_select_plain
+    from kaldi_decoder_tpu_torch.ops.segment import dedup_select_rec as dedup_select_rec_plain
+
+    src = kw["routed"]
+    lanes = routed_lanes_plain(src)
+    B, N = lanes.cost.shape
+    K, S = args[2], args[3]
+    cpu = to_cpu(kw)
+    if kind == "viterbi":
+        got = dedup_select(*args, **kw)
+        flat = dedup_select(lanes.state_local, lanes.cost, K, S)
+        ref = dedup_select(*args, **cpu)
+        err = same_selection(ref, to_cpu(got), where)
+        same_selection(flat, got, where + " (the flat instance on the lanes laid out)")
+        t = time_kernel(f"K6_eps at {where} (B={B}, routed lanes {N}, K {K}, S {S}; the receive "
+                        f"side folded in)", lambda: dedup_select(*args, **kw),
+                        lambda: dedup_select_plain(*routed_lanes_plain(src)[:2], K, S),
+                        k6_work(lanes.cost, K))
+        t["dedup_alone_ms"] = device_ms(lambda: dedup_select(lanes.state_local, lanes.cost, K, S))
+    else:
+        R, sb = args[4], args[5]
+        inc = kw["num_incumbents"]
+        got = dedup_select_rec(*args, **kw)
+        pay = (lanes.gslot, lanes.arc)
+        flat = dedup_select_rec(lanes.state_local, lanes.cost, K, S, R, sb, pay,
+                                num_incumbents=inc)
+        ref = dedup_select_rec(*args, **cpu)
+        same_fields(ref, to_cpu(got), "K2's eps call on routed lanes", where)
+        same_fields(flat, got, "K2's eps call on routed lanes",
+                    where + " (the flat instance on the lanes laid out)")
+        err = 0.0
+
+        def plain():
+            ln = routed_lanes_plain(src)
+            return dedup_select_rec_plain(ln.state_local, ln.cost, K, S, R, sb,
+                                          (ln.gslot, ln.arc), inc)
+
+        t = time_kernel(f"K2_eps at {where} (B={B}, routed lanes {N}, K {K}, S {S}, R {R}; the "
+                        f"receive side folded in)", lambda: dedup_select_rec(*args, **kw), plain,
+                        k2_work(lanes.state_local, lanes.cost, K, S, R, sb, pay, inc))
+        t["dedup_alone_ms"] = device_ms(lambda: dedup_select_rec(
+            lanes.state_local, lanes.cost, K, S, R, sb, pay, num_incumbents=inc))
+    t["fold_ms"] = t["ms"] - t["dedup_alone_ms"]
+    log(f"    the flat instance on the lanes laid out: {t['dedup_alone_ms']:.4f} ms; the fold "
+        f"{t['fold_ms']:+.4f} ms")
+    return err, t
+
+
+def to_cpu(x):
+    """``x`` with every tensor in it (in dicts, tuples and named tuples)
+    copied to the CPU."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.cpu()
+    if isinstance(x, dict):
+        return {k: to_cpu(v) for k, v in x.items()}
+    if isinstance(x, tuple):
+        items = [to_cpu(v) for v in x]
+        return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+    return x
 
 
 def k8_local_work(costs, m):
     """Bytes and operations of K8's local half: a row's costs read, its
-    best cost, count and m-cost prefix written; a compare a slot."""
+    best cost, count and m-cost prefix written (m 0: none); a compare a
+    slot."""
     B, K = costs.shape
     return B * K * 4 + B * m * 4 + B * 8, B * K
 
@@ -2741,6 +2828,7 @@ def hold_shard_route(kept, eps_iters, tag):
     import torch
 
     from kaldi_decoder_tpu_torch.kernels.cutoff import (
+        empty_cutoff_local,
         global_cutoff_local,
         global_cutoff_local_plain,
         global_cutoff_merge,
@@ -2795,16 +2883,18 @@ def hold_shard_route(kept, eps_iters, tag):
         log(f"    at 1, 2, 4, 8 blocks a row: " + ", ".join(
             f"{ms:.4f}" for ms in t["ms_by_clusters"].values()) + " ms, each equal to plain")
         times["k7_send" + sfx] = t
-        args, kw = kept["route_recv", i]
-        out = kw["out"]
-        ref = route_recv_plain(*args)
-        got = route_recv(*args, out=out)
-        torch.cuda.synchronize()
-        same_fields(ref, got, "K7's receive side", where + sfx)
-        times["k7_recv" + sfx] = time_kernel(
-            f"K7 receive{sfx} at {where} (B={B}, lanes {got.cost.shape[1]})",
-            lambda: route_recv(*args, out=out), lambda: route_recv_plain(*args),
-            k7_recv_work(args[0], got))
+    # The receive side runs for the emitting call alone (an eps iteration's
+    # dedup call reads the received buffer in place: hold_routed_call).
+    args, kw = kept["route_recv", SHARD_FRAME]
+    out = kw["out"]
+    ref = route_recv_plain(*args)
+    got = route_recv(*args, out=out)
+    torch.cuda.synchronize()
+    same_fields(ref, got, "K7's receive side", where)
+    times["k7_recv"] = time_kernel(
+        f"K7 receive at {where} (B={got.cost.shape[0]}, lanes {got.cost.shape[1]})",
+        lambda: route_recv(*args, out=out), lambda: route_recv_plain(*args),
+        k7_recv_work(args[0], got))
     errs["k7_send"] = errs["k7_recv"] = 0.0
     if eps_iters:
         args, kw = kept["eps_step_shard", eps_iters + SHARD_FRAME * eps_iters]
@@ -2845,20 +2935,27 @@ def hold_shard_route(kept, eps_iters, tag):
                         for g, ms in t["ms_by_clusters"].items()) + ", each equal to plain")
         times["eps_step_shard"] = t
         errs["eps_step_shard"] = 0.0
-    args, _ = kept["frame_tail_shard", SHARD_FRAME]
+    args, kw = kept["frame_tail_shard", SHARD_FRAME]
     targs, st, cutoff, tin, lengths, outs, slot_base = args
+    local = kw["local"]
     t = int(targs[0])
     fa = lengths > t
-    final, ref = frame_tail_shard_plain(st, cutoff, tin, fa, slot_base)
+    final, ref, nxt = frame_tail_shard_plain(st, cutoff, tin, fa, slot_base, local)
     B, K = st.states.shape
+    m = local.prefix.shape[1] if local.prefix is not None else K
+    # The folded local half is K8's local half of the new costs, bit for bit.
+    fresh = global_cutoff_local_plain(final.costs.cpu(), m)
+    same_fields(fresh._replace(prefix=None if local.prefix is None else fresh.prefix),
+                to_cpu(nxt), "K3's shard mode's local half (plain)", where)
     chosen = shard_cluster_size(B, K)
     for g in (0,) + CLUSTER_SIZES:
         at = f"{where}, {g or chosen} blocks a row"
-        got = clone(args)
-        frame_tail_shard(*got, clusters=g)
+        got, g_local = clone(args), clone(local)
+        frame_tail_shard(*got, clusters=g, local=g_local)
         torch.cuda.synchronize()
         same_fields(final, got[1], "K3's shard mode (state)", at)
         same_fields(ref, type(ref)(*(x[t] for x in got[5])), "K3's shard mode (outputs)", at)
+        same_fields(nxt, g_local, "K3's shard mode (the next frame's local half)", at)
         if got[0].tolist() != [t + 1, 0]:
             raise AssertionError(f"K3's shard mode on {at}: t and the count {got[0].tolist()}")
     # Timed on a table of its own from t = 0, into outputs of 64 rows (the
@@ -2866,34 +2963,51 @@ def hold_shard_route(kept, eps_iters, tag):
     lattice = tin.em_records is not None
     t_outs = empty_shard_outs(64, B, K, outs[1].shape[2], lattice, st.states.device,
                               *((outs[0].shape[2], outs[1].shape[3]) if lattice else ()))
-    t_args, t_st = shard_args(st.states.device), clone(st)
+    t_args, t_st, t_local = shard_args(st.states.device), clone(st), clone(local)
     tk = time_kernel(
         f"K3 shard mode at {where} (B={B}, K {K}, {'lattice' if lattice else '1-best'}, "
-        f"{chosen} blocks a row)",
-        lambda: frame_tail_shard(t_args, t_st, cutoff, tin, lengths, t_outs, slot_base),
-        lambda: frame_tail_shard_plain(st, cutoff, tin, fa, slot_base), k3_shard_work(tin, fa))
+        f"{chosen} blocks a row, K8's local half folded in, m {m})",
+        lambda: frame_tail_shard(t_args, t_st, cutoff, tin, lengths, t_outs, slot_base,
+                                 local=t_local),
+        lambda: frame_tail_shard_plain(st, cutoff, tin, fa, slot_base, local),
+        k3_shard_work(tin, fa, local))
     tk["clusters"], tk["ms_by_clusters"] = chosen, {}
     for g in CLUSTER_SIZES:
         t_args, t_st = shard_args(st.states.device), clone(st)
         tk["ms_by_clusters"][g] = device_ms(
             lambda: frame_tail_shard(t_args, t_st, cutoff, tin, lengths, t_outs, slot_base,
-                                     clusters=g))
+                                     clusters=g, local=t_local))
     tk["share_by_clusters"] = {g: tk["bound_ms"] / ms for g, ms in tk["ms_by_clusters"].items()}
+    # Beside it, what the fold replaced: the same call without the local
+    # half, and K8's local half as a launch of its own on the new costs.
+    t_args, t_st = shard_args(st.states.device), clone(st)
+    tk["alone_ms"] = device_ms(
+        lambda: frame_tail_shard(t_args, t_st, cutoff, tin, lengths, t_outs, slot_base))
+    l_out = empty_cutoff_local(B, m, st.states.device)
+    tk["k8_local_ms"] = device_ms(lambda: global_cutoff_local(final.costs, m, out=l_out))
+    tk["fold_ms"] = tk["ms"] - tk["alone_ms"]
     log(f"    chosen {chosen} blocks a row; at 8, 4, 2, 1: device ms (share of the bound) "
         + ", ".join(f"{g}: {ms:.4f} ({tk['share_by_clusters'][g]:.1%})"
-                    for g, ms in tk["ms_by_clusters"].items()) + ", each equal to plain")
+                    for g, ms in tk["ms_by_clusters"].items()) + ", each equal to plain; "
+        f"without the local half {tk['alone_ms']:.4f} ms (the fold {tk['fold_ms']:+.4f}), "
+        f"K8's local half alone on the new costs {tk['k8_local_ms']:.4f}")
     times["k3_shard"] = tk
     errs["k3_shard"] = 0.0
-    (costs, m), kw = kept["global_cutoff_local", SHARD_FRAME]
-    out = kw["out"]
+    # K8's local half runs once a chunk, on the chunk's start state.
+    (costs, m), kw = kept["global_cutoff_local", 0]
+    out = kw.get("out")
+    own = out is None or out.prefix is not None  # a prefix of its own, or the costs
     ref = global_cutoff_local_plain(costs.cpu(), m)
+    if not own:
+        ref = ref._replace(prefix=None)
     got = global_cutoff_local(costs, m, out=out)
     torch.cuda.synchronize()
-    same_fields(ref, type(got)(*(x.cpu() for x in got)), "K8's local half", where)
+    same_fields(ref, to_cpu(got), "K8's local half", f"{tag}, the chunk's start")
     times["k8_local"] = time_kernel(
-        f"K8 local half at {where} (B={costs.shape[0]}, K {costs.shape[1]}, m {m})",
+        f"K8 local half at {tag}, the chunk's start (B={costs.shape[0]}, K {costs.shape[1]}, "
+        f"m {m}{'' if own else ', no prefix of its own'})",
         lambda: global_cutoff_local(costs, m, out=out),
-        lambda: global_cutoff_local_plain(costs, m), k8_local_work(costs, m))
+        lambda: global_cutoff_local_plain(costs, m), k8_local_work(costs, m if own else 0))
     args, kw = kept["global_cutoff_merge", SHARD_FRAME]
     out = kw["out"]
     best, merged = args[0], args[2]
@@ -3035,10 +3149,12 @@ def shard_path(kind, graph, sc, sl, refs, sref, P, rank):
     D = sh.frontier.eps_iters
     kname = "dedup_select" if kind == "viterbi" else "dedup_select_rec"
     routed = {shard_call_index(SHARD_FRAME, D), shard_call_index(SHARD_FRAME, D, True)}
+    # K7's receive side runs for the emitting calls alone (once a frame), K8's
+    # local half once a chunk (the frames' own are K3's shard mode's last step).
     capture = {"expand_filter": {SHARD_FRAME}, kname: routed, "route_send": routed,
-               "route_recv": routed, "expand_eps_lanes": {D + SHARD_FRAME * D},
+               "route_recv": {SHARD_FRAME}, "expand_eps_lanes": {D + SHARD_FRAME * D},
                "eps_step_shard": {D + SHARD_FRAME * D}, "frame_tail_shard": {SHARD_FRAME},
-               "global_cutoff_local": {SHARD_FRAME}, "global_cutoff_merge": {SHARD_FRAME}}
+               "global_cutoff_local": {0}, "global_cutoff_merge": {SHARD_FRAME}}
     dist.barrier()
     reset_counts()
     collective_calls.clear()
@@ -3050,14 +3166,16 @@ def shard_path(kind, graph, sc, sl, refs, sref, P, rank):
     coll = dict(collective_calls)
     frames = res.num_active.shape[0]
     k = "k6" if kind == "viterbi" else "k2"
-    # No driver: K3's shard mode and K8's halves once a frame, no
-    # first-frame mode; K7's sides once an emitting call and an eps
-    # iteration, the eps step's shard mode once an eps iteration, the start
-    # closure's included.
+    # No driver: K3's shard mode and K8's merge once a frame, no first-frame
+    # mode; K8's local half once a chunk (one a decode: each frame's is K3's
+    # shard mode's last step); K7's send side and the dedup call once an
+    # emitting call and an eps iteration, the eps step's shard mode once an
+    # eps iteration, the start closure's included; K7's receive side once
+    # an emitting call (an eps call reads the received buffer in place).
     routes = D + frames * (1 + D)
     want_n = launch_counts(gather=0, k1=frames, k2=0, k4=0, k5=D + frames * D, k6=0,
                            eps_step=D + frames * D, k3=frames, k3_start=0, k7_send=routes,
-                           k7_recv=routes, k8_local=frames, k8_merge=frames)
+                           k7_recv=frames, k8_local=1, k8_merge=frames)
     want_n[k] = routes
     if n != want_n:
         raise AssertionError(f"{what}: launch counts {n}, want {want_n}")
@@ -3712,8 +3830,18 @@ def main():
                     "k7_send", **{f: par[1][0]["shard_viterbi"][3]["k7_send"][f]
                                   for f in ("clusters", "ms_by_clusters")}),
         shard_entry("K7 route_recv (the shard route's receive side: the received buffer as the "
-                    "dedup call's lanes, after the incumbents on an eps iteration)", "route.cu",
-                    "kaldi_decoder_tpu/parallel/graph_shard.py:313", "k7_recv", "k7_recv"),
+                    "emitting dedup call's lanes; on an eps iteration folded into the dedup "
+                    "call, which reads the incumbents and the received buffer in place through "
+                    "common.cuh:routed_entry: its fields *_eps_*, that call with the fold, "
+                    "dedup_alone_ms the same call on the lanes laid out, fold_ms the "
+                    "difference)", "route.cu",
+                    "kaldi_decoder_tpu/parallel/graph_shard.py:313", "k7_recv", "k7_recv",
+                    **{f"{f}_eps_{ph}_p{P}": par[P][0][ph][3][k][f]
+                       for P in par for ph, k in (("shard_viterbi", "k6_eps"),
+                                                  ("shard_lattice", "k2_eps"))
+                       if k in par[P][0][ph][3]
+                       for f in ("ms", "plain_ms", "bound_ms", "bound_by", "share_of_bound",
+                                 "dedup_alone_ms", "fold_ms")}),
         shard_entry("eps step, shard mode (a sharded eps iteration's closing step: backpointers "
                     "or links, the batch-wide stop, the carry, the local changed, the frame's "
                     "local values; a cluster of blocks a row)", "eps.cu",
@@ -3722,12 +3850,19 @@ def main():
                                          for f in ("clusters", "ms_by_clusters",
                                                    "share_by_clusters")}),
         shard_entry("K3 frame_tail, shard mode (the sharded frame's rebase, freeze and outputs "
-                    "into row t; a cluster of blocks a row)", "frame.cu",
+                    "into row t, and the next frame's local half of GetCutoff, K8's, from the "
+                    "eps closure's local values; a cluster of blocks a row; alone_ms the same "
+                    "call without the local half, k8_local_ms K8's local half as a launch of "
+                    "its own on the new costs)", "frame.cu",
                     "kaldi_decoder_tpu/parallel/graph_shard.py:540", "k3_shard", "k3_shard",
                     **{f: par[1][0]["shard_viterbi"][3]["k3_shard"][f]
-                       for f in ("clusters", "ms_by_clusters", "share_by_clusters")}),
+                       for f in ("clusters", "ms_by_clusters", "share_by_clusters")},
+                    **{f"{f}_{ph}_p{P}": par[P][0][ph][3]["k3_shard"][f]
+                       for P in par for ph in ("shard_viterbi", "shard_lattice")
+                       for f in ("alone_ms", "k8_local_ms", "fold_ms")}),
         shard_entry("K8 global_cutoff_local (the sharded GetCutoff's local half: each row's "
-                    "best cost, finite count and cost prefix, before the collectives)",
+                    "best cost, finite count and cost prefix, before the collectives; once a "
+                    "chunk, on its start state: each frame's is K3's shard mode's last step)",
                     "cutoff.cu", "kaldi_decoder_tpu/parallel/graph_shard.py:447", "k8_local",
                     "k8_local"),
         shard_entry("K8 global_cutoff_merge (the sharded GetCutoff's merge: the order "

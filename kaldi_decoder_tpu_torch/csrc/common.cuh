@@ -86,6 +86,91 @@ __device__ __forceinline__ float from_ordered_key(unsigned int k) {
   return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
 }
 
+// ---- The routed lane source (a sharded eps iteration's lanes) ---------------
+// A sharded eps iteration's dedup call reads its lanes where they lie: the
+// K incumbents (the carried frontier) and the (P, B, cap) entries [local
+// state, cost bits, slot, arc] that the all_to_all delivered, slice p from
+// rank p (kernels/route.py RoutedArgs).  Lane j < K of row b is incumbent
+// j: its state and cost, slot base + j (-1 when !has_base) and arc -1;
+// lane j >= K is recv[p, b, c], p, c = divmod(j - K, cap), its state sp
+// where its cost is not finite.  This is the layout K7's receive side
+// wrote for the dedup call (kernels/route.py route_recv_plain, the
+// concatenation of kaldi_decoder_tpu/parallel/graph_shard.py:395-398), read
+// in place: the dedup calls of K6 and K2 and the eps step's shard mode
+// resolve a lane through routed_entry, so the receive side has no launch
+// on an eps iteration.
+struct RoutedArgs {         // kernels/route.py RoutedArgs
+  const int4* recv;        // (P, B, cap)
+  const int* inc_states;   // (B, K)
+  const float* inc_costs;  // (B, K)
+  int B, P, cap, K, sp, has_base, base;
+};
+struct Routed : RoutedArgs {
+  unsigned magic;  // min(floor(2^32 / cap), 2^32 - 1): q / cap by a multiply-high
+};
+
+// The routed lanes a launch's host pointer to RoutedArgs gives (null:
+// none, all zeros).
+inline Routed routed_of(const void* p) {
+  Routed r{};
+  if (p != nullptr) {
+    static_cast<RoutedArgs&>(r) = *static_cast<const RoutedArgs*>(p);
+    r.magic = r.cap > 1 ? (unsigned)((1ull << 32) / (unsigned)r.cap) : 0xffffffffu;
+  }
+  return r;
+}
+
+// Whether `r` is the lanes of B rows of N: N = K + P * cap, the entries
+// and, with K, the incumbents given, every index in int range.
+inline bool routed_fits(const Routed& r, int B, int N) {
+  return r.recv != nullptr && r.B == B && r.P >= 1 && r.cap >= 1 && r.K >= 0 && r.sp >= 1 &&
+         (long long)r.K + (long long)r.P * r.cap == N &&
+         (long long)r.P * r.B * r.cap < (1ll << 31) &&
+         (r.K == 0 || (r.inc_states != nullptr && r.inc_costs != nullptr));
+}
+
+// Where lane j of row b lies: recv's entry, or null for incumbent j.
+// p = q / cap without a division: the multiply-high is p or p - 1 (q <
+// 2^31), and one compare settles it.
+__device__ __forceinline__ const int4* routed_entry(const Routed& r, int b, int j) {
+  if (j < r.K) return nullptr;
+  const unsigned q = (unsigned)(j - r.K);
+  unsigned p = __umulhi(q, r.magic), c = q - p * (unsigned)r.cap;
+  if (c >= (unsigned)r.cap) {
+    ++p;
+    c -= (unsigned)r.cap;
+  }
+  return r.recv + ((size_t)p * r.B + b) * r.cap + c;
+}
+
+// Lane j of row b's (state, cost): the entry's first 8 bytes.
+__device__ __forceinline__ void routed_state_cost(const Routed& r, int b, int j, int* state,
+                                                  float* cost) {
+  const int4* e = routed_entry(r, b, j);
+  if (e == nullptr) {
+    *state = r.inc_states[(size_t)b * r.K + j];
+    *cost = r.inc_costs[(size_t)b * r.K + j];
+    return;
+  }
+  const int2 v = *reinterpret_cast<const int2*>(e);
+  *cost = __int_as_float(v.y);
+  *state = isfinite(*cost) ? v.x : r.sp;
+}
+
+// Lane j of row b's cost.
+__device__ __forceinline__ float routed_cost(const Routed& r, int b, int j) {
+  const int4* e = routed_entry(r, b, j);
+  return e == nullptr ? r.inc_costs[(size_t)b * r.K + j]
+                      : __int_as_float(reinterpret_cast<const int*>(e)[1]);
+}
+
+// Lane j of row b's payload (slot, arc): the entry's last 8 bytes.
+__device__ __forceinline__ int2 routed_payload(const Routed& r, int b, int j) {
+  const int4* e = routed_entry(r, b, j);
+  if (e == nullptr) return make_int2(r.has_base ? r.base + j : -1, -1);
+  return *reinterpret_cast<const int2*>(reinterpret_cast<const int*>(e) + 2);
+}
+
 // ---- Thread block clusters (sm_90) ----------------------------------------
 // A cluster barrier split in two: arrive (release: this thread's earlier
 // writes, shared and global, become visible to the cluster) and wait

@@ -26,7 +26,10 @@
 //
 // The design: one block a row.  The local half: a thread a slot, the
 // minimum of (cost key << 32 | slot) and the count reduced in the block,
-// the prefix copied on the way.  The merge does not sort: each shard's
+// the prefix copied on the way.  It runs once a chunk, on the chunk's
+// start state: every later frame's local half is the last step of the
+// frame before's K3 shard mode (frame.cu), from the eps closure's local
+// values, with no launch of its own.  The merge does not sort: each shard's
 // prefix is already in order (the frontier's select orders by IEEE total
 // order, so by the canonical key too; kaldi_decoder_tpu/parallel/
 // graph_shard.py:470 relies on it as well), so the element that the
@@ -245,14 +248,15 @@ __global__ void __launch_bounds__(MERGE_THREADS) cutoff_merge_kernel(MergeArgs a
 }  // namespace
 
 // Launches K8's local half on `stream`, a block a row.  Shapes: costs (B,
-// K) float32; best (B,) float32, count (B,) int32, prefix (B, m) float32,
-// 1 <= m <= K.  Returns the launch's CUDA error.
+// K) float32; best (B,) float32, count (B,) int32, prefix (B, m) float32
+// or null (no prefix copied), 1 <= m <= K.  Returns the launch's CUDA
+// error.
 extern "C" int kd_cutoff_local(const void* costs, int B, int K, int m, void* best, void* count,
                                void* prefix, void* stream) {
   if (B < 0 || K < 1 || m < 1 || m > K) return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   cutoff_local_kernel<<<B, LOCAL_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(costs), K, m, static_cast<float*>(best),
+      static_cast<const float*>(costs), K, prefix != nullptr ? m : 0, static_cast<float*>(best),
       static_cast<int*>(count), static_cast<float*>(prefix));
   return (int)cudaGetLastError();
 }

@@ -86,8 +86,13 @@
 //
 // The eps call's instance (STEP) also runs the eps step (eps_step.cuh) as
 // its last step: each slot's backpointer where the slot is written, then
-// the row's flags after one more cluster barrier.  The emitting calls and
-// the sharded closure's eps calls launch the instance without it.
+// the row's flags after one more cluster barrier.  The emitting calls
+// launch the instance without it.  The sharded closure's eps calls launch
+// the ROUTED instance, which reads its lanes where the all_to_all left
+// them (the K incumbents, then the received (P, B, cap) entries;
+// common.cuh:routed_entry): the layout K7's receive side wrote for it, so
+// that an eps iteration has no receive launch.  A routed lane reads 8 of
+// its entry's 16 bytes, (state, cost), and the winners' K of them.
 
 #include <cooperative_groups.h>
 
@@ -108,9 +113,11 @@ constexpr int VCACHE = 2048;  // finite lanes a block keeps in shared memory
 constexpr int CACHE = 2048;   // winners a block keeps in shared memory
 constexpr size_t SMEM = (size_t)(VCACHE + CACHE) * (sizeof(unsigned long long) + sizeof(int));
 
-template <bool STEP>
+template <bool STEP, bool ROUTED>
 __global__ void __launch_bounds__(THREADS, 2) dedup_kernel(
-    const int* __restrict__ dst, const float* __restrict__ cost, int N, int S, int K,
+    const int* __restrict__ dst, const float* __restrict__ cost,
+    const __grid_constant__ kdtorch::Routed routed,
+    int N, int S, int K,
     unsigned long long* __restrict__ table, unsigned long long* __restrict__ keys0,
     int* __restrict__ vals0, unsigned long long* __restrict__ keys1, int* __restrict__ vals1,
     int* __restrict__ out_states, float* __restrict__ out_costs, int* __restrict__ out_idx,
@@ -149,7 +156,9 @@ __global__ void __launch_bounds__(THREADS, 2) dedup_kernel(
     if constexpr (STEP) ep::backpointer(step, b, K, N, r, lane, ran, s_any);
   };
   // Both caches are free once the winners are scattered: the core's stage.
-  const int n = dd::frontier<THREADS, false>(sh, cluster, ls, dst, cost, row, N, S, K,
+  static_assert(!(STEP && ROUTED), "the sharded eps calls run no step");
+  const auto lanes = dd::row_lanes<ROUTED>(dst, cost, nullptr, nullptr, row, routed, b);
+  const int n = dd::frontier<THREADS, false>(sh, cluster, ls, lanes, N, S, K,
                                              table + (long)b * S, true, fin, win, &s_fin, nullptr,
                                              keys0 + srow, vals0 + srow, keys1 + srow,
                                              vals1 + srow, smem_k, smem_v, VCACHE + CACHE,
@@ -167,15 +176,24 @@ __global__ void __launch_bounds__(THREADS, 2) dedup_kernel(
   sel::mark_step(11, false, true);
 }
 
+// The instance of K6 a call launches: with the eps step as its last step
+// (an unsharded eps call), on routed lanes (a sharded eps call), or on
+// flat lanes without the step.
+decltype(&dedup_kernel<false, false>) instance(bool step, bool routed) {
+  return step ? dedup_kernel<true, false> : routed ? dedup_kernel<false, true>
+                                                   : dedup_kernel<false, false>;
+}
+
 }  // namespace
 
-// The cluster size K6 launches with for B utterances of N lanes, with the
-// eps step (`step` nonzero: the STEP instance) or without
-// (kdtorch::pick_cluster, at most dd::cluster_cap(N)); 0 when none fits.
-extern "C" int kd_dedup_cluster(int B, int N, int step) {
+// The cluster size K6 launches with for B utterances of N lanes, in the
+// instance that `step` (nonzero: with the eps step) and `routed` (nonzero:
+// on routed lanes) pick (kdtorch::pick_cluster, at most
+// dd::cluster_cap(N)); 0 when none fits.
+extern "C" int kd_dedup_cluster(int B, int N, int step, int routed) {
   const int most = dd::cluster_cap(N);
-  return kdtorch::pick_cluster(step ? dedup_kernel<true> : dedup_kernel<false>, B, THREADS,
-                               most, [](int) { return SMEM; }, most);
+  return kdtorch::pick_cluster(instance(step, routed), B, THREADS, most,
+                               [](int) { return SMEM; }, most);
 }
 
 // The last K6 launch's step marks (sel::read_marks; the steps are
@@ -185,10 +203,12 @@ extern "C" int kd_dedup_marks(unsigned long long* ns, long long* clock, int* clo
   return sel::read_marks(ns, clock, clock_khz, blocks);
 }
 
-// Launches K6 on `stream`.  Shapes: dst/cost (B, N); table (B, S) 64-bit
-// words, all ones on entry and restored on return; scratch keys0/keys1
-// (B, N + 256) 64-bit and vals0/vals1 (B, N + 256); outputs states/costs/cand_idx
-// (B, K), num_unique (B,).  `step`: null, or a host pointer to the eps
+// Launches K6 on `stream`.  Shapes: dst/cost (B, N), or null with `routed`
+// (a host pointer to kdtorch::Routed: a sharded eps call's lanes, N = K +
+// P * cap, read in place); table (B, S) 64-bit words, all ones on entry
+// and restored on return; scratch keys0/keys1 (B, N + 256) 64-bit and
+// vals0/vals1 (B, N + 256); outputs states/costs/cand_idx (B, K),
+// num_unique (B,).  `step`: null, or a host pointer to the eps
 // step of an eps iteration (kdtorch::eps::Step; its src_slot/arc_id are
 // the (B, N) lanes' and its out (B, D, K, 2) int32), which the STEP
 // instance runs as its last step.  Returns the launch's CUDA error (0 on
@@ -196,15 +216,18 @@ extern "C" int kd_dedup_marks(unsigned long long* ns, long long* clock, int* clo
 extern "C" int kd_dedup(const void* dst, const void* cost, int B, int N, int S, int K,
                         void* table, void* keys0, void* vals0, void* keys1, void* vals1,
                         void* states, void* costs, void* cand_idx, void* num_unique,
-                        const void* step, void* stream) {
+                        const void* routed, const void* step, void* stream) {
   const ep::Step st = ep::step_of(step);
-  if (st.on() && (B > ep::MAX_ROWS || st.width != K || st.d < 0 || st.d >= st.D))
+  if (st.on() && (routed != nullptr || B > ep::MAX_ROWS || st.width != K || st.d < 0 ||
+                  st.d >= st.D))
     return (int)cudaErrorInvalidValue;
-  const int C = kd_dedup_cluster(B, N, st.on());
+  const kdtorch::Routed rt = kdtorch::routed_of(routed);
+  if (routed != nullptr && !kdtorch::routed_fits(rt, B, N)) return (int)cudaErrorInvalidValue;
+  const int C = kd_dedup_cluster(B, N, st.on(), routed != nullptr);
   if (C == 0) return (int)cudaErrorInvalidConfiguration;
   return (int)kdtorch::launch_cluster(
-      st.on() ? dedup_kernel<true> : dedup_kernel<false>, B * C, C, THREADS, SMEM,
-      static_cast<cudaStream_t>(stream), (const int*)dst, (const float*)cost, N, S, K,
+      instance(st.on(), routed != nullptr), B * C, C, THREADS, SMEM,
+      static_cast<cudaStream_t>(stream), (const int*)dst, (const float*)cost, rt, N, S, K,
       (unsigned long long*)table, (unsigned long long*)keys0, (int*)vals0,
       (unsigned long long*)keys1, (int*)vals1, (int*)states, (float*)costs, (int*)cand_idx,
       (int*)num_unique, st);

@@ -57,6 +57,52 @@ struct LaneSplit {
   }
 };
 
+// The lanes of one row as the dedup call reads them: a lane's (state,
+// cost), its cost again (K2's tie rule), its payload (K2's records).
+// FlatLanes: the row's (B, N) columns.  RoutedLanes: a sharded eps
+// iteration's incumbents and received entries, read in place through
+// common.cuh:routed_entry.
+struct FlatLanes {
+  const int* dst;     // the row's
+  const float* cost;
+  const int* pay0;    // or null (K6)
+  const int* pay1;
+  __device__ __forceinline__ void load(int i, int* d, float* c) const {
+    *c = __ldg(cost + i);
+    *d = __ldg(dst + i);
+  }
+  __device__ __forceinline__ float cost_of(int i) const { return cost[i]; }
+  __device__ __forceinline__ int2 payload(int i) const {
+    return make_int2(__ldg(pay0 + i), __ldg(pay1 + i));
+  }
+};
+
+struct RoutedLanes {
+  const kdtorch::Routed* r;  // the kernel's __grid_constant__ parameter: read in place
+  int b;
+  __device__ __forceinline__ void load(int i, int* d, float* c) const {
+    kdtorch::routed_state_cost(*r, b, i, d, c);
+  }
+  __device__ __forceinline__ float cost_of(int i) const { return kdtorch::routed_cost(*r, b, i); }
+  __device__ __forceinline__ int2 payload(int i) const {
+    return kdtorch::routed_payload(*r, b, i);
+  }
+};
+
+// Row b's lanes: the routed ones of `r`, or the (B, N) columns' row `row`
+// (payload columns may be null).
+template <bool ROUTED>
+__device__ __forceinline__ auto row_lanes(const int* dst, const float* cost, const int* pay0,
+                                          const int* pay1, long row, const kdtorch::Routed& r,
+                                          int b) {
+  if constexpr (ROUTED) {
+    return RoutedLanes{&r, b};
+  } else {
+    return FlatLanes{dst + row, cost + row, pay0 != nullptr ? pay0 + row : nullptr,
+                     pay1 != nullptr ? pay1 + row : nullptr};
+  }
+}
+
 // A block's list of (key, lane) entries: the first `cap` in shared
 // memory, the rest at the same index in the block's spill region.
 struct List {
@@ -83,7 +129,8 @@ struct List {
   }
 };
 
-// Steps 1-3 for one row, by every thread of the row's cluster.  `fin`
+// Steps 1-3 for one row (`lanes`, N of them), by every thread of the
+// row's cluster.  `fin`
 // receives the block's finite lanes as (cost bits << 32 | state, lane),
 // *s_fin their count; `win` its winners as (total-order cost << 32 |
 // state, lane).  With `restore`, each winner restores its table word in
@@ -95,11 +142,11 @@ struct List {
 // SORT_CROWDED these are.  Returns the row's number of winners once this
 // block's emits are done; no lane reads the table after the select's
 // first cluster barrier.
-template <int THREADS, bool SORT_CROWDED, class Emit>
+template <int THREADS, bool SORT_CROWDED, class Lanes, class Emit>
 __device__ int frontier(sel::Shared& sh, cg::cluster_group& cluster, const LaneSplit& ls,
-                        const int* __restrict__ dst, const float* __restrict__ cost, long row,
-                        int N, int S, int K, unsigned long long* __restrict__ tab, bool restore,
-                        const List& fin, const List& win, int* s_fin, int* fin_total,
+                        const Lanes& lanes, int N, int S, int K,
+                        unsigned long long* __restrict__ tab, bool restore, const List& fin,
+                        const List& win, int* s_fin, int* fin_total,
                         unsigned long long* keys0, int* vals0, unsigned long long* keys1,
                         int* vals1, unsigned long long* stage, int* stage_v, int stage_cap,
                         sel::SortTables* tables, Emit emit) {
@@ -124,8 +171,9 @@ __device__ int frontier(sel::Shared& sh, cg::cluster_group& cluster, const LaneS
     for (int u = 0; u < UNROLL; ++u) {
       const int i = ls.lane_of(l0 + u * THREADS + tid);
       const bool here = l0 + u * THREADS + tid < ls.mine && i < N;
-      c[u] = here ? cost[row + i] : INFINITY;
-      d[u] = here ? dst[row + i] : -1;
+      c[u] = INFINITY;
+      d[u] = -1;
+      if (here) lanes.load(i, &d[u], &c[u]);
     }
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {

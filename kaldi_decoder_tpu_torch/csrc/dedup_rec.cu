@@ -47,7 +47,11 @@
 //   it emits, each record row it writes copied into the iteration's row
 //   (the block that writes row r_eps notes the spill), and after one more
 //   cluster barrier the row's flags.  The sharded eps calls launch the
-//   instance without it, whose registers the step would crowd.
+//   instance without it, whose registers the step would crowd, in its
+//   ROUTED form: the lanes, their costs for the tie rule and the records'
+//   payload read where the all_to_all left them (the K incumbents, then
+//   the received (P, B, cap) entries; common.cuh:routed_entry), so that an
+//   eps iteration has no receive launch.
 //
 // The record key.  A record's order is (class, slack, state, cost, lane),
 // wider than 64 bits.  The key is (class, slack, state): a winner's is its
@@ -180,19 +184,23 @@ struct RecDigit {
 
 // Equal record keys (extras of one slack and state) rank by (cost with
 // -0.0 folded, lane).
+template <class Lanes>
 struct RecTie {
-  const float* cost;  // the row's lane costs
+  Lanes lanes;  // the row's
   static constexpr bool on = true;
   __device__ bool operator()(int a, int b) const {
-    const unsigned ka = kdtorch::ordered_key(cost[a]), kb = kdtorch::ordered_key(cost[b]);
+    const unsigned ka = kdtorch::ordered_key(lanes.cost_of(a));
+    const unsigned kb = kdtorch::ordered_key(lanes.cost_of(b));
     return ka < kb || (ka == kb && a < b);
   }
 };
 
-template <bool INCUMBENTS, bool STEP>
+template <bool INCUMBENTS, bool STEP, bool ROUTED>
 __global__ void __launch_bounds__(THREADS, 1) dedup_rec_kernel(
     const int* __restrict__ dst, const float* __restrict__ cost, const int* __restrict__ pay0,
-    const int* __restrict__ pay1, int N, int S, int K, int R, float slack_beam,
+    const int* __restrict__ pay1, const __grid_constant__ kdtorch::Routed routed, int N, int S,
+    int K, int R,
+    float slack_beam,
     int num_incumbents, int* __restrict__ out_cand_idx,
     unsigned long long* __restrict__ table, unsigned long long* __restrict__ keys0,
     int* __restrict__ vals0, unsigned long long* __restrict__ keys1, int* __restrict__ vals1,
@@ -247,6 +255,9 @@ __global__ void __launch_bounds__(THREADS, 1) dedup_rec_kernel(
   // anything is written; the block's `changed` and spill flags; the
   // cluster's, in rank 0's parts.
   static_assert(INCUMBENTS || !STEP, "the eps step follows an eps call");
+  static_assert(INCUMBENTS || !ROUTED, "routed lanes are a sharded eps call's");
+  static_assert(!(STEP && ROUTED), "the sharded eps calls run no step");
+  const auto lanes = dd::row_lanes<ROUTED>(dst, cost, pay0, pay1, row, routed, b);
   __shared__ int s_any[2], s_parts[ep::MAX_CLUSTER];
   const bool ran = STEP ? ep::read_ran(step) : true;
   if (STEP && tid == 0) s_any[0] = s_any[1] = 0;  // before the core's first barrier
@@ -276,12 +287,13 @@ __global__ void __launch_bounds__(THREADS, 1) dedup_rec_kernel(
       if (INCUMBENTS && lane < num_incumbents) {
         put_rec(r, -1, -1, -1, INF_BITS);
       } else {
-        put_rec(r, pay0[row + lane], pay1[row + lane], d, 0u);
+        const int2 p = lanes.payload(lane);
+        put_rec(r, p.x, p.y, d, 0u);
       }
     }
   };
   // The record list's cache is free until the record pass: the stage.
-  const int n = dd::frontier<THREADS, true>(sh, cluster, ls, dst, cost, row, N, S, K, tab, false,
+  const int n = dd::frontier<THREADS, true>(sh, cluster, ls, lanes, N, S, K, tab, false,
                                             fin, win, &s_fin, &s_total, keys0 + srow,
                                             vals0 + srow, keys1 + srow, vals1 + srow, rec_k,
                                             rec_v, RCACHE, tables, emit);
@@ -436,11 +448,12 @@ __global__ void __launch_bounds__(THREADS, 1) dedup_rec_kernel(
     // steps are marked from 18 on.
     auto remit = [&](int r, unsigned long long key, int lane) {
       const unsigned slack_bits = key & EXTRA ? (unsigned)(key >> 32) & 0x7fffffffu : 0u;
-      put_rec(r, pay0[row + lane], pay1[row + lane], (int)(unsigned)key, slack_bits);
+      const int2 p = lanes.payload(lane);
+      put_rec(r, p.x, p.y, (int)(unsigned)key, slack_bits);
     };
     eligible = sel::select_smallest<THREADS, true>(
         sh, cluster, recs.entries(s_rec), keys0 + srow, vals0 + srow, keys1 + srow, vals1 + srow,
-        fin_k, fin_v, STAGE, tables, dig, R, remit, RecTie{cost + row}, 18);
+        fin_k, fin_v, STAGE, tables, dig, R, remit, RecTie<decltype(lanes)>{lanes}, 18);
     taken = min(eligible, R);
   }
   for (int r = taken + rank * THREADS + tid; r < R; r += C * THREADS) put_rec(r, -1, -1, -1, INF_BITS);
@@ -454,23 +467,25 @@ __global__ void __launch_bounds__(THREADS, 1) dedup_rec_kernel(
 }
 
 // The instance of K2 a call launches: with incumbents (the eps call) or
-// without; with incumbents, with the eps step as its last step or
-// without.
-decltype(&dedup_rec_kernel<false, false>) rec_instance(bool incumbents, bool step) {
-  return !incumbents ? dedup_rec_kernel<false, false>
-         : step      ? dedup_rec_kernel<true, true>
-                     : dedup_rec_kernel<true, false>;
+// without; with incumbents, with the eps step as its last step (an
+// unsharded eps call), on routed lanes (a sharded eps call) or neither.
+decltype(&dedup_rec_kernel<false, false, false>) rec_instance(bool incumbents, bool step,
+                                                              bool routed) {
+  return !incumbents ? dedup_rec_kernel<false, false, false>
+         : step      ? dedup_rec_kernel<true, true, false>
+         : routed    ? dedup_rec_kernel<true, false, true>
+                     : dedup_rec_kernel<true, false, false>;
 }
 
 }  // namespace
 
 // The cluster size K2 launches with for B utterances of N lanes, in the
-// instance that `incumbents` and `step` (nonzero: the eps call, and with
-// it the eps step) pick: K6's rule (dedup.cu:kd_dedup_cluster) with K2's
-// shared memory; 0 when none fits.
-extern "C" int kd_dedup_rec_cluster(int B, int N, int incumbents, int step) {
+// instance that `incumbents`, `step` and `routed` (nonzero: the eps call,
+// and with it the eps step or routed lanes) pick: K6's rule
+// (dedup.cu:kd_dedup_cluster) with K2's shared memory; 0 when none fits.
+extern "C" int kd_dedup_rec_cluster(int B, int N, int incumbents, int step, int routed) {
   const int most = dd::cluster_cap(N);
-  return kdtorch::pick_cluster(rec_instance(incumbents, step), B, THREADS, most,
+  return kdtorch::pick_cluster(rec_instance(incumbents, step, routed), B, THREADS, most,
                                [](int) { return SMEM; }, most);
 }
 
@@ -491,25 +506,32 @@ extern "C" int kd_dedup_rec_marks(unsigned long long* ns, long long* clock, int*
 // cand_idx is not touched and may be null.  `step`: null, or (with
 // num_incumbents == K) a host pointer to the eps step of an eps iteration
 // (kdtorch::eps::Step; width r_eps < R, out (B, D, r_eps, 4) int32), which
-// the INCUMBENTS instance then runs as its last step.  Returns the
-// launch's CUDA error (0 on success).
+// the INCUMBENTS instance then runs as its last step; `routed`: null, or
+// (with num_incumbents the routed lanes' K) a host pointer to
+// kdtorch::Routed, a sharded eps call's lanes and payload, N = K + P *
+// cap, read in place (dst, cost, pay0, pay1 may then be null).  Returns
+// the launch's CUDA error (0 on success).
 extern "C" int kd_dedup_rec(const void* dst, const void* cost, const void* pay0,
                             const void* pay1, int B, int N, int S, int K, int R, float slack_beam,
                             int num_incumbents, void* table, void* keys0, void* vals0,
                             void* keys1, void* vals1, void* keys_fin, void* vals_fin,
                             void* keys_win, void* vals_win, void* states, void* costs,
                             void* num_unique, void* rec, void* rec_overflow, void* cand_idx,
-                            const void* step, void* stream) {
+                            const void* routed, const void* step, void* stream) {
   const ep::Step st = ep::step_of(step);
-  if (st.on() && (num_incumbents != K || B > ep::MAX_ROWS || st.width < 1 || st.width >= R ||
-                  st.d < 0 || st.d >= st.D))
+  if (st.on() && (routed != nullptr || num_incumbents != K || B > ep::MAX_ROWS ||
+                  st.width < 1 || st.width >= R || st.d < 0 || st.d >= st.D))
     return (int)cudaErrorInvalidValue;
-  const int C = kd_dedup_rec_cluster(B, N, num_incumbents != 0, st.on());
+  const kdtorch::Routed rt = kdtorch::routed_of(routed);
+  if (routed != nullptr && (num_incumbents != rt.K || num_incumbents == 0 ||
+                            !kdtorch::routed_fits(rt, B, N)))
+    return (int)cudaErrorInvalidValue;
+  const int C = kd_dedup_rec_cluster(B, N, num_incumbents != 0, st.on(), routed != nullptr);
   if (C == 0) return (int)cudaErrorInvalidConfiguration;
   return (int)kdtorch::launch_cluster(
-      rec_instance(num_incumbents != 0, st.on()), B * C, C, THREADS, SMEM,
+      rec_instance(num_incumbents != 0, st.on(), routed != nullptr), B * C, C, THREADS, SMEM,
       static_cast<cudaStream_t>(stream),
-      (const int*)dst, (const float*)cost, (const int*)pay0, (const int*)pay1, N, S, K, R,
+      (const int*)dst, (const float*)cost, (const int*)pay0, (const int*)pay1, rt, N, S, K, R,
       slack_beam, num_incumbents, (int*)cand_idx, (unsigned long long*)table,
       (unsigned long long*)keys0, (int*)vals0,
       (unsigned long long*)keys1, (int*)vals1, (unsigned long long*)keys_fin, (int*)vals_fin,

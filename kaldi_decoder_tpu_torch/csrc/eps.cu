@@ -524,7 +524,8 @@ extern "C" int kd_expand_eps(const void* states, const void* costs, const void* 
 // (The unsharded step runs as the last step of the eps dedup call,
 // eps_step.cuh.)
 //
-// What bounds it: bytes, the K winning lanes' routed slot and arc (1-best)
+// What bounds it: bytes, the K winning lanes' routed slot and arc (1-best:
+// read in place, the dedup call's routed lanes, common.cuh:routed_entry)
 // or the records (lattice), the selection and the carried frontier, one
 // iteration's row of backpointers or links: 1.1-1.9 MB at B = 16, K 2048,
 // some 0.0003-0.0006 ms at 3.35 TB/s; at these sizes what is left is a
@@ -591,15 +592,14 @@ struct __align__(16) StepPart {
 };
 
 struct ShardStepArgs {
-  int B, K, N, D, d, width, R_rec, slot_base, reduce;
+  int B, K, D, d, width, R_rec, slot_base, reduce;
   const int* cand_idx;              // (B, K)
   const int* num_unique;            // (B,)
   const int* sel_states;            // (B, K)
   const float* sel_costs;           // (B, K)
   const unsigned char* rec_ovf;     // (B,) lattice
   const int4* records;              // (B, R_rec) lattice
-  const int* gslot;                 // (B, N) the routed lanes (1-best)
-  const int* arc;                   // (B, N)
+  kdtorch::Routed routed;           // the dedup call's routed lanes (1-best)
   const unsigned char* exp_ovf;     // (B,) K5's
   const unsigned char* route_ovf;   // (B,) the route's
   const unsigned char* em_ovf[3];   // (B,) each or null: the emitting call's
@@ -662,7 +662,6 @@ __global__ void __launch_bounds__(STEP_THREADS) eps_step_shard_kernel(ShardStepA
 
   // The block's slots and records, a round of loads before any store.
   const size_t row = (size_t)b * K;
-  const size_t lanes = (size_t)b * a.N;
   const int4* rec = a.records + (size_t)b * a.R_rec;
   int2* dst = a.out + ((size_t)b * a.D + a.d) * a.width;
   const int2 kr = kdtorch::share(K, lg, rank);
@@ -693,8 +692,7 @@ __global__ void __launch_bounds__(STEP_THREADS) eps_step_shard_kernel(ShardStepA
 #pragma unroll
       for (int u = 0; u < STEP_UNROLL; ++u) {
         if (i0 + u * STEP_THREADS < nk)
-          bp[u] = ci[u] >= 0 ? make_int2(a.gslot[lanes + ci[u]], a.arc[lanes + ci[u]])
-                             : make_int2(0, -1);
+          bp[u] = ci[u] >= 0 ? kdtorch::routed_payload(a.routed, b, ci[u]) : make_int2(0, -1);
       }
     }
     const bool stop = later && (kdtorch::pin(f_stop) != 0 || kdtorch::pin(f_prev) == 0);
@@ -836,33 +834,37 @@ extern "C" int kd_eps_step_shard_cluster(int B, int K) {
 // d > 0); flags 7 int32 words (ShardFlags, 8-byte aligned), changed (1,)
 // int32; states/costs (B, K) the carried frontier; out (B, D, width, 2)
 // int32; red_min (B,) float32, red_count (B,) int32, red_flags (2,) int32
-// (written when `reduce`).  1-best: gslot/arc (B, N) int32, width = K;
+// (written when `reduce`).  1-best: `routed`, a host pointer to
+// kdtorch::Routed (the dedup call's lanes, read in place), width = K;
 // lattice: rec_ovf (B,) bool, records (B, R_rec, 4) int32 with R_rec >=
 // width.  Returns the launch's CUDA error (a refused cluster launch is
 // reported).
-extern "C" int kd_eps_step_shard(int lattice, int B, int K, int N, int D, int d, int width,
+extern "C" int kd_eps_step_shard(int lattice, int B, int K, int D, int d, int width,
                                  int R_rec, int slot_base, int reduce, const void* cand_idx,
                                  const void* num_unique, const void* sel_states,
                                  const void* sel_costs, const void* rec_ovf, const void* records,
-                                 const void* gslot, const void* arc, const void* exp_ovf,
+                                 const void* routed, const void* exp_ovf,
                                  const void* route_ovf, const void* em_ovf0, const void* em_ovf1,
                                  const void* em_ovf2, const void* em_num_unique,
                                  const void* changed_prev, void* flags, void* changed,
                                  void* states, void* costs, void* out, void* red_min,
                                  void* red_count, void* red_flags, int clusters, void* stream) {
   if (B < 1 || B > STEP_MAX_ROWS || K < 1 || D < 1 || d < 0 || d >= D || width < 1 ||
-      (lattice && R_rec < width) || (!lattice && width != K) ||
+      (lattice && R_rec < width) || (!lattice && (width != K || routed == nullptr)) ||
       (d > 0 && changed_prev == nullptr) || reinterpret_cast<uintptr_t>(flags) % 8 != 0 ||
       clusters < 0 || clusters > MOST || (clusters & (clusters - 1)) != 0)
     return (int)cudaErrorInvalidValue;
   const int G = clusters > 0 ? clusters : kd_eps_step_shard_cluster(B, K);
   if (G < 1) return (int)cudaErrorInvalidConfiguration;
   using U8 = const unsigned char*;
-  const ShardStepArgs a{B, K, N, D, d, width, R_rec, slot_base, reduce,
+  const kdtorch::Routed rt = kdtorch::routed_of(routed);
+  if (routed != nullptr && !kdtorch::routed_fits(rt, B, rt.K + rt.P * rt.cap))
+    return (int)cudaErrorInvalidValue;
+  const ShardStepArgs a{B, K, D, d, width, R_rec, slot_base, reduce,
                         static_cast<const int*>(cand_idx), static_cast<const int*>(num_unique),
                         static_cast<const int*>(sel_states), static_cast<const float*>(sel_costs),
                         static_cast<U8>(rec_ovf), static_cast<const int4*>(records),
-                        static_cast<const int*>(gslot), static_cast<const int*>(arc),
+                        rt,
                         static_cast<U8>(exp_ovf), static_cast<U8>(route_ovf),
                         {static_cast<U8>(em_ovf0), static_cast<U8>(em_ovf1),
                          static_cast<U8>(em_ovf2)},

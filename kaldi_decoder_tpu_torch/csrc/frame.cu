@@ -573,6 +573,22 @@ extern "C" int kd_frame_tail(void* args, int lattice, int B, int K, int V, int R
 // block hands anything to another.  Only rank 0 writes the row's scalars
 // (num_active, best_cost, cutoff, the flags) and the base, after the
 // cluster barrier: every block of its row has read the old base.
+//
+// Its last step is K8's local half of the next frame's GetCutoff (csrc/
+// cutoff.cu, which then runs once a chunk, on the chunk's start state):
+// for a live row, the smallest finite cost is red_min - m_safe and the
+// finite count red_count, where red_min and red_count are the eps
+// closure's local values that the rebase reduced (its first smallest
+// finite cost in slot order, that slot's bits; graph_shard.py:_reduced
+// reduces copies), and the prefix is the new costs of slots k < m, written
+// as they are written.  Exact: x -> RN(x - m_safe) is monotone, and a
+// difference of finite floats is 0 only where they are equal, so the
+// first slot with the smallest rebased cost holds red_min - m_safe bit for
+// bit (-0.0 beside +0.0 included), and no finite cost turns infinite while
+// a row's costs lie within a beam of the global best.  A frozen row keeps
+// last frame's values, which are its kept costs'.  So no block reduces
+// anything more: rank 0's thread 0 writes the two scalars beside the
+// row's others, each block its prefix slots.
 
 namespace {
 
@@ -596,6 +612,14 @@ struct ShardTailArgs {
   const int* arc;            // (B, N)
   const int2* bp_eps;        // (B, D, K)
   void* out[8];              // ShardLatticeStepOut / ShardStepOut order
+  // The next frame's GetCutoff, its local half (K8's, kernels/cutoff.py
+  // CutoffLocal), from the eps closure's local values: null for none.
+  const float* red_min;      // (B,) the closure's smallest finite cost (local)
+  const int* red_count;      // (B,) its finite costs (local)
+  float* loc_best;           // (B,)
+  int* loc_count;            // (B,)
+  float* loc_prefix;         // (B, m), m < K, or null (m == K: the costs are the prefix)
+  int m;
 };
 
 // Loads a thread keeps in flight of each of the block's arrays.
@@ -619,14 +643,18 @@ __global__ void __launch_bounds__(THREADS) frame_tail_shard_kernel(ShardTailArgs
   const int len = a.lengths[b];
   const float base = a.base[b];
   const float m = a.best[b];
-  float cut = 0.0f;
-  int na = 0;
+  float cut = 0.0f, rmin = 0.0f;
+  int na = 0, rcount = 0;
   bool f0 = false, f1 = false;
   if (lead) {
     cut = a.cutoff[b];
     na = a.num_active[b];
     f0 = a.flags[0] > 0;
     f1 = a.flags[1] > 0;
+    if (a.loc_best != nullptr) {
+      rmin = a.red_min[b];
+      rcount = a.red_count[b];
+    }
   }
   if (t < 0) __trap();  // t in hand (a branch on it) before the barrier
   kdtorch::cluster_arrive();  // the one cluster barrier: the block runs and has read t, base
@@ -655,6 +683,7 @@ __global__ void __launch_bounds__(THREADS) frame_tail_shard_kernel(ShardTailArgs
   float* fc = LATTICE ? static_cast<float*>(a.out[3]) + trow * K : nullptr;
   int2* o0 = static_cast<int2*>(a.out[0]) + trow * (LATTICE ? n1 : K);  // em links / backpointers
   int2* o1 = static_cast<int2*>(a.out[1]) + trow * (LATTICE ? n2 : n1);  // eps links / bps
+  float* prefix = a.loc_prefix != nullptr ? a.loc_prefix + (size_t)b * a.m : nullptr;
   bool fa = false;
   float nbase = base;
   for (int i0 = tid; i0 < max(nk, max(m1, m2)); i0 += SHARD_UNROLL * THREADS) {
@@ -707,6 +736,7 @@ __global__ void __launch_bounds__(THREADS) frame_tail_shard_kernel(ShardTailArgs
           c[u] = __fsub_rn(c[u], ms);
           a.states[row + k] = st[u];
           a.costs[row + k] = c[u];
+          if (prefix != nullptr && k < a.m) prefix[k] = c[u];
         }
         if (LATTICE) {
           fs[k] = st[u];
@@ -740,6 +770,10 @@ __global__ void __launch_bounds__(THREADS) frame_tail_shard_kernel(ShardTailArgs
     static_cast<unsigned char*>(a.out[at + (LATTICE ? 2 : 3)])[trow] = fa && f0;
     static_cast<unsigned char*>(a.out[at + (LATTICE ? 3 : 4)])[trow] = fa && f1;
     a.base[b] = nbase;
+    if (fa && a.loc_best != nullptr) {  // a frozen row keeps its local half
+      a.loc_best[b] = __fsub_rn(rmin, ms);
+      a.loc_count[b] = rcount;
+    }
   } else if (tid == 32 && seen == (unsigned long long)a.B - 1) {
     // The last row counted: every block of every row has read t.
     a.targs[0] = t + 1;
@@ -766,7 +800,11 @@ extern "C" int kd_frame_tail_shard_cluster(int B, int K) {
 // eps_rec (B, D, Re, 2) int32; out0..7 ShardLatticeStepOut's stacked (T, B,
 // ...) buffers.  1-best: cand_idx (B, K), gslot/arc (B, N), bp_eps (B, D,
 // K, 2) int32; out0..6 ShardStepOut's.  An output or input of no elements
-// (D = 0) may be null.  Returns the launch's CUDA error (a refused cluster
+// (D = 0) may be null.  The next frame's local half of GetCutoff (K8's):
+// red_min (B,) float32 and red_count (B,) int32, the eps closure's local
+// values, in; loc_best (B,) float32, loc_count (B,) int32 and, when m < K,
+// loc_prefix (B, m) float32, out, for the rows still decoding (all null:
+// none written).  Returns the launch's CUDA error (a refused cluster
 // launch is reported).
 extern "C" int kd_frame_tail_shard(void* args, int lattice, int B, int K, int N, int D, int R,
                                    int Re, int slot_base, const void* lengths, void* states,
@@ -776,10 +814,14 @@ extern "C" int kd_frame_tail_shard(void* args, int lattice, int B, int K, int N,
                                    const void* em_rec, const void* eps_rec, const void* cand_idx,
                                    const void* gslot, const void* arc, const void* bp_eps,
                                    void* out0, void* out1, void* out2, void* out3, void* out4,
-                                   void* out5, void* out6, void* out7, int clusters,
-                                   void* stream) {
+                                   void* out5, void* out6, void* out7, const void* red_min,
+                                   const void* red_count, void* loc_best, void* loc_count,
+                                   void* loc_prefix, int m, int clusters, void* stream) {
+  const bool local = loc_best != nullptr;
   if (B < 1 || K < 1 || D < 0 || R < 0 || Re < 0 || clusters < 0 || clusters > MOST ||
-      (clusters & (clusters - 1)) != 0)
+      (clusters & (clusters - 1)) != 0 ||
+      (local && (red_min == nullptr || red_count == nullptr || loc_count == nullptr)) ||
+      (loc_prefix != nullptr && !(local && 1 <= m && m < K)))
     return (int)cudaErrorInvalidValue;
   const int G = clusters > 0 ? clusters : kd_frame_tail_shard_cluster(B, K);
   if (G < 1) return (int)cudaErrorInvalidConfiguration;
@@ -792,7 +834,10 @@ extern "C" int kd_frame_tail_shard(void* args, int lattice, int B, int K, int N,
                         static_cast<const int4*>(em_rec), static_cast<const int2*>(eps_rec),
                         static_cast<const int*>(cand_idx), static_cast<const int*>(gslot),
                         static_cast<const int*>(arc), static_cast<const int2*>(bp_eps),
-                        {out0, out1, out2, out3, out4, out5, out6, out7}};
+                        {out0, out1, out2, out3, out4, out5, out6, out7},
+                        static_cast<const float*>(red_min), static_cast<const int*>(red_count),
+                        static_cast<float*>(loc_best), static_cast<int*>(loc_count),
+                        static_cast<float*>(loc_prefix), loc_prefix != nullptr ? m : 0};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return (int)(lattice ? kdtorch::launch_cluster(frame_tail_shard_kernel<true>, B * G, G,
                                                  THREADS, 0, st, a)

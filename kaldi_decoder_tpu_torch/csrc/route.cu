@@ -9,8 +9,10 @@
 // emitting call (cost < cutoff, else +inf) and the payload's global
 // offsets (slot + slot_add, or slot_states[slot] + slot_add; arc +
 // arc_add).  The receive side replaces the reshape after the all_to_all
-// and, on an eps iteration, the concatenation of the K incumbents before
-// the routed lanes.  Plain versions: kaldi_decoder_tpu_torch/kernels/
+// of the emitting call.  On an eps iteration the dedup call reads the
+// received buffer and the K incumbents in place (common.cuh:routed_entry,
+// the concatenation of graph_shard.py:395-398 as a map), so the receive
+// side has no launch there.  Plain versions: kaldi_decoder_tpu_torch/kernels/
 // route.py route_send_plain and route_recv_plain; every output is bitwise
 // equal to theirs (a float is only compared, copied, or subtracted once
 // in the lattice slack test, c - run_min, round to nearest, as plain).
@@ -20,7 +22,7 @@
 // int32 send buffer: at the emitting shard shape (B 16, N 30,720, cap
 // 30,720) about 12 MB at P = 1 and 20 MB a rank at P = 2, 0.004-0.006 ms
 // at 3.35 TB/s.  The receive side reads that buffer and writes four int32
-// or float columns of the same lanes (and the incumbents).
+// or float columns of the same lanes.
 //
 // The send side's design: a cluster of G blocks of 1024 threads a row
 // (G = 8, 4, 2 or 1: the largest that fits, at most one block per
@@ -661,20 +663,12 @@ __global__ void __launch_bounds__(THREADS) route_send_kernel(SendArgs a) {
 }
 
 __global__ void __launch_bounds__(RECV_THREADS) route_recv_kernel(
-    const int4* recv, const int* inc_states, const float* inc_costs, int B, int P, int cap, int K,
-    int sp, int has_base, int base, int* state, float* cost, int* gslot, int* arc) {
-  const int L = K + P * cap;
+    const int4* recv, int B, int P, int cap, int sp, int* state, float* cost, int* gslot,
+    int* arc) {
+  const int L = P * cap;
   const int idx = blockIdx.x * RECV_THREADS + threadIdx.x;
   if (idx >= B * L) return;
-  const int b = idx / L, j = idx - b * L;
-  if (j < K) {  // an incumbent: the frontier token itself
-    state[idx] = inc_states[b * K + j];
-    cost[idx] = inc_costs[b * K + j];
-    gslot[idx] = has_base ? base + j : -1;
-    arc[idx] = NO_ARC;
-    return;
-  }
-  const int q = j - K, p = q / cap;
+  const int b = idx / L, q = idx - b * L, p = q / cap;
   const int4 v = recv[((size_t)p * B + b) * cap + (q - p * cap)];
   const float c = __int_as_float(v.y);
   state[idx] = isfinite(c) ? v.x : sp;
@@ -750,24 +744,17 @@ extern "C" int kd_route_send(const void* dst, const void* cost, const void* src,
 }
 
 // Launches K7's receive side on `stream`, one thread an output lane.
-// Shapes: recv (P, B, cap, 4) int32; inc_states/inc_costs (B, K) int32 /
-// float32 or null (K = 0); outputs (B, K + P*cap) int32 / float32 / int32
-// / int32, B * (K + P*cap) < 2^31.  The incumbents' slots are base + k
-// when has_base, else -1.  Returns the launch's CUDA error.
-extern "C" int kd_route_recv(const void* recv, const void* inc_states, const void* inc_costs,
-                             int B, int P, int cap, int K, int sp, int has_base, int base,
-                             void* state, void* cost, void* gslot, void* arc, void* stream) {
-  const long long total = (long long)B * (K + (long long)P * cap);
-  if (B < 0 || P < 1 || cap < 1 || K < 0 || total >= (1ll << 31) ||
-      (K > 0 && (inc_states == nullptr || inc_costs == nullptr)))
-    return (int)cudaErrorInvalidValue;
+// Shapes: recv (P, B, cap, 4) int32; outputs (B, P*cap) int32 / float32 /
+// int32 / int32, B * P * cap < 2^31.  Returns the launch's CUDA error.
+extern "C" int kd_route_recv(const void* recv, int B, int P, int cap, int sp, void* state,
+                             void* cost, void* gslot, void* arc, void* stream) {
+  const long long total = (long long)B * P * cap;
+  if (B < 0 || P < 1 || cap < 1 || total >= (1ll << 31)) return (int)cudaErrorInvalidValue;
   if (total == 0) return 0;
   const int blocks = (int)((total + RECV_THREADS - 1) / RECV_THREADS);
   route_recv_kernel<<<blocks, RECV_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int4*>(recv), static_cast<const int*>(inc_states),
-      static_cast<const float*>(inc_costs), B, P, cap, K, sp, has_base, base,
-      static_cast<int*>(state), static_cast<float*>(cost), static_cast<int*>(gslot),
-      static_cast<int*>(arc));
+      static_cast<const int4*>(recv), B, P, cap, sp, static_cast<int*>(state),
+      static_cast<float*>(cost), static_cast<int*>(gslot), static_cast<int*>(arc));
   return (int)cudaGetLastError();
 }
 

@@ -149,15 +149,15 @@ def kernels() -> ctypes.CDLL:
     lib.kd_sweep_cluster.restype = _I
     lib.kd_sweep_cluster.argtypes = [_I] * 3
     lib.kd_dedup.restype = _I
-    lib.kd_dedup.argtypes = [_P, _P] + [_I] * 4 + [_P] * 10 + [_P]
+    lib.kd_dedup.argtypes = [_P, _P] + [_I] * 4 + [_P] * 11 + [_P]
     lib.kd_dedup_cluster.restype = _I
-    lib.kd_dedup_cluster.argtypes = [_I, _I, _I]
+    lib.kd_dedup_cluster.argtypes = [_I] * 4
     lib.kd_dedup_marks.restype = _I
     lib.kd_dedup_marks.argtypes = [_P, _P, _P, _I]
     lib.kd_dedup_rec.restype = _I
-    lib.kd_dedup_rec.argtypes = [_P] * 4 + [_I] * 5 + [_F, _I] + [_P] * 16 + [_P]
+    lib.kd_dedup_rec.argtypes = [_P] * 4 + [_I] * 5 + [_F, _I] + [_P] * 17 + [_P]
     lib.kd_dedup_rec_cluster.restype = _I
-    lib.kd_dedup_rec_cluster.argtypes = [_I] * 4
+    lib.kd_dedup_rec_cluster.argtypes = [_I] * 5
     lib.kd_dedup_rec_marks.restype = _I
     lib.kd_dedup_rec_marks.argtypes = [_P, _P, _P, _I]
     lib.kd_frame_start.restype = _I
@@ -173,11 +173,12 @@ def kernels() -> ctypes.CDLL:
     lib.kd_expand_eps_blocks.restype = _I
     lib.kd_expand_eps_blocks.argtypes = [_I, _I]
     lib.kd_eps_step_shard.restype = _I
-    lib.kd_eps_step_shard.argtypes = [_I] * 10 + [_P] * 23 + [_I, _P]
+    lib.kd_eps_step_shard.argtypes = [_I] * 9 + [_P] * 22 + [_I, _P]
     lib.kd_eps_step_shard_cluster.restype = _I
     lib.kd_eps_step_shard_cluster.argtypes = [_I, _I]
     lib.kd_frame_tail_shard.restype = _I
-    lib.kd_frame_tail_shard.argtypes = [_P] + [_I] * 8 + [_P] * 16 + [_P] * 8 + [_I, _P]
+    lib.kd_frame_tail_shard.argtypes = ([_P] + [_I] * 8 + [_P] * 16 + [_P] * 8 + [_P] * 5
+                                         + [_I, _I, _P])
     lib.kd_frame_tail_shard_cluster.restype = _I
     lib.kd_frame_tail_shard_cluster.argtypes = [_I, _I]
     lib.kd_route_send.restype = _I
@@ -189,7 +190,7 @@ def kernels() -> ctypes.CDLL:
     lib.kd_cutoff_merge.restype = _I
     lib.kd_cutoff_merge.argtypes = [_P] * 3 + [_I] * 5 + [_F, _F] + [_P] * 2 + [_P]
     lib.kd_route_recv.restype = _I
-    lib.kd_route_recv.argtypes = [_P] * 3 + [_I] * 7 + [_P] * 4 + [_P]
+    lib.kd_route_recv.argtypes = [_P] + [_I] * 4 + [_P] * 4 + [_P]
     lib.kd_error_string.restype = ctypes.c_char_p
     lib.kd_error_string.argtypes = [_I]
     return lib

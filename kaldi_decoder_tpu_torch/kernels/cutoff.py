@@ -8,7 +8,12 @@ those collectives it runs the two halves here:
 - :func:`global_cutoff_local` (before them): each row's smallest finite
   cost (its first smallest in slot order, the bits of that slot; +inf for
   a row with none), its count of finite costs (int32), and its prefix
-  ``costs[:, :m]`` in a contiguous buffer that the all-gather reads;
+  ``costs[:, :m]`` in a contiguous buffer that the all-gather reads.  It
+  runs on a chunk's start state only: every later frame's local half is
+  written by the frame before's K3 shard mode
+  (``kernels.frame.frame_tail_shard``, its ``local``), from the eps
+  closure's local values, and where ``m`` is K the all-gather reads the
+  costs themselves;
 - :func:`global_cutoff_merge` (after them): the order statistics at
   ``max_active`` and ``min_active`` of the gathered prefixes ``(P, B,
   m)``, merged as one stable sort in shard order with -0.0 and +0.0 equal
@@ -49,7 +54,7 @@ class CutoffLocal(NamedTuple):
 
     best: torch.Tensor  # (B,) float32: the row's first smallest finite cost, or +inf
     count: torch.Tensor  # (B,) int32: the row's finite costs
-    prefix: torch.Tensor  # (B, m) float32: the row's first m costs
+    prefix: Optional[torch.Tensor]  # (B, m) float32: the row's first m costs (or None)
 
 
 class GlobalCutoff(NamedTuple):
@@ -57,13 +62,20 @@ class GlobalCutoff(NamedTuple):
     adaptive_beam: torch.Tensor  # (B,) float32
 
 
-def global_cutoff_local_plain(costs: torch.Tensor, m: int) -> CutoffLocal:
-    """The local half of ``costs`` (B, K): ``argmin`` takes a row's first
-    smallest cost (``amin`` leaves open which of -0.0 and +0.0 it
-    returns)."""
+def first_min_count(costs: torch.Tensor):
+    """Each row of ``costs`` (B, K): its first smallest finite cost in slot
+    order, that slot's bits (+inf for a row with none; ``argmin`` takes
+    the first, where ``amin`` leaves open which of -0.0 and +0.0 it
+    returns), and its count of finite costs (int32)."""
     masked = torch.where(torch.isfinite(costs), costs, INF)
     best = masked.gather(1, masked.argmin(dim=1, keepdim=True))[:, 0]
-    count = torch.isfinite(costs).sum(dim=1, dtype=torch.int32)
+    return best, torch.isfinite(costs).sum(dim=1, dtype=torch.int32)
+
+
+def global_cutoff_local_plain(costs: torch.Tensor, m: int) -> CutoffLocal:
+    """The local half of ``costs`` (B, K) (:func:`first_min_count`, the
+    prefix copied)."""
+    best, count = first_min_count(costs)
     return CutoffLocal(best, count, costs[:, :m].clone(memory_format=torch.contiguous_format))
 
 
@@ -119,8 +131,9 @@ def global_cutoff_local(costs: torch.Tensor, m: int,
                         out: Optional[CutoffLocal] = None) -> CutoffLocal:
     """K8's local half on ``costs``' device: :func:`global_cutoff_local_plain`
     on the CPU, one launch of ``csrc/cutoff.cu`` on a card (a block a row),
-    into ``out`` (from :func:`empty_cutoff_local`) when given.
-    ``global_cutoff_local.launches`` counts its launches."""
+    into ``out`` (from :func:`empty_cutoff_local`; its prefix None: no
+    prefix copied) when given.  ``global_cutoff_local.launches`` counts its
+    launches."""
     dev = costs.device
     if dev.type == "cpu":
         return global_cutoff_local_plain(costs, m)
@@ -133,9 +146,12 @@ def global_cutoff_local(costs: torch.Tensor, m: int,
     if out is None:
         out = empty_cutoff_local(B, m, dev)
     else:
-        check_like(out, empty_cutoff_local(B, m, "meta"), "out", dev)
+        want = empty_cutoff_local(B, m, "meta")
+        check_like(out, want if out.prefix is not None else want._replace(prefix=None), "out",
+                   dev)
     rc = kernels().kd_cutoff_local(ptr(costs), B, K, m, ptr(out.best), ptr(out.count),
-                                   ptr(out.prefix), stream(dev))
+                                   ptr(out.prefix) if out.prefix is not None else None,
+                                   stream(dev))
     if rc != 0:
         raise RuntimeError(f"kd_cutoff_local launch failed: {cuda_error(rc)}")
     global_cutoff_local.launches += 1

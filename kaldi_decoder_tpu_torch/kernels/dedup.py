@@ -28,6 +28,7 @@ from kaldi_decoder_tpu_torch.kernels._build import (
     ptr,
     stream,
 )
+from kaldi_decoder_tpu_torch.kernels.route import RoutedLanes, routed_args, routed_lanes_plain
 from kaldi_decoder_tpu_torch.ops.segment import Selection
 from kaldi_decoder_tpu_torch.ops.segment import dedup_select as dedup_select_plain
 
@@ -78,13 +79,14 @@ def check_scratch(scratch, batch: int, lanes: int, device, pairs: int = 2) -> No
 
 
 def dedup_select(
-    cand_state: torch.Tensor,  # (B, N) int32
-    cand_cost: torch.Tensor,  # (B, N) float32, +inf == invalid
+    cand_state: Optional[torch.Tensor],  # (B, N) int32
+    cand_cost: Optional[torch.Tensor],  # (B, N) float32, +inf == invalid
     k: int,
     num_states: int,
     out: Optional[Selection] = None,
     scratch=None,
     step=None,
+    routed: Optional[RoutedLanes] = None,
 ) -> Selection:
     """K6 on the tensors' device.  Finite lanes must have a state in
     ``[0, num_states)``.  On a card, ``out`` (from
@@ -92,19 +94,34 @@ def dedup_select(
     are used instead of fresh buffers, so that a captured frame allocates
     nothing, and ``step`` (``kernels.eps.StepArgs``, from
     ``kernels.eps.eps_dedup``, which checks it) makes the call run the eps
-    step as its last step.  ``dedup_select.launches`` counts K6
-    launches."""
-    dev = cand_state.device
-    if dev.type == "cpu":
-        if step is not None:
-            raise ValueError("the eps step runs inside K6 on a card only: on the CPU call "
-                             "kernels.eps.eps_dedup")
-        return dedup_select_plain(cand_state, cand_cost, k, num_states)
+    step as its last step.  With ``routed`` (a sharded eps call's lanes,
+    ``cand_state`` and ``cand_cost`` None) the lanes are its
+    (:func:`kaldi_decoder_tpu_torch.kernels.route.routed_lanes_plain` on
+    the CPU; read in place on a card).  ``dedup_select.launches`` counts
+    K6 launches."""
+    if routed is not None:
+        if cand_state is not None or cand_cost is not None or step is not None:
+            raise ValueError("routed lanes come alone, with no step")
+        dev = routed.recv.device
+        if dev.type == "cpu":
+            lanes = routed_lanes_plain(routed)
+            return dedup_select_plain(lanes.state_local, lanes.cost, k, num_states)
+        B, N = routed.recv.shape[1], routed.lanes
+    else:
+        dev = cand_state.device
+        if dev.type == "cpu":
+            if step is not None:
+                raise ValueError("the eps step runs inside K6 on a card only: on the CPU call "
+                                 "kernels.eps.eps_dedup")
+            return dedup_select_plain(cand_state, cand_cost, k, num_states)
+        B, N = cand_cost.shape
     if dev.type != "cuda":
         raise ValueError(f"dedup_select runs on cpu or cuda tensors, not {dev}")
-    B, N = cand_cost.shape
-    check(cand_state, "cand_state", torch.int32, (B, N), dev)
-    check(cand_cost, "cand_cost", torch.float32, (B, N), dev)
+    if routed is not None:
+        rargs = routed_args(routed)
+    else:
+        check(cand_state, "cand_state", torch.int32, (B, N), dev)
+        check(cand_cost, "cand_cost", torch.float32, (B, N), dev)
     lib = kernels()
     table, key = _held_table(dev, B, num_states)
     # Scratch rows: N and the pad the kernel's spill regions round up to.
@@ -118,9 +135,11 @@ def dedup_select(
     else:
         check_like(out, empty_selection(B, k, "meta"), "out", dev)
     rc = lib.kd_dedup(
-        ptr(cand_state), ptr(cand_cost), B, N, num_states, k,
+        None if routed is not None else ptr(cand_state),
+        None if routed is not None else ptr(cand_cost), B, N, num_states, k,
         ptr(table), ptr(keys0), ptr(vals0), ptr(keys1), ptr(vals1),
         ptr(out.states), ptr(out.costs), ptr(out.cand_idx), ptr(out.num_unique),
+        ctypes.c_void_p(ctypes.addressof(rargs)) if routed is not None else None,
         ctypes.c_void_p(ctypes.addressof(step)) if step is not None else None, stream(dev),
     )
     if rc != 0:
@@ -133,11 +152,12 @@ def dedup_select(
 dedup_select.launches = 0
 
 
-def cluster_size(batch: int, lanes: int, step: bool = False) -> int:
+def cluster_size(batch: int, lanes: int, step: bool = False, routed: bool = False) -> int:
     """The blocks per cluster K6 launches with for ``batch`` utterances of
     ``lanes`` candidate lanes each, with the eps step as its last step
-    (``step``, the fused eps call) or without (0: none fits)."""
-    return kernels().kd_dedup_cluster(batch, lanes, int(step))
+    (``step``, the fused eps call), on routed lanes (``routed``, a sharded
+    eps call) or neither (0: none fits)."""
+    return kernels().kd_dedup_cluster(batch, lanes, int(step), int(routed))
 
 
 # The kernel's steps, between its 12 marks (csrc/dedup.cu, select_core.cuh).

@@ -30,6 +30,7 @@ from kaldi_decoder_tpu_torch.kernels._build import (
     ptr,
     stream,
 )
+from kaldi_decoder_tpu_torch.kernels.route import RoutedLanes, routed_args, routed_lanes_plain
 from kaldi_decoder_tpu_torch.ops.segment import SelectionRec
 from kaldi_decoder_tpu_torch.ops.segment import dedup_select_rec as dedup_select_rec_plain
 
@@ -66,17 +67,18 @@ def empty_lattice_selection(batch: int, k: int, r: int, device,
 
 
 def dedup_select_rec(
-    cand_state: torch.Tensor,  # (B, N) int32
-    cand_cost: torch.Tensor,  # (B, N) float32, +inf == invalid
+    cand_state: Optional[torch.Tensor],  # (B, N) int32
+    cand_cost: Optional[torch.Tensor],  # (B, N) float32, +inf == invalid
     k: int,
     num_states: int,
     r: int,
     slack_beam: float,
-    payload: Tuple[torch.Tensor, ...],  # (src_state, arc_id), each (B, N) int32
+    payload: Optional[Tuple[torch.Tensor, ...]],  # (src_state, arc_id), each (B, N) int32
     num_incumbents: int = 0,
     out: Optional[LatticeSelection] = None,
     scratch=None,
     step=None,
+    routed: Optional[RoutedLanes] = None,
 ) -> LatticeSelection:
     """K2 on the tensors' device.  Finite lanes must have a state in
     ``[0, num_states)``; ``slack_beam`` is compared in float32, as the
@@ -87,26 +89,48 @@ def dedup_select_rec(
     instead of fresh buffers, so that a captured frame allocates nothing,
     and ``step`` (``kernels.eps.StepArgs``, from ``kernels.eps.eps_dedup``,
     which checks it; with ``num_incumbents`` == k) makes the eps call run
-    the eps step as its last step.  ``dedup_select_rec.launches`` counts
-    K2 launches."""
-    dev = cand_state.device
-    if dev.type == "cpu":
-        if step is not None:
+    the eps step as its last step.  With ``routed`` (a sharded eps call's
+    lanes and payload, ``cand_state``, ``cand_cost`` and ``payload`` None,
+    ``num_incumbents`` its K) the lanes are its
+    (:func:`kaldi_decoder_tpu_torch.kernels.route.routed_lanes_plain` on
+    the CPU; read in place on a card).  ``dedup_select_rec.launches``
+    counts K2 launches."""
+    if routed is not None:
+        if (cand_state is not None or cand_cost is not None or payload is not None
+                or step is not None):
+            raise ValueError("routed lanes come alone, with their payload and no step")
+        if num_incumbents != routed.inc_states.shape[1] or num_incumbents == 0:
+            raise ValueError(f"routed lanes have {routed.inc_states.shape[1]} incumbents, "
+                             f"not {num_incumbents}")
+        dev = routed.recv.device
+        if dev.type == "cpu":
+            lanes = routed_lanes_plain(routed)
+            cand_state, cand_cost, payload = lanes.state_local, lanes.cost, (lanes.gslot,
+                                                                             lanes.arc)
+        B, N = routed.recv.shape[1], routed.lanes
+    else:
+        dev = cand_state.device
+        if dev.type == "cpu" and step is not None:
             raise ValueError("the eps step runs inside K2 on a card only: on the CPU call "
                              "kernels.eps.eps_dedup")
+    if dev.type == "cpu":
         sel = dedup_select_rec_plain(cand_state, cand_cost, k, num_states, r, slack_beam, payload,
                                      num_incumbents)
         return LatticeSelection(sel.states, sel.costs, sel.num_unique, stack_records(sel),
                                 sel.rec_overflow, sel.cand_idx)
     if dev.type != "cuda":
         raise ValueError(f"dedup_select_rec runs on cpu or cuda tensors, not {dev}")
-    if len(payload) != 2:
-        raise ValueError(f"K2 records two payload columns (src_state, arc_id), got {len(payload)}")
-    B, N = cand_cost.shape
-    check(cand_state, "cand_state", torch.int32, (B, N), dev)
-    check(cand_cost, "cand_cost", torch.float32, (B, N), dev)
-    for i, p in enumerate(payload):
-        check(p, f"payload[{i}]", torch.int32, (B, N), dev)
+    if routed is not None:
+        rargs = routed_args(routed)
+    else:
+        if len(payload) != 2:
+            raise ValueError("K2 records two payload columns (src_state, arc_id), got "
+                             f"{len(payload)}")
+        B, N = cand_cost.shape
+        check(cand_state, "cand_state", torch.int32, (B, N), dev)
+        check(cand_cost, "cand_cost", torch.float32, (B, N), dev)
+        for i, p in enumerate(payload):
+            check(p, f"payload[{i}]", torch.int32, (B, N), dev)
     lib = kernels()
     table, key = k6._held_table(dev, B, num_states)
     # Scratch rows: N and the pad the kernel's spill regions round up to.
@@ -120,13 +144,16 @@ def dedup_select_rec(
     else:
         check_like(out, empty_lattice_selection(B, k, r, "meta", bool(num_incumbents)), "out",
                    dev)
+    flat = routed is None
     rc = lib.kd_dedup_rec(
-        ptr(cand_state), ptr(cand_cost), ptr(payload[0]), ptr(payload[1]),
+        ptr(cand_state) if flat else None, ptr(cand_cost) if flat else None,
+        ptr(payload[0]) if flat else None, ptr(payload[1]) if flat else None,
         B, N, num_states, k, r, ctypes.c_float(slack_beam), num_incumbents, ptr(table),
         ptr(keys[0]), ptr(vals[0]), ptr(keys[1]), ptr(vals[1]),
         ptr(keys[2]), ptr(vals[2]), ptr(keys[3]), ptr(vals[3]),
         ptr(out.states), ptr(out.costs), ptr(out.num_unique), ptr(out.records),
         ptr(out.rec_overflow), ptr(out.cand_idx) if num_incumbents else None,
+        None if flat else ctypes.c_void_p(ctypes.addressof(rargs)),
         ctypes.c_void_p(ctypes.addressof(step)) if step is not None else None, stream(dev),
     )
     if rc != 0:
@@ -139,12 +166,14 @@ def dedup_select_rec(
 dedup_select_rec.launches = 0
 
 
-def cluster_size(batch: int, lanes: int, incumbents: bool = False, step: bool = False) -> int:
+def cluster_size(batch: int, lanes: int, incumbents: bool = False, step: bool = False,
+                 routed: bool = False) -> int:
     """The blocks per cluster K2 launches with for ``batch`` utterances of
     ``lanes`` candidate lanes each, in the eps call's instance
     (``incumbents``), with the eps step as its last step (``step``, the
-    fused eps call) or without, or in the emitting call's (0: none fits)."""
-    return kernels().kd_dedup_rec_cluster(batch, lanes, int(incumbents), int(step))
+    fused eps call), on routed lanes (``routed``, a sharded eps call) or
+    neither, or in the emitting call's (0: none fits)."""
+    return kernels().kd_dedup_rec_cluster(batch, lanes, int(incumbents), int(step), int(routed))
 
 
 # The kernel's steps, between its 24 marks (csrc/dedup_rec.cu); the

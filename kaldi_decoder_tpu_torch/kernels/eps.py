@@ -25,13 +25,15 @@ paths) with the eps step as its last step:
   step is the eps step (``csrc/eps_step.cuh``).
 
 The sharded decoders' closure (``parallel/graph_shard.py``) routes each
-iteration's lanes between K5 and the dedup call and reduces its
-``changed`` over the ranks, so its step, :func:`eps_step_shard`, is a
-launch of its own: it applies the batch-wide ``stop`` of the iterations
-before (the carried state kept, the identity or -1 rows written), then
-writes this iteration's local ``changed`` for the next MAX reduction, and
-at the closure's last iteration the local values the frame's rebase and
-flags reduce.
+iteration's lanes between K5 and the dedup call (which reads them in
+place, ``kernels.route.RoutedLanes``) and reduces its ``changed`` over
+the ranks, so its step, :func:`eps_step_shard`, is a launch of its own:
+it applies the batch-wide ``stop`` of the iterations before (the carried
+state kept, the identity or -1 rows written), then writes this
+iteration's local ``changed`` for the next MAX reduction, and at the
+closure's last iteration the local values the frame's rebase and flags
+reduce, and from which K3's shard mode derives the next frame's local
+half of GetCutoff.
 
 On CPU tensors the wrappers run the plain torch versions,
 :func:`expand_eps_lanes_plain`, the dedup call's plain version then
@@ -67,8 +69,10 @@ from kaldi_decoder_tpu_torch.kernels._build import (
     ptr,
     stream,
 )
+from kaldi_decoder_tpu_torch.kernels.cutoff import first_min_count
 from kaldi_decoder_tpu_torch.kernels.dedup import dedup_select
 from kaldi_decoder_tpu_torch.kernels.dedup_rec import dedup_select_rec
+from kaldi_decoder_tpu_torch.kernels.route import RoutedLanes, routed_args, routed_lanes_plain
 
 INF = float("inf")
 # EpsCarry.flags: ran, and the clusters done with the iteration (low half)
@@ -386,8 +390,9 @@ def eps_step_shard_plain(d: int, carry: ShardEpsCarry, states: torch.Tensor,
                          reduce: bool = False) -> None:
     """Iteration ``d`` of a sharded closure's D (``carry.out.shape[1]``)
     after its dedup call ``sel`` (K6's ``Selection`` of the routed lanes
-    ``lanes``, which give each lane's ``gslot`` and ``arc``; or K2's
-    ``LatticeSelection`` of its eps call, records of ``K + r_eps`` rows).
+    ``lanes``, a ``kernels.route.RoutedLanes`` or their columns, which give
+    each lane's ``gslot`` and ``arc``; or K2's ``LatticeSelection`` of its
+    eps call, records of ``K + r_eps`` rows).
     ``stop`` is the iterations' before: false at d = 0, else the carried
     stop or ``changed_prev`` (the MAX-reduced ``carry.changed`` of d - 1)
     zero.  Unless stopped, the carried frontier (``states``, ``costs``,
@@ -415,6 +420,8 @@ def eps_step_shard_plain(d: int, carry: ShardEpsCarry, states: torch.Tensor,
         o = exp_overflow | route_overflow | sel.rec_overflow | spill
         carry.out[:, d] = torch.where(stop, -1, sel.records[:, :width, :2])
     else:
+        if isinstance(lanes, RoutedLanes):
+            lanes = routed_lanes_plain(lanes)
         bp = _backpointers(sel.cand_idx, lanes.gslot, lanes.arc)
         changed = ((sel.cand_idx >= 0) & (bp[..., 1] != NO_ARC)).any()
         o = exp_overflow | route_overflow
@@ -435,8 +442,9 @@ def eps_step_shard_plain(d: int, carry: ShardEpsCarry, states: torch.Tensor,
     carry.flags[0], carry.flags[5], carry.flags[6] = stop, ovf, sat
     carry.changed[0] = changed
     if reduce:
-        carry.red_min.copy_(torch.where(torch.isfinite(costs), costs, INF).amin(dim=1))
-        carry.red_count.copy_(torch.isfinite(costs).sum(dim=1, dtype=torch.int32))
+        red_min, red_count = first_min_count(costs)
+        carry.red_min.copy_(red_min)
+        carry.red_count.copy_(red_count)
         carry.red_flags[0], carry.red_flags[1] = ovf, sat
 
 
@@ -454,9 +462,10 @@ def eps_step_shard(d: int, carry: ShardEpsCarry, states, costs, sel, exp_overflo
     blocks a row, the batch's flags in ``carry.flags``), counted in
     ``eps_step_shard.launches``; ``clusters`` (8, 4, 2 or 1) sets the
     blocks a row instead of :func:`shard_step_cluster_size`'s choice.
-    ``em_overflow`` holds at most three (B,) bool tensors.  A row's
-    smallest cost is its first smallest in slot order, as ``torch.amin``
-    takes it on the CPU."""
+    ``em_overflow`` holds at most three (B,) bool tensors; on a card the
+    1-best step's ``lanes`` are a ``kernels.route.RoutedLanes``, read in
+    place.  A row's smallest cost is its first smallest in slot order, the
+    bits of that slot."""
     dev = sel.states.device
     if dev.type == "cpu":
         return eps_step_shard_plain(d, carry, states, costs, sel, exp_overflow, route_overflow,
@@ -493,7 +502,8 @@ def eps_step_shard(d: int, carry: ShardEpsCarry, states, costs, sel, exp_overflo
     check(carry.red_min, "carry.red_min", torch.float32, (B,), dev)
     check(carry.red_count, "carry.red_count", torch.int32, (B,), dev)
     check(carry.red_flags, "carry.red_flags", torch.int32, (2,), dev)
-    N = R_rec = 0
+    R_rec = 0
+    rargs = None
     if lattice:
         R_rec = sel.records.shape[1]
         if R_rec < width:
@@ -503,15 +513,18 @@ def eps_step_shard(d: int, carry: ShardEpsCarry, states, costs, sel, exp_overflo
     else:
         if width != K:
             raise ValueError(f"the 1-best closure keeps {K} backpointers a row, not {width}")
-        N = lanes.gslot.shape[1]
-        check(lanes.gslot, "lanes.gslot", torch.int32, (B, N), dev)
-        check(lanes.arc, "lanes.arc", torch.int32, (B, N), dev)
+        if not isinstance(lanes, RoutedLanes):
+            raise ValueError("on a card the 1-best step reads the dedup call's routed lanes "
+                             "(kernels.route.RoutedLanes)")
+        if lanes.recv.shape[1] != B:
+            raise ValueError(f"routed lanes of {lanes.recv.shape[1]} rows, not {B}")
+        rargs = routed_args(lanes)
     em = [ptr(x) for x in em_overflow] + [None] * (3 - len(em_overflow))
     rc = kernels().kd_eps_step_shard(
-        int(lattice), B, K, N, D, d, width, R_rec, slot_base, int(reduce),
+        int(lattice), B, K, D, d, width, R_rec, slot_base, int(reduce),
         ptr(sel.cand_idx), ptr(sel.num_unique), ptr(sel.states), ptr(sel.costs),
         ptr(sel.rec_overflow) if lattice else None, ptr(sel.records) if lattice else None,
-        None if lattice else ptr(lanes.gslot), None if lattice else ptr(lanes.arc),
+        None if lattice else ctypes.c_void_p(ctypes.addressof(rargs)),
         ptr(exp_overflow), ptr(route_overflow), *em,
         ptr(em_num_unique) if em_num_unique is not None else None,
         ptr(changed_prev) if d > 0 else None, ptr(carry.flags), ptr(carry.changed),

@@ -53,6 +53,7 @@ from kaldi_decoder_tpu_torch.kernels._build import (
     ptr,
     stream,
 )
+from kaldi_decoder_tpu_torch.kernels.cutoff import CutoffLocal
 from kaldi_decoder_tpu_torch.ops.cutoff import get_cutoff
 
 # csrc/frame.cu FrameArgs: t, frames, done (rows done with frame t),
@@ -387,6 +388,10 @@ class ShardTailInputs(NamedTuple):
     gslot: Optional[torch.Tensor] = None  # (B, N) int32, the routed lanes' global slots
     arc: Optional[torch.Tensor] = None  # (B, N) int32, their global arcs
     bp_eps: Optional[torch.Tensor] = None  # (B, D, K, 2) int32, the closure's
+    # The eps closure's local values before the reductions (the next
+    # frame's local half of GetCutoff is folded into the tail).
+    red_min: Optional[torch.Tensor] = None  # (B,) float32, each row's first smallest cost
+    red_count: Optional[torch.Tensor] = None  # (B,) int32, its finite costs
 
 
 def empty_shard_outs(frames: int, batch: int, k: int, eps_iters: int, lattice: bool,
@@ -415,15 +420,20 @@ def shard_args(device) -> torch.Tensor:
 
 
 def frame_tail_shard_plain(st: StepState, cutoff: torch.Tensor, tin: ShardTailInputs,
-                           frame_active: torch.Tensor, slot_base: int):
+                           frame_active: torch.Tensor, slot_base: int,
+                           local: Optional[CutoffLocal] = None):
     """One sharded frame's tail: the rebase by the global best cost (0
     where no rank holds a token), the freeze of rows with ``frame_active``
     False (their state kept, their records -1, their backpointers the
     identity ``(slot_base + k, NO_ARC)``) and the frame's outputs.
     ``st`` is the state the frame started from, ``cutoff`` (B,) its global
-    cutoff relative to ``st.base``.  Returns (the new state, the frame's
-    ``ShardLatticeStepOut`` when ``tin`` has records, else
-    ``ShardStepOut``)."""
+    cutoff relative to ``st.base``.  With ``local`` (the local half of
+    GetCutoff on ``st``'s costs, its prefix None where the costs are the
+    prefix), the next frame's local half too: a live row's best cost
+    ``tin.red_min - m_safe``, its count ``tin.red_count`` and its prefix
+    the new costs' first m, a frozen row's kept.  Returns (the new state,
+    the frame's ``ShardLatticeStepOut`` when ``tin`` has records, else
+    ``ShardStepOut``, the next frame's ``CutoffLocal`` or None)."""
     K = tin.mid_states.shape[1]
     fa = frame_active
     m = tin.best
@@ -433,6 +443,13 @@ def frame_tail_shard_plain(st: StepState, cutoff: torch.Tensor, tin: ShardTailIn
         costs=torch.where(fa[:, None], tin.mid_costs - m_safe[:, None], st.costs),
         base=torch.where(fa, st.base + m_safe, st.base),
     )
+    nxt = None
+    if local is not None:
+        prefix = local.prefix
+        if prefix is not None:
+            prefix = torch.where(fa[:, None], final.costs[:, :prefix.shape[1]], prefix)
+        nxt = CutoffLocal(torch.where(fa, tin.red_min - m_safe, local.best),
+                          torch.where(fa, tin.red_count, local.count), prefix)
     flags = tin.flags > 0
     num_active = torch.where(fa, tin.num_active, 0)
     if tin.em_records is not None:
@@ -459,7 +476,7 @@ def frame_tail_shard_plain(st: StepState, cutoff: torch.Tensor, tin: ShardTailIn
             overflow=fa & flags[0],
             saturated=fa & flags[1],
         )
-    return final, out
+    return final, out, nxt
 
 
 def shard_cluster_size(batch: int, k: int) -> int:
@@ -470,7 +487,7 @@ def shard_cluster_size(batch: int, k: int) -> int:
 
 def frame_tail_shard(args: torch.Tensor, st: StepState, cutoff: torch.Tensor,
                      tin: ShardTailInputs, lengths: torch.Tensor, outs, slot_base: int,
-                     clusters: int = 0) -> None:
+                     clusters: int = 0, local: Optional[CutoffLocal] = None) -> None:
     """K3's shard mode on the tensors' device: the tail of frame ``t``
     (``args[0]``, from :func:`shard_args`) of a chunk whose rows decode
     ``lengths`` frames, in place: ``st`` becomes the new state and row t
@@ -478,15 +495,22 @@ def frame_tail_shard(args: torch.Tensor, st: StepState, cutoff: torch.Tensor,
     ``t`` advances.  On a card one launch of ``csrc/frame.cu`` (a cluster
     of blocks a row; ``clusters``, 8, 4, 2 or 1, sets the blocks a row
     instead of :func:`shard_cluster_size`'s choice), counted in
-    ``frame_tail.launches``; see :func:`frame_tail_shard_plain`."""
+    ``frame_tail.launches``; with ``local`` (``kernels.cutoff``'s
+    ``CutoffLocal`` buffers, its prefix None where m is K) and
+    ``tin.red_min``, ``tin.red_count``, the next frame's local half of
+    GetCutoff in place; see :func:`frame_tail_shard_plain`."""
     dev = st.states.device
     if dev.type == "cpu":
         t = int(args[0])
-        final, out = frame_tail_shard_plain(st, cutoff, tin, lengths > t, slot_base)
+        final, out, nxt = frame_tail_shard_plain(st, cutoff, tin, lengths > t, slot_base, local)
         for dst, src in zip(st, final):
             dst.copy_(src)
         for buf, x in zip(outs, out):
             buf[t].copy_(x)
+        if local is not None:
+            for dst, src in zip(local, nxt):
+                if dst is not None:
+                    dst.copy_(src)
         args[0] = t + 1
         return
     if dev.type != "cuda":
@@ -523,6 +547,17 @@ def frame_tail_shard(args: torch.Tensor, st: StepState, cutoff: torch.Tensor,
         check(tin.bp_eps, "bp_eps", torch.int32, (B, D, K, 2), dev)
         want = empty_shard_outs(T, B, K, D, False, "meta")
     check_like(outs, want, "outs", dev)
+    m = 0
+    if local is not None:
+        check(tin.red_min, "red_min", torch.float32, (B,), dev)
+        check(tin.red_count, "red_count", torch.int32, (B,), dev)
+        check(local.best, "local.best", torch.float32, (B,), dev)
+        check(local.count, "local.count", torch.int32, (B,), dev)
+        if local.prefix is not None:
+            m = local.prefix.shape[1]
+            if not 1 <= m < K:
+                raise ValueError(f"a prefix of its own takes 1 to {K - 1} costs, not {m}")
+            check(local.prefix, "local.prefix", torch.float32, (B, m), dev)
 
     def opt(x):
         return None if x is None or x.numel() == 0 else ptr(x)
@@ -533,7 +568,9 @@ def frame_tail_shard(args: torch.Tensor, st: StepState, cutoff: torch.Tensor,
         ptr(lengths), ptr(st.states), ptr(st.costs), ptr(st.base), ptr(cutoff),
         ptr(tin.mid_states), ptr(tin.mid_costs), ptr(tin.best), ptr(tin.num_active),
         ptr(tin.flags), opt(tin.em_records), opt(tin.eps_records), opt(tin.cand_idx),
-        opt(tin.gslot), opt(tin.arc), opt(tin.bp_eps), *o, clusters, stream(dev),
+        opt(tin.gslot), opt(tin.arc), opt(tin.bp_eps), *o,
+        *((ptr(tin.red_min), ptr(tin.red_count), ptr(local.best), ptr(local.count),
+           opt(local.prefix)) if local is not None else (None,) * 5), m, clusters, stream(dev),
     )
     if rc != 0:
         raise RuntimeError(f"kd_frame_tail_shard launch failed: {cuda_error(rc)}")

@@ -18,10 +18,13 @@ buffer received into the lanes the dedup call reads.
   the payload's global offsets (``slot = src + slot_add``, or
   ``slot_states[src] + slot_add``; ``arc + arc_add``).
 - :func:`route_recv` maps the received ``(P, B, cap, 4)`` buffer onto
-  ``(B, inc + P*cap)`` lanes ``state, cost, gslot, arc`` (the state Sp
-  where the cost is +inf), after ``inc`` incumbents when given: the K
-  frontier tokens with slots ``inc_slot_base + k`` (-1 when None) and arc
-  ``NO_ARC``.
+  ``(B, P*cap)`` lanes ``state, cost, gslot, arc`` (the state Sp where the
+  cost is +inf) for the emitting call.  An eps iteration's dedup call
+  reads its lanes in place, from a :class:`RoutedLanes` (the K frontier
+  tokens, slots ``inc_slot_base + k`` or -1 and arc ``NO_ARC``, then the
+  received buffer), through ``csrc/common.cuh:routed_entry``:
+  :func:`routed_lanes_plain` is that map in torch, and
+  :func:`route_recv_plain` with incumbents the layout it reads.
 
 On CPU tensors the wrappers run the plain torch versions,
 :func:`route_send_plain` and :func:`route_recv_plain`; on CUDA tensors
@@ -40,7 +43,6 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from kaldi_decoder_tpu_torch.decoders.frontier import NO_ARC
 from kaldi_decoder_tpu_torch.fst.pack import INF_BITS
 from kaldi_decoder_tpu_torch.kernels._build import (
     check,
@@ -52,6 +54,7 @@ from kaldi_decoder_tpu_torch.kernels._build import (
 )
 
 INF = float("inf")
+NO_ARC = -1  # decoders/frontier.py NO_ARC (the kernels' modules load before it)
 MAX_PARTS = 64  # csrc/route.cu: the most ranks a route takes
 MIN_LANES = 768  # csrc/route.cu: the fewest lanes a block of the send side's cluster takes
 SMEM_LANES = 7936  # csrc/route.cu: the most lanes a block keeps in shared memory
@@ -63,6 +66,74 @@ class RouteSend(NamedTuple):
     buf: torch.Tensor  # (P, B, cap, 4) int32: [local state, cost bits, slot, arc]
     overflow: torch.Tensor  # (B,) bool — a (row, owner) bucket overflowed
     scratch: Optional[tuple] = None  # two (B, N) int64 rows, two (B, N) int32 rows
+
+
+class RoutedLanes(NamedTuple):
+    """An eps iteration's lanes where the all_to_all left them: lane j < K
+    of row b is incumbent j (``inc_states``, ``inc_costs``, slot
+    ``inc_slot_base + j`` or -1, arc ``NO_ARC``), lane j >= K the entry
+    ``recv[p, b, c]``, ``p, c = divmod(j - K, cap)`` (its state ``sp``
+    where its cost is +inf)."""
+
+    recv: torch.Tensor  # (P, B, cap, 4) int32, slice p from rank p
+    sp: int
+    inc_states: torch.Tensor  # (B, K) int32
+    inc_costs: torch.Tensor  # (B, K) float32
+    inc_slot_base: Optional[int] = None
+
+    @property
+    def lanes(self) -> int:
+        P, _, cap, _ = self.recv.shape
+        return self.inc_states.shape[1] + P * cap
+
+
+class RoutedArgs(ctypes.Structure):
+    """A :class:`RoutedLanes` as the kernels take it (``csrc/common.cuh``
+    Routed)."""
+
+    _fields_ = [("recv", ctypes.c_void_p), ("inc_states", ctypes.c_void_p),
+                ("inc_costs", ctypes.c_void_p)] + [
+        (name, ctypes.c_int) for name in ("B", "P", "cap", "K", "sp", "has_base", "base")]
+
+
+def routed_args(src: RoutedLanes) -> RoutedArgs:
+    """``src`` checked (int32 entries and states, float32 costs, one
+    device, contiguous, int indices) and as the kernels take it."""
+    P, B, cap, _ = src.recv.shape
+    dev = src.recv.device
+    K = src.inc_states.shape[1]
+    check(src.recv, "recv", torch.int32, (P, B, cap, 4), dev)
+    check(src.inc_states, "inc_states", torch.int32, (B, K), dev)
+    check(src.inc_costs, "inc_costs", torch.float32, (B, K), dev)
+    if P < 1 or cap < 1 or src.sp < 1 or B * (K + P * cap) >= 1 << 31:
+        raise ValueError(f"routed lanes of {P} parts, cap {cap}, part size {src.sp}, "
+                         f"{B} rows of {K} incumbents: out of range")
+    base = src.inc_slot_base
+    return RoutedArgs(src.recv.data_ptr(), src.inc_states.data_ptr(), src.inc_costs.data_ptr(),
+                      B, P, cap, K, src.sp, int(base is not None), base or 0)
+
+
+def routed_lanes_plain(src: RoutedLanes) -> "RouteLanes":
+    """The lanes of ``src`` as (B, K + P*cap) columns, each lane looked
+    up by the kernels' rule (``csrc/common.cuh:routed_entry``): lane j < K
+    the incumbent, lane j >= K ``recv[p, b, c]``, ``p, c = divmod(j - K,
+    cap)``."""
+    P, B, cap, _ = src.recv.shape
+    K = src.inc_states.shape[1]
+    dev = src.recv.device
+    q = torch.arange(P * cap, dtype=torch.int64, device=dev)
+    p, c = q // cap, q % cap
+    ent = src.recv[p[None, :], torch.arange(B, device=dev)[:, None], c[None, :]]  # (B, P*cap, 4)
+    cost = ent[..., 1].contiguous().view(torch.float32)
+    routed = (torch.where(torch.isfinite(cost), ent[..., 0], src.sp), cost, ent[..., 2],
+              ent[..., 3])
+    if src.inc_slot_base is None:
+        slots = torch.full((B, K), -1, dtype=torch.int32, device=dev)
+    else:
+        slots = (src.inc_slot_base + torch.arange(K, dtype=torch.int32, device=dev)).expand(B, K)
+    inc = (src.inc_states, src.inc_costs, slots,
+           torch.full((B, K), NO_ARC, dtype=torch.int32, device=dev))
+    return RouteLanes(*(torch.cat([x, y], dim=1).contiguous() for x, y in zip(inc, routed)))
 
 
 class RouteLanes(NamedTuple):
@@ -271,28 +342,21 @@ def empty_route_lanes(batch: int, lanes: int, device) -> RouteLanes:
                       torch.empty(shape, **i32), torch.empty(shape, **i32))
 
 
-def route_recv(recv, sp: int, inc_states=None, inc_costs=None,
-               inc_slot_base: Optional[int] = None,
-               out: Optional[RouteLanes] = None) -> RouteLanes:
-    """K7's receive side on the tensors' device: :func:`route_recv_plain`
-    on the CPU, one launch of ``csrc/route.cu`` on a card, into ``out``
-    (from :func:`empty_route_lanes`) when given.
-    ``route_recv.launches`` counts its launches."""
+def route_recv(recv, sp: int, out: Optional[RouteLanes] = None) -> RouteLanes:
+    """K7's receive side on the tensors' device, without incumbents (the
+    emitting call's; an eps iteration's dedup call reads its lanes in
+    place, :class:`RoutedLanes`): :func:`route_recv_plain` on the CPU, one
+    launch of ``csrc/route.cu`` on a card, into ``out`` (from
+    :func:`empty_route_lanes`) when given.  ``route_recv.launches`` counts
+    its launches."""
     dev = recv.device
     if dev.type == "cpu":
-        return route_recv_plain(recv, sp, inc_states, inc_costs, inc_slot_base)
+        return route_recv_plain(recv, sp)
     if dev.type != "cuda":
         raise ValueError(f"route_recv runs on cpu or cuda tensors, not {dev}")
     P, B, cap, _ = recv.shape
     check(recv, "recv", torch.int32, (P, B, cap, 4), dev)
-    if (inc_states is None) != (inc_costs is None):
-        raise ValueError("inc_states and inc_costs come together")
-    K = 0
-    if inc_states is not None:
-        K = inc_states.shape[1]
-        check(inc_states, "inc_states", torch.int32, (B, K), dev)
-        check(inc_costs, "inc_costs", torch.float32, (B, K), dev)
-    L = K + P * cap
+    L = P * cap
     if B * L >= 1 << 31:
         raise ValueError(f"route_recv takes fewer than 2^31 lanes, not {B} x {L}")
     if out is None:
@@ -300,9 +364,8 @@ def route_recv(recv, sp: int, inc_states=None, inc_costs=None,
     else:
         check_like(out, empty_route_lanes(B, L, "meta"), "out", dev)
     rc = kernels().kd_route_recv(
-        ptr(recv), ptr(inc_states) if K else None, ptr(inc_costs) if K else None,
-        B, P, cap, K, sp, int(inc_slot_base is not None), inc_slot_base or 0,
-        ptr(out.state_local), ptr(out.cost), ptr(out.gslot), ptr(out.arc), stream(dev),
+        ptr(recv), B, P, cap, sp, ptr(out.state_local), ptr(out.cost), ptr(out.gslot),
+        ptr(out.arc), stream(dev),
     )
     if rc != 0:
         raise RuntimeError(f"kd_route_recv launch failed: {cuda_error(rc)}")

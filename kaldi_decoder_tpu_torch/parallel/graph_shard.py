@@ -27,12 +27,14 @@ shapes: K1 (``kernels.expand.expand_filter``, the ``src_slot`` variant on
 the Viterbi path, the lattice variant on the lattice path) on the local
 frontier; K7 (``kernels.route``: ``route_send`` before each
 ``all_to_all``, with the global beam filter and the payload's global
-offsets folded in, ``route_recv`` after it, with the K incumbents first on
-an eps iteration); K6 (``kernels.dedup.dedup_select``) on the routed
-lanes, ``P * route_cap`` wide with ``part_size`` states, and again each
-eps iteration with the K incumbents first; K2
+offsets folded in, ``route_recv`` after the emitting call's); K6
+(``kernels.dedup.dedup_select``) on the routed lanes, ``P * route_cap``
+wide with ``part_size`` states, and again each eps iteration on the K
+incumbents and the received buffer, read in place
+(``kernels.route.RoutedLanes``: no receive launch); K2
 (``kernels.dedup_rec.dedup_select_rec``) on the routed lanes and, with
-``num_incumbents = K``, each eps iteration of the lattice path; K5
+``num_incumbents = K``, each eps iteration of the lattice path, read in
+place too; K5
 (``kernels.eps.expand_eps_lanes``, without incumbents) gives each eps
 iteration's lanes; the eps step's shard mode
 (``kernels.eps.eps_step_shard``) closes each eps iteration (the
@@ -40,11 +42,12 @@ backpointers or links, the batch-wide stop, the carry, the local
 ``changed`` and, at the last, the frame's local values that the rebase
 reduces); K3's shard mode (``kernels.frame.frame_tail_shard``) ends the
 frame (the rebase, the freeze, every output into row t of the chunk's
-stacked buffers, ``t`` on the device); :func:`_global_cutoff` opens
-each frame with K8 (``kernels.cutoff``: ``global_cutoff_local`` before
-its collectives, ``global_cutoff_merge`` after them).  Between them run only
-the collectives, whose kinds, order and number a frame are the
-original's.
+stacked buffers, ``t`` on the device, and the next frame's local half of
+GetCutoff); :func:`_global_cutoff` opens each frame with K8's collectives
+and its merge (``kernels.cutoff.global_cutoff_merge``), on the local half
+that K3's shard mode wrote (``global_cutoff_local`` runs once a chunk,
+on its start state).  Between them run only the collectives, whose
+kinds, order and number a frame are the original's.
 """
 
 from __future__ import annotations
@@ -72,6 +75,7 @@ from kaldi_decoder_tpu_torch.fst.pack import (
 from kaldi_decoder_tpu_torch.kernels.cutoff import (
     empty_cutoff,
     empty_cutoff_local,
+    first_min_count,
     global_cutoff_local,
     global_cutoff_merge,
 )
@@ -91,6 +95,7 @@ from kaldi_decoder_tpu_torch.kernels.frame import (
     shard_args,
 )
 from kaldi_decoder_tpu_torch.kernels.route import (
+    RoutedLanes,
     empty_route_lanes,
     empty_route_send,
     route_recv,
@@ -278,31 +283,41 @@ class Routed(NamedTuple):
     overflow: torch.Tensor  # (B,) bool — a (src, dst) bucket overflowed
 
 
+class RoutedEps(NamedTuple):
+    """An eps iteration's receive: the K incumbents and the received
+    buffer, which its dedup call reads in place."""
+
+    lanes: RoutedLanes
+    overflow: torch.Tensor  # (B,) bool — a (src, dst) bucket overflowed
+
+
 def _route(dst_g, cost, gslot, arc_g, sp: int, num_parts: int, cap: int, group,
            local_slack_beam: Optional[float] = None, *, cutoff=None, slot_states=None,
            slot_add: int = 0, arc_add: int = 0, incumbents=None, inc_slot_base=None,
-           bufs: Optional[dict] = None, key: str = "") -> Routed:
+           bufs: Optional[dict] = None, key: str = ""):
     """K7: bucket the lanes by owner rank (``kernels.route.route_send``,
     with the beam filter ``cutoff`` and the payload offsets folded in),
     exchange them over ``group`` with one ``all_to_all`` of the four
     columns, and lay out what arrived for the dedup call
-    (``route_recv``), after the ``incumbents`` ((states, costs), with
-    slots ``inc_slot_base + k`` or -1) when given.  On a card ``bufs``
-    keeps the buffers of each call site ``key``, made at its first call."""
+    (``route_recv``): a :class:`Routed`.  With ``incumbents`` ((states,
+    costs), slots ``inc_slot_base + k`` or -1: an eps iteration) no
+    layout: a :class:`RoutedEps`, which the dedup call reads in place.  On
+    a card ``bufs`` keeps the buffers of each call site ``key``, made at
+    its first call."""
     out = (None, None)
     if bufs is not None and dst_g.is_cuda:
         if key not in bufs:
             B, N = dst_g.shape
-            inc = incumbents[0].shape[1] if incumbents is not None else 0
             bufs[key] = (empty_route_send(B, N, num_parts, cap, dst_g.device),
-                         empty_route_lanes(B, inc + num_parts * cap, dst_g.device))
+                         None if incumbents is not None
+                         else empty_route_lanes(B, num_parts * cap, dst_g.device))
         out = bufs[key]
     send = route_send(dst_g, cost, gslot, arc_g, sp, num_parts, cap, local_slack_beam, cutoff,
                       slot_states, slot_add, arc_add, out=out[0])
     recv = all_to_all(send.buf, group)  # (P, B, cap, 4): slice p from rank p
-    inc_states, inc_costs = incumbents if incumbents is not None else (None, None)
-    lanes = route_recv(recv, sp, inc_states, inc_costs, inc_slot_base, out=out[1])
-    return Routed(*lanes, send.overflow)
+    if incumbents is not None:
+        return RoutedEps(RoutedLanes(recv, sp, *incumbents, inc_slot_base), send.overflow)
+    return Routed(*route_recv(recv, sp, out=out[1]), send.overflow)
 
 
 # ---------------------------------------------------------------------------
@@ -399,8 +414,10 @@ class _Shard(NamedTuple):
 class _Bufs(NamedTuple):
     """A decode's buffers: each route call site's on a card (made at its
     first call), the eps closure's carry, the chunk's K3 table, row
-    lengths and stacked outputs (set by :func:`sharded_chunk`), and K8's
-    on a card (made at its first call)."""
+    lengths and stacked outputs (set by :func:`sharded_chunk`), and K8's:
+    the local half that each frame's GetCutoff reads (set by
+    :func:`_start_cutoff`, then by K3's shard mode) and on a card the
+    merge's."""
 
     routes: dict
     carry: ShardEpsCarry
@@ -416,10 +433,6 @@ def _bufs(sc: ShardConfig, batch: int, width: int, device) -> _Bufs:
                  shard_args(device), {}, {})
 
 
-def _masked_min(costs: torch.Tensor) -> torch.Tensor:
-    return torch.where(torch.isfinite(costs), costs, INF).amin(dim=1)
-
-
 def _flags(*xs) -> torch.Tensor:
     """Per-shard scalar flags as one int32 vector, for one MAX reduction."""
     return torch.stack([x.reshape(()) for x in xs]).to(torch.int32)
@@ -427,10 +440,10 @@ def _flags(*xs) -> torch.Tensor:
 
 def _sharded_eps_iteration(st: StepState, cutoff_rel, pg, cfg: ShardConfig, sh: _Shard,
                            bufs: _Bufs):
-    """One routed epsilon relaxation: K5's lanes, routed (K7) with the K
+    """One routed epsilon relaxation: K5's lanes, routed (K7), K6 on the K
     incumbents first (they win cost ties, like FindOrAddToken
-    keep-existing), K6.  Returns (the selection, the routed lanes, K5's
-    overflow)."""
+    keep-existing) and the received lanes, read in place.  Returns (the
+    selection, the :class:`RoutedEps`, K5's overflow)."""
     fc = cfg.frontier
     cand = expand_eps_lanes(st.states, st.costs, cutoff_rel, pg, fc, incumbents=False,
                             with_src_state=False)
@@ -438,7 +451,7 @@ def _sharded_eps_iteration(st: StepState, cutoff_rel, pg, cfg: ShardConfig, sh: 
                 cfg.num_parts, cfg.eps_route_cap, sh.group, slot_add=sh.my_base,
                 arc_add=sh.eps_off, incumbents=(st.states, st.costs), inc_slot_base=sh.my_base,
                 bufs=bufs.routes, key="eps")
-    sel = dedup_select(rt.state_local, rt.cost, fc.frontier_size, cfg.part_size)
+    sel = dedup_select(None, None, fc.frontier_size, cfg.part_size, routed=rt.lanes)
     return sel, rt, cand.overflow
 
 
@@ -447,8 +460,8 @@ def _sharded_lattice_eps_iteration(st: StepState, cutoff_rel, pg, cfg: "ShardLat
     """Routed epsilon relaxation emitting (global src_state, global arc)
     link records: the routed lanes (their payload the source slot's state
     as a global id: the lattice needs source states, not slots) after the
-    K incumbents go through K2's eps call, which carries each lane's
-    (source state, arc) into its records (the original maps record
+    K incumbents go through K2's eps call, read in place, which carries
+    each lane's (source state, arc) into its records (the original maps record
     indices back through ``_rec_from_idx``); they are the winners' links
     first, then extras by slack, then -1 rows.  The original compacts the
     link rows of its ``K + eps_records`` records into ``eps_records``
@@ -464,8 +477,8 @@ def _sharded_lattice_eps_iteration(st: StepState, cutoff_rel, pg, cfg: "ShardLat
                 sc.eps_route_cap, sh.group, local_slack_beam=sb, slot_states=st.states,
                 slot_add=sh.me * Sp, arc_add=sh.eps_off, incumbents=(st.states, st.costs),
                 bufs=bufs.routes, key="eps")
-    sel = dedup_select_rec(rt.state_local, rt.cost, K, Sp, K + cfg.eps_records, sb,
-                           payload=(rt.gslot, rt.arc), num_incumbents=K)
+    sel = dedup_select_rec(None, None, K, Sp, K + cfg.eps_records, sb, None, num_incumbents=K,
+                           routed=rt.lanes)
     return sel, rt, cand.overflow
 
 
@@ -487,8 +500,9 @@ def _sharded_eps_closure(iteration, st: StepState, sc: ShardConfig, sh: _Shard, 
     if D == 0:  # no eps step to write the frame's local values: torch reductions
         if reduce:
             K = sc.frontier.frontier_size
-            carry.red_min.copy_(_masked_min(st.costs))
-            carry.red_count.copy_(torch.isfinite(st.costs).sum(dim=1, dtype=torch.int32))
+            red_min, red_count = first_min_count(st.costs)
+            carry.red_min.copy_(red_min)
+            carry.red_count.copy_(red_count)
             ovf = torch.stack([x.any() for x in em_overflow]).any()
             carry.red_flags.copy_(_flags(ovf, (em_num_unique > K).any()))
         return carry
@@ -497,11 +511,44 @@ def _sharded_eps_closure(iteration, st: StepState, sc: ShardConfig, sh: _Shard, 
         sel, rt, exp_overflow = iteration(st)
         first = d == 0
         eps_step_shard(d, carry, st.states, st.costs, sel, exp_overflow, rt.overflow, red,
-                       sh.my_base, lanes=rt, em_overflow=em_overflow if first else (),
+                       sh.my_base, lanes=rt.lanes, em_overflow=em_overflow if first else (),
                        em_num_unique=em_num_unique if first else None,
                        reduce=reduce and d == D - 1)
         red = all_reduce(carry.changed, "max", sh.group)
     return carry
+
+
+def _cutoff_m(cfg: ShardConfig) -> Tuple[bool, int]:
+    """(GetCutoff's early return: neither bound can bind, m): each shard's
+    prefix of m = min(needed + 1, K) costs holds the global n-th smallest
+    (1 where nothing is gathered)."""
+    fc = cfg.frontier
+    early = fc.max_active >= cfg.k_total and fc.min_active == 0
+    return early, 1 if early else int(min(max(fc.max_active, fc.min_active) + 1,
+                                          fc.frontier_size))
+
+
+def _start_cutoff(st: StepState, cfg: ShardConfig, bufs: _Bufs) -> None:
+    """K8's local half of a chunk's start state ``st``, held in
+    ``bufs.cutoff["local"]`` for the chunk's first GetCutoff; K3's shard
+    mode writes each next frame's there.  Its prefix is None where m is K
+    (the all-gather reads the costs) or nothing is gathered.  On a card
+    K8's buffers are made at a decode's first call."""
+    early, m = _cutoff_m(cfg)
+    own = not early and m < cfg.frontier.frontier_size
+    if not st.costs.is_cuda:
+        loc = global_cutoff_local(st.costs, m)
+        bufs.cutoff["local"] = loc if own else loc._replace(prefix=None)
+        return
+    if "local" not in bufs.cutoff:
+        B = st.costs.shape[0]
+        dev = st.costs.device
+        loc = empty_cutoff_local(B, m, dev)
+        bufs.cutoff.update(local=loc if own else loc._replace(prefix=None),
+                           out=empty_cutoff(B, dev),
+                           merged=torch.empty((cfg.num_parts, B, m), dtype=torch.float32,
+                                              device=dev))
+    global_cutoff_local(st.costs, m, out=bufs.cutoff["local"])
 
 
 def _global_cutoff(st: StepState, cfg: ShardConfig, group, bufs: Optional[_Bufs] = None):
@@ -510,34 +557,27 @@ def _global_cutoff(st: StepState, cfg: ShardConfig, group, bufs: Optional[_Bufs]
     max/min-active order statistics over the union of the per-shard
     (sorted) frontiers.  Returns (cutoff (B,), adaptive_beam (B,)).
 
-    K8's local half gives each row's best cost, finite count and cost
-    prefix of length m = min(needed+1, K) — the global n-th smallest is
-    always within the union of per-shard n+1-prefixes; the best is reduced
-    (MIN) over ``group`` and, unless neither bound can bind (max_active >=
-    total capacity and min_active == 0), the count (SUM) and the prefixes
-    (one all-gather); K8's merge then reads the order statistics off the
-    merged prefixes and takes GetCutoff's branch.  On a card ``bufs``
-    keeps K8's buffers, made at the first call.
+    The local half (each row's best cost, finite count and cost prefix of
+    length m, :func:`_cutoff_m`) is ``bufs.cutoff["local"]``, which
+    :func:`_start_cutoff` and then each frame's K3 shard mode write (K8's
+    local half on ``st`` without ``bufs``); the best is reduced (MIN) over
+    ``group`` and, unless neither bound can bind, the count (SUM) and the
+    prefixes (one all-gather, of the costs themselves where m is K); K8's
+    merge then reads the order statistics off the merged prefixes and
+    takes GetCutoff's branch.
     """
     fc = cfg.frontier
-    K = fc.frontier_size
-    early = fc.max_active >= cfg.k_total and fc.min_active == 0
-    m = 1 if early else int(min(max(fc.max_active, fc.min_active) + 1, K))
-    out = {}
-    if bufs is not None and st.costs.is_cuda:
-        if not bufs.cutoff:
-            B = st.costs.shape[0]
-            dev = st.costs.device
-            bufs.cutoff.update(local=empty_cutoff_local(B, m, dev), out=empty_cutoff(B, dev),
-                               merged=torch.empty((cfg.num_parts, B, m), dtype=torch.float32,
-                                                  device=dev))
-        out = bufs.cutoff
-    loc = global_cutoff_local(st.costs, m, out=out.get("local"))
+    early, m = _cutoff_m(cfg)
+    out = bufs.cutoff if bufs is not None else {}
+    loc = out.get("local")
+    if loc is None:
+        loc = global_cutoff_local(st.costs, m)
     best = all_reduce(loc.best, "min", group)  # (B,)
     count = merged = None
     if not early:
         count = all_reduce(loc.count, "sum", group)
-        merged = all_gather_into(loc.prefix, out.get("merged"), group)  # (P, B, m)
+        prefix = loc.prefix if loc.prefix is not None else st.costs
+        merged = all_gather_into(prefix, out.get("merged"), group)  # (P, B, m)
     return global_cutoff_merge(best, count, merged, fc.beam, fc.beam_delta, fc.max_active,
                                fc.min_active, out=out.get("out"))
 
@@ -567,7 +607,8 @@ def _reduced(carry: ShardEpsCarry, group):
 def _sharded_frame(st: StepState, scores_t, pg, cfg: ShardConfig, sh: _Shard, bufs: _Bufs):
     """One sharded frame: global GetCutoff, local expand (K1), route (K7),
     local dedup (K6), routed eps closure, global rebase by K3's shard
-    mode, which updates ``st`` and writes row t of the chunk's outputs."""
+    mode, which updates ``st``, writes row t of the chunk's outputs and
+    the next frame's local half of GetCutoff."""
     fc = cfg.frontier
     K, Sp, Pn = fc.frontier_size, cfg.part_size, cfg.num_parts
 
@@ -584,9 +625,10 @@ def _sharded_frame(st: StepState, scores_t, pg, cfg: ShardConfig, sh: _Shard, bu
         em_overflow=(ex.overflow, rt.overflow), em_num_unique=sel.num_unique, reduce=True)
     best, num_active, flags = _reduced(carry, sh.group)
     tin = ShardTailInputs(mid.states, mid.costs, best, num_active, flags, cand_idx=sel.cand_idx,
-                          gslot=rt.gslot, arc=rt.arc, bp_eps=carry.out)
+                          gslot=rt.gslot, arc=rt.arc, bp_eps=carry.out, red_min=carry.red_min,
+                          red_count=carry.red_count)
     frame_tail_shard(bufs.args, st, cutoff, tin, bufs.chunk["lengths"], bufs.chunk["outs"],
-                     sh.my_base)
+                     sh.my_base, local=bufs.cutoff["local"])
 
 
 def _sharded_lattice_frame(st: StepState, scores_t, pg, cfg: ShardLatticeConfig, sh: _Shard,
@@ -619,9 +661,10 @@ def _sharded_lattice_frame(st: StepState, scores_t, pg, cfg: ShardLatticeConfig,
         em_num_unique=sel.num_unique, reduce=True)
     best, num_active, flags = _reduced(carry, sh.group)
     tin = ShardTailInputs(mid.states, mid.costs, best, num_active, flags,
-                          em_records=sel.records, eps_records=carry.out)
+                          em_records=sel.records, eps_records=carry.out, red_min=carry.red_min,
+                          red_count=carry.red_count)
     frame_tail_shard(bufs.args, st, cutoff, tin, bufs.chunk["lengths"], bufs.chunk["outs"],
-                     sh.my_base)
+                     sh.my_base, local=bufs.cutoff["local"])
 
 
 def sharded_chunk(frame, pg, scores_tm, lengths, st0: StepState, cfg, sh: _Shard, bufs: _Bufs):
@@ -629,8 +672,9 @@ def sharded_chunk(frame, pg, scores_tm, lengths, st0: StepState, cfg, sh: _Shard
     :func:`_sharded_lattice_frame`) from ``st0``, the original's
     ``lax.scan`` in ``shard_map``; frames t >= lengths are no-ops.  K3's
     shard mode writes each frame's outputs into row t of the chunk's
-    stacked buffers, ``t`` in ``bufs.args``.  Returns the final state and
-    the per-frame outputs stacked (T, B, ...)."""
+    stacked buffers, ``t`` in ``bufs.args``, and the next frame's local
+    half of GetCutoff; K8's local half runs on ``st0`` alone.  Returns the
+    final state and the per-frame outputs stacked (T, B, ...)."""
     T, B = scores_tm.shape[:2]
     lattice = isinstance(cfg, ShardLatticeConfig)
     sc = cfg.shard if lattice else cfg
@@ -640,6 +684,7 @@ def sharded_chunk(frame, pg, scores_tm, lengths, st0: StepState, cfg, sh: _Shard
         T, B, fc.frontier_size, fc.eps_iters, lattice, scores_tm.device,
         cfg.em_records if lattice else 0, cfg.eps_records if lattice else 0))
     st = StepState(*(x.clone() for x in st0))
+    _start_cutoff(st, sc, bufs)
     for t in range(T):
         frame(st, scores_tm[t], pg, cfg, sh, bufs)
     return st, bufs.chunk["outs"]

@@ -20,7 +20,11 @@ step's shard mode and K3's shard mode on the inputs of frame
 plain versions, device ms by CUDA events over calls back to back, bound
 and share of the bound (the smoke's work counts), at the kernel's own
 cluster size and, where the tree's wrappers take ``clusters``, at 8, 4,
-2 and 1 blocks a row.  With ``--runs`` it times
+2 and 1 blocks a row (with K8's local half folded into K3's shard mode
+where the tree folds it, beside the same call without it), and the first
+eps iteration's dedup call: on the routed lanes where the tree folds K7's
+receive side into it, else K7's receive launch and the call on its
+lanes, each apart and back to back.  With ``--runs`` it times
 nothing: one decode of each at P = 1 records, for every K7 send call,
 the (owner, state) runs of its valid lanes (the lanes of a row with one
 destination: what the send side dedups): how many, the longest, the
@@ -184,34 +188,70 @@ def time_shard_kernels(cs, kept, eps_iters):
             *cs.eps_step_shard_work(sel, args[1], kw.get("lanes"), False))
         t["share_of_bound"] = t["bound_ms"] / t["ms"]
         out["eps_step_shard"] = t
-    args, _ = kept["frame_tail_shard", cs.SHARD_FRAME]
+    args, kw = kept["frame_tail_shard", cs.SHARD_FRAME]
     targs, st, cutoff, tin, lengths, outs, slot_base = args
+    local = kw.get("local")  # K8's local half folded in (this PR's trees)
+    lkw = {} if local is None else dict(local=local)
     row = int(targs[0])
     fa = lengths > row
     B, K = st.states.shape
     lattice = tin.em_records is not None
-    final, ref = kframe.frame_tail_shard_plain(st, cutoff, tin, fa, slot_base)
+    final, ref = kframe.frame_tail_shard_plain(st, cutoff, tin, fa, slot_base, **lkw)[:2]
     chosen = getattr(kframe, "shard_cluster_size", None)
-    t = dict(clusters=chosen(B, K) if chosen else 1, ms_by_clusters={})
+    t = dict(clusters=chosen(B, K) if chosen else 1, ms_by_clusters={}, folded=local is not None)
+    t_outs = kframe.empty_shard_outs(
+        64, B, K, outs[1].shape[2], lattice, st.states.device,
+        *((outs[0].shape[2], outs[1].shape[3]) if lattice else ()))
     for extra, label in sizes(kframe.frame_tail_shard):
         got = cs.clone(args)
-        kframe.frame_tail_shard(*got, **extra)
+        kframe.frame_tail_shard(*got, **extra, **cs.clone(lkw))
         torch.cuda.synchronize()
         cs.same_fields(final, got[1], "K3's shard mode (state)", f"{label} blocks")
         cs.same_fields(ref, type(ref)(*(x[row] for x in got[5])), "K3's shard mode (outputs)",
                        f"{label} blocks")
         # Timed on a table of its own from t = 0, into outputs of 64 rows.
-        t_outs = kframe.empty_shard_outs(
-            64, B, K, outs[1].shape[2], lattice, st.states.device,
-            *((outs[0].shape[2], outs[1].shape[3]) if lattice else ()))
-        t_args, t_st = kframe.shard_args(st.states.device), cs.clone(st)
+        t_args, t_st, t_kw = kframe.shard_args(st.states.device), cs.clone(st), cs.clone(lkw)
         t["ms_by_clusters"][label] = cs.device_ms(lambda: kframe.frame_tail_shard(
-            t_args, t_st, cutoff, tin, lengths, t_outs, slot_base, **extra))
+            t_args, t_st, cutoff, tin, lengths, t_outs, slot_base, **extra, **t_kw))
     t["ms"] = t["ms_by_clusters"].pop("default")
-    t["bound_ms"], t["bound_by"] = cs.bound_ms(*cs.k3_shard_work(tin, fa))
+    t["bound_ms"], t["bound_by"] = cs.bound_ms(*cs.k3_shard_work(tin, fa, local))
     t["share_of_bound"] = t["bound_ms"] / t["ms"]
+    if local is not None:  # the same call without the local half
+        t_args, t_st = kframe.shard_args(st.states.device), cs.clone(st)
+        t["alone_ms"] = cs.device_ms(lambda: kframe.frame_tail_shard(
+            t_args, t_st, cutoff, tin, lengths, t_outs, slot_base))
     out["k3_shard"] = t
     return out
+
+
+def time_eps_call(cs, kept, kind, eps_iters):
+    """The first eps iteration's dedup call of frame SHARD_FRAME (K6, or
+    K2's eps call) as the tree runs it: on a tree with K7's receive side
+    folded in, the call on the routed lanes; else K7's receive launch
+    (the incumbents first) and the call on its lanes.  Device ms by CUDA
+    events, each apart and the pair back to back: {dedup_ms, recv_ms
+    (None when folded), ms}."""
+    from kaldi_decoder_tpu_torch.kernels import dedup as kdedup
+    from kaldi_decoder_tpu_torch.kernels import dedup_rec as kdrec
+    from kaldi_decoder_tpu_torch.kernels import route as kroute
+
+    fn = kdedup.dedup_select if kind == "viterbi" else kdrec.dedup_select_rec
+    name = "dedup_select" if kind == "viterbi" else "dedup_select_rec"
+    i = cs.shard_call_index(cs.SHARD_FRAME, eps_iters, True)
+    args, kw = kept[name, i]
+    t = dict(dedup_ms=cs.device_ms(lambda: fn(*args, **kw)), recv_ms=None)
+    if kw.get("routed") is None:
+        (rargs, rkw) = kept["route_recv", i]
+        t["recv_ms"] = cs.device_ms(lambda: kroute.route_recv(*rargs, **rkw))
+
+        def pair():
+            kroute.route_recv(*rargs, **rkw)
+            fn(*args, **kw)
+
+        t["ms"] = cs.device_ms(pair)
+    else:
+        t["ms"] = t["dedup_ms"]
+    return t
 
 
 def measure(tree, P, rank, reps):
@@ -245,8 +285,11 @@ def measure(tree, P, rank, reps):
             dec = ShardedLatticeDecoder(graph, fc, lattice_beam=cs.SHARD_LATTICE_BEAM,
                                         mesh=mesh, pad_time_to=cs.SHARD_FRAMES, device="cuda")
         D = (dec.cfg if kind == "viterbi" else dec.cfg.shard).frontier.eps_iters
+        eps_i = cs.shard_call_index(cs.SHARD_FRAME, D, True)
+        kname = "dedup_select" if kind == "viterbi" else "dedup_select_rec"
         capture = {"eps_step_shard": {D + cs.SHARD_FRAME * D},
-                   "frame_tail_shard": {cs.SHARD_FRAME}}
+                   "frame_tail_shard": {cs.SHARD_FRAME}, kname: {eps_i},
+                   "route_recv": {eps_i}}
         with cs.CallCapture(graph_shard, capture) as cap:
             res = dec.decode(sc, sl)
         frames = res.num_active.shape[0]
@@ -276,6 +319,8 @@ def measure(tree, P, rank, reps):
             collectives_a_frame=sum(coll.values()) / frames)
         if rank == 0:  # the other rank waits at the barrier: the card is this rank's alone
             out[kind]["kernels"] = time_shard_kernels(cs, cap.kept, D)
+            if D:
+                out[kind]["kernels"]["eps_call"] = time_eps_call(cs, cap.kept, kind, D)
         dist.barrier()
         del dec, res, cap
         torch.cuda.empty_cache()
@@ -394,10 +439,16 @@ def main():
                   f"{r['activities_per_frame']:.2f} a frame {split}; collectives "
                   f"{r['collectives_a_frame']:.2f} a frame", flush=True)
             for name, k in r["kernels"].items():
+                if name == "eps_call":
+                    print(f"{args.tag} P={P} {kind} frame {cs.SHARD_FRAME}: the first eps "
+                          f"iteration's dedup call {k['dedup_ms']:.4f} ms, K7's receive "
+                          f"{k['recv_ms']} ms, the two back to back {k['ms']:.4f}", flush=True)
+                    continue
                 print(f"{args.tag} P={P} {kind} frame {cs.SHARD_FRAME}: {name} {k['ms']:.4f} ms "
                       f"at {k['clusters']} blocks a row (bound {k['bound_ms']:.4f} by "
                       f"{k['bound_by']}, {k['share_of_bound']:.1%}); by blocks a row "
-                      f"{k['ms_by_clusters']}", flush=True)
+                      f"{k['ms_by_clusters']}" + (f"; without the local half {k['alone_ms']:.4f}"
+                                                  if "alone_ms" in k else ""), flush=True)
     print(line)
 
 

@@ -13,9 +13,10 @@ A job is ``{"world": n, "cases": {name: case}}``, each case a dict with
 decode; or ``call`` (a function of ``parallel.graph_shard`` taking the
 mesh's ``model`` group as ``group``), ``rank_args`` (its arguments on each
 rank) and ``kw``.  A decoder case may name ``capture``: functions of
-``parallel.graph_shard`` whose calls' positional arguments (tensors
-cloned) the rank keeps during the decode; its result is then (the decode
-result, {name: [arguments of each call]}).
+``parallel.graph_shard`` whose calls' positional arguments the rank keeps
+during the decode (tensors cloned, in tuples and named tuples too;
+numbers, strings and None kept; anything else as None); its result is
+then (the decode result, {name: [arguments of each call]}).
 
     python tests/_torch_dist_worker.py JOB RANK
 """
@@ -58,6 +59,20 @@ def run_ranks(job: dict, tmp_dir: str, timeout: float = 600) -> list:
     return out
 
 
+def kept(x):
+    """A captured argument: ``x`` with its tensors cloned (in tuples and
+    named tuples too), numbers, strings and None as they are, anything
+    else None."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, tuple):
+        items = [kept(v) for v in x]
+        return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+    return x if x is None or isinstance(x, (bool, int, float, str)) else None
+
+
 def main():
     path, rank = sys.argv[1], int(sys.argv[2])
     sys.path.insert(0, os.path.dirname(HERE))
@@ -90,8 +105,7 @@ def main():
 
         def keep(fn):
             def call(*args, **kw):
-                captured[fn].append(tuple(
-                    x.clone() if isinstance(x, torch.Tensor) else x for x in args))
+                captured[fn].append(tuple(kept(x) for x in args))
                 return orig[fn](*args, **kw)
 
             return call

@@ -23,10 +23,16 @@ half's values; a model of the kernel's merge in plain numpy and torch
 sort: a direct read at P = 1, its warp's merge-path search at P = 2, its
 co-rank searches at P > 2) against the sort-based plain version on every
 case and on wide synthetic shards (m 2048, where the searches take
-several rounds); and the states a sharded decode (P = 2,
+several rounds); the states a sharded decode (P = 2,
 both decoders, over gloo) hands ``_global_cutoff``: each shard's row in
-order under the canonical key, as the kernel needs, and the composed
-halves equal to JAX on them.
+order under the canonical key, as the kernel needs, the merge's inputs
+(the local half folded into the frame before's K3 shard mode, reduced and
+gathered) equal to the plain local half of those states, and the composed
+halves equal to JAX on them; and the local half folded into K3's shard
+mode (``frame_tail_shard_plain`` with ``local``) against the plain local
+half of the rebased costs and, composed with the merge, the JAX
+``_global_cutoff`` of the next frame, at P = 1, 2 and 4, m == 1, 1 < m <
+K and m == K (``FOLD_CASES``).
 """
 
 import tempfile
@@ -44,15 +50,17 @@ from kaldi_decoder_tpu.decoders.frontier import StepState as JaxStepState
 from kaldi_decoder_tpu.fst import compile_fst as jax_compile
 from kaldi_decoder_tpu.fst import random_fst
 from kaldi_decoder_tpu.parallel import graph_shard as jgs
-from kaldi_decoder_tpu_torch.decoders.frontier import FrontierConfig, config_for_graph
+from kaldi_decoder_tpu_torch.decoders.frontier import FrontierConfig, StepState, config_for_graph
 from kaldi_decoder_tpu_torch.fst.csr import graph_from_numpy
 from kaldi_decoder_tpu_torch.kernels.cutoff import (
     GlobalCutoff,
+    first_min_count,
     global_cutoff_local,
     global_cutoff_local_plain,
     global_cutoff_merge,
     global_cutoff_merge_plain,
 )
+from kaldi_decoder_tpu_torch.kernels.frame import ShardTailInputs, frame_tail_shard_plain
 
 from _torch_dist_worker import run_ranks
 
@@ -336,7 +344,9 @@ def test_local_half(width):
 
 def _decoder_cases():
     """A Viterbi and a lattice decode at P = 2 with max_active binding,
-    each keeping the states it hands K8's local half."""
+    each keeping the states it hands ``_global_cutoff`` and the inputs of
+    K8's merge (the local half folded into the frame before's K3 shard
+    mode, then reduced and gathered)."""
     rng = np.random.default_rng(9)
     V, T = 5, 12
     g = graph_from_numpy(jax_compile(random_fst(60, V, rng, mean_arcs_per_state=5.0)))
@@ -348,7 +358,7 @@ def _decoder_cases():
                                                      em_records=128, eps_records=64))):
         cases[kind] = dict(decoder=kind, mesh=((2,), ("model",)),
                            args=(g, config_for_graph(g, **ckw)), kw=dkw, scores=scores,
-                           lengths=None, capture=("global_cutoff_local",))
+                           lengths=None, capture=("_global_cutoff", "global_cutoff_merge"))
     return cases, ckw
 
 
@@ -363,18 +373,30 @@ def decoded():
 def test_decoder_states_suit_the_merge(decoded, kind):
     """On the states a sharded decode hands ``_global_cutoff`` (every
     frame, both shards): each row in order under the canonical key, as
-    the kernel's merge reads it; the composed halves equal to JAX and the
-    kernel's method (:func:`search_merge`) to the sort-based one."""
+    the kernel's merge reads it; the merge's inputs (the local half that
+    the frame before's K3 shard mode wrote from the eps closure's values,
+    reduced and gathered) equal to K8's plain local half of those states
+    composed around the collectives, bit for bit; the composed halves
+    equal to JAX and the kernel's method (:func:`search_merge`) to the
+    sort-based one."""
     ranks, ckw = decoded
-    calls = [r[kind][1]["global_cutoff_local"] for r in ranks]
-    assert len(calls[0]) == len(calls[1]) > 8
+    calls = [r[kind][1]["_global_cutoff"] for r in ranks]
+    merges = [r[kind][1]["global_cutoff_merge"] for r in ranks]
+    assert len(calls[0]) == len(calls[1]) == len(merges[0]) == len(merges[1]) > 8
     kw = {k: v for k, v in ckw.items() if k != "frontier_size"}
     k = ckw["frontier_size"]
+    m = min(max(kw["max_active"], kw["min_active"]) + 1, k)
     bound = 0
     for i, (a, b) in enumerate(zip(*calls)):
-        costs = [a[0].numpy(), b[0].numpy()]
+        costs = [a[0].costs.numpy(), b[0].costs.numpy()]
         for q, c in enumerate(costs):
             assert (c[:, 1:] >= c[:, :-1]).all(), f"call {i}, shard {q}: a row out of order"
+        locs = [global_cutoff_local_plain(torch.from_numpy(c), m) for c in costs]
+        for q in range(2):
+            best, count, merged = merges[q][i][:3]
+            same_bits(torch.minimum(locs[0].best, locs[1].best), best, f"call {i}: best")
+            assert torch.equal(locs[0].count + locs[1].count, count), f"call {i}: count"
+            same_bits(torch.stack([loc.prefix for loc in locs]), merged, f"call {i}: prefixes")
         want = jax_global_cutoff(costs, kw, k)
         got = port_global_cutoff(costs, kw, k=k)
         alt = port_global_cutoff(costs, kw, search_merge, k)
@@ -479,3 +501,115 @@ def test_search_merge_wide_matches_sort(P):
         same_bits(want.cutoff, got.cutoff, (max_active, min_active, "cutoff"))
         same_bits(want.adaptive_beam, got.adaptive_beam,
                   (max_active, min_active, "adaptive beam"))
+
+
+# name -> (config kwargs given P, what m is): the early return (m == 1, the
+# best alone), 1 < m < K (a prefix of its own), m == K (the costs are the
+# prefix: the all-gather reads them in place).
+FOLD_CONFIGS = {
+    "m1": (lambda P: dict(beam=9.0, max_active=P * K, min_active=0, beam_delta=0.5), 1),
+    "mid": (lambda P: dict(beam=9.0, max_active=5, min_active=3, beam_delta=0.5), 6),
+    "mK": (lambda P: dict(beam=30.0, max_active=K + 4, min_active=3, beam_delta=0.5), K),
+}
+FOLD_CASES = [(P, name) for P in (1, 2, 4) for name in FOLD_CONFIGS]
+
+
+def fold_frame(seed: int, P: int):
+    """One sharded frame's tail inputs on P shards: per shard the carried
+    costs (the frame's start state) and the eps closure's frontier (each
+    row in IEEE total order), the rows still decoding, and each row's
+    reduced best cost.  Row 0 random; row 1 a minimum of 0 whose first
+    slot is -0.0 on even shards and +0.0 on odd ones, the reduced best
+    +0.0 (so the rebased first slot keeps -0.0); row 2 no finite cost on
+    any shard; row 3 frozen; row 4 negative costs, ties across shards;
+    row 5 a minimum of -0.0 and +0.0, the reduced best -0.0; row 6 frozen
+    with zeros of both signs carried; row 7 finite on shard 0 alone."""
+    rng = np.random.default_rng(seed)
+    old = np.full((P, B + 2, K), INF, np.float32)
+    mid = np.full((P, B + 2, K), INF, np.float32)
+    for q in range(P):
+        for x in (old, mid):
+            n = int(rng.integers(K // 2, K + 1))
+            x[q, 0, :n] = rng.integers(0, 40, size=n) * 0.5 - 3.0
+            x[q, 3, :] = rng.integers(0, 30, size=K) * 0.25
+            x[q, 4, :] = rng.integers(-6, 3, size=K) * 0.5
+            x[q, 4, K - 3:] = INF
+        z = int(rng.integers(3, K - 3))
+        signs = np.where(rng.random(z) < 0.5, -0.0, 0.0).astype(np.float32)
+        signs[0] = -0.0 if q % 2 == 0 else 0.0
+        for r in (1, 5):
+            mid[q, r, :z] = signs
+            mid[q, r, z:] = rng.integers(1, 20, size=K - z) * 0.25
+        old[q, 6, :z] = signs
+        old[q, 6, z:] = rng.integers(1, 20, size=K - z) * 0.25
+        if q == 0:
+            mid[q, 7, :5] = rng.integers(0, 8, size=5) * 0.5
+    old = np.stack([total_order(old[q]) for q in range(P)])
+    mid = np.stack([total_order(mid[q]) for q in range(P)])
+    active = np.ones(B + 2, bool)
+    active[[3, 6]] = False
+    best = np.min(np.where(np.isfinite(mid), mid, INF), axis=(0, 2)).astype(np.float32)
+    best[1], best[5] = np.float32(0.0), np.float32(-0.0)
+    return old, mid, active, best
+
+
+@pytest.mark.parametrize("P,name", FOLD_CASES, ids=[f"P{P}-{n}" for P, n in FOLD_CASES])
+def test_folded_local_half_matches_jax(P, name):
+    """K8's local half folded into K3's shard mode (``frame_tail_shard_plain``
+    with ``local``: a live row's best ``red_min - m_safe`` and count
+    ``red_count`` from the eps closure's values, its prefix the new costs'
+    first m, a frozen row's kept) equals K8's plain local half of the new
+    costs bit for bit, -0.0 beside +0.0 included; composed with the plain
+    merge it equals the JAX ``_global_cutoff`` of the next frame, on the
+    costs that the JAX rebase (``jnp.where(fa, mid - m_safe, st.costs)``)
+    gives, bit for bit, at m == 1 (the early return), 1 < m < K and m ==
+    K, with frozen rows, a row with no finite cost and a row whose
+    minimum is -0.0 against +0.0."""
+    make, m = FOLD_CONFIGS[name]
+    kw = make(P)
+    old, mid, active, best = fold_frame(7 * P + len(name), P)
+    nb = old.shape[1]
+    early = kw["max_active"] >= P * K and kw["min_active"] == 0
+    assert (m == 1) == early and (m == K) == (name == "mK")
+    m_safe = np.where(np.isfinite(best), best, np.float32(0.0)).astype(np.float32)
+    fa = torch.from_numpy(active)
+    nxt, new = [], []
+    for q in range(P):
+        red_min, red_count = first_min_count(torch.from_numpy(mid[q]))
+        zeros = torch.zeros((nb, K), dtype=torch.int32)
+        st = StepState(zeros, torch.from_numpy(old[q]), torch.zeros(nb))
+        loc = global_cutoff_local_plain(st.costs, m)
+        if early or m == K:
+            loc = loc._replace(prefix=None)
+        tin = ShardTailInputs(zeros, torch.from_numpy(mid[q]), torch.from_numpy(best),
+                              red_count * 0, torch.zeros(2, dtype=torch.int32),
+                              em_records=torch.zeros((nb, 4, 4), dtype=torch.int32),
+                              eps_records=torch.zeros((nb, 1, 2, 2), dtype=torch.int32),
+                              red_min=red_min, red_count=red_count)
+        final, _, got = frame_tail_shard_plain(st, torch.zeros(nb), tin, fa, 0, loc)
+        want_costs = np.where(active[:, None], mid[q] - m_safe[:, None], old[q])
+        same_bits(want_costs, final.costs, f"shard {q}: the rebased costs")
+        want = global_cutoff_local_plain(final.costs, m)
+        same_bits(want.best, got.best, f"shard {q}: best")
+        assert torch.equal(want.count, got.count), f"shard {q}: count"
+        if got.prefix is not None:
+            same_bits(want.prefix, got.prefix, f"shard {q}: prefix")
+        nxt.append(got)
+        new.append(want_costs.astype(np.float32))
+    zero = [g.best[1].item() for g in nxt]
+    assert any(z == 0.0 and np.signbit(z) for z in zero), "row 1 keeps a -0.0 first slot"
+    fc = FrontierConfig(frontier_size=K, **kw)
+    bst = nxt[0].best
+    for g in nxt[1:]:
+        bst = torch.minimum(bst, g.best)
+    count = merged = None
+    if not early:
+        count = sum(g.count for g in nxt).to(torch.int32)
+        merged = torch.stack([g.prefix if g.prefix is not None else torch.from_numpy(c)[:, :m]
+                              for g, c in zip(nxt, new)])
+    got = global_cutoff_merge_plain(bst, count, merged, fc.beam, fc.beam_delta, fc.max_active,
+                                    fc.min_active)
+    want = jax_global_cutoff(new, kw)
+    for q in range(P):
+        same_bits(want[0][q], got.cutoff.numpy(), f"shard {q}: cutoff")
+        same_bits(want[1][q], got.adaptive_beam.numpy(), f"shard {q}: adaptive beam")

@@ -1666,37 +1666,188 @@ def test_route_send_kernel_matches_plain(card, nb, N, P, beam):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("inc", ["none", "slots", "links"])
 @pytest.mark.parametrize("P", [1, 2, 4])
 @pytest.mark.parametrize("nb", [16, 1])
-def test_route_recv_kernel_matches_plain(card, nb, P, inc):
-    """K7's receive side against ``route_recv_plain``: a received buffer
-    with +inf and -0.0 costs, without incumbents and with the K
-    incumbents first (slots my_base + k, or -1 links)."""
+def test_route_recv_kernel_matches_plain(card, nb, P):
+    """K7's receive side (the emitting call's: no incumbents; the eps
+    calls read them in place, :func:`test_routed_eps_calls_match_plain`)
+    against ``route_recv_plain``: a received buffer with +inf and -0.0
+    costs."""
     from kaldi_decoder_tpu_torch.kernels.route import route_recv, route_recv_plain
 
     rng = np.random.default_rng(nb + P)
-    cap, K, sp = 3072 // P * 2, 2048, 5000
+    cap, sp = 3072 // P * 2, 5000
     recv = rng.integers(-5, 1 << 20, size=(P, nb, cap, 4)).astype(np.int32)
     c = (rng.integers(-4, 60, size=(P, nb, cap)) * 0.25).astype(np.float32)
     c[..., ::3] = np.inf
     c[..., 1::7] = -0.0
     recv[..., 1] = c.view(np.int32)
     recv = torch.from_numpy(recv).to(card)
-    args = (None, None, None)
-    if inc != "none":
-        st = torch.from_numpy(rng.integers(0, sp, size=(nb, K)).astype(np.int32)).to(card)
-        co = torch.from_numpy(np.sort(rng.uniform(0, 9, size=(nb, K)).astype(np.float32),
-                                      axis=1)).to(card)
-        co[:, K - 100:] = float("inf")
-        args = (st, co, 4096 if inc == "slots" else None)
-    want = route_recv_plain(recv, sp, *args)
+    want = route_recv_plain(recv, sp)
     before = route_recv.launches
-    got = route_recv(recv, sp, *args)
+    got = route_recv(recv, sp)
     torch.cuda.synchronize()
     assert route_recv.launches == before + 1
     for name, w, g in zip(want._fields, want, got):
         _same_bits(w, g, name)
+
+
+def _routed_lanes(rng, card, nb, P, cap, K, sp, base):
+    """A sharded eps call's lanes as the all_to_all leaves them, a
+    ``RoutedLanes`` on the card: the received (P, nb, cap, 4) buffer (a
+    few states a part, so runs; costs on a 0.25 grid with -0.0 and +inf
+    entries, some under the incumbents' costs; random slots and arcs) and
+    K cost-sorted incumbents with a +inf tail, their slots ``base + k``
+    (None: -1)."""
+    from kaldi_decoder_tpu_torch.kernels.route import RoutedLanes
+
+    recv = np.empty((P, nb, cap, 4), np.int32)
+    recv[..., 0] = rng.integers(0, sp, size=(P, nb, cap))
+    c = (rng.integers(-8, 60, size=(P, nb, cap)) * 0.25).astype(np.float32)
+    c[..., ::3] = np.inf
+    c[..., 1::7] = -0.0
+    recv[..., 1] = c.view(np.int32)
+    recv[..., 2] = rng.integers(0, 1 << 20, size=(P, nb, cap))
+    recv[..., 3] = rng.integers(0, 1 << 20, size=(P, nb, cap))
+    states = rng.integers(0, sp, size=(nb, K)).astype(np.int32)
+    costs = np.sort((rng.integers(0, 40, size=(nb, K)) * 0.25).astype(np.float32), axis=1)
+    costs[:, K - K // 8:] = np.inf
+    return RoutedLanes(torch.from_numpy(recv).to(card), sp, torch.from_numpy(states).to(card),
+                       torch.from_numpy(costs).to(card), base)
+
+
+def _cpu(x):
+    """``x`` with every tensor in it (in tuples and named tuples) on the CPU."""
+    if isinstance(x, torch.Tensor):
+        return x.cpu()
+    if isinstance(x, tuple):
+        items = [_cpu(v) for v in x]
+        return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+    return x
+
+
+def _routed_calls(card, src, K, lattice, r_eps=1536, slack=SHARD_SLACK):
+    """The folded eps call on the routed lanes ``src``: K6 (1-best) or K2's
+    eps call with K incumbents (lattice), each called twice (the winner
+    table comes back all ones) and held bitwise, every field, against its
+    plain version on CPU copies (the lanes laid out by
+    ``routed_lanes_plain``) and against the flat instance on the same
+    lanes laid out on the card.  Returns the kernel's selection."""
+    from kaldi_decoder_tpu_torch.kernels.route import routed_lanes_plain
+
+    sp = src.sp
+    flat = routed_lanes_plain(src)
+    if lattice:
+        def call(s, **kw):
+            return dedup_select_rec(None, None, K, sp, K + r_eps, slack, None, num_incumbents=K,
+                                    routed=s, **kw)
+
+        want = call(_cpu(src))
+        alt = dedup_select_rec(flat.state_local, flat.cost, K, sp, K + r_eps, slack,
+                               (flat.gslot, flat.arc), num_incumbents=K)
+        counter = dedup_select_rec
+    else:
+        def call(s, **kw):
+            return dedup_select(None, None, K, sp, routed=s, **kw)
+
+        want = call(_cpu(src))
+        alt = dedup_select(flat.state_local, flat.cost, K, sp)
+        counter = dedup_select
+    for rep in range(2):
+        before = counter.launches
+        got = call(src)
+        torch.cuda.synchronize()
+        assert counter.launches == before + 1
+        for name, w, a, g in zip(want._fields, want, alt, got):
+            if w is None:
+                continue
+            _same_bits(w, g.cpu(), f"call {rep}: {name} against plain")
+            _same_bits(a, g, f"call {rep}: {name} against the flat instance")
+    return got
+
+
+def _routed_step(card, src, sel, K, my_base, clusters):
+    """The 1-best eps step's shard mode after K6's call ``sel`` on the
+    routed lanes ``src`` (its incumbents the carried frontier), reducing,
+    at ``clusters`` blocks a row (0: its own choice): its backpointers
+    the winners' (slot, arc) read through the lane map; every field of the
+    carry and the carried frontier bitwise against plain on CPU copies."""
+    from kaldi_decoder_tpu_torch.kernels.eps import (
+        empty_shard_eps_carry,
+        eps_step_shard,
+        eps_step_shard_plain,
+    )
+
+    nb = sel.states.shape[0]
+    carries = [empty_shard_eps_carry(nb, 1, K, dev) for dev in ("cpu", card)]
+    fronts = [(src.inc_states.clone(), src.inc_costs.clone()) for _ in range(2)]
+    fronts[0] = _cpu(fronts[0])
+    no = torch.zeros((nb,), dtype=torch.bool, device=card)
+    eps_step_shard_plain(0, carries[0], *fronts[0], _cpu(sel), no.cpu(), no.cpu(), None,
+                         my_base, lanes=_cpu(src), reduce=True)
+    before = eps_step_shard.launches
+    eps_step_shard(0, carries[1], *fronts[1], sel, no, no, None, my_base, lanes=src,
+                   reduce=True, clusters=clusters)
+    torch.cuda.synchronize()
+    assert eps_step_shard.launches == before + 1
+    for name, w, g in zip(carries[0]._fields, *carries):
+        _same_bits(w, g.cpu(), f"carry.{name}")
+    for w, g, name in zip(fronts[0], fronts[1], ("states", "costs")):
+        _same_bits(w, g.cpu(), f"carried {name}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inc", ["slots", "links"])
+@pytest.mark.parametrize("P", [1, 2, 4])
+@pytest.mark.parametrize("nb", [16, 1])
+def test_routed_eps_calls_match_plain(card, nb, P, inc):
+    """The sharded eps call with K7's receive side folded in, on the
+    shapes the receive side's incumbent cases had (K 2048 incumbents, cap
+    6144 / P a rank, -0.0 and +inf costs): ``inc`` "slots", K6 on the
+    routed lanes (the incumbents' slots my_base + k) and the eps step's
+    shard mode reading each winner's (slot, arc) through the same map;
+    "links", K2's eps call (the incumbents' slots -1), its records'
+    payload read in place; each bitwise against its plain version on CPU
+    copies and against the flat instance on the lanes laid out."""
+    rng = np.random.default_rng(nb + P + (inc == "links"))
+    cap, K, sp, my_base = 3072 // P * 2, 2048, 5000, 4096
+    lattice = inc == "links"
+    src = _routed_lanes(rng, card, nb, P, cap, K, sp, None if lattice else my_base)
+    sel = _routed_calls(card, src, K, lattice)
+    if lattice:
+        return
+    # The eps step's shard mode on that selection, reducing: its backpointers
+    # are the winners' routed (slot, arc).
+    _routed_step(card, src, sel, K, my_base, 0)
+    won = sel.cand_idx >= K
+    assert bool(won.any()) and bool((sel.cand_idx[sel.cand_idx >= 0] < K).any()), \
+        "incumbents and routed lanes both win slots"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lattice", [False, True], ids=["1-best", "lattice"])
+@pytest.mark.parametrize("clusters", [8, 4, 2, 1])
+@pytest.mark.parametrize("nb", [16, 1])
+def test_routed_eps_calls_cluster_sizes(card, nb, clusters, lattice):
+    """The folded eps calls (K6, K2's eps call) at each cluster size: rows
+    of K + P * cap routed lanes as wide as make a cluster of 8, 4, 2 and
+    1 blocks (at B = 1 exactly that, at B = 16 at most that), bitwise
+    against plain and the flat instance; with K6 the eps step's shard mode
+    at the same number of blocks a row."""
+    K, P, cap = {8: (2048, 2, 7168), 4: (1024, 2, 1536), 2: (512, 2, 768),
+                 1: (512, 2, 512)}[clusters]
+    N = K + P * cap
+    rng = np.random.default_rng(clusters * 10 + nb + lattice)
+    my_base = 2 * K
+    src = _routed_lanes(rng, card, nb, P, cap, K, 3000, None if lattice else my_base)
+    assert src.lanes == N
+    size = (rec_cluster_size(nb, N, incumbents=True, routed=True) if lattice
+            else dedup_cluster_size(nb, N, routed=True))
+    assert size == clusters if nb == 1 else 1 <= size <= clusters, (N, size)
+    sel = _routed_calls(card, src, K, lattice, r_eps=K // 2)
+    if lattice:
+        return
+    _routed_step(card, src, sel, K, my_base, clusters)
 
 
 def _shard_selection(rng, card, nb, K, N, lattice, r_eps):
@@ -1754,8 +1905,6 @@ def test_eps_step_shard_kernel_matches_plain(card, nb, lattice, stops, clusters)
         eps_step_shard_plain,
         shard_step_cluster_size,
     )
-    from kaldi_decoder_tpu_torch.kernels.route import RouteLanes
-
     rng = np.random.default_rng(nb * 10 + lattice)
     K, P, cap, r_eps, my_base = 2048, 2, 3072, 1536, 2048
     N = K + P * cap
@@ -1767,11 +1916,9 @@ def test_eps_step_shard_kernel_matches_plain(card, nb, lattice, stops, clusters)
     co = torch.from_numpy(np.sort(rng.uniform(0, 5, size=(nb, K)).astype(np.float32),
                                   axis=1)).to(card)
     fronts = [(st.clone(), co.clone()) for _ in range(2)]
-    arcs = rng.integers(0, 1 << 20, size=(nb, N)).astype(np.int32)
-    arcs[:, :K] = -1  # the incumbents' NO_ARC
-    slots = rng.integers(0, 4096, size=(nb, N)).astype(np.int32)
-    lanes = RouteLanes(None, None, torch.from_numpy(slots).to(card),
-                       torch.from_numpy(arcs).to(card))
+    # The dedup call's routed lanes, read in place: the incumbents' slots
+    # my_base + k and NO_ARC, the received entries' own.
+    lanes = _routed_lanes(rng, card, nb, P, cap, K, 9000, my_base)
 
     def flags(p):
         return torch.from_numpy(rng.random(nb) < p).to(card)
@@ -1815,18 +1962,17 @@ def test_eps_step_shard_kernel_min_ties(card, lattice, zero, clusters):
     """The reducing step's smallest finite cost when it ties across two
     blocks' slot ranges (slots 1000 and 1100 of K 2048: blocks 3 and 4 at 8
     blocks a row, 1 and 2 at 4, 0 and 1 at 2; two warps of one block at 1),
-    every other finite cost larger: the same bits at both (every field of
-    the carry bitwise against ``eps_step_shard_plain``), or -0.0 and +0.0,
-    which slot first alternating by row: red_min has the bits of the first
-    in slot order, the rule the kernel keeps, and equals plain's by value
-    (``torch.amin`` leaves open which zero it returns), every other field
-    bitwise."""
+    every other finite cost larger: the same bits at both, or -0.0 and
+    +0.0, which slot first alternating by row: red_min has the bits of the
+    first in slot order, the rule the kernel and plain keep (the local
+    half that K3's shard mode derives from it must be first in slot
+    order); every field of the carry bitwise against
+    ``eps_step_shard_plain``."""
     from kaldi_decoder_tpu_torch.kernels.eps import (
         empty_shard_eps_carry,
         eps_step_shard,
         eps_step_shard_plain,
     )
-    from kaldi_decoder_tpu_torch.kernels.route import RouteLanes
 
     nb, K, P, cap, r_eps, my_base = 16, 2048, 2, 3072, 1536, 0
     N = K + P * cap
@@ -1842,10 +1988,7 @@ def test_eps_step_shard_kernel_min_ties(card, lattice, zero, clusters):
     carries = [empty_shard_eps_carry(nb, 1, width, card) for _ in range(2)]
     fronts = [(torch.zeros((nb, K), dtype=torch.int32, device=card),
                torch.zeros((nb, K), dtype=torch.float32, device=card)) for _ in range(2)]
-    lanes = RouteLanes(None, None, torch.from_numpy(rng.integers(0, 4096, size=(nb, N))
-                                                    .astype(np.int32)).to(card),
-                       torch.from_numpy(rng.integers(-1, 1 << 20, size=(nb, N))
-                                        .astype(np.int32)).to(card))
+    lanes = _routed_lanes(rng, card, nb, P, cap, K, 9000, my_base)
     no = torch.zeros((nb,), dtype=torch.bool, device=card)
     args = (sel, no, no, None, my_base)
     eps_step_shard_plain(0, carries[0], *fronts[0], *args, lanes=lanes, reduce=True)
@@ -1857,27 +2000,31 @@ def test_eps_step_shard_kernel_min_ties(card, lattice, zero, clusters):
     want = torch.from_numpy(costs[np.arange(nb), at].copy())
     _same_bits(want, carries[1].red_min.cpu(), "red_min: the first smallest in slot order")
     for name, w, g in zip(carries[0]._fields, *carries):
-        if name == "red_min" and zero:
-            assert torch.equal(w, g), "red_min differs from plain by value"
-        else:
-            _same_bits(w, g, f"carry.{name}")
+        _same_bits(w, g, f"carry.{name}")
     for w, g, name in zip(*fronts, ("states", "costs")):
         _same_bits(w, g, f"carried {name}")
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("fold", [None, "prefix", "costs"])
 @pytest.mark.parametrize("clusters", SHARD_CLUSTERS)
 @pytest.mark.parametrize("lattice", [False, True], ids=["1-best", "lattice"])
 @pytest.mark.parametrize("nb", [16, 1])
-def test_frame_tail_shard_kernel_matches_plain(card, nb, lattice, clusters):
+def test_frame_tail_shard_kernel_matches_plain(card, nb, lattice, clusters, fold):
     """K3's shard mode against ``frame_tail_shard_plain`` over two frames
     of one chunk on the same table and state: row t of every stacked
     output and the state written in place, bitwise, t advanced and the
     count cleared; row 0 freezes after the first frame (at B = 1 it is
     live, then frozen), row 1 has no token on any rank (best +inf); at
     the kernel's own cluster size (more than one block a row at B = 16)
-    and at 8, 4, 2 and 1 blocks a row."""
+    and at 8, 4, 2 and 1 blocks a row.  With ``fold``, K8's local half of
+    the next frame folded in (from the eps closure's first smallest
+    costs, with -0.0 against +0.0 and a row with none), bitwise against
+    plain's and against K8's plain local half of the new costs: its best
+    cost and count, and a prefix of m 700 (``prefix``) or none, the costs
+    being the prefix at m == K (``costs``)."""
     from kaldi_decoder_tpu_torch.decoders.frontier import StepState
+    from kaldi_decoder_tpu_torch.kernels.cutoff import first_min_count, global_cutoff_local_plain
     from kaldi_decoder_tpu_torch.kernels.frame import (
         ShardTailInputs,
         empty_shard_outs,
@@ -1911,10 +2058,25 @@ def test_frame_tail_shard_kernel_matches_plain(card, nb, lattice, clusters):
     targs = [shard_args(card) for _ in range(2)]
     lengths = torch.full((nb,), T, dtype=torch.int32, device=card)
     lengths[0] = 1
+    m = {None: 0, "prefix": 700, "costs": K}[fold]
+    locs = [None, None]
+    if fold:
+        loc = global_cutoff_local_plain(st0.costs, m)
+        if fold == "costs":
+            loc = loc._replace(prefix=None)
+        locs = [type(loc)(*(None if x is None else x.clone() for x in loc)) for _ in range(2)]
     for t in range(2):
         mid_c = np.sort(rng.uniform(-1, 9, size=(nb, K)).astype(np.float32), axis=1)
         mid_c[:, K - 300:] = np.inf
+        if nb > 2:
+            mid_c[2, :40] = np.where(rng.random(40) < 0.5, -0.0, 0.0)  # zeros of both signs
+            mid_c[2, 0] = -0.0 if t == 0 else 0.0
+            mid_c[2, 40:K - 300] = np.sort(rng.uniform(0.25, 9, size=K - 340))
+            mid_c[3] = np.inf  # no finite cost on this rank
         best = mid_c[:, 0] + rng.uniform(-0.5, 0, size=nb).astype(np.float32)
+        if nb > 2:
+            best[2] = 0.0
+            best[3] = mid_c[0, 0]
         if nb > 1:
             best[1] = np.inf
         extra = {}
@@ -1926,15 +2088,19 @@ def test_frame_tail_shard_kernel_matches_plain(card, nb, lattice, clusters):
             extra = dict(cand_idx=cand, gslot=ints(0, 4096, (nb, N)),
                          arc=ints(-1, 1 << 20, (nb, N)),
                          bp_eps=ints(-1, 4096, (nb, D, K, 2)))
+        if fold:
+            red_min, red_count = first_min_count(torch.from_numpy(mid_c))
+            extra.update(red_min=red_min.to(card), red_count=red_count.to(card))
         tin = ShardTailInputs(ints(0, 9000, (nb, K)), torch.from_numpy(mid_c).to(card),
                               torch.from_numpy(best).to(card), ints(0, 4 * K, (nb,)),
                               torch.tensor([t, 1 - t], dtype=torch.int32, device=card),
                               **extra)
         cutoff = torch.from_numpy(rng.uniform(5, 15, size=nb).astype(np.float32)).to(card)
-        final, want = frame_tail_shard_plain(sts[0], cutoff, tin, lengths > t, my_base)
+        final, want, nxt = frame_tail_shard_plain(sts[0], cutoff, tin, lengths > t, my_base,
+                                                  locs[0])
         before = frame_tail.launches
         frame_tail_shard(targs[1], sts[1], cutoff, tin, lengths, outs[1], my_base,
-                         clusters=clusters)
+                         clusters=clusters, local=locs[1])
         torch.cuda.synchronize()
         assert frame_tail.launches == before + 1
         for name, w, g in zip(final._fields, final, sts[1]):
@@ -1942,6 +2108,13 @@ def test_frame_tail_shard_kernel_matches_plain(card, nb, lattice, clusters):
         for name, w, g in zip(want._fields, want, outs[1]):
             _same_bits(w, g[t], f"frame {t}: {name}")
         assert targs[1].tolist() == [t + 1, 0]
+        if fold:
+            fresh = global_cutoff_local_plain(final.costs, m)
+            for name, w, g, f in zip(nxt._fields, nxt, locs[1], fresh):
+                if w is not None:
+                    _same_bits(w, g, f"frame {t}: local.{name}")
+                    _same_bits(f, g, f"frame {t}: local.{name} against K8's local half")
+            locs[0] = nxt
         for dst, src in zip(sts[0], final):
             dst.copy_(src)
 

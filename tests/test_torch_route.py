@@ -14,8 +14,11 @@ exactly ``cap`` kept lanes in one row and past it in another.  Every
 receive buffer and the overflow flag are compared by raw bits
 (tolerance 0).  Also: the beam filter and the payload offsets that the
 send side folds in, against JAX's ``_route`` on the lanes the frame used
-to filter and offset first; and the incumbents-first receive layout
-against the concatenation the sharded eps iterations used to build.
+to filter and offset first; the incumbents-first receive layout
+against the concatenation the sharded eps iterations used to build; and
+the lane-source map through which a sharded eps iteration's dedup call
+reads the received buffer in place (``routed_lanes_plain``) against the
+JAX eps iterations' concatenation at P = 1, 2 and 4.
 """
 
 import jax
@@ -29,9 +32,11 @@ from jax.sharding import PartitionSpec as JP
 from kaldi_decoder_tpu.parallel import graph_shard as jgs
 from kaldi_decoder_tpu_torch.decoders.frontier import NO_ARC
 from kaldi_decoder_tpu_torch.kernels.route import (
+    RoutedLanes,
     route_recv,
     route_recv_plain,
     route_send,
+    routed_lanes_plain,
 )
 
 try:
@@ -178,8 +183,8 @@ def test_route_recv_incumbents_first(lattice):
     inc_costs[:, K - 2:] = np.inf
     recv_t, st, ct = (torch.from_numpy(x) for x in (recv, states, inc_costs))
     base = None if lattice else my_base
-    got = route_recv(recv_t, SP, st, ct, base)
-    rt = route_recv_plain(recv_t, SP)
+    got = route_recv_plain(recv_t, SP, st, ct, base)
+    rt = route_recv(recv_t, SP)
     if lattice:
         slots = torch.full((B, K), -1, dtype=torch.int32)
         arcs = torch.full((B, K), -1, dtype=torch.int32)
@@ -195,3 +200,48 @@ def test_route_recv_incumbents_first(lattice):
     fin = np.isfinite(flat[..., 1].view(np.float32))
     same_bits(np.where(fin, flat[..., 0], SP), rt.state_local.numpy(), "state_local")
     same_bits(flat[..., 2], rt.gslot.numpy(), "gslot")
+
+
+@pytest.mark.parametrize("P", [1, 2, 4])
+@pytest.mark.parametrize("lattice", [False, True])
+def test_routed_lane_map_matches_jax_concatenation(P, lattice):
+    """The lane-source map that a sharded eps iteration's dedup call reads
+    its lanes through (``routed_lanes_plain``: lane j < K the incumbent,
+    lane j >= K the entry ``recv[p, b, c]``, ``p, c = divmod(j - K,
+    cap)``; ``csrc/common.cuh:routed_entry``) equals the JAX eps
+    iterations' concatenation of the incumbents before ``_route``'s lanes
+    (``graph_shard.py:395-398``; the lattice path concatenates states and
+    costs, and reads a lane j >= K's payload at ``rt.gslot[j - K]``,
+    ``_rec_from_idx``), on every rank, and ``route_recv_plain``'s layout."""
+    ins = route_inputs(P, seed=11)
+    beam = SLACK if lattice else None
+    want = jax_route(ins, P, beam)
+    sends = [route_send(*(torch.from_numpy(x) for x in r), SP, P, CAP, beam) for r in ins]
+    rng = np.random.default_rng(31 + P)
+    K, my_base = 8, 16
+    for r in range(P):
+        recv = torch.stack([s.buf[r] for s in sends])
+        states = rng.integers(0, SP, size=(B, K)).astype(np.int32)
+        costs = np.sort((rng.integers(-2, 8, size=(B, K)) * 0.5).astype(np.float32), axis=1)
+        costs[:, K - 2:] = np.inf
+        costs[0, 0] = -0.0
+        base = None if lattice else my_base + r * K
+        src = RoutedLanes(recv, SP, torch.from_numpy(states), torch.from_numpy(costs), base)
+        got = routed_lanes_plain(src)
+        assert src.lanes == K + P * CAP == got.cost.shape[1]
+        state_l, cost_l, gslot_l, arc_l = (want[i][r] for i in range(4))
+        same_bits(np.concatenate([states, state_l], axis=1), got.state_local.numpy(),
+                  f"rank {r}: state")
+        same_bits(np.concatenate([costs, cost_l], axis=1), got.cost.numpy(), f"rank {r}: cost")
+        if lattice:
+            same_bits(gslot_l, got.gslot[:, K:].numpy(), f"rank {r}: routed source states")
+            same_bits(arc_l, got.arc[:, K:].numpy(), f"rank {r}: routed arcs")
+        else:
+            slots = np.broadcast_to(base + np.arange(K, dtype=np.int32), (B, K))
+            same_bits(np.concatenate([slots, gslot_l], axis=1), got.gslot.numpy(),
+                      f"rank {r}: slot")
+            same_bits(np.concatenate([np.full((B, K), NO_ARC, np.int32), arc_l], axis=1),
+                      got.arc.numpy(), f"rank {r}: arc")
+        ref = route_recv_plain(recv, SP, src.inc_states, src.inc_costs, base)
+        for name, w, g in zip(got._fields, ref, got):
+            same_bits(w.numpy(), g.numpy(), f"rank {r}: {name} against route_recv_plain")
