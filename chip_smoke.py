@@ -148,11 +148,16 @@ Phases (any failure raises, and the process exits non-zero):
      shapes (B = 16 / P);
   12. ``ShardedViterbiDecoder`` on a ``("model",)`` mesh of the P ranks,
      the unfolded graph, ``SHARD_CONFIG`` (K 2048 a shard), the first
-     ``SHARD_FRAMES`` frames; per rank K8 (its local half and its merge),
-     K1 and K3's shard mode once a frame, K6 and K7 (its send and its
-     receive side) (1 + eps_iters)
-     times a frame plus eps_iters, K5 and the eps step's shard mode
-     eps_iters times a frame plus eps_iters (the start closure's); per
+     ``SHARD_FRAMES`` frames, through the sharded frame driver
+     (``parallel/shard_driver.py``): at P = 1 over NCCL every frame but
+     its first replayed from one captured CUDA graph (``SHARD_FRAMES`` -
+     1 replays, counted), at P = 2 over gloo the host loop (0 replays);
+     per rank K8's merge, K1 and K3's shard mode once a frame, K3's shard
+     first-frame mode and K8's local half once a chunk, K6 and K7's send
+     side (1 + eps_iters) times a frame plus eps_iters, K7's receive side
+     once a frame, K5 and the eps step's shard mode eps_iters times a
+     frame plus eps_iters (the start closure's); the collectives by kind
+     exactly (10.01 a frame, a replay counting what the graph holds); per
      utterance the 1-best labels, the best path cost's bits,
      ``num_active``, a hash of the per-frame best costs and the overflow
      and saturation counts against ``tests/data/torch_port_shard_ref.json``
@@ -164,21 +169,26 @@ Phases (any failure raises, and the process exits non-zero):
      also their wall and device (profiled run) ms a frame, busy share,
      launches a frame, and device activities a frame split into the
      port's kernels, collectives and copies, and other (their names are
-     printed; none may run once a frame or more).  Rank 0 of 12 and 13
-     holds K5, K1, K6 or K2 (emitting and eps calls), K7's send (at every
+     printed; none may run once a frame or more); at P = 1 also the
+     decode replayed from the graph against the host loop
+     (``loop_walls``) and the graph's pool.  Rank 0 of 12 and 13 holds
+     K5, K1, K6 or K2 (emitting and eps calls), K7's send (at every
      cluster size too) and receive sides (emitting and eps calls), the eps
-     step's shard mode, K3's shard mode and K8's halves on frame
-     ``SHARD_FRAME``'s inputs, captured from
-     the counted decode (``CallCapture``), against plain (bitwise) and
-     times them, while the other rank waits: phase 2's checks at the
-     shard shapes.
-Every chunk loop of phases 3-11 but the sharded ones (12-13, which
-exchange over torch.distributed every frame, and run K3's shard mode
-once a frame from the host) runs through the frame
-driver (``decoders/driver.py``): each frame is replayed from one captured
-CUDA graph of K1, K2 or K6, the eps closure and K3, and K3 launches once a
-frame and its first-frame mode once a chunk or call, which the launch
-counts check, with the frames replayed.  Phases 3-7 and 11 also measure
+     step's shard mode, K3's shard mode, its first-frame mode and K8's
+     halves on frame ``SHARD_FRAME``'s inputs (the chunk's start for the
+     first-frame mode and K8's local half), kept (``CallCapture``) from a
+     decode run as the host loop (``driver.eager_frames``: a replayed
+     frame's calls do not pass through the wrappers' Python), against
+     plain (bitwise) and times them, while the other rank waits: phase
+     2's checks at the shard shapes.
+Every chunk loop of phases 3-13 runs through a frame driver
+(``decoders/driver.py``; the sharded ones ``parallel/shard_driver.py``,
+under NCCL only: over gloo each exchange is staged through the host, and
+the same frame runs from the host loop): each frame is replayed from one
+captured CUDA graph of K1, K2 or K6, the eps closure and K3 (the sharded
+frame's with its collectives), and K3 launches once a frame and its
+first-frame mode once a chunk or call, which the launch counts check,
+with the frames replayed.  Phases 3-7, 11 and 12-13 at P = 1 also measure
 their loop replayed from the graph and as the loop before the frame driver
 (``driver.eager_frames``), in turns: wall ms a frame, device ms and
 activities a frame (profiler), busy share; phases 3-4 also the whole
@@ -2570,15 +2580,30 @@ class CallCapture:
 
 
 def clone(x):
-    """``x`` with every tensor in it (in tuples and named tuples) cloned."""
+    """``x`` with every tensor in it (in tuples and named tuples) cloned;
+    sharded frame slots copied (``ShardSlots.copy``: the same chunk)."""
     import torch
 
     if isinstance(x, torch.Tensor):
         return x.clone()
+    if type(x).__name__ == "ShardSlots":  # by name: a tree before the slots has none
+        return x.copy()
     if isinstance(x, tuple):
         items = [clone(v) for v in x]
         return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
     return x
+
+
+def bit_complement(x):
+    """``x`` with every bit flipped (a bool tensor negated)."""
+    import torch
+
+    if x.dtype == torch.bool:
+        return ~x
+    if x.dtype.is_floating_point:
+        ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}[x.element_size()]
+        return (~x.view(ints)).view(x.dtype)
+    return ~x
 
 
 def shard_call_index(frame, eps_iters, eps=False):
@@ -2628,17 +2653,18 @@ def eps_step_shard_work(sel, carry, lanes, stopped):
     return nbytes, B * K
 
 
-def k3_shard_work(tin, fa, local=None):
+def k3_shard_work(tin, fa, local=None, width=0):
     """Bytes and operations of K3's shard mode: of a live row, the
     closure's frontier read and the carried one written; of every row its
     stacked outputs written (the frontier, the records or backpointers) and
     their inputs read (records; the winning lanes' slots and arcs once
-    each and the eps backpointers); some 40 bytes of per-row scalars; with
-    ``local``, the next frame's local half of a live row (two scalars in,
-    two out, its prefix of m written); a subtract and an add a slot."""
+    each and the eps backpointers); some 40 bytes of per-row scalars and
+    the table's words; the next scores row of ``width`` read and written;
+    with ``local``, the next frame's local half of a live row (two scalars
+    in, two out, its prefix of m written); a subtract and an add a slot."""
     B, K = tin.mid_states.shape
     act = int(fa.sum())
-    nbytes = act * K * 16 + B * 40
+    nbytes = act * K * 16 + B * 40 + 96 + B * width * 8
     if local is not None:
         m = local.prefix.shape[1] if local.prefix is not None else 0
         nbytes += act * (16 + m * 4)
@@ -2649,6 +2675,16 @@ def k3_shard_work(tin, fa, local=None):
         won = int((tin.cand_idx[fa] >= 0).sum())
         nbytes += B * K * 12 + won * 8 + B * tin.bp_eps[0].numel() * 8
     return nbytes, 2 * B * K
+
+
+def k3_start_shard_work(io):
+    """Bytes and operations of K3's shard first-frame mode: the chunk's
+    start state (states, costs, base), row lengths and scores row 0 read
+    and written into the slots, the table's 12 words written; no
+    arithmetic (1 operation a row, so the bound is the bytes')."""
+    B, K = io.st0.states.shape
+    V_ = io.scores.shape[2] if io.scores.shape[0] else 0
+    return 2 * B * (K * 8 + 8 + V_ * 4) + 96, B
 
 
 def hold_shard_kernels(kept, kind, eps_iters, tag):
@@ -2840,10 +2876,13 @@ def hold_shard_route(kept, eps_iters, tag):
         shard_step_cluster_size,
     )
     from kaldi_decoder_tpu_torch.kernels.frame import (
+        FrameIO,
+        ShardSlots,
         empty_shard_outs,
+        frame_start_shard,
+        frame_start_shard_plain,
         frame_tail_shard,
         frame_tail_shard_plain,
-        shard_args,
         shard_cluster_size,
     )
     from kaldi_decoder_tpu_torch.kernels.route import (
@@ -2936,10 +2975,12 @@ def hold_shard_route(kept, eps_iters, tag):
         times["eps_step_shard"] = t
         errs["eps_step_shard"] = 0.0
     args, kw = kept["frame_tail_shard", SHARD_FRAME]
-    targs, st, cutoff, tin, lengths, outs, slot_base = args
+    slots, cutoff, tin, slot_base = args  # the slots as the call found them (a copy)
     local = kw["local"]
-    t = int(targs[0])
-    fa = lengths > t
+    io, st = slots.io, slots.state
+    t = int(slots.args[0])
+    T = io.scores.shape[0]
+    fa = slots.lengths > t
     final, ref, nxt = frame_tail_shard_plain(st, cutoff, tin, fa, slot_base, local)
     B, K = st.states.shape
     m = local.prefix.shape[1] if local.prefix is not None else K
@@ -2948,41 +2989,64 @@ def hold_shard_route(kept, eps_iters, tag):
     same_fields(fresh._replace(prefix=None if local.prefix is None else fresh.prefix),
                 to_cpu(nxt), "K3's shard mode's local half (plain)", where)
     chosen = shard_cluster_size(B, K)
+    lattice = tin.em_records is not None
+    V_ = io.scores.shape[2]
+
+    def chunk_from_t(rows):
+        """A chunk of its own from frame t's state: its rows' lengths
+        moved to t, its scores ``rows``, new outputs."""
+        return FrameIO(rows, (slots.lengths - t).clamp(min=0), st, empty_shard_outs(
+            rows.shape[0], B, K, io.outs[1].shape[2], lattice, st.states.device,
+            *((io.outs[0].shape[2], io.outs[1].shape[3]) if lattice else ())))
+
+    # Each cluster size begins a chunk of its own at frame t, whose row 0
+    # differs from plain's in every bit before the call: each output the
+    # call does not write through the table's pointers stays different.
     for g in (0,) + CLUSTER_SIZES:
         at = f"{where}, {g or chosen} blocks a row"
-        got, g_local = clone(args), clone(local)
-        frame_tail_shard(*got, clusters=g, local=g_local)
+        g_io = chunk_from_t(io.scores[t:].contiguous())
+        for x, r in zip(g_io.outs, ref):
+            x[0].copy_(bit_complement(r))
+        g_slots, g_local = ShardSlots(B, K, V_, st.states.device), clone(local)
+        frame_start_shard(g_slots, g_io)
+        frame_tail_shard(g_slots, clone(cutoff), clone(tin), slot_base, clusters=g,
+                         local=g_local)
         torch.cuda.synchronize()
-        same_fields(final, got[1], "K3's shard mode (state)", at)
-        same_fields(ref, type(ref)(*(x[t] for x in got[5])), "K3's shard mode (outputs)", at)
+        same_fields(final, g_slots.state, "K3's shard mode (state)", at)
+        same_fields(ref, type(ref)(*(x[0] for x in g_io.outs)), "K3's shard mode (outputs)", at)
         same_fields(nxt, g_local, "K3's shard mode (the next frame's local half)", at)
-        if got[0].tolist() != [t + 1, 0]:
-            raise AssertionError(f"K3's shard mode on {at}: t and the count {got[0].tolist()}")
-    # Timed on a table of its own from t = 0, into outputs of 64 rows (the
-    # calls timed are fewer), begun again for each cluster size.
-    lattice = tin.em_records is not None
-    t_outs = empty_shard_outs(64, B, K, outs[1].shape[2], lattice, st.states.device,
-                              *((outs[0].shape[2], outs[1].shape[3]) if lattice else ()))
-    t_args, t_st, t_local = shard_args(st.states.device), clone(st), clone(local)
+        if t + 1 < T and not torch.equal(io.scores[t + 1], g_slots.scores_t):
+            raise AssertionError(f"K3's shard mode on {at}: the next scores row")
+        if g_slots.args[:3].tolist() != [1, 0, T - t]:
+            raise AssertionError(f"K3's shard mode on {at}: t, the count and the frame count "
+                                 f"{g_slots.args[:3].tolist()}")
+    # Timed on a chunk of its own of 64 frames from frame t's state (its
+    # scores the chunk's from t), into outputs of 64 rows (the calls timed
+    # are fewer), begun again for each timing.
+    rows = io.scores[t:]
+    t_io = chunk_from_t(rows.repeat(-(-64 // rows.shape[0]), 1, 1)[:64].contiguous())
+    t_slots, t_local = ShardSlots(B, K, V_, st.states.device), clone(local)
+
+    def begun(fn):
+        frame_start_shard(t_slots, t_io)
+        return fn
+
     tk = time_kernel(
         f"K3 shard mode at {where} (B={B}, K {K}, {'lattice' if lattice else '1-best'}, "
-        f"{chosen} blocks a row, K8's local half folded in, m {m})",
-        lambda: frame_tail_shard(t_args, t_st, cutoff, tin, lengths, t_outs, slot_base,
-                                 local=t_local),
+        f"{chosen} blocks a row, K8's local half folded in, m {m}, the next scores row)",
+        begun(lambda: frame_tail_shard(t_slots, cutoff, tin, slot_base, local=t_local)),
         lambda: frame_tail_shard_plain(st, cutoff, tin, fa, slot_base, local),
-        k3_shard_work(tin, fa, local))
+        k3_shard_work(tin, fa, local, V_))
     tk["clusters"], tk["ms_by_clusters"] = chosen, {}
     for g in CLUSTER_SIZES:
-        t_args, t_st = shard_args(st.states.device), clone(st)
-        tk["ms_by_clusters"][g] = device_ms(
-            lambda: frame_tail_shard(t_args, t_st, cutoff, tin, lengths, t_outs, slot_base,
-                                     clusters=g, local=t_local))
+        tk["ms_by_clusters"][g] = device_ms(begun(
+            lambda: frame_tail_shard(t_slots, cutoff, tin, slot_base, clusters=g,
+                                     local=t_local)))
     tk["share_by_clusters"] = {g: tk["bound_ms"] / ms for g, ms in tk["ms_by_clusters"].items()}
     # Beside it, what the fold replaced: the same call without the local
     # half, and K8's local half as a launch of its own on the new costs.
-    t_args, t_st = shard_args(st.states.device), clone(st)
-    tk["alone_ms"] = device_ms(
-        lambda: frame_tail_shard(t_args, t_st, cutoff, tin, lengths, t_outs, slot_base))
+    tk["alone_ms"] = device_ms(begun(
+        lambda: frame_tail_shard(t_slots, cutoff, tin, slot_base)))
     l_out = empty_cutoff_local(B, m, st.states.device)
     tk["k8_local_ms"] = device_ms(lambda: global_cutoff_local(final.costs, m, out=l_out))
     tk["fold_ms"] = tk["ms"] - tk["alone_ms"]
@@ -2993,6 +3057,23 @@ def hold_shard_route(kept, eps_iters, tag):
         f"K8's local half alone on the new costs {tk['k8_local_ms']:.4f}")
     times["k3_shard"] = tk
     errs["k3_shard"] = 0.0
+    # K3's shard mode's first-frame mode, once a chunk: the chunk's start.
+    (slots0, io0), _ = kept["frame_start_shard", 0]
+    want = frame_start_shard_plain(io0)
+    got = slots0.copy()
+    frame_start_shard(got, io0)
+    torch.cuda.synchronize()
+    same_fields(want.state, got.state, "K3's shard first-frame mode (state)",
+                f"{tag}, the chunk's start")
+    if not (torch.equal(want.lengths, got.lengths) and torch.equal(want.scores_t, got.scores_t)
+            and got.args.tolist() == want.args.tolist()):
+        raise AssertionError(f"K3's shard first-frame mode differs from plain on {tag}: the "
+                             "lengths, scores row or table")
+    times["k3_start_shard"] = time_kernel(
+        f"K3 shard first-frame mode at {tag}, the chunk's start (B={B}, K {K}, V {V_}, "
+        f"{io0.scores.shape[0]} frames)", lambda: frame_start_shard(got, io0),
+        lambda: frame_start_shard_plain(io0), k3_start_shard_work(io0))
+    errs["k3_start_shard"] = 0.0
     # K8's local half runs once a chunk, on the chunk's start state.
     (costs, m), kw = kept["global_cutoff_local", 0]
     out = kw.get("out")
@@ -3047,10 +3128,17 @@ def profiled_device_ms(fn, top=6):
         if e.device_type == DeviceType.CUDA:
             by_name[e.name][0] += (e.time_range.end - e.time_range.start) / 1e3
             by_name[e.name][1] += 1
-    copies = sum(ms for name, (ms, _) in by_name.items() if name.startswith(("Memcpy", "Memset")))
+    copies = sum(ms for name, (ms, _) in by_name.items() if is_copy(name))
     kernels = sum(ms for ms, _ in by_name.values()) - copies
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
     return kernels, copies, [(name[:60], ms, n) for name, (ms, n) in ranked], wall
+
+
+def is_copy(name):
+    """True for a copy's or a fill's device activity: a memcpy or memset
+    (``Memcpy DtoD``; inside a replayed CUDA graph its copy nodes run as
+    ``memcpy32_post``, ``memcpy128`` and the like)."""
+    return name.lower().startswith(("memcpy", "memset"))
 
 
 def port_kernel_names(root):
@@ -3078,7 +3166,7 @@ def activity_split(acts, kernel_names):
     for name, ms, cnt in acts:
         if any(re.search(rf"\b{k}\b", name) for k in kernel_names):
             g = "port_kernels"
-        elif name.startswith(("Memcpy", "Memset")) or "nccl" in name.lower():
+        elif is_copy(name) or "nccl" in name.lower():
             g = "collectives_copies"
         else:
             g = "other"
@@ -3108,16 +3196,22 @@ def shard_reference(scores, lengths, refs):
 
 def shard_path(kind, graph, sc, sl, refs, sref, P, rank):
     """Phase 12 (``kind`` "viterbi") or 13 ("lattice"): the sharded decoder
-    on a ``("model",)`` mesh of the P ranks, counted (kernel launches and
-    collectives), checked against the JAX reference on this rank's whole
-    result; then a profiled run for the device time; rank 0 holds K1 and
-    K6 or K2 on frame SHARD_FRAME's calls of the counted run.  Returns
-    (launch counts, the phase's numbers, kernel errors, kernel times)."""
+    on a ``("model",)`` mesh of the P ranks, counted (kernel launches,
+    collectives and the frames replayed: under NCCL every frame but the
+    sharded frame driver's first, over gloo none), checked against the JAX
+    reference on this rank's whole result; then a profiled run for the
+    device time; under NCCL the frame replayed from the driver's graph
+    against the host loop (``loop_walls``); then a decode as the host
+    loop (``driver.eager_frames``), whose calls of frame SHARD_FRAME (and
+    the chunk's first-frame mode) rank 0 holds against their plain
+    versions.  Returns (launch counts, the phase's numbers, kernel errors,
+    kernel times)."""
     import numpy as np
     import torch
     import torch.distributed as dist
 
     from kaldi_decoder_tpu_torch import config_for_graph
+    from kaldi_decoder_tpu_torch.decoders import driver
     from kaldi_decoder_tpu_torch.parallel import (
         ShardedLatticeDecoder,
         ShardedViterbiDecoder,
@@ -3148,37 +3242,47 @@ def shard_path(kind, graph, sc, sl, refs, sref, P, rank):
                              f"{want['shard_config']}")
     D = sh.frontier.eps_iters
     kname = "dedup_select" if kind == "viterbi" else "dedup_select_rec"
-    routed = {shard_call_index(SHARD_FRAME, D), shard_call_index(SHARD_FRAME, D, True)}
-    # K7's receive side runs for the emitting calls alone (once a frame), K8's
-    # local half once a chunk (the frames' own are K3's shard mode's last step).
-    capture = {"expand_filter": {SHARD_FRAME}, kname: routed, "route_send": routed,
-               "route_recv": {SHARD_FRAME}, "expand_eps_lanes": {D + SHARD_FRAME * D},
-               "eps_step_shard": {D + SHARD_FRAME * D}, "frame_tail_shard": {SHARD_FRAME},
-               "global_cutoff_local": {0}, "global_cutoff_merge": {SHARD_FRAME}}
+    graphed = dist.get_backend(dec._sh.group) == "nccl"
     dist.barrier()
     reset_counts()
     collective_calls.clear()
     t0 = time.perf_counter()
-    with CallCapture(graph_shard, capture) as cap:
+    with CallCapture(graph_shard, {"sharded_chunk": {0}}) as chunk:  # for loop_walls
         res = dec.decode(sc, sl)
     t_dec = time.perf_counter() - t0
     n = read_counts()
     coll = dict(collective_calls)
+    replays = driver.replays
     frames = res.num_active.shape[0]
     k = "k6" if kind == "viterbi" else "k2"
-    # No driver: K3's shard mode and K8's merge once a frame, no first-frame
-    # mode; K8's local half once a chunk (one a decode: each frame's is K3's
-    # shard mode's last step); K7's send side and the dedup call once an
-    # emitting call and an eps iteration, the eps step's shard mode once an
-    # eps iteration, the start closure's included; K7's receive side once
-    # an emitting call (an eps call reads the received buffer in place).
+    # The sharded frame driver's first decode: under NCCL its first frame
+    # eagerly, then the capture, every later frame a replay (counted as the
+    # launches and collectives the graph holds); over gloo the host loop.
+    if replays != (frames - 1 if graphed else 0):
+        raise AssertionError(f"{what}: {replays} frames replayed of {frames} "
+                             f"({'NCCL' if graphed else 'gloo'})")
+    # K3's shard mode and K8's merge once a frame, its first-frame mode and
+    # K8's local half once a chunk (one a decode: each frame's local half
+    # is K3's shard mode's last step); K7's send side and the dedup call
+    # once an emitting call and an eps iteration, the eps step's shard mode
+    # once an eps iteration, the start closure's included; K7's receive
+    # side once an emitting call (an eps call reads the received buffer in
+    # place).
     routes = D + frames * (1 + D)
     want_n = launch_counts(gather=0, k1=frames, k2=0, k4=0, k5=D + frames * D, k6=0,
-                           eps_step=D + frames * D, k3=frames, k3_start=0, k7_send=routes,
+                           eps_step=D + frames * D, k3=frames, k3_start=1, k7_send=routes,
                            k7_recv=frames, k8_local=1, k8_merge=frames)
     want_n[k] = routes
     if n != want_n:
         raise AssertionError(f"{what}: launch counts {n}, want {want_n}")
+    # A frame's collectives: GetCutoff's MIN, SUM and all-gather, K1's MIN,
+    # the route's all-to-all, per eps iteration an all-to-all and the MAX of
+    # changed, the rebase's MIN, SUM and MAX; the start closure's eps
+    # iterations; the results' gather.
+    want_c = dict(all_to_all=routes, all_reduce_max=routes, all_reduce_min=3 * frames,
+                  all_reduce_sum=2 * frames, all_gather=frames, all_gather_object=1)
+    if coll != want_c:
+        raise AssertionError(f"{what}: collectives {coll}, want {want_c}")
     t1 = time.perf_counter()
     for b, u in enumerate(want[kind][:B]):
         if kind == "viterbi":
@@ -3221,11 +3325,13 @@ def shard_path(kind, graph, sc, sl, refs, sref, P, rank):
                other_activities=split["other"][2],
                overflow_frames=int(res.overflows.sum()),
                saturated_frames=int(res.saturations.sum()))
-    log(f"{what}: decode {t_dec:.3f} s for {frames} frames ({wall_ms:.3f} ms a frame), device "
+    out["replays"] = replays
+    log(f"{what}: decode {t_dec:.3f} s for {frames} frames ({wall_ms:.3f} ms a frame; "
+        f"{replays} frames replayed from the sharded frame driver's captured graph), device "
         f"{dev_ms:.4f} ms a frame ({k_ms / frames:.4f} in kernels, {c_ms / frames:.4f} in "
         f"copies; profiled run, {t_prof:.3f} s), busy {out['busy']:.3f}; launches {n}; "
-        f"collectives {coll} ({n_coll / frames:.2f} a frame); checks {t_host:.2f} s; equal to "
-        f"the JAX reference on {B} utterances"
+        f"collectives {coll} ({n_coll / frames:.2f} a frame, counted per replay); checks "
+        f"{t_host:.2f} s; equal to the JAX reference on {B} utterances"
         + ("" if kind == "viterbi" else f" and utterance 0's {links[0]} pruned links"))
     log("  device time a frame by activity: " + "; ".join(
         f"{name} {ms:.4f} ms ({cnt:.1f} calls)" for name, ms, cnt in out["top_activities_ms_per_frame"]))
@@ -3235,11 +3341,41 @@ def shard_path(kind, graph, sc, sl, refs, sref, P, rank):
         + "; other activities, each under once a frame: " + ("; ".join(
             f"{name} ({cnt / frames:.2f} a frame)" for name, cnt in split["other"][2])
             or "none"))
+    if graphed:
+        # The chunk's frames replayed from the graph against the host loop, in
+        # turns (the counted decode's chunk again: its first-frame mode, K8's
+        # local half and frames); the graph's pool.
+        args, _ = chunk.kept["sharded_chunk", 0]
+        out["frame_loops"] = loop_walls(f"{what}, the sharded chunk",
+                                        lambda: graph_shard.sharded_chunk(*args), frames)
+        drv = graph_shard.frame_driver(kind == "lattice", dec._pg, dec.cfg, dec._sh, B, V,
+                                       dec.device)
+        out["frame_loops"]["graph_pool_bytes"] = drv.pool_bytes
+        log(f"  {what}: the captured frame's memory pool: {drv.pool_bytes[0]} bytes allocated, "
+            f"{drv.pool_bytes[1]} reserved")
+    # The holds' inputs: a decode as the host loop (a captured frame's calls
+    # do not pass through the wrappers' Python), its calls of frame
+    # SHARD_FRAME and the chunk's first-frame mode kept.
+    routed = {shard_call_index(SHARD_FRAME, D), shard_call_index(SHARD_FRAME, D, True)}
+    # K7's receive side runs for the emitting calls alone (once a frame), K8's
+    # local half once a chunk (the frames' own are K3's shard mode's last step).
+    capture = {"expand_filter": {SHARD_FRAME}, kname: routed, "route_send": routed,
+               "route_recv": {SHARD_FRAME}, "expand_eps_lanes": {D + SHARD_FRAME * D},
+               "eps_step_shard": {D + SHARD_FRAME * D}, "frame_tail_shard": {SHARD_FRAME},
+               "frame_start_shard": {0}, "global_cutoff_local": {0},
+               "global_cutoff_merge": {SHARD_FRAME}}
+    dist.barrier()
+    t0 = time.perf_counter()
+    with driver.eager_frames(), CallCapture(graph_shard, capture) as cap:
+        dec.decode(sc, sl)
+    out["decode_loop_s"] = time.perf_counter() - t0
+    log(f"  {what}: decode {t_dec:.3f} s as the user calls it, {out['decode_loop_s']:.3f} s as "
+        "the host loop (its calls of frame SHARD_FRAME kept, cloned)")
     errs, times = {}, {}
     if rank == 0:  # the other rank waits at the barrier: the card is this rank's alone
         errs, times = hold_shard_kernels(cap.kept, kind, D, f"P={P} {kind} shard 0")
     dist.barrier()
-    del cap, res, dec
+    del cap, chunk, res, dec
     torch.cuda.empty_cache()
     return n, out, errs, times
 
@@ -3385,9 +3521,8 @@ def parallel_rank(rank, port, queue):
     try:
         sys.path.insert(0, REPO)
         import torch
-        import torch.distributed as dist
 
-        from kaldi_decoder_tpu_torch.parallel import initialize_distributed
+        from kaldi_decoder_tpu_torch.parallel import initialize_distributed, shutdown_distributed
 
         torch.cuda.set_device(0)
         initialize_distributed(backend="gloo", init_method=f"tcp://localhost:{port}",
@@ -3395,7 +3530,7 @@ def parallel_rank(rank, port, queue):
         try:
             out = parallel_phases(2, rank)
         finally:
-            dist.destroy_process_group()
+            shutdown_distributed()
         queue.put((rank, "ok", out))
     except BaseException:
         queue.put((rank, "error", traceback.format_exc()))
@@ -3444,7 +3579,7 @@ def run_parallel_nccl(workload):
     import torch
     import torch.distributed as dist
 
-    from kaldi_decoder_tpu_torch.parallel import initialize_distributed
+    from kaldi_decoder_tpu_torch.parallel import initialize_distributed, shutdown_distributed
 
     torch.cuda.set_device(0)
     initialize_distributed(backend="nccl", init_method=f"tcp://localhost:{free_port()}",
@@ -3454,7 +3589,7 @@ def run_parallel_nccl(workload):
             raise AssertionError(f"backend {dist.get_backend()}, expected nccl")
         return parallel_phases(1, 0, workload)
     finally:
-        dist.destroy_process_group()
+        shutdown_distributed()
 
 
 def main():
@@ -3699,13 +3834,15 @@ def main():
         **{k: {"lattice": n3[k], "viterbi": vn[k], "streaming": sn[k]}
            for k in ("k7_send", "k7_recv", "k8_local", "k8_merge")},
     }
-    # The sharded phases' eps steps and K3 launches are the shard modes'.
+    # The sharded phases' eps steps and K3 launches (its first-frame mode's
+    # too) are the shard modes'.
     shard_phases = [p for p in later if p.startswith("shard_")]
     for key, paths in by_path.items():
         paths.update({p: n[key] for p, n in later.items()
-                      if key not in ("eps_step", "k3") or p not in shard_phases})
+                      if key not in ("eps_step", "k3", "k3_start") or p not in shard_phases})
     by_path["eps_step_shard"] = {p: later[p]["eps_step"] for p in shard_phases}
     by_path["k3_shard"] = {p: later[p]["k3"] for p in shard_phases}
+    by_path["k3_start_shard"] = {p: later[p]["k3_start"] for p in shard_phases}
 
     st = sk["times"]
     fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "share_of_bound",
@@ -3725,6 +3862,10 @@ def main():
             "streaming_lattice": k2s[kernel]}
 
     log(f"all phases: {time.perf_counter() - t_start:.1f} s")
+    for P, ranks in par.items():  # the sharded chunks' graph against the loop (NCCL only)
+        for ph in ("shard_viterbi", "shard_lattice"):
+            if "frame_loops" in ranks[0][ph][1]:
+                loops[f"{ph}_p{P}"] = ranks[0][ph][1]["frame_loops"]
     log(json.dumps({"frame_loops": loops}))
     log(json.dumps({"graph_file": gio, "encoder": enc, "recall": rec,
                     "parallel": {f"{ph}_p{P}": [r[ph][1] for r in ranks]
@@ -3860,6 +4001,12 @@ def main():
                     **{f"{f}_{ph}_p{P}": par[P][0][ph][3]["k3_shard"][f]
                        for P in par for ph in ("shard_viterbi", "shard_lattice")
                        for f in ("alone_ms", "k8_local_ms", "fold_ms")}),
+        shard_entry("K3 frame_start_shard, the shard mode's first-frame mode (once a chunk: the "
+                    "chunk's start state, row lengths and scores row 0 into the sharded frame "
+                    "driver's static slots, its frame count, scores and output pointers into "
+                    "K3's table, t 0; one block a row)", "frame.cu",
+                    "kaldi_decoder_tpu/parallel/graph_shard.py:609", "k3_start_shard",
+                    "k3_start_shard"),
         shard_entry("K8 global_cutoff_local (the sharded GetCutoff's local half: each row's "
                     "best cost, finite count and cost prefix, before the collectives; once a "
                     "chunk, on its start state: each frame's is K3's shard mode's last step)",

@@ -548,9 +548,21 @@ extern "C" int kd_frame_tail(void* args, int lattice, int B, int K, int V, int R
 // float operations are its own: mid - m_safe, base + m_safe, base + costs,
 // base + cutoff).
 //
+// The table (ShardTable, kernels/frame.py SHARD_ARGS_WORDS) holds t, the
+// rows done with it, the chunk's frame count, its scores and its stacked
+// outputs: the shard mode's first-frame mode (frame_start_shard_kernel,
+// below, once a chunk) writes them, with the chunk's start state, row
+// lengths and scores row 0 into static slots; each frame's tail writes row
+// t through the table's pointers and copies scores row t + 1 into the
+// slot that K1 reads.  No launch argument changes from one frame or chunk
+// to the next, so one captured CUDA graph of the sharded frame serves
+// every frame and chunk (parallel/shard_driver.py), as the JAX package's
+// lax.scan in shard_map runs the chunk on the device.
+//
 // What bounds it: bytes, each output written once and each input read
 // once: 1.6-2.6 MB at B = 16, K 2048, R 4096 / 3072, some 0.0005-0.0008 ms
-// at 3.35 TB/s; at these sizes what is left is a launch, the frame index
+// at 3.35 TB/s (the next scores row, V floats a row, adds 64 KB at V 500);
+// at these sizes what is left is a launch, the frame index
 // and, on the 1-best path, the backpointer gather's two dependent loads
 // (cand_idx, then the winning lane's slot and arc).
 //
@@ -559,8 +571,9 @@ extern "C" int kd_frame_tail(void* args, int lattice, int B, int K, int V, int R
 // once with at least MIN_SLOTS slots a block), so that at B = 16 some 128
 // SMs move the bytes.  Block r takes its 1/G of the row's K frontier slots
 // (the carried state, the frontier or backpointer outputs), of its R em
-// records and of its D * Re eps links or D * K eps backpointers (ranges of
-// a multiple of 32 in rank order; a block may own none), all in one round
+// records, of its D * Re eps links or D * K eps backpointers and of the
+// next scores row (ranges of a multiple of 32 in rank order; a block may
+// own none), the first three in one round
 // of loads a thread before its stores: the loads do not wait for the row's
 // liveness, a frozen row then reads its carried slots, which no block
 // writes.  Every thread reads t at its start, beside the row's length,
@@ -592,13 +605,23 @@ extern "C" int kd_frame_tail(void* args, int lattice, int B, int K, int V, int R
 
 namespace {
 
+// The shard mode's table in device memory, as int64 words.
+struct ShardTable {
+  long long t;               // the frame to run
+  unsigned long long done;   // rows done with frame t
+  long long frames;          // the chunk's frame count
+  const float* scores;       // (frames, B, V) the chunk's scores
+  void* out[8];              // its stacked outputs, ShardLatticeStepOut / ShardStepOut order
+};
+
 struct ShardTailArgs {
-  long long* targs;          // t, rows done with it (kernels/frame.py SHARD_ARGS_WORDS)
-  int B, K, N, D, R, Re, slot_base;
-  const int* lengths;        // (B,)
+  ShardTable* tab;
+  int B, K, N, D, R, Re, V, slot_base;
+  const int* lengths;        // (B,) the chunk's, in a static slot
   int* states;               // (B, K) the carried state, in place
   float* costs;
   float* base;               // (B,)
+  float* scores_t;           // (B, V) K1's scores row: the next frame's is copied in
   const float* cutoff;       // (B,) the frame's, relative to base
   const int* mid_states;     // (B, K)
   const float* mid_costs;
@@ -611,7 +634,6 @@ struct ShardTailArgs {
   const int* gslot;          // (B, N)
   const int* arc;            // (B, N)
   const int2* bp_eps;        // (B, D, K)
-  void* out[8];              // ShardLatticeStepOut / ShardStepOut order
   // The next frame's GetCutoff, its local half (K8's, kernels/cutoff.py
   // CutoffLocal), from the eps closure's local values: null for none.
   const float* red_min;      // (B,) the closure's smallest finite cost (local)
@@ -635,11 +657,14 @@ __global__ void __launch_bounds__(THREADS) frame_tail_shard_kernel(ShardTailArgs
   const int tid = threadIdx.x;
   const bool lead = rank == 0 && tid == 0;  // writes the row's scalars
   const bool counter = rank == 0 && (tid >> 5) == 1;  // the warp that counts the row done
-  unsigned long long* done = reinterpret_cast<unsigned long long*>(&a.targs[1]);
+  ShardTable* tab = a.tab;
 
-  // What does not wait: the frame index, the row's length, base and global
-  // best cost (every thread, broadcast loads); rank 0's scalars' inputs.
-  const long long t = __ldcg(&a.targs[0]);
+  // What does not wait: the frame index, the chunk's frame count and
+  // scores, the row's length, base and global best cost (every thread,
+  // broadcast loads); rank 0's scalars' inputs.
+  const long long t = __ldcg(&tab->t);
+  const long long frames = tab->frames;
+  const float* scores = tab->scores;
   const int len = a.lengths[b];
   const float base = a.base[b];
   const float m = a.best[b];
@@ -656,14 +681,14 @@ __global__ void __launch_bounds__(THREADS) frame_tail_shard_kernel(ShardTailArgs
       rcount = a.red_count[b];
     }
   }
-  if (t < 0) __trap();  // t in hand (a branch on it) before the barrier
+  if (t < 0 || t >= frames) __trap();  // t in hand (a branch on it) before the barrier
   kdtorch::cluster_arrive();  // the one cluster barrier: the block runs and has read t, base
   // Every block of the row has read t: rank 0's second warp counts the row
   // done at once, and reads the count at its end.
   unsigned long long seen = 0;
   if (counter) {
     kdtorch::cluster_wait();
-    if (tid == 32) seen = atomicAdd(done, 1ull);
+    if (tid == 32) seen = atomicAdd(&tab->done, 1ull);
   }
 
   // The block's shares: its slots; its em records (lattice) or eps
@@ -679,10 +704,11 @@ __global__ void __launch_bounds__(THREADS) frame_tail_shard_kernel(ShardTailArgs
   const size_t lanes = (size_t)b * a.N;
   const int4* em_src = LATTICE ? a.em_rec + (size_t)b * n1 : nullptr;
   const int2* eps_src = LATTICE ? a.eps_rec + (size_t)b * n2 : a.bp_eps + (size_t)b * n1;
-  int* fs = LATTICE ? static_cast<int*>(a.out[2]) + trow * K : nullptr;  // the frontier
-  float* fc = LATTICE ? static_cast<float*>(a.out[3]) + trow * K : nullptr;
-  int2* o0 = static_cast<int2*>(a.out[0]) + trow * (LATTICE ? n1 : K);  // em links / backpointers
-  int2* o1 = static_cast<int2*>(a.out[1]) + trow * (LATTICE ? n2 : n1);  // eps links / bps
+  void* const* out = tab->out;
+  int* fs = LATTICE ? static_cast<int*>(out[2]) + trow * K : nullptr;  // the frontier
+  float* fc = LATTICE ? static_cast<float*>(out[3]) + trow * K : nullptr;
+  int2* o0 = static_cast<int2*>(out[0]) + trow * (LATTICE ? n1 : K);  // em links / backpointers
+  int2* o1 = static_cast<int2*>(out[1]) + trow * (LATTICE ? n2 : n1);  // eps links / bps
   float* prefix = a.loc_prefix != nullptr ? a.loc_prefix + (size_t)b * a.m : nullptr;
   bool fa = false;
   float nbase = base;
@@ -758,17 +784,24 @@ __global__ void __launch_bounds__(THREADS) frame_tail_shard_kernel(ShardTailArgs
       }
     }
   }
+  // The block's share of the next frame's scores row, into K1's slot.
+  if (t + 1 < frames) {
+    const int2 vr = share(a.V, lg, rank);
+    const float* vsrc = scores + ((size_t)(t + 1) * a.B + b) * a.V;
+    float* vdst = a.scores_t + (size_t)b * a.V;
+    for (int i = vr.x + tid; i < vr.y; i += THREADS) vdst[i] = vsrc[i];
+  }
   if (!counter) kdtorch::cluster_wait();  // rank 0: every block of the row has read base
   if (rank != 0) return;
   fa = t < len;
   nbase = fa ? __fadd_rn(base, ms) : base;
   if (lead) {
     const int at = LATTICE ? 4 : 2;  // num_active, then (1-best) best_cost, cutoff, flags
-    static_cast<int*>(a.out[at])[trow] = fa ? na : 0;
-    if (!LATTICE) static_cast<float*>(a.out[3])[trow] = nbase;
-    static_cast<float*>(a.out[at + (LATTICE ? 1 : 2)])[trow] = __fadd_rn(base, cut);
-    static_cast<unsigned char*>(a.out[at + (LATTICE ? 2 : 3)])[trow] = fa && f0;
-    static_cast<unsigned char*>(a.out[at + (LATTICE ? 3 : 4)])[trow] = fa && f1;
+    static_cast<int*>(out[at])[trow] = fa ? na : 0;
+    if (!LATTICE) static_cast<float*>(out[3])[trow] = nbase;
+    static_cast<float*>(out[at + (LATTICE ? 1 : 2)])[trow] = __fadd_rn(base, cut);
+    static_cast<unsigned char*>(out[at + (LATTICE ? 2 : 3)])[trow] = fa && f0;
+    static_cast<unsigned char*>(out[at + (LATTICE ? 3 : 4)])[trow] = fa && f1;
     a.base[b] = nbase;
     if (fa && a.loc_best != nullptr) {  // a frozen row keeps its local half
       a.loc_best[b] = __fsub_rn(rmin, ms);
@@ -776,12 +809,78 @@ __global__ void __launch_bounds__(THREADS) frame_tail_shard_kernel(ShardTailArgs
     }
   } else if (tid == 32 && seen == (unsigned long long)a.B - 1) {
     // The last row counted: every block of every row has read t.
-    a.targs[0] = t + 1;
-    *done = 0;
+    tab->t = t + 1;
+    tab->done = 0;
+  }
+}
+
+// The shard mode's first-frame mode, once a chunk: one block a row.  The
+// chunk's start state, the row's length and scores row 0 into the static
+// slots; block 0 writes the table (t = 0, the frame count, the scores and
+// output pointers).  Plain version: kernels/frame.py
+// frame_start_shard_plain, bitwise equal (it copies).
+struct ShardStartIn {
+  const int* st0_states;    // (B, K)
+  const float* st0_costs;
+  const float* st0_base;    // (B,)
+  const int* lengths;       // (B,)
+  const float* scores;      // (frames, B, V)
+  long long frames;
+  void* out[8];
+};
+
+__global__ void __launch_bounds__(START_THREADS) frame_start_shard_kernel(
+    ShardTable* tab, int K, int V, int* states, float* costs, float* base, int* lengths,
+    float* scores_t, ShardStartIn in) {
+  const int b = blockIdx.x;
+  const size_t row = (size_t)b * K;
+  for (int k = threadIdx.x; k < K; k += blockDim.x) {
+    states[row + k] = in.st0_states[row + k];
+    costs[row + k] = in.st0_costs[row + k];
+  }
+  if (in.frames > 0) {
+    const float* src = in.scores + (size_t)b * V;
+    for (int i = threadIdx.x; i < V; i += blockDim.x) scores_t[(size_t)b * V + i] = src[i];
+  }
+  if (threadIdx.x == 0) {
+    base[b] = in.st0_base[b];
+    lengths[b] = in.lengths[b];
+  }
+  if (b == 0 && threadIdx.x == 0) {
+    tab->t = 0;
+    tab->done = 0;
+    tab->frames = in.frames;
+    tab->scores = in.scores;
+    for (int i = 0; i < 8; ++i) tab->out[i] = in.out[i];
   }
 }
 
 }  // namespace
+
+// The shard mode's first-frame mode on `stream`: B blocks.  args: the table
+// (SHARD_ARGS_WORDS int64 words); the slots: states/costs (B, K), base
+// (B,) float32, lengths (B,) int32, scores_t (B, V) float32; the chunk:
+// st0 (B, K), (B, K), (B,), lengths (B,) int32, scores (frames, B, V)
+// float32, out0..7 its stacked outputs (the 1-best frame's seven, then
+// null).  Returns the launch's CUDA error (0 on success).
+extern "C" int kd_frame_start_shard(void* args, int B, int K, int V, long long frames,
+                                    void* states, void* costs, void* base, void* lengths,
+                                    void* scores_t, const void* st0_states, const void* st0_costs,
+                                    const void* st0_base, const void* chunk_lengths,
+                                    const void* scores, void* out0, void* out1, void* out2,
+                                    void* out3, void* out4, void* out5, void* out6, void* out7,
+                                    void* stream) {
+  if (B < 1 || K < 1 || V < 0 || frames < 0) return (int)cudaErrorInvalidValue;
+  const ShardStartIn in{static_cast<const int*>(st0_states), static_cast<const float*>(st0_costs),
+                        static_cast<const float*>(st0_base),
+                        static_cast<const int*>(chunk_lengths),
+                        static_cast<const float*>(scores), frames,
+                        {out0, out1, out2, out3, out4, out5, out6, out7}};
+  frame_start_shard_kernel<<<B, START_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<ShardTable*>(args), K, V, static_cast<int*>(states), static_cast<float*>(costs),
+      static_cast<float*>(base), static_cast<int*>(lengths), static_cast<float*>(scores_t), in);
+  return (int)cudaGetLastError();
+}
 
 // The cluster size K3's shard mode launches with for B rows of K slots
 // (kdtorch::pick_cluster, at most cluster_cap(K)); 0 when none fits.  The
@@ -793,51 +892,52 @@ extern "C" int kd_frame_tail_shard_cluster(int B, int K) {
 
 // K3's shard mode on `stream`: B clusters of G blocks (G = `clusters`, or
 // kd_frame_tail_shard_cluster's when 0), the lattice instance when
-// `lattice` is set.  args: 2 int64 words (t, rows done); lengths (B,)
-// int32; the carried states/costs (B, K), base (B,); cutoff (B,) float32;
-// mid states/costs (B, K); best (B,) float32, num_active (B,) int32, flags
-// (2,) int32 (the reductions over the ranks).  Lattice: em_rec (B, R, 4),
-// eps_rec (B, D, Re, 2) int32; out0..7 ShardLatticeStepOut's stacked (T, B,
-// ...) buffers.  1-best: cand_idx (B, K), gslot/arc (B, N), bp_eps (B, D,
-// K, 2) int32; out0..6 ShardStepOut's.  An output or input of no elements
-// (D = 0) may be null.  The next frame's local half of GetCutoff (K8's):
-// red_min (B,) float32 and red_count (B,) int32, the eps closure's local
-// values, in; loc_best (B,) float32, loc_count (B,) int32 and, when m < K,
-// loc_prefix (B, m) float32, out, for the rows still decoding (all null:
-// none written).  Returns the launch's CUDA error (a refused cluster
-// launch is reported).
+// `lattice` is set.  args: the table (SHARD_ARGS_WORDS int64 words, from
+// kd_frame_start_shard: t, rows done, the chunk's frame count, scores and
+// outputs); lengths (B,) int32, the carried states/costs (B, K), base (B,)
+// and scores_t (B, V) float32, the static slots; cutoff (B,) float32; mid
+// states/costs (B, K); best (B,) float32, num_active (B,) int32, flags (2,)
+// int32 (the reductions over the ranks).  Lattice: em_rec (B, R, 4),
+// eps_rec (B, D, Re, 2) int32; the table's outputs ShardLatticeStepOut's
+// stacked (frames, B, ...) buffers.  1-best: cand_idx (B, K), gslot/arc (B,
+// N), bp_eps (B, D, K, 2) int32; the outputs ShardStepOut's.  An input of
+// no elements (D = 0) may be null.  The next frame's local half of
+// GetCutoff (K8's): red_min (B,) float32 and red_count (B,) int32, the eps
+// closure's local values, in; loc_best (B,) float32, loc_count (B,) int32
+// and, when m < K, loc_prefix (B, m) float32, out, for the rows still
+// decoding (all null: none written).  Returns the launch's CUDA error (a
+// refused cluster launch is reported).
 extern "C" int kd_frame_tail_shard(void* args, int lattice, int B, int K, int N, int D, int R,
-                                   int Re, int slot_base, const void* lengths, void* states,
-                                   void* costs, void* base, const void* cutoff,
+                                   int Re, int V, int slot_base, const void* lengths, void* states,
+                                   void* costs, void* base, void* scores_t, const void* cutoff,
                                    const void* mid_states, const void* mid_costs,
                                    const void* best, const void* num_active, const void* flags,
                                    const void* em_rec, const void* eps_rec, const void* cand_idx,
                                    const void* gslot, const void* arc, const void* bp_eps,
-                                   void* out0, void* out1, void* out2, void* out3, void* out4,
-                                   void* out5, void* out6, void* out7, const void* red_min,
-                                   const void* red_count, void* loc_best, void* loc_count,
-                                   void* loc_prefix, int m, int clusters, void* stream) {
+                                   const void* red_min, const void* red_count, void* loc_best,
+                                   void* loc_count, void* loc_prefix, int m, int clusters,
+                                   void* stream) {
   const bool local = loc_best != nullptr;
-  if (B < 1 || K < 1 || D < 0 || R < 0 || Re < 0 || clusters < 0 || clusters > MOST ||
+  if (B < 1 || K < 1 || D < 0 || R < 0 || Re < 0 || V < 0 || clusters < 0 || clusters > MOST ||
       (clusters & (clusters - 1)) != 0 ||
       (local && (red_min == nullptr || red_count == nullptr || loc_count == nullptr)) ||
       (loc_prefix != nullptr && !(local && 1 <= m && m < K)))
     return (int)cudaErrorInvalidValue;
   const int G = clusters > 0 ? clusters : kd_frame_tail_shard_cluster(B, K);
   if (G < 1) return (int)cudaErrorInvalidConfiguration;
-  const ShardTailArgs a{static_cast<long long*>(args), B, K, N, D, R, Re, slot_base,
+  const ShardTailArgs a{static_cast<ShardTable*>(args), B, K, N, D, R, Re, V, slot_base,
                         static_cast<const int*>(lengths), static_cast<int*>(states),
                         static_cast<float*>(costs), static_cast<float*>(base),
-                        static_cast<const float*>(cutoff), static_cast<const int*>(mid_states),
-                        static_cast<const float*>(mid_costs), static_cast<const float*>(best),
-                        static_cast<const int*>(num_active), static_cast<const int*>(flags),
-                        static_cast<const int4*>(em_rec), static_cast<const int2*>(eps_rec),
-                        static_cast<const int*>(cand_idx), static_cast<const int*>(gslot),
-                        static_cast<const int*>(arc), static_cast<const int2*>(bp_eps),
-                        {out0, out1, out2, out3, out4, out5, out6, out7},
-                        static_cast<const float*>(red_min), static_cast<const int*>(red_count),
-                        static_cast<float*>(loc_best), static_cast<int*>(loc_count),
-                        static_cast<float*>(loc_prefix), loc_prefix != nullptr ? m : 0};
+                        static_cast<float*>(scores_t), static_cast<const float*>(cutoff),
+                        static_cast<const int*>(mid_states), static_cast<const float*>(mid_costs),
+                        static_cast<const float*>(best), static_cast<const int*>(num_active),
+                        static_cast<const int*>(flags), static_cast<const int4*>(em_rec),
+                        static_cast<const int2*>(eps_rec), static_cast<const int*>(cand_idx),
+                        static_cast<const int*>(gslot), static_cast<const int*>(arc),
+                        static_cast<const int2*>(bp_eps), static_cast<const float*>(red_min),
+                        static_cast<const int*>(red_count), static_cast<float*>(loc_best),
+                        static_cast<int*>(loc_count), static_cast<float*>(loc_prefix),
+                        loc_prefix != nullptr ? m : 0};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return (int)(lattice ? kdtorch::launch_cluster(frame_tail_shard_kernel<true>, B * G, G,
                                                  THREADS, 0, st, a)

@@ -150,16 +150,10 @@ class FrameDriver:
         K = self.fc.frontier_size
         self.slots = FrameSlots(batch, K, width, dev)
         self.bufs = None
-        self.graph: Optional[torch.cuda.CUDAGraph] = None
-        self.per_replay = None  # launches of COUNTED a replay holds
-        self.pool_bytes = None  # (allocated, reserved) bytes the capture kept
+        self.graphed: Optional[GraphedFrame] = None
         if dev.type == "cuda":
             self.bufs = frame_buffers(lattice, cfg, batch, dev)
-            # The capture stream's winner table, made before any capture.
-            self.stream = torch.cuda.Stream(dev)
-            with torch.cuda.stream(self.stream):
-                self.table, _ = k6._held_table(dev, batch, num_states)
-            self.stream.synchronize()
+            self.graphed = GraphedFrame(self.frame, dev, batch, num_states)
 
     def body(self):
         """The frame's K1, K2 or K6 and eps closure (K5, then K6 or K2's
@@ -183,49 +177,133 @@ class FrameDriver:
         frame_start(self.slots, io, self.fc)
         return io
 
+    @property
+    def pool_bytes(self):
+        """(allocated, reserved) bytes the capture kept, None before it."""
+        return None if self.graphed is None else self.graphed.pool_bytes
+
+    def run(self, scores_tm: torch.Tensor, lengths: torch.Tensor, st0: StepState):
+        """The chunk's frames from ``st0``: the final state (a copy) and the
+        per-frame outputs stacked (C, B, ...)."""
+        C = scores_tm.shape[0]
+        io = self.begin(scores_tm, lengths, st0)
+        if self.graphed is not None:
+            self.graphed.run(C)
+        else:
+            for _ in range(C):
+                self.frame()
+        self.slots.io = None  # the chunk's tensors are the caller's now
+        return StepState(*(x.clone() for x in self.slots.state)), io.outs
+
+    def release(self) -> None:
+        """Wait for the card and destroy the graph (:meth:`GraphedFrame.release`)."""
+        if self.graphed is not None:
+            self.graphed.release()
+
+
+class GraphedFrame:
+    """A frame replayed on a card from one captured CUDA graph, the runner
+    of both frame drivers (this module's and ``parallel/shard_driver.py``'s).
+
+    ``run(n)`` runs ``frame()`` (one frame on its driver's static buffers)
+    n times: the runner's first frame eagerly, so that every kernel is
+    loaded and sized and every NCCL communicator made, then the frame is
+    captured once, on the runner's own stream, and replayed for every
+    frame after it.  ``counted`` are the wrappers whose launches a frame
+    makes and ``calls``, where given, the Counter of the collective calls
+    it makes by kind: a capture launches and exchanges nothing, so those
+    counts are put back after it, and each replay adds what the graph
+    holds (:func:`held_counts`, :func:`add_replays`).  ``batch`` rows of
+    ``num_states`` states size the winner table (``kernels.dedup``) made
+    for the capture stream before any capture.  The capture's error mode
+    is ``thread_local``: an NCCL process group's watchdog thread queries
+    its own events meanwhile.  A capture or replay that fails raises."""
+
+    def __init__(self, frame, device: torch.device, batch: int, num_states: int,
+                 counted: tuple = COUNTED, calls: Optional[collections.Counter] = None):
+        self.frame, self.device = frame, device
+        self.counted, self.calls = counted, calls
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.held = None  # (launches of counted, collective calls) a replay holds
+        self.pool_bytes = None  # (allocated, reserved) bytes the capture kept
+        self.stream = torch.cuda.Stream(device)
+        with torch.cuda.stream(self.stream):
+            self.table, _ = k6._held_table(device, batch, num_states)
+        self.stream.synchronize()
+
     def _capture(self) -> None:
-        before = [fn.launches for fn in COUNTED]
         # The capture empties the allocator's cache first; so does this, so
         # that the bytes reserved after it are the graph's private pool's.
         torch.cuda.synchronize(self.device)
         torch.cuda.empty_cache()
         alloc = torch.cuda.memory_allocated(self.device), torch.cuda.memory_reserved(self.device)
         graph = torch.cuda.CUDAGraph()
-        try:
-            with torch.cuda.graph(graph, stream=self.stream):
+
+        def capture():
+            with torch.cuda.graph(graph, stream=self.stream, capture_error_mode="thread_local"):
                 self.frame()
-        finally:
-            held = [fn.launches - b for fn, b in zip(COUNTED, before)]
-            for fn, b in zip(COUNTED, before):
-                fn.launches = b  # the capture launched nothing
+        self.held = held_counts(capture, self.counted, self.calls)
         self.pool_bytes = (torch.cuda.memory_allocated(self.device) - alloc[0],
                            torch.cuda.memory_reserved(self.device) - alloc[1])
-        self.graph, self.per_replay = graph, held
+        self.graph = graph
 
-    def run(self, scores_tm: torch.Tensor, lengths: torch.Tensor, st0: StepState):
-        """The chunk's frames from ``st0``: the final state (a copy) and the
-        per-frame outputs stacked (C, B, ...)."""
-        global replays
-        C = scores_tm.shape[0]
-        io = self.begin(scores_tm, lengths, st0)
-        if self.device.type == "cuda":
-            t = 0
-            if self.graph is None:
-                self.frame()  # eagerly: every kernel loaded and sized before the capture
-                t = 1
-                if C > 1:
-                    self._capture()
-            for _ in range(t, C):
-                self.graph.replay()
-            if C > t:
-                for fn, n in zip(COUNTED, self.per_replay):
-                    fn.launches += n * (C - t)
-                replays += C - t
-        else:
-            for _ in range(C):
-                self.frame()
-        self.slots.io = None  # the chunk's tensors are the caller's now
-        return StepState(*(x.clone() for x in self.slots.state)), io.outs
+    def run(self, frames: int) -> None:
+        """``frames`` frames of the chunk begun on the driver's buffers."""
+        t = 0
+        if self.graph is None:
+            self.frame()  # eagerly: every kernel loaded and sized before the capture
+            t = 1
+            if frames > 1:
+                self._capture()
+        for _ in range(t, frames):
+            self.graph.replay()
+        if frames > t:
+            add_replays(*self.held, frames - t, self.counted, self.calls)
+
+    def release(self) -> None:
+        """Wait for the card, then destroy the graph (its pool goes back to
+        the allocator; the next run captures again).  NCCL does not destroy
+        a communicator while a graph that holds its collectives lives."""
+        torch.cuda.synchronize(self.device)
+        if self.graph is not None:
+            self.graph.reset()
+            self.graph = None
+
+
+def held_counts(run, counted: tuple = COUNTED, calls: Optional[collections.Counter] = None):
+    """Run ``run()`` and put back what it counted, also when it raises:
+    the launches of ``counted`` and, given ``calls``, that Counter's
+    counts.  Returns (the launches it counted, in ``counted``'s order; the
+    calls it counted, a Counter by kind, empty without ``calls``)."""
+    before = [fn.launches for fn in counted]
+    calls_before = collections.Counter(calls or ())
+    try:
+        run()
+    finally:
+        launches = [fn.launches - b for fn, b in zip(counted, before)]
+        for fn, b in zip(counted, before):
+            fn.launches = b
+        held_calls = collections.Counter()
+        if calls is not None:
+            held_calls = calls - calls_before
+            calls.clear()
+            calls.update(calls_before)
+    return launches, held_calls
+
+
+def add_replays(launches, held_calls, n: int, counted: tuple = COUNTED,
+                calls: Optional[collections.Counter] = None) -> None:
+    """Count ``n`` replays of a graph that holds ``launches`` (in
+    ``counted``'s order) and ``held_calls`` (by kind): each wrapper's
+    launches and, given ``calls``, each kind's count there grow by n times
+    the graph's, and :data:`replays` by n."""
+    global replays
+    for fn, k in zip(counted, launches):
+        fn.launches += k * n
+    if calls is not None:
+        for kind, k in held_calls.items():
+            calls[kind] += k * n
+    replays += n
 
 
 def chunk_outputs(lattice: bool, cfg, C: int, B: int, device):
@@ -247,22 +325,34 @@ def chunk_outputs(lattice: bool, cfg, C: int, B: int, device):
     return StepOut(empty(K, 2), empty(D, K, 2), *tail)
 
 
+def kept_driver(cache: "collections.OrderedDict", key, make):
+    """The driver of ``key`` in ``cache``, or ``make()``'s, kept there (the
+    least recently used of ``MAX_DRIVERS`` is dropped, released)."""
+    drv = cache.pop(key, None)
+    if drv is None:
+        while len(cache) >= MAX_DRIVERS:
+            cache.popitem(last=False)[1].release()
+        drv = make()
+    cache[key] = drv
+    return drv
+
+
+def release(cache: "Optional[collections.OrderedDict]" = None) -> None:
+    """Drop every driver kept in ``cache`` (the frame drivers' when None),
+    each released: its card finished with it and its graph destroyed."""
+    cache = _drivers if cache is None else cache
+    while cache:
+        cache.popitem(last=False)[1].release()
+
+
 def driver_for(lattice: bool, pg: PackedGraph, cfg, num_states: int, batch: int, width: int,
                device) -> FrameDriver:
-    """The kept driver of these arguments, or a new one (the least
-    recently used of ``MAX_DRIVERS`` is dropped, after its card has
-    finished with it)."""
+    """The kept driver of these arguments, or a new one (:func:`kept_driver`)."""
     dev = torch.device(device)
     key = (lattice, tuple(id(x) for x in pg), cfg, num_states, batch, width, str(dev))
-    drv = _drivers.pop(key, None)
-    if drv is None:
-        while len(_drivers) >= MAX_DRIVERS:
-            _, old = _drivers.popitem(last=False)
-            if old.device.type == "cuda":
-                torch.cuda.synchronize(old.device)
-        drv = FrameDriver(lattice, pg, cfg, num_states, batch, width, dev)
-    _drivers[key] = drv  # holds pg, so the ids in its key stay its tables'
-    return drv
+    # The driver holds pg, so the ids in its key stay its tables'.
+    return kept_driver(_drivers, key,
+                       lambda: FrameDriver(lattice, pg, cfg, num_states, batch, width, dev))
 
 
 def step_loop(lattice: bool, pg: PackedGraph, scores_tm: torch.Tensor, lengths: torch.Tensor,

@@ -122,7 +122,8 @@ def stream(device) -> ctypes.c_void_p:
 @functools.lru_cache(maxsize=None)
 def kernels() -> ctypes.CDLL:
     """The CUDA kernel library (row gather, K1 expansion, K2 lattice
-    dedup and records, K3 frame tail and its shard mode, K4 sweep, K5 eps
+    dedup and records, K3 frame tail and its shard mode (each with its first-frame
+    mode), K4 sweep, K5 eps
     lanes and the eps step's shard mode, K6 dedup, the eps step as the
     last step of K6's and K2's eps calls, K7 shard route, K8 sharded
     GetCutoff), built on first use."""
@@ -176,9 +177,10 @@ def kernels() -> ctypes.CDLL:
     lib.kd_eps_step_shard.argtypes = [_I] * 9 + [_P] * 22 + [_I, _P]
     lib.kd_eps_step_shard_cluster.restype = _I
     lib.kd_eps_step_shard_cluster.argtypes = [_I, _I]
+    lib.kd_frame_start_shard.restype = _I
+    lib.kd_frame_start_shard.argtypes = [_P] + [_I] * 3 + [_L] + [_P] * 10 + [_P] * 8 + [_P]
     lib.kd_frame_tail_shard.restype = _I
-    lib.kd_frame_tail_shard.argtypes = ([_P] + [_I] * 8 + [_P] * 16 + [_P] * 8 + [_P] * 5
-                                         + [_I, _I, _P])
+    lib.kd_frame_tail_shard.argtypes = [_P] + [_I] * 9 + [_P] * 17 + [_P] * 5 + [_I, _I, _P]
     lib.kd_frame_tail_shard_cluster.restype = _I
     lib.kd_frame_tail_shard_cluster.argtypes = [_I, _I]
     lib.kd_route_send.restype = _I

@@ -20,13 +20,20 @@ captured once in a CUDA graph and replayed for every frame of every chunk
 On a card the tail is a cluster of blocks a row (:func:`cluster_size`),
 and so is its shard mode (:func:`shard_cluster_size`).
 
-The sharded decoders' frame (``parallel/graph_shard.py``) ends with K3's
-shard mode, :func:`frame_tail_shard`, after the rebase's reductions over
-the ranks: the rebase by the global best cost, the freeze of ended rows
-and the frame's outputs into row ``t`` of the chunk's stacked
-:class:`ShardStepOut` or :class:`ShardLatticeStepOut`, with ``t`` in
-device memory (:func:`shard_args`).  It runs no GetCutoff: the sharded
-cutoff is global (``graph_shard._global_cutoff``).  Its plain version is
+The sharded decoders' frame (``parallel/graph_shard.py``) runs on static
+buffers too, :class:`ShardSlots`: the carried frontier, the chunk's row
+lengths, K1's scores row and a table in device memory that holds ``t``
+and the chunk's scores and stacked outputs.  Its first-frame mode,
+:func:`frame_start_shard`, loads a chunk's start state, lengths and
+scores row 0 and writes the table; each frame ends with K3's shard mode,
+:func:`frame_tail_shard`, after the rebase's reductions over the ranks:
+the rebase by the global best cost, the freeze of ended rows, the frame's
+outputs into row ``t`` of the chunk's stacked :class:`ShardStepOut` or
+:class:`ShardLatticeStepOut` through the table, the next scores row and
+``t`` advanced.  So the sharded frame, too, can be captured once and
+replayed (``parallel/shard_driver.py``).  It runs no GetCutoff: the
+sharded cutoff is global (``graph_shard._global_cutoff``).  The plain
+versions are :func:`frame_start_shard_plain` and
 :func:`frame_tail_shard_plain`.
 """
 
@@ -60,8 +67,10 @@ from kaldi_decoder_tpu_torch.ops.cutoff import get_cutoff
 # scores, lengths, then the nine output pointers, each one int64 word.
 ARGS_WORDS = 14
 OUTS = 9
-# csrc/frame.cu ShardTailArgs' table in device memory: t, rows done with it.
-SHARD_ARGS_WORDS = 2
+# csrc/frame.cu ShardTable: t, rows done with it, the chunk's frame count,
+# its scores, then its eight output pointers, each one int64 word.
+SHARD_ARGS_WORDS = 12
+SHARD_OUTS = 8
 
 
 class TailInputs(NamedTuple):
@@ -93,7 +102,8 @@ class FrameIO(NamedTuple):
     scores: torch.Tensor  # (C, B, V) float32, time-major
     lengths: torch.Tensor  # (B,) int32 — frames t >= lengths are no-ops
     st0: StepState
-    outs: Union[LatticeStepOut, StepOut]  # (C, B, ...) each
+    # (C, B, ...) each; a sharded chunk's: ShardStepOut or ShardLatticeStepOut
+    outs: Union[LatticeStepOut, StepOut, "ShardStepOut", "ShardLatticeStepOut"]
 
 
 class FrameSlots:
@@ -414,9 +424,108 @@ def empty_shard_outs(frames: int, batch: int, k: int, eps_iters: int, lattice: b
         torch.empty((T, B), **b8), torch.empty((T, B), **b8))
 
 
-def shard_args(device) -> torch.Tensor:
-    """K3's shard-mode table, ``t`` = 0: ``t`` is word 0."""
-    return torch.zeros((SHARD_ARGS_WORDS,), dtype=torch.int64, device=device)
+class ShardSlots:
+    """The static buffers of a sharded batch's frames on one device: the
+    carried frontier ``state``, the chunk's row ``lengths``, K1's scores
+    row ``scores_t`` and ``args`` (``csrc/frame.cu`` ShardTable: ``t`` is
+    ``args[0]``, the chunk's frame count ``args[2]``, then the pointers of
+    its scores and outputs).  ``io`` is the chunk being run (a
+    :class:`FrameIO` whose outputs are a :class:`ShardStepOut` or
+    :class:`ShardLatticeStepOut`)."""
+
+    def __init__(self, batch: int, k: int, width: int, device):
+        dev = torch.device(device)
+        self.state = StepState(
+            torch.zeros((batch, k), dtype=torch.int32, device=dev),
+            torch.full((batch, k), float("inf"), dtype=torch.float32, device=dev),
+            torch.zeros((batch,), dtype=torch.float32, device=dev),
+        )
+        self.lengths = torch.zeros((batch,), dtype=torch.int32, device=dev)
+        self.scores_t = torch.zeros((batch, width), dtype=torch.float32, device=dev)
+        self.args = torch.zeros((SHARD_ARGS_WORDS,), dtype=torch.int64, device=dev)
+        self.io: Optional[FrameIO] = None
+
+    def copy(self) -> "ShardSlots":
+        """A copy of the slots, every tensor cloned, running the same chunk."""
+        out = ShardSlots.__new__(ShardSlots)
+        out.state = StepState(*(x.clone() for x in self.state))
+        out.lengths, out.scores_t, out.args = (
+            x.clone() for x in (self.lengths, self.scores_t, self.args))
+        out.io = self.io
+        return out
+
+
+class ShardStart(NamedTuple):
+    """What the shard mode's first-frame mode writes into the slots."""
+
+    state: StepState  # the chunk's start state
+    lengths: torch.Tensor  # (B,) int32
+    scores_t: Optional[torch.Tensor]  # (B, V) scores row 0; None: no frame, the slot kept
+    args: torch.Tensor  # (SHARD_ARGS_WORDS,) int64: t 0, done 0, C, the pointers
+
+
+def frame_start_shard_plain(io: FrameIO) -> ShardStart:
+    """The slots of the chunk ``io`` at its start (copies): its start
+    state, row lengths and scores row 0, and the table: ``t`` 0, no row
+    done, its frame count and the device addresses of its scores and
+    stacked outputs (0 for an output of no elements and past the last)."""
+    C = io.scores.shape[0]
+    words = [0, 0, C, io.scores.data_ptr()] + [x.data_ptr() for x in io.outs]
+    words += [0] * (SHARD_ARGS_WORDS - len(words))
+    return ShardStart(StepState(*(x.clone() for x in io.st0)), io.lengths.clone(),
+                      io.scores[0].clone() if C else None,
+                      torch.tensor(words, dtype=torch.int64))
+
+
+def frame_start_shard(slots: ShardSlots, io: FrameIO) -> None:
+    """K3's shard mode's first-frame mode: ``io`` becomes the chunk being
+    run, its start state, row lengths and scores row 0 the slots', and its
+    frame count, scores and outputs the table's, ``t`` 0; see
+    :func:`frame_start_shard_plain`.  On a card one launch of
+    ``csrc/frame.cu`` (a block a row), counted in ``frame_start.launches``."""
+    st = slots.state
+    dev = st.states.device
+    if dev.type == "cpu":
+        slots.io = io
+        want = frame_start_shard_plain(io)
+        for dst, src in zip(st, want.state):
+            dst.copy_(src)
+        slots.lengths.copy_(want.lengths)
+        if want.scores_t is not None:
+            slots.scores_t.copy_(want.scores_t)
+        slots.args.copy_(want.args)
+        return
+    if dev.type != "cuda":
+        raise ValueError(f"frame_start_shard runs on cpu or cuda tensors, not {dev}")
+    B, K = st.states.shape
+    V = slots.scores_t.shape[1]
+    C = io.scores.shape[0]
+    check(slots.args, "args", torch.int64, (SHARD_ARGS_WORDS,), dev)
+    check(slots.lengths, "lengths", torch.int32, (B,), dev)
+    check(slots.scores_t, "scores_t", torch.float32, (B, V), dev)
+    check(st.costs, "state.costs", torch.float32, (B, K), dev)
+    check(st.base, "state.base", torch.float32, (B,), dev)
+    check(io.scores, "scores", torch.float32, (C, B, V), dev)
+    check(io.lengths, "chunk lengths", torch.int32, (B,), dev)
+    for name, x, dtype, shape in zip(("st0.states", "st0.costs", "st0.base"), io.st0,
+                                     (torch.int32, torch.float32, torch.float32),
+                                     ((B, K), (B, K), (B,))):
+        check(x, name, dtype, shape, dev)
+    if len(io.outs) > SHARD_OUTS:
+        raise ValueError(f"a sharded chunk has at most {SHARD_OUTS} outputs, not {len(io.outs)}")
+    for name, x in zip(io.outs._fields, io.outs):
+        if x.shape[:2] != (C, B) or x.device != dev or not x.is_contiguous():
+            raise ValueError(f"output {name}: expected ({C}, {B}, ...) contiguous on {dev}, "
+                             f"got {tuple(x.shape)} on {x.device}")
+    outs = [ptr(x) for x in io.outs] + [None] * (SHARD_OUTS - len(io.outs))
+    slots.io = io
+    rc = kernels().kd_frame_start_shard(
+        ptr(slots.args), B, K, V, C, ptr(st.states), ptr(st.costs), ptr(st.base),
+        ptr(slots.lengths), ptr(slots.scores_t), ptr(io.st0.states), ptr(io.st0.costs),
+        ptr(io.st0.base), ptr(io.lengths), ptr(io.scores), *outs, stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"kd_frame_start_shard launch failed: {cuda_error(rc)}")
+    frame_start.launches += 1
 
 
 def frame_tail_shard_plain(st: StepState, cutoff: torch.Tensor, tin: ShardTailInputs,
@@ -485,52 +594,63 @@ def shard_cluster_size(batch: int, k: int) -> int:
     return kernels().kd_frame_tail_shard_cluster(batch, k)
 
 
-def frame_tail_shard(args: torch.Tensor, st: StepState, cutoff: torch.Tensor,
-                     tin: ShardTailInputs, lengths: torch.Tensor, outs, slot_base: int,
-                     clusters: int = 0, local: Optional[CutoffLocal] = None) -> None:
-    """K3's shard mode on the tensors' device: the tail of frame ``t``
-    (``args[0]``, from :func:`shard_args`) of a chunk whose rows decode
-    ``lengths`` frames, in place: ``st`` becomes the new state and row t
-    of ``outs`` (from :func:`empty_shard_outs`) the frame's outputs, and
-    ``t`` advances.  On a card one launch of ``csrc/frame.cu`` (a cluster
-    of blocks a row; ``clusters``, 8, 4, 2 or 1, sets the blocks a row
-    instead of :func:`shard_cluster_size`'s choice), counted in
-    ``frame_tail.launches``; with ``local`` (``kernels.cutoff``'s
+def frame_tail_shard(slots: ShardSlots, cutoff: torch.Tensor, tin: ShardTailInputs,
+                     slot_base: int, clusters: int = 0,
+                     local: Optional[CutoffLocal] = None) -> None:
+    """K3's shard mode on the slots' device: the tail of frame ``t``
+    (``slots.args[0]``) of the chunk ``slots.io`` (begun by
+    :func:`frame_start_shard`), in place: the slots' state becomes the new
+    state, row t of the chunk's outputs the frame's outputs, the scores
+    slot row t + 1 of the chunk's scores, and ``t`` advances.  On a card
+    one launch of ``csrc/frame.cu`` (a cluster of blocks a row;
+    ``clusters``, 8, 4, 2 or 1, sets the blocks a row instead of
+    :func:`shard_cluster_size`'s choice), which reads ``t`` and the chunk's
+    tensors from the table, so a captured frame replays as any frame,
+    counted in ``frame_tail.launches``; with ``local`` (``kernels.cutoff``'s
     ``CutoffLocal`` buffers, its prefix None where m is K) and
     ``tin.red_min``, ``tin.red_count``, the next frame's local half of
     GetCutoff in place; see :func:`frame_tail_shard_plain`."""
+    st = slots.state
     dev = st.states.device
+    io = slots.io
+    if io is None:
+        raise ValueError("frame_tail_shard needs a chunk begun by frame_start_shard")
     if dev.type == "cpu":
-        t = int(args[0])
-        final, out, nxt = frame_tail_shard_plain(st, cutoff, tin, lengths > t, slot_base, local)
+        t = int(slots.args[0])
+        final, out, nxt = frame_tail_shard_plain(st, cutoff, tin, slots.lengths > t, slot_base,
+                                                 local)
         for dst, src in zip(st, final):
             dst.copy_(src)
-        for buf, x in zip(outs, out):
+        for buf, x in zip(io.outs, out):
             buf[t].copy_(x)
         if local is not None:
             for dst, src in zip(local, nxt):
                 if dst is not None:
                     dst.copy_(src)
-        args[0] = t + 1
+        if t + 1 < io.scores.shape[0]:
+            slots.scores_t.copy_(io.scores[t + 1])
+        slots.args[0] = t + 1
         return
     if dev.type != "cuda":
         raise ValueError(f"frame_tail_shard runs on cpu or cuda tensors, not {dev}")
     B, K = st.states.shape
+    V = slots.scores_t.shape[1]
     if clusters not in (0, 1, 2, 4, 8):
         raise ValueError(f"clusters must be 0 (chosen), 1, 2, 4 or 8, not {clusters}")
-    check(args, "args", torch.int64, (SHARD_ARGS_WORDS,), dev)
+    check(slots.args, "args", torch.int64, (SHARD_ARGS_WORDS,), dev)
+    check(slots.lengths, "lengths", torch.int32, (B,), dev)
+    check(slots.scores_t, "scores_t", torch.float32, (B, V), dev)
     check(st.states, "state.states", torch.int32, (B, K), dev)
     check(st.costs, "state.costs", torch.float32, (B, K), dev)
     check(st.base, "state.base", torch.float32, (B,), dev)
     check(cutoff, "cutoff", torch.float32, (B,), dev)
-    check(lengths, "lengths", torch.int32, (B,), dev)
     check(tin.mid_states, "mid_states", torch.int32, (B, K), dev)
     check(tin.mid_costs, "mid_costs", torch.float32, (B, K), dev)
     check(tin.best, "best", torch.float32, (B,), dev)
     check(tin.num_active, "num_active", torch.int32, (B,), dev)
     check(tin.flags, "flags", torch.int32, (2,), dev)
     lattice = tin.em_records is not None
-    T = outs[0].shape[0]
+    T = io.outs[0].shape[0]
     N = R = Re = 0
     if lattice:
         R = tin.em_records.shape[1]
@@ -546,7 +666,8 @@ def frame_tail_shard(args: torch.Tensor, st: StepState, cutoff: torch.Tensor,
         check(tin.arc, "arc", torch.int32, (B, N), dev)
         check(tin.bp_eps, "bp_eps", torch.int32, (B, D, K, 2), dev)
         want = empty_shard_outs(T, B, K, D, False, "meta")
-    check_like(outs, want, "outs", dev)
+    check_like(io.outs, want, "outs", dev)
+    check(io.scores, "scores", torch.float32, (T, B, V), dev)
     m = 0
     if local is not None:
         check(tin.red_min, "red_min", torch.float32, (B,), dev)
@@ -562,13 +683,12 @@ def frame_tail_shard(args: torch.Tensor, st: StepState, cutoff: torch.Tensor,
     def opt(x):
         return None if x is None or x.numel() == 0 else ptr(x)
 
-    o = [opt(x) for x in outs] + [None] * (8 - len(outs))
     rc = kernels().kd_frame_tail_shard(
-        ptr(args), int(lattice), B, K, N, D, R, Re, slot_base,
-        ptr(lengths), ptr(st.states), ptr(st.costs), ptr(st.base), ptr(cutoff),
-        ptr(tin.mid_states), ptr(tin.mid_costs), ptr(tin.best), ptr(tin.num_active),
-        ptr(tin.flags), opt(tin.em_records), opt(tin.eps_records), opt(tin.cand_idx),
-        opt(tin.gslot), opt(tin.arc), opt(tin.bp_eps), *o,
+        ptr(slots.args), int(lattice), B, K, N, D, R, Re, V, slot_base,
+        ptr(slots.lengths), ptr(st.states), ptr(st.costs), ptr(st.base), ptr(slots.scores_t),
+        ptr(cutoff), ptr(tin.mid_states), ptr(tin.mid_costs), ptr(tin.best),
+        ptr(tin.num_active), ptr(tin.flags), opt(tin.em_records), opt(tin.eps_records),
+        opt(tin.cand_idx), opt(tin.gslot), opt(tin.arc), opt(tin.bp_eps),
         *((ptr(tin.red_min), ptr(tin.red_count), ptr(local.best), ptr(local.count),
            opt(local.prefix)) if local is not None else (None,) * 5), m, clusters, stream(dev),
     )

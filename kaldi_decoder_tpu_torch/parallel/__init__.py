@@ -9,6 +9,7 @@ from kaldi_decoder_tpu_torch.parallel.mesh import (
     make_mesh,
     pad_batch,
     replicated,
+    shutdown_distributed,
 )
 from kaldi_decoder_tpu_torch.parallel.graph_shard import (
     ShardedGraph,
@@ -27,4 +28,5 @@ __all__ = [
     "pad_batch",
     "replicated",
     "shard_graph",
+    "shutdown_distributed",
 ]

@@ -48,6 +48,15 @@ and its merge (``kernels.cutoff.global_cutoff_merge``), on the local half
 that K3's shard mode wrote (``global_cutoff_local`` runs once a chunk,
 on its start state).  Between them run only the collectives, whose
 kinds, order and number a frame are the original's.
+
+A chunk runs on the static buffers of a sharded frame driver
+(:mod:`kaldi_decoder_tpu_torch.parallel.shard_driver`, kept across
+decodes): K3's shard mode's first-frame mode
+(``kernels.frame.frame_start_shard``) loads the chunk's start state,
+lengths and scores row 0 and its output pointers, and under NCCL on a
+card every frame after a driver's first is replayed from one captured
+CUDA graph, the counterpart of the original's ``lax.scan``; over gloo
+and on the CPU the same frame runs from the host loop.
 """
 
 from __future__ import annotations
@@ -89,10 +98,12 @@ from kaldi_decoder_tpu_torch.kernels.eps import (
 )
 from kaldi_decoder_tpu_torch.kernels.expand import expand_filter
 from kaldi_decoder_tpu_torch.kernels.frame import (
+    FrameIO,
+    ShardSlots,
     ShardTailInputs,
     empty_shard_outs,
+    frame_start_shard,
     frame_tail_shard,
-    shard_args,
 )
 from kaldi_decoder_tpu_torch.kernels.route import (
     RoutedLanes,
@@ -110,6 +121,7 @@ from kaldi_decoder_tpu_torch.parallel.mesh import (
     check_device,
     local_batch,
 )
+from kaldi_decoder_tpu_torch.parallel.shard_driver import ShardDriver, driver_for
 
 INF = float("inf")
 
@@ -303,21 +315,23 @@ def _route(dst_g, cost, gslot, arc_g, sp: int, num_parts: int, cap: int, group,
     costs), slots ``inc_slot_base + k`` or -1: an eps iteration) no
     layout: a :class:`RoutedEps`, which the dedup call reads in place.  On
     a card ``bufs`` keeps the buffers of each call site ``key``, made at
-    its first call."""
-    out = (None, None)
+    its first call: the send buffer, the received one and the laid-out
+    lanes."""
+    out = (None, None, None)
     if bufs is not None and dst_g.is_cuda:
         if key not in bufs:
             B, N = dst_g.shape
-            bufs[key] = (empty_route_send(B, N, num_parts, cap, dst_g.device),
+            send = empty_route_send(B, N, num_parts, cap, dst_g.device)
+            bufs[key] = (send, torch.empty_like(send.buf),
                          None if incumbents is not None
                          else empty_route_lanes(B, num_parts * cap, dst_g.device))
         out = bufs[key]
     send = route_send(dst_g, cost, gslot, arc_g, sp, num_parts, cap, local_slack_beam, cutoff,
                       slot_states, slot_add, arc_add, out=out[0])
-    recv = all_to_all(send.buf, group)  # (P, B, cap, 4): slice p from rank p
+    recv = all_to_all(send.buf, group, out=out[1])  # (P, B, cap, 4): slice p from rank p
     if incumbents is not None:
         return RoutedEps(RoutedLanes(recv, sp, *incumbents, inc_slot_base), send.overflow)
-    return Routed(*route_recv(recv, sp, out=out[1]), send.overflow)
+    return Routed(*route_recv(recv, sp, out=out[2]), send.overflow)
 
 
 # ---------------------------------------------------------------------------
@@ -412,25 +426,40 @@ class _Shard(NamedTuple):
 
 
 class _Bufs(NamedTuple):
-    """A decode's buffers: each route call site's on a card (made at its
-    first call), the eps closure's carry, the chunk's K3 table, row
-    lengths and stacked outputs (set by :func:`sharded_chunk`), and K8's:
-    the local half that each frame's GetCutoff reads (set by
-    :func:`_start_cutoff`, then by K3's shard mode) and on a card the
-    merge's."""
+    """A sharded frame's static buffers, kept by its driver across decodes:
+    on a card each route call site's (made at its first call), the eps
+    closure's carry, the slots (the carried frontier, the chunk's row
+    lengths, K1's scores row and K3's table: ``kernels.frame.ShardSlots``),
+    K8's (the local half that each frame's GetCutoff reads, set by
+    :func:`_start_cutoff`, then by K3's shard mode, and on a card the
+    merge's) and on a card each collective call site's output (made at its
+    first call, :func:`_kept`)."""
 
     routes: dict
     carry: ShardEpsCarry
-    args: torch.Tensor
-    chunk: dict
+    slots: ShardSlots
     cutoff: dict
+    coll: dict
 
 
-def _bufs(sc: ShardConfig, batch: int, width: int, device) -> _Bufs:
-    """The buffers of a decode of ``batch`` rows, its eps closure keeping
-    ``width`` backpointers (K) or links (eps_records) an iteration."""
-    return _Bufs({}, empty_shard_eps_carry(batch, sc.frontier.eps_iters, width, device),
-                 shard_args(device), {}, {})
+def _bufs(sc: ShardConfig, batch: int, eps_width: int, width: int, device) -> _Bufs:
+    """The buffers of a frame of ``batch`` rows of scores ``width`` wide,
+    its eps closure keeping ``eps_width`` backpointers (K) or links
+    (eps_records) an iteration."""
+    return _Bufs({}, empty_shard_eps_carry(batch, sc.frontier.eps_iters, eps_width, device),
+                 ShardSlots(batch, sc.frontier.frontier_size, width, device), {}, {})
+
+
+def _kept(bufs: Optional[_Bufs], key: str, x: torch.Tensor) -> Optional[torch.Tensor]:
+    """On a card, the output buffer of the collective call site ``key`` (of
+    ``x``'s shape and type, made at its first call); else None (a new
+    tensor a call)."""
+    if bufs is None or not x.is_cuda:
+        return None
+    out = bufs.coll.get(key)
+    if out is None:
+        out = bufs.coll[key] = torch.empty_like(x, memory_format=torch.contiguous_format)
+    return out
 
 
 def _flags(*xs) -> torch.Tensor:
@@ -514,7 +543,7 @@ def _sharded_eps_closure(iteration, st: StepState, sc: ShardConfig, sh: _Shard, 
                        sh.my_base, lanes=rt.lanes, em_overflow=em_overflow if first else (),
                        em_num_unique=em_num_unique if first else None,
                        reduce=reduce and d == D - 1)
-        red = all_reduce(carry.changed, "max", sh.group)
+        red = all_reduce(carry.changed, "max", sh.group, out=_kept(bufs, "changed", carry.changed))
     return carry
 
 
@@ -572,10 +601,10 @@ def _global_cutoff(st: StepState, cfg: ShardConfig, group, bufs: Optional[_Bufs]
     loc = out.get("local")
     if loc is None:
         loc = global_cutoff_local(st.costs, m)
-    best = all_reduce(loc.best, "min", group)  # (B,)
+    best = all_reduce(loc.best, "min", group, out=_kept(bufs, "best", loc.best))  # (B,)
     count = merged = None
     if not early:
-        count = all_reduce(loc.count, "sum", group)
+        count = all_reduce(loc.count, "sum", group, out=_kept(bufs, "count", loc.count))
         prefix = loc.prefix if loc.prefix is not None else st.costs
         merged = all_gather_into(prefix, out.get("merged"), group)  # (P, B, m)
     return global_cutoff_merge(best, count, merged, fc.beam, fc.beam_delta, fc.max_active,
@@ -583,7 +612,7 @@ def _global_cutoff(st: StepState, cfg: ShardConfig, group, bufs: Optional[_Bufs]
 
 
 def _emit_expand(st: StepState, scores_t, pg, fc: FrontierConfig, cutoff, adaptive_beam,
-                 group, with_src_slot: bool):
+                 group, with_src_slot: bool, bufs: Optional[_Bufs] = None):
     """K1 on the local frontier under the global cutoff, and the global
     beam filter's cutoff: ``min over shards of min(cost) +
     adaptive_beam``, which the route applies (lanes at or above it go
@@ -593,28 +622,33 @@ def _emit_expand(st: StepState, scores_t, pg, fc: FrontierConfig, cutoff, adapti
     is monotonic).  Returns (expansion, the next cutoff (B,))."""
     ex = expand_filter(st.states, st.costs, cutoff, adaptive_beam, scores_t, pg, fc,
                        with_src_slot=with_src_slot)
-    return ex, all_reduce(ex.next_cutoff, "min", group)
+    return ex, all_reduce(ex.next_cutoff, "min", group,
+                          out=_kept(bufs, "next_cutoff", ex.next_cutoff))
 
 
-def _reduced(carry: ShardEpsCarry, group):
+def _reduced(carry: ShardEpsCarry, group, bufs: Optional[_Bufs] = None):
     """The rebase's reductions over ``group`` of the eps closure's local
     values: the global best cost (MIN), the global finite count (SUM) and
     the frame's flags (MAX)."""
-    return (all_reduce(carry.red_min, "min", group), all_reduce(carry.red_count, "sum", group),
-            all_reduce(carry.red_flags, "max", group))
+    return tuple(all_reduce(x, op, group, out=_kept(bufs, key, x)) for x, op, key in (
+        (carry.red_min, "min", "red_min"), (carry.red_count, "sum", "red_count"),
+        (carry.red_flags, "max", "red_flags")))
 
 
-def _sharded_frame(st: StepState, scores_t, pg, cfg: ShardConfig, sh: _Shard, bufs: _Bufs):
-    """One sharded frame: global GetCutoff, local expand (K1), route (K7),
-    local dedup (K6), routed eps closure, global rebase by K3's shard
-    mode, which updates ``st``, writes row t of the chunk's outputs and
-    the next frame's local half of GetCutoff."""
+def _sharded_frame(pg, cfg: ShardConfig, sh: _Shard, bufs: _Bufs):
+    """One sharded frame on the slots ``bufs.slots``: global GetCutoff,
+    local expand (K1) of the scores row, route (K7), local dedup (K6),
+    routed eps closure, global rebase by K3's shard mode, which updates
+    the slots' state, writes row t of the chunk's outputs, the next
+    frame's local half of GetCutoff and scores row."""
     fc = cfg.frontier
     K, Sp, Pn = fc.frontier_size, cfg.part_size, cfg.num_parts
+    s = bufs.slots
+    st = s.state
 
     cutoff, adaptive_beam = _global_cutoff(st, cfg, sh.group, bufs)
-    ex, next_cutoff = _emit_expand(st, scores_t, pg, fc, cutoff, adaptive_beam, sh.group,
-                                   with_src_slot=True)
+    ex, next_cutoff = _emit_expand(st, s.scores_t, pg, fc, cutoff, adaptive_beam, sh.group,
+                                   with_src_slot=True, bufs=bufs)
     rt = _route(ex.dst, ex.cost, ex.src_slot, ex.arc_id, Sp, Pn, cfg.route_cap, sh.group,
                 cutoff=next_cutoff, slot_add=sh.my_base, arc_add=sh.em_off, bufs=bufs.routes,
                 key="em")
@@ -623,27 +657,27 @@ def _sharded_frame(st: StepState, scores_t, pg, cfg: ShardConfig, sh: _Shard, bu
     carry = _sharded_eps_closure(
         lambda s: _sharded_eps_iteration(s, next_cutoff, pg, cfg, sh, bufs), mid, cfg, sh, bufs,
         em_overflow=(ex.overflow, rt.overflow), em_num_unique=sel.num_unique, reduce=True)
-    best, num_active, flags = _reduced(carry, sh.group)
+    best, num_active, flags = _reduced(carry, sh.group, bufs)
     tin = ShardTailInputs(mid.states, mid.costs, best, num_active, flags, cand_idx=sel.cand_idx,
                           gslot=rt.gslot, arc=rt.arc, bp_eps=carry.out, red_min=carry.red_min,
                           red_count=carry.red_count)
-    frame_tail_shard(bufs.args, st, cutoff, tin, bufs.chunk["lengths"], bufs.chunk["outs"],
-                     sh.my_base, local=bufs.cutoff["local"])
+    frame_tail_shard(s, cutoff, tin, sh.my_base, local=bufs.cutoff["local"])
 
 
-def _sharded_lattice_frame(st: StepState, scores_t, pg, cfg: ShardLatticeConfig, sh: _Shard,
-                           bufs: _Bufs):
-    """One sharded lattice frame: global GetCutoff, expand (K1), route
-    (K7) with source states, per-shard dedup + slack-selected records
-    (K2), routed record-emitting eps closure, global rebase by K3's shard
-    mode."""
+def _sharded_lattice_frame(pg, cfg: ShardLatticeConfig, sh: _Shard, bufs: _Bufs):
+    """One sharded lattice frame on the slots ``bufs.slots``: global
+    GetCutoff, expand (K1), route (K7) with source states, per-shard dedup
+    + slack-selected records (K2), routed record-emitting eps closure,
+    global rebase by K3's shard mode."""
     sc = cfg.shard
     fc = sc.frontier
     K, Sp, Pn = fc.frontier_size, sc.part_size, sc.num_parts
+    s = bufs.slots
+    st = s.state
 
     cutoff, adaptive_beam = _global_cutoff(st, sc, sh.group, bufs)
-    ex, next_cutoff = _emit_expand(st, scores_t, pg, fc, cutoff, adaptive_beam, sh.group,
-                                   with_src_slot=False)
+    ex, next_cutoff = _emit_expand(st, s.scores_t, pg, fc, cutoff, adaptive_beam, sh.group,
+                                   with_src_slot=False, bufs=bufs)
     # K1's src_state is the source slot's state on every lane of an active
     # slot, so on every finite lane.
     sb = cfg.lattice_beam + 1e-4
@@ -659,35 +693,55 @@ def _sharded_lattice_frame(st: StepState, scores_t, pg, cfg: ShardLatticeConfig,
         lambda s: _sharded_lattice_eps_iteration(s, next_cutoff, pg, cfg, sh, bufs), mid, sc, sh,
         bufs, em_overflow=(rt.overflow, ex.overflow, sel.rec_overflow),
         em_num_unique=sel.num_unique, reduce=True)
-    best, num_active, flags = _reduced(carry, sh.group)
+    best, num_active, flags = _reduced(carry, sh.group, bufs)
     tin = ShardTailInputs(mid.states, mid.costs, best, num_active, flags,
                           em_records=sel.records, eps_records=carry.out, red_min=carry.red_min,
                           red_count=carry.red_count)
-    frame_tail_shard(bufs.args, st, cutoff, tin, bufs.chunk["lengths"], bufs.chunk["outs"],
-                     sh.my_base, local=bufs.cutoff["local"])
+    frame_tail_shard(s, cutoff, tin, sh.my_base, local=bufs.cutoff["local"])
 
 
-def sharded_chunk(frame, pg, scores_tm, lengths, st0: StepState, cfg, sh: _Shard, bufs: _Bufs):
-    """T sharded frames (``frame``: :func:`_sharded_frame` or
-    :func:`_sharded_lattice_frame`) from ``st0``, the original's
-    ``lax.scan`` in ``shard_map``; frames t >= lengths are no-ops.  K3's
-    shard mode writes each frame's outputs into row t of the chunk's
-    stacked buffers, ``t`` in ``bufs.args``, and the next frame's local
-    half of GetCutoff; K8's local half runs on ``st0`` alone.  Returns the
-    final state and the per-frame outputs stacked (T, B, ...)."""
+def frame_driver(lattice: bool, pg, cfg, sh: _Shard, batch: int, width: int,
+                 device) -> ShardDriver:
+    """The kept sharded frame driver of these arguments (the lattice frame
+    when ``lattice``, ``cfg`` a :class:`ShardLatticeConfig`; else the
+    1-best frame), or a new one: its buffers for ``batch`` rows of scores
+    ``width`` wide on ``device``, its frame over ``sh.group``."""
+    dev = torch.device(device)
+    sc = cfg.shard if lattice else cfg
+    key = (lattice, tuple(id(x) for x in pg), cfg, id(sh.group), tuple(sh[1:]), batch, width,
+           str(dev))
+
+    def make():
+        bufs = _bufs(sc, batch, cfg.eps_records if lattice else sc.k_local, width, dev)
+        frame = _sharded_lattice_frame if lattice else _sharded_frame
+        # The driver holds pg and sh (in its frame), so the ids in its key
+        # stay theirs.
+        return ShardDriver(lambda: frame(pg, cfg, sh, bufs), bufs, (sh.group,), dev, batch,
+                           sc.part_size)
+    return driver_for(key, make)
+
+
+def sharded_chunk(drv: ShardDriver, scores_tm, lengths, st0: StepState, cfg):
+    """T sharded frames from ``st0`` on the driver ``drv``'s buffers, the
+    original's ``lax.scan`` in ``shard_map``; frames t >= lengths are
+    no-ops.  K3's shard mode's first-frame mode loads the chunk into the
+    slots and K8's local half runs on its start state; each frame's K3
+    shard mode writes the frame's outputs into row t of the chunk's
+    stacked buffers, the next frame's local half of GetCutoff and scores
+    row.  Returns the final state (a copy) and the per-frame outputs
+    stacked (T, B, ...)."""
     T, B = scores_tm.shape[:2]
     lattice = isinstance(cfg, ShardLatticeConfig)
     sc = cfg.shard if lattice else cfg
     fc = sc.frontier
-    bufs.args.zero_()
-    bufs.chunk.update(lengths=lengths, outs=empty_shard_outs(
-        T, B, fc.frontier_size, fc.eps_iters, lattice, scores_tm.device,
-        cfg.em_records if lattice else 0, cfg.eps_records if lattice else 0))
-    st = StepState(*(x.clone() for x in st0))
-    _start_cutoff(st, sc, bufs)
-    for t in range(T):
-        frame(st, scores_tm[t], pg, cfg, sh, bufs)
-    return st, bufs.chunk["outs"]
+    bufs = drv.bufs
+    outs = empty_shard_outs(T, B, fc.frontier_size, fc.eps_iters, lattice, scores_tm.device,
+                            cfg.em_records if lattice else 0, cfg.eps_records if lattice else 0)
+    frame_start_shard(bufs.slots, FrameIO(scores_tm.contiguous(), lengths, st0, outs))
+    _start_cutoff(bufs.slots.state, sc, bufs)
+    drv.run(T)
+    bufs.slots.io = None  # the chunk's tensors are the caller's now
+    return StepState(*(x.clone() for x in bufs.slots.state)), outs
 
 
 # ---------------------------------------------------------------------------
@@ -813,16 +867,16 @@ class ShardedViterbiDecoder(_ShardedDecoder):
         from kaldi_decoder_tpu_torch.decoders.viterbi import ViterbiResult
 
         scores, lengths, scores_tm, lengths_dev = self._batch(scores, lengths)
-        B = scores_tm.shape[1]
-        bufs = _bufs(self.cfg, B, self.cfg.k_local, self.device)
+        _, B, V = scores_tm.shape
+        drv = frame_driver(False, self._pg, self.cfg, self._sh, B, V, self.device)
+        bufs = drv.bufs
         cut = torch.full((B,), INF, dtype=torch.float32, device=self.device)
         st0 = self._init_state(B)
         carry = _sharded_eps_closure(
             lambda s: _sharded_eps_iteration(s, cut, self._pg, self.cfg, self._sh, bufs),
             st0, self.cfg, self._sh, bufs)
         bp_init = carry.out[0].clone()  # the init closure is batch-invariant
-        stf, outs = sharded_chunk(_sharded_frame, self._pg, scores_tm, lengths_dev, st0,
-                                  self.cfg, self._sh, bufs)
+        stf, outs = sharded_chunk(drv, scores_tm, lengths_dev, st0, self.cfg)
         out = dict(
             bp_init=bp_init.cpu().numpy(),
             bp_emit=outs.bp_emit.cpu().numpy(),
@@ -891,17 +945,17 @@ class ShardedLatticeDecoder(_ShardedDecoder):
         from kaldi_decoder_tpu_torch.decoders.lattice_dev import LatticeDevConfig
 
         scores, lengths, scores_tm, lengths_dev = self._batch(scores, lengths)
-        B = scores_tm.shape[1]
+        _, B, V = scores_tm.shape
         sc = self.cfg.shard
-        bufs = _bufs(sc, B, self.cfg.eps_records, self.device)
+        drv = frame_driver(True, self._pg, self.cfg, self._sh, B, V, self.device)
+        bufs = drv.bufs
         cut = torch.full((B,), INF, dtype=torch.float32, device=self.device)
         st0 = self._init_state(B)
         carry = _sharded_eps_closure(
             lambda s: _sharded_lattice_eps_iteration(s, cut, self._pg, self.cfg, self._sh, bufs),
             st0, sc, self._sh, bufs)
         init_recs = carry.out[0].clone()
-        _, outs = sharded_chunk(_sharded_lattice_frame, self._pg, scores_tm, lengths_dev, st0,
-                                self.cfg, self._sh, bufs)
+        _, outs = sharded_chunk(drv, scores_tm, lengths_dev, st0, self.cfg)
         out = dict(
             init_states=self._global_states(st0.states[0]).cpu().numpy(),
             init_costs=(st0.base[0] + st0.costs[0]).cpu().numpy(),

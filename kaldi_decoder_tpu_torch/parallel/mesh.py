@@ -21,7 +21,12 @@ through the host (:func:`staged`), as gloo must.  Nothing here picks
 another backend or device when the one asked for fails.
 
 Every collective of the decoders goes through the helpers below, which
-count their calls by kind in :data:`collective_calls`.
+count their calls by kind in :data:`collective_calls`.  Given ``out``,
+a helper writes into that buffer (kept by the caller) where it does not
+stage through the host, so that a CUDA graph can hold the call: a
+captured call runs on every replay, and the sharded frame driver
+(``parallel/shard_driver.py``) adds the calls a capture holds to the
+counts on each replay.
 """
 
 from __future__ import annotations
@@ -50,6 +55,17 @@ def initialize_distributed(device_type: str = "cuda", **kwargs) -> None:
         return
     kwargs.setdefault("backend", BACKENDS[device_type])
     dist.init_process_group(**kwargs)
+
+
+def shutdown_distributed() -> None:
+    """Release the kept sharded frame drivers (``shard_driver.release``:
+    their graphs hold NCCL communicators, which NCCL does not destroy
+    while such a graph lives), then
+    ``torch.distributed.destroy_process_group()``."""
+    from kaldi_decoder_tpu_torch.parallel import shard_driver  # it imports this module
+
+    shard_driver.release()
+    dist.destroy_process_group()
 
 
 def make_mesh(
@@ -176,12 +192,15 @@ def staged(x: torch.Tensor, group) -> bool:
     return x.is_cuda and dist.get_backend(group) == "gloo"
 
 
-def all_reduce(x: torch.Tensor, op: str, group) -> torch.Tensor:
+def all_reduce(x: torch.Tensor, op: str, group,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``x`` reduced over ``group`` with ``op`` ("min", "max" or "sum"),
-    a new tensor on ``x``'s device."""
+    on ``x``'s device: in place in ``out`` (``x``'s shape and type), which
+    is returned, unless the call stages through the host; else a new
+    tensor."""
     collective_calls[f"all_reduce_{op}"] += 1
     red = {"min": dist.ReduceOp.MIN, "max": dist.ReduceOp.MAX, "sum": dist.ReduceOp.SUM}[op]
-    y = x.cpu() if staged(x, group) else x.clone()
+    y = x.cpu() if staged(x, group) else x.clone() if out is None else out.copy_(x)
     dist.all_reduce(y, op=red, group=group)
     return y.to(x.device)
 
@@ -204,14 +223,17 @@ def all_gather_into(x: torch.Tensor, out: Optional[torch.Tensor], group) -> torc
     return out
 
 
-def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+def all_to_all(x: torch.Tensor, group, out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``x`` (P, ...) with slice p sent to rank p of ``group``; returns
-    (P, ...) with slice p received from rank p."""
+    (P, ...) with slice p received from rank p: ``out`` (``x``'s shape and
+    type, contiguous) unless the call stages through the host, else a new
+    tensor."""
     collective_calls["all_to_all"] += 1
-    y = x.cpu().contiguous() if staged(x, group) else x.contiguous()
-    out = torch.empty_like(y)
-    dist.all_to_all_single(out, y, group=group)
-    return out.to(x.device)
+    stage = staged(x, group)
+    y = x.cpu().contiguous() if stage else x.contiguous()
+    recv = torch.empty_like(y) if out is None or stage else out
+    dist.all_to_all_single(recv, y, group=group)
+    return recv.to(x.device)
 
 
 def all_gather_object(obj, group) -> List:

@@ -7,16 +7,24 @@ rebuilds the bench workload from its seed, cuts it as phases 12-13 do
 (``SHARD_FRAMES`` frames, ``SHARD_CONFIG``) and runs the
 ``ShardedViterbiDecoder`` and the ``ShardedLatticeDecoder`` of the tree's
 package at P = 1 in this process over NCCL and at P = 2 in two spawned
-ranks sharing ``cuda:0`` over gloo.  For each: one decode to warm up,
-``--reps`` timed decodes (wall ms a frame, host clock around a decode
-that ends in a synchronise), then one decode under the profiler: device
-ms a frame (kernels and copies), busy share (device over wall), device
-activities a frame split into the tree's own kernels (the ``__global__``
-functions of its ``csrc``), collectives and copies, and other (with their
-names), and the collectives a frame by kind.  Rank 0 also times the eps
-step's shard mode and K3's shard mode on the inputs of frame
-``SHARD_FRAME`` that the warm-up decode passed them (kept by the smoke's
-``CallCapture``), while the other rank waits: held bitwise against their
+ranks sharing ``cuda:0`` over gloo.  For each: one decode to warm up (on
+a tree with the sharded frame driver, it captures the frame's graph under
+NCCL), then the warm-up's chunk alone (``graph_shard.sharded_chunk`` on its
+arguments: the first-frame mode, K8's local half and the frames) and the
+whole decode, each timed in turns as the tree runs them ("graph") and
+within ``decoders.driver.eager_frames()`` ("loop"; on a tree without the
+sharded frame driver the two are the same host loop): graph, loop, loop,
+graph, ``--reps`` times (wall ms a frame, host clock around a call that
+ends in a synchronise; the frames replayed), then one chunk of each mode
+under the profiler: device ms a frame (kernels and copies), busy share
+(device over the mode's mean chunk wall), device activities a frame
+split into the tree's own kernels (the ``__global__`` functions of its
+``csrc``), collectives and copies, and other (with their names), and the
+collectives a frame by kind; the captured graph's pool bytes where there
+is one.  Rank 0 also times the eps step's shard mode and K3's shard mode
+on the inputs of frame ``SHARD_FRAME`` that a decode as the loop passed
+them (kept by the smoke's ``CallCapture``: a replayed frame's calls pass
+no wrapper), while the other rank waits: held bitwise against their
 plain versions, device ms by CUDA events over calls back to back, bound
 and share of the bound (the smoke's work counts), at the kernel's own
 cluster size and, where the tree's wrappers take ``clusters``, at 8, 4,
@@ -189,37 +197,71 @@ def time_shard_kernels(cs, kept, eps_iters):
         t["share_of_bound"] = t["bound_ms"] / t["ms"]
         out["eps_step_shard"] = t
     args, kw = kept["frame_tail_shard", cs.SHARD_FRAME]
-    targs, st, cutoff, tin, lengths, outs, slot_base = args
-    local = kw.get("local")  # K8's local half folded in (this PR's trees)
+    local = kw.get("local")  # K8's local half folded in (on trees that fold it)
     lkw = {} if local is None else dict(local=local)
-    row = int(targs[0])
+    if hasattr(args[0], "state"):
+        # K3's table holds the chunk (the sharded frame driver's trees):
+        # (slots, cutoff, tin, slot_base), the slots as the call found them.
+        slots, cutoff, tin, slot_base = args
+        st, lengths, row, io = slots.state, slots.lengths, int(slots.args[0]), slots.io
+
+        def held(extra):
+            got = cs.clone(args)
+            kframe.frame_tail_shard(*got, **extra, **cs.clone(lkw))
+            return got[0].state, [x[row] for x in io.outs]
+
+        def timed(extra, with_local=True):
+            """A call on a chunk of its own of 64 frames from frame row's state,
+            begun now."""
+            B, K = st.states.shape
+            scores = io.scores[row:].repeat(-(-64 // (io.scores.shape[0] - row)), 1, 1)[:64]
+            t_io = kframe.FrameIO(scores.contiguous(), (lengths - row).clamp(min=0), st,
+                                  kframe.empty_shard_outs(
+                                      64, B, K, io.outs[1].shape[2], tin.em_records is not None,
+                                      st.states.device,
+                                      *((io.outs[0].shape[2], io.outs[1].shape[3])
+                                        if tin.em_records is not None else ())))
+            t_slots = kframe.ShardSlots(B, K, io.scores.shape[2], st.states.device)
+            kframe.frame_start_shard(t_slots, t_io)
+            t_kw = cs.clone(lkw) if with_local else {}
+            return lambda: kframe.frame_tail_shard(t_slots, cutoff, tin, slot_base, **extra,
+                                                   **t_kw)
+    else:  # the table holds t alone: (targs, st, cutoff, tin, lengths, outs, slot_base)
+        targs, st, cutoff, tin, lengths, outs, slot_base = args
+        row = int(targs[0])
+
+        def held(extra):
+            got = cs.clone(args)
+            kframe.frame_tail_shard(*got, **extra, **cs.clone(lkw))
+            return got[1], [x[row] for x in got[5]]
+
+        def timed(extra, with_local=True):
+            """A call on a table of its own from t = 0, into outputs of 64 rows."""
+            B, K = st.states.shape
+            lattice = tin.em_records is not None
+            t_outs = kframe.empty_shard_outs(
+                64, B, K, outs[1].shape[2], lattice, st.states.device,
+                *((outs[0].shape[2], outs[1].shape[3]) if lattice else ()))
+            t_args, t_st = kframe.shard_args(st.states.device), cs.clone(st)
+            t_kw = cs.clone(lkw) if with_local else {}
+            return lambda: kframe.frame_tail_shard(t_args, t_st, cutoff, tin, lengths, t_outs,
+                                                   slot_base, **extra, **t_kw)
     fa = lengths > row
     B, K = st.states.shape
-    lattice = tin.em_records is not None
     final, ref = kframe.frame_tail_shard_plain(st, cutoff, tin, fa, slot_base, **lkw)[:2]
     chosen = getattr(kframe, "shard_cluster_size", None)
     t = dict(clusters=chosen(B, K) if chosen else 1, ms_by_clusters={}, folded=local is not None)
-    t_outs = kframe.empty_shard_outs(
-        64, B, K, outs[1].shape[2], lattice, st.states.device,
-        *((outs[0].shape[2], outs[1].shape[3]) if lattice else ()))
     for extra, label in sizes(kframe.frame_tail_shard):
-        got = cs.clone(args)
-        kframe.frame_tail_shard(*got, **extra, **cs.clone(lkw))
+        got_st, got_row = held(extra)
         torch.cuda.synchronize()
-        cs.same_fields(final, got[1], "K3's shard mode (state)", f"{label} blocks")
-        cs.same_fields(ref, type(ref)(*(x[row] for x in got[5])), "K3's shard mode (outputs)",
-                       f"{label} blocks")
-        # Timed on a table of its own from t = 0, into outputs of 64 rows.
-        t_args, t_st, t_kw = kframe.shard_args(st.states.device), cs.clone(st), cs.clone(lkw)
-        t["ms_by_clusters"][label] = cs.device_ms(lambda: kframe.frame_tail_shard(
-            t_args, t_st, cutoff, tin, lengths, t_outs, slot_base, **extra, **t_kw))
+        cs.same_fields(final, got_st, "K3's shard mode (state)", f"{label} blocks")
+        cs.same_fields(ref, type(ref)(*got_row), "K3's shard mode (outputs)", f"{label} blocks")
+        t["ms_by_clusters"][label] = cs.device_ms(timed(extra))
     t["ms"] = t["ms_by_clusters"].pop("default")
     t["bound_ms"], t["bound_by"] = cs.bound_ms(*cs.k3_shard_work(tin, fa, local))
     t["share_of_bound"] = t["bound_ms"] / t["ms"]
     if local is not None:  # the same call without the local half
-        t_args, t_st = kframe.shard_args(st.states.device), cs.clone(st)
-        t["alone_ms"] = cs.device_ms(lambda: kframe.frame_tail_shard(
-            t_args, t_st, cutoff, tin, lengths, t_outs, slot_base))
+        t["alone_ms"] = cs.device_ms(timed({}, with_local=False))
     out["k3_shard"] = t
     return out
 
@@ -258,10 +300,13 @@ def measure(tree, P, rank, reps):
     """Both sharded decoders on this rank of a group of P (the default
     group, made), and on rank 0 the two shard-mode kernels on frame
     SHARD_FRAME's inputs: {kind: numbers}."""
+    import contextlib
+
     import torch
     import torch.distributed as dist
 
     from kaldi_decoder_tpu_torch import config_for_graph
+    from kaldi_decoder_tpu_torch.decoders import driver
     from kaldi_decoder_tpu_torch.parallel import (
         ShardedLatticeDecoder,
         ShardedViterbiDecoder,
@@ -290,41 +335,80 @@ def measure(tree, P, rank, reps):
         capture = {"eps_step_shard": {D + cs.SHARD_FRAME * D},
                    "frame_tail_shard": {cs.SHARD_FRAME}, kname: {eps_i},
                    "route_recv": {eps_i}}
-        with cs.CallCapture(graph_shard, capture) as cap:
+        # The warm-up (under NCCL it captures the frame's graph), its chunk's
+        # arguments kept to run the chunk alone.
+        with cs.CallCapture(graph_shard, {"sharded_chunk": {0}}) as warm:
             res = dec.decode(sc, sl)
+        chunk_args, _ = warm.kept["sharded_chunk", 0]
+        runs = {"chunk": lambda: graph_shard.sharded_chunk(*chunk_args),
+                "decode": lambda: dec.decode(sc, sl)}
         frames = res.num_active.shape[0]
-        walls = []
+        walls = {(r, m): [] for r in runs for m in ("graph", "loop")}
+        replays = {m: 0 for m in ("graph", "loop")}
+        coll = {}
         for _ in range(reps):
+            for what, run in runs.items():
+                for mode in ("graph", "loop", "loop", "graph"):
+                    dist.barrier()
+                    with driver.eager_frames() if mode == "loop" else contextlib.nullcontext():
+                        torch.cuda.synchronize()
+                        collective_calls.clear()
+                        r0 = driver.replays
+                        t0 = time.perf_counter()
+                        run()
+                        torch.cuda.synchronize()
+                        walls[what, mode].append((time.perf_counter() - t0) * 1e3 / frames)
+                        if what == "decode":
+                            replays[mode] += driver.replays - r0
+                            coll[mode] = dict(collective_calls)
+        out[kind] = dict(frames=frames, replays_per_decode={
+            m: n / (2 * reps) for m, n in replays.items()})
+        pool = None
+        if hasattr(graph_shard, "frame_driver"):
+            drv = graph_shard.frame_driver(kind == "lattice", dec._pg, dec.cfg, dec._sh, cs.B,
+                                           cs.V, dec.device)
+            pool = drv.pool_bytes
+        out[kind]["graph_pool_bytes"] = pool
+        for mode in ("graph", "loop"):
             dist.barrier()
-            torch.cuda.synchronize()
-            collective_calls.clear()
-            t0 = time.perf_counter()
-            dec.decode(sc, sl)
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t0) * 1e3 / frames)
-        coll = dict(collective_calls)
+            with driver.eager_frames() if mode == "loop" else contextlib.nullcontext():
+                k_ms, c_ms, acts, _ = cs.profiled_device_ms(runs["chunk"], top=None)
+            split = cs.activity_split(acts, names)
+            dev = (k_ms + c_ms) / frames
+            chunk_walls = walls["chunk", mode]
+            out[kind][mode] = dict(
+                chunk_wall_ms_per_frame=chunk_walls,
+                decode_wall_ms_per_frame=walls["decode", mode], device_ms_per_frame=dev,
+                kernel_ms_per_frame=k_ms / frames, copy_ms_per_frame=c_ms / frames,
+                busy=dev / (sum(chunk_walls) / len(chunk_walls)),
+                activities_per_frame=sum(v[1] for v in split.values()) / frames,
+                split_per_frame={g: dict(ms=ms / frames, activities=n / frames)
+                                 for g, (ms, n, _) in split.items()},
+                other=[(name, n / frames) for name, n in split["other"][2]],
+                collectives_per_frame={k: v / frames for k, v in coll[mode].items()},
+                collectives_a_frame=sum(coll[mode].values()) / frames)
         dist.barrier()
-        k_ms, c_ms, acts, _ = cs.profiled_device_ms(lambda: dec.decode(sc, sl), top=None)
-        split = cs.activity_split(acts, names)
-        dev = (k_ms + c_ms) / frames
-        out[kind] = dict(
-            frames=frames, wall_ms_per_frame=walls, device_ms_per_frame=dev,
-            kernel_ms_per_frame=k_ms / frames, copy_ms_per_frame=c_ms / frames,
-            busy=dev / (sum(walls) / len(walls)),
-            activities_per_frame=sum(v[1] for v in split.values()) / frames,
-            split_per_frame={g: dict(ms=ms / frames, activities=n / frames)
-                             for g, (ms, n, _) in split.items()},
-            other=[(name, n / frames) for name, n in split["other"][2]],
-            collectives_per_frame={k: v / frames for k, v in coll.items()},
-            collectives_a_frame=sum(coll.values()) / frames)
+        with driver.eager_frames(), cs.CallCapture(graph_shard, capture) as cap:
+            dec.decode(sc, sl)
         if rank == 0:  # the other rank waits at the barrier: the card is this rank's alone
             out[kind]["kernels"] = time_shard_kernels(cs, cap.kept, D)
             if D:
                 out[kind]["kernels"]["eps_call"] = time_eps_call(cs, cap.kept, kind, D)
         dist.barrier()
-        del dec, res, cap
+        del dec, res, cap, warm, chunk_args, runs
         torch.cuda.empty_cache()
     return out
+
+
+def shutdown():
+    """The tree's ``shutdown_distributed`` (its kept sharded frame drivers
+    released first), or, in a tree before the sharded frame driver (which
+    keeps no graph), ``destroy_process_group``."""
+    import torch.distributed as dist
+
+    from kaldi_decoder_tpu_torch.parallel import mesh
+
+    getattr(mesh, "shutdown_distributed", dist.destroy_process_group)()
 
 
 def rank_main(tree, rank, port, reps, queue):
@@ -332,7 +416,6 @@ def rank_main(tree, rank, port, reps, queue):
     try:
         sys.path.insert(0, tree)
         import torch
-        import torch.distributed as dist
 
         from kaldi_decoder_tpu_torch.parallel import initialize_distributed
 
@@ -342,7 +425,7 @@ def rank_main(tree, rank, port, reps, queue):
         try:
             queue.put((rank, "ok", measure(tree, 2, rank, reps)))
         finally:
-            dist.destroy_process_group()
+            shutdown()
     except BaseException:
         queue.put((rank, "error", traceback.format_exc()))
         raise
@@ -380,14 +463,14 @@ def main():
     ap.add_argument("--tree", default=REPO,
                     help="root of the checkout whose port is measured")
     ap.add_argument("--tag", default="new", help="name of the output file's run")
-    ap.add_argument("--reps", type=int, default=2, help="timed decodes of each")
+    ap.add_argument("--reps", type=int, default=1,
+                    help="rounds of timed decodes (graph, loop, loop, graph)")
     ap.add_argument("--runs", action="store_true",
                     help="record K7's (owner, state) run lengths at P = 1 instead of timing")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
     import torch
-    import torch.distributed as dist
 
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_shard: no CUDA device")
@@ -410,7 +493,7 @@ def main():
         else:
             p1 = measure(tree, 1, 0, args.reps)
     finally:
-        dist.destroy_process_group()
+        shutdown()
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     if args.runs:
         line = json.dumps({"tag": args.tag, "tree": args.tree, "card": cs.card_line(),
@@ -432,12 +515,18 @@ def main():
     for P, ranks in ((1, [p1]), (2, p2)):
         for kind in ("viterbi", "lattice"):
             r = ranks[0][kind]
-            split = ", ".join(f"{g} {v['activities']:.2f}"
-                              for g, v in r["split_per_frame"].items())
-            print(f"{args.tag} P={P} {kind}: wall {r['wall_ms_per_frame']} ms a frame, device "
-                  f"{r['device_ms_per_frame']:.4f}, busy {r['busy']:.3f}, activities "
-                  f"{r['activities_per_frame']:.2f} a frame {split}; collectives "
-                  f"{r['collectives_a_frame']:.2f} a frame", flush=True)
+            for mode in ("graph", "loop"):
+                m = r[mode]
+                split = ", ".join(f"{g} {v['activities']:.2f} ({v['ms']:.4f} ms)"
+                                  for g, v in m["split_per_frame"].items())
+                print(f"{args.tag} P={P} {kind} {mode} ({r['replays_per_decode'][mode]:.0f} "
+                      f"frames replayed a decode): chunk wall {m['chunk_wall_ms_per_frame']} ms "
+                      f"a frame, decode wall {m['decode_wall_ms_per_frame']}, "
+                      f"device {m['device_ms_per_frame']:.4f} (kernels "
+                      f"{m['kernel_ms_per_frame']:.4f}), busy {m['busy']:.3f}, activities "
+                      f"{m['activities_per_frame']:.2f} a frame {split}; collectives "
+                      f"{m['collectives_a_frame']:.2f} a frame", flush=True)
+            print(f"{args.tag} P={P} {kind}: the graph's pool {r['graph_pool_bytes']}", flush=True)
             for name, k in r["kernels"].items():
                 if name == "eps_call":
                     print(f"{args.tag} P={P} {kind} frame {cs.SHARD_FRAME}: the first eps "

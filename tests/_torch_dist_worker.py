@@ -16,11 +16,22 @@ rank) and ``kw``.  A decoder case may name ``capture``: functions of
 ``parallel.graph_shard`` whose calls' positional arguments the rank keeps
 during the decode (tensors cloned, in tuples and named tuples too;
 numbers, strings and None kept; anything else as None); its result is
-then (the decode result, {name: [arguments of each call]}).
+then (the decode result, {name: [arguments of each call]}).  A decoder
+case with ``decodes`` instead of ``scores`` and ``lengths`` runs each
+(scores, lengths, mode) on the one decoder, in order: mode "driver" as a
+user calls it, "loop" within ``decoders.driver.eager_frames()``, "held"
+within ``parallel.shard_driver.held_counts`` and then counted as 2
+replays of what it held (``add_replays``); its result is a list of
+{"result", "launches" (each of ``shard_driver.COUNTED``'s counts and the
+first-frame mode's and K8's local half's, their growth over the call),
+"calls" (the growth of ``mesh.collective_calls`` by kind), "replays"
+(of ``decoders.driver.replays``), "held" (mode "held": (launches, calls)
+held)}.
 
     python tests/_torch_dist_worker.py JOB RANK
 """
 
+import contextlib
 import os
 import pickle
 import subprocess
@@ -73,11 +84,36 @@ def kept(x):
     return x if x is None or isinstance(x, (bool, int, float, str)) else None
 
 
+def decode_counted(dec, scores, lengths, mode):
+    """One decode of a ``decodes`` case (see the module docstring)."""
+    from collections import Counter
+
+    from kaldi_decoder_tpu_torch.decoders import driver
+    from kaldi_decoder_tpu_torch.kernels.cutoff import global_cutoff_local
+    from kaldi_decoder_tpu_torch.kernels.frame import frame_start
+    from kaldi_decoder_tpu_torch.parallel import shard_driver
+    from kaldi_decoder_tpu_torch.parallel.mesh import collective_calls
+
+    counted = shard_driver.COUNTED + (frame_start, global_cutoff_local)
+    n0, c0, r0 = [f.launches for f in counted], Counter(collective_calls), driver.replays
+    out = {"held": None}
+    if mode == "held":
+        box = {}
+        held = shard_driver.held_counts(lambda: box.update(result=dec.decode(scores, lengths)))
+        shard_driver.add_replays(*held, 2)
+        out.update(result=box["result"], held=(held[0], dict(held[1])))
+    else:
+        with driver.eager_frames() if mode == "loop" else contextlib.nullcontext():
+            out["result"] = dec.decode(scores, lengths)
+    out.update(launches=[f.launches - n for f, n in zip(counted, n0)],
+               calls=dict(collective_calls - c0), replays=driver.replays - r0)
+    return out
+
+
 def main():
     path, rank = sys.argv[1], int(sys.argv[2])
     sys.path.insert(0, os.path.dirname(HERE))
     import torch
-    import torch.distributed as dist
 
     import kaldi_decoder_tpu_torch.decoders as decoders
     import kaldi_decoder_tpu_torch.parallel as parallel
@@ -100,6 +136,9 @@ def main():
             continue
         cls = getattr(parallel, case["decoder"], None) or getattr(decoders, case["decoder"])
         dec = cls(*case["args"], mesh=mesh, device="cpu", **case["kw"])
+        if "decodes" in case:
+            results[name] = [decode_counted(dec, *d) for d in case["decodes"]]
+            continue
         captured = {fn: [] for fn in case.get("capture", ())}
         orig = {fn: getattr(graph_shard, fn) for fn in captured}
 
@@ -120,7 +159,7 @@ def main():
         results[name] = (res, captured) if captured else res
     with open(f"{path}.rank{rank}", "wb") as f:
         pickle.dump(results, f)
-    dist.destroy_process_group()
+    parallel.shutdown_distributed()
 
 
 if __name__ == "__main__":

@@ -2012,10 +2012,11 @@ def test_eps_step_shard_kernel_min_ties(card, lattice, zero, clusters):
 @pytest.mark.parametrize("nb", [16, 1])
 def test_frame_tail_shard_kernel_matches_plain(card, nb, lattice, clusters, fold):
     """K3's shard mode against ``frame_tail_shard_plain`` over two frames
-    of one chunk on the same table and state: row t of every stacked
-    output and the state written in place, bitwise, t advanced and the
-    count cleared; row 0 freezes after the first frame (at B = 1 it is
-    live, then frozen), row 1 has no token on any rank (best +inf); at
+    of one chunk begun by its first-frame mode on the slots: row t of every
+    stacked output (written through the table's pointers) and the state
+    written in place, bitwise, the next scores row copied into the slot, t
+    advanced and the count cleared; row 0 freezes after the first frame
+    (at B = 1 it is live, then frozen), row 1 has no token on any rank (best +inf); at
     the kernel's own cluster size (more than one block a row at B = 16)
     and at 8, 4, 2 and 1 blocks a row.  With ``fold``, K8's local half of
     the next frame folded in (from the eps closure's first smallest
@@ -2026,17 +2027,19 @@ def test_frame_tail_shard_kernel_matches_plain(card, nb, lattice, clusters, fold
     from kaldi_decoder_tpu_torch.decoders.frontier import StepState
     from kaldi_decoder_tpu_torch.kernels.cutoff import first_min_count, global_cutoff_local_plain
     from kaldi_decoder_tpu_torch.kernels.frame import (
+        FrameIO,
+        ShardSlots,
         ShardTailInputs,
         empty_shard_outs,
+        frame_start_shard,
         frame_tail,
         frame_tail_shard,
         frame_tail_shard_plain,
-        shard_args,
         shard_cluster_size,
     )
 
     rng = np.random.default_rng(nb + 100 * lattice)
-    K, D, R, Re, T, my_base = 2048, 1, 4096, 1536, 4, 2048
+    K, D, R, Re, T, my_base, Vs = 2048, 1, 4096, 1536, 4, 2048, 500
     N = 2 * 30720
     if nb == 16 and clusters == 0:
         assert shard_cluster_size(nb, K) > 1
@@ -2050,14 +2053,15 @@ def test_frame_tail_shard_kernel_matches_plain(card, nb, lattice, clusters, fold
                                      .astype(np.float32)).to(card),
                     torch.from_numpy(rng.uniform(-50, 0, size=nb).astype(np.float32))
                     .to(card))
-    sts = [StepState(*(x.clone() for x in st0)) for _ in range(2)]
-    outs = [empty_shard_outs(T, nb, K, D, lattice, card, R, Re) for _ in range(2)]
-    for o in outs:
-        for x in o:
-            x.zero_()
-    targs = [shard_args(card) for _ in range(2)]
+    ref_st = StepState(*(x.clone() for x in st0))  # plain's carried state
+    outs = empty_shard_outs(T, nb, K, D, lattice, card, R, Re)
+    for x in outs:
+        x.zero_()
     lengths = torch.full((nb,), T, dtype=torch.int32, device=card)
     lengths[0] = 1
+    scores = torch.from_numpy(rng.uniform(-9, 0, size=(T, nb, Vs)).astype(np.float32)).to(card)
+    slots = ShardSlots(nb, K, Vs, card)
+    frame_start_shard(slots, FrameIO(scores, lengths, st0, outs))
     m = {None: 0, "prefix": 700, "costs": K}[fold]
     locs = [None, None]
     if fold:
@@ -2096,18 +2100,18 @@ def test_frame_tail_shard_kernel_matches_plain(card, nb, lattice, clusters, fold
                               torch.tensor([t, 1 - t], dtype=torch.int32, device=card),
                               **extra)
         cutoff = torch.from_numpy(rng.uniform(5, 15, size=nb).astype(np.float32)).to(card)
-        final, want, nxt = frame_tail_shard_plain(sts[0], cutoff, tin, lengths > t, my_base,
+        final, want, nxt = frame_tail_shard_plain(ref_st, cutoff, tin, lengths > t, my_base,
                                                   locs[0])
         before = frame_tail.launches
-        frame_tail_shard(targs[1], sts[1], cutoff, tin, lengths, outs[1], my_base,
-                         clusters=clusters, local=locs[1])
+        frame_tail_shard(slots, cutoff, tin, my_base, clusters=clusters, local=locs[1])
         torch.cuda.synchronize()
         assert frame_tail.launches == before + 1
-        for name, w, g in zip(final._fields, final, sts[1]):
+        for name, w, g in zip(final._fields, final, slots.state):
             _same_bits(w, g, f"frame {t}: state.{name}")
-        for name, w, g in zip(want._fields, want, outs[1]):
+        for name, w, g in zip(want._fields, want, outs):
             _same_bits(w, g[t], f"frame {t}: {name}")
-        assert targs[1].tolist() == [t + 1, 0]
+        _same_bits(scores[t + 1], slots.scores_t, f"frame {t}: the next scores row")
+        assert slots.args[:3].tolist() == [t + 1, 0, T]
         if fold:
             fresh = global_cutoff_local_plain(final.costs, m)
             for name, w, g, f in zip(nxt._fields, nxt, locs[1], fresh):
@@ -2115,8 +2119,140 @@ def test_frame_tail_shard_kernel_matches_plain(card, nb, lattice, clusters, fold
                     _same_bits(w, g, f"frame {t}: local.{name}")
                     _same_bits(f, g, f"frame {t}: local.{name} against K8's local half")
             locs[0] = nxt
-        for dst, src in zip(sts[0], final):
+        for dst, src in zip(ref_st, final):
             dst.copy_(src)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frames", [5, 1, 0])
+@pytest.mark.parametrize("lattice", [False, True], ids=["1-best", "lattice"])
+@pytest.mark.parametrize("nb", [16, 1])
+def test_frame_start_shard_kernel_matches_plain(card, nb, lattice, frames):
+    """K3's shard mode's first-frame mode against
+    ``frame_start_shard_plain``, bitwise: the slots' state, row lengths
+    and scores row (kept where the chunk has no frame) and every word of
+    the table (t 0, no row done, the frame count, the scores' and each
+    output's address, 0 past the last); one launch counted."""
+    from kaldi_decoder_tpu_torch.decoders.frontier import StepState
+    from kaldi_decoder_tpu_torch.kernels.frame import (
+        FrameIO,
+        ShardSlots,
+        empty_shard_outs,
+        frame_start,
+        frame_start_shard,
+        frame_start_shard_plain,
+    )
+
+    rng = np.random.default_rng(nb + 10 * frames + lattice)
+    K, D, Vs = 2048, 1, 500
+    slots = ShardSlots(nb, K, Vs, card)
+    slots.args.fill_(-7)  # a table left by an earlier chunk
+    slots.scores_t.fill_(3.5)
+    costs = rng.uniform(0, 9, size=(nb, K)).astype(np.float32)
+    costs[:, 5] = -0.0
+    costs[:, K // 2:] = np.inf
+    st0 = StepState(torch.from_numpy(rng.integers(0, 9000, (nb, K)).astype(np.int32)).to(card),
+                    torch.from_numpy(costs).to(card),
+                    torch.from_numpy(rng.uniform(-50, 0, nb).astype(np.float32)).to(card))
+    io = FrameIO(torch.from_numpy(rng.uniform(-9, 0, (frames, nb, Vs)).astype(np.float32)).to(card),
+                 torch.from_numpy(rng.integers(0, frames + 1, nb).astype(np.int32)).to(card), st0,
+                 empty_shard_outs(frames, nb, K, D, lattice, card, 4096, 1536))
+    want = frame_start_shard_plain(io)
+    before = frame_start.launches
+    frame_start_shard(slots, io)
+    torch.cuda.synchronize()
+    assert frame_start.launches == before + 1
+    for name, w, g in zip(want.state._fields, want.state, slots.state):
+        _same_bits(w, g, f"state.{name}")
+    _same_bits(want.lengths, slots.lengths, "lengths")
+    _same_bits(want.scores_t if frames else torch.full_like(slots.scores_t, 3.5),
+               slots.scores_t, "scores row 0")
+    assert slots.args.tolist() == want.args.tolist()
+    assert slots.io is io
+
+
+@pytest.fixture
+def nccl_group(card):
+    """A process group of this process alone over NCCL (P = 1), shut down
+    after the test (the sharded frame drivers released first)."""
+    import socket
+
+    import torch.distributed as dist
+
+    from kaldi_decoder_tpu_torch.parallel import initialize_distributed, shutdown_distributed
+
+    if dist.is_initialized():
+        pytest.skip("a process group is already made in this process")
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    initialize_distributed(backend="nccl", init_method=f"tcp://localhost:{port}", rank=0,
+                           world_size=1)
+    yield
+    shutdown_distributed()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["viterbi", "lattice"])
+def test_shard_driver_graph_matches_loop(card, nccl_group, kind):
+    """The sharded decoders at P = 1 over NCCL: two decodes of other
+    lengths on one decoder replayed from the sharded frame driver's
+    captured graph, against the same decodes as the host loop
+    (``driver.eager_frames``), bitwise in every field of the results; the
+    graph's decodes count the loop's launches of every kernel and its
+    collective calls by kind (a replay adds what the capture holds), and
+    every frame but the driver's first is a replay."""
+    from kaldi_decoder_tpu_torch.decoders import driver
+    from kaldi_decoder_tpu_torch.kernels.cutoff import global_cutoff_local
+    from kaldi_decoder_tpu_torch.kernels.frame import frame_start
+    from kaldi_decoder_tpu_torch.parallel import (
+        ShardedLatticeDecoder,
+        ShardedViterbiDecoder,
+        make_mesh,
+    )
+    from kaldi_decoder_tpu_torch.parallel.mesh import collective_calls
+    from kaldi_decoder_tpu_torch.parallel.shard_driver import COUNTED
+
+    g = _eps_graph(1)
+    fc = config_for_graph(g, frontier_size=64, max_active=48, beam=10.0, rem_budget=4096)
+    mesh = make_mesh(1, "model", device_type="cuda")
+    rng = np.random.default_rng(3)
+    decodes = [(np.log(rng.dirichlet(np.ones(V), size=(4, T))).astype(np.float32),
+                np.array(lens, np.int32)) for T, lens in ((20, [20, 7, 13, 0]), (11, [3, 11, 11, 9]))]
+    counted = COUNTED + (frame_start, global_cutoff_local)
+    fields = (("bp_init", "bp_emit", "bp_eps", "frontier_states", "frontier_costs",
+               "num_active", "best_costs", "cutoffs", "overflows", "saturations")
+              if kind == "viterbi" else
+              ("init_states", "init_costs", "init_eps_records", "frame_states", "frame_costs",
+               "em_records", "eps_records", "num_active", "cutoffs", "overflows", "saturations"))
+    runs = []
+    for eager in (True, False):
+        if kind == "viterbi":
+            dec = ShardedViterbiDecoder(g, fc, mesh=mesh, pad_time_to=8, device=card)
+        else:
+            dec = ShardedLatticeDecoder(g, fc, lattice_beam=5.0, mesh=mesh, em_records=512,
+                                        eps_records=256, pad_time_to=8, device=card)
+        per = []
+        for scores, lengths in decodes:
+            n0, r0 = [f.launches for f in counted], driver.replays
+            collective_calls.clear()
+            with driver.eager_frames() if eager else contextlib.nullcontext():
+                res = dec.decode(scores, lengths)
+            torch.cuda.synchronize()
+            per.append((res, [f.launches - n for f, n in zip(counted, n0)],
+                        dict(collective_calls), driver.replays - r0))
+        runs.append(per)
+    for i, ((re_, ne, ce, _), (rg, ng, cg, replays)) in enumerate(zip(*runs)):
+        for f in fields:
+            a, b = np.asarray(getattr(re_, f)), np.asarray(getattr(rg, f))
+            if a.dtype == np.float32:
+                a, b = a.view(np.int32), b.view(np.int32)
+            assert np.array_equal(a, b), (i, f)
+        assert ng == ne, (i, ng, ne)
+        assert cg == ce, (i, cg, ce)
+        frames = rg.num_active.shape[0]
+        assert replays == frames - (1 if i == 0 else 0), (i, replays, frames)
+        assert ng[-2:] == [1, 1]  # the first-frame mode and K8's local half once a chunk
 
 
 def _route_cluster_cases():

@@ -183,7 +183,7 @@ def one_rank_group(tmp_path):
     parallel.initialize_distributed(device_type="cpu", init_method=f"file://{tmp_path}/store",
                                     rank=0, world_size=1)
     yield
-    dist.destroy_process_group()
+    parallel.shutdown_distributed()
 
 
 def test_mesh_helpers(one_rank_group):
