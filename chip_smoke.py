@@ -24,7 +24,8 @@ Phases (any failure raises, and the process exits non-zero):
   1. build: the CUDA kernels (K1 ``csrc/expand.cu``, which reads each
      active slot's em_block row itself, K2 ``csrc/dedup_rec.cu``, K3
      ``csrc/frame.cu``, the frame driver's tail, K4 ``csrc/sweep.cu``, K5
-     ``csrc/eps.cu``, K6 ``csrc/dedup.cu``, the eps step
+     ``csrc/eps.cu`` (with the eps step's shard mode and its reduce mode),
+     K6 ``csrc/dedup.cu``, the eps step
      ``csrc/eps_step.cuh`` (the last step of K6's and K2's eps calls), and
      the
      standalone row
@@ -181,6 +182,34 @@ Phases (any failure raises, and the process exits non-zero):
      frame's calls do not pass through the wrappers' Python), against
      plain (bitwise) and times them, while the other rank waits: phase
      2's checks at the shard shapes.
+  14. decoding with H: the CTC topology ``ctc_topo(500)`` over the bench's
+     tokens (500 states, 250,000 emitting arcs, no eps arcs: every decoder
+     derives eps_iters 0), the bench's 16 utterances, ``H_CONFIG`` (the
+     bench's beam and max_active, min_active 30, K derived 512, rem_budget
+     2^18), the lattice decoders at ``H_LATTICE_KW``: after phase 10,
+     ``BatchedViterbiDecoder`` and ``BatchedLatticeDecoder`` (chunks of
+     500, ``device_prune=True``) at full length, each counted (K1, K6 or
+     K2 and K3 once a frame: 3 device activities a frame; K4 and K3's
+     first-frame mode once a chunk) and held on every utterance against
+     ``tests/data/torch_port_h_ref.json`` (phase 4's and phase 6's fields,
+     no overflow or saturation), with wall and device ms a frame and the
+     busy share; K1 (with its source slots), K6, K2, K3 and K4 held against
+     plain and timed at the H shapes; then, with phases 12-13's ranks
+     (P = 1 over NCCL, 249 of 250 frames replayed; P = 2 over gloo),
+     ``ShardedViterbiDecoder`` and ``ShardedLatticeDecoder`` on H at
+     ``H_SHARD_CONFIG``, route buckets of ``H_ROUTE_CAP``, the first
+     ``H_SHARD_FRAMES`` frames, checked as 12-13 against the same file: a
+     sharded frame is 7 launches (K8's merge, K1, K7's sides, K6 or K2,
+     the eps step's reduce mode, K3's shard mode) and 8 collectives, no
+     other device activity once a frame; rank 0 holds the reduce mode on a
+     call of the counted decode (frame 0 under NCCL, SHARD_FRAME or the
+     last frame over gloo) against plain, raw bits, at its own and every
+     cluster size, its outputs set to the bit complement of plain's
+     first, and times it.  Both lattice decoders run again at
+     ``H8_LATTICE_KW`` (lattice beam 8, em_records 2^18) on the first
+     ``H8_FRAMES`` frames (the batched in one chunk, its K2 and K4 held
+     and timed there; the sharded with route buckets of ``H8_ROUTE_CAP``),
+     checked against the reference's ``lattice8`` section.
 Every chunk loop of phases 3-13 runs through a frame driver
 (``decoders/driver.py``; the sharded ones ``parallel/shard_driver.py``,
 under NCCL only: over gloo each exchange is staged through the host, and
@@ -231,6 +260,7 @@ import sys
 import tempfile
 import time
 import traceback
+from typing import NamedTuple, Optional
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -282,6 +312,30 @@ SHARD_FRAMES = 250
 SHARD_LATTICE_BEAM = 8.0
 SHARD_FRAME = 150  # frame whose K1, K6 and K2 calls phase 2 holds at the shard shapes
 PARALLEL_TIMEOUT = 900  # seconds phases 11-13's two ranks may take
+# Phase 14: decoding with H, the CTC topology over the bench's V tokens (no
+# eps arcs: every decoder derives eps_iters 0), on the bench's utterances
+# (scripts/make_torch_h_reference.py).  The bench's beam and max_active,
+# icefall's min_active_states 30; the derived K is 512 (the graph's 500
+# states).  About 490 of the 500 states stay active a frame, so each row
+# expands some 233,000 remainder lanes: rem_budget 2^18, the least power
+# of two without overflow.  At lattice beam 8 (phases 3 and 13's) a frame
+# keeps 114,000-204,000 records (the bench's posteriors are flat beside a
+# real model's): the lattice decoders run at lattice beam 8 and em_records
+# 2^18 on each utterance's first H8_FRAMES frames (one chunk), and at full
+# length (the batched) and H_SHARD_FRAMES (the sharded) at lattice beam 0.5
+# and em_records 16384.  The route buckets hold 16384 lanes; at lattice
+# beam 8 the route's local dedup keeps every lane within the lattice beam
+# of its state's best, and they hold H8_ROUTE_CAP.
+H_CONFIG = dict(beam=15.0, max_active=2560, min_active=30, frontier_size=4096,
+                rem_budget=262144)
+H_SHARD_CONFIG = dict(H_CONFIG, frontier_size=2048)
+H_LATTICE_KW = dict(lattice_beam=0.5, em_records=16384)
+H8_LATTICE_KW = dict(lattice_beam=8.0, em_records=262144)
+H8_FRAMES = 20
+H8_HELD = 1  # utterances whose beam-8 lattices are held whole (the host builds 1.4 M arcs each)
+H_ROUTE_CAP = 16384
+H8_ROUTE_CAP = 262144
+H_SHARD_FRAMES = 250
 
 
 # Set in phases 11-13's spawned ranks: their lines say whose they are.
@@ -1124,11 +1178,12 @@ def same_sweep(ref, got, what):
     return max_err
 
 
-def hold_k4(dec, scores_tm, lengths, what):
-    """K4 against the plain sweep on ``dec``'s first chunk of ``scores_tm``
-    (T, B, V), every count, flag and survivor row.  Returns the largest
-    row difference, the call's arguments, and the plain and kernel
-    results."""
+def hold_k4(dec, scores_tm, lengths, what, chunk=CHUNK, sweep=None):
+    """K4 against the plain sweep on ``dec``'s first chunk (``chunk``
+    frames) of ``scores_tm`` (T, B, V), every count, flag and survivor row,
+    at the decoder's sweep config or ``sweep`` (then no buffer may
+    overflow).  Returns the largest row difference, the call's arguments,
+    and the plain and kernel results."""
     import torch
 
     from kaldi_decoder_tpu_torch.decoders.lattice_dev import lattice_chunk
@@ -1138,12 +1193,14 @@ def hold_k4(dec, scores_tm, lengths, what):
     S = dec._dev_graph.num_states
     st0, _, _, _ = dec._init(scores_tm.shape[1])
     rem = torch.from_numpy(lengths).to(dec.device)
-    _, o = lattice_chunk(dec._pg, scores_tm[:CHUNK], rem, st0, dec.cfg, S)
+    _, o = lattice_chunk(dec._pg, scores_tm[:chunk], rem, st0, dec.cfg, S)
     args = (o.frontier_states, o.frontier_costs, o.em_records, st0.states, rem,
-            sweep_config(dec.cfg, CHUNK), S)
+            sweep or sweep_config(dec.cfg, chunk), S)
     ref = sweep_plain(*args)
     got = sweep_chunk(*args)
     torch.cuda.synchronize()
+    if sweep is not None and bool(ref.overflow.any()):
+        raise AssertionError(f"{what}: the sweep overflowed {sweep}")
     return same_sweep(ref, got, what), args, ref, got
 
 
@@ -1467,7 +1524,12 @@ def reset_counts():
     from kaldi_decoder_tpu_torch.kernels.cutoff import global_cutoff_local, global_cutoff_merge
     from kaldi_decoder_tpu_torch.kernels.dedup import dedup_select
     from kaldi_decoder_tpu_torch.kernels.dedup_rec import dedup_select_rec
-    from kaldi_decoder_tpu_torch.kernels.eps import eps_dedup, eps_step_shard, expand_eps_lanes
+    from kaldi_decoder_tpu_torch.kernels.eps import (
+        eps_dedup,
+        eps_reduce_shard,
+        eps_step_shard,
+        expand_eps_lanes,
+    )
     from kaldi_decoder_tpu_torch.kernels.expand import expand_filter
     from kaldi_decoder_tpu_torch.kernels.frame import frame_start, frame_tail
     from kaldi_decoder_tpu_torch.kernels.gather import row_gather
@@ -1476,8 +1538,8 @@ def reset_counts():
 
     torch.cuda.synchronize()
     for fn in (row_gather, expand_filter, dedup_select_rec, sweep_chunk, expand_eps_lanes,
-               dedup_select, eps_dedup, eps_step_shard, frame_tail, frame_start, route_send,
-               route_recv, global_cutoff_local, global_cutoff_merge):
+               dedup_select, eps_dedup, eps_step_shard, eps_reduce_shard, frame_tail,
+               frame_start, route_send, route_recv, global_cutoff_local, global_cutoff_merge):
         fn.launches = 0
     driver.replays = 0
 
@@ -1486,14 +1548,20 @@ def read_counts():
     """The launch counts since :func:`reset_counts`: K3's frame tail (and
     its shard mode) as ``k3``, its first-frame mode as ``k3_start``, K5 as
     ``k5``, the standalone eps step (its shard mode, the only one left) as
-    ``eps_step``, the eps steps run as the last step of an eps dedup call
-    (each also a K6 or K2 launch) as ``eps_dedup``, K7's send and receive
-    sides as ``k7_send`` and ``k7_recv``, K8's local half and merge as
-    ``k8_local`` and ``k8_merge``."""
+    ``eps_step``, its reduce mode (a sharded frame without eps iterations)
+    as ``eps_reduce``, the eps steps run as the last step of an eps dedup
+    call (each also a K6 or K2 launch) as ``eps_dedup``, K7's send and
+    receive sides as ``k7_send`` and ``k7_recv``, K8's local half and merge
+    as ``k8_local`` and ``k8_merge``."""
     from kaldi_decoder_tpu_torch.kernels.cutoff import global_cutoff_local, global_cutoff_merge
     from kaldi_decoder_tpu_torch.kernels.dedup import dedup_select
     from kaldi_decoder_tpu_torch.kernels.dedup_rec import dedup_select_rec
-    from kaldi_decoder_tpu_torch.kernels.eps import eps_dedup, eps_step_shard, expand_eps_lanes
+    from kaldi_decoder_tpu_torch.kernels.eps import (
+        eps_dedup,
+        eps_reduce_shard,
+        eps_step_shard,
+        expand_eps_lanes,
+    )
     from kaldi_decoder_tpu_torch.kernels.expand import expand_filter
     from kaldi_decoder_tpu_torch.kernels.frame import frame_start, frame_tail
     from kaldi_decoder_tpu_torch.kernels.gather import row_gather
@@ -1503,7 +1571,8 @@ def read_counts():
     return dict(gather=row_gather.launches, k1=expand_filter.launches,
                 k2=dedup_select_rec.launches, k4=sweep_chunk.launches,
                 k5=expand_eps_lanes.launches, k6=dedup_select.launches,
-                eps_step=eps_step_shard.launches, eps_dedup=eps_dedup.launches,
+                eps_step=eps_step_shard.launches, eps_reduce=eps_reduce_shard.launches,
+                eps_dedup=eps_dedup.launches,
                 k3=frame_tail.launches,
                 k3_start=frame_start.launches, k7_send=route_send.launches,
                 k7_recv=route_recv.launches, k8_local=global_cutoff_local.launches,
@@ -1512,9 +1581,10 @@ def read_counts():
 
 def launch_counts(**want):
     """A dict of launch counts as :func:`read_counts` gives them: ``want``,
-    the eps steps inside a dedup call, K7's sides and K8's halves 0 unless
-    given."""
-    return dict(dict(eps_dedup=0, k7_send=0, k7_recv=0, k8_local=0, k8_merge=0), **want)
+    the eps steps inside a dedup call, the reduce mode, K7's sides and K8's
+    halves 0 unless given."""
+    return dict(dict(eps_dedup=0, eps_reduce=0, k7_send=0, k7_recv=0, k8_local=0, k8_merge=0),
+                **want)
 
 
 def read_replays(what, frames):
@@ -1988,6 +2058,40 @@ def pruned_links(pl):
     return int(len(links)), hashlib.sha256(np.ascontiguousarray(links).tobytes()).hexdigest()
 
 
+def check_lattice_stats(what, b, u, stats):
+    """Raise unless one utterance's active states a frame and its overflow
+    and saturated frames equal its JAX reference's."""
+    import numpy as np
+
+    na = np.asarray(stats.active_per_frame[:u["length"]])
+    if [int(x) for x in na] != u["num_active"]:
+        bad = int(np.flatnonzero(na != np.asarray(u["num_active"]))[0])
+        raise AssertionError(f"{what}, utterance {b}: num_active differs first at frame {bad}")
+    got = dict(overflow_frames=stats.arc_budget_overflows,
+               saturated_frames=stats.frontier_saturated_frames)
+    for key, val in got.items():
+        if val != u[key]:
+            raise AssertionError(f"{what}, utterance {b}: {key} {val} != {u[key]}")
+
+
+def check_lattice_result(what, res, want, held):
+    """Every utterance of the lattice result ``res`` against ``want`` (the
+    reference's records, by utterance): the first ``held`` whole (raw
+    lattice, digests, best path, labels), the others by their stats.
+    Returns the raw lattice arcs of the utterances held whole."""
+    arcs = 0
+    for b, u in enumerate(want):
+        if b >= held:
+            check_lattice_stats(what, b, u, res.stats(b))
+            continue
+        check_lattice_utterance(what, b, u, res.raw_lattice(b), res.best_path(b), res.stats(b),
+                                res.reached_final(b), res.final_relative_cost(b))
+        if res.best_path_labels(b) != u["labels"]:
+            raise AssertionError(f"{what}, utterance {b}: best_path_labels differ")
+        arcs += u["lattice_arcs"]
+    return arcs
+
+
 def check_lattice_utterance(what, b, u, raw, best, stats, reached, frc):
     """Raise unless one utterance's lattice result equals its JAX
     reference (``scripts/make_torch_lattice_eps_reference.py``)."""
@@ -1995,18 +2099,12 @@ def check_lattice_utterance(what, b, u, raw, best, stats, reached, frc):
 
     from kaldi_decoder_tpu_torch.fst.ops import path_labels, path_total_cost
 
-    L = u["length"]
     if best is None or path_labels(best) != u["olabels"]:
         raise AssertionError(f"{what}, utterance {b}: 1-best differs from the JAX reference")
     if int(np.float32(path_total_cost(best)).view(np.int32)) != u["path_cost_f32_bits"]:
         raise AssertionError(f"{what}, utterance {b}: best path cost differs")
-    na = np.asarray(stats.active_per_frame[:L])
-    if [int(x) for x in na] != u["num_active"]:
-        bad = int(np.flatnonzero(na != np.asarray(u["num_active"]))[0])
-        raise AssertionError(f"{what}, utterance {b}: num_active differs first at frame {bad}")
-    got = dict(overflow_frames=stats.arc_budget_overflows,
-               saturated_frames=stats.frontier_saturated_frames,
-               reached_final=bool(reached), final_relative_cost=float(frc).hex())
+    check_lattice_stats(what, b, u, stats)
+    got = dict(reached_final=bool(reached), final_relative_cost=float(frc).hex())
     got.update(zip(("lattice_states", "lattice_arcs", "lattice_arcs_sha256",
                     "lattice_finals_sha256"), lattice_digest(raw)))
     for key, val in got.items():
@@ -2653,6 +2751,68 @@ def eps_step_shard_work(sel, carry, lanes, stopped):
     return nbytes, B * K
 
 
+def eps_reduce_work(costs, em_overflow):
+    """Bytes and operations of one call of the reduce mode: the costs, the
+    overflow flags and num_unique read, the row's two scalars and the flag
+    pair written; a compare a slot."""
+    B, K = costs.shape
+    return B * K * 4 + B * (len(em_overflow) + 4 + 8) + 8, B * K
+
+
+def hold_reduce(args, kw, where):
+    """The reduce mode (``kernels.eps.eps_reduce_shard``: a sharded frame's
+    local values at eps_iters 0) on one call's arguments kept from a decode,
+    against ``eps_reduce_shard_plain`` on CPU copies, bitwise (raw bits,
+    -0.0 apart from +0.0), at its own cluster size and at 8, 4, 2 and 1
+    blocks a row, its outputs set to the bit complement of plain's before
+    each call; then timed at each.  Returns ({"eps_reduce": 0.0},
+    {"eps_reduce": time_kernel fields})."""
+    import torch
+
+    from kaldi_decoder_tpu_torch.kernels.eps import (
+        eps_reduce_shard,
+        eps_reduce_shard_plain,
+        reduce_shard_cluster_size,
+    )
+
+    carry, costs, ovf, num_unique = args
+    B, K = costs.shape
+    want = to_cpu(carry)
+    eps_reduce_shard_plain(want, costs.cpu(), tuple(x.cpu() for x in ovf), num_unique.cpu())
+    names = ("red_min", "red_count", "red_flags")
+    for c in (0, *CLUSTER_SIZES):
+        for name in names:
+            getattr(carry, name).copy_(bit_complement(getattr(want, name)))
+        eps_reduce_shard(carry, costs, ovf, num_unique, clusters=c)
+        torch.cuda.synchronize()
+        for name in names:
+            w, g = getattr(want, name), getattr(carry, name).cpu()
+            if w.dtype == torch.float32:
+                w, g = w.view(torch.int32), g.view(torch.int32)
+            if not torch.equal(w, g):
+                raise AssertionError(f"the reduce mode at {c or 'its own'} blocks a row differs "
+                                     f"from plain at {where}: {name}")
+    chosen = reduce_shard_cluster_size(B, K)
+    log(f"the eps step's shard mode's reduce mode at {where} (B={B}, K {K}, "
+        f"{len(ovf)} overflow flags; {int(want.red_count.sum())} finite costs, flags "
+        f"{want.red_flags.tolist()}; clusters of {chosen} blocks a row): equal to plain, raw "
+        "bits, at its own and every cluster size, from outputs set to the bit complement of "
+        "plain's; timed:")
+    t = time_kernel(f"the reduce mode at {where}",
+                    lambda: eps_reduce_shard(carry, costs, ovf, num_unique),
+                    lambda: eps_reduce_shard_plain(carry, costs, ovf, num_unique),
+                    eps_reduce_work(costs, ovf))
+    t["clusters"] = chosen
+    t["ms_by_clusters"] = {c: device_ms(
+        lambda: eps_reduce_shard(carry, costs, ovf, num_unique, clusters=c))
+        for c in CLUSTER_SIZES}
+    t["share_by_clusters"] = {c: t["bound_ms"] / ms for c, ms in t["ms_by_clusters"].items()}
+    log("  the reduce mode at each cluster size: device ms (share of the bound) " + ", ".join(
+        f"{c}: {ms:.4f} ({t['share_by_clusters'][c]:.1%})"
+        for c, ms in t["ms_by_clusters"].items()))
+    return {"eps_reduce": 0.0}, {"eps_reduce": t}
+
+
 def k3_shard_work(tin, fa, local=None, width=0):
     """Bytes and operations of K3's shard mode: of a live row, the
     closure's frontier read and the carried one written; of every row its
@@ -3107,27 +3267,31 @@ def hold_shard_route(kept, eps_iters, tag):
 
 
 def profiled_device_ms(fn, top=6):
-    """One run of ``fn`` under the profiler: its device milliseconds in
-    kernels and in copies (a gloo exchange stages through the host), the
-    ``top`` activities by device time [(name, ms, count)] (all with
-    None), and the run's wall seconds (profiled)."""
+    """One run of ``fn`` under the profiler (another, up to three, where
+    a trace holds no device activity): its device milliseconds in kernels
+    and in copies (a gloo exchange stages through the host), the ``top``
+    activities by device time [(name, ms, count)] (all with None), and the
+    run's wall seconds (profiled)."""
     import collections
 
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
     by_name = collections.defaultdict(lambda: [0.0, 0])
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name][0] += (e.time_range.end - e.time_range.start) / 1e3
-            by_name[e.name][1] += 1
+    for _ in range(3):  # a trace can come back without a device activity: again
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                by_name[e.name][0] += (e.time_range.end - e.time_range.start) / 1e3
+                by_name[e.name][1] += 1
+        if by_name:
+            break
     copies = sum(ms for name, (ms, _) in by_name.items() if is_copy(name))
     kernels = sum(ms for ms, _ in by_name.values()) - copies
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
@@ -3194,43 +3358,130 @@ def shard_reference(scores, lengths, refs):
     return sref, sc, sl
 
 
-def shard_path(kind, graph, sc, sl, refs, sref, P, rank):
-    """Phase 12 (``kind`` "viterbi") or 13 ("lattice"): the sharded decoder
-    on a ``("model",)`` mesh of the P ranks, counted (kernel launches,
+def h_graph():
+    """Phase 14's graph: the CTC topology H over the bench's V tokens."""
+    from kaldi_decoder_tpu_torch.fst import compile_fst, ctc_topo
+
+    return compile_fst(ctc_topo(V))
+
+
+def h_reference(scores, lengths, refs):
+    """Phase 14's JAX reference (``scripts/make_torch_h_reference.py``),
+    the workload cut to its sharded frames and to its ``lattice8``
+    section's frames, after checking that the reference was made at this
+    config, cut and workload."""
+    import numpy as np
+
+    with open(os.path.join(REPO, "tests", "data", "torch_port_h_ref.json")) as f:
+        href = json.load(f)
+    w = href["workload"]
+    want = {"batched": dict(H_CONFIG, **H_LATTICE_KW),
+            "shard": dict(H_SHARD_CONFIG, **H_LATTICE_KW, route_cap=H_ROUTE_CAP)}
+    if (href["requested"] != want or w["shard_frames"] != H_SHARD_FRAMES or w["frames"] is not None
+            or w["V"] != V or w["utterances"] != B):
+        raise AssertionError("the H reference was made for another cut or config")
+    for kind in ("viterbi", "lattice"):
+        check_workload(href["batched"][kind], scores, lengths, refs)
+    sc = np.ascontiguousarray(scores[:, :H_SHARD_FRAMES])
+    sl = np.minimum(lengths, H_SHARD_FRAMES).astype(np.int32)
+    for part in href["parts"].values():
+        check_workload(part["viterbi"], sc, sl, refs)
+        check_workload(part["lattice"], sc, sl, refs)
+    l8 = href["lattice8"]
+    if l8["frames"] != H8_FRAMES or l8["requested"] != {
+            "batched": dict(H_CONFIG, **H8_LATTICE_KW),
+            "shard": dict(H_SHARD_CONFIG, **H8_LATTICE_KW, route_cap=H8_ROUTE_CAP)}:
+        raise AssertionError("the H reference's lattice8 section was made for another cut "
+                             "or config")
+    sc8 = np.ascontiguousarray(scores[:, :H8_FRAMES])
+    sl8 = np.minimum(lengths, H8_FRAMES).astype(np.int32)
+    check_workload(l8["batched"]["lattice"], sc8, sl8, refs)
+    for part in l8["parts"].values():
+        check_workload(part["lattice"], sc8, sl8, refs)
+    return href, (sc, sl), (sc8, sl8)
+
+
+class ShardCell(NamedTuple):
+    """A sharded workload: phases 12-13's ("bench": the unfolded bench
+    graph; rank 0 holds the shard kernels and the loop is timed) or phase
+    14's ("h": H, no eps iteration, rank 0 holding the reduce mode; "h8":
+    its lattice decoder at lattice beam 8 on fewer frames), the decoders
+    it runs (by phase), its graph, the decoders' config, lattice keywords
+    and route cap, the frames decoded, the JAX reference (``parts`` by P),
+    the scores and lengths cut to the frames, and the utterances whose
+    lattices are held whole (the rest by their stats)."""
+
+    name: str
+    phases: dict  # kind -> phase number
+    graph: object
+    config: dict
+    lattice_kw: dict
+    route_cap: Optional[int]
+    frames: int
+    ref: dict
+    sc: object
+    sl: object
+    held: int = B
+
+
+def shard_cells(workload):
+    """Phases 12-13's and phase 14's sharded workloads on ``workload``
+    (bench_workload()'s)."""
+    graph, scores, lengths, refs = workload
+    sref, sc, sl = shard_reference(scores, lengths, refs)
+    href, (hsc, hsl), (hsc8, hsl8) = h_reference(scores, lengths, refs)
+    hg = h_graph()
+    return [ShardCell("bench", {"viterbi": 12, "lattice": 13}, graph, SHARD_CONFIG,
+                      dict(lattice_beam=SHARD_LATTICE_BEAM), None, SHARD_FRAMES, sref, sc, sl),
+            ShardCell("h", {"viterbi": 14, "lattice": 14}, hg, H_SHARD_CONFIG,
+                      H_LATTICE_KW, H_ROUTE_CAP, H_SHARD_FRAMES, href, hsc, hsl),
+            ShardCell("h8", {"lattice": 14}, hg, H_SHARD_CONFIG, H8_LATTICE_KW, H8_ROUTE_CAP,
+                      H8_FRAMES, href["lattice8"], hsc8, hsl8, H8_HELD)]
+
+
+def sharded_decoder(kind, cell, mesh):
+    """The sharded decoder of ``kind`` ("viterbi" or "lattice") of
+    ``cell`` on ``mesh``, on the card."""
+    from kaldi_decoder_tpu_torch import config_for_graph
+    from kaldi_decoder_tpu_torch.parallel import ShardedLatticeDecoder, ShardedViterbiDecoder
+
+    fc = config_for_graph(cell.graph, **cell.config)
+    kw = dict(mesh=mesh, route_cap=cell.route_cap, pad_time_to=cell.frames, device="cuda")
+    if kind == "viterbi":
+        return ShardedViterbiDecoder(cell.graph, fc, **kw)
+    return ShardedLatticeDecoder(cell.graph, fc, **cell.lattice_kw, **kw)
+
+
+def shard_path(kind, cell, refs, P, rank):
+    """Phase 12 (``kind`` "viterbi") or 13 ("lattice") on the bench
+    ``cell``, or phase 14's sharded decoders on H: the sharded decoder on a
+    ``("model",)`` mesh of the P ranks, counted (kernel launches,
     collectives and the frames replayed: under NCCL every frame but the
     sharded frame driver's first, over gloo none), checked against the JAX
     reference on this rank's whole result; then a profiled run for the
-    device time; under NCCL the frame replayed from the driver's graph
-    against the host loop (``loop_walls``); then a decode as the host
-    loop (``driver.eager_frames``), whose calls of frame SHARD_FRAME (and
-    the chunk's first-frame mode) rank 0 holds against their plain
-    versions.  Returns (launch counts, the phase's numbers, kernel errors,
-    kernel times)."""
-    import numpy as np
+    device time.  On the bench cell, under NCCL the frame replayed from the
+    driver's graph against the host loop (``loop_walls``); then a decode as
+    the host loop (``driver.eager_frames``), whose calls of frame
+    SHARD_FRAME (and the chunk's first-frame mode) rank 0 holds against
+    their plain versions.  With no eps iterations (H) rank 0 holds the
+    reduce mode on a call of the counted decode (frame 0 under NCCL, the
+    rest replayed; over gloo SHARD_FRAME, or the last frame of a shorter
+    cut).  Returns (launch counts, the
+    phase's numbers, kernel errors, kernel times)."""
     import torch
     import torch.distributed as dist
 
-    from kaldi_decoder_tpu_torch import config_for_graph
     from kaldi_decoder_tpu_torch.decoders import driver
-    from kaldi_decoder_tpu_torch.parallel import (
-        ShardedLatticeDecoder,
-        ShardedViterbiDecoder,
-        make_mesh,
-    )
-    from kaldi_decoder_tpu_torch.parallel import graph_shard
+    from kaldi_decoder_tpu_torch.parallel import graph_shard, make_mesh
     from kaldi_decoder_tpu_torch.parallel.mesh import collective_calls
 
-    what = f"phase {12 if kind == 'viterbi' else 13} (P={P})"
-    want = sref["parts"][str(P)]
-    mesh = make_mesh(P, "model", device_type="cuda")
-    fc = config_for_graph(graph, **SHARD_CONFIG)
-    if kind == "viterbi":
-        dec = ShardedViterbiDecoder(graph, fc, mesh=mesh, pad_time_to=SHARD_FRAMES, device="cuda")
-        sh = dec.cfg
-    else:
-        dec = ShardedLatticeDecoder(graph, fc, lattice_beam=SHARD_LATTICE_BEAM, mesh=mesh,
-                                    pad_time_to=SHARD_FRAMES, device="cuda")
-        sh = dec.cfg.shard
+    sc, sl = cell.sc, cell.sl
+    h = cell.name != "bench"
+    beam8 = f" at lattice beam {cell.lattice_kw['lattice_beam']:g}" if cell.name == "h8" else ""
+    what = f"phase {cell.phases[kind]}{' ' + kind + ' on H' + beam8 if h else ''} (P={P})"
+    want = cell.ref["parts"][str(P)]
+    dec = sharded_decoder(kind, cell, make_mesh(P, "model", device_type="cuda"))
+    sh = dec.cfg if kind == "viterbi" else dec.cfg.shard
     got_cfg = dict({k: getattr(sh.frontier, k) for k in want["shard_config"]
                     if hasattr(sh.frontier, k)}, num_parts=sh.num_parts, part_size=sh.part_size,
                    route_cap=sh.route_cap, eps_route_cap=sh.eps_route_cap)
@@ -3246,8 +3497,14 @@ def shard_path(kind, graph, sc, sl, refs, sref, P, rank):
     dist.barrier()
     reset_counts()
     collective_calls.clear()
+    # The chunk's arguments for loop_walls; at eps_iters 0 a call of the
+    # reduce mode for its hold (frame 0 under NCCL: the driver's first
+    # frame, run before the capture).
+    want_calls = {"sharded_chunk": {0}}
+    if D == 0:
+        want_calls["eps_reduce_shard"] = {0 if graphed else min(SHARD_FRAME, cell.frames - 1)}
     t0 = time.perf_counter()
-    with CallCapture(graph_shard, {"sharded_chunk": {0}}) as chunk:  # for loop_walls
+    with CallCapture(graph_shard, want_calls) as chunk:
         res = dec.decode(sc, sl)
     t_dec = time.perf_counter() - t0
     n = read_counts()
@@ -3265,13 +3522,14 @@ def shard_path(kind, graph, sc, sl, refs, sref, P, rank):
     # K8's local half once a chunk (one a decode: each frame's local half
     # is K3's shard mode's last step); K7's send side and the dedup call
     # once an emitting call and an eps iteration, the eps step's shard mode
-    # once an eps iteration, the start closure's included; K7's receive
-    # side once an emitting call (an eps call reads the received buffer in
-    # place).
+    # once an eps iteration, the start closure's included (with no eps
+    # iteration its reduce mode once a frame); K7's receive side once an
+    # emitting call (an eps call reads the received buffer in place).
     routes = D + frames * (1 + D)
     want_n = launch_counts(gather=0, k1=frames, k2=0, k4=0, k5=D + frames * D, k6=0,
-                           eps_step=D + frames * D, k3=frames, k3_start=1, k7_send=routes,
-                           k7_recv=frames, k8_local=1, k8_merge=frames)
+                           eps_step=D + frames * D, eps_reduce=0 if D else frames, k3=frames,
+                           k3_start=1, k7_send=routes, k7_recv=frames, k8_local=1,
+                           k8_merge=frames)
     want_n[k] = routes
     if n != want_n:
         raise AssertionError(f"{what}: launch counts {n}, want {want_n}")
@@ -3284,23 +3542,23 @@ def shard_path(kind, graph, sc, sl, refs, sref, P, rank):
     if coll != want_c:
         raise AssertionError(f"{what}: collectives {coll}, want {want_c}")
     t1 = time.perf_counter()
-    for b, u in enumerate(want[kind][:B]):
-        if kind == "viterbi":
+    if kind == "viterbi":
+        for b, u in enumerate(want[kind][:B]):
             check_utterance(what, b, u, res.best_path(b), res.num_active[:, b],
                             res.best_costs[:, b], res.overflows[:, b], res.saturations[:, b])
-        else:
-            check_lattice_utterance(what, b, u, res.raw_lattice(b), res.best_path(b),
-                                    res.stats(b), res.reached_final(b),
-                                    res.final_relative_cost(b))
-            if res.best_path_labels(b) != u["labels"]:
-                raise AssertionError(f"{what}, utterance {b}: best_path_labels differ")
-    if kind == "lattice":
+    else:
+        check_lattice_result(what, res, want[kind][:B], cell.held)
         links = pruned_links(res._prune(0))
         if list(links) != [want["links0"]["count"], want["links0"]["sha256"]]:
             raise AssertionError(f"{what}: utterance 0's pruned links {links} != the "
                                  f"reference's {want['links0']}")
+    if h and (res.overflows.any() or res.saturations.any()):
+        raise AssertionError(f"{what}: {int(res.overflows.sum())} overflow and "
+                             f"{int(res.saturations.sum())} saturated frames")
     t_host = time.perf_counter() - t1
     k_ms, c_ms, acts, t_prof = profiled_device_ms(lambda: dec.decode(sc, sl), top=None)
+    if not acts:
+        raise AssertionError(f"{what}: the profiler's trace of the decode holds no device activity")
     names = port_kernel_names(REPO)
     split = activity_split(acts, names)
     ranked = acts[:6]
@@ -3332,7 +3590,8 @@ def shard_path(kind, graph, sc, sl, refs, sref, P, rank):
         f"copies; profiled run, {t_prof:.3f} s), busy {out['busy']:.3f}; launches {n}; "
         f"collectives {coll} ({n_coll / frames:.2f} a frame, counted per replay); checks "
         f"{t_host:.2f} s; equal to the JAX reference on {B} utterances"
-        + ("" if kind == "viterbi" else f" and utterance 0's {links[0]} pruned links"))
+        + ("" if kind == "viterbi" else f" ({min(cell.held, B)} whole, the rest by active "
+           f"states a frame) and utterance 0's {links[0]} pruned links"))
     log("  device time a frame by activity: " + "; ".join(
         f"{name} {ms:.4f} ms ({cnt:.1f} calls)" for name, ms, cnt in out["top_activities_ms_per_frame"]))
     log(f"  a frame: {out['launches_per_frame']:.2f} launches of the port's kernels; "
@@ -3341,6 +3600,15 @@ def shard_path(kind, graph, sc, sl, refs, sref, P, rank):
         + "; other activities, each under once a frame: " + ("; ".join(
             f"{name} ({cnt / frames:.2f} a frame)" for name, cnt in split["other"][2])
             or "none"))
+    if h:
+        errs, times = {}, {}
+        if rank == 0:  # the other rank waits at the barrier: the card is this rank's alone
+            key = next(k for k in chunk.kept if k[0] == "eps_reduce_shard")
+            errs, times = hold_reduce(*chunk.kept[key], f"{what}, frame {key[1]}")
+        dist.barrier()
+        del chunk, res, dec
+        torch.cuda.empty_cache()
+        return n, out, errs, times
     if graphed:
         # The chunk's frames replayed from the graph against the host loop, in
         # turns (the counted decode's chunk again: its first-frame mode, K8's
@@ -3380,13 +3648,232 @@ def shard_path(kind, graph, sc, sl, refs, sref, P, rank):
     return n, out, errs, times
 
 
-def hold_rank_kernels(dec, scores, lengths, rows, tag):
+def h_decode_numbers(what, decode, frames, t_dec):
+    """A counted decode's numbers: wall ms a frame (``t_dec``), device ms a
+    frame and activities a frame (one profiled run of ``decode``), split
+    into the port's kernels, copies and other, and the busy share; logs
+    them and fails if another activity than the port's kernels and copies
+    runs once a frame or more."""
+    k_ms, c_ms, acts, t_prof = profiled_device_ms(decode, top=None)
+    if not acts:
+        raise AssertionError(f"{what}: the profiler's trace of the decode holds no device activity")
+    split = activity_split(acts, port_kernel_names(REPO))
+    stray = [(name, cnt / frames) for name, cnt in split["other"][2] if cnt >= frames]
+    if stray:
+        raise AssertionError(f"{what}: device activities a frame that are neither the port's "
+                             f"kernels nor copies: {stray}")
+    wall_ms, dev_ms = t_dec * 1e3 / frames, (k_ms + c_ms) / frames
+    out = dict(decode_s=t_dec, frames=frames, wall_ms_per_frame=wall_ms,
+               device_ms_per_frame=dev_ms, kernel_ms_per_frame=k_ms / frames,
+               copy_ms_per_frame=c_ms / frames, busy=dev_ms / wall_ms,
+               activities_per_frame=sum(v[1] for v in split.values()) / frames,
+               split_per_frame={g: (ms / frames, cnt / frames)
+                                for g, (ms, cnt, _) in split.items()},
+               top_activities_ms_per_frame=[(name, ms / frames, cnt / frames)
+                                            for name, ms, cnt in acts[:6]])
+    log(f"  {what}: decode {t_dec:.3f} s for {frames} frames ({wall_ms:.4f} ms a frame), device "
+        f"{dev_ms:.4f} ms a frame ({k_ms / frames:.4f} in kernels, {c_ms / frames:.4f} in copies; "
+        f"profiled run {t_prof:.3f} s), busy {out['busy']:.3f}; "
+        f"{out['activities_per_frame']:.2f} device activities a frame: " + "; ".join(
+            f"{g} {cnt:.2f} ({ms:.4f} ms)" for g, (ms, cnt) in out["split_per_frame"].items()))
+    log("  device time a frame by activity: " + "; ".join(
+        f"{name} {ms:.4f} ms ({cnt:.2f} calls)"
+        for name, ms, cnt in out["top_activities_ms_per_frame"]))
+    return out
+
+
+def h_batched_path(hg, scores, lengths, refs, href):
+    """Phase 14's batched decoders on H (``h_graph``), the bench's 16
+    utterances at full length: ``BatchedViterbiDecoder`` and
+    ``BatchedLatticeDecoder`` (chunks of CHUNK, ``device_prune=True``) at
+    ``H_CONFIG``, each counted (K1, K6 or K2 and K3 once a frame, K4 and
+    K3's first-frame mode once a chunk, nothing else: eps_iters 0), checked
+    against ``tests/data/torch_port_h_ref.json`` on every utterance (the
+    fields phases 4 and 6 hold, no overflow or saturation), then profiled;
+    then K1 (with its source slots) and K6 on Viterbi frames K6_FRAMES, K1
+    and K2 on lattice frames K1_FRAMES + K2_FRAMES, K4 on the first chunk
+    and K3 on frame K2_FRAMES[0] of each decoder's own driver, held against
+    their plain versions and timed; then the lattice decoder again at
+    ``H8_LATTICE_KW`` (lattice beam 8, em_records 2^18) on the first
+    H8_FRAMES frames in one chunk, counted, checked against the
+    reference's ``lattice8`` section and profiled, with K1 and K2 held on
+    its first, middle and last frames and K4 on its chunk, K2 and K4 timed.
+    Returns ({decoder: launches}, {decoder: numbers}, kernel errors,
+    kernel times)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from kaldi_decoder_tpu_torch import BatchedViterbiDecoder, config_for_graph
+    from kaldi_decoder_tpu_torch.decoders.sweep import sweep_config
+    from kaldi_decoder_tpu_torch.decoders.frontier import frame_step_batched
+    from kaldi_decoder_tpu_torch.kernels.dedup import cluster_size, dedup_select
+    from kaldi_decoder_tpu_torch.kernels.expand import expand_filter, expand_filter_plain
+    from kaldi_decoder_tpu_torch.ops.segment import dedup_select as dedup_select_plain
+
+    fc = config_for_graph(hg, **H_CONFIG)
+    counts, nums, errs, times = {}, {}, {}, {}
+    scores_tm = torch.from_numpy(np.ascontiguousarray(scores.transpose(1, 0, 2))).cuda()
+    rem = torch.from_numpy(lengths).cuda()
+
+    # The batched 1-best decode.
+    what = "phase 14, BatchedViterbiDecoder on H"
+    vdec = BatchedViterbiDecoder(hg, fc, device="cuda")
+    want_cfg = href["batched"]["viterbi_config"]
+    if {f: getattr(vdec.cfg, f) for f in want_cfg} != want_cfg:
+        raise AssertionError(f"{what}: device config {vdec.cfg} != the reference's {want_cfg}")
+    reset_counts()
+    t0 = time.perf_counter()
+    res = vdec.decode(scores, lengths)
+    t_dec = time.perf_counter() - t0
+    n = read_counts()
+    frames = res.bp_emit.shape[0]
+    want_n = launch_counts(gather=0, k1=frames, k2=0, k4=0, k5=0, k6=frames, eps_step=0,
+                           k3=frames, k3_start=1)
+    if n != want_n:
+        raise AssertionError(f"{what}: launch counts {n}, want {want_n}")
+    replays = read_replays(what, frames)
+    t1 = time.perf_counter()
+    for b, u in enumerate(href["batched"]["viterbi"]):
+        check_utterance(what, b, u, res.best_path(b), res.num_active[:, b],
+                        res.best_costs[:, b], res.overflows[:, b], res.saturations[:, b])
+    if res.overflows.any() or res.saturations.any():
+        raise AssertionError(f"{what}: overflow or saturated frames")
+    t_host = time.perf_counter() - t1
+    log(f"{what} (B={B}, K {vdec.cfg.frontier_size}, {vdec.cfg.num_candidates} lanes a row, "
+        f"eps_iters {vdec.cfg.eps_iters}): launches {n}, {replays} frames replayed from the "
+        f"captured graph; equal to the JAX reference on {B} utterances, no overflow or "
+        f"saturation; host 1-best and checks {t_host:.2f} s")
+    counts["h_viterbi"] = n
+    nums["h_viterbi"] = h_decode_numbers(what, lambda: vdec.decode(scores, lengths), frames,
+                                         t_dec)
+    S = vdec._dev_graph.num_states
+    active = torch.ones(B, dtype=torch.bool, device="cuda")
+    st, _ = vdec._init(B)
+    k1_err = k6_err = 0.0
+    for t in range(max(K6_FRAMES) + 1):
+        if t in K6_FRAMES:
+            e1, e6, k1_args, em_args, _, _ = check_emit_kernels(
+                st, scores_tm[t], vdec._pg, vdec.cfg, S, f"{what}, frame {t}")
+            k1_err, k6_err = max(k1_err, e1), max(k6_err, e6)
+        st, _ = frame_step_batched(st, scores_tm[t], active, vdec._pg, vdec.cfg, S)
+    log(f"K1 with src_slot and K6 at the H shapes (B={B}, N {em_args[1].shape[1]}, K "
+        f"{em_args[2]}, S {S}): equal to plain on frames {list(K6_FRAMES)}; timed on frame "
+        f"{max(K6_FRAMES)}:")
+    times["k1_src_slot"] = time_kernel(
+        "K1 with src_slot, H", lambda: expand_filter(*k1_args, with_src_slot=True),
+        lambda: expand_filter_plain(*k1_args, with_src_slot=True),
+        k1_work(*k1_args, with_src_slot=True))
+    log(f"  K6, H emitting candidates: winners per utterance {k6_winners(em_args)} (K "
+        f"{em_args[2]}); clusters of {cluster_size(*em_args[0].shape)} blocks")
+    times["k6"] = time_kernel("K6, H emitting candidates", lambda: dedup_select(*em_args),
+                              lambda: dedup_select_plain(*em_args), k6_work(*em_args[1:3]))
+    times["k3_viterbi"] = check_k3("the 1-best frame on H", False, vdec._pg, vdec.cfg, S,
+                                   scores_tm[:CHUNK], rem, vdec._init(B)[0], K2_FRAMES[0])
+    del vdec, res, st, k1_args, em_args
+    torch.cuda.empty_cache()
+
+    # The batched lattice decode, then at lattice beam 8 on the first
+    # H8_FRAMES frames; the kernels held at each.
+    ldec, counts["h_lattice"], nums["h_lattice"] = h_lattice_decode(
+        "phase 14, BatchedLatticeDecoder on H", hg, fc, H_LATTICE_KW, scores, lengths, CHUNK,
+        href["batched"])
+    e, t = hold_rank_kernels(ldec, scores, lengths, slice(0, B), "phase 14 (H)")
+    errs.update(k1=max(k1_err, e["k1"]), k6=k6_err, k2=e["k2"], k4=e["k4"])
+    times.update(t)
+    times["k3_lattice"] = check_k3("the lattice frame on H", True, ldec._pg, ldec.cfg,
+                                   ldec._dev_graph.num_states, scores_tm[:CHUNK], rem,
+                                   ldec._init(B)[0], K2_FRAMES[0])
+    del ldec, scores_tm
+    torch.cuda.empty_cache()
+    l8 = href["lattice8"]
+    sc8 = np.ascontiguousarray(scores[:, :H8_FRAMES])
+    sl8 = np.minimum(lengths, H8_FRAMES).astype(np.int32)
+    beam = f"lattice beam {H8_LATTICE_KW['lattice_beam']:g}"
+    # The device sweep's survivor buffers (em_records + 320 links a frame)
+    # overflow at lattice beam 8 and the decoder would fall back to the
+    # host prune: the decode runs without the sweep, as the reference's
+    # did, and K4 is held on the chunk with buffers that hold every link.
+    ldec, counts["h8_lattice"], nums["h8_lattice"] = h_lattice_decode(
+        f"phase 14, BatchedLatticeDecoder on H at {beam}", hg, fc, H8_LATTICE_KW, sc8, sl8,
+        H8_FRAMES, l8["batched"], H8_HELD, device_prune=False)
+    sweep = dataclasses.replace(sweep_config(ldec.cfg, H8_FRAMES),
+                                tok_cap=ldec.cfg.frontier.frontier_size * H8_FRAMES,
+                                em_cap=ldec.cfg.em_records * H8_FRAMES)
+    e, t = hold_rank_kernels(ldec, sc8, sl8, slice(0, B), f"phase 14 (H, {beam})",
+                             frames=(0, H8_FRAMES // 2, H8_FRAMES - 1), chunk=H8_FRAMES,
+                             sweep=sweep)
+    errs.update({k: max(errs[k], e[k]) for k in ("k1", "k2", "k4")})
+    times.update(k2_beam8=t["k2"], k4_beam8=t["k4"])
+    del ldec
+    torch.cuda.empty_cache()
+    return counts, nums, errs, times
+
+
+def h_lattice_decode(what, hg, fc, kw, scores, lengths, chunk, want, held=B,
+                     device_prune=True):
+    """Phase 14's ``BatchedLatticeDecoder`` on H at ``fc`` and the lattice
+    keywords ``kw``, in chunks of ``chunk`` with ``device_prune``: counted
+    (K1, K2 and K3 once a frame, K3's first-frame mode and, with
+    ``device_prune``, K4 once a chunk), held against ``want`` (the reference's config and lattices:
+    phase 6's fields on the first ``held`` utterances, the stats on the
+    rest; no overflow or saturation), then profiled.  Returns (the
+    decoder, launches, numbers)."""
+    from kaldi_decoder_tpu_torch import BatchedLatticeDecoder
+
+    ldec = BatchedLatticeDecoder(hg, fc, device="cuda", pad_time_to=chunk, **kw)
+    want_cfg = want["lattice_config"]
+    got_cfg = dict({f: getattr(ldec.cfg.frontier, f) for f in want_cfg
+                    if hasattr(ldec.cfg.frontier, f)}, em_records=ldec.cfg.em_records,
+                   eps_records=ldec.cfg.eps_records, lattice_beam=ldec.cfg.lattice_beam)
+    if got_cfg != want_cfg:
+        raise AssertionError(f"{what}: device config {got_cfg} != the reference's {want_cfg}")
+    reset_counts()
+    t0 = time.perf_counter()
+    res = ldec.decode(scores, lengths, chunk_frames=chunk, device_prune=device_prune)
+    t_dec = time.perf_counter() - t0
+    n = read_counts()
+    if device_prune and res.survivors is None:
+        raise AssertionError(f"{what}: the device sweep overflowed and the decode fell back")
+    frames = res.num_active.shape[0]
+    chunks = -(-frames // chunk)
+    want_n = launch_counts(gather=0, k1=frames, k2=frames, k4=chunks if device_prune else 0,
+                           k5=0, k6=0, eps_step=0, k3=frames, k3_start=chunks)
+    if n != want_n:
+        raise AssertionError(f"{what}: launch counts {n}, want {want_n}")
+    replays = read_replays(what, frames)
+    t1 = time.perf_counter()
+    arcs = check_lattice_result(what, res, want["lattice"], held)
+    if res.overflows.any() or res.saturations.any():
+        raise AssertionError(f"{what}: overflow or saturated frames")
+    t_host = time.perf_counter() - t1
+    log(f"{what} (B={B}, K {ldec.cfg.frontier.frontier_size}, em_records "
+        f"{ldec.cfg.em_records}, lattice beam {ldec.cfg.lattice_beam}, eps_iters "
+        f"{ldec.cfg.frontier.eps_iters}, {frames} frames in chunks of {chunk}, device_prune "
+        f"{device_prune}): launches {n}, "
+        f"{replays} frames replayed from the captured graph; equal to the JAX reference on {B} "
+        f"utterances ({held} whole: lattices of {arcs} arcs in all, digests, best paths; the "
+        f"rest by active states a frame), no overflow or saturation; host lattices and checks "
+        f"{t_host:.2f} s")
+    del res
+    nums = h_decode_numbers(
+        what, lambda: ldec.decode(scores, lengths, chunk_frames=chunk, device_prune=device_prune),
+        frames, t_dec)
+    nums["lattice_arcs"] = arcs
+    return ldec, n, nums
+
+
+def hold_rank_kernels(dec, scores, lengths, rows, tag, frames=K1_FRAMES + K2_FRAMES,
+                      chunk=CHUNK, sweep=None):
     """K1, K2 and K4 at the shapes of a data-parallel rank (its rows of
-    the batch): K1 and K2 on the rank's frames K1_FRAMES and K2_FRAMES
-    (:func:`hold_lattice_frames`), K4 on its first chunk (:func:`hold_k4`),
-    each held against its plain version and timed, K1 and K2 on the frame
-    where K2 takes the most records.  Returns ({kernel: max |err|},
-    {kernel: time_kernel fields})."""
+    the batch): K1 and K2 on the rank's ``frames`` (K1_FRAMES and
+    K2_FRAMES; :func:`hold_lattice_frames`), K4 on its first chunk of
+    ``chunk`` frames (:func:`hold_k4`, at ``sweep`` if given), each held
+    against its plain
+    version and timed, K1 and K2 on the frame where K2 takes the most
+    records.  Returns ({kernel: max |err|}, {kernel: time_kernel fields,
+    and "k2" the most records a row took, "most_records"})."""
     import numpy as np
     import torch
 
@@ -3404,7 +3891,7 @@ def hold_rank_kernels(dec, scores, lengths, rows, tag):
     scores_tm = torch.from_numpy(np.ascontiguousarray(scores[rows].transpose(1, 0, 2))).cuda()
     Bl = scores_tm.shape[1]
     fc = dec.cfg.frontier
-    frames = sorted(set(K1_FRAMES + K2_FRAMES))
+    frames = sorted(set(frames))
     k1_err, k2_err, seen, k1_args, k2_args = hold_lattice_frames(dec, scores_tm, set(frames), tag)
     N = k2_args[1].shape[1]
     log(f"K1 and K2 at {tag}'s shapes (B={Bl}, K={fc.frontier_size}, em_records "
@@ -3416,10 +3903,12 @@ def hold_rank_kernels(dec, scores, lengths, rows, tag):
              "k2": time_kernel(f"K2, {tag}", lambda: dedup_select_rec(*k2_args),
                                lambda: stack_records(dedup_select_rec_plain(*k2_args)),
                                k2_work(*k2_args))}
-    k4_err, args, ref, got = hold_k4(dec, scores_tm, lengths[rows], f"K4 at {tag}")
+    times["k2"]["most_records"] = seen["most_records"]
+    k4_err, args, ref, got = hold_k4(dec, scores_tm, lengths[rows], f"K4 at {tag}", chunk,
+                                     sweep)
     sc = args[5]
     C = kernels().kd_sweep_cluster(Bl, -(-sc.frontier_size // 4) * 4, sc.em_records)
-    log(f"K4 at {tag}'s shapes: equal to plain on the rank's chunk 0 (T={CHUNK}, B={Bl}; "
+    log(f"K4 at {tag}'s shapes: equal to plain on the rank's chunk 0 (T={chunk}, B={Bl}; "
         f"survivors tok {ref.tok_count.sum().item()}, em {ref.em_count.sum().item()}; clusters "
         f"of {C} blocks):")
     times["k4"] = time_kernel(f"K4, {tag}, one chunk", lambda: sweep_chunk(*args),
@@ -3485,21 +3974,26 @@ def data_parallel_path(graph, scores, lengths, refs, ref, P, rank):
 
 
 def parallel_phases(P, rank, workload=None):
-    """Phases 11-13 on this rank of a group of P ranks (the default
-    group, already made), on ``workload`` (bench_workload()'s, rebuilt
-    when not given).  Returns {phase: (launches, numbers, kernel errors,
-    kernel times)}."""
-    graph, scores, lengths, refs = workload or bench_workload()
+    """Phases 11-13 and phase 14's sharded decoders on this rank of a group
+    of P ranks (the default group, already made), on ``workload``
+    (bench_workload()'s, rebuilt when not given).  Returns {phase:
+    (launches, numbers, kernel errors, kernel times)}: "data_parallel",
+    "shard_viterbi" and "shard_lattice" (12-13), "shard_h_viterbi",
+    "shard_h_lattice" and "shard_h8_lattice" (14)."""
+    workload = workload or bench_workload()
+    graph, scores, lengths, refs = workload
     ref = load_reference("torch_port_bench_ref.json", scores, lengths, refs)
-    sref, sc, sl = shard_reference(scores, lengths, refs)
+    cells = shard_cells(workload)
     out = {}
     t0 = time.perf_counter()
     out["data_parallel"] = data_parallel_path(graph, scores, lengths, refs, ref, P, rank)
     log(f"phase 11 (P={P}): {time.perf_counter() - t0:.1f} s")
-    for phase, kind in ((12, "viterbi"), (13, "lattice")):
-        t0 = time.perf_counter()
-        out[f"shard_{kind}"] = shard_path(kind, graph, sc, sl, refs, sref, P, rank)
-        log(f"phase {phase} (P={P}): {time.perf_counter() - t0:.1f} s")
+    for cell in cells:
+        for kind in cell.phases:
+            t0 = time.perf_counter()
+            name = "shard_" + ("" if cell.name == "bench" else cell.name + "_") + kind
+            out[name] = shard_path(kind, cell, refs, P, rank)
+            log(f"phase {cell.phases[kind]} ({name}, P={P}): {time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -3778,17 +4272,30 @@ def main():
     log(f"phase 10 (link recall): {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
 
-    # 11-13. Data parallel and the sharded decoders: P = 1 in this process
-    # over NCCL, then P = 2 in two spawned ranks on cuda:0 over gloo.
+    # 14, the batched decoders: decoding with H (its sharded decoders run
+    # with phases 11-13's ranks).
+    t0 = time.perf_counter()
+    hg = h_graph()
+    href, _, _ = h_reference(scores, lengths, refs)
+    hn, hnums, herr, ht = h_batched_path(hg, scores, lengths, refs, href)
+    log(f"phase 14, the batched decoders on H ({hg.num_states} states, "
+        f"{hg.num_emitting_arcs} emitting and {hg.num_eps_arcs} eps arcs): "
+        f"{time.perf_counter() - t0:.1f} s")
+    del hg
+    torch.cuda.empty_cache()
+
+    # 11-13 and 14's sharded decoders. Data parallel and the sharded
+    # decoders: P = 1 in this process over NCCL, then P = 2 in two spawned
+    # ranks on cuda:0 over gloo.
     t0 = time.perf_counter()
     par = {1: [run_parallel_nccl((graph, scores, lengths, refs))]}
     torch.cuda.empty_cache()
     par[2] = run_parallel_ranks()
-    log(f"phases 11-13: {time.perf_counter() - t0:.1f} s")
+    log(f"phases 11-13 and 14's sharded decoders: {time.perf_counter() - t0:.1f} s")
 
     later = {"lattice_unfolded": un, "faster_lattice": fn, "simple_lattice": sln,
              "cli_lattice": cn["lattice"][0], "cli_faster": cn["faster"][0], "encoder": en,
-             "recall": rn}
+             "recall": rn, **hn}
     for P, ranks in par.items():  # a P = 2 path's launches are its two ranks' sum
         for phase in ranks[0]:
             later[f"{phase}_p{P}"] = {k: sum(r[phase][0][k] for r in ranks)
@@ -3796,7 +4303,7 @@ def main():
     # Phase 2 at the data-parallel rank's and the shard shapes: rank 0's holds.
     sk_err = {}
     for P in par:
-        for ph in ("data_parallel", "shard_viterbi", "shard_lattice"):
+        for ph in par[P][0]:
             for k, v in par[P][0][ph][2].items():
                 sk_err[k] = max(sk_err.get(k, 0.0), v)
 
@@ -3841,12 +4348,19 @@ def main():
         paths.update({p: n[key] for p, n in later.items()
                       if key not in ("eps_step", "k3", "k3_start") or p not in shard_phases})
     by_path["eps_step_shard"] = {p: later[p]["eps_step"] for p in shard_phases}
+    by_path["eps_reduce"] = {p: later[p]["eps_reduce"] for p in shard_phases}
     by_path["k3_shard"] = {p: later[p]["k3"] for p in shard_phases}
     by_path["k3_start_shard"] = {p: later[p]["k3_start"] for p in shard_phases}
 
     st = sk["times"]
     fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "share_of_bound",
               "wrapper_ms", "plain_wrapper_ms")
+
+    def h_times(key, name):
+        """Phase 14's holds of a kernel at the batched H shapes, by field."""
+        return {f"{f}_{name}": ht[key][f]
+                for f in fields + ("clusters", "ms_by_clusters", "most_records")
+                if f in ht[key]}
 
     def entry(name, source, replaces, key, t, err, **extra):
         return dict(name=name, route="cuda", source=f"kaldi_decoder_tpu_torch/csrc/{source}",
@@ -3867,7 +4381,7 @@ def main():
             if "frame_loops" in ranks[0][ph][1]:
                 loops[f"{ph}_p{P}"] = ranks[0][ph][1]["frame_loops"]
     log(json.dumps({"frame_loops": loops}))
-    log(json.dumps({"graph_file": gio, "encoder": enc, "recall": rec,
+    log(json.dumps({"graph_file": gio, "encoder": enc, "recall": rec, "h_batched": hnums,
                     "parallel": {f"{ph}_p{P}": [r[ph][1] for r in ranks]
                                  for P, ranks in par.items() for ph in ranks[0]}}))
     log(json.dumps({"kernels": [
@@ -3880,7 +4394,8 @@ def main():
               "beam filter)",
               "expand.cu", "kaldi_decoder_tpu/decoders/frontier.py:266", "k1", k1,
               max(k1_err, k6["k1_err"], sk["k1_err"], k1r_err, enc["kernel_errs"]["k1"],
-                  sk_err["k1"]),
+                  sk_err["k1"], herr["k1"]),
+              **h_times("k1", "h_lattice"), **h_times("k1_src_slot", "h_viterbi"),
               **shard_times("k1", "data_parallel"), **shard_times("k1", "shard_viterbi"),
               **shard_times("k1", "shard_lattice"),
               ms_src_slot=k6["k1"]["ms"], plain_ms_src_slot=k6["k1"]["plain_ms"],
@@ -3893,7 +4408,8 @@ def main():
               "eps calls)", "dedup_rec.cu",
               "kaldi_decoder_tpu/ops/segment.py:177", "k2", k2,
               max(k2_err, k2e_err, k2s_err, k2r_err, enc["kernel_errs"]["k2"], sk_err["k2"],
-                  sk_err.get("k2_eps", 0.0)),
+                  sk_err.get("k2_eps", 0.0), herr["k2"]),
+              **h_times("k2", "h_lattice"), **h_times("k2_beam8", "h8_lattice"),
               frame=K2_FRAMES[0], steps_us=k2["steps_us"], **shard_times("k2", "data_parallel"),
               **shard_times("k2", "shard_lattice"),
               **{f"{f}_frame{t}": k2_by_frame[t][f] for t in K2_FRAMES[1:]
@@ -3914,20 +4430,24 @@ def main():
               first_frame_launches=sum(by_path["k3_start"].values()),
               first_frame_launches_by_path=by_path["k3_start"],
               clusters=k3["lattice"]["clusters"], ms_by_clusters=k3["lattice"]["ms_by_clusters"],
+              **h_times("k3_viterbi", "h_viterbi"), **h_times("k3_lattice", "h_lattice"),
               **{f"{f}_{p}": k3[p][f] for p in ("viterbi", "unfolded", "streaming",
                                                   "streaming_lattice")
                  for f in ("ms", "plain_ms", "bound_ms", "bound_by", "share_of_bound",
                            "wrapper_ms", "plain_wrapper_ms", "clusters", "ms_by_clusters")}),
         entry("K4 sweep_chunk (backward extra-cost sweep; with eps records, the eps Bellman)",
               "sweep.cu", "kaldi_decoder_tpu/decoders/sweep.py:141", "k4", k4,
-              max(k4_err, k4e_err, enc["kernel_errs"]["k4"], sk_err["k4"]),
+              max(k4_err, k4e_err, enc["kernel_errs"]["k4"], sk_err["k4"], herr["k4"]),
+              **h_times("k4", "h_lattice"), **h_times("k4_beam8", "h8_lattice"),
               **shard_times("k4", "data_parallel"),
               **{f"{f}_eps": k4e[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
                                               "share_of_bound", "wrapper_ms",
                                               "plain_wrapper_ms")}),
         entry("K6 dedup_select (Viterbi dedup by state + top-K + winning lane)", "dedup.cu",
               "kaldi_decoder_tpu/ops/segment.py:160", "k6", k6["k6"],
-              max(k6["k6_err"], sk["k6_err"], sk_err["k6"], sk_err.get("k6_eps", 0.0)),
+              max(k6["k6_err"], sk["k6_err"], sk_err["k6"], sk_err.get("k6_eps", 0.0),
+                  herr["k6"]),
+              **h_times("k6", "h_viterbi"),
               **shard_times("k6", "shard_viterbi"),
               ms_eps=k6["eps"]["ms"], plain_ms_eps=k6["eps"]["plain_ms"],
               bound_ms_eps=k6["eps"]["bound_ms"],
@@ -3990,6 +4510,20 @@ def main():
                     "eps_step_shard", **{f: par[1][0]["shard_viterbi"][3]["eps_step_shard"][f]
                                          for f in ("clusters", "ms_by_clusters",
                                                    "share_by_clusters")}),
+        entry("eps step, shard mode, its reduce mode (a sharded frame's local values at "
+              "eps_iters 0, as on H: each row's first smallest finite cost in slot order with "
+              "that slot's bits and its finite count, the flag pair of the emitting call; a "
+              "cluster of blocks a row; held on phase 14's sharded decodes, shard_h_*)",
+              "eps.cu", "kaldi_decoder_tpu/parallel/graph_shard.py:541", "eps_reduce",
+              par[1][0]["shard_h_viterbi"][3]["eps_reduce"], sk_err["eps_reduce"],
+              **{f"{f}_{ph}_p{P}": par[P][0][ph][3]["eps_reduce"][f]
+                 for P in par
+                 for ph in ("shard_h_viterbi", "shard_h_lattice", "shard_h8_lattice")
+                 if (P, ph) != (1, "shard_h_viterbi")
+                 for f in ("ms", "plain_ms", "bound_ms", "share_of_bound", "clusters",
+                           "ms_by_clusters")},
+              clusters=par[1][0]["shard_h_viterbi"][3]["eps_reduce"]["clusters"],
+              ms_by_clusters=par[1][0]["shard_h_viterbi"][3]["eps_reduce"]["ms_by_clusters"]),
         shard_entry("K3 frame_tail, shard mode (the sharded frame's rebase, freeze and outputs "
                     "into row t, and the next frame's local half of GetCutoff, K8's, from the "
                     "eps closure's local values; a cluster of blocks a row; alone_ms the same "

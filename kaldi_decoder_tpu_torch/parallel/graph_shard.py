@@ -40,7 +40,9 @@ iteration's lanes; the eps step's shard mode
 (``kernels.eps.eps_step_shard``) closes each eps iteration (the
 backpointers or links, the batch-wide stop, the carry, the local
 ``changed`` and, at the last, the frame's local values that the rebase
-reduces); K3's shard mode (``kernels.frame.frame_tail_shard``) ends the
+reduces; with no eps iterations, as on a graph without eps arcs, its
+reduce mode ``kernels.eps.eps_reduce_shard`` writes those values alone);
+K3's shard mode (``kernels.frame.frame_tail_shard``) ends the
 frame (the rebase, the freeze, every output into row t of the chunk's
 stacked buffers, ``t`` on the device, and the next frame's local half of
 GetCutoff); :func:`_global_cutoff` opens each frame with K8's collectives
@@ -84,7 +86,6 @@ from kaldi_decoder_tpu_torch.fst.pack import (
 from kaldi_decoder_tpu_torch.kernels.cutoff import (
     empty_cutoff,
     empty_cutoff_local,
-    first_min_count,
     global_cutoff_local,
     global_cutoff_merge,
 )
@@ -93,6 +94,7 @@ from kaldi_decoder_tpu_torch.kernels.dedup_rec import dedup_select_rec
 from kaldi_decoder_tpu_torch.kernels.eps import (
     ShardEpsCarry,
     empty_shard_eps_carry,
+    eps_reduce_shard,
     eps_step_shard,
     expand_eps_lanes,
 )
@@ -121,6 +123,7 @@ from kaldi_decoder_tpu_torch.parallel.mesh import (
     check_device,
     local_batch,
 )
+from kaldi_decoder_tpu_torch.parallel import shard_driver
 from kaldi_decoder_tpu_torch.parallel.shard_driver import ShardDriver, driver_for
 
 INF = float("inf")
@@ -462,11 +465,6 @@ def _kept(bufs: Optional[_Bufs], key: str, x: torch.Tensor) -> Optional[torch.Te
     return out
 
 
-def _flags(*xs) -> torch.Tensor:
-    """Per-shard scalar flags as one int32 vector, for one MAX reduction."""
-    return torch.stack([x.reshape(()) for x in xs]).to(torch.int32)
-
-
 def _sharded_eps_iteration(st: StepState, cutoff_rel, pg, cfg: ShardConfig, sh: _Shard,
                            bufs: _Bufs):
     """One routed epsilon relaxation: K5's lanes, routed (K7), K6 on the K
@@ -521,19 +519,16 @@ def _sharded_eps_closure(iteration, st: StepState, sc: ShardConfig, sh: _Shard, 
     reduced with MAX over ``sh.group`` after every step, never read by
     the host).  With ``reduce`` the last step also writes the frame's
     local values (best cost, finite count, the flag pair with the
-    emitting call's ``em_overflow`` and ``em_num_unique`` folded in).
+    emitting call's ``em_overflow`` and ``em_num_unique`` folded in); with
+    no iterations (D = 0) the eps step's reduce mode
+    (``kernels.eps.eps_reduce_shard``) writes them from ``st``.
     Returns the carry, whose ``out`` (B, D, width, 2) holds every
     iteration's backpointers or links."""
     D = sc.frontier.eps_iters
     carry = bufs.carry
-    if D == 0:  # no eps step to write the frame's local values: torch reductions
+    if D == 0:  # no eps step to write the frame's local values: the reduce mode
         if reduce:
-            K = sc.frontier.frontier_size
-            red_min, red_count = first_min_count(st.costs)
-            carry.red_min.copy_(red_min)
-            carry.red_count.copy_(red_count)
-            ovf = torch.stack([x.any() for x in em_overflow]).any()
-            carry.red_flags.copy_(_flags(ovf, (em_num_unique > K).any()))
+            eps_reduce_shard(carry, st.costs, em_overflow, em_num_unique)
         return carry
     red = None
     for d in range(D):
@@ -700,6 +695,12 @@ def _sharded_lattice_frame(pg, cfg: ShardLatticeConfig, sh: _Shard, bufs: _Bufs)
     frame_tail_shard(s, cutoff, tin, sh.my_base, local=bufs.cutoff["local"])
 
 
+def _pg_ids(pg) -> tuple:
+    """The ids of a rank's packed tables: the part of a kept driver's key
+    that names the decoder it decodes for."""
+    return tuple(id(x) for x in pg)
+
+
 def frame_driver(lattice: bool, pg, cfg, sh: _Shard, batch: int, width: int,
                  device) -> ShardDriver:
     """The kept sharded frame driver of these arguments (the lattice frame
@@ -708,8 +709,7 @@ def frame_driver(lattice: bool, pg, cfg, sh: _Shard, batch: int, width: int,
     ``width`` wide on ``device``, its frame over ``sh.group``."""
     dev = torch.device(device)
     sc = cfg.shard if lattice else cfg
-    key = (lattice, tuple(id(x) for x in pg), cfg, id(sh.group), tuple(sh[1:]), batch, width,
-           str(dev))
+    key = (lattice, _pg_ids(pg), cfg, id(sh.group), tuple(sh[1:]), batch, width, str(dev))
 
     def make():
         bufs = _bufs(sc, batch, cfg.eps_records if lattice else sc.k_local, width, dev)
@@ -827,6 +827,22 @@ class _ShardedDecoder:
             out = {k: (np.concatenate([p[k] for p in parts], axis=batch_axes[k])
                        if k in batch_axes else v) for k, v in out.items()}
         return out
+
+    def close(self) -> None:
+        """Release this decoder's kept sharded frame drivers
+        (``shard_driver.release``): its card finished with them and their
+        graphs destroyed, which under NCCL hold the group's communicators.
+        Call it (or end the decoder's ``with`` block) before a plain
+        ``torch.distributed.destroy_process_group()``; a later decode makes
+        its driver again."""
+        ids = _pg_ids(self._pg)
+        shard_driver.release(lambda key: key[1] == ids)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
 
     def _global_states(self, states: torch.Tensor) -> torch.Tensor:
         """Local state ids -> global, clamped for the last part's padding."""

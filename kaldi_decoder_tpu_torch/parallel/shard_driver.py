@@ -36,8 +36,13 @@ replay adds the launches and collective calls the graph holds;
 ``decoders.driver.replays`` counts the frames replayed.
 
 The kept drivers hold their graphs, and a graph holds its collectives'
-NCCL communicators: :func:`release` drops them, and
-``mesh.shutdown_distributed`` calls it before it destroys the groups.
+NCCL communicators, which NCCL does not destroy while such a graph lives
+(``ncclCommDestroy`` waits for the graphs that hold its communicator to
+go): :func:`release` drops them.  ``mesh.shutdown_distributed`` calls it
+before it destroys the groups, and a sharded decoder's ``close()`` (or
+the end of its ``with`` block) drops its own drivers.  A plain ``torch.distributed.destroy_process_group()`` runs
+no code of this package first: before it, close the decoders or call
+:func:`release`.
 """
 
 from __future__ import annotations
@@ -51,12 +56,13 @@ import torch.distributed as dist
 
 from kaldi_decoder_tpu_torch.decoders import driver
 from kaldi_decoder_tpu_torch.kernels.cutoff import global_cutoff_merge
-from kaldi_decoder_tpu_torch.kernels.eps import eps_step_shard
+from kaldi_decoder_tpu_torch.kernels.eps import eps_reduce_shard, eps_step_shard
 from kaldi_decoder_tpu_torch.kernels.route import route_recv, route_send
 from kaldi_decoder_tpu_torch.parallel.mesh import collective_calls
 
 # The wrappers whose launches a captured sharded frame holds.
-COUNTED = driver.COUNTED + (route_send, route_recv, eps_step_shard, global_cutoff_merge)
+COUNTED = driver.COUNTED + (route_send, route_recv, eps_step_shard, eps_reduce_shard,
+                             global_cutoff_merge)
 
 # Drivers kept (``decoders.driver.kept_driver``: at most ``MAX_DRIVERS``,
 # each holding its static buffers, graph and graph pool).
@@ -113,9 +119,14 @@ def driver_for(key, make: Callable[[], ShardDriver]) -> ShardDriver:
     return driver.kept_driver(_drivers, key, make)
 
 
-def release() -> None:
-    """Drop the kept sharded frame drivers, each released: its card
-    finished with it and its graph destroyed.  Call it before the groups
-    go (``mesh.shutdown_distributed`` does): NCCL does not destroy a
+def release(where: Optional[Callable[[tuple], bool]] = None) -> None:
+    """Drop the kept sharded frame drivers (those whose key ``where``
+    holds true of, every one when None), each released: its card finished
+    with it and its graph destroyed.  Call it before the groups go
+    (``mesh.shutdown_distributed`` does): NCCL does not destroy a
     communicator while a graph holding its collectives lives."""
-    driver.release(_drivers)
+    if where is None:
+        driver.release(_drivers)
+        return
+    for key in [k for k in _drivers if where(k)]:
+        _drivers.pop(key).release()

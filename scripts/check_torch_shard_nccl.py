@@ -1,13 +1,17 @@
 #!/usr/bin/env python3
 """The sharded decoders over NCCL on P cards, one rank a card: the sharded
-frame driver's captured graph against the host loop.
+frame driver's captured graph against the host loop, and how a rank ends
+its group.
 
 Builds the port's kernels, then spawns ``--ranks`` processes (default:
 every visible card), rank r on ``cuda:r``, meeting over NCCL at
 ``tcp://localhost``.  Each rank rebuilds the bench workload from its seed,
-cuts it as ``chip_smoke.py`` phases 12-13 do (``SHARD_FRAMES`` frames,
-``SHARD_CONFIG``) and, for ``ShardedViterbiDecoder`` and
-``ShardedLatticeDecoder`` on a ``("model",)`` mesh of the P ranks:
+takes the sharded workload of ``--graph`` (``chip_smoke.shard_cells``:
+"bench", phases 12-13's unfolded bench graph at ``SHARD_CONFIG``; "h",
+phase 14's CTC topology H at ``H_SHARD_CONFIG``, where the sharded frame
+has no eps iteration and the eps step's reduce mode runs), cut to its
+frames, and, for ``ShardedViterbiDecoder`` and ``ShardedLatticeDecoder``
+(``--kinds``) on a ``("model",)`` mesh of the P ranks:
 
 - decodes through the sharded frame driver (every frame after the
   driver's first replayed from its captured graph, all ranks in
@@ -15,10 +19,10 @@ cuts it as ``chip_smoke.py`` phases 12-13 do (``SHARD_FRAMES`` frames,
   replayed), then the same decode as the host loop
   (``decoders.driver.eager_frames()``), counted; every field of the two
   results must be equal, floats by their bits, and so must the counts;
-  where ``tests/data/torch_port_shard_ref.json`` has a part of P shards
-  (P = 1 and 2), the replayed decode must also equal the JAX sharded
-  decoders there, as in the smoke (labels, best-path cost bits,
-  ``num_active``, the flags; lattices and utterance 0's pruned links);
+  where the cell's JAX reference has a part of P shards (P = 1 and 2),
+  the replayed decode must also equal the JAX sharded decoders there, as
+  in the smoke (labels, best-path cost bits, ``num_active``, the flags;
+  lattices and utterance 0's pruned links);
 - times the driver's chunk alone (the first decode's
   ``graph_shard.sharded_chunk`` call again) replayed and as the loop, in
   turns (graph, loop, loop, graph): wall ms a frame, host clock around a
@@ -26,13 +30,13 @@ cuts it as ``chip_smoke.py`` phases 12-13 do (``SHARD_FRAMES`` frames,
 
 Prints each rank's numbers and writes every rank's checks to
 ``chiprun_out/shard_nccl_<tag>.json``.  A rank hands its numbers over
-before its teardown (a barrier, then ``shutdown_distributed``: the kept
-sharded frame drivers released, then the groups destroyed) and reports
-each step of it.  Exits non-zero if a check fails on any rank, or if a
-rank has not ended ``TEARDOWN_S`` seconds after the last results: such a
-rank is ended and named with the last step it reported.
+before its teardown (``--teardown``, :data:`TEARDOWNS`) and reports each
+step of it.  Exits non-zero if a check fails on any rank, or if a rank
+has not ended ``TEARDOWN_S`` seconds after the last results: such a rank
+is ended and named with the last step it reported.
 
-    python3 scripts/check_torch_shard_nccl.py [--ranks P] [--tag T]
+    python3 scripts/check_torch_shard_nccl.py [--ranks P] [--graph bench|h] \
+        [--teardown shutdown|close|destroy|none] [--tag T]
 """
 
 import argparse
@@ -48,6 +52,14 @@ import traceback
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIMEOUT = 1200  # seconds the ranks may take for their results
 TEARDOWN_S = 60  # seconds, after the last results, for every rank to end
+# How a rank ends its group after its results: ``parallel.shutdown_distributed()``
+# (the kept sharded frame drivers released, then the groups destroyed);
+# each decoder closed (its ``with`` block: its kept drivers released), then
+# a barrier and ``torch.distributed.destroy_process_group()``; a barrier
+# then ``destroy_process_group()`` alone, the decoders' drivers kept; or no
+# call (the rank function returns and the process exits).
+TEARDOWNS = ("shutdown", "close", "destroy", "none")
+ENDED = "ended its teardown"
 FIELDS = {
     "viterbi": ("bp_init", "bp_emit", "bp_eps", "frontier_states", "frontier_costs",
                 "num_active", "best_costs", "cutoffs", "overflows", "saturations"),
@@ -94,19 +106,20 @@ def counted(cs, decode):
     return res, cs.read_counts(), dict(collective_calls), driver.replays
 
 
-def rank_run(rank, P, port, queue):
-    """One rank: both sharded decoders' checks and chunk walls; puts
-    (rank, "ok", numbers) or (rank, "error", traceback) on ``queue``."""
+def rank_run(rank, P, port, queue, kinds=("viterbi", "lattice"), teardown="shutdown",
+             graph_name="bench"):
+    """One rank: the sharded decoders' (``kinds``) checks and chunk walls;
+    puts (rank, "ok", numbers) or (rank, "error", traceback) on ``queue``,
+    then ends its group as ``teardown`` says (:data:`TEARDOWNS`), reporting
+    each step as (rank, "step", name).  ``graph_name`` names the sharded
+    workload (``chip_smoke.shard_cells``)."""
     try:
         sys.path.insert(0, REPO)
         import torch
         import torch.distributed as dist
 
-        from kaldi_decoder_tpu_torch import config_for_graph
         from kaldi_decoder_tpu_torch.decoders import driver
         from kaldi_decoder_tpu_torch.parallel import (
-            ShardedLatticeDecoder,
-            ShardedViterbiDecoder,
             graph_shard,
             initialize_distributed,
             make_mesh,
@@ -117,20 +130,14 @@ def rank_run(rank, P, port, queue):
         initialize_distributed(backend="nccl", init_method=f"tcp://localhost:{port}",
                                rank=rank, world_size=P)
         cs = smoke()
-        graph, scores, lengths, refs = cs.bench_workload()
-        sref, sc, sl = cs.shard_reference(scores, lengths, refs)
-        want = sref["parts"].get(str(P))
+        cell = next(c for c in cs.shard_cells(cs.bench_workload()) if c.name == graph_name)
+        sc, sl = cell.sc, cell.sl
+        want = cell.ref["parts"].get(str(P))
         mesh = make_mesh(P, "model", device_type="cuda")
-        fc = config_for_graph(graph, **cs.SHARD_CONFIG)
-        out = {}
-        for kind in ("viterbi", "lattice"):
-            if kind == "viterbi":
-                dec = ShardedViterbiDecoder(graph, fc, mesh=mesh, pad_time_to=cs.SHARD_FRAMES,
-                                            device="cuda")
-            else:
-                dec = ShardedLatticeDecoder(graph, fc, lattice_beam=cs.SHARD_LATTICE_BEAM,
-                                            mesh=mesh, pad_time_to=cs.SHARD_FRAMES,
-                                            device="cuda")
+        out, decs = {}, []
+        for kind in kinds:
+            dec = cs.sharded_decoder(kind, cell, mesh)
+            decs.append(dec)
             dist.barrier()
             with cs.CallCapture(graph_shard, {"sharded_chunk": {0}}) as chunk:
                 graph_run = counted(cs, lambda: dec.decode(sc, sl))
@@ -175,8 +182,10 @@ def rank_run(rank, P, port, queue):
             out[kind] = dict(ok=ok, checks=checks, frames=frames, chunk_wall_ms=walls,
                              pool_bytes=graph_shard.frame_driver(
                                  kind == "lattice", dec._pg, dec.cfg, dec._sh, cs.B, cs.V,
-                                 dec.device).pool_bytes)
-            cs.log(f"[rank {rank}] P={P} {kind}: graph equal to the loop: {ok} "
+                                 dec.device).pool_bytes,
+                             overflow_frames=int(graph_run[0].overflows.sum()),
+                             saturated_frames=int(graph_run[0].saturations.sum()))
+            cs.log(f"[rank {rank}] P={P} {graph_name} {kind}: graph equal to the loop: {ok} "
                    f"({checks['differs'] or 'every field'}; replays {graph_run[3]} of {frames} "
                    f"frames; launches {graph_run[1]}; collectives {graph_run[2]}); chunk wall "
                    f"ms a frame: graph {walls['graph']}, loop {walls['loop']}")
@@ -185,10 +194,22 @@ def rank_run(rank, P, port, queue):
         # The numbers go out before the teardown, and each step of it is
         # reported, so that a rank stuck there is named with the step.
         queue.put((rank, "ok", out))
+        if teardown == "none":  # the process ends with the group and the kept drivers alive
+            queue.put((rank, "step", ENDED))
+            return
+        if teardown == "close":
+            for dec in decs:
+                with dec:  # its end closes the decoder: its kept drivers released
+                    pass
+            queue.put((rank, "step", "closed"))
+        del decs
         dist.barrier()
         queue.put((rank, "step", "barrier"))
-        shutdown_distributed()  # the kept drivers' graphs released, then the groups
-        queue.put((rank, "step", "shut down"))
+        if teardown == "shutdown":
+            shutdown_distributed()  # the kept drivers' graphs released, then the groups
+        else:
+            dist.destroy_process_group()
+        queue.put((rank, "step", ENDED))
     except BaseException:
         queue.put((rank, "error", traceback.format_exc()))
         raise
@@ -198,6 +219,12 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ranks", type=int, default=0, help="ranks, one a card (0: every card)")
     ap.add_argument("--tag", default="new", help="name of the output file's run")
+    ap.add_argument("--kinds", default="viterbi,lattice",
+                    help="the sharded decoders to run, comma-separated")
+    ap.add_argument("--teardown", choices=TEARDOWNS, default="shutdown",
+                    help="how each rank ends its group after its results")
+    ap.add_argument("--graph", choices=("bench", "h"), default="bench",
+                    help="the sharded workload: the bench graph (phases 12-13) or H (phase 14)")
     args = ap.parse_args()
     sys.path.insert(0, REPO)
     import multiprocessing as mp
@@ -216,13 +243,16 @@ def main():
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
     port = cs.free_port()
-    procs = [ctx.Process(target=rank_run, args=(r, P, port, q)) for r in range(P)]
+    kinds = tuple(args.kinds.split(","))
+    procs = [ctx.Process(target=rank_run, args=(r, P, port, q, kinds, args.teardown, args.graph))
+             for r in range(P)]
     for p in procs:
         p.start()
     got, step = {}, {r: "decoding" for r in range(P)}
+    ended_s = last = None
     try:
         deadline = time.time() + TIMEOUT
-        while len(got) < P or any(s != "shut down" for s in step.values()):
+        while len(got) < P or any(s != ENDED for s in step.values()):
             if len(got) == P:  # the teardown: TEARDOWN_S for every rank to end
                 deadline = min(deadline, end_by)
             try:
@@ -233,11 +263,13 @@ def main():
                 raise SystemExit(f"rank {rank} failed:\n{out}")
             if status == "ok":
                 got[rank], step[rank] = out, "results"
-                end_by = time.time() + TEARDOWN_S
+                last = time.time()
+                end_by = last + TEARDOWN_S
             else:
                 step[rank] = out
         for p in procs:
             p.join(timeout=max(1.0, deadline - time.time()))
+        ended_s = time.time() - last if not any(p.is_alive() for p in procs) else None
     finally:
         stuck = {r: step[r] for r, p in enumerate(procs) if p.is_alive()}
         for p in procs:
@@ -249,7 +281,11 @@ def main():
         raise SystemExit(f"check_torch_shard_nccl: no results from ranks "
                          f"{sorted(set(range(P)) - set(got))} within {TIMEOUT} s")
     line = json.dumps({"tag": args.tag, "card": cs.card_line(), "ranks": P,
+                       "graph": args.graph, "teardown_mode": args.teardown,
                        "teardown": {str(r): step[r] for r in range(P)},
+                       "stuck": {str(r): s for r, s in stuck.items()},
+                       "exit_codes": [p.exitcode for p in procs],
+                       "ended_s_after_results": ended_s,
                        "by_rank": [got[r] for r in range(P)]})
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", f"shard_nccl_{args.tag}.json"), "w") as f:

@@ -2005,6 +2005,91 @@ def test_eps_step_shard_kernel_min_ties(card, lattice, zero, clusters):
         _same_bits(w, g, f"carried {name}")
 
 
+# The reduce mode's flag cases: each overflow word of the last row, its
+# num_unique past K, and all of them; the want of its flag pair.
+REDUCE_FLAGS = {"overflow0": [1, 0], "overflow1": [1, 0], "overflow2": [1, 0],
+                "saturated": [0, 1], "all": [1, 1]}
+
+
+def _reduce_inputs(rng, nb, K, flag):
+    """A frontier (nb, K) for the reduce mode: costs in [1, 5), its last
+    eighth +inf, the smallest tied across two blocks' slot ranges (slots
+    K/2 - 24 and K/2 + 24: two blocks at every size of two or more) as -0.0
+    and +0.0 on even rows (which first alternating by pairs) and as equal
+    bits on odd rows; row 1 all +inf, row 2 one finite cost (at B > 2);
+    the last row's flags set as ``flag`` names (``REDUCE_FLAGS``), none
+    when None."""
+    costs = rng.uniform(1, 5, size=(nb, K)).astype(np.float32)
+    costs[:, K - K // 8:] = np.inf
+    lo, hi = K // 2 - 24, K // 2 + 24
+    for b in range(nb):
+        first, second = ((np.float32(-0.0), np.float32(0.0)) if b % 2 == 0
+                         else (np.float32(0.75), np.float32(0.75)))
+        if b % 4 == 2:
+            first, second = second, first
+        costs[b, lo], costs[b, hi] = first, second
+    if nb > 2:
+        costs[1] = np.inf
+        costs[2] = np.inf
+        costs[2, K - 200] = 3.5
+    ovf = [np.zeros(nb, bool) for _ in range(3)]
+    num_unique = rng.integers(1, K + 1, size=nb).astype(np.int32)
+    if flag in ("overflow0", "overflow1", "overflow2", "all"):
+        for i in (range(3) if flag == "all" else [int(flag[-1])]):
+            ovf[i][nb - 1] = True
+    if flag in ("saturated", "all"):
+        num_unique[nb - 1] = K + 1
+    return costs, ovf, num_unique
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flag", sorted(REDUCE_FLAGS))
+@pytest.mark.parametrize("clusters", SHARD_CLUSTERS)
+@pytest.mark.parametrize("K", [2048, 512])
+@pytest.mark.parametrize("nb", [16, 1])
+def test_eps_reduce_shard_kernel_matches_plain(card, nb, K, clusters, flag):
+    """The eps step's shard mode's reduce mode (a sharded frame's local
+    values at eps_iters 0) against ``eps_reduce_shard_plain``, bitwise, at
+    its own cluster size and at 8, 4, 2 and 1 blocks a row, with outputs
+    that start as the bit complement of plain's: red_min the first smallest
+    finite cost in slot order with that slot's bits (-0.0 beside +0.0
+    across two blocks' ranges), +inf for a row without one, red_count,
+    and the flag pair written whole, word by word: a call with ``flag``'s
+    flags set (each overflow word alone, the saturation alone, all), then
+    one with none on the same outputs."""
+    from kaldi_decoder_tpu_torch.kernels.eps import (
+        empty_shard_eps_carry,
+        eps_reduce_shard,
+        eps_reduce_shard_plain,
+    )
+
+    rng = np.random.default_rng(11 + nb + K)
+    for flagged in (flag, None):
+        costs, ovf, num_unique = _reduce_inputs(rng, nb, K, flagged)
+        args = (torch.from_numpy(costs), tuple(torch.from_numpy(x) for x in ovf),
+                torch.from_numpy(num_unique))
+        want = empty_shard_eps_carry(nb, 0, K, "cpu")
+        eps_reduce_shard_plain(want, *args)
+        if flagged:
+            got = empty_shard_eps_carry(nb, 0, K, card)
+            for w, g in zip(want[3:], got[3:]):  # red_min, red_count, red_flags
+                g.view(torch.int32).copy_(~w.view(torch.int32))
+        dev_args = (args[0].to(card), tuple(x.to(card) for x in args[1]), args[2].to(card))
+        n0 = eps_reduce_shard.launches
+        eps_reduce_shard(got, *dev_args, clusters=clusters)
+        torch.cuda.synchronize()
+        assert eps_reduce_shard.launches == n0 + 1
+        canon = np.where(costs == 0, np.float32(0.0), costs)
+        at = np.argmin(np.where(np.isfinite(costs), canon, np.inf), axis=1)
+        first = costs[np.arange(nb), at].copy()
+        first[~np.isfinite(costs).any(axis=1)] = np.inf
+        _same_bits(torch.from_numpy(first), got.red_min.cpu(),
+                   "red_min: the first smallest in slot order")
+        for name in ("red_min", "red_count", "red_flags"):
+            _same_bits(getattr(want, name), getattr(got, name).cpu(), f"carry.{name}")
+        assert got.red_flags.tolist() == (REDUCE_FLAGS[flagged] if flagged else [0, 0])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("fold", [None, "prefix", "costs"])
 @pytest.mark.parametrize("clusters", SHARD_CLUSTERS)
