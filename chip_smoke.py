@@ -24,10 +24,11 @@ Phases (any failure raises, and the process exits non-zero):
   1. build: the CUDA kernels (K1 ``csrc/expand.cu``, which reads each
      active slot's em_block row itself, K2 ``csrc/dedup_rec.cu``, K3
      ``csrc/frame.cu``, the frame driver's tail, K4 ``csrc/sweep.cu``, K5
-     ``csrc/eps.cu`` (with the eps step's shard mode and its reduce mode),
-     K6 ``csrc/dedup.cu``, the eps step
-     ``csrc/eps_step.cuh`` (the last step of K6's and K2's eps calls), and
-     the
+     ``csrc/eps.cu`` (with the eps step's shard mode), K6
+     ``csrc/dedup.cu``, the eps step ``csrc/eps_step.cuh`` (the last step
+     of K6's and K2's eps calls), a sharded frame's local values
+     ``csrc/shard_reduce.cuh`` (the last step of its emitting K6 or K2
+     call at eps_iters 0), and the
      standalone row
      gather ``csrc/gather.cu``, the counterpart of the TPU experiments'
      gathers, which no path calls) and the C++ host library, from the
@@ -154,7 +155,8 @@ Phases (any failure raises, and the process exits non-zero):
      its first replayed from one captured CUDA graph (``SHARD_FRAMES`` -
      1 replays, counted), at P = 2 over gloo the host loop (0 replays);
      per rank K8's merge, K1 and K3's shard mode once a frame, K3's shard
-     first-frame mode and K8's local half once a chunk, K6 and K7's send
+     first-frame mode (K8's local half of the start state its last step)
+     once a chunk, K8's local half never, K6 and K7's send
      side (1 + eps_iters) times a frame plus eps_iters, K7's receive side
      once a frame, K5 and the eps step's shard mode eps_iters times a
      frame plus eps_iters (the start closure's); the collectives by kind
@@ -175,9 +177,10 @@ Phases (any failure raises, and the process exits non-zero):
      (``loop_walls``) and the graph's pool.  Rank 0 of 12 and 13 holds
      K5, K1, K6 or K2 (emitting and eps calls), K7's send (at every
      cluster size too) and receive sides (emitting and eps calls), the eps
-     step's shard mode, K3's shard mode, its first-frame mode and K8's
-     halves on frame ``SHARD_FRAME``'s inputs (the chunk's start for the
-     first-frame mode and K8's local half), kept (``CallCapture``) from a
+     step's shard mode, K3's shard mode, its first-frame mode (at every
+     cluster size too) and K8's halves on frame ``SHARD_FRAME``'s inputs
+     (the chunk's start for the first-frame mode and K8's local half, held
+     as a launch of its own there), kept (``CallCapture``) from a
      decode run as the host loop (``driver.eager_frames``: a replayed
      frame's calls do not pass through the wrappers' Python), against
      plain (bitwise) and times them, while the other rank waits: phase
@@ -199,15 +202,18 @@ Phases (any failure raises, and the process exits non-zero):
      ``ShardedViterbiDecoder`` and ``ShardedLatticeDecoder`` on H at
      ``H_SHARD_CONFIG``, route buckets of ``H_ROUTE_CAP``, the first
      ``H_SHARD_FRAMES`` frames, checked as 12-13 against the same file: a
-     sharded frame is 7 launches (K8's merge, K1, K7's sides, K6 or K2,
-     the eps step's reduce mode, K3's shard mode) and 8 collectives, no
-     other device activity once a frame; rank 0 holds the reduce mode on a
+     sharded frame is 6 launches (K8's merge, K1, K7's sides, K6 or K2
+     with the frame's local values as its last step, K3's shard mode) and
+     8 collectives, no other device activity once a frame, a chunk one
+     more (K3's shard first-frame mode with K8's local half of the start
+     state); rank 0 holds the emitting call with its local values on a
      call of the counted decode (frame 0 under NCCL, SHARD_FRAME or the
-     last frame over gloo) against plain, raw bits, at its own and every
-     cluster size, its outputs set to the bit complement of plain's
-     first, and times it.  Both lattice decoders run again at
-     ``H8_LATTICE_KW`` (lattice beam 8, em_records 2^18) on the first
-     ``H8_FRAMES`` frames (the batched in one chunk, its K2 and K4 held
+     last frame over gloo) against its CPU route, raw bits, at its own and
+     every cluster size, the local values set to the bit complement of
+     plain's first, and times it beside the same call without them.  Both
+     lattice decoders run again at ``H8_LATTICE_KW`` (lattice beam 8,
+     em_records 2^18) on the first ``H8_FRAMES`` frames (the batched in
+     one chunk, its K2 and K4 held
      and timed there; the sharded with route buckets of ``H8_ROUTE_CAP``),
      checked against the reference's ``lattice8`` section.
 Every chunk loop of phases 3-13 runs through a frame driver
@@ -1522,14 +1528,9 @@ def reset_counts():
 
     from kaldi_decoder_tpu_torch.decoders import driver
     from kaldi_decoder_tpu_torch.kernels.cutoff import global_cutoff_local, global_cutoff_merge
-    from kaldi_decoder_tpu_torch.kernels.dedup import dedup_select
+    from kaldi_decoder_tpu_torch.kernels.dedup import dedup_select, shard_reduce
     from kaldi_decoder_tpu_torch.kernels.dedup_rec import dedup_select_rec
-    from kaldi_decoder_tpu_torch.kernels.eps import (
-        eps_dedup,
-        eps_reduce_shard,
-        eps_step_shard,
-        expand_eps_lanes,
-    )
+    from kaldi_decoder_tpu_torch.kernels.eps import eps_dedup, eps_step_shard, expand_eps_lanes
     from kaldi_decoder_tpu_torch.kernels.expand import expand_filter
     from kaldi_decoder_tpu_torch.kernels.frame import frame_start, frame_tail
     from kaldi_decoder_tpu_torch.kernels.gather import row_gather
@@ -1538,7 +1539,7 @@ def reset_counts():
 
     torch.cuda.synchronize()
     for fn in (row_gather, expand_filter, dedup_select_rec, sweep_chunk, expand_eps_lanes,
-               dedup_select, eps_dedup, eps_step_shard, eps_reduce_shard, frame_tail,
+               dedup_select, eps_dedup, eps_step_shard, shard_reduce, frame_tail,
                frame_start, route_send, route_recv, global_cutoff_local, global_cutoff_merge):
         fn.launches = 0
     driver.replays = 0
@@ -1548,20 +1549,16 @@ def read_counts():
     """The launch counts since :func:`reset_counts`: K3's frame tail (and
     its shard mode) as ``k3``, its first-frame mode as ``k3_start``, K5 as
     ``k5``, the standalone eps step (its shard mode, the only one left) as
-    ``eps_step``, its reduce mode (a sharded frame without eps iterations)
-    as ``eps_reduce``, the eps steps run as the last step of an eps dedup
-    call (each also a K6 or K2 launch) as ``eps_dedup``, K7's send and
+    ``eps_step``, the eps steps run as the last step of an eps dedup call
+    (each also a K6 or K2 launch) as ``eps_dedup``, a sharded frame's local
+    values at eps_iters 0 written as the last step of its emitting dedup
+    call (each also a K6 or K2 launch) as ``em_reduce``, K7's send and
     receive sides as ``k7_send`` and ``k7_recv``, K8's local half and merge
     as ``k8_local`` and ``k8_merge``."""
     from kaldi_decoder_tpu_torch.kernels.cutoff import global_cutoff_local, global_cutoff_merge
-    from kaldi_decoder_tpu_torch.kernels.dedup import dedup_select
+    from kaldi_decoder_tpu_torch.kernels.dedup import dedup_select, shard_reduce
     from kaldi_decoder_tpu_torch.kernels.dedup_rec import dedup_select_rec
-    from kaldi_decoder_tpu_torch.kernels.eps import (
-        eps_dedup,
-        eps_reduce_shard,
-        eps_step_shard,
-        expand_eps_lanes,
-    )
+    from kaldi_decoder_tpu_torch.kernels.eps import eps_dedup, eps_step_shard, expand_eps_lanes
     from kaldi_decoder_tpu_torch.kernels.expand import expand_filter
     from kaldi_decoder_tpu_torch.kernels.frame import frame_start, frame_tail
     from kaldi_decoder_tpu_torch.kernels.gather import row_gather
@@ -1571,7 +1568,7 @@ def read_counts():
     return dict(gather=row_gather.launches, k1=expand_filter.launches,
                 k2=dedup_select_rec.launches, k4=sweep_chunk.launches,
                 k5=expand_eps_lanes.launches, k6=dedup_select.launches,
-                eps_step=eps_step_shard.launches, eps_reduce=eps_reduce_shard.launches,
+                eps_step=eps_step_shard.launches, em_reduce=shard_reduce.launches,
                 eps_dedup=eps_dedup.launches,
                 k3=frame_tail.launches,
                 k3_start=frame_start.launches, k7_send=route_send.launches,
@@ -1581,9 +1578,9 @@ def read_counts():
 
 def launch_counts(**want):
     """A dict of launch counts as :func:`read_counts` gives them: ``want``,
-    the eps steps inside a dedup call, the reduce mode, K7's sides and K8's
-    halves 0 unless given."""
-    return dict(dict(eps_dedup=0, eps_reduce=0, k7_send=0, k7_recv=0, k8_local=0, k8_merge=0),
+    the eps steps inside a dedup call, the local values inside an emitting
+    call, K7's sides and K8's halves 0 unless given."""
+    return dict(dict(eps_dedup=0, em_reduce=0, k7_send=0, k7_recv=0, k8_local=0, k8_merge=0),
                 **want)
 
 
@@ -2751,66 +2748,89 @@ def eps_step_shard_work(sel, carry, lanes, stopped):
     return nbytes, B * K
 
 
-def eps_reduce_work(costs, em_overflow):
-    """Bytes and operations of one call of the reduce mode: the costs, the
-    overflow flags and num_unique read, the row's two scalars and the flag
-    pair written; a compare a slot."""
-    B, K = costs.shape
-    return B * K * 4 + B * (len(em_overflow) + 4 + 8) + 8, B * K
+def local_values_work(B, em_overflow):
+    """Bytes and operations of a sharded frame's local values as the last
+    step of its emitting dedup call: the emitting flags read, each row's
+    slot-0 cost and count written (the call holds both), the count word's
+    add a row, the flag pair written; a compare a row."""
+    return B * (len(em_overflow) + 8 + 8) + 8, B
 
 
-def hold_reduce(args, kw, where):
-    """The reduce mode (``kernels.eps.eps_reduce_shard``: a sharded frame's
-    local values at eps_iters 0) on one call's arguments kept from a decode,
-    against ``eps_reduce_shard_plain`` on CPU copies, bitwise (raw bits,
-    -0.0 apart from +0.0), at its own cluster size and at 8, 4, 2 and 1
-    blocks a row, its outputs set to the bit complement of plain's before
-    each call; then timed at each.  Returns ({"eps_reduce": 0.0},
-    {"eps_reduce": time_kernel fields})."""
+def hold_local_values(args, kw, kind, where):
+    """The emitting dedup call with a sharded frame's local values as its
+    last step (K6's, ``kind`` "viterbi", or K2's, with ``reduce=``) on one
+    call's arguments kept from a decode, against its CPU route (the plain
+    call, then ``eps_reduce_shard_plain``) on CPU copies, bitwise (raw
+    bits, -0.0 apart from +0.0), at its own cluster size and at 8, 4, 2
+    and 1 blocks a row, the local values set to the bit complement of
+    plain's before each call and the count word 0 after it; then timed at
+    each, beside the same call without them.  Returns ({"em_reduce":
+    0.0}, {"em_reduce": time_kernel fields, with dedup_alone_ms and
+    reduce_ms})."""
     import torch
 
-    from kaldi_decoder_tpu_torch.kernels.eps import (
-        eps_reduce_shard,
-        eps_reduce_shard_plain,
-        reduce_shard_cluster_size,
-    )
+    from kaldi_decoder_tpu_torch.kernels import dedup as k6
+    from kaldi_decoder_tpu_torch.kernels import dedup_rec as k2
+    from kaldi_decoder_tpu_torch.ops.segment import dedup_select as k6_plain
+    from kaldi_decoder_tpu_torch.ops.segment import dedup_select_rec as k2_plain
 
-    carry, costs, ovf, num_unique = args
-    B, K = costs.shape
-    want = to_cpu(carry)
-    eps_reduce_shard_plain(want, costs.cpu(), tuple(x.cpu() for x in ovf), num_unique.cpu())
+    viterbi = kind == "viterbi"
+    fn = k6.dedup_select if viterbi else k2.dedup_select_rec
+    carry, em = kw["reduce"]
+    rest = {k: v for k, v in kw.items() if k != "reduce"}
+    want_carry = to_cpu(carry)
+    want = fn(*to_cpu(args), **to_cpu(rest), reduce=(want_carry, to_cpu(em)))
+    B, N = args[1].shape
+    K = args[2]
     names = ("red_min", "red_count", "red_flags")
     for c in (0, *CLUSTER_SIZES):
+        at = f"{where}, {c or 'its own'} blocks a row"
         for name in names:
-            getattr(carry, name).copy_(bit_complement(getattr(want, name)))
-        eps_reduce_shard(carry, costs, ovf, num_unique, clusters=c)
+            getattr(carry, name).copy_(bit_complement(getattr(want_carry, name)))
+        got = fn(*args, **rest, reduce=(carry, em), clusters=c)
         torch.cuda.synchronize()
-        for name in names:
-            w, g = getattr(want, name), getattr(carry, name).cpu()
-            if w.dtype == torch.float32:
-                w, g = w.view(torch.int32), g.view(torch.int32)
-            if not torch.equal(w, g):
-                raise AssertionError(f"the reduce mode at {c or 'its own'} blocks a row differs "
-                                     f"from plain at {where}: {name}")
-    chosen = reduce_shard_cluster_size(B, K)
-    log(f"the eps step's shard mode's reduce mode at {where} (B={B}, K {K}, "
-        f"{len(ovf)} overflow flags; {int(want.red_count.sum())} finite costs, flags "
-        f"{want.red_flags.tolist()}; clusters of {chosen} blocks a row): equal to plain, raw "
-        "bits, at its own and every cluster size, from outputs set to the bit complement of "
-        "plain's; timed:")
-    t = time_kernel(f"the reduce mode at {where}",
-                    lambda: eps_reduce_shard(carry, costs, ovf, num_unique),
-                    lambda: eps_reduce_shard_plain(carry, costs, ovf, num_unique),
-                    eps_reduce_work(costs, ovf))
+        same_fields(want, to_cpu(got), "the emitting call with the local values", at)
+        same_fields(want_carry, to_cpu(carry), "the local values", at)
+        if carry.red_done.tolist() != [0]:
+            raise AssertionError(f"the local values on {at}: the count word "
+                                 f"{carry.red_done.tolist()} after the call")
+    chosen = k6.cluster_size(B, N) if viterbi else k2.cluster_size(B, N, reduce=True)
+    log(f"the local values as the emitting {'K6' if viterbi else 'K2'} call's last step at "
+        f"{where} (B={B}, lanes {N}, K {K}, {len(em)} overflow flags; "
+        f"{int(want_carry.red_count.sum())} finite costs, flags {want_carry.red_flags.tolist()}; "
+        f"clusters of {chosen} blocks a row): equal to plain, raw bits, at its own and every "
+        "cluster size, from outputs set to the bit complement of plain's; timed:")
+
+    def plain():
+        if viterbi:
+            sel = k6_plain(*args[:4])
+            flags = tuple(em)
+        else:
+            sel = k2_plain(*args[:6], rest["payload"])
+            flags = tuple(em) + (sel.rec_overflow,)
+        k6.eps_reduce_shard_plain(carry, sel.costs, flags, sel.num_unique)
+
+    if viterbi:
+        work = k6_work(args[1], K)
+    else:
+        work = k2_work(args[0], args[1], K, args[3], args[4], args[5], rest["payload"])
+    extra = local_values_work(B, em)
+    t = time_kernel(f"the emitting {'K6' if viterbi else 'K2'} call with the local values at "
+                    f"{where}", lambda: fn(*args, **rest, reduce=(carry, em)), plain,
+                    (work[0] + extra[0], work[1] + extra[1]))
     t["clusters"] = chosen
-    t["ms_by_clusters"] = {c: device_ms(
-        lambda: eps_reduce_shard(carry, costs, ovf, num_unique, clusters=c))
-        for c in CLUSTER_SIZES}
+    t["ms_by_clusters"] = {c: device_ms(lambda: fn(*args, **rest, reduce=(carry, em), clusters=c))
+                           for c in CLUSTER_SIZES}
     t["share_by_clusters"] = {c: t["bound_ms"] / ms for c, ms in t["ms_by_clusters"].items()}
-    log("  the reduce mode at each cluster size: device ms (share of the bound) " + ", ".join(
+    t["dedup_alone_ms"] = device_ms(lambda: fn(*args, **rest))
+    t["reduce_ms"] = t["ms"] - t["dedup_alone_ms"]
+    t["reduce_bound_ms"] = bound_ms(*extra)[0]
+    log("  at each cluster size: device ms (share of the bound) " + ", ".join(
         f"{c}: {ms:.4f} ({t['share_by_clusters'][c]:.1%})"
-        for c, ms in t["ms_by_clusters"].items()))
-    return {"eps_reduce": 0.0}, {"eps_reduce": t}
+        for c, ms in t["ms_by_clusters"].items())
+        + f"; the same call without the local values {t['dedup_alone_ms']:.4f} ms (the fold "
+        f"{t['reduce_ms']:+.4f})")
+    return {"em_reduce": 0.0}, {"em_reduce": t}
 
 
 def k3_shard_work(tin, fa, local=None, width=0):
@@ -2837,14 +2857,21 @@ def k3_shard_work(tin, fa, local=None, width=0):
     return nbytes, 2 * B * K
 
 
-def k3_start_shard_work(io):
+def k3_start_shard_work(io, m=None):
     """Bytes and operations of K3's shard first-frame mode: the chunk's
     start state (states, costs, base), row lengths and scores row 0 read
     and written into the slots, the table's 12 words written; no
-    arithmetic (1 operation a row, so the bound is the bytes')."""
+    arithmetic (1 operation a row, so the bound is the bytes').  With
+    ``m`` (K8's local half of the start state as its last step; 0 where
+    it has no prefix of its own), what the local half adds: a row's best
+    cost and count and its m-cost prefix written, a compare a slot; the
+    costs it reduces are the ones the copy reads, counted once."""
     B, K = io.st0.states.shape
     V_ = io.scores.shape[2] if io.scores.shape[0] else 0
-    return 2 * B * (K * 8 + 8 + V_ * 4) + 96, B
+    nbytes, nops = 2 * B * (K * 8 + 8 + V_ * 4) + 96, B
+    if m is not None:
+        nbytes, nops = nbytes + B * 8 + B * m * 4, nops + B * K
+    return nbytes, nops
 
 
 def hold_shard_kernels(kept, kind, eps_iters, tag):
@@ -2884,6 +2911,9 @@ def hold_shard_kernels(kept, kind, eps_iters, tag):
                               lambda: expand_filter_plain(*args, **kw), k1_work(*args, **kw))
     name = "dedup_select" if kind == "viterbi" else "dedup_select_rec"
     args, kw = kept[name, shard_call_index(SHARD_FRAME, eps_iters)]
+    # With eps iterations the emitting call writes no local values (its
+    # ``reduce`` None), which the plain versions do not take.
+    kw = {k: v for k, v in kw.items() if k != "reduce"}
     shape = f"B={args[0].shape[0]}, N {args[0].shape[1]}, K {args[2]}, S {args[3]}"
     for sfx in ("",):
         if kind == "viterbi":
@@ -3044,6 +3074,7 @@ def hold_shard_route(kept, eps_iters, tag):
         frame_tail_shard,
         frame_tail_shard_plain,
         shard_cluster_size,
+        start_cluster_size,
     )
     from kaldi_decoder_tpu_torch.kernels.route import (
         route_recv,
@@ -3217,38 +3248,74 @@ def hold_shard_route(kept, eps_iters, tag):
         f"K8's local half alone on the new costs {tk['k8_local_ms']:.4f}")
     times["k3_shard"] = tk
     errs["k3_shard"] = 0.0
-    # K3's shard mode's first-frame mode, once a chunk: the chunk's start.
-    (slots0, io0), _ = kept["frame_start_shard", 0]
+    # K3's shard mode's first-frame mode, once a chunk: the chunk's start,
+    # with K8's local half of the start state as its last step; at its own
+    # and every cluster size, from outputs set to the bit complement of
+    # plain's (the slots' state, lengths, scores row and table, and the
+    # local half).
+    (slots0, io0), kw0 = kept["frame_start_shard", 0]
+    local0 = kw0["local"]
+    costs0 = io0.st0.costs
+    m0 = local0.prefix.shape[1] if local0.prefix is not None else K
     want = frame_start_shard_plain(io0)
-    got = slots0.copy()
-    frame_start_shard(got, io0)
-    torch.cuda.synchronize()
-    same_fields(want.state, got.state, "K3's shard first-frame mode (state)",
-                f"{tag}, the chunk's start")
-    if not (torch.equal(want.lengths, got.lengths) and torch.equal(want.scores_t, got.scores_t)
-            and got.args.tolist() == want.args.tolist()):
-        raise AssertionError(f"K3's shard first-frame mode differs from plain on {tag}: the "
-                             "lengths, scores row or table")
-    times["k3_start_shard"] = time_kernel(
-        f"K3 shard first-frame mode at {tag}, the chunk's start (B={B}, K {K}, V {V_}, "
-        f"{io0.scores.shape[0]} frames)", lambda: frame_start_shard(got, io0),
-        lambda: frame_start_shard_plain(io0), k3_start_shard_work(io0))
-    errs["k3_start_shard"] = 0.0
-    # K8's local half runs once a chunk, on the chunk's start state.
-    (costs, m), kw = kept["global_cutoff_local", 0]
-    out = kw.get("out")
-    own = out is None or out.prefix is not None  # a prefix of its own, or the costs
-    ref = global_cutoff_local_plain(costs.cpu(), m)
-    if not own:
+    ref = global_cutoff_local_plain(costs0.cpu(), m0)
+    if local0.prefix is None:
         ref = ref._replace(prefix=None)
-    got = global_cutoff_local(costs, m, out=out)
+    chosen0 = start_cluster_size(B, K)
+    for g in (0,) + CLUSTER_SIZES:
+        at = f"{tag}, the chunk's start, {g or chosen0} blocks a row"
+        got, loc = slots0.copy(), clone(local0)
+        for dst, src in zip((*got.state, got.lengths, got.scores_t, got.args),
+                            (*want.state, want.lengths, want.scores_t, want.args)):
+            if src is not None:
+                dst.copy_(bit_complement(src.to(dst.device)))
+        for dst, src in zip(loc, ref):
+            if dst is not None:
+                dst.copy_(bit_complement(src.to(dst.device)))
+        frame_start_shard(got, io0, local=loc, clusters=g)
+        torch.cuda.synchronize()
+        same_fields(want.state, got.state, "K3's shard first-frame mode (state)", at)
+        if not (torch.equal(want.lengths, got.lengths)
+                and torch.equal(want.scores_t, got.scores_t)
+                and got.args.tolist() == want.args.tolist()):
+            raise AssertionError(f"K3's shard first-frame mode differs from plain on {at}: the "
+                                 "lengths, scores row or table")
+        same_fields(ref, to_cpu(loc), "K3's shard first-frame mode (K8's local half)", at)
+    l_out = clone(local0)
+    ts = time_kernel(
+        f"K3 shard first-frame mode at {tag}, the chunk's start (B={B}, K {K}, V {V_}, "
+        f"{io0.scores.shape[0]} frames, {chosen0} blocks a row, K8's local half at m {m0}"
+        f"{'' if local0.prefix is not None else ', no prefix of its own'})",
+        lambda: frame_start_shard(got, io0, local=l_out),
+        lambda: (frame_start_shard_plain(io0), global_cutoff_local_plain(costs0, m0)),
+        k3_start_shard_work(io0, m0 if local0.prefix is not None else 0))
+    ts["clusters"] = chosen0
+    ts["ms_by_clusters"] = {g: device_ms(
+        lambda: frame_start_shard(got, io0, local=l_out, clusters=g)) for g in CLUSTER_SIZES}
+    ts["share_by_clusters"] = {g: ts["bound_ms"] / ms for g, ms in ts["ms_by_clusters"].items()}
+    # Beside it, what it replaced: the copy alone (no local half) and K8's
+    # local half as a launch of its own on the start state.
+    ts["alone_ms"] = device_ms(lambda: frame_start_shard(got, io0))
+    log(f"    chosen {chosen0} blocks a row; at 8, 4, 2, 1: device ms (share of the bound) "
+        + ", ".join(f"{g}: {ms:.4f} ({ts['share_by_clusters'][g]:.1%})"
+                    for g, ms in ts["ms_by_clusters"].items()) + ", each equal to plain; "
+        f"without the local half {ts['alone_ms']:.4f} ms")
+    times["k3_start_shard"] = ts
+    errs["k3_start_shard"] = 0.0
+    # K8's local half, off the path (the first-frame mode's last step is
+    # it): held and timed as a launch of its own on the chunk's start state.
+    out = clone(local0)
+    own = local0.prefix is not None  # a prefix of its own, or the costs
+    got = global_cutoff_local(costs0, m0, out=out)
     torch.cuda.synchronize()
     same_fields(ref, to_cpu(got), "K8's local half", f"{tag}, the chunk's start")
     times["k8_local"] = time_kernel(
-        f"K8 local half at {tag}, the chunk's start (B={costs.shape[0]}, K {costs.shape[1]}, "
-        f"m {m}{'' if own else ', no prefix of its own'})",
-        lambda: global_cutoff_local(costs, m, out=out),
-        lambda: global_cutoff_local_plain(costs, m), k8_local_work(costs, m if own else 0))
+        f"K8 local half at {tag}, the chunk's start (B={B}, K {K}, m {m0}"
+        f"{'' if own else ', no prefix of its own'}; off the path)",
+        lambda: global_cutoff_local(costs0, m0, out=out),
+        lambda: global_cutoff_local_plain(costs0, m0), k8_local_work(costs0, m0 if own else 0))
+    ts["k8_local_ms"] = times["k8_local"]["ms"]
+    ts["fold_ms"] = ts["ms"] - ts["alone_ms"]
     args, kw = kept["global_cutoff_merge", SHARD_FRAME]
     out = kw["out"]
     best, merged = args[0], args[2]
@@ -3404,7 +3471,8 @@ def h_reference(scores, lengths, refs):
 class ShardCell(NamedTuple):
     """A sharded workload: phases 12-13's ("bench": the unfolded bench
     graph; rank 0 holds the shard kernels and the loop is timed) or phase
-    14's ("h": H, no eps iteration, rank 0 holding the reduce mode; "h8":
+    14's ("h": H, no eps iteration, rank 0 holding the emitting call with
+    the local values; "h8":
     its lattice decoder at lattice beam 8 on fewer frames), the decoders
     it runs (by phase), its graph, the decoders' config, lattice keywords
     and route cap, the frames decoded, the JAX reference (``parts`` by P),
@@ -3464,9 +3532,9 @@ def shard_path(kind, cell, refs, P, rank):
     the host loop (``driver.eager_frames``), whose calls of frame
     SHARD_FRAME (and the chunk's first-frame mode) rank 0 holds against
     their plain versions.  With no eps iterations (H) rank 0 holds the
-    reduce mode on a call of the counted decode (frame 0 under NCCL, the
-    rest replayed; over gloo SHARD_FRAME, or the last frame of a shorter
-    cut).  Returns (launch counts, the
+    emitting dedup call with the local values as its last step on a call
+    of the counted decode (frame 0 under NCCL, the rest replayed; over
+    gloo SHARD_FRAME, or the last frame of a shorter cut).  Returns (launch counts, the
     phase's numbers, kernel errors, kernel times)."""
     import torch
     import torch.distributed as dist
@@ -3497,12 +3565,14 @@ def shard_path(kind, cell, refs, P, rank):
     dist.barrier()
     reset_counts()
     collective_calls.clear()
-    # The chunk's arguments for loop_walls; at eps_iters 0 a call of the
-    # reduce mode for its hold (frame 0 under NCCL: the driver's first
-    # frame, run before the capture).
+    # The chunk's arguments for loop_walls; at eps_iters 0 an emitting
+    # dedup call (with the local values as its last step) for its hold
+    # (frame 0 under NCCL: the driver's first frame, run before the
+    # capture).
     want_calls = {"sharded_chunk": {0}}
     if D == 0:
-        want_calls["eps_reduce_shard"] = {0 if graphed else min(SHARD_FRAME, cell.frames - 1)}
+        want_calls[kname] = {shard_call_index(0 if graphed else min(SHARD_FRAME, cell.frames - 1),
+                                              D)}
     t0 = time.perf_counter()
     with CallCapture(graph_shard, want_calls) as chunk:
         res = dec.decode(sc, sl)
@@ -3518,18 +3588,18 @@ def shard_path(kind, cell, refs, P, rank):
     if replays != (frames - 1 if graphed else 0):
         raise AssertionError(f"{what}: {replays} frames replayed of {frames} "
                              f"({'NCCL' if graphed else 'gloo'})")
-    # K3's shard mode and K8's merge once a frame, its first-frame mode and
-    # K8's local half once a chunk (one a decode: each frame's local half
-    # is K3's shard mode's last step); K7's send side and the dedup call
-    # once an emitting call and an eps iteration, the eps step's shard mode
-    # once an eps iteration, the start closure's included (with no eps
-    # iteration its reduce mode once a frame); K7's receive side once an
+    # K3's shard mode and K8's merge once a frame, its first-frame mode
+    # once a chunk (one a decode), K8's local half never (the chunk's start
+    # state's is the first-frame mode's last step, each frame's K3's shard
+    # mode's); K7's send side and the dedup call once an emitting call and
+    # an eps iteration, the eps step's shard mode once an eps iteration,
+    # the start closure's included (with no eps iteration the emitting call
+    # writes the local values, once a frame); K7's receive side once an
     # emitting call (an eps call reads the received buffer in place).
     routes = D + frames * (1 + D)
     want_n = launch_counts(gather=0, k1=frames, k2=0, k4=0, k5=D + frames * D, k6=0,
-                           eps_step=D + frames * D, eps_reduce=0 if D else frames, k3=frames,
-                           k3_start=1, k7_send=routes, k7_recv=frames, k8_local=1,
-                           k8_merge=frames)
+                           eps_step=D + frames * D, em_reduce=0 if D else frames, k3=frames,
+                           k3_start=1, k7_send=routes, k7_recv=frames, k8_merge=frames)
     want_n[k] = routes
     if n != want_n:
         raise AssertionError(f"{what}: launch counts {n}, want {want_n}")
@@ -3576,7 +3646,8 @@ def shard_path(kind, cell, refs, P, rank):
                top_activities_ms_per_frame=[(name, ms / frames, cnt / frames)
                                             for name, ms, cnt in ranked],
                collectives=coll, collectives_per_frame=n_coll / frames,
-               launches_per_frame=sum(n.values()) / frames,
+               # The local values are written inside an emitting call's launch.
+               launches_per_frame=(sum(n.values()) - n["em_reduce"]) / frames,
                activities_per_frame=sum(v[1] for v in split.values()) / frames,
                split_per_frame={g: (ms / frames, cnt / frames)
                                 for g, (ms, cnt, _) in split.items()},
@@ -3603,8 +3674,8 @@ def shard_path(kind, cell, refs, P, rank):
     if h:
         errs, times = {}, {}
         if rank == 0:  # the other rank waits at the barrier: the card is this rank's alone
-            key = next(k for k in chunk.kept if k[0] == "eps_reduce_shard")
-            errs, times = hold_reduce(*chunk.kept[key], f"{what}, frame {key[1]}")
+            key = next(k for k in chunk.kept if k[0] == kname)
+            errs, times = hold_local_values(*chunk.kept[key], kind, f"{what}, frame {key[1]}")
         dist.barrier()
         del chunk, res, dec
         torch.cuda.empty_cache()
@@ -3630,7 +3701,7 @@ def shard_path(kind, cell, refs, P, rank):
     capture = {"expand_filter": {SHARD_FRAME}, kname: routed, "route_send": routed,
                "route_recv": {SHARD_FRAME}, "expand_eps_lanes": {D + SHARD_FRAME * D},
                "eps_step_shard": {D + SHARD_FRAME * D}, "frame_tail_shard": {SHARD_FRAME},
-               "frame_start_shard": {0}, "global_cutoff_local": {0},
+               "frame_start_shard": {0},
                "global_cutoff_merge": {SHARD_FRAME}}
     dist.barrier()
     t0 = time.perf_counter()
@@ -4348,7 +4419,7 @@ def main():
         paths.update({p: n[key] for p, n in later.items()
                       if key not in ("eps_step", "k3", "k3_start") or p not in shard_phases})
     by_path["eps_step_shard"] = {p: later[p]["eps_step"] for p in shard_phases}
-    by_path["eps_reduce"] = {p: later[p]["eps_reduce"] for p in shard_phases}
+    by_path["em_reduce"] = {p: later[p]["em_reduce"] for p in shard_phases}
     by_path["k3_shard"] = {p: later[p]["k3"] for p in shard_phases}
     by_path["k3_start_shard"] = {p: later[p]["k3_start"] for p in shard_phases}
 
@@ -4510,20 +4581,22 @@ def main():
                     "eps_step_shard", **{f: par[1][0]["shard_viterbi"][3]["eps_step_shard"][f]
                                          for f in ("clusters", "ms_by_clusters",
                                                    "share_by_clusters")}),
-        entry("eps step, shard mode, its reduce mode (a sharded frame's local values at "
-              "eps_iters 0, as on H: each row's first smallest finite cost in slot order with "
-              "that slot's bits and its finite count, the flag pair of the emitting call; a "
-              "cluster of blocks a row; held on phase 14's sharded decodes, shard_h_*)",
-              "eps.cu", "kaldi_decoder_tpu/parallel/graph_shard.py:541", "eps_reduce",
-              par[1][0]["shard_h_viterbi"][3]["eps_reduce"], sk_err["eps_reduce"],
-              **{f"{f}_{ph}_p{P}": par[P][0][ph][3]["eps_reduce"][f]
+        entry("the local values at eps_iters 0 as the last step of the emitting dedup call, K6 "
+              "or K2 (each row's first smallest finite cost in slot order, slot 0's bits, and "
+              "its finite count, min(num_unique, K); the batch's flag pair by one atomic a "
+              "row; held on phase 14's sharded decodes, shard_h_*, timed as the whole call, "
+              "dedup_alone_ms the same call without them, reduce_ms the difference)",
+              "shard_reduce.cuh", "kaldi_decoder_tpu/parallel/graph_shard.py:427", "em_reduce",
+              par[1][0]["shard_h_viterbi"][3]["em_reduce"], sk_err["em_reduce"],
+              **{f"{f}_{ph}_p{P}": par[P][0][ph][3]["em_reduce"][f]
                  for P in par
                  for ph in ("shard_h_viterbi", "shard_h_lattice", "shard_h8_lattice")
                  if (P, ph) != (1, "shard_h_viterbi")
                  for f in ("ms", "plain_ms", "bound_ms", "share_of_bound", "clusters",
-                           "ms_by_clusters")},
-              clusters=par[1][0]["shard_h_viterbi"][3]["eps_reduce"]["clusters"],
-              ms_by_clusters=par[1][0]["shard_h_viterbi"][3]["eps_reduce"]["ms_by_clusters"]),
+                           "ms_by_clusters", "dedup_alone_ms", "reduce_ms", "reduce_bound_ms")},
+              **{f: par[1][0]["shard_h_viterbi"][3]["em_reduce"][f]
+                 for f in ("clusters", "ms_by_clusters", "dedup_alone_ms", "reduce_ms",
+                           "reduce_bound_ms")}),
         shard_entry("K3 frame_tail, shard mode (the sharded frame's rebase, freeze and outputs "
                     "into row t, and the next frame's local half of GetCutoff, K8's, from the "
                     "eps closure's local values; a cluster of blocks a row; alone_ms the same "
@@ -4538,12 +4611,20 @@ def main():
         shard_entry("K3 frame_start_shard, the shard mode's first-frame mode (once a chunk: the "
                     "chunk's start state, row lengths and scores row 0 into the sharded frame "
                     "driver's static slots, its frame count, scores and output pointers into "
-                    "K3's table, t 0; one block a row)", "frame.cu",
-                    "kaldi_decoder_tpu/parallel/graph_shard.py:609", "k3_start_shard",
-                    "k3_start_shard"),
+                    "K3's table, t 0, and K8's local half of the start state as its last step; "
+                    "a cluster of blocks a row; alone_ms the same call without the local half, "
+                    "k8_local_ms K8's local half as a launch of its own on the start state)",
+                    "frame.cu", "kaldi_decoder_tpu/parallel/graph_shard.py:609",
+                    "k3_start_shard", "k3_start_shard",
+                    **{f: par[1][0]["shard_viterbi"][3]["k3_start_shard"][f]
+                       for f in ("clusters", "ms_by_clusters", "share_by_clusters")},
+                    **{f"{f}_{ph}_p{P}": par[P][0][ph][3]["k3_start_shard"][f]
+                       for P in par for ph in ("shard_viterbi", "shard_lattice")
+                       for f in ("alone_ms", "k8_local_ms", "fold_ms")}),
         shard_entry("K8 global_cutoff_local (the sharded GetCutoff's local half: each row's "
-                    "best cost, finite count and cost prefix, before the collectives; once a "
-                    "chunk, on its start state: each frame's is K3's shard mode's last step)",
+                    "best cost, finite count and cost prefix, before the collectives; off the "
+                    "path: the chunk's start state's is K3's shard first-frame mode's last "
+                    "step, each frame's K3's shard mode's; held on the chunk's start state)",
                     "cutoff.cu", "kaldi_decoder_tpu/parallel/graph_shard.py:447", "k8_local",
                     "k8_local"),
         shard_entry("K8 global_cutoff_merge (the sharded GetCutoff's merge: the order "

@@ -93,6 +93,13 @@
 // common.cuh:routed_entry): the layout K7's receive side wrote for it, so
 // that an eps iteration has no receive launch.  A routed lane reads 8 of
 // its entry's 16 bytes, (state, cost), and the winners' K of them.
+//
+// A sharded frame without eps iterations (eps_iters 0, as on H) gives its
+// emitting call the frame's local values to write (shard_reduce.cuh): the
+// emitting instance, on a null-pointer test, writes slot 0's cost where it
+// emits slot 0 and, in rank 0's thread 0 beside num_unique, the row's
+// count and its share of the batch's flag pair, which had a launch of
+// their own after the call.  The eps instances are compiled without it.
 
 #include <cooperative_groups.h>
 
@@ -100,6 +107,7 @@
 #include "dedup_core.cuh"
 #include "eps_step.cuh"
 #include "select_core.cuh"
+#include "shard_reduce.cuh"
 
 namespace {
 
@@ -107,6 +115,7 @@ namespace cg = cooperative_groups;
 namespace sel = kdtorch::select;
 namespace dd = kdtorch::dedup;
 namespace ep = kdtorch::eps;
+namespace sr = kdtorch::shard_reduce;
 
 constexpr int THREADS = 512;
 constexpr int VCACHE = 2048;  // finite lanes a block keeps in shared memory
@@ -121,7 +130,7 @@ __global__ void __launch_bounds__(THREADS, 2) dedup_kernel(
     unsigned long long* __restrict__ table, unsigned long long* __restrict__ keys0,
     int* __restrict__ vals0, unsigned long long* __restrict__ keys1, int* __restrict__ vals1,
     int* __restrict__ out_states, float* __restrict__ out_costs, int* __restrict__ out_idx,
-    int* __restrict__ num_unique, const ep::Step step) {
+    int* __restrict__ num_unique, const ep::Step step, const sr::Reduce red) {
   // The block's finite lanes (cost bits << 32 | state, lane) and its
   // winners (key, lane), each in shared memory up to its cache and past it
   // in the block's region of a scratch buffer.
@@ -150,10 +159,14 @@ __global__ void __launch_bounds__(THREADS, 2) dedup_kernel(
 
   const long out0 = (long)b * K;
   auto emit = [&](int r, unsigned long long key, int lane) {
+    const float c = kdtorch::from_ordered_key((unsigned)(key >> 32));
     out_states[out0 + r] = (int)(key & 0xffffffffull);
-    out_costs[out0 + r] = kdtorch::from_ordered_key((unsigned)(key >> 32));
+    out_costs[out0 + r] = c;
     out_idx[out0 + r] = lane;
     if constexpr (STEP) ep::backpointer(step, b, K, N, r, lane, ran, s_any);
+    if constexpr (!STEP && !ROUTED) {
+      if (r == 0 && red.on()) sr::first_slot(red, b, c);
+    }
   };
   // Both caches are free once the winners are scattered: the core's stage.
   static_assert(!(STEP && ROUTED), "the sharded eps calls run no step");
@@ -169,7 +182,12 @@ __global__ void __launch_bounds__(THREADS, 2) dedup_kernel(
     out_idx[out0 + r] = -1;
     if constexpr (STEP) ep::empty_slot(step, b, K, r, ran);
   }
-  if (rank == 0 && tid == 0) num_unique[b] = n;
+  if (rank == 0 && tid == 0) {
+    num_unique[b] = n;
+    if constexpr (!STEP && !ROUTED) {
+      if (red.on()) sr::finish(red, b, (int)(gridDim.x / C), n, K, false);
+    }
+  }
   if constexpr (STEP) {
     ep::finish(step, cluster, b, (int)(gridDim.x / C), ran, s_any, s_parts, n > K, false);
   }
@@ -189,7 +207,8 @@ decltype(&dedup_kernel<false, false>) instance(bool step, bool routed) {
 // The cluster size K6 launches with for B utterances of N lanes, in the
 // instance that `step` (nonzero: with the eps step) and `routed` (nonzero:
 // on routed lanes) pick (kdtorch::pick_cluster, at most
-// dd::cluster_cap(N)); 0 when none fits.
+// dd::cluster_cap(N)); 0 when none fits.  The emitting instance takes the
+// same whether or not it writes a sharded frame's local values.
 extern "C" int kd_dedup_cluster(int B, int N, int step, int routed) {
   const int most = dd::cluster_cap(N);
   return kdtorch::pick_cluster(instance(step, routed), B, THREADS, most,
@@ -211,24 +230,38 @@ extern "C" int kd_dedup_marks(unsigned long long* ns, long long* clock, int* clo
 // num_unique (B,).  `step`: null, or a host pointer to the eps
 // step of an eps iteration (kdtorch::eps::Step; its src_slot/arc_id are
 // the (B, N) lanes' and its out (B, D, K, 2) int32), which the STEP
-// instance runs as its last step.  Returns the launch's CUDA error (0 on
-// success).
+// instance runs as its last step.  `reduce`: null, or with neither step
+// nor routed lanes (an emitting call) a host pointer to the sharded
+// frame's local values (kdtorch::shard_reduce::Reduce: red_min (B,)
+// float32, red_count (B,) int32, red_flags (2,) int32, its count word
+// (1,) 64-bit, 0 on entry and on return, 8-byte aligned; up to three
+// (B,) bool overflow flags or null), written as the call's last step;
+// B < 2^16.  `clusters`: 0 (kd_dedup_cluster's choice) or 1, 2, 4, 8
+// blocks a row, at most dd::cluster_cap(N).  Returns the launch's CUDA
+// error (0 on success).
 extern "C" int kd_dedup(const void* dst, const void* cost, int B, int N, int S, int K,
                         void* table, void* keys0, void* vals0, void* keys1, void* vals1,
                         void* states, void* costs, void* cand_idx, void* num_unique,
-                        const void* routed, const void* step, void* stream) {
+                        const void* routed, const void* step, const void* reduce, int clusters,
+                        void* stream) {
   const ep::Step st = ep::step_of(step);
   if (st.on() && (routed != nullptr || B > ep::MAX_ROWS || st.width != K || st.d < 0 ||
                   st.d >= st.D))
     return (int)cudaErrorInvalidValue;
+  const sr::Reduce rd = sr::reduce_of(reduce);
+  if (rd.on() && (st.on() || routed != nullptr || B > sr::MAX_ROWS || rd.count == nullptr ||
+                  reinterpret_cast<uintptr_t>(rd.count) % 8 != 0))
+    return (int)cudaErrorInvalidValue;
+  if (clusters < 0 || clusters > dd::cluster_cap(N) || (clusters & (clusters - 1)) != 0)
+    return (int)cudaErrorInvalidValue;
   const kdtorch::Routed rt = kdtorch::routed_of(routed);
   if (routed != nullptr && !kdtorch::routed_fits(rt, B, N)) return (int)cudaErrorInvalidValue;
-  const int C = kd_dedup_cluster(B, N, st.on(), routed != nullptr);
+  const int C = clusters > 0 ? clusters : kd_dedup_cluster(B, N, st.on(), routed != nullptr);
   if (C == 0) return (int)cudaErrorInvalidConfiguration;
   return (int)kdtorch::launch_cluster(
       instance(st.on(), routed != nullptr), B * C, C, THREADS, SMEM,
       static_cast<cudaStream_t>(stream), (const int*)dst, (const float*)cost, rt, N, S, K,
       (unsigned long long*)table, (unsigned long long*)keys0, (int*)vals0,
       (unsigned long long*)keys1, (int*)vals1, (int*)states, (float*)costs, (int*)cand_idx,
-      (int*)num_unique, st);
+      (int*)num_unique, st, rd);
 }

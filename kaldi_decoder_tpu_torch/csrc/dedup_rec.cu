@@ -124,6 +124,16 @@
 // a block and the records up to 4096, the rest in device memory ((B, N + 256) scratch:
 // four 64-bit and four 32-bit buffers); shared memory is 154 KB a block
 // (one block an SM) whatever K, R, N and S.
+//
+// A sharded lattice frame without eps iterations (eps_iters 0, as on H)
+// gives its emitting call the frame's local values to write
+// (shard_reduce.cuh), as K6's emitting call takes them: slot 0's cost
+// where the select emits slot 0 and, in rank 0's thread 0 beside
+// rec_overflow, the row's count and its share of the batch's flag pair,
+// with the row's own rec_overflow ORed into the emitting flags.  They had
+// a launch of their own after the call.  It is an instance of its own
+// (REDUCE): as a tail on a null pointer it cost the emitting instance a
+// 4-byte spill (ptxas -v, scripts/ptxas_report.py).
 
 #include <cooperative_groups.h>
 
@@ -131,6 +141,7 @@
 #include "dedup_core.cuh"
 #include "eps_step.cuh"
 #include "select_core.cuh"
+#include "shard_reduce.cuh"
 
 namespace {
 
@@ -138,6 +149,7 @@ namespace cg = cooperative_groups;
 namespace sel = kdtorch::select;
 namespace dd = kdtorch::dedup;
 namespace ep = kdtorch::eps;
+namespace sr = kdtorch::shard_reduce;
 
 constexpr int THREADS = 512;
 constexpr int VCACHE = 2048;  // finite lanes a block keeps in shared memory
@@ -195,7 +207,7 @@ struct RecTie {
   }
 };
 
-template <bool INCUMBENTS, bool STEP, bool ROUTED>
+template <bool INCUMBENTS, bool STEP, bool ROUTED, bool REDUCE>
 __global__ void __launch_bounds__(THREADS, 1) dedup_rec_kernel(
     const int* __restrict__ dst, const float* __restrict__ cost, const int* __restrict__ pay0,
     const int* __restrict__ pay1, const __grid_constant__ kdtorch::Routed routed, int N, int S,
@@ -207,7 +219,8 @@ __global__ void __launch_bounds__(THREADS, 1) dedup_rec_kernel(
     unsigned long long* __restrict__ keys_fin, int* __restrict__ vals_fin,
     unsigned long long* __restrict__ keys_win, int* __restrict__ vals_win,
     int* __restrict__ out_states, float* __restrict__ out_costs, int* __restrict__ num_unique,
-    int* __restrict__ rec, unsigned char* __restrict__ rec_overflow, const ep::Step step) {
+    int* __restrict__ rec, unsigned char* __restrict__ rec_overflow, const ep::Step step,
+    const sr::Reduce red) {
   // Three lists, each (key, lane) in shared memory up to its cache and past
   // it in the block's region of a scratch buffer: the finite lanes (cost
   // bits << 32 | state), the winners (total-order cost << 32 | state), the
@@ -257,6 +270,7 @@ __global__ void __launch_bounds__(THREADS, 1) dedup_rec_kernel(
   static_assert(INCUMBENTS || !STEP, "the eps step follows an eps call");
   static_assert(INCUMBENTS || !ROUTED, "routed lanes are a sharded eps call's");
   static_assert(!(STEP && ROUTED), "the sharded eps calls run no step");
+  static_assert(!(REDUCE && INCUMBENTS), "the local values are the emitting call's");
   const auto lanes = dd::row_lanes<ROUTED>(dst, cost, pay0, pay1, row, routed, b);
   __shared__ int s_any[2], s_parts[ep::MAX_CLUSTER];
   const bool ran = STEP ? ep::read_ran(step) : true;
@@ -279,6 +293,9 @@ __global__ void __launch_bounds__(THREADS, 1) dedup_rec_kernel(
     const float c = kdtorch::from_ordered_key((unsigned)(key >> 32));
     out_states[out0 + r] = d;
     out_costs[out0 + r] = c;
+    if constexpr (REDUCE) {
+      if (r == 0) sr::first_slot(red, b, c);
+    }
     if constexpr (INCUMBENTS) {
       out_cand_idx[out0 + r] = lane;
       if (STEP && lane >= K && isfinite(c)) s_any[0] = 1;  // won by an eps lane
@@ -457,7 +474,10 @@ __global__ void __launch_bounds__(THREADS, 1) dedup_rec_kernel(
     taken = min(eligible, R);
   }
   for (int r = taken + rank * THREADS + tid; r < R; r += C * THREADS) put_rec(r, -1, -1, -1, INF_BITS);
-  if (rank == 0 && tid == 0) rec_overflow[b] = eligible > R;
+  if (rank == 0 && tid == 0) {
+    rec_overflow[b] = eligible > R;
+    if constexpr (REDUCE) sr::finish(red, b, (int)(gridDim.x / C), n, K, eligible > R);
+  }
   if (winners_only) restore_table();  // the frontier select's first barrier is passed
   if constexpr (STEP) {
     ep::finish(step, cluster, b, (int)(gridDim.x / C), ran, s_any, s_parts, n > K,
@@ -468,24 +488,30 @@ __global__ void __launch_bounds__(THREADS, 1) dedup_rec_kernel(
 
 // The instance of K2 a call launches: with incumbents (the eps call) or
 // without; with incumbents, with the eps step as its last step (an
-// unsharded eps call), on routed lanes (a sharded eps call) or neither.
-decltype(&dedup_rec_kernel<false, false, false>) rec_instance(bool incumbents, bool step,
-                                                              bool routed) {
-  return !incumbents ? dedup_rec_kernel<false, false, false>
-         : step      ? dedup_rec_kernel<true, true, false>
-         : routed    ? dedup_rec_kernel<true, false, true>
-                     : dedup_rec_kernel<true, false, false>;
+// unsharded eps call), on routed lanes (a sharded eps call) or neither;
+// without, with a sharded frame's local values as its last step (`reduce`:
+// an instance of its own, since the tail cost the emitting instance a
+// 4-byte spill) or not.
+decltype(&dedup_rec_kernel<false, false, false, false>) rec_instance(bool incumbents, bool step,
+                                                                     bool routed, bool reduce) {
+  return !incumbents ? (reduce ? dedup_rec_kernel<false, false, false, true>
+                               : dedup_rec_kernel<false, false, false, false>)
+         : step      ? dedup_rec_kernel<true, true, false, false>
+         : routed    ? dedup_rec_kernel<true, false, true, false>
+                     : dedup_rec_kernel<true, false, false, false>;
 }
 
 }  // namespace
 
 // The cluster size K2 launches with for B utterances of N lanes, in the
 // instance that `incumbents`, `step` and `routed` (nonzero: the eps call,
-// and with it the eps step or routed lanes) pick: K6's rule
+// and with it the eps step or routed lanes) or `reduce` (nonzero: an
+// emitting call with a sharded frame's local values) pick: K6's rule
 // (dedup.cu:kd_dedup_cluster) with K2's shared memory; 0 when none fits.
-extern "C" int kd_dedup_rec_cluster(int B, int N, int incumbents, int step, int routed) {
+extern "C" int kd_dedup_rec_cluster(int B, int N, int incumbents, int step, int routed,
+                                    int reduce) {
   const int most = dd::cluster_cap(N);
-  return kdtorch::pick_cluster(rec_instance(incumbents, step, routed), B, THREADS, most,
+  return kdtorch::pick_cluster(rec_instance(incumbents, step, routed, reduce), B, THREADS, most,
                                [](int) { return SMEM; }, most);
 }
 
@@ -509,15 +535,21 @@ extern "C" int kd_dedup_rec_marks(unsigned long long* ns, long long* clock, int*
 // the INCUMBENTS instance then runs as its last step; `routed`: null, or
 // (with num_incumbents the routed lanes' K) a host pointer to
 // kdtorch::Routed, a sharded eps call's lanes and payload, N = K + P *
-// cap, read in place (dst, cost, pay0, pay1 may then be null).  Returns
-// the launch's CUDA error (0 on success).
+// cap, read in place (dst, cost, pay0, pay1 may then be null).
+// `reduce`: null, or (an emitting call: no incumbents) a host pointer to
+// the sharded frame's local values (kdtorch::shard_reduce::Reduce, as
+// kd_dedup takes it; the call's own rec_overflow is folded into the
+// flags).  `clusters`: 0 (kd_dedup_rec_cluster's choice) or 1, 2, 4, 8
+// blocks a row, at most dd::cluster_cap(N).  Returns the launch's CUDA
+// error (0 on success).
 extern "C" int kd_dedup_rec(const void* dst, const void* cost, const void* pay0,
                             const void* pay1, int B, int N, int S, int K, int R, float slack_beam,
                             int num_incumbents, void* table, void* keys0, void* vals0,
                             void* keys1, void* vals1, void* keys_fin, void* vals_fin,
                             void* keys_win, void* vals_win, void* states, void* costs,
                             void* num_unique, void* rec, void* rec_overflow, void* cand_idx,
-                            const void* routed, const void* step, void* stream) {
+                            const void* routed, const void* step, const void* reduce,
+                            int clusters, void* stream) {
   const ep::Step st = ep::step_of(step);
   if (st.on() && (routed != nullptr || num_incumbents != K || B > ep::MAX_ROWS ||
                   st.width < 1 || st.width >= R || st.d < 0 || st.d >= st.D))
@@ -526,15 +558,24 @@ extern "C" int kd_dedup_rec(const void* dst, const void* cost, const void* pay0,
   if (routed != nullptr && (num_incumbents != rt.K || num_incumbents == 0 ||
                             !kdtorch::routed_fits(rt, B, N)))
     return (int)cudaErrorInvalidValue;
-  const int C = kd_dedup_rec_cluster(B, N, num_incumbents != 0, st.on(), routed != nullptr);
+  const sr::Reduce rd = sr::reduce_of(reduce);
+  if (rd.on() && (num_incumbents != 0 || B > sr::MAX_ROWS || rd.count == nullptr ||
+                  reinterpret_cast<uintptr_t>(rd.count) % 8 != 0))
+    return (int)cudaErrorInvalidValue;
+  if (clusters < 0 || clusters > dd::cluster_cap(N) || (clusters & (clusters - 1)) != 0)
+    return (int)cudaErrorInvalidValue;
+  const int C = clusters > 0 ? clusters
+                             : kd_dedup_rec_cluster(B, N, num_incumbents != 0, st.on(),
+                                                    routed != nullptr, rd.on());
   if (C == 0) return (int)cudaErrorInvalidConfiguration;
   return (int)kdtorch::launch_cluster(
-      rec_instance(num_incumbents != 0, st.on(), routed != nullptr), B * C, C, THREADS, SMEM,
+      rec_instance(num_incumbents != 0, st.on(), routed != nullptr, rd.on()), B * C, C, THREADS,
+      SMEM,
       static_cast<cudaStream_t>(stream),
       (const int*)dst, (const float*)cost, (const int*)pay0, (const int*)pay1, rt, N, S, K, R,
       slack_beam, num_incumbents, (int*)cand_idx, (unsigned long long*)table,
       (unsigned long long*)keys0, (int*)vals0,
       (unsigned long long*)keys1, (int*)vals1, (unsigned long long*)keys_fin, (int*)vals_fin,
       (unsigned long long*)keys_win, (int*)vals_win, (int*)states, (float*)costs,
-      (int*)num_unique, (int*)rec, (unsigned char*)rec_overflow, st);
+      (int*)num_unique, (int*)rec, (unsigned char*)rec_overflow, st, rd);
 }

@@ -79,6 +79,7 @@
 #include <cooperative_groups.h>
 
 #include "common.cuh"
+#include "row_reduce.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -543,7 +544,8 @@ extern "C" int kd_expand_eps(const void* states, const void* costs, const void* 
 // batch has stopped no block writes the carried frontier, so reading it
 // early is safe.  Each block reduces its partials (the changed bit, the
 // link and finite counts, the 64-bit (ordered cost, slot) min key and that
-// slot's cost bits) and stores them into rank 0's shared memory with
+// slot's cost bits; row_reduce.cuh, which K3's shard first-frame mode
+// shares) and stores them into rank 0's shared memory with
 // st.async, completing on rank 0's mbarrier, after the one cluster barrier
 // that tells that rank 0 runs with its mbarrier set: no remote atomic (a
 // 64-bit atomicMin on another block's shared memory lost updates at 8
@@ -583,14 +585,6 @@ static_assert(offsetof(ShardFlags, count) == 8 && offsetof(ShardFlags, ovf) == 2
                   offsetof(ShardFlags, sat) == 24,
               "ShardFlags' words");
 
-// A block's partials, stored into rank 0's shared memory as two 16-byte
-// stores: its smallest (ordered cost, slot) key (~0: no finite cost) and
-// that slot's cost bits, its finite and link counts, its changed bit.
-struct __align__(16) StepPart {
-  unsigned key_hi, key_lo, bits;
-  int finite, links, changed, unused0, unused1;
-};
-
 struct ShardStepArgs {
   int B, K, D, d, width, R_rec, slot_base, reduce;
   const int* cand_idx;              // (B, K)
@@ -615,97 +609,9 @@ struct ShardStepArgs {
   int* red_flags;                   // (2,)
 };
 
-__device__ __forceinline__ unsigned long long min_key(unsigned long long v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = min(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// A row's reduce over its cluster of G blocks, shared by the shard mode and
-// its reduce mode: each block's partials (its smallest (ordered cost, slot)
-// key with that slot's cost bits, its finite and link counts, its changed
-// bit) reduced over its warps, then over the blocks by rank 0.
-struct RowReduce {
-  StepPart part[MOST];  // rank 0's: every block's partials
-  uint64_t parts;       // rank 0's: complete when they have landed
-  unsigned long long w_key[STEP_WARPS];
-  unsigned w_bits[STEP_WARPS];
-  int4 w_sums[STEP_WARPS];  // each warp's finite, links, changed
-};
-
-// The row's totals.
-struct RowTotals {
-  unsigned long long key;  // the smallest (ordered cost, slot); ~0: no finite cost
-  unsigned bits;           // that slot's cost bits
-  int finite, links;
-  bool changed;
-};
-
-// Rank 0's thread 0, before the cluster barrier's arrive: the mbarrier
-// that the G blocks' partials complete on.
-__device__ __forceinline__ void row_reduce_init(RowReduce& r, int G) {
-  kdtorch::mbar_init(&r.parts, 1);
-  kdtorch::mbar_arrive_expect_tx(&r.parts, G * (unsigned)sizeof(StepPart));
-}
-
-// Every thread of every block of the row, after the cluster barrier's
-// arrive, with its partials (mn its smallest key, mbits that slot's bits):
-// each warp's, then warp 0's over the warps, stored into rank 0's shared
-// memory with st.async once the cluster barrier's wait tells that every
-// block runs (rank 0's mbarrier is set); rank 0's warp 0 waits for them all
-// and reduces them.  A key holds its slot, so one lane holds the smallest,
-// and the first smallest in slot order is the same whatever the split.
-// True in rank 0's warp 0, each lane then holding the row's totals in `t`.
-__device__ __forceinline__ bool row_reduce(RowReduce& r, int G, int rank, unsigned long long mn,
-                                           unsigned mbits, int finite, int links, bool changed,
-                                           RowTotals& t) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const unsigned long long wm = min_key(mn);
-  const int wf = __reduce_add_sync(0xffffffffu, finite);
-  const int wl = __reduce_add_sync(0xffffffffu, links);
-  const int wc = (int)__reduce_or_sync(0xffffffffu, changed ? 1u : 0u);
-  if (mn == wm && wm != ~0ull) r.w_bits[warp] = mbits;
-  if (lane == 0) {
-    r.w_key[warp] = wm;
-    r.w_sums[warp] = make_int4(wf, wl, wc, 0);
-  }
-  __syncthreads();
-  kdtorch::cluster_wait();  // every block runs: rank 0's mbarrier is set
-  if (warp == 0) {
-    const unsigned long long k = lane < STEP_WARPS ? r.w_key[lane] : ~0ull;
-    const int4 v = lane < STEP_WARPS ? r.w_sums[lane] : make_int4(0, 0, 0, 0);
-    const unsigned long long bm = min_key(k);
-    const int at = __ffs(__ballot_sync(0xffffffffu, k == bm)) - 1;
-    const unsigned bits = __shfl_sync(0xffffffffu, lane < STEP_WARPS ? r.w_bits[lane] : 0u, at);
-    const int bf = __reduce_add_sync(0xffffffffu, v.x);
-    const int bl = __reduce_add_sync(0xffffffffu, v.y);
-    const int bc = (int)__reduce_or_sync(0xffffffffu, (unsigned)v.z);
-    int4* to = reinterpret_cast<int4*>(r.part + rank);
-    if (lane == 0)
-      kdtorch::store_remote(to, make_int4((int)(bm >> 32), (int)(unsigned)bm, (int)bits, bf),
-                            &r.parts, 0);
-    if (lane == 1) kdtorch::store_remote(to + 1, make_int4(bl, bc, 0, 0), &r.parts, 0);
-  }
-  if (rank != 0 || warp != 0) return false;
-
-  // Rank 0: the row's totals, from every block's partials.
-  kdtorch::mbar_wait_cluster(&r.parts, 0);
-  StepPart q{~0u, ~0u, 0u, 0, 0, 0, 0, 0};
-  if (lane < G) q = r.part[lane];
-  const unsigned long long key = (unsigned long long)q.key_hi << 32 | q.key_lo;
-  const unsigned long long rm = min_key(key);
-  const int at = __ffs(__ballot_sync(0xffffffffu, key == rm)) - 1;
-  t.key = rm;
-  t.bits = __shfl_sync(0xffffffffu, q.bits, at);
-  t.finite = __reduce_add_sync(0xffffffffu, q.finite);
-  t.links = __reduce_add_sync(0xffffffffu, q.links);
-  t.changed = __reduce_or_sync(0xffffffffu, (unsigned)q.changed) != 0;
-  return true;
-}
-
 template <bool LATTICE>
 __global__ void __launch_bounds__(STEP_THREADS) eps_step_shard_kernel(ShardStepArgs a) {
-  __shared__ RowReduce red;
+  __shared__ kdtorch::rowred::RowReduce<STEP_WARPS> red;
   cg::cluster_group cluster = cg::this_cluster();
   const int G = (int)cluster.num_blocks();  // 1, 2, 4 or 8
   const int lg = __ffs(G) - 1;
@@ -713,7 +619,7 @@ __global__ void __launch_bounds__(STEP_THREADS) eps_step_shard_kernel(ShardStepA
   const int b = blockIdx.x >> lg;
   const int tid = threadIdx.x;
   const bool lead = rank == 0 && tid == 0;  // writes the row's scalars and counts it done
-  if (lead) row_reduce_init(red, G);
+  if (lead) kdtorch::rowred::row_reduce_init(red, G);
 
   // What does not wait: the flags that give `stop` (every thread, a
   // broadcast load); rank 0's row flags.
@@ -807,11 +713,12 @@ __global__ void __launch_bounds__(STEP_THREADS) eps_step_shard_kernel(ShardStepA
   }
 
   // The row's totals, in rank 0's warp 0: its lane 0 writes them.
-  RowTotals t;
-  if (!row_reduce(red, G, rank, mn, mbits, finite, links, changed, t) || !lead) return;
+  kdtorch::rowred::RowTotals t;
+  if (!kdtorch::rowred::row_reduce(red, G, rank, mn, mbits, finite, links, changed, t) || !lead)
+    return;
   if (LATTICE) o = o || t.links > a.width;  // the spill: links past the rows kept
   if (a.reduce) {
-    a.red_min[b] = t.key == ~0ull ? INFINITY : __uint_as_float(t.bits);
+    a.red_min[b] = kdtorch::rowred::row_min(t);
     a.red_count[b] = t.finite;
   }
   // The count, acquire-release at device scope: the last cluster's reads
@@ -848,109 +755,6 @@ int step_cluster_cap(int K) {
   int c = MOST;
   while (c > 1 && K / c < STEP_MIN_SLOTS) c /= 2;
   return c;
-}
-
-// ---- The shard mode's reduce mode: the frame's local values at eps_iters 0 --
-//
-// Replaces the torch reductions of a sharded frame without eps iterations
-// (kernels/eps.py eps_reduce_shard_plain, run by parallel/graph_shard.py's
-// _sharded_eps_closure when D == 0; the JAX package's counterpart is the
-// local half of the rebase in kaldi_decoder_tpu/parallel/graph_shard.py
-// :427-429 and :901-903): with no eps step to write them, what the frame
-// then reduces over the ranks, from the frontier of the emitting dedup
-// call: each row's smallest finite cost (its first smallest in slot
-// order, the bits of that slot; +inf for none) and count of finite costs,
-// and the flag pair (any of the emitting call's overflow flags in any
-// row; any num_unique > K), written whole.  A value is only compared or
-// copied: bitwise equal to plain.
-//
-// What bounds it: bytes, the (B, K) costs read once (131 KB at B = 16,
-// K 2048, some 0.00004 ms at 3.35 TB/s): it sits at the launch floor.
-//
-// The design is the reduce of the eps step's shard mode (above, its
-// row_reduce) without its copies: a cluster of G blocks a row (the step's pick: the largest of
-// 8, 4, 2, 1 whose B clusters all run at once with at least STEP_MIN_SLOTS
-// slots a block), block r reducing its 1/G of the row's slots to the
-// 64-bit (ordered cost, slot) min key, that slot's cost bits and its
-// finite count, stored into rank 0's shared memory with st.async after
-// the one cluster barrier and completing on rank 0's mbarrier; rank 0
-// writes the row's two scalars.  The flag pair is the batch's: the second
-// warp of row 0's rank 0 reads every row's flags and writes both words,
-// so no count crosses the clusters and nothing is carried from the last
-// frame.
-
-struct ShardReduceArgs {
-  int B, K;
-  const float* costs;             // (B, K) the frontier after the emitting dedup call
-  const unsigned char* em_ovf[3]; // (B,) each or null: the emitting call's overflow flags
-  const int* num_unique;          // (B,) the emitting call's
-  float* red_min;                 // (B,)
-  int* red_count;                 // (B,)
-  int* red_flags;                 // (2,)
-};
-
-__global__ void __launch_bounds__(STEP_THREADS) eps_reduce_shard_kernel(ShardReduceArgs a) {
-  __shared__ RowReduce red;
-  cg::cluster_group cluster = cg::this_cluster();
-  const int G = (int)cluster.num_blocks();  // 1, 2, 4 or 8
-  const int lg = __ffs(G) - 1;
-  const int rank = (int)cluster.block_rank();
-  const int b = blockIdx.x >> lg;
-  const int tid = threadIdx.x;
-  if (rank == 0 && tid == 0) row_reduce_init(red, G);
-  kdtorch::cluster_arrive();  // the block runs (rank 0: its mbarrier is set)
-
-  const int K = a.K;
-  if (b == 0 && rank == 0 && (tid >> 5) == 1) {  // the batch's flag pair, every row's read
-    const int lane = tid & 31;
-    bool o = false, s = false;
-    for (int r = lane; r < a.B; r += 32) {
-      for (int i = 0; i < 3; ++i)
-        if (a.em_ovf[i] != nullptr) o = o || a.em_ovf[i][r];
-      s = s || a.num_unique[r] > K;
-    }
-    o = __any_sync(0xffffffffu, o);
-    s = __any_sync(0xffffffffu, s);
-    if (lane == 0) {
-      a.red_flags[0] = o;
-      a.red_flags[1] = s;
-    }
-  }
-
-  // The block's slots, STEP_UNROLL loads a thread in flight.
-  const float* row = a.costs + (size_t)b * K;
-  const int2 kr = kdtorch::share(K, lg, rank);
-  const int nk = kr.y - kr.x;
-  int finite = 0;
-  unsigned long long mn = ~0ull;  // the thread's smallest (ordered cost, slot)
-  unsigned mbits = 0;             // that slot's cost bits
-  for (int i0 = tid; i0 < nk; i0 += STEP_UNROLL * STEP_THREADS) {
-    float c[STEP_UNROLL];
-#pragma unroll
-    for (int u = 0; u < STEP_UNROLL; ++u) {
-      const int i = i0 + u * STEP_THREADS;
-      if (i < nk) c[u] = row[kr.x + i];
-    }
-#pragma unroll
-    for (int u = 0; u < STEP_UNROLL; ++u) {
-      const int i = i0 + u * STEP_THREADS;
-      if (i < nk && isfinite(c[u])) {
-        const unsigned long long key =
-            (unsigned long long)kdtorch::ordered_key(c[u]) << 32 | (unsigned)(kr.x + i);
-        if (key < mn) {
-          mn = key;
-          mbits = __float_as_uint(c[u]);
-        }
-        ++finite;
-      }
-    }
-  }
-
-  RowTotals t;
-  if (row_reduce(red, G, rank, mn, mbits, finite, 0, false, t) && (tid & 31) == 0) {
-    a.red_min[b] = t.key == ~0ull ? INFINITY : __uint_as_float(t.bits);
-    a.red_count[b] = t.finite;
-  }
 }
 
 }  // namespace
@@ -1017,38 +821,4 @@ extern "C" int kd_eps_step_shard(int lattice, int B, int K, int D, int d, int wi
                                                  STEP_THREADS, 0, st, a)
                        : kdtorch::launch_cluster(eps_step_shard_kernel<false>, B * G, G,
                                                  STEP_THREADS, 0, st, a));
-}
-
-// The blocks a row (a cluster) the shard mode's reduce mode launches with
-// for B rows of K slots (kdtorch::pick_cluster, at most the eps step's
-// shard mode's cap); 0 when none fits.
-extern "C" int kd_eps_reduce_shard_cluster(int B, int K) {
-  return kdtorch::pick_cluster(eps_reduce_shard_kernel, B, STEP_THREADS, K,
-                               [](int) { return (size_t)0; }, step_cluster_cap(K));
-}
-
-// Launches the shard mode's reduce mode on `stream`: B clusters of G blocks
-// (G = `clusters`, or kd_eps_reduce_shard_cluster's when 0).  B < 2^16.
-// Shapes: costs (B, K) float32; em_ovf0..2 (B,) bool each or null;
-// num_unique (B,) int32; red_min (B,) float32, red_count (B,) int32,
-// red_flags (2,) int32.  Returns the launch's CUDA error (a refused
-// cluster launch is reported).
-extern "C" int kd_eps_reduce_shard(int B, int K, const void* costs, const void* em_ovf0,
-                                   const void* em_ovf1, const void* em_ovf2,
-                                   const void* num_unique, void* red_min, void* red_count,
-                                   void* red_flags, int clusters, void* stream) {
-  if (B < 1 || B > STEP_MAX_ROWS || K < 1 || costs == nullptr || num_unique == nullptr ||
-      red_min == nullptr || red_count == nullptr || red_flags == nullptr || clusters < 0 ||
-      clusters > MOST || (clusters & (clusters - 1)) != 0)
-    return (int)cudaErrorInvalidValue;
-  const int G = clusters > 0 ? clusters : kd_eps_reduce_shard_cluster(B, K);
-  if (G < 1) return (int)cudaErrorInvalidConfiguration;
-  using U8 = const unsigned char*;
-  const ShardReduceArgs a{B, K, static_cast<const float*>(costs),
-                          {static_cast<U8>(em_ovf0), static_cast<U8>(em_ovf1),
-                           static_cast<U8>(em_ovf2)},
-                          static_cast<const int*>(num_unique), static_cast<float*>(red_min),
-                          static_cast<int*>(red_count), static_cast<int*>(red_flags)};
-  return (int)kdtorch::launch_cluster(eps_reduce_shard_kernel, B * G, G, STEP_THREADS, 0,
-                                      static_cast<cudaStream_t>(stream), a);
 }

@@ -67,12 +67,13 @@
 #include <cooperative_groups.h>
 
 #include "common.cuh"
+#include "row_reduce.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int START_THREADS = 512;  // the first-frame mode: one block a row
+constexpr int START_THREADS = 512;  // the unsharded first-frame mode: one block a row
 constexpr int THREADS = 256;        // a block of the tail's cluster
 constexpr int WARPS = THREADS / 32;
 constexpr int MIN_SLOTS = 256;      // the fewest frontier slots a block of the tail takes
@@ -588,7 +589,8 @@ extern "C" int kd_frame_tail(void* args, int lattice, int B, int K, int V, int R
 // cluster barrier: every block of its row has read the old base.
 //
 // Its last step is K8's local half of the next frame's GetCutoff (csrc/
-// cutoff.cu, which then runs once a chunk, on the chunk's start state):
+// cutoff.cu; the chunk's start state's is the first-frame mode's last
+// step, below):
 // for a live row, the smallest finite cost is red_min - m_safe and the
 // finite count red_count, where red_min and red_count are the eps
 // closure's local values that the rebase reduced (its first smallest
@@ -814,11 +816,43 @@ __global__ void __launch_bounds__(THREADS) frame_tail_shard_kernel(ShardTailArgs
   }
 }
 
-// The shard mode's first-frame mode, once a chunk: one block a row.  The
-// chunk's start state, the row's length and scores row 0 into the static
-// slots; block 0 writes the table (t = 0, the frame count, the scores and
-// output pointers).  Plain version: kernels/frame.py
-// frame_start_shard_plain, bitwise equal (it copies).
+// ---- The shard mode's first-frame mode ---------------------------------------
+//
+// Once a chunk: the chunk's start state, the rows' lengths and scores row
+// 0 into the static slots, and the table (t 0, no row done, the frame
+// count, the scores' and the outputs' addresses); with `loc_best`, K8's
+// local half of the start state as its last step: each row's first
+// smallest finite cost in slot order (that slot's bits, +inf for none),
+// its count of finite costs and, where 1 <= m < K, its prefix of m costs
+// (kernels/cutoff.py global_cutoff_local_plain), which the chunk's first
+// GetCutoff reads.  Plain version: kernels/frame.py frame_start_shard_plain
+// then global_cutoff_local_plain; bitwise equal (it copies, compares and
+// counts).  It replaces the one-block-a-row copy of the port's first
+// design and, after it, K8's local half as a launch of its own on the same
+// state (csrc/cutoff.cu cutoff_local_kernel, which stays a kernel but
+// leaves the path).
+//
+// What bounds it: bytes, the start state's K states and costs read and
+// written once and scores row 0 (V floats): 0.59 MB at B = 16, K 2048, V
+// 500, some 0.00018 ms at 3.35 TB/s.  The local half reads nothing more
+// (it reduces the costs as they are copied) and adds 8 bytes a row, and
+// 4m a row where it has a prefix of its own.  What is left is
+// a launch, one cluster barrier and rank 0's wait for the blocks' stores.
+//
+// The design: a cluster of G blocks of THREADS a row (G = 8, 4, 2 or 1,
+// K3's shard mode's pick: the largest whose B clusters all run at once
+// with at least MIN_SLOTS slots a block).  Block r copies its 1/G of the
+// row's slots (ranges of a multiple of 32, rank order) UNROLL loads a
+// thread before their stores, writing the prefix slots k < m as it copies
+// them, and reduces its slots' (ordered cost, slot) keys and finite count
+// as they pass; then its 1/G of scores row 0.  The start state need not
+// be sorted: the key holds the slot, so the first smallest in slot order
+// comes out whatever the split (row_reduce.cuh, the eps step's shard
+// mode's reduce: st.async stores into rank 0's shared memory completing
+// on its mbarrier, after the one cluster barrier).  Rank 0's thread 0
+// writes the row's base and length and, once the partials are in, lane 0
+// of its warp the local half's two scalars; row 0's rank 0 writes the
+// table.  Without `loc_best` there is no barrier: the blocks copy alone.
 struct ShardStartIn {
   const int* st0_states;    // (B, K)
   const float* st0_costs;
@@ -829,57 +863,148 @@ struct ShardStartIn {
   void* out[8];
 };
 
-__global__ void __launch_bounds__(START_THREADS) frame_start_shard_kernel(
-    ShardTable* tab, int K, int V, int* states, float* costs, float* base, int* lengths,
-    float* scores_t, ShardStartIn in) {
-  const int b = blockIdx.x;
+struct ShardStartArgs {
+  ShardTable* tab;
+  int K, V;
+  int* states;              // (B, K) the slots
+  float* costs;
+  float* base;              // (B,)
+  int* lengths;             // (B,)
+  float* scores_t;          // (B, V)
+  ShardStartIn in;
+  // K8's local half of the start state (kernels/cutoff.py CutoffLocal):
+  // loc_best null for none, loc_prefix null for no prefix of its own.
+  float* loc_best;          // (B,)
+  int* loc_count;           // (B,)
+  float* loc_prefix;        // (B, m), 1 <= m < K
+  int m;
+};
+
+__global__ void __launch_bounds__(THREADS) frame_start_shard_kernel(ShardStartArgs a) {
+  __shared__ kdtorch::rowred::RowReduce<WARPS> red;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int G = (int)cluster.num_blocks();  // 1, 2, 4 or 8
+  const int lg = __ffs(G) - 1;
+  const int rank = (int)cluster.block_rank();
+  const int b = blockIdx.x >> lg;
+  const int tid = threadIdx.x;
+  const bool local = a.loc_best != nullptr;
+  if (local) {
+    if (rank == 0 && tid == 0) kdtorch::rowred::row_reduce_init(red, G);
+    kdtorch::cluster_arrive();  // the block runs (rank 0: its mbarrier is set)
+  }
+
+  // The block's slots, copied; their keys and finite count on the way.
+  const int K = a.K;
   const size_t row = (size_t)b * K;
-  for (int k = threadIdx.x; k < K; k += blockDim.x) {
-    states[row + k] = in.st0_states[row + k];
-    costs[row + k] = in.st0_costs[row + k];
+  const int2 kr = share(K, lg, rank);
+  float* prefix = a.loc_prefix != nullptr ? a.loc_prefix + (size_t)b * a.m : nullptr;
+  int finite = 0;
+  unsigned long long mn = ~0ull;  // the thread's smallest (ordered cost, slot)
+  unsigned mbits = 0;             // that slot's cost bits
+  for (int k0 = kr.x + tid; k0 < kr.y; k0 += UNROLL * THREADS) {
+    int st[UNROLL];
+    float c[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const int k = k0 + u * THREADS;
+      if (k < kr.y) {
+        st[u] = a.in.st0_states[row + k];
+        c[u] = a.in.st0_costs[row + k];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const int k = k0 + u * THREADS;
+      if (k < kr.y) {
+        a.states[row + k] = st[u];
+        a.costs[row + k] = c[u];
+        if (prefix != nullptr && k < a.m) prefix[k] = c[u];
+        if (isfinite(c[u])) {
+          const unsigned long long key = kdtorch::rowred::slot_key(c[u], k);
+          if (key < mn) {
+            mn = key;
+            mbits = __float_as_uint(c[u]);
+          }
+          ++finite;
+        }
+      }
+    }
   }
-  if (in.frames > 0) {
-    const float* src = in.scores + (size_t)b * V;
-    for (int i = threadIdx.x; i < V; i += blockDim.x) scores_t[(size_t)b * V + i] = src[i];
+  // The block's share of scores row 0, into K1's slot.
+  if (a.in.frames > 0) {
+    const int2 vr = share(a.V, lg, rank);
+    const float* src = a.in.scores + (size_t)b * a.V;
+    for (int i = vr.x + tid; i < vr.y; i += THREADS) a.scores_t[(size_t)b * a.V + i] = src[i];
   }
-  if (threadIdx.x == 0) {
-    base[b] = in.st0_base[b];
-    lengths[b] = in.lengths[b];
+  if (rank == 0 && tid == 0) {
+    a.base[b] = a.in.st0_base[b];
+    a.lengths[b] = a.in.lengths[b];
+    if (b == 0) {
+      ShardTable* tab = a.tab;
+      tab->t = 0;
+      tab->done = 0;
+      tab->frames = a.in.frames;
+      tab->scores = a.in.scores;
+      for (int i = 0; i < 8; ++i) tab->out[i] = a.in.out[i];
+    }
   }
-  if (b == 0 && threadIdx.x == 0) {
-    tab->t = 0;
-    tab->done = 0;
-    tab->frames = in.frames;
-    tab->scores = in.scores;
-    for (int i = 0; i < 8; ++i) tab->out[i] = in.out[i];
+  if (!local) return;
+  kdtorch::rowred::RowTotals t;
+  if (kdtorch::rowred::row_reduce(red, G, rank, mn, mbits, finite, 0, false, t) &&
+      tid == 0) {
+    a.loc_best[b] = kdtorch::rowred::row_min(t);
+    a.loc_count[b] = t.finite;
   }
 }
 
 }  // namespace
 
-// The shard mode's first-frame mode on `stream`: B blocks.  args: the table
-// (SHARD_ARGS_WORDS int64 words); the slots: states/costs (B, K), base
-// (B,) float32, lengths (B,) int32, scores_t (B, V) float32; the chunk:
-// st0 (B, K), (B, K), (B,), lengths (B,) int32, scores (frames, B, V)
-// float32, out0..7 its stacked outputs (the 1-best frame's seven, then
-// null).  Returns the launch's CUDA error (0 on success).
+// The cluster size K3's shard first-frame mode launches with for B rows of
+// K slots (kdtorch::pick_cluster, at most cluster_cap(K)); 0 when none
+// fits.
+extern "C" int kd_frame_start_shard_cluster(int B, int K) {
+  return kdtorch::pick_cluster(frame_start_shard_kernel, B, THREADS, K,
+                               [](int) { return (size_t)0; }, cluster_cap(K));
+}
+
+// The shard mode's first-frame mode on `stream`: B clusters of G blocks (G
+// = `clusters`, or kd_frame_start_shard_cluster's when 0).  args: the
+// table (SHARD_ARGS_WORDS int64 words); the slots: states/costs (B, K),
+// base (B,) float32, lengths (B,) int32, scores_t (B, V) float32; the
+// chunk: st0 (B, K), (B, K), (B,), lengths (B,) int32, scores (frames, B,
+// V) float32, out0..7 its stacked outputs (the 1-best frame's seven, then
+// null).  K8's local half of the start state: loc_best (B,) float32 and
+// loc_count (B,) int32, and, when 1 <= m < K, loc_prefix (B, m) float32
+// (all null: none written).  Returns the launch's CUDA error (a refused
+// cluster launch is reported).
 extern "C" int kd_frame_start_shard(void* args, int B, int K, int V, long long frames,
                                     void* states, void* costs, void* base, void* lengths,
                                     void* scores_t, const void* st0_states, const void* st0_costs,
                                     const void* st0_base, const void* chunk_lengths,
                                     const void* scores, void* out0, void* out1, void* out2,
                                     void* out3, void* out4, void* out5, void* out6, void* out7,
-                                    void* stream) {
-  if (B < 1 || K < 1 || V < 0 || frames < 0) return (int)cudaErrorInvalidValue;
+                                    void* loc_best, void* loc_count, void* loc_prefix, int m,
+                                    int clusters, void* stream) {
+  const bool local = loc_best != nullptr;
+  if (B < 1 || K < 1 || V < 0 || frames < 0 || clusters < 0 || clusters > MOST ||
+      (clusters & (clusters - 1)) != 0 || (local && loc_count == nullptr) ||
+      (loc_prefix != nullptr && !(local && 1 <= m && m < K)))
+    return (int)cudaErrorInvalidValue;
+  const int G = clusters > 0 ? clusters : kd_frame_start_shard_cluster(B, K);
+  if (G < 1) return (int)cudaErrorInvalidConfiguration;
   const ShardStartIn in{static_cast<const int*>(st0_states), static_cast<const float*>(st0_costs),
                         static_cast<const float*>(st0_base),
                         static_cast<const int*>(chunk_lengths),
                         static_cast<const float*>(scores), frames,
                         {out0, out1, out2, out3, out4, out5, out6, out7}};
-  frame_start_shard_kernel<<<B, START_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<ShardTable*>(args), K, V, static_cast<int*>(states), static_cast<float*>(costs),
-      static_cast<float*>(base), static_cast<int*>(lengths), static_cast<float*>(scores_t), in);
-  return (int)cudaGetLastError();
+  const ShardStartArgs a{static_cast<ShardTable*>(args), K, V, static_cast<int*>(states),
+                         static_cast<float*>(costs), static_cast<float*>(base),
+                         static_cast<int*>(lengths), static_cast<float*>(scores_t), in,
+                         static_cast<float*>(loc_best), static_cast<int*>(loc_count),
+                         static_cast<float*>(loc_prefix), loc_prefix != nullptr ? m : 0};
+  return (int)kdtorch::launch_cluster(frame_start_shard_kernel, B * G, G, THREADS, 0,
+                                      static_cast<cudaStream_t>(stream), a);
 }
 
 // The cluster size K3's shard mode launches with for B rows of K slots

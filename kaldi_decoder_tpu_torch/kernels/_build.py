@@ -98,6 +98,13 @@ def check(t, name: str, dtype, shape, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def check_clusters(clusters: int) -> None:
+    """Raise unless ``clusters`` is a cluster size a kernel takes: 0 (its
+    own choice), 1, 2, 4 or 8 blocks a row."""
+    if clusters not in (0, 1, 2, 4, 8):
+        raise ValueError(f"clusters must be 0 (chosen), 1, 2, 4 or 8, not {clusters}")
+
+
 def check_like(got, want, name: str, device) -> None:
     """Raise unless each tensor of the tuple ``got`` has the dtype and
     shape of ``want``'s (a template, e.g. on the meta device) and lies
@@ -122,11 +129,12 @@ def stream(device) -> ctypes.c_void_p:
 @functools.lru_cache(maxsize=None)
 def kernels() -> ctypes.CDLL:
     """The CUDA kernel library (row gather, K1 expansion, K2 lattice
-    dedup and records, K3 frame tail and its shard mode (each with its first-frame
-    mode), K4 sweep, K5 eps
-    lanes and the eps step's shard mode with its reduce mode, K6 dedup, the
-    eps step as the last step of K6's and K2's eps calls, K7 shard route, K8
-    sharded GetCutoff), built on first use."""
+    dedup and records, K3 frame tail and its shard mode (each with its
+    first-frame mode), K4 sweep, K5 eps lanes and the eps step's shard
+    mode, K6 dedup, the eps step as the last step of K6's and K2's eps
+    calls, a sharded frame's local values as the last step of their
+    emitting calls, K7 shard route, K8 sharded GetCutoff), built on first
+    use."""
     sources = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
     arch = ["-gencode", "arch=compute_90a,code=sm_90a"]
     path = build_library(
@@ -150,15 +158,15 @@ def kernels() -> ctypes.CDLL:
     lib.kd_sweep_cluster.restype = _I
     lib.kd_sweep_cluster.argtypes = [_I] * 3
     lib.kd_dedup.restype = _I
-    lib.kd_dedup.argtypes = [_P, _P] + [_I] * 4 + [_P] * 11 + [_P]
+    lib.kd_dedup.argtypes = [_P, _P] + [_I] * 4 + [_P] * 12 + [_I, _P]
     lib.kd_dedup_cluster.restype = _I
     lib.kd_dedup_cluster.argtypes = [_I] * 4
     lib.kd_dedup_marks.restype = _I
     lib.kd_dedup_marks.argtypes = [_P, _P, _P, _I]
     lib.kd_dedup_rec.restype = _I
-    lib.kd_dedup_rec.argtypes = [_P] * 4 + [_I] * 5 + [_F, _I] + [_P] * 17 + [_P]
+    lib.kd_dedup_rec.argtypes = [_P] * 4 + [_I] * 5 + [_F, _I] + [_P] * 18 + [_I, _P]
     lib.kd_dedup_rec_cluster.restype = _I
-    lib.kd_dedup_rec_cluster.argtypes = [_I] * 5
+    lib.kd_dedup_rec_cluster.argtypes = [_I] * 6
     lib.kd_dedup_rec_marks.restype = _I
     lib.kd_dedup_rec_marks.argtypes = [_P, _P, _P, _I]
     lib.kd_frame_start.restype = _I
@@ -177,12 +185,11 @@ def kernels() -> ctypes.CDLL:
     lib.kd_eps_step_shard.argtypes = [_I] * 9 + [_P] * 22 + [_I, _P]
     lib.kd_eps_step_shard_cluster.restype = _I
     lib.kd_eps_step_shard_cluster.argtypes = [_I, _I]
-    lib.kd_eps_reduce_shard.restype = _I
-    lib.kd_eps_reduce_shard.argtypes = [_I, _I] + [_P] * 8 + [_I, _P]
-    lib.kd_eps_reduce_shard_cluster.restype = _I
-    lib.kd_eps_reduce_shard_cluster.argtypes = [_I, _I]
     lib.kd_frame_start_shard.restype = _I
-    lib.kd_frame_start_shard.argtypes = [_P] + [_I] * 3 + [_L] + [_P] * 10 + [_P] * 8 + [_P]
+    lib.kd_frame_start_shard.argtypes = ([_P] + [_I] * 3 + [_L] + [_P] * 10 + [_P] * 8
+                                         + [_P] * 3 + [_I, _I, _P])
+    lib.kd_frame_start_shard_cluster.restype = _I
+    lib.kd_frame_start_shard_cluster.argtypes = [_I, _I]
     lib.kd_frame_tail_shard.restype = _I
     lib.kd_frame_tail_shard.argtypes = [_P] + [_I] * 9 + [_P] * 17 + [_P] * 5 + [_I, _I, _P]
     lib.kd_frame_tail_shard_cluster.restype = _I

@@ -11,6 +11,14 @@ back from every call as it went in: each state's winner restores its
 word.  So it is made once per device and stream (:func:`_held_table`) and
 not filled per call; calls on one stream run in order, so they never
 share it at once.
+
+A sharded frame without eps iterations hands its emitting call
+``reduce=(carry, em_overflow)``: the call then also writes the frame's
+local values into the ``kernels.eps.ShardEpsCarry`` (each row's first
+smallest finite cost and finite count, the batch's flag pair), on the CPU
+by :func:`eps_reduce_shard_plain` after the plain call, on a card
+as the kernel's last step (``csrc/shard_reduce.cuh``); K2's wrapper takes
+it the same way (:func:`shard_reduce`).
 """
 
 from __future__ import annotations
@@ -22,17 +30,20 @@ import torch
 
 from kaldi_decoder_tpu_torch.kernels._build import (
     check,
+    check_clusters,
     check_like,
     cuda_error,
     kernels,
     ptr,
     stream,
 )
+from kaldi_decoder_tpu_torch.kernels.cutoff import first_min_count
 from kaldi_decoder_tpu_torch.kernels.route import RoutedLanes, routed_args, routed_lanes_plain
 from kaldi_decoder_tpu_torch.ops.segment import Selection
 from kaldi_decoder_tpu_torch.ops.segment import dedup_select as dedup_select_plain
 
 SCRATCH_PAD = 256  # csrc/dedup.cu: SCRATCH_PAD
+MAX_REDUCE_ROWS = (1 << 16) - 1  # csrc/shard_reduce.cuh: MAX_ROWS
 
 # (device index, stream) -> the winner table, at least as large as the
 # largest call seen on that stream.
@@ -78,6 +89,76 @@ def check_scratch(scratch, batch: int, lanes: int, device, pairs: int = 2) -> No
               (batch, lanes + SCRATCH_PAD), device)
 
 
+class ReduceArgs(ctypes.Structure):
+    """A sharded frame's local values as the emitting dedup calls write
+    them (``csrc/shard_reduce.cuh`` Reduce)."""
+
+    _fields_ = [("em_ovf", ctypes.c_void_p * 3)] + [
+        (name, ctypes.c_void_p) for name in ("red_min", "red_count", "red_flags", "count")]
+
+
+def _reduce_parts(reduce):
+    """(carry, em_overflow) of a dedup call's ``reduce``, its flags checked
+    in number."""
+    carry, em_overflow = reduce
+    if not 1 <= len(em_overflow) <= 3:
+        raise ValueError(f"one to three emitting overflow flags, not {len(em_overflow)}")
+    return carry, tuple(em_overflow)
+
+
+def eps_reduce_shard_plain(carry, costs: torch.Tensor, em_overflow,
+                           em_num_unique: torch.Tensor) -> None:
+    """The frame's local values of a sharded closure of no iterations (D =
+    0: no eps step writes them) into ``carry`` (a
+    ``kernels.eps.ShardEpsCarry``): ``red_min`` and
+    ``red_count`` of ``costs`` (B, K), the frontier of the emitting dedup
+    call (``kernels.cutoff.first_min_count``), and ``red_flags`` the
+    emitting call's overflow (any of the ``em_overflow`` flags, (B,) bool
+    each, in any row) and saturation (any ``em_num_unique > K``).  On a
+    card the emitting call writes them as its last step
+    (:func:`shard_reduce`)."""
+    K = costs.shape[1]
+    red_min, red_count = first_min_count(costs)
+    carry.red_min.copy_(red_min)
+    carry.red_count.copy_(red_count)
+    ovf = torch.stack([x.any() for x in em_overflow]).any()
+    carry.red_flags.copy_(torch.stack([ovf, (em_num_unique > K).any()]).to(torch.int32))
+
+
+
+def reduce_plain(reduce, costs: torch.Tensor, num_unique: torch.Tensor, own=()) -> None:
+    """The CPU side of an emitting call's ``reduce``: the frame's local
+    values of its frontier (``costs``, ``num_unique``) by
+    :func:`eps_reduce_shard_plain`, the call's ``own`` overflow flags
+    beside the given ones."""
+    carry, em_overflow = _reduce_parts(reduce)
+    eps_reduce_shard_plain(carry, costs, em_overflow + tuple(own), num_unique)
+
+
+def shard_reduce(reduce, batch: int, dev) -> ReduceArgs:
+    """The kernels' :class:`ReduceArgs` of an emitting call's ``reduce``
+    (``(carry, em_overflow)``: a ``kernels.eps.ShardEpsCarry`` and one to
+    three (B,) bool flags), checked.  ``shard_reduce.launches`` counts the
+    dedup launches that write them (each is counted as a K6 or K2 launch
+    too)."""
+    carry, em_overflow = _reduce_parts(reduce)
+    if batch > MAX_REDUCE_ROWS:
+        raise ValueError(f"the local values take at most {MAX_REDUCE_ROWS} rows, not {batch}")
+    for i, x in enumerate(em_overflow):
+        check(x, f"em_overflow[{i}]", torch.bool, (batch,), dev)
+    check(carry.red_min, "carry.red_min", torch.float32, (batch,), dev)
+    check(carry.red_count, "carry.red_count", torch.int32, (batch,), dev)
+    check(carry.red_flags, "carry.red_flags", torch.int32, (2,), dev)
+    check(carry.red_done, "carry.red_done", torch.int64, (1,), dev)
+    em = [x.data_ptr() for x in em_overflow] + [None] * (3 - len(em_overflow))
+    return ReduceArgs((ctypes.c_void_p * 3)(*em), carry.red_min.data_ptr(),
+                      carry.red_count.data_ptr(), carry.red_flags.data_ptr(),
+                      carry.red_done.data_ptr())
+
+
+shard_reduce.launches = 0
+
+
 def dedup_select(
     cand_state: Optional[torch.Tensor],  # (B, N) int32
     cand_cost: Optional[torch.Tensor],  # (B, N) float32, +inf == invalid
@@ -87,6 +168,8 @@ def dedup_select(
     scratch=None,
     step=None,
     routed: Optional[RoutedLanes] = None,
+    reduce=None,
+    clusters: int = 0,
 ) -> Selection:
     """K6 on the tensors' device.  Finite lanes must have a state in
     ``[0, num_states)``.  On a card, ``out`` (from
@@ -97,8 +180,17 @@ def dedup_select(
     step as its last step.  With ``routed`` (a sharded eps call's lanes,
     ``cand_state`` and ``cand_cost`` None) the lanes are its
     (:func:`kaldi_decoder_tpu_torch.kernels.route.routed_lanes_plain` on
-    the CPU; read in place on a card).  ``dedup_select.launches`` counts
-    K6 launches."""
+    the CPU; read in place on a card).  With ``reduce`` (an emitting
+    call's: no step, no routed lanes) the call also writes a sharded
+    frame's local values (:func:`shard_reduce`; :func:`reduce_plain` on
+    the CPU); ``clusters`` (8, 4, 2 or 1, at most what the lanes allow)
+    then sets the blocks a row instead of :func:`cluster_size`'s choice.
+    ``dedup_select.launches`` counts K6 launches."""
+    check_clusters(clusters)
+    if clusters and reduce is None:
+        raise ValueError("clusters is set on a call with reduce only")
+    if reduce is not None and (routed is not None or step is not None):
+        raise ValueError("the local values are an emitting call's: no step, no routed lanes")
     if routed is not None:
         if cand_state is not None or cand_cost is not None or step is not None:
             raise ValueError("routed lanes come alone, with no step")
@@ -113,7 +205,10 @@ def dedup_select(
             if step is not None:
                 raise ValueError("the eps step runs inside K6 on a card only: on the CPU call "
                                  "kernels.eps.eps_dedup")
-            return dedup_select_plain(cand_state, cand_cost, k, num_states)
+            sel = dedup_select_plain(cand_state, cand_cost, k, num_states)
+            if reduce is not None:
+                reduce_plain(reduce, sel.costs, sel.num_unique)
+            return sel
         B, N = cand_cost.shape
     if dev.type != "cuda":
         raise ValueError(f"dedup_select runs on cpu or cuda tensors, not {dev}")
@@ -122,6 +217,7 @@ def dedup_select(
     else:
         check(cand_state, "cand_state", torch.int32, (B, N), dev)
         check(cand_cost, "cand_cost", torch.float32, (B, N), dev)
+    rd = shard_reduce(reduce, B, dev) if reduce is not None else None
     lib = kernels()
     table, key = _held_table(dev, B, num_states)
     # Scratch rows: N and the pad the kernel's spill regions round up to.
@@ -140,12 +236,15 @@ def dedup_select(
         ptr(table), ptr(keys0), ptr(vals0), ptr(keys1), ptr(vals1),
         ptr(out.states), ptr(out.costs), ptr(out.cand_idx), ptr(out.num_unique),
         ctypes.c_void_p(ctypes.addressof(rargs)) if routed is not None else None,
-        ctypes.c_void_p(ctypes.addressof(step)) if step is not None else None, stream(dev),
+        ctypes.c_void_p(ctypes.addressof(step)) if step is not None else None,
+        ctypes.c_void_p(ctypes.addressof(rd)) if rd is not None else None, clusters, stream(dev),
     )
     if rc != 0:
         _held.pop(key, None)  # a launch may have run: the next call starts afresh
         raise RuntimeError(f"kd_dedup launch failed: {cuda_error(rc)}")
     dedup_select.launches += 1
+    if rd is not None:
+        shard_reduce.launches += 1
     return out
 
 

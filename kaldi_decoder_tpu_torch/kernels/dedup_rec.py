@@ -11,7 +11,10 @@ columns; on a CUDA tensor it launches ``csrc/dedup_rec.cu`` (the eps call
 in the kernel's incumbents instance) or raises.
 
 K2 shares K6's winner table (:mod:`kaldi_decoder_tpu_torch.kernels.dedup`),
-kept per device and stream, and leaves it all ones as K6 does.
+kept per device and stream, and leaves it all ones as K6 does.  Its
+emitting call takes a sharded frame's ``reduce`` as K6's does
+(``kernels.dedup.shard_reduce``), its own ``rec_overflow`` beside the
+emitting overflow flags.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import torch
 from kaldi_decoder_tpu_torch.kernels import dedup as k6
 from kaldi_decoder_tpu_torch.kernels._build import (
     check,
+    check_clusters,
     check_like,
     cuda_error,
     kernels,
@@ -79,6 +83,8 @@ def dedup_select_rec(
     scratch=None,
     step=None,
     routed: Optional[RoutedLanes] = None,
+    reduce=None,
+    clusters: int = 0,
 ) -> LatticeSelection:
     """K2 on the tensors' device.  Finite lanes must have a state in
     ``[0, num_states)``; ``slack_beam`` is compared in float32, as the
@@ -93,8 +99,18 @@ def dedup_select_rec(
     lanes and payload, ``cand_state``, ``cand_cost`` and ``payload`` None,
     ``num_incumbents`` its K) the lanes are its
     (:func:`kaldi_decoder_tpu_torch.kernels.route.routed_lanes_plain` on
-    the CPU; read in place on a card).  ``dedup_select_rec.launches``
-    counts K2 launches."""
+    the CPU; read in place on a card).  With ``reduce`` (an emitting
+    call's: no incumbents) the call also writes a sharded frame's local
+    values, its ``rec_overflow`` among the flags
+    (``kernels.dedup.shard_reduce``; ``kernels.dedup.reduce_plain`` on the
+    CPU); ``clusters`` (8, 4, 2 or 1, at most what the lanes allow) then
+    sets the blocks a row instead of :func:`cluster_size`'s choice.
+    ``dedup_select_rec.launches`` counts K2 launches."""
+    check_clusters(clusters)
+    if clusters and reduce is None:
+        raise ValueError("clusters is set on a call with reduce only")
+    if reduce is not None and num_incumbents:
+        raise ValueError("the local values are an emitting call's: no incumbents")
     if routed is not None:
         if (cand_state is not None or cand_cost is not None or payload is not None
                 or step is not None):
@@ -116,6 +132,8 @@ def dedup_select_rec(
     if dev.type == "cpu":
         sel = dedup_select_rec_plain(cand_state, cand_cost, k, num_states, r, slack_beam, payload,
                                      num_incumbents)
+        if reduce is not None:
+            k6.reduce_plain(reduce, sel.costs, sel.num_unique, own=(sel.rec_overflow,))
         return LatticeSelection(sel.states, sel.costs, sel.num_unique, stack_records(sel),
                                 sel.rec_overflow, sel.cand_idx)
     if dev.type != "cuda":
@@ -131,6 +149,7 @@ def dedup_select_rec(
         check(cand_cost, "cand_cost", torch.float32, (B, N), dev)
         for i, p in enumerate(payload):
             check(p, f"payload[{i}]", torch.int32, (B, N), dev)
+    rd = k6.shard_reduce(reduce, B, dev) if reduce is not None else None
     lib = kernels()
     table, key = k6._held_table(dev, B, num_states)
     # Scratch rows: N and the pad the kernel's spill regions round up to.
@@ -154,12 +173,15 @@ def dedup_select_rec(
         ptr(out.states), ptr(out.costs), ptr(out.num_unique), ptr(out.records),
         ptr(out.rec_overflow), ptr(out.cand_idx) if num_incumbents else None,
         None if flat else ctypes.c_void_p(ctypes.addressof(rargs)),
-        ctypes.c_void_p(ctypes.addressof(step)) if step is not None else None, stream(dev),
+        ctypes.c_void_p(ctypes.addressof(step)) if step is not None else None,
+        ctypes.c_void_p(ctypes.addressof(rd)) if rd is not None else None, clusters, stream(dev),
     )
     if rc != 0:
         k6._held.pop(key, None)  # a launch may have run: the next call starts afresh
         raise RuntimeError(f"kd_dedup_rec launch failed: {cuda_error(rc)}")
     dedup_select_rec.launches += 1
+    if rd is not None:
+        k6.shard_reduce.launches += 1
     return out
 
 
@@ -167,13 +189,15 @@ dedup_select_rec.launches = 0
 
 
 def cluster_size(batch: int, lanes: int, incumbents: bool = False, step: bool = False,
-                 routed: bool = False) -> int:
+                 routed: bool = False, reduce: bool = False) -> int:
     """The blocks per cluster K2 launches with for ``batch`` utterances of
     ``lanes`` candidate lanes each, in the eps call's instance
     (``incumbents``), with the eps step as its last step (``step``, the
     fused eps call), on routed lanes (``routed``, a sharded eps call) or
-    neither, or in the emitting call's (0: none fits)."""
-    return kernels().kd_dedup_rec_cluster(batch, lanes, int(incumbents), int(step), int(routed))
+    neither, or in the emitting call's, with a sharded frame's local
+    values as its last step (``reduce``) or not (0: none fits)."""
+    return kernels().kd_dedup_rec_cluster(batch, lanes, int(incumbents), int(step), int(routed),
+                                          int(reduce))
 
 
 # The kernel's steps, between its 24 marks (csrc/dedup_rec.cu); the

@@ -34,13 +34,13 @@ iteration's local ``changed`` for the next MAX reduction, and at the
 closure's last iteration the local values the frame's rebase and flags
 reduce, and from which K3's shard mode derives the next frame's local
 half of GetCutoff.  A sharded frame without eps iterations (``eps_iters``
-0, as on a graph without eps arcs) writes those values with the step's
-reduce mode, :func:`eps_reduce_shard`, a launch of its own.
+0, as on a graph without eps arcs) has its emitting dedup call write those
+values as its last step (``kernels.dedup.shard_reduce``, the call's
+``reduce``), whose plain version is ``kernels.dedup.eps_reduce_shard_plain``.
 
 On CPU tensors the wrappers run the plain torch versions,
 :func:`expand_eps_lanes_plain`, the dedup call's plain version then
-:func:`eps_step_plain`, :func:`eps_step_shard_plain` and
-:func:`eps_reduce_shard_plain`; on CUDA tensors
+:func:`eps_step_plain`, and :func:`eps_step_shard_plain`; on CUDA tensors
 they launch ``csrc/eps.cu``, ``csrc/dedup.cu`` or ``csrc/dedup_rec.cu``
 or raise.  The carry lives in device memory, so that an eps closure
 replays in a captured frame; each wrapper takes ``out=`` buffers
@@ -66,6 +66,7 @@ from kaldi_decoder_tpu_torch.decoders.frontier import (
 from kaldi_decoder_tpu_torch.fst.pack import EPS_FIELDS, PackedGraph
 from kaldi_decoder_tpu_torch.kernels._build import (
     check,
+    check_clusters,
     check_like,
     cuda_error,
     kernels,
@@ -365,11 +366,15 @@ class ShardEpsCarry(NamedTuple):
     flags: torch.Tensor  # (SHARD_FLAG_WORDS,) int32, zero before the first iteration
     changed: torch.Tensor  # (1,) int32: this iteration's local `changed`, for a MAX reduction
     out: torch.Tensor  # (B, D, width, 2) int32: backpointers (width K) or links (width r_eps)
-    # The closure's last iteration, with ``reduce``: the local values the
-    # frame reduces over the ranks.
+    # The closure's last iteration, with ``reduce`` (with no iteration, the
+    # emitting dedup call's ``reduce``): the local values the frame reduces
+    # over the ranks.
     red_min: torch.Tensor  # (B,) float32: the carried frontier's smallest finite cost, or +inf
     red_count: torch.Tensor  # (B,) int32: its finite costs
     red_flags: torch.Tensor  # (2,) int32: the closure's overflow and saturation (any row)
+    # (1,) int64: the emitting call's count of the rows done with the local
+    # values (csrc/shard_reduce.cuh; 0 between calls, unread on the CPU).
+    red_done: torch.Tensor
 
 
 def empty_shard_eps_carry(batch: int, iters: int, width: int, device) -> ShardEpsCarry:
@@ -383,6 +388,7 @@ def empty_shard_eps_carry(batch: int, iters: int, width: int, device) -> ShardEp
         red_min=torch.empty((batch,), dtype=torch.float32, device=device),
         red_count=torch.empty((batch,), **i32),
         red_flags=torch.zeros((2,), **i32),
+        red_done=torch.zeros((1,), dtype=torch.int64, device=device),
     )
 
 
@@ -482,8 +488,7 @@ def eps_step_shard(d: int, carry: ShardEpsCarry, states, costs, sel, exp_overflo
         raise ValueError(f"iteration {d} of {D}")
     if B > MAX_ROWS:
         raise ValueError(f"the eps step's shard mode takes at most {MAX_ROWS} rows, not {B}")
-    if clusters not in (0, 1, 2, 4, 8):
-        raise ValueError(f"clusters must be 0 (chosen), 1, 2, 4 or 8, not {clusters}")
+    check_clusters(clusters)
     if d > 0:
         check(changed_prev, "changed_prev", torch.int32, (1,), dev)
     if len(em_overflow) > 3:
@@ -540,66 +545,3 @@ def eps_step_shard(d: int, carry: ShardEpsCarry, states, costs, sel, exp_overflo
 
 
 eps_step_shard.launches = 0
-
-
-def eps_reduce_shard_plain(carry: ShardEpsCarry, costs: torch.Tensor, em_overflow,
-                           em_num_unique: torch.Tensor) -> None:
-    """The frame's local values of a sharded closure of no iterations (D =
-    0: no eps step writes them) into ``carry``: ``red_min`` and
-    ``red_count`` of ``costs`` (B, K), the frontier of the emitting dedup
-    call (``kernels.cutoff.first_min_count``), and ``red_flags`` the
-    emitting call's overflow (any of the ``em_overflow`` flags, (B,) bool
-    each, in any row) and saturation (any ``em_num_unique > K``)."""
-    K = costs.shape[1]
-    red_min, red_count = first_min_count(costs)
-    carry.red_min.copy_(red_min)
-    carry.red_count.copy_(red_count)
-    ovf = torch.stack([x.any() for x in em_overflow]).any()
-    carry.red_flags.copy_(torch.stack([ovf, (em_num_unique > K).any()]).to(torch.int32))
-
-
-def reduce_shard_cluster_size(batch: int, k: int) -> int:
-    """The blocks a row (a cluster) the reduce mode launches with for
-    ``batch`` rows of ``k`` slots."""
-    return kernels().kd_eps_reduce_shard_cluster(batch, k)
-
-
-def eps_reduce_shard(carry: ShardEpsCarry, costs: torch.Tensor, em_overflow,
-                     em_num_unique: torch.Tensor, clusters: int = 0) -> None:
-    """The eps step's shard mode's reduce mode on the tensors' device:
-    :func:`eps_reduce_shard_plain` on the CPU, one launch of ``csrc/eps.cu``
-    on a card (a cluster of blocks a row; the flag pair written whole),
-    counted in ``eps_reduce_shard.launches``; ``clusters`` (8, 4, 2 or 1)
-    sets the blocks a row instead of :func:`reduce_shard_cluster_size`'s
-    choice.  ``em_overflow`` holds one to three (B,) bool tensors.  A row's
-    smallest cost is its first smallest in slot order, the bits of that
-    slot."""
-    dev = costs.device
-    if not 1 <= len(em_overflow) <= 3:
-        raise ValueError(f"one to three emitting overflow flags, not {len(em_overflow)}")
-    if dev.type == "cpu":
-        return eps_reduce_shard_plain(carry, costs, em_overflow, em_num_unique)
-    if dev.type != "cuda":
-        raise ValueError(f"eps_reduce_shard runs on cpu or cuda tensors, not {dev}")
-    B, K = costs.shape
-    if B > MAX_ROWS:
-        raise ValueError(f"the reduce mode takes at most {MAX_ROWS} rows, not {B}")
-    if clusters not in (0, 1, 2, 4, 8):
-        raise ValueError(f"clusters must be 0 (chosen), 1, 2, 4 or 8, not {clusters}")
-    check(costs, "costs", torch.float32, (B, K), dev)
-    for i, x in enumerate(em_overflow):
-        check(x, f"em_overflow[{i}]", torch.bool, (B,), dev)
-    check(em_num_unique, "em_num_unique", torch.int32, (B,), dev)
-    check(carry.red_min, "carry.red_min", torch.float32, (B,), dev)
-    check(carry.red_count, "carry.red_count", torch.int32, (B,), dev)
-    check(carry.red_flags, "carry.red_flags", torch.int32, (2,), dev)
-    em = [ptr(x) for x in em_overflow] + [None] * (3 - len(em_overflow))
-    rc = kernels().kd_eps_reduce_shard(B, K, ptr(costs), *em, ptr(em_num_unique),
-                                       ptr(carry.red_min), ptr(carry.red_count),
-                                       ptr(carry.red_flags), clusters, stream(dev))
-    if rc != 0:
-        raise RuntimeError(f"kd_eps_reduce_shard launch failed: {cuda_error(rc)}")
-    eps_reduce_shard.launches += 1
-
-
-eps_reduce_shard.launches = 0

@@ -25,7 +25,9 @@ buffers too, :class:`ShardSlots`: the carried frontier, the chunk's row
 lengths, K1's scores row and a table in device memory that holds ``t``
 and the chunk's scores and stacked outputs.  Its first-frame mode,
 :func:`frame_start_shard`, loads a chunk's start state, lengths and
-scores row 0 and writes the table; each frame ends with K3's shard mode,
+scores row 0, writes the table and, as its last step, K8's local half of
+the start state (a cluster of blocks a row, :func:`start_cluster_size`);
+each frame ends with K3's shard mode,
 :func:`frame_tail_shard`, after the rebase's reductions over the ranks:
 the rebase by the global best cost, the freeze of ended rows, the frame's
 outputs into row ``t`` of the chunk's stacked :class:`ShardStepOut` or
@@ -33,7 +35,8 @@ outputs into row ``t`` of the chunk's stacked :class:`ShardStepOut` or
 ``t`` advanced.  So the sharded frame, too, can be captured once and
 replayed (``parallel/shard_driver.py``).  It runs no GetCutoff: the
 sharded cutoff is global (``graph_shard._global_cutoff``).  The plain
-versions are :func:`frame_start_shard_plain` and
+versions are :func:`frame_start_shard_plain` (then
+``kernels.cutoff.global_cutoff_local_plain``) and
 :func:`frame_tail_shard_plain`.
 """
 
@@ -54,13 +57,14 @@ from kaldi_decoder_tpu_torch.decoders.frontier import (
 from kaldi_decoder_tpu_torch.decoders.lattice_dev import LatticeStepOut
 from kaldi_decoder_tpu_torch.kernels._build import (
     check,
+    check_clusters,
     check_like,
     cuda_error,
     kernels,
     ptr,
     stream,
 )
-from kaldi_decoder_tpu_torch.kernels.cutoff import CutoffLocal
+from kaldi_decoder_tpu_torch.kernels.cutoff import CutoffLocal, global_cutoff_local_plain
 from kaldi_decoder_tpu_torch.ops.cutoff import get_cutoff
 
 # csrc/frame.cu FrameArgs: t, frames, done (rows done with frame t),
@@ -298,8 +302,7 @@ def frame_tail(slots: FrameSlots, tin: TailInputs, fc: FrontierConfig,
         raise ValueError(f"frontier has {K} slots, config says {fc.frontier_size}")
     if K >= 1 << 16:
         raise ValueError(f"K3 takes fewer than 65536 slots a row, not {K}")
-    if clusters not in (0, 1, 2, 4, 8):
-        raise ValueError(f"clusters must be 0 (chosen), 1, 2, 4 or 8, not {clusters}")
+    check_clusters(clusters)
     V = _check_slots(slots, B, K, dev)
     check(tin.mid_states, "mid_states", torch.int32, (B, K), dev)
     check(tin.mid_costs, "mid_costs", torch.float32, (B, K), dev)
@@ -477,14 +480,44 @@ def frame_start_shard_plain(io: FrameIO) -> ShardStart:
                       torch.tensor(words, dtype=torch.int64))
 
 
-def frame_start_shard(slots: ShardSlots, io: FrameIO) -> None:
+def start_cluster_size(batch: int, k: int) -> int:
+    """The blocks a row (a cluster) K3's shard first-frame mode launches
+    with for ``batch`` rows of ``k`` slots."""
+    return kernels().kd_frame_start_shard_cluster(batch, k)
+
+
+def _check_local(local: CutoffLocal, B: int, K: int, dev) -> int:
+    """Raise unless ``local`` holds K8's local half of B rows of K slots on
+    ``dev``; its prefix's m (0 for none)."""
+    check(local.best, "local.best", torch.float32, (B,), dev)
+    check(local.count, "local.count", torch.int32, (B,), dev)
+    if local.prefix is None:
+        return 0
+    m = local.prefix.shape[1]
+    if not 1 <= m < K:
+        raise ValueError(f"a prefix of its own takes 1 to {K - 1} costs, not {m}")
+    check(local.prefix, "local.prefix", torch.float32, (B, m), dev)
+    return m
+
+
+def frame_start_shard(slots: ShardSlots, io: FrameIO, local: Optional[CutoffLocal] = None,
+                      clusters: int = 0) -> None:
     """K3's shard mode's first-frame mode: ``io`` becomes the chunk being
     run, its start state, row lengths and scores row 0 the slots', and its
     frame count, scores and outputs the table's, ``t`` 0; see
-    :func:`frame_start_shard_plain`.  On a card one launch of
-    ``csrc/frame.cu`` (a block a row), counted in ``frame_start.launches``."""
+    :func:`frame_start_shard_plain`.  With ``local`` (``kernels.cutoff``'s
+    ``CutoffLocal`` buffers, its prefix None where the all-gather reads the
+    costs), K8's local half of the start state into it too
+    (``global_cutoff_local_plain`` of the start costs at m, the prefix's
+    width).  On a card one launch of ``csrc/frame.cu`` (a cluster of
+    blocks a row; ``clusters``, 8, 4, 2 or 1, sets the blocks a row
+    instead of :func:`start_cluster_size`'s choice), counted in
+    ``frame_start.launches``."""
     st = slots.state
     dev = st.states.device
+    B, K = st.states.shape
+    check_clusters(clusters)
+    m = _check_local(local, B, K, dev) if local is not None else 0
     if dev.type == "cpu":
         slots.io = io
         want = frame_start_shard_plain(io)
@@ -494,10 +527,14 @@ def frame_start_shard(slots: ShardSlots, io: FrameIO) -> None:
         if want.scores_t is not None:
             slots.scores_t.copy_(want.scores_t)
         slots.args.copy_(want.args)
+        if local is not None:
+            loc = global_cutoff_local_plain(st.costs, m or K)
+            for dst, src in zip(local, loc):
+                if dst is not None:
+                    dst.copy_(src)
         return
     if dev.type != "cuda":
         raise ValueError(f"frame_start_shard runs on cpu or cuda tensors, not {dev}")
-    B, K = st.states.shape
     V = slots.scores_t.shape[1]
     C = io.scores.shape[0]
     check(slots.args, "args", torch.int64, (SHARD_ARGS_WORDS,), dev)
@@ -518,11 +555,15 @@ def frame_start_shard(slots: ShardSlots, io: FrameIO) -> None:
             raise ValueError(f"output {name}: expected ({C}, {B}, ...) contiguous on {dev}, "
                              f"got {tuple(x.shape)} on {x.device}")
     outs = [ptr(x) for x in io.outs] + [None] * (SHARD_OUTS - len(io.outs))
+    loc = ((ptr(local.best), ptr(local.count),
+            ptr(local.prefix) if local.prefix is not None else None)
+           if local is not None else (None,) * 3)
     slots.io = io
     rc = kernels().kd_frame_start_shard(
         ptr(slots.args), B, K, V, C, ptr(st.states), ptr(st.costs), ptr(st.base),
         ptr(slots.lengths), ptr(slots.scores_t), ptr(io.st0.states), ptr(io.st0.costs),
-        ptr(io.st0.base), ptr(io.lengths), ptr(io.scores), *outs, stream(dev))
+        ptr(io.st0.base), ptr(io.lengths), ptr(io.scores), *outs, *loc, m, clusters,
+        stream(dev))
     if rc != 0:
         raise RuntimeError(f"kd_frame_start_shard launch failed: {cuda_error(rc)}")
     frame_start.launches += 1
@@ -635,8 +676,7 @@ def frame_tail_shard(slots: ShardSlots, cutoff: torch.Tensor, tin: ShardTailInpu
         raise ValueError(f"frame_tail_shard runs on cpu or cuda tensors, not {dev}")
     B, K = st.states.shape
     V = slots.scores_t.shape[1]
-    if clusters not in (0, 1, 2, 4, 8):
-        raise ValueError(f"clusters must be 0 (chosen), 1, 2, 4 or 8, not {clusters}")
+    check_clusters(clusters)
     check(slots.args, "args", torch.int64, (SHARD_ARGS_WORDS,), dev)
     check(slots.lengths, "lengths", torch.int32, (B,), dev)
     check(slots.scores_t, "scores_t", torch.float32, (B, V), dev)
@@ -672,13 +712,7 @@ def frame_tail_shard(slots: ShardSlots, cutoff: torch.Tensor, tin: ShardTailInpu
     if local is not None:
         check(tin.red_min, "red_min", torch.float32, (B,), dev)
         check(tin.red_count, "red_count", torch.int32, (B,), dev)
-        check(local.best, "local.best", torch.float32, (B,), dev)
-        check(local.count, "local.count", torch.int32, (B,), dev)
-        if local.prefix is not None:
-            m = local.prefix.shape[1]
-            if not 1 <= m < K:
-                raise ValueError(f"a prefix of its own takes 1 to {K - 1} costs, not {m}")
-            check(local.prefix, "local.prefix", torch.float32, (B, m), dev)
+        m = _check_local(local, B, K, dev)
 
     def opt(x):
         return None if x is None or x.numel() == 0 else ptr(x)

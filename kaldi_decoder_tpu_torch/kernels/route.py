@@ -46,6 +46,7 @@ import torch
 from kaldi_decoder_tpu_torch.fst.pack import INF_BITS
 from kaldi_decoder_tpu_torch.kernels._build import (
     check,
+    check_clusters,
     check_like,
     cuda_error,
     kernels,
@@ -268,8 +269,7 @@ def route_send(dst_g, cost, src, arc, sp: int, num_parts: int, cap: int,
         raise ValueError(f"part size {sp} and cap {cap} must be positive, P*Sp below 2^31")
     if N < 1:
         raise ValueError("route_send takes at least one lane a row")
-    if clusters not in (0, 1, 2, 4, 8):
-        raise ValueError(f"clusters must be 0 (chosen), 1, 2, 4 or 8, not {clusters}")
+    check_clusters(clusters)
     for name, x, dtype in (("dst_g", dst_g, torch.int32), ("cost", cost, torch.float32),
                            ("src", src, torch.int32), ("arc", arc, torch.int32)):
         check(x, name, dtype, (B, N), dev)

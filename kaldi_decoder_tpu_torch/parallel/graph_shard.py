@@ -40,22 +40,24 @@ iteration's lanes; the eps step's shard mode
 (``kernels.eps.eps_step_shard``) closes each eps iteration (the
 backpointers or links, the batch-wide stop, the carry, the local
 ``changed`` and, at the last, the frame's local values that the rebase
-reduces; with no eps iterations, as on a graph without eps arcs, its
-reduce mode ``kernels.eps.eps_reduce_shard`` writes those values alone);
+reduces; with no eps iterations, as on a graph without eps arcs, the
+emitting K6 or K2 call writes those values as its last step, its
+``reduce``);
 K3's shard mode (``kernels.frame.frame_tail_shard``) ends the
 frame (the rebase, the freeze, every output into row t of the chunk's
 stacked buffers, ``t`` on the device, and the next frame's local half of
 GetCutoff); :func:`_global_cutoff` opens each frame with K8's collectives
 and its merge (``kernels.cutoff.global_cutoff_merge``), on the local half
-that K3's shard mode wrote (``global_cutoff_local`` runs once a chunk,
-on its start state).  Between them run only the collectives, whose
+that K3's shard mode wrote (a chunk's first frame reads the one its
+first-frame mode wrote).  Between them run only the collectives, whose
 kinds, order and number a frame are the original's.
 
 A chunk runs on the static buffers of a sharded frame driver
 (:mod:`kaldi_decoder_tpu_torch.parallel.shard_driver`, kept across
 decodes): K3's shard mode's first-frame mode
 (``kernels.frame.frame_start_shard``) loads the chunk's start state,
-lengths and scores row 0 and its output pointers, and under NCCL on a
+lengths and scores row 0 and its output pointers and writes K8's local
+half of the start state, one launch a chunk, and under NCCL on a
 card every frame after a driver's first is replayed from one captured
 CUDA graph, the counterpart of the original's ``lax.scan``; over gloo
 and on the CPU the same frame runs from the host loop.
@@ -84,6 +86,7 @@ from kaldi_decoder_tpu_torch.fst.pack import (
     pack_graph_device,
 )
 from kaldi_decoder_tpu_torch.kernels.cutoff import (
+    CutoffLocal,
     empty_cutoff,
     empty_cutoff_local,
     global_cutoff_local,
@@ -94,7 +97,6 @@ from kaldi_decoder_tpu_torch.kernels.dedup_rec import dedup_select_rec
 from kaldi_decoder_tpu_torch.kernels.eps import (
     ShardEpsCarry,
     empty_shard_eps_carry,
-    eps_reduce_shard,
     eps_step_shard,
     expand_eps_lanes,
 )
@@ -433,10 +435,10 @@ class _Bufs(NamedTuple):
     on a card each route call site's (made at its first call), the eps
     closure's carry, the slots (the carried frontier, the chunk's row
     lengths, K1's scores row and K3's table: ``kernels.frame.ShardSlots``),
-    K8's (the local half that each frame's GetCutoff reads, set by
-    :func:`_start_cutoff`, then by K3's shard mode, and on a card the
-    merge's) and on a card each collective call site's output (made at its
-    first call, :func:`_kept`)."""
+    K8's (the local half that each frame's GetCutoff reads, written by the
+    first-frame mode, then by K3's shard mode, :func:`_local_half`; on a
+    card the merge's) and on a card each collective call site's output
+    (made at its first call, :func:`_kept`)."""
 
     routes: dict
     carry: ShardEpsCarry
@@ -520,16 +522,11 @@ def _sharded_eps_closure(iteration, st: StepState, sc: ShardConfig, sh: _Shard, 
     the host).  With ``reduce`` the last step also writes the frame's
     local values (best cost, finite count, the flag pair with the
     emitting call's ``em_overflow`` and ``em_num_unique`` folded in); with
-    no iterations (D = 0) the eps step's reduce mode
-    (``kernels.eps.eps_reduce_shard``) writes them from ``st``.
-    Returns the carry, whose ``out`` (B, D, width, 2) holds every
-    iteration's backpointers or links."""
+    no iterations (D = 0) the emitting call has written them
+    (:func:`_em_reduce`).  Returns the carry, whose ``out`` (B, D, width,
+    2) holds every iteration's backpointers or links."""
     D = sc.frontier.eps_iters
     carry = bufs.carry
-    if D == 0:  # no eps step to write the frame's local values: the reduce mode
-        if reduce:
-            eps_reduce_shard(carry, st.costs, em_overflow, em_num_unique)
-        return carry
     red = None
     for d in range(D):
         sel, rt, exp_overflow = iteration(st)
@@ -542,6 +539,14 @@ def _sharded_eps_closure(iteration, st: StepState, sc: ShardConfig, sh: _Shard, 
     return carry
 
 
+def _em_reduce(sc: ShardConfig, bufs: _Bufs, em_overflow):
+    """The emitting dedup call's ``reduce``: with no eps iterations (no
+    eps step to write them) the frame's local values into the closure's
+    carry, the emitting overflow flags ``em_overflow`` folded in; else
+    None."""
+    return None if sc.frontier.eps_iters else (bufs.carry, em_overflow)
+
+
 def _cutoff_m(cfg: ShardConfig) -> Tuple[bool, int]:
     """(GetCutoff's early return: neither bound can bind, m): each shard's
     prefix of m = min(needed + 1, K) costs holds the global n-th smallest
@@ -552,27 +557,25 @@ def _cutoff_m(cfg: ShardConfig) -> Tuple[bool, int]:
                                           fc.frontier_size))
 
 
-def _start_cutoff(st: StepState, cfg: ShardConfig, bufs: _Bufs) -> None:
-    """K8's local half of a chunk's start state ``st``, held in
-    ``bufs.cutoff["local"]`` for the chunk's first GetCutoff; K3's shard
-    mode writes each next frame's there.  Its prefix is None where m is K
+def _local_half(cfg: ShardConfig, bufs: _Bufs, batch: int, device) -> CutoffLocal:
+    """The buffers of K8's local half that each frame's GetCutoff reads
+    (``bufs.cutoff["local"]``, made at a driver's first chunk), which the
+    first-frame mode writes from a chunk's start state and each frame's
+    K3 shard mode for the next frame.  Its prefix is None where m is K
     (the all-gather reads the costs) or nothing is gathered.  On a card
-    K8's buffers are made at a decode's first call."""
-    early, m = _cutoff_m(cfg)
-    own = not early and m < cfg.frontier.frontier_size
-    if not st.costs.is_cuda:
-        loc = global_cutoff_local(st.costs, m)
-        bufs.cutoff["local"] = loc if own else loc._replace(prefix=None)
-        return
-    if "local" not in bufs.cutoff:
-        B = st.costs.shape[0]
-        dev = st.costs.device
-        loc = empty_cutoff_local(B, m, dev)
-        bufs.cutoff.update(local=loc if own else loc._replace(prefix=None),
-                           out=empty_cutoff(B, dev),
-                           merged=torch.empty((cfg.num_parts, B, m), dtype=torch.float32,
-                                              device=dev))
-    global_cutoff_local(st.costs, m, out=bufs.cutoff["local"])
+    K8's merge buffers are made beside it."""
+    loc = bufs.cutoff.get("local")
+    if loc is None:
+        early, m = _cutoff_m(cfg)
+        loc = empty_cutoff_local(batch, m, device)
+        if early or m >= cfg.frontier.frontier_size:
+            loc = loc._replace(prefix=None)
+        bufs.cutoff["local"] = loc
+        if torch.device(device).type == "cuda":
+            bufs.cutoff.update(out=empty_cutoff(batch, device),
+                               merged=torch.empty((cfg.num_parts, batch, m),
+                                                  dtype=torch.float32, device=device))
+    return loc
 
 
 def _global_cutoff(st: StepState, cfg: ShardConfig, group, bufs: Optional[_Bufs] = None):
@@ -582,8 +585,8 @@ def _global_cutoff(st: StepState, cfg: ShardConfig, group, bufs: Optional[_Bufs]
     (sorted) frontiers.  Returns (cutoff (B,), adaptive_beam (B,)).
 
     The local half (each row's best cost, finite count and cost prefix of
-    length m, :func:`_cutoff_m`) is ``bufs.cutoff["local"]``, which
-    :func:`_start_cutoff` and then each frame's K3 shard mode write (K8's
+    length m, :func:`_cutoff_m`) is ``bufs.cutoff["local"]``, which the
+    first-frame mode and then each frame's K3 shard mode write (K8's
     local half on ``st`` without ``bufs``); the best is reduced (MIN) over
     ``group`` and, unless neither bound can bind, the count (SUM) and the
     prefixes (one all-gather, of the costs themselves where m is K); K8's
@@ -647,7 +650,8 @@ def _sharded_frame(pg, cfg: ShardConfig, sh: _Shard, bufs: _Bufs):
     rt = _route(ex.dst, ex.cost, ex.src_slot, ex.arc_id, Sp, Pn, cfg.route_cap, sh.group,
                 cutoff=next_cutoff, slot_add=sh.my_base, arc_add=sh.em_off, bufs=bufs.routes,
                 key="em")
-    sel = dedup_select(rt.state_local, rt.cost, K, Sp)
+    sel = dedup_select(rt.state_local, rt.cost, K, Sp,
+                       reduce=_em_reduce(cfg, bufs, (ex.overflow, rt.overflow)))
     mid = StepState(sel.states, sel.costs, st.base)
     carry = _sharded_eps_closure(
         lambda s: _sharded_eps_iteration(s, next_cutoff, pg, cfg, sh, bufs), mid, cfg, sh, bufs,
@@ -682,7 +686,8 @@ def _sharded_lattice_frame(pg, cfg: ShardLatticeConfig, sh: _Shard, bufs: _Bufs)
     # K2 carries each lane's (source state, arc) into its records, what
     # the original's ``_rec_from_idx`` does with record indices.
     sel = dedup_select_rec(rt.state_local, rt.cost, K, Sp, cfg.em_records, sb,
-                           payload=(rt.gslot, rt.arc))
+                           payload=(rt.gslot, rt.arc),
+                           reduce=_em_reduce(sc, bufs, (rt.overflow, ex.overflow)))
     mid = StepState(sel.states, sel.costs, st.base)
     carry = _sharded_eps_closure(
         lambda s: _sharded_lattice_eps_iteration(s, next_cutoff, pg, cfg, sh, bufs), mid, sc, sh,
@@ -725,7 +730,7 @@ def sharded_chunk(drv: ShardDriver, scores_tm, lengths, st0: StepState, cfg):
     """T sharded frames from ``st0`` on the driver ``drv``'s buffers, the
     original's ``lax.scan`` in ``shard_map``; frames t >= lengths are
     no-ops.  K3's shard mode's first-frame mode loads the chunk into the
-    slots and K8's local half runs on its start state; each frame's K3
+    slots and writes K8's local half of its start state; each frame's K3
     shard mode writes the frame's outputs into row t of the chunk's
     stacked buffers, the next frame's local half of GetCutoff and scores
     row.  Returns the final state (a copy) and the per-frame outputs
@@ -737,8 +742,8 @@ def sharded_chunk(drv: ShardDriver, scores_tm, lengths, st0: StepState, cfg):
     bufs = drv.bufs
     outs = empty_shard_outs(T, B, fc.frontier_size, fc.eps_iters, lattice, scores_tm.device,
                             cfg.em_records if lattice else 0, cfg.eps_records if lattice else 0)
-    frame_start_shard(bufs.slots, FrameIO(scores_tm.contiguous(), lengths, st0, outs))
-    _start_cutoff(bufs.slots.state, sc, bufs)
+    frame_start_shard(bufs.slots, FrameIO(scores_tm.contiguous(), lengths, st0, outs),
+                      local=_local_half(sc, bufs, B, scores_tm.device))
     drv.run(T)
     bufs.slots.io = None  # the chunk's tensors are the caller's now
     return StepState(*(x.clone() for x in bufs.slots.state)), outs

@@ -56,12 +56,14 @@ import torch.distributed as dist
 
 from kaldi_decoder_tpu_torch.decoders import driver
 from kaldi_decoder_tpu_torch.kernels.cutoff import global_cutoff_merge
-from kaldi_decoder_tpu_torch.kernels.eps import eps_reduce_shard, eps_step_shard
+from kaldi_decoder_tpu_torch.kernels.dedup import shard_reduce
+from kaldi_decoder_tpu_torch.kernels.eps import eps_step_shard
 from kaldi_decoder_tpu_torch.kernels.route import route_recv, route_send
 from kaldi_decoder_tpu_torch.parallel.mesh import collective_calls
 
-# The wrappers whose launches a captured sharded frame holds.
-COUNTED = driver.COUNTED + (route_send, route_recv, eps_step_shard, eps_reduce_shard,
+# The wrappers whose launches a captured sharded frame holds (the local
+# values written by an emitting dedup call, ``shard_reduce``, beside them).
+COUNTED = driver.COUNTED + (route_send, route_recv, eps_step_shard, shard_reduce,
                              global_cutoff_merge)
 
 # Drivers kept (``decoders.driver.kept_driver``: at most ``MAX_DRIVERS``,

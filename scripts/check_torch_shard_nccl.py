@@ -9,7 +9,8 @@ every visible card), rank r on ``cuda:r``, meeting over NCCL at
 takes the sharded workload of ``--graph`` (``chip_smoke.shard_cells``:
 "bench", phases 12-13's unfolded bench graph at ``SHARD_CONFIG``; "h",
 phase 14's CTC topology H at ``H_SHARD_CONFIG``, where the sharded frame
-has no eps iteration and the eps step's reduce mode runs), cut to its
+has no eps iteration and its emitting dedup call writes the frame's local
+values as its last step), cut to its
 frames, and, for ``ShardedViterbiDecoder`` and ``ShardedLatticeDecoder``
 (``--kinds``) on a ``("model",)`` mesh of the P ranks:
 

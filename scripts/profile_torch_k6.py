@@ -6,8 +6,10 @@ Builds the kernels of the port under ``--tree`` (default: this checkout),
 rebuilds the bench workload from its seed and takes K6's arguments from
 real frames exactly as ``chip_smoke.py`` phase 2 does: the emitting
 candidates of batched Viterbi frame 150 (B=16), one eps iteration of the
-unfolded graph's frame 60 (B=16), and the streaming decoder's emitting and
-eps candidates on frame 60 of utterance 0 (B=1).  Each call is held
+unfolded graph's frame 60 (B=16), the streaming decoder's emitting and
+eps candidates on frame 60 of utterance 0 (B=1), and, as ``chip_smoke.py``
+phase 14 takes them, the emitting candidates of the batched Viterbi decode
+on H (the CTC topology over the bench's tokens) at frame 150 (B=16).  Each call is held
 against the plain version, then timed: device ms per call (10 calls queued
 back to back, CUDA events), the plain version's device ms, the sizes of
 the first digit's buckets (emulated), the call's split by device
@@ -66,6 +68,28 @@ def first_digit_buckets(args):
     return largest, kth
 
 
+def h_emitting_args(cs, scores_tm):
+    """K6's arguments on the emitting candidates of frame max(K6_FRAMES)
+    of the batched Viterbi decode on H at ``H_CONFIG``, each frame of
+    K6_FRAMES held against the plain version on the way."""
+    import torch
+
+    from kaldi_decoder_tpu_torch import BatchedViterbiDecoder, config_for_graph
+    from kaldi_decoder_tpu_torch.decoders.frontier import frame_step_batched
+
+    hg = cs.h_graph()
+    vdec = BatchedViterbiDecoder(hg, config_for_graph(hg, **cs.H_CONFIG), device="cuda")
+    S = vdec._dev_graph.num_states
+    active = torch.ones(cs.B, dtype=torch.bool, device="cuda")
+    st, _ = vdec._init(cs.B)
+    for t in range(max(cs.K6_FRAMES) + 1):
+        if t in cs.K6_FRAMES:
+            em_args = cs.check_emit_kernels(st, scores_tm[t], vdec._pg, vdec.cfg, S,
+                                            f"H, frame {t}")[3]
+        st, _ = frame_step_batched(st, scores_tm[t], active, vdec._pg, vdec.cfg, S)
+    return em_args
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", default=REPO, help="root of the checkout whose port is timed")
@@ -103,7 +127,8 @@ def main():
     del vdec, edec
     s = cs.streaming_k6_calls(cs.streaming_decoder(graph, vref), scores_tm)
     calls = {"emitting B=16": v["em_args"], "eps B=16": v["eps_args"],
-             "emitting B=1": s["em_args"], "eps B=1": s["eps_args"]}
+             "emitting B=1": s["em_args"], "eps B=1": s["eps_args"],
+             "emitting H B=16": h_emitting_args(cs, scores_tm)}
     out = {"tag": args.tag, "card": card, "tree": os.path.abspath(args.tree), "calls": {}}
     for name, a in calls.items():
         t = dict(

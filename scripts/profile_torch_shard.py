@@ -39,10 +39,20 @@ destination: what the send side dedups): how many, the longest, the
 99th and 99.9th percentiles by run, the run length of the 99th
 percentile lane, and the bits in which a row's cost keys differ (the
 passes a sort on the cost would take), for the emitting and the eps
-calls apart.  The decodes' results are not checked here
-(``chip_smoke.py`` does that).  Prints one JSON line and
-writes it to ``chiprun_out/profile_shard_<tag>.json``.  To compare two
-trees on one card, run both in one command, in turns:
+calls apart.  With ``--graph h`` it measures phase 14's sharded decoders
+instead (H, ``ctc_topo(500)``, at ``H_SHARD_CONFIG``, ``H_ROUTE_CAP`` and
+``H_LATTICE_KW`` on the first ``H_SHARD_FRAMES`` frames, no eps
+iteration) at P = 1 alone, and rank 0 times, besides K3's shard mode,
+the frame's emitting dedup call as the tree runs it (with the frame's
+local values as its last step where the tree folds them) beside the
+same call without them and, on a tree before the fold, the eps step's
+reduce mode launch that wrote them, and the chunk's start as the tree
+runs it (the first-frame mode, with K8's local half as its last step
+where the tree folds it, else beside K8's local half's launch).  The
+decodes' results are not checked here (``chip_smoke.py`` does that).
+Prints one JSON line and writes it to
+``chiprun_out/profile_shard_<tag>.json``.  To compare two trees on one
+card, run both in one command, in turns:
 
     python3 scripts/profile_torch_shard.py --tree build/parent --tag parent
     python3 scripts/profile_torch_shard.py --tag new
@@ -266,6 +276,43 @@ def time_shard_kernels(cs, kept, eps_iters):
     return out
 
 
+def time_h_calls(cs, kept, kind):
+    """Phase 14's sharded frame's calls that the local values and K8's
+    local half of the chunk's start live in, as the tree runs them (its
+    captured calls ``kept``): the emitting dedup call of frame
+    SHARD_FRAME, and without its ``reduce`` where it takes one; the reduce
+    mode's launch on a tree that has it; the chunk's first-frame mode, and
+    K8's local half of the start state where it runs on its own.  Device ms
+    by CUDA events: {em_ms, em_alone_ms, reduce_ms, start_ms,
+    start_alone_ms, k8_local_ms} (None where the tree has no such call)."""
+    from kaldi_decoder_tpu_torch.kernels import cutoff as kcut
+    from kaldi_decoder_tpu_torch.kernels import dedup as kdedup
+    from kaldi_decoder_tpu_torch.kernels import dedup_rec as kdrec
+    from kaldi_decoder_tpu_torch.kernels import frame as kframe
+
+    fn = kdedup.dedup_select if kind == "viterbi" else kdrec.dedup_select_rec
+    name = "dedup_select" if kind == "viterbi" else "dedup_select_rec"
+    args, kw = kept[name, cs.SHARD_FRAME]
+    alone = {k: v for k, v in kw.items() if k != "reduce"}
+    t = dict(em_ms=cs.device_ms(lambda: fn(*args, **kw)),
+             em_alone_ms=cs.device_ms(lambda: fn(*args, **alone)) if "reduce" in kw else None,
+             reduce_ms=None, k8_local_ms=None, start_alone_ms=None)
+    if ("eps_reduce_shard", cs.SHARD_FRAME) in kept:
+        from kaldi_decoder_tpu_torch.kernels import eps as keps
+
+        rargs, rkw = kept["eps_reduce_shard", cs.SHARD_FRAME]
+        t["reduce_ms"] = cs.device_ms(lambda: keps.eps_reduce_shard(*rargs, **rkw))
+    (slots, io), skw = kept["frame_start_shard", 0]
+    got = slots.copy()
+    t["start_ms"] = cs.device_ms(lambda: kframe.frame_start_shard(got, io, **skw))
+    if skw.get("local") is not None:
+        t["start_alone_ms"] = cs.device_ms(lambda: kframe.frame_start_shard(got, io))
+    if ("global_cutoff_local", 0) in kept:
+        largs, lkw = kept["global_cutoff_local", 0]
+        t["k8_local_ms"] = cs.device_ms(lambda: kcut.global_cutoff_local(*largs, **lkw))
+    return t
+
+
 def time_eps_call(cs, kept, kind, eps_iters):
     """The first eps iteration's dedup call of frame SHARD_FRAME (K6, or
     K2's eps call) as the tree runs it: on a tree with K7's receive side
@@ -296,10 +343,11 @@ def time_eps_call(cs, kept, kind, eps_iters):
     return t
 
 
-def measure(tree, P, rank, reps):
+def measure(tree, P, rank, reps, which="bench"):
     """Both sharded decoders on this rank of a group of P (the default
-    group, made), and on rank 0 the two shard-mode kernels on frame
-    SHARD_FRAME's inputs: {kind: numbers}."""
+    group, made), on the bench graph or (``which`` "h") on phase 14's H,
+    and on rank 0 the shard-mode kernels (on H the emitting call and the
+    chunk's start too) on frame SHARD_FRAME's inputs: {kind: numbers}."""
     import contextlib
 
     import torch
@@ -317,24 +365,37 @@ def measure(tree, P, rank, reps):
 
     cs = smoke()
     graph, scores, lengths, refs = cs.bench_workload()
-    _, sc, sl = cs.shard_reference(scores, lengths, refs)
+    if which == "h":
+        _, (sc, sl), _ = cs.h_reference(scores, lengths, refs)
+        graph = cs.h_graph()
+        fc = config_for_graph(graph, **cs.H_SHARD_CONFIG)
+        kw = dict(route_cap=cs.H_ROUTE_CAP, pad_time_to=cs.H_SHARD_FRAMES)
+        lkw = dict(cs.H_LATTICE_KW)
+    else:
+        _, sc, sl = cs.shard_reference(scores, lengths, refs)
+        fc = config_for_graph(graph, **cs.SHARD_CONFIG)
+        kw = dict(pad_time_to=cs.SHARD_FRAMES)
+        lkw = dict(lattice_beam=cs.SHARD_LATTICE_BEAM)
     mesh = make_mesh(P, "model", device_type="cuda")
-    fc = config_for_graph(graph, **cs.SHARD_CONFIG)
     names = cs.port_kernel_names(tree)
     out = {}
     for kind in ("viterbi", "lattice"):
         if kind == "viterbi":
-            dec = ShardedViterbiDecoder(graph, fc, mesh=mesh, pad_time_to=cs.SHARD_FRAMES,
-                                        device="cuda")
+            dec = ShardedViterbiDecoder(graph, fc, mesh=mesh, device="cuda", **kw)
         else:
-            dec = ShardedLatticeDecoder(graph, fc, lattice_beam=cs.SHARD_LATTICE_BEAM,
-                                        mesh=mesh, pad_time_to=cs.SHARD_FRAMES, device="cuda")
+            dec = ShardedLatticeDecoder(graph, fc, mesh=mesh, device="cuda", **lkw, **kw)
         D = (dec.cfg if kind == "viterbi" else dec.cfg.shard).frontier.eps_iters
         eps_i = cs.shard_call_index(cs.SHARD_FRAME, D, True)
         kname = "dedup_select" if kind == "viterbi" else "dedup_select_rec"
-        capture = {"eps_step_shard": {D + cs.SHARD_FRAME * D},
-                   "frame_tail_shard": {cs.SHARD_FRAME}, kname: {eps_i},
-                   "route_recv": {eps_i}}
+        if D:
+            capture = {"eps_step_shard": {D + cs.SHARD_FRAME * D},
+                       "frame_tail_shard": {cs.SHARD_FRAME}, kname: {eps_i},
+                       "route_recv": {eps_i}}
+        else:  # the emitting call, the reduce mode, the chunk's start (those the tree has)
+            capture = {"frame_tail_shard": {cs.SHARD_FRAME}, kname: {cs.SHARD_FRAME},
+                       "eps_reduce_shard": {cs.SHARD_FRAME}, "frame_start_shard": {0},
+                       "global_cutoff_local": {0}}
+            capture = {k: v for k, v in capture.items() if hasattr(graph_shard, k)}
         # The warm-up (under NCCL it captures the frame's graph), its chunk's
         # arguments kept to run the chunk alone.
         with cs.CallCapture(graph_shard, {"sharded_chunk": {0}}) as warm:
@@ -394,6 +455,8 @@ def measure(tree, P, rank, reps):
             out[kind]["kernels"] = time_shard_kernels(cs, cap.kept, D)
             if D:
                 out[kind]["kernels"]["eps_call"] = time_eps_call(cs, cap.kept, kind, D)
+            else:
+                out[kind]["kernels"]["h_calls"] = time_h_calls(cs, cap.kept, kind)
         dist.barrier()
         del dec, res, cap, warm, chunk_args, runs
         torch.cuda.empty_cache()
@@ -411,7 +474,7 @@ def shutdown():
     getattr(mesh, "shutdown_distributed", dist.destroy_process_group)()
 
 
-def rank_main(tree, rank, port, reps, queue):
+def rank_main(tree, rank, port, reps, queue, graph="bench"):
     """One of the two P = 2 ranks (a spawned process) on ``cuda:0`` over gloo."""
     try:
         sys.path.insert(0, tree)
@@ -423,7 +486,7 @@ def rank_main(tree, rank, port, reps, queue):
         initialize_distributed(backend="gloo", init_method=f"tcp://localhost:{port}",
                                rank=rank, world_size=2)
         try:
-            queue.put((rank, "ok", measure(tree, 2, rank, reps)))
+            queue.put((rank, "ok", measure(tree, 2, rank, reps, graph)))
         finally:
             shutdown()
     except BaseException:
@@ -467,6 +530,8 @@ def main():
                     help="rounds of timed decodes (graph, loop, loop, graph)")
     ap.add_argument("--runs", action="store_true",
                     help="record K7's (owner, state) run lengths at P = 1 instead of timing")
+    ap.add_argument("--graph", choices=("bench", "h"), default="bench",
+                    help="phases 12-13's unfolded bench graph, or phase 14's H (P = 1 alone)")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
@@ -491,7 +556,7 @@ def main():
         if args.runs:
             runs = runs_main(tree)
         else:
-            p1 = measure(tree, 1, 0, args.reps)
+            p1 = measure(tree, 1, 0, args.reps, args.graph)
     finally:
         shutdown()
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
@@ -506,13 +571,15 @@ def main():
         print(line)
         return
     torch.cuda.empty_cache()
-    p2 = two_ranks(tree, args.reps)
+    p2 = two_ranks(tree, args.reps) if args.graph == "bench" else None
     line = json.dumps({"tag": args.tag, "tree": args.tree, "card": cs.card_line(),
-                       "build_s": build_s, "p1": p1, "p2": p2})
+                       "graph": args.graph, "build_s": build_s, "p1": p1, "p2": p2})
     name = os.path.join(REPO, "chiprun_out", f"profile_shard_{args.tag}.json")
     with open(name, "w") as f:
         f.write(line + "\n")
     for P, ranks in ((1, [p1]), (2, p2)):
+        if ranks is None:
+            continue
         for kind in ("viterbi", "lattice"):
             r = ranks[0][kind]
             for mode in ("graph", "loop"):
@@ -528,6 +595,9 @@ def main():
                       f"{m['collectives_a_frame']:.2f} a frame", flush=True)
             print(f"{args.tag} P={P} {kind}: the graph's pool {r['graph_pool_bytes']}", flush=True)
             for name, k in r["kernels"].items():
+                if name == "h_calls":
+                    print(f"{args.tag} P={P} {kind} on H: {k}", flush=True)
+                    continue
                 if name == "eps_call":
                     print(f"{args.tag} P={P} {kind} frame {cs.SHARD_FRAME}: the first eps "
                           f"iteration's dedup call {k['dedup_ms']:.4f} ms, K7's receive "

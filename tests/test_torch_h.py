@@ -3,16 +3,19 @@ iterations: the port against the JAX package, on the CPU.
 
 H (``ctc_topo``) has no eps arcs, so every decoder derives ``eps_iters``
 0 on it: a batched frame is K1, K6 or K2, then K3; a sharded frame has no
-eps step to write the local values its rebase reduces, and the eps step's
-shard mode's reduce mode (``kernels.eps.eps_reduce_shard``) writes them.
+eps step to write the local values its rebase reduces, and its emitting
+dedup call writes them as its last step (``reduce=`` of
+``kernels.dedup.dedup_select`` and ``kernels.dedup_rec.dedup_select_rec``).
 Inputs are made with numpy from fixed seeds and handed to both packages.
 
-- The reduce mode's plain version against the torch ops of the sharded
-  frame's ``D == 0`` branch that it replaces, on raw bits, and against
-  JAX's local values (``jnp.min`` of the finite costs, their count, the
-  flags): -0.0 tied with +0.0 either way round, an all-+inf row, a row
-  with one finite cost, each flag set alone, at B = 1 and 16; its outputs
-  start as garbage, so every one is written.
+- The emitting K6 call's local values on the CPU (the plain call, then
+  ``kernels.dedup.eps_reduce_shard_plain``) against the torch ops of the
+  sharded frame's ``D == 0`` branch that the reduction replaced, on raw
+  bits, and against JAX's local values (``jnp.min`` of the finite
+  frontier costs, their count, the flags): -0.0 and +0.0 at two states
+  either way round, an all-+inf row, a row with one finite cost, each
+  flag set alone, at B = 1 and 16; its outputs start as garbage, so every
+  one is written.
 - ``ShardedLatticeDecoder`` (and ``ShardedViterbiDecoder``) on
   ``ctc_topo`` at P = 1 and 2, ranks over gloo (``tests/_torch_dist_worker.py``),
   against the JAX sharded decoders on P virtual CPU devices: every field,
@@ -49,7 +52,8 @@ from kaldi_decoder_tpu_torch.decoders.frontier import config_for_graph
 from kaldi_decoder_tpu_torch.fst.csr import graph_from_numpy
 from kaldi_decoder_tpu_torch.fst.ops import path_labels
 from kaldi_decoder_tpu_torch.kernels.cutoff import first_min_count
-from kaldi_decoder_tpu_torch.kernels.eps import empty_shard_eps_carry, eps_reduce_shard
+from kaldi_decoder_tpu_torch.kernels.dedup import dedup_select
+from kaldi_decoder_tpu_torch.kernels.eps import empty_shard_eps_carry
 
 from _torch_dist_worker import run_ranks
 from _torch_util import assert_same_config, jax_host_library, same_fst, twin_configs
@@ -65,7 +69,7 @@ from test_torch_graph_shard import (
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # ---------------------------------------------------------------------------
-# The reduce mode's plain version
+# The emitting call's local values (the reduction's plain version)
 # ---------------------------------------------------------------------------
 
 REDUCE_CASES = ("neg-zero-first", "pos-zero-first", "all-inf", "one-finite", "overflow0",
@@ -73,14 +77,16 @@ REDUCE_CASES = ("neg-zero-first", "pos-zero-first", "all-inf", "one-finite", "ov
 
 
 def reduce_inputs(case, B, K=64):
-    """(costs (B, K), three overflow flags (B,), num_unique (B,)), numpy:
-    positive costs on a 0.25 grid, a fifth +inf, nothing flagged; ``case``
-    shapes the last row (a flag of any row counts)."""
+    """(lane states (B, 2K), lane costs (B, 2K), three overflow flags
+    (B,)), numpy: lane k of a row at state k, its first K lanes' costs
+    positive on a 0.25 grid, a fifth +inf, the rest +inf, nothing
+    flagged; ``case`` shapes the last row (a flag of any row counts;
+    ``saturated``: its last K lanes finite, so more than K states win)."""
     rng = np.random.default_rng(REDUCE_CASES.index(case) + 10 * B)
     costs = (rng.integers(1, 40, size=(B, K)) * 0.25).astype(np.float32)
     costs[rng.random((B, K)) < 0.2] = np.inf
     ovf = [np.zeros(B, bool) for _ in range(3)]
-    num_unique = rng.integers(1, K + 1, size=B).astype(np.int32)
+    extra = np.full((B, K), np.inf, np.float32)
     r = B - 1
     if case.endswith("zero-first"):  # the row's smallest, tied as -0.0 and +0.0
         first, second = (-0.0, 0.0) if case.startswith("neg") else (0.0, -0.0)
@@ -93,8 +99,9 @@ def reduce_inputs(case, B, K=64):
     elif case.startswith("overflow"):
         ovf[int(case[-1])][r] = True
     elif case == "saturated":
-        num_unique[r] = K + 1
-    return costs, ovf, num_unique
+        extra[r] = 10.5
+    states = np.tile(np.arange(2 * K, dtype=np.int32), (B, 1))
+    return states, np.concatenate([costs, extra], axis=1), ovf
 
 
 def replaced_ops(costs, ovf, num_unique):
@@ -110,18 +117,22 @@ def replaced_ops(costs, ovf, num_unique):
 @pytest.mark.parametrize("B", [1, 16])
 @pytest.mark.parametrize("case", REDUCE_CASES)
 def test_reduce_plain_matches_replaced_ops_and_jax(case, B):
-    """``eps_reduce_shard`` on CPU tensors (its plain version) writes the
-    replaced ops' values bit for bit into outputs that start as garbage;
-    the smallest cost is the first in slot order with that slot's bits,
-    and equals JAX's local minimum, count and flags."""
-    costs, ovf, num_unique = reduce_inputs(case, B)
-    args = (torch.from_numpy(costs), tuple(torch.from_numpy(x) for x in ovf),
-            torch.from_numpy(num_unique))
-    carry = empty_shard_eps_carry(B, 0, costs.shape[1], "cpu")
+    """The emitting K6 call with ``reduce=`` on CPU tensors (the plain
+    call, then the reduction's plain version) writes the replaced ops'
+    values of its frontier bit for bit into outputs that start as
+    garbage; the smallest cost is the first in slot order with that
+    slot's bits, and equals JAX's local minimum, count and flags."""
+    states, lanes, ovf = reduce_inputs(case, B)
+    K = lanes.shape[1] // 2
+    flags = tuple(torch.from_numpy(x) for x in ovf)
+    carry = empty_shard_eps_carry(B, 0, K, "cpu")
     carry.red_min.view(torch.int32).fill_(-1)  # a NaN
     carry.red_count.fill_(-7)
     carry.red_flags.fill_(5)
-    eps_reduce_shard(carry, *args)
+    sel = dedup_select(torch.from_numpy(states), torch.from_numpy(lanes), K, 2 * K,
+                       reduce=(carry, flags))
+    costs, num_unique = sel.costs.numpy(), sel.num_unique.numpy()
+    args = (sel.costs, flags, sel.num_unique)
     want = replaced_ops(*args)
     for name, w in zip(("red_min", "red_count", "red_flags"), want):
         same_array(w.numpy(), getattr(carry, name).numpy(), name)
@@ -137,20 +148,23 @@ def test_reduce_plain_matches_replaced_ops_and_jax(case, B):
     assert np.array_equal(jmin, carry.red_min.numpy())  # as floats: -0.0 == +0.0
     same_array(jcount, carry.red_count.numpy(), "count")
     assert carry.red_flags.tolist() == [int(f) for f in jflags]
-    if case.endswith("zero-first"):
-        assert np.signbit(carry.red_min[-1].item()) == case.startswith("neg")
+    if case.endswith("zero-first"):  # the frontier puts -0.0 first, whichever lane held it
+        assert np.signbit(carry.red_min[-1].item()) and carry.red_min[-1].item() == 0.0
     flagged = {"overflow0": [1, 0], "overflow1": [1, 0], "overflow2": [1, 0],
                "saturated": [0, 1]}.get(case, [0, 0])
     assert carry.red_flags.tolist() == flagged
 
 
 def test_reduce_wrapper_checks_its_flags():
-    """The wrapper takes one to three emitting overflow flags."""
-    costs, ovf, num_unique = reduce_inputs("no-flag", 2)
-    carry = empty_shard_eps_carry(2, 0, costs.shape[1], "cpu")
+    """The emitting call's ``reduce`` takes one to three emitting
+    overflow flags."""
+    states, lanes, ovf = reduce_inputs("no-flag", 2)
+    K = lanes.shape[1] // 2
+    carry = empty_shard_eps_carry(2, 0, K, "cpu")
     for flags in ((), tuple(torch.from_numpy(x) for x in ovf * 2)):
         with pytest.raises(ValueError, match="one to three"):
-            eps_reduce_shard(carry, torch.from_numpy(costs), flags, torch.from_numpy(num_unique))
+            dedup_select(torch.from_numpy(states), torch.from_numpy(lanes), K, 2 * K,
+                         reduce=(carry, flags))
 
 
 # ---------------------------------------------------------------------------

@@ -2005,22 +2005,29 @@ def test_eps_step_shard_kernel_min_ties(card, lattice, zero, clusters):
         _same_bits(w, g, f"carried {name}")
 
 
-# The reduce mode's flag cases: each overflow word of the last row, its
-# num_unique past K, and all of them; the want of its flag pair.
+# The local values' flag cases: each emitting overflow word of the last
+# row, its states past K, K2's own record overflow, and all of them; the
+# want of its flag pair.
 REDUCE_FLAGS = {"overflow0": [1, 0], "overflow1": [1, 0], "overflow2": [1, 0],
-                "saturated": [0, 1], "all": [1, 1]}
+                "saturated": [0, 1], "rec": [1, 0], "all": [1, 1]}
+REDUCE_LANES = 16384  # lanes a row: room for 8 blocks a row (dedup_core.cuh cluster_cap)
 
 
 def _reduce_inputs(rng, nb, K, flag):
-    """A frontier (nb, K) for the reduce mode: costs in [1, 5), its last
-    eighth +inf, the smallest tied across two blocks' slot ranges (slots
-    K/2 - 24 and K/2 + 24: two blocks at every size of two or more) as -0.0
-    and +0.0 on even rows (which first alternating by pairs) and as equal
-    bits on odd rows; row 1 all +inf, row 2 one finite cost (at B > 2);
-    the last row's flags set as ``flag`` names (``REDUCE_FLAGS``), none
-    when None."""
-    costs = rng.uniform(1, 5, size=(nb, K)).astype(np.float32)
-    costs[:, K - K // 8:] = np.inf
+    """Lanes (nb, REDUCE_LANES) for an emitting call whose frontier the
+    local values read: lane k < K of a row at state k, its cost in [1, 5)
+    (its last eighth +inf); the smallest tied across two blocks' slot
+    ranges of the lanes (K/2 - 24 and K/2 + 24) as -0.0 and +0.0 on even
+    rows (which first alternating by pairs) and as equal bits on odd rows;
+    row 1 all +inf, row 2 one finite cost (at B > 2); the other lanes
+    +inf, but for ``saturated`` (or ``all``) the last row's, finite at
+    states past K; the last row's overflow flags set as ``flag`` names
+    (``REDUCE_FLAGS``), none when None.  Returns (states, costs, three
+    flags)."""
+    N = REDUCE_LANES
+    costs = np.full((nb, N), np.inf, np.float32)
+    costs[:, :K] = rng.uniform(1, 5, size=(nb, K)).astype(np.float32)
+    costs[:, K - K // 8:K] = np.inf
     lo, hi = K // 2 - 24, K // 2 + 24
     for b in range(nb):
         first, second = ((np.float32(-0.0), np.float32(0.0)) if b % 2 == 0
@@ -2033,61 +2040,176 @@ def _reduce_inputs(rng, nb, K, flag):
         costs[2] = np.inf
         costs[2, K - 200] = 3.5
     ovf = [np.zeros(nb, bool) for _ in range(3)]
-    num_unique = rng.integers(1, K + 1, size=nb).astype(np.int32)
     if flag in ("overflow0", "overflow1", "overflow2", "all"):
         for i in (range(3) if flag == "all" else [int(flag[-1])]):
             ovf[i][nb - 1] = True
     if flag in ("saturated", "all"):
-        num_unique[nb - 1] = K + 1
-    return costs, ovf, num_unique
+        extra = K // 4 + 100
+        costs[nb - 1, K:K + extra] = rng.uniform(5, 6, size=extra).astype(np.float32)
+    states = np.tile(np.arange(N, dtype=np.int32), (nb, 1))
+    return states, costs, ovf
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("flag", sorted(REDUCE_FLAGS))
+@pytest.mark.parametrize("kind,flag", [("k6", f) for f in sorted(REDUCE_FLAGS) if f != "rec"]
+                         + [("k2", f) for f in sorted(REDUCE_FLAGS)])
 @pytest.mark.parametrize("clusters", SHARD_CLUSTERS)
 @pytest.mark.parametrize("K", [2048, 512])
 @pytest.mark.parametrize("nb", [16, 1])
-def test_eps_reduce_shard_kernel_matches_plain(card, nb, K, clusters, flag):
-    """The eps step's shard mode's reduce mode (a sharded frame's local
-    values at eps_iters 0) against ``eps_reduce_shard_plain``, bitwise, at
-    its own cluster size and at 8, 4, 2 and 1 blocks a row, with outputs
-    that start as the bit complement of plain's: red_min the first smallest
-    finite cost in slot order with that slot's bits (-0.0 beside +0.0
-    across two blocks' ranges), +inf for a row without one, red_count,
-    and the flag pair written whole, word by word: a call with ``flag``'s
-    flags set (each overflow word alone, the saturation alone, all), then
-    one with none on the same outputs."""
-    from kaldi_decoder_tpu_torch.kernels.eps import (
-        empty_shard_eps_carry,
-        eps_reduce_shard,
-        eps_reduce_shard_plain,
-    )
+def test_fused_reduce_kernel_matches_plain(card, nb, K, clusters, kind, flag):
+    """The emitting K6 and K2 calls with ``reduce=`` (a sharded frame's
+    local values at eps_iters 0 as the call's last step) against the
+    plain call then ``eps_reduce_shard_plain`` on CPU copies, bitwise, at
+    B 16 and 1 (its one row completes the count word at once), at the
+    call's own cluster size and at 8, 4, 2 and 1 blocks a
+    row, with outputs that start as the bit complement of plain's: the
+    selection, red_min the first smallest finite cost in slot order of
+    the frontier with that slot's bits (-0.0 before +0.0, lanes of two
+    blocks), +inf for a row without one, red_count, and the flag pair
+    written whole, word by word.  Three calls on one carry (``flag``'s
+    flags, none, ``flag``'s again), as replays of a captured frame make
+    them: the count word is 0 after each.  K2's ``rec`` case has fewer
+    record rows than finite lanes (its own rec_overflow); its other cases
+    keep every record."""
+    from kaldi_decoder_tpu_torch.kernels.dedup import eps_reduce_shard_plain, shard_reduce
+    from kaldi_decoder_tpu_torch.kernels.eps import empty_shard_eps_carry
 
-    rng = np.random.default_rng(11 + nb + K)
-    for flagged in (flag, None):
-        costs, ovf, num_unique = _reduce_inputs(rng, nb, K, flagged)
-        args = (torch.from_numpy(costs), tuple(torch.from_numpy(x) for x in ovf),
-                torch.from_numpy(num_unique))
+    rng = np.random.default_rng(11 + K + (kind == "k2") + nb)
+    N, S = REDUCE_LANES, REDUCE_LANES
+    got = empty_shard_eps_carry(nb, 0, K, card)
+    for flagged in (flag, None, flag):
+        R = 64 if flagged == "rec" else K + 128
+        states, costs, ovf = _reduce_inputs(rng, nb, K, flagged)
+        st, co = torch.from_numpy(states), torch.from_numpy(costs)
+        pay = (torch.from_numpy(rng.integers(0, 1 << 20, size=(nb, N)).astype(np.int32)),
+               torch.arange(N, dtype=torch.int32).repeat(nb, 1))
+        em = tuple(torch.from_numpy(x) for x in ovf)
+        if kind == "k6":
+            want_sel = dedup_select_plain(st, co, K, S)
+            own = ()
+        else:
+            plain = dedup_select_rec_plain(st, co, K, S, R, LATTICE_BEAM, pay)
+            want_sel, own = plain, (plain.rec_overflow,)
         want = empty_shard_eps_carry(nb, 0, K, "cpu")
-        eps_reduce_shard_plain(want, *args)
-        if flagged:
-            got = empty_shard_eps_carry(nb, 0, K, card)
-            for w, g in zip(want[3:], got[3:]):  # red_min, red_count, red_flags
-                g.view(torch.int32).copy_(~w.view(torch.int32))
-        dev_args = (args[0].to(card), tuple(x.to(card) for x in args[1]), args[2].to(card))
-        n0 = eps_reduce_shard.launches
-        eps_reduce_shard(got, *dev_args, clusters=clusters)
+        eps_reduce_shard_plain(want, want_sel.costs, em + own, want_sel.num_unique)
+        for name in ("red_min", "red_count", "red_flags"):
+            w = getattr(want, name)
+            getattr(got, name).view(torch.int32).copy_(~w.view(torch.int32))
+        n0, r0 = (dedup_select if kind == "k6" else dedup_select_rec).launches, \
+            shard_reduce.launches
+        dev_em = tuple(x.to(card) for x in em)
+        if kind == "k6":
+            sel = dedup_select(st.to(card), co.to(card), K, S, reduce=(got, dev_em),
+                               clusters=clusters)
+        else:
+            sel = dedup_select_rec(st.to(card), co.to(card), K, S, R, LATTICE_BEAM,
+                                   tuple(p.to(card) for p in pay), reduce=(got, dev_em),
+                                   clusters=clusters)
         torch.cuda.synchronize()
-        assert eps_reduce_shard.launches == n0 + 1
-        canon = np.where(costs == 0, np.float32(0.0), costs)
-        at = np.argmin(np.where(np.isfinite(costs), canon, np.inf), axis=1)
-        first = costs[np.arange(nb), at].copy()
-        first[~np.isfinite(costs).any(axis=1)] = np.inf
-        _same_bits(torch.from_numpy(first), got.red_min.cpu(),
-                   "red_min: the first smallest in slot order")
+        assert (dedup_select if kind == "k6" else dedup_select_rec).launches == n0 + 1
+        assert shard_reduce.launches == r0 + 1
+        assert got.red_done.tolist() == [0], "the count word is 0 between calls"
+        _same_bits(want_sel.costs, sel.costs.cpu(), "the frontier's costs")
+        _same_bits(want_sel.num_unique, sel.num_unique.cpu(), "num_unique")
         for name in ("red_min", "red_count", "red_flags"):
             _same_bits(getattr(want, name), getattr(got, name).cpu(), f"carry.{name}")
+        fc = want_sel.costs.numpy()
+        canon = np.where(fc == 0, np.float32(0.0), fc)
+        at = np.argmin(np.where(np.isfinite(fc), canon, np.inf), axis=1)
+        first = fc[np.arange(nb), at].copy()
+        first[~np.isfinite(fc).any(axis=1)] = np.inf
+        _same_bits(torch.from_numpy(first), got.red_min.cpu(),
+                   "red_min: the first smallest in slot order")
         assert got.red_flags.tolist() == (REDUCE_FLAGS[flagged] if flagged else [0, 0])
+    size = dedup_cluster_size(nb, N) if kind == "k6" else rec_cluster_size(nb, N, reduce=True)
+    assert size == (dedup_cluster_size(nb, N) if kind == "k6" else rec_cluster_size(nb, N))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fold", ["prefix", "costs", "one"])
+@pytest.mark.parametrize("clusters", SHARD_CLUSTERS)
+@pytest.mark.parametrize("nb", [16, 1])
+def test_frame_start_shard_local_kernel_matches_plain(card, nb, clusters, fold):
+    """K3's shard first-frame mode with K8's local half of the start state
+    as its last step against ``frame_start_shard_plain`` then
+    ``global_cutoff_local_plain`` on CPU copies, bitwise, at its own
+    cluster size (more than one block a row at B = 16) and at 8, 4, 2 and
+    1 blocks a row, from outputs set to the bit complement of plain's: the
+    slots, the table, the local half's best cost and count and its prefix
+    (m 700: ``prefix``; m 1: ``one``; none of its own at m == K:
+    ``costs``).  The start costs are unsorted: +0.0 in one block's slot
+    range before -0.0 in a later block's (the first keeps its +0.0 bits)
+    on even rows, -0.0 before +0.0 on odd rows, one row all +inf and one
+    with a single finite cost; one launch counted, K8's local half none."""
+    from kaldi_decoder_tpu_torch.decoders.frontier import StepState
+    from kaldi_decoder_tpu_torch.kernels.cutoff import (
+        empty_cutoff_local,
+        global_cutoff_local,
+        global_cutoff_local_plain,
+    )
+    from kaldi_decoder_tpu_torch.kernels.frame import (
+        FrameIO,
+        ShardSlots,
+        empty_shard_outs,
+        frame_start,
+        frame_start_shard,
+        frame_start_shard_plain,
+        start_cluster_size,
+    )
+
+    rng = np.random.default_rng(nb + 7 * clusters + len(fold))
+    K, Vs, T = 2048, 500, 3
+    m = {"prefix": 700, "costs": K, "one": 1}[fold]
+    costs = rng.uniform(0.5, 9, size=(nb, K)).astype(np.float32)
+    costs[rng.random((nb, K)) < 0.3] = np.inf
+    for b in range(nb):
+        zeros = (0.0, -0.0) if b % 2 == 0 else (-0.0, 0.0)
+        costs[b, K // 8], costs[b, K - K // 8] = np.float32(zeros[0]), np.float32(zeros[1])
+    if nb > 2:
+        costs[1] = np.inf
+        costs[2] = np.inf
+        costs[2, K - 5] = 4.25
+    st0 = StepState(torch.from_numpy(rng.integers(0, 9000, (nb, K)).astype(np.int32)),
+                    torch.from_numpy(costs),
+                    torch.from_numpy(rng.uniform(-50, 0, nb).astype(np.float32)))
+    io_cpu = FrameIO(torch.from_numpy(rng.uniform(-9, 0, (T, nb, Vs)).astype(np.float32)),
+                     torch.from_numpy(rng.integers(0, T + 1, nb).astype(np.int32)), st0,
+                     empty_shard_outs(T, nb, K, 1, False, "cpu"))
+    want = frame_start_shard_plain(io_cpu)
+    ref = global_cutoff_local_plain(st0.costs, m)
+    if fold == "costs":
+        ref = ref._replace(prefix=None)
+    io = FrameIO(io_cpu.scores.to(card), io_cpu.lengths.to(card),
+                 StepState(*(x.to(card) for x in st0)),
+                 empty_shard_outs(T, nb, K, 1, False, card))
+    slots = ShardSlots(nb, K, Vs, card)
+    for dst, src in zip(slots.state, want.state):
+        dst.view(torch.int32).copy_(~src.view(torch.int32))
+    local = empty_cutoff_local(nb, m, card)
+    if fold == "costs":
+        local = local._replace(prefix=None)
+    for dst, src in zip(local, ref):
+        if dst is not None:
+            dst.view(torch.int32).copy_(~src.view(torch.int32))
+    before, k8 = frame_start.launches, global_cutoff_local.launches
+    frame_start_shard(slots, io, local=local, clusters=clusters)
+    torch.cuda.synchronize()
+    assert frame_start.launches == before + 1 and global_cutoff_local.launches == k8
+    for name, w, g in zip(want.state._fields, want.state, slots.state):
+        _same_bits(w, g.cpu(), f"state.{name}")
+    _same_bits(want.lengths, slots.lengths.cpu(), "lengths")
+    _same_bits(want.scores_t, slots.scores_t.cpu(), "scores row 0")
+    words = slots.args.tolist()
+    assert words[:3] == [0, 0, T] and words[3] == io.scores.data_ptr()
+    assert words[4:4 + len(io.outs)] == [x.data_ptr() for x in io.outs]
+    for name, w, g in zip(ref._fields, ref, local):
+        if w is not None:
+            _same_bits(w, g.cpu(), f"local.{name}")
+    assert not np.signbit(local.best[0].item()) and local.best[0].item() == 0.0
+    if nb > 1:
+        assert np.signbit(local.best[-1].item())
+    if nb == 16 and clusters == 0:
+        assert start_cluster_size(nb, K) > 1
 
 
 @pytest.mark.cuda
@@ -2337,7 +2459,9 @@ def test_shard_driver_graph_matches_loop(card, nccl_group, kind):
         assert cg == ce, (i, cg, ce)
         frames = rg.num_active.shape[0]
         assert replays == frames - (1 if i == 0 else 0), (i, replays, frames)
-        assert ng[-2:] == [1, 1]  # the first-frame mode and K8's local half once a chunk
+        # The first-frame mode once a chunk, with K8's local half of the
+        # start state as its last step: K8's local half never alone.
+        assert ng[-2:] == [1, 0]
 
 
 def _route_cluster_cases():

@@ -138,8 +138,9 @@ def test_first_frame_mode_matches_chunk_start(lattice, m_case):
     slots as the sharded loop began a chunk: the state a clone of the
     start state, the row lengths and scores row 0 the chunk's, t 0 with no
     row done, the frame count and the addresses of the chunk's scores and
-    outputs in the table; K8's local half of the slots' state
-    (``_start_cutoff``) equal to its plain local half of the start state."""
+    outputs in the table; with ``local=`` (``_local_half``'s buffers, as
+    ``sharded_chunk`` calls it) the same slots and K8's local half equal to
+    its plain local half of the start state."""
     io = chunk(1 + lattice, lattice, frames=4)
     sc = shard_config(M_CASES[m_case])
     slots = ShardSlots(B, K, V, "cpu")
@@ -156,7 +157,10 @@ def test_first_frame_mode_matches_chunk_start(lattice, m_case):
     want = frame_start_shard_plain(io)
     assert slots.args.tolist() == want.args.tolist()
     bufs = pgs._bufs(sc, B, K, V, "cpu")
-    pgs._start_cutoff(slots.state, sc, bufs)
+    frame_start_shard(bufs.slots, io, local=pgs._local_half(sc, bufs, B, "cpu"))
+    for name, w, g in zip(slots.state._fields, slots.state, bufs.slots.state):
+        same_bits(w, g, f"state.{name} with the local half")
+    assert bufs.slots.args.tolist() == want.args.tolist()
     early, m = pgs._cutoff_m(sc)
     assert not early and (m < K) == (m_case == "prefix")
     ref = global_cutoff_local_plain(io.st0.costs, m)
