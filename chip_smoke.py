@@ -106,7 +106,9 @@ Phases (any failure raises, and the process exits non-zero):
      read back with ``load_graph``, which must equal the ``.npz`` graph
      array for array; then ``cli.main(["decode", "--graph", <file>, ...,
      "--device", "cuda"])`` on phase 7's two utterances saved as ``.npy``:
-     the lattice decoder (phase 7's config, lattice files, n-best of 5),
+     the lattice decoder on the first (phase 7's config, lattice files,
+     n-best of 5: its A* spends some 45 s an utterance on a decoder
+     lattice, ROADMAP Queue 1 item 3),
      whose hyps must equal the ``LatticeFasterDecoder`` labels and whose
      lattice files, read back with ``read_fst``, the raw lattices of
      ``tests/data/torch_port_lattice_eps_ref.json``; then the faster
@@ -216,6 +218,42 @@ Phases (any failure raises, and the process exits non-zero):
      one chunk, its K2 and K4 held
      and timed there; the sharded with route buckets of ``H8_ROUTE_CAP``),
      checked against the reference's ``lattice8`` section.
+  15. decoding with Hm, k2's modified CTC topology ``ctc_topo(500,
+     modified=True)`` (500 states, 999 emitting and 499 eps arcs, eps depth
+     1), the bench's 16 utterances at full length, ``HM_CONFIG`` (H's beam,
+     max_active and min_active, K 512, rem_budget 2048, eps_rem_budget
+     512), the lattice decoders at ``HM_LATTICE_KW`` (lattice beam 8 over
+     whole utterances, em_records 3072, eps_records 512), against
+     ``tests/data/torch_port_hmod_ref.json``: after phase 14's batched
+     decoders, ``BatchedViterbiDecoder`` (folded: K1, K6 and K3 once a
+     frame) held on every utterance as phase 4; ``BatchedLatticeDecoder``
+     folded (K1, K2 and K3 once a frame) and with ``fold=False`` (K2 twice
+     a frame, K5 and the eps step inside K2's eps call once a frame and
+     once for the start closure), chunks of 500, ``device_prune=True``:
+     the device sweep's survivor buffers overflow at lattice beam 8 and
+     the decoder falls back to the host prune, as the reference's does
+     (K4 once a chunk, then every frame again without it); utterances 0-1
+     held whole, the rest by active states a frame;
+     the streaming ``FasterDecoder`` (phase 5's options) on Hm and on H
+     and ``LatticeFasterDecoder`` (phase 7's config) on Hm, utterances 0-1,
+     counted and held as phases 5 and 7, the two kept faults of the
+     reference (ROADMAP Queue 3: H's truncated arc budget, Hm's derived
+     eps_records below its eps lanes) overflowing on the reference's
+     counts; each decode's wall and device ms a frame, activities a frame
+     and busy share; K5 (at its own and every cluster size), K2's eps call
+     and that call with the eps step on the unfolded decode's frames 150
+     and 250, K4's eps instance on its first chunk, and K1, K6, K5, K6's
+     and K2's eps calls with the eps step on the streaming decoders' frame
+     60 and start closure, held against plain (bitwise) and timed; then,
+     with phases 12-13's ranks, ``ShardedViterbiDecoder`` and
+     ``ShardedLatticeDecoder`` on Hm (never folded: the routed eps closure
+     at K 512, eps_iters 1), route buckets of ``HM_ROUTE_CAP``, the first
+     ``HM_SHARD_FRAMES`` frames, counted and checked as phases 12-13, rank 0
+     holding the shard kernels on frame SHARD_FRAME's calls (K5, K7's send
+     side emitting and eps at every cluster size, its receive side, the
+     routed eps call, the eps step's shard mode and K3's shard mode and
+     first-frame mode at every cluster size, K8's halves).  Prints the
+     phase's seconds.
 Every chunk loop of phases 3-13 runs through a frame driver
 (``decoders/driver.py``; the sharded ones ``parallel/shard_driver.py``,
 under NCCL only: over gloo each exchange is staged through the host, and
@@ -294,6 +332,7 @@ K6_FRAMES = (0, 5, 60, 150)  # Viterbi frames whose emitting candidates K6 is ch
 EPS_FRAME = 60  # frame of the unfolded decode whose eps iteration K6 is checked on
 STREAM_FRAME = 60  # frame of the streaming decode its kernels are checked on
 FRAMES_PER_CALL = 100  # advance_decoding(max_num_frames=...) in phase 5
+CLI_LATTICE_UTTS = 1  # utterances phase 8's lattice CLI decodes (with lattice files and n-best)
 # Frames over which each path's loop is measured replayed from the frame
 # driver's graph and as the loop before the frame driver (loop_walls): the
 # batched paths' first chunk's first frames, the streaming decoders'
@@ -342,6 +381,28 @@ H8_HELD = 1  # utterances whose beam-8 lattices are held whole (the host builds 
 H_ROUTE_CAP = 16384
 H8_ROUTE_CAP = 262144
 H_SHARD_FRAMES = 250
+# Phase 15: decoding with Hm, k2's modified CTC topology ctc_topo(V,
+# modified=True) (500 states, 999 emitting and 499 eps arcs, eps depth 1),
+# on the bench's utterances (scripts/make_torch_hmod_reference.py).  H's
+# beam, max_active and min_active; every capacity set: K 512 (the graph's
+# states), rem_budget 2048 (a row has at most 1997 folded or 999 unfolded
+# remainder lanes), eps_rem_budget 512 (499 eps lanes).  Lattice beam 8
+# over whole utterances: em_records 3072 (the folded row's lanes; the
+# unfolded decoder caps it at its 2560), eps_records 512 (the derived 380
+# overflows).  Route buckets of 1024 lanes.  The streaming decoders take
+# phases 5 and 7's options (STREAM_OPTIONS) on HM_STREAM_UTTS utterances,
+# and FasterDecoder runs them on H too (a kept fault of the reference,
+# ROADMAP Queue 3).  The lattice decodes hold HM_HELD utterances whole and
+# the rest by active states a frame (the sharded ones by their best path's
+# labels too).
+HM_CONFIG = dict(beam=15.0, max_active=2560, min_active=30, frontier_size=512,
+                 rem_budget=2048, eps_rem_budget=512)
+HM_LATTICE_KW = dict(lattice_beam=8.0, em_records=3072, eps_records=512)
+HM_ROUTE_CAP = 1024
+HM_SHARD_FRAMES = 250
+HM_HELD = 2
+HM_STREAM_UTTS = 2
+STREAM_OPTIONS = dict(beam=15.0, max_active=2560, min_active=200)
 
 
 # Set in phases 11-13's spawned ranks: their lines say whose they are.
@@ -1836,9 +1897,10 @@ def streaming_decoder(graph, vref, device="cuda"):
                          device=device)
 
 
-def streaming_path(fd, scores, vref):
+def streaming_path(fd, scores, vref, what="streaming path"):
     """Phase 5: the streaming API on the unfolded graph, counted, then
-    checked against the JAX reference."""
+    checked against the JAX reference (``vref["streaming"]``; phase 15's
+    streaming decoders too, labelled ``what``)."""
     import numpy as np
 
     from kaldi_decoder_tpu_torch import DecodableCtc
@@ -1847,7 +1909,7 @@ def streaming_path(fd, scores, vref):
     want = sref["device_config"]
     got_cfg = {f: getattr(fd._cfg, f) for f in want}
     if got_cfg != want:
-        raise AssertionError(f"streaming config {got_cfg} != the reference's {want}")
+        raise AssertionError(f"{what}: config {got_cfg} != the reference's {want}")
     D = fd._cfg.eps_iters
     reset_counts()
     t_dec = t_host = 0.0
@@ -1867,11 +1929,11 @@ def streaming_path(fd, scores, vref):
         frames += L
         r = fd._result()
         if not ok:
-            raise AssertionError(f"streaming, utterance {b}: get_best_path failed")
-        check_utterance("streaming", b, u, lat, r.num_active[:, 0], r.best_costs[:, 0],
+            raise AssertionError(f"{what}, utterance {b}: get_best_path failed")
+        check_utterance(what, b, u, lat, r.num_active[:, 0], r.best_costs[:, 0],
                         r.overflows[:, 0], r.saturations[:, 0])
         if not np.array_equal(r.lengths, [L]):
-            raise AssertionError("streaming result lengths")
+            raise AssertionError(f"{what}: result lengths")
     n = read_counts()
     utts = len(sref["utts"])
     want_k6 = frames * (1 + D) + utts * D
@@ -1881,11 +1943,12 @@ def streaming_path(fd, scores, vref):
     if (n["gather"] != 0 or n["k1"] != frames or n["k2"] != 0 or n["k6"] != want_k6
             or n["k5"] != want_k5 or n["eps_step"] != 0 or n["eps_dedup"] != want_k5
             or n["k3"] != frames or n["k3_start"] != calls):
-        raise AssertionError(f"launch counts {n}: want no gather and no standalone eps step, "
+        raise AssertionError(f"{what}: launch counts {n}: want no gather and no standalone eps "
+                             "step, "
                              f"{frames} K1 and K3, {want_k6} K6, {want_k5} K5 and eps steps "
                              f"inside K6, {calls} K3 first frames")
-    replays = read_replays("streaming path", frames)
-    log(f"streaming path: FasterDecoder, {utts} utterances, {frames} frames, "
+    replays = read_replays(what, frames)
+    log(f"{what}: FasterDecoder, {utts} utterances, {frames} frames, "
         f"{FRAMES_PER_CALL} per advance_decoding, eps_iters={D}, K={fd._cfg.frontier_size}: "
         f"{1000 * t_dec / frames:.3f} ms per frame (init + advance, downloads included), "
         f"get_best_path {t_host:.3f} s; row gather launches {n['gather']}, K1 {n['k1']}, "
@@ -1905,9 +1968,10 @@ def unfolded_lattice_decoder(graph, device="cuda"):
                                  device=device, **DECODER_KW)
 
 
-def check_k2_eps(udec, scores_tm):
+def check_k2_eps(udec, scores_tm, what="unfolded lattice"):
     """K2's eps call (the K incumbents first) against its plain version on
-    the eps iteration of the unfolded lattice decode at each of
+    the eps iteration of the unfolded lattice decode (``what``: phase 6's
+    on the bench graph, or phase 15's on Hm) at each of
     ``K2_EPS_FRAMES``, then timed there; K5, whose lanes it takes, and the
     eps call with the eps step as its last step, held against their plain
     versions and timed on the
@@ -1936,14 +2000,14 @@ def check_k2_eps(udec, scores_tm):
         if t in K2_EPS_FRAMES:
             mid, _, next_cutoff, _, _, _ = lattice_emit_stage(
                 st, scores_tm[t], udec._pg, fc, S, cfg.em_records, sb)
-            where = f"unfolded lattice frame {t}"
+            where = f"{what} frame {t}"
             lanes, k5 = hold_k5(mid, next_cutoff, udec._pg, fc, True, where, timed=True)
             args = (lanes.dst, lanes.cost, K, S, K + cfg.eps_records, sb,
                     (lanes.src_state, lanes.arc_id))
             ref = dedup_select_rec_plain(*args, num_incumbents=K)
             got = dedup_select_rec(*args, num_incumbents=K)
             torch.cuda.synchronize()
-            max_err = max(max_err, same_records(ref, got, f"the eps lanes of unfolded frame {t}"))
+            max_err = max(max_err, same_records(ref, got, f"the eps lanes of {what} frame {t}"))
             step = hold_eps_step(lanes, args, fc.eps_iters, fc.eps_exact, where, timed=True)
             eps_kernels[t] = dict(k5=k5, eps_step=step)
             won.append(int((ref.cand_idx >= K).sum()))
@@ -1952,11 +2016,11 @@ def check_k2_eps(udec, scores_tm):
     N = calls[0][1][1].shape[1]
     log(f"K2 dedup_select_rec, eps call (B={B}, N={N}, K={K}, R={K + cfg.eps_records}, "
         f"{K} incumbents; slots won by eps lanes {won}; clusters of "
-        f"{cluster_size(B, N, incumbents=True)} blocks): equal to plain on unfolded "
+        f"{cluster_size(B, N, incumbents=True)} blocks): equal to plain on {what} "
         f"frames {list(K2_EPS_FRAMES)}; timed there:")
     timed = {}
     for t, args in calls:
-        log(f" unfolded frame {t}:")
+        log(f" {what} frame {t}:")
         timed[t] = time_kernel(
             "K2, eps call", lambda: dedup_select_rec(*args, num_incumbents=K),
             lambda: stack_records(dedup_select_rec_plain(*args, num_incumbents=K)),
@@ -1964,9 +2028,10 @@ def check_k2_eps(udec, scores_tm):
     return max_err, timed, eps_kernels
 
 
-def check_k4_eps(udec, scores_tm, lengths):
+def check_k4_eps(udec, scores_tm, lengths, what="the unfolded decode"):
     """K4 with eps records against the plain sweep on the first 500-frame
-    chunk of the unfolded lattice decode, then timed."""
+    chunk of the unfolded lattice decode (``what``), at its sweep config,
+    then timed."""
     import torch
 
     from kaldi_decoder_tpu_torch.decoders.lattice_dev import lattice_chunk
@@ -1984,14 +2049,14 @@ def check_k4_eps(udec, scores_tm, lengths):
     ref = sweep_plain(*args)
     got = sweep_chunk(*args)
     torch.cuda.synchronize()
-    max_err = same_sweep(ref, got, "K4 with eps")
-    log(f"K4 sweep with eps records: equal to plain on chunk 0 of the unfolded decode "
+    max_err = same_sweep(ref, got, f"K4 with eps on {what}")
+    log(f"K4 sweep with eps records: equal to plain on chunk 0 of {what} "
         f"(T={CHUNK}, B={B}, D={sc.eps_iters}, Re={sc.eps_records}, Bellman bound "
         f"{sc.eps_bound}; survivors tok {ref.tok_count.sum().item()}, em "
         f"{ref.em_count.sum().item()}, eps {ref.eps_count.sum().item()}; overflow "
         f"{int(ref.overflow.sum())}; clusters of "
         f"{kernels().kd_sweep_cluster(B, -(-sc.frontier_size // 4) * 4, sc.em_records)} blocks):")
-    t = time_kernel("K4 with eps, one chunk", lambda: sweep_chunk(*args),
+    t = time_kernel(f"K4 with eps, one chunk of {what}", lambda: sweep_chunk(*args),
                     lambda: sweep_plain(*args), k4_work(*args[:5], got, eps=o.eps_records),
                     reps=2)
     del o, ref, got
@@ -2071,15 +2136,18 @@ def check_lattice_stats(what, b, u, stats):
             raise AssertionError(f"{what}, utterance {b}: {key} {val} != {u[key]}")
 
 
-def check_lattice_result(what, res, want, held):
+def check_lattice_result(what, res, want, held, labels=False):
     """Every utterance of the lattice result ``res`` against ``want`` (the
     reference's records, by utterance): the first ``held`` whole (raw
-    lattice, digests, best path, labels), the others by their stats.
-    Returns the raw lattice arcs of the utterances held whole."""
+    lattice, digests, best path, labels), the others by their stats and,
+    with ``labels``, their best path's labels.  Returns the raw lattice
+    arcs of the utterances held whole."""
     arcs = 0
     for b, u in enumerate(want):
         if b >= held:
             check_lattice_stats(what, b, u, res.stats(b))
+            if labels and res.best_path_labels(b) != u["labels"]:
+                raise AssertionError(f"{what}, utterance {b}: best_path_labels differ")
             continue
         check_lattice_utterance(what, b, u, res.raw_lattice(b), res.best_path(b), res.stats(b),
                                 res.reached_final(b), res.final_relative_cost(b))
@@ -2167,12 +2235,14 @@ def lattice_device_config(dec):
         lattice_beam=c.lattice_beam)
 
 
-def streaming_lattice_path(graph, scores, lref, device="cuda"):
+def streaming_lattice_path(graph, scores, lref, device="cuda", kinds=("faster", "simple"),
+                           measure_loop=True):
     """Phase 7: ``LatticeFasterDecoder`` over the reference's utterances,
     100 frames per ``advance_decoding``, then ``LatticeSimpleDecoder`` on
-    the first; each counted, then checked against the JAX reference.
-    Returns the launch counts of each and the faster decoder's ms per
-    frame."""
+    the first; each counted, then checked against the JAX reference; with
+    ``measure_loop`` the faster decoder's loop measured (``loop_walls``).  Phase
+    15 runs ``kinds`` ("faster") alone.  Returns the launch counts of each
+    and the faster decoder's ms per frame."""
     from kaldi_decoder_tpu_torch import (
         DecodableCtc,
         LatticeFasterDecoder,
@@ -2184,6 +2254,8 @@ def streaming_lattice_path(graph, scores, lref, device="cuda"):
     out = {}
     for kind, make, cfg_cls in (("faster", LatticeFasterDecoder, LatticeFasterDecoderConfig),
                                 ("simple", LatticeSimpleDecoder, LatticeSimpleDecoderConfig)):
+        if kind not in kinds:
+            continue
         part = lref[kind]
         dec = make(graph, cfg_cls(**part["config"]), device=device)
         if lattice_device_config(dec) != part["device_config"]:
@@ -2230,7 +2302,7 @@ def streaming_lattice_path(graph, scores, lref, device="cuda"):
             f"{t_host:.3f} s; launches {n}, {replays} frames replayed from the captured graph; "
             f"matches the JAX reference")
         walls = None
-        if kind == "faster":
+        if kind == "faster" and measure_loop:
             walls = loop_walls("phase 7, LatticeFasterDecoder on utterance 0",
                                stream_run(dec, scores[0, :WALL_STREAM_FRAMES]),
                                WALL_STREAM_FRAMES)
@@ -2331,8 +2403,10 @@ def graph_file_path(graph, scores, vref, lref, tmp):
     lat_dir = os.path.join(tmp, "lats")
     os.makedirs(lat_dir)
     lcfg, sopt = lref["faster"]["config"], vref["streaming"]["options"]
-    lattice_argv = ["decode", "--graph", path, "--logits", *npys, "--decoder", "lattice",
-                    "--beam", f"{lcfg['beam']:g}", "--max-active", str(lcfg["max_active"]),
+    lutts = lutts[:CLI_LATTICE_UTTS]
+    lattice_argv = ["decode", "--graph", path, "--logits", *npys[:len(lutts)],
+                    "--decoder", "lattice", "--beam", f"{lcfg['beam']:g}",
+                    "--max-active", str(lcfg["max_active"]),
                     "--min-active", str(lcfg["min_active"]),
                     "--lattice-beam", f"{lcfg['lattice_beam']:g}", "--nbest", "5",
                     "--lattice-dir", lat_dir, "--device", "cuda"]
@@ -2349,10 +2423,10 @@ def graph_file_path(graph, scores, vref, lref, tmp):
         raise AssertionError("cli faster decoder config != phase 5's")
     D = ld._dev_cfg.frontier.eps_iters
     del ld, fd, fgraph
-    frames = sum(u["length"] for u in lutts)
 
     out = {}
     for kind, argv, utts in (("lattice", lattice_argv, lutts), ("faster", faster_argv, sutts)):
+        frames = sum(u["length"] for u in utts)
         reset_counts()
         t0 = time.perf_counter()
         lines = run_cli(argv)
@@ -2995,8 +3069,13 @@ def hold_routed_call(args, kw, kind, where):
         t["dedup_alone_ms"] = device_ms(lambda: dedup_select_rec(
             lanes.state_local, lanes.cost, K, S, R, sb, pay, num_incumbents=inc))
     t["fold_ms"] = t["ms"] - t["dedup_alone_ms"]
+    # The bound of what the fold replaced: K7's receive side laying these
+    # lanes out (the received buffer and the incumbents read, the lanes
+    # written).
+    t["recv_bound_ms"], _ = bound_ms(*k7_recv_work(src.recv, lanes))
     log(f"    the flat instance on the lanes laid out: {t['dedup_alone_ms']:.4f} ms; the fold "
-        f"{t['fold_ms']:+.4f} ms")
+        f"{t['fold_ms']:+.4f} ms; the receive side it replaced: bound "
+        f"{t['recv_bound_ms']:.5f} ms")
     return err, t
 
 
@@ -3470,14 +3549,17 @@ def h_reference(scores, lengths, refs):
 
 class ShardCell(NamedTuple):
     """A sharded workload: phases 12-13's ("bench": the unfolded bench
-    graph; rank 0 holds the shard kernels and the loop is timed) or phase
+    graph; rank 0 holds the shard kernels and the loop is timed), phase
     14's ("h": H, no eps iteration, rank 0 holding the emitting call with
     the local values; "h8":
-    its lattice decoder at lattice beam 8 on fewer frames), the decoders
+    its lattice decoder at lattice beam 8 on fewer frames) or phase 15's
+    ("hm": Hm, the routed eps closure at K 512; rank 0 holds the shard
+    kernels), the decoders
     it runs (by phase), its graph, the decoders' config, lattice keywords
     and route cap, the frames decoded, the JAX reference (``parts`` by P),
     the scores and lengths cut to the frames, and the utterances whose
-    lattices are held whole (the rest by their stats)."""
+    lattices are held whole (the rest by their stats, and on Hm by their
+    best path's labels too)."""
 
     name: str
     phases: dict  # kind -> phase number
@@ -3492,19 +3574,29 @@ class ShardCell(NamedTuple):
     held: int = B
 
 
-def shard_cells(workload):
-    """Phases 12-13's and phase 14's sharded workloads on ``workload``
-    (bench_workload()'s)."""
+def shard_cells(workload, names=("bench", "h", "h8", "hm")):
+    """Phases 12-13's, phase 14's and phase 15's sharded workloads on
+    ``workload`` (bench_workload()'s), those of ``names``."""
     graph, scores, lengths, refs = workload
-    sref, sc, sl = shard_reference(scores, lengths, refs)
-    href, (hsc, hsl), (hsc8, hsl8) = h_reference(scores, lengths, refs)
-    hg = h_graph()
-    return [ShardCell("bench", {"viterbi": 12, "lattice": 13}, graph, SHARD_CONFIG,
-                      dict(lattice_beam=SHARD_LATTICE_BEAM), None, SHARD_FRAMES, sref, sc, sl),
-            ShardCell("h", {"viterbi": 14, "lattice": 14}, hg, H_SHARD_CONFIG,
-                      H_LATTICE_KW, H_ROUTE_CAP, H_SHARD_FRAMES, href, hsc, hsl),
-            ShardCell("h8", {"lattice": 14}, hg, H_SHARD_CONFIG, H8_LATTICE_KW, H8_ROUTE_CAP,
-                      H8_FRAMES, href["lattice8"], hsc8, hsl8, H8_HELD)]
+    cells = []
+    if "bench" in names:
+        sref, sc, sl = shard_reference(scores, lengths, refs)
+        cells.append(ShardCell("bench", {"viterbi": 12, "lattice": 13}, graph, SHARD_CONFIG,
+                               dict(lattice_beam=SHARD_LATTICE_BEAM), None, SHARD_FRAMES, sref,
+                               sc, sl))
+    if "h" in names or "h8" in names:
+        href, (hsc, hsl), (hsc8, hsl8) = h_reference(scores, lengths, refs)
+        hg = h_graph()
+        cells += [ShardCell("h", {"viterbi": 14, "lattice": 14}, hg, H_SHARD_CONFIG,
+                            H_LATTICE_KW, H_ROUTE_CAP, H_SHARD_FRAMES, href, hsc, hsl),
+                  ShardCell("h8", {"lattice": 14}, hg, H_SHARD_CONFIG, H8_LATTICE_KW,
+                            H8_ROUTE_CAP, H8_FRAMES, href["lattice8"], hsc8, hsl8, H8_HELD)]
+    if "hm" in names:
+        hmref, (msc, msl) = hm_reference(scores, lengths, refs)
+        cells.append(ShardCell("hm", {"viterbi": 15, "lattice": 15}, hm_graph(), HM_CONFIG,
+                               HM_LATTICE_KW, HM_ROUTE_CAP, HM_SHARD_FRAMES, hmref, msc, msl,
+                               HM_HELD))
+    return [c for c in cells if c.name in names]
 
 
 def sharded_decoder(kind, cell, mesh):
@@ -3522,16 +3614,19 @@ def sharded_decoder(kind, cell, mesh):
 
 def shard_path(kind, cell, refs, P, rank):
     """Phase 12 (``kind`` "viterbi") or 13 ("lattice") on the bench
-    ``cell``, or phase 14's sharded decoders on H: the sharded decoder on a
+    ``cell``, phase 14's sharded decoders on H or phase 15's on Hm: the
+    sharded decoder on a
     ``("model",)`` mesh of the P ranks, counted (kernel launches,
     collectives and the frames replayed: under NCCL every frame but the
     sharded frame driver's first, over gloo none), checked against the JAX
     reference on this rank's whole result; then a profiled run for the
     device time.  On the bench cell, under NCCL the frame replayed from the
-    driver's graph against the host loop (``loop_walls``); then a decode as
-    the host loop (``driver.eager_frames``), whose calls of frame
-    SHARD_FRAME (and the chunk's first-frame mode) rank 0 holds against
-    their plain versions.  With no eps iterations (H) rank 0 holds the
+    driver's graph against the host loop (``loop_walls``).  With eps
+    iterations (the bench graph, Hm) rank 0 holds the calls of frame
+    SHARD_FRAME (and the chunk's first-frame mode) against their plain
+    versions: under NCCL those of a decode as the host loop
+    (``driver.eager_frames``), over gloo those of the counted decode, which
+    is the host loop.  With no eps iterations (H) rank 0 holds the
     emitting dedup call with the local values as its last step on a call
     of the counted decode (frame 0 under NCCL, the rest replayed; over
     gloo SHARD_FRAME, or the last frame of a shorter cut).  Returns (launch counts, the
@@ -3546,7 +3641,8 @@ def shard_path(kind, cell, refs, P, rank):
     sc, sl = cell.sc, cell.sl
     h = cell.name != "bench"
     beam8 = f" at lattice beam {cell.lattice_kw['lattice_beam']:g}" if cell.name == "h8" else ""
-    what = f"phase {cell.phases[kind]}{' ' + kind + ' on H' + beam8 if h else ''} (P={P})"
+    on = " on Hm" if cell.name == "hm" else " on H"
+    what = f"phase {cell.phases[kind]}{' ' + kind + on + beam8 if h else ''} (P={P})"
     want = cell.ref["parts"][str(P)]
     dec = sharded_decoder(kind, cell, make_mesh(P, "model", device_type="cuda"))
     sh = dec.cfg if kind == "viterbi" else dec.cfg.shard
@@ -3570,9 +3666,21 @@ def shard_path(kind, cell, refs, P, rank):
     # (frame 0 under NCCL: the driver's first frame, run before the
     # capture).
     want_calls = {"sharded_chunk": {0}}
+    # The holds' inputs with eps iterations: the calls of frame SHARD_FRAME
+    # and the chunk's first-frame mode.  K7's receive side runs for the
+    # emitting calls alone (once a frame), K8's local half once a chunk (the
+    # frames' own are K3's shard mode's last step).
+    routed = {shard_call_index(SHARD_FRAME, D), shard_call_index(SHARD_FRAME, D, True)}
+    capture = {"expand_filter": {SHARD_FRAME}, kname: routed, "route_send": routed,
+               "route_recv": {SHARD_FRAME}, "expand_eps_lanes": {D + SHARD_FRAME * D},
+               "eps_step_shard": {D + SHARD_FRAME * D}, "frame_tail_shard": {SHARD_FRAME},
+               "frame_start_shard": {0},
+               "global_cutoff_merge": {SHARD_FRAME}}
     if D == 0:
         want_calls[kname] = {shard_call_index(0 if graphed else min(SHARD_FRAME, cell.frames - 1),
                                               D)}
+    elif not graphed:  # the counted decode is the host loop: its calls are kept
+        want_calls.update(capture)
     t0 = time.perf_counter()
     with CallCapture(graph_shard, want_calls) as chunk:
         res = dec.decode(sc, sl)
@@ -3617,7 +3725,7 @@ def shard_path(kind, cell, refs, P, rank):
             check_utterance(what, b, u, res.best_path(b), res.num_active[:, b],
                             res.best_costs[:, b], res.overflows[:, b], res.saturations[:, b])
     else:
-        check_lattice_result(what, res, want[kind][:B], cell.held)
+        check_lattice_result(what, res, want[kind][:B], cell.held, labels=cell.name == "hm")
         links = pruned_links(res._prune(0))
         if list(links) != [want["links0"]["count"], want["links0"]["sha256"]]:
             raise AssertionError(f"{what}: utterance 0's pruned links {links} != the "
@@ -3661,8 +3769,9 @@ def shard_path(kind, cell, refs, P, rank):
         f"copies; profiled run, {t_prof:.3f} s), busy {out['busy']:.3f}; launches {n}; "
         f"collectives {coll} ({n_coll / frames:.2f} a frame, counted per replay); checks "
         f"{t_host:.2f} s; equal to the JAX reference on {B} utterances"
-        + ("" if kind == "viterbi" else f" ({min(cell.held, B)} whole, the rest by active "
-           f"states a frame) and utterance 0's {links[0]} pruned links"))
+        + ("" if kind == "viterbi" else f" ({min(cell.held, B)} whole, the rest by "
+           f"{'best-path labels and ' if cell.name == 'hm' else ''}active states a frame) and "
+           f"utterance 0's {links[0]} pruned links"))
     log("  device time a frame by activity: " + "; ".join(
         f"{name} {ms:.4f} ms ({cnt:.1f} calls)" for name, ms, cnt in out["top_activities_ms_per_frame"]))
     log(f"  a frame: {out['launches_per_frame']:.2f} launches of the port's kernels; "
@@ -3671,7 +3780,8 @@ def shard_path(kind, cell, refs, P, rank):
         + "; other activities, each under once a frame: " + ("; ".join(
             f"{name} ({cnt / frames:.2f} a frame)" for name, cnt in split["other"][2])
             or "none"))
-    if h:
+    out["host_s"] = t_host
+    if D == 0:
         errs, times = {}, {}
         if rank == 0:  # the other rank waits at the barrier: the card is this rank's alone
             key = next(k for k in chunk.kept if k[0] == kname)
@@ -3680,7 +3790,7 @@ def shard_path(kind, cell, refs, P, rank):
         del chunk, res, dec
         torch.cuda.empty_cache()
         return n, out, errs, times
-    if graphed:
+    if graphed and cell.name == "bench":
         # The chunk's frames replayed from the graph against the host loop, in
         # turns (the counted decode's chunk again: its first-frame mode, K8's
         # local half and frames); the graph's pool.
@@ -3692,29 +3802,24 @@ def shard_path(kind, cell, refs, P, rank):
         out["frame_loops"]["graph_pool_bytes"] = drv.pool_bytes
         log(f"  {what}: the captured frame's memory pool: {drv.pool_bytes[0]} bytes allocated, "
             f"{drv.pool_bytes[1]} reserved")
-    # The holds' inputs: a decode as the host loop (a captured frame's calls
-    # do not pass through the wrappers' Python), its calls of frame
-    # SHARD_FRAME and the chunk's first-frame mode kept.
-    routed = {shard_call_index(SHARD_FRAME, D), shard_call_index(SHARD_FRAME, D, True)}
-    # K7's receive side runs for the emitting calls alone (once a frame), K8's
-    # local half once a chunk (the frames' own are K3's shard mode's last step).
-    capture = {"expand_filter": {SHARD_FRAME}, kname: routed, "route_send": routed,
-               "route_recv": {SHARD_FRAME}, "expand_eps_lanes": {D + SHARD_FRAME * D},
-               "eps_step_shard": {D + SHARD_FRAME * D}, "frame_tail_shard": {SHARD_FRAME},
-               "frame_start_shard": {0},
-               "global_cutoff_merge": {SHARD_FRAME}}
-    dist.barrier()
-    t0 = time.perf_counter()
-    with driver.eager_frames(), CallCapture(graph_shard, capture) as cap:
-        dec.decode(sc, sl)
-    out["decode_loop_s"] = time.perf_counter() - t0
-    log(f"  {what}: decode {t_dec:.3f} s as the user calls it, {out['decode_loop_s']:.3f} s as "
-        "the host loop (its calls of frame SHARD_FRAME kept, cloned)")
+    kept = chunk.kept
+    if graphed:
+        # A decode as the host loop (a captured frame's calls do not pass
+        # through the wrappers' Python), its calls kept.
+        dist.barrier()
+        t0 = time.perf_counter()
+        with driver.eager_frames(), CallCapture(graph_shard, capture) as cap:
+            dec.decode(sc, sl)
+        out["decode_loop_s"] = time.perf_counter() - t0
+        kept = cap.kept
+        log(f"  {what}: decode {t_dec:.3f} s as the user calls it, {out['decode_loop_s']:.3f} s "
+            "as the host loop (its calls of frame SHARD_FRAME kept, cloned)")
     errs, times = {}, {}
     if rank == 0:  # the other rank waits at the barrier: the card is this rank's alone
-        errs, times = hold_shard_kernels(cap.kept, kind, D, f"P={P} {kind} shard 0")
+        tag = f"P={P} {kind}{' on Hm' if cell.name == 'hm' else ''} shard 0"
+        errs, times = hold_shard_kernels(kept, kind, D, tag)
     dist.barrier()
-    del cap, chunk, res, dec
+    del kept, chunk, res, dec
     torch.cuda.empty_cache()
     return n, out, errs, times
 
@@ -3883,56 +3988,288 @@ def h_batched_path(hg, scores, lengths, refs, href):
 
 
 def h_lattice_decode(what, hg, fc, kw, scores, lengths, chunk, want, held=B,
-                     device_prune=True):
-    """Phase 14's ``BatchedLatticeDecoder`` on H at ``fc`` and the lattice
-    keywords ``kw``, in chunks of ``chunk`` with ``device_prune``: counted
-    (K1, K2 and K3 once a frame, K3's first-frame mode and, with
-    ``device_prune``, K4 once a chunk), held against ``want`` (the reference's config and lattices:
-    phase 6's fields on the first ``held`` utterances, the stats on the
-    rest; no overflow or saturation), then profiled.  Returns (the
-    decoder, launches, numbers)."""
+                     device_prune=True, fold=True, key="lattice"):
+    """Phase 14's or 15's ``BatchedLatticeDecoder`` on ``hg`` at ``fc``
+    and the lattice keywords ``kw`` (``fold=False``: the device eps path),
+    in chunks of ``chunk`` with ``device_prune``: counted (K1 and K3 once
+    a frame, K2 once a frame and an eps iteration, K5 and the eps step once
+    an eps iteration, the start closure's included (once: the decoder
+    keeps the start state), K3's first-frame mode
+    and, with ``device_prune``, K4 once a chunk), held against ``want``
+    (the reference's config ``want[key + "_config"]`` and lattices
+    ``want[key]``: phase 6's fields on the first ``held`` utterances, the
+    stats on the rest; no overflow or saturation), then profiled.  Where the reference's sweep
+    fell back to the host prune (its survivor buffers overflow), the
+    decode must too: it then runs every frame twice, the second time
+    without K4.  Returns (the decoder, launches, numbers)."""
     from kaldi_decoder_tpu_torch import BatchedLatticeDecoder
 
-    ldec = BatchedLatticeDecoder(hg, fc, device="cuda", pad_time_to=chunk, **kw)
-    want_cfg = want["lattice_config"]
+    ldec = BatchedLatticeDecoder(hg, fc, device="cuda", pad_time_to=chunk, fold=fold, **kw)
+    want_cfg = want[key + "_config"]
     got_cfg = dict({f: getattr(ldec.cfg.frontier, f) for f in want_cfg
                     if hasattr(ldec.cfg.frontier, f)}, em_records=ldec.cfg.em_records,
                    eps_records=ldec.cfg.eps_records, lattice_beam=ldec.cfg.lattice_beam)
     if got_cfg != want_cfg:
         raise AssertionError(f"{what}: device config {got_cfg} != the reference's {want_cfg}")
+    want_fb = device_prune and any(u.get("sweep_fell_back", False) for u in want[key])
+    D = ldec.cfg.frontier.eps_iters
     reset_counts()
     t0 = time.perf_counter()
     res = ldec.decode(scores, lengths, chunk_frames=chunk, device_prune=device_prune)
     t_dec = time.perf_counter() - t0
     n = read_counts()
-    if device_prune and res.survivors is None:
-        raise AssertionError(f"{what}: the device sweep overflowed and the decode fell back")
+    fell_back = device_prune and res.survivors is None
+    if fell_back != want_fb:
+        raise AssertionError(f"{what}: the device sweep {'fell' if fell_back else 'did not fall'}"
+                             f" back to the host prune, the reference's "
+                             f"{'did' if want_fb else 'did not'}")
     frames = res.num_active.shape[0]
     chunks = -(-frames // chunk)
-    want_n = launch_counts(gather=0, k1=frames, k2=frames, k4=chunks if device_prune else 0,
-                           k5=0, k6=0, eps_step=0, k3=frames, k3_start=chunks)
+    passes = 2 if fell_back else 1
+    eps = passes * frames * D + D  # the start closure once: the decoder keeps it
+    want_n = launch_counts(gather=0, k1=passes * frames, k2=passes * frames + eps,
+                           k4=chunks if device_prune else 0, k5=eps, k6=0, eps_step=0,
+                           eps_dedup=eps, k3=passes * frames, k3_start=passes * chunks)
     if n != want_n:
         raise AssertionError(f"{what}: launch counts {n}, want {want_n}")
-    replays = read_replays(what, frames)
+    replays = read_replays(what, passes * frames)
     t1 = time.perf_counter()
-    arcs = check_lattice_result(what, res, want["lattice"], held)
+    arcs = check_lattice_result(what, res, want[key], held)
     if res.overflows.any() or res.saturations.any():
         raise AssertionError(f"{what}: overflow or saturated frames")
     t_host = time.perf_counter() - t1
     log(f"{what} (B={B}, K {ldec.cfg.frontier.frontier_size}, em_records "
-        f"{ldec.cfg.em_records}, lattice beam {ldec.cfg.lattice_beam}, eps_iters "
-        f"{ldec.cfg.frontier.eps_iters}, {frames} frames in chunks of {chunk}, device_prune "
-        f"{device_prune}): launches {n}, "
-        f"{replays} frames replayed from the captured graph; equal to the JAX reference on {B} "
-        f"utterances ({held} whole: lattices of {arcs} arcs in all, digests, best paths; the "
-        f"rest by active states a frame), no overflow or saturation; host lattices and checks "
-        f"{t_host:.2f} s")
+        f"{ldec.cfg.em_records}, eps_records {ldec.cfg.eps_records}, lattice beam "
+        f"{ldec.cfg.lattice_beam}, eps_iters {D}, {frames} frames in chunks of {chunk}, "
+        f"device_prune {device_prune}"
+        + (": the device sweep's survivor buffers overflowed and the decoder fell back to the "
+           "host prune, as the JAX reference's did, every frame run twice" if fell_back else "")
+        + f"): launches {n}, {replays} frames replayed from the captured graph; equal to the JAX "
+        f"reference on {B} utterances ({held} whole: lattices of {arcs} arcs in all, digests, "
+        f"best paths; the rest by active states a frame), no overflow or saturation; host "
+        f"lattices and checks {t_host:.2f} s")
     del res
     nums = h_decode_numbers(
         what, lambda: ldec.decode(scores, lengths, chunk_frames=chunk, device_prune=device_prune),
         frames, t_dec)
-    nums["lattice_arcs"] = arcs
+    nums.update(lattice_arcs=arcs, host_s=t_host, sweep_fell_back=fell_back, passes=passes)
     return ldec, n, nums
+
+
+def hm_graph():
+    """Phase 15's graph: Hm, k2's modified CTC topology over the bench's V
+    tokens."""
+    from kaldi_decoder_tpu_torch.fst import compile_fst, ctc_topo
+
+    return compile_fst(ctc_topo(V, modified=True))
+
+
+def hm_reference(scores, lengths, refs):
+    """Phase 15's JAX reference (``scripts/make_torch_hmod_reference.py``)
+    and the workload cut to its sharded frames, after checking that the
+    reference was made at this config, cut and workload."""
+    import numpy as np
+
+    with open(os.path.join(REPO, "tests", "data", "torch_port_hmod_ref.json")) as f:
+        ref = json.load(f)
+    w = ref["workload"]
+    want = dict(config=HM_CONFIG, lattice=HM_LATTICE_KW, route_cap=HM_ROUTE_CAP,
+                chunk_frames=CHUNK, stream_options=STREAM_OPTIONS)
+    if ref["requested"] != want or (w["V"], w["utterances"], w["shard_frames"], w["frames"],
+                                    w["stream_utterances"]) != (V, B, HM_SHARD_FRAMES, None,
+                                                                HM_STREAM_UTTS):
+        raise AssertionError("the Hm reference was made for another cut or config")
+    for kind in ("viterbi", "lattice", "lattice_unfolded"):
+        check_workload(ref["batched"][kind], scores, lengths, refs)
+    for sec in ref["streaming"].values():
+        check_workload(sec["utts"], scores, lengths, refs)
+    sc = np.ascontiguousarray(scores[:, :HM_SHARD_FRAMES])
+    sl = np.minimum(lengths, HM_SHARD_FRAMES).astype(np.int32)
+    for part in ref["parts"].values():
+        check_workload(part["viterbi"], sc, sl, refs)
+        check_workload(part["lattice"], sc, sl, refs)
+    return ref, (sc, sl)
+
+
+def hm_batched_path(hm, scores, lengths, refs, hmref):
+    """Phase 15's batched decoders on Hm (``hm_graph``), the bench's 16
+    utterances at full length, at ``HM_CONFIG``: ``BatchedViterbiDecoder``
+    (folded: eps_iters 0), counted (K1, K6 and K3 once a frame, K3's
+    first-frame mode once) and held on every utterance as phase 4 is;
+    ``BatchedLatticeDecoder`` folded and with ``fold=False`` (eps_iters
+    1) at ``HM_LATTICE_KW`` (lattice beam 8), chunks of CHUNK,
+    ``device_prune=True``, through :func:`h_lattice_decode` (the sweep's
+    fall-back to the host prune held against the reference's; HM_HELD
+    utterances whole, the rest by active states a frame, as phase 14
+    holds them: a best path's labels cost the host some 1.8 s an
+    utterance at lattice beam 8);
+    each profiled.  Then, on the unfolded decoder's own frames, K5 (at its
+    own and every cluster size), K2's eps call and that call with the eps
+    step (the only cluster size its 1,536 lanes allow) at K2_EPS_FRAMES,
+    and K4's eps instance on its first chunk at its sweep config, held
+    against their plain versions and timed.  Returns ({decoder:
+    launches}, {decoder: numbers}, kernel errors, kernel times)."""
+    import numpy as np
+    import torch
+
+    from kaldi_decoder_tpu_torch import BatchedViterbiDecoder, config_for_graph
+
+    fc = config_for_graph(hm, **HM_CONFIG)
+    counts, nums, errs, times = {}, {}, {}, {}
+    what = "phase 15, BatchedViterbiDecoder on Hm"
+    vdec = BatchedViterbiDecoder(hm, fc, device="cuda")
+    want_cfg = hmref["batched"]["viterbi_config"]
+    if {f: getattr(vdec.cfg, f) for f in want_cfg} != want_cfg:
+        raise AssertionError(f"{what}: device config {vdec.cfg} != the reference's {want_cfg}")
+    reset_counts()
+    t0 = time.perf_counter()
+    res = vdec.decode(scores, lengths)
+    t_dec = time.perf_counter() - t0
+    n = read_counts()
+    frames = res.bp_emit.shape[0]
+    want_n = launch_counts(gather=0, k1=frames, k2=0, k4=0, k5=0, k6=frames, eps_step=0,
+                           k3=frames, k3_start=1)
+    if n != want_n:
+        raise AssertionError(f"{what}: launch counts {n}, want {want_n}")
+    replays = read_replays(what, frames)
+    t1 = time.perf_counter()
+    for b, u in enumerate(hmref["batched"]["viterbi"]):
+        check_utterance(what, b, u, res.best_path(b), res.num_active[:, b],
+                        res.best_costs[:, b], res.overflows[:, b], res.saturations[:, b])
+    if res.overflows.any() or res.saturations.any():
+        raise AssertionError(f"{what}: overflow or saturated frames")
+    t_host = time.perf_counter() - t1
+    log(f"{what} (B={B}, K {vdec.cfg.frontier_size}, {vdec.cfg.num_candidates} lanes a row, "
+        f"folded: {vdec._dev_graph.num_emitting_arcs} arcs, eps_iters {vdec.cfg.eps_iters}): "
+        f"launches {n}, {replays} frames replayed from the captured graph; equal to the JAX "
+        f"reference on {B} utterances, no overflow or saturation; host 1-best (backtrace, fold "
+        f"expansion, RemoveEpsLocal) and checks {t_host:.2f} s")
+    counts["hm_viterbi"] = n
+    nums["hm_viterbi"] = h_decode_numbers(what, lambda: vdec.decode(scores, lengths), frames,
+                                          t_dec)
+    nums["hm_viterbi"]["host_s"] = t_host
+    del vdec, res
+    torch.cuda.empty_cache()
+
+    for key, fold in (("lattice", True), ("lattice_unfolded", False)):
+        ldec, counts["hm_" + key], nums["hm_" + key] = h_lattice_decode(
+            f"phase 15, BatchedLatticeDecoder{'' if fold else '(fold=False)'} on Hm", hm, fc,
+            HM_LATTICE_KW, scores, lengths, CHUNK, hmref["batched"], HM_HELD, fold=fold, key=key)
+        if fold:
+            del ldec
+            torch.cuda.empty_cache()
+    scores_tm = torch.from_numpy(np.ascontiguousarray(scores.transpose(1, 0, 2))).cuda()
+    what = "the unfolded Hm lattice"
+    errs["k2"], times["k2_eps"], eps = check_k2_eps(ldec, scores_tm, what)
+    times["k5"] = {t: e["k5"] for t, e in eps.items()}
+    times["eps_step"] = {t: e["eps_step"] for t, e in eps.items()}
+    errs["k4"], times["k4_eps"] = check_k4_eps(ldec, scores_tm, lengths,
+                                               "the unfolded Hm lattice decode")
+    del ldec, scores_tm
+    torch.cuda.empty_cache()
+    return counts, nums, errs, times
+
+
+def stream_numbers(what, dec, logp):
+    """A streaming decoder's numbers on one utterance (``logp``) as phase
+    15 runs it (:func:`stream_run`): wall ms a frame of one run, the card
+    synchronised around it, and :func:`h_decode_numbers`' profiled run."""
+    import torch
+
+    run = stream_run(dec, logp)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    return h_decode_numbers(what, run, len(logp), time.perf_counter() - t0)
+
+
+def hm_streaming_path(hm, h, scores, hmref):
+    """Phase 15's streaming decoders, B=1, on the reference's
+    HM_STREAM_UTTS utterances, FRAMES_PER_CALL frames an
+    ``advance_decoding``: ``FasterDecoder`` with phase 5's options on Hm
+    and on H (``h``: its derived arc budget, rem_budget 3072, truncates
+    the expansion on nearly every frame, as the JAX package's does: a kept
+    fault, ROADMAP Queue 3), held as phase 5 holds its decoder;
+    ``LatticeFasterDecoder`` with phase 7's config on Hm, held as phase 7
+    holds its decoder (its derived eps_records, 380, is below the 499 eps
+    lanes of a row, so its records overflow on most frames, as the JAX
+    package's do: the other kept fault); each counted, then measured on
+    utterance 0 (:func:`stream_numbers`).  The overflow counts must equal
+    the reference's.  Then K1, K6, K5 and K6's eps call with the eps step
+    on the Hm ``FasterDecoder``'s frame STREAM_FRAME and its start
+    closure, and K2's emitting and eps calls, K5 and K2's eps call with the
+    eps step on the ``LatticeFasterDecoder``'s, held against their plain
+    versions and timed.  Returns ({decoder: launches}, {decoder: numbers},
+    kernel errors, kernel times)."""
+    import numpy as np
+    import torch
+
+    from kaldi_decoder_tpu_torch import FasterDecoder, FasterDecoderOptions
+
+    sec = hmref["streaming"]
+    counts, nums, errs, times = {}, {}, {}, {}
+    scores_tm = torch.from_numpy(np.ascontiguousarray(
+        scores[:HM_STREAM_UTTS].transpose(1, 0, 2))).cuda()
+    L0 = sec["faster"]["utts"][0]["length"]
+    for key, graph, name in (("faster", hm, "Hm"), ("faster_h", h, "H")):
+        what = f"phase 15, FasterDecoder on {name}"
+        fd = FasterDecoder(graph, FasterDecoderOptions(**sec[key]["options"]), device="cuda")
+        counts[f"hm_stream_{key}"], _ = streaming_path(fd, scores, {"streaming": sec[key]}, what)
+        ovf = [u["overflow_frames"] for u in sec[key]["utts"]]
+        if key == "faster_h":
+            log(f"  {what}: rem_budget {fd._cfg.rem_budget}: {ovf} of "
+                f"{[u['length'] for u in sec[key]['utts']]} frames overflow the arc budget, as "
+                "in the JAX reference (a kept fault of the reference, ROADMAP Queue 3)")
+        nums[f"hm_stream_{key}"] = stream_numbers(what + ", utterance 0", fd, scores[0, :L0])
+        nums[f"hm_stream_{key}"]["overflow_frames"] = ovf
+        if key == "faster":
+            c = streaming_k6_calls(fd, scores_tm)
+            errs.update(k1=c["k1_err"], k6=c["k6_err"])
+            times.update(k5_stream=c["k5"], eps_step_stream=c["eps_step"],
+                         k5_stream_init=c["k5_init"], eps_step_stream_init=c["eps_step_init"])
+        del fd
+    what = "phase 15, LatticeFasterDecoder on Hm"
+    lref = {"faster": sec["lattice_faster"]}
+    out = streaming_lattice_path(hm, scores, lref, kinds=("faster",), measure_loop=False)
+    counts["hm_stream_lattice_faster"] = out["faster"][0]
+    ovf = [u["overflow_frames"] for u in sec["lattice_faster"]["utts"]]
+    ld = streaming_lattice_decoder(hm, lref)
+    log(f"  {what}: eps_records {ld._dev_cfg.eps_records} for "
+        f"{ld._dev_cfg.frontier.eps_rem_budget} eps lanes a row: {ovf} of "
+        f"{[u['length'] for u in sec['lattice_faster']['utts']]} frames overflow, as in the JAX "
+        "reference (a kept fault of the reference, ROADMAP Queue 3)")
+    nums["hm_stream_lattice_faster"] = stream_numbers(what + ", utterance 0", ld, scores[0, :L0])
+    nums["hm_stream_lattice_faster"]["overflow_frames"] = ovf
+    errs["k2"], k2s = check_streaming_k2(ld, scores_tm)
+    times.update(k2_stream=k2s)
+    del ld, scores_tm
+    torch.cuda.empty_cache()
+    return counts, nums, errs, times
+
+
+def hm_phase(workload):
+    """Phase 15's batched and streaming decoders on Hm, in this process
+    (:func:`hm_batched_path`, :func:`hm_streaming_path`; its sharded
+    decoders run with phases 11-13's ranks).  Returns ({decoder:
+    launches}, {decoder: numbers}, kernel errors, kernel times, seconds)."""
+    import torch
+
+    _, scores, lengths, refs = workload
+    t0 = time.perf_counter()
+    hm = hm_graph()
+    hmref, _ = hm_reference(scores, lengths, refs)
+    counts, nums, errs, times = hm_batched_path(hm, scores, lengths, refs, hmref)
+    c, n, e, t = hm_streaming_path(hm, h_graph(), scores, hmref)
+    counts.update(c)
+    nums.update(n)
+    times.update(t)
+    errs = {k: max(errs.get(k, 0.0), e.get(k, 0.0)) for k in {*errs, *e}}
+    secs = time.perf_counter() - t0
+    log(f"phase 15, the batched and streaming decoders on Hm ({hm.num_states} states, "
+        f"{hm.num_emitting_arcs} emitting and {hm.num_eps_arcs} eps arcs): {secs:.1f} s")
+    torch.cuda.empty_cache()
+    return counts, nums, errs, times, secs
 
 
 def hold_rank_kernels(dec, scores, lengths, rows, tag, frames=K1_FRAMES + K2_FRAMES,
@@ -4045,12 +4382,13 @@ def data_parallel_path(graph, scores, lengths, refs, ref, P, rank):
 
 
 def parallel_phases(P, rank, workload=None):
-    """Phases 11-13 and phase 14's sharded decoders on this rank of a group
-    of P ranks (the default group, already made), on ``workload``
+    """Phases 11-13 and phases 14-15's sharded decoders on this rank of a
+    group of P ranks (the default group, already made), on ``workload``
     (bench_workload()'s, rebuilt when not given).  Returns {phase:
     (launches, numbers, kernel errors, kernel times)}: "data_parallel",
     "shard_viterbi" and "shard_lattice" (12-13), "shard_h_viterbi",
-    "shard_h_lattice" and "shard_h8_lattice" (14)."""
+    "shard_h_lattice" and "shard_h8_lattice" (14), "shard_hm_viterbi" and
+    "shard_hm_lattice" (15)."""
     workload = workload or bench_workload()
     graph, scores, lengths, refs = workload
     ref = load_reference("torch_port_bench_ref.json", scores, lengths, refs)
@@ -4064,7 +4402,8 @@ def parallel_phases(P, rank, workload=None):
             t0 = time.perf_counter()
             name = "shard_" + ("" if cell.name == "bench" else cell.name + "_") + kind
             out[name] = shard_path(kind, cell, refs, P, rank)
-            log(f"phase {cell.phases[kind]} ({name}, P={P}): {time.perf_counter() - t0:.1f} s")
+            out[name][1]["phase_s"] = time.perf_counter() - t0
+            log(f"phase {cell.phases[kind]} ({name}, P={P}): {out[name][1]['phase_s']:.1f} s")
     return out
 
 
@@ -4103,7 +4442,8 @@ def parallel_rank(rank, port, queue):
 
 
 def run_parallel_ranks():
-    """Phases 11-13 at P = 2: two spawned ranks on ``cuda:0`` over gloo.
+    """Phases 11-13 and 14-15's sharded decoders at P = 2: two spawned
+    ranks on ``cuda:0`` over gloo.
     Returns each rank's results; raises if a rank fails or time runs out,
     and ends both processes either way."""
     import multiprocessing as mp
@@ -4140,7 +4480,8 @@ def run_parallel_ranks():
 
 
 def run_parallel_nccl(workload):
-    """Phases 11-13 at P = 1 in this process, over NCCL, on ``workload``."""
+    """Phases 11-13 and 14-15's sharded decoders at P = 1 in this process,
+    over NCCL, on ``workload``."""
     import torch
     import torch.distributed as dist
 
@@ -4355,18 +4696,24 @@ def main():
     del hg
     torch.cuda.empty_cache()
 
-    # 11-13 and 14's sharded decoders. Data parallel and the sharded
+    # 15, the batched and streaming decoders: decoding with Hm (its sharded
+    # decoders run with phases 11-13's ranks).
+    mn, mnums, merr, mt, m_s = hm_phase((graph, scores, lengths, refs))
+
+    # 11-13 and 14-15's sharded decoders. Data parallel and the sharded
     # decoders: P = 1 in this process over NCCL, then P = 2 in two spawned
     # ranks on cuda:0 over gloo.
     t0 = time.perf_counter()
     par = {1: [run_parallel_nccl((graph, scores, lengths, refs))]}
     torch.cuda.empty_cache()
     par[2] = run_parallel_ranks()
-    log(f"phases 11-13 and 14's sharded decoders: {time.perf_counter() - t0:.1f} s")
+    log(f"phases 11-13 and 14-15's sharded decoders: {time.perf_counter() - t0:.1f} s")
+    s15 = sum(par[P][0][ph][1]["phase_s"] for P in par for ph in par[P][0] if "_hm_" in ph)
+    log(f"phase 15: {m_s + s15:.1f} s (its sharded decoders {s15:.1f} s)")
 
     later = {"lattice_unfolded": un, "faster_lattice": fn, "simple_lattice": sln,
              "cli_lattice": cn["lattice"][0], "cli_faster": cn["faster"][0], "encoder": en,
-             "recall": rn, **hn}
+             "recall": rn, **hn, **mn}
     for P, ranks in par.items():  # a P = 2 path's launches are its two ranks' sum
         for phase in ranks[0]:
             later[f"{phase}_p{P}"] = {k: sum(r[phase][0][k] for r in ranks)
@@ -4389,12 +4736,14 @@ def main():
 
     def shard_entry(name, source, replaces, key, by, **extra):
         """A kernel of the sharded phases alone: its fields from P = 1's
-        phase 12 (its emitting call), the other calls beside them."""
+        phase 12 (its emitting call), the other calls beside them, phase
+        15's on Hm too."""
         first = (1, "shard_viterbi", "")
         t = par[1][0]["shard_viterbi"][3][by]
         return entry(name, source, replaces, key, t, sk_err[by],
                      **shard_times(by, "shard_viterbi", but=first),
-                     **shard_times(by, "shard_lattice"), **extra)
+                     **shard_times(by, "shard_lattice"), **shard_times(by, "shard_hm_viterbi"),
+                     **shard_times(by, "shard_hm_lattice"), **extra)
     by_path = {
         "gather": {"lattice": n3["gather"], "viterbi": vn["gather"], "streaming": sn["gather"]},
         "k1": {"lattice": n3["k1"], "viterbi": vn["k1"], "streaming": sn["k1"]},
@@ -4427,11 +4776,21 @@ def main():
     fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "share_of_bound",
               "wrapper_ms", "plain_wrapper_ms")
 
-    def h_times(key, name):
-        """Phase 14's holds of a kernel at the batched H shapes, by field."""
-        return {f"{f}_{name}": ht[key][f]
-                for f in fields + ("clusters", "ms_by_clusters", "most_records")
-                if f in ht[key]}
+    def h_times(key, name, held=None):
+        """Phase 14's (or ``held``: phase 15's) holds of a kernel at the
+        batched H (Hm) shapes, by field."""
+        t = (ht if held is None else held)[key]
+        return {f"{f}_{name}": t[f]
+                for f in fields + ("clusters", "ms_by_clusters", "most_records", "ms_by_blocks",
+                                   "share_by_blocks", "dedup_alone_ms", "step_ms",
+                                   "step_bound_ms")
+                if f in t}
+
+    def hm_times(key, name):
+        """Phase 15's holds of ``key`` by frame (K2_EPS_FRAMES) at the
+        unfolded Hm lattice's shapes."""
+        return {k: v for t in K2_EPS_FRAMES for k, v in h_times(t, f"{name}_frame{t}",
+                                                                 mt[key]).items()}
 
     def entry(name, source, replaces, key, t, err, **extra):
         return dict(name=name, route="cuda", source=f"kaldi_decoder_tpu_torch/csrc/{source}",
@@ -4465,7 +4824,7 @@ def main():
               "beam filter)",
               "expand.cu", "kaldi_decoder_tpu/decoders/frontier.py:266", "k1", k1,
               max(k1_err, k6["k1_err"], sk["k1_err"], k1r_err, enc["kernel_errs"]["k1"],
-                  sk_err["k1"], herr["k1"]),
+                  sk_err["k1"], herr["k1"], merr["k1"]),
               **h_times("k1", "h_lattice"), **h_times("k1_src_slot", "h_viterbi"),
               **shard_times("k1", "data_parallel"), **shard_times("k1", "shard_viterbi"),
               **shard_times("k1", "shard_lattice"),
@@ -4479,8 +4838,11 @@ def main():
               "eps calls)", "dedup_rec.cu",
               "kaldi_decoder_tpu/ops/segment.py:177", "k2", k2,
               max(k2_err, k2e_err, k2s_err, k2r_err, enc["kernel_errs"]["k2"], sk_err["k2"],
-                  sk_err.get("k2_eps", 0.0), herr["k2"]),
+                  sk_err.get("k2_eps", 0.0), herr["k2"], merr["k2"]),
               **h_times("k2", "h_lattice"), **h_times("k2_beam8", "h8_lattice"),
+              **hm_times("k2_eps", "hm_eps"), **h_times("em", "hm_streaming", mt["k2_stream"]),
+              **h_times("eps", "hm_streaming_eps", mt["k2_stream"]),
+              **shard_times("k2", "shard_hm_lattice"),
               frame=K2_FRAMES[0], steps_us=k2["steps_us"], **shard_times("k2", "data_parallel"),
               **shard_times("k2", "shard_lattice"),
               **{f"{f}_frame{t}": k2_by_frame[t][f] for t in K2_FRAMES[1:]
@@ -4508,8 +4870,10 @@ def main():
                            "wrapper_ms", "plain_wrapper_ms", "clusters", "ms_by_clusters")}),
         entry("K4 sweep_chunk (backward extra-cost sweep; with eps records, the eps Bellman)",
               "sweep.cu", "kaldi_decoder_tpu/decoders/sweep.py:141", "k4", k4,
-              max(k4_err, k4e_err, enc["kernel_errs"]["k4"], sk_err["k4"], herr["k4"]),
+              max(k4_err, k4e_err, enc["kernel_errs"]["k4"], sk_err["k4"], herr["k4"],
+                  merr["k4"]),
               **h_times("k4", "h_lattice"), **h_times("k4_beam8", "h8_lattice"),
+              **h_times("k4_eps", "hm_eps", mt),
               **shard_times("k4", "data_parallel"),
               **{f"{f}_eps": k4e[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
                                               "share_of_bound", "wrapper_ms",
@@ -4517,9 +4881,9 @@ def main():
         entry("K6 dedup_select (Viterbi dedup by state + top-K + winning lane)", "dedup.cu",
               "kaldi_decoder_tpu/ops/segment.py:160", "k6", k6["k6"],
               max(k6["k6_err"], sk["k6_err"], sk_err["k6"], sk_err.get("k6_eps", 0.0),
-                  herr["k6"]),
+                  herr["k6"], merr["k6"]),
               **h_times("k6", "h_viterbi"),
-              **shard_times("k6", "shard_viterbi"),
+              **shard_times("k6", "shard_viterbi"), **shard_times("k6", "shard_hm_viterbi"),
               ms_eps=k6["eps"]["ms"], plain_ms_eps=k6["eps"]["plain_ms"],
               bound_ms_eps=k6["eps"]["bound_ms"],
               **{f"{f}{sfx}": t[f] for sfx, t in (
@@ -4539,7 +4903,11 @@ def main():
               **{f"{f}_{key}": t[f] for key, t in eps_timed("k5").items()
                  for f in ("ms", "plain_ms", "bound_ms", "bound_by", "share_of_bound",
                            "wrapper_ms", "plain_wrapper_ms")},
-              **shard_times("k5", "shard_viterbi"), **shard_times("k5", "shard_lattice")),
+              **shard_times("k5", "shard_viterbi"), **shard_times("k5", "shard_lattice"),
+              **hm_times("k5", "hm"), **h_times("k5_stream", "hm_streaming", mt),
+              **h_times("k5_stream_init", "hm_streaming_init", mt),
+              **h_times("k5", "hm_streaming_lattice", mt["k2_stream"]),
+              **shard_times("k5", "shard_hm_viterbi"), **shard_times("k5", "shard_hm_lattice")),
         entry("eps step (an eps iteration's closing step, the last step of its dedup call, "
               "K6 or K2's eps call: backpointers or records, changed, the running overflow and "
               "saturation, ran and the batch's go; timed as the whole call, dedup_alone_ms the "
@@ -4553,7 +4921,10 @@ def main():
               **{f"{f}_{key}": t[f] for key, t in eps_timed("eps_step").items()
                  for f in ("ms", "plain_ms", "bound_ms", "bound_by", "share_of_bound",
                            "wrapper_ms", "plain_wrapper_ms", "dedup_alone_ms", "step_ms",
-                           "step_bound_ms")}),
+                           "step_bound_ms")},
+              **hm_times("eps_step", "hm"), **h_times("eps_step_stream", "hm_streaming", mt),
+              **h_times("eps_step_stream_init", "hm_streaming_init", mt),
+              **h_times("eps_step", "hm_streaming_lattice", mt["k2_stream"])),
         shard_entry("K7 route_send (the shard route's send side: the beam filter and payload "
                     "offsets, the stable (owner, state, cost) order, the local dedup or slack "
                     "keep, the within-owner places, the (P, B, cap, 4) send buffer, overflow; "
@@ -4570,10 +4941,12 @@ def main():
                     "kaldi_decoder_tpu/parallel/graph_shard.py:313", "k7_recv", "k7_recv",
                     **{f"{f}_eps_{ph}_p{P}": par[P][0][ph][3][k][f]
                        for P in par for ph, k in (("shard_viterbi", "k6_eps"),
-                                                  ("shard_lattice", "k2_eps"))
+                                                  ("shard_lattice", "k2_eps"),
+                                                  ("shard_hm_viterbi", "k6_eps"),
+                                                  ("shard_hm_lattice", "k2_eps"))
                        if k in par[P][0][ph][3]
                        for f in ("ms", "plain_ms", "bound_ms", "bound_by", "share_of_bound",
-                                 "dedup_alone_ms", "fold_ms")}),
+                                 "dedup_alone_ms", "fold_ms", "recv_bound_ms")}),
         shard_entry("eps step, shard mode (a sharded eps iteration's closing step: backpointers "
                     "or links, the batch-wide stop, the carry, the local changed, the frame's "
                     "local values; a cluster of blocks a row)", "eps.cu",
@@ -4606,7 +4979,8 @@ def main():
                     **{f: par[1][0]["shard_viterbi"][3]["k3_shard"][f]
                        for f in ("clusters", "ms_by_clusters", "share_by_clusters")},
                     **{f"{f}_{ph}_p{P}": par[P][0][ph][3]["k3_shard"][f]
-                       for P in par for ph in ("shard_viterbi", "shard_lattice")
+                       for P in par for ph in ("shard_viterbi", "shard_lattice",
+                                               "shard_hm_viterbi", "shard_hm_lattice")
                        for f in ("alone_ms", "k8_local_ms", "fold_ms")}),
         shard_entry("K3 frame_start_shard, the shard mode's first-frame mode (once a chunk: the "
                     "chunk's start state, row lengths and scores row 0 into the sharded frame "
@@ -4619,7 +4993,8 @@ def main():
                     **{f: par[1][0]["shard_viterbi"][3]["k3_start_shard"][f]
                        for f in ("clusters", "ms_by_clusters", "share_by_clusters")},
                     **{f"{f}_{ph}_p{P}": par[P][0][ph][3]["k3_start_shard"][f]
-                       for P in par for ph in ("shard_viterbi", "shard_lattice")
+                       for P in par for ph in ("shard_viterbi", "shard_lattice",
+                                               "shard_hm_viterbi", "shard_hm_lattice")
                        for f in ("alone_ms", "k8_local_ms", "fold_ms")}),
         shard_entry("K8 global_cutoff_local (the sharded GetCutoff's local half: each row's "
                     "best cost, finite count and cost prefix, before the collectives; off the "

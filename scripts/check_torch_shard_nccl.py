@@ -10,7 +10,8 @@ takes the sharded workload of ``--graph`` (``chip_smoke.shard_cells``:
 "bench", phases 12-13's unfolded bench graph at ``SHARD_CONFIG``; "h",
 phase 14's CTC topology H at ``H_SHARD_CONFIG``, where the sharded frame
 has no eps iteration and its emitting dedup call writes the frame's local
-values as its last step), cut to its
+values as its last step; "hmod", phase 15's modified CTC topology Hm at
+``HM_CONFIG``, the routed eps closure at K 512), cut to its
 frames, and, for ``ShardedViterbiDecoder`` and ``ShardedLatticeDecoder``
 (``--kinds``) on a ``("model",)`` mesh of the P ranks:
 
@@ -23,7 +24,8 @@ frames, and, for ``ShardedViterbiDecoder`` and ``ShardedLatticeDecoder``
   where the cell's JAX reference has a part of P shards (P = 1 and 2),
   the replayed decode must also equal the JAX sharded decoders there, as
   in the smoke (labels, best-path cost bits, ``num_active``, the flags;
-  lattices and utterance 0's pruned links);
+  lattices, held whole on the cell's utterances as the smoke holds them,
+  and utterance 0's pruned links);
 - times the driver's chunk alone (the first decode's
   ``graph_shard.sharded_chunk`` call again) replayed and as the loop, in
   turns (graph, loop, loop, graph): wall ms a frame, host clock around a
@@ -36,7 +38,7 @@ step of it.  Exits non-zero if a check fails on any rank, or if a rank
 has not ended ``TEARDOWN_S`` seconds after the last results: such a rank
 is ended and named with the last step it reported.
 
-    python3 scripts/check_torch_shard_nccl.py [--ranks P] [--graph bench|h] \
+    python3 scripts/check_torch_shard_nccl.py [--ranks P] [--graph bench|h|hmod] \
         [--teardown shutdown|close|destroy|none] [--tag T]
 """
 
@@ -60,6 +62,8 @@ TEARDOWN_S = 60  # seconds, after the last results, for every rank to end
 # then ``destroy_process_group()`` alone, the decoders' drivers kept; or no
 # call (the rank function returns and the process exits).
 TEARDOWNS = ("shutdown", "close", "destroy", "none")
+# --graph: the sharded cell of chip_smoke.shard_cells it names.
+CELLS = {"bench": "bench", "h": "h", "hmod": "hm"}
 ENDED = "ended its teardown"
 FIELDS = {
     "viterbi": ("bp_init", "bp_emit", "bp_eps", "frontier_states", "frontier_costs",
@@ -131,7 +135,8 @@ def rank_run(rank, P, port, queue, kinds=("viterbi", "lattice"), teardown="shutd
         initialize_distributed(backend="nccl", init_method=f"tcp://localhost:{port}",
                                rank=rank, world_size=P)
         cs = smoke()
-        cell = next(c for c in cs.shard_cells(cs.bench_workload()) if c.name == graph_name)
+        name = CELLS[graph_name]
+        cell = cs.shard_cells(cs.bench_workload(), (name,))[0]
         sc, sl = cell.sc, cell.sl
         want = cell.ref["parts"].get(str(P))
         mesh = make_mesh(P, "model", device_type="cuda")
@@ -156,16 +161,14 @@ def rank_run(rank, P, port, queue, kinds=("viterbi", "lattice"), teardown="shutd
             if want is not None:  # raises where the replayed decode differs from JAX
                 res = graph_run[0]
                 what = f"[rank {rank}] P={P} {kind} over NCCL"
-                for b, u in enumerate(want[kind][:cs.B]):
-                    if kind == "viterbi":
+                if kind == "viterbi":
+                    for b, u in enumerate(want[kind][:cs.B]):
                         cs.check_utterance(what, b, u, res.best_path(b), res.num_active[:, b],
                                            res.best_costs[:, b], res.overflows[:, b],
                                            res.saturations[:, b])
-                    else:
-                        cs.check_lattice_utterance(what, b, u, res.raw_lattice(b),
-                                                   res.best_path(b), res.stats(b),
-                                                   res.reached_final(b),
-                                                   res.final_relative_cost(b))
+                else:
+                    cs.check_lattice_result(what, res, want[kind][:cs.B], cell.held,
+                                            labels=name == "hm")
                 if kind == "lattice" and list(cs.pruned_links(res._prune(0))) != [
                         want["links0"]["count"], want["links0"]["sha256"]]:
                     raise AssertionError(f"{what}: utterance 0's pruned links differ")
@@ -224,8 +227,9 @@ def main():
                     help="the sharded decoders to run, comma-separated")
     ap.add_argument("--teardown", choices=TEARDOWNS, default="shutdown",
                     help="how each rank ends its group after its results")
-    ap.add_argument("--graph", choices=("bench", "h"), default="bench",
-                    help="the sharded workload: the bench graph (phases 12-13) or H (phase 14)")
+    ap.add_argument("--graph", choices=tuple(CELLS), default="bench",
+                    help="the sharded workload: the bench graph (phases 12-13), H (phase 14) "
+                    "or Hm, the modified CTC topology (phase 15)")
     args = ap.parse_args()
     sys.path.insert(0, REPO)
     import multiprocessing as mp

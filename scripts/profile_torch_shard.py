@@ -48,7 +48,12 @@ local values as its last step where the tree folds them) beside the
 same call without them and, on a tree before the fold, the eps step's
 reduce mode launch that wrote them, and the chunk's start as the tree
 runs it (the first-frame mode, with K8's local half as its last step
-where the tree folds it, else beside K8's local half's launch).  The
+where the tree folds it, else beside K8's local half's launch).  With
+``--graph hmod`` it measures phase 15's sharded decoders at P = 1 alone
+(Hm, ``ctc_topo(500, modified=True)``, at ``HM_CONFIG``, ``HM_ROUTE_CAP``
+and ``HM_LATTICE_KW`` on the first ``HM_SHARD_FRAMES`` frames: the routed
+eps closure at K 512), rank 0 timing the shard-mode kernels as on the
+bench graph.  The
 decodes' results are not checked here (``chip_smoke.py`` does that).
 Prints one JSON line and writes it to
 ``chiprun_out/profile_shard_<tag>.json``.  To compare two trees on one
@@ -345,9 +350,10 @@ def time_eps_call(cs, kept, kind, eps_iters):
 
 def measure(tree, P, rank, reps, which="bench"):
     """Both sharded decoders on this rank of a group of P (the default
-    group, made), on the bench graph or (``which`` "h") on phase 14's H,
-    and on rank 0 the shard-mode kernels (on H the emitting call and the
-    chunk's start too) on frame SHARD_FRAME's inputs: {kind: numbers}."""
+    group, made), on the bench graph, on phase 14's H (``which`` "h") or
+    on phase 15's Hm ("hmod"), and on rank 0 the shard-mode kernels (on H
+    the emitting call and the chunk's start too) on frame SHARD_FRAME's
+    inputs: {kind: numbers}."""
     import contextlib
 
     import torch
@@ -371,6 +377,12 @@ def measure(tree, P, rank, reps, which="bench"):
         fc = config_for_graph(graph, **cs.H_SHARD_CONFIG)
         kw = dict(route_cap=cs.H_ROUTE_CAP, pad_time_to=cs.H_SHARD_FRAMES)
         lkw = dict(cs.H_LATTICE_KW)
+    elif which == "hmod":
+        _, (sc, sl) = cs.hm_reference(scores, lengths, refs)
+        graph = cs.hm_graph()
+        fc = config_for_graph(graph, **cs.HM_CONFIG)
+        kw = dict(route_cap=cs.HM_ROUTE_CAP, pad_time_to=cs.HM_SHARD_FRAMES)
+        lkw = dict(cs.HM_LATTICE_KW)
     else:
         _, sc, sl = cs.shard_reference(scores, lengths, refs)
         fc = config_for_graph(graph, **cs.SHARD_CONFIG)
@@ -530,8 +542,9 @@ def main():
                     help="rounds of timed decodes (graph, loop, loop, graph)")
     ap.add_argument("--runs", action="store_true",
                     help="record K7's (owner, state) run lengths at P = 1 instead of timing")
-    ap.add_argument("--graph", choices=("bench", "h"), default="bench",
-                    help="phases 12-13's unfolded bench graph, or phase 14's H (P = 1 alone)")
+    ap.add_argument("--graph", choices=("bench", "h", "hmod"), default="bench",
+                    help="phases 12-13's unfolded bench graph, phase 14's H or phase 15's Hm "
+                    "(P = 1 alone)")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
